@@ -1,0 +1,97 @@
+// Global softmax attention over packed qkv rows, shared by kernel A
+// (block_fused.cu) and the global mode of window_attention
+// (window_attention.cu).
+//
+//   out[b, i, h] = rnd(sum_j rnd(softmax_j(rnd(q_i * inv_scale) . k_j)) v_j)
+//
+// for qkv (B, N, 3C) laid out [q | k | v], each C = H x d wide. This is the
+// rounding of block_fused.py:97-102 and of window_attention.py's
+// _attend_terms: q scaled in the working dtype, logits and softmax in
+// float32, probabilities rounded to the working dtype before A.V, the output
+// rounded to it.
+//
+// One block per (batch, head, 32-query tile); K (n x (d+1), padded against
+// bank conflicts) and V (n x d) of the head sit in shared memory in float32,
+// and each warp keeps its query's n probabilities and the scaled query.
+// The logits and A.V run on the CUDA cores in float32: the simple first
+// version, bound by shared-memory reads (about 5 TFLOP/s at N = 197).
+#pragma once
+
+#include "common.cuh"
+
+namespace etk {
+
+constexpr int kAttnThreads = 256;  // 8 warps, one query at a time each
+constexpr int kAttnQueries = 32;   // queries per block
+
+template <typename T>
+__global__ void __launch_bounds__(kAttnThreads)
+attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n, int c, int heads,
+                 float inv_scale) {
+  extern __shared__ float smem[];
+  const int d = c / heads;
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* ks = smem;                       // n * (d + 1)
+  float* vs = ks + (size_t)n * (d + 1);   // n * d
+  float* pw = vs + (size_t)n * d + (size_t)warp * (n + d);
+  float* qs = pw + n;
+  const T* base = qkv + (int64_t)b * n * 3 * c;
+  for (int e = threadIdx.x; e < n * d; e += blockDim.x) {
+    const int j = e / d, t = e % d;
+    ks[j * (d + 1) + t] = to_f(base[(int64_t)j * 3 * c + c + h * d + t]);
+    vs[j * d + t] = to_f(base[(int64_t)j * 3 * c + 2 * c + h * d + t]);
+  }
+  __syncthreads();
+  const float scale = rnd<T>(inv_scale);
+  const int q_end = min(n, (int)(blockIdx.y + 1) * kAttnQueries);
+  for (int qi = blockIdx.y * kAttnQueries + warp; qi < q_end; qi += kAttnThreads / 32) {
+    for (int t = lane; t < d; t += 32)
+      qs[t] = rnd<T>(to_f(base[(int64_t)qi * 3 * c + h * d + t]) * scale);
+    __syncwarp();
+    float mx = -INFINITY;
+    for (int j = lane; j < n; j += 32) {
+      const float* kr = ks + j * (d + 1);
+      float s = 0.f;
+      for (int t = 0; t < d; ++t) s = fmaf(qs[t], kr[t], s);
+      pw[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float e = expf(pw[j] - mx);
+      pw[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < n; j += 32) pw[j] = rnd<T>(pw[j] / sum);
+    __syncwarp();
+    T* orow = out + ((int64_t)b * n + qi) * c + h * d;
+    for (int t = lane; t < d; t += 32) {
+      float o = 0.f;
+      for (int j = 0; j < n; ++j) o = fmaf(pw[j], vs[j * d + t], o);
+      orow[t] = from_f<T>(o);
+    }
+    __syncwarp();
+  }
+}
+
+inline size_t attention_smem_bytes(int n, int d) {
+  return ((size_t)n * (2 * d + 1) + (size_t)(kAttnThreads / 32) * (n + d)) * sizeof(float);
+}
+
+// qkv (bsz, n, 3c) -> out (bsz, n, c); returns the CUDA error, if any.
+template <typename T>
+int launch_attention(const T* qkv, T* out, int bsz, int n, int c, int heads, float inv_scale,
+                     cudaStream_t stream) {
+  const size_t smem = attention_smem_bytes(n, c / heads);
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bsz * heads, (n + kAttnQueries - 1) / kAttnQueries);
+  attention_kernel<T><<<grid, kAttnThreads, smem, stream>>>(qkv, out, n, c, heads, inv_scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace etk

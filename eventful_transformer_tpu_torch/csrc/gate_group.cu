@@ -1,0 +1,146 @@
+// Kernel C of the eventful block step, written for Hopper.
+//
+// Replaces eventful_transformer_tpu/ops/pallas/gate_group.py::gate_group_mlp
+// in its ln_mode="post" form with the coverage given: the gated MLP group
+// with the residual folded in and, optionally, the next gate's norms.
+//
+//   p' = where(cov, ln(x), p)                        (in place)
+//   h  = rnd(gelu(rnd_p(p'[sel]) @ W1 + b1))         on the k selected rows
+//   h2 = rnd(h @ W2 + b2)
+//   b' = where(cov, scatter(h2), b)                  (in place)
+//   y  = rnd(b' + x);  norms = ||ln(y) - p_next||    (optional)
+//
+// The TPU kernel compacts the selected rows with a one-hot (k, N) matmul
+// because Mosaic has no cumsum; here a per-batch-row prefix count over cov
+// gives each selected row its slot (index order, as the one-hot gives) and
+// the GEMM reads the rows through that index, with identical results. Five
+// launches: ln_select row pass, compaction, gathered GEMM1 (+b1, GELU),
+// GEMM2 (+b2), and the scatter-blend row pass with the residual and the
+// next-gate norms. The two GEMMs do the k/N share of the dense MLP's work
+// and dominate the time; the (B, k, 4C) hidden activation makes one round
+// trip through device memory (12 MB in bf16 at B=8, k=98), which later
+// work can keep on chip.
+#include "common.cuh"
+#include "gemm.cuh"
+
+namespace etk {
+
+// pos[b, i]: slot of row i among the selected rows of batch row b (index
+// order), -1 when not selected; idx[b, j]: the row in slot j, -1 when fewer
+// than kcap rows are selected. One warp per batch row scans 32 rows at a
+// time: a ballot of the selected lanes and a popcount give each its slot.
+__global__ void compact_kernel(const float* __restrict__ cov, int* __restrict__ pos,
+                               int* __restrict__ idx, int n, int kcap) {
+  const int b = blockIdx.x, lane = threadIdx.x;
+  int* idx_row = idx + (int64_t)b * kcap;
+  for (int j = lane; j < kcap; j += 32) idx_row[j] = -1;
+  __syncwarp();
+  int count = 0;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    const int64_t r = (int64_t)b * n + i;
+    const bool sel = i < n && cov[r] > 0.f;
+    const unsigned ballot = __ballot_sync(0xffffffffu, sel);
+    const int slot = count + __popc(ballot & ((1u << lane) - 1u));
+    if (i < n) pos[r] = sel ? slot : -1;
+    if (sel && slot < kcap) idx_row[slot] = i;
+    count += __popc(ballot);
+  }
+}
+
+// Output row m = b * kcap + j reads row idx[b, j] of batch row b.
+struct GatherRows {
+  const int* idx;
+  int n, kcap;
+  __device__ __forceinline__ int64_t operator()(int m) const {
+    const int i = idx[m];
+    return i < 0 ? -1 : (int64_t)(m / kcap) * n + i;
+  }
+};
+
+// h2[m, c] = rnd(acc + b2[c])           (gate_group.py:388-393)
+template <typename T>
+struct Mlp2Epilogue {
+  const T* bias;
+  T* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
+    out[(int64_t)m * ld + n] = from_f<T>(acc + to_f(bias[n]));
+  }
+};
+
+// Row r: b'[r] = h2[slot] if selected (0 for a selected row beyond kcap,
+// as the one-hot scatter gives), else b[r]; y[r] = rnd(b'[r] + x[r]); and
+// the next gate's norm on the rounded y (gate_group.py:394-415).
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+blend_kernel(const T* __restrict__ x, T* __restrict__ b, const int* __restrict__ pos,
+             const T* __restrict__ h2, T* __restrict__ y, const T* __restrict__ p_next,
+             const T* __restrict__ next_scale, const T* __restrict__ next_bias,
+             float* __restrict__ norms, int n, int c, int kcap) {
+  extern __shared__ float smem[];
+  float* row = smem;
+  float* red = smem + c;
+  const int64_t r = blockIdx.x;
+  const int slot = pos[r];
+  const T* hr = (slot >= 0 && slot < kcap) ? h2 + ((r / n) * kcap + slot) * c : nullptr;
+  for (int i = threadIdx.x; i < c; i += blockDim.x) {
+    const int64_t e = r * c + i;
+    float bv;
+    if (slot >= 0) {
+      bv = hr != nullptr ? to_f(hr[i]) : 0.f;
+      b[e] = from_f<T>(bv);
+    } else {
+      bv = to_f(b[e]);
+    }
+    const float yv = rnd<T>(bv + to_f(x[e]));
+    y[e] = from_f<T>(yv);
+    row[i] = yv;
+  }
+  if (norms == nullptr) return;  // uniform over the block
+  __syncthreads();
+  const float norm = ln_error_norm(row, p_next, r, c, next_scale, next_bias, red);
+  if (threadIdx.x == 0) norms[r] = norm;
+}
+
+template <typename T>
+int gate_group_mlp(const void* x, void* p, void* b, const float* cov, const void* ln_scale,
+                   const void* ln_bias, const void* w1, const void* b1, const void* w2,
+                   const void* b2, const void* p_next, const void* next_scale,
+                   const void* next_bias, void* y, float* norms, int* pos, int* idx, void* h,
+                   void* h2, int bsz, int n, int c, int hidden, int kcap, cudaStream_t stream) {
+  const int rows = bsz * n;
+  const size_t row_smem = row_smem_bytes(c);
+  ln_select_kernel<T><<<rows, kRowThreads, row_smem, stream>>>(
+      (const T*)x, (T*)p, cov, (const T*)ln_scale, (const T*)ln_bias, c);
+  ETK_CHECK_LAUNCH();
+  compact_kernel<<<bsz, 32, 0, stream>>>(cov, pos, idx, n, kcap);
+  ETK_CHECK_LAUNCH();
+  const int m = bsz * kcap;
+  launch_gemm<T>((const T*)p, GatherRows{idx, n, kcap}, (const T*)w1, m, c, hidden,
+                 BiasGeluEpilogue<T>{(const T*)b1, (T*)h, hidden}, stream);
+  ETK_CHECK_LAUNCH();
+  launch_gemm<T>((const T*)h, DenseRows{}, (const T*)w2, m, hidden, c,
+                 Mlp2Epilogue<T>{(const T*)b2, (T*)h2, c}, stream);
+  ETK_CHECK_LAUNCH();
+  blend_kernel<T><<<rows, kRowThreads, row_smem, stream>>>(
+      (const T*)x, (T*)b, pos, (const T*)h2, (T*)y, (const T*)p_next, (const T*)next_scale,
+      (const T*)next_bias, norms, n, c, kcap);
+  ETK_CHECK_LAUNCH();
+  return 0;
+}
+
+}  // namespace etk
+
+extern "C" int etk_gate_group_mlp(int dtype, const void* x, void* p, void* b, const void* cov,
+                                  const void* ln_scale, const void* ln_bias, const void* w1,
+                                  const void* b1, const void* w2, const void* b2,
+                                  const void* p_next, const void* next_scale,
+                                  const void* next_bias, void* y, void* norms, void* pos,
+                                  void* idx, void* h, void* h2, int bsz, int n, int c,
+                                  int hidden, int kcap, void* stream) {
+  ETK_DISPATCH(dtype, return etk::gate_group_mlp<T>(
+                          x, p, b, (const float*)cov, ln_scale, ln_bias, w1, b1, w2, b2, p_next,
+                          next_scale, next_bias, y, (float*)norms, (int*)pos, (int*)idx, h, h2,
+                          bsz, n, c, hidden, kcap, (cudaStream_t)stream));
+}

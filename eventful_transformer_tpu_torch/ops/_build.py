@@ -1,0 +1,148 @@
+"""Build the CUDA kernels of ``csrc/`` and call them through ``ctypes``.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
+with a plain C interface, under ``eventful_transformer_tpu_torch/_build/``
+(listed in ``.gitignore``). The file name carries a hash of the sources and
+the flags, so an edited source builds anew. This is the hand-built route
+rather than ``torch.utils.cpp_extension.load``: the sources include no
+PyTorch header, and the build takes seconds instead of minutes.
+
+Each C entry launches its kernels on the stream it is given, allocates
+nothing, and returns ``cudaGetLastError()``; :func:`launch` raises when that
+is not 0. Pointers and the stream cross as ``c_void_p`` so that 64-bit
+addresses are not cut to 32 bits.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+SIGNATURES = {
+    "etk_ln_norms": [_I, _P, _P, _P, _P, _P, _L, _I, _P],
+    "etk_qkv_attention_group": [_I] + [_P] * 11 + [_I, _I, _I, _I, _F, _P],
+    "etk_proj_group": [_I] + [_P] * 11 + [_I, _I, _I, _P],
+    "etk_gate_group_mlp": [_I] + [_P] * 19 + [_I] * 5 + [_P],
+    "etk_attention_smem_bytes": [_I, _I],
+    "etk_window_attention": [_I, _P, _P, _I, _I, _I, _I, _F, _P],
+    "etk_dense_mlp_residual": [_I] + [_P] * 10 + [_I, _I, _I, _P],
+}
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SHARED_BYTES = 232448  # dynamic shared memory one block may use on Hopper
+MAX_ROW_WIDTH = 8192  # the row kernels keep one (C,) float32 row in 48 KB
+
+
+def nvcc_path():
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [shutil.which("nvcc")]
+    if cuda_home:
+        candidates.append(str(Path(cuda_home) / "bin" / "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for path in candidates:
+        if path and Path(path).is_file():
+            return path
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path():
+    """Path of the library built from the current sources and flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libetk_kernels_{digest.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def load_library():
+    """Build the kernels if needed, load them, and declare their C types."""
+    path = library_path()
+    if not path.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        sources = [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+        result = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        path.with_suffix(".log").write_text(result.stdout + result.stderr)
+        if result.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with code {result.returncode}:\n{result.stderr[-8000:]}"
+            )
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.etk_error_string.argtypes = [_I]
+    lib.etk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name, *args):
+    """Call C entry ``name``; raise if it reports a CUDA error."""
+    lib = load_library()
+    code = getattr(lib, name)(*args)
+    if code != 0:
+        message = lib.etk_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code}: {message}")
+
+
+def dtype_code(t):
+    try:
+        return DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}") from None
+
+
+def stream_of(t):
+    """The current CUDA stream of ``t``'s device, as an int for ctypes."""
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"tensor on {t.device} but the current device is "
+            f"cuda:{torch.cuda.current_device()}"
+        )
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_operands(name, ref, float32=(), **tensors):
+    """Raise unless ``ref`` and every tensor lie on one CUDA device and are
+    contiguous, with ``ref``'s dtype, or float32 for the names in
+    ``float32``."""
+    if ref.device.type != "cuda":
+        raise ValueError(f"{name}: expected CUDA or CPU tensors, got {ref.device}")
+    dtype_code(ref)
+    if not ref.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+    if ref.shape[-1] > MAX_ROW_WIDTH:
+        raise ValueError(f"{name}: C={ref.shape[-1]} exceeds {MAX_ROW_WIDTH}")
+    for key, t in tensors.items():
+        want = torch.float32 if key in float32 else ref.dtype
+        if t.device != ref.device:
+            raise ValueError(f"{name}: {key} on {t.device}, expected {ref.device}")
+        if t.dtype != want:
+            raise TypeError(f"{name}: {key} is {t.dtype}, expected {want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def check_shape(name, key, t, shape):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {tuple(shape)}")

@@ -1,0 +1,112 @@
+"""Kernel C of the eventful block step (port of ``gate_group_mlp`` from
+``eventful_transformer_tpu/ops/pallas/gate_group.py``).
+
+The gated MLP group: gate-state select, the MLP on the k selected rows
+only, scatter-blend into the token buffer, the residual, and optionally the
+next block's qkv-gate norms. Only the reference's ``ln_mode="post"`` form
+with the coverage given is ported; the in-kernel top-k (``select_topk``)
+and ``gate_group_linear`` wait (ROADMAP.md, "TPU kernels to port").
+
+``p`` and ``b`` are updated in place, as the TPU kernel aliases them. The
+selected rows are compacted in index order, as the TPU kernel's one-hot
+compaction orders them. The CUDA kernels are ``csrc/gate_group.cu``; see
+its header for the launch structure and what bounds it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from eventful_transformer_tpu_torch.ops import _build
+from eventful_transformer_tpu_torch.ops.common import gelu_exact, ln_f32, row_norms
+
+
+def _slots(cov, kcap):
+    """(pos, idx): each row's slot among the selected rows of its batch row
+    (index order; -1 if unselected) and each slot's row (-1 if empty)."""
+    sel = cov > 0
+    pos = torch.where(sel, torch.cumsum(sel.to(torch.int64), dim=-1) - 1, -1)
+    idx = torch.full((cov.shape[0], kcap), -1, dtype=torch.int64, device=cov.device)
+    b, i = torch.nonzero(sel & (pos < kcap), as_tuple=True)
+    idx[b, pos[b, i]] = i
+    return pos, idx
+
+
+def gate_group_mlp_plain(
+    x, p, b, cov, scale, bias, w1, b1, w2, b2, p_next=None, next_scale=None,
+    next_bias=None, *, kcap
+):
+    """x (B, N, C) group input, doubling as the residual; p gate state
+    (post-LN domain) and b token buffer, both updated in place; cov (B, N)
+    float32 coverage. Returns (p, b, y, next_norms), next_norms None unless
+    ``p_next`` is given."""
+    wd = x.dtype
+    bsz, n, c = x.shape
+    p_new = torch.where(cov[..., None] > 0, ln_f32(x, scale, bias), p.float())
+    p.copy_(p_new.to(p.dtype))
+    pos, idx = _slots(cov, kcap)
+    rows = torch.gather(p, 1, idx.clamp(min=0)[..., None].expand(bsz, kcap, c))
+    rows = torch.where(idx[..., None] >= 0, rows, 0.0)
+    h = torch.matmul(rows.to(w1.dtype).float(), w1.float()) + b1.float()
+    h = gelu_exact(h).to(wd)
+    h2 = (torch.matmul(h.to(w2.dtype).float(), w2.float()) + b2.float()).to(b.dtype)
+    scattered = torch.gather(
+        h2, 1, pos.clamp(0, kcap - 1)[..., None].expand(bsz, n, c)
+    )
+    scattered = torch.where((pos < kcap)[..., None], scattered, 0.0)
+    b.copy_(torch.where(cov[..., None] > 0, scattered, b))
+    y = (b.float() + x.float()).to(wd)
+    next_norms = None
+    if p_next is not None:
+        next_norms = row_norms(ln_f32(y, next_scale, next_bias) - p_next.float())
+    return p, b, y, next_norms
+
+
+def gate_group_mlp(
+    x, p, b, cov, scale, bias, w1, b1, w2, b2, p_next=None, next_scale=None,
+    next_bias=None, *, kcap
+):
+    """Kernel C; the wrapper of :func:`gate_group_mlp_plain`, which CPU
+    tensors take. CUDA tensors launch the kernels of csrc/gate_group.cu."""
+    if x.device.type == "cpu":
+        return gate_group_mlp_plain(
+            x, p, b, cov, scale, bias, w1, b1, w2, b2, p_next, next_scale,
+            next_bias, kcap=kcap,
+        )
+    name = "gate_group_mlp"
+    bsz, n, c = x.shape
+    hidden = w1.shape[-1]
+    shapes = dict(
+        p=x.shape, b=x.shape, cov=(bsz, n), scale=(c,), bias=(c,), w1=(c, hidden),
+        b1=(hidden,), w2=(hidden, c), b2=(c,),
+    )
+    operands = dict(p=p, b=b, cov=cov, scale=scale, bias=bias, w1=w1, b1=b1, w2=w2, b2=b2)
+    emit = p_next is not None
+    if emit:
+        shapes.update(p_next=x.shape, next_scale=(c,), next_bias=(c,))
+        operands.update(p_next=p_next, next_scale=next_scale, next_bias=next_bias)
+    _build.check_operands(name, x, ("cov",), **operands)
+    for key, shape in shapes.items():
+        _build.check_shape(name, key, operands[key], shape)
+    if not 1 <= kcap <= n:
+        raise ValueError(f"{name}: kcap={kcap} outside [1, N={n}]")
+    y = torch.empty_like(x)
+    norms = torch.empty((bsz, n), dtype=torch.float32, device=x.device) if emit else None
+    pos = torch.empty((bsz, n), dtype=torch.int32, device=x.device)
+    idx = torch.empty((bsz, kcap), dtype=torch.int32, device=x.device)
+    h = torch.empty((bsz, kcap, hidden), dtype=x.dtype, device=x.device)
+    h2 = torch.empty((bsz, kcap, c), dtype=x.dtype, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _build.launch(
+        "etk_gate_group_mlp", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
+        b.data_ptr(), cov.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ptr(p_next),
+        ptr(next_scale), ptr(next_bias), y.data_ptr(), ptr(norms), pos.data_ptr(),
+        idx.data_ptr(), h.data_ptr(), h2.data_ptr(), bsz, n, c, hidden, kcap,
+        _build.stream_of(x),
+    )
+    gate_group_mlp.launches += 1
+    return p, b, y, norms
+
+
+gate_group_mlp.launches = 0

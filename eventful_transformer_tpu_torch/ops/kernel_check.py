@@ -1,0 +1,202 @@
+"""Hold each CUDA kernel against its plain PyTorch version on one set of
+inputs, and time both. ``chip_smoke.py`` runs this at the main path's
+shapes; ``tests/test_torch_cuda.py`` at small ones. Both sides get clones
+of the same tensors (the kernels update gate state in place) and the same
+coverages, computed once, so they select the same tokens.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms
+from eventful_transformer_tpu_torch.ops import (
+    block_fused,
+    dense_mlp,
+    gate_fused,
+    gate_group,
+    window_attention,
+)
+
+# (wrapper, plain version, CUDA source, the TPU kernel it replaces, names
+# of the outputs in the order the wrapper returns them)
+KERNELS = {
+    "ln_norms": (
+        gate_fused.ln_norms, gate_fused.ln_norms_plain,
+        "eventful_transformer_tpu_torch/csrc/ln_norms.cu",
+        "eventful_transformer_tpu/ops/pallas/gate_fused.py:39", ("norms",),
+    ),
+    "qkv_attention_group": (
+        block_fused.qkv_attention_group, block_fused.qkv_attention_group_plain,
+        "eventful_transformer_tpu_torch/csrc/block_fused.cu",
+        "eventful_transformer_tpu/ops/pallas/block_fused.py:134", ("p_qkv", "attn", "norms"),
+    ),
+    "proj_group": (
+        block_fused.proj_group, block_fused.proj_group_plain,
+        "eventful_transformer_tpu_torch/csrc/block_fused.cu",
+        "eventful_transformer_tpu/ops/pallas/block_fused.py:219", ("p_proj", "y1", "norms"),
+    ),
+    "gate_group_mlp": (
+        gate_group.gate_group_mlp, gate_group.gate_group_mlp_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_group.cu",
+        "eventful_transformer_tpu/ops/pallas/gate_group.py:421", ("p", "b", "y", "next_norms"),
+    ),
+    "dense_mlp_residual": (
+        dense_mlp.dense_mlp_residual, dense_mlp.dense_mlp_residual_plain,
+        "eventful_transformer_tpu_torch/csrc/dense_mlp.cu",
+        "eventful_transformer_tpu/ops/pallas/dense_mlp.py:47", ("y",),
+    ),
+    "window_attention": (
+        window_attention.window_attention, window_attention.window_attention_plain,
+        "eventful_transformer_tpu_torch/csrc/window_attention.cu",
+        "eventful_transformer_tpu/ops/pallas/window_attention.py:281", ("out",),
+    ),
+}
+
+# Bounds on each output of a kernel against its plain version. With
+# "scaled error" |kernel - plain| / max(1, |plain|):
+#   float32 outputs, in either run (the norms in a bfloat16 run too): both
+#     sides sum in float32 in other orders; scaled error <= 1e-4 covers
+#     C- and N-long sums and the softmax behind the attention output, and
+#     fails a norm that lost the LN bias (1.2e-2 when planted in ln_norms).
+#   bfloat16 outputs: the two sides make the same roundings, so an element
+#     differs only where a float32 sum lies within its summation error of a
+#     bfloat16 rounding boundary, or takes such a flip from an intermediate
+#     (qkv into the softmax, the hidden into GEMM2, the projection into the
+#     skip add). At the main path's shapes up to 2.2 % of an output's
+#     elements differ (kernel A's attention output), and 0.42 % by more
+#     than one ulp of the plain value; a dropped rounding point, planted
+#     once in each kernel, made 26-68 % differ and 5-34 % by more than one
+#     ulp. Bounded:
+#       - the share of elements that differ at all, <= 5 %;
+#       - the share off by more than one ulp, <= 1 %;
+#       - the scaled error, <= 2e-2: one ulp of an intermediate below 4 in
+#         magnitude is 2**-6 = 1.6e-2.
+#     The largest gap in ulps is reported, not bounded: a value near zero
+#     that lands on the other side of it is thousands of its own ulps away
+#     while its error is below 1e-4.
+F32_SCALED = 1e-4
+BF16_BOUNDS = dict(scaled=2e-2, differ_share=5e-2, far_share=1e-2)
+
+
+def make_inputs(bsz, n, c, heads, k, dtype, device, seed=0):
+    """Random activations, gate states, weights and one coverage per gate,
+    at the scales of the model (LN-domain states ~ N(0, 1), weights
+    ~ C^-1/2)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        t = torch.randn(shape, generator=g) * scale + shift
+        return t.to(device=device, dtype=dtype)
+
+    d = dict(
+        x=randn(bsz, n, c), attn=randn(bsz, n, c), p_qkv=randn(bsz, n, c),
+        p_proj=randn(bsz, n, c), p_mlp=randn(bsz, n, c), b_mlp=randn(bsz, n, c),
+        p_next=randn(bsz, n, c), qkv=randn(bsz, n, 3 * c),
+        ln1_s=randn(c, scale=0.1, shift=1.0), ln1_b=randn(c, scale=0.1),
+        ln2_s=randn(c, scale=0.1, shift=1.0), ln2_b=randn(c, scale=0.1),
+        w_qkv=randn(c, 3 * c, scale=c**-0.5), b_qkv=randn(3 * c, scale=0.1),
+        w_proj=randn(c, c, scale=c**-0.5), b_proj=randn(c, scale=0.1),
+        w1=randn(c, 4 * c, scale=c**-0.5), b1=randn(4 * c, scale=0.1),
+        w2=randn(4 * c, c, scale=(4 * c) ** -0.5), b2=randn(c, scale=0.1),
+    )
+    for name in ("cov1", "cov2", "cov3"):
+        norms = torch.rand((bsz, n), generator=g).to(device)
+        d[name] = coverage_from_norms(norms, k)
+    d["heads"], d["k"] = heads, k
+    return d
+
+
+def call(name, d, plain=False):
+    """Run kernel ``name`` (or its plain version) on clones of ``d``.
+    Returns its outputs as a tuple of tensors."""
+    fn = KERNELS[name][1 if plain else 0]
+    d = {key: v.clone() if torch.is_tensor(v) else v for key, v in d.items()}
+    return _invoke(name, fn, d)
+
+
+def _invoke(name, fn, d):
+    if name == "ln_norms":
+        return (fn(d["x"], d["p_qkv"], d["ln1_s"], d["ln1_b"]),)
+    if name == "qkv_attention_group":
+        c = d["x"].shape[-1]
+        return fn(
+            d["x"], d["p_qkv"], d["cov1"], d["p_proj"], d["ln1_s"], d["ln1_b"],
+            d["w_qkv"], d["b_qkv"], heads=d["heads"], inv_scale=(c // d["heads"]) ** -0.5,
+        )
+    if name == "proj_group":
+        return fn(
+            d["attn"], d["p_proj"], d["cov2"], d["x"], d["p_mlp"], d["w_proj"],
+            d["b_proj"], d["ln2_s"], d["ln2_b"],
+        )
+    if name == "dense_mlp_residual":
+        return (fn(d["x"], d["ln2_s"], d["ln2_b"], d["w1"], d["b1"], d["w2"], d["b2"]),)
+    if name == "window_attention":
+        c = d["x"].shape[-1]
+        return (fn(d["qkv"], heads=d["heads"], scale=(c // d["heads"]) ** 0.5),)
+    out = fn(
+        d["x"], d["p_mlp"], d["b_mlp"], d["cov3"], d["ln2_s"], d["ln2_b"], d["w1"],
+        d["b1"], d["w2"], d["b2"], d["p_next"], d["ln1_s"], d["ln1_b"], kcap=d["k"],
+    )
+    return tuple(out)
+
+
+def _ulp_order(t):
+    """bfloat16 values as integers in the order of the values, so that the
+    difference of two is their distance in ulps (+0 and -0 both 0)."""
+    bits = t.contiguous().view(torch.int16).to(torch.int32)
+    return torch.where(bits < 0, -(bits + 32768), bits)
+
+
+def compare(got, want):
+    """Stats of one output against the plain version's, and whether they
+    are within the bounds above."""
+    diff = (got.float() - want.float()).abs()
+    row = dict(
+        dtype=str(got.dtype).split(".")[-1], max_abs_err=float(diff.max()),
+        max_scaled_err=float((diff / want.float().abs().clamp(min=1.0)).max()),
+    )
+    if got.dtype == torch.bfloat16:
+        gap = (_ulp_order(got) - _ulp_order(want)).abs()
+        row.update(
+            differ_share=float((gap > 0).float().mean()),
+            far_share=float((gap > 1).float().mean()), max_ulp_gap=int(gap.max()),
+        )
+        row["ok"] = all(row[key] <= bound for key, bound in (
+            ("max_scaled_err", BF16_BOUNDS["scaled"]),
+            ("differ_share", BF16_BOUNDS["differ_share"]),
+            ("far_share", BF16_BOUNDS["far_share"]),
+        ))
+    else:
+        row["ok"] = row["max_scaled_err"] <= F32_SCALED
+    return row
+
+
+def errors(name, d):
+    """Run the kernel (once) and its plain version on clones of ``d``.
+    Returns one :func:`compare` row per output, the in-place gate state
+    included, each with the output's name."""
+    got = call(name, d)
+    want = call(name, d, plain=True)
+    torch.cuda.synchronize()
+    return [
+        dict(output=out, **compare(a, b))
+        for out, a, b in zip(KERNELS[name][4], got, want)
+    ]
+
+
+def time_ms(name, d, plain=False, iters=20, warmup=3):
+    """Mean milliseconds of one call over ``iters`` back-to-back calls,
+    timed with CUDA events after ``warmup`` calls."""
+    fn = KERNELS[name][1 if plain else 0]
+    d = {key: v.clone() if torch.is_tensor(v) else v for key, v in d.items()}
+    for _ in range(warmup):
+        _invoke(name, fn, d)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        _invoke(name, fn, d)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters

@@ -1,0 +1,68 @@
+"""The bounds that hold each CUDA kernel to its plain version
+(``ops/kernel_check.py``), on the CPU: they pass equal outputs and a rare
+one-ulp flip, and fail a dropped rounding point's many one-ulp changes and
+a float32 norm that lost a term."""
+
+import pytest
+import torch
+
+from eventful_transformer_tpu_torch.ops import kernel_check
+
+
+@pytest.fixture(autouse=True)
+def _threads():
+    torch.set_num_threads(2)
+
+
+def _bf16(seed=0, n=4096):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(n, generator=g).to(torch.bfloat16)
+
+
+def _next_up(t, mask):
+    """t with the elements under ``mask`` moved one ulp away from zero."""
+    bits = t.view(torch.int16)
+    return torch.where(mask, bits + 1, bits).view(torch.bfloat16)
+
+
+def test_ulp_order_counts_ulps_across_zero():
+    t = torch.tensor([0.0, -0.0, 1.0], dtype=torch.bfloat16)
+    up = _next_up(t, torch.ones(3, dtype=torch.bool))
+    gaps = (kernel_check._ulp_order(up) - kernel_check._ulp_order(t)).tolist()
+    assert gaps == [1, -1, 1]
+    assert kernel_check._ulp_order(t)[:2].tolist() == [0, 0]
+
+
+def test_equal_outputs_pass():
+    t = _bf16()
+    row = kernel_check.compare(t, t.clone())
+    assert row["ok"] and row["differ_share"] == 0.0 and row["max_ulp_gap"] == 0
+
+
+def test_rare_one_ulp_flips_pass():
+    t = _bf16()
+    mask = torch.zeros_like(t, dtype=torch.bool)
+    mask[::256] = True  # 0.4 % of the elements
+    row = kernel_check.compare(_next_up(t, mask), t)
+    assert row["ok"], row
+    assert row["max_ulp_gap"] == 1
+
+
+@pytest.mark.parametrize("every", [2, 10], ids=["50pct", "10pct"])
+def test_dropped_rounding_point_fails(every):
+    """A dropped rounding moves many elements by one ulp: each within the
+    scaled bound, but far beyond the share of elements allowed to differ."""
+    t = _bf16()
+    mask = torch.zeros_like(t, dtype=torch.bool)
+    mask[::every] = True
+    row = kernel_check.compare(_next_up(t, mask), t)
+    assert row["max_scaled_err"] <= kernel_check.BF16_BOUNDS["scaled"]
+    assert not row["ok"], row
+
+
+def test_float32_norm_without_ln_bias_fails():
+    """A norm off by 0.25 %, as one that drops the LN bias, fails the
+    float32 bound; summation-order noise passes."""
+    norms = 20.0 + torch.rand(512, generator=torch.Generator().manual_seed(1))
+    assert kernel_check.compare(norms * (1 + 1e-6), norms)["ok"]
+    assert not kernel_check.compare(norms * 1.0025, norms)["ok"]
