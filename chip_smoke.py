@@ -2,22 +2,34 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, eventful ViViT-B inference on Kinetics-400
-shaped clips, through ``FactorizedViViT.apply_views`` and the six
-hand-written kernels, and checks it. Phases, one JSON line each:
+Drives the port's two paths through the entry points a user calls, and
+checks them: eventful ViViT-B inference on Kinetics-400 shaped clips
+through ``FactorizedViViT.apply_views``, and the eventful ViTDet-B backbone
+at 672 x 672 (spatiotemporal_672, k = 256) through ``ViTDet.pre_backbone``
+and ``apply_backbone``, each with its dense twin. Phases, one JSON line
+each:
 
-  1. env:     torch, CUDA and nvcc versions and the card (nvidia-smi).
-  2. build:   nvcc builds the kernels from eventful_transformer_tpu_torch/csrc.
-  3. kernels: each kernel against its plain PyTorch version at the main
-              path's shapes, float32 and bfloat16, each output within the
-              bounds stated in ops/kernel_check.py, and both timed.
-  4. slice:   eventful ViViT-B (k=98 of 197 tokens) on the bench's input in
-              bfloat16, with the kernels' launch counts (and the dense
-              twin's); one clip in
-              float32 on the card against the same model on the CPU (plain
-              versions); counted GFLOPs/clip of the eventful model and its
-              dense twin against the JAX package's counts.
-  5. time:    dense twin against eventful, ms/clip (a record, not a claim).
+  1. env:            torch, CUDA and nvcc versions and the card (nvidia-smi).
+  2. build:          nvcc builds the kernels from eventful_transformer_tpu_torch/csrc,
+                     one process per source.
+  3. kernels:        each kernel against its plain PyTorch version at ViViT's
+                     shapes, float32 and bfloat16, each output within the
+                     bounds stated in ops/kernel_check.py, and both timed.
+  4. slice:          eventful ViViT-B (k=98 of 197 tokens) on the bench's
+                     input in bfloat16, with the kernels' launch counts (and
+                     the dense twin's); one clip in float32 on the card
+                     against the same model on the CPU (plain versions);
+                     counted GFLOPs/clip against the JAX package's counts.
+  5. time:           ViViT's dense twin against eventful, ms/clip.
+  6. vitdet_kernels: the kernels of the ViTDet path at its shapes (N = 1764,
+                     2 streams, 18 windows of 196 tokens), as in 3.
+  7. vitdet_slice:   eventful spatiotemporal_672 and dense base_672, 2
+                     streams x 16 frames in bfloat16, with launch counts and
+                     counted GFLOPs per frame against the JAX package's; one
+                     stream x 3 frames in float32 (matmul-2 cast off) on the
+                     card against the CPU.
+  8. vitdet_time:    dense against eventful, ms/frame, alternated.
+The times are a record, not a claim.
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``. Any failed check
@@ -51,6 +63,31 @@ GFLOPS_DENSE, GFLOPS_EVENTFUL = 1119.86, 615.18
 # select another token; each such flip moves one token's update.
 PROB_TOL = 1e-5  # max |probability difference|, probabilities ~ 1/400
 MAX_FLIP_SHARE = 1e-3  # of all gate selections made in the clip
+
+# ViTDet-B at 672 (configs/evaluate/vitdet_vid/spatiotemporal_672.yml and
+# base_672.yml; bench.py:121-259): 2 streams, 16 frames per call, frame 0 a
+# flush, k = 256 of 1764 tokens.
+VITDET_STREAMS, VITDET_FRAMES, VITDET_SIZE, VITDET_K = 2, 16, 672, 256
+VITDET_N = (VITDET_SIZE // 16) ** 2
+VITDET_WINDOWED, VITDET_GLOBAL = 8, 4
+# The JAX package's counted FLOPs per stream at this point, from
+# ``python scripts/misc/count_vitdet_672.py`` (the JAX package on the CPU,
+# one block of each kind at full width): a global EventfulBlock's
+# incremental count is base + per_valid_share * f, f the valid share of its
+# pooled, deduplicated index slots.
+VITDET_FLOPS = dict(
+    position_add=1354752.0, dense_windowed=13077590400.0, dense_global=17468341632.0,
+    windowed_flush=13077590400.0, windowed_incremental=2397776256.0,
+    global_flush=13770757728.0, global_incremental_base=1995139728.0,
+    global_incremental_per_valid_share=1040646144.0,
+)
+# One ViTDet clip in float32, card against CPU, without the matmul-2 cast:
+# with it, the global blocks' A.V product runs in bfloat16 on both sides,
+# and where cuBLAS and the CPU sum it in other orders an element rounds to
+# a neighbouring bfloat16 value (0.4 % relative); that moved 92 of 16,384
+# gate selections and the tokens by 1.4e-2 (scaled) in one run. In float32
+# the tokens differ by summation order and by the rare flips bounded above.
+VITDET_TOKEN_TOL = 1e-3
 
 
 def emit(phase, **fields):
@@ -116,31 +153,40 @@ def phase_build():
          spill_lines=spills)
 
 
-def phase_kernels(device):
-    """Every kernel at the spatial stack's shapes (N = 197); the two dense
-    kernels also at the temporal model's (N = 17)."""
+def check_kernels(phase, device, cases):
+    """Each kernel of ``cases`` [(batch, N, k, names, window)] against its
+    plain version, float32 and bfloat16, with both timed."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for n in (N_TOKENS, STEPS + 1):
-            d = kernel_check.make_inputs(8, n, 768, 12, min(K, n), dtype, device, seed=SEED)
-            names = kernel_check.KERNELS if n == N_TOKENS else DENSE_KERNELS
+        for bsz, n, k, names, window in cases:
+            d = kernel_check.make_inputs(bsz, n, 768, 12, k, dtype, device, seed=SEED,
+                                         window=window)
             for name in names:
                 results[(name, dtype, n)] = dict(
-                    kernel=name, dtype=str(dtype).split(".")[-1], n=n,
+                    kernel=name, dtype=str(dtype).split(".")[-1], batch=bsz, n=n,
                     outputs=kernel_check.errors(name, d),
                     ms=kernel_check.time_ms(name, d),
                     plain_ms=kernel_check.time_ms(name, d, plain=True),
                 )
-    emit("kernels", bounds=dict(float32_scaled=kernel_check.F32_SCALED,
-                                **kernel_check.BF16_BOUNDS),
+            del d
+    emit(phase, bounds=dict(float32_scaled=kernel_check.F32_SCALED, **kernel_check.BF16_BOUNDS),
          rows=list(results.values()))
     for (name, dtype, n), row in results.items():
         for out in row["outputs"]:
             if not out["ok"]:
                 raise AssertionError(f"{name} {dtype} N={n} output {out['output']}: {out}")
     return results
+
+
+def phase_kernels(device):
+    """Every kernel of ViViT's path at the spatial stack's shapes (N = 197);
+    the two dense kernels also at the temporal model's (N = 17)."""
+    return check_kernels("kernels", device, [
+        (8, N_TOKENS, K, VIVIT_KERNELS, (4, 6)),
+        (8, STEPS + 1, STEPS + 1, DENSE_KERNELS, (4, 6)),
+    ])
 
 
 def run_model(model, views, count=False):
@@ -161,12 +207,21 @@ def gflops(counts):
 # the kernels of the dense blocks (the eventful flush step, the temporal
 # model and the whole dense twin)
 DENSE_KERNELS = ("window_attention", "dense_mlp_residual")
+VIVIT_KERNELS = (
+    "ln_norms", "qkv_attention_group", "proj_group", "gate_group_mlp", "dense_mlp_residual",
+    "window_attention",
+)
+VITDET_KERNELS = (
+    "ln_norms", "gate_group_mlp", "dense_mlp_residual", "window_attention_windowed",
+    "gate_group_linear", "gate_group_linear_post", "block_select_p", "block_scatter_rows",
+)
 
 
 def wrappers():
+    """Every kernel wrapper by name; two forms of one kernel share it."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
-    return {name: entry[0] for name, entry in kernel_check.KERNELS.items()}
+    return {entry[0].__name__: entry[0] for entry in kernel_check.KERNELS.values()}
 
 
 def expected_launches(eventful):
@@ -187,13 +242,21 @@ def expected_launches(eventful):
     return want
 
 
+def reset_launches():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
 def counted_run(model, views, eventful):
     """One forward with every launch count set to 0 just before and read
     just after; checks the counts and the class probabilities."""
-    for fn in wrappers().values():
-        fn.launches = 0
+    reset_launches()
     probs, _ = run_model(model, views)
-    launches = {name: fn.launches for name, fn in wrappers().items()}
+    launches = read_launches()
     want = expected_launches(eventful)
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
@@ -303,6 +366,251 @@ def phase_time(eventful, dense, views, smi):
     )
 
 
+def vitdet_config(eventful, matmul_2_cast="bfloat16"):
+    block = dict(dim=768, heads=12, mlp_ratio=4, window_size=[14, 14],
+                 relative_embedding_size=[64, 64])
+    backbone = dict(depth=VITDET_WINDOWED + VITDET_GLOBAL, position_encoding_size=[14, 14],
+                    window_indices=[0, 1, 3, 4, 6, 7, 9, 10], block_config=block)
+    if eventful:
+        block.update(pool_size=2, matmul_2_cast=matmul_2_cast)
+        backbone.update(block_class="EventfulBlock", windowed_class="EventfulTokenwiseBlock",
+                        windowed_overrides=dict(pool_size=None, matmul_2_cast=None))
+    return dict(
+        backbone_config=backbone, classes=30, input_shape=[3, VITDET_SIZE, VITDET_SIZE],
+        normalize_mean=[123.675, 116.28, 103.53], normalize_std=[58.395, 57.12, 57.375],
+        output_channels=256, patch_size=[16, 16], scale_factors=[4.0, 2.0, 1.0, 0.5],
+    )
+
+
+def phase_vitdet_kernels(device):
+    """The kernels of the ViTDet path at its shapes: 2 streams of N = 1764
+    tokens, k = 256, 18 windows of 14 x 14."""
+    return check_kernels("vitdet_kernels", device, [
+        (VITDET_STREAMS, VITDET_N, VITDET_K, VITDET_KERNELS, (14, 14)),
+    ])
+
+
+def vitdet_frames(frames, streams, device, dtype, seed=SEED):
+    """[0, 1] frames (frames, streams, 3, 672, 672): one random image per
+    stream, each frame that image plus a little noise, made on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (streams, 3, VITDET_SIZE, VITDET_SIZE)
+    base = torch.rand(shape, generator=g, device=device)
+    noise = torch.randn((frames,) + shape, generator=g, device=device)
+    return (base + 0.05 * noise).clamp(0.0, 1.0).to(dtype)
+
+
+def run_vitdet(model, frames, count=False, frame_events=None, keep=False):
+    """One call: every frame of every stream through pre_backbone and
+    apply_backbone, frame 0 a flush. Returns (last tokens, counts, every
+    frame's tokens when ``keep``)."""
+    from eventful_transformer_tpu_torch.core.counting import Ctx
+
+    ctx = Ctx(count_mode=count)
+    state = model.init_state(frames.shape[1], frames.dtype, frames.device)
+    aux = model.precompute()
+    eventful = "qkv_gate" in state["blocks"][0]
+    outs = []
+    for t in range(frames.shape[0]):
+        if frame_events is not None:
+            frame_events[t].record()
+        mode = ("flush" if t == 0 else "incremental") if eventful else None
+        tokens = model.pre_backbone(ctx, frames[t])
+        tokens, state = model.apply_backbone(ctx, state, tokens, aux, mode=mode)
+        if keep:
+            outs.append(tokens)
+    if frame_events is not None:
+        frame_events[-1].record()
+    if frames.is_cuda:
+        torch.cuda.synchronize()
+    return tokens, ctx.counts, outs
+
+
+def vitdet_expected_launches(eventful):
+    """Launches per call (2 streams x 16 frames). Eventful: in each of the
+    15 incremental frames ln_norms once (block 0; every later block gets
+    its norms from the block before), gate_group_linear for the 4 global
+    qkv groups and the 12 projection groups, block_select_p and
+    block_scatter_rows for the 8 windowed qkv groups, gate_group_mlp in
+    every block; window_attention in the 8 windowed blocks of every frame.
+    Dense: window_attention in the windowed blocks and dense_mlp_residual in
+    every block, every frame."""
+    depth, frames = VITDET_WINDOWED + VITDET_GLOBAL, VITDET_FRAMES
+    want = dict.fromkeys(wrappers(), 0)
+    want["window_attention"] = VITDET_WINDOWED * frames
+    if eventful:
+        steps = frames - 1
+        want.update(
+            ln_norms=steps, gate_group_linear=(VITDET_GLOBAL + depth) * steps,
+            block_select_p=VITDET_WINDOWED * steps, block_scatter_rows=VITDET_WINDOWED * steps,
+            gate_group_mlp=depth * steps,
+        )
+    else:
+        want["dense_mlp_residual"] = depth * frames
+    return want
+
+
+def vitdet_jax_flops(eventful, valid_shares):
+    """The JAX package's count of one call (all streams and frames) from
+    VITDET_FLOPS; ``valid_shares``: the pooled valid share of every global
+    block's incremental step (a mean over the streams)."""
+    f = VITDET_FLOPS
+    frames, steps = VITDET_FRAMES, VITDET_FRAMES - 1
+    if not eventful:
+        per_frame = f["position_add"] + VITDET_WINDOWED * f["dense_windowed"] + (
+            VITDET_GLOBAL * f["dense_global"])
+        return VITDET_STREAMS * frames * per_frame
+    fixed = frames * f["position_add"] + VITDET_WINDOWED * (
+        f["windowed_flush"] + steps * f["windowed_incremental"]
+    ) + VITDET_GLOBAL * (f["global_flush"] + steps * f["global_incremental_base"])
+    if len(valid_shares) != VITDET_GLOBAL * steps:
+        raise AssertionError(f"{len(valid_shares)} pooled selections, expected {VITDET_GLOBAL * steps}")
+    shares = f["global_incremental_per_valid_share"] * sum(valid_shares)
+    return VITDET_STREAMS * (fixed + shares)
+
+
+def vitdet_counted_call(model, frames, eventful):
+    """One call with the launch counts set to 0 just before and read just
+    after, counting FLOPs; checks launches, the output and the count
+    against the JAX package's. Returns (launches, the port's and the JAX
+    package's GFLOPs per frame, the mean pooled valid share)."""
+    from eventful_transformer_tpu_torch.core import blocks
+
+    pool_index = blocks.EventfulMatmul1Block._pool_index
+    shares = []
+
+    def recorded(self, index, mask):
+        out = pool_index(self, index, mask)
+        shares.append(float(out[1].float().mean()))
+        return out
+
+    blocks.EventfulMatmul1Block._pool_index = recorded
+    try:
+        reset_launches()
+        tokens, counts, _ = run_vitdet(model, frames, count=True)
+        launches = read_launches()
+    finally:
+        blocks.EventfulMatmul1Block._pool_index = pool_index
+    want = vitdet_expected_launches(eventful)
+    if launches != want:
+        raise AssertionError(f"ViTDet launch counts {launches}, expected {want}")
+    if tokens.shape != (VITDET_STREAMS, VITDET_N, 768) or not torch.isfinite(tokens).all():
+        raise AssertionError(f"bad ViTDet output: shape {tuple(tokens.shape)}")
+    got = sum(v for k, v in counts.items() if k != "policy_saturated")
+    ref = vitdet_jax_flops(eventful, shares)
+    if abs(got - ref) > 1e-6 * ref:
+        raise AssertionError(f"counted {got} FLOPs per call, the JAX package's count is {ref}")
+    mean_share = sum(shares) / len(shares) if shares else None
+    return launches, got / VITDET_FRAMES / 1e9, ref / VITDET_FRAMES / 1e9, mean_share
+
+
+def vitdet_card_vs_cpu(cpu_model, frames, device):
+    """One stream x 3 frames in float32 on the card against the same model
+    on the CPU (plain versions): the tokens of every frame and the gate
+    selections, recorded around the blocks' coverage_from_norms."""
+    from eventful_transformer_tpu_torch.core import blocks
+
+    card_model = copy.deepcopy(cpu_model).to(device)
+    coverage_from_norms = blocks.coverage_from_norms
+    logs = {"card": [], "cpu": []}
+    outs, seconds = {}, {}
+    try:
+        for tag, model, clip in (("card", card_model, frames.to(device)), ("cpu", cpu_model, frames)):
+            def recorded(norms, k, log=logs[tag]):
+                cov = coverage_from_norms(norms, k)
+                log.append(cov.cpu())
+                return cov
+
+            blocks.coverage_from_norms = recorded
+            start = time.perf_counter()
+            outs[tag] = [t.cpu() for t in run_vitdet(model, clip, keep=True)[2]]
+            seconds[tag] = time.perf_counter() - start
+    finally:
+        blocks.coverage_from_norms = coverage_from_norms
+    if not logs["card"] or len(logs["card"]) != len(logs["cpu"]):
+        raise AssertionError("the two runs selected at different numbers of gates")
+    selections = flips = 0
+    for a, b in zip(logs["card"], logs["cpu"]):
+        selections += int(b.sum())
+        flips += int((a != b).sum()) // 2
+    scaled = max(
+        float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+        for a, b in zip(outs["card"], outs["cpu"])
+    )
+    numbers = dict(
+        f32_card_vs_cpu_max_scaled_token_err=scaled, token_tol=VITDET_TOKEN_TOL,
+        gate_selections=selections, selections_differing=flips,
+        max_flip_share=MAX_FLIP_SHARE, f32_card_s=seconds["card"], f32_cpu_s=seconds["cpu"],
+    )
+    if scaled > VITDET_TOKEN_TOL or flips > MAX_FLIP_SHARE * selections:
+        raise AssertionError(f"float32 ViTDet card run disagrees with the CPU run: {numbers}")
+    return numbers
+
+
+def phase_vitdet_slice(device):
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import ViTDet
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    eventful = ViTDet(**vitdet_config(True), seed=SEED)
+    set_policies(eventful, TokenNormTopK, k=VITDET_K)
+    eventful = eventful.to(device, torch.bfloat16)
+    dense = ViTDet(**vitdet_config(False), seed=SEED).to(device, torch.bfloat16)
+    frames = vitdet_frames(VITDET_FRAMES, VITDET_STREAMS, device, torch.bfloat16)
+    launches, g_eventful, g_eventful_jax, share = vitdet_counted_call(eventful, frames, True)
+    dense_launches, g_dense, g_dense_jax, _ = vitdet_counted_call(dense, frames, False)
+    cpu_model = ViTDet(**vitdet_config(True, matmul_2_cast=None), seed=SEED)
+    set_policies(cpu_model, TokenNormTopK, k=VITDET_K)
+    clip = vitdet_frames(3, 1, "cpu", torch.float32, seed=SEED + 1)
+    numbers = vitdet_card_vs_cpu(cpu_model, clip, device)
+    emit(
+        "vitdet_slice", launches=launches, dense_launches=dense_launches,
+        gflops_per_frame_eventful=g_eventful, jax_gflops_per_frame_eventful=g_eventful_jax,
+        gflops_per_frame_dense=g_dense, jax_gflops_per_frame_dense=g_dense_jax,
+        mean_pooled_valid_share=share, **numbers,
+    )
+    return eventful, dense, frames, launches, dense_launches
+
+
+def time_vitdet(model, frames, warmup=1, iters=3):
+    """ms per frame of a call: [flush frame, mean of the incremental
+    frames, mean of all frames], each a mean over ``iters`` calls."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(frames.shape[0] + 1)]
+    for _ in range(warmup):
+        run_vitdet(model, frames)
+    per_frame = []
+    for _ in range(iters):
+        run_vitdet(model, frames, frame_events=events)
+        per_frame.append([a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])])
+    flush = sum(ms[0] for ms in per_frame) / iters
+    steady = sum(sum(ms[1:]) / (len(ms) - 1) for ms in per_frame) / iters
+    whole = sum(sum(ms) / len(ms) for ms in per_frame) / iters
+    return [flush, steady, whole]
+
+
+def phase_vitdet_time(eventful, dense, frames, smi):
+    times = {"dense": [], "eventful": []}
+    for name in ("dense", "eventful", "eventful", "dense"):
+        times[name].append(time_vitdet(eventful if name == "eventful" else dense, frames))
+    emit(
+        "vitdet_time", card=smi, streams=VITDET_STREAMS, frames=VITDET_FRAMES, k=VITDET_K,
+        dtype="bfloat16", columns=["flush_frame_ms", "incremental_frame_ms", "mean_frame_ms"],
+        dense_ms=times["dense"], eventful_ms=times["eventful"],
+    )
+
+
+def kernel_row(name, row, launches, path):
+    from eventful_transformer_tpu_torch.ops import kernel_check
+
+    wrapper, _, source, replaces, _ = kernel_check.KERNELS[name]
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces, path=path,
+        shape=[row["batch"], row["n"]], launches=launches[wrapper.__name__],
+        max_abs_err=max(out["max_abs_err"] for out in row["outputs"]),
+        ms=row["ms"], plain_ms=row["plain_ms"],
+    )
+
+
 def main():
     smi = phase_env()
     device = torch.device("cuda", 0)
@@ -310,17 +618,25 @@ def main():
     kernel_rows = phase_kernels(device)
     eventful, dense, views, launches = phase_slice(device)
     phase_time(eventful, dense, views, smi)
-    from eventful_transformer_tpu_torch.ops import kernel_check
+    del eventful, dense, views
+    torch.cuda.empty_cache()
+    vitdet_rows = phase_vitdet_kernels(device)
+    v_eventful, v_dense, frames, v_launches, v_dense_launches = phase_vitdet_slice(device)
+    phase_vitdet_time(v_eventful, v_dense, frames, smi)
 
-    kernels = []
-    for name, (_, _, source, replaces, _) in kernel_check.KERNELS.items():
-        row = kernel_rows[(name, torch.bfloat16, N_TOKENS)]
-        kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name],
-            max_abs_err=max(out["max_abs_err"] for out in row["outputs"]),
-            ms=row["ms"], plain_ms=row["plain_ms"],
-        ))
+    # launches: the eventful model's counted run of each path; on the ViTDet
+    # path dense_mlp_residual runs in the dense twin only. Two forms of one
+    # kernel (gate_group_linear) share its count.
+    vitdet_counts = {k: v or v_dense_launches[k] for k, v in v_launches.items()}
+    kernels = [
+        kernel_row(name, kernel_rows[(name, torch.bfloat16, N_TOKENS)], launches, "vivit")
+        for name in VIVIT_KERNELS
+    ]
+    kernels += [
+        kernel_row(name, vitdet_rows[(name, torch.bfloat16, VITDET_N)], vitdet_counts,
+                   "vitdet_672")
+        for name in VITDET_KERNELS
+    ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

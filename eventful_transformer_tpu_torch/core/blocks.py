@@ -1,45 +1,97 @@
-"""Transformer blocks (port of the dense ``Block`` and of
-``EventfulTokenwiseBlock`` from ``eventful_transformer_tpu/core/blocks.py``).
+"""Transformer blocks (port of ``eventful_transformer_tpu/core/blocks.py``):
+the dense ``Block``, ``EventfulTokenwiseBlock``, ``EventfulMatmul1Block``
+and ``EventfulBlock``.
 
-``Block`` is the dense pre-LN ViT block with global attention, as the JAX
-package runs it on the TPU: LN and the qkv and projection linears in plain
-PyTorch, the attention through ``window_attention`` in its global mode and
-the MLP half through ``dense_mlp_residual``. The ``EventfulTokenwiseBlock``
-runs its flush step with the same attention kernel and a plain MLP (whose
-output fills the token buffer), and every incremental step through the
-kernel pipeline of the JAX package's "v4" block step: ``ln_norms`` (first
-block of a step only), kernel A, kernel B and kernel C, with the top-k
-coverage computed between them.
+``Block`` is the dense pre-LN ViT block with global or windowed attention,
+relative position embeddings, k/v pooling and the matmul-2 cast. LN and
+the qkv and projection linears run in plain PyTorch; the attention runs
+through ``window_attention`` where the JAX package runs its kernel there
+(global attention without pooling, rel-pos or cast at N <= 512; windowed
+attention without pooling or cast, with its rel-pos terms), else in plain
+PyTorch, as the JAX package runs it in XLA; the MLP half runs through
+``dense_mlp_residual``.
 
-Windows, pooling, relative positions, ATS, drop-path, matmul-2 casting,
-sequence parallelism, gate-before-LN and STGT gates are not ported; asking
-for one raises ``NotImplementedError`` naming the ROADMAP.md item that
-holds it.
+The eventful blocks flush densely (``mode="flush"``) and then step
+incrementally (``mode="incremental"``) in the regime ``_fused_mode``
+picks, as the JAX package dispatches on the TPU:
+
+- "v4" (N <= 512, a plain tokenwise block with order-2 top-k gates):
+  ``ln_norms`` (first block of a step only), kernel A, kernel B and
+  kernel C, with the top-k coverage computed between them;
+- "v2" (512 < N <= 2048, or forced): the whole-group kernels. The qkv
+  group of a windowed block keeps its buffer window-major and runs
+  ``block_select_p`` and ``block_scatter_rows`` around a k-row qkv
+  linear; other qkv groups and every projection group run
+  ``gate_group_linear``; the MLP group runs ``gate_group_mlp``.
+
+The "v2mlp" regime (N <= 512, a block "v4" does not take) and the
+"blocked" regime (N > 2048) are not ported; neither are ATS, drop-path,
+sequence parallelism, gate-before-LN, STGT gates and the cached product
+and delta-accumulator forms. Asking for one raises ``NotImplementedError``
+naming the ROADMAP.md item that holds it.
 """
 
 from __future__ import annotations
 
-from math import sqrt
+from math import prod, sqrt
 
+import numpy as np
+import torch
 from torch import nn
 
-from eventful_transformer_tpu_torch.core.gating import TokenBuffer, TokenGate
-from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms
-from eventful_transformer_tpu_torch.core.nn import LayerNorm, Linear, counted_add, gelu, layer_norm
-from eventful_transformer_tpu_torch.core.policies import check_kernel_policy
+from eventful_transformer_tpu_torch.core.embeddings import RelativePositionEmbedding
+from eventful_transformer_tpu_torch.core.gating import (
+    MatmulBuffer,
+    MatmulDeltaAccumulator,
+    TokenBuffer,
+    TokenDeltaGate,
+    TokenGate,
+)
+from eventful_transformer_tpu_torch.core.indexing import (
+    coverage,
+    coverage_from_norms,
+    index_from_coverage,
+    select_cols,
+    select_rows,
+    take_rows,
+    valid_fraction,
+)
+from eventful_transformer_tpu_torch.core.nn import (
+    LayerNorm,
+    Linear,
+    counted_add,
+    counted_matmul,
+    gelu,
+    layer_norm,
+    not_ported,
+)
+from eventful_transformer_tpu_torch.core.policies import (
+    TokenNormTopK,
+    check_kernel_policy,
+    vector_norm,
+)
 from eventful_transformer_tpu_torch.ops.block_fused import proj_group, qkv_attention_group
 from eventful_transformer_tpu_torch.ops.dense_mlp import dense_mlp_residual
+from eventful_transformer_tpu_torch.ops.gate_block import block_scatter_rows, block_select_p
 from eventful_transformer_tpu_torch.ops.gate_fused import ln_norms
-from eventful_transformer_tpu_torch.ops.gate_group import gate_group_mlp
-from eventful_transformer_tpu_torch.ops.window_attention import window_attention
+from eventful_transformer_tpu_torch.ops.gate_group import gate_group_linear, gate_group_mlp
+from eventful_transformer_tpu_torch.ops.window_attention import (
+    window_attention,
+    window_bias_terms,
+)
+
+_CAST_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16}
 
 
-def not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, open item {item})")
+def _pair(x):
+    return (x, x) if isinstance(x, int) else tuple(x)
 
 
 class Block(nn.Module):
-    """Dense pre-LN Transformer block with global attention."""
+    """Dense pre-LN Transformer block."""
+
+    # the JAX package's auto limit for the global attention kernel
+    GLOBAL_ATTN_MAX_TOKENS = 512
 
     def __init__(
         self,
@@ -56,23 +108,29 @@ class Block(nn.Module):
         sequence_parallel=None,
     ):
         super().__init__()
-        for value, what, item in (
-            (ats_fraction, "ATS", 10),
-            (matmul_2_cast, "matmul_2_cast", 10),
-            (relative_embedding_size, "relative position embedding", 13),
-            (pool_size, "k/v pooling", 13),
-            (window_size, "windowed attention", 13),
-            (sequence_parallel, "sequence parallelism", 17),
-        ):
-            if value is not None:
-                raise not_ported(what, item)
+        if ats_fraction is not None:
+            raise not_ported("ATS", 10)
+        if sequence_parallel is not None:
+            raise not_ported("sequence parallelism", 17)
         if drop_path_rate != 0.0:
             raise not_ported("drop-path (training)", 12)
+        if matmul_2_cast not in (None, *_CAST_DTYPES):
+            raise ValueError(f"matmul_2_cast must be None, float16 or bfloat16, got {matmul_2_cast!r}")
         if dim % heads:
             raise ValueError(f"{heads} heads do not divide dim {dim}")
-        del input_size  # token grid: only windows and rel-pos need it
         self.dim = dim
         self.heads = heads
+        self.input_size = tuple(input_size)
+        self.matmul_2_cast = matmul_2_cast
+        self.pool_size = None if pool_size is None else _pair(pool_size)
+        if window_size is None:
+            self.window_size = None
+            attention_size = self.input_size
+        else:
+            self.window_size = _pair(window_size)
+            attention_size = self.window_size
+            if relative_embedding_size is not None:
+                relative_embedding_size = self.window_size
         self.scale = sqrt(dim // heads)
         self.qkv = Linear(dim, dim * 3)
         self.projection = Linear(dim, dim)
@@ -80,19 +138,32 @@ class Block(nn.Module):
         self.mlp_2 = Linear(dim * mlp_ratio, dim)
         self.input_layer_norm = LayerNorm(dim)
         self.mlp_layer_norm = LayerNorm(dim)
+        self.relative_position = None
+        if relative_embedding_size is not None:
+            self.relative_position = RelativePositionEmbedding(
+                attention_size, relative_embedding_size, dim // heads, pool_size=self.pool_size
+            )
+        self._window_perm_cache = None
 
     def init_state(self, batch, n_tokens, dtype, device):
         del batch, n_tokens, dtype, device
         return {}
 
-    def forward(self, ctx, state, x, mode=None, qkv_norms=None, next_gate=None):
+    def precompute(self):
+        """Loop-invariant derived tensors: the rel-pos tables."""
+        if self.relative_position is None:
+            return {}
+        return {"relative": self.relative_position.precompute()}
+
+    def forward(self, ctx, state, x, mode=None, qkv_norms=None, next_gate=None, aux=None):
         """Returns (y, state, None); ``mode`` and the gate-norm handoff
-        arguments only mean something to eventful blocks."""
+        arguments only mean something to eventful blocks. ``aux``: this
+        block's :meth:`precompute`, computed here when not given."""
         del mode, qkv_norms, next_gate
         skip_1 = x
         x = layer_norm(x, self.input_layer_norm)
         x = self.qkv(ctx, x)
-        x = self._attention(ctx, x)
+        x = self._forward_attention(ctx, x, aux)
         x = self.projection(ctx, x)
         x = counted_add(ctx, x, skip_1)
         ln = self.mlp_layer_norm
@@ -110,23 +181,192 @@ class Block(nn.Module):
         ctx.add("add_flops", float(y.numel()))
         return y, state, None
 
-    def _attention(self, ctx, x):
-        """Global multi-head attention of packed qkv (B, N, 3C) -> (B, N, C),
-        counted as the plain path's q.kT and A.V matmuls."""
-        b, n, _ = x.shape
-        ctx.add("matmul_flops", 2.0 * b * self.heads * n * n * (self.dim // self.heads))
-        return window_attention(x, heads=self.heads, scale=self.scale)
-
     def _mlp(self, ctx, x):
         return self.mlp_2(ctx, gelu(self.mlp_1(ctx, x)))
+
+    # -- attention -------------------------------------------------------------
+
+    def _window_kernel_ok(self):
+        return self.window_size is not None and self.pool_size is None and self.matmul_2_cast is None
+
+    def _global_kernel_ok(self, n):
+        return (
+            self.window_size is None
+            and self.pool_size is None
+            and self.matmul_2_cast is None
+            and self.relative_position is None
+            and n <= self.GLOBAL_ATTN_MAX_TOKENS
+        )
+
+    def _forward_attention(self, ctx, x, aux, pre_partitioned=False):
+        """Multi-head attention of packed qkv (B, N, 3C) -> (B, N, C). With
+        ``pre_partitioned`` x is the window-major resident buffer (B, NW,
+        3C), whose pad rows already hold the qkv bias row."""
+        if pre_partitioned:
+            x = x.reshape(-1, prod(self.window_size), x.shape[-1])
+            if any(self._window_padding()):
+                # the pad-bias map, counted once as the partitioning paths count it
+                self.qkv.apply_bias(ctx, x.new_zeros((1, 1, 1, x.shape[-1])))
+        if self._window_kernel_ok():
+            if not pre_partitioned:
+                x = self._partition_windows(ctx, x)
+            return self._recombine_windows(self._fused_attention(ctx, x, aux))
+        if not pre_partitioned and self._global_kernel_ok(x.shape[-2]):
+            return self._fused_attention(ctx, x, aux)
+        if not pre_partitioned:
+            x = self._partition_windows(ctx, x)
+        q, k, v = self._partition_heads(x)
+        k = self._pool_tokens(k)
+        v = self._pool_tokens(v)
+        a = counted_matmul(ctx, q / self.scale, k.transpose(-2, -1))
+        if self.relative_position is not None:
+            a = self.relative_position(ctx, a, q, self._derived(aux))
+        a = torch.softmax(a, dim=-1)
+        a, v, old_dtype = self._cast_matmul_2(a, v)
+        x = counted_matmul(ctx, a, v)
+        x = self._recombine_windows(self._recombine_heads(x))
+        return self._uncast_matmul_2(x, old_dtype)
+
+    def _derived(self, aux):
+        derived = (aux or {}).get("relative")
+        return derived if derived is not None else self.relative_position.precompute()
+
+    def _fused_attention(self, ctx, x, aux):
+        """x (Bw, T, 3C), one window (or the whole sequence) per row, through
+        ``window_attention``; counted as the plain path counts (matmul-1,
+        matmul-2 and, with rel-pos, the term einsums and the two adds)."""
+        bw, t, _ = x.shape
+        d = self.dim // self.heads
+        if self.relative_position is not None:
+            rp = self.relative_position
+            p = rp.pooled_size()
+            tab = rp.window_tab(self._derived(aux), x.dtype)
+            terms = window_bias_terms(x, tab, self.heads)
+            out = window_attention(x, terms, heads=self.heads, scale=self.scale, p=p)
+            ctx.add("einsum_flops", float(bw * self.heads * t * (p[0] + p[1]) * d))
+            ctx.add("add_flops", 2.0 * bw * self.heads * t * t)
+        else:
+            out = window_attention(x, heads=self.heads, scale=self.scale)
+        ctx.add("matmul_flops", 2.0 * bw * self.heads * t * t * d)
+        return out
+
+    def _partition_heads(self, x):
+        b, n = x.shape[:2]
+        x = x.reshape(b, n, 3, self.heads, x.shape[-1] // (3 * self.heads))
+        q, k, v = x.permute(2, 0, 3, 1, 4)
+        return q, k, v
+
+    @staticmethod
+    def _recombine_heads(x):
+        b, h, n, c = x.shape
+        return x.transpose(1, 2).reshape(b, n, h * c)
+
+    # -- windows ---------------------------------------------------------------
+
+    def _window_padding(self):
+        return (
+            -self.input_size[0] % self.window_size[0],
+            -self.input_size[1] % self.window_size[1],
+        )
+
+    def _window_major(self, x, pad_vec):
+        """(B, N, C) row-major tokens -> (B, NW, C) window-major rows of the
+        window grid, pad positions filled with ``pad_vec`` (C,)."""
+        p = self._window_padding()
+        d = self.window_size
+        b, _, c = x.shape
+        h, w = self.input_size
+        x = x.reshape(b, h, w, c)
+        if any(p):
+            padded = pad_vec.expand(b, h + p[0], w + p[1], c).clone()
+            padded[:, :h, :w] = x
+            x = padded
+            h, w = h + p[0], w + p[1]
+        x = x.reshape(b, h // d[0], d[0], w // d[1], d[1], c).permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(b, h * w, c)
+
+    def _partition_windows(self, ctx, x):
+        """qkv (B, N, 3C) -> (B * windows, T, 3C); pad tokens equal the qkv
+        bias row, qkv(0) (reference blocks.py:269-287), counted."""
+        if self.window_size is None:
+            return x
+        c = x.shape[-1]
+        pad_vec = None
+        if any(self._window_padding()):
+            pad_vec = self.qkv.apply_bias(ctx, x.new_zeros((1, 1, 1, c))).reshape(c)
+        return self._window_major(x, pad_vec).reshape(-1, prod(self.window_size), c)
+
+    def _recombine_windows(self, x):
+        if self.window_size is None:
+            return x
+        p = self._window_padding()
+        d = self.window_size
+        s = self.input_size
+        c = x.shape[-1]
+        total_h, total_w = s[0] + p[0], s[1] + p[1]
+        x = x.reshape(-1, total_h // d[0], total_w // d[1], d[0], d[1], c)
+        x = x.permute(0, 1, 3, 2, 4, 5).reshape(-1, total_h, total_w, c)
+        if any(p):
+            x = x[:, : s[0], : s[1]]
+        return x.reshape(x.shape[0], s[0] * s[1], c)
+
+    def _window_perm(self):
+        """(perm, inv) numpy int32 maps between row-major tokens and
+        window-major positions: perm holds the row-major token of each
+        window-major position (pad positions -> h * w); inv the
+        window-major position of each row-major token."""
+        if self._window_perm_cache is None:
+            p = self._window_padding()
+            d = self.window_size
+            h, w = self.input_size
+            hp, wp = h + p[0], w + p[1]
+            rowmajor = np.full((hp, wp), h * w, dtype=np.int32)
+            rowmajor[:h, :w] = np.arange(h * w, dtype=np.int32).reshape(h, w)
+            perm = (
+                rowmajor.reshape(hp // d[0], d[0], wp // d[1], d[1]).transpose(0, 2, 1, 3).reshape(-1)
+            )
+            inv = np.zeros(h * w, dtype=np.int32)
+            valid = perm < h * w
+            inv[perm[valid]] = np.nonzero(valid)[0].astype(np.int32)
+            self._window_perm_cache = (perm, inv)
+        return self._window_perm_cache
+
+    # -- pooling and the matmul-2 cast ------------------------------------------
+
+    def _pool_tokens(self, x):
+        """Average-pool k or v (B, H, N, d) over the token grid."""
+        if self.pool_size is None:
+            return x
+        w = self.input_size if self.window_size is None else self.window_size
+        b, h, _, c = x.shape
+        ph, pw = self.pool_size
+        y = x.reshape(-1, w[0] // ph, ph, w[1] // pw, pw, c).mean(dim=(2, 4))
+        return y.reshape(b, h, -1, c)
+
+    def _cast_matmul_2(self, a, v):
+        if self.matmul_2_cast is None:
+            return a, v, None
+        dtype = _CAST_DTYPES[self.matmul_2_cast]
+        return a.to(dtype), v.to(dtype), a.dtype
+
+    @staticmethod
+    def _uncast_matmul_2(x, old_dtype):
+        return x if old_dtype is None else x.to(old_dtype)
 
 
 class EventfulTokenwiseBlock(Block):
     """Gates the token-wise ops: qkv, projection and MLP each sit behind a
     token gate. Step 0 runs dense (``mode="flush"``); later steps
-    (``mode="incremental"``) run the kernel pipeline, which recomputes qkv
-    and the projection densely from the gate states (buffer == op(p)) and
-    runs the MLP on the selected rows only."""
+    (``mode="incremental"``) run the regime of :meth:`_fused_mode`.
+
+    ``fused_gates`` mirrors the JAX attribute with the values the port
+    implements: "auto" (the JAX package's TPU dispatch by token count),
+    "v4" and "v2" (forced)."""
+
+    V2MLP_MAX_TOKENS = 512
+    V2_MAX_TOKENS = 2048
+    # whether _attention_incremental consumes the qkv gate's indices
+    _attention_uses_index = False
 
     def __init__(self, gate_before_ln=False, stgt=False, **block_kwargs):
         if gate_before_ln:
@@ -134,8 +374,12 @@ class EventfulTokenwiseBlock(Block):
         if stgt:
             raise not_ported("STGT gates", 10)
         super().__init__(**block_kwargs)
+        self.fused_gates = "auto"
+        self._window_index_cache = {}
         self.qkv_gate = TokenGate()
+        self.qkv_accumulator = TokenBuffer()
         self.projection_gate = TokenGate()
+        self.projection_accumulator = TokenBuffer()
         self.mlp_gate = TokenGate()
         self.mlp_accumulator = TokenBuffer()
 
@@ -143,36 +387,118 @@ class EventfulTokenwiseBlock(Block):
     def gates(self):
         return [self.qkv_gate, self.projection_gate, self.mlp_gate]
 
+    def _fused_mode(self, n_tokens):
+        """The incremental regime (core/blocks.py:847-875 of the JAX
+        package, with its TPU thresholds)."""
+        if self.fused_gates == "v4":
+            return "v4" if self._v4_eligible() else "v2mlp"
+        if self.fused_gates == "v2":
+            return "v2"
+        if self.fused_gates != "auto":
+            raise ValueError(f"fused_gates must be 'auto', 'v4' or 'v2', got {self.fused_gates!r}")
+        if n_tokens <= self.V2MLP_MAX_TOKENS:
+            return "v4" if self._v4_eligible() else "v2mlp"
+        if n_tokens <= self.V2_MAX_TOKENS:
+            return "v2"
+        return "blocked"
+
+    def _v4_eligible(self):
+        """The whole-block "v4" step takes a plain tokenwise block (global
+        attention, no pooling, rel-pos or cast, index-free attention) with
+        an order-2 ``TokenNormTopK`` on every gate. The JAX package's TPU
+        tiling condition on the head width is not part of the port's rule."""
+        if (
+            self._attention_uses_index
+            or self.window_size is not None
+            or self.pool_size is not None
+            or self.relative_position is not None
+            or self.matmul_2_cast is not None
+        ):
+            return False
+        return all(type(g.policy) is TokenNormTopK and g.policy.order == 2 for g in self.gates)
+
+    def _resident_qkv(self, n_tokens):
+        """Whether the qkv buffer lives window-major (the JAX package's
+        ``window_resident_qkv`` default)."""
+        return (
+            self.window_size is not None
+            and self.pool_size is None
+            and self._fused_mode(n_tokens) in ("v2", "blocked")
+        )
+
+    def _resident_rows(self):
+        p = self._window_padding()
+        return (self.input_size[0] + p[0]) * (self.input_size[1] + p[1])
+
+    def _window_index(self, device):
+        """(N + 1,) int32 map of row-major token -> window-major row, with
+        the out-of-range marker N -> -1, on ``device``."""
+        if device not in self._window_index_cache:
+            _, inv = self._window_perm()
+            ext = np.concatenate([inv, np.full((1,), -1, np.int32)])
+            self._window_index_cache[device] = torch.from_numpy(ext).to(device)
+        return self._window_index_cache[device]
+
     def init_state(self, batch, n_tokens, dtype, device):
         shape = (batch, n_tokens, self.dim)
-        return {
+        state = {
             "qkv_gate": self.qkv_gate.init_state(shape, dtype, device),
             "projection_gate": self.projection_gate.init_state(shape, dtype, device),
             "mlp_gate": self.mlp_gate.init_state(shape, dtype, device),
             "mlp_accumulator": self.mlp_accumulator.init_state(shape, dtype, device),
         }
+        # the whole-group regimes keep qkv and projection buffers; "v4"
+        # recomputes both from the gate states
+        if self._fused_mode(n_tokens) in ("v2", "blocked"):
+            rows = self._resident_rows() if self._resident_qkv(n_tokens) else n_tokens
+            state["qkv_accumulator"] = self.qkv_accumulator.init_state(
+                (batch, rows, 3 * self.dim), dtype, device
+            )
+            state["projection_accumulator"] = self.projection_accumulator.init_state(
+                shape, dtype, device
+            )
+        return state
 
-    def forward(self, ctx, state, x, mode=None, qkv_norms=None, next_gate=None):
+    def forward(self, ctx, state, x, mode=None, qkv_norms=None, next_gate=None, aux=None):
         """``mode``: "flush" or "incremental". ``qkv_norms``: this block's
-        qkv-gate norms from the previous block's kernel C. ``next_gate``:
-        the next block's (p_qkv, ln_scale, ln_bias), whose norms kernel C
-        then emits. Returns (y, state, next_norms); the state tensors are
-        updated in place by the incremental step."""
+        qkv-gate norms from the previous block's last kernel. ``next_gate``:
+        the next block's (p_qkv, ln_scale, ln_bias), whose norms this
+        block's last kernel then emits. Returns (y, state, next_norms); the
+        kernels update the state tensors in place."""
         if mode == "flush":
-            y, state = self._flush(ctx, state, x)
+            y, state = self._flush(ctx, state, x, aux)
             return y, state, None
         if mode == "incremental":
-            return self._step(ctx, state, x, qkv_norms, next_gate)
+            return self._incremental(ctx, state, x, qkv_norms, next_gate, aux)
         raise ValueError(f"mode must be 'flush' or 'incremental', got {mode!r}")
 
-    def _flush(self, ctx, state, x):
+    # -- flush -----------------------------------------------------------------
+
+    def _flush(self, ctx, state, x, aux):
         state = dict(state)
         skip_1 = x
         x = layer_norm(x, self.input_layer_norm)
         _, state["qkv_gate"] = self.qkv_gate.flush(state["qkv_gate"], x)
-        x = self._attention(ctx, self.qkv(ctx, x))
+        x = self.qkv(ctx, x)
+        if "qkv_accumulator" in state and self._resident_qkv(x.shape[-2]):
+            # pad rows hold the qkv bias row, uncounted: the attention entry
+            # counts the pad-bias map once
+            x = self._window_major(x, self.qkv.bias.to(x.dtype))
+            x, state["qkv_accumulator"] = self.qkv_accumulator.flush(state["qkv_accumulator"], x)
+            x = self._forward_attention(ctx, x, aux, pre_partitioned=True)
+        else:
+            if "qkv_accumulator" in state:
+                x, state["qkv_accumulator"] = self.qkv_accumulator.flush(
+                    state["qkv_accumulator"], x
+                )
+            x, state = self._attention_flush(ctx, state, x, aux)
         _, state["projection_gate"] = self.projection_gate.flush(state["projection_gate"], x)
-        x = counted_add(ctx, self.projection(ctx, x), skip_1)
+        x = self.projection(ctx, x)
+        if "projection_accumulator" in state:
+            x, state["projection_accumulator"] = self.projection_accumulator.flush(
+                state["projection_accumulator"], x
+            )
+        x = counted_add(ctx, x, skip_1)
         skip_2 = x
         x = layer_norm(x, self.mlp_layer_norm)
         _, state["mlp_gate"] = self.mlp_gate.flush(state["mlp_gate"], x)
@@ -181,19 +507,135 @@ class EventfulTokenwiseBlock(Block):
         )
         return counted_add(ctx, x, skip_2), state
 
-    def _capacities(self, n):
-        caps = []
+    def _attention_flush(self, ctx, state, x, aux):
+        return self._forward_attention(ctx, x, aux), state
+
+    def _attention_incremental(self, ctx, state, x, index, mask, aux):
+        del index, mask
+        return self._forward_attention(ctx, x, aux), state
+
+    # -- incremental -------------------------------------------------------------
+
+    def _incremental(self, ctx, state, x, norms, next_gate, aux):
+        n = x.shape[-2]
         for gate in self.gates:
             check_kernel_policy(gate.policy)
-            k = gate.policy.capacity(n)
-            if k < 1:
-                raise ValueError(f"policy {gate.policy!r} selects no token of {n}")
-            caps.append(k)
-        return caps
+        mode = self._fused_mode(n)
+        if mode == "v4":
+            return self._v4_step(ctx, state, x, norms, next_gate)
+        if mode == "v2mlp":
+            raise not_ported(f"the 'v2mlp' regime (N={n} <= 512, a block 'v4' does not take)", 10)
+        if mode == "blocked":
+            raise not_ported(f"the 'blocked' regime (N={n} > 2048)", 18)
+        state = dict(state)
+        skip_1 = x
+        if self._resident_qkv(n):
+            x = self._resident_qkv_group(ctx, state, x, norms)
+            x = self._forward_attention(ctx, x, aux, pre_partitioned=True)
+        else:
+            outs, index, mask = self._v2_group_linear(
+                ctx, self.qkv_gate, state["qkv_gate"], state["qkv_accumulator"], x,
+                self.input_layer_norm, "post", self.qkv,
+                need_index=self._attention_uses_index, norms=norms,
+            )
+            x, state = self._attention_incremental(ctx, state, outs[1], index, mask, aux)
+        # the projection group emits the MLP gate's norms
+        own_mlp = (state["mlp_gate"]["p"], self.mlp_layer_norm.scale, self.mlp_layer_norm.bias)
+        outs, _, _ = self._v2_group_linear(
+            ctx, self.projection_gate, state["projection_gate"],
+            state["projection_accumulator"], x, None, "none", self.projection,
+            skip=skip_1, next_gate=own_mlp,
+        )
+        x, mlp_norms = outs[2], outs[3]
+        ctx.add("add_flops", x.numel())  # skip_1 residual
+        y, next_norms = self._v2_group_mlp(ctx, state, x, mlp_norms, next_gate)
+        return y, state, next_norms
 
-    def _step(self, ctx, state, x, norms, next_gate):
+    def _v2_select(self, ctx, gate, p, x, ln, ln_mode, norms=None, need_index=False):
+        """Error norms -> coverage (and the indices when ``need_index``).
+        ``norms``: precomputed by an upstream kernel. Returns (kcap, index,
+        mask, cov); index None on the coverage-only path."""
+        ctx.add("gate_flops", x.numel())
+        if norms is None:
+            if ln_mode == "post":
+                norms = ln_norms(x, p, ln.scale, ln.bias)
+            else:  # "none": error in the input domain
+                norms = vector_norm(x - p, -1, 2)
         n = x.shape[-2]
-        kq, kp, km = self._capacities(n)
+        if not need_index:
+            kcap = gate.policy.capacity(n)
+            return kcap, None, None, coverage_from_norms(norms, kcap)
+        index, mask = gate.policy.select_from_norms(norms, ctx)
+        return index.shape[-1], index, mask, coverage(index, mask, n)
+
+    def _v2_group_linear(
+        self, ctx, gate, gate_state, buf_state, x, ln, ln_mode, linear, skip=None,
+        need_index=False, norms=None, next_gate=None,
+    ):
+        """Gate -> gathered linear -> buffer blend (-> skip add, next-gate
+        norms) through ``gate_group_linear``. Returns ((p, b, y,
+        next_norms), index, mask), counted as the gathered path."""
+        kcap, index, mask, cov = self._v2_select(
+            ctx, gate, gate_state["p"], x, ln, ln_mode, norms=norms, need_index=need_index
+        )
+        scale, bias = (ln.scale, ln.bias) if ln_mode == "post" else (None, None)
+        p_next, n_scale, n_bias = next_gate or (None, None, None)
+        outs = gate_group_linear(
+            x, gate_state["p"], buf_state["b"], cov, scale, bias, linear.kernel, linear.bias,
+            skip, p_next, n_scale, n_bias, ln_mode=ln_mode, kcap=kcap,
+        )
+        frac = (kcap / x.shape[-2]) * valid_fraction(mask)
+        rows = x.numel() // x.shape[-1]
+        ctx.add("linear_flops", frac * float(x.numel() * linear.out_features))
+        ctx.add("bias_flops", frac * float(rows * linear.out_features))
+        return outs, index, mask
+
+    def _resident_qkv_group(self, ctx, state, x, norms):
+        """The qkv group over the window-major buffer: selection and the
+        gate-state select row-major, the k-row qkv linear in PyTorch, and
+        the buffer scatter at the window-major rows of the selected tokens.
+        Returns the updated buffer (B, NW, 3C)."""
+        ln = self.input_layer_norm
+        p = state["qkv_gate"]["p"]
+        ctx.add("gate_flops", x.numel())
+        if norms is None:
+            norms = ln_norms(x, p, ln.scale, ln.bias)
+        k = self.qkv_gate.policy.capacity(x.shape[-2])
+        cov = coverage_from_norms(norms, k)
+        index = index_from_coverage(cov, k)
+        h = self.qkv(ctx, layer_norm(take_rows(x, index), ln))
+        block_select_p(x, p, cov, ln.scale, ln.bias, apply_ln=True)
+        w_index = self._window_index(x.device)[index]
+        return block_scatter_rows(state["qkv_accumulator"]["b"], w_index, h)
+
+    def _v2_group_mlp(self, ctx, state, x, norms, next_gate):
+        """Gate -> gathered MLP -> buffer blend -> residual through
+        ``gate_group_mlp``. Returns (y, next_norms)."""
+        ln = self.mlp_layer_norm
+        p, b = state["mlp_gate"]["p"], state["mlp_accumulator"]["b"]
+        kcap, _, mask, cov = self._v2_select(ctx, self.mlp_gate, p, x, ln, "post", norms=norms)
+        p_next, n_scale, n_bias = next_gate or (None, None, None)
+        _, _, y, next_norms = gate_group_mlp(
+            x, p, b, cov, ln.scale, ln.bias, self.mlp_1.kernel, self.mlp_1.bias,
+            self.mlp_2.kernel, self.mlp_2.bias, p_next, n_scale, n_bias, kcap=kcap,
+        )
+        frac = (kcap / x.shape[-2]) * valid_fraction(mask)
+        rows = x.numel() // x.shape[-1]
+        hidden = self.mlp_1.out_features
+        ctx.add("linear_flops", frac * float(x.numel() * hidden))
+        ctx.add("bias_flops", frac * float(rows * hidden))
+        ctx.add("linear_flops", frac * float(rows * hidden * self.mlp_2.out_features))
+        ctx.add("bias_flops", frac * float(rows * self.mlp_2.out_features))
+        ctx.add("add_flops", y.numel())
+        return y, next_norms
+
+    def _v4_step(self, ctx, state, x, norms, next_gate):
+        """One "v4" step: ``ln_norms`` (unless the previous block handed
+        the norms over), kernel A, kernel B and kernel C."""
+        n = x.shape[-2]
+        kq, kp, km = (gate.policy.capacity(n) for gate in self.gates)
+        if min(kq, kp, km) < 1:
+            raise ValueError(f"a policy selects no token of {n}")
         ln1, ln2 = self.input_layer_norm, self.mlp_layer_norm
         p_qkv = state["qkv_gate"]["p"]
         p_proj = state["projection_gate"]["p"]
@@ -218,10 +660,10 @@ class EventfulTokenwiseBlock(Block):
             self.mlp_1.bias, self.mlp_2.kernel, self.mlp_2.bias, p_next, n_scale,
             n_bias, kcap=km,
         )
-        self._count_step(ctx, x, kq, kp, km)
+        self._count_v4_step(ctx, x, kq, kp, km)
         return y, state, next_norms
 
-    def _count_step(self, ctx, x, kq, kp, km):
+    def _count_v4_step(self, ctx, x, kq, kp, km):
         """The unfused path's counts, key for key: select-only gates, the
         valid_frac recompute linears, the attention matmuls, the adds."""
         b, n, c = x.shape
@@ -248,4 +690,152 @@ class EventfulTokenwiseBlock(Block):
         ctx.add("add_flops", x.numel())  # mlp residual
 
 
-BLOCK_CLASSES = {"Block": Block, "EventfulTokenwiseBlock": EventfulTokenwiseBlock}
+class EventfulMatmul1Block(EventfulTokenwiseBlock):
+    """Adds eventfulness to the query-key product: an incremental step
+    recomputes q.kT (``recompute_product``), counted as the reference's
+    row and column updates. Global attention only."""
+
+    _attention_uses_index = True
+
+    def __init__(self, **block_kwargs):
+        super().__init__(**block_kwargs)
+        if self.window_size is not None:
+            raise ValueError(f"{type(self).__name__} takes no windows")
+        if self.pool_size is not None and any(
+            s % p for s, p in zip(self.input_size, self.pool_size)
+        ):
+            raise ValueError(f"pool {self.pool_size} does not divide the grid {self.input_size}")
+        self.recompute_product = True
+        self.matmul_accumulator_1 = MatmulBuffer()
+
+    def _pooled_tokens(self, n_tokens):
+        if self.pool_size is None:
+            return n_tokens
+        extra = n_tokens - prod(self.input_size)  # class tokens, if any
+        return extra + prod(s // p for s, p in zip(self.input_size, self.pool_size))
+
+    def init_state(self, batch, n_tokens, dtype, device):
+        if not self.recompute_product:
+            raise not_ported("the cached q.kT product (recompute_product=False)", 10)
+        return super().init_state(batch, n_tokens, dtype, device)
+
+    def _attention_flush(self, ctx, state, x, aux):
+        a, v = self._matmul_1_flush(ctx, x, aux)
+        a, v, old_dtype = self._cast_matmul_2(a, v)
+        x = counted_matmul(ctx, a, v)
+        return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
+
+    def _attention_incremental(self, ctx, state, x, index, mask, aux):
+        a, v, _, _ = self._matmul_1_incremental(ctx, x, index, mask, aux)
+        a, v, old_dtype = self._cast_matmul_2(a, v)
+        x = counted_matmul(ctx, a, v)
+        return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
+
+    def _matmul_1_flush(self, ctx, x, aux):
+        q, k, v = self._partition_heads(x)
+        k, v = self._pool_tokens(k), self._pool_tokens(v)
+        a = counted_matmul(ctx, q / self.scale, k.transpose(-2, -1))
+        return self._matmul_1_post(ctx, a, q, aux), v
+
+    def _matmul_1_incremental(self, ctx, x, index, mask, aux):
+        q, k, v = self._partition_heads(x)
+        k, v = self._pool_tokens(k), self._pool_tokens(v)
+        index_k, mask_k = self._pool_index(index, mask)
+        a = self.matmul_accumulator_1.incremental_recompute(
+            ctx, q / self.scale, k.transpose(-2, -1), index, index_k, mask, mask_k
+        )
+        return self._matmul_1_post(ctx, a, q, aux), v, index_k, mask_k
+
+    def _matmul_1_post(self, ctx, a, q, aux):
+        if self.relative_position is not None:
+            a = self.relative_position(ctx, a, q, self._derived(aux))
+        return torch.softmax(a, dim=-1)
+
+    def _pool_index(self, index, mask):
+        """Token indices -> pooled-grid indices, deduplicated as the
+        reference's ``.unique()``: sorted, repeats masked off (their slots
+        hold 0)."""
+        if self.pool_size is None or index is None:
+            return index, mask
+        width = self.input_size[1]
+        index_y = (index // width) // self.pool_size[0]
+        index_x = (index % width) // self.pool_size[1]
+        pooled = index_y * (width // self.pool_size[1]) + index_x
+        big = torch.iinfo(torch.int32).max
+        key = pooled if mask is None else torch.where(mask, pooled, big)
+        s = key.sort(dim=-1).values
+        dup = torch.cat([torch.zeros_like(s[..., :1], dtype=torch.bool), s[..., 1:] == s[..., :-1]], -1)
+        new_mask = ~dup & (s != big)
+        return torch.where(new_mask, s, 0), new_mask
+
+
+class EventfulBlock(EventfulMatmul1Block):
+    """Adds eventfulness to the attention-value product. The delta-
+    accumulated product is pure memoization (``product == p_a @ p_v`` at
+    every step), so an incremental step selects the changed columns of the
+    attention matrix and rows of v into the gate states and recomputes
+    ``p_a @ p_v`` (``recompute_av``), counted as the reference's gathered
+    delta products."""
+
+    def __init__(self, **block_kwargs):
+        super().__init__(**block_kwargs)
+        self.recompute_av = True
+        self.v_gate = TokenDeltaGate()
+        self.matmul_gate = TokenDeltaGate(structure="col")
+        self.matmul_accumulator_2 = MatmulDeltaAccumulator()
+
+    def init_state(self, batch, n_tokens, dtype, device):
+        if not self.recompute_av:
+            raise not_ported("the delta-accumulated A.V product (recompute_av=False)", 10)
+        state = super().init_state(batch, n_tokens, dtype, device)
+        n_p = self._pooled_tokens(n_tokens)
+        sdtype = _CAST_DTYPES.get(self.matmul_2_cast, dtype)
+        head_dim = self.dim // self.heads
+        state["v_gate"] = self.v_gate.init_state((batch, self.heads, n_p, head_dim), sdtype, device)
+        state["matmul_gate"] = self.matmul_gate.init_state(
+            (batch, self.heads, n_tokens, n_p), sdtype, device
+        )
+        return state
+
+    def _attention_flush(self, ctx, state, x, aux):
+        a, v = self._matmul_1_flush(ctx, x, aux)
+        a, v, old_dtype = self._cast_matmul_2(a, v)
+        # v may be a view of the qkv buffer, which later steps update in place
+        _, state["v_gate"] = self.v_gate.flush(state["v_gate"], v.contiguous())
+        _, state["matmul_gate"] = self.matmul_gate.flush(state["matmul_gate"], a)
+        x = counted_matmul(ctx, a, v)
+        return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
+
+    def _attention_incremental(self, ctx, state, x, index, mask, aux):
+        a, v, index_k, mask_k = self._matmul_1_incremental(ctx, x, index, mask, aux)
+        a, v, old_dtype = self._cast_matmul_2(a, v)
+        x = self._av_recompute(ctx, state, a, v, index_k, mask_k)
+        return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
+
+    def _av_recompute(self, ctx, state, a, v, index_k, mask_k):
+        """p_v = v's selected rows into the v gate state, p_a = the
+        attention matrix's selected columns into the matmul gate state,
+        x = p_a @ p_v. Counted as the reference's delta formulation."""
+        p_a_state = state["matmul_gate"]["p"]
+        ctx.add("gate_flops", float(v.numel()))  # v gate error pass
+        p_v = select_rows(state["v_gate"]["p"], v, index_k, mask_k)
+        state["v_gate"] = {"p": p_v}
+        ctx.add("gate_flops", float(p_a_state.numel()))  # matmul gate error pass
+        p_a = select_cols(p_a_state, a, index_k, mask_k)
+        state["matmul_gate"] = {"p": p_a}
+        x = torch.matmul(p_a, p_v)
+        frac = valid_fraction(mask_k)
+        kcap = index_k.shape[-1]
+        batch_heads = p_a_state.numel() // (p_a_state.shape[-2] * p_a_state.shape[-1])
+        out_size = float(batch_heads * p_a_state.shape[-2] * v.shape[-1])
+        ctx.add("accumulator_flops", frac * float(batch_heads * kcap * v.shape[-1]) + 2.0 * out_size)
+        ctx.add("matmul_flops", 2.0 * frac * out_size * kcap)
+        return x
+
+
+BLOCK_CLASSES = {
+    "Block": Block,
+    "EventfulTokenwiseBlock": EventfulTokenwiseBlock,
+    "EventfulMatmul1Block": EventfulMatmul1Block,
+    "EventfulBlock": EventfulBlock,
+}

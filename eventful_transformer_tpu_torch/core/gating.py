@@ -1,26 +1,35 @@
-"""Token gate and token buffer (port of ``TokenGate`` and ``TokenBuffer``
-from ``eventful_transformer_tpu/core/gating.py``).
+"""Gates, token buffers and the matmul buffer (port of
+``eventful_transformer_tpu/core/gating.py``).
 
 State is a plain dict of tensors, as in the JAX package. On the eventful
-main path the incremental gate and buffer updates run inside the kernels
+paths the incremental gate and buffer updates run inside the kernels
 (``ops/``), which update ``p`` and ``b`` in place;
 :meth:`TokenGate.incremental_select` is the same gate update written in
-plain PyTorch. ``TokenDeltaGate``, ``SimpleSTGTGate``, ``MatmulBuffer`` and
-``MatmulDeltaAccumulator`` wait for slice 2 (ROADMAP.md, open item 10).
+plain PyTorch. ``EventfulBlock`` recomputes its A.V product from the gate
+states (``recompute_av``), so of ``TokenDeltaGate`` only the state is used
+and of ``MatmulBuffer`` only :meth:`~MatmulBuffer.incremental_recompute`.
+The gathered delta paths (``TokenDeltaGate.incremental``,
+``MatmulDeltaAccumulator``, ``SimpleSTGTGate``) are not ported yet
+(ROADMAP.md, open item 10).
 """
 
 from __future__ import annotations
 
 import torch
 
-from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms
+from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms, valid_fraction
+from eventful_transformer_tpu_torch.core.nn import counted_matmul, not_ported
 from eventful_transformer_tpu_torch.core.policies import vector_norm
 
 
 class TokenGate:
-    """Reference-state token gate over the token axis (-2)."""
+    """Reference-state token gate. ``structure``: "row" gates the token
+    axis -2, "col" the axis -1."""
 
-    def __init__(self):
+    def __init__(self, structure="row"):
+        if structure not in ("row", "col"):
+            raise ValueError(f"structure must be 'row' or 'col', got {structure!r}")
+        self.structure = structure
         self.policy = None  # set by utils.misc.set_policies
 
     def init_state(self, shape, dtype, device):
@@ -44,6 +53,14 @@ class TokenGate:
         return kcap, {"p": torch.where(cov[..., None] > 0, c, p)}
 
 
+class TokenDeltaGate(TokenGate):
+    """Token gate that also emits the error deltas. Its state is what the
+    recompute A.V path keeps; the delta-emitting update is not ported."""
+
+    def incremental(self, *args, **kwargs):
+        raise not_ported("TokenDeltaGate.incremental (recompute_av=False)", 10)
+
+
 class TokenBuffer:
     """Persistent token state. Its incremental scatter runs inside
     ``ops.gate_group.gate_group_mlp`` on the main path."""
@@ -54,3 +71,37 @@ class TokenBuffer:
     def flush(self, state, x):
         del state
         return x, {"b": x}
+
+
+class MatmulBuffer:
+    """The q.kT product of ``EventfulMatmul1Block``. The cached product is
+    pure memoization (``product == q @ k`` at every step), so the port
+    recomputes it in incremental steps, as the JAX package's default
+    ``recompute_product`` does; the cached-and-scattered update is not
+    ported."""
+
+    def flush(self, ctx, state, q, k):
+        del state
+        product = counted_matmul(ctx, q, k)
+        return product, {"product": product}
+
+    def incremental_recompute(self, ctx, q, k, index_q, index_k, mask_q=None, mask_k=None):
+        """q @ k in q's dtype, counted as the reference's two incremental
+        matmuls (rows of the selected queries, columns of the selected
+        keys)."""
+        product = torch.matmul(q, k)
+        d = q.shape[-1]
+        batch = product.numel() // (product.shape[-2] * product.shape[-1])
+        rows_out = batch * index_q.shape[-1] * product.shape[-1]
+        cols_out = batch * product.shape[-2] * index_k.shape[-1]
+        ctx.add("matmul_flops", valid_fraction(mask_q) * float(rows_out * d))
+        ctx.add("matmul_flops", valid_fraction(mask_k) * float(cols_out * d))
+        return product
+
+
+class MatmulDeltaAccumulator:
+    """The delta-accumulated A.V product; ``EventfulBlock`` recomputes it
+    from the gate states instead (``recompute_av``)."""
+
+    def init_state(self, *args, **kwargs):
+        raise not_ported("MatmulDeltaAccumulator (recompute_av=False)", 10)

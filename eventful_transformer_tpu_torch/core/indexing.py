@@ -1,16 +1,19 @@
-"""Top-k selection coverage (port of the parts of
-``eventful_transformer_tpu/core/indexing.py`` that the eventful main path
-uses).
+"""Top-k selection coverage and index helpers (port of the parts of
+``eventful_transformer_tpu/core/indexing.py`` that the eventful paths use).
 
 The selection is the exact set ``jax.lax.top_k`` picks: the k largest error
 norms, ties at the k-th value going to the smallest indices. It is derived
 from the k-th largest *value* and the tie rank, never from
 ``torch.topk``'s indices: on CUDA, ``torch.topk`` does not promise which of
-several tied indices it returns, while its values are well defined.
+several tied indices it returns, while its values are well defined. Where a
+caller needs the selected indices themselves, :func:`index_from_coverage`
+lists them in ascending order; every consumer of an index list in the
+JAX package is order-free (scatters and selects by position, the pooled
+dedupe sorts).
 
 The JAX package's one-hot gather and scatter forms (``_one_hot_rows``,
 ``put_rows``, ``USE_PALLAS_BLEND``) are TPU layout devices and are not
-ported; the kernels gather and scatter by index.
+ported; the port gathers, selects and scatters by index.
 """
 
 from __future__ import annotations
@@ -37,9 +40,57 @@ def coverage_from_kth(norms, kth, k):
     return cov.to(torch.float32)
 
 
+def index_from_coverage(cov, k):
+    """The positions of a coverage with exactly k ones per row, ascending:
+    (..., n) -> (..., k) int64. No host synchronisation."""
+    n = cov.shape[-1]
+    pos = torch.arange(n, device=cov.device).expand(cov.shape)
+    key = torch.where(cov > 0, pos, n)
+    return key.sort(dim=-1).values[..., :k]
+
+
+def coverage(index, mask, n):
+    """Indicator (..., n) float32 of the positions ``index`` (..., k)
+    selects; slots with mask False are excluded. Valid indices must be
+    distinct, as in the JAX package."""
+    ones = torch.ones(index.shape, dtype=torch.float32, device=index.device)
+    if mask is not None:
+        ones = ones * mask
+    cov = torch.zeros(index.shape[:-1] + (n,), dtype=torch.float32, device=index.device)
+    return cov.scatter_add_(-1, index.long(), ones)
+
+
+def _aligned(cov, index_ndim, ndim):
+    """Insert the broadcast axes that align an (..., n) coverage of an
+    index with ``index_ndim`` dims to an operand with ``ndim`` dims."""
+    lead = cov.shape[:-1]
+    return cov.reshape(lead + (1,) * (ndim - index_ndim) + cov.shape[-1:])
+
+
+def take_rows(x, index):
+    """Gather rows (axis -2): x (..., N, C), index (..., k) -> (..., k, C)."""
+    shape = index.shape[:-1] + (1,) * (x.ndim - index.ndim - 1) + (index.shape[-1], 1)
+    index = index.long().reshape(shape).expand(x.shape[:-2] + index.shape[-1:] + x.shape[-1:])
+    return torch.gather(x, -2, index)
+
+
+def select_rows(p, c, index, mask=None):
+    """Replace the rows (axis -2) of ``p`` selected by ``index`` with the
+    same rows of ``c``: an elementwise select, as in the JAX package."""
+    cov = _aligned(coverage(index, mask, p.shape[-2]), index.ndim, p.ndim - 1)
+    return torch.where(cov[..., None] > 0, c, p)
+
+
+def select_cols(p, c, index, mask=None):
+    """Column (axis -1) version of :func:`select_rows`."""
+    cov = _aligned(coverage(index, mask, p.shape[-1]), index.ndim, p.ndim)
+    return torch.where(cov > 0, c, p)
+
+
 def valid_fraction(mask):
     """Share of valid entries in a selection mask, used to scale counts;
-    the static 1 when there is no mask (every slot valid)."""
+    the static 1 when there is no mask (every slot valid). A 0-d tensor
+    otherwise, read only where a count is taken."""
     if mask is None:
         return 1
-    return float(mask.float().mean())
+    return mask.float().mean()

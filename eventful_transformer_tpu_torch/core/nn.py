@@ -19,6 +19,12 @@ from torch import nn
 from eventful_transformer_tpu_torch.ops.common import LN_EPS, ln_f32
 
 
+def not_ported(what, item):
+    """The error a module raises for an option the port does not have yet,
+    naming the ROADMAP.md item that holds it."""
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, open item {item})")
+
+
 def counted_add(ctx, a, b):
     """a + b, counting add_flops = result size."""
     result = a + b
@@ -73,6 +79,13 @@ class Linear(nn.Module):
         y = torch.matmul(x, self.kernel.to(x.dtype)) + self.bias.to(x.dtype)
         ctx.add("linear_flops", valid_frac * float(x.numel() * self.out_features))
         ctx.add("bias_flops", valid_frac * float(y.numel()))
+        return y
+
+    def apply_bias(self, ctx, x):
+        """The bias add alone, counted: maps zero padding into the qkv
+        domain (the pad rows of a window grid)."""
+        y = x + self.bias.to(x.dtype)
+        ctx.add("bias_flops", y.numel())
         return y
 
 

@@ -2,13 +2,15 @@
 ``eventful_transformer_tpu/core/policies.py``).
 
 The eventful path selects from per-token error norms that the kernels emit,
-so a policy here only fixes the capacity k and the norm order; the selection
-itself is :func:`~.indexing.coverage_from_norms`. ``TokenNormThreshold``
-(masked, saturation-counted) waits for slice 2 of the port (ROADMAP.md,
-open item 11).
+so a policy fixes the capacity k and the norm order; the selection itself
+is :func:`~.indexing.coverage_from_norms`, and :meth:`select_from_norms`
+lists the same set as indices. ``TokenNormThreshold`` (masked,
+saturation-counted) is not ported yet (ROADMAP.md, open item 11).
 """
 
 from __future__ import annotations
+
+from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms, index_from_coverage
 
 
 def vector_norm(e, dim, order):
@@ -31,6 +33,14 @@ class TokenNormTopK:
     def capacity(self, n_tokens):
         return min(self.k, n_tokens)
 
+    def select_from_norms(self, norms, ctx=None):
+        """(index, mask) of the top-k norms (..., N): the JAX top-k set, its
+        indices ascending (the JAX package lists them in norm order; every
+        consumer is order-free). The mask is None: every slot is valid."""
+        del ctx
+        k = self.capacity(norms.shape[-1])
+        return index_from_coverage(coverage_from_norms(norms, k), k), None
+
 
 class TokenNormTopFraction(TokenNormTopK):
     """Select a fraction of the tokens with the largest error norm."""
@@ -46,11 +56,14 @@ class TokenNormTopFraction(TokenNormTopK):
 
 
 def check_kernel_policy(policy):
-    """Raise unless ``policy`` is one the kernel pipeline implements: a
-    mask-free order-2 top-k (``TokenNormTopK`` or ``TokenNormTopFraction``),
-    whose selection comes from the L2 norms the kernels emit."""
-    if not isinstance(policy, TokenNormTopK) or policy.order != 2:
+    """Raise unless ``policy`` is one the kernel paths implement: a
+    mask-free top-k (``TokenNormTopK`` or ``TokenNormTopFraction``). The
+    kernels emit L2 norms, so the norm order is ignored, as in the JAX
+    package's fused modes; the "v4" dispatch requires order 2 besides."""
+    if policy is None:
+        raise ValueError("a gate has no policy: set the policies before running the model")
+    if not isinstance(policy, TokenNormTopK):
         raise NotImplementedError(
-            f"policy {policy!r}: only order-2 TokenNormTopK/TokenNormTopFraction "
+            f"policy {policy!r}: only TokenNormTopK/TokenNormTopFraction "
             "are ported (ROADMAP.md, open item 11)"
         )

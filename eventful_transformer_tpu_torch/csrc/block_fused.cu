@@ -66,8 +66,8 @@ int qkv_attention_group(const void* x, void* p_qkv, const float* cov, const void
   launch_gemm<T>((const T*)p_qkv, DenseRows{}, (const T*)w, rows, c, 3 * c,
                  QkvEpilogue<T>{(const T*)bias, (T*)qkv, 3 * c}, stream);
   ETK_CHECK_LAUNCH();
-  const int err = launch_attention<T>((const T*)qkv, (T*)attn, bsz, n, c, heads, inv_scale,
-                                      stream);
+  const int err = launch_attention<T>((const T*)qkv, nullptr, (T*)attn, bsz, n, c, heads,
+                                      inv_scale, 0, 0, stream);
   if (err != 0) return err;
   diff_norms_kernel<T><<<rows, kRowThreads, row_smem, stream>>>(
       (const T*)attn, (const T*)p_proj, norms, c);

@@ -1,8 +1,11 @@
-// Kernel C of the eventful block step, written for Hopper.
+// The whole-group gate kernels, written for Hopper: kernel C of the
+// eventful block step (gate_group_mlp) and the gated linear group
+// (gate_group_linear).
 //
-// Replaces eventful_transformer_tpu/ops/pallas/gate_group.py::gate_group_mlp
-// in its ln_mode="post" form with the coverage given: the gated MLP group
-// with the residual folded in and, optionally, the next gate's norms.
+// gate_group_mlp replaces eventful_transformer_tpu/ops/pallas/gate_group.py::
+// gate_group_mlp in its ln_mode="post" form with the coverage given: the
+// gated MLP group with the residual folded in and, optionally, the next
+// gate's norms.
 //
 //   p' = where(cov, ln(x), p)                        (in place)
 //   h  = rnd(gelu(rnd_p(p'[sel]) @ W1 + b1))         on the k selected rows
@@ -20,6 +23,25 @@
 // and dominate the time; the (B, k, 4C) hidden activation makes one round
 // trip through device memory (12 MB in bf16 at B=8, k=98), which later
 // work can keep on chip.
+//
+// gate_group_linear replaces gate_group.py::gate_group_linear with the
+// coverage given, in the two forms ViTDet's "v2" regime runs:
+//
+//   p' = where(cov, ln(x) | x, p)                    (in place, rounded to p's dtype)
+//   h  = rnd_b(p'[sel] @ W + wb)                     on the k selected rows
+//   b' = where(cov, scatter(h), b)                   (in place)
+//   y  = rnd(b' + skip);  norms = ||ln(y) - p_next||  (optional)
+//
+// ln_mode="post" (the global blocks' qkv group, W 768 x 2304, no skip) and
+// ln_mode="none" with the skip add and the MLP gate's norms (every block's
+// projection group, W 768 x 768). The TPU kernel holds one batch row's
+// whole (N, C) and (N, F) blocks in VMEM (grid = (B,) = 2 programs at 672);
+// here, as for kernel C, four launches: the select row pass, the
+// compaction, the gathered GEMM with the bias epilogue, and the scatter-
+// blend row pass (+ skip, + next norms). At 672 (B = 2, N = 1764, k = 256)
+// the GEMM does the k/N share of the dense product and the row passes move
+// the full (N, C) and (N, F) state once each; the qkv group's b pass (2 x
+// 1764 x 2304 in bf16, 16 MB read and written) is the largest memory term.
 #include "common.cuh"
 #include "gemm.cuh"
 
@@ -58,7 +80,8 @@ struct GatherRows {
   }
 };
 
-// h2[m, c] = rnd(acc + b2[c])           (gate_group.py:388-393)
+// out[m, c] = rnd(acc + bias[c]): the MLP's second layer (gate_group.py:
+// 388-393) and the gated linear's h (gate_group.py:210-215)
 template <typename T>
 struct Mlp2Epilogue {
   const T* bias;
@@ -69,23 +92,24 @@ struct Mlp2Epilogue {
   }
 };
 
-// Row r: b'[r] = h2[slot] if selected (0 for a selected row beyond kcap,
-// as the one-hot scatter gives), else b[r]; y[r] = rnd(b'[r] + x[r]); and
-// the next gate's norm on the rounded y (gate_group.py:394-415).
+// Row r of width f: b'[r] = h2[slot] if selected (0 for a selected row
+// beyond kcap, as the one-hot scatter gives), else b[r]; with a residual,
+// y[r] = rnd(b'[r] + res[r]) and the next gate's norm on the rounded y
+// (gate_group.py:226-238, :394-415).
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-blend_kernel(const T* __restrict__ x, T* __restrict__ b, const int* __restrict__ pos,
+blend_kernel(const T* __restrict__ res, T* __restrict__ b, const int* __restrict__ pos,
              const T* __restrict__ h2, T* __restrict__ y, const T* __restrict__ p_next,
              const T* __restrict__ next_scale, const T* __restrict__ next_bias,
-             float* __restrict__ norms, int n, int c, int kcap) {
+             float* __restrict__ norms, int n, int f, int kcap) {
   extern __shared__ float smem[];
   float* row = smem;
-  float* red = smem + c;
+  float* red = smem + f;
   const int64_t r = blockIdx.x;
   const int slot = pos[r];
-  const T* hr = (slot >= 0 && slot < kcap) ? h2 + ((r / n) * kcap + slot) * c : nullptr;
-  for (int i = threadIdx.x; i < c; i += blockDim.x) {
-    const int64_t e = r * c + i;
+  const T* hr = (slot >= 0 && slot < kcap) ? h2 + ((r / n) * kcap + slot) * f : nullptr;
+  for (int i = threadIdx.x; i < f; i += blockDim.x) {
+    const int64_t e = r * f + i;
     float bv;
     if (slot >= 0) {
       bv = hr != nullptr ? to_f(hr[i]) : 0.f;
@@ -93,13 +117,15 @@ blend_kernel(const T* __restrict__ x, T* __restrict__ b, const int* __restrict__
     } else {
       bv = to_f(b[e]);
     }
-    const float yv = rnd<T>(bv + to_f(x[e]));
-    y[e] = from_f<T>(yv);
-    row[i] = yv;
+    if (res != nullptr) {
+      const float yv = rnd<T>(bv + to_f(res[e]));
+      y[e] = from_f<T>(yv);
+      row[i] = yv;
+    }
   }
   if (norms == nullptr) return;  // uniform over the block
   __syncthreads();
-  const float norm = ln_error_norm(row, p_next, r, c, next_scale, next_bias, red);
+  const float norm = ln_error_norm(row, p_next, r, f, next_scale, next_bias, red);
   if (threadIdx.x == 0) norms[r] = norm;
 }
 
@@ -130,7 +156,48 @@ int gate_group_mlp(const void* x, void* p, void* b, const float* cov, const void
   return 0;
 }
 
+// ln_post != 0: p' = where(cov, ln(x), p); else p' = where(cov, x, p).
+// skip, y, p_next and norms may be null (the qkv group has no skip; the
+// projection group emits the MLP gate's norms).
+template <typename T>
+int gate_group_linear(const void* x, void* p, void* b, const float* cov, const void* ln_scale,
+                      const void* ln_bias, const void* w, const void* wb, const void* skip,
+                      const void* p_next, const void* next_scale, const void* next_bias,
+                      void* y, float* norms, int* pos, int* idx, void* h, int bsz, int n, int c,
+                      int f, int kcap, int ln_post, cudaStream_t stream) {
+  const int rows = bsz * n;
+  if (ln_post) {
+    ln_select_kernel<T><<<rows, kRowThreads, row_smem_bytes(c), stream>>>(
+        (const T*)x, (T*)p, cov, (const T*)ln_scale, (const T*)ln_bias, c);
+  } else {
+    select_rows_kernel<T><<<rows, kRowThreads, 0, stream>>>((const T*)x, (T*)p, cov, c);
+  }
+  ETK_CHECK_LAUNCH();
+  compact_kernel<<<bsz, 32, 0, stream>>>(cov, pos, idx, n, kcap);
+  ETK_CHECK_LAUNCH();
+  launch_gemm<T>((const T*)p, GatherRows{idx, n, kcap}, (const T*)w, bsz * kcap, c, f,
+                 Mlp2Epilogue<T>{(const T*)wb, (T*)h, f}, stream);
+  ETK_CHECK_LAUNCH();
+  blend_kernel<T><<<rows, kRowThreads, row_smem_bytes(f), stream>>>(
+      (const T*)skip, (T*)b, pos, (const T*)h, (T*)y, (const T*)p_next, (const T*)next_scale,
+      (const T*)next_bias, norms, n, f, kcap);
+  ETK_CHECK_LAUNCH();
+  return 0;
+}
+
 }  // namespace etk
+
+extern "C" int etk_gate_group_linear(int dtype, const void* x, void* p, void* b, const void* cov,
+                                     const void* ln_scale, const void* ln_bias, const void* w,
+                                     const void* wb, const void* skip, const void* p_next,
+                                     const void* next_scale, const void* next_bias, void* y,
+                                     void* norms, void* pos, void* idx, void* h, int bsz, int n,
+                                     int c, int f, int kcap, int ln_post, void* stream) {
+  ETK_DISPATCH(dtype, return etk::gate_group_linear<T>(
+                          x, p, b, (const float*)cov, ln_scale, ln_bias, w, wb, skip, p_next,
+                          next_scale, next_bias, y, (float*)norms, (int*)pos, (int*)idx, h, bsz,
+                          n, c, f, kcap, ln_post, (cudaStream_t)stream));
+}
 
 extern "C" int etk_gate_group_mlp(int dtype, const void* x, void* p, void* b, const void* cov,
                                   const void* ln_scale, const void* ln_bias, const void* w1,

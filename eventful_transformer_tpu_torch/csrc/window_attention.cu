@@ -1,9 +1,15 @@
-// window_attention in its global mode, written for Hopper.
+// window_attention, global mode and windowed rel-pos form, written for
+// Hopper.
 //
 // Replaces eventful_transformer_tpu/ops/pallas/window_attention.py::
-// window_attention called with no window geometry and no rel-pos terms:
-// the whole sequence of each batch row is one "window". It serves the dense
-// block, the eventful block's flush step and the temporal model.
+// window_attention called without window geometry (no pad substitution):
+//   * global mode, no rel-pos terms: the whole sequence of each batch row
+//     is one "window". It serves the dense block, the eventful flush step
+//     and ViViT's temporal model;
+//   * windowed form with rel-pos terms: one window of T = 196 tokens per
+//     batch row (ViTDet's 14 x 14 windows, Bw = 18 at 672 with 2 streams),
+//     the per-axis terms (Bw, H, T, 28) expanded onto the float32 logits.
+//     It serves ViTDet's 8 windowed blocks, dense and eventful.
 //
 // The TPU kernel runs one grid step per batch row with its whole (N, 3C)
 // qkv block in VMEM; at N = 197, C = 768 that is 0.9 MB in bf16, beyond the
@@ -11,19 +17,26 @@
 // leave most of the 132 SMs idle. The attention kernel of attention.cuh
 // instead takes one (batch, head, 32-query tile) per block with K and V of
 // one head in shared memory: 8 x 12 x 7 = 672 blocks at the flagship's
-// spatial shape. It is the same kernel as kernel A's attention stage, whose
-// rounding (block_fused.py:97-102) matches window_attention.py's
-// _attend_terms.
+// spatial shape, 18 x 12 x 7 = 1512 at ViTDet-672's windows. It is the same
+// kernel as kernel A's attention stage, whose rounding (block_fused.py:97-
+// 102) matches window_attention.py's _attend_terms. The terms add 28 floats
+// of shared memory per warp and two float reads per logit; the windowed
+// form is bound like the global one, by the float32 shared-memory dot
+// products.
 #include "attention.cuh"
 
 extern "C" {
 
-int etk_attention_smem_bytes(int n, int d) { return (int)etk::attention_smem_bytes(n, d); }
+int etk_attention_smem_bytes(int n, int d, int n_terms) {
+  return (int)etk::attention_smem_bytes(n, d, n_terms);
+}
 
-int etk_window_attention(int dtype, const void* qkv, void* out, int bsz, int n, int c,
-                         int heads, float inv_scale, void* stream) {
-  ETK_DISPATCH(dtype, return etk::launch_attention<T>((const T*)qkv, (T*)out, bsz, n, c, heads,
-                                                      inv_scale, (cudaStream_t)stream));
+int etk_window_attention(int dtype, const void* qkv, const void* terms, void* out, int bsz,
+                         int n, int c, int heads, float inv_scale, int p0, int p1,
+                         void* stream) {
+  ETK_DISPATCH(dtype, return etk::launch_attention<T>((const T*)qkv, (const T*)terms, (T*)out,
+                                                      bsz, n, c, heads, inv_scale, p0, p1,
+                                                      (cudaStream_t)stream));
 }
 
 }  // extern "C"

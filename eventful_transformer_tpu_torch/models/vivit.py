@@ -4,8 +4,8 @@
 ``FactorizedViViT.apply_views`` is the entry point the bench and the eval
 harness call: preprocessed views in, class probabilities out. The frame
 loop is plain Python: step 0 of each view flushes, steps 1+ run
-incrementally. ``ViViTPreprocessing`` needs ``ops/resize.py`` and waits
-(ROADMAP.md, open item 7).
+incrementally. ``ViViTPreprocessing`` is not ported yet (ROADMAP.md, open
+item 7).
 """
 
 from __future__ import annotations
@@ -16,12 +16,12 @@ import torch
 from torch import nn
 
 from eventful_transformer_tpu_torch.core.backbones import ViTBackbone
-from eventful_transformer_tpu_torch.core.blocks import not_ported
 from eventful_transformer_tpu_torch.core.nn import (
     Dropout,
     LayerNorm,
     Linear,
     layer_norm,
+    not_ported,
     trunc_normal_,
     uniform_,
 )

@@ -1,9 +1,11 @@
 """Build the CUDA kernels of ``csrc/`` and call them through ``ctypes``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface, under ``eventful_transformer_tpu_torch/_build/``
-(listed in ``.gitignore``). The file name carries a hash of the sources and
-the flags, so an edited source builds anew. This is the hand-built route
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` to an object file, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, under
+``eventful_transformer_tpu_torch/_build/`` (listed in ``.gitignore``). The
+file name carries a hash of the sources and the flags, so an edited source
+builds anew. This is the hand-built route
 rather than ``torch.utils.cpp_extension.load``: the sources include no
 PyTorch header, and the build takes seconds instead of minutes.
 
@@ -30,7 +32,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -39,8 +41,11 @@ SIGNATURES = {
     "etk_qkv_attention_group": [_I] + [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "etk_proj_group": [_I] + [_P] * 11 + [_I, _I, _I, _P],
     "etk_gate_group_mlp": [_I] + [_P] * 19 + [_I] * 5 + [_P],
-    "etk_attention_smem_bytes": [_I, _I],
-    "etk_window_attention": [_I, _P, _P, _I, _I, _I, _I, _F, _P],
+    "etk_attention_smem_bytes": [_I, _I, _I],
+    "etk_window_attention": [_I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    "etk_gate_group_linear": [_I] + [_P] * 17 + [_I] * 6 + [_P],
+    "etk_block_select_p": [_I] + [_P] * 5 + [_I, _L, _I, _P],
+    "etk_block_scatter_rows": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "etk_dense_mlp_residual": [_I] + [_P] * 10 + [_I, _I, _I, _P],
 }
 
@@ -75,17 +80,7 @@ def load_library():
     """Build the kernels if needed, load them, and declare their C types."""
     path = library_path()
     if not path.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        sources = [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *sources]
-        result = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        path.with_suffix(".log").write_text(result.stdout + result.stderr)
-        if result.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {result.returncode}:\n{result.stderr[-8000:]}"
-            )
-        os.replace(tmp, path)
+        _build(path)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -94,6 +89,39 @@ def load_library():
     lib.etk_error_string.argtypes = [_I]
     lib.etk_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _build(path):
+    """Compile each source in its own ``nvcc`` process, all at once, then
+    link; the compiler's output goes to ``<library>.log``."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    tag = f"{path.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((src.name, obj, proc))
+    log, failed = [], []
+    for name, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(f"== {name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{name} (code {proc.returncode}):\n{out[-8000:]}")
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        result = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        log.append(f"== link\n{result.stdout}{result.stderr}")
+        if result.returncode != 0:
+            failed.append(f"link (code {result.returncode}):\n{result.stderr[-8000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    path.with_suffix(".log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    os.replace(tmp, path)
 
 
 def launch(name, *args):

@@ -1,14 +1,19 @@
-"""Kernel C of the eventful block step (port of ``gate_group_mlp`` from
-``eventful_transformer_tpu/ops/pallas/gate_group.py``).
+"""The whole-group gate kernels (port of ``gate_group_mlp`` and
+``gate_group_linear`` from ``eventful_transformer_tpu/ops/pallas/gate_group.py``).
 
-The gated MLP group: gate-state select, the MLP on the k selected rows
-only, scatter-blend into the token buffer, the residual, and optionally the
-next block's qkv-gate norms. Only the reference's ``ln_mode="post"`` form
-with the coverage given is ported; the in-kernel top-k (``select_topk``)
-and ``gate_group_linear`` wait (ROADMAP.md, "TPU kernels to port").
+``gate_group_mlp`` (kernel C of the eventful block step): gate-state
+select, the MLP on the k selected rows only, scatter-blend into the token
+buffer, the residual, and optionally the next block's qkv-gate norms.
+``gate_group_linear``: the same group around one linear, with an optional
+skip add and next-gate norms; ViTDet's "v2" regime runs it for the global
+blocks' qkv group (``ln_mode="post"``) and every block's projection group
+(``ln_mode="none"`` with the skip and the MLP gate's norms). Only the
+forms with the coverage given are ported; the in-kernel top-k
+(``select_topk``) and ``ln_mode="pre"`` are not (ROADMAP.md, "TPU kernels
+to port").
 
-``p`` and ``b`` are updated in place, as the TPU kernel aliases them. The
-selected rows are compacted in index order, as the TPU kernel's one-hot
+``p`` and ``b`` are updated in place, as the TPU kernels alias them. The
+selected rows are compacted in index order, as the TPU kernels' one-hot
 compaction orders them. The CUDA kernels are ``csrc/gate_group.cu``; see
 its header for the launch structure and what bounds it.
 """
@@ -21,6 +26,10 @@ from eventful_transformer_tpu_torch.ops import _build
 from eventful_transformer_tpu_torch.ops.common import gelu_exact, ln_f32, row_norms
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _slots(cov, kcap):
     """(pos, idx): each row's slot among the selected rows of its batch row
     (index order; -1 if unselected) and each slot's row (-1 if empty)."""
@@ -30,6 +39,99 @@ def _slots(cov, kcap):
     b, i = torch.nonzero(sel & (pos < kcap), as_tuple=True)
     idx[b, pos[b, i]] = i
     return pos, idx
+
+
+def _scatter(h, pos, kcap, n):
+    """Row i of batch row b takes h[b, pos[b, i]]; 0 where the slot is
+    beyond kcap (rows not selected are masked by the caller)."""
+    bsz, _, f = h.shape
+    rows = torch.gather(h, 1, pos.clamp(0, kcap - 1)[..., None].expand(bsz, n, f))
+    return torch.where((pos < kcap)[..., None], rows, 0.0)
+
+
+def gate_group_linear_plain(
+    x, p, b, cov, scale, bias, w, wb, skip=None, p_next=None, next_scale=None,
+    next_bias=None, *, ln_mode, kcap
+):
+    """x (B, N, C) group input; p (B, N, C) gate state and b (B, N, F) token
+    buffer, both updated in place; cov (B, N) float32 coverage; w (C, F),
+    wb (F,); skip (B, N, F) optional residual. ``ln_mode``: "post" (p in
+    the LN domain) or "none" (p in x's domain; scale and bias unused).
+    Returns (p, b, y, next_norms): y None without ``skip``, next_norms None
+    without ``p_next``."""
+    if ln_mode not in ("post", "none"):
+        raise NotImplementedError(f"gate_group_linear ln_mode={ln_mode!r} is not ported")
+    bsz, n, c = x.shape
+    new = ln_f32(x, scale, bias) if ln_mode == "post" else x.float()
+    p.copy_(torch.where(cov[..., None] > 0, new, p.float()).to(p.dtype))
+    pos, idx = _slots(cov, kcap)
+    rows = torch.gather(p, 1, idx.clamp(min=0)[..., None].expand(bsz, kcap, c))
+    rows = torch.where(idx[..., None] >= 0, rows, 0.0)
+    h = (torch.matmul(rows.to(w.dtype).float(), w.float()) + wb.float()).to(b.dtype)
+    b.copy_(torch.where(cov[..., None] > 0, _scatter(h, pos, kcap, n), b))
+    y = next_norms = None
+    if skip is not None:
+        y = (b.float() + skip.float()).to(x.dtype)
+        if p_next is not None:
+            next_norms = row_norms(ln_f32(y, next_scale, next_bias) - p_next.float())
+    return p, b, y, next_norms
+
+
+def gate_group_linear(
+    x, p, b, cov, scale, bias, w, wb, skip=None, p_next=None, next_scale=None,
+    next_bias=None, *, ln_mode, kcap
+):
+    """The wrapper of :func:`gate_group_linear_plain`, which CPU tensors
+    take. CUDA tensors launch the kernels of csrc/gate_group.cu."""
+    if x.device.type == "cpu":
+        return gate_group_linear_plain(
+            x, p, b, cov, scale, bias, w, wb, skip, p_next, next_scale, next_bias,
+            ln_mode=ln_mode, kcap=kcap,
+        )
+    name = "gate_group_linear"
+    if ln_mode not in ("post", "none"):
+        raise NotImplementedError(f"{name} ln_mode={ln_mode!r} is not ported")
+    if p_next is not None and skip is None:
+        raise ValueError(f"{name}: the next gate's norms need the skip output")
+    bsz, n, c = x.shape
+    f = w.shape[-1]
+    shapes = dict(p=x.shape, b=(bsz, n, f), cov=(bsz, n), w=(c, f), wb=(f,))
+    operands = dict(p=p, b=b, cov=cov, w=w, wb=wb)
+    if ln_mode == "post":
+        shapes.update(scale=(c,), bias=(c,))
+        operands.update(scale=scale, bias=bias)
+    if skip is not None:
+        shapes["skip"] = (bsz, n, f)
+        operands["skip"] = skip
+    if p_next is not None:
+        shapes.update(p_next=(bsz, n, f), next_scale=(f,), next_bias=(f,))
+        operands.update(p_next=p_next, next_scale=next_scale, next_bias=next_bias)
+    _build.check_operands(name, x, ("cov",), **operands)
+    for key, shape in shapes.items():
+        _build.check_shape(name, key, operands[key], shape)
+    if not 1 <= kcap <= n:
+        raise ValueError(f"{name}: kcap={kcap} outside [1, N={n}]")
+    y = torch.empty((bsz, n, f), dtype=x.dtype, device=x.device) if skip is not None else None
+    norms = None
+    if p_next is not None:
+        norms = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
+    pos = torch.empty((bsz, n), dtype=torch.int32, device=x.device)
+    idx = torch.empty((bsz, kcap), dtype=torch.int32, device=x.device)
+    h = torch.empty((bsz, kcap, f), dtype=x.dtype, device=x.device)
+    post = ln_mode == "post"
+    _build.launch(
+        "etk_gate_group_linear", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
+        b.data_ptr(), cov.data_ptr(), _ptr(scale) if post else None,
+        _ptr(bias) if post else None, w.data_ptr(), wb.data_ptr(), _ptr(skip),
+        _ptr(p_next), _ptr(next_scale), _ptr(next_bias), _ptr(y), _ptr(norms),
+        pos.data_ptr(), idx.data_ptr(), h.data_ptr(), bsz, n, c, f, kcap, int(post),
+        _build.stream_of(x),
+    )
+    gate_group_linear.launches += 1
+    return p, b, y, norms
+
+
+gate_group_linear.launches = 0
 
 
 def gate_group_mlp_plain(
@@ -50,11 +152,7 @@ def gate_group_mlp_plain(
     h = torch.matmul(rows.to(w1.dtype).float(), w1.float()) + b1.float()
     h = gelu_exact(h).to(wd)
     h2 = (torch.matmul(h.to(w2.dtype).float(), w2.float()) + b2.float()).to(b.dtype)
-    scattered = torch.gather(
-        h2, 1, pos.clamp(0, kcap - 1)[..., None].expand(bsz, n, c)
-    )
-    scattered = torch.where((pos < kcap)[..., None], scattered, 0.0)
-    b.copy_(torch.where(cov[..., None] > 0, scattered, b))
+    b.copy_(torch.where(cov[..., None] > 0, _scatter(h2, pos, kcap, n), b))
     y = (b.float() + x.float()).to(wd)
     next_norms = None
     if p_next is not None:
@@ -96,12 +194,11 @@ def gate_group_mlp(
     idx = torch.empty((bsz, kcap), dtype=torch.int32, device=x.device)
     h = torch.empty((bsz, kcap, hidden), dtype=x.dtype, device=x.device)
     h2 = torch.empty((bsz, kcap, c), dtype=x.dtype, device=x.device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _build.launch(
         "etk_gate_group_mlp", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
         b.data_ptr(), cov.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ptr(p_next),
-        ptr(next_scale), ptr(next_bias), y.data_ptr(), ptr(norms), pos.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), _ptr(p_next),
+        _ptr(next_scale), _ptr(next_bias), y.data_ptr(), _ptr(norms), pos.data_ptr(),
         idx.data_ptr(), h.data_ptr(), h2.data_ptr(), bsz, n, c, hidden, kcap,
         _build.stream_of(x),
     )

@@ -13,13 +13,15 @@ from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms
 from eventful_transformer_tpu_torch.ops import (
     block_fused,
     dense_mlp,
+    gate_block,
     gate_fused,
     gate_group,
     window_attention,
 )
 
 # (wrapper, plain version, CUDA source, the TPU kernel it replaces, names
-# of the outputs in the order the wrapper returns them)
+# of the outputs in the order the wrapper returns them). A kernel with two
+# forms on the main paths has an entry per form.
 KERNELS = {
     "ln_norms": (
         gate_fused.ln_norms, gate_fused.ln_norms_plain,
@@ -51,6 +53,31 @@ KERNELS = {
         "eventful_transformer_tpu_torch/csrc/window_attention.cu",
         "eventful_transformer_tpu/ops/pallas/window_attention.py:281", ("out",),
     ),
+    "window_attention_windowed": (
+        window_attention.window_attention, window_attention.window_attention_plain,
+        "eventful_transformer_tpu_torch/csrc/window_attention.cu",
+        "eventful_transformer_tpu/ops/pallas/window_attention.py:281", ("out",),
+    ),
+    "gate_group_linear": (
+        gate_group.gate_group_linear, gate_group.gate_group_linear_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_group.cu",
+        "eventful_transformer_tpu/ops/pallas/gate_group.py:244", ("p", "b", "y", "next_norms"),
+    ),
+    "gate_group_linear_post": (
+        gate_group.gate_group_linear, gate_group.gate_group_linear_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_group.cu",
+        "eventful_transformer_tpu/ops/pallas/gate_group.py:244", ("p", "b"),
+    ),
+    "block_select_p": (
+        gate_block.block_select_p, gate_block.block_select_p_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_block.cu",
+        "eventful_transformer_tpu/ops/pallas/gate_block.py:303", ("p",),
+    ),
+    "block_scatter_rows": (
+        gate_block.block_scatter_rows, gate_block.block_scatter_rows_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_block.cu",
+        "eventful_transformer_tpu/ops/pallas/gate_block.py:368", ("b",),
+    ),
 }
 
 # Bounds on each output of a kernel against its plain version. With
@@ -79,10 +106,13 @@ F32_SCALED = 1e-4
 BF16_BOUNDS = dict(scaled=2e-2, differ_share=5e-2, far_share=1e-2)
 
 
-def make_inputs(bsz, n, c, heads, k, dtype, device, seed=0):
+def make_inputs(bsz, n, c, heads, k, dtype, device, seed=0, window=(4, 6)):
     """Random activations, gate states, weights and one coverage per gate,
     at the scales of the model (LN-domain states ~ N(0, 1), weights
-    ~ C^-1/2)."""
+    ~ C^-1/2); window rows (bsz * n // T windows of T = window[0] *
+    window[1] tokens, at least one) with rel-pos terms; a qkv buffer, k
+    rows for it and their target rows in random order, the last slot of
+    each batch row invalid (-1)."""
     g = torch.Generator().manual_seed(seed)
 
     def randn(*shape, scale=1.0, shift=0.0):
@@ -103,7 +133,17 @@ def make_inputs(bsz, n, c, heads, k, dtype, device, seed=0):
     for name in ("cov1", "cov2", "cov3"):
         norms = torch.rand((bsz, n), generator=g).to(device)
         d[name] = coverage_from_norms(norms, k)
-    d["heads"], d["k"] = heads, k
+    t = window[0] * window[1]
+    n_win = max(1, bsz * n // t)
+    d.update(
+        qkv_win=randn(n_win, t, 3 * c), terms=randn(n_win, heads, t, window[0] + window[1]),
+        buf_qkv=randn(bsz, n, 3 * c), buf_proj=randn(bsz, n, c), h_rows=randn(bsz, k, 3 * c),
+    )
+    rows = torch.stack([torch.randperm(n, generator=g)[:k] for _ in range(bsz)])
+    if k > 1:
+        rows[:, -1] = -1
+    d["w_index"] = rows.to(device=device, dtype=torch.int32)
+    d["heads"], d["k"], d["window"] = heads, k, tuple(window)
     return d
 
 
@@ -134,6 +174,25 @@ def _invoke(name, fn, d):
     if name == "window_attention":
         c = d["x"].shape[-1]
         return (fn(d["qkv"], heads=d["heads"], scale=(c // d["heads"]) ** 0.5),)
+    if name == "window_attention_windowed":
+        c = d["x"].shape[-1]
+        return (fn(d["qkv_win"], d["terms"], heads=d["heads"], scale=(c // d["heads"]) ** 0.5,
+                   p=d["window"]),)
+    if name == "gate_group_linear":
+        return fn(
+            d["attn"], d["p_proj"], d["buf_proj"], d["cov2"], None, None, d["w_proj"],
+            d["b_proj"], d["x"], d["p_mlp"], d["ln2_s"], d["ln2_b"], ln_mode="none",
+            kcap=d["k"],
+        )
+    if name == "gate_group_linear_post":
+        return fn(
+            d["x"], d["p_qkv"], d["buf_qkv"], d["cov1"], d["ln1_s"], d["ln1_b"], d["w_qkv"],
+            d["b_qkv"], ln_mode="post", kcap=d["k"],
+        )[:2]
+    if name == "block_select_p":
+        return (fn(d["x"], d["p_qkv"], d["cov1"], d["ln1_s"], d["ln1_b"], apply_ln=True),)
+    if name == "block_scatter_rows":
+        return (fn(d["buf_qkv"], d["w_index"], d["h_rows"]),)
     out = fn(
         d["x"], d["p_mlp"], d["b_mlp"], d["cov3"], d["ln2_s"], d["ln2_b"], d["w1"],
         d["b1"], d["w2"], d["b2"], d["p_next"], d["ln1_s"], d["ln1_b"], kcap=d["k"],

@@ -1,11 +1,16 @@
-"""Global multi-head attention of packed qkv (port of ``window_attention``
-from ``eventful_transformer_tpu/ops/pallas/window_attention.py``, in its
-global mode: no window geometry, no rel-pos terms, the whole sequence one
-window per batch row).
+"""Multi-head attention of packed qkv rows, global or per window with
+decomposed rel-pos bias terms (port of ``window_attention`` from
+``eventful_transformer_tpu/ops/pallas/window_attention.py``).
 
-The dense ``Block``, the eventful block's flush step and the temporal model
-run their attention through it. The windowed forms (rel-pos terms, padded
-windows) and ``window_attention_grid`` wait (ROADMAP.md, "TPU kernels to
+Global mode (no ``terms``): the whole sequence of each batch row is one
+window; the dense ``Block``, the eventful flush step and ViViT's temporal
+model run their plain attention through it. Windowed form: ``qkv`` holds
+one window per batch row (Bw, T, 3C) and ``terms`` (Bw, H, T, p0 + p1) are
+the per-axis rel-pos terms of :func:`window_bias_terms`; the kernel adds
+``terms[n, m // p1] + terms[n, p0 + m % p1]`` to the float32 logits. The
+padded form (``geom``/``pad_terms``, in-kernel substitution of the qkv-bias
+row at out-of-image tokens) and ``window_attention_grid`` are not ported:
+the blocks materialise pad rows instead (ROADMAP.md, "TPU kernels to
 port"). The CUDA kernel is ``csrc/window_attention.cu``, which launches the
 attention kernel of ``csrc/attention.cuh``; kernel A shares it.
 """
@@ -17,9 +22,18 @@ import torch
 from eventful_transformer_tpu_torch.ops import _build
 
 
-def attention_plain(qkv, heads, inv_scale):
+def _expand_terms(terms, p):
+    """(…, T, p0 + p1) terms -> (…, T, p0 * p1) float32 bias: the sum of
+    the y term of key row m // p1 and the x term of key column m % p1."""
+    p0, p1 = p
+    m = torch.arange(p0 * p1, device=terms.device)
+    return terms[..., m // p1].float() + terms[..., p0 + m % p1].float()
+
+
+def attention_plain(qkv, heads, inv_scale, terms=None, p=None):
     """qkv (B, N, 3C) packed [q | k | v] rows in the working dtype -> (B, N,
-    C). q is scaled by ``inv_scale`` in the working dtype; logits and
+    C). q is scaled by ``inv_scale`` in the working dtype; logits, the
+    rel-pos bias (``terms`` (B, H, N, p0 + p1), summed in float32) and the
     softmax in float32; probabilities and the output rounded to the working
     dtype. Kernel A's plain version shares it."""
     wd = qkv.dtype
@@ -29,43 +43,68 @@ def attention_plain(qkv, heads, inv_scale):
     q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, N, d)
     q = q * torch.tensor(inv_scale, dtype=wd)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if terms is not None:
+        logits = logits + _expand_terms(terms, p)
     e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     attn = (e / e.sum(dim=-1, keepdim=True)).to(wd)
     out = torch.matmul(attn.float(), v.float()).to(wd)
     return out.transpose(1, 2).reshape(bsz, n, c)
 
 
-def window_attention_plain(qkv, *, heads, scale):
-    """Global attention of qkv (B, N, 3C) -> (B, N, C), logits scaled by
-    1/scale as the TPU kernel scales them."""
-    return attention_plain(qkv, heads, 1.0 / scale)
+def window_attention_plain(qkv, terms=None, *, heads, scale, p=None):
+    """Attention of qkv (Bw, T, 3C) -> (Bw, T, C), logits scaled by 1/scale
+    as the TPU kernel scales them; with ``terms``, the windowed rel-pos
+    form over a (p0, p1) key grid (T == p0 * p1)."""
+    return attention_plain(qkv, heads, 1.0 / scale, terms, p)
 
 
-def attention_smem_bytes(name, n, d):
-    """Shared memory of the attention kernel at N tokens of head width d;
-    raises if one block cannot hold it."""
-    smem = _build.load_library().etk_attention_smem_bytes(n, d)
+def window_bias_terms(qkv, tab, heads):
+    """(Bw, H, T, p0 + p1) rel-pos terms of the UNSCALED q lanes of packed
+    window rows (Bw, T, 3C), against the per-token table ``tab`` (T, p0 +
+    p1, c) of ``RelativePositionEmbedding.window_tab``, in qkv's dtype:
+    the terms are rounded to the working dtype before the kernel adds
+    them, as in the JAX package."""
+    bw, t, c3 = qkv.shape
+    c = c3 // 3
+    q = qkv[..., :c].reshape(bw, t, heads, c // heads)
+    return torch.einsum("bthc,tpc->bhtp", q, tab.to(qkv.dtype)).contiguous()
+
+
+def attention_smem_bytes(name, n, d, n_terms=0):
+    """Shared memory of the attention kernel at N tokens of head width d
+    with ``n_terms`` rel-pos terms per query; raises if one block cannot
+    hold it."""
+    smem = _build.load_library().etk_attention_smem_bytes(n, d, n_terms)
     if smem > _build.MAX_SHARED_BYTES:
         raise ValueError(f"{name}: N={n} needs {smem} B of shared memory per block")
     return smem
 
 
-def window_attention(qkv, *, heads, scale):
+def window_attention(qkv, terms=None, *, heads, scale, p=None):
     """The wrapper of :func:`window_attention_plain`, which CPU tensors
     take. CUDA tensors launch the kernel of csrc/window_attention.cu."""
     if qkv.device.type == "cpu":
-        return window_attention_plain(qkv, heads=heads, scale=scale)
+        return window_attention_plain(qkv, terms, heads=heads, scale=scale, p=p)
     name = "window_attention"
-    _build.check_operands(name, qkv)
     bsz, n, c3 = qkv.shape
     if c3 % (3 * heads):
         raise ValueError(f"{name}: last axis {c3} is not 3 x {heads} heads wide")
     c = c3 // 3
-    attention_smem_bytes(name, n, c // heads)
+    p0 = p1 = 0
+    if terms is None:
+        _build.check_operands(name, qkv)
+    else:
+        _build.check_operands(name, qkv, terms=terms)
+        p0, p1 = p
+        if p0 * p1 != n:
+            raise ValueError(f"{name}: key grid {p} does not hold the {n} tokens of a window")
+        _build.check_shape(name, "terms", terms, (bsz, heads, n, p0 + p1))
+    attention_smem_bytes(name, n, c // heads, p0 + p1)
     out = torch.empty((bsz, n, c), dtype=qkv.dtype, device=qkv.device)
     _build.launch(
-        "etk_window_attention", _build.dtype_code(qkv), qkv.data_ptr(), out.data_ptr(),
-        bsz, n, c, heads, float(1.0 / scale), _build.stream_of(qkv),
+        "etk_window_attention", _build.dtype_code(qkv), qkv.data_ptr(),
+        None if terms is None else terms.data_ptr(), out.data_ptr(), bsz, n, c, heads,
+        float(1.0 / scale), p0, p1, _build.stream_of(qkv),
     )
     window_attention.launches += 1
     return out

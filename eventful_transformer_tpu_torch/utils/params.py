@@ -36,8 +36,11 @@ def params_from_jax(module, source):
 
     ``source``: a ``.npz`` path written by the JAX package's ``save_params``,
     a flat ``{"a/b": array}`` dict, or the nested pytree of numpy arrays.
-    Raises ``ValueError`` on missing, extra or mis-shaped keys. Values are
-    cast to each parameter's dtype and moved to its device."""
+    Keys under the prefixes in ``module.unported_params`` (parts of the
+    JAX model the port does not hold yet, such as ViTDet's detection head)
+    are skipped. Raises ``ValueError`` on missing, extra or mis-shaped
+    keys. Values are cast to each parameter's dtype and moved to its
+    device."""
     if isinstance(source, (str, Path)):
         with np.load(source) as data:
             flat = {k: data[k] for k in data.files}
@@ -45,6 +48,8 @@ def params_from_jax(module, source):
         flat = dict(source)
     else:
         flat = flatten_tree(source)
+    skip = tuple(getattr(module, "unported_params", ()))
+    flat = {k: v for k, v in flat.items() if not k.startswith(skip)} if skip else flat
     params = {name.replace(".", "/"): p for name, p in module.named_parameters()}
     missing = sorted(set(params) - set(flat))
     extra = sorted(set(flat) - set(params))

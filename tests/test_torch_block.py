@@ -111,22 +111,47 @@ def test_dense_block_matches_jax(jax_kernels):
     _close_counts(ctx.counts, jax_ctx)
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [
-        dict(window_size=[2, 2]),
-        dict(pool_size=2),
-        dict(relative_embedding_size=[4, 6]),
-        dict(ats_fraction=0.5),
-        dict(drop_path_rate=0.1),
-        dict(matmul_2_cast="bfloat16"),
-        dict(gate_before_ln=True),
-        dict(stgt=True),
-    ],
-)
-def test_unsupported_block_options_raise(kwargs):
+def _incremental_step(blk, n):
+    for gate in blk.gates:
+        gate.policy = TokenNormTopK(k=K)
+    state = blk.init_state(1, n, torch.float32, "cpu")
+    with torch.no_grad():
+        blk(Ctx(), state, torch.zeros(1, n, blk.dim), mode="incremental")
+
+
+def _windowed_auto():
+    """A windowed block under "auto" at N <= 512: the 'v2mlp' regime."""
+    _incremental_step(blocks.EventfulTokenwiseBlock(**KWARGS, window_size=[2, 3]), N)
+
+
+def _blocked():
+    """N = 2304 > 2048 under "auto": the 'blocked' regime."""
+    blk = blocks.EventfulTokenwiseBlock(dim=8, heads=2, mlp_ratio=1, input_size=(48, 48))
+    _incremental_step(blk, 48 * 48)
+
+
+def _delta_av():
+    blk = blocks.EventfulBlock(**KWARGS)
+    blk.recompute_av = False
+    blk.init_state(B, N, torch.float32, "cpu")
+
+
+UNSUPPORTED = {
+    "ats": lambda: blocks.EventfulTokenwiseBlock(**KWARGS, ats_fraction=0.5),
+    "drop_path": lambda: blocks.EventfulTokenwiseBlock(**KWARGS, drop_path_rate=0.1),
+    "gate_before_ln": lambda: blocks.EventfulTokenwiseBlock(**KWARGS, gate_before_ln=True),
+    "stgt": lambda: blocks.EventfulTokenwiseBlock(**KWARGS, stgt=True),
+    "sequence_parallel": lambda: blocks.Block(**KWARGS, sequence_parallel="sp"),
+    "recompute_av_false": _delta_av,
+    "v2mlp": _windowed_auto,
+    "blocked": _blocked,
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNSUPPORTED))
+def test_unsupported_block_options_raise(case):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        blocks.EventfulTokenwiseBlock(**KWARGS, **kwargs)
+        UNSUPPORTED[case]()
 
 
 def test_unsupported_policy_raises():

@@ -40,3 +40,47 @@ def test_wrapper_rejects_mixed_dtypes(device):
     d = kernel_check.make_inputs(2, 24, 64, 4, 9, torch.bfloat16, device)
     with pytest.raises(TypeError, match="p is torch.float32"):
         kernel_check.KERNELS["ln_norms"][0](d["x"], d["p_qkv"].float(), d["ln1_s"], d["ln1_b"])
+
+
+def test_small_vitdet_card_matches_cpu(device):
+    """A small eventful ViTDet backbone in the "v2" regime, 2 streams x 3
+    frames in float32, on the card (the kernels) against the CPU (the plain
+    versions): tokens within 1e-3, every kernel of the path launched."""
+    import copy
+
+    from eventful_transformer_tpu_torch.core.counting import Ctx
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import ViTDet
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    block = dict(dim=64, heads=4, mlp_ratio=2, window_size=[3, 3],
+                 relative_embedding_size=[8, 8], pool_size=2)
+    model = ViTDet(
+        backbone_config=dict(depth=4, position_encoding_size=[4, 4], window_indices=[0, 2],
+                             block_class="EventfulBlock", windowed_class="EventfulTokenwiseBlock",
+                             windowed_overrides=dict(pool_size=None), block_config=block),
+        classes=5, input_shape=[3, 96, 96], normalize_mean=[0.0] * 3, normalize_std=[1.0] * 3,
+        output_channels=16, patch_size=[16, 16], scale_factors=[1.0],
+    )
+    set_policies(model, TokenNormTopK, k=12)
+    for blk in model.backbone.blocks:
+        blk.fused_gates = "v2"
+    card = copy.deepcopy(model).to(device)
+    frames = torch.rand((3, 2, 3, 96, 96), generator=torch.Generator().manual_seed(0))
+    wrappers = {entry[0].__name__: entry[0] for entry in kernel_check.KERNELS.values()}
+    before = {name: fn.launches for name, fn in wrappers.items()}
+    outs = []
+    for m, x in ((card, frames.to(device)), (model, frames)):
+        state = m.init_state(2, torch.float32, x.device)
+        with torch.no_grad():
+            for t in range(3):
+                tokens = m.pre_backbone(Ctx(), x[t])
+                tokens, state = m.apply_backbone(
+                    Ctx(), state, tokens, mode="flush" if t == 0 else "incremental"
+                )
+        outs.append(tokens.cpu())
+    torch.cuda.synchronize()
+    launched = {name for name, fn in wrappers.items() if fn.launches > before[name]}
+    assert {"window_attention", "gate_group_linear", "block_select_p", "block_scatter_rows",
+            "gate_group_mlp", "ln_norms"} <= launched
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=1e-3)

@@ -37,10 +37,57 @@ print("ok")
 """
 
 
-def test_port_runs_without_jax():
+VITDET_SCRIPT = """
+import sys
+sys.modules["jax"] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from eventful_transformer_tpu_torch.core.counting import Ctx
+from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+from eventful_transformer_tpu_torch.models import ViTDet
+from eventful_transformer_tpu_torch.utils.misc import set_policies
+block = dict(dim=32, heads=4, mlp_ratio=2, window_size=[3, 3], relative_embedding_size=[8, 8],
+             pool_size=2, matmul_2_cast="bfloat16")
+model = ViTDet(
+    backbone_config=dict(depth=2, position_encoding_size=[4, 4], window_indices=[0],
+                         block_class="EventfulBlock", windowed_class="EventfulTokenwiseBlock",
+                         windowed_overrides=dict(pool_size=None, matmul_2_cast=None),
+                         block_config=block),
+    classes=5, input_shape=[3, 96, 96], normalize_mean=[0.0] * 3, normalize_std=[1.0] * 3,
+    output_channels=16, patch_size=[16, 16], scale_factors=[1.0],
+)
+set_policies(model, TokenNormTopK, k=8)
+for blk in model.backbone.blocks:
+    blk.fused_gates = "v2"
+state = model.init_state(1)
+frames = torch.from_numpy(np.random.default_rng(0).uniform(size=(3, 1, 3, 96, 96)).astype(np.float32))
+ctx = Ctx(count_mode=True)
+for t in range(3):
+    tokens = model.pre_backbone(ctx, frames[t])
+    out, state = model.apply_backbone(ctx, state, tokens, mode="flush" if t == 0 else "incremental")
+assert out.shape == (1, 36, 32) and bool(torch.isfinite(out).all())
+assert ctx.counts["accumulator_flops"] > 0
+assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
+               for name, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+
+
+def _run(script):
     result = subprocess.run(
-        [sys.executable, "-c", SCRIPT], cwd=REPO, capture_output=True, text=True,
+        [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
         timeout=300, check=False,
     )
     assert result.returncode == 0, result.stderr
     assert result.stdout.strip() == "ok"
+
+
+def test_vitdet_runs_without_jax():
+    """The ViTDet slice's modules (resize, rel-pos, windows, the v2 gate
+    kernels' wrappers, EventfulBlock) import and run without JAX."""
+    _run(VITDET_SCRIPT)
+
+
+def test_port_runs_without_jax():
+    _run(SCRIPT)
