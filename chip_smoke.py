@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through the entry points a user calls, and
+Drives the port's three paths through the entry points a user calls, and
 checks them: eventful ViViT-B inference on Kinetics-400 shaped clips
 through ``FactorizedViViT.apply_views``, and the eventful ViTDet-B backbone
-at 672 x 672 (spatiotemporal_672, k = 256) through ``ViTDet.pre_backbone``
-and ``apply_backbone``, each with its dense twin. Phases, one JSON line
-each:
+at 672 x 672 (spatiotemporal_672, k = 256, the "v2" regime) and at
+1024 x 1024 (spatiotemporal_1024, k = 256, the "blocked" regime) through
+``ViTDet.pre_backbone`` and ``apply_backbone``, each with its dense twin.
+Phases, one JSON line each, with the seconds the phase took:
 
   1. env:            torch, CUDA and nvcc versions and the card (nvidia-smi).
   2. build:          nvcc builds the kernels from eventful_transformer_tpu_torch/csrc,
@@ -29,6 +30,11 @@ each:
                      stream x 3 frames in float32 (matmul-2 cast off) on the
                      card against the CPU.
   8. vitdet_time:    dense against eventful, ms/frame, alternated.
+  9-11. vitdet1024_kernels, vitdet1024_slice, vitdet1024_time: as 6-8 for
+                     spatiotemporal_1024 and base_1024 (N = 4096, 50 windows
+                     of 196 tokens with pad rows, 1024 pooled keys); the
+                     kernels phase also holds softmax_select_matmul at 441
+                     pooled keys, the shape the 672 float32 check runs it at.
 The times are a record, not a claim.
 
 Then the card's name and power limit, one JSON line with every kernel's
@@ -64,23 +70,56 @@ GFLOPS_DENSE, GFLOPS_EVENTFUL = 1119.86, 615.18
 PROB_TOL = 1e-5  # max |probability difference|, probabilities ~ 1/400
 MAX_FLIP_SHARE = 1e-3  # of all gate selections made in the clip
 
-# ViTDet-B at 672 (configs/evaluate/vitdet_vid/spatiotemporal_672.yml and
-# base_672.yml; bench.py:121-259): 2 streams, 16 frames per call, frame 0 a
-# flush, k = 256 of 1764 tokens.
-VITDET_STREAMS, VITDET_FRAMES, VITDET_SIZE, VITDET_K = 2, 16, 672, 256
-VITDET_N = (VITDET_SIZE // 16) ** 2
+# ViTDet-B (configs/evaluate/vitdet_vid/spatiotemporal_{672,1024}.yml and
+# base_{672,1024}.yml; bench.py:121-259): 2 streams, 16 frames per call,
+# frame 0 a flush, k = 256 tokens, 8 windowed and 4 global blocks.
+VITDET_STREAMS, VITDET_FRAMES, VITDET_K = 2, 16, 256
 VITDET_WINDOWED, VITDET_GLOBAL = 8, 4
-# The JAX package's counted FLOPs per stream at this point, from
-# ``python scripts/misc/count_vitdet_672.py`` (the JAX package on the CPU,
-# one block of each kind at full width): a global EventfulBlock's
-# incremental count is base + per_valid_share * f, f the valid share of its
-# pooled, deduplicated index slots.
-VITDET_FLOPS = dict(
-    position_add=1354752.0, dense_windowed=13077590400.0, dense_global=17468341632.0,
-    windowed_flush=13077590400.0, windowed_incremental=2397776256.0,
-    global_flush=13770757728.0, global_incremental_base=1995139728.0,
-    global_incremental_per_valid_share=1040646144.0,
-)
+VITDET_DEPTH = VITDET_WINDOWED + VITDET_GLOBAL
+# Per size: the token count; the launches of an eventful incremental frame
+# beyond those both regimes make (ln_norms once, and block_select_p and
+# block_scatter_rows in each windowed qkv group); the kernel checks' inputs
+# (the unpadded windows of the resident qkv buffer, the pooled key grid)
+# and the kernels of the path; and the JAX package's counted FLOPs per
+# stream, from ``python scripts/misc/count_vitdet_672.py --size <size>``
+# (the JAX package on the CPU, one block of each kind at full width): a
+# global EventfulBlock's incremental count is base + per_valid_share * f, f
+# the valid share of its pooled, deduplicated index slots.
+VITDET = {
+    672: dict(
+        n=42 * 42,
+        step_launches=dict(gate_group_linear=VITDET_GLOBAL + VITDET_DEPTH,
+                           gate_group_mlp=VITDET_DEPTH),
+        inputs=dict(window=(14, 14), pool=(21, 21)),
+        kernels=("ln_norms", "gate_group_mlp", "dense_mlp_residual", "window_attention_windowed",
+                 "gate_group_linear", "gate_group_linear_post", "block_select_p",
+                 "block_scatter_rows"),
+        flops=dict(
+            position_add=1354752.0, dense_windowed=13077590400.0,
+            dense_global=17468341632.0, windowed_flush=13077590400.0,
+            windowed_incremental=2397776256.0, global_flush=13770757728.0,
+            global_incremental_base=1995139728.0,
+            global_incremental_per_valid_share=1040646144.0,
+        ),
+    ),
+    1024: dict(
+        n=64 * 64,
+        step_launches=dict(block_select_scatter=VITDET_GLOBAL + 2 * VITDET_DEPTH,
+                           softmax_select_matmul=VITDET_GLOBAL),
+        inputs=dict(window=(14, 14), windows=50, pool=(32, 32), pad_window=(14, 14)),
+        kernels=("ln_norms", "block_select_p", "block_scatter_rows", "block_select_scatter_qkv",
+                 "block_select_scatter_proj", "block_select_scatter_mlp",
+                 "softmax_select_matmul", "softmax_select_matmul_noterms",
+                 "window_attention_windowed", "window_attention_padded", "dense_mlp_residual"),
+        flops=dict(
+            position_add=3145728.0, dense_windowed=30629228160.0,
+            dense_global=55600742400.0, windowed_flush=30629228160.0,
+            windowed_incremental=3433033344.0, global_flush=35770073088.0,
+            global_incremental_base=2390163456.0,
+            global_incremental_per_valid_share=2416115712.0,
+        ),
+    ),
+}
 # One ViTDet clip in float32, card against CPU, without the matmul-2 cast:
 # with it, the global blocks' A.V product runs in bfloat16 on both sides,
 # and where cuBLAS and the CPU sum it in other orders an element rounds to
@@ -90,7 +129,15 @@ VITDET_FLOPS = dict(
 VITDET_TOKEN_TOL = 1e-3
 
 
+_LAST_EMIT = [time.perf_counter()]
+
+
 def emit(phase, **fields):
+    """One JSON line; ``phase_s``: the seconds since the previous line, the
+    phase's own time."""
+    now = time.perf_counter()
+    fields["phase_s"] = round(now - _LAST_EMIT[0], 3)
+    _LAST_EMIT[0] = now
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -154,15 +201,14 @@ def phase_build():
 
 
 def check_kernels(phase, device, cases):
-    """Each kernel of ``cases`` [(batch, N, k, names, window)] against its
-    plain version, float32 and bfloat16, with both timed."""
+    """Each kernel of ``cases`` [(batch, N, k, names, make_inputs keywords)]
+    against its plain version, float32 and bfloat16, with both timed."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for bsz, n, k, names, window in cases:
-            d = kernel_check.make_inputs(bsz, n, 768, 12, k, dtype, device, seed=SEED,
-                                         window=window)
+        for bsz, n, k, names, inputs in cases:
+            d = kernel_check.make_inputs(bsz, n, 768, 12, k, dtype, device, seed=SEED, **inputs)
             for name in names:
                 results[(name, dtype, n)] = dict(
                     kernel=name, dtype=str(dtype).split(".")[-1], batch=bsz, n=n,
@@ -184,8 +230,8 @@ def phase_kernels(device):
     """Every kernel of ViViT's path at the spatial stack's shapes (N = 197);
     the two dense kernels also at the temporal model's (N = 17)."""
     return check_kernels("kernels", device, [
-        (8, N_TOKENS, K, VIVIT_KERNELS, (4, 6)),
-        (8, STEPS + 1, STEPS + 1, DENSE_KERNELS, (4, 6)),
+        (8, N_TOKENS, K, VIVIT_KERNELS, dict(window=(4, 6))),
+        (8, STEPS + 1, STEPS + 1, DENSE_KERNELS, dict(window=(4, 6))),
     ])
 
 
@@ -210,10 +256,6 @@ DENSE_KERNELS = ("window_attention", "dense_mlp_residual")
 VIVIT_KERNELS = (
     "ln_norms", "qkv_attention_group", "proj_group", "gate_group_mlp", "dense_mlp_residual",
     "window_attention",
-)
-VITDET_KERNELS = (
-    "ln_norms", "gate_group_mlp", "dense_mlp_residual", "window_attention_windowed",
-    "gate_group_linear", "gate_group_linear_post", "block_select_p", "block_scatter_rows",
 )
 
 
@@ -366,35 +408,40 @@ def phase_time(eventful, dense, views, smi):
     )
 
 
-def vitdet_config(eventful, matmul_2_cast="bfloat16"):
+def vitdet_config(eventful, size, matmul_2_cast="bfloat16"):
     block = dict(dim=768, heads=12, mlp_ratio=4, window_size=[14, 14],
                  relative_embedding_size=[64, 64])
-    backbone = dict(depth=VITDET_WINDOWED + VITDET_GLOBAL, position_encoding_size=[14, 14],
+    backbone = dict(depth=VITDET_DEPTH, position_encoding_size=[14, 14],
                     window_indices=[0, 1, 3, 4, 6, 7, 9, 10], block_config=block)
     if eventful:
         block.update(pool_size=2, matmul_2_cast=matmul_2_cast)
         backbone.update(block_class="EventfulBlock", windowed_class="EventfulTokenwiseBlock",
                         windowed_overrides=dict(pool_size=None, matmul_2_cast=None))
     return dict(
-        backbone_config=backbone, classes=30, input_shape=[3, VITDET_SIZE, VITDET_SIZE],
+        backbone_config=backbone, classes=30, input_shape=[3, size, size],
         normalize_mean=[123.675, 116.28, 103.53], normalize_std=[58.395, 57.12, 57.375],
         output_channels=256, patch_size=[16, 16], scale_factors=[4.0, 2.0, 1.0, 0.5],
     )
 
 
-def phase_vitdet_kernels(device):
-    """The kernels of the ViTDet path at its shapes: 2 streams of N = 1764
-    tokens, k = 256, 18 windows of 14 x 14."""
-    return check_kernels("vitdet_kernels", device, [
-        (VITDET_STREAMS, VITDET_N, VITDET_K, VITDET_KERNELS, (14, 14)),
-    ])
+def phase_vitdet_kernels(device, size):
+    """The kernels of the ViTDet path at its shapes: 2 streams of N tokens,
+    k = 256, windows of 14 x 14; at 1024 also softmax_select_matmul at the
+    672 float32 check's shape (one stream, 1764 queries, 441 pooled keys)."""
+    cfg = VITDET[size]
+    cases = [(VITDET_STREAMS, cfg["n"], VITDET_K, cfg["kernels"], cfg["inputs"])]
+    if size == 1024:
+        cases.append((1, VITDET[672]["n"], VITDET_K, ("softmax_select_matmul",),
+                      VITDET[672]["inputs"]))
+    return check_kernels("vitdet_kernels" if size == 672 else f"vitdet{size}_kernels", device,
+                         cases)
 
 
-def vitdet_frames(frames, streams, device, dtype, seed=SEED):
-    """[0, 1] frames (frames, streams, 3, 672, 672): one random image per
+def vitdet_frames(frames, streams, device, dtype, size, seed=SEED):
+    """[0, 1] frames (frames, streams, 3, size, size): one random image per
     stream, each frame that image plus a little noise, made on ``device``."""
     g = torch.Generator(device=device).manual_seed(seed)
-    shape = (streams, 3, VITDET_SIZE, VITDET_SIZE)
+    shape = (streams, 3, size, size)
     base = torch.rand(shape, generator=g, device=device)
     noise = torch.randn((frames,) + shape, generator=g, device=device)
     return (base + 0.05 * noise).clamp(0.0, 1.0).to(dtype)
@@ -426,35 +473,36 @@ def run_vitdet(model, frames, count=False, frame_events=None, keep=False):
     return tokens, ctx.counts, outs
 
 
-def vitdet_expected_launches(eventful):
+def vitdet_expected_launches(eventful, size):
     """Launches per call (2 streams x 16 frames). Eventful: in each of the
     15 incremental frames ln_norms once (block 0; every later block gets
-    its norms from the block before), gate_group_linear for the 4 global
-    qkv groups and the 12 projection groups, block_select_p and
-    block_scatter_rows for the 8 windowed qkv groups, gate_group_mlp in
-    every block; window_attention in the 8 windowed blocks of every frame.
-    Dense: window_attention in the windowed blocks and dense_mlp_residual in
-    every block, every frame."""
-    depth, frames = VITDET_WINDOWED + VITDET_GLOBAL, VITDET_FRAMES
+    its norms from the block before), block_select_p and block_scatter_rows
+    for the 8 windowed qkv groups, and the size's own kernels: at 672 ("v2")
+    gate_group_linear for the 4 global qkv groups and the 12 projection
+    groups and gate_group_mlp in every block; at 1024 ("blocked")
+    block_select_scatter for the 4 global qkv, 12 projection and 12 MLP
+    groups and softmax_select_matmul in the 4 global blocks;
+    window_attention in the 8 windowed blocks of every frame. Dense:
+    window_attention in the windowed blocks and dense_mlp_residual in every
+    block, every frame."""
+    frames = VITDET_FRAMES
     want = dict.fromkeys(wrappers(), 0)
     want["window_attention"] = VITDET_WINDOWED * frames
     if eventful:
         steps = frames - 1
-        want.update(
-            ln_norms=steps, gate_group_linear=(VITDET_GLOBAL + depth) * steps,
-            block_select_p=VITDET_WINDOWED * steps, block_scatter_rows=VITDET_WINDOWED * steps,
-            gate_group_mlp=depth * steps,
-        )
+        per_step = dict(ln_norms=1, block_select_p=VITDET_WINDOWED,
+                        block_scatter_rows=VITDET_WINDOWED, **VITDET[size]["step_launches"])
+        want.update({name: count * steps for name, count in per_step.items()})
     else:
-        want["dense_mlp_residual"] = depth * frames
+        want["dense_mlp_residual"] = VITDET_DEPTH * frames
     return want
 
 
-def vitdet_jax_flops(eventful, valid_shares):
+def vitdet_jax_flops(eventful, valid_shares, size):
     """The JAX package's count of one call (all streams and frames) from
-    VITDET_FLOPS; ``valid_shares``: the pooled valid share of every global
-    block's incremental step (a mean over the streams)."""
-    f = VITDET_FLOPS
+    VITDET[size]["flops"]; ``valid_shares``: the pooled valid share of every
+    global block's incremental step (a mean over the streams)."""
+    f = VITDET[size]["flops"]
     frames, steps = VITDET_FRAMES, VITDET_FRAMES - 1
     if not eventful:
         per_frame = f["position_add"] + VITDET_WINDOWED * f["dense_windowed"] + (
@@ -469,7 +517,7 @@ def vitdet_jax_flops(eventful, valid_shares):
     return VITDET_STREAMS * (fixed + shares)
 
 
-def vitdet_counted_call(model, frames, eventful):
+def vitdet_counted_call(model, frames, eventful, size):
     """One call with the launch counts set to 0 just before and read just
     after, counting FLOPs; checks launches, the output and the count
     against the JAX package's. Returns (launches, the port's and the JAX
@@ -491,13 +539,14 @@ def vitdet_counted_call(model, frames, eventful):
         launches = read_launches()
     finally:
         blocks.EventfulMatmul1Block._pool_index = pool_index
-    want = vitdet_expected_launches(eventful)
+    want = vitdet_expected_launches(eventful, size)
     if launches != want:
-        raise AssertionError(f"ViTDet launch counts {launches}, expected {want}")
-    if tokens.shape != (VITDET_STREAMS, VITDET_N, 768) or not torch.isfinite(tokens).all():
-        raise AssertionError(f"bad ViTDet output: shape {tuple(tokens.shape)}")
+        raise AssertionError(f"ViTDet-{size} launch counts {launches}, expected {want}")
+    n = VITDET[size]["n"]
+    if tokens.shape != (VITDET_STREAMS, n, 768) or not torch.isfinite(tokens).all():
+        raise AssertionError(f"bad ViTDet-{size} output: shape {tuple(tokens.shape)}")
     got = sum(v for k, v in counts.items() if k != "policy_saturated")
-    ref = vitdet_jax_flops(eventful, shares)
+    ref = vitdet_jax_flops(eventful, shares, size)
     if abs(got - ref) > 1e-6 * ref:
         raise AssertionError(f"counted {got} FLOPs per call, the JAX package's count is {ref}")
     mean_share = sum(shares) / len(shares) if shares else None
@@ -507,7 +556,9 @@ def vitdet_counted_call(model, frames, eventful):
 def vitdet_card_vs_cpu(cpu_model, frames, device):
     """One stream x 3 frames in float32 on the card against the same model
     on the CPU (plain versions): the tokens of every frame and the gate
-    selections, recorded around the blocks' coverage_from_norms."""
+    selections, recorded around the blocks' coverage_from_norms. One
+    stream takes the A.V kernel at every size (the batch-1 rule); the card
+    run's launches are returned."""
     from eventful_transformer_tpu_torch.core import blocks
 
     card_model = copy.deepcopy(cpu_model).to(device)
@@ -522,13 +573,19 @@ def vitdet_card_vs_cpu(cpu_model, frames, device):
                 return cov
 
             blocks.coverage_from_norms = recorded
+            reset_launches()
             start = time.perf_counter()
             outs[tag] = [t.cpu() for t in run_vitdet(model, clip, keep=True)[2]]
             seconds[tag] = time.perf_counter() - start
+            if tag == "card":
+                launches = read_launches()
     finally:
         blocks.coverage_from_norms = coverage_from_norms
     if not logs["card"] or len(logs["card"]) != len(logs["cpu"]):
         raise AssertionError("the two runs selected at different numbers of gates")
+    av_launches = launches["softmax_select_matmul"]
+    if av_launches != VITDET_GLOBAL * (frames.shape[0] - 1):
+        raise AssertionError(f"one stream ran the A.V kernel {av_launches} times")
     selections = flips = 0
     for a, b in zip(logs["card"], logs["cpu"]):
         selections += int(b.sum())
@@ -541,30 +598,32 @@ def vitdet_card_vs_cpu(cpu_model, frames, device):
         f32_card_vs_cpu_max_scaled_token_err=scaled, token_tol=VITDET_TOKEN_TOL,
         gate_selections=selections, selections_differing=flips,
         max_flip_share=MAX_FLIP_SHARE, f32_card_s=seconds["card"], f32_cpu_s=seconds["cpu"],
+        f32_card_launches={k: v for k, v in launches.items() if v},
     )
     if scaled > VITDET_TOKEN_TOL or flips > MAX_FLIP_SHARE * selections:
         raise AssertionError(f"float32 ViTDet card run disagrees with the CPU run: {numbers}")
     return numbers
 
 
-def phase_vitdet_slice(device):
+def phase_vitdet_slice(device, size):
     from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
     from eventful_transformer_tpu_torch.models import ViTDet
     from eventful_transformer_tpu_torch.utils.misc import set_policies
 
-    eventful = ViTDet(**vitdet_config(True), seed=SEED)
+    eventful = ViTDet(**vitdet_config(True, size), seed=SEED)
     set_policies(eventful, TokenNormTopK, k=VITDET_K)
     eventful = eventful.to(device, torch.bfloat16)
-    dense = ViTDet(**vitdet_config(False), seed=SEED).to(device, torch.bfloat16)
-    frames = vitdet_frames(VITDET_FRAMES, VITDET_STREAMS, device, torch.bfloat16)
-    launches, g_eventful, g_eventful_jax, share = vitdet_counted_call(eventful, frames, True)
-    dense_launches, g_dense, g_dense_jax, _ = vitdet_counted_call(dense, frames, False)
-    cpu_model = ViTDet(**vitdet_config(True, matmul_2_cast=None), seed=SEED)
+    dense = ViTDet(**vitdet_config(False, size), seed=SEED).to(device, torch.bfloat16)
+    frames = vitdet_frames(VITDET_FRAMES, VITDET_STREAMS, device, torch.bfloat16, size)
+    launches, g_eventful, g_eventful_jax, share = vitdet_counted_call(eventful, frames, True, size)
+    dense_launches, g_dense, g_dense_jax, _ = vitdet_counted_call(dense, frames, False, size)
+    cpu_model = ViTDet(**vitdet_config(True, size, matmul_2_cast=None), seed=SEED)
     set_policies(cpu_model, TokenNormTopK, k=VITDET_K)
-    clip = vitdet_frames(3, 1, "cpu", torch.float32, seed=SEED + 1)
+    clip = vitdet_frames(3, 1, "cpu", torch.float32, size, seed=SEED + 1)
     numbers = vitdet_card_vs_cpu(cpu_model, clip, device)
     emit(
-        "vitdet_slice", launches=launches, dense_launches=dense_launches,
+        "vitdet_slice" if size == 672 else f"vitdet{size}_slice", launches=launches,
+        dense_launches=dense_launches,
         gflops_per_frame_eventful=g_eventful, jax_gflops_per_frame_eventful=g_eventful_jax,
         gflops_per_frame_dense=g_dense, jax_gflops_per_frame_dense=g_dense_jax,
         mean_pooled_valid_share=share, **numbers,
@@ -588,15 +647,34 @@ def time_vitdet(model, frames, warmup=1, iters=3):
     return [flush, steady, whole]
 
 
-def phase_vitdet_time(eventful, dense, frames, smi):
+def phase_vitdet_time(eventful, dense, frames, smi, size):
     times = {"dense": [], "eventful": []}
     for name in ("dense", "eventful", "eventful", "dense"):
         times[name].append(time_vitdet(eventful if name == "eventful" else dense, frames))
     emit(
-        "vitdet_time", card=smi, streams=VITDET_STREAMS, frames=VITDET_FRAMES, k=VITDET_K,
-        dtype="bfloat16", columns=["flush_frame_ms", "incremental_frame_ms", "mean_frame_ms"],
+        "vitdet_time" if size == 672 else f"vitdet{size}_time", card=smi,
+        streams=VITDET_STREAMS, frames=VITDET_FRAMES, k=VITDET_K, dtype="bfloat16",
+        columns=["flush_frame_ms", "incremental_frame_ms", "mean_frame_ms"],
         dense_ms=times["dense"], eventful_ms=times["eventful"],
     )
+
+
+def vitdet_path(device, smi, size):
+    """The kernels, the slice and the times of one ViTDet size. Returns the
+    kernel rows of the final line."""
+    rows = phase_vitdet_kernels(device, size)
+    eventful, dense, frames, launches, dense_launches = phase_vitdet_slice(device, size)
+    phase_vitdet_time(eventful, dense, frames, smi, size)
+    del eventful, dense, frames
+    torch.cuda.empty_cache()
+    # launches: the eventful model's counted run; dense_mlp_residual runs in
+    # the dense twin only. Forms of one kernel share its wrapper's count.
+    counts = {k: v or dense_launches[k] for k, v in launches.items()}
+    n = VITDET[size]["n"]
+    return [
+        kernel_row(name, rows[(name, torch.bfloat16, n)], counts, f"vitdet_{size}")
+        for name in VITDET[size]["kernels"]
+    ]
 
 
 def kernel_row(name, row, launches, path):
@@ -620,23 +698,12 @@ def main():
     phase_time(eventful, dense, views, smi)
     del eventful, dense, views
     torch.cuda.empty_cache()
-    vitdet_rows = phase_vitdet_kernels(device)
-    v_eventful, v_dense, frames, v_launches, v_dense_launches = phase_vitdet_slice(device)
-    phase_vitdet_time(v_eventful, v_dense, frames, smi)
-
-    # launches: the eventful model's counted run of each path; on the ViTDet
-    # path dense_mlp_residual runs in the dense twin only. Two forms of one
-    # kernel (gate_group_linear) share its count.
-    vitdet_counts = {k: v or v_dense_launches[k] for k, v in v_launches.items()}
     kernels = [
         kernel_row(name, kernel_rows[(name, torch.bfloat16, N_TOKENS)], launches, "vivit")
         for name in VIVIT_KERNELS
     ]
-    kernels += [
-        kernel_row(name, vitdet_rows[(name, torch.bfloat16, VITDET_N)], vitdet_counts,
-                   "vitdet_672")
-        for name in VITDET_KERNELS
-    ]
+    for size in VITDET:
+        kernels += vitdet_path(device, smi, size)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

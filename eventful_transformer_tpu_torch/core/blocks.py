@@ -7,7 +7,8 @@ relative position embeddings, k/v pooling and the matmul-2 cast. LN and
 the qkv and projection linears run in plain PyTorch; the attention runs
 through ``window_attention`` where the JAX package runs its kernel there
 (global attention without pooling, rel-pos or cast at N <= 512; windowed
-attention without pooling or cast, with its rel-pos terms), else in plain
+attention without pooling or cast, with its rel-pos terms, over a
+zero-padded token map whose pad rows the kernel fills), else in plain
 PyTorch, as the JAX package runs it in XLA; the MLP half runs through
 ``dense_mlp_residual``.
 
@@ -22,13 +23,22 @@ picks, as the JAX package dispatches on the TPU:
   group of a windowed block keeps its buffer window-major and runs
   ``block_select_p`` and ``block_scatter_rows`` around a k-row qkv
   linear; other qkv groups and every projection group run
-  ``gate_group_linear``; the MLP group runs ``gate_group_mlp``.
+  ``gate_group_linear``; the MLP group runs ``gate_group_mlp``;
+- "blocked" (N > 2048, or forced): each group lists its selected rows,
+  runs its op (LN and linear, or the MLP) on those k rows in PyTorch, and
+  makes one ``block_select_scatter`` pass over the full-size state; the
+  windowed qkv group runs as in "v2".
 
-The "v2mlp" regime (N <= 512, a block "v4" does not take) and the
-"blocked" regime (N > 2048) are not ported; neither are ATS, drop-path,
-sequence parallelism, gate-before-LN, STGT gates and the cached product
-and delta-accumulator forms. Asking for one raises ``NotImplementedError``
-naming the ROADMAP.md item that holds it.
+``EventfulBlock``'s incremental A.V step runs ``softmax_select_matmul``
+(matmul-1, rel-pos bias, softmax, column select and A.V in one kernel)
+where the JAX package's TPU rule takes its A.V kernel: at least 512 pooled
+keys, or one stream.
+
+The "v2mlp" regime (N <= 512, a block "v4" does not take) is not ported;
+neither are ATS, drop-path, sequence parallelism, gate-before-LN, STGT
+gates, the cached product and delta-accumulator forms, and the A.V kernel
+over a logits tensor. Asking for one raises ``NotImplementedError`` naming
+the ROADMAP.md item that holds it.
 """
 
 from __future__ import annotations
@@ -70,13 +80,19 @@ from eventful_transformer_tpu_torch.core.policies import (
     check_kernel_policy,
     vector_norm,
 )
+from eventful_transformer_tpu_torch.ops.av_softmax import softmax_select_matmul
 from eventful_transformer_tpu_torch.ops.block_fused import proj_group, qkv_attention_group
 from eventful_transformer_tpu_torch.ops.dense_mlp import dense_mlp_residual
-from eventful_transformer_tpu_torch.ops.gate_block import block_scatter_rows, block_select_p
+from eventful_transformer_tpu_torch.ops.gate_block import (
+    block_scatter_rows,
+    block_select_p,
+    block_select_scatter,
+)
 from eventful_transformer_tpu_torch.ops.gate_fused import ln_norms
 from eventful_transformer_tpu_torch.ops.gate_group import gate_group_linear, gate_group_mlp
 from eventful_transformer_tpu_torch.ops.window_attention import (
     window_attention,
+    window_bias_pad_terms,
     window_bias_terms,
 )
 
@@ -150,10 +166,17 @@ class Block(nn.Module):
         return {}
 
     def precompute(self):
-        """Loop-invariant derived tensors: the rel-pos tables."""
+        """Loop-invariant derived tensors: the rel-pos tables and, for a
+        windowed block whose grid pads, the pad rows' terms."""
         if self.relative_position is None:
             return {}
-        return {"relative": self.relative_position.precompute()}
+        rp = self.relative_position
+        aux = {"relative": rp.precompute()}
+        if self.window_size is not None and any(self._window_padding()):
+            bias = self.qkv.bias
+            tab = rp.window_tab(aux["relative"], bias.dtype)
+            aux["window_pad_terms"] = window_bias_pad_terms(bias, tab, self.heads)
+        return aux
 
     def forward(self, ctx, state, x, mode=None, qkv_norms=None, next_gate=None, aux=None):
         """Returns (y, state, None); ``mode`` and the gate-norm handoff
@@ -208,9 +231,10 @@ class Block(nn.Module):
                 # the pad-bias map, counted once as the partitioning paths count it
                 self.qkv.apply_bias(ctx, x.new_zeros((1, 1, 1, x.shape[-1])))
         if self._window_kernel_ok():
+            pad_bias = geom = None
             if not pre_partitioned:
-                x = self._partition_windows(ctx, x)
-            return self._recombine_windows(self._fused_attention(ctx, x, aux))
+                x, pad_bias, geom = self._partition_windows_zero(ctx, x)
+            return self._recombine_windows(self._fused_attention(ctx, x, aux, pad_bias, geom))
         if not pre_partitioned and self._global_kernel_ok(x.shape[-2]):
             return self._fused_attention(ctx, x, aux)
         if not pre_partitioned:
@@ -231,22 +255,36 @@ class Block(nn.Module):
         derived = (aux or {}).get("relative")
         return derived if derived is not None else self.relative_position.precompute()
 
-    def _fused_attention(self, ctx, x, aux):
+    def _fused_attention(self, ctx, x, aux, pad_bias=None, geom=None):
         """x (Bw, T, 3C), one window (or the whole sequence) per row, through
-        ``window_attention``; counted as the plain path counts (matmul-1,
-        matmul-2 and, with rel-pos, the term einsums and the two adds)."""
+        ``window_attention``; with ``geom``, the windows of a zero-padded
+        map, whose pad rows the kernel fills with ``pad_bias`` and the pad
+        terms. Counted as the plain path counts (matmul-1, matmul-2 and,
+        with rel-pos, the term einsums and the two adds)."""
         bw, t, _ = x.shape
         d = self.dim // self.heads
+        a = self.window_size
         if self.relative_position is not None:
             rp = self.relative_position
             p = rp.pooled_size()
             tab = rp.window_tab(self._derived(aux), x.dtype)
             terms = window_bias_terms(x, tab, self.heads)
-            out = window_attention(x, terms, heads=self.heads, scale=self.scale, p=p)
+            pad_terms = None
+            if geom is not None:
+                pad_terms = (aux or {}).get("window_pad_terms")
+                if pad_terms is None:
+                    pad_terms = window_bias_pad_terms(pad_bias, tab, self.heads)
+                pad_terms = pad_terms.to(x.dtype)
+            out = window_attention(
+                x, terms, pad_bias, pad_terms, heads=self.heads, scale=self.scale, p=p, a=a,
+                geom=geom,
+            )
             ctx.add("einsum_flops", float(bw * self.heads * t * (p[0] + p[1]) * d))
             ctx.add("add_flops", 2.0 * bw * self.heads * t * t)
         else:
-            out = window_attention(x, heads=self.heads, scale=self.scale)
+            out = window_attention(
+                x, None, pad_bias, heads=self.heads, scale=self.scale, a=a, geom=geom
+            )
         ctx.add("matmul_flops", 2.0 * bw * self.heads * t * t * d)
         return out
 
@@ -285,9 +323,28 @@ class Block(nn.Module):
         x = x.reshape(b, h // d[0], d[0], w // d[1], d[1], c).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(b, h * w, c)
 
+    def _partition_windows_zero(self, ctx, x):
+        """qkv (B, N, 3C) -> (windows (B * nh * nw, T, 3C) of the map padded
+        with zeros, pad_bias, geom): the windowed kernel fills the pad rows
+        with ``pad_bias`` = qkv(0), the qkv bias row (counted as
+        :meth:`_partition_windows` counts it), at the tokens outside the
+        image that ``geom`` = (nh, nw, h, w) gives. Both are None when the
+        grid does not pad."""
+        p = self._window_padding()
+        d = self.window_size
+        c = x.shape[-1]
+        pad_bias = geom = None
+        if any(p):
+            pad_bias = self.qkv.apply_bias(ctx, x.new_zeros((1, 1, 1, c))).reshape(c)
+            h, w = self.input_size
+            geom = ((h + p[0]) // d[0], (w + p[1]) // d[1], h, w)
+        windows = self._window_major(x, x.new_zeros(c)).reshape(-1, prod(d), c)
+        return windows, pad_bias, geom
+
     def _partition_windows(self, ctx, x):
         """qkv (B, N, 3C) -> (B * windows, T, 3C); pad tokens equal the qkv
-        bias row, qkv(0) (reference blocks.py:269-287), counted."""
+        bias row, qkv(0) (reference blocks.py:269-287), counted. The plain
+        path's partition."""
         if self.window_size is None:
             return x
         c = x.shape[-1]
@@ -361,7 +418,7 @@ class EventfulTokenwiseBlock(Block):
 
     ``fused_gates`` mirrors the JAX attribute with the values the port
     implements: "auto" (the JAX package's TPU dispatch by token count),
-    "v4" and "v2" (forced)."""
+    "v4", "v2" and "blocked" (forced)."""
 
     V2MLP_MAX_TOKENS = 512
     V2_MAX_TOKENS = 2048
@@ -392,10 +449,12 @@ class EventfulTokenwiseBlock(Block):
         package, with its TPU thresholds)."""
         if self.fused_gates == "v4":
             return "v4" if self._v4_eligible() else "v2mlp"
-        if self.fused_gates == "v2":
-            return "v2"
+        if self.fused_gates in ("v2", "blocked"):
+            return self.fused_gates
         if self.fused_gates != "auto":
-            raise ValueError(f"fused_gates must be 'auto', 'v4' or 'v2', got {self.fused_gates!r}")
+            raise ValueError(
+                f"fused_gates must be 'auto', 'v4', 'v2' or 'blocked', got {self.fused_gates!r}"
+            )
         if n_tokens <= self.V2MLP_MAX_TOKENS:
             return "v4" if self._v4_eligible() else "v2mlp"
         if n_tokens <= self.V2_MAX_TOKENS:
@@ -525,15 +584,15 @@ class EventfulTokenwiseBlock(Block):
             return self._v4_step(ctx, state, x, norms, next_gate)
         if mode == "v2mlp":
             raise not_ported(f"the 'v2mlp' regime (N={n} <= 512, a block 'v4' does not take)", 10)
-        if mode == "blocked":
-            raise not_ported(f"the 'blocked' regime (N={n} > 2048)", 18)
+        blocked = mode == "blocked"
+        group_linear = self._blocked_group_linear if blocked else self._v2_group_linear
         state = dict(state)
         skip_1 = x
         if self._resident_qkv(n):
             x = self._resident_qkv_group(ctx, state, x, norms)
             x = self._forward_attention(ctx, x, aux, pre_partitioned=True)
         else:
-            outs, index, mask = self._v2_group_linear(
+            outs, index, mask = group_linear(
                 ctx, self.qkv_gate, state["qkv_gate"], state["qkv_accumulator"], x,
                 self.input_layer_norm, "post", self.qkv,
                 need_index=self._attention_uses_index, norms=norms,
@@ -541,32 +600,34 @@ class EventfulTokenwiseBlock(Block):
             x, state = self._attention_incremental(ctx, state, outs[1], index, mask, aux)
         # the projection group emits the MLP gate's norms
         own_mlp = (state["mlp_gate"]["p"], self.mlp_layer_norm.scale, self.mlp_layer_norm.bias)
-        outs, _, _ = self._v2_group_linear(
+        outs, _, _ = group_linear(
             ctx, self.projection_gate, state["projection_gate"],
             state["projection_accumulator"], x, None, "none", self.projection,
             skip=skip_1, next_gate=own_mlp,
         )
         x, mlp_norms = outs[2], outs[3]
         ctx.add("add_flops", x.numel())  # skip_1 residual
-        y, next_norms = self._v2_group_mlp(ctx, state, x, mlp_norms, next_gate)
+        group_mlp = self._blocked_group_mlp if blocked else self._v2_group_mlp
+        y, next_norms = group_mlp(ctx, state, x, mlp_norms, next_gate)
         return y, state, next_norms
 
-    def _v2_select(self, ctx, gate, p, x, ln, ln_mode, norms=None, need_index=False):
-        """Error norms -> coverage (and the indices when ``need_index``).
-        ``norms``: precomputed by an upstream kernel. Returns (kcap, index,
-        mask, cov); index None on the coverage-only path."""
+    def _select(self, ctx, gate, p, x, ln, ln_mode, norms=None, need_index=False):
+        """Error norms (unless an upstream kernel handed them over) ->
+        coverage and, with ``need_index``, the selected rows (B, k) int32,
+        ascending (the JAX package lists them in top-k order; every
+        consumer is order-free). The kernel paths take mask-free top-k
+        policies only, so every slot is valid. Returns (kcap, index or
+        None, cov)."""
         ctx.add("gate_flops", x.numel())
         if norms is None:
             if ln_mode == "post":
                 norms = ln_norms(x, p, ln.scale, ln.bias)
             else:  # "none": error in the input domain
                 norms = vector_norm(x - p, -1, 2)
-        n = x.shape[-2]
-        if not need_index:
-            kcap = gate.policy.capacity(n)
-            return kcap, None, None, coverage_from_norms(norms, kcap)
-        index, mask = gate.policy.select_from_norms(norms, ctx)
-        return index.shape[-1], index, mask, coverage(index, mask, n)
+        kcap = gate.policy.capacity(x.shape[-2])
+        cov = coverage_from_norms(norms, kcap)
+        index = index_from_coverage(cov, kcap).to(torch.int32) if need_index else None
+        return kcap, index, cov
 
     def _v2_group_linear(
         self, ctx, gate, gate_state, buf_state, x, ln, ln_mode, linear, skip=None,
@@ -574,9 +635,9 @@ class EventfulTokenwiseBlock(Block):
     ):
         """Gate -> gathered linear -> buffer blend (-> skip add, next-gate
         norms) through ``gate_group_linear``. Returns ((p, b, y,
-        next_norms), index, mask), counted as the gathered path."""
-        kcap, index, mask, cov = self._v2_select(
-            ctx, gate, gate_state["p"], x, ln, ln_mode, norms=norms, need_index=need_index
+        next_norms), index, None), counted as the gathered path."""
+        kcap, index, cov = self._select(
+            ctx, gate, gate_state["p"], x, ln, ln_mode, norms, need_index
         )
         scale, bias = (ln.scale, ln.bias) if ln_mode == "post" else (None, None)
         p_next, n_scale, n_bias = next_gate or (None, None, None)
@@ -584,11 +645,11 @@ class EventfulTokenwiseBlock(Block):
             x, gate_state["p"], buf_state["b"], cov, scale, bias, linear.kernel, linear.bias,
             skip, p_next, n_scale, n_bias, ln_mode=ln_mode, kcap=kcap,
         )
-        frac = (kcap / x.shape[-2]) * valid_fraction(mask)
+        frac = kcap / x.shape[-2]
         rows = x.numel() // x.shape[-1]
         ctx.add("linear_flops", frac * float(x.numel() * linear.out_features))
         ctx.add("bias_flops", frac * float(rows * linear.out_features))
-        return outs, index, mask
+        return outs, index, None
 
     def _resident_qkv_group(self, ctx, state, x, norms):
         """The qkv group over the window-major buffer: selection and the
@@ -597,29 +658,66 @@ class EventfulTokenwiseBlock(Block):
         Returns the updated buffer (B, NW, 3C)."""
         ln = self.input_layer_norm
         p = state["qkv_gate"]["p"]
-        ctx.add("gate_flops", x.numel())
-        if norms is None:
-            norms = ln_norms(x, p, ln.scale, ln.bias)
-        k = self.qkv_gate.policy.capacity(x.shape[-2])
-        cov = coverage_from_norms(norms, k)
-        index = index_from_coverage(cov, k)
+        _, index, cov = self._select(ctx, self.qkv_gate, p, x, ln, "post", norms, True)
         h = self.qkv(ctx, layer_norm(take_rows(x, index), ln))
         block_select_p(x, p, cov, ln.scale, ln.bias, apply_ln=True)
         w_index = self._window_index(x.device)[index]
         return block_scatter_rows(state["qkv_accumulator"]["b"], w_index, h)
+
+    # -- the "blocked" regime ------------------------------------------------------
+
+    def _blocked_group_linear(
+        self, ctx, gate, gate_state, buf_state, x, ln, ln_mode, linear, skip=None,
+        need_index=False, norms=None, next_gate=None,
+    ):
+        """Gate -> the linear on the k selected rows in PyTorch -> one
+        ``block_select_scatter`` pass (gate-state select, buffer blend, skip
+        add, next-gate norms). Returns ((p, b, y, next_norms), index, None),
+        y and next_norms None where not asked for; the blocked groups list
+        their rows whatever ``need_index`` says."""
+        del need_index
+        _, index, cov = self._select(ctx, gate, gate_state["p"], x, ln, ln_mode, norms, True)
+        rows = take_rows(x, index)
+        post = ln_mode == "post"
+        if post:
+            rows = layer_norm(rows, ln)
+        h = linear(ctx, rows)
+        scale, bias = (ln.scale, ln.bias) if post else (None, None)
+        p_next, n_scale, n_bias = next_gate or (None, None, None)
+        outs = block_select_scatter(
+            x, gate_state["p"], buf_state["b"], cov, index, h, scale, bias, skip, p_next,
+            n_scale, n_bias, apply_ln=post,
+        )
+        return outs + (None,) * (4 - len(outs)), index, None
+
+    def _blocked_group_mlp(self, ctx, state, x, norms, next_gate):
+        """Gate -> the MLP on the k selected rows in PyTorch -> one
+        ``block_select_scatter`` pass with the residual x and the next
+        gate's norms. Returns (y, next_norms)."""
+        ln = self.mlp_layer_norm
+        p, b = state["mlp_gate"]["p"], state["mlp_accumulator"]["b"]
+        _, index, cov = self._select(ctx, self.mlp_gate, p, x, ln, "post", norms, True)
+        h = self._mlp(ctx, layer_norm(take_rows(x, index), ln))
+        p_next, n_scale, n_bias = next_gate or (None, None, None)
+        outs = block_select_scatter(
+            x, p, b, cov, index, h, ln.scale, ln.bias, None, p_next, n_scale, n_bias,
+            apply_ln=True, residual_x=True,
+        )
+        ctx.add("add_flops", outs[2].numel())
+        return outs[2], (outs[3] if p_next is not None else None)
 
     def _v2_group_mlp(self, ctx, state, x, norms, next_gate):
         """Gate -> gathered MLP -> buffer blend -> residual through
         ``gate_group_mlp``. Returns (y, next_norms)."""
         ln = self.mlp_layer_norm
         p, b = state["mlp_gate"]["p"], state["mlp_accumulator"]["b"]
-        kcap, _, mask, cov = self._v2_select(ctx, self.mlp_gate, p, x, ln, "post", norms=norms)
+        kcap, _, cov = self._select(ctx, self.mlp_gate, p, x, ln, "post", norms)
         p_next, n_scale, n_bias = next_gate or (None, None, None)
         _, _, y, next_norms = gate_group_mlp(
             x, p, b, cov, ln.scale, ln.bias, self.mlp_1.kernel, self.mlp_1.bias,
             self.mlp_2.kernel, self.mlp_2.bias, p_next, n_scale, n_bias, kcap=kcap,
         )
-        frac = (kcap / x.shape[-2]) * valid_fraction(mask)
+        frac = kcap / x.shape[-2]
         rows = x.numel() // x.shape[-1]
         hidden = self.mlp_1.out_features
         ctx.add("linear_flops", frac * float(x.numel() * hidden))
@@ -737,10 +835,18 @@ class EventfulMatmul1Block(EventfulTokenwiseBlock):
         a = counted_matmul(ctx, q / self.scale, k.transpose(-2, -1))
         return self._matmul_1_post(ctx, a, q, aux), v
 
-    def _matmul_1_incremental(self, ctx, x, index, mask, aux):
+    def _matmul_1_incremental(self, ctx, x, index, mask, aux, matmul=True):
+        """Returns (attention, v, index_k, mask_k); with ``matmul`` False the
+        product is left to the A.V kernel, counted here as the reference
+        counts it, and the first item is (q, k) instead."""
         q, k, v = self._partition_heads(x)
         k, v = self._pool_tokens(k), self._pool_tokens(v)
         index_k, mask_k = self._pool_index(index, mask)
+        if not matmul:
+            self.matmul_accumulator_1.count_incremental(
+                ctx, q, k.transpose(-2, -1), index, index_k, mask, mask_k
+            )
+            return (q, k), v, index_k, mask_k
         a = self.matmul_accumulator_1.incremental_recompute(
             ctx, q / self.scale, k.transpose(-2, -1), index, index_k, mask, mask_k
         )
@@ -775,11 +881,23 @@ class EventfulBlock(EventfulMatmul1Block):
     every step), so an incremental step selects the changed columns of the
     attention matrix and rows of v into the gate states and recomputes
     ``p_a @ p_v`` (``recompute_av``), counted as the reference's gathered
-    delta products."""
+    delta products.
+
+    ``av_kernel`` and ``fuse_matmul_1`` mirror the JAX attributes: "auto"
+    runs the step through ``softmax_select_matmul`` (q.kT, rel-pos bias,
+    softmax, select and A.V in one kernel) by the JAX package's TPU rule,
+    True always, False never; ``fuse_matmul_1=False`` with the kernel needs
+    its logits form, which is not ported."""
+
+    # the JAX package's TPU rule: the A.V kernel at >= 512 pooled keys, or
+    # at any count for one stream
+    AV_KERNEL_MIN_COLS = 512
 
     def __init__(self, **block_kwargs):
         super().__init__(**block_kwargs)
         self.recompute_av = True
+        self.av_kernel = "auto"
+        self.fuse_matmul_1 = "auto"
         self.v_gate = TokenDeltaGate()
         self.matmul_gate = TokenDeltaGate(structure="col")
         self.matmul_accumulator_2 = MatmulDeltaAccumulator()
@@ -806,24 +924,59 @@ class EventfulBlock(EventfulMatmul1Block):
         x = counted_matmul(ctx, a, v)
         return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
 
+    def _use_av_kernel(self, n_cols, batch):
+        if self.av_kernel is True or self.av_kernel is False:
+            return self.av_kernel
+        if self.av_kernel != "auto":
+            raise ValueError(f"av_kernel must be 'auto', True or False, got {self.av_kernel!r}")
+        return n_cols >= self.AV_KERNEL_MIN_COLS or batch == 1
+
     def _attention_incremental(self, ctx, state, x, index, mask, aux):
-        a, v, index_k, mask_k = self._matmul_1_incremental(ctx, x, index, mask, aux)
-        a, v, old_dtype = self._cast_matmul_2(a, v)
-        x = self._av_recompute(ctx, state, a, v, index_k, mask_k)
+        if not self._use_av_kernel(self._pooled_tokens(x.shape[-2]), x.shape[0]):
+            a, v, index_k, mask_k = self._matmul_1_incremental(ctx, x, index, mask, aux)
+            a, v, old_dtype = self._cast_matmul_2(a, v)
+            x = self._av_recompute(ctx, state, a, v, index_k, mask_k)
+            return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
+        if self.fuse_matmul_1 is False:
+            raise not_ported("the A.V kernel over a logits tensor (fuse_matmul_1=False)", 10)
+        qk, v, index_k, mask_k = self._matmul_1_incremental(ctx, x, index, mask, aux, matmul=False)
+        # the cast applies to the A.V operands only: the kernel computes the
+        # logits from q and k in the working dtype
+        old_dtype = None
+        if self.matmul_2_cast is not None:
+            old_dtype = v.dtype
+            v = v.to(_CAST_DTYPES[self.matmul_2_cast])
+        x = self._av_recompute(ctx, state, None, v, index_k, mask_k, qk=qk, aux=aux)
         return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
 
-    def _av_recompute(self, ctx, state, a, v, index_k, mask_k):
+    def _av_recompute(self, ctx, state, a, v, index_k, mask_k, qk=None, aux=None):
         """p_v = v's selected rows into the v gate state, p_a = the
         attention matrix's selected columns into the matmul gate state,
-        x = p_a @ p_v. Counted as the reference's delta formulation."""
+        x = p_a @ p_v. With ``qk`` (q and the pooled k; ``a`` None),
+        ``softmax_select_matmul`` computes the attention matrix, selects
+        its columns into the state in place and multiplies. Counted as the
+        reference's delta formulation."""
         p_a_state = state["matmul_gate"]["p"]
         ctx.add("gate_flops", float(v.numel()))  # v gate error pass
         p_v = select_rows(state["v_gate"]["p"], v, index_k, mask_k)
         state["v_gate"] = {"p": p_v}
         ctx.add("gate_flops", float(p_a_state.numel()))  # matmul gate error pass
-        p_a = select_cols(p_a_state, a, index_k, mask_k)
+        if qk is None:
+            p_a = select_cols(p_a_state, a, index_k, mask_k)
+            x = torch.matmul(p_a, p_v)
+        else:
+            q, k = qk
+            terms = p = None
+            if self.relative_position is not None:
+                rp = self.relative_position
+                terms, p = rp.bias_terms(ctx, q, self._derived(aux)), rp.pooled_size()
+                ctx.add("add_flops", 2.0 * p_a_state.numel())  # the bias adds
+            cov = coverage(index_k, mask_k, p_a_state.shape[-1])
+            p_a, x = softmax_select_matmul(
+                p_a_state, cov, p_v, q.contiguous(), k.contiguous(), terms,
+                inv_scale=1.0 / self.scale, p=p,
+            )
         state["matmul_gate"] = {"p": p_a}
-        x = torch.matmul(p_a, p_v)
         frac = valid_fraction(mask_k)
         kcap = index_k.shape[-1]
         batch_heads = p_a_state.numel() // (p_a_state.shape[-2] * p_a_state.shape[-1])

@@ -7,7 +7,8 @@ paths the incremental gate and buffer updates run inside the kernels
 :meth:`TokenGate.incremental_select` is the same gate update written in
 plain PyTorch. ``EventfulBlock`` recomputes its A.V product from the gate
 states (``recompute_av``), so of ``TokenDeltaGate`` only the state is used
-and of ``MatmulBuffer`` only :meth:`~MatmulBuffer.incremental_recompute`.
+and of ``MatmulBuffer`` only :meth:`~MatmulBuffer.incremental_recompute`
+(or its counts alone, where the A.V kernel computes the product).
 The gathered delta paths (``TokenDeltaGate.incremental``,
 ``MatmulDeltaAccumulator``, ``SimpleSTGTGate``) are not ported yet
 (ROADMAP.md, open item 10).
@@ -89,14 +90,19 @@ class MatmulBuffer:
         """q @ k in q's dtype, counted as the reference's two incremental
         matmuls (rows of the selected queries, columns of the selected
         keys)."""
-        product = torch.matmul(q, k)
-        d = q.shape[-1]
-        batch = product.numel() // (product.shape[-2] * product.shape[-1])
-        rows_out = batch * index_q.shape[-1] * product.shape[-1]
-        cols_out = batch * product.shape[-2] * index_k.shape[-1]
+        self.count_incremental(ctx, q, k, index_q, index_k, mask_q, mask_k)
+        return torch.matmul(q, k)
+
+    @staticmethod
+    def count_incremental(ctx, q, k, index_q, index_k, mask_q=None, mask_k=None):
+        """The counts of :meth:`incremental_recompute` for q (..., N, d) and
+        k (..., d, Np), where a kernel computes the product instead."""
+        d, n = q.shape[-1], q.shape[-2]
+        batch = q.numel() // (n * d)
+        rows_out = batch * index_q.shape[-1] * k.shape[-1]
+        cols_out = batch * n * index_k.shape[-1]
         ctx.add("matmul_flops", valid_fraction(mask_q) * float(rows_out * d))
         ctx.add("matmul_flops", valid_fraction(mask_k) * float(cols_out * d))
-        return product
 
 
 class MatmulDeltaAccumulator:

@@ -3,14 +3,13 @@
 
 The eventful path selects from per-token error norms that the kernels emit,
 so a policy fixes the capacity k and the norm order; the selection itself
-is :func:`~.indexing.coverage_from_norms`, and :meth:`select_from_norms`
-lists the same set as indices. ``TokenNormThreshold`` (masked,
-saturation-counted) is not ported yet (ROADMAP.md, open item 11).
+is :func:`~.indexing.coverage_from_norms`, and
+:func:`~.indexing.index_from_coverage` lists the same set as indices.
+``TokenNormThreshold`` (masked, saturation-counted) is not ported yet
+(ROADMAP.md, open item 11).
 """
 
 from __future__ import annotations
-
-from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms, index_from_coverage
 
 
 def vector_norm(e, dim, order):
@@ -32,14 +31,6 @@ class TokenNormTopK:
 
     def capacity(self, n_tokens):
         return min(self.k, n_tokens)
-
-    def select_from_norms(self, norms, ctx=None):
-        """(index, mask) of the top-k norms (..., N): the JAX top-k set, its
-        indices ascending (the JAX package lists them in norm order; every
-        consumer is order-free). The mask is None: every slot is valid."""
-        del ctx
-        k = self.capacity(norms.shape[-1])
-        return index_from_coverage(coverage_from_norms(norms, k), k), None
 
 
 class TokenNormTopFraction(TokenNormTopK):

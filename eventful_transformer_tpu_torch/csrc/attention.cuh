@@ -17,6 +17,13 @@
 // matmul adds it (window_attention.py:133-141). Without terms (p0 = 0) no
 // bias is added.
 //
+// The padded form (window_attention.py:155-192) reads windows partitioned
+// from a zero-padded token map: a PadGeom gives the qkv-bias row, the pad
+// rows' terms (H, N, p0 + p1) and the window grid, and a token whose image
+// position (from the window index b and its place in the window) lies
+// outside the vh x vw map takes the bias row for its q, k and v and the pad
+// terms for its bias, as the TPU kernel substitutes them in VMEM.
+//
 // One block per (batch, head, 32-query tile); K (n x (d+1), padded against
 // bank conflicts) and V (n x d) of the head sit in shared memory in float32,
 // and each warp keeps its query's n probabilities, the scaled query and its
@@ -32,10 +39,25 @@ namespace etk {
 constexpr int kAttnThreads = 256;  // 8 warps, one query at a time each
 constexpr int kAttnQueries = 32;   // queries per block
 
+// Window geometry of the padded form; ``bias`` null: no pad rows.
+template <typename T>
+struct PadGeom {
+  const T* bias = nullptr;   // (3C,) the qkv-bias row
+  const T* terms = nullptr;  // (H, N, p0 + p1) the pad rows' terms, or null
+  int nh = 1, nw = 1, vh = 0, vw = 0, a0 = 1, a1 = 1;
+
+  // whether token ``idx`` of window ``win`` lies inside the image
+  __device__ __forceinline__ bool valid(int win, int idx) const {
+    if (bias == nullptr) return true;
+    const int wy = (win % (nh * nw)) / nw, wx = win % nw;
+    return idx / a1 + wy * a0 < vh && idx % a1 + wx * a1 < vw;
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_kernel(const T* __restrict__ qkv, const T* __restrict__ terms, T* __restrict__ out,
-                 int n, int c, int heads, float inv_scale, int p0, int p1) {
+                 int n, int c, int heads, float inv_scale, int p0, int p1, PadGeom<T> geom) {
   extern __shared__ float smem[];
   const int d = c / heads;
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
@@ -49,17 +71,21 @@ attention_kernel(const T* __restrict__ qkv, const T* __restrict__ terms, T* __re
   const T* base = qkv + (int64_t)b * n * 3 * c;
   for (int e = threadIdx.x; e < n * d; e += blockDim.x) {
     const int j = e / d, t = e % d;
-    ks[j * (d + 1) + t] = to_f(base[(int64_t)j * 3 * c + c + h * d + t]);
-    vs[j * d + t] = to_f(base[(int64_t)j * 3 * c + 2 * c + h * d + t]);
+    const T* row = geom.valid(b, j) ? base + (int64_t)j * 3 * c : geom.bias;
+    ks[j * (d + 1) + t] = to_f(row[c + h * d + t]);
+    vs[j * d + t] = to_f(row[2 * c + h * d + t]);
   }
   __syncthreads();
   const float scale = rnd<T>(inv_scale);
   const int q_end = min(n, (int)(blockIdx.y + 1) * kAttnQueries);
   for (int qi = blockIdx.y * kAttnQueries + warp; qi < q_end; qi += kAttnThreads / 32) {
-    for (int t = lane; t < d; t += 32)
-      qs[t] = rnd<T>(to_f(base[(int64_t)qi * 3 * c + h * d + t]) * scale);
+    const bool inside = geom.valid(b, qi);
+    const T* qrow = inside ? base + (int64_t)qi * 3 * c : geom.bias;
+    for (int t = lane; t < d; t += 32) qs[t] = rnd<T>(to_f(qrow[h * d + t]) * scale);
     if (nt > 0) {
-      const T* tr = terms + (((int64_t)b * heads + h) * n + qi) * nt;
+      const T* tr = inside || geom.terms == nullptr
+                        ? terms + (((int64_t)b * heads + h) * n + qi) * nt
+                        : geom.terms + ((int64_t)h * n + qi) * nt;
       for (int t = lane; t < nt; t += 32) ts[t] = to_f(tr[t]);
     }
     __syncwarp();
@@ -98,11 +124,12 @@ inline size_t attention_smem_bytes(int n, int d, int n_terms) {
 }
 
 // qkv (bsz, n, 3c) -> out (bsz, n, c), with rel-pos terms (bsz, heads, n,
-// p0 + p1) when ``terms`` is not null (then n == p0 * p1); returns the CUDA
-// error, if any.
+// p0 + p1) when ``terms`` is not null (then n == p0 * p1) and pad rows
+// substituted where ``geom`` has a bias row; returns the CUDA error, if any.
 template <typename T>
 int launch_attention(const T* qkv, const T* terms, T* out, int bsz, int n, int c, int heads,
-                     float inv_scale, int p0, int p1, cudaStream_t stream) {
+                     float inv_scale, int p0, int p1, cudaStream_t stream,
+                     PadGeom<T> geom = PadGeom<T>{}) {
   if (terms == nullptr) p0 = p1 = 0;
   const size_t smem = attention_smem_bytes(n, c / heads, p0 + p1);
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<T>,
@@ -110,7 +137,7 @@ int launch_attention(const T* qkv, const T* terms, T* out, int bsz, int n, int c
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bsz * heads, (n + kAttnQueries - 1) / kAttnQueries);
   attention_kernel<T><<<grid, kAttnThreads, smem, stream>>>(qkv, terms, out, n, c, heads,
-                                                            inv_scale, p0, p1);
+                                                            inv_scale, p0, p1, geom);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,4 @@
-// The split select/scatter pair of the window-resident qkv buffer, written
-// for Hopper.
+// The blocked gate kernels of large token counts, written for Hopper.
 //
 // Replaces eventful_transformer_tpu/ops/pallas/gate_block.py:
 //   * block_select_p: p' = where(cov, ln(x) | x, p), in place. The TPU
@@ -16,6 +15,23 @@
 //     the pass moves 2 x KP x F elements (2.4 MB in bf16 at KP = 256,
 //     F = 2304) instead of the whole buffer. The result is the same where
 //     valid indices are distinct, which top-k selection guarantees.
+//   * block_select_scatter: the gate-state select, the scatter-blend of the
+//     k-row op output into the token buffer, the skip (or x) add and the
+//     next gate's norms, over every row of the row-major state:
+//
+//       p' = where(cov, ln(x) | x, p)                       (in place)
+//       b' = where(cov, h[slot(i)] (0 if i is in no slot), b) (in place)
+//       y  = rnd(b' + skip | x);  norms = ||ln(y) - p_next||  (optional)
+//
+//     The TPU kernel tiles 512 rows per grid step and copies h's rows with
+//     a (rows, KP) one-hot matmul on the MXU. Here two launches: one block
+//     per batch row inverts the index list into a token -> slot map in
+//     shared memory (16 KB at N = 4096) and writes it out; then one
+//     256-thread block per token row does the whole row pass, reading x,
+//     p, b (+ skip, + p_next) once and writing p', b' (selected rows only)
+//     and y. At ViTDet-1024 (B = 2, N = 4096) the qkv group's b pass
+//     (F = 2304, 38 MB read in bf16) is the largest memory term; the
+//     projection and MLP groups (F = C = 768) move about 25 MB each.
 #include "common.cuh"
 
 namespace etk {
@@ -31,6 +47,101 @@ scatter_rows_kernel(T* __restrict__ b, const int* __restrict__ index, const T* _
   T* dst = b + (batch * nw + target) * (int64_t)f;
   const T* src = h + slot * (int64_t)f;
   for (int i = threadIdx.x; i < f; i += blockDim.x) dst[i] = src[i];
+}
+
+constexpr int kSlotThreads = 1024;
+
+// slot[b, i] = j where index[b, j] == i, else -1; an index outside [0, n)
+// marks an invalid slot and maps nothing. Dynamic shared memory: n ints.
+__global__ void __launch_bounds__(kSlotThreads)
+slot_map_kernel(const int* __restrict__ index, int* __restrict__ slot, int n, int kp) {
+  extern __shared__ int map[];
+  const int64_t b = blockIdx.x;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) map[i] = -1;
+  __syncthreads();
+  for (int j = threadIdx.x; j < kp; j += blockDim.x) {
+    const int t = index[b * kp + j];
+    if (t >= 0 && t < n) map[t] = j;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) slot[b * n + i] = map[i];
+}
+
+// One row r of the blocked group. ``scale`` null: the gate takes x itself
+// (apply_ln=False). ``res``: the skip (width f) or x (residual_x, f == c),
+// null without a y output; ``norms`` null without the next gate. Dynamic
+// shared memory: (max(c, f) + 32) floats.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+select_scatter_kernel(const T* __restrict__ x, T* __restrict__ p, T* __restrict__ b,
+                      const float* __restrict__ cov, const int* __restrict__ slot,
+                      const T* __restrict__ h, const T* __restrict__ scale,
+                      const T* __restrict__ bias, const T* __restrict__ res, T* __restrict__ y,
+                      const T* __restrict__ p_next, const T* __restrict__ next_scale,
+                      const T* __restrict__ next_bias, float* __restrict__ norms, int n, int c,
+                      int f, int kp) {
+  extern __shared__ float smem[];
+  float* row = smem;
+  float* red = smem + max(c, f);
+  const int64_t r = blockIdx.x;
+  const bool sel = cov[r] > 0.f;  // uniform over the block
+  if (sel) {
+    T* pr = p + r * c;
+    if (scale != nullptr) {
+      load_row(x, r, c, row);
+      float mean, rstd;
+      ln_stats(row, c, red, mean, rstd);
+      for (int i = threadIdx.x; i < c; i += blockDim.x)
+        pr[i] = from_f<T>(ln_value(row[i], mean, rstd, scale, bias, i));
+      __syncthreads();  // row is reused below
+    } else {
+      for (int i = threadIdx.x; i < c; i += blockDim.x) pr[i] = x[r * c + i];
+    }
+  }
+  const int j = sel ? slot[r] : -1;
+  const T* hr = j >= 0 ? h + ((r / n) * kp + j) * (int64_t)f : nullptr;
+  for (int i = threadIdx.x; i < f; i += blockDim.x) {
+    const int64_t e = r * f + i;
+    float bv;
+    if (sel) {
+      bv = hr != nullptr ? to_f(hr[i]) : 0.f;
+      b[e] = from_f<T>(bv);
+    } else {
+      bv = to_f(b[e]);
+    }
+    if (res != nullptr) {
+      const float yv = rnd<T>(bv + to_f(res[e]));
+      y[e] = from_f<T>(yv);
+      row[i] = yv;
+    }
+  }
+  if (norms == nullptr) return;  // uniform over the block
+  __syncthreads();
+  const float norm = ln_error_norm(row, p_next, r, f, next_scale, next_bias, red);
+  if (threadIdx.x == 0) norms[r] = norm;
+}
+
+template <typename T>
+int block_select_scatter(const void* x, void* p, void* b, const float* cov, const int* index,
+                         const void* h, const void* scale, const void* bias, const void* skip,
+                         int residual_x, const void* p_next, const void* next_scale,
+                         const void* next_bias, void* y, float* norms, int* slot, int bsz, int n,
+                         int c, int f, int kp, cudaStream_t stream) {
+  const size_t map_smem = (size_t)n * sizeof(int);
+  if (map_smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        slot_map_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)map_smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  slot_map_kernel<<<bsz, kSlotThreads, map_smem, stream>>>(index, slot, n, kp);
+  ETK_CHECK_LAUNCH();
+  const T* res = skip != nullptr ? (const T*)skip : (residual_x ? (const T*)x : nullptr);
+  select_scatter_kernel<T><<<(unsigned)((int64_t)bsz * n), kRowThreads,
+                             row_smem_bytes(c > f ? c : f), stream>>>(
+      (const T*)x, (T*)p, (T*)b, cov, slot, (const T*)h, (const T*)scale, (const T*)bias, res,
+      (T*)y, (const T*)p_next, (const T*)next_scale, (const T*)next_bias, norms, n, c, f, kp);
+  ETK_CHECK_LAUNCH();
+  return 0;
 }
 
 }  // namespace etk
@@ -62,6 +173,18 @@ int etk_block_scatter_rows(int dtype, void* b, const void* index, const void* h,
     ETK_CHECK_LAUNCH();
     return 0;
   });
+}
+
+int etk_block_select_scatter(int dtype, const void* x, void* p, void* b, const void* cov,
+                             const void* index, const void* h, const void* scale,
+                             const void* bias, const void* skip, int residual_x,
+                             const void* p_next, const void* next_scale, const void* next_bias,
+                             void* y, void* norms, void* slot, int bsz, int n, int c, int f,
+                             int kp, void* stream) {
+  ETK_DISPATCH(dtype, return etk::block_select_scatter<T>(
+                          x, p, b, (const float*)cov, (const int*)index, h, scale, bias, skip,
+                          residual_x, p_next, next_scale, next_bias, y, (float*)norms,
+                          (int*)slot, bsz, n, c, f, kp, (cudaStream_t)stream));
 }
 
 }  // extern "C"

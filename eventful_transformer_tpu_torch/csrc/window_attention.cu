@@ -1,15 +1,21 @@
-// window_attention, global mode and windowed rel-pos form, written for
-// Hopper.
+// window_attention, global mode and the windowed forms, written for Hopper.
 //
 // Replaces eventful_transformer_tpu/ops/pallas/window_attention.py::
-// window_attention called without window geometry (no pad substitution):
+// window_attention:
 //   * global mode, no rel-pos terms: the whole sequence of each batch row
 //     is one "window". It serves the dense block, the eventful flush step
 //     and ViViT's temporal model;
 //   * windowed form with rel-pos terms: one window of T = 196 tokens per
 //     batch row (ViTDet's 14 x 14 windows, Bw = 18 at 672 with 2 streams),
 //     the per-axis terms (Bw, H, T, 28) expanded onto the float32 logits.
-//     It serves ViTDet's 8 windowed blocks, dense and eventful.
+//     It serves ViTDet's 8 windowed blocks, dense and eventful;
+//   * the padded windowed form (``geom``): the windows of a zero-padded
+//     token map, with the qkv-bias row and the pad rows' terms substituted
+//     at out-of-image tokens (window_attention.py:155-192). At ViTDet-1024
+//     the 64 x 64 grid pads to 5 x 5 windows of 14 x 14 (Bw = 50 with 2
+//     streams, 4900 rows, 804 of them pad rows); the dense twin's windowed
+//     blocks run it. The substitution is a compare per row load, so the
+//     form costs what the unpadded one does.
 //
 // The TPU kernel runs one grid step per batch row with its whole (N, 3C)
 // qkv block in VMEM; at N = 197, C = 768 that is 0.9 MB in bf16, beyond the
@@ -31,12 +37,25 @@ int etk_attention_smem_bytes(int n, int d, int n_terms) {
   return (int)etk::attention_smem_bytes(n, d, n_terms);
 }
 
+// pad_bias null: no pad rows; else geom = (nh, nw, vh, vw) and the window
+// (a0, a1), and pad_terms the pad rows' terms when terms is not null.
 int etk_window_attention(int dtype, const void* qkv, const void* terms, void* out, int bsz,
                          int n, int c, int heads, float inv_scale, int p0, int p1,
-                         void* stream) {
-  ETK_DISPATCH(dtype, return etk::launch_attention<T>((const T*)qkv, (const T*)terms, (T*)out,
-                                                      bsz, n, c, heads, inv_scale, p0, p1,
-                                                      (cudaStream_t)stream));
+                         const void* pad_bias, const void* pad_terms, int nh, int nw, int vh,
+                         int vw, int a0, int a1, void* stream) {
+  ETK_DISPATCH(dtype, {
+    etk::PadGeom<T> geom;
+    geom.bias = (const T*)pad_bias;
+    geom.terms = (const T*)pad_terms;
+    geom.nh = nh;
+    geom.nw = nw;
+    geom.vh = vh;
+    geom.vw = vw;
+    geom.a0 = a0;
+    geom.a1 = a1;
+    return etk::launch_attention<T>((const T*)qkv, (const T*)terms, (T*)out, bsz, n, c, heads,
+                                    inv_scale, p0, p1, (cudaStream_t)stream, geom);
+  });
 }
 
 }  // extern "C"

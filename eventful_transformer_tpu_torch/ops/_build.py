@@ -42,10 +42,12 @@ SIGNATURES = {
     "etk_proj_group": [_I] + [_P] * 11 + [_I, _I, _I, _P],
     "etk_gate_group_mlp": [_I] + [_P] * 19 + [_I] * 5 + [_P],
     "etk_attention_smem_bytes": [_I, _I, _I],
-    "etk_window_attention": [_I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    "etk_window_attention": [_I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P] + [_I] * 6 + [_P],
     "etk_gate_group_linear": [_I] + [_P] * 17 + [_I] * 6 + [_P],
     "etk_block_select_p": [_I] + [_P] * 5 + [_I, _L, _I, _P],
     "etk_block_scatter_rows": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    "etk_block_select_scatter": [_I] + [_P] * 9 + [_I] + [_P] * 6 + [_I] * 5 + [_P],
+    "etk_softmax_select_matmul": [_I, _I] + [_P] * 7 + [_I] * 7 + [_F, _P],
     "etk_dense_mlp_residual": [_I] + [_P] * 10 + [_I, _I, _I, _P],
 }
 

@@ -1,0 +1,86 @@
+"""The fused A.V step of ``EventfulBlock`` (port of ``softmax_select_matmul``
+from ``eventful_transformer_tpu/ops/pallas/av_softmax.py``).
+
+With ``recompute_av`` the eventful A.V product is ``p_a' @ p_v`` where
+``p_a' = where(cov, softmax(logits), p_a)`` keeps the stale columns of the
+keys no gate selected. The kernel computes the logits from q and the
+pooled k itself (the fused matmul-1 form), adds the rel-pos terms, takes
+the softmax, selects the columns into the state in place and multiplies by
+p_v, so the (B, H, N, Np) logits and softmax never reach device memory.
+The form that reads a logits tensor (``fuse_matmul_1=False``) is not ported
+(ROADMAP.md, "TPU kernels to port"). The CUDA kernel is
+``csrc/av_softmax.cu``; see its header for what bounds it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from eventful_transformer_tpu_torch.ops import _build
+from eventful_transformer_tpu_torch.ops.window_attention import expand_terms
+
+
+def softmax_select_matmul_plain(p_a, cov, p_v, q, k, terms=None, *, inv_scale, p=None):
+    """p_a (B, H, N, Np) attention state in S, updated in place; cov (B, Np)
+    float32 (> 0 = refresh the column); p_v (B, H, Np, d) value state in S;
+    q (B, H, N, d) and the pooled k (B, H, Np, d) in the working dtype W;
+    terms (B, H, N, p0 + p1) the per-axis rel-pos terms in W over the
+    (p0, p1) key grid ``p``. q is scaled by ``inv_scale`` in W; the logits,
+    the bias (the two terms summed in float32) and the softmax in float32;
+    the probabilities rounded to S; the product summed in float32 and
+    rounded to S. Returns (p_a, p_a' @ p_v)."""
+    wd = q.dtype
+    qs = q * torch.tensor(inv_scale, dtype=wd)
+    logits = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    if terms is not None:
+        logits = logits + expand_terms(terms, p)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    a = (e / e.sum(dim=-1, keepdim=True)).to(p_a.dtype)
+    p_a.copy_(torch.where(cov[:, None, None, :] > 0, a, p_a))
+    return p_a, torch.matmul(p_a.float(), p_v.float()).to(p_a.dtype)
+
+
+def softmax_select_matmul(p_a, cov, p_v, q, k, terms=None, *, inv_scale, p=None):
+    """The wrapper of :func:`softmax_select_matmul_plain`, which CPU tensors
+    take. CUDA tensors launch the kernel of csrc/av_softmax.cu; it takes W
+    and S both float32, both bfloat16, or float32 with bfloat16 state (the
+    matmul-2 cast), and a head width that is a multiple of 16 up to 128."""
+    if q.device.type == "cpu":
+        return softmax_select_matmul_plain(p_a, cov, p_v, q, k, terms, inv_scale=inv_scale, p=p)
+    name = "softmax_select_matmul"
+    bsz, heads, n, d = q.shape
+    np_ = p_a.shape[-1]
+    wd, sd = _build.dtype_code(q), _build.dtype_code(p_a)
+    if (wd, sd) == (1, 0):
+        raise TypeError(f"{name}: bfloat16 q with float32 state is not a kernel form")
+    if d % 16 or d > 128:
+        raise ValueError(f"{name}: head width {d} is not a multiple of 16 up to 128")
+    working = dict(k=k, cov=cov) if terms is None else dict(k=k, cov=cov, terms=terms)
+    _build.check_operands(name, q, ("cov",), **working)
+    _build.check_operands(name, p_a, p_v=p_v)
+    shapes = dict(p_a=(bsz, heads, n, np_), cov=(bsz, np_), p_v=(bsz, heads, np_, d),
+                  k=(bsz, heads, np_, d))
+    operands = dict(p_a=p_a, cov=cov, p_v=p_v, k=k)
+    p0 = p1 = 0
+    if terms is not None:
+        p0, p1 = p
+        if p0 * p1 != np_:
+            raise ValueError(f"{name}: key grid {p} does not hold the {np_} pooled keys")
+        shapes["terms"] = (bsz, heads, n, p0 + p1)
+        operands["terms"] = terms
+    for key, shape in shapes.items():
+        _build.check_shape(name, key, operands[key], shape)
+    for key in ("k", "p_v"):  # staged with 16-byte loads
+        if operands[key].dtype == torch.bfloat16 and operands[key].data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
+    out = torch.empty((bsz, heads, n, d), dtype=p_a.dtype, device=q.device)
+    _build.launch(
+        "etk_softmax_select_matmul", wd, sd, p_a.data_ptr(), cov.data_ptr(), p_v.data_ptr(),
+        q.data_ptr(), k.data_ptr(), None if terms is None else terms.data_ptr(), out.data_ptr(),
+        bsz, heads, n, np_, d, p0, p1, float(inv_scale), _build.stream_of(q),
+    )
+    softmax_select_matmul.launches += 1
+    return p_a, out
+
+
+softmax_select_matmul.launches = 0

@@ -1,15 +1,22 @@
-"""The split select/scatter pair of the window-resident qkv buffer (port of
-``block_select_p`` and ``block_scatter_rows`` from
+"""The blocked gate kernels of large token counts (port of
+``block_select_scatter``, ``block_select_p`` and ``block_scatter_rows`` from
 ``eventful_transformer_tpu/ops/pallas/gate_block.py``).
 
-A windowed eventful block keeps its qkv buffer in the window-major layout
-that windowed attention reads, so the gate-state select runs over the
-row-major tokens and the buffer update over window-major rows, with the
-selected indices remapped through the static window permutation. Both
-update their state in place, as the TPU kernels alias it. The combined
-``block_select_scatter`` (ViTDet-1024's blocked mode) is not ported yet
-(ROADMAP.md, "TPU kernels to port"). The CUDA kernels are
-``csrc/gate_block.cu``; see its header for what bounds them.
+The "blocked" regime (N > 2048, ViTDet-1024) selects the rows and runs the
+gated op on the k selected rows outside any kernel; ``block_select_scatter``
+then makes the one pass over the full-size state: the gate-state select,
+the scatter-blend of the op's k rows into the token buffer, the skip (or
+x) add and the next gate's norms. A windowed eventful block keeps its qkv
+buffer in the window-major layout that windowed attention reads, so its
+qkv group splits that pass in two: the gate-state select over the
+row-major tokens (``block_select_p``) and the buffer update over
+window-major rows (``block_scatter_rows``), with the selected indices
+remapped through the static window permutation. All three update their
+state in place, as the TPU kernels alias it. Index lists name rows in any
+order; an invalid slot holds -1 (the port's convention; the kernels also
+skip any other value outside the rows, such as the JAX package's N), and
+valid indices must be distinct, as a top-k selection makes them. The CUDA
+kernels are ``csrc/gate_block.cu``; see its header for what bounds them.
 """
 
 from __future__ import annotations
@@ -17,7 +24,105 @@ from __future__ import annotations
 import torch
 
 from eventful_transformer_tpu_torch.ops import _build
-from eventful_transformer_tpu_torch.ops.common import ln_f32
+from eventful_transformer_tpu_torch.ops.common import ln_f32, row_norms
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def block_select_scatter_plain(
+    x, p, b, cov, index, h, scale, bias, skip=None, p_next=None, next_scale=None,
+    next_bias=None, *, apply_ln, residual_x=False
+):
+    """x (B, N, C) group input; p (B, N, C) gate state and b (B, N, F) token
+    buffer, both updated in place; cov (B, N) float32 (> 0 = selected);
+    index (B, KP) the selected rows in any order, -1 in an invalid slot; h
+    (B, KP, F), row j the op's output for token index[j]; skip (B, N, F)
+    optional residual, or ``residual_x`` to add x itself (F == C).
+
+    p' = where(cov, ln(x) | x, p); b' = where(cov, h[slot], b), 0 for a
+    selected row that no slot names; y = rnd(b' + skip | x); with
+    ``p_next``, the next gate's norms ||ln(y) * s + b - p_next|| of the
+    rounded y. Returns (p, b), (p, b, y) or (p, b, y, norms), as the JAX
+    kernel does."""
+    sel = cov[..., None] > 0
+    new = ln_f32(x, scale, bias) if apply_ln else x.float()
+    p.copy_(torch.where(sel, new, p.float()).to(p.dtype))
+    valid = (index >= 0) & (index < x.shape[-2])
+    rows, slots = torch.nonzero(valid, as_tuple=True)
+    scattered = torch.zeros_like(b)
+    scattered[rows, index[rows, slots].long()] = h[rows, slots].to(b.dtype)
+    b.copy_(torch.where(sel, scattered, b))
+    if skip is None and not residual_x:
+        return p, b
+    y = (b.float() + (x if residual_x else skip).float()).to(x.dtype)
+    if p_next is None:
+        return p, b, y
+    return p, b, y, row_norms(ln_f32(y, next_scale, next_bias) - p_next.float())
+
+
+def block_select_scatter(
+    x, p, b, cov, index, h, scale, bias, skip=None, p_next=None, next_scale=None,
+    next_bias=None, *, apply_ln, residual_x=False
+):
+    """The wrapper of :func:`block_select_scatter_plain`, which CPU tensors
+    take. CUDA tensors launch the kernels of csrc/gate_block.cu (the index
+    list inverted into a token -> slot map, then the row pass); ``index`` is
+    int32 there."""
+    if x.device.type == "cpu":
+        return block_select_scatter_plain(
+            x, p, b, cov, index, h, scale, bias, skip, p_next, next_scale, next_bias,
+            apply_ln=apply_ln, residual_x=residual_x,
+        )
+    name = "block_select_scatter"
+    if skip is not None and residual_x:
+        raise ValueError(f"{name}: give skip or residual_x, not both")
+    if p_next is not None and skip is None and not residual_x:
+        raise ValueError(f"{name}: the next gate's norms need the y output")
+    bsz, n, c = x.shape
+    f, kp = b.shape[-1], index.shape[-1]
+    shapes = dict(p=x.shape, b=(bsz, n, f), cov=(bsz, n), h=(bsz, kp, f))
+    operands = dict(p=p, b=b, cov=cov, h=h)
+    if apply_ln:
+        shapes.update(scale=(c,), bias=(c,))
+        operands.update(scale=scale, bias=bias)
+    if skip is not None:
+        shapes["skip"] = (bsz, n, f)
+        operands["skip"] = skip
+    if residual_x and f != c:
+        raise ValueError(f"{name}: residual_x needs F == C, got F={f}, C={c}")
+    if p_next is not None:
+        shapes.update(p_next=(bsz, n, f), next_scale=(f,), next_bias=(f,))
+        operands.update(p_next=p_next, next_scale=next_scale, next_bias=next_bias)
+    _build.check_operands(name, x, ("cov",), **operands)
+    for key, shape in shapes.items():
+        _build.check_shape(name, key, operands[key], shape)
+    if index.dtype != torch.int32 or index.device != x.device or not index.is_contiguous():
+        raise TypeError(f"{name}: index must be a contiguous int32 tensor on {x.device}")
+    _build.check_shape(name, "index", index, (bsz, kp))
+    if n * 4 > _build.MAX_SHARED_BYTES or f > _build.MAX_ROW_WIDTH:
+        raise ValueError(f"{name}: N={n} or F={f} too large for one block")
+    with_y = skip is not None or residual_x
+    y = torch.empty((bsz, n, f), dtype=x.dtype, device=x.device) if with_y else None
+    norms = None
+    if p_next is not None:
+        norms = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
+    slot = torch.empty((bsz, n), dtype=torch.int32, device=x.device)
+    _build.launch(
+        "etk_block_select_scatter", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
+        b.data_ptr(), cov.data_ptr(), index.data_ptr(), h.data_ptr(),
+        _ptr(scale) if apply_ln else None, _ptr(bias) if apply_ln else None, _ptr(skip),
+        int(residual_x), _ptr(p_next), _ptr(next_scale), _ptr(next_bias), _ptr(y),
+        _ptr(norms), slot.data_ptr(), bsz, n, c, f, kp, _build.stream_of(x),
+    )
+    block_select_scatter.launches += 1
+    if y is None:
+        return p, b
+    return (p, b, y) if norms is None else (p, b, y, norms)
+
+
+block_select_scatter.launches = 0
 
 
 def block_select_p_plain(x, p, cov, scale, bias, *, apply_ln):

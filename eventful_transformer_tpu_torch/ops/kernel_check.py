@@ -11,6 +11,7 @@ import torch
 
 from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms
 from eventful_transformer_tpu_torch.ops import (
+    av_softmax,
     block_fused,
     dense_mlp,
     gate_block,
@@ -78,6 +79,36 @@ KERNELS = {
         "eventful_transformer_tpu_torch/csrc/gate_block.cu",
         "eventful_transformer_tpu/ops/pallas/gate_block.py:368", ("b",),
     ),
+    "block_select_scatter_qkv": (
+        gate_block.block_select_scatter, gate_block.block_select_scatter_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_block.cu",
+        "eventful_transformer_tpu/ops/pallas/gate_block.py:141", ("p", "b"),
+    ),
+    "block_select_scatter_proj": (
+        gate_block.block_select_scatter, gate_block.block_select_scatter_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_block.cu",
+        "eventful_transformer_tpu/ops/pallas/gate_block.py:141", ("p", "b", "y", "next_norms"),
+    ),
+    "block_select_scatter_mlp": (
+        gate_block.block_select_scatter, gate_block.block_select_scatter_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_block.cu",
+        "eventful_transformer_tpu/ops/pallas/gate_block.py:141", ("p", "b", "y", "next_norms"),
+    ),
+    "softmax_select_matmul": (
+        av_softmax.softmax_select_matmul, av_softmax.softmax_select_matmul_plain,
+        "eventful_transformer_tpu_torch/csrc/av_softmax.cu",
+        "eventful_transformer_tpu/ops/pallas/av_softmax.py:125", ("p_a", "out"),
+    ),
+    "softmax_select_matmul_noterms": (
+        av_softmax.softmax_select_matmul, av_softmax.softmax_select_matmul_plain,
+        "eventful_transformer_tpu_torch/csrc/av_softmax.cu",
+        "eventful_transformer_tpu/ops/pallas/av_softmax.py:125", ("p_a", "out"),
+    ),
+    "window_attention_padded": (
+        window_attention.window_attention, window_attention.window_attention_plain,
+        "eventful_transformer_tpu_torch/csrc/window_attention.cu",
+        "eventful_transformer_tpu/ops/pallas/window_attention.py:281", ("out",),
+    ),
 }
 
 # Bounds on each output of a kernel against its plain version. With
@@ -106,13 +137,27 @@ F32_SCALED = 1e-4
 BF16_BOUNDS = dict(scaled=2e-2, differ_share=5e-2, far_share=1e-2)
 
 
-def make_inputs(bsz, n, c, heads, k, dtype, device, seed=0, window=(4, 6)):
+def _grid(n):
+    """The most nearly square (h, w) with h * w == n."""
+    h = max(i for i in range(1, int(n**0.5) + 1) if n % i == 0)
+    return h, n // h
+
+
+def make_inputs(
+    bsz, n, c, heads, k, dtype, device, seed=0, window=(4, 6), windows=None, pool=(3, 7),
+    pad_window=(3, 4),
+):
     """Random activations, gate states, weights and one coverage per gate,
     at the scales of the model (LN-domain states ~ N(0, 1), weights
-    ~ C^-1/2); window rows (bsz * n // T windows of T = window[0] *
-    window[1] tokens, at least one) with rel-pos terms; a qkv buffer, k
+    ~ C^-1/2); window rows (``windows`` windows of T = window[0] *
+    window[1] tokens, by default bsz * n // T, at least one) with rel-pos
+    terms; a qkv buffer, k
     rows for it and their target rows in random order, the last slot of
-    each batch row invalid (-1)."""
+    each batch row invalid (-1), and the coverage of the valid ones; the
+    A.V state over a ``pool`` grid of keys with q, k, terms and a column
+    coverage; and the windows of the n tokens laid out as the most nearly
+    square grid, zero-padded to ``pad_window`` windows, with their
+    geometry, a pad-bias row and pad terms."""
     g = torch.Generator().manual_seed(seed)
 
     def randn(*shape, scale=1.0, shift=0.0):
@@ -134,7 +179,7 @@ def make_inputs(bsz, n, c, heads, k, dtype, device, seed=0, window=(4, 6)):
         norms = torch.rand((bsz, n), generator=g).to(device)
         d[name] = coverage_from_norms(norms, k)
     t = window[0] * window[1]
-    n_win = max(1, bsz * n // t)
+    n_win = windows or max(1, bsz * n // t)
     d.update(
         qkv_win=randn(n_win, t, 3 * c), terms=randn(n_win, heads, t, window[0] + window[1]),
         buf_qkv=randn(bsz, n, 3 * c), buf_proj=randn(bsz, n, c), h_rows=randn(bsz, k, 3 * c),
@@ -143,7 +188,33 @@ def make_inputs(bsz, n, c, heads, k, dtype, device, seed=0, window=(4, 6)):
     if k > 1:
         rows[:, -1] = -1
     d["w_index"] = rows.to(device=device, dtype=torch.int32)
+    cov_sel = torch.zeros((bsz, n))
+    for b in range(bsz):
+        cov_sel[b, rows[b][rows[b] >= 0]] = 1.0
+    d.update(cov_sel=cov_sel.to(device), h_c=randn(bsz, k, c))
+    # the A.V state: probabilities ~ 1 / Np, a quarter of the columns refreshed
+    hd, np_ = c // heads, pool[0] * pool[1]
+    p_a = torch.rand((bsz, heads, n, np_), generator=g) * (2.0 / np_)
+    d.update(
+        p_a=p_a.to(device=device, dtype=dtype), p_v=randn(bsz, heads, np_, hd),
+        av_q=randn(bsz, heads, n, hd), av_k=randn(bsz, heads, np_, hd),
+        av_terms=randn(bsz, heads, n, pool[0] + pool[1], scale=0.3),
+        av_cov=(torch.rand((bsz, np_), generator=g) < 0.25).float().to(device),
+    )
+    # windows of the zero-padded token map
+    (h, w), (a0, a1) = _grid(n), pad_window
+    nh, nw = -(-h // a0), -(-w // a1)
+    grid = torch.zeros((bsz, nh * a0, nw * a1, 3 * c), dtype=dtype, device=device)
+    grid[:, :h, :w] = d["qkv"].reshape(bsz, h, w, 3 * c)
+    grid = grid.reshape(bsz, nh, a0, nw, a1, 3 * c).permute(0, 1, 3, 2, 4, 5)
+    d.update(
+        qkv_pad=grid.reshape(-1, a0 * a1, 3 * c).contiguous(),
+        terms_pad=randn(bsz * nh * nw, heads, a0 * a1, a0 + a1, scale=0.3),
+        pad_bias=randn(3 * c), pad_terms=randn(heads, a0 * a1, a0 + a1, scale=0.3),
+        geom=(nh, nw, h, w),
+    )
     d["heads"], d["k"], d["window"] = heads, k, tuple(window)
+    d["pool"], d["pad_window"] = tuple(pool), tuple(pad_window)
     return d
 
 
@@ -193,6 +264,34 @@ def _invoke(name, fn, d):
         return (fn(d["x"], d["p_qkv"], d["cov1"], d["ln1_s"], d["ln1_b"], apply_ln=True),)
     if name == "block_scatter_rows":
         return (fn(d["buf_qkv"], d["w_index"], d["h_rows"]),)
+    if name == "block_select_scatter_qkv":
+        return fn(
+            d["x"], d["p_qkv"], d["buf_qkv"], d["cov_sel"], d["w_index"], d["h_rows"],
+            d["ln1_s"], d["ln1_b"], apply_ln=True,
+        )
+    if name == "block_select_scatter_proj":
+        return fn(
+            d["attn"], d["p_proj"], d["buf_proj"], d["cov_sel"], d["w_index"], d["h_c"], None,
+            None, d["x"], d["p_mlp"], d["ln2_s"], d["ln2_b"], apply_ln=False,
+        )
+    if name == "block_select_scatter_mlp":
+        return fn(
+            d["x"], d["p_mlp"], d["b_mlp"], d["cov_sel"], d["w_index"], d["h_c"], d["ln2_s"],
+            d["ln2_b"], None, d["p_next"], d["ln1_s"], d["ln1_b"], apply_ln=True,
+            residual_x=True,
+        )
+    if name.startswith("softmax_select_matmul"):
+        c = d["x"].shape[-1]
+        terms = None if name.endswith("_noterms") else d["av_terms"]
+        return fn(
+            d["p_a"], d["av_cov"], d["p_v"], d["av_q"], d["av_k"], terms,
+            inv_scale=(c // d["heads"]) ** -0.5, p=d["pool"],
+        )
+    if name == "window_attention_padded":
+        c = d["x"].shape[-1]
+        return (fn(d["qkv_pad"], d["terms_pad"], d["pad_bias"], d["pad_terms"],
+                   heads=d["heads"], scale=(c // d["heads"]) ** 0.5, p=d["pad_window"],
+                   a=d["pad_window"], geom=d["geom"]),)
     out = fn(
         d["x"], d["p_mlp"], d["b_mlp"], d["cov3"], d["ln2_s"], d["ln2_b"], d["w1"],
         d["b1"], d["w2"], d["b2"], d["p_next"], d["ln1_s"], d["ln1_b"], kcap=d["k"],

@@ -7,12 +7,14 @@ window; the dense ``Block``, the eventful flush step and ViViT's temporal
 model run their plain attention through it. Windowed form: ``qkv`` holds
 one window per batch row (Bw, T, 3C) and ``terms`` (Bw, H, T, p0 + p1) are
 the per-axis rel-pos terms of :func:`window_bias_terms`; the kernel adds
-``terms[n, m // p1] + terms[n, p0 + m % p1]`` to the float32 logits. The
-padded form (``geom``/``pad_terms``, in-kernel substitution of the qkv-bias
-row at out-of-image tokens) and ``window_attention_grid`` are not ported:
-the blocks materialise pad rows instead (ROADMAP.md, "TPU kernels to
-port"). The CUDA kernel is ``csrc/window_attention.cu``, which launches the
-attention kernel of ``csrc/attention.cuh``; kernel A shares it.
+``terms[n, m // p1] + terms[n, p0 + m % p1]`` to the float32 logits.
+Padded form (``geom``): the windows come from a token map zero-padded to
+the window grid, and the kernel substitutes the qkv-bias row ``pad_bias``
+for the q, k and v of every out-of-image token and ``pad_terms``
+(:func:`window_bias_pad_terms`) for its terms. ``window_attention_grid`` is
+not ported (ROADMAP.md, "TPU kernels to port"). The CUDA kernel is
+``csrc/window_attention.cu``, which launches the attention kernel of
+``csrc/attention.cuh``; kernel A shares it.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from eventful_transformer_tpu_torch.ops import _build
 
 
-def _expand_terms(terms, p):
+def expand_terms(terms, p):
     """(…, T, p0 + p1) terms -> (…, T, p0 * p1) float32 bias: the sum of
     the y term of key row m // p1 and the x term of key column m % p1."""
     p0, p1 = p
@@ -44,17 +46,41 @@ def attention_plain(qkv, heads, inv_scale, terms=None, p=None):
     q = q * torch.tensor(inv_scale, dtype=wd)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if terms is not None:
-        logits = logits + _expand_terms(terms, p)
+        logits = logits + expand_terms(terms, p)
     e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     attn = (e / e.sum(dim=-1, keepdim=True)).to(wd)
     out = torch.matmul(attn.float(), v.float()).to(wd)
     return out.transpose(1, 2).reshape(bsz, n, c)
 
 
-def window_attention_plain(qkv, terms=None, *, heads, scale, p=None):
+def window_valid(bw, geom, a, device):
+    """(Bw, T) bool: whether each token of each window lies inside the
+    image. ``geom`` = (nh, nw, vh, vw): the window grid and the image's
+    token extents; ``a`` = (a0, a1) the window. Window i sits at grid row
+    (i % (nh * nw)) // nw and column i % nw, as the windows of
+    ``Block._partition_windows_zero`` are laid out."""
+    nh, nw, vh, vw = geom
+    a0, a1 = a
+    win = torch.arange(bw, device=device)[:, None]
+    idx = torch.arange(a0 * a1, device=device)[None, :]
+    rows = idx // a1 + (win % (nh * nw)) // nw * a0
+    cols = idx % a1 + win % nw * a1
+    return (rows < vh) & (cols < vw)
+
+
+def window_attention_plain(
+    qkv, terms=None, pad_bias=None, pad_terms=None, *, heads, scale, p=None, a=None, geom=None
+):
     """Attention of qkv (Bw, T, 3C) -> (Bw, T, C), logits scaled by 1/scale
     as the TPU kernel scales them; with ``terms``, the windowed rel-pos
-    form over a (p0, p1) key grid (T == p0 * p1)."""
+    form over a (p0, p1) key grid (T == p0 * p1). With ``geom``, the padded
+    form over windows ``a``: out-of-image tokens take ``pad_bias`` (3C,) as
+    their qkv row and ``pad_terms`` (H, T, p0 + p1) as their terms."""
+    if geom is not None:
+        valid = window_valid(qkv.shape[0], geom, a, qkv.device)
+        qkv = torch.where(valid[..., None], qkv, pad_bias.to(qkv.dtype))
+        if terms is not None:
+            terms = torch.where(valid[:, None, :, None], terms, pad_terms.to(terms.dtype))
     return attention_plain(qkv, heads, 1.0 / scale, terms, p)
 
 
@@ -70,6 +96,16 @@ def window_bias_terms(qkv, tab, heads):
     return torch.einsum("bthc,tpc->bhtp", q, tab.to(qkv.dtype)).contiguous()
 
 
+def window_bias_pad_terms(pad_bias, tab, heads):
+    """(H, T, p0 + p1) terms of the qkv-bias row (3C,), the value every pad
+    token takes, against the per-token table ``tab``, in tab's dtype: the
+    padded form substitutes them at pad rows, so the pad rows' outputs
+    match those of windows whose pad rows hold the bias row."""
+    c = pad_bias.shape[-1] // 3
+    qb = pad_bias[:c].reshape(heads, c // heads).to(tab.dtype)
+    return torch.einsum("hc,tpc->htp", qb, tab).contiguous()
+
+
 def attention_smem_bytes(name, n, d, n_terms=0):
     """Shared memory of the attention kernel at N tokens of head width d
     with ``n_terms`` rel-pos terms per query; raises if one block cannot
@@ -80,11 +116,15 @@ def attention_smem_bytes(name, n, d, n_terms=0):
     return smem
 
 
-def window_attention(qkv, terms=None, *, heads, scale, p=None):
+def window_attention(
+    qkv, terms=None, pad_bias=None, pad_terms=None, *, heads, scale, p=None, a=None, geom=None
+):
     """The wrapper of :func:`window_attention_plain`, which CPU tensors
     take. CUDA tensors launch the kernel of csrc/window_attention.cu."""
     if qkv.device.type == "cpu":
-        return window_attention_plain(qkv, terms, heads=heads, scale=scale, p=p)
+        return window_attention_plain(
+            qkv, terms, pad_bias, pad_terms, heads=heads, scale=scale, p=p, a=a, geom=geom
+        )
     name = "window_attention"
     bsz, n, c3 = qkv.shape
     if c3 % (3 * heads):
@@ -99,12 +139,27 @@ def window_attention(qkv, terms=None, *, heads, scale, p=None):
         if p0 * p1 != n:
             raise ValueError(f"{name}: key grid {p} does not hold the {n} tokens of a window")
         _build.check_shape(name, "terms", terms, (bsz, heads, n, p0 + p1))
+    nh = nw = a0 = a1 = 1
+    vh = vw = 0
+    if geom is not None:
+        nh, nw, vh, vw = geom
+        a0, a1 = a
+        if a0 * a1 != n or bsz % (nh * nw):
+            raise ValueError(f"{name}: {bsz} windows of {n} tokens do not fill {nh} x {nw} of {a}")
+        pads = dict(pad_bias=pad_bias)
+        if terms is not None:
+            pads["pad_terms"] = pad_terms
+            _build.check_shape(name, "pad_terms", pad_terms, (heads, n, p0 + p1))
+        _build.check_operands(name, qkv, **pads)
+        _build.check_shape(name, "pad_bias", pad_bias, (c3,))
     attention_smem_bytes(name, n, c // heads, p0 + p1)
     out = torch.empty((bsz, n, c), dtype=qkv.dtype, device=qkv.device)
     _build.launch(
         "etk_window_attention", _build.dtype_code(qkv), qkv.data_ptr(),
         None if terms is None else terms.data_ptr(), out.data_ptr(), bsz, n, c, heads,
-        float(1.0 / scale), p0, p1, _build.stream_of(qkv),
+        float(1.0 / scale), p0, p1, None if geom is None else pad_bias.data_ptr(),
+        None if geom is None or terms is None else pad_terms.data_ptr(), nh, nw, vh, vw, a0, a1,
+        _build.stream_of(qkv),
     )
     window_attention.launches += 1
     return out

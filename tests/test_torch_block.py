@@ -125,8 +125,10 @@ def _windowed_auto():
 
 
 def _blocked():
-    """N = 2304 > 2048 under "auto": the 'blocked' regime."""
-    blk = blocks.EventfulTokenwiseBlock(dim=8, heads=2, mlp_ratio=1, input_size=(48, 48))
+    """N = 2304 > 2048 under "auto": the 'blocked' regime, with the A.V
+    kernel asked to read a logits tensor (fuse_matmul_1=False)."""
+    blk = blocks.EventfulBlock(dim=8, heads=2, mlp_ratio=1, input_size=(48, 48), pool_size=2)
+    blk.fuse_matmul_1 = False
     _incremental_step(blk, 48 * 48)
 
 

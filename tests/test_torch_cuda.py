@@ -84,3 +84,73 @@ def test_small_vitdet_card_matches_cpu(device):
     assert {"window_attention", "gate_group_linear", "block_select_p", "block_scatter_rows",
             "gate_group_mlp", "ln_norms"} <= launched
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=1e-3)
+
+
+def test_softmax_select_matmul_cast_matches_plain(device):
+    """The matmul-2 cast of a float32 model: float32 q, k and terms with
+    bfloat16 A.V state, at an awkward N (37) and key grid (3 x 7)."""
+    d = kernel_check.make_inputs(2, 37, 64, 4, 9, torch.float32, device, seed=2)
+    for key in ("p_a", "p_v"):
+        d[key] = d[key].to(torch.bfloat16)
+    got = kernel_check.call("softmax_select_matmul", d)
+    want = kernel_check.call("softmax_select_matmul", d, plain=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert kernel_check.compare(a, b)["ok"], kernel_check.compare(a, b)
+
+
+@pytest.mark.parametrize("eventful", [True, False], ids=["eventful_blocked", "dense_padded"])
+def test_small_vitdet_blocked_card_matches_cpu(eventful, device):
+    """A small ViTDet backbone on an 8 x 8 grid with 3 x 3 windows (pad
+    rows), eventful in the forced "blocked" regime with the A.V kernel, or
+    dense through the padded windowed form; 2 streams x 3 frames in
+    float32 on the card against the CPU: tokens within 1e-3, every kernel
+    of the path launched."""
+    import copy
+
+    from eventful_transformer_tpu_torch.core.counting import Ctx
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import ViTDet
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    block = dict(dim=64, heads=4, mlp_ratio=2, window_size=[3, 3],
+                 relative_embedding_size=[8, 8])
+    backbone = dict(depth=4, position_encoding_size=[4, 4], window_indices=[0, 2],
+                    block_config=block)
+    if eventful:
+        block["pool_size"] = 2
+        backbone.update(block_class="EventfulBlock", windowed_class="EventfulTokenwiseBlock",
+                        windowed_overrides=dict(pool_size=None))
+    model = ViTDet(
+        backbone_config=backbone, classes=5, input_shape=[3, 128, 128],
+        normalize_mean=[0.0] * 3, normalize_std=[1.0] * 3, output_channels=16,
+        patch_size=[16, 16], scale_factors=[1.0],
+    )
+    if eventful:
+        set_policies(model, TokenNormTopK, k=12)
+        for blk in model.backbone.blocks:
+            blk.fused_gates = "blocked"
+            if hasattr(blk, "av_kernel"):
+                blk.av_kernel = True
+    card = copy.deepcopy(model).to(device)
+    frames = torch.rand((3, 2, 3, 128, 128), generator=torch.Generator().manual_seed(0))
+    wrappers = {entry[0].__name__: entry[0] for entry in kernel_check.KERNELS.values()}
+    before = {name: fn.launches for name, fn in wrappers.items()}
+    outs = []
+    for m, x in ((card, frames.to(device)), (model, frames)):
+        state = m.init_state(2, torch.float32, x.device)
+        with torch.no_grad():
+            for t in range(3):
+                tokens = m.pre_backbone(Ctx(), x[t])
+                mode = ("flush" if t == 0 else "incremental") if eventful else None
+                tokens, state = m.apply_backbone(Ctx(), state, tokens, mode=mode)
+        outs.append(tokens.cpu())
+    torch.cuda.synchronize()
+    launched = {name for name, fn in wrappers.items() if fn.launches > before[name]}
+    want = {"window_attention", "dense_mlp_residual"}
+    if eventful:
+        want = {"window_attention", "block_select_scatter", "softmax_select_matmul",
+                "block_select_p", "block_scatter_rows", "ln_norms"}
+    assert want <= launched
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=1e-3)
