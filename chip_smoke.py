@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths through the entry points a user calls, and
+Drives the port's four paths through the entry points a user calls, and
 checks them: eventful ViViT-B inference on Kinetics-400 shaped clips
-through ``FactorizedViViT.apply_views``, and the eventful ViTDet-B backbone
+through ``FactorizedViViT.apply_views``; the eventful ViTDet-B backbone
 at 672 x 672 (spatiotemporal_672, k = 256, the "v2" regime) and at
 1024 x 1024 (spatiotemporal_1024, k = 256, the "blocked" regime) through
-``ViTDet.pre_backbone`` and ``apply_backbone``, each with its dense twin.
+``ViTDet.pre_backbone`` and ``apply_backbone``; and ViTDet-B detection end
+to end at 672 through ``ViTDet.apply`` (backbone, SimplePyramid, RPN,
+ROIAlign, NMS, the standard ROI heads); each with its dense twin.
 Phases, one JSON line each, with the seconds the phase took:
 
   1. env:            torch, CUDA and nvcc versions and the card (nvidia-smi).
@@ -23,7 +25,9 @@ Phases, one JSON line each, with the seconds the phase took:
                      counted GFLOPs/clip against the JAX package's counts.
   5. time:           ViViT's dense twin against eventful, ms/clip.
   6. vitdet_kernels: the kernels of the ViTDet path at its shapes (N = 1764,
-                     2 streams, 18 windows of 196 tokens), as in 3.
+                     2 streams, 18 windows of 196 tokens; the rel-pos bias
+                     add over 1764 keys (dense) and 441 (pooled)), and of
+                     the end-to-end path at one stream, as in 3.
   7. vitdet_slice:   eventful spatiotemporal_672 and dense base_672, 2
                      streams x 16 frames in bfloat16, with launch counts and
                      counted GFLOPs per frame against the JAX package's; one
@@ -32,9 +36,21 @@ Phases, one JSON line each, with the seconds the phase took:
   8. vitdet_time:    dense against eventful, ms/frame, alternated.
   9-11. vitdet1024_kernels, vitdet1024_slice, vitdet1024_time: as 6-8 for
                      spatiotemporal_1024 and base_1024 (N = 4096, 50 windows
-                     of 196 tokens with pad rows, 1024 pooled keys); the
-                     kernels phase also holds softmax_select_matmul at 441
-                     pooled keys, the shape the 672 float32 check runs it at.
+                     of 196 tokens with pad rows, 1024 pooled keys, the
+                     rel-pos bias add over 4096 and 1024 keys); the kernels
+                     phase also holds softmax_select_matmul at 441 pooled
+                     keys, the shape the 672 float32 check runs it at.
+  12. vitdet_e2e:    spatiotemporal_672 and base_672 through ViTDet.apply, one
+                     stream, a flush frame then 8 frames, bfloat16: launch
+                     counts, counted GFLOPs per frame against the JAX
+                     package's, the detections kept per frame, the host
+                     synchronisations of the NMS loops; the eventful call
+                     again with the rel-pos bias add in its relpos_bias_add
+                     form (use_kernel = True), counted; 3 frames of the
+                     eventful model in float32 on the card (the rel-pos bias
+                     add in its relpos_bias_add form) against the CPU:
+                     tokens and detections; then dense against eventful,
+                     ms/frame, alternated.
 The times are a record, not a claim.
 
 Then the card's name and power limit, one JSON line with every kernel's
@@ -43,6 +59,7 @@ raises, and the script exits non-zero; without a CUDA device it raises
 before printing any result. Imports nothing of JAX.
 """
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -77,10 +94,12 @@ VITDET_STREAMS, VITDET_FRAMES, VITDET_K = 2, 16, 256
 VITDET_WINDOWED, VITDET_GLOBAL = 8, 4
 VITDET_DEPTH = VITDET_WINDOWED + VITDET_GLOBAL
 # Per size: the token count; the launches of an eventful incremental frame
-# beyond those both regimes make (ln_norms once, and block_select_p and
-# block_scatter_rows in each windowed qkv group); the kernel checks' inputs
-# (the unpadded windows of the resident qkv buffer, the pooled key grid)
-# and the kernels of the path; and the JAX package's counted FLOPs per
+# beyond those both regimes make (ln_norms once, block_select_p and
+# block_scatter_rows in each windowed qkv group, and the global blocks' A.V
+# kernel or rel-pos bias add); the kernel checks' inputs (the unpadded
+# windows of the resident qkv buffer, the pooled key grid), the rel-pos
+# bias add's key grids (the dense twin's, the pooled) and the kernels of
+# the path; and the JAX package's counted FLOPs per
 # stream, from ``python scripts/misc/count_vitdet_672.py --size <size>``
 # (the JAX package on the CPU, one block of each kind at full width): a
 # global EventfulBlock's incremental count is base + per_valid_share * f, f
@@ -91,6 +110,7 @@ VITDET = {
         step_launches=dict(gate_group_linear=VITDET_GLOBAL + VITDET_DEPTH,
                            gate_group_mlp=VITDET_DEPTH),
         inputs=dict(window=(14, 14), pool=(21, 21)),
+        keys=dict(dense=(42, 42), pooled=(21, 21)),
         kernels=("ln_norms", "gate_group_mlp", "dense_mlp_residual", "window_attention_windowed",
                  "gate_group_linear", "gate_group_linear_post", "block_select_p",
                  "block_scatter_rows"),
@@ -104,9 +124,9 @@ VITDET = {
     ),
     1024: dict(
         n=64 * 64,
-        step_launches=dict(block_select_scatter=VITDET_GLOBAL + 2 * VITDET_DEPTH,
-                           softmax_select_matmul=VITDET_GLOBAL),
+        step_launches=dict(block_select_scatter=VITDET_GLOBAL + 2 * VITDET_DEPTH),
         inputs=dict(window=(14, 14), windows=50, pool=(32, 32), pad_window=(14, 14)),
+        keys=dict(dense=(64, 64), pooled=(32, 32)),
         kernels=("ln_norms", "block_select_p", "block_scatter_rows", "block_select_scatter_qkv",
                  "block_select_scatter_proj", "block_select_scatter_mlp",
                  "softmax_select_matmul", "softmax_select_matmul_noterms",
@@ -120,6 +140,19 @@ VITDET = {
         ),
     ),
 }
+RELPOS_KERNELS = ("relpos_bias_add", "relpos_bias_add_v2")
+# ViTDet-B end to end (bench.py:262-370 bench_vitdet_e2e): spatiotemporal_672
+# and base_672 through ViTDet.apply, one stream (RPN.propose takes batch
+# 1), a flush frame then E2E_FRAMES frames per call; the kernels of that
+# path at one stream, the A.V kernel's 441 pooled keys included.
+E2E_SIZE, E2E_FRAMES = 672, 8
+E2E_KERNELS = VITDET[672]["kernels"] + ("softmax_select_matmul",) + RELPOS_KERNELS
+# The ROI heads' class scorer is initialised as in the JAX package (a
+# truncated normal, std 0.01, detectron2's): every class probability of a
+# random model then lies near 1/31, below the 0.05 score threshold, and no
+# detection is kept. The seeded kernel is scaled by this gain (std 0.3),
+# so that the run keeps detections as a trained model does.
+CLS_SCORE_GAIN = 30.0
 # One ViTDet clip in float32, card against CPU, without the matmul-2 cast:
 # with it, the global blocks' A.V product runs in bfloat16 on both sides,
 # and where cuBLAS and the CPU sum it in other orders an element rounds to
@@ -127,6 +160,41 @@ VITDET = {
 # gate selections and the tokens by 1.4e-2 (scaled) in one run. In float32
 # the tokens differ by summation order and by the rare flips bounded above.
 VITDET_TOKEN_TOL = 1e-3
+# One frame's detections in float32, card against CPU: each kept detection
+# of the CPU run must have a kept detection of the card run with the same
+# label, every box coordinate within DET_BOX_TOL pixels and the score
+# within DET_SCORE_TOL, on at least DET_MATCH_SHARE of the larger kept
+# count. Tokens that differ by summation order move boxes by about 1e-4
+# pixels; a near tie at a discrete choice (the RPN's top-k, an NMS IoU at
+# its threshold, the score threshold) may swap a detection, hence the
+# share. The box head's flatten in (H, W, C) order, planted on the CPU,
+# fails it (tests/test_torch_detection.py).
+DET_BOX_TOL, DET_SCORE_TOL, DET_MATCH_SHARE = 1e-2, 1e-4, 0.95
+
+
+def match_detections(got, want):
+    """Match the kept detections of ``want`` one to one with those of
+    ``got`` (dicts of boxes, scores, labels, mask, on any device) by
+    label, box and score within the bounds above."""
+    def kept(d):
+        m = d["mask"].cpu()
+        return d["boxes"].cpu().float()[m], d["scores"].cpu().float()[m], d["labels"].cpu()[m]
+
+    (gb, gs, gl), (wb, ws, wl) = kept(got), kept(want)
+    free = torch.ones(len(gb), dtype=torch.bool)
+    matched, box_err, score_err = 0, 0.0, 0.0
+    for b, s, label in zip(wb, ws, wl):
+        d_box = (gb - b).abs().amax(dim=-1) if len(gb) else gb.new_zeros(0)
+        d_score = (gs - s).abs()
+        ok = free & (gl == label) & (d_box <= DET_BOX_TOL) & (d_score <= DET_SCORE_TOL)
+        if ok.any():
+            j = int(torch.nonzero(ok)[0])
+            free[j] = False
+            matched += 1
+            box_err, score_err = max(box_err, float(d_box[j])), max(score_err, float(d_score[j]))
+    larger = max(len(gb), len(wb))
+    return dict(kept_card=len(gb), kept_cpu=len(wb), matched=matched, max_box_diff=box_err,
+                max_score_diff=score_err, ok=larger > 0 and matched >= DET_MATCH_SHARE * larger)
 
 
 _LAST_EMIT = [time.perf_counter()]
@@ -201,28 +269,36 @@ def phase_build():
 
 
 def check_kernels(phase, device, cases):
-    """Each kernel of ``cases`` [(batch, N, k, names, make_inputs keywords)]
-    against its plain version, float32 and bfloat16, with both timed."""
+    """Each kernel of ``cases`` [(tag, batch, N, k, names, make_inputs
+    keywords)] against its plain version, float32 and bfloat16, with both
+    timed, the bound of the card for the same work, and the one PyTorch
+    call that computes it where there is one. Rows keyed (name, dtype,
+    tag)."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for bsz, n, k, names, inputs in cases:
+        for tag, bsz, n, k, names, inputs in cases:
             d = kernel_check.make_inputs(bsz, n, 768, 12, k, dtype, device, seed=SEED, **inputs)
             for name in names:
-                results[(name, dtype, n)] = dict(
-                    kernel=name, dtype=str(dtype).split(".")[-1], batch=bsz, n=n,
+                bound_ms, bound_by = kernel_check.bound(name, d)
+                library = kernel_check.library_call(name, d)
+                results[(name, dtype, tag)] = dict(
+                    kernel=name, dtype=str(dtype).split(".")[-1], tag=tag, batch=bsz, n=n,
                     outputs=kernel_check.errors(name, d),
                     ms=kernel_check.time_ms(name, d),
                     plain_ms=kernel_check.time_ms(name, d, plain=True),
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=None if library is None else kernel_check.time_call(library),
                 )
             del d
+            torch.cuda.empty_cache()
     emit(phase, bounds=dict(float32_scaled=kernel_check.F32_SCALED, **kernel_check.BF16_BOUNDS),
          rows=list(results.values()))
-    for (name, dtype, n), row in results.items():
+    for (name, dtype, tag), row in results.items():
         for out in row["outputs"]:
             if not out["ok"]:
-                raise AssertionError(f"{name} {dtype} N={n} output {out['output']}: {out}")
+                raise AssertionError(f"{name} {dtype} {tag} output {out['output']}: {out}")
     return results
 
 
@@ -230,8 +306,8 @@ def phase_kernels(device):
     """Every kernel of ViViT's path at the spatial stack's shapes (N = 197);
     the two dense kernels also at the temporal model's (N = 17)."""
     return check_kernels("kernels", device, [
-        (8, N_TOKENS, K, VIVIT_KERNELS, dict(window=(4, 6))),
-        (8, STEPS + 1, STEPS + 1, DENSE_KERNELS, dict(window=(4, 6))),
+        ("vivit", 8, N_TOKENS, K, VIVIT_KERNELS, dict(window=(4, 6))),
+        ("temporal", 8, STEPS + 1, STEPS + 1, DENSE_KERNELS, dict(window=(4, 6))),
     ])
 
 
@@ -361,9 +437,9 @@ def phase_slice(device):
         (CLIPS, VIEWS, FRAMES, 3, SIZE, SIZE)
     ).astype(np.float32)
     views = torch.from_numpy(views)
-    cpu_model = FactorizedViViT(**vivit_config(True), seed=SEED)
+    cpu_model = FactorizedViViT(**vivit_config(True), device="cpu", seed=SEED)
     set_policies(cpu_model, TokenNormTopK, k=K)
-    dense_cpu = FactorizedViViT(**vivit_config(False), seed=SEED)
+    dense_cpu = FactorizedViViT(**vivit_config(False), device="cpu", seed=SEED)
 
     eventful = copy.deepcopy(cpu_model).to(device, torch.bfloat16)
     dense = copy.deepcopy(dense_cpu).to(device, torch.bfloat16)
@@ -426,12 +502,25 @@ def vitdet_config(eventful, size, matmul_2_cast="bfloat16"):
 
 def phase_vitdet_kernels(device, size):
     """The kernels of the ViTDet path at its shapes: 2 streams of N tokens,
-    k = 256, windows of 14 x 14; at 1024 also softmax_select_matmul at the
-    672 float32 check's shape (one stream, 1764 queries, 441 pooled keys)."""
+    k = 256, windows of 14 x 14, the rel-pos bias add over the dense twin's
+    N keys and the pooled keys of EventfulBlock; at 672 also every kernel of
+    the end-to-end path at one stream; at 1024 also softmax_select_matmul
+    at the 672 float32 check's shape (one stream, 1764 queries, 441 pooled
+    keys)."""
     cfg = VITDET[size]
-    cases = [(VITDET_STREAMS, cfg["n"], VITDET_K, cfg["kernels"], cfg["inputs"])]
-    if size == 1024:
-        cases.append((1, VITDET[672]["n"], VITDET_K, ("softmax_select_matmul",),
+    n, streams = cfg["n"], VITDET_STREAMS
+    cases = [(str(size), streams, n, VITDET_K, cfg["kernels"], cfg["inputs"])]
+    for kind, keys in cfg["keys"].items():
+        cases.append((f"{size}_{kind}", streams, n, VITDET_K, RELPOS_KERNELS,
+                      dict(cfg["inputs"], relpos_keys=keys)))
+    if size == 672:
+        cases += [
+            ("e2e", 1, n, VITDET_K, E2E_KERNELS, dict(cfg["inputs"], relpos_keys=cfg["keys"]["pooled"])),
+            ("e2e_dense", 1, n, VITDET_K, RELPOS_KERNELS,
+             dict(cfg["inputs"], relpos_keys=cfg["keys"]["dense"])),
+        ]
+    else:
+        cases.append(("672_one_stream", 1, VITDET[672]["n"], VITDET_K, ("softmax_select_matmul",),
                       VITDET[672]["inputs"]))
     return check_kernels("vitdet_kernels" if size == 672 else f"vitdet{size}_kernels", device,
                          cases)
@@ -473,55 +562,59 @@ def run_vitdet(model, frames, count=False, frame_events=None, keep=False):
     return tokens, ctx.counts, outs
 
 
-def vitdet_expected_launches(eventful, size):
-    """Launches per call (2 streams x 16 frames). Eventful: in each of the
-    15 incremental frames ln_norms once (block 0; every later block gets
-    its norms from the block before), block_select_p and block_scatter_rows
-    for the 8 windowed qkv groups, and the size's own kernels: at 672 ("v2")
-    gate_group_linear for the 4 global qkv groups and the 12 projection
-    groups and gate_group_mlp in every block; at 1024 ("blocked")
-    block_select_scatter for the 4 global qkv, 12 projection and 12 MLP
-    groups and softmax_select_matmul in the 4 global blocks;
-    window_attention in the 8 windowed blocks of every frame. Dense:
-    window_attention in the windowed blocks and dense_mlp_residual in every
-    block, every frame."""
-    frames = VITDET_FRAMES
+def vitdet_expected_launches(eventful, size, frames=VITDET_FRAMES, streams=VITDET_STREAMS):
+    """Launches per call. Eventful: in each incremental frame ln_norms once
+    (block 0; every later block gets its norms from the block before),
+    block_select_p and block_scatter_rows for the 8 windowed qkv groups,
+    and the size's own kernels: at 672 ("v2") gate_group_linear for the 4
+    global qkv groups and the 12 projection groups and gate_group_mlp in
+    every block; at 1024 ("blocked") block_select_scatter for the 4 global
+    qkv, 12 projection and 12 MLP groups; in the 4 global blocks
+    softmax_select_matmul where the A.V kernel runs (>= 512 pooled keys or
+    one stream), else relpos_bias_add_v2 on the logits; relpos_bias_add_v2
+    in the 4 global blocks of the flush frame; window_attention in the 8
+    windowed blocks of every frame. Dense: window_attention in the
+    windowed blocks, relpos_bias_add_v2 in the global blocks and
+    dense_mlp_residual in every block, every frame."""
     want = dict.fromkeys(wrappers(), 0)
     want["window_attention"] = VITDET_WINDOWED * frames
     if eventful:
         steps = frames - 1
+        av_kernel = size == 1024 or streams == 1
         per_step = dict(ln_norms=1, block_select_p=VITDET_WINDOWED,
                         block_scatter_rows=VITDET_WINDOWED, **VITDET[size]["step_launches"])
+        per_step["softmax_select_matmul" if av_kernel else "relpos_bias_add_v2"] = VITDET_GLOBAL
         want.update({name: count * steps for name, count in per_step.items()})
+        want["relpos_bias_add_v2"] += VITDET_GLOBAL
     else:
         want["dense_mlp_residual"] = VITDET_DEPTH * frames
+        want["relpos_bias_add_v2"] = VITDET_GLOBAL * frames
     return want
 
 
-def vitdet_jax_flops(eventful, valid_shares, size):
+def vitdet_jax_flops(eventful, valid_shares, size, frames=VITDET_FRAMES, streams=VITDET_STREAMS):
     """The JAX package's count of one call (all streams and frames) from
     VITDET[size]["flops"]; ``valid_shares``: the pooled valid share of every
     global block's incremental step (a mean over the streams)."""
     f = VITDET[size]["flops"]
-    frames, steps = VITDET_FRAMES, VITDET_FRAMES - 1
+    steps = frames - 1
     if not eventful:
         per_frame = f["position_add"] + VITDET_WINDOWED * f["dense_windowed"] + (
             VITDET_GLOBAL * f["dense_global"])
-        return VITDET_STREAMS * frames * per_frame
+        return streams * frames * per_frame
     fixed = frames * f["position_add"] + VITDET_WINDOWED * (
         f["windowed_flush"] + steps * f["windowed_incremental"]
     ) + VITDET_GLOBAL * (f["global_flush"] + steps * f["global_incremental_base"])
     if len(valid_shares) != VITDET_GLOBAL * steps:
         raise AssertionError(f"{len(valid_shares)} pooled selections, expected {VITDET_GLOBAL * steps}")
     shares = f["global_incremental_per_valid_share"] * sum(valid_shares)
-    return VITDET_STREAMS * (fixed + shares)
+    return streams * (fixed + shares)
 
 
-def vitdet_counted_call(model, frames, eventful, size):
-    """One call with the launch counts set to 0 just before and read just
-    after, counting FLOPs; checks launches, the output and the count
-    against the JAX package's. Returns (launches, the port's and the JAX
-    package's GFLOPs per frame, the mean pooled valid share)."""
+@contextlib.contextmanager
+def pooled_shares():
+    """The pooled valid share of every global block's incremental step
+    (a mean over the streams), recorded around ``_pool_index``."""
     from eventful_transformer_tpu_torch.core import blocks
 
     pool_index = blocks.EventfulMatmul1Block._pool_index
@@ -534,11 +627,20 @@ def vitdet_counted_call(model, frames, eventful, size):
 
     blocks.EventfulMatmul1Block._pool_index = recorded
     try:
+        yield shares
+    finally:
+        blocks.EventfulMatmul1Block._pool_index = pool_index
+
+
+def vitdet_counted_call(model, frames, eventful, size):
+    """One call with the launch counts set to 0 just before and read just
+    after, counting FLOPs; checks launches, the output and the count
+    against the JAX package's. Returns (launches, the port's and the JAX
+    package's GFLOPs per frame, the mean pooled valid share)."""
+    with pooled_shares() as shares:
         reset_launches()
         tokens, counts, _ = run_vitdet(model, frames, count=True)
         launches = read_launches()
-    finally:
-        blocks.EventfulMatmul1Block._pool_index = pool_index
     want = vitdet_expected_launches(eventful, size)
     if launches != want:
         raise AssertionError(f"ViTDet-{size} launch counts {launches}, expected {want}")
@@ -553,15 +655,17 @@ def vitdet_counted_call(model, frames, eventful, size):
     return launches, got / VITDET_FRAMES / 1e9, ref / VITDET_FRAMES / 1e9, mean_share
 
 
-def vitdet_card_vs_cpu(cpu_model, frames, device):
-    """One stream x 3 frames in float32 on the card against the same model
-    on the CPU (plain versions): the tokens of every frame and the gate
-    selections, recorded around the blocks' coverage_from_norms. One
-    stream takes the A.V kernel at every size (the batch-1 rule); the card
-    run's launches are returned."""
+def card_and_cpu(cpu_model, frames, device, run, card_model=None):
+    """``run(model, frames)`` (returning a list of per-frame token tensors
+    and anything else) on the card, with the launch counts set to 0 just
+    before and read just after, and on the CPU (plain versions), both in
+    float32; the gate selections of each run recorded around the blocks'
+    coverage_from_norms. Checks the tokens of every frame within
+    VITDET_TOKEN_TOL (scaled) and the selections that differ. Returns (the
+    numbers compared, the card run's launches, both runs' outputs)."""
     from eventful_transformer_tpu_torch.core import blocks
 
-    card_model = copy.deepcopy(cpu_model).to(device)
+    card_model = card_model or copy.deepcopy(cpu_model).to(device)
     coverage_from_norms = blocks.coverage_from_norms
     logs = {"card": [], "cpu": []}
     outs, seconds = {}, {}
@@ -575,7 +679,7 @@ def vitdet_card_vs_cpu(cpu_model, frames, device):
             blocks.coverage_from_norms = recorded
             reset_launches()
             start = time.perf_counter()
-            outs[tag] = [t.cpu() for t in run_vitdet(model, clip, keep=True)[2]]
+            outs[tag] = run(model, clip)
             seconds[tag] = time.perf_counter() - start
             if tag == "card":
                 launches = read_launches()
@@ -583,16 +687,13 @@ def vitdet_card_vs_cpu(cpu_model, frames, device):
         blocks.coverage_from_norms = coverage_from_norms
     if not logs["card"] or len(logs["card"]) != len(logs["cpu"]):
         raise AssertionError("the two runs selected at different numbers of gates")
-    av_launches = launches["softmax_select_matmul"]
-    if av_launches != VITDET_GLOBAL * (frames.shape[0] - 1):
-        raise AssertionError(f"one stream ran the A.V kernel {av_launches} times")
     selections = flips = 0
     for a, b in zip(logs["card"], logs["cpu"]):
         selections += int(b.sum())
         flips += int((a != b).sum()) // 2
     scaled = max(
-        float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
-        for a, b in zip(outs["card"], outs["cpu"])
+        float(((a.cpu() - b).abs() / b.abs().clamp(min=1.0)).max())
+        for a, b in zip(outs["card"][0], outs["cpu"][0])
     )
     numbers = dict(
         f32_card_vs_cpu_max_scaled_token_err=scaled, token_tol=VITDET_TOKEN_TOL,
@@ -602,6 +703,19 @@ def vitdet_card_vs_cpu(cpu_model, frames, device):
     )
     if scaled > VITDET_TOKEN_TOL or flips > MAX_FLIP_SHARE * selections:
         raise AssertionError(f"float32 ViTDet card run disagrees with the CPU run: {numbers}")
+    return numbers, launches, outs
+
+
+def vitdet_card_vs_cpu(cpu_model, frames, device):
+    """One stream x 3 frames of the backbone in float32 on the card against
+    the same model on the CPU. One stream takes the A.V kernel at every
+    size (the batch-1 rule)."""
+    numbers, launches, _ = card_and_cpu(
+        cpu_model, frames, device, lambda m, clip: (run_vitdet(m, clip, keep=True)[2],)
+    )
+    av_launches = launches["softmax_select_matmul"]
+    if av_launches != VITDET_GLOBAL * (frames.shape[0] - 1):
+        raise AssertionError(f"one stream ran the A.V kernel {av_launches} times")
     return numbers
 
 
@@ -610,14 +724,14 @@ def phase_vitdet_slice(device, size):
     from eventful_transformer_tpu_torch.models import ViTDet
     from eventful_transformer_tpu_torch.utils.misc import set_policies
 
-    eventful = ViTDet(**vitdet_config(True, size), seed=SEED)
+    eventful = ViTDet(**vitdet_config(True, size), device=device, seed=SEED)
     set_policies(eventful, TokenNormTopK, k=VITDET_K)
-    eventful = eventful.to(device, torch.bfloat16)
-    dense = ViTDet(**vitdet_config(False, size), seed=SEED).to(device, torch.bfloat16)
+    eventful = eventful.to(torch.bfloat16)
+    dense = ViTDet(**vitdet_config(False, size), device=device, seed=SEED).to(torch.bfloat16)
     frames = vitdet_frames(VITDET_FRAMES, VITDET_STREAMS, device, torch.bfloat16, size)
     launches, g_eventful, g_eventful_jax, share = vitdet_counted_call(eventful, frames, True, size)
     dense_launches, g_dense, g_dense_jax, _ = vitdet_counted_call(dense, frames, False, size)
-    cpu_model = ViTDet(**vitdet_config(True, size, matmul_2_cast=None), seed=SEED)
+    cpu_model = ViTDet(**vitdet_config(True, size, matmul_2_cast=None), device="cpu", seed=SEED)
     set_policies(cpu_model, TokenNormTopK, k=VITDET_K)
     clip = vitdet_frames(3, 1, "cpu", torch.float32, size, seed=SEED + 1)
     numbers = vitdet_card_vs_cpu(cpu_model, clip, device)
@@ -631,15 +745,17 @@ def phase_vitdet_slice(device, size):
     return eventful, dense, frames, launches, dense_launches
 
 
-def time_vitdet(model, frames, warmup=1, iters=3):
-    """ms per frame of a call: [flush frame, mean of the incremental
-    frames, mean of all frames], each a mean over ``iters`` calls."""
+def time_vitdet(model, frames, warmup=1, iters=3, run=None):
+    """ms per frame of a call of ``run`` (run_vitdet by default): [flush
+    frame, mean of the incremental frames, mean of all frames], each a
+    mean over ``iters`` calls."""
+    run = run or run_vitdet
     events = [torch.cuda.Event(enable_timing=True) for _ in range(frames.shape[0] + 1)]
     for _ in range(warmup):
-        run_vitdet(model, frames)
+        run(model, frames)
     per_frame = []
     for _ in range(iters):
-        run_vitdet(model, frames, frame_events=events)
+        run(model, frames, frame_events=events)
         per_frame.append([a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])])
     flush = sum(ms[0] for ms in per_frame) / iters
     steady = sum(sum(ms[1:]) / (len(ms) - 1) for ms in per_frame) / iters
@@ -669,12 +785,17 @@ def vitdet_path(device, smi, size):
     torch.cuda.empty_cache()
     # launches: the eventful model's counted run; dense_mlp_residual runs in
     # the dense twin only. Forms of one kernel share its wrapper's count.
+    # The rel-pos bias add: over the pooled keys in the eventful model, over
+    # N keys in the dense twin.
     counts = {k: v or dense_launches[k] for k, v in launches.items()}
-    n = VITDET[size]["n"]
-    return [
-        kernel_row(name, rows[(name, torch.bfloat16, n)], counts, f"vitdet_{size}")
-        for name in VITDET[size]["kernels"]
-    ]
+    path = f"vitdet_{size}"
+    out = [kernel_row(name, rows[(name, torch.bfloat16, str(size))], counts, path)
+           for name in VITDET[size]["kernels"]]
+    out.append(kernel_row("relpos_bias_add_v2", rows[("relpos_bias_add_v2", torch.bfloat16, f"{size}_pooled")],
+                          launches, path))
+    out.append(kernel_row("relpos_bias_add_v2", rows[("relpos_bias_add_v2", torch.bfloat16, f"{size}_dense")],
+                          dense_launches, path))
+    return out, rows
 
 
 def kernel_row(name, row, launches, path):
@@ -683,10 +804,202 @@ def kernel_row(name, row, launches, path):
     wrapper, _, source, replaces, _ = kernel_check.KERNELS[name]
     return dict(
         name=name, route="cuda", source=source, replaces=replaces, path=path,
-        shape=[row["batch"], row["n"]], launches=launches[wrapper.__name__],
+        shape=[row["batch"], row["n"]], inputs=row["tag"], launches=launches[wrapper.__name__],
         max_abs_err=max(out["max_abs_err"] for out in row["outputs"]),
-        ms=row["ms"], plain_ms=row["plain_ms"],
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"],
     )
+
+
+# -- ViTDet end to end ------------------------------------------------------------
+
+
+def e2e_model(eventful, device, dtype, matmul_2_cast="bfloat16"):
+    """spatiotemporal_672 (k = 256) or base_672 on ``device`` in ``dtype``,
+    weights from the seed, the class scorer scaled by CLS_SCORE_GAIN."""
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import ViTDet
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    model = ViTDet(**vitdet_config(eventful, E2E_SIZE, matmul_2_cast), device=device, seed=SEED)
+    with torch.no_grad():
+        model.roi_heads.cls_score.kernel.mul_(CLS_SCORE_GAIN)
+    if eventful:
+        set_policies(model, TokenNormTopK, k=VITDET_K)
+    return model.to(dtype)
+
+
+def run_e2e(model, frames, count=False, frame_events=None):
+    """One call through ViTDet.apply, one stream (frames (T, 1, 3, H, W)),
+    frame 0 a flush. Returns (every frame's detections, counts)."""
+    from eventful_transformer_tpu_torch.core.counting import Ctx
+
+    ctx = Ctx(count_mode=count)
+    state = model.init_state(1, frames.dtype, frames.device)
+    aux = model.precompute()
+    eventful = "qkv_gate" in state["blocks"][0]
+    detections = []
+    for t in range(frames.shape[0]):
+        if frame_events is not None:
+            frame_events[t].record()
+        mode = ("flush" if t == 0 else "incremental") if eventful else None
+        det, state = model.apply(ctx, state, frames[t], aux, mode=mode)
+        detections.append(det)
+    if frame_events is not None:
+        frame_events[-1].record()
+    if frames.is_cuda:
+        torch.cuda.synchronize()
+    return detections, ctx.counts
+
+
+def check_detections(dets, classes=30):
+    """Every frame's detections: the JAX dict's keys and fixed shapes
+    (K = 100, the ROI heads' test_topk_per_image), finite boxes in the
+    image, labels of the classes, scores in (0, 1] where kept (above the
+    0.05 threshold in the working dtype) and 0 where masked. Returns the kept count of each frame."""
+    kept = []
+    for det in dets:
+        boxes, scores, labels, mask = (det[k] for k in ("boxes", "scores", "labels", "mask"))
+        if (boxes.shape, scores.shape, labels.shape, mask.shape) != ((100, 4), (100,), (100,), (100,)):
+            raise AssertionError(f"detections of shapes {[tuple(v.shape) for v in det.values()]}")
+        b, s = boxes.float(), scores.float()
+        bad = (not torch.isfinite(b).all() or b.min() < 0 or b.max() > E2E_SIZE
+               or labels.min() < 0 or labels.max() >= classes
+               or (s[mask] <= 0).any() or (s[mask] > 1).any() or (s[~mask] != 0).any())
+        if bad:
+            raise AssertionError("detections out of range")
+        kept.append(int(mask.sum()))
+    if not sum(kept):
+        raise AssertionError("no detection kept in any frame")
+    return kept
+
+
+def set_relpos_form(model, use_kernel):
+    """Set ``use_kernel`` on every RelativePositionEmbedding of ``model``:
+    True for the relpos_bias_add form (row 16's rounding), "auto" for the
+    default relpos_bias_add_v2 form."""
+    from eventful_transformer_tpu_torch.core.embeddings import RelativePositionEmbedding
+
+    for module in model.modules():
+        if isinstance(module, RelativePositionEmbedding):
+            module.use_kernel = use_kernel
+
+
+def e2e_counted_call(model, frames, eventful, row16=False):
+    """One call through ViTDet.apply with the launch counts set to 0 just
+    before and read just after, counting FLOPs; checks launches, the
+    detections and the backbone's count against the JAX package's (the
+    head adds none, as in the JAX package). ``row16``: the model's rel-pos
+    bias add runs in its relpos_bias_add form (``use_kernel = True``, the
+    JAX package's ``use_pallas_kernel = True``), which takes the launches
+    of the default form. Returns (launches, kept detections per frame, NMS
+    host synchronisations per frame, the port's and the JAX package's
+    GFLOPs per frame, the mean pooled valid share)."""
+    from eventful_transformer_tpu_torch.detection import nms
+
+    frames_n = frames.shape[0]
+    with pooled_shares() as shares:
+        syncs = nms.host_syncs
+        reset_launches()
+        dets, counts = run_e2e(model, frames, count=True)
+        launches = read_launches()
+        syncs = nms.host_syncs - syncs
+    want = vitdet_expected_launches(eventful, E2E_SIZE, frames=frames_n, streams=1)
+    if row16:
+        want["relpos_bias_add"], want["relpos_bias_add_v2"] = want["relpos_bias_add_v2"], 0
+    if launches != want:
+        raise AssertionError(f"ViTDet e2e launch counts {launches}, expected {want}")
+    kept = check_detections(dets)
+    got = sum(v for k, v in counts.items() if k != "policy_saturated")
+    ref = vitdet_jax_flops(eventful, shares, E2E_SIZE, frames=frames_n, streams=1)
+    if abs(got - ref) > 1e-6 * ref:
+        raise AssertionError(f"counted {got} FLOPs per call, the JAX package's count is {ref}")
+    share = sum(shares) / len(shares) if shares else None
+    return launches, kept, syncs / frames_n, got / frames_n / 1e9, ref / frames_n / 1e9, share
+
+
+def e2e_tokens_and_detections(model, frames):
+    """run_e2e, recording the backbone's tokens of every frame at
+    post_backbone. Returns (tokens, detections) per frame, on the CPU."""
+    tokens = []
+    post_backbone = model.post_backbone
+
+    def recorded(ctx, t):
+        tokens.append(t.float().cpu())
+        return post_backbone(ctx, t)
+
+    model.post_backbone = recorded
+    try:
+        dets, _ = run_e2e(model, frames)
+    finally:
+        del model.post_backbone
+    return tokens, [{k: v.cpu() for k, v in det.items()} for det in dets]
+
+
+def e2e_card_vs_cpu(device):
+    """The eventful model, one stream x 3 frames in float32 (matmul-2 cast
+    off), through ViTDet.apply on the card with the rel-pos bias add in its
+    relpos_bias_add form (row 16's rounding; the flush frame's 4 global
+    blocks) and on the CPU: tokens within VITDET_TOKEN_TOL, each frame's
+    detections matched by match_detections. Returns (numbers, launches)."""
+    cpu_model = e2e_model(True, "cpu", torch.float32, matmul_2_cast=None)
+    card_model = copy.deepcopy(cpu_model).to(device)
+    set_relpos_form(card_model, True)
+    clip = vitdet_frames(3, 1, "cpu", torch.float32, E2E_SIZE, seed=SEED + 1)
+    numbers, launches, outs = card_and_cpu(cpu_model, clip, device, e2e_tokens_and_detections,
+                                           card_model=card_model)
+    if (launches["relpos_bias_add"], launches["relpos_bias_add_v2"]) != (VITDET_GLOBAL, 0):
+        raise AssertionError(f"the float32 e2e run's rel-pos launches: {launches}")
+    matches = [match_detections(a, b) for a, b in zip(outs["card"][1], outs["cpu"][1])]
+    numbers["detections_matched"] = matches
+    if not all(m["ok"] for m in matches):
+        raise AssertionError(f"float32 detections on the card disagree with the CPU's: {matches}")
+    return numbers, launches
+
+
+def phase_vitdet_e2e(device, smi, rows):
+    """ViTDet-B at 672 through ViTDet.apply, eventful and dense, one stream;
+    the eventful model also with the rel-pos bias add in its
+    relpos_bias_add form (the path of kernel row 16). Returns the kernel
+    rows of the final line."""
+    eventful = e2e_model(True, device, torch.bfloat16)
+    dense = e2e_model(False, device, torch.bfloat16)
+    frames = vitdet_frames(E2E_FRAMES + 1, 1, device, torch.bfloat16, E2E_SIZE)
+    launches, kept, syncs, g_eventful, g_eventful_jax, share = e2e_counted_call(eventful, frames, True)
+    dense_launches, dense_kept, dense_syncs, g_dense, g_dense_jax, _ = e2e_counted_call(
+        dense, frames, False)
+    set_relpos_form(eventful, True)
+    try:
+        row16_launches, row16_kept = e2e_counted_call(eventful, frames, True, row16=True)[:2]
+    finally:
+        set_relpos_form(eventful, "auto")
+    numbers, f32_launches = e2e_card_vs_cpu(device)
+    times = {"dense": [], "eventful": []}
+    for name in ("dense", "eventful", "eventful", "dense"):
+        times[name].append(time_vitdet(eventful if name == "eventful" else dense, frames,
+                                       iters=2, run=run_e2e))
+    emit(
+        "vitdet_e2e", card=smi, streams=1, frames=E2E_FRAMES + 1, k=VITDET_K, dtype="bfloat16",
+        launches=launches, dense_launches=dense_launches,
+        row16_launches=row16_launches,
+        kept_detections_per_frame=kept, dense_kept_detections_per_frame=dense_kept,
+        row16_kept_detections_per_frame=row16_kept,
+        nms_host_syncs_per_frame=syncs, dense_nms_host_syncs_per_frame=dense_syncs,
+        gflops_per_frame_eventful=g_eventful, jax_gflops_per_frame_eventful=g_eventful_jax,
+        gflops_per_frame_dense=g_dense, jax_gflops_per_frame_dense=g_dense_jax,
+        mean_pooled_valid_share=share, **numbers,
+        columns=["flush_frame_ms", "incremental_frame_ms", "mean_frame_ms"],
+        dense_ms=times["dense"], eventful_ms=times["eventful"],
+    )
+    counts = {k: v or dense_launches[k] for k, v in launches.items()}
+    out = [kernel_row(name, rows[(name, torch.bfloat16, "e2e")], counts, "vitdet_e2e")
+           for name in E2E_KERNELS if name != "relpos_bias_add"]
+    out.append(kernel_row("relpos_bias_add_v2", rows[("relpos_bias_add_v2", torch.bfloat16, "e2e_dense")],
+                          dense_launches, "vitdet_e2e"))
+    row16 = kernel_row("relpos_bias_add", rows[("relpos_bias_add", torch.bfloat16, "e2e")],
+                       row16_launches, "vitdet_e2e_row16")
+    row16["f32_check_launches"] = f32_launches["relpos_bias_add"]
+    return out + [row16]
 
 
 def main():
@@ -699,11 +1012,14 @@ def main():
     del eventful, dense, views
     torch.cuda.empty_cache()
     kernels = [
-        kernel_row(name, kernel_rows[(name, torch.bfloat16, N_TOKENS)], launches, "vivit")
+        kernel_row(name, kernel_rows[(name, torch.bfloat16, "vivit")], launches, "vivit")
         for name in VIVIT_KERNELS
     ]
+    rows = {}
     for size in VITDET:
-        kernels += vitdet_path(device, smi, size)
+        path_rows, rows[size] = vitdet_path(device, smi, size)
+        kernels += path_rows
+    kernels += phase_vitdet_e2e(device, smi, rows[E2E_SIZE])
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -5,10 +5,13 @@ to the input grid, and the relative-position tables resized to the
 attention grid and pooled. :meth:`precompute` builds it; callers that run
 many frames compute it once (``ViTBackbone.precompute``) and pass it in.
 
-``RelativePositionEmbedding`` adds the decomposed bias on the einsum path
-of the JAX package (its ``apply`` with the flat-expander and Pallas options
-off). The flat-expander path is a TPU tiling device: it computes the same
-two per-axis terms and the same sum.
+``RelativePositionEmbedding`` adds the decomposed bias to attention logits
+through the bias-add wrappers of ``ops/relpos.py``, whose plain versions
+are the JAX package's einsum path (its ``apply`` with the flat-expander and
+Pallas options off) and whose kernels are its ``use_pallas_kernel`` True
+and "v2" forms; ``use_kernel`` picks the rounding rule. The flat-expander
+path is a TPU tiling device: it computes the same two per-axis terms and
+the same sum.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 from torch import nn
 
 from eventful_transformer_tpu_torch.core.nn import counted_add, trunc_normal_
+from eventful_transformer_tpu_torch.ops.relpos import relpos_bias_add, relpos_bias_add_v2
 from eventful_transformer_tpu_torch.ops.resize import (
     avg_pool_1d,
     resize_bicubic,
@@ -69,7 +73,17 @@ class PositionEncoding(nn.Module):
 
 class RelativePositionEmbedding(nn.Module):
     """Decomposed relative position embeddings, ViTDet-style (after
-    detectron2's ``add_decomposed_rel_pos``)."""
+    detectron2's ``add_decomposed_rel_pos``).
+
+    ``use_kernel`` takes the JAX ``use_pallas_kernel`` values and picks the
+    rounding rule of :meth:`forward`: True, ``relpos_bias_add`` (row 16's:
+    the terms' float32 sum rounded once); any other value, "auto" (the
+    default), "v2" or False (the JAX einsum path, which rounds as row 17
+    does), ``relpos_bias_add_v2`` (row 17's: each term rounded, then their
+    sum). Each wrapper runs its plain version on CPU tensors and its kernel
+    on the card."""
+
+    use_kernel = "auto"
 
     def __init__(self, attention_size, embedding_size, head_dim, pool_size=None):
         super().__init__()
@@ -138,15 +152,21 @@ class RelativePositionEmbedding(nn.Module):
         )
 
     def forward(self, ctx, x, q, derived=None):
-        """Add the decomposed terms to attention logits x (B, H, N, Np):
-        ``x[n, k] + (term_y[n, k // p1] + term_x[n, k % p1])``, the sum of
-        the two terms rounded to x's dtype, as the JAX expander matmul
-        rounds it. Counted as the reference's einsums and two adds."""
+        """Add the decomposed terms of unscaled q (B, H, N, c) to attention
+        logits x (B, H, N, Np): ``x[n, k] + (term_y[n, k // p1] +
+        term_x[n, k % p1])``, rounded to x's dtype by the rule
+        ``use_kernel`` picks. Counted as the reference's two term einsums
+        and two adds."""
+        if self.use_kernel not in (False, True, "v2", "auto"):
+            raise ValueError(f"use_kernel must be False, True, 'v2' or 'auto', got {self.use_kernel!r}")
         if derived is None:
             derived = self.precompute()
-        p0, p1 = self.pooled_size()
-        terms = self.bias_terms(ctx, q, derived)
-        k = torch.arange(p0 * p1, device=x.device)
-        t = terms[..., k // p1].float() + terms[..., p0 + k % p1].float()
-        ctx.add("add_flops", x.numel())
-        return counted_add(ctx, x, t.to(x.dtype))
+        p = self.pooled_size()
+        bsz, heads, n, c = q.shape
+        ctx.add("einsum_flops", float(bsz * heads * n * c * (p[0] + p[1])))
+        ctx.add("add_flops", 2.0 * x.numel())
+        bias_add = relpos_bias_add if self.use_kernel is True else relpos_bias_add_v2
+        return bias_add(
+            x.contiguous(), q.contiguous(), derived["y_relative"].to(x.dtype).contiguous(),
+            derived["x_relative"].to(x.dtype).contiguous(), a=self.attention_size, p=p,
+        )

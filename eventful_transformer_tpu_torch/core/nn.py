@@ -25,6 +25,19 @@ def not_ported(what, item):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, open item {item})")
 
 
+def model_device(device):
+    """The device a model's constructor puts its parameters on: the card
+    unless the caller names another. Without a CUDA device, asking for the
+    card raises; nothing falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card; pass device='cpu' to run "
+            "its plain versions on the CPU"
+        )
+    return device
+
+
 def counted_add(ctx, a, b):
     """a + b, counting add_flops = result size."""
     result = a + b

@@ -1,12 +1,13 @@
-"""ViTDet backbone (port of ``eventful_transformer_tpu/models/vitdet.py``).
+"""ViTDet object detection (port of ``eventful_transformer_tpu/models/vitdet.py``).
 
-``ViTDet.pre_backbone`` then ``apply_backbone`` is the reference's timing
-split (scripts/time/vitdet_vid.py): preprocessing and the patch embedding,
-then the position encoding and the block stack, one frame per call, with
-the eventful state threaded through. The detection head (``SimplePyramid``,
-the RPN and the ROI heads, ``post_backbone``) is not ported yet
-(ROADMAP.md, open item 14); its parameters in a JAX tree are skipped on
-loading (``unported_params``).
+``ViTDet.apply`` takes one video frame to detections: ``pre_backbone``
+(preprocessing and the patch embedding), ``apply_backbone`` (the position
+encoding and the block stack, with the eventful state threaded through)
+and ``post_backbone`` (``SimplePyramid``, ``RPN.propose`` and the standard
+ROI heads' ``inference``), the reference's timing split
+(scripts/time/vitdet_vid.py). Feature maps are NHWC, as in the JAX package.
+The COCO cascade and mask heads are not ported yet (ROADMAP.md, open item
+14).
 """
 
 from __future__ import annotations
@@ -17,7 +18,16 @@ import torch
 from torch import nn
 
 from eventful_transformer_tpu_torch.core.backbones import ViTBackbone
-from eventful_transformer_tpu_torch.core.nn import not_ported, uniform_
+from eventful_transformer_tpu_torch.core.nn import (
+    LayerNorm,
+    gelu,
+    layer_norm,
+    model_device,
+    uniform_,
+)
+from eventful_transformer_tpu_torch.detection.roi_heads import roi_heads
+from eventful_transformer_tpu_torch.detection.rpn import RPN
+from eventful_transformer_tpu_torch.ops.conv import Conv2d, ConvTranspose2d, max_pool2d
 
 
 class LinearEmbedding(nn.Module):
@@ -71,13 +81,60 @@ class ViTDetPreprocessing:
         return x
 
 
-class ViTDet(nn.Module):
-    """ViTDet's backbone half. Parameters are initialised from ``seed`` on
-    the CPU, so the weights do not depend on ``device``; cast the model
-    with ``.to(dtype)`` to run in bfloat16."""
+class SimplePyramid(nn.Module):
+    """ViTDet's feature pyramid, NHWC: one stage per scale factor (4, 2, 1,
+    0.5: two transposed convs with LN and GELU between them, one transposed
+    conv, nothing, a 2 x 2 max pool), each then a 1x1 conv, LN, a 3x3 conv
+    and LN, plus the extra stride-2 level subsampled from the last map."""
 
-    # JAX parameter subtrees of the detection head, not ported yet
-    unported_params = ("pyramid/", "proposal_generator/", "roi_heads/")
+    def __init__(self, scale_factors, dim, out_channels):
+        super().__init__()
+        if any(s not in (4.0, 2.0, 1.0, 0.5) for s in scale_factors):
+            raise ValueError(f"scale factors must be 4, 2, 1 or 0.5, got {scale_factors}")
+        self.scale_factors = tuple(scale_factors)
+        self.stages = nn.ModuleList()
+        for scale in self.scale_factors:
+            stage = nn.Module()
+            if scale == 4.0:
+                stage.deconv_1 = ConvTranspose2d(2, 2, dim, dim // 2)
+                stage.deconv_ln = LayerNorm(dim // 2)
+                stage.deconv_2 = ConvTranspose2d(2, 2, dim // 2, dim // 4)
+            elif scale == 2.0:
+                stage.deconv_1 = ConvTranspose2d(2, 2, dim, dim // 2)
+            mid = {4.0: dim // 4, 2.0: dim // 2}.get(scale, dim)
+            stage.conv_1 = Conv2d(1, 1, mid, out_channels, bias=False)
+            stage.ln_1 = LayerNorm(out_channels)
+            stage.conv_2 = Conv2d(3, 3, out_channels, out_channels, bias=False)
+            stage.ln_2 = LayerNorm(out_channels)
+            self.stages.append(stage)
+
+    def forward(self, x):
+        """x (B, H, W, dim) -> a list of NHWC maps at x4, x2, x1, x0.5 and
+        the extra x0.25 level."""
+        outputs = []
+        for scale, stage in zip(self.scale_factors, self.stages):
+            y = x
+            if scale == 4.0:
+                y = gelu(layer_norm(stage.deconv_1(y), stage.deconv_ln))
+                y = stage.deconv_2(y)
+            elif scale == 2.0:
+                y = stage.deconv_1(y)
+            elif scale == 0.5:
+                y = max_pool2d(y, 2, 2)
+            y = layer_norm(stage.conv_1(y), stage.ln_1)
+            y = layer_norm(stage.conv_2(y, padding=1), stage.ln_2)
+            outputs.append(y)
+        outputs.append(outputs[-1][:, ::2, ::2, :])  # MaxPool2d(1, 2)
+        return outputs
+
+
+class ViTDet(nn.Module):
+    """ViTDet detection model. Parameters are initialised from ``seed`` on
+    the CPU, so the weights do not depend on ``device``, and then moved to
+    ``device``, the card unless the caller asks for the CPU; cast the model
+    with ``.to(dtype)`` to run in bfloat16. ``roi_config`` picks the heads
+    as the JAX package does: the standard heads of the VID configurations,
+    or the COCO cascade (``cascade: true``), which is not ported yet."""
 
     def __init__(
         self,
@@ -92,12 +149,12 @@ class ViTDet(nn.Module):
         detectron2_config=None,
         rpn_config=None,
         roi_config=None,
-        device=None,
+        device="cuda",
         seed=0,
     ):
         super().__init__()
-        # the detection head's configuration: unused until it is ported
-        del classes, output_channels, scale_factors, detectron2_config, rpn_config, roi_config
+        del detectron2_config  # accepted for config parity; the head is native
+        device = model_device(device)
         input_c, input_h, input_w = input_shape
         patch_size = (patch_size, patch_size) if isinstance(patch_size, int) else tuple(patch_size)
         self.input_shape = tuple(input_shape)
@@ -106,6 +163,9 @@ class ViTDet(nn.Module):
         self.dim = backbone_config["block_config"]["dim"]
         self.embedding = LinearEmbedding(input_c, self.dim, patch_size)
         self.backbone = ViTBackbone(input_size=self.backbone_input_size, **backbone_config)
+        self.pyramid = SimplePyramid(scale_factors, self.dim, output_channels)
+        self.proposal_generator = RPN(in_channels=output_channels, **(rpn_config or {}))
+        self.roi_heads = roi_heads(classes, output_channels, **(roi_config or {}))
         generator = torch.Generator().manual_seed(seed)
         for module in self.modules():
             if hasattr(module, "reset_parameters"):
@@ -135,14 +195,23 @@ class ViTDet(nn.Module):
         have no backward. Returns (tokens, state)."""
         return self.backbone(ctx, state, tokens, mode=mode, aux=aux)
 
+    @torch.no_grad()
     def post_backbone(self, ctx, tokens):
-        raise not_ported("ViTDet's detection head (post_backbone)", 14)
+        """tokens (1, N, dim) -> the detections dict: boxes (K, 4), scores
+        (K,), labels (K,) int32 and mask (K,), K = the ROI heads'
+        ``test_topk_per_image``, masked slots scoring 0. Uncounted, as in
+        the JAX package."""
+        del ctx
+        b = tokens.shape[0]
+        h, w = self.backbone_input_size
+        features = self.pyramid(tokens.reshape(b, h, w, self.dim))
+        image_size = (self.input_shape[1], self.input_shape[2])
+        proposals, _, mask = self.proposal_generator.propose(features, image_size)
+        return self.roi_heads.inference(features[:4], proposals, mask, image_size)
 
-
-class SimplePyramid(nn.Module):
-    """ViTDet's feature pyramid: not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        super().__init__()
-        raise not_ported("SimplePyramid", 14)
-
+    def apply(self, ctx, state, x, aux=None, content_hw=None, mode=None):
+        """One frame, (1, C, H, W), to detections: returns (detections,
+        state). ``mode`` as in :meth:`apply_backbone`."""
+        tokens = self.pre_backbone(ctx, x, content_hw)
+        tokens, state = self.apply_backbone(ctx, state, tokens, aux, mode=mode)
+        return self.post_backbone(ctx, tokens), state

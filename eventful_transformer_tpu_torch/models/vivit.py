@@ -21,6 +21,7 @@ from eventful_transformer_tpu_torch.core.nn import (
     LayerNorm,
     Linear,
     layer_norm,
+    model_device,
     not_ported,
     trunc_normal_,
     uniform_,
@@ -80,8 +81,9 @@ class ViViTSubModel(nn.Module):
 
 class FactorizedViViT(nn.Module):
     """Spatio-temporally factorized ViViT. Parameters are initialised from
-    ``seed`` on the CPU, so the weights do not depend on ``device``; cast
-    the model with ``.to(dtype)`` to run in bfloat16."""
+    ``seed`` on the CPU, so the weights do not depend on ``device``, and
+    then moved to ``device``, the card unless the caller asks for the CPU;
+    cast the model with ``.to(dtype)`` to run in bfloat16."""
 
     def __init__(
         self,
@@ -99,10 +101,11 @@ class FactorizedViViT(nn.Module):
         dropout_rate=0.0,
         spatial_only=False,
         temporal_only=False,
-        device=None,
+        device="cuda",
         seed=0,
     ):
         super().__init__()
+        device = model_device(device)
         if not batch_views:
             raise not_ported("batch_views=False", 12)
         if spatial_only or temporal_only:

@@ -49,6 +49,7 @@ SIGNATURES = {
     "etk_block_select_scatter": [_I] + [_P] * 9 + [_I] + [_P] * 6 + [_I] * 5 + [_P],
     "etk_softmax_select_matmul": [_I, _I] + [_P] * 7 + [_I] * 7 + [_F, _P],
     "etk_dense_mlp_residual": [_I] + [_P] * 10 + [_I, _I, _I, _P],
+    "etk_relpos_bias_add": [_I, _I] + [_P] * 5 + [_I] * 6 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

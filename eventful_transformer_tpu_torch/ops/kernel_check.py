@@ -17,6 +17,7 @@ from eventful_transformer_tpu_torch.ops import (
     gate_block,
     gate_fused,
     gate_group,
+    relpos,
     window_attention,
 )
 
@@ -109,6 +110,16 @@ KERNELS = {
         "eventful_transformer_tpu_torch/csrc/window_attention.cu",
         "eventful_transformer_tpu/ops/pallas/window_attention.py:281", ("out",),
     ),
+    "relpos_bias_add": (
+        relpos.relpos_bias_add, relpos.relpos_bias_add_plain,
+        "eventful_transformer_tpu_torch/csrc/relpos.cu",
+        "eventful_transformer_tpu/ops/pallas/relpos.py:62", ("out",),
+    ),
+    "relpos_bias_add_v2": (
+        relpos.relpos_bias_add_v2, relpos.relpos_bias_add_v2_plain,
+        "eventful_transformer_tpu_torch/csrc/relpos.cu",
+        "eventful_transformer_tpu/ops/pallas/relpos.py:202", ("out",),
+    ),
 }
 
 # Bounds on each output of a kernel against its plain version. With
@@ -145,7 +156,7 @@ def _grid(n):
 
 def make_inputs(
     bsz, n, c, heads, k, dtype, device, seed=0, window=(4, 6), windows=None, pool=(3, 7),
-    pad_window=(3, 4),
+    pad_window=(3, 4), relpos_keys=None,
 ):
     """Random activations, gate states, weights and one coverage per gate,
     at the scales of the model (LN-domain states ~ N(0, 1), weights
@@ -157,7 +168,9 @@ def make_inputs(
     A.V state over a ``pool`` grid of keys with q, k, terms and a column
     coverage; and the windows of the n tokens laid out as the most nearly
     square grid, zero-padded to ``pad_window`` windows, with their
-    geometry, a pad-bias row and pad terms."""
+    geometry, a pad-bias row and pad terms; and logits over that grid of
+    queries and a ``relpos_keys`` grid of keys (by default ``pool``) with
+    unscaled q and the two rel-pos tables."""
     g = torch.Generator().manual_seed(seed)
 
     def randn(*shape, scale=1.0, shift=0.0):
@@ -213,8 +226,18 @@ def make_inputs(
         pad_bias=randn(3 * c), pad_terms=randn(heads, a0 * a1, a0 + a1, scale=0.3),
         geom=(nh, nw, h, w),
     )
+    # the rel-pos bias add: logits ~ N(0, 1), made on the device (up to 400 M
+    # of them), terms of a few units
+    rp_p = tuple(relpos_keys or pool)
+    logits = torch.randn((bsz, heads, n, rp_p[0] * rp_p[1]), device=device,
+                         generator=torch.Generator(device=device).manual_seed(seed))
+    d.update(
+        rp_x=logits.to(dtype), rp_q=randn(bsz, heads, n, hd),
+        rp_y=randn(h, rp_p[0], hd, scale=0.3), rp_xr=randn(w, rp_p[1], hd, scale=0.3),
+    )
     d["heads"], d["k"], d["window"] = heads, k, tuple(window)
     d["pool"], d["pad_window"] = tuple(pool), tuple(pad_window)
+    d["rp_a"], d["rp_p"] = (h, w), rp_p
     return d
 
 
@@ -287,6 +310,8 @@ def _invoke(name, fn, d):
             d["p_a"], d["av_cov"], d["p_v"], d["av_q"], d["av_k"], terms,
             inv_scale=(c // d["heads"]) ** -0.5, p=d["pool"],
         )
+    if name.startswith("relpos_bias_add"):
+        return (fn(d["rp_x"], d["rp_q"], d["rp_y"], d["rp_xr"], a=d["rp_a"], p=d["rp_p"]),)
     if name == "window_attention_padded":
         c = d["x"].shape[-1]
         return (fn(d["qkv_pad"], d["terms_pad"], d["pad_bias"], d["pad_terms"],
@@ -343,18 +368,160 @@ def errors(name, d):
     ]
 
 
+# The card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): memory
+# bytes/s, and matrix-product operations/s by the operands' type (bf16 on
+# the tensor cores; float32 products run on the CUDA cores, as float32
+# parity requires).
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def _matmul_ops(name, d):
+    """The multiply-add operations (2 per product term) of kernel ``name``
+    on ``d``: its matrix products, at the selected rows where the work
+    depends on the data; the row passes count none."""
+    bsz, n, c = d["x"].shape
+    heads = d["heads"]
+    if name == "qkv_attention_group":
+        return 2.0 * bsz * n * c * 3 * c + 4.0 * bsz * n * n * c
+    if name == "proj_group":
+        return 2.0 * bsz * n * c * c
+    if name == "gate_group_mlp":
+        return 4.0 * float(d["cov3"].sum()) * c * d["w1"].shape[1]
+    if name == "dense_mlp_residual":
+        return 4.0 * bsz * n * c * d["w1"].shape[1]
+    if name == "window_attention":
+        return 4.0 * bsz * n * n * c
+    if name == "window_attention_windowed":
+        nw, t, _ = d["qkv_win"].shape
+        return 4.0 * nw * t * t * c
+    if name == "window_attention_padded":
+        nw, t, _ = d["qkv_pad"].shape
+        return 4.0 * nw * t * t * c
+    if name == "gate_group_linear":
+        return 2.0 * float(d["cov2"].sum()) * c * c
+    if name == "gate_group_linear_post":
+        return 2.0 * float(d["cov1"].sum()) * c * 3 * c
+    if name.startswith("softmax_select_matmul"):
+        return 4.0 * bsz * n * d["p_a"].shape[-1] * c
+    if name.startswith("relpos_bias_add"):
+        p = d["rp_p"]
+        return 2.0 * bsz * heads * n * (p[0] + p[1]) * d["rp_q"].shape[-1]
+    return 0.0
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
+
+def io_bytes(name, d):
+    """The bytes kernel ``name`` must move on ``d``: each tensor it is
+    given read once and each new output written once; a gate state it
+    updates in place is written only at the rows (the A.V state: the key
+    columns) its coverage selects, and read whole only where the function
+    uses its old values (a dense product or a residual add over it)."""
+    bsz, n, c = d["x"].shape
+    tokens = _nbytes(d["x"])  # one (B, N, C) output in the working dtype
+    norms = bsz * n * 4  # one (B, N) float32 norm vector
+
+    def read(*keys):
+        return sum(_nbytes(d[key]) for key in keys)
+
+    def rows(state, cov):
+        t = d[state]
+        return float(d[cov].sum()) * (t.numel() // d[cov].numel()) * t.element_size()
+
+    if name == "ln_norms":
+        return read("x", "p_qkv", "ln1_s", "ln1_b") + norms
+    if name == "qkv_attention_group":
+        return (read("x", "p_qkv", "cov1", "p_proj", "ln1_s", "ln1_b", "w_qkv", "b_qkv")
+                + rows("p_qkv", "cov1") + tokens + norms)
+    if name == "proj_group":
+        return (read("attn", "p_proj", "cov2", "x", "p_mlp", "w_proj", "b_proj", "ln2_s", "ln2_b")
+                + rows("p_proj", "cov2") + tokens + norms)
+    if name == "gate_group_mlp":
+        return (read("x", "b_mlp", "cov3", "ln2_s", "ln2_b", "w1", "b1", "w2", "b2", "p_next",
+                     "ln1_s", "ln1_b")
+                + rows("p_mlp", "cov3") + rows("b_mlp", "cov3") + tokens + norms)
+    if name == "dense_mlp_residual":
+        return read("x", "ln2_s", "ln2_b", "w1", "b1", "w2", "b2") + tokens
+    if name == "window_attention":
+        return read("qkv") + tokens
+    if name == "window_attention_windowed":
+        return read("qkv_win", "terms") + _nbytes(d["qkv_win"]) // 3
+    if name == "window_attention_padded":
+        return (read("qkv_pad", "terms_pad", "pad_bias", "pad_terms")
+                + _nbytes(d["qkv_pad"]) // 3)
+    if name == "gate_group_linear":
+        return (read("attn", "buf_proj", "cov2", "w_proj", "b_proj", "x", "p_mlp", "ln2_s",
+                     "ln2_b")
+                + rows("p_proj", "cov2") + rows("buf_proj", "cov2") + tokens + norms)
+    if name == "gate_group_linear_post":
+        return (read("x", "cov1", "ln1_s", "ln1_b", "w_qkv", "b_qkv")
+                + rows("p_qkv", "cov1") + rows("buf_qkv", "cov1"))
+    if name == "block_select_p":
+        return read("x", "cov1", "ln1_s", "ln1_b") + rows("p_qkv", "cov1")
+    # the index kernels: cov_sel marks the rows the valid slots of w_index name
+    if name == "block_scatter_rows":
+        return read("w_index", "h_rows") + rows("buf_qkv", "cov_sel")
+    if name == "block_select_scatter_qkv":
+        return (read("x", "cov_sel", "w_index", "h_rows", "ln1_s", "ln1_b")
+                + rows("p_qkv", "cov_sel") + rows("buf_qkv", "cov_sel"))
+    if name == "block_select_scatter_proj":
+        return (read("attn", "buf_proj", "cov_sel", "w_index", "h_c", "x", "p_mlp", "ln2_s",
+                     "ln2_b")
+                + rows("p_proj", "cov_sel") + rows("buf_proj", "cov_sel") + tokens + norms)
+    if name == "block_select_scatter_mlp":
+        return (read("x", "b_mlp", "cov_sel", "w_index", "h_c", "ln2_s", "ln2_b", "p_next",
+                     "ln1_s", "ln1_b")
+                + rows("p_mlp", "cov_sel") + rows("b_mlp", "cov_sel") + tokens + norms)
+    if name.startswith("softmax_select_matmul"):
+        terms = () if name.endswith("_noterms") else ("av_terms",)
+        return (read("p_a", "av_cov", "p_v", "av_q", "av_k", *terms)
+                + rows("p_a", "av_cov") + _nbytes(d["av_q"]))
+    if name.startswith("relpos_bias_add"):
+        return read("rp_x", "rp_q", "rp_y", "rp_xr") + _nbytes(d["rp_x"])
+    raise KeyError(name)
+
+
+def bound(name, d):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for kernel ``name`` on ``d``, the larger of its bytes over the memory
+    rate and its product operations over the peak rate of their type."""
+    by_bytes = io_bytes(name, d) / PEAK_BYTES * 1e3
+    by_ops = _matmul_ops(name, d) / PEAK_OPS[d["x"].dtype] * 1e3
+    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
+
+
+def library_call(name, d):
+    """One PyTorch call that computes kernel ``name``'s function on ``d``,
+    where there is one (a yardstick; the port never calls it), else None."""
+    if name != "window_attention":
+        return None
+    bsz, n, c3 = d["qkv"].shape
+    heads = d["heads"]
+    q, k, v = d["qkv"].reshape(bsz, n, 3, heads, c3 // (3 * heads)).permute(2, 0, 3, 1, 4)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+
+def time_call(fn, iters=20, warmup=3):
+    """Mean milliseconds of ``fn()`` over ``iters`` back-to-back calls,
+    timed with CUDA events after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def time_ms(name, d, plain=False, iters=20, warmup=3):
     """Mean milliseconds of one call over ``iters`` back-to-back calls,
     timed with CUDA events after ``warmup`` calls."""
     fn = KERNELS[name][1 if plain else 0]
     d = {key: v.clone() if torch.is_tensor(v) else v for key, v in d.items()}
-    for _ in range(warmup):
-        _invoke(name, fn, d)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        _invoke(name, fn, d)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return time_call(lambda: _invoke(name, fn, d), iters, warmup)

@@ -4,7 +4,10 @@
 The port's parameter names are the JAX pytree's paths with ``.`` for
 ``/``: ``spatial_model.backbone.blocks.3.qkv.kernel`` holds
 ``spatial_model/backbone/blocks/3/qkv/kernel``. Linear kernels keep the JAX
-``(in, out)`` layout, so nothing is transposed on the way.
+``(in, out)`` layout, so nothing is transposed on the way; convolution
+kernels are stored in torch's layout, and a module that holds one names
+the axes that make it from the JAX kernel in ``jax_permute``
+(``ops/conv.py``).
 """
 
 from __future__ import annotations
@@ -31,16 +34,26 @@ def flatten_tree(tree, prefix=""):
     return {prefix[:-1]: np.asarray(tree)}
 
 
+def _permutes(module):
+    """{"a/b/kernel": axes} for every parameter stored in another layout
+    than the JAX package's."""
+    return {
+        f"{prefix}.{key}".lstrip(".").replace(".", "/"): axes
+        for prefix, m in module.named_modules()
+        for key, axes in getattr(m, "jax_permute", {}).items()
+    }
+
+
 def params_from_jax(module, source):
     """Copy JAX parameters into ``module`` in place and return it.
 
     ``source``: a ``.npz`` path written by the JAX package's ``save_params``,
     a flat ``{"a/b": array}`` dict, or the nested pytree of numpy arrays.
     Keys under the prefixes in ``module.unported_params`` (parts of the
-    JAX model the port does not hold yet, such as ViTDet's detection head)
-    are skipped. Raises ``ValueError`` on missing, extra or mis-shaped
-    keys. Values are cast to each parameter's dtype and moved to its
-    device."""
+    JAX model the port does not hold yet) are skipped. Raises
+    ``ValueError`` on missing, extra or mis-shaped keys. Convolution
+    kernels are permuted to torch's layout; values are cast to each
+    parameter's dtype and moved to its device."""
     if isinstance(source, (str, Path)):
         with np.load(source) as data:
             flat = {k: data[k] for k in data.files}
@@ -55,8 +68,11 @@ def params_from_jax(module, source):
     extra = sorted(set(flat) - set(params))
     if missing or extra:
         raise ValueError(f"parameter mismatch: missing={missing[:8]} extra={extra[:8]}")
+    permutes = _permutes(module)
     for key, p in params.items():
         value = np.asarray(flat[key])
+        if key in permutes:
+            value = value.transpose(permutes[key])
         if value.shape != tuple(p.shape):
             raise ValueError(f"shape mismatch at {key}: {value.shape} vs {tuple(p.shape)}")
         with torch.no_grad():
@@ -65,8 +81,12 @@ def params_from_jax(module, source):
 
 
 def params_to_numpy(module):
-    """{"a/b": np.ndarray (float32)} of every parameter of ``module``."""
-    return {
-        name.replace(".", "/"): p.detach().float().cpu().numpy()
-        for name, p in module.named_parameters()
-    }
+    """{"a/b": np.ndarray (float32)} of every parameter of ``module``, in
+    the JAX package's layouts."""
+    permutes = _permutes(module)
+    out = {}
+    for name, p in module.named_parameters():
+        key = name.replace(".", "/")
+        value = p.detach().float().cpu().numpy()
+        out[key] = value.transpose(np.argsort(permutes[key])) if key in permutes else value
+    return out

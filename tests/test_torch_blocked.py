@@ -294,7 +294,7 @@ def test_slim_backbone_n4096_auto_is_blocked_and_matches_jax(monkeypatch):
     with buffered groups. Outputs, counts and every state leaf (the
     window-major qkv buffers under the window permutation) are compared."""
     monkeypatch.setenv("EVT_UNROLL_BLOCKS", "1")
-    jax_model, model = JaxViTDet(**_slim_config()), ViTDet(**_slim_config())
+    jax_model, model = JaxViTDet(**_slim_config()), ViTDet(**_slim_config(), device="cpu")
     jax_set_policies(jax_model, JaxTopK, k=256)
     set_policies(model, TokenNormTopK, k=256)
     for jax_blk, blk in zip(jax_model.backbone.blocks, model.backbone.blocks):

@@ -5,6 +5,8 @@ is present. Run on the card with ``python -m pytest -m cuda
 tests/test_torch_cuda.py``. ``chip_smoke.py`` holds the kernels against
 the same plain versions at the main path's shapes."""
 
+import copy
+
 import pytest
 import torch
 
@@ -46,8 +48,6 @@ def test_small_vitdet_card_matches_cpu(device):
     """A small eventful ViTDet backbone in the "v2" regime, 2 streams x 3
     frames in float32, on the card (the kernels) against the CPU (the plain
     versions): tokens within 1e-3, every kernel of the path launched."""
-    import copy
-
     from eventful_transformer_tpu_torch.core.counting import Ctx
     from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
     from eventful_transformer_tpu_torch.models import ViTDet
@@ -60,7 +60,7 @@ def test_small_vitdet_card_matches_cpu(device):
                              block_class="EventfulBlock", windowed_class="EventfulTokenwiseBlock",
                              windowed_overrides=dict(pool_size=None), block_config=block),
         classes=5, input_shape=[3, 96, 96], normalize_mean=[0.0] * 3, normalize_std=[1.0] * 3,
-        output_channels=16, patch_size=[16, 16], scale_factors=[1.0],
+        output_channels=16, patch_size=[16, 16], scale_factors=[1.0], device="cpu",
     )
     set_policies(model, TokenNormTopK, k=12)
     for blk in model.backbone.blocks:
@@ -107,8 +107,6 @@ def test_small_vitdet_blocked_card_matches_cpu(eventful, device):
     dense through the padded windowed form; 2 streams x 3 frames in
     float32 on the card against the CPU: tokens within 1e-3, every kernel
     of the path launched."""
-    import copy
-
     from eventful_transformer_tpu_torch.core.counting import Ctx
     from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
     from eventful_transformer_tpu_torch.models import ViTDet
@@ -125,7 +123,7 @@ def test_small_vitdet_blocked_card_matches_cpu(eventful, device):
     model = ViTDet(
         backbone_config=backbone, classes=5, input_shape=[3, 128, 128],
         normalize_mean=[0.0] * 3, normalize_std=[1.0] * 3, output_channels=16,
-        patch_size=[16, 16], scale_factors=[1.0],
+        patch_size=[16, 16], scale_factors=[1.0], device="cpu",
     )
     if eventful:
         set_policies(model, TokenNormTopK, k=12)
@@ -154,3 +152,35 @@ def test_small_vitdet_blocked_card_matches_cpu(eventful, device):
                 "block_select_p", "block_scatter_rows", "ln_norms"}
     assert want <= launched
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("use_kernel", [True, "v2", "auto", False])
+@pytest.mark.parametrize("pool", [None, (2, 2)], ids=["dense", "pooled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_relative_position_kernel_forms_match_cpu(use_kernel, pool, dtype, device):
+    """``RelativePositionEmbedding.forward`` with the kernel forms on the
+    card (its pooled tables are strided views) against the
+    same forms' plain versions on the CPU, within kernel_check's bounds;
+    every value but True launches the v2 form."""
+    from eventful_transformer_tpu_torch.core.counting import Ctx
+    from eventful_transformer_tpu_torch.core.embeddings import RelativePositionEmbedding
+    from eventful_transformer_tpu_torch.ops import relpos
+
+    rp = RelativePositionEmbedding((6, 10), (6, 10), 16, pool_size=pool)
+    rp.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():  # tables of unit scale, terms of a few units
+        rp.y_embedding.mul_(50.0)
+        rp.x_embedding.mul_(50.0)
+    rp.use_kernel = use_kernel
+    p = rp.pooled_size()
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 3, 60, p[0] * p[1]), generator=g).to(dtype)
+    q = torch.randn((2, 3, 60, 16), generator=g).to(dtype)
+    want = rp(Ctx(), x, q)
+    card = copy.deepcopy(rp).to(device)
+    wrapper = relpos.relpos_bias_add if use_kernel is True else relpos.relpos_bias_add_v2
+    before = wrapper.launches
+    got = card(Ctx(), x.to(device), q.to(device))
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert kernel_check.compare(got.cpu(), want)["ok"], kernel_check.compare(got.cpu(), want)

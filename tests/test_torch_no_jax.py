@@ -25,6 +25,7 @@ model = FactorizedViViT(
                         block_config=dict(dim=32, heads=4, mlp_ratio=2)),
     temporal_config=dict(depth=1, position_encoding_size=[2],
                          block_config=dict(dim=32, heads=4, mlp_ratio=2)),
+    device="cpu",
 )
 set_policies(model, TokenNormTopK, k=3)
 views = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 1, 4, 3, 16, 16)))
@@ -55,7 +56,7 @@ model = ViTDet(
                          windowed_overrides=dict(pool_size=None, matmul_2_cast=None),
                          block_config=block),
     classes=5, input_shape=[3, 96, 96], normalize_mean=[0.0] * 3, normalize_std=[1.0] * 3,
-    output_channels=16, patch_size=[16, 16], scale_factors=[1.0],
+    output_channels=16, patch_size=[16, 16], scale_factors=[1.0], device="cpu",
 )
 set_policies(model, TokenNormTopK, k=8)
 for blk in model.backbone.blocks:
@@ -68,6 +69,42 @@ for t in range(3):
     out, state = model.apply_backbone(ctx, state, tokens, mode="flush" if t == 0 else "incremental")
 assert out.shape == (1, 36, 32) and bool(torch.isfinite(out).all())
 assert ctx.counts["accumulator_flops"] > 0
+assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
+               for name, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+
+
+E2E_SCRIPT = """
+import sys
+sys.modules["jax"] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from eventful_transformer_tpu_torch.core.counting import Ctx
+from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+from eventful_transformer_tpu_torch.models import ViTDet
+from eventful_transformer_tpu_torch.utils.misc import set_policies
+block = dict(dim=48, heads=6, mlp_ratio=2, window_size=[2, 2], relative_embedding_size=[4, 4],
+             pool_size=2)
+model = ViTDet(
+    backbone_config=dict(depth=2, position_encoding_size=[4, 4], window_indices=[0],
+                         block_class="EventfulBlock", windowed_class="EventfulTokenwiseBlock",
+                         windowed_overrides=dict(pool_size=None), block_config=block),
+    classes=5, input_shape=[3, 64, 64], normalize_mean=[123.675, 116.28, 103.53],
+    normalize_std=[58.395, 57.12, 57.375], output_channels=32, patch_size=[16, 16],
+    scale_factors=[4.0, 2.0, 1.0, 0.5], rpn_config=dict(pre_nms_topk=200, post_nms_topk=50),
+    roi_config=dict(test_topk_per_image=20), device="cpu",
+)
+set_policies(model, TokenNormTopK, k=10)
+for blk in model.backbone.blocks:
+    blk.fused_gates = "v2"
+state = model.init_state(1)
+frames = torch.from_numpy(np.random.default_rng(0).integers(0, 255, (3, 1, 3, 56, 60), dtype=np.uint8))
+for t in range(3):
+    det, state = model.apply(Ctx(), state, frames[t], mode="flush" if t == 0 else "incremental")
+    assert det["boxes"].shape == (20, 4) and bool(torch.isfinite(det["boxes"]).all())
+    assert det["labels"].dtype == torch.int32 and det["mask"].dtype == torch.bool
 assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
                for name, mod in sys.modules.items() if mod is not None)
 print("ok")
@@ -87,6 +124,12 @@ def test_vitdet_runs_without_jax():
     """The ViTDet slice's modules (resize, rel-pos, windows, the v2 gate
     kernels' wrappers, EventfulBlock) import and run without JAX."""
     _run(VITDET_SCRIPT)
+
+
+def test_vitdet_detects_without_jax():
+    """The detection head (SimplePyramid, RPN, ROIAlign, NMS, the standard
+    ROI heads) through ``ViTDet.apply``, eventful, without JAX."""
+    _run(E2E_SCRIPT)
 
 
 def test_port_runs_without_jax():

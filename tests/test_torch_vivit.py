@@ -62,7 +62,7 @@ def test_vivit_matches_jax(eventful, monkeypatch):
     jax_model.split_flush = True
     for blk in jax_model.modules_of_type(JaxBlock):
         blk.fused_dense_mlp = blk.fused_global_attention = True
-    model = FactorizedViViT(**_config(eventful))
+    model = FactorizedViViT(**_config(eventful), device="cpu")
     if eventful:
         jax_set_policies(jax_model, JaxTopK, k=K)
         for blk in jax_model.modules_of_type(JaxEventfulBlock):
@@ -113,7 +113,7 @@ def test_eventful_handoff_feeds_next_block(monkeypatch):
 
     monkeypatch.setattr(blocks, "ln_norms", ln_norms_spy)
     monkeypatch.setattr(blocks, "gate_group_mlp", gate_group_mlp_spy)
-    model = FactorizedViViT(**_config(True))
+    model = FactorizedViViT(**_config(True), device="cpu")
     set_policies(model, TokenNormTopK, k=K)
     views = np.random.default_rng(6).standard_normal((1, 2, 8, 3, 32, 32))
     with torch.no_grad():
@@ -121,3 +121,13 @@ def test_eventful_handoff_feeds_next_block(monkeypatch):
     steps = 3  # 4 tubelet steps per view, the first a flush
     assert calls["ln_norms"] == steps
     assert calls["emitted"] == [True, False] * steps
+
+
+def test_vivit_defaults_to_the_card():
+    """Without ``device`` the parameters go to the card; without a card
+    that raises instead of falling back to the CPU."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            FactorizedViViT(**_config(True))
+        return
+    assert FactorizedViViT(**_config(True)).classifier.kernel.device.type == "cuda"
