@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths through the entry points a user calls, and
+Drives the port's five paths through the entry points a user calls, and
 checks them: eventful ViViT-B inference on Kinetics-400 shaped clips
-through ``FactorizedViViT.apply_views``; the eventful ViTDet-B backbone
+through ``FactorizedViViT.apply_views``, in the bench's configuration
+(``EventfulTokenwiseBlock``, k = 98) and in the paper's (``EventfulBlock``,
+k = 24, a raw clip through ``FactorizedViViT.apply``); the eventful ViTDet-B backbone
 at 672 x 672 (spatiotemporal_672, k = 256, the "v2" regime) and at
 1024 x 1024 (spatiotemporal_1024, k = 256, the "blocked" regime) through
 ``ViTDet.pre_backbone`` and ``apply_backbone``; and ViTDet-B detection end
@@ -51,6 +53,21 @@ Phases, one JSON line each, with the seconds the phase took:
                      add in its relpos_bias_add form) against the CPU:
                      tokens and detections; then dense against eventful,
                      ms/frame, alternated.
+  13. vivit_evblock_kernels: the kernels of the paper's eventful ViViT-B K400
+                     configuration (EventfulBlock, k = 24, bf16 A.V cast) at its
+                     shapes (12 views, N = 197; the temporal model's N = 17),
+                     ln_select_matmul in its "post" and "none" forms,
+                     select_linear_skip_norms, ln_select and the A.V kernel's
+                     logits form (197 keys; with rel-pos terms at
+                     ViTDet-1024's pooled shape, 4096 x 1024), as in 3.
+  14. vivit_evblock_slice: one raw uint8 clip (10 s, 25 fps, 224 x 398) through
+                     FactorizedViViT.apply in bfloat16 under "auto" ("v2mlp"),
+                     the forced "v1", "v1v2" and "v3", the cached q.kT product
+                     (the logits form) and the delta-accumulated A.V product,
+                     and the dense twin: launches and counted GFLOPs per clip
+                     against the JAX package's; one clip in float32 (cast off)
+                     on the card against the CPU.
+  15. vivit_evblock_time: ms/clip of the dense twin and every run, alternated.
 The times are a record, not a claim.
 
 Then the card's name and power limit, one JSON line with every kernel's
@@ -387,43 +404,56 @@ def counted_run(model, views, eventful):
     return launches, sums.tolist()
 
 
-def card_vs_cpu(cpu_model, clip, device):
-    """One clip in float32 on the card against the same model on the CPU,
-    where every kernel wrapper runs its plain version. The coverages each
-    run selects are recorded around the blocks' coverage_from_norms.
-    Returns the numbers compared and the card run's counts."""
-    from eventful_transformer_tpu_torch.core import blocks
+@contextlib.contextmanager
+def recorded_selections(log):
+    """Every top-k coverage a run selects, appended to ``log`` (on the CPU):
+    recorded around ``coverage_from_norms`` where the blocks, the gates and
+    the policies call it."""
+    from eventful_transformer_tpu_torch.core import blocks, gating, indexing, policies
 
+    def recorded(norms, k):
+        cov = indexing.coverage_from_norms(norms, k)
+        log.append(cov.cpu())
+        return cov
+
+    modules = (blocks, gating, policies)
+    for module in modules:
+        module.coverage_from_norms = recorded
+    try:
+        yield log
+    finally:
+        for module in modules:
+            module.coverage_from_norms = indexing.coverage_from_norms
+
+
+def card_vs_cpu(cpu_model, clip, device, run=None, prob_tol=None):
+    """One clip in float32 on the card against the same model on the CPU,
+    where every kernel wrapper runs its plain version, through ``run(model,
+    clip, count=True)`` (``run_model`` by default); the coverages each run
+    selects recorded. Returns the numbers compared and the card run's
+    counts."""
+    run, prob_tol = run or run_model, prob_tol or PROB_TOL
     card_model = copy.deepcopy(cpu_model).to(device)
-    coverage_from_norms = blocks.coverage_from_norms
     logs = {"card": [], "cpu": []}
     runs = {}
-    try:
-        for tag, model, views in (("card", card_model, clip.to(device)), ("cpu", cpu_model, clip)):
-            def recorded(norms, k, log=logs[tag]):
-                cov = coverage_from_norms(norms, k)
-                log.append(cov)
-                return cov
-
-            blocks.coverage_from_norms = recorded
+    for tag, model, views in (("card", card_model, clip.to(device)), ("cpu", cpu_model, clip)):
+        with recorded_selections(logs[tag]):
             start = time.perf_counter()
-            runs[tag] = run_model(model, views, count=True)
+            runs[tag] = run(model, views, count=True)
             runs[tag + "_s"] = time.perf_counter() - start
-    finally:
-        blocks.coverage_from_norms = coverage_from_norms
     if not logs["card"] or len(logs["cpu"]) != len(logs["card"]):
         raise AssertionError("the two runs selected at different numbers of gates")
     prob_diff = float((runs["card"][0].cpu() - runs["cpu"][0]).abs().max())
     selections = flips = 0
     for a, b in zip(logs["card"], logs["cpu"]):
         selections += int(b.sum())
-        flips += int((a.cpu() != b).sum()) // 2  # a flip swaps one token for another
+        flips += int((a != b).sum()) // 2  # a flip swaps one token for another
     numbers = dict(
-        f32_card_vs_cpu_max_prob_diff=prob_diff, prob_tol=PROB_TOL,
+        f32_card_vs_cpu_max_prob_diff=prob_diff, prob_tol=prob_tol,
         gate_selections=selections, selections_differing=flips,
         max_flip_share=MAX_FLIP_SHARE, f32_card_s=runs["card_s"], f32_cpu_s=runs["cpu_s"],
     )
-    if prob_diff > PROB_TOL or flips > MAX_FLIP_SHARE * selections:
+    if prob_diff > prob_tol or flips > MAX_FLIP_SHARE * selections:
         raise AssertionError(f"float32 card run disagrees with the CPU run: {numbers}")
     return numbers, runs["card"][1]
 
@@ -460,13 +490,15 @@ def phase_slice(device):
     return eventful, dense, views_bf16, launches
 
 
-def time_model(model, views, warmup=1, iters=3):
+def time_model(model, views, warmup=1, iters=3, run=None):
+    """ms per clip of ``run(model, views)`` (run_model by default)."""
+    run = run or run_model
     for _ in range(warmup):
-        run_model(model, views)
+        run(model, views)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
-        run_model(model, views)
+        run(model, views)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters / views.shape[0]
@@ -663,28 +695,17 @@ def card_and_cpu(cpu_model, frames, device, run, card_model=None):
     coverage_from_norms. Checks the tokens of every frame within
     VITDET_TOKEN_TOL (scaled) and the selections that differ. Returns (the
     numbers compared, the card run's launches, both runs' outputs)."""
-    from eventful_transformer_tpu_torch.core import blocks
-
     card_model = card_model or copy.deepcopy(cpu_model).to(device)
-    coverage_from_norms = blocks.coverage_from_norms
     logs = {"card": [], "cpu": []}
     outs, seconds = {}, {}
-    try:
-        for tag, model, clip in (("card", card_model, frames.to(device)), ("cpu", cpu_model, frames)):
-            def recorded(norms, k, log=logs[tag]):
-                cov = coverage_from_norms(norms, k)
-                log.append(cov.cpu())
-                return cov
-
-            blocks.coverage_from_norms = recorded
+    for tag, model, clip in (("card", card_model, frames.to(device)), ("cpu", cpu_model, frames)):
+        with recorded_selections(logs[tag]):
             reset_launches()
             start = time.perf_counter()
             outs[tag] = run(model, clip)
             seconds[tag] = time.perf_counter() - start
             if tag == "card":
                 launches = read_launches()
-    finally:
-        blocks.coverage_from_norms = coverage_from_norms
     if not logs["card"] or len(logs["card"]) != len(logs["cpu"]):
         raise AssertionError("the two runs selected at different numbers of gates")
     selections = flips = 0
@@ -1002,6 +1023,239 @@ def phase_vitdet_e2e(device, smi, rows):
     return out + [row16]
 
 
+# -- ViViT-B K400, the paper's eventful configuration -------------------------------
+#
+# configs/models/vivit_b_kinetics400.yml with configs/evaluate/vivit_kinetics400/
+# _temporal.yml and temporal_24.yml: 3 spatial x 4 temporal = 12 views of 32
+# frames at stride 2, 224 x 224, an EventfulBlock with the bfloat16 A.V cast in
+# every spatial block, TokenNormTopK(k=24) on every gate; the dense twin is
+# base.yml (Block everywhere). The input: one raw uint8 clip of 10 s at the K400
+# loader's 25 fps and 224 short edge (scripts/evaluate/vivit_kinetics400.py:31),
+# 1 x 250 x 3 x 224 x 398, through FactorizedViViT.apply.
+EV_CLIP = (1, 250, 3, 224, 398)
+EV_SPATIAL_VIEWS, EV_TEMPORAL_VIEWS, EV_K = 3, 4, 24
+# The JAX package's counted GFLOPs per clip, from ``python
+# scripts/misc/count_vivit.py`` (the JAX package on the CPU, one view at full
+# width and depth, times 12 views): every run of the eventful model counts alike.
+EV_GFLOPS_DENSE, EV_GFLOPS_EVENTFUL = 3359.582406336, 617.754671616
+# the runs of the eventful model: "auto" ("v2mlp"), the forced gate-fusion
+# regimes, the reference's cached q.kT product through the A.V kernel's logits
+# form, and the reference's delta-accumulated A.V product; each sets these
+# attributes on every spatial block
+EV_RUNS = {
+    "auto": {},
+    "v1": dict(fused_gates="v1"),
+    "v1v2": dict(fused_gates="v1v2"),
+    "v3": dict(fused_gates="v3"),
+    "cached_product": dict(recompute_product=False, av_kernel=True),
+    "delta_accumulator": dict(recompute_av=False),
+}
+# Launches per clip beyond the temporal model's (window_attention and
+# dense_mlp_residual, once per temporal block): per incremental step (15) and
+# spatial block (12), "v2mlp" runs ln_norms and gate_group_mlp in its MLP
+# group; "v1" ln_norms and ln_select_matmul in the qkv group, ln_select_matmul
+# in the projection group, ln_norms and ln_select in the MLP group; "v1v2"
+# the same qkv and projection groups and the "v2mlp" MLP group; "v3" the
+# same qkv group, select_linear_skip_norms (which emits the MLP gate's norms)
+# and gate_group_mlp; the cached product adds the A.V kernel's logits form to
+# "v2mlp". The flush step runs no kernel (its attention carries the cast).
+EV_STEP_LAUNCHES = {
+    "auto": dict(ln_norms=1, gate_group_mlp=1),
+    "v1": dict(ln_norms=2, ln_select_matmul=2, ln_select=1),
+    "v1v2": dict(ln_norms=2, ln_select_matmul=2, gate_group_mlp=1),
+    "v3": dict(ln_norms=1, ln_select_matmul=1, select_linear_skip_norms=1, gate_group_mlp=1),
+    "cached_product": dict(ln_norms=1, gate_group_mlp=1, softmax_select_matmul_logits=1),
+    "delta_accumulator": dict(ln_norms=1, gate_group_mlp=1),
+}
+# the kernels of the path, each with the run whose launches its row reports
+EV_KERNELS = {
+    "ln_norms": "auto", "gate_group_mlp": "auto", "window_attention": "auto",
+    "dense_mlp_residual": "auto", "ln_select_matmul_post": "v1", "ln_select_matmul_none": "v1",
+    "ln_select": "v1", "select_linear_skip_norms": "v3",
+    "softmax_select_matmul_logits_noterms": "cached_product",
+}
+
+
+def ev_config(eventful, cast="bfloat16"):
+    block = dict(dim=768, heads=12, mlp_ratio=4)
+    return dict(
+        classes=400, input_shape=[FRAMES, 3, SIZE, SIZE], normalize_mean=0.45,
+        normalize_std=0.225, spatial_views=EV_SPATIAL_VIEWS, temporal_stride=2,
+        temporal_views=EV_TEMPORAL_VIEWS, tubelet_shape=[2, 16, 16],
+        spatial_config=dict(
+            depth=DEPTH, position_encoding_size=[14, 14],
+            block_class="EventfulBlock" if eventful else "Block",
+            block_config=dict(block, matmul_2_cast=cast) if eventful else block,
+        ),
+        temporal_config=dict(
+            depth=TEMPORAL_DEPTH, position_encoding_size=[16], block_config=block
+        ),
+    )
+
+
+def ev_model(eventful, device, dtype, cast="bfloat16"):
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    model = FactorizedViViT(**ev_config(eventful, cast), device=device, seed=SEED)
+    if eventful:
+        set_policies(model, TokenNormTopK, k=EV_K)
+    return model.to(dtype)
+
+
+def ev_clip(device, seed=SEED):
+    """The raw uint8 clip, made on ``device``: one random image with a
+    square that drifts a pixel a frame, and a little noise in every frame,
+    so that consecutive frames are mostly alike."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, t, c, h, w = EV_CLIP
+    base = torch.rand((b, 1, c, h, w), generator=g, device=device) * 255.0
+    frames = base.expand(b, t, c, h, w).clone()
+    for i in range(t):
+        frames[:, i, :, 60:124, 40 + i : 104 + i] = 255.0
+    frames += 3.0 * torch.randn(frames.shape, generator=g, device=device)
+    return frames.clamp(0.0, 255.0).to(torch.uint8)
+
+
+def set_ev_run(model, attrs):
+    """Every spatial block back to its defaults, then ``attrs`` set."""
+    defaults = dict(fused_gates="auto", recompute_product=True, av_kernel="auto",
+                    recompute_av=True)
+    for blk in model.spatial_model.backbone.blocks:
+        for name, value in {**defaults, **attrs}.items():
+            setattr(blk, name, value)
+
+
+def run_apply(model, clip, count=False):
+    from eventful_transformer_tpu_torch.core.counting import Ctx
+
+    ctx = Ctx(count_mode=count)
+    out = model.apply(ctx, clip)
+    if clip.is_cuda:
+        torch.cuda.synchronize()
+    return out, ctx.counts
+
+
+def ev_expected_launches(run):
+    """Launches per clip: ``run``'s per-step kernels in every spatial block
+    and incremental step, the temporal model's two dense kernels once per
+    block; the dense twin (``run`` None) both dense kernels in every block
+    of every step and of the temporal model."""
+    want = dict.fromkeys(wrappers(), 0)
+    want.update(window_attention=TEMPORAL_DEPTH, dense_mlp_residual=TEMPORAL_DEPTH)
+    if run is None:
+        for name in DENSE_KERNELS:
+            want[name] += DEPTH * STEPS
+    else:
+        for name, count in EV_STEP_LAUNCHES[run].items():
+            want[name] = count * DEPTH * (STEPS - 1)
+    return want
+
+
+def ev_counted_run(model, clip, run):
+    """One clip through FactorizedViViT.apply, counting FLOPs, with every
+    launch count set to 0 just before and read just after; checks the
+    launches, the probabilities and the count against the JAX package's.
+    Returns (launches, GFLOPs per clip)."""
+    reset_launches()
+    probs, counts = run_apply(model, clip, count=True)
+    launches = read_launches()
+    want = ev_expected_launches(run)
+    if launches != want:
+        raise AssertionError(f"ViViT {run or 'dense'} launch counts {launches}, expected {want}")
+    probs = probs.float()
+    if probs.shape != (1, 400) or not torch.isfinite(probs).all():
+        raise AssertionError(f"bad ViViT {run or 'dense'} output: shape {tuple(probs.shape)}")
+    if abs(float(probs.sum()) - 1.0) > 1e-2:
+        raise AssertionError(f"ViViT {run or 'dense'} probabilities sum to {float(probs.sum())}")
+    got, ref = gflops(counts), EV_GFLOPS_EVENTFUL if run else EV_GFLOPS_DENSE
+    if abs(got - ref) > 1e-6 * ref:
+        raise AssertionError(f"ViViT {run or 'dense'}: counted {got} GFLOPs/clip, the JAX "
+                             f"package's count is {ref}")
+    return launches, got
+
+
+def phase_ev_kernels(device):
+    """The kernels of the path at its shapes (12 views, N = 197, k = 24; the
+    logits form over the 197 keys of a view), and the logits form with
+    rel-pos terms at ViTDet-1024's pooled shape (2 streams, 4096 queries,
+    32 x 32 keys)."""
+    views = EV_SPATIAL_VIEWS * EV_TEMPORAL_VIEWS
+    names = tuple(name for name in EV_KERNELS if name not in DENSE_KERNELS)
+    return check_kernels("vivit_evblock_kernels", device, [
+        ("vivit_evblock", views, N_TOKENS, EV_K, names, dict(window=(4, 6), pool=(1, N_TOKENS))),
+        ("vivit_evblock_temporal", views, STEPS + 1, STEPS + 1, DENSE_KERNELS,
+         dict(window=(4, 6))),
+        ("vitdet1024_pooled", VITDET_STREAMS, VITDET[1024]["n"], VITDET_K,
+         ("softmax_select_matmul_logits",), VITDET[1024]["inputs"]),
+    ])
+
+
+def phase_ev_slice(device):
+    """The eventful model in bfloat16 under every run of EV_RUNS and its
+    dense twin, each one counted clip; then one clip in float32 (the
+    matmul-2 cast off) under "auto" on the card against the CPU."""
+    clip = ev_clip(device)
+    eventful = ev_model(True, device, torch.bfloat16)
+    dense = ev_model(False, device, torch.bfloat16)
+    launches, counted = {}, {}
+    for run, attrs in EV_RUNS.items():
+        set_ev_run(eventful, attrs)
+        launches[run], counted[run] = ev_counted_run(eventful, clip, run)
+    set_ev_run(eventful, {})
+    dense_launches, g_dense = ev_counted_run(dense, clip, None)
+    cpu_model = ev_model(True, "cpu", torch.float32, cast=None)
+    numbers, _ = card_vs_cpu(cpu_model, clip.cpu(), device, run=run_apply)
+    emit(
+        "vivit_evblock_slice", clip=list(EV_CLIP), views=EV_SPATIAL_VIEWS * EV_TEMPORAL_VIEWS,
+        k=EV_K, dtype="bfloat16", launches_per_clip={
+            run: {k: v for k, v in counts.items() if v} for run, counts in launches.items()
+        },
+        dense_launches_per_clip={k: v for k, v in dense_launches.items() if v},
+        gflops_per_clip_eventful=counted, gflops_per_clip_dense=g_dense,
+        jax_gflops_per_clip_eventful=EV_GFLOPS_EVENTFUL, jax_gflops_per_clip_dense=EV_GFLOPS_DENSE,
+        f32_runs="auto, matmul-2 cast off", **numbers,
+    )
+    return eventful, dense, clip, launches, dense_launches
+
+
+def phase_ev_time(eventful, dense, clip, smi):
+    """ms/clip in bfloat16 of the dense twin and of every run of the
+    eventful model, alternated (there and back)."""
+    order = ["dense"] + list(EV_RUNS)
+    times = {name: [] for name in order}
+    for name in order + order[::-1]:
+        model = dense if name == "dense" else eventful
+        if name != "dense":
+            set_ev_run(eventful, EV_RUNS[name])
+        times[name].append(time_model(model, clip, iters=2, run=run_apply))
+    set_ev_run(eventful, {})
+    emit("vivit_evblock_time", card=smi, clip=list(EV_CLIP), k=EV_K, dtype="bfloat16",
+         ms_per_clip=times)
+
+
+def ev_path(device, smi):
+    """The kernels, the slice and the times of the paper's configuration.
+    Returns the kernel rows of the final line."""
+    rows = phase_ev_kernels(device)
+    eventful, dense, clip, launches, _ = phase_ev_slice(device)
+    phase_ev_time(eventful, dense, clip, smi)
+    del eventful, dense, clip
+    torch.cuda.empty_cache()
+    out = []
+    for name, run in EV_KERNELS.items():
+        tag = "vivit_evblock_temporal" if name in DENSE_KERNELS else "vivit_evblock"
+        out.append(kernel_row(name, rows[(name, torch.bfloat16, tag)], launches[run],
+                              f"vivit_evblock_{run}"))
+    out.append(kernel_row(
+        "softmax_select_matmul_logits",
+        rows[("softmax_select_matmul_logits", torch.bfloat16, "vitdet1024_pooled")],
+        launches["cached_product"], "vivit_evblock_cached_product",
+    ))
+    return out
+
+
 def main():
     smi = phase_env()
     device = torch.device("cuda", 0)
@@ -1020,6 +1274,7 @@ def main():
         path_rows, rows[size] = vitdet_path(device, smi, size)
         kernels += path_rows
     kernels += phase_vitdet_e2e(device, smi, rows[E2E_SIZE])
+    kernels += ev_path(device, smi)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

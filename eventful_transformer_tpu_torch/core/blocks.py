@@ -14,31 +14,45 @@ PyTorch, as the JAX package runs it in XLA; the MLP half runs through
 
 The eventful blocks flush densely (``mode="flush"``) and then step
 incrementally (``mode="incremental"``) in the regime ``_fused_mode``
-picks, as the JAX package dispatches on the TPU:
+picks, as the JAX package dispatches on the TPU ("auto"), or in the one
+``fused_gates`` forces:
 
 - "v4" (N <= 512, a plain tokenwise block with order-2 top-k gates):
   ``ln_norms`` (first block of a step only), kernel A, kernel B and
   kernel C, with the top-k coverage computed between them;
-- "v2" (512 < N <= 2048, or forced): the whole-group kernels. The qkv
+- "v2mlp" (N <= 512, a block "v4" does not take, such as an
+  ``EventfulBlock``): the qkv and projection gates in PyTorch with both
+  linears recomputed densely from the gate states, and the MLP group
+  through ``ln_norms`` and ``gate_group_mlp``;
+- "v2" (512 < N <= 2048): the whole-group kernels. The qkv
   group of a windowed block keeps its buffer window-major and runs
   ``block_select_p`` and ``block_scatter_rows`` around a k-row qkv
   linear; other qkv groups and every projection group run
   ``gate_group_linear``; the MLP group runs ``gate_group_mlp``;
-- "blocked" (N > 2048, or forced): each group lists its selected rows,
+- "blocked" (N > 2048): each group lists its selected rows,
   runs its op (LN and linear, or the MLP) on those k rows in PyTorch, and
   makes one ``block_select_scatter`` pass over the full-size state; the
-  windowed qkv group runs as in "v2".
+  windowed qkv group runs as in "v2";
+- "v1", "v1v2", "v3" (forced only): the qkv group through ``ln_norms`` and
+  ``ln_select_matmul``; the projection group through ``ln_select_matmul``
+  ("v1", "v1v2") or ``select_linear_skip_norms`` ("v3", which also emits
+  the MLP gate's norms); the MLP group through ``ln_norms``, ``ln_select``
+  and the MLP on the gathered rows ("v1") or ``gate_group_mlp``;
+- False: the unfused path the JAX package runs on the CPU and in
+  training, every gate and buffer in plain PyTorch (``core/gating.py``),
+  no kernel.
 
 ``EventfulBlock``'s incremental A.V step runs ``softmax_select_matmul``
 (matmul-1, rel-pos bias, softmax, column select and A.V in one kernel)
-where the JAX package's TPU rule takes its A.V kernel: at least 512 pooled
-keys, or one stream.
+where the JAX package's TPU rule takes its A.V kernel (at least 512 pooled
+keys, or one stream), or its logits form where q.kT is not fused into it
+(``fuse_matmul_1 = False``, or the reference's cached product,
+``recompute_product = False``); ``recompute_av = False`` runs the
+reference's delta-accumulated product instead.
 
-The "v2mlp" regime (N <= 512, a block "v4" does not take) is not ported;
-neither are ATS, drop-path, sequence parallelism, gate-before-LN, STGT
-gates, the cached product and delta-accumulator forms, and the A.V kernel
-over a logits tensor. Asking for one raises ``NotImplementedError`` naming
-the ROADMAP.md item that holds it.
+Not ported: ATS, drop-path, sequence parallelism, gate-before-LN and STGT
+gates. Asking for one raises ``NotImplementedError`` naming the ROADMAP.md
+item that holds it.
 """
 
 from __future__ import annotations
@@ -80,7 +94,10 @@ from eventful_transformer_tpu_torch.core.policies import (
     check_kernel_policy,
     vector_norm,
 )
-from eventful_transformer_tpu_torch.ops.av_softmax import softmax_select_matmul
+from eventful_transformer_tpu_torch.ops.av_softmax import (
+    softmax_select_matmul,
+    softmax_select_matmul_logits,
+)
 from eventful_transformer_tpu_torch.ops.block_fused import proj_group, qkv_attention_group
 from eventful_transformer_tpu_torch.ops.dense_mlp import dense_mlp_residual
 from eventful_transformer_tpu_torch.ops.gate_block import (
@@ -88,7 +105,12 @@ from eventful_transformer_tpu_torch.ops.gate_block import (
     block_select_p,
     block_select_scatter,
 )
-from eventful_transformer_tpu_torch.ops.gate_fused import ln_norms
+from eventful_transformer_tpu_torch.ops.gate_fused import (
+    ln_norms,
+    ln_select,
+    ln_select_matmul,
+    select_linear_skip_norms,
+)
 from eventful_transformer_tpu_torch.ops.gate_group import gate_group_linear, gate_group_mlp
 from eventful_transformer_tpu_torch.ops.window_attention import (
     window_attention,
@@ -416,12 +438,16 @@ class EventfulTokenwiseBlock(Block):
     token gate. Step 0 runs dense (``mode="flush"``); later steps
     (``mode="incremental"``) run the regime of :meth:`_fused_mode`.
 
-    ``fused_gates`` mirrors the JAX attribute with the values the port
-    implements: "auto" (the JAX package's TPU dispatch by token count),
-    "v4", "v2" and "blocked" (forced)."""
+    ``fused_gates`` mirrors the JAX attribute: "auto" (the JAX package's
+    TPU dispatch by token count) or a forced regime, "v4", "v2mlp", "v2",
+    "blocked", "v1", "v1v2", "v3", or False (unfused)."""
 
     V2MLP_MAX_TOKENS = 512
     V2_MAX_TOKENS = 2048
+    # above it the unfused regimes keep qkv and projection buffers and
+    # gather, where they recompute both from the gate states below it
+    RECOMPUTE_MAX_TOKENS = 2048
+    FORCED_MODES = ("v4", "v2mlp", "v2", "blocked", "v1", "v1v2", "v3")
     # whether _attention_incremental consumes the qkv gate's indices
     _attention_uses_index = False
 
@@ -446,14 +472,17 @@ class EventfulTokenwiseBlock(Block):
 
     def _fused_mode(self, n_tokens):
         """The incremental regime (core/blocks.py:847-875 of the JAX
-        package, with its TPU thresholds)."""
-        if self.fused_gates == "v4":
+        package, with its TPU thresholds under "auto")."""
+        mode = self.fused_gates
+        if mode is False:
+            return False
+        if mode == "v4":
             return "v4" if self._v4_eligible() else "v2mlp"
-        if self.fused_gates in ("v2", "blocked"):
-            return self.fused_gates
-        if self.fused_gates != "auto":
+        if mode in self.FORCED_MODES:
+            return mode
+        if mode != "auto":
             raise ValueError(
-                f"fused_gates must be 'auto', 'v4', 'v2' or 'blocked', got {self.fused_gates!r}"
+                f"fused_gates must be 'auto', False or one of {self.FORCED_MODES}, got {mode!r}"
             )
         if n_tokens <= self.V2MLP_MAX_TOKENS:
             return "v4" if self._v4_eligible() else "v2mlp"
@@ -506,9 +535,10 @@ class EventfulTokenwiseBlock(Block):
             "mlp_gate": self.mlp_gate.init_state(shape, dtype, device),
             "mlp_accumulator": self.mlp_accumulator.init_state(shape, dtype, device),
         }
-        # the whole-group regimes keep qkv and projection buffers; "v4"
-        # recomputes both from the gate states
-        if self._fused_mode(n_tokens) in ("v2", "blocked"):
+        # qkv and projection buffers where the regime gathers ("v2",
+        # "blocked", or any regime above RECOMPUTE_MAX_TOKENS); the others
+        # recompute both from the gate states
+        if n_tokens > self.RECOMPUTE_MAX_TOKENS or self._fused_mode(n_tokens) in ("v2", "blocked"):
             rows = self._resident_rows() if self._resident_qkv(n_tokens) else n_tokens
             state["qkv_accumulator"] = self.qkv_accumulator.init_state(
                 (batch, rows, 3 * self.dim), dtype, device
@@ -566,6 +596,9 @@ class EventfulTokenwiseBlock(Block):
         )
         return counted_add(ctx, x, skip_2), state
 
+    def _mlp(self, ctx, x, valid_frac=1):
+        return self.mlp_2(ctx, gelu(self.mlp_1(ctx, x, valid_frac)), valid_frac)
+
     def _attention_flush(self, ctx, state, x, aux):
         return self._forward_attention(ctx, x, aux), state
 
@@ -582,9 +615,19 @@ class EventfulTokenwiseBlock(Block):
         mode = self._fused_mode(n)
         if mode == "v4":
             return self._v4_step(ctx, state, x, norms, next_gate)
-        if mode == "v2mlp":
-            raise not_ported(f"the 'v2mlp' regime (N={n} <= 512, a block 'v4' does not take)", 10)
-        blocked = mode == "blocked"
+        if mode in ("v2", "blocked"):
+            return self._group_step(ctx, state, x, norms, next_gate, aux, mode == "blocked")
+        state = dict(state)
+        skip_1 = x
+        x, index, mask = self._qkv_group(ctx, state, x, norms, mode)
+        x, state = self._attention_incremental(ctx, state, x, index, mask, aux)
+        x, mlp_norms = self._projection_group(ctx, state, x, skip_1, mode)
+        y, next_norms = self._mlp_group(ctx, state, x, mlp_norms, next_gate, mode)
+        return y, state, next_norms
+
+    def _group_step(self, ctx, state, x, norms, next_gate, aux, blocked):
+        """One step of the whole-group regimes, "v2" and "blocked"."""
+        n = x.shape[-2]
         group_linear = self._blocked_group_linear if blocked else self._v2_group_linear
         state = dict(state)
         skip_1 = x
@@ -610,6 +653,136 @@ class EventfulTokenwiseBlock(Block):
         group_mlp = self._blocked_group_mlp if blocked else self._v2_group_mlp
         y, next_norms = group_mlp(ctx, state, x, mlp_norms, next_gate)
         return y, state, next_norms
+
+    # -- the "v2mlp", "v1", "v1v2", "v3" and unfused groups ---------------------------
+
+    def _qkv_group(self, ctx, state, x, norms, mode):
+        """The qkv group of the regimes without a whole-group kernel
+        (core/blocks.py:1249-1297 of the JAX package): "v1"/"v1v2"/"v3"
+        through ``ln_select_matmul``; otherwise the gate in PyTorch and the
+        qkv linear recomputed densely from the gate state (select-only
+        where the attention ignores the index), or, with a qkv buffer, on
+        the selected rows and scattered in. Returns (qkv, index, mask),
+        index None where no index is drawn."""
+        ln = self.input_layer_norm
+        if mode in ("v1", "v1v2", "v3"):
+            y, index, state["qkv_gate"] = self._fused_gate_group(
+                ctx, self.qkv_gate, state["qkv_gate"], x, ln, "post", self.qkv
+            )
+            return y, index, None
+        if (
+            "qkv_accumulator" not in state
+            and not self._attention_uses_index
+            and self.qkv_gate.select_only_ok()
+        ):
+            kcap, state["qkv_gate"] = self.qkv_gate.incremental_select(
+                ctx, state["qkv_gate"], layer_norm(x, ln), norms=norms
+            )
+            p = state["qkv_gate"]["p"]
+            return self.qkv(ctx, p, kcap / p.shape[-2]), None, None
+        x_t, index, mask, state["qkv_gate"] = self.qkv_gate.incremental(
+            ctx, state["qkv_gate"], layer_norm(x, ln)
+        )
+        if "qkv_accumulator" not in state:
+            p = state["qkv_gate"]["p"]
+            frac = (index.shape[-1] / p.shape[-2]) * valid_fraction(mask)
+            return self.qkv(ctx, p, frac), index, mask
+        x_t = self.qkv(ctx, x_t, valid_fraction(mask))
+        x, state["qkv_accumulator"] = self.qkv_accumulator.incremental(
+            state["qkv_accumulator"], x_t, index, mask
+        )
+        return x, index, mask
+
+    def _projection_group(self, ctx, state, x, skip_1, mode):
+        """The projection group and the skip add (core/blocks.py:1818-1906
+        of the JAX package): "v3" through ``select_linear_skip_norms``,
+        which also emits the MLP gate's norms; "v1"/"v1v2" through
+        ``ln_select_matmul``; otherwise as the qkv group. Returns (y, the
+        MLP gate's norms or None)."""
+        gate, gate_state = self.projection_gate, state["projection_gate"]
+        if mode == "v3":
+            kcap, _, cov = self._select(ctx, gate, gate_state["p"], x, None, "none")
+            ln2 = self.mlp_layer_norm
+            _, y, mlp_norms = select_linear_skip_norms(
+                x, gate_state["p"], cov, self.projection.kernel, self.projection.bias, skip_1,
+                state["mlp_gate"]["p"], ln2.scale, ln2.bias,
+            )
+            frac = kcap / x.shape[-2]
+            rows = x.numel() // x.shape[-1]
+            ctx.add("linear_flops", frac * float(x.numel() * self.projection.out_features))
+            ctx.add("bias_flops", frac * float(rows * self.projection.out_features))
+            ctx.add("add_flops", y.numel())
+            return y, mlp_norms
+        if mode in ("v1", "v1v2"):
+            x, _, state["projection_gate"] = self._fused_gate_group(
+                ctx, gate, gate_state, x, None, "none", self.projection
+            )
+        elif "projection_accumulator" not in state and gate.select_only_ok():
+            kcap, state["projection_gate"] = gate.incremental_select(ctx, gate_state, x)
+            p = state["projection_gate"]["p"]
+            x = self.projection(ctx, p, kcap / p.shape[-2])
+        else:
+            x_t, index, mask, state["projection_gate"] = gate.incremental(ctx, gate_state, x)
+            if "projection_accumulator" not in state:
+                p = state["projection_gate"]["p"]
+                frac = (index.shape[-1] / p.shape[-2]) * valid_fraction(mask)
+                x = self.projection(ctx, p, frac)
+            else:
+                x_t = self.projection(ctx, x_t, valid_fraction(mask))
+                x, state["projection_accumulator"] = self.projection_accumulator.incremental(
+                    state["projection_accumulator"], x_t, index, mask
+                )
+        return counted_add(ctx, x, skip_1), None
+
+    def _mlp_group(self, ctx, state, x, norms, next_gate, mode):
+        """The MLP group and the residual (core/blocks.py:1925-1959 of the
+        JAX package): "v2mlp"/"v1v2"/"v3" through ``gate_group_mlp``; "v1"
+        through ``ln_select`` and the MLP on the gathered rows; unfused
+        with the gate in PyTorch. Returns (y, next_norms)."""
+        if mode in ("v2mlp", "v1v2", "v3"):
+            return self._v2_group_mlp(ctx, state, x, norms, next_gate)
+        skip_2 = x
+        ln = self.mlp_layer_norm
+        if mode == "v1":
+            x_t, index, mask, state["mlp_gate"] = self._fused_gate_select(
+                ctx, state["mlp_gate"], x, ln
+            )
+        else:
+            x_t, index, mask, state["mlp_gate"] = self.mlp_gate.incremental(
+                ctx, state["mlp_gate"], layer_norm(x, ln)
+            )
+        x_t = self._mlp(ctx, x_t, valid_fraction(mask))
+        x, state["mlp_accumulator"] = self.mlp_accumulator.incremental(
+            state["mlp_accumulator"], x_t, index, mask
+        )
+        return counted_add(ctx, x, skip_2), None
+
+    def _fused_gate_group(self, ctx, gate, gate_state, x, ln, ln_mode, linear):
+        """Gate norms -> selection -> ``ln_select_matmul`` (the gate-state
+        select in place and the linear recomputed over every row of the
+        new state). Returns (y, index, gate state), counted as the
+        gathered path."""
+        kcap, index, cov = self._select(
+            ctx, gate, gate_state["p"], x, ln, ln_mode, need_index=True
+        )
+        scale, bias = (ln.scale, ln.bias) if ln_mode == "post" else (None, None)
+        p, y = ln_select_matmul(
+            x, gate_state["p"], cov, scale, bias, linear.kernel, linear.bias, ln_mode=ln_mode
+        )
+        frac = kcap / x.shape[-2]
+        ctx.add("linear_flops", frac * float(x.numel() * linear.out_features))
+        ctx.add("bias_flops", frac * float(y.numel()))
+        return y, index, {"p": p}
+
+    def _fused_gate_select(self, ctx, gate_state, x, ln):
+        """The MLP gate of "v1": norms -> selection -> ``ln_select`` (in
+        place); the selected rows of the new state are the MLP's input.
+        Returns (rows, index, None, gate state)."""
+        _, index, cov = self._select(
+            ctx, self.mlp_gate, gate_state["p"], x, ln, "post", need_index=True
+        )
+        p = ln_select(x, gate_state["p"], cov, ln.scale, ln.bias)
+        return take_rows(p, index), index, None, {"p": p}
 
     def _select(self, ctx, gate, p, x, ln, ln_mode, norms=None, need_index=False):
         """Error norms (unless an upstream kernel handed them over) ->
@@ -789,9 +962,11 @@ class EventfulTokenwiseBlock(Block):
 
 
 class EventfulMatmul1Block(EventfulTokenwiseBlock):
-    """Adds eventfulness to the query-key product: an incremental step
-    recomputes q.kT (``recompute_product``), counted as the reference's
-    row and column updates. Global attention only."""
+    """Adds eventfulness to the query-key product. By default
+    (``recompute_product``) an incremental step recomputes q.kT, counted as
+    the reference's row and column updates; ``recompute_product = False``
+    keeps the reference's cached product (``MatmulBuffer.incremental``).
+    Global attention only."""
 
     _attention_uses_index = True
 
@@ -813,49 +988,66 @@ class EventfulMatmul1Block(EventfulTokenwiseBlock):
         return extra + prod(s // p for s, p in zip(self.input_size, self.pool_size))
 
     def init_state(self, batch, n_tokens, dtype, device):
+        state = super().init_state(batch, n_tokens, dtype, device)
         if not self.recompute_product:
-            raise not_ported("the cached q.kT product (recompute_product=False)", 10)
-        return super().init_state(batch, n_tokens, dtype, device)
+            state["matmul_accumulator_1"] = self.matmul_accumulator_1.init_state(
+                (batch, self.heads, n_tokens, self._pooled_tokens(n_tokens)), dtype, device
+            )
+        return state
 
     def _attention_flush(self, ctx, state, x, aux):
-        a, v = self._matmul_1_flush(ctx, x, aux)
+        a, v = self._matmul_1_flush(ctx, state, x, aux)
         a, v, old_dtype = self._cast_matmul_2(a, v)
         x = counted_matmul(ctx, a, v)
         return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
 
     def _attention_incremental(self, ctx, state, x, index, mask, aux):
-        a, v, _, _ = self._matmul_1_incremental(ctx, x, index, mask, aux)
+        a, _, v, _, _ = self._matmul_1_incremental(ctx, state, x, index, mask, aux)
         a, v, old_dtype = self._cast_matmul_2(a, v)
         x = counted_matmul(ctx, a, v)
         return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
 
-    def _matmul_1_flush(self, ctx, x, aux):
+    def _matmul_1_flush(self, ctx, state, x, aux):
         q, k, v = self._partition_heads(x)
         k, v = self._pool_tokens(k), self._pool_tokens(v)
-        a = counted_matmul(ctx, q / self.scale, k.transpose(-2, -1))
+        if self.recompute_product:
+            a = counted_matmul(ctx, q / self.scale, k.transpose(-2, -1))
+        else:
+            a, state["matmul_accumulator_1"] = self.matmul_accumulator_1.flush(
+                ctx, state["matmul_accumulator_1"], q / self.scale, k.transpose(-2, -1)
+            )
         return self._matmul_1_post(ctx, a, q, aux), v
 
-    def _matmul_1_incremental(self, ctx, x, index, mask, aux, matmul=True):
-        """Returns (attention, v, index_k, mask_k); with ``matmul`` False the
-        product is left to the A.V kernel, counted here as the reference
-        counts it, and the first item is (q, k) instead."""
+    def _matmul_1_incremental(
+        self, ctx, state, x, index, mask, aux, matmul=True, softmax=True, bias=True
+    ):
+        """Returns (attention, q, v, index_k, mask_k); with ``matmul`` False
+        the product is left to the A.V kernel, counted here as the
+        reference counts it, and the first item is the pooled k instead; with
+        ``softmax`` (``bias``) False the softmax (the rel-pos bias) is left
+        to it too."""
         q, k, v = self._partition_heads(x)
         k, v = self._pool_tokens(k), self._pool_tokens(v)
         index_k, mask_k = self._pool_index(index, mask)
+        kt = k.transpose(-2, -1)
         if not matmul:
-            self.matmul_accumulator_1.count_incremental(
-                ctx, q, k.transpose(-2, -1), index, index_k, mask, mask_k
+            self.matmul_accumulator_1.count_incremental(ctx, q, kt, index, index_k, mask, mask_k)
+            return k, q, v, index_k, mask_k
+        if self.recompute_product:
+            a = self.matmul_accumulator_1.incremental_recompute(
+                ctx, q / self.scale, kt, index, index_k, mask, mask_k
             )
-            return (q, k), v, index_k, mask_k
-        a = self.matmul_accumulator_1.incremental_recompute(
-            ctx, q / self.scale, k.transpose(-2, -1), index, index_k, mask, mask_k
-        )
-        return self._matmul_1_post(ctx, a, q, aux), v, index_k, mask_k
+        else:
+            a, state["matmul_accumulator_1"] = self.matmul_accumulator_1.incremental(
+                ctx, state["matmul_accumulator_1"], q / self.scale, kt, index, index_k, mask,
+                mask_k,
+            )
+        return self._matmul_1_post(ctx, a, q, aux, softmax, bias), q, v, index_k, mask_k
 
-    def _matmul_1_post(self, ctx, a, q, aux):
-        if self.relative_position is not None:
+    def _matmul_1_post(self, ctx, a, q, aux, softmax=True, bias=True):
+        if self.relative_position is not None and bias:
             a = self.relative_position(ctx, a, q, self._derived(aux))
-        return torch.softmax(a, dim=-1)
+        return torch.softmax(a, dim=-1) if softmax else a
 
     def _pool_index(self, index, mask):
         """Token indices -> pooled-grid indices, deduplicated as the
@@ -878,16 +1070,19 @@ class EventfulMatmul1Block(EventfulTokenwiseBlock):
 class EventfulBlock(EventfulMatmul1Block):
     """Adds eventfulness to the attention-value product. The delta-
     accumulated product is pure memoization (``product == p_a @ p_v`` at
-    every step), so an incremental step selects the changed columns of the
-    attention matrix and rows of v into the gate states and recomputes
-    ``p_a @ p_v`` (``recompute_av``), counted as the reference's gathered
-    delta products.
+    every step), so by default (``recompute_av``) an incremental step
+    selects the changed columns of the attention matrix and rows of v into
+    the gate states and recomputes ``p_a @ p_v``, counted as the
+    reference's gathered delta products; ``recompute_av = False`` keeps the
+    reference's delta accumulator (``TokenDeltaGate.incremental`` and
+    ``MatmulDeltaAccumulator``).
 
     ``av_kernel`` and ``fuse_matmul_1`` mirror the JAX attributes: "auto"
-    runs the step through ``softmax_select_matmul`` (q.kT, rel-pos bias,
-    softmax, select and A.V in one kernel) by the JAX package's TPU rule,
-    True always, False never; ``fuse_matmul_1=False`` with the kernel needs
-    its logits form, which is not ported."""
+    runs the recompute step through ``softmax_select_matmul`` by the JAX
+    package's TPU rule, True always, False never. The kernel computes q.kT
+    itself (its fused form) unless ``fuse_matmul_1`` is False or the
+    product is cached, where it reads the logits tensor (its logits form,
+    ``softmax_select_matmul_logits``)."""
 
     # the JAX package's TPU rule: the A.V kernel at >= 512 pooled keys, or
     # at any count for one stream
@@ -903,8 +1098,6 @@ class EventfulBlock(EventfulMatmul1Block):
         self.matmul_accumulator_2 = MatmulDeltaAccumulator()
 
     def init_state(self, batch, n_tokens, dtype, device):
-        if not self.recompute_av:
-            raise not_ported("the delta-accumulated A.V product (recompute_av=False)", 10)
         state = super().init_state(batch, n_tokens, dtype, device)
         n_p = self._pooled_tokens(n_tokens)
         sdtype = _CAST_DTYPES.get(self.matmul_2_cast, dtype)
@@ -913,69 +1106,100 @@ class EventfulBlock(EventfulMatmul1Block):
         state["matmul_gate"] = self.matmul_gate.init_state(
             (batch, self.heads, n_tokens, n_p), sdtype, device
         )
+        if not self.recompute_av:
+            state["matmul_accumulator_2"] = self.matmul_accumulator_2.init_state(
+                (batch, self.heads, n_tokens, head_dim), sdtype, device
+            )
         return state
 
     def _attention_flush(self, ctx, state, x, aux):
-        a, v = self._matmul_1_flush(ctx, x, aux)
+        a, v = self._matmul_1_flush(ctx, state, x, aux)
         a, v, old_dtype = self._cast_matmul_2(a, v)
         # v may be a view of the qkv buffer, which later steps update in place
         _, state["v_gate"] = self.v_gate.flush(state["v_gate"], v.contiguous())
         _, state["matmul_gate"] = self.matmul_gate.flush(state["matmul_gate"], a)
-        x = counted_matmul(ctx, a, v)
+        if self.recompute_av:
+            x = counted_matmul(ctx, a, v)
+        else:
+            x, state["matmul_accumulator_2"] = self.matmul_accumulator_2.flush(
+                ctx, state["matmul_accumulator_2"], a, v
+            )
         return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
 
     def _use_av_kernel(self, n_cols, batch):
-        if self.av_kernel is True or self.av_kernel is False:
-            return self.av_kernel
+        if not self.recompute_av or self.av_kernel is False:
+            return False
+        if self.av_kernel is True:
+            return True
         if self.av_kernel != "auto":
             raise ValueError(f"av_kernel must be 'auto', True or False, got {self.av_kernel!r}")
         return n_cols >= self.AV_KERNEL_MIN_COLS or batch == 1
 
     def _attention_incremental(self, ctx, state, x, index, mask, aux):
         if not self._use_av_kernel(self._pooled_tokens(x.shape[-2]), x.shape[0]):
-            a, v, index_k, mask_k = self._matmul_1_incremental(ctx, x, index, mask, aux)
+            a, _, v, index_k, mask_k = self._matmul_1_incremental(ctx, state, x, index, mask, aux)
             a, v, old_dtype = self._cast_matmul_2(a, v)
-            x = self._av_recompute(ctx, state, a, v, index_k, mask_k)
+            if self.recompute_av:
+                x = self._av_recompute(ctx, state, a, v, index_k, mask_k)
+            else:
+                x = self._av_delta(ctx, state, a, v, index_k, mask_k)
             return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
-        if self.fuse_matmul_1 is False:
-            raise not_ported("the A.V kernel over a logits tensor (fuse_matmul_1=False)", 10)
-        qk, v, index_k, mask_k = self._matmul_1_incremental(ctx, x, index, mask, aux, matmul=False)
-        # the cast applies to the A.V operands only: the kernel computes the
-        # logits from q and k in the working dtype
-        old_dtype = None
-        if self.matmul_2_cast is not None:
-            old_dtype = v.dtype
-            v = v.to(_CAST_DTYPES[self.matmul_2_cast])
-        x = self._av_recompute(ctx, state, None, v, index_k, mask_k, qk=qk, aux=aux)
+        if self.fuse_matmul_1 is not False and self.recompute_product:
+            k, q, v, index_k, mask_k = self._matmul_1_incremental(
+                ctx, state, x, index, mask, aux, matmul=False
+            )
+            # the cast applies to the A.V operands only: the kernel computes
+            # the logits from q and k in the working dtype
+            old_dtype = None
+            if self.matmul_2_cast is not None:
+                old_dtype = v.dtype
+                v = v.to(_CAST_DTYPES[self.matmul_2_cast])
+            x = self._av_recompute(ctx, state, None, v, index_k, mask_k, q=q, k=k, aux=aux)
+        else:
+            # the logits form: the rel-pos bias and the softmax in the
+            # kernel, the logits cast with v to the state dtype
+            a, q, v, index_k, mask_k = self._matmul_1_incremental(
+                ctx, state, x, index, mask, aux, softmax=False, bias=False
+            )
+            a, v, old_dtype = self._cast_matmul_2(a, v)
+            x = self._av_recompute(ctx, state, a, v, index_k, mask_k, q=q, aux=aux)
         return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
 
-    def _av_recompute(self, ctx, state, a, v, index_k, mask_k, qk=None, aux=None):
+    def _av_recompute(self, ctx, state, a, v, index_k, mask_k, q=None, k=None, aux=None):
         """p_v = v's selected rows into the v gate state, p_a = the
         attention matrix's selected columns into the matmul gate state,
-        x = p_a @ p_v. With ``qk`` (q and the pooled k; ``a`` None),
-        ``softmax_select_matmul`` computes the attention matrix, selects
-        its columns into the state in place and multiplies. Counted as the
-        reference's delta formulation."""
+        x = p_a @ p_v. With ``q`` the step runs through the A.V kernel,
+        which adds the rel-pos bias, takes the softmax, selects the columns
+        into the state in place and multiplies: from the logits ``a``, or,
+        with the pooled ``k`` (``a`` None), from the logits it computes
+        itself. Counted as the reference's delta formulation."""
         p_a_state = state["matmul_gate"]["p"]
         ctx.add("gate_flops", float(v.numel()))  # v gate error pass
-        p_v = select_rows(state["v_gate"]["p"], v, index_k, mask_k)
+        # contiguous for the kernel: where() keeps the layout of v, a view
+        # into the qkv rows where no pooling copies it
+        p_v = select_rows(state["v_gate"]["p"], v, index_k, mask_k).contiguous()
         state["v_gate"] = {"p": p_v}
         ctx.add("gate_flops", float(p_a_state.numel()))  # matmul gate error pass
-        if qk is None:
+        if q is None:
             p_a = select_cols(p_a_state, a, index_k, mask_k)
             x = torch.matmul(p_a, p_v)
         else:
-            q, k = qk
             terms = p = None
             if self.relative_position is not None:
                 rp = self.relative_position
                 terms, p = rp.bias_terms(ctx, q, self._derived(aux)), rp.pooled_size()
                 ctx.add("add_flops", 2.0 * p_a_state.numel())  # the bias adds
             cov = coverage(index_k, mask_k, p_a_state.shape[-1])
-            p_a, x = softmax_select_matmul(
-                p_a_state, cov, p_v, q.contiguous(), k.contiguous(), terms,
-                inv_scale=1.0 / self.scale, p=p,
-            )
+            if k is None:
+                # the cached product is a view into its scatter's buffer
+                p_a, x = softmax_select_matmul_logits(
+                    a.contiguous(), p_a_state, cov, p_v, terms, p=p
+                )
+            else:
+                p_a, x = softmax_select_matmul(
+                    p_a_state, cov, p_v, q.contiguous(), k.contiguous(), terms,
+                    inv_scale=1.0 / self.scale, p=p,
+                )
         state["matmul_gate"] = {"p": p_a}
         frac = valid_fraction(mask_k)
         kcap = index_k.shape[-1]
@@ -983,6 +1207,21 @@ class EventfulBlock(EventfulMatmul1Block):
         out_size = float(batch_heads * p_a_state.shape[-2] * v.shape[-1])
         ctx.add("accumulator_flops", frac * float(batch_heads * kcap * v.shape[-1]) + 2.0 * out_size)
         ctx.add("matmul_flops", 2.0 * frac * out_size * kcap)
+        return x
+
+    def _av_delta(self, ctx, state, a, v, index_k, mask_k):
+        """The reference's delta step (``recompute_av = False``): the v gate
+        forced to the pooled key selection, the matmul gate forced to the v
+        gate's, and their deltas into the accumulator."""
+        v_n, v_delta, index_v, mask_v, state["v_gate"] = self.v_gate.incremental(
+            ctx, state["v_gate"], v, forced_index=index_k, forced_mask=mask_k
+        )
+        a_n, a_delta, _, _, state["matmul_gate"] = self.matmul_gate.incremental(
+            ctx, state["matmul_gate"], a, forced_index=index_v, forced_mask=mask_v
+        )
+        x, state["matmul_accumulator_2"] = self.matmul_accumulator_2.incremental(
+            ctx, state["matmul_accumulator_2"], a_n, v_n, a_delta, v_delta, mask=mask_v
+        )
         return x
 
 

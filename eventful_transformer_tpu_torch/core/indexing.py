@@ -12,8 +12,10 @@ JAX package is order-free (scatters and selects by position, the pooled
 dedupe sorts).
 
 The JAX package's one-hot gather and scatter forms (``_one_hot_rows``,
-``put_rows``, ``USE_PALLAS_BLEND``) are TPU layout devices and are not
-ported; the port gathers, selects and scatters by index.
+the one-hot blend of ``put_rows``/``put_cols``, ``USE_PALLAS_BLEND``) are
+TPU layout devices; the port gathers, selects and scatters by index, with
+the same results wherever the valid indices of a row are distinct (the
+JAX package's own precondition, which top-k and the pooled dedupe meet).
 """
 
 from __future__ import annotations
@@ -67,11 +69,63 @@ def _aligned(cov, index_ndim, ndim):
     return cov.reshape(lead + (1,) * (ndim - index_ndim) + cov.shape[-1:])
 
 
+def _row_index(index, ndim):
+    """(..., k) -> the (..., 1s, k, 1) view aligned to axis -2 of an ndim
+    operand (index leading dims align left, as in the JAX package)."""
+    shape = index.shape[:-1] + (1,) * (ndim - index.ndim - 1) + (index.shape[-1], 1)
+    return index.long().reshape(shape)
+
+
+def _col_index(index, ndim):
+    """(..., k) -> the (..., 1s, k) view aligned to axis -1 of an ndim operand."""
+    return index.long().reshape(index.shape[:-1] + (1,) * (ndim - index.ndim) + index.shape[-1:])
+
+
 def take_rows(x, index):
     """Gather rows (axis -2): x (..., N, C), index (..., k) -> (..., k, C)."""
-    shape = index.shape[:-1] + (1,) * (x.ndim - index.ndim - 1) + (index.shape[-1], 1)
-    index = index.long().reshape(shape).expand(x.shape[:-2] + index.shape[-1:] + x.shape[-1:])
+    index = _row_index(index, x.ndim).expand(x.shape[:-2] + index.shape[-1:] + x.shape[-1:])
     return torch.gather(x, -2, index)
+
+
+def take_cols(x, index):
+    """Gather columns (axis -1): x (..., M, N), index (..., k) -> (..., M, k)."""
+    index = _col_index(index, x.ndim).expand(x.shape[:-1] + index.shape[-1:])
+    return torch.gather(x, -1, index)
+
+
+def put_rows(x, index, values, mask=None):
+    """x with row ``index[j]`` (axis -2) replaced by row j of ``values``
+    (..., k, C), cast to x's dtype; slots with mask False write nothing.
+    Valid indices of a row must be distinct. An index copy into x with one
+    spare row that the masked-off slots are sent to, then dropped: equal
+    to the JAX package's one-hot blend wherever that precondition holds."""
+    n = x.shape[-2]
+    if mask is not None:
+        index = torch.where(mask, index, n)
+    spare = torch.cat([x, x.new_zeros(x.shape[:-2] + (1, x.shape[-1]))], dim=-2)
+    index = _row_index(index, x.ndim).expand(values.shape)
+    return spare.scatter(-2, index, values.to(x.dtype))[..., :n, :]
+
+
+def put_cols(x, index, values, mask=None):
+    """Column (axis -1) version of :func:`put_rows`: values (..., M, k)."""
+    n = x.shape[-1]
+    if mask is not None:
+        index = torch.where(mask, index, n)
+    spare = torch.cat([x, x.new_zeros(x.shape[:-1] + (1,))], dim=-1)
+    index = _col_index(index, x.ndim).expand(values.shape)
+    return spare.scatter(-1, index, values.to(x.dtype))[..., :n]
+
+
+def mask_rows(x, mask):
+    """x (..., k, C) with the rows of the slots where mask (..., k) is False
+    zeroed."""
+    return torch.where(_row_index(mask, x.ndim).bool(), x, x.new_zeros(()))
+
+
+def mask_cols(x, mask):
+    """x (..., M, k) with the columns of the masked-off slots zeroed."""
+    return torch.where(_col_index(mask, x.ndim).bool(), x, x.new_zeros(()))
 
 
 def select_rows(p, c, index, mask=None):

@@ -4,12 +4,15 @@
 The eventful path selects from per-token error norms that the kernels emit,
 so a policy fixes the capacity k and the norm order; the selection itself
 is :func:`~.indexing.coverage_from_norms`, and
-:func:`~.indexing.index_from_coverage` lists the same set as indices.
+:func:`~.indexing.index_from_coverage` lists the same set as indices
+(:meth:`TokenNormTopK.select`, for the gates that gather).
 ``TokenNormThreshold`` (masked, saturation-counted) is not ported yet
 (ROADMAP.md, open item 11).
 """
 
 from __future__ import annotations
+
+from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms, index_from_coverage
 
 
 def vector_norm(e, dim, order):
@@ -31,6 +34,19 @@ class TokenNormTopK:
 
     def capacity(self, n_tokens):
         return min(self.k, n_tokens)
+
+    def select(self, e, norm_axis):
+        """Select from the error tensor ``e``, its norm taken over
+        ``norm_axis``; the token axis is the remaining last one."""
+        return self.select_from_norms(vector_norm(e, norm_axis, self.order))
+
+    def select_from_norms(self, norms):
+        """(index (..., k), None) for error norms (..., N): the set
+        ``lax.top_k`` selects, ties to the smallest index, listed in
+        ascending order (every consumer is order-free); None: every slot
+        is valid."""
+        k = self.capacity(norms.shape[-1])
+        return index_from_coverage(coverage_from_norms(norms, k), k), None
 
 
 class TokenNormTopFraction(TokenNormTopK):

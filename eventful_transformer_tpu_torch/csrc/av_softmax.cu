@@ -2,11 +2,14 @@
 // Hopper.
 //
 // Replaces eventful_transformer_tpu/ops/pallas/av_softmax.py::
-// softmax_select_matmul in its fused matmul-1 form (q, k and inv_scale
-// given, no logits tensor), with and without rel-pos terms:
+// softmax_select_matmul in its two forms, each with and without rel-pos
+// terms: the fused matmul-1 form (q, k and inv_scale given, no logits
+// tensor) and the logits form (a logits tensor in S, as the cached product
+// or an unfused matmul-1 leaves it after the matmul-2 cast):
 //
 //   qs     = rnd_W(q * rnd_W(inv_scale))
-//   l[i,j] = qs[i] . k[j] + (term[i, j / p1] + term[i, p0 + j % p1])  (float32)
+//   l[i,j] = qs[i] . k[j]   (fused)  |  logits[i, j]   (logits form)
+//   l[i,j] = l[i,j] + (term[i, j / p1] + term[i, p0 + j % p1])  (float32)
 //   a      = softmax_j(l) (float32, max-subtracted), rounded to S
 //   p_a'   = where(cov[b, j], a, p_a)                               (in place)
 //   out    = rnd_S(p_a' . p_v)                                      (float32 sums)
@@ -33,8 +36,10 @@
 // float32 accumulators where their inputs are bfloat16, and on the CUDA
 // cores in float32 otherwise, as float32 parity requires. Np need not be a
 // multiple of anything (441 at 672): the chunks are zero-filled past Np and
-// the products cover Np rounded up to 16. The simple first version: no TMA,
-// wgmma or pipelining, one block per SM at Np = 1024.
+// the products cover Np rounded up to 16. The logits form loads the tile's
+// logits from device memory (tm x Np values of S) in place of step 1 and is
+// otherwise the same kernel (template flag kLogits). The simple first
+// version: no TMA, wgmma or pipelining, one block per SM at Np = 1024.
 #include <mma.h>
 
 #include <type_traits>
@@ -95,13 +100,13 @@ __device__ __forceinline__ void load_chunk(T* dst, int ld, const T* src, int val
   }
 }
 
-template <typename W, typename S>
+template <typename W, typename S, bool kLogits>
 __global__ void __launch_bounds__(kAvThreads)
 softmax_select_matmul_kernel(S* __restrict__ p_a, const float* __restrict__ cov,
                              const S* __restrict__ p_v, const W* __restrict__ q,
-                             const W* __restrict__ k, const W* __restrict__ terms,
-                             S* __restrict__ out, int heads, int n, int np, int d, int p0, int p1,
-                             float inv_scale, int tm) {
+                             const W* __restrict__ k, const S* __restrict__ logits,
+                             const W* __restrict__ terms, S* __restrict__ out, int heads, int n,
+                             int np, int d, int p0, int p1, float inv_scale, int tm) {
   using namespace nvcuda;
   constexpr bool kTensorQK = std::is_same<W, __nv_bfloat16>::value;
   constexpr bool kTensorAV = std::is_same<S, __nv_bfloat16>::value;
@@ -120,11 +125,13 @@ softmax_select_matmul_kernel(S* __restrict__ p_a, const float* __restrict__ cov,
   constexpr int kWarps = kAvThreads / 32;
   const int64_t head_row = (int64_t)bh * n;  // row 0 of this head in q, p_a, out
 
-  const float scale = rnd<W>(inv_scale);
-  for (int e = tid; e < tm * d; e += kAvThreads) {
-    const int i = e / d, t = e % d, row = row0 + i;
-    const float v = row < n ? rnd<W>(to_f(q[(head_row + row) * d + t]) * scale) : 0.f;
-    qs[i * ldq + t] = from_f<W>(v);
+  if constexpr (!kLogits) {
+    const float scale = rnd<W>(inv_scale);
+    for (int e = tid; e < tm * d; e += kAvThreads) {
+      const int i = e / d, t = e % d, row = row0 + i;
+      const float v = row < n ? rnd<W>(to_f(q[(head_row + row) * d + t]) * scale) : 0.f;
+      qs[i * ldq + t] = from_f<W>(v);
+    }
   }
   for (int e = tid; e < tm * nt; e += kAvThreads) {
     const int row = row0 + e / nt;
@@ -133,10 +140,16 @@ softmax_select_matmul_kernel(S* __restrict__ p_a, const float* __restrict__ cov,
   for (int j = tid; j < np16; j += kAvThreads)
     cs[j] = j < np ? cov[(int64_t)batch * np + j] : 0.f;
 
-  // 1. logits of the tile, 64 keys at a time
+  // 1. logits of the tile: loaded (the logits form), or computed 128 keys
+  // at a time
+  if constexpr (kLogits) {
+    const S* lh = logits + (head_row + row0) * np;
+    const int rows = min(tm, n - row0);
+    for (int e = tid; e < rows * np; e += kAvThreads) lg[(e / np) * ldl + e % np] = to_f(lh[e]);
+  }
   W* ks = (W*)(smem_raw + lay.kv);
-  const W* kh = k + (int64_t)bh * np * d;
-  for (int j0 = 0; j0 < np; j0 += kAvChunk) {
+  const W* kh = kLogits ? nullptr : k + (int64_t)bh * np * d;
+  for (int j0 = 0; j0 < (kLogits ? 0 : np); j0 += kAvChunk) {
     __syncthreads();  // the previous chunk is consumed
     load_chunk(ks, ldk, kh + (int64_t)j0 * d, np - j0, d);
     __syncthreads();
@@ -304,10 +317,11 @@ softmax_select_matmul_kernel(S* __restrict__ p_a, const float* __restrict__ cov,
   }
 }
 
-template <typename W, typename S>
+template <typename W, typename S, bool kLogits = false>
 int softmax_select_matmul(void* p_a, const float* cov, const void* p_v, const void* q,
-                          const void* k, const void* terms, void* out, int bsz, int heads, int n,
-                          int np, int d, int p0, int p1, float inv_scale, cudaStream_t stream) {
+                          const void* k, const void* logits, const void* terms, void* out,
+                          int bsz, int heads, int n, int np, int d, int p0, int p1,
+                          float inv_scale, cudaStream_t stream) {
   const int nt = terms != nullptr ? p0 + p1 : 0;
   int tm = 32;
   AvSmem lay = av_smem(tm, np, d, nt);
@@ -316,14 +330,14 @@ int softmax_select_matmul(void* p_a, const float* cov, const void* p_v, const vo
     lay = av_smem(tm, np, d, nt);
   }
   if (lay.total > (size_t)kAvMaxShared) return (int)cudaErrorInvalidConfiguration;
-  auto kernel = softmax_select_matmul_kernel<W, S>;
+  auto kernel = softmax_select_matmul_kernel<W, S, kLogits>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bsz * heads, (n + tm - 1) / tm);
   kernel<<<grid, kAvThreads, lay.total, stream>>>(
-      (S*)p_a, cov, (const S*)p_v, (const W*)q, (const W*)k, (const W*)terms, (S*)out, heads, n,
-      np, d, p0, p1, inv_scale, tm);
+      (S*)p_a, cov, (const S*)p_v, (const W*)q, (const W*)k, (const S*)logits, (const W*)terms,
+      (S*)out, heads, n, np, d, p0, p1, inv_scale, tm);
   return (int)cudaGetLastError();
 }
 
@@ -340,14 +354,35 @@ extern "C" int etk_softmax_select_matmul(int wdtype, int sdtype, void* p_a, cons
   const cudaStream_t s = (cudaStream_t)stream;
   const float* c = (const float*)cov;
   if (wdtype == 0 && sdtype == 0)
-    return etk::softmax_select_matmul<float, float>(p_a, c, p_v, q, k, terms, out, bsz, heads, n,
-                                                    np, d, p0, p1, inv_scale, s);
+    return etk::softmax_select_matmul<float, float>(p_a, c, p_v, q, k, nullptr, terms, out, bsz,
+                                                    heads, n, np, d, p0, p1, inv_scale, s);
   if (wdtype == 1 && sdtype == 1)
     return etk::softmax_select_matmul<__nv_bfloat16, __nv_bfloat16>(
-        p_a, c, p_v, q, k, terms, out, bsz, heads, n, np, d, p0, p1, inv_scale, s);
+        p_a, c, p_v, q, k, nullptr, terms, out, bsz, heads, n, np, d, p0, p1, inv_scale, s);
   if (wdtype == 0 && sdtype == 1)
-    return etk::softmax_select_matmul<float, __nv_bfloat16>(p_a, c, p_v, q, k, terms, out, bsz,
-                                                            heads, n, np, d, p0, p1, inv_scale,
-                                                            s);
+    return etk::softmax_select_matmul<float, __nv_bfloat16>(p_a, c, p_v, q, k, nullptr, terms,
+                                                            out, bsz, heads, n, np, d, p0, p1,
+                                                            inv_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The logits form: logits (B, H, N, Np) in sdtype; wdtype is the terms'
+// (the same combinations; without terms pass wdtype = sdtype).
+extern "C" int etk_softmax_select_matmul_logits(int wdtype, int sdtype, void* p_a,
+                                                const void* cov, const void* p_v,
+                                                const void* logits, const void* terms, void* out,
+                                                int bsz, int heads, int n, int np, int d, int p0,
+                                                int p1, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float* c = (const float*)cov;
+  if (wdtype == 0 && sdtype == 0)
+    return etk::softmax_select_matmul<float, float, true>(
+        p_a, c, p_v, nullptr, nullptr, logits, terms, out, bsz, heads, n, np, d, p0, p1, 1.f, s);
+  if (wdtype == 1 && sdtype == 1)
+    return etk::softmax_select_matmul<__nv_bfloat16, __nv_bfloat16, true>(
+        p_a, c, p_v, nullptr, nullptr, logits, terms, out, bsz, heads, n, np, d, p0, p1, 1.f, s);
+  if (wdtype == 0 && sdtype == 1)
+    return etk::softmax_select_matmul<float, __nv_bfloat16, true>(
+        p_a, c, p_v, nullptr, nullptr, logits, terms, out, bsz, heads, n, np, d, p0, p1, 1.f, s);
   return (int)cudaErrorInvalidValue;
 }

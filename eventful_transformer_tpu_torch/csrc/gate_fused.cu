@@ -1,0 +1,94 @@
+// The fused gate-group kernels of the gate-fusion regimes "v1", "v1v2" and
+// "v3", written for Hopper.
+//
+// ln_select_matmul replaces eventful_transformer_tpu/ops/pallas/gate_fused.py::
+// ln_select_matmul in its "post" and "none" forms:
+//
+//   p' = where(cov, ln(x) | x, p)          (in place, rounded to p's dtype)
+//   y  = rnd(p' W + wb)                    (every row; float32 sums and bias)
+//
+// select_linear_skip_norms replaces gate_fused.py::select_linear_skip_norms
+// with next_ln=True, the projection group of "v3":
+//
+//   p'    = where(cov, x, p)                               (in place)
+//   y     = rnd(rnd(p' W + wb) + skip)                     (gate_fused.py:169-172)
+//   norms = ||ln(y) * scale + bias - p_next||, y rounded   (the MLP gate's)
+//
+// The TPU kernels hold a 256-row block of x, p and the whole W in VMEM and
+// feed p' to the MXU without a round trip. Here the simple first version:
+// the select row pass of common.cuh (one 256-thread block per token row,
+// p' written in place), then the tiled GEMM of gemm.cuh over all rows of
+// p' (a dense recompute, as the TPU kernel does; it reads p' back from
+// device memory, in W's dtype, which the wrappers require p to have) with
+// the bias (and skip) epilogue, and for select_linear_skip_norms a third
+// launch, the ln_norms row pass over the rounded y. At ViViT-B (12 views,
+// N = 197, C = 768) the qkv GEMM (2364 x 768 x 2304, 8.4 G multiply-adds)
+// dominates; the row passes move x and p once (7 MB in bf16).
+#include "common.cuh"
+#include "gemm.cuh"
+
+namespace etk {
+
+// y[m, n] = rnd(rnd(acc + wb[n]) + skip[m, n])
+template <typename T>
+struct BiasSkipEpilogue {
+  const T* bias;
+  const T* skip;
+  T* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
+    const int64_t i = (int64_t)m * ld + n;
+    out[i] = from_f<T>(rnd<T>(acc + to_f(bias[n])) + to_f(skip[i]));
+  }
+};
+
+template <typename T>
+void select_rows_pass(const T* x, T* p, const float* cov, const T* scale, const T* bias,
+                      int64_t rows, int c, cudaStream_t stream) {
+  if (scale != nullptr) {
+    ln_select_kernel<T><<<(unsigned)rows, kRowThreads, row_smem_bytes(c), stream>>>(
+        x, p, cov, scale, bias, c);
+  } else {
+    select_rows_kernel<T><<<(unsigned)rows, kRowThreads, 0, stream>>>(x, p, cov, c);
+  }
+}
+
+}  // namespace etk
+
+extern "C" {
+
+// scale, bias null with ln_post == 0 ("none")
+int etk_ln_select_matmul(int dtype, const void* x, void* p, const void* cov, const void* scale,
+                         const void* bias, const void* w, const void* wb, void* y,
+                         long long rows, int c, int f, int ln_post, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  ETK_DISPATCH(dtype, {
+    etk::select_rows_pass<T>((const T*)x, (T*)p, (const float*)cov,
+                             ln_post ? (const T*)scale : nullptr, (const T*)bias, rows, c, s);
+    ETK_CHECK_LAUNCH();
+    etk::launch_gemm<T>((const T*)p, etk::DenseRows{}, (const T*)w, (int)rows, c, f,
+                        etk::BiasEpilogue<T>{(const T*)wb, (T*)y, f}, s);
+    ETK_CHECK_LAUNCH();
+    return 0;
+  });
+}
+
+int etk_select_linear_skip_norms(int dtype, const void* x, void* p, const void* cov,
+                                 const void* w, const void* wb, const void* skip,
+                                 const void* p_next, const void* scale, const void* bias, void* y,
+                                 void* norms, long long rows, int c, int f, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  ETK_DISPATCH(dtype, {
+    etk::select_rows_pass<T>((const T*)x, (T*)p, (const float*)cov, nullptr, nullptr, rows, c, s);
+    ETK_CHECK_LAUNCH();
+    etk::launch_gemm<T>((const T*)p, etk::DenseRows{}, (const T*)w, (int)rows, c, f,
+                        etk::BiasSkipEpilogue<T>{(const T*)wb, (const T*)skip, (T*)y, f}, s);
+    ETK_CHECK_LAUNCH();
+    etk::ln_norms_kernel<T><<<(unsigned)rows, etk::kRowThreads, etk::row_smem_bytes(f), s>>>(
+        (const T*)y, (const T*)p_next, (const T*)scale, (const T*)bias, (float*)norms, f);
+    ETK_CHECK_LAUNCH();
+    return 0;
+  });
+}
+
+}  // extern "C"

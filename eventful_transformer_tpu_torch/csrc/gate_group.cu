@@ -80,18 +80,6 @@ struct GatherRows {
   }
 };
 
-// out[m, c] = rnd(acc + bias[c]): the MLP's second layer (gate_group.py:
-// 388-393) and the gated linear's h (gate_group.py:210-215)
-template <typename T>
-struct Mlp2Epilogue {
-  const T* bias;
-  T* out;
-  int ld;
-  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
-    out[(int64_t)m * ld + n] = from_f<T>(acc + to_f(bias[n]));
-  }
-};
-
 // Row r of width f: b'[r] = h2[slot] if selected (0 for a selected row
 // beyond kcap, as the one-hot scatter gives), else b[r]; with a residual,
 // y[r] = rnd(b'[r] + res[r]) and the next gate's norm on the rounded y
@@ -147,7 +135,7 @@ int gate_group_mlp(const void* x, void* p, void* b, const float* cov, const void
                  BiasGeluEpilogue<T>{(const T*)b1, (T*)h, hidden}, stream);
   ETK_CHECK_LAUNCH();
   launch_gemm<T>((const T*)h, DenseRows{}, (const T*)w2, m, hidden, c,
-                 Mlp2Epilogue<T>{(const T*)b2, (T*)h2, c}, stream);
+                 BiasEpilogue<T>{(const T*)b2, (T*)h2, c}, stream);
   ETK_CHECK_LAUNCH();
   blend_kernel<T><<<rows, kRowThreads, row_smem, stream>>>(
       (const T*)x, (T*)b, pos, (const T*)h2, (T*)y, (const T*)p_next, (const T*)next_scale,
@@ -176,7 +164,7 @@ int gate_group_linear(const void* x, void* p, void* b, const float* cov, const v
   compact_kernel<<<bsz, 32, 0, stream>>>(cov, pos, idx, n, kcap);
   ETK_CHECK_LAUNCH();
   launch_gemm<T>((const T*)p, GatherRows{idx, n, kcap}, (const T*)w, bsz * kcap, c, f,
-                 Mlp2Epilogue<T>{(const T*)wb, (T*)h, f}, stream);
+                 BiasEpilogue<T>{(const T*)wb, (T*)h, f}, stream);
   ETK_CHECK_LAUNCH();
   blend_kernel<T><<<rows, kRowThreads, row_smem_bytes(f), stream>>>(
       (const T*)skip, (T*)b, pos, (const T*)h, (T*)y, (const T*)p_next, (const T*)next_scale,

@@ -166,4 +166,17 @@ struct BiasGeluEpilogue {
   }
 };
 
+// out[m, n] = rnd(acc + bias[n]): the MLP's second layer (gate_group.py:
+// 388-393), the gated linear's h (gate_group.py:210-215) and the dense
+// recompute of ln_select_matmul (gate_fused.py:86-92)
+template <typename T>
+struct BiasEpilogue {
+  const T* bias;
+  T* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
+    out[(int64_t)m * ld + n] = from_f<T>(acc + to_f(bias[n]));
+  }
+};
+
 }  // namespace etk

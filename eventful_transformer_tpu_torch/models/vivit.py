@@ -1,11 +1,11 @@
 """Factorized ViViT action recognition (port of
 ``eventful_transformer_tpu/models/vivit.py``).
 
-``FactorizedViViT.apply_views`` is the entry point the bench and the eval
-harness call: preprocessed views in, class probabilities out. The frame
-loop is plain Python: step 0 of each view flushes, steps 1+ run
-incrementally. ``ViViTPreprocessing`` is not ported yet (ROADMAP.md, open
-item 7).
+``FactorizedViViT.apply`` is the eval harness's entry point: a raw video
+in, through ``ViViTPreprocessing`` (on the video's device), class
+probabilities out. ``apply_views`` is the bench's: preprocessed views in.
+The frame loop is plain Python: step 0 of each view flushes, steps 1+ run
+incrementally.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from eventful_transformer_tpu_torch.core.nn import (
     trunc_normal_,
     uniform_,
 )
+from eventful_transformer_tpu_torch.ops.resize import resize_bilinear
 
 
 class TubeletEmbedding(nn.Module):
@@ -79,6 +80,57 @@ class ViViTSubModel(nn.Module):
         return layer_norm(x, self.layer_norm)[:, 0], state
 
 
+class ViViTPreprocessing:
+    """Value normalisation and the spatial and temporal views (port of the
+    JAX package's ``ViViTPreprocessing``, reference models/vivit.py:
+    195-269). Runs on the device of the video it is given."""
+
+    def __init__(
+        self, input_shape, normalize_mean, normalize_std, spatial_views, temporal_stride,
+        temporal_views,
+    ):
+        self.input_shape = tuple(input_shape)
+        self.normalize_mean = normalize_mean
+        self.normalize_std = normalize_std
+        self.spatial_views = spatial_views
+        self.temporal_stride = temporal_stride
+        self.temporal_views = temporal_views
+
+    def __call__(self, x):
+        """x (batch, time, channel, height, width), uint8 or float. Returns
+        the spatial_views x temporal_views views, spatial-major, each
+        (batch, t, c, h, w) float32."""
+        t, _, h, w = self.input_shape
+        # a video shorter than one view repeats its last frame
+        view_size = self.temporal_stride * t
+        if x.shape[1] < view_size:
+            pad = x[:, -1:].expand((x.shape[0], view_size - x.shape[1]) + x.shape[2:])
+            x = torch.cat([x, pad], dim=1)
+        if self.temporal_views == 1:
+            starts = [(x.shape[1] - view_size) // 2]
+        else:
+            spacing = (x.shape[1] - view_size) / (self.temporal_views - 1)
+            starts = [int(k * spacing) for k in range(self.temporal_views)]
+        out = []
+        for i in starts:
+            v = x[:, i : i + view_size : self.temporal_stride]
+            v = v.float() / 255.0 if v.dtype == torch.uint8 else v.float()
+            v = (v - self.normalize_mean) / self.normalize_std
+            # the short edge to cover the crop, antialiased bilinear
+            scale = max(h / v.shape[-2], w / v.shape[-1])
+            if scale != 1.0:
+                size = (round(scale * v.shape[-2]), round(scale * v.shape[-1]))
+                v = resize_bilinear(v, size, antialias=True)
+            out.append(v)
+        if self.spatial_views == 1:
+            starts = [((out[0].shape[-2] - h) // 2, (out[0].shape[-1] - w) // 2)]
+        else:
+            h_spacing = (out[0].shape[-2] - h) / (self.spatial_views - 1)
+            w_spacing = (out[0].shape[-1] - w) / (self.spatial_views - 1)
+            starts = [(int(k * h_spacing), int(k * w_spacing)) for k in range(self.spatial_views)]
+        return [v[..., i : i + h, j : j + w] for i, j in starts for v in out]
+
+
 class FactorizedViViT(nn.Module):
     """Spatio-temporally factorized ViViT. Parameters are initialised from
     ``seed`` on the CPU, so the weights do not depend on ``device``, and
@@ -110,10 +162,13 @@ class FactorizedViViT(nn.Module):
             raise not_ported("batch_views=False", 12)
         if spatial_only or temporal_only:
             raise not_ported("spatial_only / temporal_only (spatial cache)", 12)
-        del normalize_mean, normalize_std, temporal_stride  # preprocessing only
+        self.preprocessing = ViViTPreprocessing(
+            input_shape, normalize_mean, normalize_std, spatial_views, temporal_stride,
+            temporal_views,
+        )
+        self.n_views = spatial_views * temporal_views
         input_t, input_c, input_h, input_w = tuple(input_shape)
         tubelet_shape = tuple(tubelet_shape)
-        del spatial_views, temporal_views  # the views arrive stacked on an axis
         dim = spatial_config["block_config"]["dim"]
         self.embedding = TubeletEmbedding(input_c, dim, tubelet_shape)
         self.spatial_model = ViViTSubModel(
@@ -127,6 +182,16 @@ class FactorizedViViT(nn.Module):
             if hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
         self.to(device)
+
+    @torch.no_grad()
+    def apply(self, ctx, video):
+        """video (batch, time, channel, height, width), uint8 or float, on
+        any device -> class probabilities. The views are made on the
+        model's device and cast to its parameters' dtype, then run through
+        :meth:`apply_views`."""
+        kernel = self.classifier.kernel
+        views = self.preprocessing(video.to(kernel.device))
+        return self.apply_views(ctx, torch.stack(views, dim=1).to(kernel.dtype))
 
     @torch.no_grad()
     def apply_views(self, ctx, views):

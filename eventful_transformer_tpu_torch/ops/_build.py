@@ -50,6 +50,9 @@ SIGNATURES = {
     "etk_softmax_select_matmul": [_I, _I] + [_P] * 7 + [_I] * 7 + [_F, _P],
     "etk_dense_mlp_residual": [_I] + [_P] * 10 + [_I, _I, _I, _P],
     "etk_relpos_bias_add": [_I, _I] + [_P] * 5 + [_I] * 6 + [_P],
+    "etk_ln_select_matmul": [_I] + [_P] * 8 + [_L, _I, _I, _I, _P],
+    "etk_select_linear_skip_norms": [_I] + [_P] * 11 + [_L, _I, _I, _P],
+    "etk_softmax_select_matmul_logits": [_I, _I] + [_P] * 6 + [_I] * 7 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

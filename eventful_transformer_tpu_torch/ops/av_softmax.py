@@ -7,9 +7,11 @@ keys no gate selected. The kernel computes the logits from q and the
 pooled k itself (the fused matmul-1 form), adds the rel-pos terms, takes
 the softmax, selects the columns into the state in place and multiplies by
 p_v, so the (B, H, N, Np) logits and softmax never reach device memory.
-The form that reads a logits tensor (``fuse_matmul_1=False``) is not ported
-(ROADMAP.md, "TPU kernels to port"). The CUDA kernel is
-``csrc/av_softmax.cu``; see its header for what bounds it.
+Its logits form (``softmax_select_matmul_logits``) reads the logits
+instead, where matmul-1 runs outside the kernel: the reference's cached
+q.kT product (``recompute_product = False``) or ``fuse_matmul_1 =
+False``. Both forms are ``csrc/av_softmax.cu``; see its header for what
+bounds them.
 """
 
 from __future__ import annotations
@@ -29,15 +31,9 @@ def softmax_select_matmul_plain(p_a, cov, p_v, q, k, terms=None, *, inv_scale, p
     the bias (the two terms summed in float32) and the softmax in float32;
     the probabilities rounded to S; the product summed in float32 and
     rounded to S. Returns (p_a, p_a' @ p_v)."""
-    wd = q.dtype
-    qs = q * torch.tensor(inv_scale, dtype=wd)
+    qs = q * torch.tensor(inv_scale, dtype=q.dtype)
     logits = torch.matmul(qs.float(), k.float().transpose(-1, -2))
-    if terms is not None:
-        logits = logits + expand_terms(terms, p)
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    a = (e / e.sum(dim=-1, keepdim=True)).to(p_a.dtype)
-    p_a.copy_(torch.where(cov[:, None, None, :] > 0, a, p_a))
-    return p_a, torch.matmul(p_a.float(), p_v.float()).to(p_a.dtype)
+    return _softmax_select_matmul_f32(logits, p_a, cov, p_v, terms, p)
 
 
 def softmax_select_matmul(p_a, cov, p_v, q, k, terms=None, *, inv_scale, p=None):
@@ -84,3 +80,69 @@ def softmax_select_matmul(p_a, cov, p_v, q, k, terms=None, *, inv_scale, p=None)
 
 
 softmax_select_matmul.launches = 0
+
+
+def _softmax_select_matmul_f32(logits, p_a, cov, p_v, terms, p):
+    """float32 logits (+ the terms summed in float32) -> softmax rounded to
+    S -> column select into p_a in place -> p_a' @ p_v with float32 sums,
+    rounded to S."""
+    if terms is not None:
+        logits = logits + expand_terms(terms, p)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    a = (e / e.sum(dim=-1, keepdim=True)).to(p_a.dtype)
+    p_a.copy_(torch.where(cov[:, None, None, :] > 0, a, p_a))
+    return p_a, torch.matmul(p_a.float(), p_v.float()).to(p_a.dtype)
+
+
+def softmax_select_matmul_logits_plain(logits, p_a, cov, p_v, terms=None, *, p=None):
+    """logits and p_a (B, H, N, Np) in S, p_a updated in place; cov (B, Np)
+    float32; p_v (B, H, Np, d) in S; terms (B, H, N, p0 + p1) over the (p0,
+    p1) key grid ``p``, in the working dtype. The logits in float32, the
+    bias, softmax and product as :func:`softmax_select_matmul_plain`.
+    Returns (p_a, p_a' @ p_v)."""
+    return _softmax_select_matmul_f32(logits.float(), p_a, cov, p_v, terms, p)
+
+
+def softmax_select_matmul_logits(logits, p_a, cov, p_v, terms=None, *, p=None):
+    """The wrapper of :func:`softmax_select_matmul_logits_plain`, which CPU
+    tensors take. CUDA tensors launch the logits form of the kernel of
+    csrc/av_softmax.cu: logits, p_a and p_v in one dtype S, terms in S or
+    (with S bfloat16) float32, a head width that is a multiple of 16 up to
+    128."""
+    if logits.device.type == "cpu":
+        return softmax_select_matmul_logits_plain(logits, p_a, cov, p_v, terms, p=p)
+    name = "softmax_select_matmul_logits"
+    bsz, heads, n, np_ = logits.shape
+    d = p_v.shape[-1]
+    sd = _build.dtype_code(logits)
+    wd = sd if terms is None else _build.dtype_code(terms)
+    if (wd, sd) == (1, 0):
+        raise TypeError(f"{name}: bfloat16 terms with float32 logits is not a kernel form")
+    if d % 16 or d > 128:
+        raise ValueError(f"{name}: head width {d} is not a multiple of 16 up to 128")
+    _build.check_operands(name, logits, ("cov",), p_a=p_a, cov=cov, p_v=p_v)
+    shapes = dict(p_a=(bsz, heads, n, np_), cov=(bsz, np_), p_v=(bsz, heads, np_, d))
+    operands = dict(p_a=p_a, cov=cov, p_v=p_v)
+    p0 = p1 = 0
+    if terms is not None:
+        _build.check_operands(name, terms)
+        p0, p1 = p
+        if p0 * p1 != np_:
+            raise ValueError(f"{name}: key grid {p} does not hold the {np_} pooled keys")
+        shapes["terms"] = (bsz, heads, n, p0 + p1)
+        operands["terms"] = terms
+    for key, shape in shapes.items():
+        _build.check_shape(name, key, operands[key], shape)
+    if p_v.dtype == torch.bfloat16 and p_v.data_ptr() % 16:  # staged with 16-byte loads
+        raise ValueError(f"{name}: p_v must be 16-byte aligned")
+    out = torch.empty((bsz, heads, n, d), dtype=p_a.dtype, device=logits.device)
+    _build.launch(
+        "etk_softmax_select_matmul_logits", wd, sd, p_a.data_ptr(), cov.data_ptr(),
+        p_v.data_ptr(), logits.data_ptr(), None if terms is None else terms.data_ptr(),
+        out.data_ptr(), bsz, heads, n, np_, d, p0, p1, _build.stream_of(logits),
+    )
+    softmax_select_matmul_logits.launches += 1
+    return p_a, out
+
+
+softmax_select_matmul_logits.launches = 0

@@ -1,10 +1,25 @@
-"""Gate-norm kernel (port of ``ln_norms`` from
+"""The fused gate kernels (port of ``ln_norms``, ``ln_select_matmul``,
+``select_linear_skip_norms`` and ``ln_select`` from
 ``eventful_transformer_tpu/ops/pallas/gate_fused.py``).
 
 ``ln_norms`` gives the first block of each incremental step its qkv-gate
 selection norms; later blocks receive theirs from the previous block's
-kernel C. The CUDA kernel is ``csrc/ln_norms.cu``: one 256-thread block per
-token row, bound by the bytes of x and p it reads once.
+kernel C. The other three run in the forced gate-fusion regimes "v1",
+"v1v2" and "v3" of ``EventfulTokenwiseBlock``:
+
+- ``ln_select_matmul``: p' = where(cov, ln(x) | x, p) in place, then the
+  op's linear recomputed over every row of p' (qkv: "post", projection:
+  "none");
+- ``select_linear_skip_norms``: the projection group of "v3", p' =
+  where(cov, x, p), y = rnd(rnd(p' W + b) + skip), and the MLP gate's norms
+  ||ln(y) - p_next|| of the rounded y;
+- ``ln_select``: p' = where(cov, ln(x), p) alone (the MLP gate of "v1").
+
+Each wrapper takes its plain version for CPU tensors and launches its CUDA
+kernels for CUDA tensors: ``csrc/ln_norms.cu``, ``csrc/gate_fused.cu``, and
+for ``ln_select`` the LN select row pass of ``csrc/gate_block.cu``, which
+computes the same function as ``block_select_p``. See the sources' headers
+for what bounds them.
 """
 
 from __future__ import annotations
@@ -42,3 +57,143 @@ def ln_norms(x, p, scale, bias):
 
 
 ln_norms.launches = 0
+
+
+def _select_f32(x, p, cov, scale, bias, apply_ln):
+    """where(cov, ln(x) | x, p) in float32."""
+    new = ln_f32(x, scale, bias) if apply_ln else x.float()
+    return torch.where(cov[..., None] > 0, new, p.float())
+
+
+def _linear_f32(p_new, w, wb):
+    """p' cast to W's dtype, times W with float32 sums, plus the bias in
+    float32 (gate_fused.py:86-91)."""
+    return torch.matmul(p_new.to(w.dtype).float(), w.float()) + wb.float()
+
+
+def ln_select_matmul_plain(x, p, cov, scale, bias, w, wb, *, ln_mode):
+    """x, p (B, N, C); cov (B, N) float32 (> 0 = selected); w (C, F), wb
+    (F,). ``ln_mode`` "post": p' = where(cov, ln(x), p); "none": p' =
+    where(cov, x, p) (scale and bias unused). p' is written into p in p's
+    dtype; y = rnd(p' W + wb) over every row, in x's dtype. Returns (p, y)."""
+    if ln_mode not in ("post", "none"):
+        raise ValueError(f"ln_mode must be 'post' or 'none', got {ln_mode!r}")
+    p_new = _select_f32(x, p, cov, scale, bias, ln_mode == "post")
+    p.copy_(p_new.to(p.dtype))
+    return p, _linear_f32(p_new, w, wb).to(x.dtype)
+
+
+def _check_rows(name, x, cov, **vectors):
+    """The operands shared by the row-pass wrappers: x (B, N, C), cov (B, N)
+    float32, and (C,) or (F,) vectors by keyword."""
+    _build.check_shape(name, "cov", cov, x.shape[:-1])
+    for key, (t, width) in vectors.items():
+        _build.check_shape(name, key, t, (width,))
+
+
+def ln_select_matmul(x, p, cov, scale, bias, w, wb, *, ln_mode):
+    """The wrapper of :func:`ln_select_matmul_plain`, which CPU tensors
+    take. CUDA tensors launch the kernels of csrc/gate_fused.cu; every
+    operand but cov in x's dtype (so the GEMM reads p' as the TPU kernel
+    feeds it, p' cast to W's dtype), cov float32."""
+    if x.device.type == "cpu":
+        return ln_select_matmul_plain(x, p, cov, scale, bias, w, wb, ln_mode=ln_mode)
+    name = "ln_select_matmul"
+    if ln_mode not in ("post", "none"):
+        raise ValueError(f"{name}: ln_mode must be 'post' or 'none', got {ln_mode!r}")
+    c, f = x.shape[-1], w.shape[-1]
+    post = ln_mode == "post"
+    operands = dict(p=p, cov=cov, w=w, wb=wb)
+    vectors = dict(wb=(wb, f))
+    if post:
+        operands.update(scale=scale, bias=bias)
+        vectors.update(scale=(scale, c), bias=(bias, c))
+    _build.check_operands(name, x, ("cov",), **operands)
+    _build.check_shape(name, "p", p, x.shape)
+    _build.check_shape(name, "w", w, (c, f))
+    _check_rows(name, x, cov, **vectors)
+    y = torch.empty(x.shape[:-1] + (f,), dtype=x.dtype, device=x.device)
+    _build.launch(
+        "etk_ln_select_matmul", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
+        cov.data_ptr(), scale.data_ptr() if post else None, bias.data_ptr() if post else None,
+        w.data_ptr(), wb.data_ptr(), y.data_ptr(), x.numel() // c, c, f, int(post),
+        _build.stream_of(x),
+    )
+    ln_select_matmul.launches += 1
+    return p, y
+
+
+ln_select_matmul.launches = 0
+
+
+def select_linear_skip_norms_plain(x, p, cov, w, wb, skip, p_next, scale, bias):
+    """x, p (B, N, C); cov (B, N) float32; w (C, F), wb (F,); skip and
+    p_next (B, N, F); scale, bias (F,) the next gate's LN. p' = where(cov,
+    x, p) into p in place; y = rnd(rnd(p' W + wb) + skip) over every row;
+    norms = ||ln(y) * scale + bias - p_next|| of the rounded y, float32.
+    Returns (p, y, norms)."""
+    p_new = _select_f32(x, p, cov, None, None, False)
+    p.copy_(p_new.to(p.dtype))
+    y = _linear_f32(p_new, w, wb).to(x.dtype)
+    y = (y.float() + skip.float()).to(x.dtype)
+    return p, y, row_norms(ln_f32(y, scale, bias) - p_next.float())
+
+
+def select_linear_skip_norms(x, p, cov, w, wb, skip, p_next, scale, bias):
+    """The wrapper of :func:`select_linear_skip_norms_plain`, which CPU
+    tensors take. CUDA tensors launch the kernels of csrc/gate_fused.cu;
+    every operand but cov in x's dtype, cov float32."""
+    if x.device.type == "cpu":
+        return select_linear_skip_norms_plain(x, p, cov, w, wb, skip, p_next, scale, bias)
+    name = "select_linear_skip_norms"
+    c, f = x.shape[-1], w.shape[-1]
+    _build.check_operands(
+        name, x, ("cov",), p=p, cov=cov, w=w, wb=wb, skip=skip, p_next=p_next, scale=scale,
+        bias=bias,
+    )
+    _build.check_shape(name, "p", p, x.shape)
+    _build.check_shape(name, "w", w, (c, f))
+    for key, t in (("skip", skip), ("p_next", p_next)):
+        _build.check_shape(name, key, t, x.shape[:-1] + (f,))
+    _check_rows(name, x, cov, wb=(wb, f), scale=(scale, f), bias=(bias, f))
+    y = torch.empty(x.shape[:-1] + (f,), dtype=x.dtype, device=x.device)
+    norms = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    _build.launch(
+        "etk_select_linear_skip_norms", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
+        cov.data_ptr(), w.data_ptr(), wb.data_ptr(), skip.data_ptr(), p_next.data_ptr(),
+        scale.data_ptr(), bias.data_ptr(), y.data_ptr(), norms.data_ptr(), x.numel() // c, c,
+        f, _build.stream_of(x),
+    )
+    select_linear_skip_norms.launches += 1
+    return p, y, norms
+
+
+select_linear_skip_norms.launches = 0
+
+
+def ln_select_plain(x, p, cov, scale, bias):
+    """p' = where(cov, ln(x) * scale + bias, p) rounded to p's dtype, in
+    place. x, p (B, N, C); cov (B, N) float32 (> 0 = selected)."""
+    p.copy_(_select_f32(x, p, cov, scale, bias, True).to(p.dtype))
+    return p
+
+
+def ln_select(x, p, cov, scale, bias):
+    """The wrapper of :func:`ln_select_plain`, which CPU tensors take. CUDA
+    tensors launch the LN select row pass of csrc/gate_block.cu."""
+    if x.device.type == "cpu":
+        return ln_select_plain(x, p, cov, scale, bias)
+    name = "ln_select"
+    c = x.shape[-1]
+    _build.check_operands(name, x, ("cov",), p=p, cov=cov, scale=scale, bias=bias)
+    _build.check_shape(name, "p", p, x.shape)
+    _check_rows(name, x, cov, scale=(scale, c), bias=(bias, c))
+    _build.launch(
+        "etk_block_select_p", _build.dtype_code(x), x.data_ptr(), p.data_ptr(), cov.data_ptr(),
+        scale.data_ptr(), bias.data_ptr(), 1, x.numel() // c, c, _build.stream_of(x),
+    )
+    ln_select.launches += 1
+    return p
+
+
+ln_select.launches = 0

@@ -120,6 +120,36 @@ KERNELS = {
         "eventful_transformer_tpu_torch/csrc/relpos.cu",
         "eventful_transformer_tpu/ops/pallas/relpos.py:202", ("out",),
     ),
+    "ln_select_matmul_post": (
+        gate_fused.ln_select_matmul, gate_fused.ln_select_matmul_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_fused.cu",
+        "eventful_transformer_tpu/ops/pallas/gate_fused.py:98", ("p", "y"),
+    ),
+    "ln_select_matmul_none": (
+        gate_fused.ln_select_matmul, gate_fused.ln_select_matmul_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_fused.cu",
+        "eventful_transformer_tpu/ops/pallas/gate_fused.py:98", ("p", "y"),
+    ),
+    "select_linear_skip_norms": (
+        gate_fused.select_linear_skip_norms, gate_fused.select_linear_skip_norms_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_fused.cu",
+        "eventful_transformer_tpu/ops/pallas/gate_fused.py:186", ("p", "y", "norms"),
+    ),
+    "ln_select": (
+        gate_fused.ln_select, gate_fused.ln_select_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_block.cu",
+        "eventful_transformer_tpu/ops/pallas/gate_fused.py:273", ("p",),
+    ),
+    "softmax_select_matmul_logits": (
+        av_softmax.softmax_select_matmul_logits, av_softmax.softmax_select_matmul_logits_plain,
+        "eventful_transformer_tpu_torch/csrc/av_softmax.cu",
+        "eventful_transformer_tpu/ops/pallas/av_softmax.py:125", ("p_a", "out"),
+    ),
+    "softmax_select_matmul_logits_noterms": (
+        av_softmax.softmax_select_matmul_logits, av_softmax.softmax_select_matmul_logits_plain,
+        "eventful_transformer_tpu_torch/csrc/av_softmax.cu",
+        "eventful_transformer_tpu/ops/pallas/av_softmax.py:125", ("p_a", "out"),
+    ),
 }
 
 # Bounds on each output of a kernel against its plain version. With
@@ -165,8 +195,8 @@ def make_inputs(
     terms; a qkv buffer, k
     rows for it and their target rows in random order, the last slot of
     each batch row invalid (-1), and the coverage of the valid ones; the
-    A.V state over a ``pool`` grid of keys with q, k, terms and a column
-    coverage; and the windows of the n tokens laid out as the most nearly
+    A.V state over a ``pool`` grid of keys with q, k, terms, logits ~ N(0, 1)
+    and a column coverage; and the windows of the n tokens laid out as the most nearly
     square grid, zero-padded to ``pad_window`` windows, with their
     geometry, a pad-bias row and pad terms; and logits over that grid of
     queries and a ``relpos_keys`` grid of keys (by default ``pool``) with
@@ -208,8 +238,11 @@ def make_inputs(
     # the A.V state: probabilities ~ 1 / Np, a quarter of the columns refreshed
     hd, np_ = c // heads, pool[0] * pool[1]
     p_a = torch.rand((bsz, heads, n, np_), generator=g) * (2.0 / np_)
+    av_logits = torch.randn(p_a.shape, device=device,
+                            generator=torch.Generator(device=device).manual_seed(seed + 1))
     d.update(
         p_a=p_a.to(device=device, dtype=dtype), p_v=randn(bsz, heads, np_, hd),
+        av_logits=av_logits.to(dtype),
         av_q=randn(bsz, heads, n, hd), av_k=randn(bsz, heads, np_, hd),
         av_terms=randn(bsz, heads, n, pool[0] + pool[1], scale=0.3),
         av_cov=(torch.rand((bsz, np_), generator=g) < 0.25).float().to(device),
@@ -303,6 +336,9 @@ def _invoke(name, fn, d):
             d["ln2_b"], None, d["p_next"], d["ln1_s"], d["ln1_b"], apply_ln=True,
             residual_x=True,
         )
+    if name.startswith("softmax_select_matmul_logits"):
+        terms = None if name.endswith("_noterms") else d["av_terms"]
+        return fn(d["av_logits"], d["p_a"], d["av_cov"], d["p_v"], terms, p=d["pool"])
     if name.startswith("softmax_select_matmul"):
         c = d["x"].shape[-1]
         terms = None if name.endswith("_noterms") else d["av_terms"]
@@ -312,6 +348,17 @@ def _invoke(name, fn, d):
         )
     if name.startswith("relpos_bias_add"):
         return (fn(d["rp_x"], d["rp_q"], d["rp_y"], d["rp_xr"], a=d["rp_a"], p=d["rp_p"]),)
+    if name == "ln_select_matmul_post":
+        return fn(d["x"], d["p_qkv"], d["cov1"], d["ln1_s"], d["ln1_b"], d["w_qkv"], d["b_qkv"],
+                  ln_mode="post")
+    if name == "ln_select_matmul_none":
+        return fn(d["attn"], d["p_proj"], d["cov2"], None, None, d["w_proj"], d["b_proj"],
+                  ln_mode="none")
+    if name == "select_linear_skip_norms":
+        return fn(d["attn"], d["p_proj"], d["cov2"], d["w_proj"], d["b_proj"], d["x"], d["p_mlp"],
+                  d["ln2_s"], d["ln2_b"])
+    if name == "ln_select":
+        return (fn(d["x"], d["p_mlp"], d["cov3"], d["ln2_s"], d["ln2_b"]),)
     if name == "window_attention_padded":
         c = d["x"].shape[-1]
         return (fn(d["qkv_pad"], d["terms_pad"], d["pad_bias"], d["pad_terms"],
@@ -402,8 +449,14 @@ def _matmul_ops(name, d):
         return 2.0 * float(d["cov2"].sum()) * c * c
     if name == "gate_group_linear_post":
         return 2.0 * float(d["cov1"].sum()) * c * 3 * c
+    if name.startswith("softmax_select_matmul_logits"):
+        return 2.0 * bsz * n * d["p_a"].shape[-1] * c  # A.V only
     if name.startswith("softmax_select_matmul"):
         return 4.0 * bsz * n * d["p_a"].shape[-1] * c
+    if name == "ln_select_matmul_post":
+        return 2.0 * bsz * n * c * d["w_qkv"].shape[1]
+    if name in ("ln_select_matmul_none", "select_linear_skip_norms"):
+        return 2.0 * bsz * n * c * c
     if name.startswith("relpos_bias_add"):
         p = d["rp_p"]
         return 2.0 * bsz * heads * n * (p[0] + p[1]) * d["rp_q"].shape[-1]
@@ -477,8 +530,20 @@ def io_bytes(name, d):
                 + rows("p_mlp", "cov_sel") + rows("b_mlp", "cov_sel") + tokens + norms)
     if name.startswith("softmax_select_matmul"):
         terms = () if name.endswith("_noterms") else ("av_terms",)
-        return (read("p_a", "av_cov", "p_v", "av_q", "av_k", *terms)
+        inputs = ("av_logits",) if "_logits" in name else ("av_q", "av_k")
+        return (read("p_a", "av_cov", "p_v", *inputs, *terms)
                 + rows("p_a", "av_cov") + _nbytes(d["av_q"]))
+    # the dense recomputes read the whole gate state, whose old rows they use
+    if name == "ln_select_matmul_post":
+        return (read("x", "p_qkv", "cov1", "ln1_s", "ln1_b", "w_qkv", "b_qkv")
+                + rows("p_qkv", "cov1") + 3 * tokens)
+    if name == "ln_select_matmul_none":
+        return read("attn", "p_proj", "cov2", "w_proj", "b_proj") + rows("p_proj", "cov2") + tokens
+    if name == "select_linear_skip_norms":
+        return (read("attn", "p_proj", "cov2", "w_proj", "b_proj", "x", "p_mlp", "ln2_s", "ln2_b")
+                + rows("p_proj", "cov2") + tokens + norms)
+    if name == "ln_select":
+        return read("x", "cov3", "ln2_s", "ln2_b") + rows("p_mlp", "cov3")
     if name.startswith("relpos_bias_add"):
         return read("rp_x", "rp_q", "rp_y", "rp_xr") + _nbytes(d["rp_x"])
     raise KeyError(name)

@@ -184,3 +184,80 @@ def test_relative_position_kernel_forms_match_cpu(use_kernel, pool, dtype, devic
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     assert kernel_check.compare(got.cpu(), want)["ok"], kernel_check.compare(got.cpu(), want)
+
+
+def test_softmax_select_matmul_logits_cast_matches_plain(device):
+    """The logits form with the matmul-2 cast of a float32 model: bfloat16
+    logits and A.V state with float32 rel-pos terms, at an awkward N (37)
+    and key grid (3 x 7)."""
+    d = kernel_check.make_inputs(2, 37, 64, 4, 9, torch.float32, device, seed=3)
+    for key in ("p_a", "p_v", "av_logits"):
+        d[key] = d[key].to(torch.bfloat16)
+    got = kernel_check.call("softmax_select_matmul_logits", d)
+    want = kernel_check.call("softmax_select_matmul_logits", d, plain=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert kernel_check.compare(a, b)["ok"], kernel_check.compare(a, b)
+
+
+def test_ln_select_matmul_rejects_other_weight_dtype(device):
+    """The GEMM reads p' as stored, which is the TPU kernel's operand only
+    where p has W's dtype: any other mix raises."""
+    d = kernel_check.make_inputs(2, 24, 64, 4, 9, torch.bfloat16, device)
+    with pytest.raises(TypeError, match="w is torch.float32"):
+        kernel_check.KERNELS["ln_select_matmul_post"][0](
+            d["x"], d["p_qkv"], d["cov1"], d["ln1_s"], d["ln1_b"], d["w_qkv"].float(),
+            d["b_qkv"], ln_mode="post",
+        )
+
+
+@pytest.mark.parametrize(
+    "attrs", [{}, dict(fused_gates="v1"), dict(fused_gates="v1v2"), dict(fused_gates="v3"),
+              dict(recompute_product=False, av_kernel=True), dict(recompute_av=False)],
+    ids=["auto", "v1", "v1v2", "v3", "cached_product", "delta_accumulator"],
+)
+def test_small_vivit_evblock_card_matches_cpu(attrs, device):
+    """A small eventful ViViT of EventfulBlocks (the matmul-2 cast off)
+    through ``FactorizedViViT.apply`` on a uint8 video, float32, on the card
+    (the kernels) against the CPU (the plain versions) in each run of the
+    paper's configuration: probabilities within 1e-5, the run's kernels
+    launched."""
+    import numpy as np
+
+    from eventful_transformer_tpu_torch.core.counting import Ctx
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    block = dict(dim=64, heads=4, mlp_ratio=2)
+    model = FactorizedViViT(
+        classes=10, input_shape=[8, 3, 32, 32], normalize_mean=0.45, normalize_std=0.225,
+        spatial_views=3, temporal_stride=2, temporal_views=2, tubelet_shape=[2, 8, 8],
+        spatial_config=dict(depth=2, position_encoding_size=[4, 4], block_class="EventfulBlock",
+                            block_config=block),
+        temporal_config=dict(depth=1, position_encoding_size=[4], block_config=block),
+        device="cpu",
+    )
+    set_policies(model, TokenNormTopK, k=6)
+    for blk in model.spatial_model.backbone.blocks:
+        for name, value in attrs.items():
+            setattr(blk, name, value)
+    card = copy.deepcopy(model).to(device)
+    video = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (1, 20, 3, 40, 56),
+                                                               dtype=np.uint8))
+    wrappers = {entry[0].__name__: entry[0] for entry in kernel_check.KERNELS.values()}
+    before = {name: fn.launches for name, fn in wrappers.items()}
+    got = card.apply(Ctx(), video.to(device))
+    torch.cuda.synchronize()
+    launched = {name for name, fn in wrappers.items() if fn.launches > before[name]}
+    want = {
+        "v1": {"ln_select_matmul", "ln_select", "ln_norms"},
+        "v1v2": {"ln_select_matmul", "gate_group_mlp", "ln_norms"},
+        "v3": {"ln_select_matmul", "select_linear_skip_norms", "gate_group_mlp"},
+    }.get(attrs.get("fused_gates"), {"ln_norms", "gate_group_mlp"})
+    if "recompute_product" in attrs:
+        want = want | {"softmax_select_matmul_logits"}
+    assert want | {"window_attention", "dense_mlp_residual"} <= launched
+    want_probs = model.apply(Ctx(), video)
+    torch.testing.assert_close(got.cpu(), want_probs, rtol=1e-5, atol=1e-5)

@@ -111,6 +111,38 @@ print("ok")
 """
 
 
+APPLY_SCRIPT = """
+import sys
+sys.modules["jax"] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from eventful_transformer_tpu_torch.core.counting import Ctx
+from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+from eventful_transformer_tpu_torch.models import FactorizedViViT
+from eventful_transformer_tpu_torch.utils.misc import set_policies
+model = FactorizedViViT(
+    classes=5, input_shape=[4, 3, 16, 16], normalize_mean=0.45, normalize_std=0.225,
+    spatial_views=3, temporal_stride=2, temporal_views=2, tubelet_shape=[2, 8, 8],
+    spatial_config=dict(depth=2, position_encoding_size=[2, 2], block_class="EventfulBlock",
+                        block_config=dict(dim=32, heads=4, mlp_ratio=2,
+                                          matmul_2_cast="bfloat16")),
+    temporal_config=dict(depth=1, position_encoding_size=[2],
+                         block_config=dict(dim=32, heads=4, mlp_ratio=2)),
+    device="cpu",
+)
+set_policies(model, TokenNormTopK, k=3)
+video = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (1, 12, 3, 20, 26), dtype=np.uint8))
+ctx = Ctx(count_mode=True)
+out = model.apply(ctx, video)
+assert out.shape == (1, 5) and abs(float(out.sum()) - 1.0) < 1e-5
+assert ctx.counts["accumulator_flops"] > 0
+assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
+               for name, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+
+
 def _run(script):
     result = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
@@ -134,3 +166,11 @@ def test_vitdet_detects_without_jax():
 
 def test_port_runs_without_jax():
     _run(SCRIPT)
+
+
+def test_vivit_apply_runs_without_jax():
+    """The paper's K400 configuration in small (EventfulBlock with the
+    matmul-2 cast, "v2mlp" under "auto"), a raw uint8 video through
+    ``FactorizedViViT.apply``: preprocessing with the antialiased resize,
+    3 x 2 views."""
+    _run(APPLY_SCRIPT)

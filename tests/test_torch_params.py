@@ -63,3 +63,27 @@ def test_missing_extra_and_misshaped_keys_raise(jax_params):
     misshaped = dict(flat, **{"qkv/kernel": flat["qkv/kernel"].T})
     with pytest.raises(ValueError, match="shape mismatch at qkv/kernel"):
         params_from_jax(Block(**KWARGS), misshaped)
+
+
+def test_vivit_eventful_block_tree_roundtrips():
+    """The paper's K400 configuration (EventfulBlock in every spatial block,
+    the matmul-2 cast) adds no parameters: the JAX model's whole tree
+    loads key for key and reads back unchanged."""
+    from eventful_transformer_tpu.models import FactorizedViViT as JaxViViT
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+
+    block = dict(dim=32, heads=4, mlp_ratio=2)
+    config = dict(
+        classes=5, input_shape=[4, 3, 16, 16], normalize_mean=0.45, normalize_std=0.225,
+        spatial_views=3, temporal_stride=2, temporal_views=4, tubelet_shape=[2, 8, 8],
+        spatial_config=dict(depth=2, position_encoding_size=[2, 2], block_class="EventfulBlock",
+                            block_config=dict(block, matmul_2_cast="bfloat16")),
+        temporal_config=dict(depth=1, position_encoding_size=[2], block_config=block),
+    )
+    flat = flatten_tree(
+        jax.tree_util.tree_map(np.asarray, JaxViViT(**config).init(jax.random.PRNGKey(1)))
+    )
+    got = params_to_numpy(params_from_jax(FactorizedViViT(**config, device="cpu"), flat))
+    assert set(got) == set(flat)
+    for key, value in flat.items():
+        np.testing.assert_array_equal(got[key], value)

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from eventful_transformer_tpu.core.blocks import Block as JaxBlock
+from eventful_transformer_tpu.core.blocks import EventfulBlock as JaxAVBlock
 from eventful_transformer_tpu.core.blocks import EventfulTokenwiseBlock as JaxEventfulBlock
 from eventful_transformer_tpu.core.counting import Counts, Ctx as JaxCtx
 from eventful_transformer_tpu.core.policies import TokenNormTopK as JaxTopK
@@ -131,3 +132,57 @@ def test_vivit_defaults_to_the_card():
             FactorizedViViT(**_config(True))
         return
     assert FactorizedViViT(**_config(True)).classifier.kernel.device.type == "cuda"
+
+
+def _apply_config(cast):
+    """The paper's K400 configuration in small: EventfulBlock in every
+    spatial block (the matmul-2 cast as configs/evaluate/vivit_kinetics400/
+    _temporal.yml sets it, or off), 3 spatial x 2 temporal views."""
+    config = _config(True)
+    config.update(spatial_views=3, temporal_views=2)
+    config["spatial_config"] = dict(
+        config["spatial_config"], block_class="EventfulBlock",
+        block_config=dict(dim=64, heads=4, mlp_ratio=4, matmul_2_cast=cast),
+    )
+    return config
+
+
+@pytest.mark.parametrize("cast", [None, "bfloat16"], ids=["f32", "cast_bf16"])
+def test_vivit_apply_matches_jax(cast, monkeypatch):
+    """``FactorizedViViT.apply`` on a raw uint8 video whose short edge (40)
+    is not the model's (32), so the antialiased resize runs, against the
+    JAX ``apply``. The port's "auto" gives every EventfulBlock the "v2mlp"
+    regime (N = 17); the JAX model runs it forced, its gate_group_mlp
+    kernel and the dense blocks' kernels in interpret mode. Probabilities
+    at 1e-4, 1e-2 with the cast (its A.V product in bfloat16); counts
+    at rtol 1e-6."""
+    monkeypatch.setenv("EVT_UNROLL_BLOCKS", "1")
+    jax_model = JaxViViT(**_apply_config(cast))
+    jax_model.split_flush = True
+    for blk in jax_model.modules_of_type(JaxBlock):
+        blk.fused_dense_mlp = blk.fused_global_attention = True
+    for blk in jax_model.modules_of_type(JaxAVBlock):
+        blk.fused_gates = "v2mlp"
+    model = FactorizedViViT(**_apply_config(cast), device="cpu")
+    jax_set_policies(jax_model, JaxTopK, k=K)
+    set_policies(model, TokenNormTopK, k=K)
+    assert all(blk._fused_mode(17) == "v2mlp" for blk in model.spatial_model.backbone.blocks)
+    like = jax_model.init(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(7)
+    flat = {
+        k: (v + 0.05 * rng.standard_normal(v.shape)).astype(np.float32)
+        for k, v in flatten_tree(jax.tree_util.tree_map(np.asarray, like)).items()
+    }
+    params_from_jax(model, flat)
+    video = rng.integers(0, 256, (1, 20, 3, 40, 56), dtype=np.uint8)
+    jax_ctx, ctx = JaxCtx(count_mode=True), Ctx(count_mode=True)
+    ref = jax_model.apply(jax_ctx, fill_like(like, flat), video)
+    got = model.apply(ctx, torch.from_numpy(video))
+    assert got.shape == (1, 10) and model.n_views == 6
+    tol = 1e-4 if cast is None else 1e-2
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=tol, atol=tol)
+    ref_counts = Counts.from_device(jax_ctx.counts)
+    assert set(ctx.counts) == set(ref_counts)
+    for key in ref_counts:
+        np.testing.assert_allclose(ctx.counts[key], ref_counts[key], rtol=1e-6, err_msg=key)
+    assert ctx.counts["accumulator_flops"] > 0
