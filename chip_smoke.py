@@ -2,14 +2,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's five paths through the entry points a user calls, and
+Drives the port's paths through the entry points a user calls, and
 checks them: eventful ViViT-B inference on Kinetics-400 shaped clips
 through ``FactorizedViViT.apply_views``, in the bench's configuration
-(``EventfulTokenwiseBlock``, k = 98) and in the paper's (``EventfulBlock``,
-k = 24, a raw clip through ``FactorizedViViT.apply``); the eventful ViTDet-B backbone
-at 672 x 672 (spatiotemporal_672, k = 256, the "v2" regime) and at
-1024 x 1024 (spatiotemporal_1024, k = 256, the "blocked" regime) through
-``ViTDet.pre_backbone`` and ``apply_backbone``; and ViTDet-B detection end
+(``EventfulTokenwiseBlock``, k = 98), with it every gate before its LN,
+and in the paper's (``EventfulBlock``, k = 24, a raw clip through
+``FactorizedViViT.apply``); the eventful ViTDet-B backbone at 672 x 672
+(spatiotemporal_672, k = 256, the "v2" regime) and at 1024 x 1024
+(spatiotemporal_1024, k = 256, the "blocked" regime) through
+``ViTDet.pre_backbone`` and ``apply_backbone``, and so the block options
+of compare_ln_1024 (gates before LN, k = 512), its 672 twin, stgt_672 (STGT
+gates) and ablate_av_672 (EventfulMatmul1Block); and ViTDet-B detection end
 to end at 672 through ``ViTDet.apply`` (backbone, SimplePyramid, RPN,
 ROIAlign, NMS, the standard ROI heads); each with its dense twin.
 Phases, one JSON line each, with the seconds the phase took:
@@ -68,10 +71,29 @@ Phases, one JSON line each, with the seconds the phase took:
                      against the JAX package's; one clip in float32 (cast off)
                      on the card against the CPU.
   15. vivit_evblock_time: ms/clip of the dense twin and every run, alternated.
+  16. option_kernels: the forms of gates before their LN at compare_ln_1024's
+                     shapes (N = 4096, k = 512) and at 672 (N = 1764, k = 256),
+                     as in 3.
+  17-20. compare_ln_1024, compare_ln_672, stgt_672, ablate_av_672: 2 streams
+                     x 16 frames in bfloat16 with launches by wrapper and by
+                     form and counted GFLOPs per frame against the JAX
+                     package's; one stream x 3 frames in float32 (cast off)
+                     of the model cut to one windowed and one global block
+                     on the card against the CPU; the eventful ms/frame
+                     twice (not ablate_av_672) beside the dense twin's from
+                     phase 8 or 11.
+  21. vivit_pre_ln_kernels, vivit_pre_ln: ViViT-B of phase 4 with every gate
+                     before its LN: the forms at its shapes, as in 3; under
+                     "auto" ("v2mlp"), "v1", "v1v2" and "v3", launches by
+                     wrapper and form and counted GFLOPs per clip; one clip
+                     in float32 of the model cut to 2 spatial blocks on the
+                     card against the CPU; "auto" and the dense twin ms/clip,
+                     alternated.
 The times are a record, not a claim.
 
-Then the card's name and power limit, one JSON line with every kernel's
-numbers, and last ``{"ok": true, "device": {...}}``. Any failed check
+Then the whole run's seconds, the card's name and power limit, one JSON
+line with every kernel's numbers, and last ``{"ok": true, "device":
+{...}}``. Any failed check
 raises, and the script exits non-zero; without a CUDA device it raises
 before printing any result. Imports nothing of JAX.
 """
@@ -136,7 +158,7 @@ VITDET = {
             dense_global=17468341632.0, windowed_flush=13077590400.0,
             windowed_incremental=2397776256.0, global_flush=13770757728.0,
             global_incremental_base=1995139728.0,
-            global_incremental_per_valid_share=1040646144.0,
+            global_incremental_per_valid_share=1040646144.0, windowed_once_per_forward=0.0,
         ),
     ),
     1024: dict(
@@ -153,7 +175,7 @@ VITDET = {
             dense_global=55600742400.0, windowed_flush=30629228160.0,
             windowed_incremental=3433033344.0, global_flush=35770073088.0,
             global_incremental_base=2390163456.0,
-            global_incremental_per_valid_share=2416115712.0,
+            global_incremental_per_valid_share=2416115712.0, windowed_once_per_forward=2304.0,
         ),
     ),
 }
@@ -214,7 +236,8 @@ def match_detections(got, want):
                 max_score_diff=score_err, ok=larger > 0 and matched >= DET_MATCH_SHARE * larger)
 
 
-_LAST_EMIT = [time.perf_counter()]
+_START = time.perf_counter()
+_LAST_EMIT = [_START]
 
 
 def emit(phase, **fields):
@@ -378,12 +401,29 @@ def expected_launches(eventful):
 
 
 def reset_launches():
-    for fn in wrappers().values():
-        fn.launches = 0
+    from eventful_transformer_tpu_torch.ops import kernel_check
+
+    kernel_check.reset_launches()
 
 
 def read_launches():
     return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def read_form_launches():
+    """Each form-counting wrapper's launches by form."""
+    return {name: dict(fn.form_launches) for name, fn in wrappers().items()
+            if hasattr(fn, "form_launches")}
+
+
+def expected_forms(step_forms, steps):
+    """Every form count 0 but ``step_forms`` ({wrapper: {form: per step}})
+    times ``steps``."""
+    want = {name: dict.fromkeys(forms, 0) for name, forms in read_form_launches().items()}
+    for name, forms in step_forms.items():
+        for form, count in forms.items():
+            want[name][form] = count * steps
+    return want
 
 
 def counted_run(model, views, eventful):
@@ -624,23 +664,30 @@ def vitdet_expected_launches(eventful, size, frames=VITDET_FRAMES, streams=VITDE
     return want
 
 
-def vitdet_jax_flops(eventful, valid_shares, size, frames=VITDET_FRAMES, streams=VITDET_STREAMS):
+def vitdet_jax_flops(eventful, valid_shares, size, frames=VITDET_FRAMES, streams=VITDET_STREAMS,
+                     flops=None):
     """The JAX package's count of one call (all streams and frames) from
-    VITDET[size]["flops"]; ``valid_shares``: the pooled valid share of every
-    global block's incremental step (a mean over the streams)."""
-    f = VITDET[size]["flops"]
+    ``flops`` (by default VITDET[size]["flops"]); ``valid_shares``: the
+    pooled valid share of every global block's incremental step (a mean
+    over the streams), which a count with no per-share term ignores. The
+    per-stream counts hold one windowed term that a forward counts once,
+    whatever the number of streams."""
+    f = flops or VITDET[size]["flops"]
     steps = frames - 1
+    once = (streams - 1) * frames * VITDET_WINDOWED * f["windowed_once_per_forward"]
     if not eventful:
         per_frame = f["position_add"] + VITDET_WINDOWED * f["dense_windowed"] + (
             VITDET_GLOBAL * f["dense_global"])
-        return streams * frames * per_frame
+        return streams * frames * per_frame - once
     fixed = frames * f["position_add"] + VITDET_WINDOWED * (
         f["windowed_flush"] + steps * f["windowed_incremental"]
     ) + VITDET_GLOBAL * (f["global_flush"] + steps * f["global_incremental_base"])
+    if not f["global_incremental_per_valid_share"]:
+        return streams * fixed - once
     if len(valid_shares) != VITDET_GLOBAL * steps:
         raise AssertionError(f"{len(valid_shares)} pooled selections, expected {VITDET_GLOBAL * steps}")
     shares = f["global_incremental_per_valid_share"] * sum(valid_shares)
-    return streams * (fixed + shares)
+    return streams * (fixed + shares) - once
 
 
 @contextlib.contextmanager
@@ -654,7 +701,7 @@ def pooled_shares():
 
     def recorded(self, index, mask):
         out = pool_index(self, index, mask)
-        shares.append(float(out[1].float().mean()))
+        shares.append(1.0 if out[1] is None else float(out[1].float().mean()))
         return out
 
     blocks.EventfulMatmul1Block._pool_index = recorded
@@ -794,14 +841,16 @@ def phase_vitdet_time(eventful, dense, frames, smi, size):
         columns=["flush_frame_ms", "incremental_frame_ms", "mean_frame_ms"],
         dense_ms=times["dense"], eventful_ms=times["eventful"],
     )
+    return times["dense"]
 
 
 def vitdet_path(device, smi, size):
     """The kernels, the slice and the times of one ViTDet size. Returns the
-    kernel rows of the final line."""
+    kernel rows of the final line, the kernel check rows and the dense
+    twin's ms/frame."""
     rows = phase_vitdet_kernels(device, size)
     eventful, dense, frames, launches, dense_launches = phase_vitdet_slice(device, size)
-    phase_vitdet_time(eventful, dense, frames, smi, size)
+    dense_ms = phase_vitdet_time(eventful, dense, frames, smi, size)
     del eventful, dense, frames
     torch.cuda.empty_cache()
     # launches: the eventful model's counted run; dense_mlp_residual runs in
@@ -816,16 +865,20 @@ def vitdet_path(device, smi, size):
                           launches, path))
     out.append(kernel_row("relpos_bias_add_v2", rows[("relpos_bias_add_v2", torch.bfloat16, f"{size}_dense")],
                           dense_launches, path))
-    return out, rows
+    return out, rows, dense_ms
 
 
 def kernel_row(name, row, launches, path):
+    """The final line's entry of kernel ``name``: ``launches`` the count
+    itself, or a run's launches by wrapper."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
     wrapper, _, source, replaces, _ = kernel_check.KERNELS[name]
+    if not isinstance(launches, int):
+        launches = launches[wrapper.__name__]
     return dict(
         name=name, route="cuda", source=source, replaces=replaces, path=path,
-        shape=[row["batch"], row["n"]], inputs=row["tag"], launches=launches[wrapper.__name__],
+        shape=[row["batch"], row["n"]], inputs=row["tag"], launches=launches,
         max_abs_err=max(out["max_abs_err"] for out in row["outputs"]),
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
@@ -1256,6 +1309,331 @@ def ev_path(device, smi):
     return out
 
 
+# -- ViTDet-B with the block options: gates before LN, STGT gates, the A.V ablation --
+#
+# configs/evaluate/vitdet_vid/compare_ln_1024.yml (the paper's LN-placement
+# ablation: an EventfulTokenwiseBlock in every block with its gates before
+# the LN; k = 512, the first point of its sweep), its twin at 672 on
+# tokenwise_672.yml (k = 256), stgt_672.yml (STGT gates in every block, k =
+# 256; unfused) and ablate_av_672.yml (global EventfulMatmul1Blocks with the
+# bf16 cast, k = 256); 2 streams x 16 frames each through pre_backbone and
+# apply_backbone. Per path: the global blocks' class and block options; the
+# launches of an incremental frame by wrapper and, for the form-counting
+# wrappers, by form (every frame besides runs window_attention in the 8
+# windowed blocks and relpos_bias_add_v2 in the 4 global ones: the gates
+# before LN and STGT gates hand no norms, so ln_norms runs only in
+# ablate_av, once a frame); the JAX package's counted FLOPs per stream, from
+# ``python scripts/misc/count_vitdet_672.py --size <size> --config <config>
+# [--k 512]``; whether the path is timed (against the dense twin's times
+# from the same size's phase).
+OPTION_PATHS = {
+    "compare_ln_1024": dict(
+        size=1024, k=512, global_class="EventfulTokenwiseBlock", options=dict(gate_before_ln=True),
+        step_launches=dict(block_select_p=8, block_scatter_rows=8, block_select_scatter=28),
+        step_forms=dict(block_select_p=dict(no_ln=8), block_select_scatter=dict(no_ln=28)),
+        flops=dict(
+            position_add=3145728.0, windowed_flush=30629228160.0,
+            windowed_incremental=5246742144.0, global_flush=55600742400.0,
+            global_incremental_base=30218256384.0, global_incremental_per_valid_share=0.0,
+            windowed_once_per_forward=2304.0,
+        ),
+        timed=True,
+    ),
+    "compare_ln_672": dict(
+        size=672, k=256, global_class="EventfulTokenwiseBlock", options=dict(gate_before_ln=True),
+        step_launches=dict(gate_group_linear=16, gate_group_mlp=12, block_select_p=8,
+                           block_scatter_rows=8),
+        step_forms=dict(gate_group_linear=dict(pre=4, none=12), gate_group_mlp=dict(pre=12),
+                        block_select_p=dict(no_ln=8)),
+        flops=dict(
+            position_add=1354752.0, windowed_flush=13077590400.0,
+            windowed_incremental=2397776256.0, global_flush=17468341632.0,
+            global_incremental_base=6788527488.0, global_incremental_per_valid_share=0.0,
+            windowed_once_per_forward=0.0,
+        ),
+        timed=True,
+    ),
+    "stgt_672": dict(
+        size=672, k=256, global_class="EventfulTokenwiseBlock", options=dict(stgt=True),
+        step_launches={}, step_forms={},
+        flops=dict(
+            position_add=1354752.0, windowed_flush=13077590400.0,
+            windowed_incremental=2397776256.0, global_flush=17468341632.0,
+            global_incremental_base=6788527488.0, global_incremental_per_valid_share=0.0,
+            windowed_once_per_forward=0.0,
+        ),
+        timed=True,
+    ),
+    "ablate_av_672": dict(
+        size=672, k=256, global_class="EventfulMatmul1Block",
+        options=dict(matmul_2_cast="bfloat16"),
+        step_launches=dict(ln_norms=1, gate_group_linear=16, gate_group_mlp=12,
+                           block_select_p=8, block_scatter_rows=8),
+        step_forms=dict(gate_group_linear=dict(post=4, none=12), gate_group_mlp=dict(post=12),
+                        block_select_p=dict(ln=8)),
+        flops=dict(
+            position_add=1354752.0, windowed_flush=13077590400.0,
+            windowed_incremental=2397776256.0, global_flush=17468341632.0,
+            global_incremental_base=5092377984.0, global_incremental_per_valid_share=0.0,
+            windowed_once_per_forward=0.0,
+        ),
+        timed=False,
+    ),
+}
+# The kernel forms these paths add to the final line: (kernel check tag,
+# batch, N, k, names, make_inputs keywords) per size, and the path whose
+# launches each row reports.
+OPTION_KERNEL_CASES = [
+    ("compare_ln_1024", VITDET_STREAMS, 64 * 64, 512,
+     ("block_select_p_noln", "block_select_scatter_qkv_noln", "block_select_scatter_proj",
+      "block_select_scatter_mlp_noln", "block_scatter_rows"),
+     dict(window=(14, 14), windows=50, pool=(32, 32), pad_window=(14, 14))),
+    ("compare_ln_672", VITDET_STREAMS, 42 * 42, 256,
+     ("gate_group_linear_pre", "gate_group_mlp_pre", "block_select_p_noln"),
+     dict(window=(14, 14), pool=(21, 21))),
+]
+# the f32 card-vs-CPU checks cut each path to one windowed and one global block
+CUT_DEPTH, CUT_WINDOWS = 2, [0]
+
+
+def option_config(path, depth=VITDET_DEPTH, window_indices=(0, 1, 3, 4, 6, 7, 9, 10),
+                  matmul_2_cast="bfloat16"):
+    """The ViTDet-B configuration of an OPTION_PATHS path; ``matmul_2_cast``
+    None takes the cast off."""
+    cfg = OPTION_PATHS[path]
+    block = dict(dim=768, heads=12, mlp_ratio=4, window_size=[14, 14],
+                 relative_embedding_size=[64, 64], **cfg["options"])
+    if "matmul_2_cast" in block:
+        block["matmul_2_cast"] = matmul_2_cast
+    backbone = dict(depth=depth, position_encoding_size=[14, 14],
+                    window_indices=list(window_indices), block_config=block,
+                    block_class=cfg["global_class"], windowed_class="EventfulTokenwiseBlock",
+                    windowed_overrides=dict(matmul_2_cast=None))
+    size = cfg["size"]
+    return dict(
+        backbone_config=backbone, classes=30, input_shape=[3, size, size],
+        normalize_mean=[123.675, 116.28, 103.53], normalize_std=[58.395, 57.12, 57.375],
+        output_channels=256, patch_size=[16, 16], scale_factors=[4.0, 2.0, 1.0, 0.5],
+    )
+
+
+def option_model(path, device, dtype, **config):
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import ViTDet
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    model = ViTDet(**option_config(path, **config), device=device, seed=SEED)
+    set_policies(model, TokenNormTopK, k=OPTION_PATHS[path]["k"])
+    return model.to(dtype)
+
+
+def option_counted_call(path, model, frames):
+    """One call of 2 streams x 16 frames with the launch counts set to 0
+    just before and read just after, counting FLOPs; checks the launches
+    by wrapper and by form, the output and the count against the JAX
+    package's. Returns (launches, form launches, the port's and the JAX
+    package's GFLOPs per frame)."""
+    cfg = OPTION_PATHS[path]
+    steps = VITDET_FRAMES - 1
+    with pooled_shares() as shares:
+        reset_launches()
+        tokens, counts, _ = run_vitdet(model, frames, count=True)
+        launches, forms = read_launches(), read_form_launches()
+    want = dict.fromkeys(wrappers(), 0)
+    want.update(window_attention=VITDET_WINDOWED * VITDET_FRAMES,
+                relpos_bias_add_v2=VITDET_GLOBAL * VITDET_FRAMES)
+    want.update({name: count * steps for name, count in cfg["step_launches"].items()})
+    if launches != want:
+        raise AssertionError(f"{path} launch counts {launches}, expected {want}")
+    want_forms = expected_forms(cfg["step_forms"], steps)
+    if forms != want_forms:
+        raise AssertionError(f"{path} launches by form {forms}, expected {want_forms}")
+    n = (cfg["size"] // 16) ** 2
+    if tokens.shape != (VITDET_STREAMS, n, model.dim) or not torch.isfinite(tokens).all():
+        raise AssertionError(f"bad {path} output: shape {tuple(tokens.shape)}")
+    got = sum(v for k, v in counts.items() if k != "policy_saturated")
+    ref = vitdet_jax_flops(True, shares, cfg["size"], flops=cfg["flops"])
+    if abs(got - ref) > 1e-6 * ref:
+        raise AssertionError(f"{path}: counted {got} FLOPs per call, the JAX package's count is {ref}")
+    return launches, forms, got / VITDET_FRAMES / 1e9, ref / VITDET_FRAMES / 1e9
+
+
+def option_path(path, device, smi, dense_ms):
+    """One OPTION_PATHS path: the counted bf16 call, the f32 check of the
+    cut model (one stream x 3 frames), and, where timed, the eventful
+    ms/frame twice beside the dense twin's from the same size's phase.
+    Returns the launches of the counted call by wrapper and by form."""
+    cfg = OPTION_PATHS[path]
+    model = option_model(path, device, torch.bfloat16)
+    frames = vitdet_frames(VITDET_FRAMES, VITDET_STREAMS, device, torch.bfloat16, cfg["size"])
+    launches, forms, g_port, g_jax = option_counted_call(path, model, frames)
+    cpu_model = option_model(path, "cpu", torch.float32, depth=CUT_DEPTH,
+                             window_indices=CUT_WINDOWS, matmul_2_cast=None)
+    clip = vitdet_frames(3, 1, "cpu", torch.float32, cfg["size"], seed=SEED + 1)
+    numbers, f32_launches, _ = card_and_cpu(
+        cpu_model, clip, device, lambda m, c: (run_vitdet(m, c, keep=True)[2],)
+    )
+    times = [time_vitdet(model, frames) for _ in range(2)] if cfg["timed"] else None
+    emit(
+        path, card=smi, streams=VITDET_STREAMS, frames=VITDET_FRAMES, k=cfg["k"],
+        dtype="bfloat16", launches={k: v for k, v in launches.items() if v},
+        form_launches=forms, gflops_per_frame_eventful=g_port, jax_gflops_per_frame_eventful=g_jax,
+        f32_depth=CUT_DEPTH, **numbers,
+        columns=["flush_frame_ms", "incremental_frame_ms", "mean_frame_ms"],
+        eventful_ms=times, dense_ms_same_size=dense_ms[cfg["size"]] if times else None,
+    )
+    del model, frames
+    torch.cuda.empty_cache()
+    return launches, forms
+
+
+def entry_launches(name, launches, forms):
+    """A run's launches of kernel_check entry ``name``: its form's, or its
+    wrapper's total."""
+    from eventful_transformer_tpu_torch.ops import kernel_check
+
+    wrapper = kernel_check.KERNELS[name][0].__name__
+    if name in kernel_check.FORMS:
+        return forms[wrapper][kernel_check.FORMS[name]]
+    return launches[wrapper]
+
+
+def option_paths(device, smi, dense_ms):
+    """The kernel forms of the option paths at their shapes, then each
+    path. Returns the kernel rows of the final line."""
+    rows = check_kernels("option_kernels", device, OPTION_KERNEL_CASES)
+    counts = {path: option_path(path, device, smi, dense_ms) for path in OPTION_PATHS}
+    return [
+        kernel_row(name, rows[(name, torch.bfloat16, tag)], entry_launches(name, *counts[tag]),
+                   tag)
+        for tag, _, _, _, names, _ in OPTION_KERNEL_CASES for name in names
+    ]
+
+
+# -- ViViT-B K400 with every gate before its LN ------------------------------------
+#
+# The bench's configuration (EventfulTokenwiseBlock, k = 98, 2 clips x 4
+# views x 32 frames through apply_views) with gate_before_ln on every
+# spatial block. "v4" does not take such a block, so "auto" runs "v2mlp";
+# also the forced "v1", "v1v2" and "v3". Per incremental step (15) and
+# spatial block (12), launches by wrapper and by form; every run besides
+# runs global window_attention in each spatial block of every step (the
+# attention of the "v2mlp"-family steps) and the temporal model's 4 + 4.
+PRE_LN_RUNS = ("auto", "v1", "v1v2", "v3")
+PRE_LN_STEP_LAUNCHES = {
+    "auto": dict(gate_group_mlp=1),
+    "v1": dict(ln_select_matmul=2, ln_select=1),
+    "v1v2": dict(ln_select_matmul=2, gate_group_mlp=1),
+    "v3": dict(ln_select_matmul=1, select_linear_skip_norms=1, gate_group_mlp=1),
+}
+PRE_LN_STEP_FORMS = {
+    "auto": dict(gate_group_mlp=dict(pre=1)),
+    "v1": dict(ln_select_matmul=dict(pre=1, none=1), ln_select=dict(no_ln=1)),
+    "v1v2": dict(ln_select_matmul=dict(pre=1, none=1), gate_group_mlp=dict(pre=1)),
+    "v3": dict(ln_select_matmul=dict(pre=1), select_linear_skip_norms=dict(no_ln=1),
+               gate_group_mlp=dict(pre=1)),
+}
+# the kernel forms of the path at its shapes (8 views, N = 197, k = 98) and
+# the run whose launches each row reports
+PRE_LN_KERNELS = {
+    "gate_group_mlp_pre": "auto", "ln_select_matmul_pre": "v1",
+    "select_linear_skip_norms_noln": "v3", "ln_select_noln": "v1",
+}
+# the f32 check's spatial depth (one clip, every view and frame)
+PRE_LN_CHECK_DEPTH = 2
+# The JAX package's counted GFLOPs per clip, from ``python
+# scripts/misc/count_vivit.py --bench --k 98 --gate-before-ln``: the post-LN
+# count (GFLOPS_EVENTFUL, unrounded), since LN placement moves no counted op.
+GFLOPS_EVENTFUL_PER_CLIP = 615.183057472
+
+
+def pre_ln_model(device, dtype, depth=DEPTH):
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    config = vivit_config(True)
+    config["spatial_config"] = dict(
+        config["spatial_config"], depth=depth,
+        block_config=dict(config["spatial_config"]["block_config"], gate_before_ln=True),
+    )
+    model = FactorizedViViT(**config, device=device, seed=SEED)
+    set_policies(model, TokenNormTopK, k=K)
+    return model.to(dtype)
+
+
+def pre_ln_counted_run(model, views, run):
+    """One forward under ``run`` with the counts set to 0 just before and
+    read just after, counting FLOPs; checks launches by wrapper and form,
+    the probabilities and the count against the JAX package's. Returns
+    (launches, form launches, GFLOPs per clip)."""
+    for blk in model.spatial_model.backbone.blocks:
+        blk.fused_gates = run
+    reset_launches()
+    probs, counts = run_model(model, views, count=True)
+    launches, forms = read_launches(), read_form_launches()
+    steps = DEPTH * (STEPS - 1)
+    want = dict.fromkeys(wrappers(), 0)
+    want.update({name: n * steps for name, n in PRE_LN_STEP_LAUNCHES[run].items()})
+    want["window_attention"] = DEPTH * STEPS + TEMPORAL_DEPTH
+    want["dense_mlp_residual"] = TEMPORAL_DEPTH
+    if launches != want:
+        raise AssertionError(f"ViViT gate_before_ln {run} launch counts {launches}, expected {want}")
+    want_forms = expected_forms(PRE_LN_STEP_FORMS[run], steps)
+    if forms != want_forms:
+        raise AssertionError(f"ViViT gate_before_ln {run} forms {forms}, expected {want_forms}")
+    probs = probs.float()
+    if probs.shape != (views.shape[0], 400) or not torch.isfinite(probs).all():
+        raise AssertionError(f"bad ViViT gate_before_ln output: shape {tuple(probs.shape)}")
+    got = gflops(counts) / views.shape[0]
+    if abs(got - GFLOPS_EVENTFUL_PER_CLIP) > 1e-6 * GFLOPS_EVENTFUL_PER_CLIP:
+        raise AssertionError(f"ViViT gate_before_ln {run}: counted {got} GFLOPs/clip, the JAX "
+                             f"package's count is {GFLOPS_EVENTFUL_PER_CLIP}")
+    return launches, forms, got
+
+
+def pre_ln_vivit_path(device, smi):
+    """The kernel forms at ViViT's shapes; the model in bfloat16 under every
+    run, counted; one clip in float32 under "auto" on the card against the
+    CPU (the spatial stack cut to PRE_LN_CHECK_DEPTH blocks); "auto"
+    timed, alternated with the dense twin. Returns the kernel rows of the
+    final line."""
+    rows = check_kernels("vivit_pre_ln_kernels", device, [
+        ("vivit_pre_ln", CLIPS * VIEWS, N_TOKENS, K, tuple(PRE_LN_KERNELS), dict(window=(4, 6))),
+    ])
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+
+    views = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (CLIPS, VIEWS, FRAMES, 3, SIZE, SIZE)).astype(np.float32))
+    views_bf16 = views.to(device, torch.bfloat16)
+    model = pre_ln_model(device, torch.bfloat16)
+    launches, forms, counted = {}, {}, {}
+    for run in PRE_LN_RUNS:
+        launches[run], forms[run], counted[run] = pre_ln_counted_run(model, views_bf16, run)
+    for blk in model.spatial_model.backbone.blocks:
+        blk.fused_gates = "auto"
+    numbers, _ = card_vs_cpu(pre_ln_model("cpu", torch.float32, depth=PRE_LN_CHECK_DEPTH),
+                             views[:1], device)
+    dense = FactorizedViViT(**vivit_config(False), device=device, seed=SEED).to(torch.bfloat16)
+    times = {"dense": [], "auto": []}
+    for name in ("dense", "auto", "auto", "dense"):
+        times[name].append(time_model(model if name == "auto" else dense, views_bf16))
+    emit(
+        "vivit_pre_ln", card=smi, clips=CLIPS, views=VIEWS, frames=FRAMES, k=K, dtype="bfloat16",
+        launches={run: {k: v for k, v in c.items() if v} for run, c in launches.items()},
+        form_launches=forms, gflops_per_clip=counted, jax_gflops_per_clip=GFLOPS_EVENTFUL_PER_CLIP,
+        f32_run="auto", f32_depth=PRE_LN_CHECK_DEPTH, **numbers,
+        dense_ms_per_clip=times["dense"], auto_ms_per_clip=times["auto"],
+    )
+    del model, dense, views_bf16
+    torch.cuda.empty_cache()
+    return [
+        kernel_row(name, rows[(name, torch.bfloat16, "vivit_pre_ln")],
+                   entry_launches(name, launches[run], forms[run]), f"vivit_pre_ln_{run}")
+        for name, run in PRE_LN_KERNELS.items()
+    ]
+
+
 def main():
     smi = phase_env()
     device = torch.device("cuda", 0)
@@ -1269,12 +1647,15 @@ def main():
         kernel_row(name, kernel_rows[(name, torch.bfloat16, "vivit")], launches, "vivit")
         for name in VIVIT_KERNELS
     ]
-    rows = {}
+    rows, dense_ms = {}, {}
     for size in VITDET:
-        path_rows, rows[size] = vitdet_path(device, smi, size)
+        path_rows, rows[size], dense_ms[size] = vitdet_path(device, smi, size)
         kernels += path_rows
     kernels += phase_vitdet_e2e(device, smi, rows[E2E_SIZE])
     kernels += ev_path(device, smi)
+    kernels += option_paths(device, smi, dense_ms)
+    kernels += pre_ln_vivit_path(device, smi)
+    emit("total", seconds=round(time.perf_counter() - _START, 3))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

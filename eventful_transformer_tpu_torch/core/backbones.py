@@ -106,12 +106,14 @@ def _next_gate(block, nxt, x, next_state):
     ``ViTBackbone._next_gate_info``). Both blocks must be eventful; ``block``
     must step in a regime whose last kernel emits them ("v2", "blocked" or
     "v4"; the JAX package excludes "v2mlp"); the next gate must take
-    order-2 norms; the token count must not change (it cannot: the port has
-    no ATS); and the next qkv gate state must be C wide. The options the
-    JAX rule also checks (gate before LN, STGT, ATS, sharing switched off)
-    do not exist in the port."""
-    if not (isinstance(block, EventfulTokenwiseBlock) and isinstance(nxt, EventfulTokenwiseBlock)):
-        return None
+    order-2 norms; neither may gate before LN (the emitted norms are
+    LN-domain) or hold STGT gates; the token count must not change (it
+    cannot: the port has no ATS); and the next qkv gate state must be C
+    wide. The port has no switch to turn the sharing off, which the JAX
+    rule also checks."""
+    for b in (block, nxt):
+        if not isinstance(b, EventfulTokenwiseBlock) or b.gate_before_ln or b.stgt:
+            return None
     if block._fused_mode(x.shape[-2]) not in ("v2", "blocked", "v4"):
         return None
     if getattr(nxt.qkv_gate.policy, "order", 2) != 2:

@@ -40,7 +40,16 @@ picks, as the JAX package dispatches on the TPU ("auto"), or in the one
   and the MLP on the gathered rows ("v1") or ``gate_group_mlp``;
 - False: the unfused path the JAX package runs on the CPU and in
   training, every gate and buffer in plain PyTorch (``core/gating.py``),
-  no kernel.
+  no kernel. STGT gates (``stgt=True``) always run it, as in the JAX
+  package.
+
+With ``gate_before_ln`` the qkv and MLP gates sit before their LayerNorm:
+they hold x rather than ln(x), select on input-domain error norms, and the
+LN runs on the selected rows (or on the whole new gate state, where the op
+is recomputed from it): the "pre" forms of ``gate_group_mlp``,
+``gate_group_linear`` and ``ln_select_matmul``, ``apply_ln=False`` in
+``block_select_p``, ``block_select_scatter`` and ``ln_select``, and
+``select_linear_skip_norms`` with ``next_ln=False``.
 
 ``EventfulBlock``'s incremental A.V step runs ``softmax_select_matmul``
 (matmul-1, rel-pos bias, softmax, column select and A.V in one kernel)
@@ -50,9 +59,8 @@ keys, or one stream), or its logits form where q.kT is not fused into it
 ``recompute_product = False``); ``recompute_av = False`` runs the
 reference's delta-accumulated product instead.
 
-Not ported: ATS, drop-path, sequence parallelism, gate-before-LN and STGT
-gates. Asking for one raises ``NotImplementedError`` naming the ROADMAP.md
-item that holds it.
+Not ported: ATS, drop-path and sequence parallelism. Asking for one
+raises ``NotImplementedError`` naming the ROADMAP.md item that holds it.
 """
 
 from __future__ import annotations
@@ -67,6 +75,7 @@ from eventful_transformer_tpu_torch.core.embeddings import RelativePositionEmbed
 from eventful_transformer_tpu_torch.core.gating import (
     MatmulBuffer,
     MatmulDeltaAccumulator,
+    SimpleSTGTGate,
     TokenBuffer,
     TokenDeltaGate,
     TokenGate,
@@ -440,30 +449,38 @@ class EventfulTokenwiseBlock(Block):
 
     ``fused_gates`` mirrors the JAX attribute: "auto" (the JAX package's
     TPU dispatch by token count) or a forced regime, "v4", "v2mlp", "v2",
-    "blocked", "v1", "v1v2", "v3", or False (unfused)."""
+    "blocked", "v1", "v1v2", "v3", or False (unfused). ``gate_before_ln``
+    puts the qkv and MLP gates before their LN; ``stgt`` makes every gate a
+    ``SimpleSTGTGate``, which runs unfused. ``recompute_buffers`` (the JAX
+    attribute, False under STGT) lets the regimes below
+    RECOMPUTE_MAX_TOKENS recompute the qkv and projection outputs from the
+    gate states instead of keeping buffers."""
 
     V2MLP_MAX_TOKENS = 512
     V2_MAX_TOKENS = 2048
     # above it the unfused regimes keep qkv and projection buffers and
     # gather, where they recompute both from the gate states below it
+    # (with recompute_buffers)
     RECOMPUTE_MAX_TOKENS = 2048
     FORCED_MODES = ("v4", "v2mlp", "v2", "blocked", "v1", "v1v2", "v3")
     # whether _attention_incremental consumes the qkv gate's indices
     _attention_uses_index = False
 
     def __init__(self, gate_before_ln=False, stgt=False, **block_kwargs):
-        if gate_before_ln:
-            raise not_ported("gate_before_ln", 10)
-        if stgt:
-            raise not_ported("STGT gates", 10)
         super().__init__(**block_kwargs)
+        self.gate_before_ln = gate_before_ln
+        self.stgt = stgt
         self.fused_gates = "auto"
+        # a STGT gate's state is the whole last input, not each token's
+        # last update, so no op can be recomputed from it
+        self.recompute_buffers = not stgt
         self._window_index_cache = {}
-        self.qkv_gate = TokenGate()
+        gate_class = SimpleSTGTGate if stgt else TokenGate
+        self.qkv_gate = gate_class()
         self.qkv_accumulator = TokenBuffer()
-        self.projection_gate = TokenGate()
+        self.projection_gate = gate_class()
         self.projection_accumulator = TokenBuffer()
-        self.mlp_gate = TokenGate()
+        self.mlp_gate = gate_class()
         self.mlp_accumulator = TokenBuffer()
 
     @property
@@ -472,10 +489,13 @@ class EventfulTokenwiseBlock(Block):
 
     def _fused_mode(self, n_tokens):
         """The incremental regime (core/blocks.py:847-875 of the JAX
-        package, with its TPU thresholds under "auto")."""
+        package, with its TPU thresholds under "auto"). STGT gates run
+        unfused in every mode."""
         mode = self.fused_gates
-        if mode is False:
+        if self.stgt or mode is False:
             return False
+        if mode == "v1":
+            return "v1" if self.recompute_buffers else False
         if mode == "v4":
             return "v4" if self._v4_eligible() else "v2mlp"
         if mode in self.FORCED_MODES:
@@ -492,11 +512,15 @@ class EventfulTokenwiseBlock(Block):
 
     def _v4_eligible(self):
         """The whole-block "v4" step takes a plain tokenwise block (global
-        attention, no pooling, rel-pos or cast, index-free attention) with
-        an order-2 ``TokenNormTopK`` on every gate. The JAX package's TPU
-        tiling condition on the head width is not part of the port's rule."""
+        attention, no pooling, rel-pos or cast, index-free attention, gates
+        after LN, recomputed buffers, no STGT) with an order-2
+        ``TokenNormTopK`` on every gate. The JAX package's TPU tiling
+        condition on the head width is not part of the port's rule."""
         if (
-            self._attention_uses_index
+            self.stgt
+            or not self.recompute_buffers
+            or self.gate_before_ln
+            or self._attention_uses_index
             or self.window_size is not None
             or self.pool_size is not None
             or self.relative_position is not None
@@ -504,6 +528,16 @@ class EventfulTokenwiseBlock(Block):
         ):
             return False
         return all(type(g.policy) is TokenNormTopK and g.policy.order == 2 for g in self.gates)
+
+    def _recompute(self, n_tokens):
+        """Whether the buffer-free regimes recompute the qkv and projection
+        outputs from the gate states (JAX ``_recompute``)."""
+        return self.recompute_buffers and n_tokens <= self.RECOMPUTE_MAX_TOKENS
+
+    @property
+    def _ln_mode(self):
+        """The qkv and MLP gates' domain: "pre" (before LN) or "post"."""
+        return "pre" if self.gate_before_ln else "post"
 
     def _resident_qkv(self, n_tokens):
         """Whether the qkv buffer lives window-major (the JAX package's
@@ -536,9 +570,9 @@ class EventfulTokenwiseBlock(Block):
             "mlp_accumulator": self.mlp_accumulator.init_state(shape, dtype, device),
         }
         # qkv and projection buffers where the regime gathers ("v2",
-        # "blocked", or any regime above RECOMPUTE_MAX_TOKENS); the others
+        # "blocked", or any regime that does not recompute); the others
         # recompute both from the gate states
-        if n_tokens > self.RECOMPUTE_MAX_TOKENS or self._fused_mode(n_tokens) in ("v2", "blocked"):
+        if not self._recompute(n_tokens) or self._fused_mode(n_tokens) in ("v2", "blocked"):
             rows = self._resident_rows() if self._resident_qkv(n_tokens) else n_tokens
             state["qkv_accumulator"] = self.qkv_accumulator.init_state(
                 (batch, rows, 3 * self.dim), dtype, device
@@ -566,8 +600,9 @@ class EventfulTokenwiseBlock(Block):
     def _flush(self, ctx, state, x, aux):
         state = dict(state)
         skip_1 = x
-        x = layer_norm(x, self.input_layer_norm)
-        _, state["qkv_gate"] = self.qkv_gate.flush(state["qkv_gate"], x)
+        x, state["qkv_gate"] = self._gate_flush(
+            self.qkv_gate, state["qkv_gate"], x, self.input_layer_norm
+        )
         x = self.qkv(ctx, x)
         if "qkv_accumulator" in state and self._resident_qkv(x.shape[-2]):
             # pad rows hold the qkv bias row, uncounted: the attention entry
@@ -589,12 +624,45 @@ class EventfulTokenwiseBlock(Block):
             )
         x = counted_add(ctx, x, skip_1)
         skip_2 = x
-        x = layer_norm(x, self.mlp_layer_norm)
-        _, state["mlp_gate"] = self.mlp_gate.flush(state["mlp_gate"], x)
+        x, state["mlp_gate"] = self._gate_flush(
+            self.mlp_gate, state["mlp_gate"], x, self.mlp_layer_norm
+        )
         x, state["mlp_accumulator"] = self.mlp_accumulator.flush(
             state["mlp_accumulator"], self._mlp(ctx, x)
         )
         return counted_add(ctx, x, skip_2), state
+
+    def _gate_flush(self, gate, gate_state, x, ln):
+        """A gate's flush around its LN (core/blocks.py:1131-1136 of the
+        JAX package): before it the gate keeps a copy of x (the kernels
+        update the state in place, and x is the caller's); after it,
+        ln(x). Returns (ln(x), gate state)."""
+        if self.gate_before_ln:
+            _, gate_state = gate.flush(gate_state, x.clone(memory_format=torch.contiguous_format))
+            return layer_norm(x, ln), gate_state
+        x = layer_norm(x, ln)
+        _, gate_state = gate.flush(gate_state, x)
+        return x, gate_state
+
+    def _gate_ln(self, ctx, ln, gate, gate_state, x):
+        """A gathering gate around its LN (core/blocks.py:1738-1746 of the
+        JAX package): before it the gate selects from x and the gathered
+        rows are normalised; after it, it selects from ln(x). Returns
+        (rows, index, mask, gate state)."""
+        if self.gate_before_ln:
+            x_t, index, mask, gate_state = gate.incremental(ctx, gate_state, x)
+            return layer_norm(x_t, ln), index, mask, gate_state
+        return gate.incremental(ctx, gate_state, layer_norm(x, ln))
+
+    def _select_ln(self, ln):
+        """(scale, bias) for a kernel's select pass, which applies them after
+        the LN and takes x itself before it."""
+        return (None, None) if self.gate_before_ln else (ln.scale, ln.bias)
+
+    def _op_input(self, p, ln):
+        """The op's input recomputed from a gate state: ln(p) before the
+        LN, p itself after it."""
+        return layer_norm(p, ln) if self.gate_before_ln else p
 
     def _mlp(self, ctx, x, valid_frac=1):
         return self.mlp_2(ctx, gelu(self.mlp_1(ctx, x, valid_frac)), valid_frac)
@@ -612,6 +680,8 @@ class EventfulTokenwiseBlock(Block):
         n = x.shape[-2]
         for gate in self.gates:
             check_kernel_policy(gate.policy)
+        if self.gate_before_ln:
+            norms = None  # handed-over norms are in the LN domain
         mode = self._fused_mode(n)
         if mode == "v4":
             return self._v4_step(ctx, state, x, norms, next_gate)
@@ -637,12 +707,15 @@ class EventfulTokenwiseBlock(Block):
         else:
             outs, index, mask = group_linear(
                 ctx, self.qkv_gate, state["qkv_gate"], state["qkv_accumulator"], x,
-                self.input_layer_norm, "post", self.qkv,
+                self.input_layer_norm, self._ln_mode, self.qkv,
                 need_index=self._attention_uses_index, norms=norms,
             )
             x, state = self._attention_incremental(ctx, state, outs[1], index, mask, aux)
-        # the projection group emits the MLP gate's norms
-        own_mlp = (state["mlp_gate"]["p"], self.mlp_layer_norm.scale, self.mlp_layer_norm.bias)
+        # the projection group emits the MLP gate's norms, which are
+        # LN-domain norms: not for a gate before LN
+        own_mlp = None
+        if not self.gate_before_ln:
+            own_mlp = (state["mlp_gate"]["p"], self.mlp_layer_norm.scale, self.mlp_layer_norm.bias)
         outs, _, _ = group_linear(
             ctx, self.projection_gate, state["projection_gate"],
             state["projection_accumulator"], x, None, "none", self.projection,
@@ -667,7 +740,7 @@ class EventfulTokenwiseBlock(Block):
         ln = self.input_layer_norm
         if mode in ("v1", "v1v2", "v3"):
             y, index, state["qkv_gate"] = self._fused_gate_group(
-                ctx, self.qkv_gate, state["qkv_gate"], x, ln, "post", self.qkv
+                ctx, self.qkv_gate, state["qkv_gate"], x, ln, self._ln_mode, self.qkv
             )
             return y, index, None
         if (
@@ -675,18 +748,19 @@ class EventfulTokenwiseBlock(Block):
             and not self._attention_uses_index
             and self.qkv_gate.select_only_ok()
         ):
+            c = x if self.gate_before_ln else layer_norm(x, ln)
             kcap, state["qkv_gate"] = self.qkv_gate.incremental_select(
-                ctx, state["qkv_gate"], layer_norm(x, ln), norms=norms
+                ctx, state["qkv_gate"], c, norms=norms
             )
             p = state["qkv_gate"]["p"]
-            return self.qkv(ctx, p, kcap / p.shape[-2]), None, None
-        x_t, index, mask, state["qkv_gate"] = self.qkv_gate.incremental(
-            ctx, state["qkv_gate"], layer_norm(x, ln)
+            return self.qkv(ctx, self._op_input(p, ln), kcap / p.shape[-2]), None, None
+        x_t, index, mask, state["qkv_gate"] = self._gate_ln(
+            ctx, ln, self.qkv_gate, state["qkv_gate"], x
         )
         if "qkv_accumulator" not in state:
             p = state["qkv_gate"]["p"]
             frac = (index.shape[-1] / p.shape[-2]) * valid_fraction(mask)
-            return self.qkv(ctx, p, frac), index, mask
+            return self.qkv(ctx, self._op_input(p, ln), frac), index, mask
         x_t = self.qkv(ctx, x_t, valid_fraction(mask))
         x, state["qkv_accumulator"] = self.qkv_accumulator.incremental(
             state["qkv_accumulator"], x_t, index, mask
@@ -698,14 +772,15 @@ class EventfulTokenwiseBlock(Block):
         of the JAX package): "v3" through ``select_linear_skip_norms``,
         which also emits the MLP gate's norms; "v1"/"v1v2" through
         ``ln_select_matmul``; otherwise as the qkv group. Returns (y, the
-        MLP gate's norms or None)."""
+        MLP gate's norms or None): ||ln(y) - p|| after the LN, ||y - p||
+        before it."""
         gate, gate_state = self.projection_gate, state["projection_gate"]
         if mode == "v3":
             kcap, _, cov = self._select(ctx, gate, gate_state["p"], x, None, "none")
-            ln2 = self.mlp_layer_norm
             _, y, mlp_norms = select_linear_skip_norms(
                 x, gate_state["p"], cov, self.projection.kernel, self.projection.bias, skip_1,
-                state["mlp_gate"]["p"], ln2.scale, ln2.bias,
+                state["mlp_gate"]["p"], *self._select_ln(self.mlp_layer_norm),
+                next_ln=not self.gate_before_ln,
             )
             frac = kcap / x.shape[-2]
             rows = x.numel() // x.shape[-1]
@@ -748,8 +823,8 @@ class EventfulTokenwiseBlock(Block):
                 ctx, state["mlp_gate"], x, ln
             )
         else:
-            x_t, index, mask, state["mlp_gate"] = self.mlp_gate.incremental(
-                ctx, state["mlp_gate"], layer_norm(x, ln)
+            x_t, index, mask, state["mlp_gate"] = self._gate_ln(
+                ctx, ln, self.mlp_gate, state["mlp_gate"], x
             )
         x_t = self._mlp(ctx, x_t, valid_fraction(mask))
         x, state["mlp_accumulator"] = self.mlp_accumulator.incremental(
@@ -765,7 +840,7 @@ class EventfulTokenwiseBlock(Block):
         kcap, index, cov = self._select(
             ctx, gate, gate_state["p"], x, ln, ln_mode, need_index=True
         )
-        scale, bias = (ln.scale, ln.bias) if ln_mode == "post" else (None, None)
+        scale, bias = (None, None) if ln_mode == "none" else (ln.scale, ln.bias)
         p, y = ln_select_matmul(
             x, gate_state["p"], cov, scale, bias, linear.kernel, linear.bias, ln_mode=ln_mode
         )
@@ -776,13 +851,16 @@ class EventfulTokenwiseBlock(Block):
 
     def _fused_gate_select(self, ctx, gate_state, x, ln):
         """The MLP gate of "v1": norms -> selection -> ``ln_select`` (in
-        place); the selected rows of the new state are the MLP's input.
-        Returns (rows, index, None, gate state)."""
+        place); the selected rows of the new state are the MLP's input,
+        normalised there when the gate sits before the LN. Returns (rows,
+        index, None, gate state)."""
         _, index, cov = self._select(
-            ctx, self.mlp_gate, gate_state["p"], x, ln, "post", need_index=True
+            ctx, self.mlp_gate, gate_state["p"], x, ln, self._ln_mode, need_index=True
         )
-        p = ln_select(x, gate_state["p"], cov, ln.scale, ln.bias)
-        return take_rows(p, index), index, None, {"p": p}
+        p = ln_select(
+            x, gate_state["p"], cov, *self._select_ln(ln), apply_ln=not self.gate_before_ln
+        )
+        return self._op_input(take_rows(p, index), ln), index, None, {"p": p}
 
     def _select(self, ctx, gate, p, x, ln, ln_mode, norms=None, need_index=False):
         """Error norms (unless an upstream kernel handed them over) ->
@@ -795,7 +873,7 @@ class EventfulTokenwiseBlock(Block):
         if norms is None:
             if ln_mode == "post":
                 norms = ln_norms(x, p, ln.scale, ln.bias)
-            else:  # "none": error in the input domain
+            else:  # "pre", "none": error in the input domain
                 norms = vector_norm(x - p, -1, 2)
         kcap = gate.policy.capacity(x.shape[-2])
         cov = coverage_from_norms(norms, kcap)
@@ -812,7 +890,7 @@ class EventfulTokenwiseBlock(Block):
         kcap, index, cov = self._select(
             ctx, gate, gate_state["p"], x, ln, ln_mode, norms, need_index
         )
-        scale, bias = (ln.scale, ln.bias) if ln_mode == "post" else (None, None)
+        scale, bias = (None, None) if ln_mode == "none" else (ln.scale, ln.bias)
         p_next, n_scale, n_bias = next_gate or (None, None, None)
         outs = gate_group_linear(
             x, gate_state["p"], buf_state["b"], cov, scale, bias, linear.kernel, linear.bias,
@@ -831,9 +909,9 @@ class EventfulTokenwiseBlock(Block):
         Returns the updated buffer (B, NW, 3C)."""
         ln = self.input_layer_norm
         p = state["qkv_gate"]["p"]
-        _, index, cov = self._select(ctx, self.qkv_gate, p, x, ln, "post", norms, True)
+        _, index, cov = self._select(ctx, self.qkv_gate, p, x, ln, self._ln_mode, norms, True)
         h = self.qkv(ctx, layer_norm(take_rows(x, index), ln))
-        block_select_p(x, p, cov, ln.scale, ln.bias, apply_ln=True)
+        block_select_p(x, p, cov, *self._select_ln(ln), apply_ln=not self.gate_before_ln)
         w_index = self._window_index(x.device)[index]
         return block_scatter_rows(state["qkv_accumulator"]["b"], w_index, h)
 
@@ -852,7 +930,7 @@ class EventfulTokenwiseBlock(Block):
         _, index, cov = self._select(ctx, gate, gate_state["p"], x, ln, ln_mode, norms, True)
         rows = take_rows(x, index)
         post = ln_mode == "post"
-        if post:
+        if ln_mode != "none":  # LN commutes with the row gather
             rows = layer_norm(rows, ln)
         h = linear(ctx, rows)
         scale, bias = (ln.scale, ln.bias) if post else (None, None)
@@ -869,12 +947,12 @@ class EventfulTokenwiseBlock(Block):
         gate's norms. Returns (y, next_norms)."""
         ln = self.mlp_layer_norm
         p, b = state["mlp_gate"]["p"], state["mlp_accumulator"]["b"]
-        _, index, cov = self._select(ctx, self.mlp_gate, p, x, ln, "post", norms, True)
+        _, index, cov = self._select(ctx, self.mlp_gate, p, x, ln, self._ln_mode, norms, True)
         h = self._mlp(ctx, layer_norm(take_rows(x, index), ln))
         p_next, n_scale, n_bias = next_gate or (None, None, None)
         outs = block_select_scatter(
-            x, p, b, cov, index, h, ln.scale, ln.bias, None, p_next, n_scale, n_bias,
-            apply_ln=True, residual_x=True,
+            x, p, b, cov, index, h, *self._select_ln(ln), None, p_next, n_scale, n_bias,
+            apply_ln=not self.gate_before_ln, residual_x=True,
         )
         ctx.add("add_flops", outs[2].numel())
         return outs[2], (outs[3] if p_next is not None else None)
@@ -884,11 +962,12 @@ class EventfulTokenwiseBlock(Block):
         ``gate_group_mlp``. Returns (y, next_norms)."""
         ln = self.mlp_layer_norm
         p, b = state["mlp_gate"]["p"], state["mlp_accumulator"]["b"]
-        kcap, _, cov = self._select(ctx, self.mlp_gate, p, x, ln, "post", norms)
+        kcap, _, cov = self._select(ctx, self.mlp_gate, p, x, ln, self._ln_mode, norms)
         p_next, n_scale, n_bias = next_gate or (None, None, None)
         _, _, y, next_norms = gate_group_mlp(
             x, p, b, cov, ln.scale, ln.bias, self.mlp_1.kernel, self.mlp_1.bias,
-            self.mlp_2.kernel, self.mlp_2.bias, p_next, n_scale, n_bias, kcap=kcap,
+            self.mlp_2.kernel, self.mlp_2.bias, p_next, n_scale, n_bias,
+            ln_mode=self._ln_mode, kcap=kcap,
         )
         frac = kcap / x.shape[-2]
         rows = x.numel() // x.shape[-1]
@@ -929,7 +1008,7 @@ class EventfulTokenwiseBlock(Block):
         _, _, y, next_norms = gate_group_mlp(
             y1, p_mlp, b_mlp, cov3, ln2.scale, ln2.bias, self.mlp_1.kernel,
             self.mlp_1.bias, self.mlp_2.kernel, self.mlp_2.bias, p_next, n_scale,
-            n_bias, kcap=km,
+            n_bias, ln_mode="post", kcap=km,
         )
         self._count_v4_step(ctx, x, kq, kp, km)
         return y, state, next_norms

@@ -8,8 +8,8 @@ same updates in plain PyTorch, for the gathered paths (the unfused regime,
 the qkv and MLP groups that gather rows, the reference's cached q.kT
 product and delta-accumulated A.V product). Selections are index lists
 from the policy (ascending, every slot valid) or forced by the caller
-(pooled and deduplicated, with a mask). ``SimpleSTGTGate`` is not ported
-yet (ROADMAP.md, open item 10).
+(pooled and deduplicated, with a mask). ``SimpleSTGTGate`` runs on the
+unfused path only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -115,6 +115,24 @@ class TokenDeltaGate(TokenGate):
                 e_tilde = mask_cols(e_tilde, mask)
             p = put_cols(p, index, c_tilde, mask)
         return c_tilde, e_tilde, index, mask, {"p": p}
+
+
+class SimpleSTGTGate(TokenGate):
+    """The baseline gate of "Spatio-Temporal Gated Transformers": the
+    reference is overwritten with the whole current input each step, so the
+    error is measured against the previous frame rather than each token's
+    last update. Row structure only."""
+
+    def __init__(self, structure="row"):
+        if structure != "row":
+            raise ValueError(f"SimpleSTGTGate gates rows only, got structure={structure!r}")
+        super().__init__(structure)
+
+    def incremental(self, ctx, state, c, forced_index=None, forced_mask=None):
+        """Returns (c_tilde, index, mask, state), the state ``c`` itself."""
+        ctx.add("gate_flops", c.numel())
+        index, mask = self._select(c - state["p"], forced_index, forced_mask)
+        return take_rows(c, index), index, mask, {"p": c}
 
 
 class TokenBuffer:

@@ -3,9 +3,9 @@
 // (gate_group_linear).
 //
 // gate_group_mlp replaces eventful_transformer_tpu/ops/pallas/gate_group.py::
-// gate_group_mlp in its ln_mode="post" form with the coverage given: the
+// gate_group_mlp in its "post" and "pre" forms with the coverage given: the
 // gated MLP group with the residual folded in and, optionally, the next
-// gate's norms.
+// gate's norms ("post" shown; "pre" below).
 //
 //   p' = where(cov, ln(x), p)                        (in place)
 //   h  = rnd(gelu(rnd_p(p'[sel]) @ W1 + b1))         on the k selected rows
@@ -25,7 +25,7 @@
 // work can keep on chip.
 //
 // gate_group_linear replaces gate_group.py::gate_group_linear with the
-// coverage given, in the two forms ViTDet's "v2" regime runs:
+// coverage given, in the forms ViTDet's "v2" regime runs:
 //
 //   p' = where(cov, ln(x) | x, p)                    (in place, rounded to p's dtype)
 //   h  = rnd_b(p'[sel] @ W + wb)                     on the k selected rows
@@ -42,6 +42,15 @@
 // the GEMM does the k/N share of the dense product and the row passes move
 // the full (N, C) and (N, F) state once each; the qkv group's b pass (2 x
 // 1764 x 2304 in bf16, 16 MB read and written) is the largest memory term.
+//
+// Both take ln_mode="pre" (gate_group.py:155-160, :208-209, :378-379), the
+// group of a gate that sits before its LN: the select row pass copies x
+// itself into p, and the k compacted rows, read back as stored (p's dtype,
+// as the one-hot copy hands them over), are normalised in float32 and
+// rounded to W's dtype (= x's) in one more row pass over the k rows, into
+// a (B, kcap, C) scratch that the GEMM then reads densely. That pass moves
+// 2 x k x C elements, a few percent of the group's bytes; an LN prologue in
+// the GEMM's A-load would save it, later.
 #include "common.cuh"
 #include "gemm.cuh"
 
@@ -67,6 +76,46 @@ __global__ void compact_kernel(const float* __restrict__ cov, int* __restrict__ 
     if (i < n) pos[r] = sel ? slot : -1;
     if (sel && slot < kcap) idx_row[slot] = i;
     count += __popc(ballot);
+  }
+}
+
+// LN modes of the C entries (ops/common.py::LN_MODES)
+constexpr int kLnNone = 0, kLnPost = 1, kLnPre = 2;
+
+// a[m] = rnd(ln(p[idx[m]]) * scale + bias) for slot m = b * kcap + j of
+// batch row b, from the stored p' row; a zero row for an empty slot, which
+// no token takes back. Dynamic shared memory: (c + 32) floats.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+ln_rows_kernel(const T* __restrict__ p, const int* __restrict__ idx, const T* __restrict__ scale,
+               const T* __restrict__ bias, T* __restrict__ a, int n, int c, int kcap) {
+  extern __shared__ float smem[];
+  const int64_t m = blockIdx.x;
+  const int i = idx[m];  // uniform over the block
+  T* out = a + m * c;
+  if (i < 0) {
+    for (int j = threadIdx.x; j < c; j += blockDim.x) out[j] = from_f<T>(0.f);
+    return;
+  }
+  float* row = smem;
+  float* red = smem + c;
+  load_row(p, (m / kcap) * n + i, c, row);
+  float mean, rstd;
+  ln_stats(row, c, red, mean, rstd);
+  for (int j = threadIdx.x; j < c; j += blockDim.x)
+    out[j] = from_f<T>(ln_value(row[j], mean, rstd, scale, bias, j));
+}
+
+// The select row pass of a group: p' = where(cov, ln(x), p) after the LN,
+// where(cov, x, p) before it or without one.
+template <typename T>
+void select_pass(const T* x, T* p, const float* cov, const T* scale, const T* bias, int rows,
+                 int c, int ln_mode, cudaStream_t stream) {
+  if (ln_mode == kLnPost) {
+    ln_select_kernel<T><<<rows, kRowThreads, row_smem_bytes(c), stream>>>(x, p, cov, scale, bias,
+                                                                          c);
+  } else {
+    select_rows_kernel<T><<<rows, kRowThreads, 0, stream>>>(x, p, cov, c);
   }
 }
 
@@ -117,22 +166,41 @@ blend_kernel(const T* __restrict__ res, T* __restrict__ b, const int* __restrict
   if (threadIdx.x == 0) norms[r] = norm;
 }
 
+// The GEMM of the compacted rows, out = epi(rows @ W): gathered from p'
+// through idx, or, before the LN, read from the normalised scratch ``a``
+// (written here first).
+template <typename T, typename Epi>
+void compacted_gemm(const T* p, const int* idx, const T* scale, const T* bias, T* a, const T* w,
+                    int bsz, int n, int c, int f, int kcap, int ln_mode, Epi epi,
+                    cudaStream_t stream) {
+  const int m = bsz * kcap;
+  if (ln_mode == kLnPre) {
+    ln_rows_kernel<T><<<m, kRowThreads, row_smem_bytes(c), stream>>>(p, idx, scale, bias, a, n, c,
+                                                                     kcap);
+    launch_gemm<T>(a, DenseRows{}, w, m, c, f, epi, stream);
+  } else {
+    launch_gemm<T>(p, GatherRows{idx, n, kcap}, w, m, c, f, epi, stream);
+  }
+}
+
 template <typename T>
 int gate_group_mlp(const void* x, void* p, void* b, const float* cov, const void* ln_scale,
                    const void* ln_bias, const void* w1, const void* b1, const void* w2,
                    const void* b2, const void* p_next, const void* next_scale,
                    const void* next_bias, void* y, float* norms, int* pos, int* idx, void* h,
-                   void* h2, int bsz, int n, int c, int hidden, int kcap, cudaStream_t stream) {
+                   void* h2, void* a, int bsz, int n, int c, int hidden, int kcap, int ln_mode,
+                   cudaStream_t stream) {
   const int rows = bsz * n;
   const size_t row_smem = row_smem_bytes(c);
-  ln_select_kernel<T><<<rows, kRowThreads, row_smem, stream>>>(
-      (const T*)x, (T*)p, cov, (const T*)ln_scale, (const T*)ln_bias, c);
+  select_pass<T>((const T*)x, (T*)p, cov, (const T*)ln_scale, (const T*)ln_bias, rows, c, ln_mode,
+                 stream);
   ETK_CHECK_LAUNCH();
   compact_kernel<<<bsz, 32, 0, stream>>>(cov, pos, idx, n, kcap);
   ETK_CHECK_LAUNCH();
   const int m = bsz * kcap;
-  launch_gemm<T>((const T*)p, GatherRows{idx, n, kcap}, (const T*)w1, m, c, hidden,
-                 BiasGeluEpilogue<T>{(const T*)b1, (T*)h, hidden}, stream);
+  compacted_gemm<T>((const T*)p, idx, (const T*)ln_scale, (const T*)ln_bias, (T*)a,
+                    (const T*)w1, bsz, n, c, hidden, kcap, ln_mode,
+                    BiasGeluEpilogue<T>{(const T*)b1, (T*)h, hidden}, stream);
   ETK_CHECK_LAUNCH();
   launch_gemm<T>((const T*)h, DenseRows{}, (const T*)w2, m, hidden, c,
                  BiasEpilogue<T>{(const T*)b2, (T*)h2, c}, stream);
@@ -144,27 +212,24 @@ int gate_group_mlp(const void* x, void* p, void* b, const float* cov, const void
   return 0;
 }
 
-// ln_post != 0: p' = where(cov, ln(x), p); else p' = where(cov, x, p).
-// skip, y, p_next and norms may be null (the qkv group has no skip; the
+// ln_mode kLnPost: p' = where(cov, ln(x), p); else p' = where(cov, x, p),
+// the compacted rows normalised for kLnPre (into the scratch ``a``). skip,
+// y, p_next and norms may be null (the qkv group has no skip; the
 // projection group emits the MLP gate's norms).
 template <typename T>
 int gate_group_linear(const void* x, void* p, void* b, const float* cov, const void* ln_scale,
                       const void* ln_bias, const void* w, const void* wb, const void* skip,
                       const void* p_next, const void* next_scale, const void* next_bias,
-                      void* y, float* norms, int* pos, int* idx, void* h, int bsz, int n, int c,
-                      int f, int kcap, int ln_post, cudaStream_t stream) {
+                      void* y, float* norms, int* pos, int* idx, void* h, void* a, int bsz,
+                      int n, int c, int f, int kcap, int ln_mode, cudaStream_t stream) {
   const int rows = bsz * n;
-  if (ln_post) {
-    ln_select_kernel<T><<<rows, kRowThreads, row_smem_bytes(c), stream>>>(
-        (const T*)x, (T*)p, cov, (const T*)ln_scale, (const T*)ln_bias, c);
-  } else {
-    select_rows_kernel<T><<<rows, kRowThreads, 0, stream>>>((const T*)x, (T*)p, cov, c);
-  }
+  select_pass<T>((const T*)x, (T*)p, cov, (const T*)ln_scale, (const T*)ln_bias, rows, c, ln_mode,
+                 stream);
   ETK_CHECK_LAUNCH();
   compact_kernel<<<bsz, 32, 0, stream>>>(cov, pos, idx, n, kcap);
   ETK_CHECK_LAUNCH();
-  launch_gemm<T>((const T*)p, GatherRows{idx, n, kcap}, (const T*)w, bsz * kcap, c, f,
-                 BiasEpilogue<T>{(const T*)wb, (T*)h, f}, stream);
+  compacted_gemm<T>((const T*)p, idx, (const T*)ln_scale, (const T*)ln_bias, (T*)a, (const T*)w,
+                    bsz, n, c, f, kcap, ln_mode, BiasEpilogue<T>{(const T*)wb, (T*)h, f}, stream);
   ETK_CHECK_LAUNCH();
   blend_kernel<T><<<rows, kRowThreads, row_smem_bytes(f), stream>>>(
       (const T*)skip, (T*)b, pos, (const T*)h, (T*)y, (const T*)p_next, (const T*)next_scale,
@@ -179,12 +244,12 @@ extern "C" int etk_gate_group_linear(int dtype, const void* x, void* p, void* b,
                                      const void* ln_scale, const void* ln_bias, const void* w,
                                      const void* wb, const void* skip, const void* p_next,
                                      const void* next_scale, const void* next_bias, void* y,
-                                     void* norms, void* pos, void* idx, void* h, int bsz, int n,
-                                     int c, int f, int kcap, int ln_post, void* stream) {
+                                     void* norms, void* pos, void* idx, void* h, void* a, int bsz,
+                                     int n, int c, int f, int kcap, int ln_mode, void* stream) {
   ETK_DISPATCH(dtype, return etk::gate_group_linear<T>(
                           x, p, b, (const float*)cov, ln_scale, ln_bias, w, wb, skip, p_next,
-                          next_scale, next_bias, y, (float*)norms, (int*)pos, (int*)idx, h, bsz,
-                          n, c, f, kcap, ln_post, (cudaStream_t)stream));
+                          next_scale, next_bias, y, (float*)norms, (int*)pos, (int*)idx, h, a,
+                          bsz, n, c, f, kcap, ln_mode, (cudaStream_t)stream));
 }
 
 extern "C" int etk_gate_group_mlp(int dtype, const void* x, void* p, void* b, const void* cov,
@@ -192,10 +257,10 @@ extern "C" int etk_gate_group_mlp(int dtype, const void* x, void* p, void* b, co
                                   const void* b1, const void* w2, const void* b2,
                                   const void* p_next, const void* next_scale,
                                   const void* next_bias, void* y, void* norms, void* pos,
-                                  void* idx, void* h, void* h2, int bsz, int n, int c,
-                                  int hidden, int kcap, void* stream) {
+                                  void* idx, void* h, void* h2, void* a, int bsz, int n, int c,
+                                  int hidden, int kcap, int ln_mode, void* stream) {
   ETK_DISPATCH(dtype, return etk::gate_group_mlp<T>(
                           x, p, b, (const float*)cov, ln_scale, ln_bias, w1, b1, w2, b2, p_next,
-                          next_scale, next_bias, y, (float*)norms, (int*)pos, (int*)idx, h, h2,
-                          bsz, n, c, hidden, kcap, (cudaStream_t)stream));
+                          next_scale, next_bias, y, (float*)norms, (int*)pos, (int*)idx, h, h2, a,
+                          bsz, n, c, hidden, kcap, ln_mode, (cudaStream_t)stream));
 }

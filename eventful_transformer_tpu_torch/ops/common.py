@@ -11,6 +11,10 @@ from __future__ import annotations
 import torch
 
 LN_EPS = 1e-6
+# a gate group's LN placement, and its code in the C entries: "post" the gate
+# state in the LN domain, "pre" in x's with the op's rows normalised,
+# "none" no LN
+LN_MODES = {"none": 0, "post": 1, "pre": 2}
 
 
 def ln_f32(x, scale, bias):

@@ -17,6 +17,9 @@ order; an invalid slot holds -1 (the port's convention; the kernels also
 skip any other value outside the rows, such as the JAX package's N), and
 valid indices must be distinct, as a top-k selection makes them. The CUDA
 kernels are ``csrc/gate_block.cu``; see its header for what bounds them.
+``block_select_p`` and ``block_select_scatter`` count their launches in
+``launches`` and, by whether the gate takes ln(x) or x (``apply_ln``), in
+``form_launches``.
 """
 
 from __future__ import annotations
@@ -117,12 +120,14 @@ def block_select_scatter(
         _ptr(norms), slot.data_ptr(), bsz, n, c, f, kp, _build.stream_of(x),
     )
     block_select_scatter.launches += 1
+    block_select_scatter.form_launches["ln" if apply_ln else "no_ln"] += 1
     if y is None:
         return p, b
     return (p, b, y) if norms is None else (p, b, y, norms)
 
 
 block_select_scatter.launches = 0
+block_select_scatter.form_launches = dict.fromkeys(("ln", "no_ln"), 0)
 
 
 def block_select_p_plain(x, p, cov, scale, bias, *, apply_ln):
@@ -156,10 +161,12 @@ def block_select_p(x, p, cov, scale, bias, *, apply_ln):
         _build.stream_of(x),
     )
     block_select_p.launches += 1
+    block_select_p.form_launches["ln" if apply_ln else "no_ln"] += 1
     return p
 
 
 block_select_p.launches = 0
+block_select_p.form_launches = dict.fromkeys(("ln", "no_ln"), 0)
 
 
 def block_scatter_rows_plain(b, index, h):

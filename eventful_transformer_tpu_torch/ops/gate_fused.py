@@ -9,17 +9,21 @@ kernel C. The other three run in the forced gate-fusion regimes "v1",
 
 - ``ln_select_matmul``: p' = where(cov, ln(x) | x, p) in place, then the
   op's linear recomputed over every row of p' (qkv: "post", projection:
-  "none");
+  "none"), or over every row of ln(p') for a qkv gate before its LN
+  ("pre");
 - ``select_linear_skip_norms``: the projection group of "v3", p' =
   where(cov, x, p), y = rnd(rnd(p' W + b) + skip), and the MLP gate's norms
-  ||ln(y) - p_next|| of the rounded y;
-- ``ln_select``: p' = where(cov, ln(x), p) alone (the MLP gate of "v1").
+  ||ln(y) - p_next|| of the rounded y (``next_ln=False``: ||y - p_next||,
+  for an MLP gate before its LN);
+- ``ln_select``: p' = where(cov, ln(x), p) alone (the MLP gate of "v1"), or
+  where(cov, x, p) (``apply_ln=False``).
 
 Each wrapper takes its plain version for CPU tensors and launches its CUDA
 kernels for CUDA tensors: ``csrc/ln_norms.cu``, ``csrc/gate_fused.cu``, and
-for ``ln_select`` the LN select row pass of ``csrc/gate_block.cu``, which
+for ``ln_select`` the select row pass of ``csrc/gate_block.cu``, which
 computes the same function as ``block_select_p``. See the sources' headers
-for what bounds them.
+for what bounds them. Each counts its launches in ``launches`` and, by
+form, in ``form_launches``.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from eventful_transformer_tpu_torch.ops import _build
-from eventful_transformer_tpu_torch.ops.common import ln_f32, row_norms
+from eventful_transformer_tpu_torch.ops.common import LN_MODES, ln_f32, row_norms
 
 
 def ln_norms_plain(x, p, scale, bias):
@@ -73,14 +77,17 @@ def _linear_f32(p_new, w, wb):
 
 def ln_select_matmul_plain(x, p, cov, scale, bias, w, wb, *, ln_mode):
     """x, p (B, N, C); cov (B, N) float32 (> 0 = selected); w (C, F), wb
-    (F,). ``ln_mode`` "post": p' = where(cov, ln(x), p); "none": p' =
-    where(cov, x, p) (scale and bias unused). p' is written into p in p's
-    dtype; y = rnd(p' W + wb) over every row, in x's dtype. Returns (p, y)."""
-    if ln_mode not in ("post", "none"):
-        raise ValueError(f"ln_mode must be 'post' or 'none', got {ln_mode!r}")
+    (F,). ``ln_mode`` "post": p' = where(cov, ln(x), p), y = rnd(p' W + wb);
+    "pre": p' = where(cov, x, p), y = rnd(ln(p') W + wb); "none": p' =
+    where(cov, x, p), y = rnd(p' W + wb) (scale and bias unused). p' is
+    written into p in p's dtype; y over every row, in x's dtype. Returns
+    (p, y)."""
+    if ln_mode not in LN_MODES:
+        raise ValueError(f"ln_mode must be one of {tuple(LN_MODES)}, got {ln_mode!r}")
     p_new = _select_f32(x, p, cov, scale, bias, ln_mode == "post")
     p.copy_(p_new.to(p.dtype))
-    return p, _linear_f32(p_new, w, wb).to(x.dtype)
+    mm_in = ln_f32(p_new, scale, bias) if ln_mode == "pre" else p_new
+    return p, _linear_f32(mm_in, w, wb).to(x.dtype)
 
 
 def _check_rows(name, x, cov, **vectors):
@@ -94,18 +101,20 @@ def _check_rows(name, x, cov, **vectors):
 def ln_select_matmul(x, p, cov, scale, bias, w, wb, *, ln_mode):
     """The wrapper of :func:`ln_select_matmul_plain`, which CPU tensors
     take. CUDA tensors launch the kernels of csrc/gate_fused.cu; every
-    operand but cov in x's dtype (so the GEMM reads p' as the TPU kernel
-    feeds it, p' cast to W's dtype), cov float32."""
+    operand but cov in x's dtype, cov float32. So the GEMM reads p' as the
+    TPU kernel feeds it, p' cast to W's dtype; and for "pre", where x and p
+    share one dtype, the float32 p' that the TPU kernel normalises is the
+    stored p', which the kernel's LN pass reads back."""
     if x.device.type == "cpu":
         return ln_select_matmul_plain(x, p, cov, scale, bias, w, wb, ln_mode=ln_mode)
     name = "ln_select_matmul"
-    if ln_mode not in ("post", "none"):
-        raise ValueError(f"{name}: ln_mode must be 'post' or 'none', got {ln_mode!r}")
+    if ln_mode not in LN_MODES:
+        raise ValueError(f"{name}: ln_mode must be one of {tuple(LN_MODES)}, got {ln_mode!r}")
     c, f = x.shape[-1], w.shape[-1]
-    post = ln_mode == "post"
+    ln = ln_mode != "none"
     operands = dict(p=p, cov=cov, w=w, wb=wb)
     vectors = dict(wb=(wb, f))
-    if post:
+    if ln:
         operands.update(scale=scale, bias=bias)
         vectors.update(scale=(scale, c), bias=(bias, c))
     _build.check_operands(name, x, ("cov",), **operands)
@@ -113,87 +122,110 @@ def ln_select_matmul(x, p, cov, scale, bias, w, wb, *, ln_mode):
     _build.check_shape(name, "w", w, (c, f))
     _check_rows(name, x, cov, **vectors)
     y = torch.empty(x.shape[:-1] + (f,), dtype=x.dtype, device=x.device)
+    # "pre": the scratch for ln(p') over every row, which the GEMM reads
+    a = torch.empty_like(x) if ln_mode == "pre" else None
     _build.launch(
         "etk_ln_select_matmul", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
-        cov.data_ptr(), scale.data_ptr() if post else None, bias.data_ptr() if post else None,
-        w.data_ptr(), wb.data_ptr(), y.data_ptr(), x.numel() // c, c, f, int(post),
-        _build.stream_of(x),
+        cov.data_ptr(), scale.data_ptr() if ln else None, bias.data_ptr() if ln else None,
+        w.data_ptr(), wb.data_ptr(), y.data_ptr(), None if a is None else a.data_ptr(),
+        x.numel() // c, c, f, LN_MODES[ln_mode], _build.stream_of(x),
     )
     ln_select_matmul.launches += 1
+    ln_select_matmul.form_launches[ln_mode] += 1
     return p, y
 
 
 ln_select_matmul.launches = 0
+ln_select_matmul.form_launches = dict.fromkeys(LN_MODES, 0)
 
 
-def select_linear_skip_norms_plain(x, p, cov, w, wb, skip, p_next, scale, bias):
+def select_linear_skip_norms_plain(
+    x, p, cov, w, wb, skip, p_next, scale, bias, *, next_ln=True
+):
     """x, p (B, N, C); cov (B, N) float32; w (C, F), wb (F,); skip and
-    p_next (B, N, F); scale, bias (F,) the next gate's LN. p' = where(cov,
-    x, p) into p in place; y = rnd(rnd(p' W + wb) + skip) over every row;
-    norms = ||ln(y) * scale + bias - p_next|| of the rounded y, float32.
+    p_next (B, N, F); scale, bias (F,) the next gate's LN (unused without
+    ``next_ln``). p' = where(cov, x, p) into p in place; y = rnd(rnd(p' W +
+    wb) + skip) over every row; norms = ||ln(y) * scale + bias - p_next||,
+    or ||y - p_next|| without ``next_ln``, of the rounded y, float32.
     Returns (p, y, norms)."""
     p_new = _select_f32(x, p, cov, None, None, False)
     p.copy_(p_new.to(p.dtype))
     y = _linear_f32(p_new, w, wb).to(x.dtype)
     y = (y.float() + skip.float()).to(x.dtype)
-    return p, y, row_norms(ln_f32(y, scale, bias) - p_next.float())
+    yn = ln_f32(y, scale, bias) if next_ln else y.float()
+    return p, y, row_norms(yn - p_next.float())
 
 
-def select_linear_skip_norms(x, p, cov, w, wb, skip, p_next, scale, bias):
+def select_linear_skip_norms(x, p, cov, w, wb, skip, p_next, scale, bias, *, next_ln=True):
     """The wrapper of :func:`select_linear_skip_norms_plain`, which CPU
     tensors take. CUDA tensors launch the kernels of csrc/gate_fused.cu;
     every operand but cov in x's dtype, cov float32."""
     if x.device.type == "cpu":
-        return select_linear_skip_norms_plain(x, p, cov, w, wb, skip, p_next, scale, bias)
+        return select_linear_skip_norms_plain(
+            x, p, cov, w, wb, skip, p_next, scale, bias, next_ln=next_ln
+        )
     name = "select_linear_skip_norms"
     c, f = x.shape[-1], w.shape[-1]
-    _build.check_operands(
-        name, x, ("cov",), p=p, cov=cov, w=w, wb=wb, skip=skip, p_next=p_next, scale=scale,
-        bias=bias,
-    )
+    operands = dict(p=p, cov=cov, w=w, wb=wb, skip=skip, p_next=p_next)
+    vectors = dict(wb=(wb, f))
+    if next_ln:
+        operands.update(scale=scale, bias=bias)
+        vectors.update(scale=(scale, f), bias=(bias, f))
+    _build.check_operands(name, x, ("cov",), **operands)
     _build.check_shape(name, "p", p, x.shape)
     _build.check_shape(name, "w", w, (c, f))
     for key, t in (("skip", skip), ("p_next", p_next)):
         _build.check_shape(name, key, t, x.shape[:-1] + (f,))
-    _check_rows(name, x, cov, wb=(wb, f), scale=(scale, f), bias=(bias, f))
+    _check_rows(name, x, cov, **vectors)
     y = torch.empty(x.shape[:-1] + (f,), dtype=x.dtype, device=x.device)
     norms = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     _build.launch(
         "etk_select_linear_skip_norms", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
         cov.data_ptr(), w.data_ptr(), wb.data_ptr(), skip.data_ptr(), p_next.data_ptr(),
-        scale.data_ptr(), bias.data_ptr(), y.data_ptr(), norms.data_ptr(), x.numel() // c, c,
-        f, _build.stream_of(x),
+        scale.data_ptr() if next_ln else None, bias.data_ptr() if next_ln else None,
+        y.data_ptr(), norms.data_ptr(), x.numel() // c, c, f, int(next_ln),
+        _build.stream_of(x),
     )
     select_linear_skip_norms.launches += 1
+    select_linear_skip_norms.form_launches["next_ln" if next_ln else "no_ln"] += 1
     return p, y, norms
 
 
 select_linear_skip_norms.launches = 0
+select_linear_skip_norms.form_launches = dict.fromkeys(("next_ln", "no_ln"), 0)
 
 
-def ln_select_plain(x, p, cov, scale, bias):
-    """p' = where(cov, ln(x) * scale + bias, p) rounded to p's dtype, in
+def ln_select_plain(x, p, cov, scale, bias, *, apply_ln=True):
+    """p' = where(cov, ln(x) * scale + bias, p), or where(cov, x, p)
+    without ``apply_ln`` (scale and bias unused), rounded to p's dtype, in
     place. x, p (B, N, C); cov (B, N) float32 (> 0 = selected)."""
-    p.copy_(_select_f32(x, p, cov, scale, bias, True).to(p.dtype))
+    p.copy_(_select_f32(x, p, cov, scale, bias, apply_ln).to(p.dtype))
     return p
 
 
-def ln_select(x, p, cov, scale, bias):
+def ln_select(x, p, cov, scale, bias, *, apply_ln=True):
     """The wrapper of :func:`ln_select_plain`, which CPU tensors take. CUDA
-    tensors launch the LN select row pass of csrc/gate_block.cu."""
+    tensors launch the select row pass of csrc/gate_block.cu."""
     if x.device.type == "cpu":
-        return ln_select_plain(x, p, cov, scale, bias)
+        return ln_select_plain(x, p, cov, scale, bias, apply_ln=apply_ln)
     name = "ln_select"
     c = x.shape[-1]
-    _build.check_operands(name, x, ("cov",), p=p, cov=cov, scale=scale, bias=bias)
+    operands, vectors = dict(p=p, cov=cov), {}
+    if apply_ln:
+        operands.update(scale=scale, bias=bias)
+        vectors.update(scale=(scale, c), bias=(bias, c))
+    _build.check_operands(name, x, ("cov",), **operands)
     _build.check_shape(name, "p", p, x.shape)
-    _check_rows(name, x, cov, scale=(scale, c), bias=(bias, c))
+    _check_rows(name, x, cov, **vectors)
     _build.launch(
         "etk_block_select_p", _build.dtype_code(x), x.data_ptr(), p.data_ptr(), cov.data_ptr(),
-        scale.data_ptr(), bias.data_ptr(), 1, x.numel() // c, c, _build.stream_of(x),
+        scale.data_ptr() if apply_ln else None, bias.data_ptr() if apply_ln else None,
+        int(apply_ln), x.numel() // c, c, _build.stream_of(x),
     )
     ln_select.launches += 1
+    ln_select.form_launches["ln" if apply_ln else "no_ln"] += 1
     return p
 
 
 ln_select.launches = 0
+ln_select.form_launches = dict.fromkeys(("ln", "no_ln"), 0)

@@ -7,10 +7,13 @@ buffer, the residual, and optionally the next block's qkv-gate norms.
 ``gate_group_linear``: the same group around one linear, with an optional
 skip add and next-gate norms; ViTDet's "v2" regime runs it for the global
 blocks' qkv group (``ln_mode="post"``) and every block's projection group
-(``ln_mode="none"`` with the skip and the MLP gate's norms). Only the
-forms with the coverage given are ported; the in-kernel top-k
-(``select_topk``) and ``ln_mode="pre"`` are not (ROADMAP.md, "TPU kernels
-to port").
+(``ln_mode="none"`` with the skip and the MLP gate's norms). Both take
+``ln_mode="pre"``, the group of a gate before its LN: the gate state takes
+x itself, and the compacted rows (the stored p', in p's dtype) are
+normalised before the op. Only the forms with the coverage given are
+ported; the in-kernel top-k (``select_topk``) is not (ROADMAP.md, "TPU
+kernels to port"). Each wrapper counts its launches in ``launches`` and,
+by ``ln_mode``, in ``form_launches``.
 
 ``p`` and ``b`` are updated in place, as the TPU kernels alias them. The
 selected rows are compacted in index order, as the TPU kernels' one-hot
@@ -23,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from eventful_transformer_tpu_torch.ops import _build
-from eventful_transformer_tpu_torch.ops.common import gelu_exact, ln_f32, row_norms
+from eventful_transformer_tpu_torch.ops.common import LN_MODES, gelu_exact, ln_f32, row_norms
 
 
 def _ptr(t):
@@ -49,6 +52,26 @@ def _scatter(h, pos, kcap, n):
     return torch.where((pos < kcap)[..., None], rows, 0.0)
 
 
+def _select_compact(x, p, cov, scale, bias, ln_mode, kcap):
+    """p' = where(cov, ln(x) | x, p) into p in place; returns (pos, the
+    compacted rows of p' in p's dtype, normalised in float32 for "pre",
+    zero in an empty slot)."""
+    bsz, _, c = x.shape
+    new = ln_f32(x, scale, bias) if ln_mode == "post" else x.float()
+    p.copy_(torch.where(cov[..., None] > 0, new, p.float()).to(p.dtype))
+    pos, idx = _slots(cov, kcap)
+    rows = torch.gather(p, 1, idx.clamp(min=0)[..., None].expand(bsz, kcap, c))
+    rows = torch.where(idx[..., None] >= 0, rows, 0.0)
+    if ln_mode == "pre":
+        rows = ln_f32(rows, scale, bias)
+    return pos, rows
+
+
+def _check_ln_mode(name, ln_mode, modes):
+    if ln_mode not in modes:
+        raise ValueError(f"{name}: ln_mode must be one of {modes}, got {ln_mode!r}")
+
+
 def gate_group_linear_plain(
     x, p, b, cov, scale, bias, w, wb, skip=None, p_next=None, next_scale=None,
     next_bias=None, *, ln_mode, kcap
@@ -56,17 +79,13 @@ def gate_group_linear_plain(
     """x (B, N, C) group input; p (B, N, C) gate state and b (B, N, F) token
     buffer, both updated in place; cov (B, N) float32 coverage; w (C, F),
     wb (F,); skip (B, N, F) optional residual. ``ln_mode``: "post" (p in
-    the LN domain) or "none" (p in x's domain; scale and bias unused).
-    Returns (p, b, y, next_norms): y None without ``skip``, next_norms None
-    without ``p_next``."""
-    if ln_mode not in ("post", "none"):
-        raise NotImplementedError(f"gate_group_linear ln_mode={ln_mode!r} is not ported")
-    bsz, n, c = x.shape
-    new = ln_f32(x, scale, bias) if ln_mode == "post" else x.float()
-    p.copy_(torch.where(cov[..., None] > 0, new, p.float()).to(p.dtype))
-    pos, idx = _slots(cov, kcap)
-    rows = torch.gather(p, 1, idx.clamp(min=0)[..., None].expand(bsz, kcap, c))
-    rows = torch.where(idx[..., None] >= 0, rows, 0.0)
+    the LN domain), "pre" (p in x's domain, the compacted rows normalised)
+    or "none" (p in x's domain; scale and bias unused). Returns (p, b, y,
+    next_norms): y None without ``skip``, next_norms None without
+    ``p_next``."""
+    _check_ln_mode("gate_group_linear", ln_mode, tuple(LN_MODES))
+    n = x.shape[1]
+    pos, rows = _select_compact(x, p, cov, scale, bias, ln_mode, kcap)
     h = (torch.matmul(rows.to(w.dtype).float(), w.float()) + wb.float()).to(b.dtype)
     b.copy_(torch.where(cov[..., None] > 0, _scatter(h, pos, kcap, n), b))
     y = next_norms = None
@@ -89,15 +108,15 @@ def gate_group_linear(
             ln_mode=ln_mode, kcap=kcap,
         )
     name = "gate_group_linear"
-    if ln_mode not in ("post", "none"):
-        raise NotImplementedError(f"{name} ln_mode={ln_mode!r} is not ported")
+    _check_ln_mode(name, ln_mode, tuple(LN_MODES))
     if p_next is not None and skip is None:
         raise ValueError(f"{name}: the next gate's norms need the skip output")
     bsz, n, c = x.shape
     f = w.shape[-1]
     shapes = dict(p=x.shape, b=(bsz, n, f), cov=(bsz, n), w=(c, f), wb=(f,))
     operands = dict(p=p, b=b, cov=cov, w=w, wb=wb)
-    if ln_mode == "post":
+    ln = ln_mode != "none"
+    if ln:
         shapes.update(scale=(c,), bias=(c,))
         operands.update(scale=scale, bias=bias)
     if skip is not None:
@@ -118,37 +137,45 @@ def gate_group_linear(
     pos = torch.empty((bsz, n), dtype=torch.int32, device=x.device)
     idx = torch.empty((bsz, kcap), dtype=torch.int32, device=x.device)
     h = torch.empty((bsz, kcap, f), dtype=x.dtype, device=x.device)
-    post = ln_mode == "post"
+    rows = _normalised_rows(x, ln_mode, kcap)
     _build.launch(
         "etk_gate_group_linear", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
-        b.data_ptr(), cov.data_ptr(), _ptr(scale) if post else None,
-        _ptr(bias) if post else None, w.data_ptr(), wb.data_ptr(), _ptr(skip),
+        b.data_ptr(), cov.data_ptr(), _ptr(scale) if ln else None,
+        _ptr(bias) if ln else None, w.data_ptr(), wb.data_ptr(), _ptr(skip),
         _ptr(p_next), _ptr(next_scale), _ptr(next_bias), _ptr(y), _ptr(norms),
-        pos.data_ptr(), idx.data_ptr(), h.data_ptr(), bsz, n, c, f, kcap, int(post),
-        _build.stream_of(x),
+        pos.data_ptr(), idx.data_ptr(), h.data_ptr(), _ptr(rows), bsz, n, c, f, kcap,
+        LN_MODES[ln_mode], _build.stream_of(x),
     )
     gate_group_linear.launches += 1
+    gate_group_linear.form_launches[ln_mode] += 1
     return p, b, y, norms
 
 
 gate_group_linear.launches = 0
+gate_group_linear.form_launches = dict.fromkeys(LN_MODES, 0)
+
+
+def _normalised_rows(x, ln_mode, kcap):
+    """The scratch (B, kcap, C) in x's dtype for the "pre" form's
+    normalised compacted rows, or None."""
+    if ln_mode != "pre":
+        return None
+    return torch.empty((x.shape[0], kcap, x.shape[-1]), dtype=x.dtype, device=x.device)
 
 
 def gate_group_mlp_plain(
     x, p, b, cov, scale, bias, w1, b1, w2, b2, p_next=None, next_scale=None,
-    next_bias=None, *, kcap
+    next_bias=None, *, ln_mode="post", kcap
 ):
-    """x (B, N, C) group input, doubling as the residual; p gate state
-    (post-LN domain) and b token buffer, both updated in place; cov (B, N)
-    float32 coverage. Returns (p, b, y, next_norms), next_norms None unless
-    ``p_next`` is given."""
+    """x (B, N, C) group input, doubling as the residual; p gate state and
+    b token buffer, both updated in place; cov (B, N) float32 coverage.
+    ``ln_mode``: "post" (p in the LN domain) or "pre" (p in x's domain, the
+    compacted rows normalised). Returns (p, b, y, next_norms), next_norms
+    None unless ``p_next`` is given."""
+    _check_ln_mode("gate_group_mlp", ln_mode, ("post", "pre"))
     wd = x.dtype
-    bsz, n, c = x.shape
-    p_new = torch.where(cov[..., None] > 0, ln_f32(x, scale, bias), p.float())
-    p.copy_(p_new.to(p.dtype))
-    pos, idx = _slots(cov, kcap)
-    rows = torch.gather(p, 1, idx.clamp(min=0)[..., None].expand(bsz, kcap, c))
-    rows = torch.where(idx[..., None] >= 0, rows, 0.0)
+    n = x.shape[1]
+    pos, rows = _select_compact(x, p, cov, scale, bias, ln_mode, kcap)
     h = torch.matmul(rows.to(w1.dtype).float(), w1.float()) + b1.float()
     h = gelu_exact(h).to(wd)
     h2 = (torch.matmul(h.to(w2.dtype).float(), w2.float()) + b2.float()).to(b.dtype)
@@ -162,16 +189,17 @@ def gate_group_mlp_plain(
 
 def gate_group_mlp(
     x, p, b, cov, scale, bias, w1, b1, w2, b2, p_next=None, next_scale=None,
-    next_bias=None, *, kcap
+    next_bias=None, *, ln_mode="post", kcap
 ):
     """Kernel C; the wrapper of :func:`gate_group_mlp_plain`, which CPU
     tensors take. CUDA tensors launch the kernels of csrc/gate_group.cu."""
     if x.device.type == "cpu":
         return gate_group_mlp_plain(
             x, p, b, cov, scale, bias, w1, b1, w2, b2, p_next, next_scale,
-            next_bias, kcap=kcap,
+            next_bias, ln_mode=ln_mode, kcap=kcap,
         )
     name = "gate_group_mlp"
+    _check_ln_mode(name, ln_mode, ("post", "pre"))
     bsz, n, c = x.shape
     hidden = w1.shape[-1]
     shapes = dict(
@@ -194,16 +222,19 @@ def gate_group_mlp(
     idx = torch.empty((bsz, kcap), dtype=torch.int32, device=x.device)
     h = torch.empty((bsz, kcap, hidden), dtype=x.dtype, device=x.device)
     h2 = torch.empty((bsz, kcap, c), dtype=x.dtype, device=x.device)
+    rows = _normalised_rows(x, ln_mode, kcap)
     _build.launch(
         "etk_gate_group_mlp", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
         b.data_ptr(), cov.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), _ptr(p_next),
         _ptr(next_scale), _ptr(next_bias), y.data_ptr(), _ptr(norms), pos.data_ptr(),
-        idx.data_ptr(), h.data_ptr(), h2.data_ptr(), bsz, n, c, hidden, kcap,
-        _build.stream_of(x),
+        idx.data_ptr(), h.data_ptr(), h2.data_ptr(), _ptr(rows), bsz, n, c, hidden, kcap,
+        LN_MODES[ln_mode], _build.stream_of(x),
     )
     gate_group_mlp.launches += 1
+    gate_group_mlp.form_launches[ln_mode] += 1
     return p, b, y, norms
 
 
 gate_group_mlp.launches = 0
+gate_group_mlp.form_launches = dict.fromkeys(("post", "pre"), 0)

@@ -24,6 +24,9 @@ from eventful_transformer_tpu_torch.ops import (
 # (wrapper, plain version, CUDA source, the TPU kernel it replaces, names
 # of the outputs in the order the wrapper returns them). A kernel with two
 # forms on the main paths has an entry per form.
+_GG = "eventful_transformer_tpu/ops/pallas/gate_group.py"
+_GF = "eventful_transformer_tpu/ops/pallas/gate_fused.py"
+_GB = "eventful_transformer_tpu/ops/pallas/gate_block.py"
 KERNELS = {
     "ln_norms": (
         gate_fused.ln_norms, gate_fused.ln_norms_plain,
@@ -150,7 +153,73 @@ KERNELS = {
         "eventful_transformer_tpu_torch/csrc/av_softmax.cu",
         "eventful_transformer_tpu/ops/pallas/av_softmax.py:125", ("p_a", "out"),
     ),
+    # the forms of gates before their LN (gate_before_ln)
+    "gate_group_mlp_pre": (
+        gate_group.gate_group_mlp, gate_group.gate_group_mlp_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_group.cu", f"{_GG}:421", ("p", "b", "y"),
+    ),
+    "gate_group_linear_pre": (
+        gate_group.gate_group_linear, gate_group.gate_group_linear_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_group.cu", f"{_GG}:244", ("p", "b"),
+    ),
+    "ln_select_matmul_pre": (
+        gate_fused.ln_select_matmul, gate_fused.ln_select_matmul_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_fused.cu", f"{_GF}:98", ("p", "y"),
+    ),
+    "select_linear_skip_norms_noln": (
+        gate_fused.select_linear_skip_norms, gate_fused.select_linear_skip_norms_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_fused.cu", f"{_GF}:186", ("p", "y", "norms"),
+    ),
+    "ln_select_noln": (
+        gate_fused.ln_select, gate_fused.ln_select_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_block.cu", f"{_GF}:273", ("p",),
+    ),
+    "block_select_p_noln": (
+        gate_block.block_select_p, gate_block.block_select_p_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_block.cu", f"{_GB}:303", ("p",),
+    ),
+    "block_select_scatter_qkv_noln": (
+        gate_block.block_select_scatter, gate_block.block_select_scatter_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_block.cu", f"{_GB}:141", ("p", "b"),
+    ),
+    "block_select_scatter_mlp_noln": (
+        gate_block.block_select_scatter, gate_block.block_select_scatter_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_block.cu", f"{_GB}:141", ("p", "b", "y"),
+    ),
 }
+
+# The form of each entry whose wrapper counts launches by form
+# (``form_launches``); the other entries report the wrapper's total.
+FORMS = {
+    "gate_group_mlp": "post", "gate_group_mlp_pre": "pre",
+    "gate_group_linear": "none", "gate_group_linear_post": "post", "gate_group_linear_pre": "pre",
+    "ln_select_matmul_post": "post", "ln_select_matmul_none": "none",
+    "ln_select_matmul_pre": "pre",
+    "select_linear_skip_norms": "next_ln", "select_linear_skip_norms_noln": "no_ln",
+    "ln_select": "ln", "ln_select_noln": "no_ln",
+    "block_select_p": "ln", "block_select_p_noln": "no_ln",
+    "block_select_scatter_qkv": "ln", "block_select_scatter_mlp": "ln",
+    "block_select_scatter_proj": "no_ln", "block_select_scatter_qkv_noln": "no_ln",
+    "block_select_scatter_mlp_noln": "no_ln",
+}
+
+
+def launches(name):
+    """The launches counted for entry ``name``: its form's count where its
+    wrapper counts by form, else the wrapper's total."""
+    wrapper = KERNELS[name][0]
+    if name in FORMS:
+        return wrapper.form_launches[FORMS[name]]
+    return wrapper.launches
+
+
+def reset_launches():
+    """Every wrapper's counts to 0."""
+    for entry in KERNELS.values():
+        wrapper = entry[0]
+        wrapper.launches = 0
+        for form in getattr(wrapper, "form_launches", {}):
+            wrapper.form_launches[form] = 0
 
 # Bounds on each output of a kernel against its plain version. With
 # "scaled error" |kernel - plain| / max(1, |plain|):
@@ -359,6 +428,32 @@ def _invoke(name, fn, d):
                   d["ln2_s"], d["ln2_b"])
     if name == "ln_select":
         return (fn(d["x"], d["p_mlp"], d["cov3"], d["ln2_s"], d["ln2_b"]),)
+    if name == "gate_group_mlp_pre":
+        return fn(
+            d["x"], d["p_mlp"], d["b_mlp"], d["cov3"], d["ln2_s"], d["ln2_b"], d["w1"], d["b1"],
+            d["w2"], d["b2"], ln_mode="pre", kcap=d["k"],
+        )[:3]
+    if name == "gate_group_linear_pre":
+        return fn(
+            d["x"], d["p_qkv"], d["buf_qkv"], d["cov1"], d["ln1_s"], d["ln1_b"], d["w_qkv"],
+            d["b_qkv"], ln_mode="pre", kcap=d["k"],
+        )[:2]
+    if name == "ln_select_matmul_pre":
+        return fn(d["x"], d["p_qkv"], d["cov1"], d["ln1_s"], d["ln1_b"], d["w_qkv"], d["b_qkv"],
+                  ln_mode="pre")
+    if name == "select_linear_skip_norms_noln":
+        return fn(d["attn"], d["p_proj"], d["cov2"], d["w_proj"], d["b_proj"], d["x"], d["p_mlp"],
+                  None, None, next_ln=False)
+    if name == "ln_select_noln":
+        return (fn(d["x"], d["p_mlp"], d["cov3"], None, None, apply_ln=False),)
+    if name == "block_select_p_noln":
+        return (fn(d["x"], d["p_qkv"], d["cov1"], None, None, apply_ln=False),)
+    if name == "block_select_scatter_qkv_noln":
+        return fn(d["x"], d["p_qkv"], d["buf_qkv"], d["cov_sel"], d["w_index"], d["h_rows"], None,
+                  None, apply_ln=False)
+    if name == "block_select_scatter_mlp_noln":
+        return fn(d["x"], d["p_mlp"], d["b_mlp"], d["cov_sel"], d["w_index"], d["h_c"], None,
+                  None, apply_ln=False, residual_x=True)
     if name == "window_attention_padded":
         c = d["x"].shape[-1]
         return (fn(d["qkv_pad"], d["terms_pad"], d["pad_bias"], d["pad_terms"],
@@ -433,7 +528,7 @@ def _matmul_ops(name, d):
         return 2.0 * bsz * n * c * 3 * c + 4.0 * bsz * n * n * c
     if name == "proj_group":
         return 2.0 * bsz * n * c * c
-    if name == "gate_group_mlp":
+    if name in ("gate_group_mlp", "gate_group_mlp_pre"):
         return 4.0 * float(d["cov3"].sum()) * c * d["w1"].shape[1]
     if name == "dense_mlp_residual":
         return 4.0 * bsz * n * c * d["w1"].shape[1]
@@ -447,15 +542,16 @@ def _matmul_ops(name, d):
         return 4.0 * nw * t * t * c
     if name == "gate_group_linear":
         return 2.0 * float(d["cov2"].sum()) * c * c
-    if name == "gate_group_linear_post":
+    if name in ("gate_group_linear_post", "gate_group_linear_pre"):
         return 2.0 * float(d["cov1"].sum()) * c * 3 * c
     if name.startswith("softmax_select_matmul_logits"):
         return 2.0 * bsz * n * d["p_a"].shape[-1] * c  # A.V only
     if name.startswith("softmax_select_matmul"):
         return 4.0 * bsz * n * d["p_a"].shape[-1] * c
-    if name == "ln_select_matmul_post":
+    if name in ("ln_select_matmul_post", "ln_select_matmul_pre"):
         return 2.0 * bsz * n * c * d["w_qkv"].shape[1]
-    if name in ("ln_select_matmul_none", "select_linear_skip_norms"):
+    if name in ("ln_select_matmul_none", "select_linear_skip_norms",
+                "select_linear_skip_norms_noln"):
         return 2.0 * bsz * n * c * c
     if name.startswith("relpos_bias_add"):
         p = d["rp_p"]
@@ -496,6 +592,9 @@ def io_bytes(name, d):
         return (read("x", "b_mlp", "cov3", "ln2_s", "ln2_b", "w1", "b1", "w2", "b2", "p_next",
                      "ln1_s", "ln1_b")
                 + rows("p_mlp", "cov3") + rows("b_mlp", "cov3") + tokens + norms)
+    if name == "gate_group_mlp_pre":  # no next-gate norms before the LN
+        return (read("x", "b_mlp", "cov3", "ln2_s", "ln2_b", "w1", "b1", "w2", "b2")
+                + rows("p_mlp", "cov3") + rows("b_mlp", "cov3") + tokens)
     if name == "dense_mlp_residual":
         return read("x", "ln2_s", "ln2_b", "w1", "b1", "w2", "b2") + tokens
     if name == "window_attention":
@@ -509,17 +608,25 @@ def io_bytes(name, d):
         return (read("attn", "buf_proj", "cov2", "w_proj", "b_proj", "x", "p_mlp", "ln2_s",
                      "ln2_b")
                 + rows("p_proj", "cov2") + rows("buf_proj", "cov2") + tokens + norms)
-    if name == "gate_group_linear_post":
+    if name in ("gate_group_linear_post", "gate_group_linear_pre"):
         return (read("x", "cov1", "ln1_s", "ln1_b", "w_qkv", "b_qkv")
                 + rows("p_qkv", "cov1") + rows("buf_qkv", "cov1"))
     if name == "block_select_p":
         return read("x", "cov1", "ln1_s", "ln1_b") + rows("p_qkv", "cov1")
+    if name == "block_select_p_noln":
+        return read("x", "cov1") + rows("p_qkv", "cov1")
     # the index kernels: cov_sel marks the rows the valid slots of w_index name
     if name == "block_scatter_rows":
         return read("w_index", "h_rows") + rows("buf_qkv", "cov_sel")
     if name == "block_select_scatter_qkv":
         return (read("x", "cov_sel", "w_index", "h_rows", "ln1_s", "ln1_b")
                 + rows("p_qkv", "cov_sel") + rows("buf_qkv", "cov_sel"))
+    if name == "block_select_scatter_qkv_noln":
+        return (read("x", "cov_sel", "w_index", "h_rows")
+                + rows("p_qkv", "cov_sel") + rows("buf_qkv", "cov_sel"))
+    if name == "block_select_scatter_mlp_noln":
+        return (read("x", "b_mlp", "cov_sel", "w_index", "h_c")
+                + rows("p_mlp", "cov_sel") + rows("b_mlp", "cov_sel") + tokens)
     if name == "block_select_scatter_proj":
         return (read("attn", "buf_proj", "cov_sel", "w_index", "h_c", "x", "p_mlp", "ln2_s",
                      "ln2_b")
@@ -534,7 +641,7 @@ def io_bytes(name, d):
         return (read("p_a", "av_cov", "p_v", *inputs, *terms)
                 + rows("p_a", "av_cov") + _nbytes(d["av_q"]))
     # the dense recomputes read the whole gate state, whose old rows they use
-    if name == "ln_select_matmul_post":
+    if name in ("ln_select_matmul_post", "ln_select_matmul_pre"):
         return (read("x", "p_qkv", "cov1", "ln1_s", "ln1_b", "w_qkv", "b_qkv")
                 + rows("p_qkv", "cov1") + 3 * tokens)
     if name == "ln_select_matmul_none":
@@ -542,8 +649,13 @@ def io_bytes(name, d):
     if name == "select_linear_skip_norms":
         return (read("attn", "p_proj", "cov2", "w_proj", "b_proj", "x", "p_mlp", "ln2_s", "ln2_b")
                 + rows("p_proj", "cov2") + tokens + norms)
+    if name == "select_linear_skip_norms_noln":
+        return (read("attn", "p_proj", "cov2", "w_proj", "b_proj", "x", "p_mlp")
+                + rows("p_proj", "cov2") + tokens + norms)
     if name == "ln_select":
         return read("x", "cov3", "ln2_s", "ln2_b") + rows("p_mlp", "cov3")
+    if name == "ln_select_noln":
+        return read("x", "cov3") + rows("p_mlp", "cov3")
     if name.startswith("relpos_bias_add"):
         return read("rp_x", "rp_q", "rp_y", "rp_xr") + _nbytes(d["rp_x"])
     raise KeyError(name)

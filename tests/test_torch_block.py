@@ -114,8 +114,6 @@ def test_dense_block_matches_jax(jax_kernels):
 UNSUPPORTED = {
     "ats": lambda: blocks.EventfulTokenwiseBlock(**KWARGS, ats_fraction=0.5),
     "drop_path": lambda: blocks.EventfulTokenwiseBlock(**KWARGS, drop_path_rate=0.1),
-    "gate_before_ln": lambda: blocks.EventfulTokenwiseBlock(**KWARGS, gate_before_ln=True),
-    "stgt": lambda: blocks.EventfulTokenwiseBlock(**KWARGS, stgt=True),
     "sequence_parallel": lambda: blocks.Block(**KWARGS, sequence_parallel="sp"),
 }
 

@@ -10,6 +10,7 @@ import copy
 import pytest
 import torch
 
+from eventful_transformer_tpu_torch.core.counting import Ctx
 from eventful_transformer_tpu_torch.ops import kernel_check
 
 pytestmark = pytest.mark.cuda
@@ -260,4 +261,145 @@ def test_small_vivit_evblock_card_matches_cpu(attrs, device):
         want = want | {"softmax_select_matmul_logits"}
     assert want | {"window_attention", "dense_mlp_residual"} <= launched
     want_probs = model.apply(Ctx(), video)
+    torch.testing.assert_close(got.cpu(), want_probs, rtol=1e-5, atol=1e-5)
+
+
+# -- gates before their LN (gate_before_ln) and STGT gates ------------------------
+
+PRE_LN_FORMS = {
+    "gate_group_mlp_pre", "gate_group_linear_pre", "ln_select_matmul_pre",
+    "select_linear_skip_norms_noln", "ln_select_noln", "block_select_p_noln",
+    "block_select_scatter_qkv_noln", "block_select_scatter_mlp_noln",
+}
+
+
+@pytest.mark.parametrize("name", sorted(PRE_LN_FORMS))
+def test_pre_ln_form_rejects_a_view(name, device):
+    """Each new form's wrapper raises on a non-contiguous view of x rather
+    than reading it as if it were contiguous."""
+    d = kernel_check.make_inputs(2, 24, 64, 4, 9, torch.bfloat16, device)
+    key = "attn" if name.startswith("select_linear") else "x"
+    d[key] = d[key].transpose(0, 1).contiguous().transpose(0, 1)
+    assert not d[key].is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel_check.call(name, d)
+
+
+def _form_launches():
+    """Each wrapper's total, then (winning where a name is both) each
+    entry's count by ``kernel_check.launches``."""
+    totals = {entry[0].__name__: entry[0].launches for entry in kernel_check.KERNELS.values()}
+    return totals | {name: kernel_check.launches(name) for name in kernel_check.KERNELS}
+
+
+def _small_vitdet(eventful_options, regime):
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import ViTDet
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    block = dict(dim=64, heads=4, mlp_ratio=2, window_size=[3, 3],
+                 relative_embedding_size=[8, 8], **eventful_options)
+    model = ViTDet(
+        backbone_config=dict(depth=4, position_encoding_size=[4, 4], window_indices=[0, 2],
+                             block_class="EventfulTokenwiseBlock", block_config=block),
+        classes=5, input_shape=[3, 128, 128], normalize_mean=[0.0] * 3,
+        normalize_std=[1.0] * 3, output_channels=16, patch_size=[16, 16], scale_factors=[1.0],
+        device="cpu",
+    )
+    set_policies(model, TokenNormTopK, k=12)
+    for blk in model.backbone.blocks:
+        blk.fused_gates = regime
+    return model
+
+
+@pytest.mark.parametrize(
+    "options,regime",
+    [(dict(gate_before_ln=True), "v2"), (dict(gate_before_ln=True), "blocked"),
+     (dict(stgt=True), "auto")],
+    ids=["compare_ln_v2", "compare_ln_blocked", "stgt"],
+)
+def test_small_vitdet_options_card_match_cpu(options, regime, device):
+    """A small ViTDet of EventfulTokenwiseBlocks on an 8 x 8 grid with 3 x 3
+    windows (pad rows), every gate before its LN ("v2" or "blocked") or
+    STGT, 2 streams x 3 frames in float32 on the card against the CPU:
+    tokens within 1e-3, the forms of the path launched (the STGT path
+    launches no gate kernel)."""
+    model = _small_vitdet(options, regime)
+    card = copy.deepcopy(model).to(device)
+    frames = torch.rand((3, 2, 3, 128, 128), generator=torch.Generator().manual_seed(0))
+    outs = []
+    for m, x in ((card, frames.to(device)), (model, frames)):
+        kernel_check.reset_launches()
+        state = m.init_state(2, torch.float32, x.device)
+        with torch.no_grad():
+            for t in range(3):
+                tokens = m.pre_backbone(Ctx(), x[t])
+                tokens, state = m.apply_backbone(
+                    Ctx(), state, tokens, mode="flush" if t == 0 else "incremental"
+                )
+        outs.append(tokens.cpu())
+        if m is card:
+            torch.cuda.synchronize()
+            counts = _form_launches()
+    steps = 2
+    want = {
+        "v2": dict(gate_group_linear_pre=2 * steps, gate_group_mlp_pre=4 * steps,
+                   block_select_p_noln=2 * steps, block_scatter_rows=2 * steps,
+                   gate_group_linear=4 * steps, ln_norms=0),
+        "blocked": dict(block_select_scatter_qkv_noln=10 * steps, block_select_p_noln=2 * steps,
+                        block_scatter_rows=2 * steps, block_select_scatter=10 * steps,
+                        ln_norms=0),
+        "auto": dict(gate_group_mlp=0, gate_group_linear=0, block_select_p=0,
+                     block_select_scatter=0, ln_norms=0, window_attention=2 * 3,
+                     relpos_bias_add_v2=2 * 3),
+    }[regime]
+    for name, count in want.items():
+        assert counts[name] == count, (name, counts)
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("regime", ["auto", "v1", "v1v2", "v3"])
+def test_small_vivit_gate_before_ln_card_matches_cpu(regime, device):
+    """A small ViViT of EventfulTokenwiseBlocks with every gate before its
+    LN through ``apply_views``, float32, on the card against the CPU in
+    "auto" ("v2mlp": "v4" does not take such a block) and the forced
+    regimes: probabilities within 1e-5, the pre-LN forms launched."""
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    block = dict(dim=64, heads=4, mlp_ratio=2)
+    model = FactorizedViViT(
+        classes=10, input_shape=[8, 3, 32, 32], normalize_mean=0.45, normalize_std=0.225,
+        spatial_views=1, temporal_stride=2, temporal_views=2, tubelet_shape=[2, 8, 8],
+        spatial_config=dict(depth=2, position_encoding_size=[4, 4],
+                            block_class="EventfulTokenwiseBlock",
+                            block_config=dict(block, gate_before_ln=True)),
+        temporal_config=dict(depth=1, position_encoding_size=[4], block_config=block),
+        device="cpu",
+    )
+    set_policies(model, TokenNormTopK, k=6)
+    for blk in model.spatial_model.backbone.blocks:
+        blk.fused_gates = regime
+    card = copy.deepcopy(model).to(device)
+    views = torch.randn((1, 2, 8, 3, 32, 32), generator=torch.Generator().manual_seed(0))
+    kernel_check.reset_launches()
+    with torch.no_grad():
+        got = card.apply_views(Ctx(), views.to(device))
+    torch.cuda.synchronize()
+    counts = _form_launches()
+    steps = 3 * 2  # incremental steps x spatial blocks
+    want = {
+        "auto": dict(gate_group_mlp_pre=steps, ln_norms=0, qkv_attention_group=0),
+        "v1": dict(ln_select_matmul_pre=steps, ln_select_matmul_none=steps,
+                   ln_select_noln=steps, ln_norms=0),
+        "v1v2": dict(ln_select_matmul_pre=steps, ln_select_matmul_none=steps,
+                     gate_group_mlp_pre=steps, ln_norms=0),
+        "v3": dict(ln_select_matmul_pre=steps, select_linear_skip_norms_noln=steps,
+                   gate_group_mlp_pre=steps, ln_norms=0),
+    }[regime]
+    for name, count in want.items():
+        assert counts[name] == count, (name, counts)
+    with torch.no_grad():
+        want_probs = model.apply_views(Ctx(), views)
     torch.testing.assert_close(got.cpu(), want_probs, rtol=1e-5, atol=1e-5)

@@ -66,3 +66,23 @@ def test_float32_norm_without_ln_bias_fails():
     norms = 20.0 + torch.rand(512, generator=torch.Generator().manual_seed(1))
     assert kernel_check.compare(norms * (1 + 1e-6), norms)["ok"]
     assert not kernel_check.compare(norms * 1.0025, norms)["ok"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "name", ["gate_group_mlp_pre", "gate_group_linear_pre", "ln_select_matmul_pre"]
+)
+def test_dropped_ln_in_a_pre_form_fails(name, dtype, monkeypatch):
+    """A "pre" form that forgets to normalise the rows it feeds the op,
+    planted in its plain version: the gate state it writes is unchanged
+    and passes, the op's output fails the bounds."""
+    import inspect
+
+    d = kernel_check.make_inputs(2, 197, 256, 4, 24, dtype, "cpu")
+    want = kernel_check.call(name, d, plain=True)
+    module = inspect.getmodule(kernel_check.KERNELS[name][1])
+    monkeypatch.setattr(module, "ln_f32", lambda x, scale, bias: x.float())
+    got = kernel_check.call(name, d, plain=True)
+    rows = [kernel_check.compare(a, b) for a, b in zip(got, want)]
+    assert rows[0]["ok"] and rows[0]["max_abs_err"] == 0.0  # p' takes x itself
+    assert not all(row["ok"] for row in rows[1:]), rows

@@ -143,6 +143,41 @@ print("ok")
 """
 
 
+OPTIONS_SCRIPT = """
+import sys
+sys.modules["jax"] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from eventful_transformer_tpu_torch.core.counting import Ctx
+from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+from eventful_transformer_tpu_torch.models import ViTDet
+from eventful_transformer_tpu_torch.utils.misc import set_policies
+frames = torch.from_numpy(np.random.default_rng(0).uniform(size=(3, 1, 3, 96, 96)).astype(np.float32))
+for options, regime in ((dict(gate_before_ln=True), "v2"), (dict(gate_before_ln=True), "blocked"),
+                        (dict(stgt=True), "auto")):
+    block = dict(dim=32, heads=4, mlp_ratio=2, window_size=[3, 3], relative_embedding_size=[8, 8],
+                 **options)
+    model = ViTDet(
+        backbone_config=dict(depth=2, position_encoding_size=[4, 4], window_indices=[0],
+                             block_class="EventfulTokenwiseBlock", block_config=block),
+        classes=5, input_shape=[3, 96, 96], normalize_mean=[0.0] * 3, normalize_std=[1.0] * 3,
+        output_channels=16, patch_size=[16, 16], scale_factors=[1.0], device="cpu",
+    )
+    set_policies(model, TokenNormTopK, k=8)
+    for blk in model.backbone.blocks:
+        blk.fused_gates = regime
+    state = model.init_state(1)
+    for t in range(3):
+        tokens = model.pre_backbone(Ctx(), frames[t])
+        out, state = model.apply_backbone(Ctx(), state, tokens, mode="flush" if t == 0 else "incremental")
+    assert out.shape == (1, 36, 32) and bool(torch.isfinite(out).all())
+assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
+               for name, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+
+
 def _run(script):
     result = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
@@ -174,3 +209,9 @@ def test_vivit_apply_runs_without_jax():
     ``FactorizedViViT.apply``: preprocessing with the antialiased resize,
     3 x 2 views."""
     _run(APPLY_SCRIPT)
+
+
+def test_block_options_run_without_jax():
+    """Gates before LN ("v2", "blocked") and STGT gates in a small ViTDet
+    backbone, without JAX."""
+    _run(OPTIONS_SCRIPT)

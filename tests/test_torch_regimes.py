@@ -5,7 +5,10 @@ EventfulBlock, EventfulBlock with the bfloat16 matmul-2 cast} x {"v2mlp",
 "v1", "v1v2", "v3", False}, and EventfulBlock with the reference's cached
 q.kT product through the A.V kernel's logits form (``recompute_product =
 False``, ``av_kernel = True``) and with the delta-accumulated A.V product
-(``recompute_av = False``).
+(``recompute_av = False``); and ``EventfulMatmul1Block`` (the A.V ablation,
+configs/evaluate/vitdet_vid/_ablate_av.yml) with rel-pos in {"v2mlp", "v2",
+"blocked", False} x {k/v pool 2, none} x {the bfloat16 cast, none} x
+{``recompute_product`` True, False}.
 
 The JAX block runs the same regime forced (``fused_gates``), its Pallas
 kernels in interpret mode, at "highest" matmul precision
@@ -86,13 +89,18 @@ def _close(port, ref, tol):
     )
 
 
-def _run_and_compare(jax_blk, blk, params, tol):
-    rng = np.random.default_rng(2)
-    base = rng.standard_normal((B, N, C)).astype(np.float32)
-    xs = [base + 0.3 * rng.standard_normal((B, N, C)).astype(np.float32) for _ in range(4)]
+def _run_and_compare(jax_blk, blk, params, tol, xs=None):
+    """A flush and 3 incremental steps on ``xs`` (by default (B, N, C)
+    frames from seed 2): outputs each step, then every state leaf and
+    count key."""
+    if xs is None:
+        rng = np.random.default_rng(2)
+        base = rng.standard_normal((B, N, C)).astype(np.float32)
+        xs = [base + 0.3 * rng.standard_normal((B, N, C)).astype(np.float32) for _ in range(4)]
+    n = xs[0].shape[1]
     jax_ctx, ctx = JaxCtx(count_mode=True), Ctx(count_mode=True)
-    jax_state = jax_blk.init_state(B, N)
-    state = blk.init_state(B, N, torch.float32, "cpu")
+    jax_state = jax_blk.init_state(B, n)
+    state = blk.init_state(B, n, torch.float32, "cpu")
     aux = jax_blk.precompute(params)
     with torch.no_grad():
         for t, x in enumerate(xs):
@@ -141,3 +149,39 @@ def test_auto_gives_v2mlp_for_eventful_block():
     assert blk.fused_gates == "auto" and blk._fused_mode(197) == "v2mlp"
     state = blk.init_state(B, N, torch.float32, "cpu")
     assert "qkv_accumulator" not in state and "projection_accumulator" not in state
+
+
+M1_REGIMES = ["v2mlp", "v2", "blocked", False]
+
+
+@pytest.mark.parametrize("recompute_product", [True, False], ids=["recompute", "cached"])
+@pytest.mark.parametrize("cast", [None, "bfloat16"], ids=["f32", "cast_bf16"])
+@pytest.mark.parametrize("pool", [None, 2], ids=["no_pool", "pool2"])
+@pytest.mark.parametrize("regime", M1_REGIMES, ids=[str(r) for r in M1_REGIMES])
+def test_matmul1_block_matches_jax(regime, pool, cast, recompute_product):
+    """EventfulMatmul1Block on a 6 x 6 grid with rel-pos: its q.kT product
+    recomputed (counted as the reference's row and column updates) or
+    cached, its plain A.V product, in every regime the global blocks of the
+    ablation run."""
+    kwargs = dict(dim=32, heads=4, mlp_ratio=2, input_size=(6, 6), pool_size=pool,
+                  relative_embedding_size=[8, 8], matmul_2_cast=cast)
+    jax_blk = jax_blocks.EventfulMatmul1Block(**kwargs)
+    blk = blocks.EventfulMatmul1Block(**kwargs)
+    jax_blk.fused_gates = blk.fused_gates = regime
+    jax_blk.recompute_product = blk.recompute_product = recompute_product
+    for gate in jax_blk.modules_of_type(jax_blocks.TokenGate):
+        gate.policy = copy.deepcopy(JaxTopK(k=8))
+    for gate in blk.gates:
+        gate.policy = TokenNormTopK(k=8)
+    assert jax_blk._fused_mode(36) == blk._fused_mode(36) == regime
+    like = jax_blk.init(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(3)
+    flat = {
+        k: (v + 0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+        for k, v in flatten_tree(jax.tree_util.tree_map(np.asarray, like)).items()
+    }
+    params_from_jax(blk, flat)
+    rng = np.random.default_rng(4)
+    base = rng.standard_normal((B, 36, 32)).astype(np.float32)
+    xs = [base + 0.3 * rng.standard_normal(base.shape).astype(np.float32) for _ in range(4)]
+    _run_and_compare(jax_blk, blk, fill_like(like, flat), TOL if cast is None else TOL_CAST, xs)
