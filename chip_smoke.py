@@ -6,13 +6,16 @@ Drives the port's paths through the entry points a user calls, and
 checks them: eventful ViViT-B inference on Kinetics-400 shaped clips
 through ``FactorizedViViT.apply_views``, in the bench's configuration
 (``EventfulTokenwiseBlock``, k = 98), with it every gate before its LN,
+with the gate-group kernels selecting their own rows (in_kernel_topk),
 and in the paper's (``EventfulBlock``, k = 24, a raw clip through
 ``FactorizedViViT.apply``); the eventful ViTDet-B backbone at 672 x 672
 (spatiotemporal_672, k = 256, the "v2" regime) and at 1024 x 1024
 (spatiotemporal_1024, k = 256, the "blocked" regime) through
 ``ViTDet.pre_backbone`` and ``apply_backbone``, and so the block options
 of compare_ln_1024 (gates before LN, k = 512), its 672 twin, stgt_672 (STGT
-gates) and ablate_av_672 (EventfulMatmul1Block); and ViTDet-B detection end
+gates, also with put_rows as the scatter-blend kernel) and ablate_av_672
+(EventfulMatmul1Block), and spatiotemporal_672 with the gate-group kernels
+selecting their own rows; and ViTDet-B detection end
 to end at 672 through ``ViTDet.apply`` (backbone, SimplePyramid, RPN,
 ROIAlign, NMS, the standard ROI heads); each with its dense twin.
 Phases, one JSON line each, with the seconds the phase took:
@@ -69,7 +72,8 @@ Phases, one JSON line each, with the seconds the phase took:
                      (the logits form) and the delta-accumulated A.V product,
                      and the dense twin: launches and counted GFLOPs per clip
                      against the JAX package's; one clip in float32 (cast off)
-                     on the card against the CPU.
+                     of the model cut to 2 spatial blocks on the card against
+                     the CPU (cut from 12 when the phases of 22-23 came in).
   15. vivit_evblock_time: ms/clip of the dense twin and every run, alternated.
   16. option_kernels: the forms of gates before their LN at compare_ln_1024's
                      shapes (N = 4096, k = 512) and at 672 (N = 1764, k = 256),
@@ -89,6 +93,25 @@ Phases, one JSON line each, with the seconds the phase took:
                      in float32 of the model cut to 2 spatial blocks on the
                      card against the CPU; "auto" and the dense twin ms/clip,
                      alternated.
+  22. topk_kernels, topk_slice_vivit, topk_slice_vitdet: the groups that
+                     select their own rows (in_kernel_topk, cov=None): the
+                     forms at ViViT's and 672's shapes, as in 3, with exact
+                     ties planted at the k-th norm in one case of each, each
+                     beside its two-phase form (norms, coverage_from_norms,
+                     the coverage form); path A, ViViT-B of phase 4 forced
+                     to "v2mlp", and path B, spatiotemporal_672 with sharing
+                     off and on and, counted only, tokenwise_672 and
+                     compare_ln_672: launches by wrapper and form and counted
+                     GFLOPs with the switch on (A also off); float32 with the
+                     switch off and on (selections, probabilities, tokens);
+                     ms/clip and ms/frame off and on, alternated.
+  23. blend_kernels, blend_slice: put_rows as the scatter-blend kernel
+                     (USE_PALLAS_BLEND) at stgt_672's buffer widths and at
+                     ViViT's, with and without a mask and with a duplicated
+                     index, bit for bit against its plain version, beside
+                     Tensor.scatter; stgt_672 with the switch on: launches,
+                     counted GFLOPs, tokens bit-identical to the switch-off
+                     run in float32 and bfloat16, ms/frame off and on.
 The times are a record, not a claim.
 
 Then the whole run's seconds, the card's name and power limit, one JSON
@@ -312,8 +335,9 @@ def check_kernels(phase, device, cases):
     """Each kernel of ``cases`` [(tag, batch, N, k, names, make_inputs
     keywords)] against its plain version, float32 and bfloat16, with both
     timed, the bound of the card for the same work, and the one PyTorch
-    call that computes it where there is one. Rows keyed (name, dtype,
-    tag)."""
+    call that computes it where there is one; a group that selects its own
+    rows also beside its two-phase form (``two_phase_ms``). Rows keyed
+    (name, dtype, tag)."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
     results = {}
@@ -323,6 +347,7 @@ def check_kernels(phase, device, cases):
             for name in names:
                 bound_ms, bound_by = kernel_check.bound(name, d)
                 library = kernel_check.library_call(name, d)
+                two_phase = kernel_check.two_phase_call(name, d)
                 results[(name, dtype, tag)] = dict(
                     kernel=name, dtype=str(dtype).split(".")[-1], tag=tag, batch=bsz, n=n,
                     outputs=kernel_check.errors(name, d),
@@ -331,6 +356,8 @@ def check_kernels(phase, device, cases):
                     bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=None if library is None else kernel_check.time_call(library),
                 )
+                if two_phase is not None:
+                    results[(name, dtype, tag)]["two_phase_ms"] = kernel_check.time_call(two_phase)
             del d
             torch.cuda.empty_cache()
     emit(phase, bounds=dict(float32_scaled=kernel_check.F32_SCALED, **kernel_check.BF16_BOUNDS),
@@ -448,8 +475,10 @@ def counted_run(model, views, eventful):
 def recorded_selections(log):
     """Every top-k coverage a run selects, appended to ``log`` (on the CPU):
     recorded around ``coverage_from_norms`` where the blocks, the gates and
-    the policies call it."""
+    the policies call it, and as the group kernels that select their own
+    rows hand it over (``gate_group.record_selection``)."""
     from eventful_transformer_tpu_torch.core import blocks, gating, indexing, policies
+    from eventful_transformer_tpu_torch.ops import gate_group
 
     def recorded(norms, k):
         cov = indexing.coverage_from_norms(norms, k)
@@ -459,11 +488,24 @@ def recorded_selections(log):
     modules = (blocks, gating, policies)
     for module in modules:
         module.coverage_from_norms = recorded
+    gate_group.record_selection = lambda cov: log.append(cov.cpu())
     try:
         yield log
     finally:
         for module in modules:
             module.coverage_from_norms = indexing.coverage_from_norms
+        gate_group.record_selection = None
+
+
+def selection_flips(logs, other):
+    """(selections, flips) of two runs' recorded coverages, gate by gate: a
+    flip swaps one token for another. Raises unless both selected at the
+    same number of gates."""
+    if not logs or len(logs) != len(other):
+        raise AssertionError("the two runs selected at different numbers of gates")
+    selections = sum(int(b.sum()) for b in other)
+    flips = sum(int((a != b).sum()) // 2 for a, b in zip(logs, other))
+    return selections, flips
 
 
 def card_vs_cpu(cpu_model, clip, device, run=None, prob_tol=None):
@@ -481,13 +523,8 @@ def card_vs_cpu(cpu_model, clip, device, run=None, prob_tol=None):
             start = time.perf_counter()
             runs[tag] = run(model, views, count=True)
             runs[tag + "_s"] = time.perf_counter() - start
-    if not logs["card"] or len(logs["cpu"]) != len(logs["card"]):
-        raise AssertionError("the two runs selected at different numbers of gates")
+    selections, flips = selection_flips(logs["card"], logs["cpu"])
     prob_diff = float((runs["card"][0].cpu() - runs["cpu"][0]).abs().max())
-    selections = flips = 0
-    for a, b in zip(logs["card"], logs["cpu"]):
-        selections += int(b.sum())
-        flips += int((a != b).sum()) // 2  # a flip swaps one token for another
     numbers = dict(
         f32_card_vs_cpu_max_prob_diff=prob_diff, prob_tol=prob_tol,
         gate_selections=selections, selections_differing=flips,
@@ -753,12 +790,7 @@ def card_and_cpu(cpu_model, frames, device, run, card_model=None):
             seconds[tag] = time.perf_counter() - start
             if tag == "card":
                 launches = read_launches()
-    if not logs["card"] or len(logs["card"]) != len(logs["cpu"]):
-        raise AssertionError("the two runs selected at different numbers of gates")
-    selections = flips = 0
-    for a, b in zip(logs["card"], logs["cpu"]):
-        selections += int(b.sum())
-        flips += int((a != b).sum()) // 2
+    selections, flips = selection_flips(logs["card"], logs["cpu"])
     scaled = max(
         float(((a.cpu() - b).abs() / b.abs().clamp(min=1.0)).max())
         for a, b in zip(outs["card"][0], outs["cpu"][0])
@@ -876,13 +908,16 @@ def kernel_row(name, row, launches, path):
     wrapper, _, source, replaces, _ = kernel_check.KERNELS[name]
     if not isinstance(launches, int):
         launches = launches[wrapper.__name__]
-    return dict(
+    out = dict(
         name=name, route="cuda", source=source, replaces=replaces, path=path,
         shape=[row["batch"], row["n"]], inputs=row["tag"], launches=launches,
         max_abs_err=max(out["max_abs_err"] for out in row["outputs"]),
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
     )
+    if "two_phase_ms" in row:
+        out["two_phase_ms"] = row["two_phase_ms"]
+    return out
 
 
 # -- ViTDet end to end ------------------------------------------------------------
@@ -1091,6 +1126,9 @@ EV_SPATIAL_VIEWS, EV_TEMPORAL_VIEWS, EV_K = 3, 4, 24
 # scripts/misc/count_vivit.py`` (the JAX package on the CPU, one view at full
 # width and depth, times 12 views): every run of the eventful model counts alike.
 EV_GFLOPS_DENSE, EV_GFLOPS_EVENTFUL = 3359.582406336, 617.754671616
+# the float32 card-vs-CPU check's spatial depth (cut from 12 to keep the
+# script's time: the CPU side of that check took about 10 s at full depth)
+EV_CHECK_DEPTH = 2
 # the runs of the eventful model: "auto" ("v2mlp"), the forced gate-fusion
 # regimes, the reference's cached q.kT product through the A.V kernel's logits
 # form, and the reference's delta-accumulated A.V product; each sets these
@@ -1129,14 +1167,14 @@ EV_KERNELS = {
 }
 
 
-def ev_config(eventful, cast="bfloat16"):
+def ev_config(eventful, cast="bfloat16", depth=DEPTH):
     block = dict(dim=768, heads=12, mlp_ratio=4)
     return dict(
         classes=400, input_shape=[FRAMES, 3, SIZE, SIZE], normalize_mean=0.45,
         normalize_std=0.225, spatial_views=EV_SPATIAL_VIEWS, temporal_stride=2,
         temporal_views=EV_TEMPORAL_VIEWS, tubelet_shape=[2, 16, 16],
         spatial_config=dict(
-            depth=DEPTH, position_encoding_size=[14, 14],
+            depth=depth, position_encoding_size=[14, 14],
             block_class="EventfulBlock" if eventful else "Block",
             block_config=dict(block, matmul_2_cast=cast) if eventful else block,
         ),
@@ -1146,12 +1184,12 @@ def ev_config(eventful, cast="bfloat16"):
     )
 
 
-def ev_model(eventful, device, dtype, cast="bfloat16"):
+def ev_model(eventful, device, dtype, cast="bfloat16", depth=DEPTH):
     from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
     from eventful_transformer_tpu_torch.models import FactorizedViViT
     from eventful_transformer_tpu_torch.utils.misc import set_policies
 
-    model = FactorizedViViT(**ev_config(eventful, cast), device=device, seed=SEED)
+    model = FactorizedViViT(**ev_config(eventful, cast, depth), device=device, seed=SEED)
     if eventful:
         set_policies(model, TokenNormTopK, k=EV_K)
     return model.to(dtype)
@@ -1248,7 +1286,8 @@ def phase_ev_kernels(device):
 def phase_ev_slice(device):
     """The eventful model in bfloat16 under every run of EV_RUNS and its
     dense twin, each one counted clip; then one clip in float32 (the
-    matmul-2 cast off) under "auto" on the card against the CPU."""
+    matmul-2 cast off) under "auto" on the card against the CPU, the
+    spatial stack cut to EV_CHECK_DEPTH blocks."""
     clip = ev_clip(device)
     eventful = ev_model(True, device, torch.bfloat16)
     dense = ev_model(False, device, torch.bfloat16)
@@ -1258,7 +1297,7 @@ def phase_ev_slice(device):
         launches[run], counted[run] = ev_counted_run(eventful, clip, run)
     set_ev_run(eventful, {})
     dense_launches, g_dense = ev_counted_run(dense, clip, None)
-    cpu_model = ev_model(True, "cpu", torch.float32, cast=None)
+    cpu_model = ev_model(True, "cpu", torch.float32, cast=None, depth=EV_CHECK_DEPTH)
     numbers, _ = card_vs_cpu(cpu_model, clip.cpu(), device, run=run_apply)
     emit(
         "vivit_evblock_slice", clip=list(EV_CLIP), views=EV_SPATIAL_VIEWS * EV_TEMPORAL_VIEWS,
@@ -1268,7 +1307,7 @@ def phase_ev_slice(device):
         dense_launches_per_clip={k: v for k, v in dense_launches.items() if v},
         gflops_per_clip_eventful=counted, gflops_per_clip_dense=g_dense,
         jax_gflops_per_clip_eventful=EV_GFLOPS_EVENTFUL, jax_gflops_per_clip_dense=EV_GFLOPS_DENSE,
-        f32_runs="auto, matmul-2 cast off", **numbers,
+        f32_runs="auto, matmul-2 cast off", f32_depth=EV_CHECK_DEPTH, **numbers,
     )
     return eventful, dense, clip, launches, dense_launches
 
@@ -1397,12 +1436,14 @@ CUT_DEPTH, CUT_WINDOWS = 2, [0]
 
 
 def option_config(path, depth=VITDET_DEPTH, window_indices=(0, 1, 3, 4, 6, 7, 9, 10),
-                  matmul_2_cast="bfloat16"):
+                  matmul_2_cast="bfloat16", options=None):
     """The ViTDet-B configuration of an OPTION_PATHS path; ``matmul_2_cast``
-    None takes the cast off."""
+    None takes the cast off; ``options`` the blocks' options in place of the
+    path's."""
     cfg = OPTION_PATHS[path]
+    options = cfg["options"] if options is None else options
     block = dict(dim=768, heads=12, mlp_ratio=4, window_size=[14, 14],
-                 relative_embedding_size=[64, 64], **cfg["options"])
+                 relative_embedding_size=[64, 64], **options)
     if "matmul_2_cast" in block:
         block["matmul_2_cast"] = matmul_2_cast
     backbone = dict(depth=depth, position_encoding_size=[14, 14],
@@ -1427,13 +1468,14 @@ def option_model(path, device, dtype, **config):
     return model.to(dtype)
 
 
-def option_counted_call(path, model, frames):
+def option_counted_call(path, model, frames, cfg=None):
     """One call of 2 streams x 16 frames with the launch counts set to 0
     just before and read just after, counting FLOPs; checks the launches
     by wrapper and by form, the output and the count against the JAX
-    package's. Returns (launches, form launches, the port's and the JAX
-    package's GFLOPs per frame)."""
-    cfg = OPTION_PATHS[path]
+    package's. ``cfg``: the path's size, launches and counts, by default
+    OPTION_PATHS[path]. Returns (launches, form launches, the port's and
+    the JAX package's GFLOPs per frame)."""
+    cfg = cfg or OPTION_PATHS[path]
     steps = VITDET_FRAMES - 1
     with pooled_shares() as shares:
         reset_launches()
@@ -1634,6 +1676,346 @@ def pre_ln_vivit_path(device, smi):
     ]
 
 
+# -- The group kernels' own top-k and the scatter-blend: two switches -----------------
+#
+# EventfulTokenwiseBlock.in_kernel_topk = True (bench.py --topk-in-kernel;
+# core/blocks.py:1400-1460 of the JAX package) lets gate_group_linear and
+# gate_group_mlp select their own rows (cov=None) where no norms were handed
+# over and no index is needed; share_gate_passes = False (bench.py
+# --no-share) stops the handoff of norms, which otherwise switches that off.
+# core.indexing.USE_PALLAS_BLEND = True routes put_rows to scatter_blend.
+#   A. ViViT-B of phase 4 forced to "v2mlp" (bench.py --fused v2mlp
+#      --topk-in-kernel): the MLP group of every block step selects its rows.
+#   B. spatiotemporal_672 with in_kernel_topk forced on every eventful block,
+#      sharing off and on; counted only, with sharing off, its tokenwise twin
+#      (tokenwise_672: the global blocks' qkv groups select, "post") and
+#      compare_ln_672 (the "pre" forms).
+#   C. stgt_672 with USE_PALLAS_BLEND: every buffer scatter (qkv 3C,
+#      projection and MLP C) of every block and incremental frame.
+# The kernel forms at the paths' shapes, with exact ties planted at the k-th
+# norm in one case of each size; the blend at path C's buffer widths (C, 3C,
+# and 4C besides), with and without a mask and with a duplicated index.
+TOPK_NAMES = ("gate_group_linear_topk", "gate_group_linear_post_topk", "gate_group_linear_pre_topk",
+              "gate_group_mlp_topk", "gate_group_mlp_pre_topk")
+TOPK_KERNEL_CASES = [
+    ("vivit_topk", CLIPS * VIEWS, N_TOKENS, K, ("gate_group_mlp_topk",), dict(window=(4, 6))),
+    ("vivit_topk_ties", CLIPS * VIEWS, N_TOKENS, K, ("gate_group_mlp_topk",),
+     dict(window=(4, 6), ties="gate_group_mlp_topk")),
+    ("672_topk", VITDET_STREAMS, VITDET[672]["n"], VITDET_K, TOPK_NAMES, VITDET[672]["inputs"]),
+    ("672_topk_ties", VITDET_STREAMS, VITDET[672]["n"], VITDET_K, ("gate_group_linear_topk",),
+     dict(VITDET[672]["inputs"], ties="gate_group_linear_topk")),
+]
+BLEND_NAMES = ("scatter_blend", "scatter_blend_masked", "scatter_blend_qkv", "scatter_blend_wide",
+               "scatter_blend_duplicate")
+BLEND_KERNEL_CASES = [
+    ("stgt_672", VITDET_STREAMS, VITDET[672]["n"], VITDET_K, BLEND_NAMES, VITDET[672]["inputs"]),
+    ("vivit_blend", CLIPS * VIEWS, N_TOKENS, K, BLEND_NAMES, dict(window=(4, 6))),
+]
+# Path A per incremental step and spatial block, by wrapper and by form, with
+# the switch on and off; every run besides runs window_attention in each
+# spatial block of every step and the temporal model's two dense kernels.
+VIVIT_TOPK_STEP = {
+    True: (dict(gate_group_mlp=1), dict(gate_group_mlp=dict(post_topk=1))),
+    False: (dict(ln_norms=1, gate_group_mlp=1), dict(gate_group_mlp=dict(post=1))),
+}
+# Path B per incremental frame (frame 0 a flush; 8 windowed blocks whose qkv
+# groups keep window-major buffers and select outside; 4 global blocks): the
+# JAX package's counts (FLOPs per stream, as OPTION_PATHS) and whether the
+# run is timed. spatiotemporal_672's global EventfulBlocks need the qkv
+# index (their attention gathers), so their qkv groups select outside;
+# handed-over norms (sharing) take the MLP groups' own selection away.
+_ST = dict(block_select_p=8, block_scatter_rows=8, gate_group_linear=16, gate_group_mlp=12)
+TOPK_VITDET_RUNS = {
+    "spatiotemporal_672_no_share": dict(
+        model="spatiotemporal", share=False, size=672, flops=VITDET[672]["flops"],
+        step_launches=dict(_ST, ln_norms=12),
+        step_forms=dict(gate_group_linear=dict(post=4, none_topk=12),
+                        gate_group_mlp=dict(post_topk=12), block_select_p=dict(ln=8)),
+    ),
+    "spatiotemporal_672_share": dict(
+        model="spatiotemporal", share="auto", size=672, flops=VITDET[672]["flops"],
+        step_launches=dict(_ST, ln_norms=1),
+        step_forms=dict(gate_group_linear=dict(post=4, none_topk=12),
+                        gate_group_mlp=dict(post=12), block_select_p=dict(ln=8)),
+    ),
+    "tokenwise_672_no_share": dict(
+        model="tokenwise", share=False, size=672, flops=OPTION_PATHS["compare_ln_672"]["flops"],
+        step_launches=dict(_ST, ln_norms=8),
+        step_forms=dict(gate_group_linear=dict(post_topk=4, none_topk=12),
+                        gate_group_mlp=dict(post_topk=12), block_select_p=dict(ln=8)),
+    ),
+    "compare_ln_672": dict(
+        model="compare_ln", share="auto", size=672, flops=OPTION_PATHS["compare_ln_672"]["flops"],
+        step_launches=_ST,
+        step_forms=dict(gate_group_linear=dict(pre_topk=4, none_topk=12),
+                        gate_group_mlp=dict(pre_topk=12), block_select_p=dict(no_ln=8)),
+    ),
+}
+# the final line's rows: (kernel check tag, name, the run whose launches it
+# reports)
+TOPK_ROWS = [
+    ("vivit_topk", "gate_group_mlp_topk", "vivit_v2mlp"),
+    ("672_topk", "gate_group_mlp_topk", "spatiotemporal_672_no_share"),
+    ("672_topk", "gate_group_linear_topk", "spatiotemporal_672_no_share"),
+    ("672_topk", "gate_group_linear_post_topk", "tokenwise_672_no_share"),
+    ("672_topk", "gate_group_linear_pre_topk", "compare_ln_672"),
+    ("672_topk", "gate_group_mlp_pre_topk", "compare_ln_672"),
+]
+# path C per incremental frame: the blend in the qkv, projection and MLP
+# buffers of the 12 blocks
+STGT_BLEND_STEP = 3 * VITDET_DEPTH
+
+
+def set_blocks(model, **attrs):
+    """``attrs`` on every eventful block of ``model``."""
+    from eventful_transformer_tpu_torch.core.blocks import EventfulTokenwiseBlock
+
+    for blk in model.modules():
+        if isinstance(blk, EventfulTokenwiseBlock):
+            for name, value in attrs.items():
+                setattr(blk, name, value)
+
+
+def switch_runs(model, inputs, run, set_switch):
+    """``run(model, inputs)`` with the switch off, then on, each with the
+    gate selections recorded. Returns ({False: out, True: out}, the
+    selections made, the selections that differ between the two runs)."""
+    logs, outs = {False: [], True: []}, {}
+    for on in (False, True):
+        set_switch(on)
+        with recorded_selections(logs[on]):
+            outs[on] = run(model, inputs)
+    set_switch(False)
+    selections, flips = selection_flips(logs[True], logs[False])
+    if flips > MAX_FLIP_SHARE * selections:
+        raise AssertionError(f"the switch moved {flips} of {selections} selections")
+    return outs, selections, flips
+
+
+def alternated(timers, order):
+    """Each ``timers[name]()`` in ``order`` and back (there and back)."""
+    times = {name: [] for name in order}
+    for name in list(order) + list(order)[::-1]:
+        times[name].append(timers[name]())
+    return times
+
+
+def vivit_topk_counted_run(model, views, on):
+    """One bf16 forward of path A with the switch on or off, the counts set
+    to 0 just before and read just after: launches by wrapper and form and
+    the counted GFLOPs per clip, checked."""
+    set_blocks(model, in_kernel_topk=on)
+    reset_launches()
+    probs, counts = run_model(model, views, count=True)
+    launches, forms = read_launches(), read_form_launches()
+    set_blocks(model, in_kernel_topk=False)
+    steps = DEPTH * (STEPS - 1)
+    step_launches, step_forms = VIVIT_TOPK_STEP[on]
+    want = dict.fromkeys(wrappers(), 0)
+    want.update({name: n * steps for name, n in step_launches.items()})
+    want.update(window_attention=DEPTH * STEPS + TEMPORAL_DEPTH, dense_mlp_residual=TEMPORAL_DEPTH)
+    if launches != want:
+        raise AssertionError(f"ViViT v2mlp topk={on} launch counts {launches}, expected {want}")
+    want_forms = expected_forms(step_forms, steps)
+    if forms != want_forms:
+        raise AssertionError(f"ViViT v2mlp topk={on} forms {forms}, expected {want_forms}")
+    probs = probs.float()
+    if probs.shape != (views.shape[0], 400) or not torch.isfinite(probs).all():
+        raise AssertionError(f"bad ViViT v2mlp output: shape {tuple(probs.shape)}")
+    got = gflops(counts) / views.shape[0]
+    if abs(got - GFLOPS_EVENTFUL_PER_CLIP) > 1e-6 * GFLOPS_EVENTFUL_PER_CLIP:
+        raise AssertionError(f"ViViT v2mlp topk={on}: counted {got} GFLOPs/clip, the JAX "
+                             f"package's count is {GFLOPS_EVENTFUL_PER_CLIP}")
+    return launches, forms, got
+
+
+def vivit_topk_path(device, smi):
+    """Path A: the counted bf16 forward with the switch on and off; one
+    clip in float32 on the card with the switch off and on (probabilities
+    within PROB_TOL, selections within MAX_FLIP_SHARE); ms/clip on and off,
+    alternated. Returns the launches by form of the switch-on run."""
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    views = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (CLIPS, VIEWS, FRAMES, 3, SIZE, SIZE)).astype(np.float32))
+    model = FactorizedViViT(**vivit_config(True), device=device, seed=SEED)
+    set_policies(model, TokenNormTopK, k=K)
+    set_blocks(model, fused_gates="v2mlp")
+    f32_views = views[:1].to(device)
+    outs, selections, flips = switch_runs(
+        model, f32_views, lambda m, v: run_model(m, v)[0],
+        lambda on: set_blocks(model, in_kernel_topk=on),
+    )
+    prob_diff = float((outs[True] - outs[False]).abs().max())
+    if prob_diff > PROB_TOL:
+        raise AssertionError(f"ViViT v2mlp float32: the switch moved probabilities by {prob_diff}")
+    model = model.to(torch.bfloat16)
+    views_bf16 = views.to(device, torch.bfloat16)
+    counted = {on: vivit_topk_counted_run(model, views_bf16, on) for on in (True, False)}
+
+    def timer(on):
+        def timed():
+            set_blocks(model, in_kernel_topk=on)
+            return time_model(model, views_bf16)
+        return timed
+
+    times = alternated({"off": timer(False), "on": timer(True)}, ("off", "on"))
+    set_blocks(model, in_kernel_topk=False)
+    emit(
+        "topk_slice_vivit", card=smi, clips=CLIPS, views=VIEWS, frames=FRAMES, k=K, dtype="bfloat16",
+        regime="v2mlp", launches={str(on): {k: v for k, v in c[0].items() if v}
+                                  for on, c in counted.items()},
+        form_launches={str(on): c[1] for on, c in counted.items()},
+        gflops_per_clip={str(on): c[2] for on, c in counted.items()},
+        jax_gflops_per_clip=GFLOPS_EVENTFUL_PER_CLIP,
+        f32_switch_max_prob_diff=prob_diff, prob_tol=PROB_TOL, gate_selections=selections,
+        selections_differing=flips, max_flip_share=MAX_FLIP_SHARE,
+        ms_per_clip=times,
+    )
+    del model, views_bf16
+    torch.cuda.empty_cache()
+    return counted[True][1]
+
+
+def topk_vitdet_model(kind, device, dtype, matmul_2_cast="bfloat16"):
+    """spatiotemporal_672 (k = 256), tokenwise_672 or compare_ln_672."""
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import ViTDet
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    if kind == "spatiotemporal":
+        model = ViTDet(**vitdet_config(True, 672, matmul_2_cast), device=device, seed=SEED)
+        set_policies(model, TokenNormTopK, k=VITDET_K)
+        return model.to(dtype)
+    return option_model("compare_ln_672", device, dtype,
+                        options={} if kind == "tokenwise" else None)
+
+
+def vitdet_topk_path(device, smi):
+    """Path B: each run of TOPK_VITDET_RUNS counted in bf16 with the switch
+    on (launches by wrapper and form, GFLOPs against the JAX package's);
+    spatiotemporal_672 in float32 (cast off), one stream x 3 frames, with
+    the switch off and on, sharing off (tokens within VITDET_TOKEN_TOL,
+    selections within MAX_FLIP_SHARE); ms/frame with the switch off
+    (sharing on, the default), on without sharing and on with it,
+    alternated. Returns the launches by form of each run."""
+    model = topk_vitdet_model("spatiotemporal", device, torch.float32, matmul_2_cast=None)
+    set_blocks(model, share_gate_passes=False)
+    clip = vitdet_frames(3, 1, device, torch.float32, 672, seed=SEED + 1)
+    outs, selections, flips = switch_runs(
+        model, clip, lambda m, c: run_vitdet(m, c, keep=True)[2],
+        lambda on: set_blocks(model, in_kernel_topk=on),
+    )
+    scaled = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+                 for a, b in zip(outs[True], outs[False]))
+    if scaled > VITDET_TOKEN_TOL:
+        raise AssertionError(f"spatiotemporal_672 float32: the switch moved tokens by {scaled}")
+    del model, outs
+    frames = vitdet_frames(VITDET_FRAMES, VITDET_STREAMS, device, torch.bfloat16, 672)
+    models = {kind: topk_vitdet_model(kind, device, torch.bfloat16)
+              for kind in ("spatiotemporal", "tokenwise", "compare_ln")}
+    counted = {}
+    for run, cfg in TOPK_VITDET_RUNS.items():
+        model = models[cfg["model"]]
+        set_blocks(model, in_kernel_topk=True, share_gate_passes=cfg["share"])
+        counted[run] = option_counted_call(run, model, frames, cfg=cfg)
+        set_blocks(model, in_kernel_topk=False, share_gate_passes="auto")
+    model = models["spatiotemporal"]
+
+    def timer(on, share):
+        def timed():
+            set_blocks(model, in_kernel_topk=on, share_gate_passes=share)
+            return time_vitdet(model, frames, iters=2)
+        return timed
+
+    times = alternated({"off": timer(False, "auto"), "on_no_share": timer(True, False),
+                        "on_share": timer(True, "auto")}, ("off", "on_no_share", "on_share"))
+    set_blocks(model, in_kernel_topk=False, share_gate_passes="auto")
+    emit(
+        "topk_slice_vitdet", card=smi, streams=VITDET_STREAMS, frames=VITDET_FRAMES, k=VITDET_K,
+        dtype="bfloat16", launches={run: {k: v for k, v in c[0].items() if v}
+                                    for run, c in counted.items()},
+        form_launches={run: c[1] for run, c in counted.items()},
+        gflops_per_frame={run: c[2] for run, c in counted.items()},
+        jax_gflops_per_frame={run: c[3] for run, c in counted.items()},
+        f32_run="spatiotemporal_672, sharing off, switch off against on, 1 stream x 3 frames",
+        f32_switch_max_scaled_token_err=scaled, token_tol=VITDET_TOKEN_TOL,
+        gate_selections=selections, selections_differing=flips, max_flip_share=MAX_FLIP_SHARE,
+        columns=["flush_frame_ms", "incremental_frame_ms", "mean_frame_ms"], ms=times,
+    )
+    del models, model, frames
+    torch.cuda.empty_cache()
+    return {run: c[1] for run, c in counted.items()}
+
+
+def topk_paths(device, smi):
+    """The cov=None forms at the paths' shapes, then paths A and B. Returns
+    the kernel rows of the final line."""
+    rows = check_kernels("topk_kernels", device, TOPK_KERNEL_CASES)
+    forms = {"vivit_v2mlp": vivit_topk_path(device, smi), **vitdet_topk_path(device, smi)}
+    return [
+        kernel_row(name, rows[(name, torch.bfloat16, tag)], entry_launches(name, None, forms[run]),
+                   f"topk_{run}")
+        for tag, name, run in TOPK_ROWS
+    ]
+
+
+def blend_path(device, smi):
+    """The blend at its shapes; path C: stgt_672 in bf16, counted with the
+    switch on (launches, GFLOPs against the JAX package's), its tokens of
+    every frame bit-identical with the switch off and on in bf16 (2 streams
+    x 16 frames) and float32 (1 stream x 3 frames), ms/frame off and on,
+    alternated. Returns the kernel rows of the final line."""
+    from eventful_transformer_tpu_torch.core import indexing
+
+    rows = check_kernels("blend_kernels", device, BLEND_KERNEL_CASES)
+
+    def set_blend(on):
+        indexing.USE_PALLAS_BLEND = on
+
+    identical = {}
+    for dtype, streams, frames_n in ((torch.float32, 1, 3),
+                                     (torch.bfloat16, VITDET_STREAMS, VITDET_FRAMES)):
+        model = option_model("stgt_672", device, dtype)
+        frames = vitdet_frames(frames_n, streams, device, dtype, 672)
+        outs = {}
+        for on in (False, True):
+            set_blend(on)
+            outs[on] = run_vitdet(model, frames, keep=True)[2]
+        set_blend(False)
+        same = all(torch.equal(a, b) for a, b in zip(outs[True], outs[False]))
+        identical[str(dtype).split(".")[-1]] = same
+        if not same:
+            raise AssertionError(f"stgt_672 {dtype}: the blend changed the tokens")
+    cfg = dict(OPTION_PATHS["stgt_672"], step_launches=dict(scatter_blend=STGT_BLEND_STEP))
+    set_blend(True)
+    launches, forms, g_port, g_jax = option_counted_call("stgt_672", model, frames, cfg=cfg)
+    set_blend(False)
+
+    def timer(on):
+        def timed():
+            set_blend(on)
+            return time_vitdet(model, frames, iters=2)
+        return timed
+
+    times = alternated({"off": timer(False), "on": timer(True)}, ("off", "on"))
+    set_blend(False)
+    emit(
+        "blend_slice", path="stgt_672", card=smi, streams=VITDET_STREAMS, frames=VITDET_FRAMES, k=VITDET_K,
+        dtype="bfloat16", launches={k: v for k, v in launches.items() if v},
+        gflops_per_frame=g_port, jax_gflops_per_frame=g_jax, tokens_identical=identical,
+        columns=["flush_frame_ms", "incremental_frame_ms", "mean_frame_ms"], ms=times,
+    )
+    del model, frames
+    torch.cuda.empty_cache()
+    return [
+        kernel_row(name, rows[(name, torch.bfloat16, "stgt_672")], launches, "blend_stgt_672")
+        for name in ("scatter_blend", "scatter_blend_qkv")
+    ]
+
+
 def main():
     smi = phase_env()
     device = torch.device("cuda", 0)
@@ -1655,6 +2037,8 @@ def main():
     kernels += ev_path(device, smi)
     kernels += option_paths(device, smi, dense_ms)
     kernels += pre_ln_vivit_path(device, smi)
+    kernels += topk_paths(device, smi)
+    kernels += blend_path(device, smi)
     emit("total", seconds=round(time.perf_counter() - _START, 3))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

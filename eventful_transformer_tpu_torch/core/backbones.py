@@ -7,8 +7,9 @@ picks the blocks that take ``windowed_class`` and ``windowed_overrides``
 stack runs as a Python loop; the JAX package's layer scan
 (``_apply_scanned``) exists for tracing and is not ported. In an
 incremental step an eventful block's last kernel emits the next block's
-qkv-gate norms where the JAX package's ``_next_gate_info`` rule allows it,
-so only the first block of such a chain computes its own.
+qkv-gate norms where the JAX package's ``_next_gate_info`` rule allows it
+(``share_gate_passes`` not False on either block), so only the first block
+of such a chain computes its own.
 """
 
 from __future__ import annotations
@@ -108,11 +109,12 @@ def _next_gate(block, nxt, x, next_state):
     "v4"; the JAX package excludes "v2mlp"); the next gate must take
     order-2 norms; neither may gate before LN (the emitted norms are
     LN-domain) or hold STGT gates; the token count must not change (it
-    cannot: the port has no ATS); and the next qkv gate state must be C
-    wide. The port has no switch to turn the sharing off, which the JAX
-    rule also checks."""
+    cannot: the port has no ATS); the next qkv gate state must be C
+    wide; and neither block may have ``share_gate_passes`` False."""
     for b in (block, nxt):
         if not isinstance(b, EventfulTokenwiseBlock) or b.gate_before_ln or b.stgt:
+            return None
+        if b.share_gate_passes is False:
             return None
     if block._fused_mode(x.shape[-2]) not in ("v2", "blocked", "v4"):
         return None

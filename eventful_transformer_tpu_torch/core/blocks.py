@@ -43,6 +43,14 @@ picks, as the JAX package dispatches on the TPU ("auto"), or in the one
   no kernel. STGT gates (``stgt=True``) always run it, as in the JAX
   package.
 
+``in_kernel_topk`` (JAX ``EventfulTokenwiseBlock.in_kernel_topk``) lets the
+"v2", "v2mlp", "v1v2" groups of ``gate_group_linear`` and ``gate_group_mlp``
+select their own rows (``cov=None``) where the policy allows it, no norms
+were handed over and the caller needs no index: no norms pass and no
+top-k between the gate and the group. ``share_gate_passes`` False stops
+the norms handoff, within a block (projection group to MLP gate) and
+across blocks (``core/backbones.py``), as in the JAX package.
+
 With ``gate_before_ln`` the qkv and MLP gates sit before their LayerNorm:
 they hold x rather than ln(x), select on input-domain error norms, and the
 LN runs on the selected rows (or on the whole new gate state, where the op
@@ -101,6 +109,7 @@ from eventful_transformer_tpu_torch.core.nn import (
 from eventful_transformer_tpu_torch.core.policies import (
     TokenNormTopK,
     check_kernel_policy,
+    in_kernel_topk_eligible,
     vector_norm,
 )
 from eventful_transformer_tpu_torch.ops.av_softmax import (
@@ -465,12 +474,20 @@ class EventfulTokenwiseBlock(Block):
     FORCED_MODES = ("v4", "v2mlp", "v2", "blocked", "v1", "v1v2", "v3")
     # whether _attention_incremental consumes the qkv gate's indices
     _attention_uses_index = False
+    # The group kernels' own selection (core/blocks.py:1400-1433 of the JAX
+    # package): False off (the default), True wherever it applies, any
+    # other value where it applies on the card at N <= TOPK_MAX_TOKENS.
+    in_kernel_topk = False
+    TOPK_MAX_TOKENS = 512
 
     def __init__(self, gate_before_ln=False, stgt=False, **block_kwargs):
         super().__init__(**block_kwargs)
         self.gate_before_ln = gate_before_ln
         self.stgt = stgt
         self.fused_gates = "auto"
+        # False: no gate takes norms another kernel emitted (the JAX
+        # package's A/B switch of its gate-pass sharing)
+        self.share_gate_passes = "auto"
         # a STGT gate's state is the whole last input, not each token's
         # last update, so no op can be recomputed from it
         self.recompute_buffers = not stgt
@@ -714,7 +731,7 @@ class EventfulTokenwiseBlock(Block):
         # the projection group emits the MLP gate's norms, which are
         # LN-domain norms: not for a gate before LN
         own_mlp = None
-        if not self.gate_before_ln:
+        if not self.gate_before_ln and self.share_gate_passes is not False:
             own_mlp = (state["mlp_gate"]["p"], self.mlp_layer_norm.scale, self.mlp_layer_norm.bias)
         outs, _, _ = group_linear(
             ctx, self.projection_gate, state["projection_gate"],
@@ -862,20 +879,41 @@ class EventfulTokenwiseBlock(Block):
         )
         return self._op_input(take_rows(p, index), ln), index, None, {"p": p}
 
-    def _select(self, ctx, gate, p, x, ln, ln_mode, norms=None, need_index=False):
+    def _use_in_kernel_topk(self, policy, x):
+        """Whether a group kernel selects its own rows (JAX
+        ``_use_in_kernel_topk``; its TPU test is "x lies on the card")."""
+        if self.in_kernel_topk is False:
+            return False
+        eligible = in_kernel_topk_eligible(policy)
+        if self.in_kernel_topk is True:
+            return eligible
+        return eligible and x.is_cuda and x.shape[-2] <= self.TOPK_MAX_TOKENS
+
+    def _select(self, ctx, gate, p, x, ln, ln_mode, norms=None, need_index=False,
+                allow_topk=False):
         """Error norms (unless an upstream kernel handed them over) ->
         coverage and, with ``need_index``, the selected rows (B, k) int32,
         ascending (the JAX package lists them in top-k order; every
         consumer is order-free). The kernel paths take mask-free top-k
-        policies only, so every slot is valid. Returns (kcap, index or
-        None, cov)."""
+        policies only, so every slot is valid. ``allow_topk``: the caller's
+        kernel can select its own rows, which it then does where
+        :meth:`_use_in_kernel_topk` says so, no norms were handed over and
+        no index is needed; the coverage is None then. Returns (kcap, index
+        or None, cov or None)."""
         ctx.add("gate_flops", x.numel())
+        kcap = gate.policy.capacity(x.shape[-2])
+        if (
+            allow_topk
+            and norms is None
+            and not need_index
+            and self._use_in_kernel_topk(gate.policy, x)
+        ):
+            return kcap, None, None
         if norms is None:
             if ln_mode == "post":
                 norms = ln_norms(x, p, ln.scale, ln.bias)
             else:  # "pre", "none": error in the input domain
                 norms = vector_norm(x - p, -1, 2)
-        kcap = gate.policy.capacity(x.shape[-2])
         cov = coverage_from_norms(norms, kcap)
         index = index_from_coverage(cov, kcap).to(torch.int32) if need_index else None
         return kcap, index, cov
@@ -888,7 +926,7 @@ class EventfulTokenwiseBlock(Block):
         norms) through ``gate_group_linear``. Returns ((p, b, y,
         next_norms), index, None), counted as the gathered path."""
         kcap, index, cov = self._select(
-            ctx, gate, gate_state["p"], x, ln, ln_mode, norms, need_index
+            ctx, gate, gate_state["p"], x, ln, ln_mode, norms, need_index, allow_topk=True
         )
         scale, bias = (None, None) if ln_mode == "none" else (ln.scale, ln.bias)
         p_next, n_scale, n_bias = next_gate or (None, None, None)
@@ -962,7 +1000,9 @@ class EventfulTokenwiseBlock(Block):
         ``gate_group_mlp``. Returns (y, next_norms)."""
         ln = self.mlp_layer_norm
         p, b = state["mlp_gate"]["p"], state["mlp_accumulator"]["b"]
-        kcap, _, cov = self._select(ctx, self.mlp_gate, p, x, ln, self._ln_mode, norms)
+        kcap, _, cov = self._select(
+            ctx, self.mlp_gate, p, x, ln, self._ln_mode, norms, allow_topk=True
+        )
         p_next, n_scale, n_bias = next_gate or (None, None, None)
         _, _, y, next_norms = gate_group_mlp(
             x, p, b, cov, ln.scale, ln.bias, self.mlp_1.kernel, self.mlp_1.bias,

@@ -12,15 +12,34 @@ JAX package is order-free (scatters and selects by position, the pooled
 dedupe sorts).
 
 The JAX package's one-hot gather and scatter forms (``_one_hot_rows``,
-the one-hot blend of ``put_rows``/``put_cols``, ``USE_PALLAS_BLEND``) are
-TPU layout devices; the port gathers, selects and scatters by index, with
-the same results wherever the valid indices of a row are distinct (the
-JAX package's own precondition, which top-k and the pooled dedupe meet).
+the one-hot blend of ``put_rows``/``put_cols``) are TPU layout devices; the
+port gathers, selects and scatters by index, with the same results wherever
+the valid indices of a row are distinct (the JAX package's own
+precondition, which top-k and the pooled dedupe meet). The JAX package's
+switch ``USE_PALLAS_BLEND`` routes ``put_rows`` to its scatter-blend kernel;
+the port has the same switch and routes the same calls to
+``ops/scatter_blend.py::scatter_blend``, which computes the one-hot blend
+itself (``-x + v1 + v2`` at a duplicated index).
 """
 
 from __future__ import annotations
 
 import torch
+
+from eventful_transformer_tpu_torch.ops.scatter_blend import scatter_blend
+
+# Route put_rows to the scatter-blend kernel (core/indexing.py:107-145 of the
+# JAX package); off by default there, as here.
+USE_PALLAS_BLEND = False
+
+
+def _blend_eligible(x, index):
+    """The JAX package's ``_pallas_blend_eligible``: the switch on, a 3-D x,
+    a 2-D index and a row width that is a multiple of 128. Its platform
+    test (not the CPU, where Pallas runs interpreted) is the wrapper's: a
+    CUDA x launches the kernel, a CPU x takes its plain version, which
+    computes the same blend."""
+    return USE_PALLAS_BLEND and x.ndim == 3 and index.ndim == 2 and x.shape[-1] % 128 == 0
 
 
 def coverage_from_norms(norms, k):
@@ -98,7 +117,11 @@ def put_rows(x, index, values, mask=None):
     (..., k, C), cast to x's dtype; slots with mask False write nothing.
     Valid indices of a row must be distinct. An index copy into x with one
     spare row that the masked-off slots are sent to, then dropped: equal
-    to the JAX package's one-hot blend wherever that precondition holds."""
+    to the JAX package's one-hot blend wherever that precondition holds.
+    Under ``USE_PALLAS_BLEND`` the calls :func:`_blend_eligible` takes
+    run the blend itself, :func:`~..ops.scatter_blend.scatter_blend`."""
+    if _blend_eligible(x, index):
+        return scatter_blend(x, values, index, mask)
     n = x.shape[-2]
     if mask is not None:
         index = torch.where(mask, index, n)

@@ -62,6 +62,15 @@ class TokenNormTopFraction(TokenNormTopK):
         return int(self.fraction * n_tokens)
 
 
+def in_kernel_topk_eligible(policy):
+    """Whether a group kernel may select its own rows under ``policy`` (the
+    policy half of the JAX package's ``_use_in_kernel_topk``): exactly a
+    ``TokenNormTopK`` (not a subclass such as ``TokenNormTopFraction``) of
+    order 2, whose L2 norms the kernel computes. The JAX rule also asks for
+    no saved status, which the port's policies never keep."""
+    return type(policy) is TokenNormTopK and policy.order == 2
+
+
 def check_kernel_policy(policy):
     """Raise unless ``policy`` is one the kernel paths implement: a
     mask-free top-k (``TokenNormTopK`` or ``TokenNormTopFraction``). The

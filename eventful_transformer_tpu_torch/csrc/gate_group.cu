@@ -51,6 +51,30 @@
 // a (B, kcap, C) scratch that the GEMM then reads densely. That pass moves
 // 2 x k x C elements, a few percent of the group's bytes; an LN prologue in
 // the GEMM's A-load would save it, later.
+//
+// With the coverage left out (cov=None in the wrappers: select_topk, the
+// TPU kernels' _topk_cov, gate_group.py:94-152), the group selects its own
+// rows before its body, in two more launches that write the (B, N)
+// coverage the body then reads:
+//   norms[r] = ||new[r] - p[r]||  (float32; new = ln(x) for "post", x for
+//                                  "pre"/"none": ln_norms_kernel or
+//                                  diff_norms_kernel of common.cuh)
+//   cov[b]   = the top-kcap set of norms[b], ties at the kcap-th value to
+//              the smallest index: exactly lax.top_k's set
+// The TPU kernel holds a batch row's whole (N, C) block in VMEM and
+// narrows the kcap-th largest norm by a radix bisection over the norms'
+// bit patterns (non-negative float32 patterns order as integers), 8 bits a
+// phase, with a (256, N) compare matrix and a ones-matmul row count. Here
+// topk_cov_kernel does the same radix select with one block per batch row:
+// a 256-bin shared-memory histogram of the candidates' next byte per phase
+// (4 phases), one warp scanning it from the top for the byte where the
+// count reaches kcap, then one pass that takes every norm above the kcap-th
+// value and, by a block-wide prefix count of ties in index order, the first
+// (kcap - count above) norms equal to it. The selection reads B x N floats
+// five times from L2 (7 KB a batch row at N = 1764); the norms pass re-reads
+// x and p, which the select pass then reads again: about one more pass over
+// the (N, C) state than the coverage form, and no host round trip or
+// torch.topk between the norms and the group.
 #include "common.cuh"
 #include "gemm.cuh"
 
@@ -81,6 +105,106 @@ __global__ void compact_kernel(const float* __restrict__ cov, int* __restrict__ 
 
 // LN modes of the C entries (ops/common.py::LN_MODES)
 constexpr int kLnNone = 0, kLnPost = 1, kLnPre = 2;
+
+constexpr int kTopkThreads = 512;
+
+// cov[b, i] = 1 for the kcap largest norms[b, :] (non-negative float32),
+// ties at the kcap-th value to the smallest indices, else 0; one block per
+// batch row, 1 <= kcap <= n. A radix select over the bit patterns, most
+// significant byte first: ``prefix`` holds the bytes of the kcap-th largest
+// pattern found so far and ``need`` how many of the patterns that share
+// them must still be taken from the top.
+__global__ void __launch_bounds__(kTopkThreads)
+topk_cov_kernel(const float* __restrict__ norms, float* __restrict__ cov, int n, int kcap) {
+  __shared__ int hist[256];
+  __shared__ int warp_counts[kTopkThreads / 32];
+  __shared__ unsigned s_prefix;
+  __shared__ int s_need;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* row = norms + (int64_t)blockIdx.x * n;
+  float* out = cov + (int64_t)blockIdx.x * n;
+  unsigned prefix = 0u, mask = 0u;
+  int need = kcap;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = threadIdx.x; i < 256; i += blockDim.x) hist[i] = 0;
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const unsigned key = __float_as_uint(row[i]);
+      if ((key & mask) == prefix) atomicAdd(&hist[(key >> shift) & 255u], 1);
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // lane l holds bytes 255 - 8l down to 248 - 8l; an inclusive scan
+      // over the lanes counts the candidates at or above each lane's range
+      int cnt[8], sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        cnt[j] = hist[255 - 8 * lane - j];
+        sum += cnt[j];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      int above = incl - sum;
+      if (above < need && need <= incl) {  // one lane: the count reaches need here
+        for (int j = 0; j < 8; ++j) {
+          if (above + cnt[j] >= need) {
+            s_prefix = prefix | ((unsigned)(255 - 8 * lane - j) << shift);
+            s_need = need - above;
+            break;
+          }
+          above += cnt[j];
+        }
+      }
+    }
+    __syncthreads();
+    prefix = s_prefix;
+    need = s_need;
+    mask |= 0xffu << shift;
+  }
+  // prefix is the kcap-th largest pattern; take those above it and the
+  // first ``need`` equal to it in index order
+  int carry = 0;
+  for (int base = 0; base < n; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const unsigned key = i < n ? __float_as_uint(row[i]) : 0u;
+    const bool eq = i < n && key == prefix;
+    const unsigned ballot = __ballot_sync(0xffffffffu, eq);
+    if (lane == 0) warp_counts[warp] = __popc(ballot);
+    __syncthreads();
+    int before = carry, total = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+      const int c = warp_counts[w];
+      if (w < warp) before += c;
+      total += c;
+    }
+    const int rank = before + __popc(ballot & ((1u << lane) - 1u)) + 1;  // inclusive
+    if (i < n) out[i] = (key > prefix || (eq && rank <= need)) ? 1.f : 0.f;
+    carry += total;
+    __syncthreads();
+  }
+}
+
+// The selection of a group that selects its own rows: the error norms of
+// the gate's domain into ``norms``, then the top-kcap coverage into cov.
+template <typename T>
+int select_topk(const T* x, const T* p, const T* scale, const T* bias, float* norms, float* cov,
+                int bsz, int n, int c, int kcap, int ln_mode, cudaStream_t stream) {
+  const int rows = bsz * n;
+  if (ln_mode == kLnPost) {
+    ln_norms_kernel<T><<<rows, kRowThreads, row_smem_bytes(c), stream>>>(x, p, scale, bias, norms,
+                                                                         c);
+  } else {
+    diff_norms_kernel<T><<<rows, kRowThreads, 32 * sizeof(float), stream>>>(x, p, norms, c);
+  }
+  ETK_CHECK_LAUNCH();
+  topk_cov_kernel<<<bsz, kTopkThreads, 0, stream>>>(norms, cov, n, kcap);
+  ETK_CHECK_LAUNCH();
+  return 0;
+}
 
 // a[m] = rnd(ln(p[idx[m]]) * scale + bias) for slot m = b * kcap + j of
 // batch row b, from the stored p' row; a zero row for an empty slot, which
@@ -183,15 +307,22 @@ void compacted_gemm(const T* p, const int* idx, const T* scale, const T* bias, T
   }
 }
 
+// topk_norms non-null: the group selects its own rows, into cov.
 template <typename T>
-int gate_group_mlp(const void* x, void* p, void* b, const float* cov, const void* ln_scale,
-                   const void* ln_bias, const void* w1, const void* b1, const void* w2,
-                   const void* b2, const void* p_next, const void* next_scale,
+int gate_group_mlp(const void* x, void* p, void* b, float* cov, float* topk_norms,
+                   const void* ln_scale, const void* ln_bias, const void* w1, const void* b1,
+                   const void* w2, const void* b2, const void* p_next, const void* next_scale,
                    const void* next_bias, void* y, float* norms, int* pos, int* idx, void* h,
                    void* h2, void* a, int bsz, int n, int c, int hidden, int kcap, int ln_mode,
                    cudaStream_t stream) {
   const int rows = bsz * n;
   const size_t row_smem = row_smem_bytes(c);
+  if (topk_norms != nullptr) {
+    const int err = select_topk<T>((const T*)x, (const T*)p, (const T*)ln_scale,
+                                   (const T*)ln_bias, topk_norms, cov, bsz, n, c, kcap, ln_mode,
+                                   stream);
+    if (err != 0) return err;
+  }
   select_pass<T>((const T*)x, (T*)p, cov, (const T*)ln_scale, (const T*)ln_bias, rows, c, ln_mode,
                  stream);
   ETK_CHECK_LAUNCH();
@@ -215,14 +346,22 @@ int gate_group_mlp(const void* x, void* p, void* b, const float* cov, const void
 // ln_mode kLnPost: p' = where(cov, ln(x), p); else p' = where(cov, x, p),
 // the compacted rows normalised for kLnPre (into the scratch ``a``). skip,
 // y, p_next and norms may be null (the qkv group has no skip; the
-// projection group emits the MLP gate's norms).
+// projection group emits the MLP gate's norms); topk_norms non-null: the
+// group selects its own rows, into cov.
 template <typename T>
-int gate_group_linear(const void* x, void* p, void* b, const float* cov, const void* ln_scale,
-                      const void* ln_bias, const void* w, const void* wb, const void* skip,
-                      const void* p_next, const void* next_scale, const void* next_bias,
-                      void* y, float* norms, int* pos, int* idx, void* h, void* a, int bsz,
-                      int n, int c, int f, int kcap, int ln_mode, cudaStream_t stream) {
+int gate_group_linear(const void* x, void* p, void* b, float* cov, float* topk_norms,
+                      const void* ln_scale, const void* ln_bias, const void* w, const void* wb,
+                      const void* skip, const void* p_next, const void* next_scale,
+                      const void* next_bias, void* y, float* norms, int* pos, int* idx, void* h,
+                      void* a, int bsz, int n, int c, int f, int kcap, int ln_mode,
+                      cudaStream_t stream) {
   const int rows = bsz * n;
+  if (topk_norms != nullptr) {
+    const int err = select_topk<T>((const T*)x, (const T*)p, (const T*)ln_scale,
+                                   (const T*)ln_bias, topk_norms, cov, bsz, n, c, kcap, ln_mode,
+                                   stream);
+    if (err != 0) return err;
+  }
   select_pass<T>((const T*)x, (T*)p, cov, (const T*)ln_scale, (const T*)ln_bias, rows, c, ln_mode,
                  stream);
   ETK_CHECK_LAUNCH();
@@ -240,27 +379,29 @@ int gate_group_linear(const void* x, void* p, void* b, const float* cov, const v
 
 }  // namespace etk
 
-extern "C" int etk_gate_group_linear(int dtype, const void* x, void* p, void* b, const void* cov,
-                                     const void* ln_scale, const void* ln_bias, const void* w,
-                                     const void* wb, const void* skip, const void* p_next,
-                                     const void* next_scale, const void* next_bias, void* y,
-                                     void* norms, void* pos, void* idx, void* h, void* a, int bsz,
-                                     int n, int c, int f, int kcap, int ln_mode, void* stream) {
+extern "C" int etk_gate_group_linear(int dtype, const void* x, void* p, void* b, void* cov,
+                                     void* topk_norms, const void* ln_scale, const void* ln_bias,
+                                     const void* w, const void* wb, const void* skip,
+                                     const void* p_next, const void* next_scale,
+                                     const void* next_bias, void* y, void* norms, void* pos,
+                                     void* idx, void* h, void* a, int bsz, int n, int c, int f,
+                                     int kcap, int ln_mode, void* stream) {
   ETK_DISPATCH(dtype, return etk::gate_group_linear<T>(
-                          x, p, b, (const float*)cov, ln_scale, ln_bias, w, wb, skip, p_next,
-                          next_scale, next_bias, y, (float*)norms, (int*)pos, (int*)idx, h, a,
-                          bsz, n, c, f, kcap, ln_mode, (cudaStream_t)stream));
+                          x, p, b, (float*)cov, (float*)topk_norms, ln_scale, ln_bias, w, wb,
+                          skip, p_next, next_scale, next_bias, y, (float*)norms, (int*)pos,
+                          (int*)idx, h, a, bsz, n, c, f, kcap, ln_mode, (cudaStream_t)stream));
 }
 
-extern "C" int etk_gate_group_mlp(int dtype, const void* x, void* p, void* b, const void* cov,
-                                  const void* ln_scale, const void* ln_bias, const void* w1,
-                                  const void* b1, const void* w2, const void* b2,
+extern "C" int etk_gate_group_mlp(int dtype, const void* x, void* p, void* b, void* cov,
+                                  void* topk_norms, const void* ln_scale, const void* ln_bias,
+                                  const void* w1, const void* b1, const void* w2, const void* b2,
                                   const void* p_next, const void* next_scale,
                                   const void* next_bias, void* y, void* norms, void* pos,
                                   void* idx, void* h, void* h2, void* a, int bsz, int n, int c,
                                   int hidden, int kcap, int ln_mode, void* stream) {
   ETK_DISPATCH(dtype, return etk::gate_group_mlp<T>(
-                          x, p, b, (const float*)cov, ln_scale, ln_bias, w1, b1, w2, b2, p_next,
-                          next_scale, next_bias, y, (float*)norms, (int*)pos, (int*)idx, h, h2, a,
-                          bsz, n, c, hidden, kcap, ln_mode, (cudaStream_t)stream));
+                          x, p, b, (float*)cov, (float*)topk_norms, ln_scale, ln_bias, w1, b1, w2,
+                          b2, p_next, next_scale, next_bias, y, (float*)norms, (int*)pos,
+                          (int*)idx, h, h2, a, bsz, n, c, hidden, kcap, ln_mode,
+                          (cudaStream_t)stream));
 }

@@ -40,10 +40,10 @@ SIGNATURES = {
     "etk_ln_norms": [_I, _P, _P, _P, _P, _P, _L, _I, _P],
     "etk_qkv_attention_group": [_I] + [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "etk_proj_group": [_I] + [_P] * 11 + [_I, _I, _I, _P],
-    "etk_gate_group_mlp": [_I] + [_P] * 20 + [_I] * 6 + [_P],
+    "etk_gate_group_mlp": [_I] + [_P] * 21 + [_I] * 6 + [_P],
     "etk_attention_smem_bytes": [_I, _I, _I],
     "etk_window_attention": [_I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P] + [_I] * 6 + [_P],
-    "etk_gate_group_linear": [_I] + [_P] * 18 + [_I] * 6 + [_P],
+    "etk_gate_group_linear": [_I] + [_P] * 19 + [_I] * 6 + [_P],
     "etk_block_select_p": [_I] + [_P] * 5 + [_I, _L, _I, _P],
     "etk_block_scatter_rows": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "etk_block_select_scatter": [_I] + [_P] * 9 + [_I] + [_P] * 6 + [_I] * 5 + [_P],
@@ -53,6 +53,7 @@ SIGNATURES = {
     "etk_ln_select_matmul": [_I] + [_P] * 9 + [_L, _I, _I, _I, _P],
     "etk_select_linear_skip_norms": [_I] + [_P] * 11 + [_L, _I, _I, _I, _P],
     "etk_softmax_select_matmul_logits": [_I, _I] + [_P] * 6 + [_I] * 7 + [_P],
+    "etk_scatter_blend": [_I] + [_P] * 5 + [_I] * 4 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -159,7 +160,9 @@ def stream_of(t):
 def check_operands(name, ref, float32=(), **tensors):
     """Raise unless ``ref`` and every tensor lie on one CUDA device and are
     contiguous, with ``ref``'s dtype, or float32 for the names in
-    ``float32``."""
+    ``float32``. A tensor given as None (an operand the call leaves out,
+    such as the coverage of a group that selects its own rows) is
+    skipped."""
     if ref.device.type != "cuda":
         raise ValueError(f"{name}: expected CUDA or CPU tensors, got {ref.device}")
     dtype_code(ref)
@@ -168,6 +171,8 @@ def check_operands(name, ref, float32=(), **tensors):
     if ref.shape[-1] > MAX_ROW_WIDTH:
         raise ValueError(f"{name}: C={ref.shape[-1]} exceeds {MAX_ROW_WIDTH}")
     for key, t in tensors.items():
+        if t is None:
+            continue
         want = torch.float32 if key in float32 else ref.dtype
         if t.device != ref.device:
             raise ValueError(f"{name}: {key} on {t.device}, expected {ref.device}")
@@ -178,5 +183,7 @@ def check_operands(name, ref, float32=(), **tensors):
 
 
 def check_shape(name, key, t, shape):
-    if tuple(t.shape) != tuple(shape):
+    """Raise unless ``t`` (None skipped, as in :func:`check_operands`) has
+    ``shape``."""
+    if t is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {tuple(shape)}")

@@ -10,10 +10,18 @@ blocks' qkv group (``ln_mode="post"``) and every block's projection group
 (``ln_mode="none"`` with the skip and the MLP gate's norms). Both take
 ``ln_mode="pre"``, the group of a gate before its LN: the gate state takes
 x itself, and the compacted rows (the stored p', in p's dtype) are
-normalised before the op. Only the forms with the coverage given are
-ported; the in-kernel top-k (``select_topk``) is not (ROADMAP.md, "TPU
-kernels to port"). Each wrapper counts its launches in ``launches`` and,
-by ``ln_mode``, in ``form_launches``.
+normalised before the op.
+
+With ``cov=None`` the group selects its own rows (``select_topk`` in the TPU
+kernels, ``_topk_cov``): the exact top-``kcap`` set of the error norms
+``||new - p||`` in float32, ``new`` = ln(x) for "post" and x itself for
+"pre" and "none", ties at the kcap-th norm to the smallest index. These
+are not the two-phase path's norms before the LN, which subtract in x's
+dtype (``core/blocks.py::_select``); in bfloat16 the two sets may differ.
+Each wrapper counts its launches in ``launches`` and, by form, in
+``form_launches``: ``ln_mode``, with ``_topk`` appended where the group
+selects its own rows. Where ``record_selection`` is a callable, each
+coverage a ``cov=None`` form selects is handed to it.
 
 ``p`` and ``b`` are updated in place, as the TPU kernels alias them. The
 selected rows are compacted in index order, as the TPU kernels' one-hot
@@ -25,12 +33,45 @@ from __future__ import annotations
 
 import torch
 
+from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms
 from eventful_transformer_tpu_torch.ops import _build
 from eventful_transformer_tpu_torch.ops.common import LN_MODES, gelu_exact, ln_f32, row_norms
+
+# A callable handed every (B, N) float32 coverage that a cov=None form
+# selects, on the group's device (for a caller that compares selections),
+# or None.
+record_selection = None
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _forms(modes):
+    """Form names of a wrapper's ``form_launches``: each LN mode with the
+    coverage given, and with ``_topk`` where the group selects."""
+    return dict.fromkeys([*modes, *(f"{m}_topk" for m in modes)], 0)
+
+
+def _record(cov):
+    if record_selection is not None:
+        record_selection(cov)
+    return cov
+
+
+def topk_norms_plain(x, p, scale, bias, ln_mode):
+    """The error norms a cov=None group selects on (gate_group.py:119-121,
+    :155-158): (B, N) float32 ||new - p.f32||, new = ln(x) in float32 for
+    "post", x.f32 for "pre" and "none"."""
+    new = ln_f32(x, scale, bias) if ln_mode == "post" else x.float()
+    return row_norms(new - p.float())
+
+
+def topk_coverage_plain(x, p, scale, bias, ln_mode, kcap):
+    """The selection of a cov=None group (gate_group.py:94-152): coverage
+    (B, N) float32 of the kcap largest :func:`topk_norms_plain`, ties at the
+    kcap-th norm to the smallest index (``coverage_from_norms``)."""
+    return _record(coverage_from_norms(topk_norms_plain(x, p, scale, bias, ln_mode), kcap))
 
 
 def _slots(cov, kcap):
@@ -77,14 +118,17 @@ def gate_group_linear_plain(
     next_bias=None, *, ln_mode, kcap
 ):
     """x (B, N, C) group input; p (B, N, C) gate state and b (B, N, F) token
-    buffer, both updated in place; cov (B, N) float32 coverage; w (C, F),
-    wb (F,); skip (B, N, F) optional residual. ``ln_mode``: "post" (p in
+    buffer, both updated in place; cov (B, N) float32 coverage, or None to
+    select the top ``kcap`` rows here (:func:`topk_coverage_plain`); w (C,
+    F), wb (F,); skip (B, N, F) optional residual. ``ln_mode``: "post" (p in
     the LN domain), "pre" (p in x's domain, the compacted rows normalised)
     or "none" (p in x's domain; scale and bias unused). Returns (p, b, y,
     next_norms): y None without ``skip``, next_norms None without
     ``p_next``."""
     _check_ln_mode("gate_group_linear", ln_mode, tuple(LN_MODES))
     n = x.shape[1]
+    if cov is None:
+        cov = topk_coverage_plain(x, p, scale, bias, ln_mode, kcap)
     pos, rows = _select_compact(x, p, cov, scale, bias, ln_mode, kcap)
     h = (torch.matmul(rows.to(w.dtype).float(), w.float()) + wb.float()).to(b.dtype)
     b.copy_(torch.where(cov[..., None] > 0, _scatter(h, pos, kcap, n), b))
@@ -130,6 +174,8 @@ def gate_group_linear(
         _build.check_shape(name, key, operands[key], shape)
     if not 1 <= kcap <= n:
         raise ValueError(f"{name}: kcap={kcap} outside [1, N={n}]")
+    form = ln_mode if cov is not None else f"{ln_mode}_topk"
+    cov, topk_norms = _coverage_scratch(x, cov)
     y = torch.empty((bsz, n, f), dtype=x.dtype, device=x.device) if skip is not None else None
     norms = None
     if p_next is not None:
@@ -140,19 +186,32 @@ def gate_group_linear(
     rows = _normalised_rows(x, ln_mode, kcap)
     _build.launch(
         "etk_gate_group_linear", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
-        b.data_ptr(), cov.data_ptr(), _ptr(scale) if ln else None,
+        b.data_ptr(), cov.data_ptr(), _ptr(topk_norms), _ptr(scale) if ln else None,
         _ptr(bias) if ln else None, w.data_ptr(), wb.data_ptr(), _ptr(skip),
         _ptr(p_next), _ptr(next_scale), _ptr(next_bias), _ptr(y), _ptr(norms),
         pos.data_ptr(), idx.data_ptr(), h.data_ptr(), _ptr(rows), bsz, n, c, f, kcap,
         LN_MODES[ln_mode], _build.stream_of(x),
     )
     gate_group_linear.launches += 1
-    gate_group_linear.form_launches[ln_mode] += 1
+    gate_group_linear.form_launches[form] += 1
+    if topk_norms is not None:
+        _record(cov)
     return p, b, y, norms
 
 
 gate_group_linear.launches = 0
-gate_group_linear.form_launches = dict.fromkeys(LN_MODES, 0)
+gate_group_linear.form_launches = _forms(LN_MODES)
+
+
+def _coverage_scratch(x, cov):
+    """(cov, topk_norms): the given coverage and None, or, for a group that
+    selects its own rows, the (B, N) float32 scratch its selection pass
+    writes the coverage into and the one for the error norms."""
+    if cov is not None:
+        return cov, None
+    shape = x.shape[:2]
+    return (torch.empty(shape, dtype=torch.float32, device=x.device),
+            torch.empty(shape, dtype=torch.float32, device=x.device))
 
 
 def _normalised_rows(x, ln_mode, kcap):
@@ -168,13 +227,16 @@ def gate_group_mlp_plain(
     next_bias=None, *, ln_mode="post", kcap
 ):
     """x (B, N, C) group input, doubling as the residual; p gate state and
-    b token buffer, both updated in place; cov (B, N) float32 coverage.
+    b token buffer, both updated in place; cov (B, N) float32 coverage, or
+    None to select the top ``kcap`` rows here.
     ``ln_mode``: "post" (p in the LN domain) or "pre" (p in x's domain, the
     compacted rows normalised). Returns (p, b, y, next_norms), next_norms
     None unless ``p_next`` is given."""
     _check_ln_mode("gate_group_mlp", ln_mode, ("post", "pre"))
     wd = x.dtype
     n = x.shape[1]
+    if cov is None:
+        cov = topk_coverage_plain(x, p, scale, bias, ln_mode, kcap)
     pos, rows = _select_compact(x, p, cov, scale, bias, ln_mode, kcap)
     h = torch.matmul(rows.to(w1.dtype).float(), w1.float()) + b1.float()
     h = gelu_exact(h).to(wd)
@@ -216,6 +278,8 @@ def gate_group_mlp(
         _build.check_shape(name, key, operands[key], shape)
     if not 1 <= kcap <= n:
         raise ValueError(f"{name}: kcap={kcap} outside [1, N={n}]")
+    form = ln_mode if cov is not None else f"{ln_mode}_topk"
+    cov, topk_norms = _coverage_scratch(x, cov)
     y = torch.empty_like(x)
     norms = torch.empty((bsz, n), dtype=torch.float32, device=x.device) if emit else None
     pos = torch.empty((bsz, n), dtype=torch.int32, device=x.device)
@@ -225,16 +289,18 @@ def gate_group_mlp(
     rows = _normalised_rows(x, ln_mode, kcap)
     _build.launch(
         "etk_gate_group_mlp", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
-        b.data_ptr(), cov.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        b.data_ptr(), cov.data_ptr(), _ptr(topk_norms), scale.data_ptr(), bias.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), _ptr(p_next),
         _ptr(next_scale), _ptr(next_bias), y.data_ptr(), _ptr(norms), pos.data_ptr(),
         idx.data_ptr(), h.data_ptr(), h2.data_ptr(), _ptr(rows), bsz, n, c, hidden, kcap,
         LN_MODES[ln_mode], _build.stream_of(x),
     )
     gate_group_mlp.launches += 1
-    gate_group_mlp.form_launches[ln_mode] += 1
+    gate_group_mlp.form_launches[form] += 1
+    if topk_norms is not None:
+        _record(cov)
     return p, b, y, norms
 
 
 gate_group_mlp.launches = 0
-gate_group_mlp.form_launches = dict.fromkeys(("post", "pre"), 0)
+gate_group_mlp.form_launches = _forms(("post", "pre"))

@@ -2,7 +2,10 @@
 inputs, and time both. ``chip_smoke.py`` runs this at the main path's
 shapes; ``tests/test_torch_cuda.py`` at small ones. Both sides get clones
 of the same tensors (the kernels update gate state in place) and the same
-coverages, computed once, so they select the same tokens.
+coverages, computed once, so they select the same tokens. A group that
+selects its own rows (``cov=None``) is held in two parts: its selection
+against :func:`~.gate_group.topk_coverage_plain` on the same inputs, and
+its outputs against the plain version given the kernel's selection.
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms
+from eventful_transformer_tpu_torch.core.policies import vector_norm
 from eventful_transformer_tpu_torch.ops import (
     av_softmax,
     block_fused,
@@ -18,6 +22,7 @@ from eventful_transformer_tpu_torch.ops import (
     gate_fused,
     gate_group,
     relpos,
+    scatter_blend,
     window_attention,
 )
 
@@ -186,6 +191,71 @@ KERNELS = {
         gate_block.block_select_scatter, gate_block.block_select_scatter_plain,
         "eventful_transformer_tpu_torch/csrc/gate_block.cu", f"{_GB}:141", ("p", "b", "y"),
     ),
+    # the groups that select their own rows (cov=None): the MLP group, the
+    # projection group ("none", skip and the MLP gate's norms) and the qkv
+    # group ("post", "pre"; F = 3C); the last output is the selection
+    "gate_group_mlp_topk": (
+        gate_group.gate_group_mlp, gate_group.gate_group_mlp_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_group.cu", f"{_GG}:421",
+        ("p", "b", "y", "selection"),
+    ),
+    "gate_group_mlp_pre_topk": (
+        gate_group.gate_group_mlp, gate_group.gate_group_mlp_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_group.cu", f"{_GG}:421",
+        ("p", "b", "y", "selection"),
+    ),
+    "gate_group_linear_topk": (
+        gate_group.gate_group_linear, gate_group.gate_group_linear_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_group.cu", f"{_GG}:244",
+        ("p", "b", "y", "next_norms", "selection"),
+    ),
+    "gate_group_linear_post_topk": (
+        gate_group.gate_group_linear, gate_group.gate_group_linear_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_group.cu", f"{_GG}:244",
+        ("p", "b", "selection"),
+    ),
+    "gate_group_linear_pre_topk": (
+        gate_group.gate_group_linear, gate_group.gate_group_linear_plain,
+        "eventful_transformer_tpu_torch/csrc/gate_group.cu", f"{_GG}:244",
+        ("p", "b", "selection"),
+    ),
+    # put_rows as the one-hot blend (USE_PALLAS_BLEND): the projection /
+    # MLP buffer width C, with a mask, the qkv buffer's 3C, 4C, and a
+    # duplicated index (-x + v1 + v2)
+    "scatter_blend": (
+        scatter_blend.scatter_blend, scatter_blend.scatter_blend_plain,
+        "eventful_transformer_tpu_torch/csrc/scatter_blend.cu",
+        "eventful_transformer_tpu/ops/pallas/scatter_blend.py:45", ("out",),
+    ),
+    "scatter_blend_masked": (
+        scatter_blend.scatter_blend, scatter_blend.scatter_blend_plain,
+        "eventful_transformer_tpu_torch/csrc/scatter_blend.cu",
+        "eventful_transformer_tpu/ops/pallas/scatter_blend.py:45", ("out",),
+    ),
+    "scatter_blend_qkv": (
+        scatter_blend.scatter_blend, scatter_blend.scatter_blend_plain,
+        "eventful_transformer_tpu_torch/csrc/scatter_blend.cu",
+        "eventful_transformer_tpu/ops/pallas/scatter_blend.py:45", ("out",),
+    ),
+    "scatter_blend_wide": (
+        scatter_blend.scatter_blend, scatter_blend.scatter_blend_plain,
+        "eventful_transformer_tpu_torch/csrc/scatter_blend.cu",
+        "eventful_transformer_tpu/ops/pallas/scatter_blend.py:45", ("out",),
+    ),
+    "scatter_blend_duplicate": (
+        scatter_blend.scatter_blend, scatter_blend.scatter_blend_plain,
+        "eventful_transformer_tpu_torch/csrc/scatter_blend.cu",
+        "eventful_transformer_tpu/ops/pallas/scatter_blend.py:45", ("out",),
+    ),
+}
+# the entries whose group selects its own rows: (x, gate state, LN scale
+# and bias or None, LN mode) keys
+TOPK = {
+    "gate_group_mlp_topk": ("x", "p_mlp", "ln2_s", "ln2_b", "post"),
+    "gate_group_mlp_pre_topk": ("x", "p_mlp", "ln2_s", "ln2_b", "pre"),
+    "gate_group_linear_topk": ("attn", "p_proj", None, None, "none"),
+    "gate_group_linear_post_topk": ("x", "p_qkv", "ln1_s", "ln1_b", "post"),
+    "gate_group_linear_pre_topk": ("x", "p_qkv", "ln1_s", "ln1_b", "pre"),
 }
 
 # The form of each entry whose wrapper counts launches by form
@@ -201,6 +271,7 @@ FORMS = {
     "block_select_scatter_qkv": "ln", "block_select_scatter_mlp": "ln",
     "block_select_scatter_proj": "no_ln", "block_select_scatter_qkv_noln": "no_ln",
     "block_select_scatter_mlp_noln": "no_ln",
+    **{name: f"{entry[4]}_topk" for name, entry in TOPK.items()},
 }
 
 
@@ -255,7 +326,7 @@ def _grid(n):
 
 def make_inputs(
     bsz, n, c, heads, k, dtype, device, seed=0, window=(4, 6), windows=None, pool=(3, 7),
-    pad_window=(3, 4), relpos_keys=None,
+    pad_window=(3, 4), relpos_keys=None, ties=None,
 ):
     """Random activations, gate states, weights and one coverage per gate,
     at the scales of the model (LN-domain states ~ N(0, 1), weights
@@ -269,7 +340,11 @@ def make_inputs(
     square grid, zero-padded to ``pad_window`` windows, with their
     geometry, a pad-bias row and pad terms; and logits over that grid of
     queries and a ``relpos_keys`` grid of keys (by default ``pool``) with
-    unscaled q and the two rel-pos tables."""
+    unscaled q and the two rel-pos tables; for the scatter-blend, a mask
+    over the qkv buffer's slots, distinct valid rows for k slots, the index
+    with slot 1 naming slot 0's row, a 4C-wide buffer and its values.
+    ``ties``: a TOPK entry whose inputs get exact ties at the k-th norm
+    (:func:`plant_ties`)."""
     g = torch.Generator().manual_seed(seed)
 
     def randn(*shape, scale=1.0, shift=0.0):
@@ -340,18 +415,62 @@ def make_inputs(
     d["heads"], d["k"], d["window"] = heads, k, tuple(window)
     d["pool"], d["pad_window"] = tuple(pool), tuple(pad_window)
     d["rp_a"], d["rp_p"] = (h, w), rp_p
+    # the scatter-blend
+    d["blend_mask"] = (torch.rand((bsz, k), generator=g) < 0.8).to(device)
+    d["blend_index"] = torch.stack(
+        [torch.randperm(n, generator=g)[:k] for _ in range(bsz)]
+    ).to(device=device, dtype=torch.int32)
+    dup = d["w_index"].clone()
+    dup[:, min(1, k - 1)] = dup[:, 0]
+    d["w_dup"] = dup
+    d["buf_wide"] = torch.cat([d["buf_qkv"], d["buf_proj"]], -1)
+    d["h_wide"] = torch.cat([d["h_rows"], d["h_c"]], -1)
+    if ties is not None:
+        plant_ties(d, ties)
     return d
+
+
+def plant_ties(d, name, count=4):
+    """Tie ``count`` rows of each batch row at the k-th largest norm that
+    TOPK entry ``name`` selects on: the (x, gate state) rows of the k-th
+    largest norm are copied into the ``count - 1`` rows that follow it in
+    norm order, so that one of the ``count`` equal norms is selected, the
+    one of the smallest index."""
+    xk, pk, sk, bk, mode = TOPK[name]
+    norms = gate_group.topk_norms_plain(d[xk], d[pk], d.get(sk), d.get(bk), mode)
+    order = norms.argsort(dim=-1, descending=True).cpu()
+    k = d["k"]
+    for b in range(order.shape[0]):
+        src = int(order[b, k - 1])
+        for dst in order[b, k : k + count - 1].tolist():
+            d[xk][b, dst] = d[xk][b, src]
+            d[pk][b, dst] = d[pk][b, src]
+    d["ties"] = True
 
 
 def call(name, d, plain=False):
     """Run kernel ``name`` (or its plain version) on clones of ``d``.
-    Returns its outputs as a tuple of tensors."""
+    Returns its outputs as a tuple of tensors; a group that selects its own
+    rows (a TOPK entry without ``d["topk_cov"]``) adds its selection."""
     fn = KERNELS[name][1 if plain else 0]
     d = {key: v.clone() if torch.is_tensor(v) else v for key, v in d.items()}
-    return _invoke(name, fn, d)
+    if name not in TOPK:
+        return _invoke(name, fn, d)
+    picked = []
+    previous, gate_group.record_selection = gate_group.record_selection, picked.append
+    try:
+        out = _invoke(name, fn, d)
+    finally:
+        gate_group.record_selection = previous
+    return tuple(out) + tuple(picked)
 
 
 def _invoke(name, fn, d):
+    if name in TOPK:
+        return _invoke_topk(name, fn, d, d.get("topk_cov"))
+    if name.startswith("scatter_blend"):
+        x, values, index, mask = BLEND_INPUTS[name]
+        return (fn(d[x], d[values], d[index], None if mask is None else d[mask]),)
     if name == "ln_norms":
         return (fn(d["x"], d["p_qkv"], d["ln1_s"], d["ln1_b"]),)
     if name == "qkv_attention_group":
@@ -466,6 +585,35 @@ def _invoke(name, fn, d):
     return tuple(out)
 
 
+def _invoke_topk(name, fn, d, cov):
+    """A TOPK entry: the group selects its own rows where ``cov`` is None."""
+    mode = TOPK[name][4]
+    if name.startswith("gate_group_mlp"):
+        return fn(
+            d["x"], d["p_mlp"], d["b_mlp"], cov, d["ln2_s"], d["ln2_b"], d["w1"], d["b1"],
+            d["w2"], d["b2"], ln_mode=mode, kcap=d["k"],
+        )[:3]
+    if mode == "none":
+        return fn(
+            d["attn"], d["p_proj"], d["buf_proj"], cov, None, None, d["w_proj"], d["b_proj"],
+            d["x"], d["p_mlp"], d["ln2_s"], d["ln2_b"], ln_mode="none", kcap=d["k"],
+        )
+    return fn(
+        d["x"], d["p_qkv"], d["buf_qkv"], cov, d["ln1_s"], d["ln1_b"], d["w_qkv"], d["b_qkv"],
+        ln_mode=mode, kcap=d["k"],
+    )[:2]
+
+
+# the scatter-blend entries' (x, values, index, mask) keys
+BLEND_INPUTS = {
+    "scatter_blend": ("buf_proj", "h_c", "blend_index", None),
+    "scatter_blend_masked": ("buf_proj", "h_c", "w_index", "blend_mask"),
+    "scatter_blend_qkv": ("buf_qkv", "h_rows", "blend_index", None),
+    "scatter_blend_wide": ("buf_wide", "h_wide", "w_index", "blend_mask"),
+    "scatter_blend_duplicate": ("buf_proj", "h_c", "w_dup", None),
+}
+
+
 def _ulp_order(t):
     """bfloat16 values as integers in the order of the values, so that the
     difference of two is their distance in ulps (+0 and -0 both 0)."""
@@ -497,17 +645,62 @@ def compare(got, want):
     return row
 
 
+def compare_exact(got, want):
+    """:func:`compare`, ok only where the two are equal element for
+    element (the scatter-blend: one rounding of the same float32 sum)."""
+    row = compare(got, want)
+    row["ok"] = row["ok"] and row["max_abs_err"] == 0.0
+    return row
+
+
 def errors(name, d):
     """Run the kernel (once) and its plain version on clones of ``d``.
     Returns one :func:`compare` row per output, the in-place gate state
-    included, each with the output's name."""
+    included, each with the output's name. A TOPK entry's outputs are held
+    against the plain version given the kernel's selection, and the
+    selection against :func:`selection_check`'s; the scatter-blend's must
+    equal the plain version's bit for bit."""
     got = call(name, d)
-    want = call(name, d, plain=True)
+    selection = None
+    if name in TOPK:
+        *got, picked = got
+        want = call(name, dict(d, topk_cov=picked), plain=True)
+        selection = selection_check(name, d, picked)
+    else:
+        want = call(name, d, plain=True)
     torch.cuda.synchronize()
-    return [
-        dict(output=out, **compare(a, b))
-        for out, a, b in zip(KERNELS[name][4], got, want)
-    ]
+    check = compare_exact if name.startswith("scatter_blend") else compare
+    rows = [dict(output=out, **check(a, b)) for out, a, b in zip(KERNELS[name][4], got, want)]
+    if selection is not None:
+        rows.append(dict(output="selection", **selection))
+    return rows
+
+
+# A selection of a cov=None group may differ from the plain version's only
+# where the two sides' norms, float32 sums of C terms in other orders, lie
+# within this share of the k-th largest of each other; with planted ties
+# (``d["ties"]``) not at all.
+NEAR_TIE = 1e-5
+
+
+def selection_check(name, d, got):
+    """The kernel's selection ``got`` (B, N) against the plain version's on
+    the inputs of ``d``: the same count per row and no difference beyond a
+    near tie (NEAR_TIE)."""
+    xk, pk, sk, bk, mode = TOPK[name]
+    norms = gate_group.topk_norms_plain(d[xk], d[pk], d.get(sk), d.get(bk), mode)
+    k = d["k"]
+    want = coverage_from_norms(norms, k)
+    kth = torch.topk(norms, k, dim=-1).values[..., -1:]
+    differ = got != want
+    near = (norms - kth).abs() <= NEAR_TIE * kth
+    ok = torch.equal(got.sum(-1), want.sum(-1)) and bool((~differ | near).all())
+    if d.get("ties"):
+        ok = ok and not bool(differ.any())
+    return dict(
+        dtype="float32", max_abs_err=float(differ.any()), max_scaled_err=float(differ.any()),
+        selections=int(want.sum()), selections_differing=int(differ.sum()) // 2, ok=ok,
+    )
 
 
 # The card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): memory
@@ -528,7 +721,8 @@ def _matmul_ops(name, d):
         return 2.0 * bsz * n * c * 3 * c + 4.0 * bsz * n * n * c
     if name == "proj_group":
         return 2.0 * bsz * n * c * c
-    if name in ("gate_group_mlp", "gate_group_mlp_pre"):
+    if name in ("gate_group_mlp", "gate_group_mlp_pre", "gate_group_mlp_topk",
+                "gate_group_mlp_pre_topk"):
         return 4.0 * float(d["cov3"].sum()) * c * d["w1"].shape[1]
     if name == "dense_mlp_residual":
         return 4.0 * bsz * n * c * d["w1"].shape[1]
@@ -540,9 +734,10 @@ def _matmul_ops(name, d):
     if name == "window_attention_padded":
         nw, t, _ = d["qkv_pad"].shape
         return 4.0 * nw * t * t * c
-    if name == "gate_group_linear":
+    if name in ("gate_group_linear", "gate_group_linear_topk"):
         return 2.0 * float(d["cov2"].sum()) * c * c
-    if name in ("gate_group_linear_post", "gate_group_linear_pre"):
+    if name in ("gate_group_linear_post", "gate_group_linear_pre", "gate_group_linear_post_topk",
+                "gate_group_linear_pre_topk"):
         return 2.0 * float(d["cov1"].sum()) * c * 3 * c
     if name.startswith("softmax_select_matmul_logits"):
         return 2.0 * bsz * n * d["p_a"].shape[-1] * c  # A.V only
@@ -658,6 +853,20 @@ def io_bytes(name, d):
         return read("x", "cov3") + rows("p_mlp", "cov3")
     if name.startswith("relpos_bias_add"):
         return read("rp_x", "rp_q", "rp_y", "rp_xr") + _nbytes(d["rp_x"])
+    # the groups that select their own rows read the whole gate state
+    if name in ("gate_group_mlp_topk", "gate_group_mlp_pre_topk"):
+        return (read("x", "p_mlp", "b_mlp", "ln2_s", "ln2_b", "w1", "b1", "w2", "b2")
+                + rows("p_mlp", "cov3") + rows("b_mlp", "cov3") + tokens)
+    if name == "gate_group_linear_topk":
+        return (read("attn", "p_proj", "buf_proj", "w_proj", "b_proj", "x", "p_mlp", "ln2_s",
+                     "ln2_b")
+                + rows("p_proj", "cov2") + rows("buf_proj", "cov2") + tokens + norms)
+    if name in ("gate_group_linear_post_topk", "gate_group_linear_pre_topk"):
+        return (read("x", "p_qkv", "ln1_s", "ln1_b", "w_qkv", "b_qkv")
+                + rows("p_qkv", "cov1") + rows("buf_qkv", "cov1"))
+    if name.startswith("scatter_blend"):
+        x, values, index, mask = BLEND_INPUTS[name]
+        return read(x, values, index, *(() if mask is None else (mask,))) + _nbytes(d[x])
     raise KeyError(name)
 
 
@@ -672,13 +881,59 @@ def bound(name, d):
 
 def library_call(name, d):
     """One PyTorch call that computes kernel ``name``'s function on ``d``,
-    where there is one (a yardstick; the port never calls it), else None."""
-    if name != "window_attention":
-        return None
-    bsz, n, c3 = d["qkv"].shape
+    where there is one (a yardstick; the port never calls it), else None:
+    ``scaled_dot_product_attention`` for attention (the windowed forms'
+    rel-pos terms expanded to a float ``attn_mask`` beforehand, the padded
+    form's pad rows substituted beforehand), ``Tensor.scatter`` for the
+    blend on distinct valid indices."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     heads = d["heads"]
-    q, k, v = d["qkv"].reshape(bsz, n, 3, heads, c3 // (3 * heads)).permute(2, 0, 3, 1, 4)
-    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    if name.startswith("window_attention"):
+        key = {"window_attention": "qkv", "window_attention_windowed": "qkv_win",
+               "window_attention_padded": "qkv_pad"}[name]
+        qkv, terms, p = d[key], None, None
+        if name == "window_attention_windowed":
+            terms, p = d["terms"], d["window"]
+        if name == "window_attention_padded":
+            valid = window_attention.window_valid(qkv.shape[0], d["geom"], d["pad_window"],
+                                                  qkv.device)
+            qkv = torch.where(valid[..., None], qkv, d["pad_bias"])
+            terms = torch.where(valid[:, None, :, None], d["terms_pad"], d["pad_terms"])
+            p = d["pad_window"]
+        bsz, n, c3 = qkv.shape
+        q, k, v = qkv.reshape(bsz, n, 3, heads, c3 // (3 * heads)).permute(2, 0, 3, 1, 4)
+        if terms is None:
+            return lambda: sdpa(q, k, v)
+        mask = window_attention.expand_terms(terms, p).to(qkv.dtype)
+        return lambda: sdpa(q, k, v, attn_mask=mask)
+    if name in ("scatter_blend", "scatter_blend_qkv"):
+        x, values, index = (d[key] for key in BLEND_INPUTS[name][:3])
+        index = index.long()[..., None].expand(values.shape)
+        return lambda: x.scatter(1, index, values)
+    return None
+
+
+def two_phase_call(name, d):
+    """For a TOPK entry, the same group in two phases, as the blocks run it
+    with the switch off (the comparison core/blocks.py:1400-1412 of the JAX
+    package records on the TPU): the error norms (``ln_norms`` after the
+    LN, the difference norm in x's dtype before it), ``coverage_from_norms``,
+    then the group given that coverage; else None."""
+    if name not in TOPK:
+        return None
+    xk, pk, sk, bk, mode = TOPK[name]
+    fn = KERNELS[name][0]
+    d = {key: v.clone() if torch.is_tensor(v) else v for key, v in d.items()}
+
+    def run():
+        x, p = d[xk], d[pk]
+        if mode == "post":
+            norms = gate_fused.ln_norms(x, p, d[sk], d[bk])
+        else:
+            norms = vector_norm(x - p, -1, 2)
+        return _invoke_topk(name, fn, d, coverage_from_norms(norms, d["k"]))
+
+    return run
 
 
 def time_call(fn, iters=20, warmup=3):

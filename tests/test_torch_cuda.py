@@ -403,3 +403,136 @@ def test_small_vivit_gate_before_ln_card_matches_cpu(regime, device):
     with torch.no_grad():
         want_probs = model.apply_views(Ctx(), views)
     torch.testing.assert_close(got.cpu(), want_probs, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["gate_group_linear_topk", "gate_group_mlp_topk"])
+def test_topk_selection_with_planted_ties_is_exact(name, dtype, device):
+    """Four rows of each batch row tied at the k-th norm: the kernel's own
+    selection equals the plain version's exactly (the smallest index)."""
+    d = kernel_check.make_inputs(2, 197, 256, 4, 24, dtype, device, seed=3, ties=name)
+    rows = kernel_check.errors(name, d)
+    assert all(row["ok"] for row in rows), rows
+    assert rows[-1]["output"] == "selection" and rows[-1]["selections_differing"] == 0
+
+
+def test_small_vivit_in_kernel_topk_card_matches_cpu(device):
+    """A small ViViT of EventfulTokenwiseBlocks forced to "v2mlp" with
+    in_kernel_topk through ``apply_views``, float32, on the card against
+    the CPU: the MLP group's "post_topk" form in every step, no ln_norms."""
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    block = dict(dim=64, heads=4, mlp_ratio=2)
+    model = FactorizedViViT(
+        classes=10, input_shape=[8, 3, 32, 32], normalize_mean=0.45, normalize_std=0.225,
+        spatial_views=1, temporal_stride=2, temporal_views=2, tubelet_shape=[2, 8, 8],
+        spatial_config=dict(depth=2, position_encoding_size=[4, 4],
+                            block_class="EventfulTokenwiseBlock", block_config=block),
+        temporal_config=dict(depth=1, position_encoding_size=[4], block_config=block),
+        device="cpu",
+    )
+    set_policies(model, TokenNormTopK, k=6)
+    for blk in model.spatial_model.backbone.blocks:
+        blk.fused_gates, blk.in_kernel_topk = "v2mlp", True
+    card = copy.deepcopy(model).to(device)
+    views = torch.randn((1, 2, 8, 3, 32, 32), generator=torch.Generator().manual_seed(0))
+    kernel_check.reset_launches()
+    with torch.no_grad():
+        got = card.apply_views(Ctx(), views.to(device))
+    torch.cuda.synchronize()
+    counts = _form_launches()
+    steps = 3 * 2  # incremental steps x spatial blocks
+    # by form: every MLP group selects its own rows ("post_topk"), none
+    # takes a coverage ("post")
+    assert counts["gate_group_mlp_topk"] == steps and counts["gate_group_mlp"] == 0, counts
+    assert counts["ln_norms"] == 0
+    with torch.no_grad():
+        want = model.apply_views(Ctx(), views)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("share", ["auto", False], ids=["share", "no_share"])
+def test_small_vitdet_in_kernel_topk_card_matches_cpu(share, device):
+    """A small ViTDet of EventfulTokenwiseBlocks in "v2" with in_kernel_topk
+    and sharing on or off, 2 streams x 3 frames in float32 on the card
+    against the CPU. Off, every group but the windowed blocks' qkv groups
+    (window-major buffers, which select outside) selects its own rows; on,
+    the global qkv groups and the MLP groups take handed-over norms and a
+    coverage, and only the projection groups select their own."""
+    model = _small_vitdet({}, "v2")
+    for blk in model.backbone.blocks:
+        blk.in_kernel_topk, blk.share_gate_passes = True, share
+    card = copy.deepcopy(model).to(device)
+    frames = torch.rand((3, 2, 3, 128, 128), generator=torch.Generator().manual_seed(0))
+    outs = []
+    for m, x in ((card, frames.to(device)), (model, frames)):
+        kernel_check.reset_launches()
+        state = m.init_state(2, torch.float32, x.device)
+        with torch.no_grad():
+            for t in range(3):
+                tokens = m.pre_backbone(Ctx(), x[t])
+                tokens, state = m.apply_backbone(
+                    Ctx(), state, tokens, mode="flush" if t == 0 else "incremental"
+                )
+        outs.append(tokens.cpu())
+        if m is card:
+            torch.cuda.synchronize()
+            counts = _form_launches()
+    steps = 2
+    # 4 blocks, 2 windowed (window-major qkv: block_select_p + block_scatter_rows);
+    # the counts by form
+    own = share is False
+    want = dict(gate_group_linear_post_topk=(2 if own else 0) * steps,
+                gate_group_linear_post=(0 if own else 2) * steps,
+                gate_group_linear_topk=4 * steps, gate_group_linear=0,
+                gate_group_mlp_topk=(4 if own else 0) * steps,
+                gate_group_mlp=(0 if own else 4) * steps, block_select_p=2 * steps,
+                ln_norms=(2 if own else 1) * steps)
+    for name, count in want.items():
+        assert counts[name] == count, (name, counts)
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=1e-3)
+
+
+def test_small_vitdet_stgt_blend_card_matches_cpu(device, monkeypatch):
+    """A small STGT ViTDet (dim 128, so every buffer scatter is eligible)
+    with USE_PALLAS_BLEND, 2 streams x 3 frames in float32: the blend in
+    every buffer of every incremental step, tokens equal to the switch-off
+    run on the card and within 1e-3 of the CPU."""
+    from eventful_transformer_tpu_torch.core import indexing
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import ViTDet
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    block = dict(dim=128, heads=4, mlp_ratio=2, window_size=[3, 3],
+                 relative_embedding_size=[8, 8], stgt=True)
+    model = ViTDet(
+        backbone_config=dict(depth=4, position_encoding_size=[4, 4], window_indices=[0, 2],
+                             block_class="EventfulTokenwiseBlock", block_config=block),
+        classes=5, input_shape=[3, 128, 128], normalize_mean=[0.0] * 3,
+        normalize_std=[1.0] * 3, output_channels=16, patch_size=[16, 16], scale_factors=[1.0],
+        device="cpu",
+    )
+    set_policies(model, TokenNormTopK, k=12)
+    card = copy.deepcopy(model).to(device)
+    frames = torch.rand((3, 2, 3, 128, 128), generator=torch.Generator().manual_seed(0))
+
+    def run(m, x):
+        state = m.init_state(2, torch.float32, x.device)
+        with torch.no_grad():
+            for t in range(3):
+                tokens = m.pre_backbone(Ctx(), x[t])
+                tokens, state = m.apply_backbone(
+                    Ctx(), state, tokens, mode="flush" if t == 0 else "incremental"
+                )
+        return tokens.cpu()
+
+    off = run(card, frames.to(device))
+    monkeypatch.setattr(indexing, "USE_PALLAS_BLEND", True)
+    kernel_check.reset_launches()
+    on = run(card, frames.to(device))
+    torch.cuda.synchronize()
+    assert kernel_check.launches("scatter_blend") == 4 * 3 * 2  # blocks x buffers x steps
+    assert torch.equal(on, off)
+    torch.testing.assert_close(on, run(model, frames), rtol=1e-3, atol=1e-3)

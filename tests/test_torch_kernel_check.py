@@ -86,3 +86,68 @@ def test_dropped_ln_in_a_pre_form_fails(name, dtype, monkeypatch):
     rows = [kernel_check.compare(a, b) for a, b in zip(got, want)]
     assert rows[0]["ok"] and rows[0]["max_abs_err"] == 0.0  # p' takes x itself
     assert not all(row["ok"] for row in rows[1:]), rows
+
+
+@pytest.mark.parametrize("name", ["gate_group_linear_topk", "gate_group_mlp_topk"])
+def test_selection_faults_fail(name):
+    """The selection check of a group that selects its own rows passes the
+    plain selection and fails planted faults: ties broken to the largest
+    index (on planted ties), one row too many, and for the "post" form the
+    norms taken without the LN."""
+    from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms
+    from eventful_transformer_tpu_torch.ops import gate_group
+
+    d = kernel_check.make_inputs(2, 197, 256, 4, 24, torch.float32, "cpu", ties=name)
+    got = kernel_check.call(name, d, plain=True)[-1]
+    assert kernel_check.selection_check(name, d, got)["ok"]
+    xk, pk, sk, bk, mode = kernel_check.TOPK[name]
+    norms = gate_group.topk_norms_plain(d[xk], d[pk], d.get(sk), d.get(bk), mode)
+    largest_index = coverage_from_norms(norms.flip(-1), d["k"]).flip(-1)
+    row = kernel_check.selection_check(name, d, largest_index)
+    assert not row["ok"] and row["selections_differing"] == 2, row
+    extra = coverage_from_norms(norms, d["k"] + 1)
+    assert not kernel_check.selection_check(name, d, extra)["ok"]
+    if mode == "post":
+        no_ln = coverage_from_norms(
+            gate_group.topk_norms_plain(d[xk], d[pk], None, None, "none"), d["k"]
+        )
+        assert not kernel_check.selection_check(name, d, no_ln)["ok"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_blend_faults_fail(dtype):
+    """The scatter-blend must equal its plain version bit for bit: the
+    index copy's single write at a duplicated index fails, as does a blend
+    that adds the values to x without removing it; the plain version
+    itself passes."""
+    from eventful_transformer_tpu_torch.core.indexing import put_rows
+
+    d = kernel_check.make_inputs(2, 197, 256, 4, 24, dtype, "cpu")
+    want = kernel_check.call("scatter_blend_duplicate", d, plain=True)[0]
+    assert kernel_check.compare_exact(want.clone(), want)["ok"]
+    copy = put_rows(d["buf_proj"], d["w_dup"].clamp(min=0), d["h_c"])
+    assert not kernel_check.compare_exact(copy, want)["ok"]
+    want = kernel_check.call("scatter_blend", d, plain=True)[0]
+    x, values, index = d["buf_proj"], d["h_c"], d["blend_index"].long()
+    no_removal = x.float().scatter_add(1, index[..., None].expand(values.shape), values.float())
+    assert not kernel_check.compare_exact(no_removal.to(dtype), want)["ok"]
+
+
+@pytest.mark.parametrize(
+    "name", ["window_attention", "window_attention_windowed", "window_attention_padded",
+             "scatter_blend", "scatter_blend_qkv"],
+)
+def test_library_calls_compute_the_same_function(name):
+    """The PyTorch call timed beside a kernel computes its function on the
+    same inputs: attention through scaled_dot_product_attention (rel-pos
+    terms as a float mask, pad rows substituted) within 1e-5 of the plain
+    version in float32, the blend's Tensor.scatter equal to it."""
+    d = kernel_check.make_inputs(2, 37, 64, 4, 11, torch.float32, "cpu", seed=1)
+    want = kernel_check.call(name, d, plain=True)[0]
+    got = kernel_check.library_call(name, d)()
+    if name.startswith("window_attention"):
+        got = got.transpose(1, 2).reshape(want.shape)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got, want)
+    assert kernel_check.library_call("scatter_blend_masked", d) is None

@@ -178,6 +178,49 @@ print("ok")
 """
 
 
+SWITCHES_SCRIPT = """
+import sys
+sys.modules["jax"] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from eventful_transformer_tpu_torch.core import indexing
+from eventful_transformer_tpu_torch.core.counting import Ctx
+from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+from eventful_transformer_tpu_torch.models import ViTDet
+from eventful_transformer_tpu_torch.ops import gate_group, scatter_blend
+from eventful_transformer_tpu_torch.utils.misc import set_policies
+picked = []
+gate_group.record_selection = picked.append
+frames = torch.from_numpy(np.random.default_rng(0).uniform(size=(3, 1, 3, 96, 96)).astype(np.float32))
+for options, share in ((dict(), False), (dict(), "auto"), (dict(stgt=True), "auto")):
+    block = dict(dim=128, heads=4, mlp_ratio=2, window_size=[3, 3], relative_embedding_size=[8, 8],
+                 **options)
+    model = ViTDet(
+        backbone_config=dict(depth=2, position_encoding_size=[4, 4], window_indices=[0],
+                             block_class="EventfulTokenwiseBlock", block_config=block),
+        classes=5, input_shape=[3, 96, 96], normalize_mean=[0.0] * 3, normalize_std=[1.0] * 3,
+        output_channels=16, patch_size=[16, 16], scale_factors=[1.0], device="cpu",
+    )
+    set_policies(model, TokenNormTopK, k=8)
+    for blk in model.backbone.blocks:
+        blk.fused_gates, blk.in_kernel_topk, blk.share_gate_passes = "v2", True, share
+    indexing.USE_PALLAS_BLEND = "stgt" in options
+    state = model.init_state(1)
+    for t in range(3):
+        tokens = model.pre_backbone(Ctx(), frames[t])
+        out, state = model.apply_backbone(Ctx(), state, tokens, mode="flush" if t == 0 else "incremental")
+    assert out.shape == (1, 36, 128) and bool(torch.isfinite(out).all())
+# own selections a step: without sharing 5 (the global qkv group, 2 projection
+# and 2 MLP groups; the windowed qkv group selects outside), with it 2 (the
+# projection groups); STGT none
+assert len(picked) == 2 * 5 + 2 * 2, len(picked)
+assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
+               for name, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+
+
 def _run(script):
     result = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
@@ -215,3 +258,11 @@ def test_block_options_run_without_jax():
     """Gates before LN ("v2", "blocked") and STGT gates in a small ViTDet
     backbone, without JAX."""
     _run(OPTIONS_SCRIPT)
+
+
+def test_block_switches_run_without_jax():
+    """The group kernels' own top-k (``in_kernel_topk``, sharing on and
+    off) and the scatter-blend under ``USE_PALLAS_BLEND`` (STGT), the
+    modules ``ops/gate_group.py`` and ``ops/scatter_blend.py``, in a small
+    ViTDet backbone without JAX."""
+    _run(SWITCHES_SCRIPT)
