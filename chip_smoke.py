@@ -112,6 +112,30 @@ Phases, one JSON line each, with the seconds the phase took:
                      Tensor.scatter; stgt_672 with the switch on: launches,
                      counted GFLOPs, tokens bit-identical to the switch-off
                      run in float32 and bfloat16, ms/frame off and on.
+  24. unwired_kernels, unwired_path: the four kernels no path of the JAX
+                     package calls, at the shapes of the paths whose work
+                     each does, as in 3 (the row scatter and gather bit for
+                     bit): scatter_rows_inplace and gather_rows at
+                     stgt_672's buffers (C and 3C, k = 256; with and
+                     without a mask; float32 values into the buffer) and
+                     the paper's ViViT's qkv buffer (12 views, k = 24);
+                     fused_attention at ViViT's spatial and temporal
+                     shapes, without and with the matmul-2 cast;
+                     window_attention_grid at 672 (with and without the
+                     rel-pos tables) and on 1024's padded map. Then the
+                     phase's own path, counted: each wrapper on those
+                     inputs in float32 (TF32 off) against the ported kernel
+                     that does its work on the model paths: the row
+                     kernels against put_rows and take_rows bit for bit
+                     (the cast also into a bfloat16 buffer), fused_attention
+                     against the global window_attention (its cast form
+                     beside it), the grid form
+                     against the windowed window_attention at 672 and the
+                     padded one at 1024 over the partition of the same map,
+                     each within 1e-5 scaled at the image's rows;
+                     fused_attention also on a batch slice of a larger
+                     tensor (the same result) and a slice of its last axis
+                     (refused, or else the same result).
 The times are a record, not a claim.
 
 Then the whole run's seconds, the card's name and power limit, one JSON
@@ -2016,6 +2040,187 @@ def blend_path(device, smi):
     ]
 
 
+# -- The kernels no path of the JAX package calls (rows 15, 19-21) -------------------
+#
+# Each at the shapes of the paths whose work it does (PERF.md sections 4 and
+# 6): the row scatter and gather at stgt_672's C- and 3C-wide buffers (k =
+# 256) and the paper's ViViT's qkv buffer (12 views, k = 24); the fused
+# attention at ViViT's spatial and temporal shapes; the grid form at 672
+# (the 42 x 42 map is 3 x 3 windows of 14 x 14) and 1024 (64 x 64 padded to
+# 5 x 5 windows, the pad positions holding the qkv-bias row).
+ROWS_NAMES = ("scatter_rows_inplace", "scatter_rows_inplace_masked", "scatter_rows_inplace_qkv",
+              "scatter_rows_inplace_qkv_masked", "scatter_rows_inplace_cast", "gather_rows",
+              "gather_rows_qkv")
+FUSED_NAMES = ("fused_attention", "fused_attention_cast")
+GRID_NAMES = ("window_attention_grid", "window_attention_grid_noterms")
+UNWIRED_CASES = [
+    ("672", VITDET_STREAMS, VITDET[672]["n"], VITDET_K, ROWS_NAMES + GRID_NAMES,
+     dict(window=(14, 14), pad_window=(14, 14))),
+    ("vivit_evblock", EV_SPATIAL_VIEWS * EV_TEMPORAL_VIEWS, N_TOKENS, EV_K,
+     tuple(name for name in ROWS_NAMES if name.endswith(("_qkv", "_qkv_masked", "_cast"))),
+     dict(window=(4, 6))),
+    ("vivit", CLIPS * VIEWS, N_TOKENS, K, FUSED_NAMES, dict(window=(4, 6))),
+    ("temporal", CLIPS * VIEWS, STEPS + 1, STEPS + 1, FUSED_NAMES, dict(window=(4, 6))),
+    ("1024", VITDET_STREAMS, VITDET[1024]["n"], VITDET_K, GRID_NAMES[:1],
+     dict(window=(14, 14), windows=50, pad_window=(14, 14))),
+]
+# the final line's row of each kernel: (entry, case)
+UNWIRED_ROWS = [("scatter_rows_inplace_qkv", "672"), ("gather_rows_qkv", "672"),
+                ("fused_attention", "vivit"), ("window_attention_grid", "672")]
+CROSS_TOL = 1e-5  # scaled, float32: the two kernels differ in summation order only
+
+
+def scaled_err(got, want):
+    return float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+
+
+def rows_against_indexing(d, names):
+    """Each row scatter and gather of ``names`` against put_rows and
+    take_rows on the same index: equal element for element; the cast entry
+    also into a bfloat16 buffer."""
+    from eventful_transformer_tpu_torch.core.indexing import put_rows, take_rows
+    from eventful_transformer_tpu_torch.ops import kernel_check
+    from eventful_transformer_tpu_torch.ops.scatter import gather_rows, scatter_rows_inplace
+
+    out = {}
+    for name in names:
+        buf, values, index, mask = kernel_check.ROWS_INPUTS[name]
+        x, idx = d[buf], d[index]
+        if values is None:
+            out[name] = dict(ok=torch.equal(gather_rows(x, idx), take_rows(x, idx)))
+            continue
+        m = None if mask is None else d[mask]
+        targets = (x, x.to(torch.bfloat16)) if name.endswith("_cast") else (x,)
+        out[name] = dict(ok=all(
+            torch.equal(scatter_rows_inplace(t.clone(), d[values], idx, m),
+                        put_rows(t, idx, d[values], m))
+            for t in targets
+        ))
+    return out
+
+
+def fused_against_global(d):
+    """fused_attention (no cast) against the global window_attention on the
+    same qkv, scaled error; the same qkv as a batch slice of a larger
+    tensor (the same result bit for bit) and as a slice of a wider one's
+    last axis (refused on the card, or else the same result); the cast
+    form beside the no-cast one (their gap, one bfloat16 rounding of the
+    probabilities, within the bfloat16 outputs' scaled bound)."""
+    from eventful_transformer_tpu_torch.ops import kernel_check
+    from eventful_transformer_tpu_torch.ops.attention import fused_attention
+    from eventful_transformer_tpu_torch.ops.window_attention import window_attention
+
+    qkv, heads = d["qkv"], d["heads"]
+    scale = (qkv.shape[-1] // 3 // heads) ** 0.5
+    got = fused_attention(qkv, heads=heads, scale=scale)
+    err = scaled_err(got, window_attention(qkv, heads=heads, scale=scale))
+    cast_gap = scaled_err(fused_attention(qkv, heads=heads, scale=scale, cast=torch.bfloat16), got)
+    offset = torch.cat([qkv[:1], qkv])[1:]
+    same = torch.equal(fused_attention(offset, heads=heads, scale=scale), got)
+    try:
+        strided = fused_attention(torch.cat([qkv, qkv[..., :8]], -1)[..., :-8], heads=heads,
+                                  scale=scale)
+        strided_view = "taken, the same" if torch.equal(strided, got) else "taken, wrong"
+    except ValueError:
+        strided_view = "refused"
+    return {
+        "fused_attention": dict(
+            against="window_attention", scaled_err=err, offset_view_same=same,
+            strided_view=strided_view,
+            ok=err <= CROSS_TOL and same and strided_view != "taken, wrong",
+        ),
+        "fused_attention_cast": dict(
+            against="fused_attention", scaled_err=cast_gap,
+            ok=cast_gap <= kernel_check.BF16_BOUNDS["scaled"],
+        ),
+    }
+
+
+def grid_against_partitioned(d):
+    """window_attention_grid over the map against window_attention over
+    its partition, with and without the rel-pos terms of the same tables:
+    the windowed form where the map is the image (672), the padded form
+    (the zero-padded partition, the bias row and its terms substituted)
+    where it is padded (1024); scaled error at the image's rows."""
+    from eventful_transformer_tpu_torch.ops import window_attention as wa
+
+    x, heads, (a0, a1) = d["qkv_map"], d["heads"], d["pad_window"]
+    b, hp, wp, c3 = x.shape
+    c = c3 // 3
+    scale = (c // heads) ** 0.5
+    nh, nw, h, w = d["geom"]
+    tab = torch.cat([d["rel_y"].repeat_interleave(a1, dim=0), d["rel_x"].repeat(a0, 1, 1)], 1)
+    padded = (h, w) != (hp, wp)
+    if padded:
+        win, pad = d["qkv_pad"], dict(pad_bias=d["pad_bias"], a=(a0, a1), geom=d["geom"])
+    else:
+        win = x.reshape(b, nh, a0, nw, a1, c3).permute(0, 1, 3, 2, 4, 5).reshape(-1, a0 * a1, c3)
+        pad = {}
+    out = {}
+    for name in ("window_attention_grid", "window_attention_grid_noterms"):
+        if name.endswith("_noterms"):
+            if padded:
+                continue
+            got = wa.window_attention_grid(x, heads=heads, scale=scale, window=(a0, a1))
+            want = wa.window_attention(win, heads=heads, scale=scale)
+        else:
+            got = wa.window_attention_grid(x, d["rel_y"], d["rel_x"], heads=heads, scale=scale,
+                                           window=(a0, a1), a=(a0, a1))
+            terms = wa.window_bias_terms(win, tab, heads)
+            if padded:
+                pad["pad_terms"] = wa.window_bias_pad_terms(d["pad_bias"], tab, heads)
+            want = wa.window_attention(win, terms, heads=heads, scale=scale, p=(a0, a1), **pad)
+        want = want.reshape(b, nh, nw, a0, a1, c).permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, c)
+        err = scaled_err(got[:, :h, :w], want[:, :h, :w])
+        out[name] = dict(against="window_attention_padded" if padded else "window_attention",
+                         scaled_err=err, ok=err <= CROSS_TOL)
+    return out
+
+
+def unwired_path(device, smi):
+    """The four kernels at their shapes (phase unwired_kernels), then the
+    phase's own path with the launch counts set to 0 just before it: each
+    wrapper on those inputs in float32 against the ported kernel doing its
+    work on the model paths. Returns the final line's rows."""
+    from eventful_transformer_tpu_torch.ops import kernel_check
+
+    rows = check_kernels("unwired_kernels", device, UNWIRED_CASES)
+    wrappers = {kernel_check.KERNELS[name][0].__name__: kernel_check.KERNELS[name][0]
+                for name, _ in UNWIRED_ROWS}
+    kernel_check.reset_launches()
+    checks = {}
+    for tag, bsz, n, k, names, inputs in UNWIRED_CASES:
+        d = kernel_check.make_inputs(bsz, n, 768, 12, k, torch.float32, device, seed=SEED,
+                                     **inputs)
+        row_names = [name for name in names if name in ROWS_NAMES]
+        if row_names:
+            checks[f"{tag}_rows"] = rows_against_indexing(d, row_names)
+        if set(names) & set(FUSED_NAMES):
+            checks[f"{tag}_fused_attention"] = fused_against_global(d)
+        if set(names) & set(GRID_NAMES):
+            checks[f"{tag}_grid"] = grid_against_partitioned(d)
+        del d
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    forms = {name: dict(fn.form_launches) for name, fn in wrappers.items()
+             if hasattr(fn, "form_launches")}
+    emit("unwired_path", card=smi, tf32=torch.backends.cuda.matmul.allow_tf32,
+         launches=launches, form_launches=forms, checks=checks)
+    failed = [f"{key}.{name}" for key, check in checks.items()
+              for name, row in check.items() if not row["ok"]]
+    if failed:
+        raise AssertionError(f"unwired_path: cross-checks failed: {failed}: {checks}")
+    idle = [name for name, count in launches.items() if count == 0]
+    idle += [f"{name}:{form}" for name, counts in forms.items()
+             for form, count in counts.items() if count == 0]
+    if idle:
+        raise AssertionError(f"unwired_path: not launched: {idle}")
+    torch.cuda.empty_cache()
+    return [dict(kernel_row(name, rows[(name, torch.bfloat16, tag)], launches, "unwired"),
+                 model_path_launches=0)
+            for name, tag in UNWIRED_ROWS]
+
+
 def main():
     smi = phase_env()
     device = torch.device("cuda", 0)
@@ -2039,6 +2244,7 @@ def main():
     kernels += pre_ln_vivit_path(device, smi)
     kernels += topk_paths(device, smi)
     kernels += blend_path(device, smi)
+    kernels += unwired_path(device, smi)
     emit("total", seconds=round(time.perf_counter() - _START, 3))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -24,6 +24,21 @@
 // outside the vh x vw map takes the bias row for its q, k and v and the pad
 // terms for its bias, as the TPU kernel substitutes them in VMEM.
 //
+// Two more kernels take this body through the template parameter ``Form``,
+// which keeps their own rounding points (kAttnRounded above is rows 2 and
+// 6's):
+//   * kAttnGrid, window_attention_grid (window_attention.py:78-96,
+//     _attend): q taken to float32 and scaled there, no rounding; the
+//     rel-pos terms computed in the kernel from the UNSCALED float32 q
+//     against the tables (y (a0, p0, d), x (a1, p1, d), in the working
+//     dtype), term_y[py] = q . y[i / a1, py] and term_x[px] = q . x[i % a1,
+//     px] for query i, added to the logit one after the other; the
+//     probabilities rounded to the working dtype. Its windows are read in
+//     place from the (B, Hp, Wp, 3C) map through GridRows;
+//   * kAttnF32Probs and kAttnBf16Probs, fused_attention (attention.py:33-
+//     58): q scaled in float32, the probabilities kept in float32, or with
+//     the matmul-2 cast rounded to bfloat16 together with v.
+//
 // One block per (batch, head, 32-query tile); K (n x (d+1), padded against
 // bank conflicts) and V (n x d) of the head sit in shared memory in float32,
 // and each warp keeps its query's n probabilities, the scaled query and its
@@ -38,6 +53,39 @@ namespace etk {
 
 constexpr int kAttnThreads = 256;  // 8 warps, one query at a time each
 constexpr int kAttnQueries = 32;   // queries per block
+constexpr int kMaxHeadDim = 256;   // kAttnGrid holds a query's d values in registers
+
+// Rounding points of the kernels that share the body (see above).
+enum AttnForm : int { kAttnRounded = 0, kAttnGrid = 1, kAttnF32Probs = 2, kAttnBf16Probs = 3 };
+
+// Where token ``tok`` of window ``win`` lies, as a row of the qkv (3C
+// wide) and output (C wide) arrays: packed windows of n rows each ...
+struct PackedRows {
+  __device__ __forceinline__ int64_t operator()(int win, int tok, int n) const {
+    return (int64_t)win * n + tok;
+  }
+};
+
+// ... or the (B, nh * a0, nw * a1) token map that window_attention_grid
+// reads: window win is (batch win / (nh nw), grid row, grid column) in
+// row-major order, and its token tok sits at map row ((wy a0 + tok / a1) Wp
+// + wx a1 + tok % a1) of its batch row.
+struct GridRows {
+  int nh = 1, nw = 1, a0 = 1, a1 = 1;
+  __device__ __forceinline__ int64_t operator()(int win, int tok, int) const {
+    const int bi = win / (nh * nw), r = win % (nh * nw);
+    const int y = r / nw * a0 + tok / a1, x = r % nw * a1 + tok % a1;
+    return ((int64_t)bi * nh * a0 + y) * ((int64_t)nw * a1) + x;
+  }
+};
+
+// The rel-pos tables of kAttnGrid, in the working dtype; ``y`` null: none.
+template <typename T>
+struct RelTables {
+  const T* y = nullptr;  // (a0, p0, d)
+  const T* x = nullptr;  // (a1, p1, d)
+  int a1 = 1;
+};
 
 // Window geometry of the padded form; ``bias`` null: no pad rows.
 template <typename T>
@@ -54,10 +102,11 @@ struct PadGeom {
   }
 };
 
-template <typename T>
+template <typename T, int Form, typename Rows>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_kernel(const T* __restrict__ qkv, const T* __restrict__ terms, T* __restrict__ out,
-                 int n, int c, int heads, float inv_scale, int p0, int p1, PadGeom<T> geom) {
+                 int n, int c, int heads, float inv_scale, int p0, int p1, PadGeom<T> geom,
+                 Rows rows, RelTables<T> tab) {
   extern __shared__ float smem[];
   const int d = c / heads;
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
@@ -68,25 +117,56 @@ attention_kernel(const T* __restrict__ qkv, const T* __restrict__ terms, T* __re
   float* pw = vs + (size_t)n * d + (size_t)warp * (n + d + nt);
   float* qs = pw + n;
   float* ts = qs + d;  // this query's terms
-  const T* base = qkv + (int64_t)b * n * 3 * c;
   for (int e = threadIdx.x; e < n * d; e += blockDim.x) {
     const int j = e / d, t = e % d;
-    const T* row = geom.valid(b, j) ? base + (int64_t)j * 3 * c : geom.bias;
+    const T* row = geom.valid(b, j) ? qkv + rows(b, j, n) * 3 * c : geom.bias;
     ks[j * (d + 1) + t] = to_f(row[c + h * d + t]);
-    vs[j * d + t] = to_f(row[2 * c + h * d + t]);
+    const float v = to_f(row[2 * c + h * d + t]);
+    vs[j * d + t] = Form == kAttnBf16Probs ? rnd<__nv_bfloat16>(v) : v;
   }
   __syncthreads();
-  const float scale = rnd<T>(inv_scale);
+  const float scale = Form == kAttnRounded ? rnd<T>(inv_scale) : inv_scale;
   const int q_end = min(n, (int)(blockIdx.y + 1) * kAttnQueries);
   for (int qi = blockIdx.y * kAttnQueries + warp; qi < q_end; qi += kAttnThreads / 32) {
     const bool inside = geom.valid(b, qi);
-    const T* qrow = inside ? base + (int64_t)qi * 3 * c : geom.bias;
-    for (int t = lane; t < d; t += 32) qs[t] = rnd<T>(to_f(qrow[h * d + t]) * scale);
-    if (nt > 0) {
-      const T* tr = inside || geom.terms == nullptr
-                        ? terms + (((int64_t)b * heads + h) * n + qi) * nt
-                        : geom.terms + ((int64_t)h * n + qi) * nt;
-      for (int t = lane; t < nt; t += 32) ts[t] = to_f(tr[t]);
+    const T* qrow = inside ? qkv + rows(b, qi, n) * 3 * c : geom.bias;
+    if constexpr (Form == kAttnGrid) {
+      // the terms of the unscaled q: one warp-wide dot product a term,
+      // each lane reading its own elements of q and of the table row
+      float qv[kMaxHeadDim / 32];
+#pragma unroll
+      for (int i = 0; i < kMaxHeadDim / 32; ++i) {
+        const int t = lane + 32 * i;
+        qv[i] = t < d ? to_f(qrow[h * d + t]) : 0.f;
+      }
+      for (int u = 0; u < nt; ++u) {
+        const T* tr = u < p0 ? tab.y + ((int64_t)(qi / tab.a1) * p0 + u) * d
+                             : tab.x + ((int64_t)(qi % tab.a1) * p1 + u - p0) * d;
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < kMaxHeadDim / 32; ++i) {
+          const int t = lane + 32 * i;
+          if (t < d) s = fmaf(qv[i], to_f(tr[t]), s);
+        }
+        s = warp_sum(s);
+        if (lane == (u & 31)) ts[u] = s;
+      }
+#pragma unroll
+      for (int i = 0; i < kMaxHeadDim / 32; ++i) {
+        const int t = lane + 32 * i;
+        if (t < d) qs[t] = qv[i] * scale;
+      }
+    } else {
+      for (int t = lane; t < d; t += 32) {
+        const float q = to_f(qrow[h * d + t]) * scale;
+        qs[t] = Form == kAttnRounded ? rnd<T>(q) : q;
+      }
+      if (nt > 0) {
+        const T* tr = inside || geom.terms == nullptr
+                          ? terms + (((int64_t)b * heads + h) * n + qi) * nt
+                          : geom.terms + ((int64_t)h * n + qi) * nt;
+        for (int t = lane; t < nt; t += 32) ts[t] = to_f(tr[t]);
+      }
     }
     __syncwarp();
     float mx = -INFINITY;
@@ -94,7 +174,13 @@ attention_kernel(const T* __restrict__ qkv, const T* __restrict__ terms, T* __re
       const float* kr = ks + j * (d + 1);
       float s = 0.f;
       for (int t = 0; t < d; ++t) s = fmaf(qs[t], kr[t], s);
-      if (nt > 0) s += ts[j / p1] + ts[p0 + j % p1];
+      if (nt > 0) {
+        if constexpr (Form == kAttnGrid) {
+          s = (s + ts[j / p1]) + ts[p0 + j % p1];
+        } else {
+          s += ts[j / p1] + ts[p0 + j % p1];
+        }
+      }
       pw[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -106,9 +192,18 @@ attention_kernel(const T* __restrict__ qkv, const T* __restrict__ terms, T* __re
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < n; j += 32) pw[j] = rnd<T>(pw[j] / sum);
+    for (int j = lane; j < n; j += 32) {
+      const float p = pw[j] / sum;
+      if constexpr (Form == kAttnF32Probs) {
+        pw[j] = p;
+      } else if constexpr (Form == kAttnBf16Probs) {
+        pw[j] = rnd<__nv_bfloat16>(p);
+      } else {
+        pw[j] = rnd<T>(p);
+      }
+    }
     __syncwarp();
-    T* orow = out + ((int64_t)b * n + qi) * c + h * d;
+    T* orow = out + rows(b, qi, n) * c + h * d;
     for (int t = lane; t < d; t += 32) {
       float o = 0.f;
       for (int j = 0; j < n; ++j) o = fmaf(pw[j], vs[j * d + t], o);
@@ -125,19 +220,22 @@ inline size_t attention_smem_bytes(int n, int d, int n_terms) {
 
 // qkv (bsz, n, 3c) -> out (bsz, n, c), with rel-pos terms (bsz, heads, n,
 // p0 + p1) when ``terms`` is not null (then n == p0 * p1) and pad rows
-// substituted where ``geom`` has a bias row; returns the CUDA error, if any.
-template <typename T>
+// substituted where ``geom`` has a bias row; kAttnGrid computes its terms
+// from ``tab`` instead, and takes its bsz windows through ``rows``. Returns
+// the CUDA error, if any.
+template <typename T, int Form = kAttnRounded, typename Rows = PackedRows>
 int launch_attention(const T* qkv, const T* terms, T* out, int bsz, int n, int c, int heads,
                      float inv_scale, int p0, int p1, cudaStream_t stream,
-                     PadGeom<T> geom = PadGeom<T>{}) {
-  if (terms == nullptr) p0 = p1 = 0;
+                     PadGeom<T> geom = PadGeom<T>{}, Rows rows = Rows{},
+                     RelTables<T> tab = RelTables<T>{}) {
+  if (terms == nullptr && tab.y == nullptr) p0 = p1 = 0;
   const size_t smem = attention_smem_bytes(n, c / heads, p0 + p1);
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, Form, Rows>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bsz * heads, (n + kAttnQueries - 1) / kAttnQueries);
-  attention_kernel<T><<<grid, kAttnThreads, smem, stream>>>(qkv, terms, out, n, c, heads,
-                                                            inv_scale, p0, p1, geom);
+  attention_kernel<T, Form, Rows><<<grid, kAttnThreads, smem, stream>>>(
+      qkv, terms, out, n, c, heads, inv_scale, p0, p1, geom, rows, tab);
   return (int)cudaGetLastError();
 }
 

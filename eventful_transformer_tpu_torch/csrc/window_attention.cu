@@ -29,6 +29,21 @@
 // of shared memory per warp and two float reads per logit; the windowed
 // form is bound like the global one, by the float32 shared-memory dot
 // products.
+//
+// Also replaces window_attention.py::window_attention_grid
+// (etk_window_attention_grid): the same windows read in place from the
+// padded (B, Hp, Wp, 3C) qkv map and written back to a (B, Hp, Wp, C) map
+// through attention.cuh's GridRows, so that no partition exists in memory,
+// with the rounding of window_attention.py's _attend (kAttnGrid: q scaled
+// in float32, the rel-pos terms computed in the kernel from the unscaled
+// q against the two (a, p, d) tables). The TPU kernel walks one stripe of
+// a0 map rows per grid step and slices its windows in VMEM; here the
+// blocks are the partitioned form's, (window, head, 32-query tile), and
+// only the row addresses change, so the grid form is bound like the
+// partitioned one. Its terms cost (p0 + p1) d products per query, about an
+// eighth of the logits' at 14 x 14 windows: one warp-wide dot product a
+// term, each lane reading its own elements of the table row (the tables,
+// 50 KB in bfloat16, stay in L1 and L2).
 #include "attention.cuh"
 
 extern "C" {
@@ -55,6 +70,28 @@ int etk_window_attention(int dtype, const void* qkv, const void* terms, void* ou
     geom.a1 = a1;
     return etk::launch_attention<T>((const T*)qkv, (const T*)terms, (T*)out, bsz, n, c, heads,
                                     inv_scale, p0, p1, (cudaStream_t)stream, geom);
+  });
+}
+
+// x (b, nh * a0, nw * a1, 3c) -> out (b, nh * a0, nw * a1, c); y_rel null:
+// no rel-pos terms, else the tables y_rel (a0, p0, d) and x_rel (a1, p1,
+// d) with p0 * p1 == a0 * a1.
+int etk_window_attention_grid(int dtype, const void* x, const void* y_rel, const void* x_rel,
+                              void* out, int b, int nh, int nw, int a0, int a1, int c,
+                              int heads, float inv_scale, int p0, int p1, void* stream) {
+  ETK_DISPATCH(dtype, {
+    etk::GridRows rows;
+    rows.nh = nh;
+    rows.nw = nw;
+    rows.a0 = a0;
+    rows.a1 = a1;
+    etk::RelTables<T> tab;
+    tab.y = (const T*)y_rel;
+    tab.x = (const T*)x_rel;
+    tab.a1 = a1;
+    return etk::launch_attention<T, etk::kAttnGrid>(
+        (const T*)x, nullptr, (T*)out, b * nh * nw, a0 * a1, c, heads, inv_scale, p0, p1,
+        (cudaStream_t)stream, etk::PadGeom<T>{}, rows, tab);
   });
 }
 

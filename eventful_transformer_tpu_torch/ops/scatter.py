@@ -1,0 +1,129 @@
+"""Row scatter into a buffer in place, and row gather, by index (port of
+``scatter_rows_inplace`` and ``gather_rows`` from
+``eventful_transformer_tpu/ops/pallas/scatter.py``).
+
+    scatter_rows_inplace: buffer[b, index[b, i]] = values[b, i] where mask[b, i]
+    gather_rows:          rows[b, i] = buffer[b, index[b, i]]
+
+Pure row copies: ``values`` is cast to the buffer's dtype, and nothing else
+is computed, so both equal the JAX kernels bit for bit. The scatter writes
+into the caller's buffer and returns it (the JAX kernel aliases it,
+``input_output_aliases``). Valid indices of a batch row must be distinct,
+as in the JAX package; two slots naming one row race on the card. A slot
+whose index lies outside [0, N) writes nothing (the scatter) or a row of
+zeros (the gather). Rows are whole 128-lane multiples wide, as the JAX
+kernels require, so the same calls are valid in both packages.
+
+No path of the JAX package calls these kernels (its ``put_rows`` and
+``take_rows`` are index ops or the scatter-blend); the port's are held
+against ``core/indexing.py::put_rows`` and ``take_rows`` by
+``chip_smoke.py``. The CUDA kernels are ``csrc/scatter.cu``; each wrapper
+counts its launches in ``launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from eventful_transformer_tpu_torch.ops import _build
+
+LANE = 128
+
+
+def _check(name, buffer, index, values=None, mask=None):
+    """The JAX kernels' argument rules: a (B, N, C) buffer with C a
+    multiple of 128, a (B, K) index, (B, K, C) values and a (B, K) mask."""
+    if buffer.ndim != 3 or buffer.shape[-1] % LANE:
+        raise ValueError(f"{name}: buffer {tuple(buffer.shape)} is not (B, N, C), C % {LANE} == 0")
+    bsz, _, c = buffer.shape
+    k = index.shape[-1]
+    _build.check_shape(name, "index", index, (bsz, k))
+    _build.check_shape(name, "values", values, (bsz, k, c))
+    _build.check_shape(name, "mask", mask, (bsz, k))
+    if index.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name}: index is {index.dtype}, expected an int32 or int64 tensor")
+
+
+def _valid(index, mask, n):
+    """(B, K) bool: the slots that name a row, with mask True."""
+    ok = (index >= 0) & (index < n)
+    return ok if mask is None else ok & mask.bool()
+
+
+def scatter_rows_inplace_plain(buffer, values, index, mask=None):
+    """buffer (B, N, C) <- values (B, K, C) at rows index (B, K) where mask
+    (B, K) is True (None: every slot), in place; returns buffer."""
+    _check("scatter_rows_inplace", buffer, index, values, mask)
+    ok = _valid(index, mask, buffer.shape[1])
+    rows = torch.arange(buffer.shape[0], device=buffer.device)[:, None].expand(index.shape)
+    buffer[rows[ok], index.long()[ok]] = values[ok].to(buffer.dtype)
+    return buffer
+
+
+def gather_rows_plain(buffer, index):
+    """rows (B, K, C) <- buffer (B, N, C) at index (B, K); zeros where the
+    index lies outside [0, N)."""
+    _check("gather_rows", buffer, index)
+    n = buffer.shape[1]
+    ok = _valid(index, None, n)
+    rows = torch.arange(buffer.shape[0], device=buffer.device)[:, None].expand(index.shape)
+    out = buffer[rows, index.long().clamp(0, n - 1)]
+    return torch.where(ok[..., None], out, out.new_zeros(()))
+
+
+def _check_cuda(name, buffer, **tensors):
+    """Raise unless every tensor lies on the buffer's device, contiguous
+    and 16-byte aligned (the kernels copy 16-byte words)."""
+    _build.check_operands(name, buffer)
+    for key, t in dict(buffer=buffer, **tensors).items():
+        if t is None:
+            continue
+        if t.device != buffer.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be a contiguous tensor on {buffer.device}")
+        if key in ("buffer", "values") and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must start on a 16-byte boundary")
+
+
+def scatter_rows_inplace(buffer, values, index, mask=None):
+    """The wrapper of :func:`scatter_rows_inplace_plain`, which CPU tensors
+    take. CUDA tensors launch the kernel of csrc/scatter.cu, which casts
+    float32 or bfloat16 values to the buffer's dtype itself."""
+    if buffer.device.type == "cpu":
+        return scatter_rows_inplace_plain(buffer, values, index, mask)
+    name = "scatter_rows_inplace"
+    _check(name, buffer, index, values, mask)
+    if mask is not None and mask.dtype != torch.bool:
+        mask = mask != 0
+    _check_cuda(name, buffer, values=values, index=index, mask=mask)
+    bsz, n, c = buffer.shape
+    _build.launch(
+        "etk_scatter_rows", _build.dtype_code(buffer), _build.dtype_code(values),
+        buffer.data_ptr(), values.data_ptr(), index.data_ptr(), int(index.dtype == torch.int64),
+        None if mask is None else mask.data_ptr(), bsz, n, c, index.shape[-1],
+        _build.stream_of(buffer),
+    )
+    scatter_rows_inplace.launches += 1
+    return buffer
+
+
+def gather_rows(buffer, index):
+    """The wrapper of :func:`gather_rows_plain`, which CPU tensors take.
+    CUDA tensors launch the kernel of csrc/scatter.cu."""
+    if buffer.device.type == "cpu":
+        return gather_rows_plain(buffer, index)
+    name = "gather_rows"
+    _check(name, buffer, index)
+    _check_cuda(name, buffer, index=index)
+    bsz, n, c = buffer.shape
+    k = index.shape[-1]
+    rows = torch.empty((bsz, k, c), dtype=buffer.dtype, device=buffer.device)
+    _build.launch(
+        "etk_gather_rows", _build.dtype_code(buffer), buffer.data_ptr(), index.data_ptr(),
+        int(index.dtype == torch.int64), rows.data_ptr(), bsz, n, c, k, _build.stream_of(buffer),
+    )
+    gather_rows.launches += 1
+    return rows
+
+
+scatter_rows_inplace.launches = 0
+gather_rows.launches = 0

@@ -11,10 +11,18 @@ the per-axis rel-pos terms of :func:`window_bias_terms`; the kernel adds
 Padded form (``geom``): the windows come from a token map zero-padded to
 the window grid, and the kernel substitutes the qkv-bias row ``pad_bias``
 for the q, k and v of every out-of-image token and ``pad_terms``
-(:func:`window_bias_pad_terms`) for its terms. ``window_attention_grid`` is
-not ported (ROADMAP.md, "TPU kernels to port"). The CUDA kernel is
+(:func:`window_bias_pad_terms`) for its terms. The CUDA kernel is
 ``csrc/window_attention.cu``, which launches the attention kernel of
 ``csrc/attention.cuh``; kernel A shares it.
+
+``window_attention_grid`` takes the windows from the padded (B, Hp, Wp, 3C)
+qkv map itself and writes a (B, Hp, Wp, C) map, with the rel-pos terms
+computed from the two tables inside the kernel and the rounding points of
+the JAX kernel's ``_attend`` (window_attention.py:78-96), not those of
+:func:`attention_plain`. No path of the JAX package calls it (its ``Block``
+partitions in XLA and runs ``window_attention``); ``chip_smoke.py`` holds it
+against its plain version and, in float32, against the windowed and padded
+forms above over the partition of the same map.
 """
 
 from __future__ import annotations
@@ -166,3 +174,99 @@ def window_attention(
 
 
 window_attention.launches = 0
+
+
+MAX_GRID_HEAD_DIM = 256  # the grid kernel holds a query's head in registers (kMaxHeadDim)
+
+
+def _grid_geometry(name, x, y_rel, window, a, p):
+    """(a0, a1, p0, p1) of a grid call, checked as the JAX kernel's: with
+    tables the window is ``a`` (``window`` where None) and the key grid
+    ``p`` (``a`` where None), with p0 * p1 == a0 * a1; the map's extents
+    multiples of the window."""
+    if x.ndim != 4 or x.shape[-1] % 3:
+        raise ValueError(f"{name}: x {tuple(x.shape)} is not a (B, Hp, Wp, 3C) map")
+    if y_rel is None:
+        (a0, a1), (p0, p1) = window, (0, 0)
+    else:
+        a0, a1 = a if a is not None else window
+        p0, p1 = p if p is not None else (a0, a1)
+        if p0 * p1 != a0 * a1:
+            raise ValueError(f"{name}: key grid {(p0, p1)} does not hold a {(a0, a1)} window")
+    if x.shape[1] % a0 or x.shape[2] % a1:
+        raise ValueError(f"{name}: map {tuple(x.shape[1:3])} is not a multiple of {(a0, a1)}")
+    return a0, a1, p0, p1
+
+
+def window_attention_grid_plain(
+    x, y_rel=None, x_rel=None, *, heads, scale, window, a=None, p=None
+):
+    """x (B, Hp, Wp, 3C) -> (B, Hp, Wp, C): the windows of the map
+    partitioned, attended as the JAX kernel's ``_attend`` does, and put
+    back. q in float32, scaled by the float32 1/scale; with the tables
+    y_rel (a0, p0, hd) and x_rel (a1, p1, hd), rounded to x's dtype, the
+    terms q . y_rel[i // a1] and q . x_rel[i % a1] of the UNSCALED float32
+    q added to the float32 logits one after the other; probabilities and
+    output rounded to x's dtype."""
+    a0, a1, p0, p1 = _grid_geometry("window_attention_grid", x, y_rel, window, a, p)
+    wd = x.dtype
+    b, hp, wp, c3 = x.shape
+    c = c3 // 3
+    t = a0 * a1
+    win = x.reshape(b, hp // a0, a0, wp // a1, a1, c3).permute(0, 1, 3, 2, 4, 5)
+    win = win.reshape(-1, t, 3, heads, c // heads).permute(2, 0, 3, 1, 4)  # (3, Bw, H, T, d)
+    q, k, v = win[0].float(), win[1].float(), win[2]
+    logits = torch.matmul(q * torch.tensor(1.0 / scale, dtype=torch.float32), k.transpose(-1, -2))
+    if y_rel is not None:
+        idx = torch.arange(t, device=x.device)  # queries, and keys on the p0 x p1 grid
+        term_y = torch.einsum("bhtd,tpd->bhtp", q, y_rel.to(wd).float()[idx // a1])
+        term_x = torch.einsum("bhtd,tpd->bhtp", q, x_rel.to(wd).float()[idx % a1])
+        logits = logits + term_y[..., idx // p1]
+        logits = logits + term_x[..., idx % p1]
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    attn = (e / e.sum(dim=-1, keepdim=True)).to(wd)
+    out = torch.matmul(attn.float(), v.float()).to(wd)  # (Bw, H, T, d)
+    out = out.transpose(1, 2).reshape(b, hp // a0, wp // a1, a0, a1, c)
+    return out.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, c)
+
+
+def window_attention_grid(
+    x, y_rel=None, x_rel=None, *, heads, scale, window, a=None, p=None
+):
+    """The wrapper of :func:`window_attention_grid_plain`, which CPU tensors
+    take. CUDA tensors launch the grid entry of csrc/window_attention.cu;
+    launches are counted by form, ``"terms"`` or ``"no_terms"``."""
+    if x.device.type == "cpu":
+        return window_attention_grid_plain(
+            x, y_rel, x_rel, heads=heads, scale=scale, window=window, a=a, p=p
+        )
+    name = "window_attention_grid"
+    a0, a1, p0, p1 = _grid_geometry(name, x, y_rel, window, a, p)
+    b, hp, wp, c3 = x.shape
+    c = c3 // 3
+    if c % heads:
+        raise ValueError(f"{name}: last axis {c3} is not 3 x {heads} heads wide")
+    hd = c // heads
+    if hd > MAX_GRID_HEAD_DIM:
+        raise ValueError(f"{name}: head width {hd} exceeds {MAX_GRID_HEAD_DIM}")
+    tables = {}
+    if y_rel is not None:
+        tables = dict(y_rel=y_rel.to(x.dtype).contiguous(), x_rel=x_rel.to(x.dtype).contiguous())
+        _build.check_shape(name, "y_rel", tables["y_rel"], (a0, p0, hd))
+        _build.check_shape(name, "x_rel", tables["x_rel"], (a1, p1, hd))
+    _build.check_operands(name, x, **tables)
+    attention_smem_bytes(name, a0 * a1, hd, p0 + p1)
+    out = torch.empty((b, hp, wp, c), dtype=x.dtype, device=x.device)
+    _build.launch(
+        "etk_window_attention_grid", _build.dtype_code(x), x.data_ptr(),
+        tables["y_rel"].data_ptr() if tables else None,
+        tables["x_rel"].data_ptr() if tables else None, out.data_ptr(), b, hp // a0, wp // a1,
+        a0, a1, c, heads, float(1.0 / scale), p0, p1, _build.stream_of(x),
+    )
+    window_attention_grid.launches += 1
+    window_attention_grid.form_launches["terms" if tables else "no_terms"] += 1
+    return out
+
+
+window_attention_grid.launches = 0
+window_attention_grid.form_launches = {"terms": 0, "no_terms": 0}

@@ -536,3 +536,52 @@ def test_small_vitdet_stgt_blend_card_matches_cpu(device, monkeypatch):
     assert kernel_check.launches("scatter_blend") == 4 * 3 * 2  # blocks x buffers x steps
     assert torch.equal(on, off)
     torch.testing.assert_close(on, run(model, frames), rtol=1e-3, atol=1e-3)
+
+
+def test_scatter_rows_writes_the_callers_buffer(device):
+    """Row 19 writes into the tensor it is given, in place (the JAX
+    kernel's aliased buffer), float32 values cast to its bfloat16, equal
+    to put_rows bit for bit."""
+    from eventful_transformer_tpu_torch.core.indexing import put_rows
+    from eventful_transformer_tpu_torch.ops.scatter import scatter_rows_inplace
+
+    d = kernel_check.make_inputs(2, 197, 256, 4, 24, torch.bfloat16, device)
+    buf = d["rows_buf_qkv"].clone()
+    ptr = buf.data_ptr()
+    out = scatter_rows_inplace(buf, d["rows_vals_f32"], d["rows_index"], d["rows_mask"])
+    assert out is buf and out.data_ptr() == ptr
+    want = put_rows(d["rows_buf_qkv"], d["rows_index"], d["rows_vals_f32"], d["rows_mask"])
+    assert torch.equal(buf, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_row_kernels_out_of_range_slots(dtype, device):
+    """A slot naming a row outside [0, N) writes nothing (the scatter) or
+    zeros (the gather) on the card as in the plain versions, for int32 and
+    int64 indices."""
+    from eventful_transformer_tpu_torch.ops.scatter import gather_rows, scatter_rows_inplace
+
+    d = kernel_check.make_inputs(2, 37, 128, 4, 11, dtype, "cpu", seed=2)
+    index = d["rows_index"].clone()
+    index[0, 3], index[1, 0] = -1, 37
+    for idx in (index, index.long()):
+        want = scatter_rows_inplace(d["rows_buf"].clone(), d["rows_vals"], idx, d["rows_mask"])
+        got = scatter_rows_inplace(d["rows_buf"].to(device), d["rows_vals"].to(device),
+                                   idx.to(device), d["rows_mask"].to(device))
+        assert torch.equal(got.cpu(), want)
+        got = gather_rows(d["rows_buf"].to(device), idx.to(device))
+        assert torch.equal(got.cpu(), gather_rows(d["rows_buf"], idx))
+
+
+def test_fused_attention_takes_offset_views_and_refuses_strided_ones(device):
+    """A batch slice (contiguous, at an offset) gives the result of its
+    copy bit for bit; a slice of the last axis is refused, not misread."""
+    from eventful_transformer_tpu_torch.ops.attention import fused_attention
+
+    big = torch.randn((3, 37, 4 * 192), device=device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_attention(big[1:, :, :192], heads=4, scale=4.0)
+    whole = big[:, :, :192].contiguous()
+    for cast in (None, torch.bfloat16):
+        got = fused_attention(whole[1:], heads=4, scale=4.0, cast=cast)
+        assert torch.equal(got, fused_attention(whole[1:].clone(), heads=4, scale=4.0, cast=cast))

@@ -135,19 +135,81 @@ def test_blend_faults_fail(dtype):
 
 @pytest.mark.parametrize(
     "name", ["window_attention", "window_attention_windowed", "window_attention_padded",
-             "scatter_blend", "scatter_blend_qkv"],
+             "scatter_blend", "scatter_blend_qkv", "fused_attention", "window_attention_grid",
+             "window_attention_grid_noterms", "scatter_rows_inplace", "scatter_rows_inplace_qkv",
+             "gather_rows", "gather_rows_qkv", "ln_select_noln"],
 )
 def test_library_calls_compute_the_same_function(name):
     """The PyTorch call timed beside a kernel computes its function on the
     same inputs: attention through scaled_dot_product_attention (rel-pos
-    terms as a float mask, pad rows substituted) within 1e-5 of the plain
-    version in float32, the blend's Tensor.scatter equal to it."""
+    terms as a float mask, pad rows substituted; the grid form through the
+    partition of its map) within 1e-5 of the plain version in float32, the
+    blend's Tensor.scatter, the row scatter's Tensor.scatter_, the
+    gather's torch.gather and the no-LN select's torch.where equal to it."""
     d = kernel_check.make_inputs(2, 37, 64, 4, 11, torch.float32, "cpu", seed=1)
     want = kernel_check.call(name, d, plain=True)[0]
     got = kernel_check.library_call(name, d)()
-    if name.startswith("window_attention"):
-        got = got.transpose(1, 2).reshape(want.shape)
+    if "attention" in name:
+        if got.shape != want.shape:  # SDPA's (B, H, N, d)
+            got = got.transpose(1, 2).reshape(want.shape)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
         assert torch.equal(got, want)
-    assert kernel_check.library_call("scatter_blend_masked", d) is None
+    for other in ("scatter_blend_masked", "scatter_rows_inplace_masked",
+                  "scatter_rows_inplace_cast", "fused_attention_cast"):
+        assert kernel_check.library_call(other, d) is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_row_scatter_faults_fail(dtype):
+    """The row scatter must equal its plain version bit for bit: a scatter
+    that writes the masked-off slots too fails, as does one that drops the
+    float32 values' cast to the buffer's dtype (rounding toward zero
+    instead); the gather of the neighbouring rows fails."""
+    d = kernel_check.make_inputs(2, 197, 256, 4, 24, dtype, "cpu")
+    want = kernel_check.call("scatter_rows_inplace_masked", d, plain=True)[0]
+    assert kernel_check.compare_exact(want.clone(), want)["ok"]
+    all_slots = kernel_check.call("scatter_rows_inplace", d, plain=True)[0]
+    assert not kernel_check.compare_exact(all_slots, want)["ok"]
+    if dtype == torch.bfloat16:
+        want = kernel_check.call("scatter_rows_inplace_cast", d, plain=True)[0]
+        truncated = (d["rows_vals_f32"].view(torch.int32) & -65536).view(torch.float32)
+        got = kernel_check.call("scatter_rows_inplace_cast", dict(d, rows_vals_f32=truncated),
+                                plain=True)[0]
+        assert not kernel_check.compare_exact(got, want)["ok"]
+    want = kernel_check.call("gather_rows_qkv", d, plain=True)[0]
+    shifted = (d["rows_index"] + 1) % d["rows_buf_qkv"].shape[1]
+    got = kernel_check.call("gather_rows_qkv", dict(d, rows_index=shifted), plain=True)[0]
+    assert not kernel_check.compare_exact(got, want)["ok"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dropped_cast_in_fused_attention_fails(dtype):
+    """The matmul-2 cast left out (the probabilities kept in float32)
+    fails the bounds in either working dtype; in float32 the cast form's
+    own bound passes a probability flipped across a bfloat16 rounding
+    boundary (q's scale one float32 ulp off), which the plain float32
+    bound does not."""
+    from eventful_transformer_tpu_torch.ops.attention import fused_attention_plain
+
+    d = kernel_check.make_inputs(8, 197, 256, 4, 24, dtype, "cpu")
+    check = kernel_check.comparison("fused_attention_cast")
+    want = kernel_check.call("fused_attention_cast", d, plain=True)[0]
+    got = kernel_check.call("fused_attention", d, plain=True)[0]
+    assert not check(got, want)["ok"]
+    if dtype == torch.float32:
+        flipped = fused_attention_plain(d["qkv"], heads=4, scale=8.0 * (1 + 2**-23),
+                                        cast=torch.bfloat16)
+        assert check(flipped, want)["ok"] and not kernel_check.compare(flipped, want)["ok"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_shifted_window_in_the_grid_fails(dtype):
+    """Windows cut one column off the window grid (the map rolled by one
+    column) fail the bounds, with and without the rel-pos terms."""
+    d = kernel_check.make_inputs(2, 196, 256, 4, 24, dtype, "cpu", pad_window=(7, 7))
+    for name in ("window_attention_grid", "window_attention_grid_noterms"):
+        want = kernel_check.call(name, d, plain=True)[0]
+        rolled = d["qkv_map"].roll(1, dims=2)
+        got = kernel_check.call(name, dict(d, qkv_map=rolled), plain=True)[0].roll(-1, dims=2)
+        assert not kernel_check.compare(got, want)["ok"]

@@ -220,6 +220,33 @@ assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_t
 print("ok")
 """
 
+UNWIRED_SCRIPT = """
+import sys
+sys.modules["jax"] = None
+import torch
+torch.set_num_threads(2)
+from eventful_transformer_tpu_torch.ops.attention import fused_attention
+from eventful_transformer_tpu_torch.ops.scatter import gather_rows, scatter_rows_inplace
+from eventful_transformer_tpu_torch.ops.window_attention import window_attention_grid
+g = torch.Generator().manual_seed(0)
+buf = torch.randn((2, 16, 128), generator=g)
+index = torch.tensor([[3, 7, 1], [0, 15, 9]], dtype=torch.int32)
+rows = gather_rows(buf, index)
+out = scatter_rows_inplace(buf, -rows, index, torch.tensor([[True, False, True]] * 2))
+assert out is buf and torch.equal(buf[0, 3], -rows[0, 0]) and torch.equal(buf[0, 7], rows[0, 1])
+qkv = torch.randn((2, 17, 96), generator=g)
+for cast in (None, torch.bfloat16):
+    assert fused_attention(qkv, heads=4, scale=8 ** 0.5, cast=cast).shape == (2, 17, 32)
+x = torch.randn((2, 4, 6, 96), generator=g)
+tables = (torch.randn((2, 2, 8), generator=g), torch.randn((3, 3, 8), generator=g))
+for rel in ((), tables):
+    y = window_attention_grid(x, *rel, heads=4, scale=8 ** 0.5, window=(2, 3), a=(2, 3))
+    assert y.shape == (2, 4, 6, 32) and bool(torch.isfinite(y).all())
+assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
+               for name, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+
 
 def _run(script):
     result = subprocess.run(
@@ -266,3 +293,10 @@ def test_block_switches_run_without_jax():
     modules ``ops/gate_group.py`` and ``ops/scatter_blend.py``, in a small
     ViTDet backbone without JAX."""
     _run(SWITCHES_SCRIPT)
+
+
+def test_unwired_kernels_run_without_jax():
+    """The four kernels no path of the JAX package calls (rows 15, 19-21:
+    the row scatter and gather, the fused attention, the grid form of the
+    windowed attention) through their wrappers, without JAX."""
+    _run(UNWIRED_SCRIPT)
