@@ -136,6 +136,12 @@ Phases, one JSON line each, with the seconds the phase took:
                      fused_attention also on a batch slice of a larger
                      tensor (the same result) and a slice of its last axis
                      (refused, or else the same result).
+  25. attention_bodies: the launches of window_attention, fused_attention
+                     and kernel A (qkv_attention_group), by body, of every
+                     counted run above; each run was checked as it was read:
+                     in bfloat16 only the tensor-core body
+                     (csrc/attention_tc.cuh), in float32 only the CUDA-core
+                     one (window_attention.attention_body's rule).
 The times are a record, not a claim.
 
 Then the whole run's seconds, the card's name and power limit, one JSON
@@ -467,6 +473,40 @@ def read_form_launches():
             if hasattr(fn, "form_launches")}
 
 
+# The attention launches of each counted run by wrapper and body (the
+# wrappers that reach csrc/attention.cuh: window_attention, fused_attention
+# and kernel A's qkv_attention_group), emitted by phase attention_bodies.
+BODIES = []
+
+
+def read_bodies(dtype, where):
+    """The attention launches of the run just made by wrapper and body,
+    checked: in bfloat16 every one took the tensor-core body, in float32
+    the CUDA-core body (``window_attention.attention_body`` at the paths'
+    shapes); kept in BODIES."""
+    from eventful_transformer_tpu_torch.ops import kernel_check
+
+    counts = kernel_check.body_launches()
+    kernel_check.check_bodies(counts, dtype, where)
+    BODIES.append(dict(run=where, dtype=str(dtype).split(".")[-1],
+                       launches={name: c for name, c in counts.items() if any(c.values())}))
+    return counts
+
+
+def model_dtype(model):
+    return next(model.parameters()).dtype
+
+
+def phase_attention_bodies():
+    """Every counted run's attention launches by body (each checked as it
+    was read)."""
+    tc, simt = (sum(c[body] for row in BODIES for c in row["launches"].values())
+                for body in ("tc", "simt"))
+    emit("attention_bodies", runs=BODIES, tc_launches=tc, simt_launches=simt)
+    if not tc or not simt:
+        raise AssertionError(f"attention bodies: tc {tc}, simt {simt} launches in all")
+
+
 def expected_forms(step_forms, steps):
     """Every form count 0 but ``step_forms`` ({wrapper: {form: per step}})
     times ``steps``."""
@@ -483,6 +523,7 @@ def counted_run(model, views, eventful):
     reset_launches()
     probs, _ = run_model(model, views)
     launches = read_launches()
+    read_bodies(views.dtype, f"vivit {'eventful' if eventful else 'dense'}")
     want = expected_launches(eventful)
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
@@ -544,9 +585,12 @@ def card_vs_cpu(cpu_model, clip, device, run=None, prob_tol=None):
     runs = {}
     for tag, model, views in (("card", card_model, clip.to(device)), ("cpu", cpu_model, clip)):
         with recorded_selections(logs[tag]):
+            reset_launches()
             start = time.perf_counter()
             runs[tag] = run(model, views, count=True)
             runs[tag + "_s"] = time.perf_counter() - start
+        if tag == "card":
+            read_bodies(model_dtype(card_model), "vivit card vs cpu")
     selections, flips = selection_flips(logs["card"], logs["cpu"])
     prob_diff = float((runs["card"][0].cpu() - runs["cpu"][0]).abs().max())
     numbers = dict(
@@ -781,6 +825,7 @@ def vitdet_counted_call(model, frames, eventful, size):
         reset_launches()
         tokens, counts, _ = run_vitdet(model, frames, count=True)
         launches = read_launches()
+        read_bodies(frames.dtype, f"vitdet{size} {'eventful' if eventful else 'dense'}")
     want = vitdet_expected_launches(eventful, size)
     if launches != want:
         raise AssertionError(f"ViTDet-{size} launch counts {launches}, expected {want}")
@@ -814,6 +859,7 @@ def card_and_cpu(cpu_model, frames, device, run, card_model=None):
             seconds[tag] = time.perf_counter() - start
             if tag == "card":
                 launches = read_launches()
+                read_bodies(model_dtype(card_model), "vitdet card vs cpu")
     selections, flips = selection_flips(logs["card"], logs["cpu"])
     scaled = max(
         float(((a.cpu() - b).abs() / b.abs().clamp(min=1.0)).max())
@@ -1036,6 +1082,7 @@ def e2e_counted_call(model, frames, eventful, row16=False):
         reset_launches()
         dets, counts = run_e2e(model, frames, count=True)
         launches = read_launches()
+        read_bodies(model_dtype(model), f"vitdet_e2e {'eventful' if eventful else 'dense'}")
         syncs = nms.host_syncs - syncs
     want = vitdet_expected_launches(eventful, E2E_SIZE, frames=frames_n, streams=1)
     if row16:
@@ -1276,6 +1323,7 @@ def ev_counted_run(model, clip, run):
     reset_launches()
     probs, counts = run_apply(model, clip, count=True)
     launches = read_launches()
+    read_bodies(model_dtype(model), f"vivit_evblock {run or 'dense'}")
     want = ev_expected_launches(run)
     if launches != want:
         raise AssertionError(f"ViViT {run or 'dense'} launch counts {launches}, expected {want}")
@@ -1505,6 +1553,7 @@ def option_counted_call(path, model, frames, cfg=None):
         reset_launches()
         tokens, counts, _ = run_vitdet(model, frames, count=True)
         launches, forms = read_launches(), read_form_launches()
+        read_bodies(frames.dtype, path)
     want = dict.fromkeys(wrappers(), 0)
     want.update(window_attention=VITDET_WINDOWED * VITDET_FRAMES,
                 relpos_bias_add_v2=VITDET_GLOBAL * VITDET_FRAMES)
@@ -1638,6 +1687,7 @@ def pre_ln_counted_run(model, views, run):
     reset_launches()
     probs, counts = run_model(model, views, count=True)
     launches, forms = read_launches(), read_form_launches()
+    read_bodies(views.dtype, f"vivit_pre_ln {run}")
     steps = DEPTH * (STEPS - 1)
     want = dict.fromkeys(wrappers(), 0)
     want.update({name: n * steps for name, n in PRE_LN_STEP_LAUNCHES[run].items()})
@@ -1832,6 +1882,7 @@ def vivit_topk_counted_run(model, views, on):
     reset_launches()
     probs, counts = run_model(model, views, count=True)
     launches, forms = read_launches(), read_form_launches()
+    read_bodies(views.dtype, f"topk_slice_vivit {'on' if on else 'off'}")
     set_blocks(model, in_kernel_topk=False)
     steps = DEPTH * (STEPS - 1)
     step_launches, step_forms = VIVIT_TOPK_STEP[on]
@@ -2204,6 +2255,7 @@ def unwired_path(device, smi):
     launches = {name: fn.launches for name, fn in wrappers.items()}
     forms = {name: dict(fn.form_launches) for name, fn in wrappers.items()
              if hasattr(fn, "form_launches")}
+    read_bodies(torch.float32, "unwired_path")
     emit("unwired_path", card=smi, tf32=torch.backends.cuda.matmul.allow_tf32,
          launches=launches, form_launches=forms, checks=checks)
     failed = [f"{key}.{name}" for key, check in checks.items()
@@ -2245,6 +2297,7 @@ def main():
     kernels += topk_paths(device, smi)
     kernels += blend_path(device, smi)
     kernels += unwired_path(device, smi)
+    phase_attention_bodies()
     emit("total", seconds=round(time.perf_counter() - _START, 3))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

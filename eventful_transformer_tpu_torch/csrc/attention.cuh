@@ -39,13 +39,22 @@
 //     58): q scaled in float32, the probabilities kept in float32, or with
 //     the matmul-2 cast rounded to bfloat16 together with v.
 //
-// One block per (batch, head, 32-query tile); K (n x (d+1), padded against
-// bank conflicts) and V (n x d) of the head sit in shared memory in float32,
-// and each warp keeps its query's n probabilities, the scaled query and its
-// p0 + p1 terms. The logits and A.V run on the CUDA cores in float32: the
-// simple first version, bound by shared-memory reads (about 5 TFLOP/s at
-// N = 197).
+// Two bodies run these kernels, and launch_attention picks one by the
+// ``body`` its caller passes (ops/window_attention.py::attention_body states
+// the rule and the wrappers count launches by body):
+//   * the tensor-core body (attention_tc.cuh): bfloat16, kAttnRounded,
+//     kAttnF32Probs and kAttnBf16Probs, head width a multiple of 16 up to
+//     128, n <= 512;
+//   * the CUDA-core body below: every float32 call, the kAttnGrid form, and
+//     what the tensor-core body does not take. One block per (batch, head,
+//     32-query tile); K (n x (d+1), padded against bank conflicts) and V
+//     (n x d) of the head sit in shared memory in float32, and each warp
+//     keeps its query's n probabilities, the scaled query and its p0 + p1
+//     terms. The logits and A.V run on the CUDA cores in float32, bound by
+//     shared-memory reads (about 5 TFLOP/s at N = 197).
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -213,7 +222,17 @@ attention_kernel(const T* __restrict__ qkv, const T* __restrict__ terms, T* __re
   }
 }
 
-inline size_t attention_smem_bytes(int n, int d, int n_terms) {
+// The two bodies, as the wrappers name them ("simt", "tc").
+enum AttnBody : int { kBodySimt = 0, kBodyTc = 1 };
+
+}  // namespace etk
+
+#include "attention_tc.cuh"
+
+namespace etk {
+
+inline size_t attention_smem_bytes(int body, int n, int d, int n_terms) {
+  if (body == kBodyTc) return attention_tc_smem_bytes(n, d, n_terms);
   return ((size_t)n * (2 * d + 1) + (size_t)(kAttnThreads / 32) * (n + d + n_terms)) *
          sizeof(float);
 }
@@ -221,15 +240,26 @@ inline size_t attention_smem_bytes(int n, int d, int n_terms) {
 // qkv (bsz, n, 3c) -> out (bsz, n, c), with rel-pos terms (bsz, heads, n,
 // p0 + p1) when ``terms`` is not null (then n == p0 * p1) and pad rows
 // substituted where ``geom`` has a bias row; kAttnGrid computes its terms
-// from ``tab`` instead, and takes its bsz windows through ``rows``. Returns
-// the CUDA error, if any.
+// from ``tab`` instead, and takes its bsz windows through ``rows``. ``body``
+// kBodyTc runs the tensor-core body, which takes bfloat16 packed rows in
+// every form but kAttnGrid (cudaErrorInvalidValue otherwise); kBodySimt the
+// CUDA-core body. Returns the CUDA error, if any.
 template <typename T, int Form = kAttnRounded, typename Rows = PackedRows>
-int launch_attention(const T* qkv, const T* terms, T* out, int bsz, int n, int c, int heads,
-                     float inv_scale, int p0, int p1, cudaStream_t stream,
+int launch_attention(int body, const T* qkv, const T* terms, T* out, int bsz, int n, int c,
+                     int heads, float inv_scale, int p0, int p1, cudaStream_t stream,
                      PadGeom<T> geom = PadGeom<T>{}, Rows rows = Rows{},
                      RelTables<T> tab = RelTables<T>{}) {
   if (terms == nullptr && tab.y == nullptr) p0 = p1 = 0;
-  const size_t smem = attention_smem_bytes(n, c / heads, p0 + p1);
+  if (body == kBodyTc) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value && Form != kAttnGrid &&
+                  std::is_same<Rows, PackedRows>::value) {
+      return launch_attention_tc<Form>(qkv, terms, out, bsz, n, c, heads, inv_scale, p0, p1,
+                                       stream, geom);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (body != kBodySimt) return (int)cudaErrorInvalidValue;
+  const size_t smem = attention_smem_bytes(kBodySimt, n, c / heads, p0 + p1);
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, Form, Rows>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -14,8 +14,9 @@
 // 227 KB of shared memory a block may use. Here each wrapper issues several
 // hand-written launches instead:
 //   A: ln_select row pass (in place) -> tiled GEMM into a (B, N, 3C)
-//      scratch -> attention per (batch, head, 32-query tile), the kernel
-//      of attention.cuh -> diff-norms row pass;
+//      scratch -> attention, the kernel of attention.cuh (in bfloat16 its
+//      tensor-core body, 64 queries a block; in float32 the CUDA-core body,
+//      32) -> diff-norms row pass;
 //   B: select row pass (in place) -> GEMM with the bias + skip epilogue ->
 //      LN-norms row pass.
 // The row passes are bound by memory bytes; the GEMMs dominate the time at
@@ -54,10 +55,10 @@ struct ProjEpilogue {
 };
 
 template <typename T>
-int qkv_attention_group(const void* x, void* p_qkv, const float* cov, const void* p_proj,
-                        const void* ln_scale, const void* ln_bias, const void* w,
-                        const void* bias, void* qkv, void* attn, float* norms, int bsz, int n,
-                        int c, int heads, float inv_scale, cudaStream_t stream) {
+int qkv_attention_group(int body, const void* x, void* p_qkv, const float* cov,
+                        const void* p_proj, const void* ln_scale, const void* ln_bias,
+                        const void* w, const void* bias, void* qkv, void* attn, float* norms,
+                        int bsz, int n, int c, int heads, float inv_scale, cudaStream_t stream) {
   const int rows = bsz * n;
   const size_t row_smem = row_smem_bytes(c);
   ln_select_kernel<T><<<rows, kRowThreads, row_smem, stream>>>(
@@ -66,7 +67,7 @@ int qkv_attention_group(const void* x, void* p_qkv, const float* cov, const void
   launch_gemm<T>((const T*)p_qkv, DenseRows{}, (const T*)w, rows, c, 3 * c,
                  QkvEpilogue<T>{(const T*)bias, (T*)qkv, 3 * c}, stream);
   ETK_CHECK_LAUNCH();
-  const int err = launch_attention<T>((const T*)qkv, nullptr, (T*)attn, bsz, n, c, heads,
+  const int err = launch_attention<T>(body, (const T*)qkv, nullptr, (T*)attn, bsz, n, c, heads,
                                       inv_scale, 0, 0, stream);
   if (err != 0) return err;
   diff_norms_kernel<T><<<rows, kRowThreads, row_smem, stream>>>(
@@ -97,13 +98,13 @@ int proj_group(const void* attn, void* p_proj, const float* cov, const void* ski
 
 extern "C" {
 
-int etk_qkv_attention_group(int dtype, const void* x, void* p_qkv, const void* cov,
+int etk_qkv_attention_group(int dtype, int body, const void* x, void* p_qkv, const void* cov,
                             const void* p_proj, const void* ln_scale, const void* ln_bias,
                             const void* w, const void* bias, void* qkv, void* attn, void* norms,
                             int bsz, int n, int c, int heads, float inv_scale, void* stream) {
   ETK_DISPATCH(dtype, return etk::qkv_attention_group<T>(
-                          x, p_qkv, (const float*)cov, p_proj, ln_scale, ln_bias, w, bias, qkv,
-                          attn, (float*)norms, bsz, n, c, heads, inv_scale,
+                          body, x, p_qkv, (const float*)cov, p_proj, ln_scale, ln_bias, w, bias,
+                          qkv, attn, (float*)norms, bsz, n, c, heads, inv_scale,
                           (cudaStream_t)stream));
 }
 

@@ -21,14 +21,16 @@
 // qkv block in VMEM; at N = 197, C = 768 that is 0.9 MB in bf16, beyond the
 // 227 KB of shared memory a block may use, and 8 to 128 batch rows would
 // leave most of the 132 SMs idle. The attention kernel of attention.cuh
-// instead takes one (batch, head, 32-query tile) per block with K and V of
-// one head in shared memory: 8 x 12 x 7 = 672 blocks at the flagship's
-// spatial shape, 18 x 12 x 7 = 1512 at ViTDet-672's windows. It is the same
-// kernel as kernel A's attention stage, whose rounding (block_fused.py:97-
-// 102) matches window_attention.py's _attend_terms. The terms add 28 floats
-// of shared memory per warp and two float reads per logit; the windowed
-// form is bound like the global one, by the float32 shared-memory dot
-// products.
+// instead takes one (batch, head, query tile) per block with K and V of one
+// head in shared memory. It is the same kernel as kernel A's attention
+// stage, whose rounding (block_fused.py:97-102) matches window_attention.
+// py's _attend_terms. Its bound is the bytes of qkv, the terms and the
+// output. In bfloat16 the tensor-core body of attention_tc.cuh runs it (64
+// queries a block: 8 x 12 x 4 = 384 blocks at the flagship's spatial shape,
+// 18 x 12 x 4 = 864 at ViTDet-672's windows), with the terms of the block's
+// queries staged in shared memory as float32 and added to the tensor-core
+// logits; in float32 the CUDA-core body (32 queries a block), bound by its
+// float32 shared-memory dot products.
 //
 // Also replaces window_attention.py::window_attention_grid
 // (etk_window_attention_grid): the same windows read in place from the
@@ -40,7 +42,7 @@
 // a0 map rows per grid step and slices its windows in VMEM; here the
 // blocks are the partitioned form's, (window, head, 32-query tile), and
 // only the row addresses change, so the grid form is bound like the
-// partitioned one. Its terms cost (p0 + p1) d products per query, about an
+// partitioned one. It stays on the CUDA-core body in every dtype. Its terms cost (p0 + p1) d products per query, about an
 // eighth of the logits' at 14 x 14 windows: one warp-wide dot product a
 // term, each lane reading its own elements of the table row (the tables,
 // 50 KB in bfloat16, stay in L1 and L2).
@@ -48,14 +50,15 @@
 
 extern "C" {
 
-int etk_attention_smem_bytes(int n, int d, int n_terms) {
-  return (int)etk::attention_smem_bytes(n, d, n_terms);
+int etk_attention_smem_bytes(int body, int n, int d, int n_terms) {
+  return (int)etk::attention_smem_bytes(body, n, d, n_terms);
 }
 
 // pad_bias null: no pad rows; else geom = (nh, nw, vh, vw) and the window
-// (a0, a1), and pad_terms the pad rows' terms when terms is not null.
-int etk_window_attention(int dtype, const void* qkv, const void* terms, void* out, int bsz,
-                         int n, int c, int heads, float inv_scale, int p0, int p1,
+// (a0, a1), and pad_terms the pad rows' terms when terms is not null. body:
+// attention.cuh's AttnBody, chosen by the wrapper.
+int etk_window_attention(int dtype, int body, const void* qkv, const void* terms, void* out,
+                         int bsz, int n, int c, int heads, float inv_scale, int p0, int p1,
                          const void* pad_bias, const void* pad_terms, int nh, int nw, int vh,
                          int vw, int a0, int a1, void* stream) {
   ETK_DISPATCH(dtype, {
@@ -68,8 +71,8 @@ int etk_window_attention(int dtype, const void* qkv, const void* terms, void* ou
     geom.vw = vw;
     geom.a0 = a0;
     geom.a1 = a1;
-    return etk::launch_attention<T>((const T*)qkv, (const T*)terms, (T*)out, bsz, n, c, heads,
-                                    inv_scale, p0, p1, (cudaStream_t)stream, geom);
+    return etk::launch_attention<T>(body, (const T*)qkv, (const T*)terms, (T*)out, bsz, n, c,
+                                    heads, inv_scale, p0, p1, (cudaStream_t)stream, geom);
   });
 }
 
@@ -90,7 +93,7 @@ int etk_window_attention_grid(int dtype, const void* x, const void* y_rel, const
     tab.x = (const T*)x_rel;
     tab.a1 = a1;
     return etk::launch_attention<T, etk::kAttnGrid>(
-        (const T*)x, nullptr, (T*)out, b * nh * nw, a0 * a1, c, heads, inv_scale, p0, p1,
+        etk::kBodySimt, (const T*)x, nullptr, (T*)out, b * nh * nw, a0 * a1, c, heads, inv_scale, p0, p1,
         (cudaStream_t)stream, etk::PadGeom<T>{}, rows, tab);
   });
 }

@@ -38,11 +38,12 @@ NVCC_FLAGS = (
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "etk_ln_norms": [_I, _P, _P, _P, _P, _P, _L, _I, _P],
-    "etk_qkv_attention_group": [_I] + [_P] * 11 + [_I, _I, _I, _I, _F, _P],
+    "etk_qkv_attention_group": [_I, _I] + [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "etk_proj_group": [_I] + [_P] * 11 + [_I, _I, _I, _P],
     "etk_gate_group_mlp": [_I] + [_P] * 21 + [_I] * 6 + [_P],
-    "etk_attention_smem_bytes": [_I, _I, _I],
-    "etk_window_attention": [_I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P] + [_I] * 6 + [_P],
+    "etk_attention_smem_bytes": [_I, _I, _I, _I],
+    "etk_window_attention": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P] + [_I] * 6
+    + [_P],
     "etk_gate_group_linear": [_I] + [_P] * 19 + [_I] * 6 + [_P],
     "etk_block_select_p": [_I] + [_P] * 5 + [_I, _L, _I, _P],
     "etk_block_scatter_rows": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -56,7 +57,7 @@ SIGNATURES = {
     "etk_scatter_blend": [_I] + [_P] * 5 + [_I] * 4 + [_P],
     "etk_scatter_rows": [_I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "etk_gather_rows": [_I, _P, _P, _I, _P, _I, _I, _I, _I, _P],
-    "etk_fused_attention": [_I, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "etk_fused_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "etk_window_attention_grid": [_I] + [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P],
 }
 

@@ -17,8 +17,11 @@ No path of the JAX package calls this kernel (its blocks run
 ``window_attention``); ``chip_smoke.py`` holds it against its plain version
 and, in float32, against the global ``window_attention``. The CUDA kernel
 is ``csrc/fused_attention.cu``, attention.cuh's body in its kAttnF32Probs
-and kAttnBf16Probs forms. The wrapper counts its launches in ``launches``
-and by form (``"no_cast"``, ``"cast"``) in ``form_launches``.
+and kAttnBf16Probs forms: in bfloat16 the tensor-core body, which splits
+q, and without the cast the probabilities, into two bfloat16 parts; in
+float32 the CUDA-core body (``window_attention.attention_body``). The
+wrapper counts its launches in ``launches``, by form (``"no_cast"``,
+``"cast"``) in ``form_launches`` and by body in ``body_launches``.
 """
 
 from __future__ import annotations
@@ -26,7 +29,12 @@ from __future__ import annotations
 import torch
 
 from eventful_transformer_tpu_torch.ops import _build
-from eventful_transformer_tpu_torch.ops.window_attention import attention_smem_bytes
+from eventful_transformer_tpu_torch.ops.window_attention import (
+    BODY_CODES,
+    aligned16,
+    attention_body,
+    attention_smem_bytes,
+)
 
 CASTS = (None, torch.float32, torch.bfloat16)  # float32 rounds nothing: the same as None
 
@@ -66,17 +74,22 @@ def fused_attention(qkv, *, heads, scale, cast=None):
     _build.check_operands(name, qkv)
     bsz, n, c3 = qkv.shape
     c = c3 // 3
-    attention_smem_bytes(name, n, c // heads)
-    out = torch.empty((bsz, n, c), dtype=qkv.dtype, device=qkv.device)
     with_cast = cast is torch.bfloat16
+    form = "bf16_probs" if with_cast else "f32_probs"
+    body = attention_body(qkv.dtype, n, c // heads, form, aligned=aligned16(qkv))
+    attention_smem_bytes(name, n, c // heads, body=body)
+    out = torch.empty((bsz, n, c), dtype=qkv.dtype, device=qkv.device)
     _build.launch(
-        "etk_fused_attention", _build.dtype_code(qkv), qkv.data_ptr(), out.data_ptr(), bsz, n, c,
-        heads, float(1.0 / scale), int(with_cast), _build.stream_of(qkv),
+        "etk_fused_attention", _build.dtype_code(qkv), BODY_CODES[body], qkv.data_ptr(),
+        out.data_ptr(), bsz, n, c, heads, float(1.0 / scale), int(with_cast),
+        _build.stream_of(qkv),
     )
     fused_attention.launches += 1
     fused_attention.form_launches["cast" if with_cast else "no_cast"] += 1
+    fused_attention.body_launches[body] += 1
     return out
 
 
 fused_attention.launches = 0
 fused_attention.form_launches = {"no_cast": 0, "cast": 0}
+fused_attention.body_launches = {"tc": 0, "simt": 0}

@@ -22,6 +22,8 @@ import torch
 from eventful_transformer_tpu_torch.ops import _build
 from eventful_transformer_tpu_torch.ops.common import ln_f32, row_norms
 from eventful_transformer_tpu_torch.ops.window_attention import (
+    BODY_CODES,
+    attention_body,
     attention_plain,
     attention_smem_bytes,
 )
@@ -55,7 +57,9 @@ def qkv_attention_group(
     x, p_qkv, cov, p_proj, ln1_scale, ln1_bias, w_qkv, b_qkv, *, heads, inv_scale
 ):
     """Kernel A; the wrapper of :func:`qkv_attention_group_plain`, which CPU
-    tensors take. CUDA tensors launch the kernels of csrc/block_fused.cu."""
+    tensors take. CUDA tensors launch the kernels of csrc/block_fused.cu;
+    the attention stage's body (``window_attention.attention_body``) is
+    counted in ``body_launches``."""
     if x.device.type == "cpu":
         return qkv_attention_group_plain(
             x, p_qkv, cov, p_proj, ln1_scale, ln1_bias, w_qkv, b_qkv,
@@ -75,22 +79,25 @@ def qkv_attention_group(
         ("w_qkv", w_qkv, (c, 3 * c)), ("b_qkv", b_qkv, (3 * c,)),
     ):
         _build.check_shape(name, key, t, shape)
-    attention_smem_bytes(name, n, c // heads)
+    body = attention_body(x.dtype, n, c // heads)  # qkv: a fresh scratch, aligned
+    attention_smem_bytes(name, n, c // heads, body=body)
     qkv = torch.empty((bsz, n, 3 * c), dtype=x.dtype, device=x.device)
     attn = torch.empty_like(x)
     norms = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
     _build.launch(
-        "etk_qkv_attention_group", _build.dtype_code(x), x.data_ptr(),
+        "etk_qkv_attention_group", _build.dtype_code(x), BODY_CODES[body], x.data_ptr(),
         p_qkv.data_ptr(), cov.data_ptr(), p_proj.data_ptr(), ln1_scale.data_ptr(),
         ln1_bias.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), qkv.data_ptr(),
         attn.data_ptr(), norms.data_ptr(), bsz, n, c, heads, float(inv_scale),
         _build.stream_of(x),
     )
     qkv_attention_group.launches += 1
+    qkv_attention_group.body_launches[body] += 1
     return p_qkv, attn, norms
 
 
 qkv_attention_group.launches = 0
+qkv_attention_group.body_launches = {"tc": 0, "simt": 0}
 
 
 def proj_group_plain(attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, ln2_bias):

@@ -330,12 +330,32 @@ def launches(name):
 
 
 def reset_launches():
-    """Every wrapper's counts to 0."""
+    """Every wrapper's counts to 0, by form and by body too."""
     for entry in KERNELS.values():
         wrapper = entry[0]
         wrapper.launches = 0
-        for form in getattr(wrapper, "form_launches", {}):
-            wrapper.form_launches[form] = 0
+        for attr in ("form_launches", "body_launches"):
+            counts = getattr(wrapper, attr, {})
+            for key in counts:
+                counts[key] = 0
+
+
+def body_launches():
+    """{wrapper name: {"tc": n, "simt": n}} of the wrappers that reach the
+    attention kernel, which count their launches by body."""
+    return {entry[0].__name__: dict(entry[0].body_launches) for entry in KERNELS.values()
+            if hasattr(entry[0], "body_launches")}
+
+
+def check_bodies(counts, dtype, where):
+    """Raise unless every launch in ``counts`` (:func:`body_launches` after
+    a run in ``dtype``) took the body ``window_attention.attention_body``
+    gives the paths' shapes: the tensor-core one in bfloat16, the CUDA-core
+    one in float32."""
+    other = "simt" if dtype == torch.bfloat16 else "tc"
+    stray = {name: c for name, c in counts.items() if c[other]}
+    if stray:
+        raise AssertionError(f"{where}: {dtype} attention launches took the {other} body: {stray}")
 
 # Bounds on each output of a kernel against its plain version. With
 # "scaled error" |kernel - plain| / max(1, |plain|):

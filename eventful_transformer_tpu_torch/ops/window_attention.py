@@ -13,7 +13,12 @@ the window grid, and the kernel substitutes the qkv-bias row ``pad_bias``
 for the q, k and v of every out-of-image token and ``pad_terms``
 (:func:`window_bias_pad_terms`) for its terms. The CUDA kernel is
 ``csrc/window_attention.cu``, which launches the attention kernel of
-``csrc/attention.cuh``; kernel A shares it.
+``csrc/attention.cuh``; kernel A shares it. That kernel has two bodies, and
+:func:`attention_body` says which one a call takes: bfloat16 calls the
+tensor-core body of ``csrc/attention_tc.cuh``, float32 calls the CUDA-core
+one. The wrappers that reach it (this one, ``fused_attention`` and kernel
+A's ``qkv_attention_group``) count their launches by body in
+``body_launches``.
 
 ``window_attention_grid`` takes the windows from the padded (B, Hp, Wp, 3C)
 qkv map itself and writes a (B, Hp, Wp, C) map, with the rel-pos terms
@@ -114,11 +119,44 @@ def window_bias_pad_terms(pad_bias, tab, heads):
     return torch.einsum("hc,tpc->htp", qb, tab).contiguous()
 
 
-def attention_smem_bytes(name, n, d, n_terms=0):
-    """Shared memory of the attention kernel at N tokens of head width d
-    with ``n_terms`` rel-pos terms per query; raises if one block cannot
-    hold it."""
-    smem = _build.load_library().etk_attention_smem_bytes(n, d, n_terms)
+# The attention kernel's forms (csrc/attention.cuh AttnForm): q and the
+# probabilities rounded to the working dtype (rows 2, 6); row 21's, q scaled
+# in float32 with float32 or (cast) bfloat16 probabilities; row 15's grid.
+ATTENTION_FORMS = ("rounded", "f32_probs", "bf16_probs", "grid")
+# The body codes of the C entries (csrc/attention.cuh AttnBody).
+BODY_CODES = {"simt": 0, "tc": 1}
+TC_MAX_TOKENS = 512  # every global attention of the paths (core/blocks.py GLOBAL_ATTN_MAX_TOKENS)
+TC_MAX_HEAD_DIM = 128
+
+
+def attention_body(dtype, n, d, form="rounded", aligned=True):
+    """The body of the attention kernel that a call takes: "tc", the
+    tensor-core body, for bfloat16 in every form but the grid's, with a
+    head width ``d`` that is a multiple of 16 up to 128, ``n`` <= 512 tokens
+    and qkv (and a pad-bias row) on 16-byte boundaries (``aligned``);
+    "simt", the CUDA-core body, for everything else (float32 in every form,
+    the grid form). csrc/attention_tc.cuh ``attention_tc_takes`` refuses
+    what this sends it otherwise."""
+    if form not in ATTENTION_FORMS:
+        raise ValueError(f"attention form must be one of {ATTENTION_FORMS}, got {form!r}")
+    takes = (
+        dtype == torch.bfloat16 and form != "grid" and d % 16 == 0
+        and 16 <= d <= TC_MAX_HEAD_DIM and 1 <= n <= TC_MAX_TOKENS and aligned
+    )
+    return "tc" if takes else "simt"
+
+
+def aligned16(*tensors):
+    """Whether every tensor given (None skipped) starts on a 16-byte
+    boundary, as the tensor-core body's 16-byte copies need."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def attention_smem_bytes(name, n, d, n_terms=0, body="simt"):
+    """Shared memory of ``body`` of the attention kernel at N tokens of head
+    width d with ``n_terms`` rel-pos terms per query; raises if one block
+    cannot hold it."""
+    smem = _build.load_library().etk_attention_smem_bytes(BODY_CODES[body], n, d, n_terms)
     if smem > _build.MAX_SHARED_BYTES:
         raise ValueError(f"{name}: N={n} needs {smem} B of shared memory per block")
     return smem
@@ -128,7 +166,9 @@ def window_attention(
     qkv, terms=None, pad_bias=None, pad_terms=None, *, heads, scale, p=None, a=None, geom=None
 ):
     """The wrapper of :func:`window_attention_plain`, which CPU tensors
-    take. CUDA tensors launch the kernel of csrc/window_attention.cu."""
+    take. CUDA tensors launch the kernel of csrc/window_attention.cu, in
+    the body :func:`attention_body` picks; launches are counted in total
+    and by body."""
     if qkv.device.type == "cpu":
         return window_attention_plain(
             qkv, terms, pad_bias, pad_terms, heads=heads, scale=scale, p=p, a=a, geom=geom
@@ -160,20 +200,24 @@ def window_attention(
             _build.check_shape(name, "pad_terms", pad_terms, (heads, n, p0 + p1))
         _build.check_operands(name, qkv, **pads)
         _build.check_shape(name, "pad_bias", pad_bias, (c3,))
-    attention_smem_bytes(name, n, c // heads, p0 + p1)
+    aligned = aligned16(qkv, None if geom is None else pad_bias)
+    body = attention_body(qkv.dtype, n, c // heads, aligned=aligned)
+    attention_smem_bytes(name, n, c // heads, p0 + p1, body)
     out = torch.empty((bsz, n, c), dtype=qkv.dtype, device=qkv.device)
     _build.launch(
-        "etk_window_attention", _build.dtype_code(qkv), qkv.data_ptr(),
+        "etk_window_attention", _build.dtype_code(qkv), BODY_CODES[body], qkv.data_ptr(),
         None if terms is None else terms.data_ptr(), out.data_ptr(), bsz, n, c, heads,
         float(1.0 / scale), p0, p1, None if geom is None else pad_bias.data_ptr(),
         None if geom is None or terms is None else pad_terms.data_ptr(), nh, nw, vh, vw, a0, a1,
         _build.stream_of(qkv),
     )
     window_attention.launches += 1
+    window_attention.body_launches[body] += 1
     return out
 
 
 window_attention.launches = 0
+window_attention.body_launches = {"tc": 0, "simt": 0}
 
 
 MAX_GRID_HEAD_DIM = 256  # the grid kernel holds a query's head in registers (kMaxHeadDim)
@@ -255,7 +299,7 @@ def window_attention_grid(
         _build.check_shape(name, "y_rel", tables["y_rel"], (a0, p0, hd))
         _build.check_shape(name, "x_rel", tables["x_rel"], (a1, p1, hd))
     _build.check_operands(name, x, **tables)
-    attention_smem_bytes(name, a0 * a1, hd, p0 + p1)
+    attention_smem_bytes(name, a0 * a1, hd, p0 + p1, attention_body(x.dtype, a0 * a1, hd, "grid"))
     out = torch.empty((b, hp, wp, c), dtype=x.dtype, device=x.device)
     _build.launch(
         "etk_window_attention_grid", _build.dtype_code(x), x.data_ptr(),

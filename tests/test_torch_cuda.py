@@ -585,3 +585,99 @@ def test_fused_attention_takes_offset_views_and_refuses_strided_ones(device):
     for cast in (None, torch.bfloat16):
         got = fused_attention(whole[1:], heads=4, scale=4.0, cast=cast)
         assert torch.equal(got, fused_attention(whole[1:].clone(), heads=4, scale=4.0, cast=cast))
+
+
+# -- the tensor-core attention body (csrc/attention_tc.cuh) -----------------------------
+
+TC_ENTRIES = ("window_attention", "window_attention_windowed", "window_attention_padded",
+              "fused_attention", "fused_attention_cast", "qkv_attention_group")
+# (entry, n): every entry at ragged token counts; the windowed form over an
+# n-token window, so not at 401 (a 1 x 401 window, which no path has)
+TC_CASES = [(name, n) for name in TC_ENTRIES for n in (9, 17, 196, 197, 401)
+            if (name, n) != ("window_attention_windowed", 401)]
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("name,n", TC_CASES, ids=[f"{name}-{n}" for name, n in TC_CASES])
+def test_tensor_core_body_matches_plain(name, n, hd, device):
+    """Each wrapper that reaches the attention kernel, in bfloat16 at ragged
+    token counts and head widths 16 and 64, against its plain version; the
+    windowed form over an n-token window (the most nearly square grid), the
+    padded one over windows of 3 x 3 or 14 x 14; one launch, and it took
+    the tensor-core body."""
+    from eventful_transformer_tpu_torch.ops.window_attention import attention_body
+
+    heads = 4
+    window = kernel_check._grid(n)
+    pad_window = (3, 3) if n < 196 else (14, 14)
+    n_call = {"window_attention_windowed": n, "window_attention_padded": 9 if n < 196 else 196}
+    d = kernel_check.make_inputs(2, n, heads * hd, heads, min(n, 8), torch.bfloat16, device,
+                                 seed=2, window=window, pad_window=pad_window)
+    assert attention_body(torch.bfloat16, n_call.get(name, n), hd) == "tc"
+    wrapper = kernel_check.KERNELS[name][0]
+    kernel_check.reset_launches()
+    rows = kernel_check.errors(name, d)
+    assert all(row["ok"] for row in rows), rows
+    assert wrapper.launches == 1 and wrapper.body_launches == {"tc": 1, "simt": 0}
+
+
+@pytest.mark.parametrize("name", TC_ENTRIES)
+def test_float32_stays_on_the_cuda_core_body(name, device):
+    """The same wrappers in float32: the CUDA-core body, as the rule says."""
+    d = kernel_check.make_inputs(2, 197, 256, 4, 98, torch.float32, device, seed=3)
+    wrapper = kernel_check.KERNELS[name][0]
+    kernel_check.reset_launches()
+    rows = kernel_check.errors(name, d)
+    assert all(row["ok"] for row in rows), rows
+    assert wrapper.body_launches == {"tc": 0, "simt": 1}
+
+
+def test_tensor_core_body_on_a_misaligned_view(device):
+    """bfloat16 qkv off a 16-byte boundary takes the CUDA-core body, not a
+    misaligned copy, and gives the plain version's result."""
+    from eventful_transformer_tpu_torch.ops.window_attention import (
+        window_attention,
+        window_attention_plain,
+    )
+
+    flat = torch.randn(2 * 37 * 192 + 1, device=device).to(torch.bfloat16)
+    qkv = flat[1:].view(2, 37, 192)
+    kernel_check.reset_launches()
+    got = window_attention(qkv, heads=4, scale=4.0)
+    assert window_attention.body_launches == {"tc": 0, "simt": 1}
+    row = kernel_check.compare(got, window_attention_plain(qkv, heads=4, scale=4.0))
+    assert row["ok"], row
+
+
+def test_small_vivit_bodies_by_dtype(device):
+    """A small eventful ViViT in bfloat16: every attention launch, kernel
+    A's included, on the tensor-core body; in float32 every one on the
+    CUDA-core body."""
+    import numpy as np
+
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    block = dict(dim=64, heads=4, mlp_ratio=2)
+    config = dict(
+        classes=10, input_shape=[8, 3, 32, 32], normalize_mean=0.45, normalize_std=0.225,
+        spatial_views=1, temporal_stride=2, temporal_views=1, tubelet_shape=[2, 8, 8],
+        spatial_config=dict(depth=2, position_encoding_size=[4, 4],
+                            block_class="EventfulTokenwiseBlock", block_config=block),
+        temporal_config=dict(depth=1, position_encoding_size=[4], block_config=block),
+    )
+    model = FactorizedViViT(**config, device="cpu", seed=0)
+    set_policies(model, TokenNormTopK, k=8)
+    views = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((1, 1, 8, 3, 32, 32)).astype(np.float32)
+    )
+    for dtype, body in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+        m = copy.deepcopy(model).to(device, dtype)
+        kernel_check.reset_launches()
+        with torch.no_grad():
+            m.apply_views(Ctx(), views.to(device, dtype))
+        torch.cuda.synchronize()
+        counts = kernel_check.body_launches()
+        assert counts["qkv_attention_group"][body] > 0 and counts["window_attention"][body] > 0
+        kernel_check.check_bodies(counts, dtype, "small ViViT")
