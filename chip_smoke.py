@@ -122,24 +122,29 @@ Phases, one JSON line each, with the seconds the phase took:
                      fused_attention at ViViT's spatial and temporal
                      shapes, without and with the matmul-2 cast;
                      window_attention_grid at 672 (with and without the
-                     rel-pos tables) and on 1024's padded map. Then the
-                     phase's own path, counted: each wrapper on those
-                     inputs in float32 (TF32 off) against the ported kernel
-                     that does its work on the model paths: the row
-                     kernels against put_rows and take_rows bit for bit
-                     (the cast also into a bfloat16 buffer), fused_attention
-                     against the global window_attention (its cast form
-                     beside it), the grid form
-                     against the windowed window_attention at 672 and the
-                     padded one at 1024 over the partition of the same map,
-                     each within 1e-5 scaled at the image's rows;
+                     rel-pos tables) and on 1024's padded map; the host
+                     microseconds of one bfloat16 call of the row scatter
+                     and the grid form at each shape, and of their library
+                     calls (unwired_host). Then the phase's own path,
+                     counted, twice: each wrapper on those inputs in float32
+                     (TF32 off) against the ported kernel that does its
+                     work on the model paths: the row kernels against
+                     put_rows and take_rows bit for bit (the cast also into
+                     a bfloat16 buffer), fused_attention against the global
+                     window_attention (its cast form beside it), the grid
+                     form against the windowed window_attention at 672 and
+                     the padded one at 1024 over the partition of the same
+                     map, each within 1e-5 scaled at the image's rows;
                      fused_attention also on a batch slice of a larger
                      tensor (the same result) and a slice of its last axis
-                     (refused, or else the same result).
-  25. attention_bodies: the launches of window_attention, fused_attention
-                     and kernel A (qkv_attention_group), by body, of every
-                     counted run above; each run was checked as it was read:
-                     in bfloat16 only the tensor-core body
+                     (refused, or else the same result); then each entry
+                     in bfloat16 against its plain version. The attention
+                     launches of each run are read by body.
+  25. attention_bodies: the launches of window_attention, fused_attention,
+                     window_attention_grid and kernel A
+                     (qkv_attention_group), by body, of every counted run
+                     above; each run was checked as it was read: in
+                     bfloat16 only the tensor-core body
                      (csrc/attention_tc.cuh), in float32 only the CUDA-core
                      one (window_attention.attention_body's rule).
 The times are a record, not a claim.
@@ -2228,21 +2233,54 @@ def grid_against_partitioned(d):
     return out
 
 
-def unwired_path(device, smi):
-    """The four kernels at their shapes (phase unwired_kernels), then the
-    phase's own path with the launch counts set to 0 just before it: each
-    wrapper on those inputs in float32 against the ported kernel doing its
-    work on the model paths. Returns the final line's rows."""
+# the entries whose host microseconds a call the final line's rows carry
+# (rows 15 and 19 at every shape; their library calls beside them), by case
+UNWIRED_HOST = {
+    "672": ("scatter_rows_inplace", "scatter_rows_inplace_qkv", "scatter_rows_inplace_qkv_masked",
+            "window_attention_grid", "window_attention_grid_noterms"),
+    "vivit_evblock": ("scatter_rows_inplace_qkv",),
+    "1024": ("window_attention_grid",),
+}
+
+
+def unwired_host(device):
+    """Host microseconds of one bfloat16 call of each UNWIRED_HOST entry and
+    of its library call (``kernel_check.host_us``), keyed (name, tag)."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
-    rows = check_kernels("unwired_kernels", device, UNWIRED_CASES)
-    wrappers = {kernel_check.KERNELS[name][0].__name__: kernel_check.KERNELS[name][0]
-                for name, _ in UNWIRED_ROWS}
-    kernel_check.reset_launches()
+    out = {}
+    for tag, bsz, n, k, _, inputs in UNWIRED_CASES:
+        if tag not in UNWIRED_HOST:
+            continue
+        d = kernel_check.make_inputs(bsz, n, 768, 12, k, torch.bfloat16, device, seed=SEED,
+                                     **inputs)
+        for name in UNWIRED_HOST[tag]:
+            library = kernel_check.library_call(name, d)
+            out[(name, tag)] = dict(
+                host_us=kernel_check.kernel_host_us(name, d),
+                library_host_us=None if library is None else kernel_check.host_us(library),
+            )
+        del d
+    emit("unwired_host", dtype="bfloat16",
+         rows=[dict(kernel=name, tag=tag, **row) for (name, tag), row in out.items()])
+    return out
+
+
+def unwired_drive(device, dtype):
+    """The counted drive of the four kernels at UNWIRED_CASES' inputs in
+    ``dtype``: in float32 each wrapper against the ported kernel doing its
+    work on the model paths; in bfloat16 each entry against its plain
+    version (``kernel_check.errors``). Returns the checks, keyed by case."""
+    from eventful_transformer_tpu_torch.ops import kernel_check
+
     checks = {}
     for tag, bsz, n, k, names, inputs in UNWIRED_CASES:
-        d = kernel_check.make_inputs(bsz, n, 768, 12, k, torch.float32, device, seed=SEED,
-                                     **inputs)
+        d = kernel_check.make_inputs(bsz, n, 768, 12, k, dtype, device, seed=SEED, **inputs)
+        if dtype == torch.bfloat16:
+            checks[tag] = {name: dict(ok=all(row["ok"] for row in kernel_check.errors(name, d)))
+                           for name in names}
+            del d
+            continue
         row_names = [name for name in names if name in ROWS_NAMES]
         if row_names:
             checks[f"{tag}_rows"] = rows_against_indexing(d, row_names)
@@ -2252,25 +2290,61 @@ def unwired_path(device, smi):
             checks[f"{tag}_grid"] = grid_against_partitioned(d)
         del d
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    forms = {name: dict(fn.form_launches) for name, fn in wrappers.items()
-             if hasattr(fn, "form_launches")}
-    read_bodies(torch.float32, "unwired_path")
-    emit("unwired_path", card=smi, tf32=torch.backends.cuda.matmul.allow_tf32,
-         launches=launches, form_launches=forms, checks=checks)
-    failed = [f"{key}.{name}" for key, check in checks.items()
+    return checks
+
+
+def unwired_path(device, smi):
+    """The four kernels at their shapes (phase unwired_kernels) and their
+    host microseconds a call (phase unwired_host), then the phase's own
+    path, twice, with the launch counts set to 0 just before each: in
+    float32 (unwired_drive's cross-checks) and in bfloat16 (each kernel
+    against its plain version), the attention launches of each read by
+    body. Returns the final line's rows."""
+    from eventful_transformer_tpu_torch.ops import kernel_check
+
+    rows = check_kernels("unwired_kernels", device, UNWIRED_CASES)
+    host = unwired_host(device)
+    wrappers = {kernel_check.KERNELS[name][0].__name__: kernel_check.KERNELS[name][0]
+                for name, _ in UNWIRED_ROWS}
+    drives = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        kernel_check.reset_launches()
+        checks = unwired_drive(device, dtype)
+        key = str(dtype).split(".")[-1]
+        drives[key] = dict(
+            launches={name: fn.launches for name, fn in wrappers.items()},
+            form_launches={name: dict(fn.form_launches) for name, fn in wrappers.items()
+                           if hasattr(fn, "form_launches")},
+            body_launches=read_bodies(dtype, f"unwired_path {key}"), checks=checks,
+        )
+    emit("unwired_path", card=smi, tf32=torch.backends.cuda.matmul.allow_tf32, **drives)
+    failed = [f"{dtype}.{key}.{name}" for dtype, drive in drives.items()
+              for key, check in drive["checks"].items()
               for name, row in check.items() if not row["ok"]]
     if failed:
-        raise AssertionError(f"unwired_path: cross-checks failed: {failed}: {checks}")
-    idle = [name for name, count in launches.items() if count == 0]
-    idle += [f"{name}:{form}" for name, counts in forms.items()
+        raise AssertionError(f"unwired_path: checks failed: {failed}")
+    idle = [f"{dtype}.{name}" for dtype, drive in drives.items()
+            for name, count in drive["launches"].items() if count == 0]
+    idle += [f"{dtype}.{name}:{form}" for dtype, drive in drives.items()
+             for name, counts in drive["form_launches"].items()
              for form, count in counts.items() if count == 0]
     if idle:
         raise AssertionError(f"unwired_path: not launched: {idle}")
     torch.cuda.empty_cache()
-    return [dict(kernel_row(name, rows[(name, torch.bfloat16, tag)], launches, "unwired"),
-                 model_path_launches=0)
-            for name, tag in UNWIRED_ROWS]
+    launches = {name: sum(drive["launches"][name] for drive in drives.values())
+                for name in wrappers}
+    out = []
+    for name, tag in UNWIRED_ROWS:
+        row = dict(kernel_row(name, rows[(name, torch.bfloat16, tag)], launches, "unwired"),
+                   model_path_launches=0)
+        wrapper = kernel_check.KERNELS[name][0].__name__
+        if (name, tag) in host:
+            row.update(host[(name, tag)])
+        if wrapper in drives["bfloat16"]["body_launches"]:
+            row["body_launches"] = {dtype: drive["body_launches"][wrapper]
+                                    for dtype, drive in drives.items()}
+        out.append(row)
+    return out
 
 
 def main():

@@ -42,11 +42,11 @@
 // Two bodies run these kernels, and launch_attention picks one by the
 // ``body`` its caller passes (ops/window_attention.py::attention_body states
 // the rule and the wrappers count launches by body):
-//   * the tensor-core body (attention_tc.cuh): bfloat16, kAttnRounded,
-//     kAttnF32Probs and kAttnBf16Probs, head width a multiple of 16 up to
-//     128, n <= 512;
-//   * the CUDA-core body below: every float32 call, the kAttnGrid form, and
-//     what the tensor-core body does not take. One block per (batch, head,
+//   * the tensor-core body (attention_tc.cuh): bfloat16 in every form,
+//     packed rows or GridRows, head width a multiple of 16 up to 128, n <=
+//     512, 16-byte aligned operands;
+//   * the CUDA-core body below: every float32 call, and what the
+//     tensor-core body does not take. One block per (batch, head,
 //     32-query tile); K (n x (d+1), padded against bank conflicts) and V
 //     (n x d) of the head sit in shared memory in float32, and each warp
 //     keeps its query's n probabilities, the scaled query and its p0 + p1
@@ -231,8 +231,12 @@ enum AttnBody : int { kBodySimt = 0, kBodyTc = 1 };
 
 namespace etk {
 
-inline size_t attention_smem_bytes(int body, int n, int d, int n_terms) {
-  if (body == kBodyTc) return attention_tc_smem_bytes(n, d, n_terms);
+// a1 > 0: kAttnGrid with tables over a (n_terms - p1) x p1 key grid, whose
+// staged rows the tensor-core body adds
+inline size_t attention_smem_bytes(int body, int n, int d, int n_terms, int a1 = 0, int p1 = 0) {
+  if (body == kBodyTc) {
+    return attention_tc_smem_bytes(n, d, n_terms, grid_table_rows(n, a1, n_terms - p1, p1));
+  }
   return ((size_t)n * (2 * d + 1) + (size_t)(kAttnThreads / 32) * (n + d + n_terms)) *
          sizeof(float);
 }
@@ -241,9 +245,9 @@ inline size_t attention_smem_bytes(int body, int n, int d, int n_terms) {
 // p0 + p1) when ``terms`` is not null (then n == p0 * p1) and pad rows
 // substituted where ``geom`` has a bias row; kAttnGrid computes its terms
 // from ``tab`` instead, and takes its bsz windows through ``rows``. ``body``
-// kBodyTc runs the tensor-core body, which takes bfloat16 packed rows in
-// every form but kAttnGrid (cudaErrorInvalidValue otherwise); kBodySimt the
-// CUDA-core body. Returns the CUDA error, if any.
+// kBodyTc runs the tensor-core body, which takes bfloat16 in every form
+// (cudaErrorInvalidValue otherwise); kBodySimt the CUDA-core body. Returns
+// the CUDA error, if any.
 template <typename T, int Form = kAttnRounded, typename Rows = PackedRows>
 int launch_attention(int body, const T* qkv, const T* terms, T* out, int bsz, int n, int c,
                      int heads, float inv_scale, int p0, int p1, cudaStream_t stream,
@@ -251,10 +255,9 @@ int launch_attention(int body, const T* qkv, const T* terms, T* out, int bsz, in
                      RelTables<T> tab = RelTables<T>{}) {
   if (terms == nullptr && tab.y == nullptr) p0 = p1 = 0;
   if (body == kBodyTc) {
-    if constexpr (std::is_same<T, __nv_bfloat16>::value && Form != kAttnGrid &&
-                  std::is_same<Rows, PackedRows>::value) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       return launch_attention_tc<Form>(qkv, terms, out, bsz, n, c, heads, inv_scale, p0, p1,
-                                       stream, geom);
+                                       stream, geom, rows, tab);
     }
     return (int)cudaErrorInvalidValue;
   }

@@ -1,18 +1,19 @@
 // The tensor-core body of the softmax attention over packed qkv rows, for
-// bfloat16 calls of rows 2, 6 and 21 (kAttnRounded, kAttnF32Probs and
-// kAttnBf16Probs); attention.cuh includes it after the types both bodies
-// share and dispatches to it (launch_attention).
+// bfloat16 calls of rows 2, 6, 15 and 21 (kAttnRounded, kAttnGrid,
+// kAttnF32Probs and kAttnBf16Probs); attention.cuh includes it after the
+// types both bodies share and dispatches to it (launch_attention).
 //
 // Replaces, with attention.cuh's CUDA-core body, the softmax attention of
 // eventful_transformer_tpu/ops/pallas/window_attention.py::window_attention
-// (global, windowed with rel-pos terms, padded), of block_fused.py::
-// qkv_attention_group's attention stage and of attention.py::
-// fused_attention. What bounds it on the card is bytes: qkv read once and
-// the output written once (0.0029 ms at ViViT's 8 x 197, 0.0200 ms at
-// ViTDet-1024's 50 windows), against about 6 us of tensor-core work at
-// 1024. The CUDA-core body ran at about 5 TFLOP/s, serial float32 dot
-// products over a float32 K and V; here both products run on the tensor
-// cores, so the time goes to moving K and V into shared memory:
+// (global, windowed with rel-pos terms, padded) and ::window_attention_grid,
+// of block_fused.py::qkv_attention_group's attention stage and of
+// attention.py::fused_attention. What bounds it on the card is bytes: qkv
+// read once and the output written once (0.0029 ms at ViViT's 8 x 197,
+// 0.0200 ms at ViTDet-1024's 50 windows), against about 6 us of
+// tensor-core work at 1024. The CUDA-core body ran at about 5 TFLOP/s,
+// serial float32 dot products over a float32 K and V; here both products
+// run on the tensor cores, so the time goes to moving K and V into shared
+// memory:
 //
 //   * one block of 4 warps takes 64 queries of one (batch row or window,
 //     head), 16 query rows a warp: 384 blocks at ViViT's 8 x 197, 864 at
@@ -28,7 +29,8 @@
 //     so that they do not queue behind the copies. Each token's row (or the
 //     padded form's PadGeom bias row, read once a thread and stored from
 //     registers) and each key's two term columns come from small tables
-//     made once a block, so no load divides;
+//     made once a block, so no load divides; the grid form's rows are
+//     GridRows' addresses in the (B, Hp, Wp, 3C) map, its output rows too;
 //   * q.kT and P.V are mma.sync.m16n8k16 bf16 x bf16 -> float32, operands
 //     from ldmatrix (V transposed by ldmatrix.trans); q comes from device
 //     memory straight into A fragments, scaled there;
@@ -56,6 +58,12 @@
 //     windowed form adds term_y + term_x (summed in float32 first) to the
 //     float32 logits after q.kT; at an out-of-image query row the pad terms
 //     replace them;
+//   * kAttnGrid (row 15, window_attention.py:78-96): q split as row 21's,
+//     the probabilities rounded to bfloat16 as kAttnRounded's. Its terms
+//     come from the UNSCALED q, an exact bfloat16 value, against the tables
+//     (exact bfloat16) on the tensor cores (grid_terms), float32 sums; the
+//     logits take (s + term_y) + term_x, one after the other, as _attend
+//     adds them;
 //   * kAttnF32Probs / kAttnBf16Probs (row 21, attention.py:33-58): q is
 //     scaled in float32 and not rounded, so it goes in as hi = bf16(q) and
 //     lo = bf16(q - hi), S = hi.kT + lo.kT (k is exactly bfloat16; the error
@@ -84,9 +92,23 @@ inline bool attention_tc_takes(int n, int d) {
   return n >= 1 && n <= kTcMaxTokens && d >= 16 && d <= kTcMaxHeadDim && d % 16 == 0;
 }
 
-inline size_t attention_tc_smem_bytes(int n, int d, int n_terms) {
+// The rows of kAttnGrid's tables a block stages in shared memory, each
+// part rounded up to 16 (ldmatrix reads 16 rows at once): the y rows of
+// the window rows its kTcQueries queries lie in (at most (kTcQueries - 1) /
+// a1 + 2 of them, p0 rows each) and the whole x table (a1 p1 rows). a1 = 0:
+// no tables.
+__host__ __device__ inline int grid_y_rows(int n, int a1, int p0) {
+  const int a0 = n / a1, rows = (kTcQueries - 1) / a1 + 2;
+  return ((rows < a0 ? rows : a0) * p0 + 15) & ~15;
+}
+
+inline int grid_table_rows(int n, int a1, int p0, int p1) {
+  return a1 > 0 ? grid_y_rows(n, a1, p0) + ((a1 * p1 + 15) & ~15) : 0;
+}
+
+inline size_t attention_tc_smem_bytes(int n, int d, int n_terms, int table_rows = 0) {
   const size_t n_pad = (size_t)((n + 15) & ~15);
-  return 2 * n_pad * (d + 8) * sizeof(__nv_bfloat16) +
+  return (2 * n_pad + table_rows) * (d + 8) * sizeof(__nv_bfloat16) +
          (size_t)kTcQueries * n_terms * sizeof(float) + 2 * n_pad * sizeof(int);
 }
 
@@ -139,15 +161,79 @@ __device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi) {
   return pack_bf16(lo - rnd<__nv_bfloat16>(lo), hi - rnd<__nv_bfloat16>(hi));
 }
 
+// kAttnGrid's rel-pos terms of one warp's 16 queries (window tokens rw ..
+// rw + 15) into its rows of the float32 staging ``tw`` (16 x (p0 + p1)):
+// term u < p0 of query i is q . y[i / a1, u], term p0 + u is q . x[i % a1,
+// u], q the UNSCALED query, which ``qa`` still holds. On the tensor cores,
+// as the JAX kernel runs them on the MXU (_attend's q . yk^T, masked): the
+// warp's 16 queries against every table row its queries use, 16 rows (two
+// n-tiles) a step by ldmatrix from the block's staged tables, and each
+// query keeps the columns of its own block. ``ys`` holds y's rows from
+// ``ybase`` on, ``xs`` the whole x table, both ``ld`` wide. A y block is a
+// window row's p0 keys: 16 queries span two or three at a1 = 14; they take
+// every x block unless they lie in one window row.
+template <int DMax>
+__device__ __forceinline__ void grid_terms(const uint32_t (&qa)[DMax / 16][4],
+                                           const __nv_bfloat16* ys, int ybase,
+                                           const __nv_bfloat16* xs, int a1, int ld, int d, int n,
+                                           int p0, int p1, int rw, float* tw, int lane) {
+  const int g = lane >> 2, qd = lane & 3, lm = lane >> 3, lr = lane & 7, nt = p0 + p1;
+  for (int e = lane; e < 16 * nt; e += 32) tw[e] = 0.f;  // rows past n: zero terms
+  __syncwarp();
+  const int qi[2] = {rw + g, rw + g + 8};  // this lane's two query rows
+  const int last = min(rw + 15, n - 1);
+#pragma unroll 1
+  for (int part = 0; part < 2; ++part) {
+    const __nv_bfloat16* table = part == 0 ? ys : xs;
+    const int base = part == 0 ? ybase : 0, p = part == 0 ? p0 : p1, col0 = part == 0 ? 0 : p0;
+    int lo = 0, hi = a1 * p1;  // the table rows the warp's queries use
+    if (part == 0) {
+      lo = rw / a1 * p0;
+      hi = (last / a1 + 1) * p0;
+    } else if (rw / a1 == last / a1) {
+      lo = rw % a1 * p1;
+      hi = (last % a1 + 1) * p1;
+    }
+    int first[2];  // the first table row of each of this lane's queries
+#pragma unroll
+    for (int i = 0; i < 2; ++i) first[i] = part == 0 ? qi[i] / a1 * p0 : qi[i] % a1 * p1;
+#pragma unroll 1
+    for (int r0 = (lo - base) & ~15; base + r0 < hi; r0 += 16) {
+      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < DMax / 16; ++kk) {
+        if (kk * 16 >= d) continue;
+        uint32_t tb[4];
+        ldmatrix_x4(tb, table + (r0 + (lm >> 1) * 8 + lr) * ld + kk * 16 + (lm & 1) * 8);
+        mma_bf16(acc[0], qa[kk], tb[0], tb[1]);
+        mma_bf16(acc[1], qa[kk], tb[2], tb[3]);
+      }
+      // acc[t][e]: query row g + 8 (e >> 1), table row base + r0 + 8 t + qd * 2 + (e & 1)
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = base + r0 + 8 * t + qd * 2 + (e & 1), u = col - first[e >> 1];
+          if (qi[e >> 1] < n && col < hi && u >= 0 && u < p) {
+            tw[(g + 8 * (e >> 1)) * nt + col0 + u] = acc[t][e];
+          }
+        }
+      }
+    }
+  }
+}
+
 // One block per (batch row or window, head, 64-query tile). DMax bounds
 // the head width d (a multiple of 16), KC the 8-key tiles of logits a warp
 // keeps in registers at once.
-template <int Form, int DMax, int KC, typename Geom>
+template <int Form, int DMax, int KC, typename Geom, typename Rows>
 __global__ void __launch_bounds__(kTcThreads)
 attention_tc_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ terms,
                     __nv_bfloat16* __restrict__ out, int n, int c, int heads, float inv_scale,
-                    int p0, int p1, bool q_lo, Geom geom) {
+                    int p0, int p1, bool q_lo, Geom geom, Rows rows,
+                    RelTables<__nv_bfloat16> tab) {
   using bf16 = __nv_bfloat16;
+  constexpr bool kGrid = Form == kAttnGrid;         // terms from q and the tables, here
   constexpr bool kSplitQ = Form != kAttnRounded;  // q scaled in float32: hi + lo
   constexpr bool kSplitP = Form == kAttnF32Probs;  // float32 probabilities: hi + lo
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -162,11 +248,16 @@ attention_tc_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* 
   float* ts = reinterpret_cast<float*>(vs + (size_t)n_pad * ld);  // kTcQueries x nt terms
   int* row_of = reinterpret_cast<int*>(ts + kTcQueries * nt);     // n_pad: qkv row, -1 pad
   int* term_of = row_of + n_pad;  // n_pad: key j's y term | x term << 16
+  // kAttnGrid's staged tables: the y rows of the block's window rows, from
+  // ybase on, then the whole x table
+  const int a1 = tab.a1, ybase = kGrid && nt > 0 ? q0 / a1 * p0 : 0;
+  bf16* ys = reinterpret_cast<bf16*>(term_of + n_pad);
+  bf16* xs = ys + (size_t)(kGrid && nt > 0 ? grid_y_rows(n, a1, p0) : 0) * ld;
 
   // each token's qkv row, or -1 where the padded form substitutes the bias
   // row; each key's two term columns
   for (int j = threadIdx.x; j < n_pad; j += kTcThreads) {
-    row_of[j] = j < n && geom.valid(b, j) ? b * n + j : -1;
+    row_of[j] = j < n && geom.valid(b, j) ? (int)rows(b, j, n) : -1;
     if (nt > 0) term_of[j] = j < n ? j / p1 | (p0 + j % p1) << 16 : 0;
   }
   __syncthreads();
@@ -199,7 +290,7 @@ attention_tc_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* 
   constexpr int kTermLoads = 16;
   const int group = max(1, min(nt, kTcThreads)), t_stride = kTcThreads / group;
   const int u0 = threadIdx.x % group, r0 = threadIdx.x / group;
-  const bool few_terms = nt > 0 && kTcQueries <= kTermLoads * t_stride;
+  const bool few_terms = !kGrid && nt > 0 && kTcQueries <= kTermLoads * t_stride;
   auto term_row = [&](int r) -> const bf16* {
     const int qi = q0 + r;
     if (qi >= n) return nullptr;
@@ -216,13 +307,26 @@ attention_tc_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* 
       tv[k] = tr != nullptr ? to_f(tr[u0]) : 0.f;
     }
   }
-  // K, then V, of head h: 16-byte copies, one commit group each; a thread
-  // copies one 16-byte piece of every ``stride``-th key. The padded form's
-  // bias row, which every out-of-image key of every window shares, is read
-  // once a thread and stored from registers (no copies of one address from
-  // every block at once).
+  // kAttnGrid's tables (its first commit group), then K, then V, of head h:
+  // 16-byte copies, one commit group each; a thread copies one 16-byte
+  // piece of every ``stride``-th row. The padded form's bias row, which
+  // every out-of-image key of every window shares, is read once a thread
+  // and stored from registers (no copies of one address from every block
+  // at once).
   const int pieces = d >> 3, stride = kTcThreads / pieces;
   const int piece = threadIdx.x % pieces, first = threadIdx.x / pieces;
+  if constexpr (kGrid) {
+    if (nt > 0) {
+      const int y_end = min((min(q0 + kTcQueries, n) - 1) / a1 + 1, n / a1) * p0;
+      for (int j = first; j < y_end - ybase && first < stride; j += stride) {
+        cp_async16(ys + j * ld + piece * 8, tab.y + (int64_t)(ybase + j) * d + piece * 8);
+      }
+      for (int j = first; j < a1 * p1 && first < stride; j += stride) {
+        cp_async16(xs + j * ld + piece * 8, tab.x + (int64_t)j * d + piece * 8);
+      }
+      cp_async_commit();
+    }
+  }
   for (int part = 1; part <= 2; ++part) {
     bf16* dst0 = part == 1 ? ks : vs;
     uint4 pad = make_uint4(0u, 0u, 0u, 0u);
@@ -240,14 +344,24 @@ attention_tc_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* 
     }
     cp_async_commit();
   }
-  // the terms into shared memory as float32
+  // the terms into shared memory as float32: given, or (kAttnGrid) computed
+  // from the unscaled q while K and V are in flight
+  if constexpr (kGrid) {
+    if (nt > 0) {
+      cp_async_wait<2>();
+      __syncthreads();  // the tables in place (K and V may still be in flight)
+      if (active) {
+        grid_terms<DMax>(qa, ys, ybase, xs, a1, ld, d, n, p0, p1, rw, ts + warp * 16 * nt, lane);
+      }
+    }
+  }
   if (few_terms) {
 #pragma unroll
     for (int k = 0; k < kTermLoads; ++k) {
       const int r = r0 + k * t_stride;
       if (r0 < t_stride && r < kTcQueries) ts[r * nt + u0] = tv[k];
     }
-  } else if (nt > 0) {
+  } else if (!kGrid && nt > 0) {
     for (int r = r0; r < kTcQueries && r0 < t_stride; r += t_stride) {
       const bf16* tr = term_row(r);
       for (int u = u0; u < nt; u += group) ts[r * nt + u] = tr != nullptr ? to_f(tr[u]) : 0.f;
@@ -321,7 +435,12 @@ attention_tc_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* 
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int col = (e & 1) ? cols.y : cols.x;
-              s[t][e] += trow[e >> 1][col & 0xffff] + trow[e >> 1][col >> 16];
+              const float ty = trow[e >> 1][col & 0xffff], tx = trow[e >> 1][col >> 16];
+              if constexpr (kGrid) {
+                s[t][e] = (s[t][e] + ty) + tx;  // one after the other, as _attend adds them
+              } else {
+                s[t][e] += ty + tx;
+              }
             }
           }
         }
@@ -414,7 +533,7 @@ attention_tc_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* 
   for (int i = 0; i < 2; ++i) {
     const int qi = rw + g + 8 * i;
     if (qi >= n) continue;
-    bf16* orow = out + ((int64_t)b * n + qi) * c + h * d;
+    bf16* orow = out + rows(b, qi, n) * c + h * d;
 #pragma unroll
     for (int u = 0; u < DMax / 8; ++u) {
       if (u * 8 >= d) continue;
@@ -423,39 +542,44 @@ attention_tc_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* 
   }
 }
 
-template <int Form, int DMax, int KC, typename Geom>
+template <int Form, int DMax, int KC, typename Geom, typename Rows>
 int launch_attention_tc_kernel(const __nv_bfloat16* qkv, const __nv_bfloat16* terms,
                                __nv_bfloat16* out, int bsz, int n, int c, int heads,
-                               float inv_scale, int p0, int p1, cudaStream_t stream, Geom geom) {
-  const size_t smem = attention_tc_smem_bytes(n, c / heads, p0 + p1);
-  cudaError_t err = cudaFuncSetAttribute(attention_tc_kernel<Form, DMax, KC, Geom>,
+                               float inv_scale, int p0, int p1, cudaStream_t stream, Geom geom,
+                               Rows rows, RelTables<__nv_bfloat16> tab) {
+  const int table_rows = tab.y != nullptr ? grid_table_rows(n, tab.a1, p0, p1) : 0;
+  const size_t smem = attention_tc_smem_bytes(n, c / heads, p0 + p1, table_rows);
+  cudaError_t err = cudaFuncSetAttribute(attention_tc_kernel<Form, DMax, KC, Geom, Rows>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bsz * heads, (n + kTcQueries - 1) / kTcQueries);
   int exponent;
   const bool q_lo = Form != kAttnRounded && frexpf(inv_scale, &exponent) != 0.5f;
-  attention_tc_kernel<Form, DMax, KC, Geom><<<grid, kTcThreads, smem, stream>>>(
-      qkv, terms, out, n, c, heads, inv_scale, p0, p1, q_lo, geom);
+  attention_tc_kernel<Form, DMax, KC, Geom, Rows><<<grid, kTcThreads, smem, stream>>>(
+      qkv, terms, out, n, c, heads, inv_scale, p0, p1, q_lo, geom, rows, tab);
   return (int)cudaGetLastError();
 }
 
-// The tensor-core body for bsz rows of n tokens, as launch_attention's
-// arguments; cudaErrorInvalidValue where it does not take the call (the
-// wrappers choose the body by the same rule and do not send such calls).
-template <int Form, typename Geom>
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// The tensor-core body for bsz rows (or windows) of n tokens, as
+// launch_attention's arguments; cudaErrorInvalidValue where it does not
+// take the call (the wrappers choose the body by the same rule and do not
+// send such calls).
+template <int Form, typename Geom, typename Rows>
 int launch_attention_tc(const __nv_bfloat16* qkv, const __nv_bfloat16* terms, __nv_bfloat16* out,
                         int bsz, int n, int c, int heads, float inv_scale, int p0, int p1,
-                        cudaStream_t stream, Geom geom) {
-  static_assert(Form != kAttnGrid, "the grid form stays on the CUDA-core body");
+                        cudaStream_t stream, Geom geom, Rows rows, RelTables<__nv_bfloat16> tab) {
   const int d = c / heads;
-  const bool aligned = ((uintptr_t)qkv & 15) == 0 && ((uintptr_t)geom.bias & 15) == 0;
+  const bool aligned =
+      aligned16(qkv) && aligned16(geom.bias) && aligned16(tab.y) && aligned16(tab.x);
   if (!attention_tc_takes(n, d) || !aligned) return (int)cudaErrorInvalidValue;
   if (d <= 64) {
     return launch_attention_tc_kernel<Form, 64, 26>(qkv, terms, out, bsz, n, c, heads,
-                                                    inv_scale, p0, p1, stream, geom);
+                                                    inv_scale, p0, p1, stream, geom, rows, tab);
   }
   return launch_attention_tc_kernel<Form, 128, 16>(qkv, terms, out, bsz, n, c, heads, inv_scale,
-                                                   p0, p1, stream, geom);
+                                                   p0, p1, stream, geom, rows, tab);
 }
 
 }  // namespace etk

@@ -40,18 +40,23 @@
 // in float32, the rel-pos terms computed in the kernel from the unscaled
 // q against the two (a, p, d) tables). The TPU kernel walks one stripe of
 // a0 map rows per grid step and slices its windows in VMEM; here the
-// blocks are the partitioned form's, (window, head, 32-query tile), and
-// only the row addresses change, so the grid form is bound like the
-// partitioned one. It stays on the CUDA-core body in every dtype. Its terms cost (p0 + p1) d products per query, about an
-// eighth of the logits' at 14 x 14 windows: one warp-wide dot product a
-// term, each lane reading its own elements of the table row (the tables,
-// 50 KB in bfloat16, stay in L1 and L2).
+// blocks are the partitioned form's, (window, head, query tile), and only
+// the row addresses change (the row table each block builds), so the grid
+// form is bound like the partitioned one. In bfloat16 it takes the
+// tensor-core body, as the other forms do: q as float32 hi + lo parts, the
+// terms on the tensor cores (each warp's 16 queries against the table rows
+// they use) from the y rows of the block's window rows and the whole x
+// table, both staged in shared memory by cp.async beside K and V, into the
+// float32 staging of the windowed form, added to the logits one after the
+// other. In float32 the CUDA-core body runs it: one warp-wide dot
+// product a term, each lane reading its own elements of the table row.
 #include "attention.cuh"
 
 extern "C" {
 
-int etk_attention_smem_bytes(int body, int n, int d, int n_terms) {
-  return (int)etk::attention_smem_bytes(body, n, d, n_terms);
+// a1 > 0: the grid form with tables over an (n_terms - p1) x p1 key grid
+int etk_attention_smem_bytes(int body, int n, int d, int n_terms, int a1, int p1) {
+  return (int)etk::attention_smem_bytes(body, n, d, n_terms, a1, p1);
 }
 
 // pad_bias null: no pad rows; else geom = (nh, nw, vh, vw) and the window
@@ -78,10 +83,11 @@ int etk_window_attention(int dtype, int body, const void* qkv, const void* terms
 
 // x (b, nh * a0, nw * a1, 3c) -> out (b, nh * a0, nw * a1, c); y_rel null:
 // no rel-pos terms, else the tables y_rel (a0, p0, d) and x_rel (a1, p1,
-// d) with p0 * p1 == a0 * a1.
-int etk_window_attention_grid(int dtype, const void* x, const void* y_rel, const void* x_rel,
-                              void* out, int b, int nh, int nw, int a0, int a1, int c,
-                              int heads, float inv_scale, int p0, int p1, void* stream) {
+// d) with p0 * p1 == a0 * a1. body: attention.cuh's AttnBody, chosen by the
+// wrapper.
+int etk_window_attention_grid(int dtype, int body, const void* x, const void* y_rel,
+                              const void* x_rel, void* out, int b, int nh, int nw, int a0, int a1,
+                              int c, int heads, float inv_scale, int p0, int p1, void* stream) {
   ETK_DISPATCH(dtype, {
     etk::GridRows rows;
     rows.nh = nh;
@@ -93,7 +99,7 @@ int etk_window_attention_grid(int dtype, const void* x, const void* y_rel, const
     tab.x = (const T*)x_rel;
     tab.a1 = a1;
     return etk::launch_attention<T, etk::kAttnGrid>(
-        etk::kBodySimt, (const T*)x, nullptr, (T*)out, b * nh * nw, a0 * a1, c, heads, inv_scale, p0, p1,
+        body, (const T*)x, nullptr, (T*)out, b * nh * nw, a0 * a1, c, heads, inv_scale, p0, p1,
         (cudaStream_t)stream, etk::PadGeom<T>{}, rows, tab);
   });
 }

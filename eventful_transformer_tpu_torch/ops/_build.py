@@ -13,6 +13,13 @@ Each C entry launches its kernels on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; :func:`launch` raises when that
 is not 0. Pointers and the stream cross as ``c_void_p`` so that 64-bit
 addresses are not cut to 32 bits.
+
+The small kernels take a few microseconds on the card, so a wrapper's host
+time is what a call costs, and the launch path is kept short: each C entry
+is bound once (:func:`launch` keeps the ctypes function it first looked
+up), the stream is read as the raw handle of the current stream
+(:func:`stream_of`, without building a ``torch.cuda.Stream``), and the
+operand checks (:func:`check_operands`) read each tensor's attributes once.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ SIGNATURES = {
     "etk_qkv_attention_group": [_I, _I] + [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "etk_proj_group": [_I] + [_P] * 11 + [_I, _I, _I, _P],
     "etk_gate_group_mlp": [_I] + [_P] * 21 + [_I] * 6 + [_P],
-    "etk_attention_smem_bytes": [_I, _I, _I, _I],
+    "etk_attention_smem_bytes": [_I] * 6,
     "etk_window_attention": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P] + [_I] * 6
     + [_P],
     "etk_gate_group_linear": [_I] + [_P] * 19 + [_I] * 6 + [_P],
@@ -58,7 +65,7 @@ SIGNATURES = {
     "etk_scatter_rows": [_I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "etk_gather_rows": [_I, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "etk_fused_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "etk_window_attention_grid": [_I] + [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P],
+    "etk_window_attention_grid": [_I, _I] + [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -136,12 +143,21 @@ def _build(path):
     os.replace(tmp, path)
 
 
+_ENTRIES = {}  # C entry name -> its ctypes function, bound at its first launch
+
+
+def _entry(name):
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = _ENTRIES[name] = getattr(load_library(), name)
+    return fn
+
+
 def launch(name, *args):
     """Call C entry ``name``; raise if it reports a CUDA error."""
-    lib = load_library()
-    code = getattr(lib, name)(*args)
+    code = _entry(name)(*args)
     if code != 0:
-        message = lib.etk_error_string(code).decode()
+        message = load_library().etk_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code}: {message}")
 
 
@@ -153,13 +169,15 @@ def dtype_code(t):
 
 
 def stream_of(t):
-    """The current CUDA stream of ``t``'s device, as an int for ctypes."""
-    if t.device.index != torch.cuda.current_device():
-        raise ValueError(
-            f"tensor on {t.device} but the current device is "
-            f"cuda:{torch.cuda.current_device()}"
-        )
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current CUDA stream of ``t``'s device, as an
+    int for ctypes; raises unless that device is the current one. ``t``
+    lies on the card, so CUDA is initialised and the current device is
+    read without ``torch.cuda``'s initialisation check."""
+    index = t.get_device()
+    current = torch._C._cuda_getDevice()
+    if index != current:
+        raise ValueError(f"tensor on {t.device} but the current device is cuda:{current}")
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_operands(name, ref, float32=(), **tensors):
@@ -168,8 +186,9 @@ def check_operands(name, ref, float32=(), **tensors):
     ``float32``. A tensor given as None (an operand the call leaves out,
     such as the coverage of a group that selects its own rows) is
     skipped."""
-    if ref.device.type != "cuda":
-        raise ValueError(f"{name}: expected CUDA or CPU tensors, got {ref.device}")
+    device, dtype = ref.device, ref.dtype
+    if device.type != "cuda":
+        raise ValueError(f"{name}: expected CUDA or CPU tensors, got {device}")
     dtype_code(ref)
     if not ref.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous")
@@ -178,9 +197,9 @@ def check_operands(name, ref, float32=(), **tensors):
     for key, t in tensors.items():
         if t is None:
             continue
-        want = torch.float32 if key in float32 else ref.dtype
-        if t.device != ref.device:
-            raise ValueError(f"{name}: {key} on {t.device}, expected {ref.device}")
+        want = torch.float32 if key in float32 else dtype
+        if t.device != device:
+            raise ValueError(f"{name}: {key} on {t.device}, expected {device}")
         if t.dtype != want:
             raise TypeError(f"{name}: {key} is {t.dtype}, expected {want}")
         if not t.is_contiguous():

@@ -10,6 +10,8 @@ its outputs against the plain version given the kernel's selection.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms
@@ -1038,14 +1040,22 @@ def library_call(name, d):
     partition of the map and its inverse, the copies it does without),
     ``Tensor.scatter`` for the blend on distinct valid indices,
     ``Tensor.scatter_`` for the row scatter without a mask or a cast,
-    ``torch.gather`` for the gather, ``torch.where`` for the select
-    without the LN. The fused attention's cast (bfloat16 probabilities)
-    has none."""
+    ``torch.gather`` for the gather, ``torch.where`` for the selects
+    without the LN, ``Tensor.index_put_`` for the windowed rows' scatter
+    (its valid (row, slot) pairs gathered beforehand: the -1 slots write
+    nothing). The fused attention's cast (bfloat16 probabilities) has
+    none."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     heads = d["heads"]
-    if name == "ln_select_noln":
-        selected = (d["cov3"] > 0)[..., None]
-        return lambda: torch.where(selected, d["x"], d["p_mlp"])
+    if name in ("ln_select_noln", "block_select_p_noln"):
+        cov, p = ("cov3", "p_mlp") if name == "ln_select_noln" else ("cov1", "p_qkv")
+        selected = (d[cov] > 0)[..., None]
+        return lambda: torch.where(selected, d["x"], d[p])
+    if name == "block_scatter_rows":
+        b = d["buf_qkv"].clone()
+        rows, slots = torch.nonzero(d["w_index"] >= 0, as_tuple=True)
+        index, values = (rows, d["w_index"][rows, slots].long()), d["h_rows"][rows, slots]
+        return lambda: b.index_put_(index, values)
     if name in ROWS_INPUTS:
         buf, values, index, mask = ROWS_INPUTS[name]
         if mask is not None or name.endswith("_cast"):
@@ -1150,6 +1160,32 @@ def time_call(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters=200, warmup=3):
+    """Mean microseconds of host time of one ``fn()`` call over ``iters``
+    back-to-back calls (``time.perf_counter_ns``), the card left to run
+    behind: what a call costs the calling thread. Where the host is the
+    slower side, as for the small kernels, :func:`time_call`'s CUDA-event
+    time reads about the same."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter_ns()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter_ns() - start
+    torch.cuda.synchronize()
+    return elapsed / iters / 1e3
+
+
+def kernel_host_us(name, d, iters=200, warmup=3):
+    """:func:`host_us` of one call of kernel ``name``'s wrapper on ``d``,
+    the call :func:`time_ms` times (this module's dispatch on ``name``
+    included)."""
+    d = {key: v.clone() if torch.is_tensor(v) else v for key, v in d.items()}
+    fn = KERNELS[name][0]
+    return host_us(lambda: _invoke(name, fn, d), iters, warmup)
 
 
 def time_ms(name, d, plain=False, iters=20, warmup=3):

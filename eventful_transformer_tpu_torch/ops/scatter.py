@@ -28,20 +28,28 @@ import torch
 from eventful_transformer_tpu_torch.ops import _build
 
 LANE = 128
+_INDEX_DTYPES = (torch.int32, torch.int64)
 
 
 def _check(name, buffer, index, values=None, mask=None):
     """The JAX kernels' argument rules: a (B, N, C) buffer with C a
-    multiple of 128, a (B, K) index, (B, K, C) values and a (B, K) mask."""
-    if buffer.ndim != 3 or buffer.shape[-1] % LANE:
-        raise ValueError(f"{name}: buffer {tuple(buffer.shape)} is not (B, N, C), C % {LANE} == 0")
-    bsz, _, c = buffer.shape
-    k = index.shape[-1]
-    _build.check_shape(name, "index", index, (bsz, k))
-    _build.check_shape(name, "values", values, (bsz, k, c))
-    _build.check_shape(name, "mask", mask, (bsz, k))
-    if index.dtype not in (torch.int32, torch.int64):
+    multiple of 128, a (B, K) index, (B, K, C) values and a (B, K) mask.
+    Returns (B, N, C, K)."""
+    shape = buffer.shape
+    if len(shape) != 3 or shape[2] % LANE:
+        raise ValueError(f"{name}: buffer {tuple(shape)} is not (B, N, C), C % {LANE} == 0")
+    bsz, n, c = shape
+    index_shape = index.shape
+    k = index_shape[-1]
+    if index_shape != (bsz, k):
+        _build.check_shape(name, "index", index, (bsz, k))
+    if values is not None and values.shape != (bsz, k, c):
+        _build.check_shape(name, "values", values, (bsz, k, c))
+    if mask is not None and mask.shape != (bsz, k):
+        _build.check_shape(name, "mask", mask, (bsz, k))
+    if index.dtype not in _INDEX_DTYPES:
         raise TypeError(f"{name}: index is {index.dtype}, expected an int32 or int64 tensor")
+    return bsz, n, c, k
 
 
 def _valid(index, mask, n):
@@ -71,36 +79,55 @@ def gather_rows_plain(buffer, index):
     return torch.where(ok[..., None], out, out.new_zeros(()))
 
 
-def _check_cuda(name, buffer, **tensors):
-    """Raise unless every tensor lies on the buffer's device, contiguous
-    and 16-byte aligned (the kernels copy 16-byte words)."""
-    _build.check_operands(name, buffer)
-    for key, t in dict(buffer=buffer, **tensors).items():
+def _check_cuda(name, buffer, index, values=None, mask=None):
+    """One pass over the operands of a CUDA call, each tensor's attributes
+    read once: the plain version's argument rules (:func:`_check`) and the
+    kernels' needs, every tensor on the buffer's device and contiguous, the
+    buffer and the values (float32 or bfloat16) on 16-byte boundaries (the
+    kernels copy 16-byte words), with the messages of
+    ``_build.check_operands``. Returns (B, N, C, K), the dtype codes of the
+    buffer and the values (0 for values not given) and the data pointers
+    of the buffer, the values, the index and the mask (0 for one not
+    given)."""
+    dims = _check(name, buffer, index, values, mask)
+    if not buffer.is_cuda:
+        raise ValueError(f"{name}: expected CUDA or CPU tensors, got {buffer.device}")
+    codes = (_build.dtype_code(buffer), 0 if values is None else _build.dtype_code(values))
+    if not buffer.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+    if dims[2] > _build.MAX_ROW_WIDTH:
+        raise ValueError(f"{name}: C={dims[2]} exceeds {_build.MAX_ROW_WIDTH}")
+    device = buffer.get_device()
+    pointers = []
+    for key, t in (("buffer", buffer), ("values", values), ("index", index), ("mask", mask)):
         if t is None:
+            pointers.append(0)
             continue
-        if t.device != buffer.device or not t.is_contiguous():
+        if t.get_device() != device or not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be a contiguous tensor on {buffer.device}")
-        if key in ("buffer", "values") and t.data_ptr() % 16:
+        ptr = t.data_ptr()
+        if ptr % 16 and key in ("buffer", "values"):
             raise ValueError(f"{name}: {key} must start on a 16-byte boundary")
+        pointers.append(ptr)
+    return dims, codes, pointers
 
 
 def scatter_rows_inplace(buffer, values, index, mask=None):
     """The wrapper of :func:`scatter_rows_inplace_plain`, which CPU tensors
     take. CUDA tensors launch the kernel of csrc/scatter.cu, which casts
-    float32 or bfloat16 values to the buffer's dtype itself."""
-    if buffer.device.type == "cpu":
+    float32 or bfloat16 values to the buffer's dtype itself. Its host time
+    is most of a call's, so the operands are checked in one pass
+    (:func:`_check_cuda`)."""
+    if buffer.is_cpu:
         return scatter_rows_inplace_plain(buffer, values, index, mask)
     name = "scatter_rows_inplace"
-    _check(name, buffer, index, values, mask)
     if mask is not None and mask.dtype != torch.bool:
         mask = mask != 0
-    _check_cuda(name, buffer, values=values, index=index, mask=mask)
-    bsz, n, c = buffer.shape
+    (bsz, n, c, k), (code, values_code), pointers = _check_cuda(name, buffer, index, values, mask)
+    buffer_ptr, values_ptr, index_ptr, mask_ptr = pointers
     _build.launch(
-        "etk_scatter_rows", _build.dtype_code(buffer), _build.dtype_code(values),
-        buffer.data_ptr(), values.data_ptr(), index.data_ptr(), int(index.dtype == torch.int64),
-        None if mask is None else mask.data_ptr(), bsz, n, c, index.shape[-1],
-        _build.stream_of(buffer),
+        "etk_scatter_rows", code, values_code, buffer_ptr, values_ptr, index_ptr,
+        int(index.dtype == torch.int64), mask_ptr, bsz, n, c, k, _build.stream_of(buffer),
     )
     scatter_rows_inplace.launches += 1
     return buffer
@@ -112,14 +139,11 @@ def gather_rows(buffer, index):
     if buffer.device.type == "cpu":
         return gather_rows_plain(buffer, index)
     name = "gather_rows"
-    _check(name, buffer, index)
-    _check_cuda(name, buffer, index=index)
-    bsz, n, c = buffer.shape
-    k = index.shape[-1]
+    (bsz, n, c, k), (code, _), (buffer_ptr, _, index_ptr, _) = _check_cuda(name, buffer, index)
     rows = torch.empty((bsz, k, c), dtype=buffer.dtype, device=buffer.device)
     _build.launch(
-        "etk_gather_rows", _build.dtype_code(buffer), buffer.data_ptr(), index.data_ptr(),
-        int(index.dtype == torch.int64), rows.data_ptr(), bsz, n, c, k, _build.stream_of(buffer),
+        "etk_gather_rows", code, buffer_ptr, index_ptr, int(index.dtype == torch.int64),
+        rows.data_ptr(), bsz, n, c, k, _build.stream_of(buffer),
     )
     gather_rows.launches += 1
     return rows

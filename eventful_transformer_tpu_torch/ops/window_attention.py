@@ -16,9 +16,9 @@ for the q, k and v of every out-of-image token and ``pad_terms``
 ``csrc/attention.cuh``; kernel A shares it. That kernel has two bodies, and
 :func:`attention_body` says which one a call takes: bfloat16 calls the
 tensor-core body of ``csrc/attention_tc.cuh``, float32 calls the CUDA-core
-one. The wrappers that reach it (this one, ``fused_attention`` and kernel
-A's ``qkv_attention_group``) count their launches by body in
-``body_launches``.
+one. The wrappers that reach it (this one, :func:`window_attention_grid`,
+``fused_attention`` and kernel A's ``qkv_attention_group``) count their
+launches by body in ``body_launches``.
 
 ``window_attention_grid`` takes the windows from the padded (B, Hp, Wp, 3C)
 qkv map itself and writes a (B, Hp, Wp, C) map, with the rel-pos terms
@@ -27,7 +27,10 @@ the JAX kernel's ``_attend`` (window_attention.py:78-96), not those of
 :func:`attention_plain`. No path of the JAX package calls it (its ``Block``
 partitions in XLA and runs ``window_attention``); ``chip_smoke.py`` holds it
 against its plain version and, in float32, against the windowed and padded
-forms above over the partition of the same map.
+forms above over the partition of the same map. It takes the same two
+bodies by the same rule: in bfloat16 the tensor-core one, which computes
+the terms on the tensor cores from the unscaled q; in float32 the CUDA-core
+one.
 """
 
 from __future__ import annotations
@@ -131,17 +134,19 @@ TC_MAX_HEAD_DIM = 128
 
 def attention_body(dtype, n, d, form="rounded", aligned=True):
     """The body of the attention kernel that a call takes: "tc", the
-    tensor-core body, for bfloat16 in every form but the grid's, with a
-    head width ``d`` that is a multiple of 16 up to 128, ``n`` <= 512 tokens
-    and qkv (and a pad-bias row) on 16-byte boundaries (``aligned``);
-    "simt", the CUDA-core body, for everything else (float32 in every form,
-    the grid form). csrc/attention_tc.cuh ``attention_tc_takes`` refuses
-    what this sends it otherwise."""
+    tensor-core body, for bfloat16 in every form, with a head width ``d``
+    that is a multiple of 16 up to 128, ``n`` <= 512 tokens and qkv (and a
+    pad-bias row, or the grid form's tables) on 16-byte boundaries
+    (``aligned``); "simt", the CUDA-core body, for everything else (float32
+    in every form, so that the float32 card-vs-CPU checks keep their
+    meaning). csrc/attention_tc.cuh refuses what this sends it otherwise
+    (``attention_tc_takes`` and the alignment test of
+    ``launch_attention_tc``)."""
     if form not in ATTENTION_FORMS:
         raise ValueError(f"attention form must be one of {ATTENTION_FORMS}, got {form!r}")
     takes = (
-        dtype == torch.bfloat16 and form != "grid" and d % 16 == 0
-        and 16 <= d <= TC_MAX_HEAD_DIM and 1 <= n <= TC_MAX_TOKENS and aligned
+        dtype == torch.bfloat16 and d % 16 == 0 and 16 <= d <= TC_MAX_HEAD_DIM
+        and 1 <= n <= TC_MAX_TOKENS and aligned
     )
     return "tc" if takes else "simt"
 
@@ -152,11 +157,14 @@ def aligned16(*tensors):
     return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def attention_smem_bytes(name, n, d, n_terms=0, body="simt"):
+def attention_smem_bytes(name, n, d, n_terms=0, body="simt", grid=(0, 0)):
     """Shared memory of ``body`` of the attention kernel at N tokens of head
-    width d with ``n_terms`` rel-pos terms per query; raises if one block
-    cannot hold it."""
-    smem = _build.load_library().etk_attention_smem_bytes(BODY_CODES[body], n, d, n_terms)
+    width d with ``n_terms`` rel-pos terms per query (``grid`` = (a1, p1):
+    the grid form's tables over an a1-wide window, which the tensor-core
+    body stages); raises if one block cannot hold it."""
+    smem = _build.load_library().etk_attention_smem_bytes(
+        BODY_CODES[body], n, d, n_terms, *grid
+    )
     if smem > _build.MAX_SHARED_BYTES:
         raise ValueError(f"{name}: N={n} needs {smem} B of shared memory per block")
     return smem
@@ -220,7 +228,7 @@ window_attention.launches = 0
 window_attention.body_launches = {"tc": 0, "simt": 0}
 
 
-MAX_GRID_HEAD_DIM = 256  # the grid kernel holds a query's head in registers (kMaxHeadDim)
+MAX_GRID_HEAD_DIM = 256  # the CUDA-core body holds a query's head in registers (kMaxHeadDim)
 
 
 def _grid_geometry(name, x, y_rel, window, a, p):
@@ -278,8 +286,10 @@ def window_attention_grid(
     x, y_rel=None, x_rel=None, *, heads, scale, window, a=None, p=None
 ):
     """The wrapper of :func:`window_attention_grid_plain`, which CPU tensors
-    take. CUDA tensors launch the grid entry of csrc/window_attention.cu;
-    launches are counted by form, ``"terms"`` or ``"no_terms"``."""
+    take. CUDA tensors launch the grid entry of csrc/window_attention.cu, in
+    the body :func:`attention_body` picks (the tables rounded to x's dtype
+    first); launches are counted by form, ``"terms"`` or ``"no_terms"``,
+    and by body."""
     if x.device.type == "cpu":
         return window_attention_grid_plain(
             x, y_rel, x_rel, heads=heads, scale=scale, window=window, a=a, p=p
@@ -299,18 +309,21 @@ def window_attention_grid(
         _build.check_shape(name, "y_rel", tables["y_rel"], (a0, p0, hd))
         _build.check_shape(name, "x_rel", tables["x_rel"], (a1, p1, hd))
     _build.check_operands(name, x, **tables)
-    attention_smem_bytes(name, a0 * a1, hd, p0 + p1, attention_body(x.dtype, a0 * a1, hd, "grid"))
+    body = attention_body(x.dtype, a0 * a1, hd, "grid", aligned16(x, *tables.values()))
+    attention_smem_bytes(name, a0 * a1, hd, p0 + p1, body, (a1, p1) if tables else (0, 0))
     out = torch.empty((b, hp, wp, c), dtype=x.dtype, device=x.device)
     _build.launch(
-        "etk_window_attention_grid", _build.dtype_code(x), x.data_ptr(),
+        "etk_window_attention_grid", _build.dtype_code(x), BODY_CODES[body], x.data_ptr(),
         tables["y_rel"].data_ptr() if tables else None,
         tables["x_rel"].data_ptr() if tables else None, out.data_ptr(), b, hp // a0, wp // a1,
         a0, a1, c, heads, float(1.0 / scale), p0, p1, _build.stream_of(x),
     )
     window_attention_grid.launches += 1
     window_attention_grid.form_launches["terms" if tables else "no_terms"] += 1
+    window_attention_grid.body_launches[body] += 1
     return out
 
 
 window_attention_grid.launches = 0
 window_attention_grid.form_launches = {"terms": 0, "no_terms": 0}
+window_attention_grid.body_launches = {"tc": 0, "simt": 0}

@@ -2,24 +2,30 @@
 where no card runs it: the rule that picks the body, and the body's
 arithmetic emulated in PyTorch.
 
-(a) ``window_attention.attention_body``, the one rule the three wrappers
+(a) ``window_attention.attention_body``, the one rule the four wrappers
 that reach the attention kernel share, at every shape the paths give it:
-bfloat16 takes the tensor-core body in the rounded form (rows 2 and 6) and
-in row 21's two forms; float32 and the grid form (row 15) the CUDA-core
-body; so do a head width that is not a multiple of 16 or beyond 128, more
-than 512 tokens and an operand off a 16-byte boundary.
+bfloat16 takes the tensor-core body in the rounded form (rows 2 and 6), in
+row 21's two forms and in the grid form (row 15); float32 the CUDA-core
+body in every form; so do a head width that is not a multiple of 16 or
+beyond 128, more than 512 tokens and an operand off a 16-byte boundary.
 
 (b) The body's arithmetic: bfloat16 operands into float32 sums, as
 ``mma.sync.m16n8k16`` takes them. Row 21's q is scaled in float32 and goes
 in as two bfloat16 parts, hi = bf16(q) and lo = bf16(q - hi); without the
 cast its float32 probabilities go in the same way; with it they are rounded
 to bfloat16 and one product runs. The rounded form's q and probabilities
-are exact bfloat16 values, so one product each. Made from a numpy seed at
-a small size, the emulation is held against the JAX kernels in interpret
-mode (``jax_default_matmul_precision="highest"``, tests/conftest.py) and
-against the port's plain versions, within ``kernel_check.BF16_BOUNDS`` and,
-for the cast form, ``BF16_ROUNDED``'s comparison: the bounds the card holds
-the body to. A split dropped from the emulation fails them."""
+are exact bfloat16 values, so one product each. The grid form (row 15)
+splits its float32 q as row 21 does, rounds its probabilities as the
+rounded form does, and computes its rel-pos terms on the tensor cores from
+the UNSCALED q, an exact bfloat16 value, against the tables rounded to
+bfloat16, adding them to the logits one after the other, (s + term_y) +
+term_x. Made from a numpy seed at a small size, the emulation is held
+against the JAX kernels in interpret mode
+(``jax_default_matmul_precision="highest"``, tests/conftest.py) and against
+the port's plain versions, within ``kernel_check.BF16_BOUNDS`` and, for the
+cast form, ``BF16_ROUNDED``'s comparison: the bounds the card holds the
+body to. A split dropped from the emulation fails them, and so do the grid
+form's terms taken from the scaled q."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +41,7 @@ from eventful_transformer_tpu_torch.ops.window_attention import (
     aligned16,
     attention_body,
     expand_terms,
+    window_attention_grid_plain,
     window_attention_plain,
 )
 
@@ -67,9 +74,13 @@ def test_rule_takes_the_tensor_cores_in_bfloat16(shape, form):
 
 @pytest.mark.parametrize("shape", sorted(PATH_SHAPES))
 def test_rule_keeps_the_grid_form_on_the_cuda_cores(shape):
+    """The grid form stays on the CUDA cores in float32 only: in bfloat16
+    it takes the tensor-core body, as every other form does. (The name is
+    the one the test had when bfloat16 grid calls stayed there too; it is
+    kept with its cases.)"""
     n, d = PATH_SHAPES[shape]
-    for dtype in (torch.bfloat16, torch.float32):
-        assert attention_body(dtype, n, d, "grid") == "simt"
+    assert attention_body(torch.bfloat16, n, d, "grid") == "tc"
+    assert attention_body(torch.float32, n, d, "grid") == "simt"
 
 
 @pytest.mark.parametrize(
@@ -221,3 +232,96 @@ def test_dropped_split_fails_the_bounds(form):
         tc_emulation(x, heads, scale, form, split=False), want
     )
     assert not row["ok"], row
+
+
+def grid_tc_emulation(x, heads, scale, window, y_rel=None, x_rel=None, p=None, split=True,
+                      scaled_terms=False):
+    """The tensor-core body's arithmetic for the grid form (row 15) on a
+    bfloat16 map x (B, Hp, Wp, 3C): the windows partitioned, q scaled in
+    float32 and split into hi + lo; with the tables (rounded to bfloat16)
+    the terms of the unscaled q, q . y[i // a1] and q . x[i % a1], added to
+    the logits one after the other; probabilities and output rounded to
+    bfloat16. ``split`` False drops q's lo part and ``scaled_terms`` takes
+    the terms from the scaled q: planted faults."""
+    b, hp, wp, c3 = x.shape
+    c, (a0, a1) = c3 // 3, window
+    t = a0 * a1
+    win = x.reshape(b, hp // a0, a0, wp // a1, a1, c3).permute(0, 1, 3, 2, 4, 5)
+    q, k, v = win.reshape(-1, t, 3, heads, c // heads).float().permute(2, 0, 3, 1, 4)
+    scaled = q * torch.tensor(1.0 / scale, dtype=torch.float32)
+    hi, lo = _split(scaled)
+    s = hi @ k.transpose(-1, -2)
+    if split:
+        s = s + lo @ k.transpose(-1, -2)
+    if y_rel is not None:
+        p0, p1 = p or window
+        idx = torch.arange(t)
+        q_terms = scaled if scaled_terms else q
+        term_y = torch.einsum("bhtd,tpd->bhtp", q_terms, _bf16(y_rel)[idx // a1])
+        term_x = torch.einsum("bhtd,tpd->bhtp", q_terms, _bf16(x_rel)[idx % a1])
+        s = (s + term_y[..., idx // p1]) + term_x[..., idx % p1]
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = (_bf16(e / e.sum(dim=-1, keepdim=True)) @ v).to(torch.bfloat16)
+    out = out.transpose(1, 2).reshape(b, hp // a0, wp // a1, a0, a1, c)
+    return out.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, c)
+
+
+# (C, heads): d = 64 (1/scale a power of two, q's lo part 0) and d = 48
+GRID_SIZES = {"d64": (256, 4), "d48": (192, 4)}
+# the rel-pos tables and the key grid p: with the tables over the window's
+# own grid, over a p != a grid (p0 * p1 == a0 * a1), and without tables
+GRID_FORMS = {"terms": (True, None), "terms_p6x4": (True, (6, 4)), "no_terms": (False, None)}
+GRID_MAP, GRID_WINDOW = (2, 8, 12), (4, 6)
+
+
+def _grid_case(size, form, seed):
+    """The bfloat16 map, the tables (or none), scale and key grid of a grid
+    case, and the JAX kernel's output in interpret mode."""
+    c, heads = GRID_SIZES[size]
+    tables, p = GRID_FORMS[form]
+    a0, a1 = GRID_WINDOW
+    p0, p1 = p or GRID_WINDOW
+    hd = c // heads
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(GRID_MAP + (3 * c,)).astype(np.float32)
+    yr = (0.3 * rng.standard_normal((a0, p0, hd))).astype(np.float32)
+    xr = (0.3 * rng.standard_normal((a1, p1, hd))).astype(np.float32)
+    scale = float(np.sqrt(hd))
+    keys = dict(a=GRID_WINDOW, p=p) if tables else {}
+    ref = jax_window_attention.window_attention_grid(
+        jnp.asarray(x, jnp.bfloat16), *((jnp.asarray(yr), jnp.asarray(xr)) if tables else ()),
+        heads=heads, scale=scale, window=GRID_WINDOW, interpret=True, **keys,
+    )
+    rel = (torch.from_numpy(yr), torch.from_numpy(xr)) if tables else ()
+    return torch.from_numpy(x).to(torch.bfloat16), rel, heads, scale, keys, _jax_out(ref)
+
+
+@pytest.mark.parametrize("form", sorted(GRID_FORMS))
+@pytest.mark.parametrize("size", sorted(GRID_SIZES))
+def test_grid_arithmetic_matches_jax_and_plain(size, form):
+    x, rel, heads, scale, keys, want_jax = _grid_case(size, form, seed=15)
+    got = grid_tc_emulation(x, heads, scale, GRID_WINDOW, *rel, p=keys.get("p"))
+    _check(got, want_jax)
+    _check(got, window_attention_grid_plain(x, *rel, heads=heads, scale=scale,
+                                            window=GRID_WINDOW, **keys))
+
+
+GRID_FAULTS = {"terms_of_the_scaled_q": ("d64", dict(scaled_terms=True)),
+               "dropped_q_split": ("d48", dict(split=False))}
+
+
+@pytest.mark.parametrize("fault", sorted(GRID_FAULTS))
+def test_grid_planted_faults_fail_the_bounds(fault):
+    """The terms taken from the scaled q (at d = 64, a factor of 8 on them),
+    or q's lo part dropped (at d = 48, where it is not 0): both fail the
+    bounds against the JAX kernel and the plain version, which the faultless
+    emulation of the same case passes."""
+    size, planted = GRID_FAULTS[fault]
+    x, rel, heads, scale, keys, want_jax = _grid_case(size, "terms", seed=16)
+    want = window_attention_grid_plain(x, *rel, heads=heads, scale=scale, window=GRID_WINDOW,
+                                       **keys)
+    for ref in (want_jax, want):
+        _check(grid_tc_emulation(x, heads, scale, GRID_WINDOW, *rel), ref)
+        row = kernel_check.compare(grid_tc_emulation(x, heads, scale, GRID_WINDOW, *rel,
+                                                     **planted), ref)
+        assert not row["ok"], row

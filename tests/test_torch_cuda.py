@@ -681,3 +681,132 @@ def test_small_vivit_bodies_by_dtype(device):
         counts = kernel_check.body_launches()
         assert counts["qkv_attention_group"][body] > 0 and counts["window_attention"][body] > 0
         kernel_check.check_bodies(counts, dtype, "small ViViT")
+
+
+# -- row 15 on the tensor-core body, row 19's launch path -------------------------------
+
+# (B, Hp, Wp, C, heads, window, key grid p or None (the window's), image (h,
+# w) or None (the whole map), tables): the 672 map (3 x 3 windows of 14 x
+# 14), 1024's padded one (64 x 64 in 5 x 5 windows, the pad positions
+# holding the qkv-bias row), a small awkward map (d = 48, a 4 x 5 window
+# over a 5 x 4 key grid, three batch rows, pad positions), 672 without tables
+GRID_CASES = {
+    "672": (2, 42, 42, 768, 12, (14, 14), None, None, True),
+    "1024_padded": (2, 70, 70, 768, 12, (14, 14), None, (64, 64), True),
+    "awkward_p_ne_a": (3, 8, 10, 192, 4, (4, 5), (5, 4), (7, 9), True),
+    "672_no_tables": (2, 42, 42, 768, 12, (14, 14), None, None, False),
+}
+
+
+def _grid_inputs(case, dtype, device, seed=4):
+    """The map (pad positions holding a bias row), the float32 tables (the
+    wrapper rounds them to the map's dtype) and the call's keywords."""
+    b, hp, wp, c, heads, window, p, image, tables = GRID_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(3 * c, generator=g).expand(b, hp, wp, 3 * c).clone()
+    h, w = image or (hp, wp)
+    x[:, :h, :w] = torch.randn((b, h, w, 3 * c), generator=g)
+    (a0, a1), (p0, p1), hd = window, p or window, c // heads
+    keys = dict(heads=heads, scale=hd**0.5, window=window)
+    rel = ()
+    if tables:
+        rel = tuple(0.3 * torch.randn(shape, generator=g).to(device)
+                    for shape in ((a0, p0, hd), (a1, p1, hd)))
+        keys.update(a=window, p=p)
+    return x.to(device, dtype), rel, keys
+
+
+@pytest.mark.parametrize("case", sorted(GRID_CASES))
+def test_grid_tensor_core_body_matches_plain(case, device):
+    """Row 15 in bfloat16 on the tensor-core body against its plain version,
+    within kernel_check's bfloat16 bounds: one launch, on that body."""
+    from eventful_transformer_tpu_torch.ops.window_attention import (
+        window_attention_grid,
+        window_attention_grid_plain,
+    )
+
+    x, rel, keys = _grid_inputs(case, torch.bfloat16, device)
+    kernel_check.reset_launches()
+    got = window_attention_grid(x, *rel, **keys)
+    torch.cuda.synchronize()
+    assert window_attention_grid.body_launches == {"tc": 1, "simt": 0}
+    row = kernel_check.compare(got, window_attention_grid_plain(x, *rel, **keys))
+    assert row["ok"], row
+
+
+@pytest.mark.parametrize("case", ["672", "awkward_p_ne_a"])
+def test_grid_float32_and_misaligned_bfloat16_take_the_cuda_core_body(case, device):
+    """Row 15 in float32, and in bfloat16 on a map off a 16-byte boundary,
+    runs the CUDA-core body and gives its plain version's result; the
+    launches by body follow the dtype."""
+    from eventful_transformer_tpu_torch.ops.window_attention import (
+        window_attention_grid,
+        window_attention_grid_plain,
+    )
+
+    x32, rel, keys = _grid_inputs(case, torch.float32, device)
+    flat = torch.empty(x32.numel() + 1, dtype=torch.bfloat16, device=device)
+    x16 = flat[1:].view(x32.shape)
+    x16.copy_(x32)
+    for x in (x32, x16):
+        kernel_check.reset_launches()
+        got = window_attention_grid(x, *rel, **keys)
+        torch.cuda.synchronize()
+        assert window_attention_grid.body_launches == {"tc": 0, "simt": 1}
+        row = kernel_check.compare(got, window_attention_grid_plain(x, *rel, **keys))
+        assert row["ok"], row
+    kernel_check.reset_launches()
+    window_attention_grid(x32.to(torch.bfloat16), *rel, **keys)
+    assert kernel_check.body_launches()["window_attention_grid"] == {"tc": 1, "simt": 0}
+
+
+def test_scatter_rows_refusals_raise_before_the_launch(device):
+    """Row 19's one-pass operand check still refuses, before any launch and
+    with the buffer untouched: non-contiguous values, a buffer off a
+    16-byte boundary, a mask of the wrong shape, a float index."""
+    from eventful_transformer_tpu_torch.ops.scatter import scatter_rows_inplace
+
+    d = kernel_check.make_inputs(2, 197, 256, 4, 24, torch.bfloat16, device)
+    buf, values, index, mask = (d[key] for key in kernel_check.ROWS_INPUTS[
+        "scatter_rows_inplace_qkv_masked"])
+    flat = torch.empty(buf.numel() + 4, dtype=buf.dtype, device=device)
+    misaligned = flat[4:].view(buf.shape)
+    misaligned.copy_(buf)
+    strided = torch.empty((values.shape[1], values.shape[0], values.shape[2]), dtype=values.dtype,
+                          device=device).transpose(0, 1)
+    strided.copy_(values)
+    faults = [
+        (ValueError, "values must be a contiguous", (buf, strided, index, mask)),
+        (ValueError, "buffer must start on a 16-byte boundary", (misaligned, values, index, mask)),
+        (ValueError, "mask has shape", (buf, values, index, mask[:, :-1])),
+        (TypeError, "index is torch.float32", (buf, values, index.float(), mask)),
+    ]
+    before = scatter_rows_inplace.launches
+    for error, message, (b, v, i, m) in faults:
+        kept = b.clone()
+        with pytest.raises(error, match=message):
+            scatter_rows_inplace(b, v, i, m)
+        assert torch.equal(b, kept)
+    assert scatter_rows_inplace.launches == before
+
+
+def test_row_kernels_launch_on_the_current_stream(device):
+    """The launch path reads the current stream's raw handle: a scatter and
+    a gather on a side stream, queued behind a long product there, give the
+    plain versions' result once that stream is done."""
+    from eventful_transformer_tpu_torch.ops.scatter import gather_rows, scatter_rows_inplace
+
+    d = kernel_check.make_inputs(2, 197, 256, 4, 24, torch.bfloat16, device)
+    buf, values, index = d["rows_buf_qkv"], d["rows_vals_qkv"], d["rows_index"]
+    want = scatter_rows_inplace(buf.cpu(), values.cpu(), index.cpu())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        a = torch.randn((4096, 4096), device=device)
+        for _ in range(8):
+            a = a @ a / 64.0
+        got = scatter_rows_inplace(buf.clone(), values, index)
+        rows = gather_rows(got, index)
+    side.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(rows.cpu(), gather_rows(want, index.cpu()))

@@ -160,6 +160,17 @@ def test_library_calls_compute_the_same_function(name):
         assert kernel_check.library_call(other, d) is None
 
 
+@pytest.mark.parametrize("name", ["block_select_p_noln", "block_scatter_rows"])
+def test_window_row_library_calls_compute_the_same_function(name):
+    """Rows 10 (without the LN) and 11: torch.where and Tensor.index_put_
+    (on the valid slots, gathered beforehand) equal the plain version on
+    inputs with an invalid (-1) slot in every batch row."""
+    d = kernel_check.make_inputs(2, 37, 64, 4, 11, torch.float32, "cpu", seed=1)
+    assert bool((d["w_index"] < 0).any())
+    want = kernel_check.call(name, d, plain=True)[0]
+    assert torch.equal(kernel_check.library_call(name, d)(), want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_row_scatter_faults_fail(dtype):
     """The row scatter must equal its plain version bit for bit: a scatter
