@@ -25,7 +25,19 @@ Phases, one JSON line each, with the seconds the phase took:
                      one process per source.
   3. kernels:        each kernel against its plain PyTorch version at ViViT's
                      shapes, float32 and bfloat16, each output within the
-                     bounds stated in ops/kernel_check.py, and both timed.
+                     bounds stated in ops/kernel_check.py, and both timed;
+                     the MLP rows (gate_group_mlp, dense_mlp_residual) beside
+                     their yardstick, the two cuBLAS GEMMs alone
+                     (kernel_check.library_call), with their launches by
+                     GEMM core, each on the core ops/gemm_core.py's rule
+                     gives it (so in every kernels phase below).
+     gemm_core:      each GEMM launch of the MLP rows at every path's shape
+                     in bfloat16 (ViViT, its temporal model, ViTDet-672,
+                     e2e and 1024 dense; kernel C at k = 98, 24 and 256,
+                     "pre" and cov=None): its plan on the wgmma core (tiles,
+                     split of the K steps), its device microseconds from
+                     torch.profiler's events (with the split sum) and its
+                     TFLOP/s, beside the card's name and power limit.
   4. slice:          eventful ViViT-B (k=98 of 197 tokens) on the bench's
                      input in bfloat16, with the kernels' launch counts (and
                      the dense twin's); one clip in float32 on the card
@@ -147,6 +159,10 @@ Phases, one JSON line each, with the seconds the phase took:
                      bfloat16 only the tensor-core body
                      (csrc/attention_tc.cuh), in float32 only the CUDA-core
                      one (window_attention.attention_body's rule).
+  26. gemm_cores:     the MLP rows' launches by GEMM core of every counted
+                     run above, each checked as it was read: in bfloat16
+                     only the wgmma core (csrc/gemm_tc.cuh), in float32 only
+                     the CUDA-core tile of csrc/gemm.cuh.
 The times are a record, not a claim.
 
 Then the whole run's seconds, the card's name and power limit, one JSON
@@ -363,7 +379,36 @@ def phase_build():
         if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")
     })
     emit("build", seconds=round(seconds, 3), library=_build.library_path().name,
-         spill_lines=spills)
+         spill_lines=spills, gemm_tc_ptxas=gemm_tc_ptxas(log))
+
+
+# the epilogue functors of the wgmma core's instantiations, as in their names
+EPILOGUES = ("BiasGeluEpilogue", "ResidualEpilogue", "BiasEpilogue", "PartialSum",
+             "StoreEpilogue")
+
+
+def gemm_tc_ptxas(log):
+    """ptxas's report (-Xptxas=-v) of every instantiation of the wgmma core
+    and its split sum in the build log: registers, spills, barriers, each
+    once."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = name if ("gemm_tc_kernel" in name or "splitk_epilogue_kernel" in name) \
+                else None
+            if entry is not None and entry not in out:
+                kind = "gemm_tc_kernel" if "gemm_tc_kernel" in entry else "splitk_epilogue"
+                epi = next((e for e in EPILOGUES if e in entry), "?")
+                out[entry] = dict(kernel=kind, gather="ILb1" in entry, epilogue=epi)
+        elif entry is not None and "spill stores" in line:
+            words = line.split()
+            out[entry]["spill_bytes"] = int(words[4]) + int(words[8])
+        elif entry is not None and "Used" in line and "registers" in line:
+            words = line.split()
+            out[entry]["registers"] = int(words[words.index("Used") + 1])
+            entry = None
+    return list(out.values())
 
 
 def check_kernels(phase, device, cases):
@@ -371,8 +416,10 @@ def check_kernels(phase, device, cases):
     keywords)] against its plain version, float32 and bfloat16, with both
     timed, the bound of the card for the same work, and the one PyTorch
     call that computes it where there is one; a group that selects its own
-    rows also beside its two-phase form (``two_phase_ms``). Rows keyed
-    (name, dtype, tag)."""
+    rows also beside its two-phase form (``two_phase_ms``); the MLP rows
+    with their launches by GEMM core in the row's checks and times, each on
+    the core ``gemm_core.gemm_core`` gives it. Rows keyed (name, dtype,
+    tag)."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
     results = {}
@@ -383,7 +430,8 @@ def check_kernels(phase, device, cases):
                 bound_ms, bound_by = kernel_check.bound(name, d)
                 library = kernel_check.library_call(name, d)
                 two_phase = kernel_check.two_phase_call(name, d)
-                results[(name, dtype, tag)] = dict(
+                kernel_check.reset_launches()
+                row = results[(name, dtype, tag)] = dict(
                     kernel=name, dtype=str(dtype).split(".")[-1], tag=tag, batch=bsz, n=n,
                     outputs=kernel_check.errors(name, d),
                     ms=kernel_check.time_ms(name, d),
@@ -392,7 +440,12 @@ def check_kernels(phase, device, cases):
                     library_ms=None if library is None else kernel_check.time_call(library),
                 )
                 if two_phase is not None:
-                    results[(name, dtype, tag)]["two_phase_ms"] = kernel_check.time_call(two_phase)
+                    row["two_phase_ms"] = kernel_check.time_call(two_phase)
+                wrapper = kernel_check.KERNELS[name][0]
+                if hasattr(wrapper, "core_launches"):
+                    row["core_launches"] = dict(wrapper.core_launches)
+                    kernel_check.check_cores({wrapper.__name__: row["core_launches"]}, dtype,
+                                             f"{phase} {name} {tag}")
             del d
             torch.cuda.empty_cache()
     emit(phase, bounds=dict(float32_scaled=kernel_check.F32_SCALED, **kernel_check.BF16_BOUNDS),
@@ -402,6 +455,82 @@ def check_kernels(phase, device, cases):
             if not out["ok"]:
                 raise AssertionError(f"{name} {dtype} {tag} output {out['output']}: {out}")
     return results
+
+
+# The wrappers whose GEMMs take a core by ops/gemm_core.py::gemm_core (rows
+# 4 and 5), and the entries and shapes of their GEMM launches' profile
+# (phase gemm_core): (entry, path, batch, N, k).
+GEMM_ROWS = ("gate_group_mlp", "dense_mlp_residual")
+GEMM_PROFILE = (
+    ("dense_mlp_residual", "vivit", 8, 197, 98),
+    ("dense_mlp_residual", "temporal", 8, 17, 17),
+    ("dense_mlp_residual", "vitdet_672", 2, 1764, 256),
+    ("dense_mlp_residual", "vitdet_e2e", 1, 1764, 256),
+    ("dense_mlp_residual", "vitdet_1024", 2, 4096, 256),
+    ("gate_group_mlp", "vivit", 8, 197, 98),
+    ("gate_group_mlp", "vivit_evblock", 12, 197, 24),
+    ("gate_group_mlp", "vitdet_672", 2, 1764, 256),
+    ("gate_group_mlp_pre", "compare_ln_672", 2, 1764, 256),
+    ("gate_group_mlp_topk", "topk_slice_vivit", 8, 197, 98),
+    ("gate_group_mlp_topk", "topk_slice_vitdet", 2, 1764, 256),
+)
+
+
+def gemm_launches(name, d, calls=5):
+    """Each GEMM of one bfloat16 call of MLP entry ``name`` on ``d``, from
+    ``torch.profiler``'s device events over ``calls`` calls: [(GEMM 1 or 2,
+    (M, K, N), its plan, device us a call: its wgmma launch and, where the
+    plan splits K, the split sum)]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from eventful_transformer_tpu_torch.ops import gemm_core, kernel_check
+
+    bsz, n, c = d["x"].shape
+    hidden = d["w1"].shape[-1]
+    m = bsz * n if name == "dense_mlp_residual" else bsz * d["k"]
+    shapes = ((m, c, hidden), (m, hidden, c))
+    plans = [gemm_core.gemm_plan(*shape) for shape in shapes]
+    kernel_check.call(name, d)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            kernel_check.call(name, d)
+        torch.cuda.synchronize()
+    events = sorted(
+        (e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")
+         and ("gemm_tc_kernel" in e.name or "splitk_epilogue_kernel" in e.name)),
+        key=lambda e: e.time_range.start,
+    )
+    per_call = [1 + (plan.split > 1) for plan in plans]
+    if len(events) != calls * sum(per_call):
+        raise AssertionError(f"gemm_core {name}: {len(events)} GEMM launches in {calls} calls, "
+                             f"expected {per_call} a call")
+    us = [0.0, 0.0]
+    for i, e in enumerate(events):
+        at = i % sum(per_call)
+        us[0 if at < per_call[0] else 1] += e.time_range.elapsed_us() / calls
+    return [(g + 1, shapes[g], plans[g], us[g]) for g in range(2)]
+
+
+def phase_gemm_core(device, smi):
+    """Each GEMM launch of rows 4 and 5 at the paths' shapes in bfloat16:
+    its plan on the wgmma core, its device microseconds (profiler) and its
+    TFLOP/s."""
+    from eventful_transformer_tpu_torch.ops import kernel_check
+
+    rows = []
+    for name, path, bsz, n, k in GEMM_PROFILE:
+        d = kernel_check.make_inputs(bsz, n, 768, 12, k, torch.bfloat16, device, seed=SEED)
+        for gemm, (m, kk, nn), plan, us in gemm_launches(name, d):
+            rows.append(dict(
+                kernel=name, path=path, gemm=gemm, m=m, k=kk, n=nn, tiles=[plan.tiles_m, plan.tiles_n],
+                split=plan.split, blocks=plan.blocks, device_us=us,
+                tflops=2.0 * m * kk * nn / us / 1e6,
+            ))
+        del d
+        torch.cuda.empty_cache()
+    emit("gemm_core", card=smi, peak_tflops=989.0, rows=rows)
+    return rows
 
 
 def phase_kernels(device):
@@ -480,21 +609,32 @@ def read_form_launches():
 
 # The attention launches of each counted run by wrapper and body (the
 # wrappers that reach csrc/attention.cuh: window_attention, fused_attention
-# and kernel A's qkv_attention_group), emitted by phase attention_bodies.
+# and kernel A's qkv_attention_group), emitted by phase attention_bodies;
+# the MLP rows' launches (gate_group_mlp, dense_mlp_residual) by GEMM core,
+# emitted by phase gemm_cores.
 BODIES = []
+CORES = []
 
 
-def read_bodies(dtype, where):
-    """The attention launches of the run just made by wrapper and body,
-    checked: in bfloat16 every one took the tensor-core body, in float32
-    the CUDA-core body (``window_attention.attention_body`` at the paths'
-    shapes); kept in BODIES."""
+def read_routes(dtype, where):
+    """The launches of the run just made by route, checked: the attention
+    kernel's by body, in bfloat16 every one on the tensor-core body, in
+    float32 on the CUDA-core body (``window_attention.attention_body`` at
+    the paths' shapes); the MLP rows' by GEMM core, in bfloat16 every one on
+    the wgmma core, in float32 on the CUDA-core tile
+    (``gemm_core.gemm_core``). Kept in BODIES and CORES; returns the body
+    counts."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
     counts = kernel_check.body_launches()
     kernel_check.check_bodies(counts, dtype, where)
-    BODIES.append(dict(run=where, dtype=str(dtype).split(".")[-1],
+    cores = kernel_check.core_launches()
+    kernel_check.check_cores(cores, dtype, where)
+    key = str(dtype).split(".")[-1]
+    BODIES.append(dict(run=where, dtype=key,
                        launches={name: c for name, c in counts.items() if any(c.values())}))
+    CORES.append(dict(run=where, dtype=key,
+                      launches={name: c for name, c in cores.items() if any(c.values())}))
     return counts
 
 
@@ -510,6 +650,24 @@ def phase_attention_bodies():
     emit("attention_bodies", runs=BODIES, tc_launches=tc, simt_launches=simt)
     if not tc or not simt:
         raise AssertionError(f"attention bodies: tc {tc}, simt {simt} launches in all")
+
+
+def phase_gemm_cores():
+    """Every counted run's MLP launches by GEMM core (each checked as it was
+    read). Returns the totals by dtype and wrapper."""
+    totals = {}
+    for row in CORES:
+        by_wrapper = totals.setdefault(row["dtype"], {})
+        for name, counts in row["launches"].items():
+            total = by_wrapper.setdefault(name, dict.fromkeys(counts, 0))
+            for core, n in counts.items():
+                total[core] += n
+    emit("gemm_cores", runs=CORES, totals=totals)
+    tc = sum(c["tc"] for c in totals.get("bfloat16", {}).values())
+    simt = sum(c["simt"] for c in totals.get("float32", {}).values())
+    if not tc or not simt:
+        raise AssertionError(f"gemm cores: {totals}")
+    return totals
 
 
 def expected_forms(step_forms, steps):
@@ -528,7 +686,7 @@ def counted_run(model, views, eventful):
     reset_launches()
     probs, _ = run_model(model, views)
     launches = read_launches()
-    read_bodies(views.dtype, f"vivit {'eventful' if eventful else 'dense'}")
+    read_routes(views.dtype, f"vivit {'eventful' if eventful else 'dense'}")
     want = expected_launches(eventful)
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
@@ -595,7 +753,7 @@ def card_vs_cpu(cpu_model, clip, device, run=None, prob_tol=None):
             runs[tag] = run(model, views, count=True)
             runs[tag + "_s"] = time.perf_counter() - start
         if tag == "card":
-            read_bodies(model_dtype(card_model), "vivit card vs cpu")
+            read_routes(model_dtype(card_model), "vivit card vs cpu")
     selections, flips = selection_flips(logs["card"], logs["cpu"])
     prob_diff = float((runs["card"][0].cpu() - runs["cpu"][0]).abs().max())
     numbers = dict(
@@ -830,7 +988,7 @@ def vitdet_counted_call(model, frames, eventful, size):
         reset_launches()
         tokens, counts, _ = run_vitdet(model, frames, count=True)
         launches = read_launches()
-        read_bodies(frames.dtype, f"vitdet{size} {'eventful' if eventful else 'dense'}")
+        read_routes(frames.dtype, f"vitdet{size} {'eventful' if eventful else 'dense'}")
     want = vitdet_expected_launches(eventful, size)
     if launches != want:
         raise AssertionError(f"ViTDet-{size} launch counts {launches}, expected {want}")
@@ -864,7 +1022,7 @@ def card_and_cpu(cpu_model, frames, device, run, card_model=None):
             seconds[tag] = time.perf_counter() - start
             if tag == "card":
                 launches = read_launches()
-                read_bodies(model_dtype(card_model), "vitdet card vs cpu")
+                read_routes(model_dtype(card_model), "vitdet card vs cpu")
     selections, flips = selection_flips(logs["card"], logs["cpu"])
     scaled = max(
         float(((a.cpu() - b).abs() / b.abs().clamp(min=1.0)).max())
@@ -1087,7 +1245,7 @@ def e2e_counted_call(model, frames, eventful, row16=False):
         reset_launches()
         dets, counts = run_e2e(model, frames, count=True)
         launches = read_launches()
-        read_bodies(model_dtype(model), f"vitdet_e2e {'eventful' if eventful else 'dense'}")
+        read_routes(model_dtype(model), f"vitdet_e2e {'eventful' if eventful else 'dense'}")
         syncs = nms.host_syncs - syncs
     want = vitdet_expected_launches(eventful, E2E_SIZE, frames=frames_n, streams=1)
     if row16:
@@ -1328,7 +1486,7 @@ def ev_counted_run(model, clip, run):
     reset_launches()
     probs, counts = run_apply(model, clip, count=True)
     launches = read_launches()
-    read_bodies(model_dtype(model), f"vivit_evblock {run or 'dense'}")
+    read_routes(model_dtype(model), f"vivit_evblock {run or 'dense'}")
     want = ev_expected_launches(run)
     if launches != want:
         raise AssertionError(f"ViViT {run or 'dense'} launch counts {launches}, expected {want}")
@@ -1558,7 +1716,7 @@ def option_counted_call(path, model, frames, cfg=None):
         reset_launches()
         tokens, counts, _ = run_vitdet(model, frames, count=True)
         launches, forms = read_launches(), read_form_launches()
-        read_bodies(frames.dtype, path)
+        read_routes(frames.dtype, path)
     want = dict.fromkeys(wrappers(), 0)
     want.update(window_attention=VITDET_WINDOWED * VITDET_FRAMES,
                 relpos_bias_add_v2=VITDET_GLOBAL * VITDET_FRAMES)
@@ -1692,7 +1850,7 @@ def pre_ln_counted_run(model, views, run):
     reset_launches()
     probs, counts = run_model(model, views, count=True)
     launches, forms = read_launches(), read_form_launches()
-    read_bodies(views.dtype, f"vivit_pre_ln {run}")
+    read_routes(views.dtype, f"vivit_pre_ln {run}")
     steps = DEPTH * (STEPS - 1)
     want = dict.fromkeys(wrappers(), 0)
     want.update({name: n * steps for name, n in PRE_LN_STEP_LAUNCHES[run].items()})
@@ -1887,7 +2045,7 @@ def vivit_topk_counted_run(model, views, on):
     reset_launches()
     probs, counts = run_model(model, views, count=True)
     launches, forms = read_launches(), read_form_launches()
-    read_bodies(views.dtype, f"topk_slice_vivit {'on' if on else 'off'}")
+    read_routes(views.dtype, f"topk_slice_vivit {'on' if on else 'off'}")
     set_blocks(model, in_kernel_topk=False)
     steps = DEPTH * (STEPS - 1)
     step_launches, step_forms = VIVIT_TOPK_STEP[on]
@@ -2315,7 +2473,7 @@ def unwired_path(device, smi):
             launches={name: fn.launches for name, fn in wrappers.items()},
             form_launches={name: dict(fn.form_launches) for name, fn in wrappers.items()
                            if hasattr(fn, "form_launches")},
-            body_launches=read_bodies(dtype, f"unwired_path {key}"), checks=checks,
+            body_launches=read_routes(dtype, f"unwired_path {key}"), checks=checks,
         )
     emit("unwired_path", card=smi, tf32=torch.backends.cuda.matmul.allow_tf32, **drives)
     failed = [f"{dtype}.{key}.{name}" for dtype, drive in drives.items()
@@ -2349,9 +2507,12 @@ def unwired_path(device, smi):
 
 def main():
     smi = phase_env()
+    from eventful_transformer_tpu_torch.ops import kernel_check
+
     device = torch.device("cuda", 0)
     phase_build()
     kernel_rows = phase_kernels(device)
+    phase_gemm_core(device, smi)
     eventful, dense, views, launches = phase_slice(device)
     phase_time(eventful, dense, views, smi)
     del eventful, dense, views
@@ -2372,6 +2533,12 @@ def main():
     kernels += blend_path(device, smi)
     kernels += unwired_path(device, smi)
     phase_attention_bodies()
+    cores = phase_gemm_cores()
+    for row in kernels:
+        wrapper = kernel_check.KERNELS[row["name"]][0].__name__
+        if wrapper in GEMM_ROWS:
+            row["core_launches"] = {dtype: by_wrapper.get(wrapper) for dtype, by_wrapper
+                                    in cores.items()}
     emit("total", seconds=round(time.perf_counter() - _START, 3))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,11 +11,17 @@
 // the hidden (B, N, 4C) makes one round trip through device memory, like
 // the MLP of kernel C (gate_group.cu). Three launches: the LN row pass into
 // a (B, N, C) scratch (ln_select_kernel with no coverage), GEMM1 with the
-// bias + GELU epilogue, and GEMM2 with the bias + residual epilogue. The two
-// GEMMs are the time, bound like every GEMM of gemm.cuh by the simple
-// tile's shared-memory traffic.
+// bias + GELU epilogue, and GEMM2 with the bias + residual epilogue (one
+// more each where the plan splits K). The two GEMMs are the time: in
+// bfloat16 they run on the wgmma core of gemm_tc.cuh, bound by the tensor
+// cores' rate, with the (B, N, 4C) hidden's round trip (100 MB at
+// ViTDet-1024) and the LN pass the bytes beside it; in float32 (and for
+// shapes gemm_tc.cuh does not take) on gemm.cuh's tile, bound by its
+// shared-memory traffic. The wrapper picks the core
+// (ops/gemm_core.py::gemm_core) and the split of each GEMM's K steps.
 #include "common.cuh"
 #include "gemm.cuh"
+#include "gemm_tc.cuh"
 
 namespace etk {
 
@@ -26,35 +32,47 @@ struct ResidualEpilogue {
   const T* x;
   T* out;
   int ld;
+  using Loaded = float2;  // (bias, x)
+  __device__ __forceinline__ float2 load(int m, int n) const {
+    return make_float2(to_f(bias[n]), to_f(x[(int64_t)m * ld + n]));
+  }
+  __device__ __forceinline__ void store(int m, int n, float acc, float2 bx) const {
+    out[(int64_t)m * ld + n] = from_f<T>(rnd<T>(acc + bx.x) + bx.y);
+  }
   __device__ __forceinline__ void operator()(int m, int n, float acc) const {
-    const int64_t i = (int64_t)m * ld + n;
-    out[i] = from_f<T>(rnd<T>(acc + to_f(bias[n])) + to_f(x[i]));
+    store(m, n, acc, load(m, n));
   }
 };
 
 template <typename T>
 int dense_mlp_residual(const void* x, const void* ln_scale, const void* ln_bias, const void* w1,
                        const void* b1, const void* w2, const void* b2, void* y, void* xl,
-                       void* h, int rows, int c, int hidden, cudaStream_t stream) {
+                       void* h, int rows, int c, int hidden, GemmCall gemm1, GemmCall gemm2,
+                       cudaStream_t stream) {
   ln_select_kernel<T><<<rows, kRowThreads, row_smem_bytes(c), stream>>>(
       (const T*)x, (T*)xl, nullptr, (const T*)ln_scale, (const T*)ln_bias, c);
   ETK_CHECK_LAUNCH();
-  launch_gemm<T>((const T*)xl, DenseRows{}, (const T*)w1, rows, c, hidden,
-                 BiasGeluEpilogue<T>{(const T*)b1, (T*)h, hidden}, stream);
-  ETK_CHECK_LAUNCH();
-  launch_gemm<T>((const T*)h, DenseRows{}, (const T*)w2, rows, hidden, c,
-                 ResidualEpilogue<T>{(const T*)b2, (const T*)x, (T*)y, c}, stream);
-  ETK_CHECK_LAUNCH();
-  return 0;
+  int err = launch_gemm_core<T, false>((const T*)xl, rows, DenseRows{}, (const T*)w1, rows, c,
+                                       hidden, BiasGeluEpilogue<T>{(const T*)b1, (T*)h, hidden},
+                                       gemm1, stream);
+  if (err != 0) return err;
+  return launch_gemm_core<T, false>((const T*)h, rows, DenseRows{}, (const T*)w2, rows, hidden, c,
+                                    ResidualEpilogue<T>{(const T*)b2, (const T*)x, (T*)y, c},
+                                    gemm2, stream);
 }
 
 }  // namespace etk
 
+// core: ops/gemm_core.py CORE_CODES, both GEMMs; split1, split2: each
+// GEMM's split of its K steps; ws: the float32 workspace of the larger
+// split (null when neither splits).
 extern "C" int etk_dense_mlp_residual(int dtype, const void* x, const void* ln_scale,
                                       const void* ln_bias, const void* w1, const void* b1,
                                       const void* w2, const void* b2, void* y, void* xl, void* h,
-                                      int rows, int c, int hidden, void* stream) {
+                                      int rows, int c, int hidden, int core, int split1,
+                                      int split2, void* ws, void* stream) {
+  const etk::GemmCall gemm1{core, split1, (float*)ws}, gemm2{core, split2, (float*)ws};
   ETK_DISPATCH(dtype, return etk::dense_mlp_residual<T>(x, ln_scale, ln_bias, w1, b1, w2, b2, y,
-                                                        xl, h, rows, c, hidden,
+                                                        xl, h, rows, c, hidden, gemm1, gemm2,
                                                         (cudaStream_t)stream));
 }

@@ -19,10 +19,17 @@
 // the GEMM reads the rows through that index, with identical results. Five
 // launches: ln_select row pass, compaction, gathered GEMM1 (+b1, GELU),
 // GEMM2 (+b2), and the scatter-blend row pass with the residual and the
-// next-gate norms. The two GEMMs do the k/N share of the dense MLP's work
-// and dominate the time; the (B, k, 4C) hidden activation makes one round
-// trip through device memory (12 MB in bf16 at B=8, k=98), which later
-// work can keep on chip.
+// next-gate norms; one more where the plan splits GEMM2's K steps (its
+// 18-42 output tiles are fewer than the SMs). The two GEMMs do the k/N
+// share of the dense MLP's work. In bfloat16 they run on the wgmma core of
+// gemm_tc.cuh (GEMM1's rows gathered by cp.async into its swizzled tiles,
+// GEMM2's by TMA): 8-40 us of device time a call at the paths' shapes,
+// where the wrapper's host time (checks, allocations, the launches) is
+// now the larger part of a call. In float32, and where the rule
+// (ops/gemm_core.py::gemm_core) refuses the shapes, they run on gemm.cuh's
+// tile. The (B, k, 4C) hidden activation makes one round trip through
+// device memory (12 MB in bf16 at B=8, k=98), which later work can keep
+// on chip.
 //
 // gate_group_linear replaces gate_group.py::gate_group_linear with the
 // coverage given, in the forms ViTDet's "v2" regime runs:
@@ -77,6 +84,7 @@
 // torch.topk between the norms and the group.
 #include "common.cuh"
 #include "gemm.cuh"
+#include "gemm_tc.cuh"
 
 namespace etk {
 
@@ -293,18 +301,21 @@ blend_kernel(const T* __restrict__ res, T* __restrict__ b, const int* __restrict
 // The GEMM of the compacted rows, out = epi(rows @ W): gathered from p'
 // through idx, or, before the LN, read from the normalised scratch ``a``
 // (written here first).
+// ``call`` names the core: gate_group_mlp's GEMM1 takes the one the wrapper
+// picks, gate_group_linear (row 7) gemm.cuh's (GemmCall{}).
 template <typename T, typename Epi>
-void compacted_gemm(const T* p, const int* idx, const T* scale, const T* bias, T* a, const T* w,
-                    int bsz, int n, int c, int f, int kcap, int ln_mode, Epi epi,
-                    cudaStream_t stream) {
+int compacted_gemm(const T* p, const int* idx, const T* scale, const T* bias, T* a, const T* w,
+                   int bsz, int n, int c, int f, int kcap, int ln_mode, Epi epi, GemmCall call,
+                   cudaStream_t stream) {
   const int m = bsz * kcap;
   if (ln_mode == kLnPre) {
     ln_rows_kernel<T><<<m, kRowThreads, row_smem_bytes(c), stream>>>(p, idx, scale, bias, a, n, c,
                                                                      kcap);
-    launch_gemm<T>(a, DenseRows{}, w, m, c, f, epi, stream);
-  } else {
-    launch_gemm<T>(p, GatherRows{idx, n, kcap}, w, m, c, f, epi, stream);
+    ETK_CHECK_LAUNCH();
+    return launch_gemm_core<T, false>(a, m, DenseRows{}, w, m, c, f, epi, call, stream);
   }
+  return launch_gemm_core<T, true>(p, (int64_t)bsz * n, GatherRows{idx, n, kcap}, w, m, c, f, epi,
+                                   call, stream);
 }
 
 // topk_norms non-null: the group selects its own rows, into cov.
@@ -314,7 +325,7 @@ int gate_group_mlp(const void* x, void* p, void* b, float* cov, float* topk_norm
                    const void* w2, const void* b2, const void* p_next, const void* next_scale,
                    const void* next_bias, void* y, float* norms, int* pos, int* idx, void* h,
                    void* h2, void* a, int bsz, int n, int c, int hidden, int kcap, int ln_mode,
-                   cudaStream_t stream) {
+                   GemmCall gemm1, GemmCall gemm2, cudaStream_t stream) {
   const int rows = bsz * n;
   const size_t row_smem = row_smem_bytes(c);
   if (topk_norms != nullptr) {
@@ -329,13 +340,13 @@ int gate_group_mlp(const void* x, void* p, void* b, float* cov, float* topk_norm
   compact_kernel<<<bsz, 32, 0, stream>>>(cov, pos, idx, n, kcap);
   ETK_CHECK_LAUNCH();
   const int m = bsz * kcap;
-  compacted_gemm<T>((const T*)p, idx, (const T*)ln_scale, (const T*)ln_bias, (T*)a,
-                    (const T*)w1, bsz, n, c, hidden, kcap, ln_mode,
-                    BiasGeluEpilogue<T>{(const T*)b1, (T*)h, hidden}, stream);
-  ETK_CHECK_LAUNCH();
-  launch_gemm<T>((const T*)h, DenseRows{}, (const T*)w2, m, hidden, c,
-                 BiasEpilogue<T>{(const T*)b2, (T*)h2, c}, stream);
-  ETK_CHECK_LAUNCH();
+  int err = compacted_gemm<T>((const T*)p, idx, (const T*)ln_scale, (const T*)ln_bias, (T*)a,
+                              (const T*)w1, bsz, n, c, hidden, kcap, ln_mode,
+                              BiasGeluEpilogue<T>{(const T*)b1, (T*)h, hidden}, gemm1, stream);
+  if (err != 0) return err;
+  err = launch_gemm_core<T, false>((const T*)h, m, DenseRows{}, (const T*)w2, m, hidden, c,
+                                   BiasEpilogue<T>{(const T*)b2, (T*)h2, c}, gemm2, stream);
+  if (err != 0) return err;
   blend_kernel<T><<<rows, kRowThreads, row_smem, stream>>>(
       (const T*)x, (T*)b, pos, (const T*)h2, (T*)y, (const T*)p_next, (const T*)next_scale,
       (const T*)next_bias, norms, n, c, kcap);
@@ -367,9 +378,10 @@ int gate_group_linear(const void* x, void* p, void* b, float* cov, float* topk_n
   ETK_CHECK_LAUNCH();
   compact_kernel<<<bsz, 32, 0, stream>>>(cov, pos, idx, n, kcap);
   ETK_CHECK_LAUNCH();
-  compacted_gemm<T>((const T*)p, idx, (const T*)ln_scale, (const T*)ln_bias, (T*)a, (const T*)w,
-                    bsz, n, c, f, kcap, ln_mode, BiasEpilogue<T>{(const T*)wb, (T*)h, f}, stream);
-  ETK_CHECK_LAUNCH();
+  const int err = compacted_gemm<T>((const T*)p, idx, (const T*)ln_scale, (const T*)ln_bias,
+                                    (T*)a, (const T*)w, bsz, n, c, f, kcap, ln_mode,
+                                    BiasEpilogue<T>{(const T*)wb, (T*)h, f}, GemmCall{}, stream);
+  if (err != 0) return err;
   blend_kernel<T><<<rows, kRowThreads, row_smem_bytes(f), stream>>>(
       (const T*)skip, (T*)b, pos, (const T*)h, (T*)y, (const T*)p_next, (const T*)next_scale,
       (const T*)next_bias, norms, n, f, kcap);
@@ -398,10 +410,12 @@ extern "C" int etk_gate_group_mlp(int dtype, const void* x, void* p, void* b, vo
                                   const void* p_next, const void* next_scale,
                                   const void* next_bias, void* y, void* norms, void* pos,
                                   void* idx, void* h, void* h2, void* a, int bsz, int n, int c,
-                                  int hidden, int kcap, int ln_mode, void* stream) {
+                                  int hidden, int kcap, int ln_mode, int core, int split1,
+                                  int split2, void* ws, void* stream) {
+  const etk::GemmCall gemm1{core, split1, (float*)ws}, gemm2{core, split2, (float*)ws};
   ETK_DISPATCH(dtype, return etk::gate_group_mlp<T>(
                           x, p, b, (float*)cov, (float*)topk_norms, ln_scale, ln_bias, w1, b1, w2,
                           b2, p_next, next_scale, next_bias, y, (float*)norms, (int*)pos,
-                          (int*)idx, h, h2, a, bsz, n, c, hidden, kcap, ln_mode,
+                          (int*)idx, h, h2, a, bsz, n, c, hidden, kcap, ln_mode, gemm1, gemm2,
                           (cudaStream_t)stream));
 }

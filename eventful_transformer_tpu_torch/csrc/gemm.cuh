@@ -1,5 +1,9 @@
-// Tiled shared-memory GEMM with a per-element epilogue, the matrix product
-// inside kernels A, B and C and the dense MLP.
+// Tiled shared-memory GEMM with a per-element epilogue: the matrix product
+// of rows 2 (kernel A's qkv), 3 (kernel B), 7 (gate_group_linear), 12 and
+// 13 (gate_fused.cu) in both dtypes, and of rows 4 (kernel C's MLP) and 5
+// (the dense MLP) in float32 and wherever ops/gemm_core.py::gemm_core does
+// not send them to the wgmma core of gemm_tc.cuh (which keeps this file's
+// contract and epilogues).
 //
 //   out(m, n) = epi(m, n, sum_k A[arow(m), k] * W[k, n])   (float32 sum)
 //
@@ -12,9 +16,10 @@
 //     would drop the float32 parity the tests hold);
 //   * bfloat16: each warp runs a 32 x 32 tile on the tensor cores through
 //     WMMA 16x16x16 fragments with float32 accumulators.
-// This is the simple first version: no TMA, wgmma or pipelining yet, so it
-// is bound by shared-memory traffic and latency, far below the card's
-// tensor-core peak.
+// This is the simple first version: no TMA, wgmma or pipelining, so it is
+// bound by shared-memory traffic and latency, far below the card's
+// tensor-core peak; gemm_tc.cuh is the Hopper design rows 2, 3, 7, 12 and
+// 13 can move to.
 #pragma once
 
 #include <mma.h>
@@ -154,6 +159,11 @@ inline void launch_gemm(const T* A, ARows arows, const T* W, int M, int K, int N
   gemm_kernel<T, ARows, Epi><<<grid, kGemmThreads, 0, stream>>>(A, arows, W, M, K, Nout, epi);
 }
 
+// The epilogues of the MLPs' GEMMs. Each reads its operands in load() and
+// writes in store(), so that gemm_tc.cuh can issue the loads of several
+// elements before their stores (a store may alias a later load, so the
+// compiler keeps them in order otherwise); operator() is the two in turn.
+
 // out[m, f] = rnd(gelu(acc + bias[f])): the hidden layer of the MLP
 // (gate_group.py:380-387, dense_mlp.py:32-37)
 template <typename T>
@@ -161,8 +171,13 @@ struct BiasGeluEpilogue {
   const T* bias;
   T* out;
   int ld;
+  using Loaded = float;
+  __device__ __forceinline__ float load(int, int n) const { return to_f(bias[n]); }
+  __device__ __forceinline__ void store(int m, int n, float acc, float b) const {
+    out[(int64_t)m * ld + n] = from_f<T>(gelu_exact(acc + b));
+  }
   __device__ __forceinline__ void operator()(int m, int n, float acc) const {
-    out[(int64_t)m * ld + n] = from_f<T>(gelu_exact(acc + to_f(bias[n])));
+    store(m, n, acc, load(m, n));
   }
 };
 
@@ -174,8 +189,13 @@ struct BiasEpilogue {
   const T* bias;
   T* out;
   int ld;
+  using Loaded = float;
+  __device__ __forceinline__ float load(int, int n) const { return to_f(bias[n]); }
+  __device__ __forceinline__ void store(int m, int n, float acc, float b) const {
+    out[(int64_t)m * ld + n] = from_f<T>(acc + b);
+  }
   __device__ __forceinline__ void operator()(int m, int n, float acc) const {
-    out[(int64_t)m * ld + n] = from_f<T>(acc + to_f(bias[n]));
+    store(m, n, acc, load(m, n));
   }
 };
 

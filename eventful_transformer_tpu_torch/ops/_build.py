@@ -47,7 +47,7 @@ SIGNATURES = {
     "etk_ln_norms": [_I, _P, _P, _P, _P, _P, _L, _I, _P],
     "etk_qkv_attention_group": [_I, _I] + [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "etk_proj_group": [_I] + [_P] * 11 + [_I, _I, _I, _P],
-    "etk_gate_group_mlp": [_I] + [_P] * 21 + [_I] * 6 + [_P],
+    "etk_gate_group_mlp": [_I] + [_P] * 21 + [_I] * 9 + [_P, _P],
     "etk_attention_smem_bytes": [_I] * 6,
     "etk_window_attention": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P] + [_I] * 6
     + [_P],
@@ -56,7 +56,7 @@ SIGNATURES = {
     "etk_block_scatter_rows": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "etk_block_select_scatter": [_I] + [_P] * 9 + [_I] + [_P] * 6 + [_I] * 5 + [_P],
     "etk_softmax_select_matmul": [_I, _I] + [_P] * 7 + [_I] * 7 + [_F, _P],
-    "etk_dense_mlp_residual": [_I] + [_P] * 10 + [_I, _I, _I, _P],
+    "etk_dense_mlp_residual": [_I] + [_P] * 10 + [_I] * 6 + [_P, _P],
     "etk_relpos_bias_add": [_I, _I] + [_P] * 5 + [_I] * 6 + [_P],
     "etk_ln_select_matmul": [_I] + [_P] * 9 + [_L, _I, _I, _I, _P],
     "etk_select_linear_skip_norms": [_I] + [_P] * 11 + [_L, _I, _I, _I, _P],
@@ -66,6 +66,7 @@ SIGNATURES = {
     "etk_gather_rows": [_I, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "etk_fused_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "etk_window_attention_grid": [_I, _I] + [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P],
+    "etk_gemm_tc": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -204,6 +205,12 @@ def check_operands(name, ref, float32=(), **tensors):
             raise TypeError(f"{name}: {key} is {t.dtype}, expected {want}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def aligned16(*tensors):
+    """Whether every tensor given (None skipped) starts on a 16-byte
+    boundary, as the tensor-core kernels' 16-byte copies and TMA need."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def check_shape(name, key, t, shape):

@@ -20,7 +20,9 @@ are not the two-phase path's norms before the LN, which subtract in x's
 dtype (``core/blocks.py::_select``); in bfloat16 the two sets may differ.
 Each wrapper counts its launches in ``launches`` and, by form, in
 ``form_launches``: ``ln_mode``, with ``_topk`` appended where the group
-selects its own rows. Where ``record_selection`` is a callable, each
+selects its own rows. ``gate_group_mlp``'s two GEMMs take the core
+``ops/gemm_core.py::gemm_core`` picks, counted in ``core_launches``;
+``gate_group_linear``'s stays on ``csrc/gemm.cuh``. Where ``record_selection`` is a callable, each
 coverage a ``cov=None`` form selects is handed to it.
 
 ``p`` and ``b`` are updated in place, as the TPU kernels alias them. The
@@ -34,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms
-from eventful_transformer_tpu_torch.ops import _build
+from eventful_transformer_tpu_torch.ops import _build, gemm_core
 from eventful_transformer_tpu_torch.ops.common import LN_MODES, gelu_exact, ln_f32, row_norms
 
 # A callable handed every (B, N) float32 coverage that a cov=None form
@@ -287,16 +289,21 @@ def gate_group_mlp(
     h = torch.empty((bsz, kcap, hidden), dtype=x.dtype, device=x.device)
     h2 = torch.empty((bsz, kcap, c), dtype=x.dtype, device=x.device)
     rows = _normalised_rows(x, ln_mode, kcap)
+    core, *plans = gemm_core.mlp_launch(x.dtype, bsz * kcap, c, hidden,
+                                        _build.aligned16(p, w1, w2))
+    ws = gemm_core.workspace(plans, x.device)
     _build.launch(
         "etk_gate_group_mlp", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
         b.data_ptr(), cov.data_ptr(), _ptr(topk_norms), scale.data_ptr(), bias.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), _ptr(p_next),
         _ptr(next_scale), _ptr(next_bias), y.data_ptr(), _ptr(norms), pos.data_ptr(),
         idx.data_ptr(), h.data_ptr(), h2.data_ptr(), _ptr(rows), bsz, n, c, hidden, kcap,
-        LN_MODES[ln_mode], _build.stream_of(x),
+        LN_MODES[ln_mode], gemm_core.CORE_CODES[core], *gemm_core.split_args(plans, ws),
+        _build.stream_of(x),
     )
     gate_group_mlp.launches += 1
     gate_group_mlp.form_launches[form] += 1
+    gate_group_mlp.core_launches[core] += 1
     if topk_norms is not None:
         _record(cov)
     return p, b, y, norms
@@ -304,3 +311,4 @@ def gate_group_mlp(
 
 gate_group_mlp.launches = 0
 gate_group_mlp.form_launches = _forms(("post", "pre"))
+gate_group_mlp.core_launches = gemm_core.new_core_counts()

@@ -29,6 +29,7 @@ from eventful_transformer_tpu_torch.ops import (
     scatter_blend,
     window_attention,
 )
+from eventful_transformer_tpu_torch.ops.common import ln_f32
 
 # (wrapper, plain version, CUDA source, the TPU kernel it replaces, names
 # of the outputs in the order the wrapper returns them). A kernel with two
@@ -332,11 +333,11 @@ def launches(name):
 
 
 def reset_launches():
-    """Every wrapper's counts to 0, by form and by body too."""
+    """Every wrapper's counts to 0, by form, by body and by GEMM core too."""
     for entry in KERNELS.values():
         wrapper = entry[0]
         wrapper.launches = 0
-        for attr in ("form_launches", "body_launches"):
+        for attr in ("form_launches", "body_launches", "core_launches"):
             counts = getattr(wrapper, attr, {})
             for key in counts:
                 counts[key] = 0
@@ -358,6 +359,26 @@ def check_bodies(counts, dtype, where):
     stray = {name: c for name, c in counts.items() if c[other]}
     if stray:
         raise AssertionError(f"{where}: {dtype} attention launches took the {other} body: {stray}")
+
+
+def core_launches():
+    """{wrapper name: {"tc": n, "wmma": n, "simt": n}} of the wrappers whose
+    GEMMs take a core by ``gemm_core.gemm_core`` (rows 4 and 5), which count
+    their launches by core."""
+    return {entry[0].__name__: dict(entry[0].core_launches) for entry in KERNELS.values()
+            if hasattr(entry[0], "core_launches")}
+
+
+def check_cores(counts, dtype, where):
+    """Raise unless every launch in ``counts`` (:func:`core_launches` after a
+    run in ``dtype``) took the core ``gemm_core.gemm_core`` gives the paths'
+    shapes: the wgmma core ("tc") in bfloat16, the CUDA-core tile ("simt")
+    in float32."""
+    want = "tc" if dtype == torch.bfloat16 else "simt"
+    stray = {name: c for name, c in counts.items()
+             if any(n for core, n in c.items() if core != want)}
+    if stray:
+        raise AssertionError(f"{where}: {dtype} MLP launches left the {want} core: {stray}")
 
 # Bounds on each output of a kernel against its plain version. With
 # "scaled error" |kernel - plain| / max(1, |plain|):
@@ -1044,9 +1065,15 @@ def library_call(name, d):
     without the LN, ``Tensor.index_put_`` for the windowed rows' scatter
     (its valid (row, slot) pairs gathered beforehand: the -1 slots write
     nothing). The fused attention's cast (bfloat16 probabilities) has
-    none."""
+    none. The MLP rows (4 and 5) have no one call; their yardstick is the
+    two cuBLAS GEMMs alone, ``torch.addmm`` with the first bias then with
+    the second, on the LN output (row 4: its k compacted rows, gathered
+    beforehand): the GEMMs only, without the LN, GELU, residual, gather and
+    blend."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     heads = d["heads"]
+    if name == "dense_mlp_residual" or name.startswith("gate_group_mlp"):
+        return _mlp_gemms_call(name, d)
     if name in ("ln_select_noln", "block_select_p_noln"):
         cov, p = ("cov3", "p_mlp") if name == "ln_select_noln" else ("cov1", "p_qkv")
         selected = (d[cov] > 0)[..., None]
@@ -1094,6 +1121,17 @@ def library_call(name, d):
         index = index.long()[..., None].expand(values.shape)
         return lambda: x.scatter(1, index, values)
     return None
+
+
+def _mlp_gemms_call(name, d):
+    """The two cuBLAS GEMMs of an MLP entry on its LN output: every row for
+    row 5, the rows the MLP gate's coverage selects for row 4."""
+    xl = ln_f32(d["x"], d["ln2_s"], d["ln2_b"]).to(d["x"].dtype)
+    if name != "dense_mlp_residual":
+        xl = xl[d["cov3"] > 0]
+    xl = xl.reshape(-1, xl.shape[-1]).contiguous()
+    w1, b1, w2, b2 = d["w1"], d["b1"], d["w2"], d["b2"]
+    return lambda: torch.addmm(b2, torch.addmm(b1, xl, w1), w2)
 
 
 def _grid_library_call(name, d, sdpa):

@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from eventful_transformer_tpu_torch.ops import _build
+from eventful_transformer_tpu_torch.ops._build import aligned16
 
 
 def expand_terms(terms, p):
@@ -149,12 +150,6 @@ def attention_body(dtype, n, d, form="rounded", aligned=True):
         and 1 <= n <= TC_MAX_TOKENS and aligned
     )
     return "tc" if takes else "simt"
-
-
-def aligned16(*tensors):
-    """Whether every tensor given (None skipped) starts on a 16-byte
-    boundary, as the tensor-core body's 16-byte copies need."""
-    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def attention_smem_bytes(name, n, d, n_terms=0, body="simt", grid=(0, 0)):

@@ -810,3 +810,184 @@ def test_row_kernels_launch_on_the_current_stream(device):
     side.synchronize()
     assert torch.equal(got.cpu(), want)
     assert torch.equal(rows.cpu(), gather_rows(want, index.cpu()))
+
+
+# -- the wgmma GEMM core of rows 4 and 5 -------------------------------------------------
+
+
+def _core_operands(m, k, n, gather, device, seed=0):
+    """a (R, K) and w (K, N) bfloat16 at the model's scales; for a gather,
+    R = m + 5 rows and m int32 row indices with -1 slots (zero rows)."""
+    g = torch.Generator().manual_seed(seed)
+    rows = m + 5 if gather else m
+    a = torch.randn(rows, k, generator=g).to(device, torch.bfloat16)
+    w = (torch.randn(k, n, generator=g) * k**-0.5).to(device, torch.bfloat16)
+    idx = None
+    if gather:
+        idx = torch.randint(-1, rows, (m,), generator=g, dtype=torch.int32)
+        idx[::7] = -1
+        idx = idx.to(device)
+    return a, w, idx
+
+
+def _core_want(a, w, idx, split):
+    from eventful_transformer_tpu_torch.ops import gemm_core
+
+    picked = a if idx is None else torch.where((idx >= 0)[:, None], a[idx.long().clamp(min=0)], 0)
+    return gemm_core.gemm_split_plain(picked, w, split)
+
+
+def _core_close(got, want):
+    """float32 sums of the same bfloat16 products in other orders: 1e-4
+    scaled, as kernel_check.F32_SCALED."""
+    assert got.shape == want.shape
+    err = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+    assert err <= kernel_check.F32_SCALED, err
+
+
+@pytest.mark.parametrize("what", ["w_is_k", "w_is_n"])
+def test_gemm_core_single_tile_layout(what, device):
+    """One 128 x 128 tile over one K step of 64: A one-hot (row m picks k =
+    m % 64) and W encoding k or n exactly, so that a wrong wgmma descriptor
+    (A's rows, B's K rows or its two 64-column boxes) shows as wrong
+    integers, not as a rounding error."""
+    from eventful_transformer_tpu_torch.ops import gemm_core
+
+    m, k, n = 128, 64, 128
+    a = torch.zeros(m, k)
+    a[torch.arange(m), torch.arange(m) % k] = 1.0
+    code = torch.arange(k)[:, None].expand(k, n) if what == "w_is_k" else \
+        torch.arange(n)[None, :].expand(k, n)
+    w = code.float().contiguous()
+    got = gemm_core.gemm_tc(a.to(device, torch.bfloat16), w.to(device, torch.bfloat16), split=1)
+    want = torch.matmul(a, w)
+    assert torch.equal(got.cpu(), want)
+
+
+CORE_SHAPES = [(m, k, n, gather) for m in (1, 17, 136, 784, 1576)
+               for k, n in ((768, 3072), (3072, 768)) for gather in (False, True)]
+
+
+@pytest.mark.parametrize("m,k,n,gather", CORE_SHAPES,
+                         ids=[f"{m}x{k}x{n}-{'gather' if g else 'dense'}"
+                              for m, k, n, g in CORE_SHAPES])
+def test_gemm_core_matches_the_split_sum(m, k, n, gather, device):
+    """The core alone at ragged row counts, dense and gathered (-1 slots
+    read zero rows), unsplit and on the plan's split, against the plain sum
+    of the same plan."""
+    from eventful_transformer_tpu_torch.ops import gemm_core
+
+    a, w, idx = _core_operands(m, k, n, gather, device)
+    before = gemm_core.gemm_tc.launches
+    for split in sorted({1, gemm_core.gemm_plan(m, k, n).split}):
+        _core_close(gemm_core.gemm_tc(a, w, idx, split=split).cpu(),
+                    _core_want(a.cpu(), w.cpu(), None if idx is None else idx.cpu(), split))
+    assert gemm_core.gemm_tc.launches > before
+
+
+def test_gemm_core_on_a_side_stream(device):
+    """The core launches on the current stream: on a side stream, queued
+    behind a long product there, split and unsplit give the plain sum."""
+    from eventful_transformer_tpu_torch.ops import gemm_core
+
+    a, w, idx = _core_operands(784, 3072, 768, True, device, seed=1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        big = torch.randn((4096, 4096), device=device)
+        for _ in range(8):
+            big = big @ big / 64.0
+        got = [gemm_core.gemm_tc(a, w, idx, split=s) for s in (1, 3)]
+    side.synchronize()
+    for split, out in zip((1, 3), got):
+        _core_close(out.cpu(), _core_want(a.cpu(), w.cpu(), idx.cpu(), split))
+
+
+def test_gemm_core_refuses_what_the_rule_refuses(device):
+    """A view off a 16-byte boundary, N off the tile or float32: the core's
+    entry raises before any launch; a split that does not divide the K
+    steps is refused by the C side."""
+    from eventful_transformer_tpu_torch.ops import gemm_core
+
+    a, w, _ = _core_operands(64, 768, 3072, False, device)
+    flat = torch.zeros(64 * 768 + 1, device=device, dtype=torch.bfloat16)
+    before = gemm_core.gemm_tc.launches
+    with pytest.raises(ValueError, match="not the tc core"):
+        gemm_core.gemm_tc(flat[1:].view(64, 768), w)
+    with pytest.raises(ValueError, match="not the tc core"):
+        gemm_core.gemm_tc(a, w[:, :3000].contiguous())
+    with pytest.raises((TypeError, ValueError)):
+        gemm_core.gemm_tc(a.float(), w.float())
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        gemm_core.gemm_tc(a, w, split=5)
+    assert gemm_core.gemm_tc.launches == before
+
+
+@pytest.mark.parametrize("name", ["dense_mlp_residual", "gate_group_mlp", "gate_group_mlp_pre",
+                                  "gate_group_mlp_topk"])
+def test_mlp_rows_take_the_core_by_dtype(name, device):
+    """Rows 4 and 5 at C = 256 (hidden 1024): bfloat16 on the wgmma core,
+    float32 on the CUDA-core tile, each against its plain version; at C =
+    64 (GEMM2's N = 64 is off the tile) bfloat16 stays on WMMA."""
+    wrapper = kernel_check.KERNELS[name][0]
+    for c, dtype, core in ((256, torch.bfloat16, "tc"), (256, torch.float32, "simt"),
+                           (64, torch.bfloat16, "wmma")):
+        d = kernel_check.make_inputs(3, 37, c, 4, 11, dtype, device, seed=4)
+        kernel_check.reset_launches()
+        rows = kernel_check.errors(name, d)
+        assert all(row["ok"] for row in rows), (c, dtype, rows)
+        assert wrapper.core_launches == {**dict.fromkeys(("tc", "wmma", "simt"), 0), core: 1}
+
+
+def test_dense_mlp_on_a_misaligned_view_takes_the_old_tile(device):
+    """x off a 16-byte boundary: the rule routes the call to WMMA, which
+    gives the plain version's result."""
+    from eventful_transformer_tpu_torch.ops.dense_mlp import (
+        dense_mlp_residual,
+        dense_mlp_residual_plain,
+    )
+
+    d = kernel_check.make_inputs(2, 37, 256, 4, 11, torch.bfloat16, device, seed=5)
+    flat = torch.zeros(d["x"].numel() + 1, device=device, dtype=torch.bfloat16)
+    x = flat[1:].view(d["x"].shape)
+    x.copy_(d["x"])
+    args = [d[k] for k in ("ln2_s", "ln2_b", "w1", "b1", "w2", "b2")]
+    kernel_check.reset_launches()
+    got = dense_mlp_residual(x, *args)
+    assert dense_mlp_residual.core_launches == {"tc": 0, "wmma": 1, "simt": 0}
+    row = kernel_check.compare(got, dense_mlp_residual_plain(x, *args))
+    assert row["ok"], row
+
+
+def test_small_vivit_cores_by_dtype(device):
+    """A small eventful ViViT at C = 128 (hidden 512) in bfloat16: every MLP
+    launch, kernel C's and the temporal model's, on the wgmma core; in
+    float32 every one on the CUDA-core tile."""
+    import numpy as np
+
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    block = dict(dim=128, heads=4, mlp_ratio=4)
+    config = dict(
+        classes=10, input_shape=[8, 3, 32, 32], normalize_mean=0.45, normalize_std=0.225,
+        spatial_views=1, temporal_stride=2, temporal_views=1, tubelet_shape=[2, 8, 8],
+        spatial_config=dict(depth=2, position_encoding_size=[4, 4],
+                            block_class="EventfulTokenwiseBlock", block_config=block),
+        temporal_config=dict(depth=1, position_encoding_size=[4], block_config=block),
+    )
+    model = FactorizedViViT(**config, device="cpu", seed=0)
+    set_policies(model, TokenNormTopK, k=8)
+    views = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((1, 1, 8, 3, 32, 32)).astype(np.float32)
+    )
+    for dtype, core in ((torch.bfloat16, "tc"), (torch.float32, "simt")):
+        m = copy.deepcopy(model).to(device, dtype)
+        kernel_check.reset_launches()
+        with torch.no_grad():
+            m.apply_views(Ctx(), views.to(device, dtype))
+        torch.cuda.synchronize()
+        counts = kernel_check.core_launches()
+        assert counts["gate_group_mlp"][core] > 0 and counts["dense_mlp_residual"][core] > 0
+        kernel_check.check_cores(counts, dtype, "small ViViT")
