@@ -26,23 +26,29 @@ Phases, one JSON line each, with the seconds the phase took:
   3. kernels:        each kernel against its plain PyTorch version at ViViT's
                      shapes, float32 and bfloat16, each output within the
                      bounds stated in ops/kernel_check.py, and both timed;
-                     the MLP rows (gate_group_mlp, dense_mlp_residual) beside
-                     their yardstick, the two cuBLAS GEMMs alone
-                     (kernel_check.library_call), with their launches by
-                     GEMM core, each on the core ops/gemm_core.py's rule
-                     gives it (so in every kernels phase below).
-     gemm_core:      each GEMM launch of the MLP rows at every path's shape
-                     in bfloat16 (ViViT, its temporal model, ViTDet-672,
-                     e2e and 1024 dense; kernel C at k = 98, 24 and 256,
-                     "pre" and cov=None): its plan on the wgmma core (tiles,
-                     split of the K steps), its device microseconds from
+                     the GEMM rows beside their yardstick, cuBLAS on the
+                     operands of their GEMMs (kernel_check.library_call:
+                     kernels A and B, gate_group_linear, ln_select_matmul,
+                     select_linear_skip_norms; the MLP rows gate_group_mlp
+                     and dense_mlp_residual its two GEMMs), rows 2-5 with
+                     their launches by GEMM core, each on the core
+                     ops/gemm_core.py's rule gives it (so in every kernels
+                     phase below).
+     gemm_core:      each GEMM launch of rows 2-5 at every path's shape in
+                     bfloat16 (kernels A and B at ViViT's; the MLP rows at
+                     ViViT, its temporal model, ViTDet-672, e2e and 1024
+                     dense; kernel C at k = 98, 24 and 256, "pre" and
+                     cov=None): its plan on the wgmma core (tiles, split of
+                     the K steps), its device microseconds from
                      torch.profiler's events (with the split sum) and its
                      TFLOP/s, beside the card's name and power limit.
   4. slice:          eventful ViViT-B (k=98 of 197 tokens) on the bench's
                      input in bfloat16, with the kernels' launch counts (and
-                     the dense twin's); one clip in float32 on the card
-                     against the same model on the CPU (plain versions);
-                     counted GFLOPs/clip against the JAX package's counts.
+                     the dense twin's); the TMA descriptors each model's
+                     first forward and two more encode (the last must
+                     encode none); one clip in float32 on the card against
+                     the same model on the CPU (plain versions); counted
+                     GFLOPs/clip against the JAX package's counts.
   5. time:           ViViT's dense twin against eventful, ms/clip.
   6. vitdet_kernels: the kernels of the ViTDet path at its shapes (N = 1764,
                      2 streams, 18 windows of 196 tokens; the rel-pos bias
@@ -159,10 +165,14 @@ Phases, one JSON line each, with the seconds the phase took:
                      bfloat16 only the tensor-core body
                      (csrc/attention_tc.cuh), in float32 only the CUDA-core
                      one (window_attention.attention_body's rule).
-  26. gemm_cores:     the MLP rows' launches by GEMM core of every counted
-                     run above, each checked as it was read: in bfloat16
-                     only the wgmma core (csrc/gemm_tc.cuh), in float32 only
-                     the CUDA-core tile of csrc/gemm.cuh.
+  26. gemm_cores:     the GEMM rows' launches (kernels A and B, the MLP
+                     rows) by core of every counted run above, each checked
+                     as it was read: in bfloat16 only the wgmma core
+                     (csrc/gemm_tc.cuh), in float32 only the CUDA-core tile
+                     of csrc/gemm.cuh, each row in both; the TMA
+                     descriptors encoded in all, the cache's size, and the
+                     timed runs of every path that encoded any after their
+                     warm-up (their scratch at new addresses).
 The times are a record, not a claim.
 
 Then the whole run's seconds, the card's name and power limit, one JSON
@@ -311,7 +321,7 @@ def match_detections(got, want):
 
 
 _START = time.perf_counter()
-_LAST_EMIT = [_START]
+_LAST_EMIT = [_START, None]  # the time and the phase of the last line
 
 
 def emit(phase, **fields):
@@ -319,7 +329,7 @@ def emit(phase, **fields):
     phase's own time."""
     now = time.perf_counter()
     fields["phase_s"] = round(now - _LAST_EMIT[0], 3)
-    _LAST_EMIT[0] = now
+    _LAST_EMIT[:] = [now, phase]
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -383,8 +393,8 @@ def phase_build():
 
 
 # the epilogue functors of the wgmma core's instantiations, as in their names
-EPILOGUES = ("BiasGeluEpilogue", "ResidualEpilogue", "BiasEpilogue", "PartialSum",
-             "StoreEpilogue")
+EPILOGUES = ("BiasGeluEpilogue", "ResidualEpilogue", "BiasEpilogue", "QkvEpilogue",
+             "ProjEpilogue", "PartialSum", "StoreEpilogue")
 
 
 def gemm_tc_ptxas(log):
@@ -458,10 +468,12 @@ def check_kernels(phase, device, cases):
 
 
 # The wrappers whose GEMMs take a core by ops/gemm_core.py::gemm_core (rows
-# 4 and 5), and the entries and shapes of their GEMM launches' profile
-# (phase gemm_core): (entry, path, batch, N, k).
-GEMM_ROWS = ("gate_group_mlp", "dense_mlp_residual")
+# 2-5), and the entries and shapes of their GEMM launches' profile (phase
+# gemm_core): (entry, path, batch, N, k).
+GEMM_ROWS = ("qkv_attention_group", "proj_group", "gate_group_mlp", "dense_mlp_residual")
 GEMM_PROFILE = (
+    ("qkv_attention_group", "vivit", 8, 197, 98),
+    ("proj_group", "vivit", 8, 197, 98),
     ("dense_mlp_residual", "vivit", 8, 197, 98),
     ("dense_mlp_residual", "temporal", 8, 17, 17),
     ("dense_mlp_residual", "vitdet_672", 2, 1764, 256),
@@ -476,19 +488,30 @@ GEMM_PROFILE = (
 )
 
 
+def gemm_shapes(name, d):
+    """(M, K, N) of each GEMM one call of entry ``name`` makes on ``d``, in
+    launch order: kernel A's qkv and kernel B's projection over the B.N
+    rows, the MLP's two (over the k rows for kernel C)."""
+    bsz, n, c = d["x"].shape
+    if name == "qkv_attention_group":
+        return [(bsz * n, c, 3 * c)]
+    if name == "proj_group":
+        return [(bsz * n, c, c)]
+    hidden = d["w1"].shape[-1]
+    m = bsz * n if name == "dense_mlp_residual" else bsz * d["k"]
+    return [(m, c, hidden), (m, hidden, c)]
+
+
 def gemm_launches(name, d, calls=5):
-    """Each GEMM of one bfloat16 call of MLP entry ``name`` on ``d``, from
-    ``torch.profiler``'s device events over ``calls`` calls: [(GEMM 1 or 2,
+    """Each GEMM of one bfloat16 call of entry ``name`` on ``d``, from
+    ``torch.profiler``'s device events over ``calls`` calls: [(GEMM 1, 2..,
     (M, K, N), its plan, device us a call: its wgmma launch and, where the
     plan splits K, the split sum)]."""
     from torch.profiler import ProfilerActivity, profile
 
     from eventful_transformer_tpu_torch.ops import gemm_core, kernel_check
 
-    bsz, n, c = d["x"].shape
-    hidden = d["w1"].shape[-1]
-    m = bsz * n if name == "dense_mlp_residual" else bsz * d["k"]
-    shapes = ((m, c, hidden), (m, hidden, c))
+    shapes = gemm_shapes(name, d)
     plans = [gemm_core.gemm_plan(*shape) for shape in shapes]
     kernel_check.call(name, d)
     torch.cuda.synchronize()
@@ -505,16 +528,16 @@ def gemm_launches(name, d, calls=5):
     if len(events) != calls * sum(per_call):
         raise AssertionError(f"gemm_core {name}: {len(events)} GEMM launches in {calls} calls, "
                              f"expected {per_call} a call")
-    us = [0.0, 0.0]
+    owner = [g for g, count in enumerate(per_call) for _ in range(count)]
+    us = [0.0] * len(shapes)
     for i, e in enumerate(events):
-        at = i % sum(per_call)
-        us[0 if at < per_call[0] else 1] += e.time_range.elapsed_us() / calls
-    return [(g + 1, shapes[g], plans[g], us[g]) for g in range(2)]
+        us[owner[i % len(owner)]] += e.time_range.elapsed_us() / calls
+    return [(g + 1, shapes[g], plans[g], us[g]) for g in range(len(shapes))]
 
 
 def phase_gemm_core(device, smi):
-    """Each GEMM launch of rows 4 and 5 at the paths' shapes in bfloat16:
-    its plan on the wgmma core, its device microseconds (profiler) and its
+    """Each GEMM launch of rows 2-5 at the paths' shapes in bfloat16: its
+    plan on the wgmma core, its device microseconds (profiler) and its
     TFLOP/s."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
@@ -653,8 +676,9 @@ def phase_attention_bodies():
 
 
 def phase_gemm_cores():
-    """Every counted run's MLP launches by GEMM core (each checked as it was
-    read). Returns the totals by dtype and wrapper."""
+    """Every counted run's GEMM launches by core (each checked as it was
+    read); every GEMM row launched in both dtypes. Returns the totals by
+    dtype and wrapper."""
     totals = {}
     for row in CORES:
         by_wrapper = totals.setdefault(row["dtype"], {})
@@ -662,11 +686,18 @@ def phase_gemm_cores():
             total = by_wrapper.setdefault(name, dict.fromkeys(counts, 0))
             for core, n in counts.items():
                 total[core] += n
-    emit("gemm_cores", runs=CORES, totals=totals)
-    tc = sum(c["tc"] for c in totals.get("bfloat16", {}).values())
-    simt = sum(c["simt"] for c in totals.get("float32", {}).values())
-    if not tc or not simt:
-        raise AssertionError(f"gemm cores: {totals}")
+    from eventful_transformer_tpu_torch.ops import gemm_core
+
+    encoded = {}
+    for where, n in TIMED_ENCODES:
+        encoded.setdefault(where, []).append(n)
+    emit("gemm_cores", runs=CORES, totals=totals, tma_encodes=tma_encodes(),
+         tma_cache_maps=gemm_core.TMA_MAPS, timed_runs=len(TIMED_ENCODES),
+         timed_runs_encoding={where: ns for where, ns in encoded.items() if any(ns)})
+    for dtype, core in (("bfloat16", "tc"), ("float32", "simt")):
+        idle = [name for name in GEMM_ROWS if not totals.get(dtype, {}).get(name, {}).get(core)]
+        if idle:
+            raise AssertionError(f"gemm cores: no {dtype} launch of {idle} on {core}: {totals}")
     return totals
 
 
@@ -766,6 +797,21 @@ def card_vs_cpu(cpu_model, clip, device, run=None, prob_tol=None):
     return numbers, runs["card"][1]
 
 
+def warm_encodes(model, views, before, forwards=2):
+    """{"cold": the TMA descriptors encoded since ``before`` (the count before
+    the model's first forward), "warm": those each of ``forwards`` more
+    forwards encodes}. The caching allocator may hand the first warm
+    forward's scratch other addresses than the cold one's; from then on a
+    forward's are those of the one before it."""
+    cold = tma_encodes() - before
+    warm = []
+    for _ in range(forwards):
+        before = tma_encodes()
+        run_model(model, views)
+        warm.append(tma_encodes() - before)
+    return dict(cold=cold, warm=warm)
+
+
 def phase_slice(device):
     from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
     from eventful_transformer_tpu_torch.models import FactorizedViViT
@@ -782,20 +828,44 @@ def phase_slice(device):
     eventful = copy.deepcopy(cpu_model).to(device, torch.bfloat16)
     dense = copy.deepcopy(dense_cpu).to(device, torch.bfloat16)
     views_bf16 = views.to(device, torch.bfloat16)
+    encodes = {}
+    before = tma_encodes()
     launches, sums = counted_run(eventful, views_bf16, eventful=True)
+    encodes["eventful"] = warm_encodes(eventful, views_bf16, before)
+    before = tma_encodes()
     dense_launches, _ = counted_run(dense, views_bf16, eventful=False)
+    encodes["dense"] = warm_encodes(dense, views_bf16, before)
     numbers, counts = card_vs_cpu(cpu_model, views[:1], device)
     dense_counts = run_model(copy.deepcopy(dense_cpu).to(device), views[:1].to(device), True)[1]
     g_dense, g_eventful = gflops(dense_counts), gflops(counts)
     emit(
         "slice", launches=launches, dense_twin_launches=dense_launches,
-        bf16_probs_sum=sums, **numbers,
+        bf16_probs_sum=sums, tma_encodes=encodes, **numbers,
         gflops_per_clip_dense=g_dense, gflops_per_clip_eventful=g_eventful,
     )
     for got, target in ((g_dense, GFLOPS_DENSE), (g_eventful, GFLOPS_EVENTFUL)):
         if abs(round(got, 2) - target) > 1e-6:
             raise AssertionError(f"counted {got} GFLOPs/clip, expected {target}")
+    if any(e["warm"][-1] for e in encodes.values()):
+        raise AssertionError(f"a warm forward encoded TMA descriptors: {encodes}")
     return eventful, dense, views_bf16, launches
+
+
+def tma_encodes():
+    """The TMA descriptors the kernels' library has encoded so far."""
+    from eventful_transformer_tpu_torch.ops import gemm_core
+
+    return gemm_core.tensor_map_encodes()
+
+
+# The TMA descriptors each timed run (time_model, time_vitdet) encoded
+# after its warm-up, by the phase before it, read by phase gemm_cores.
+TIMED_ENCODES = []
+
+
+def timed_encodes(before):
+    """Record the descriptors encoded since ``before``."""
+    TIMED_ENCODES.append((f"after {_LAST_EMIT[1]}", tma_encodes() - before))
 
 
 def time_model(model, views, warmup=1, iters=3, run=None):
@@ -803,12 +873,14 @@ def time_model(model, views, warmup=1, iters=3, run=None):
     run = run or run_model
     for _ in range(warmup):
         run(model, views)
+    encodes = tma_encodes()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
         run(model, views)
     end.record()
     torch.cuda.synchronize()
+    timed_encodes(encodes)
     return start.elapsed_time(end) / iters / views.shape[0]
 
 
@@ -1086,10 +1158,12 @@ def time_vitdet(model, frames, warmup=1, iters=3, run=None):
     events = [torch.cuda.Event(enable_timing=True) for _ in range(frames.shape[0] + 1)]
     for _ in range(warmup):
         run(model, frames)
+    encodes = tma_encodes()
     per_frame = []
     for _ in range(iters):
         run(model, frames, frame_events=events)
         per_frame.append([a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])])
+    timed_encodes(encodes)
     flush = sum(ms[0] for ms in per_frame) / iters
     steady = sum(sum(ms[1:]) / (len(ms) - 1) for ms in per_frame) / iters
     whole = sum(sum(ms) / len(ms) for ms in per_frame) / iters

@@ -13,21 +13,31 @@
 // shapes, and the block (197 x 2304 x 4 B = 1.8 MB) is far beyond the
 // 227 KB of shared memory a block may use. Here each wrapper issues several
 // hand-written launches instead:
-//   A: ln_select row pass (in place) -> tiled GEMM into a (B, N, 3C)
-//      scratch -> attention, the kernel of attention.cuh (in bfloat16 its
-//      tensor-core body, 64 queries a block; in float32 the CUDA-core body,
-//      32) -> diff-norms row pass;
+//   A: ln_select row pass (in place) -> GEMM into a (B, N, 3C) scratch ->
+//      attention, the kernel of attention.cuh (in bfloat16 its tensor-core
+//      body, 64 queries a block; in float32 the CUDA-core body, 32) ->
+//      diff-norms row pass;
 //   B: select row pass (in place) -> GEMM with the bias + skip epilogue ->
 //      LN-norms row pass.
-// The row passes are bound by memory bytes; the GEMMs dominate the time at
-// the flagship shapes and are bound by the simple GEMM's shared-memory
-// traffic (gemm.cuh). The qkv intermediate makes one round trip through
-// device memory (5.8 MB in bf16 at B=8), which later work can keep on chip.
+// The row passes are bound by memory bytes. The GEMMs dominate the time at
+// the flagship shapes (B.N = 1576 rows, K = 768, N = 2304 and 768); they
+// take the core the wrapper picks (ops/gemm_core.py::gemm_core): in
+// bfloat16 the wgmma core of gemm_tc.cuh, A read by TMA from the gate state
+// the row pass has just written, bound by the tensor cores' rate beside the
+// epilogue's bytes (bias, skip, the output); in float32 (and for shapes
+// gemm_tc.cuh does not take) gemm.cuh's tile, bound by its shared-memory
+// traffic. The qkv intermediate makes one round trip through device memory
+// (5.8 MB in bf16 at B=8), which later work can keep on chip.
 #include "attention.cuh"
 #include "common.cuh"
 #include "gemm.cuh"
+#include "gemm_tc.cuh"
 
 namespace etk {
+
+// The epilogues read their operands in load() and write in store(), so
+// that gemm_tc.cuh loads several elements' operands before their stores
+// (gemm.cuh's BiasEpilogue); operator() is the two in turn.
 
 // qkv[m, n] = rnd(rnd(acc) + b[n])      (block_fused.py:94)
 template <typename T>
@@ -35,8 +45,13 @@ struct QkvEpilogue {
   const T* bias;
   T* out;
   int ld;
+  using Loaded = float;
+  __device__ __forceinline__ float load(int, int n) const { return to_f(bias[n]); }
+  __device__ __forceinline__ void store(int m, int n, float acc, float b) const {
+    out[(int64_t)m * ld + n] = from_f<T>(rnd<T>(acc) + b);
+  }
   __device__ __forceinline__ void operator()(int m, int n, float acc) const {
-    out[(int64_t)m * ld + n] = from_f<T>(rnd<T>(acc) + to_f(bias[n]));
+    store(m, n, acc, load(m, n));
   }
 };
 
@@ -47,10 +62,16 @@ struct ProjEpilogue {
   const T* skip;
   T* out;
   int ld;
+  using Loaded = float2;  // (bias, skip)
+  __device__ __forceinline__ float2 load(int m, int n) const {
+    return make_float2(to_f(bias[n]), to_f(skip[(int64_t)m * ld + n]));
+  }
+  __device__ __forceinline__ void store(int m, int n, float acc, float2 bs) const {
+    const float proj = rnd<T>(rnd<T>(acc) + bs.x);
+    out[(int64_t)m * ld + n] = from_f<T>(proj + bs.y);
+  }
   __device__ __forceinline__ void operator()(int m, int n, float acc) const {
-    const int64_t i = (int64_t)m * ld + n;
-    const float proj = rnd<T>(rnd<T>(acc) + to_f(bias[n]));
-    out[i] = from_f<T>(proj + to_f(skip[i]));
+    store(m, n, acc, load(m, n));
   }
 };
 
@@ -58,17 +79,19 @@ template <typename T>
 int qkv_attention_group(int body, const void* x, void* p_qkv, const float* cov,
                         const void* p_proj, const void* ln_scale, const void* ln_bias,
                         const void* w, const void* bias, void* qkv, void* attn, float* norms,
-                        int bsz, int n, int c, int heads, float inv_scale, cudaStream_t stream) {
+                        int bsz, int n, int c, int heads, float inv_scale, GemmCall gemm,
+                        cudaStream_t stream) {
   const int rows = bsz * n;
   const size_t row_smem = row_smem_bytes(c);
   ln_select_kernel<T><<<rows, kRowThreads, row_smem, stream>>>(
       (const T*)x, (T*)p_qkv, cov, (const T*)ln_scale, (const T*)ln_bias, c);
   ETK_CHECK_LAUNCH();
-  launch_gemm<T>((const T*)p_qkv, DenseRows{}, (const T*)w, rows, c, 3 * c,
-                 QkvEpilogue<T>{(const T*)bias, (T*)qkv, 3 * c}, stream);
-  ETK_CHECK_LAUNCH();
-  const int err = launch_attention<T>(body, (const T*)qkv, nullptr, (T*)attn, bsz, n, c, heads,
-                                      inv_scale, 0, 0, stream);
+  int err = launch_gemm_core<T, false>((const T*)p_qkv, rows, DenseRows{}, (const T*)w, rows, c,
+                                       3 * c, QkvEpilogue<T>{(const T*)bias, (T*)qkv, 3 * c}, gemm,
+                                       stream);
+  if (err != 0) return err;
+  err = launch_attention<T>(body, (const T*)qkv, nullptr, (T*)attn, bsz, n, c, heads, inv_scale,
+                            0, 0, stream);
   if (err != 0) return err;
   diff_norms_kernel<T><<<rows, kRowThreads, row_smem, stream>>>(
       (const T*)attn, (const T*)p_proj, norms, c);
@@ -79,15 +102,16 @@ int qkv_attention_group(int body, const void* x, void* p_qkv, const float* cov,
 template <typename T>
 int proj_group(const void* attn, void* p_proj, const float* cov, const void* skip,
                const void* p_mlp, const void* w, const void* bias, const void* ln_scale,
-               const void* ln_bias, void* y1, float* norms, int bsz, int n, int c,
+               const void* ln_bias, void* y1, float* norms, int bsz, int n, int c, GemmCall gemm,
                cudaStream_t stream) {
   const int rows = bsz * n;
   const size_t row_smem = row_smem_bytes(c);
   select_rows_kernel<T><<<rows, kRowThreads, 0, stream>>>((const T*)attn, (T*)p_proj, cov, c);
   ETK_CHECK_LAUNCH();
-  launch_gemm<T>((const T*)p_proj, DenseRows{}, (const T*)w, rows, c, c,
-                 ProjEpilogue<T>{(const T*)bias, (const T*)skip, (T*)y1, c}, stream);
-  ETK_CHECK_LAUNCH();
+  const int err = launch_gemm_core<T, false>(
+      (const T*)p_proj, rows, DenseRows{}, (const T*)w, rows, c, c,
+      ProjEpilogue<T>{(const T*)bias, (const T*)skip, (T*)y1, c}, gemm, stream);
+  if (err != 0) return err;
   ln_norms_kernel<T><<<rows, kRowThreads, row_smem, stream>>>(
       (const T*)y1, (const T*)p_mlp, (const T*)ln_scale, (const T*)ln_bias, norms, c);
   ETK_CHECK_LAUNCH();
@@ -96,25 +120,30 @@ int proj_group(const void* attn, void* p_proj, const float* cov, const void* ski
 
 }  // namespace etk
 
+// core: ops/gemm_core.py CORE_CODES; split: the GEMM's split of its K
+// steps; ws: its float32 workspace (null unsplit).
 extern "C" {
 
 int etk_qkv_attention_group(int dtype, int body, const void* x, void* p_qkv, const void* cov,
                             const void* p_proj, const void* ln_scale, const void* ln_bias,
                             const void* w, const void* bias, void* qkv, void* attn, void* norms,
-                            int bsz, int n, int c, int heads, float inv_scale, void* stream) {
+                            int bsz, int n, int c, int heads, float inv_scale, int core,
+                            int split, void* ws, void* stream) {
+  const etk::GemmCall gemm{core, split, (float*)ws};
   ETK_DISPATCH(dtype, return etk::qkv_attention_group<T>(
                           body, x, p_qkv, (const float*)cov, p_proj, ln_scale, ln_bias, w, bias,
-                          qkv, attn, (float*)norms, bsz, n, c, heads, inv_scale,
+                          qkv, attn, (float*)norms, bsz, n, c, heads, inv_scale, gemm,
                           (cudaStream_t)stream));
 }
 
 int etk_proj_group(int dtype, const void* attn, void* p_proj, const void* cov, const void* skip,
                    const void* p_mlp, const void* w, const void* bias, const void* ln_scale,
-                   const void* ln_bias, void* y1, void* norms, int bsz, int n, int c,
-                   void* stream) {
+                   const void* ln_bias, void* y1, void* norms, int bsz, int n, int c, int core,
+                   int split, void* ws, void* stream) {
+  const etk::GemmCall gemm{core, split, (float*)ws};
   ETK_DISPATCH(dtype, return etk::proj_group<T>(attn, p_proj, (const float*)cov, skip, p_mlp, w,
                                                 bias, ln_scale, ln_bias, y1, (float*)norms, bsz,
-                                                n, c, (cudaStream_t)stream));
+                                                n, c, gemm, (cudaStream_t)stream));
 }
 
 }  // extern "C"

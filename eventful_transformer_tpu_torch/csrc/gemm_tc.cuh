@@ -1,6 +1,6 @@
 // The Hopper GEMM core: wgmma fed by TMA, bfloat16 operands, float32 sums,
-// the matrix product of rows 4 (gate_group_mlp) and 5 (dense_mlp_residual)
-// in bfloat16. gemm.cuh's contract, so the epilogues and the rounding
+// the matrix product of rows 2 (kernel A's qkv), 3 (kernel B's projection),
+// 4 (gate_group_mlp) and 5 (dense_mlp_residual) in bfloat16. gemm.cuh's contract, so the epilogues and the rounding
 // points do not move:
 //
 //   out(m, n) = epi(m, n, sum_k A[arow(m), k] * W[k, n])   (float32 sum)
@@ -47,14 +47,13 @@
 // refuses anything else. The TMA descriptors are encoded through the
 // driver's cuTensorMapEncodeTiled, reached by the runtime's
 // cudaGetDriverEntryPoint(ByVersion) (no -lcuda at build time), and cached
-// by (address, shape, box).
+// by (address, shape, box) (tensor_map_2d).
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <mutex>
 #include <type_traits>
 
 #include "common.cuh"
@@ -368,68 +367,18 @@ splitk_epilogue_kernel(const float* __restrict__ ws, int splits, int M, int N, E
 
 inline bool gemm_tc_aligned(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled_fn() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &status);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    return (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A (rows, cols) row-major bfloat16 matrix in boxes of box_rows x 64 with
-// the 128-byte swizzle; cached by (address, shape, box), since the weights
-// and the allocator's blocks come back call after call. false: refused.
-inline bool tensor_map_2d(CUtensorMap* out, const void* ptr, int64_t rows, int64_t cols,
-                          int box_rows) {
-  struct Entry {
-    const void* ptr;
-    int64_t rows, cols;
-    int box_rows;
-    CUtensorMap map;
-  };
-  constexpr int kEntries = 64;
-  static Entry cache[kEntries];
-  static int next = 0;
-  static std::mutex lock;
-  std::lock_guard<std::mutex> guard(lock);
-  for (const Entry& e : cache) {
-    if (e.ptr == ptr && e.rows == rows && e.cols == cols && e.box_rows == box_rows) {
-      *out = e.map;
-      return true;
-    }
-  }
-  EncodeTiledFn encode = encode_tiled_fn();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  CUtensorMap map;
-  const CUresult res = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-                              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (res != CUDA_SUCCESS) return false;
-  cache[next] = Entry{ptr, rows, cols, box_rows, map};
-  next = (next + 1) % kEntries;
-  *out = map;
-  return true;
-}
+// the 128-byte swizzle, from a cache keyed by (address, shape, box): the
+// weights, the gate states and the allocator's scratch blocks come back
+// call after call. The cache keeps the kGemmTcMaps most recently used
+// maps (least recently used out), far more than one forward of any path
+// names, so that a warm forward encodes none (a forward whose scratch the
+// allocator places anew encodes that scratch's maps once);
+// tensor_map_encodes() counts the encodes. Defined in gemm_tc.cu, one
+// cache for the library. false: refused.
+constexpr int kGemmTcMaps = 4096;
+bool tensor_map_2d(CUtensorMap* out, const void* ptr, int64_t rows, int64_t cols, int box_rows);
+long long tensor_map_encodes();
 
 template <bool kGather, typename ARows, typename Epi>
 int launch_gemm_tc_kernel(const CUtensorMap& tma_a, const CUtensorMap& tma_w,

@@ -45,8 +45,8 @@ NVCC_FLAGS = (
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "etk_ln_norms": [_I, _P, _P, _P, _P, _P, _L, _I, _P],
-    "etk_qkv_attention_group": [_I, _I] + [_P] * 11 + [_I, _I, _I, _I, _F, _P],
-    "etk_proj_group": [_I] + [_P] * 11 + [_I, _I, _I, _P],
+    "etk_qkv_attention_group": [_I, _I] + [_P] * 11 + [_I, _I, _I, _I, _F, _I, _I, _P, _P],
+    "etk_proj_group": [_I] + [_P] * 11 + [_I] * 5 + [_P, _P],
     "etk_gate_group_mlp": [_I] + [_P] * 21 + [_I] * 9 + [_P, _P],
     "etk_attention_smem_bytes": [_I] * 6,
     "etk_window_attention": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P] + [_I] * 6
@@ -108,6 +108,8 @@ def load_library():
         fn.restype = ctypes.c_int
     lib.etk_error_string.argtypes = [_I]
     lib.etk_error_string.restype = ctypes.c_char_p
+    lib.etk_tensor_map_encodes.argtypes = []
+    lib.etk_tensor_map_encodes.restype = _L
     return lib
 
 

@@ -12,14 +12,16 @@ Both kernels update their gate state ``p`` in place, as the TPU kernels
 alias it (``input_output_aliases``), and so do the plain versions. Every
 rounding to the working dtype of the TPU kernels is kept: bf16 results
 depend on them. The CUDA kernels are ``csrc/block_fused.cu``; see its
-header for the launch structure and what bounds it.
+header for the launch structure and what bounds it. Each kernel's GEMM
+takes the core ``ops/gemm_core.py::gemm_core`` picks (bfloat16 at the
+paths' widths: the wgmma core), counted in ``core_launches``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from eventful_transformer_tpu_torch.ops import _build
+from eventful_transformer_tpu_torch.ops import _build, gemm_core
 from eventful_transformer_tpu_torch.ops.common import ln_f32, row_norms
 from eventful_transformer_tpu_torch.ops.window_attention import (
     BODY_CODES,
@@ -59,7 +61,7 @@ def qkv_attention_group(
     """Kernel A; the wrapper of :func:`qkv_attention_group_plain`, which CPU
     tensors take. CUDA tensors launch the kernels of csrc/block_fused.cu;
     the attention stage's body (``window_attention.attention_body``) is
-    counted in ``body_launches``."""
+    counted in ``body_launches``, the GEMM's core in ``core_launches``."""
     if x.device.type == "cpu":
         return qkv_attention_group_plain(
             x, p_qkv, cov, p_proj, ln1_scale, ln1_bias, w_qkv, b_qkv,
@@ -81,6 +83,9 @@ def qkv_attention_group(
         _build.check_shape(name, key, t, shape)
     body = attention_body(x.dtype, n, c // heads)  # qkv: a fresh scratch, aligned
     attention_smem_bytes(name, n, c // heads, body=body)
+    core, plan = gemm_core.gemm_launch(x.dtype, bsz * n, c, 3 * c,
+                                       _build.aligned16(p_qkv, w_qkv))
+    ws = gemm_core.workspace([plan], x.device)
     qkv = torch.empty((bsz, n, 3 * c), dtype=x.dtype, device=x.device)
     attn = torch.empty_like(x)
     norms = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
@@ -89,15 +94,17 @@ def qkv_attention_group(
         p_qkv.data_ptr(), cov.data_ptr(), p_proj.data_ptr(), ln1_scale.data_ptr(),
         ln1_bias.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), qkv.data_ptr(),
         attn.data_ptr(), norms.data_ptr(), bsz, n, c, heads, float(inv_scale),
-        _build.stream_of(x),
+        gemm_core.CORE_CODES[core], *gemm_core.split_args([plan], ws), _build.stream_of(x),
     )
     qkv_attention_group.launches += 1
     qkv_attention_group.body_launches[body] += 1
+    qkv_attention_group.core_launches[core] += 1
     return p_qkv, attn, norms
 
 
 qkv_attention_group.launches = 0
 qkv_attention_group.body_launches = {"tc": 0, "simt": 0}
+qkv_attention_group.core_launches = gemm_core.new_core_counts()
 
 
 def proj_group_plain(attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, ln2_bias):
@@ -115,7 +122,8 @@ def proj_group_plain(attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, 
 
 def proj_group(attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, ln2_bias):
     """Kernel B; the wrapper of :func:`proj_group_plain`, which CPU tensors
-    take. CUDA tensors launch the kernels of csrc/block_fused.cu."""
+    take. CUDA tensors launch the kernels of csrc/block_fused.cu; the
+    GEMM's core is counted in ``core_launches``."""
     if attn.device.type == "cpu":
         return proj_group_plain(
             attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, ln2_bias
@@ -133,6 +141,9 @@ def proj_group(attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, ln2_bi
         ("ln2_scale", ln2_scale, (c,)), ("ln2_bias", ln2_bias, (c,)),
     ):
         _build.check_shape(name, key, t, shape)
+    core, plan = gemm_core.gemm_launch(attn.dtype, bsz * n, c, c,
+                                       _build.aligned16(p_proj, w_proj))
+    ws = gemm_core.workspace([plan], attn.device)
     y1 = torch.empty_like(attn)
     norms = torch.empty((bsz, n), dtype=torch.float32, device=attn.device)
     _build.launch(
@@ -140,10 +151,12 @@ def proj_group(attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, ln2_bi
         p_proj.data_ptr(), cov.data_ptr(), skip.data_ptr(), p_mlp.data_ptr(),
         w_proj.data_ptr(), b_proj.data_ptr(), ln2_scale.data_ptr(),
         ln2_bias.data_ptr(), y1.data_ptr(), norms.data_ptr(), bsz, n, c,
-        _build.stream_of(attn),
+        gemm_core.CORE_CODES[core], *gemm_core.split_args([plan], ws), _build.stream_of(attn),
     )
     proj_group.launches += 1
+    proj_group.core_launches[core] += 1
     return p_proj, y1, norms
 
 
 proj_group.launches = 0
+proj_group.core_launches = gemm_core.new_core_counts()

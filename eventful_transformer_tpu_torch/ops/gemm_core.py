@@ -1,19 +1,22 @@
-"""The GEMM cores of the two MLP kernels, rows 4 (``gate_group_mlp``) and 5
+"""The GEMM cores of rows 2 (``qkv_attention_group``, kernel A), 3
+(``proj_group``, kernel B), 4 (``gate_group_mlp``) and 5
 (``dense_mlp_residual``), the rule that picks one, and the launch plan.
 
 Two cores compute ``out(m, n) = epi(m, n, sum_k A[arow(m), k] W[k, n])``
 with float32 sums:
 
 - "tc": ``csrc/gemm_tc.cuh``, bfloat16 only: wgmma fed by TMA, 128 x 128
-  output tiles, K steps of 64, a ring of 4 stages, the K steps split over
+  output tiles, K steps of 64, a ring of 3 stages, the K steps split over
   blocks where the tiles are fewer than the SMs (:func:`gemm_plan`);
 - ``csrc/gemm.cuh``'s 64 x 64 tile: "wmma" (bfloat16 on WMMA fragments)
   and "simt" (float32 on the CUDA cores).
 
 :func:`gemm_core` is the one rule; the C side refuses what the rule would
-not send it. Every float32 call stays on "simt", so the float32
-card-vs-CPU checks keep their meaning. The wrappers of rows 4 and 5 count
-their launches by core (``core_launches``).
+not send it, and a refused launch raises. Every float32 call stays on
+"simt", so the float32 card-vs-CPU checks keep their meaning. The
+wrappers of rows 2-5 count their launches by core (``core_launches``).
+The TMA descriptors of the "tc" core come from one cache in the library,
+whose encodes :func:`tensor_map_encodes` reads.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ CORE_CODES = {"simt": 0, "wmma": 0, "tc": 1}  # csrc/gemm_tc.cuh kCoreOld, kCore
 TILE_M, TILE_N, TILE_K = 128, 128, 64  # csrc/gemm_tc.cuh kGemmTcBM, kGemmTcBN, kGemmTcBK
 SMS = 132  # streaming multiprocessors of an H100 SXM
 MIN_SPLIT_STEPS = 4  # K steps of 64 each split keeps at least
+TMA_MAPS = 4096  # TMA descriptors the library's cache keeps (csrc/gemm_tc.cuh kGemmTcMaps)
 
 
 def gemm_core(dtype, m, k, n, aligned=True):
@@ -84,6 +88,14 @@ def gemm_plan(m, k, n):
 
 
 @functools.lru_cache(maxsize=256)
+def gemm_launch(dtype, m, k, n, aligned):
+    """(core, plan) of one GEMM of A (m, k) and W (k, n): the plan None off
+    the "tc" core."""
+    core = gemm_core(dtype, m, k, n, aligned)
+    return core, gemm_plan(m, k, n) if core == "tc" else None
+
+
+@functools.lru_cache(maxsize=256)
 def mlp_launch(dtype, m, c, hidden, aligned):
     """(core, plan of GEMM1 (m, c) x (c, hidden), plan of GEMM2 (m, hidden)
     x (hidden, c)): both GEMMs of an MLP take one core, "tc" only where
@@ -120,6 +132,12 @@ def gemm_split_plain(a, w, split=1):
     for s in range(1, split):
         out = out + torch.matmul(a[..., s * chunk:(s + 1) * chunk], w[s * chunk:(s + 1) * chunk])
     return out
+
+
+def tensor_map_encodes():
+    """The TMA descriptors the library has encoded since it was loaded (its
+    cache's misses); builds and loads the library."""
+    return int(_build.load_library().etk_tensor_map_encodes())
 
 
 def new_core_counts():

@@ -363,7 +363,7 @@ def check_bodies(counts, dtype, where):
 
 def core_launches():
     """{wrapper name: {"tc": n, "wmma": n, "simt": n}} of the wrappers whose
-    GEMMs take a core by ``gemm_core.gemm_core`` (rows 4 and 5), which count
+    GEMMs take a core by ``gemm_core.gemm_core`` (rows 2-5), which count
     their launches by core."""
     return {entry[0].__name__: dict(entry[0].core_launches) for entry in KERNELS.values()
             if hasattr(entry[0], "core_launches")}
@@ -378,7 +378,7 @@ def check_cores(counts, dtype, where):
     stray = {name: c for name, c in counts.items()
              if any(n for core, n in c.items() if core != want)}
     if stray:
-        raise AssertionError(f"{where}: {dtype} MLP launches left the {want} core: {stray}")
+        raise AssertionError(f"{where}: {dtype} GEMM launches left the {want} core: {stray}")
 
 # Bounds on each output of a kernel against its plain version. With
 # "scaled error" |kernel - plain| / max(1, |plain|):
@@ -1065,15 +1065,22 @@ def library_call(name, d):
     without the LN, ``Tensor.index_put_`` for the windowed rows' scatter
     (its valid (row, slot) pairs gathered beforehand: the -1 slots write
     nothing). The fused attention's cast (bfloat16 probabilities) has
-    none. The MLP rows (4 and 5) have no one call; their yardstick is the
-    two cuBLAS GEMMs alone, ``torch.addmm`` with the first bias then with
-    the second, on the LN output (row 4: its k compacted rows, gathered
-    beforehand): the GEMMs only, without the LN, GELU, residual, gather and
-    blend."""
+    none. The GEMM rows have no one call; their yardstick is cuBLAS on the
+    operands of their GEMMs, prepared beforehand (the selects, the LN, the
+    gather): rows 4 and 5 the two GEMMs of the MLP, ``torch.addmm`` with
+    the first bias then with the second, on the LN output (row 4: its k
+    compacted rows); row 2 ``torch.addmm`` over the B.N rows of the selected
+    gate state, then SDPA on the qkv it gives: GEMM and attention only; row
+    3 and the dense recomputes of rows 12 and 13 ``torch.addmm`` over the
+    B.N rows of their selected gate state; row 7 ``torch.addmm`` on its k
+    rows (the LN output of the selected rows in its "post" and "pre" forms);
+    each without the row passes, the norms, the skip add and the scatter."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     heads = d["heads"]
     if name == "dense_mlp_residual" or name.startswith("gate_group_mlp"):
         return _mlp_gemms_call(name, d)
+    if name in GEMM_OPERANDS:
+        return _gemm_call(name, d, sdpa)
     if name in ("ln_select_noln", "block_select_p_noln"):
         cov, p = ("cov3", "p_mlp") if name == "ln_select_noln" else ("cov1", "p_qkv")
         selected = (d[cov] > 0)[..., None]
@@ -1132,6 +1139,48 @@ def _mlp_gemms_call(name, d):
     xl = xl.reshape(-1, xl.shape[-1]).contiguous()
     w1, b1, w2, b2 = d["w1"], d["b1"], d["w2"], d["b2"]
     return lambda: torch.addmm(b2, torch.addmm(b1, xl, w1), w2)
+
+
+# The GEMM entries of rows 2, 3, 7, 12 and 13: (input, gate state, coverage,
+# the LN's scale and bias or None, weight, bias, which rows). The GEMM's A
+# is where(coverage, ln(input) or input, gate state) over every row
+# ("dense"), or ln(input) or input at the covered rows ("gathered").
+GEMM_OPERANDS = {
+    "qkv_attention_group": ("x", "p_qkv", "cov1", "ln1_s", "ln1_b", "w_qkv", "b_qkv", "dense"),
+    "proj_group": ("attn", "p_proj", "cov2", None, None, "w_proj", "b_proj", "dense"),
+    **{name: ("x", "p_qkv", "cov1", "ln1_s", "ln1_b", "w_qkv", "b_qkv", "dense")
+       for name in ("ln_select_matmul_post", "ln_select_matmul_pre")},
+    **{name: ("attn", "p_proj", "cov2", None, None, "w_proj", "b_proj", "dense")
+       for name in ("ln_select_matmul_none", "select_linear_skip_norms",
+                    "select_linear_skip_norms_noln")},
+    **{name: ("attn", "p_proj", "cov2", None, None, "w_proj", "b_proj", "gathered")
+       for name in ("gate_group_linear", "gate_group_linear_topk")},
+    **{name: ("x", "p_qkv", "cov1", "ln1_s", "ln1_b", "w_qkv", "b_qkv", "gathered")
+       for name in ("gate_group_linear_post", "gate_group_linear_pre",
+                    "gate_group_linear_post_topk", "gate_group_linear_pre_topk")},
+}
+
+
+def _gemm_call(name, d, sdpa):
+    """cuBLAS on the operands of a GEMM entry's product (``GEMM_OPERANDS``),
+    and for row 2 SDPA on the qkv it gives."""
+    xk, pk, covk, sk, bk, wk, wbk, rows = GEMM_OPERANDS[name]
+    x = d[xk] if sk is None else ln_f32(d[xk], d[sk], d[bk]).to(d[xk].dtype)
+    cov = d[covk] > 0
+    a = torch.where(cov[..., None], x, d[pk]) if rows == "dense" else x[cov]
+    a = a.reshape(-1, a.shape[-1]).contiguous()
+    w, wb = d[wk], d[wbk]
+    if name != "qkv_attention_group":
+        return lambda: torch.addmm(wb, a, w)
+    bsz, n, c = d["x"].shape
+    heads = d["heads"]
+
+    def run():
+        qkv = torch.addmm(wb, a, w).view(bsz, n, 3, heads, c // heads)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        return sdpa(q, k, v)
+
+    return run
 
 
 def _grid_library_call(name, d, sdpa):

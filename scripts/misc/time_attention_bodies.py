@@ -1,8 +1,9 @@
-"""Time the attention kernel's wrappers and the small row kernels in bfloat16
-at the paths' shapes on one NVIDIA GPU, each beside the one PyTorch call
-that computes the same function, with the host microseconds of one call.
+"""Time the attention kernel's wrappers, kernels A and B and the small row
+kernels in bfloat16 at the paths' shapes on one NVIDIA GPU, each beside the
+one PyTorch call that computes the same function (kernels A and B: their
+yardstick), with the host microseconds of one call.
 
-    python3 scripts/misc/time_attention_bodies.py [ROOT] [--breakdown]
+    python3 scripts/misc/time_attention_bodies.py [ROOT] [--breakdown] [--case=TAG ...]
 
 Imports ``eventful_transformer_tpu_torch`` from ROOT (the checkout this
 script lies in by default), so that two versions of the package, each in a
@@ -17,21 +18,27 @@ and shape, checks the kernel against its plain version
   (``kernel_check.library_call``: SDPA; for the grid form the partition of
   the map, SDPA and the inverse partition; ``Tensor.scatter_``,
   ``torch.gather``, ``torch.where``, ``Tensor.index_put_`` for the row
-  kernels), ITERS back-to-back calls after 3 warm-ups, and their ratio;
+  kernels; cuBLAS on the GEMM's operands for kernels A and B, with SDPA
+  for A; none where the version timed has none), ITERS back-to-back calls
+  after 3 warm-ups, and their ratio;
 - the host microseconds of one call of each (``time.perf_counter_ns`` over
   ITERS back-to-back calls);
 
 each the median of ROUNDS rounds, the kernel and the library call in turns,
 since the host's times spread from one moment to the next. The timed call
 is the wrapper's alone, its arguments resolved beforehand as the library
-call's are. The entries: the attention wrappers (ViViT's 8 x 197 global
-attention, the temporal 8 x 17, ViTDet's 18 windows at 672, 9 at 672 with
+call's are. The entries: kernels A (``qkv_attention_group``, whose
+attention stage is the attention kernel) and B (``proj_group``) at ViViT's
+8 x 197, the attention wrappers (ViViT's 8 x 197 global attention, the
+temporal 8 x 17, ViTDet's 18 windows at 672, 9 at 672 with
 one stream, 50 at 1024, plain and padded; ``window_attention_grid`` on the
 672 map, with and without the rel-pos tables, and on 1024's padded one)
 and the row kernels whose host time is most of a call (rows 19
 ``scatter_rows_inplace``, 20 ``gather_rows``, 18 ``scatter_blend``, 14
 ``ln_select`` and 10 ``block_select_p`` without the LN, 11
-``block_scatter_rows``). ``--breakdown`` (the checkout's own version
+``block_scatter_rows``). ``--case=TAG`` (repeatable) times only the
+cases of those tags (``vivit``, ``temporal``, ``672``, ``e2e``,
+``vivit_evblock``, ``1024``). ``--breakdown`` (the checkout's own version
 only) adds where the host time of one ``scatter_rows_inplace`` call at
 C = 768 goes: its operand checks, the stream read, the C call, and the old
 stream read through ``torch.cuda.current_stream`` for comparison. Needs a
@@ -58,7 +65,7 @@ from eventful_transformer_tpu_torch.ops import _build, kernel_check  # noqa: E40
 CASES = [
     ("vivit", 8, 197, 98, dict(window=(4, 6)),
      ("window_attention", "fused_attention", "fused_attention_cast", "qkv_attention_group",
-      "ln_select_noln")),
+      "proj_group", "ln_select_noln")),
     ("temporal", 8, 17, 17, dict(window=(4, 6)), ("window_attention",)),
     ("672", 2, 1764, 256, dict(window=(14, 14), pool=(21, 21), pad_window=(14, 14)),
      ("window_attention_windowed", "window_attention_grid", "window_attention_grid_noterms",
@@ -72,6 +79,7 @@ CASES = [
      ("window_attention_windowed", "window_attention_padded", "window_attention_grid",
       "block_select_p_noln", "block_scatter_rows")),
 ]
+TAGS = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--case=")]
 ITERS = 200  # host-bound calls: more than kernel_check's 20, to average the host's spread
 ROUNDS = 5
 
@@ -146,6 +154,8 @@ def main():
     print("card", smi, "root", ROOT, "build_s", round(time.perf_counter() - start, 1), ptxas)
     device = torch.device("cuda")
     for tag, bsz, n, k, inputs, names in CASES:
+        if TAGS and tag not in TAGS:
+            continue
         d = kernel_check.make_inputs(bsz, n, 768, 12, k, torch.bfloat16, device, seed=0, **inputs)
         for name in names:
             ok = all(row["ok"] for row in kernel_check.errors(name, d))

@@ -991,3 +991,60 @@ def test_small_vivit_cores_by_dtype(device):
         counts = kernel_check.core_launches()
         assert counts["gate_group_mlp"][core] > 0 and counts["dense_mlp_residual"][core] > 0
         kernel_check.check_cores(counts, dtype, "small ViViT")
+
+
+@pytest.mark.parametrize("name", ["qkv_attention_group", "proj_group"])
+def test_block_fused_kernels_take_the_core_by_dtype(name, device):
+    """Kernels A and B against their plain versions on each core: bfloat16
+    on the wgmma core at C = 768 (ViViT's width, 12 heads) and C = 128 (3C
+    = 384), at ragged row counts (111 and 394 rows: a part tile), on WMMA
+    at C = 64 (3C = 192 and C = 64 are off the 128-column tile); float32 on
+    the CUDA-core tile."""
+    wrapper = kernel_check.KERNELS[name][0]
+    cases = [(c, heads, dtype, core, shape)
+             for c, heads, dtype, core in ((768, 12, torch.bfloat16, "tc"),
+                                           (128, 4, torch.bfloat16, "tc"),
+                                           (64, 4, torch.bfloat16, "wmma"),
+                                           (768, 12, torch.float32, "simt"),
+                                           (128, 4, torch.float32, "simt"))
+             for shape in ((3, 37, 11), (2, 197, 98))]
+    for c, heads, dtype, core, (bsz, n, k) in cases:
+        d = kernel_check.make_inputs(bsz, n, c, heads, k, dtype, device, seed=6)
+        kernel_check.reset_launches()
+        rows = kernel_check.errors(name, d)
+        assert all(row["ok"] for row in rows), (c, dtype, n, rows)
+        assert wrapper.core_launches == {**dict.fromkeys(("tc", "wmma", "simt"), 0), core: 1}
+
+
+def test_tma_descriptors_are_cached(device):
+    """A warm call of kernels A and B encodes no TMA descriptor; the cache
+    keeps the most recently used ones: after more distinct weights than it
+    holds, the first weight is encoded again, the last is not."""
+    from eventful_transformer_tpu_torch.ops import block_fused, gemm_core
+
+    d = kernel_check.make_inputs(2, 37, 256, 4, 11, torch.bfloat16, device, seed=7)
+
+    def kernels():
+        block_fused.qkv_attention_group(
+            d["x"], d["p_qkv"], d["cov1"], d["p_proj"], d["ln1_s"], d["ln1_b"], d["w_qkv"],
+            d["b_qkv"], heads=4, inv_scale=64**-0.5)
+        block_fused.proj_group(d["attn"], d["p_proj"], d["cov2"], d["x"], d["p_mlp"],
+                               d["w_proj"], d["b_proj"], d["ln2_s"], d["ln2_b"])
+
+    kernels()
+    before = gemm_core.tensor_map_encodes()
+    for _ in range(3):
+        kernels()
+    assert gemm_core.tensor_map_encodes() == before
+
+    a = torch.randn((1, 64), device=device).to(torch.bfloat16)
+    ws = [torch.randn((64, 128), device=device).to(torch.bfloat16)
+          for _ in range(gemm_core.TMA_MAPS + 4)]
+    for w in ws:
+        gemm_core.gemm_tc(a, w)
+    before = gemm_core.tensor_map_encodes()
+    gemm_core.gemm_tc(a, ws[-1])
+    assert gemm_core.tensor_map_encodes() == before
+    gemm_core.gemm_tc(a, ws[0])
+    assert gemm_core.tensor_map_encodes() == before + 1
+    torch.cuda.synchronize()
