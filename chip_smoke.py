@@ -30,15 +30,17 @@ Phases, one JSON line each, with the seconds the phase took:
                      operands of their GEMMs (kernel_check.library_call:
                      kernels A and B, gate_group_linear, ln_select_matmul,
                      select_linear_skip_norms; the MLP rows gate_group_mlp
-                     and dense_mlp_residual its two GEMMs), rows 2-5 with
-                     their launches by GEMM core, each on the core
+                     and dense_mlp_residual its two GEMMs), rows 2-5, 12
+                     and 13 with their launches by GEMM core, each on the core
                      ops/gemm_core.py's rule gives it (so in every kernels
                      phase below).
-     gemm_core:      each GEMM launch of rows 2-5 at every path's shape in
-                     bfloat16 (kernels A and B at ViViT's; the MLP rows at
-                     ViViT, its temporal model, ViTDet-672, e2e and 1024
-                     dense; kernel C at k = 98, 24 and 256, "pre" and
-                     cov=None): its plan on the wgmma core (tiles, split of
+     gemm_core:      each GEMM launch of rows 2-5, 12 and 13 at every path's
+                     shape in bfloat16 (kernels A and B at ViViT's; the MLP
+                     rows at ViViT, its temporal model, ViTDet-672, e2e and
+                     1024 dense; kernel C at k = 98, 24 and 256, "pre" and
+                     cov=None; rows 12 and 13 at the paper's ViViT's 12
+                     views and, "pre" and next_ln=False, at ViViT's 8 with
+                     gates before LN): its plan on the wgmma core (tiles, split of
                      the K steps), its device microseconds from
                      torch.profiler's events (with the split sum) and its
                      TFLOP/s, beside the card's name and power limit.
@@ -89,9 +91,13 @@ Phases, one JSON line each, with the seconds the phase took:
                      the forced "v1", "v1v2" and "v3", the cached q.kT product
                      (the logits form) and the delta-accumulated A.V product,
                      and the dense twin: launches and counted GFLOPs per clip
-                     against the JAX package's; one clip in float32 (cast off)
+                     against the JAX package's; the TMA descriptors the
+                     forced runs' two warm forwards encode (the last must
+                     encode none); one clip in float32 (cast off)
                      of the model cut to 2 spatial blocks on the card against
-                     the CPU (cut from 12 when the phases of 22-23 came in).
+                     the CPU (cut from 12 when the phases of 22-23 came in),
+                     and on the card alone under "v1" and "v3", counted, so
+                     that rows 12 and 13 run on the float32 core too.
   15. vivit_evblock_time: ms/clip of the dense twin and every run, alternated.
   16. option_kernels: the forms of gates before their LN at compare_ln_1024's
                      shapes (N = 4096, k = 512) and at 672 (N = 1764, k = 256),
@@ -107,7 +113,9 @@ Phases, one JSON line each, with the seconds the phase took:
   21. vivit_pre_ln_kernels, vivit_pre_ln: ViViT-B of phase 4 with every gate
                      before its LN: the forms at its shapes, as in 3; under
                      "auto" ("v2mlp"), "v1", "v1v2" and "v3", launches by
-                     wrapper and form and counted GFLOPs per clip; one clip
+                     wrapper and form and counted GFLOPs per clip; the TMA
+                     descriptors the forced runs' warm forwards encode, as
+                     in 14 ("pre"'s scratch of ln(p') among them); one clip
                      in float32 of the model cut to 2 spatial blocks on the
                      card against the CPU; "auto" and the dense twin ms/clip,
                      alternated.
@@ -166,7 +174,8 @@ Phases, one JSON line each, with the seconds the phase took:
                      (csrc/attention_tc.cuh), in float32 only the CUDA-core
                      one (window_attention.attention_body's rule).
   26. gemm_cores:     the GEMM rows' launches (kernels A and B, the MLP
-                     rows) by core of every counted run above, each checked
+                     rows, rows 12 and 13) by core of every counted run
+                     above, each checked
                      as it was read: in bfloat16 only the wgmma core
                      (csrc/gemm_tc.cuh), in float32 only the CUDA-core tile
                      of csrc/gemm.cuh, each row in both; the TMA
@@ -468,90 +477,121 @@ def check_kernels(phase, device, cases):
 
 
 # The wrappers whose GEMMs take a core by ops/gemm_core.py::gemm_core (rows
-# 2-5), and the entries and shapes of their GEMM launches' profile (phase
-# gemm_core): (entry, path, batch, N, k).
-GEMM_ROWS = ("qkv_attention_group", "proj_group", "gate_group_mlp", "dense_mlp_residual")
+# 2-5, 12, 13), and the entries and shapes of their GEMM launches' profile
+# (phase gemm_core): (entry, path, batch, N, k).
+GEMM_ROWS = ("qkv_attention_group", "proj_group", "gate_group_mlp", "dense_mlp_residual",
+             "ln_select_matmul", "select_linear_skip_norms")
 GEMM_PROFILE = (
     ("qkv_attention_group", "vivit", 8, 197, 98),
     ("proj_group", "vivit", 8, 197, 98),
     ("dense_mlp_residual", "vivit", 8, 197, 98),
-    ("dense_mlp_residual", "temporal", 8, 17, 17),
-    ("dense_mlp_residual", "vitdet_672", 2, 1764, 256),
-    ("dense_mlp_residual", "vitdet_e2e", 1, 1764, 256),
-    ("dense_mlp_residual", "vitdet_1024", 2, 4096, 256),
     ("gate_group_mlp", "vivit", 8, 197, 98),
+    ("gate_group_mlp_topk", "topk_slice_vivit", 8, 197, 98),
+    ("ln_select_matmul_pre", "vivit_pre_ln", 8, 197, 98),
+    ("select_linear_skip_norms_noln", "vivit_pre_ln", 8, 197, 98),
+    ("dense_mlp_residual", "temporal", 8, 17, 17),
     ("gate_group_mlp", "vivit_evblock", 12, 197, 24),
+    ("ln_select_matmul_post", "vivit_evblock", 12, 197, 24),
+    ("ln_select_matmul_none", "vivit_evblock", 12, 197, 24),
+    ("select_linear_skip_norms", "vivit_evblock", 12, 197, 24),
+    ("dense_mlp_residual", "vitdet_672", 2, 1764, 256),
     ("gate_group_mlp", "vitdet_672", 2, 1764, 256),
     ("gate_group_mlp_pre", "compare_ln_672", 2, 1764, 256),
-    ("gate_group_mlp_topk", "topk_slice_vivit", 8, 197, 98),
     ("gate_group_mlp_topk", "topk_slice_vitdet", 2, 1764, 256),
+    ("dense_mlp_residual", "vitdet_e2e", 1, 1764, 256),
+    ("dense_mlp_residual", "vitdet_1024", 2, 4096, 256),
 )
 
 
 def gemm_shapes(name, d):
     """(M, K, N) of each GEMM one call of entry ``name`` makes on ``d``, in
     launch order: kernel A's qkv and kernel B's projection over the B.N
-    rows, the MLP's two (over the k rows for kernel C)."""
+    rows, rows 12 and 13's linear over the B.N rows too (qkv for row 12's
+    "post" and "pre", else the projection), the MLP's two (over the k rows
+    for kernel C)."""
     bsz, n, c = d["x"].shape
-    if name == "qkv_attention_group":
+    if name in ("qkv_attention_group", "ln_select_matmul_post", "ln_select_matmul_pre"):
         return [(bsz * n, c, 3 * c)]
-    if name == "proj_group":
+    if name in ("proj_group", "ln_select_matmul_none") or name.startswith(
+            "select_linear_skip_norms"):
         return [(bsz * n, c, c)]
     hidden = d["w1"].shape[-1]
     m = bsz * n if name == "dense_mlp_residual" else bsz * d["k"]
     return [(m, c, hidden), (m, hidden, c)]
 
 
-def gemm_launches(name, d, calls=5):
-    """Each GEMM of one bfloat16 call of entry ``name`` on ``d``, from
-    ``torch.profiler``'s device events over ``calls`` calls: [(GEMM 1, 2..,
-    (M, K, N), its plan, device us a call: its wgmma launch and, where the
-    plan splits K, the split sum)]."""
+def gemm_launches(entries, calls=5):
+    """Each GEMM of one bfloat16 call of each entry, from ``torch.profiler``'s
+    device events over one warm-up call and ``calls`` calls of every entry,
+    all in one profiler session: ``entries`` yields (name, d) in turn. For
+    each entry, [(GEMM 1, 2.., (M, K, N), its plan, device us a call: its
+    wgmma launch and, where the plan splits K, the split sum)]."""
     from torch.profiler import ProfilerActivity, profile
 
     from eventful_transformer_tpu_torch.ops import gemm_core, kernel_check
 
-    shapes = gemm_shapes(name, d)
-    plans = [gemm_core.gemm_plan(*shape) for shape in shapes]
-    kernel_check.call(name, d)
-    torch.cuda.synchronize()
+    order = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            kernel_check.call(name, d)
-        torch.cuda.synchronize()
+        for name, d in entries:
+            shapes = gemm_shapes(name, d)
+            plans = [gemm_core.gemm_plan(*shape) for shape in shapes]
+            order.append((name, shapes, plans))
+            for _ in range(calls + 1):
+                kernel_check.call(name, d)
+            torch.cuda.synchronize()
     events = sorted(
         (e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")
          and ("gemm_tc_kernel" in e.name or "splitk_epilogue_kernel" in e.name)),
         key=lambda e: e.time_range.start,
     )
-    per_call = [1 + (plan.split > 1) for plan in plans]
-    if len(events) != calls * sum(per_call):
-        raise AssertionError(f"gemm_core {name}: {len(events)} GEMM launches in {calls} calls, "
-                             f"expected {per_call} a call")
-    owner = [g for g, count in enumerate(per_call) for _ in range(count)]
-    us = [0.0] * len(shapes)
-    for i, e in enumerate(events):
-        us[owner[i % len(owner)]] += e.time_range.elapsed_us() / calls
-    return [(g + 1, shapes[g], plans[g], us[g]) for g in range(len(shapes))]
+    out, at = [], 0
+    for name, shapes, plans in order:
+        # a call's launches: each GEMM's wgmma kernel, then its split sum
+        owner, split_sum = [], []
+        for g, plan in enumerate(plans):
+            owner += [g] * (1 + (plan.split > 1))
+            split_sum += [False] + [True] * (plan.split > 1)
+        mine = events[at + len(owner):at + (calls + 1) * len(owner)]  # past the warm-up call
+        at += (calls + 1) * len(owner)
+        if len(mine) != calls * len(owner) or any(
+                ("splitk" in e.name) != split_sum[i % len(owner)] for i, e in enumerate(mine)):
+            raise AssertionError(f"gemm_core {name}: GEMM launches out of order, expected "
+                                 f"{split_sum} a call")
+        us = [0.0] * len(shapes)
+        for i, e in enumerate(mine):
+            us[owner[i % len(owner)]] += e.time_range.elapsed_us() / calls
+        out.append([(g + 1, shapes[g], plans[g], us[g]) for g in range(len(shapes))])
+    if at != len(events):
+        raise AssertionError(f"gemm_core: {len(events)} GEMM launches, expected {at}")
+    return out
 
 
 def phase_gemm_core(device, smi):
-    """Each GEMM launch of rows 2-5 at the paths' shapes in bfloat16: its
-    plan on the wgmma core, its device microseconds (profiler) and its
-    TFLOP/s."""
+    """Each GEMM launch of rows 2-5, 12 and 13 at the paths' shapes in
+    bfloat16: its plan on the wgmma core, its device microseconds
+    (profiler) and its TFLOP/s."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
+    def entries():
+        inputs = {}
+        for name, _, bsz, n, k in GEMM_PROFILE:
+            if (bsz, n, k) not in inputs:  # one set of inputs per shape, in turn
+                inputs.clear()
+                torch.cuda.empty_cache()
+                inputs[bsz, n, k] = kernel_check.make_inputs(bsz, n, 768, 12, k, torch.bfloat16,
+                                                            device, seed=SEED)
+            yield name, inputs[bsz, n, k]
+        inputs.clear()
+        torch.cuda.empty_cache()
+
     rows = []
-    for name, path, bsz, n, k in GEMM_PROFILE:
-        d = kernel_check.make_inputs(bsz, n, 768, 12, k, torch.bfloat16, device, seed=SEED)
-        for gemm, (m, kk, nn), plan, us in gemm_launches(name, d):
+    for (name, path, *_), gemms in zip(GEMM_PROFILE, gemm_launches(entries())):
+        for gemm, (m, kk, nn), plan, us in gemms:
             rows.append(dict(
                 kernel=name, path=path, gemm=gemm, m=m, k=kk, n=nn, tiles=[plan.tiles_m, plan.tiles_n],
                 split=plan.split, blocks=plan.blocks, device_us=us,
                 tflops=2.0 * m * kk * nn / us / 1e6,
             ))
-        del d
-        torch.cuda.empty_cache()
     emit("gemm_core", card=smi, peak_tflops=989.0, rows=rows)
     return rows
 
@@ -633,8 +673,8 @@ def read_form_launches():
 # The attention launches of each counted run by wrapper and body (the
 # wrappers that reach csrc/attention.cuh: window_attention, fused_attention
 # and kernel A's qkv_attention_group), emitted by phase attention_bodies;
-# the MLP rows' launches (gate_group_mlp, dense_mlp_residual) by GEMM core,
-# emitted by phase gemm_cores.
+# the GEMM rows' launches (GEMM_ROWS) by GEMM core, emitted by phase
+# gemm_cores.
 BODIES = []
 CORES = []
 
@@ -643,7 +683,7 @@ def read_routes(dtype, where):
     """The launches of the run just made by route, checked: the attention
     kernel's by body, in bfloat16 every one on the tensor-core body, in
     float32 on the CUDA-core body (``window_attention.attention_body`` at
-    the paths' shapes); the MLP rows' by GEMM core, in bfloat16 every one on
+    the paths' shapes); the GEMM rows' by GEMM core, in bfloat16 every one on
     the wgmma core, in float32 on the CUDA-core tile
     (``gemm_core.gemm_core``). Kept in BODIES and CORES; returns the body
     counts."""
@@ -797,19 +837,28 @@ def card_vs_cpu(cpu_model, clip, device, run=None, prob_tol=None):
     return numbers, runs["card"][1]
 
 
-def warm_encodes(model, views, before, forwards=2):
+def warm_encodes(model, views, before, forwards=2, run=None):
     """{"cold": the TMA descriptors encoded since ``before`` (the count before
     the model's first forward), "warm": those each of ``forwards`` more
-    forwards encodes}. The caching allocator may hand the first warm
-    forward's scratch other addresses than the cold one's; from then on a
-    forward's are those of the one before it."""
+    forwards (``run(model, views)``, run_model by default) encodes}. The
+    caching allocator may hand the first warm forward's scratch other
+    addresses than the cold one's; from then on a forward's are those of
+    the one before it."""
+    run = run or run_model
     cold = tma_encodes() - before
     warm = []
     for _ in range(forwards):
         before = tma_encodes()
-        run_model(model, views)
+        run(model, views)
         warm.append(tma_encodes() - before)
     return dict(cold=cold, warm=warm)
+
+
+def check_warm_encodes(encodes, where):
+    """Raise unless the last warm forward of every model in ``encodes``
+    (:func:`warm_encodes` by model or run) encoded no TMA descriptor."""
+    if any(e["warm"][-1] for e in encodes.values()):
+        raise AssertionError(f"{where}: a warm forward encoded TMA descriptors: {encodes}")
 
 
 def phase_slice(device):
@@ -846,8 +895,7 @@ def phase_slice(device):
     for got, target in ((g_dense, GFLOPS_DENSE), (g_eventful, GFLOPS_EVENTFUL)):
         if abs(round(got, 2) - target) > 1e-6:
             raise AssertionError(f"counted {got} GFLOPs/clip, expected {target}")
-    if any(e["warm"][-1] for e in encodes.values()):
-        raise AssertionError(f"a warm forward encoded TMA descriptors: {encodes}")
+    check_warm_encodes(encodes, "slice")
     return eventful, dense, views_bf16, launches
 
 
@@ -868,7 +916,7 @@ def timed_encodes(before):
     TIMED_ENCODES.append((f"after {_LAST_EMIT[1]}", tma_encodes() - before))
 
 
-def time_model(model, views, warmup=1, iters=3, run=None):
+def time_model(model, views, warmup=1, iters=2, run=None):
     """ms per clip of ``run(model, views)`` (run_model by default)."""
     run = run or run_model
     for _ in range(warmup):
@@ -1150,7 +1198,7 @@ def phase_vitdet_slice(device, size):
     return eventful, dense, frames, launches, dense_launches
 
 
-def time_vitdet(model, frames, warmup=1, iters=3, run=None):
+def time_vitdet(model, frames, warmup=1, iters=2, run=None):
     """ms per frame of a call of ``run`` (run_vitdet by default): [flush
     frame, mean of the incremental frames, mean of all frames], each a
     mean over ``iters`` calls."""
@@ -1466,6 +1514,10 @@ EV_STEP_LAUNCHES = {
     "cached_product": dict(ln_norms=1, gate_group_mlp=1, softmax_select_matmul_logits=1),
     "delta_accumulator": dict(ln_norms=1, gate_group_mlp=1),
 }
+# the forced gate-fusion regimes (rows 12-14), whose warm forwards' TMA
+# encodes are reported, and those that run again in float32 on the card
+FORCED_RUNS = ("v1", "v1v2", "v3")
+FORCED_RUNS_F32 = ("v1", "v3")
 # the kernels of the path, each with the run whose launches its row reports
 EV_KERNELS = {
     "ln_norms": "auto", "gate_group_mlp": "auto", "window_attention": "auto",
@@ -1536,19 +1588,19 @@ def run_apply(model, clip, count=False):
     return out, ctx.counts
 
 
-def ev_expected_launches(run):
-    """Launches per clip: ``run``'s per-step kernels in every spatial block
-    and incremental step, the temporal model's two dense kernels once per
-    block; the dense twin (``run`` None) both dense kernels in every block
-    of every step and of the temporal model."""
+def ev_expected_launches(run, depth=DEPTH):
+    """Launches per clip: ``run``'s per-step kernels in every one of
+    ``depth`` spatial blocks and incremental step, the temporal model's two
+    dense kernels once per block; the dense twin (``run`` None) both dense
+    kernels in every block of every step and of the temporal model."""
     want = dict.fromkeys(wrappers(), 0)
     want.update(window_attention=TEMPORAL_DEPTH, dense_mlp_residual=TEMPORAL_DEPTH)
     if run is None:
         for name in DENSE_KERNELS:
-            want[name] += DEPTH * STEPS
+            want[name] += depth * STEPS
     else:
         for name, count in EV_STEP_LAUNCHES[run].items():
-            want[name] = count * DEPTH * (STEPS - 1)
+            want[name] = count * depth * (STEPS - 1)
     return want
 
 
@@ -1592,22 +1644,53 @@ def phase_ev_kernels(device):
     ])
 
 
+def ev_f32_forced_runs(cpu_model, clip, device):
+    """One clip in float32 on the card under each run of FORCED_RUNS_F32,
+    counted: launches, routes (rows 12 and 13 on the float32 core) and the
+    probabilities checked; the model ``cpu_model``'s copy. Returns the
+    launches by run."""
+    model = copy.deepcopy(cpu_model).to(device)
+    depth = len(model.spatial_model.backbone.blocks)
+    out = {}
+    for run in FORCED_RUNS_F32:
+        set_ev_run(model, EV_RUNS[run])
+        reset_launches()
+        probs, _ = run_apply(model, clip)
+        launches = read_launches()
+        read_routes(torch.float32, f"vivit_evblock {run} float32")
+        want = ev_expected_launches(run, depth)
+        if launches != want:
+            raise AssertionError(f"ViViT {run} float32 launch counts {launches}, expected {want}")
+        probs = probs.float()
+        if (probs.shape != (1, 400) or not torch.isfinite(probs).all()
+                or abs(float(probs.sum()) - 1.0) > 1e-4):
+            raise AssertionError(f"bad ViViT {run} float32 output: {probs}")
+        out[run] = {k: v for k, v in launches.items() if v}
+    return out
+
+
 def phase_ev_slice(device):
     """The eventful model in bfloat16 under every run of EV_RUNS and its
-    dense twin, each one counted clip; then one clip in float32 (the
+    dense twin, each one counted clip, the forced runs with the TMA
+    descriptors of two warm forwards; then one clip in float32 (the
     matmul-2 cast off) under "auto" on the card against the CPU, the
-    spatial stack cut to EV_CHECK_DEPTH blocks."""
+    spatial stack cut to EV_CHECK_DEPTH blocks, and that model on the card
+    under FORCED_RUNS_F32."""
     clip = ev_clip(device)
     eventful = ev_model(True, device, torch.bfloat16)
     dense = ev_model(False, device, torch.bfloat16)
-    launches, counted = {}, {}
+    launches, counted, encodes = {}, {}, {}
     for run, attrs in EV_RUNS.items():
         set_ev_run(eventful, attrs)
+        before = tma_encodes()
         launches[run], counted[run] = ev_counted_run(eventful, clip, run)
+        if run in FORCED_RUNS:
+            encodes[run] = warm_encodes(eventful, clip, before, run=run_apply)
     set_ev_run(eventful, {})
     dense_launches, g_dense = ev_counted_run(dense, clip, None)
     cpu_model = ev_model(True, "cpu", torch.float32, cast=None, depth=EV_CHECK_DEPTH)
     numbers, _ = card_vs_cpu(cpu_model, clip.cpu(), device, run=run_apply)
+    f32_launches = ev_f32_forced_runs(cpu_model, clip, device)
     emit(
         "vivit_evblock_slice", clip=list(EV_CLIP), views=EV_SPATIAL_VIEWS * EV_TEMPORAL_VIEWS,
         k=EV_K, dtype="bfloat16", launches_per_clip={
@@ -1617,7 +1700,9 @@ def phase_ev_slice(device):
         gflops_per_clip_eventful=counted, gflops_per_clip_dense=g_dense,
         jax_gflops_per_clip_eventful=EV_GFLOPS_EVENTFUL, jax_gflops_per_clip_dense=EV_GFLOPS_DENSE,
         f32_runs="auto, matmul-2 cast off", f32_depth=EV_CHECK_DEPTH, **numbers,
+        f32_card_launches_per_clip=f32_launches, tma_encodes=encodes,
     )
+    check_warm_encodes(encodes, "vivit_evblock_slice")
     return eventful, dense, clip, launches, dense_launches
 
 
@@ -1630,7 +1715,7 @@ def phase_ev_time(eventful, dense, clip, smi):
         model = dense if name == "dense" else eventful
         if name != "dense":
             set_ev_run(eventful, EV_RUNS[name])
-        times[name].append(time_model(model, clip, iters=2, run=run_apply))
+        times[name].append(time_model(model, clip, iters=1, run=run_apply))
     set_ev_run(eventful, {})
     emit("vivit_evblock_time", card=smi, clip=list(EV_CLIP), k=EV_K, dtype="bfloat16",
          ms_per_clip=times)
@@ -1960,9 +2045,12 @@ def pre_ln_vivit_path(device, smi):
         (CLIPS, VIEWS, FRAMES, 3, SIZE, SIZE)).astype(np.float32))
     views_bf16 = views.to(device, torch.bfloat16)
     model = pre_ln_model(device, torch.bfloat16)
-    launches, forms, counted = {}, {}, {}
+    launches, forms, counted, encodes = {}, {}, {}, {}
     for run in PRE_LN_RUNS:
+        before = tma_encodes()
         launches[run], forms[run], counted[run] = pre_ln_counted_run(model, views_bf16, run)
+        if run in FORCED_RUNS:
+            encodes[run] = warm_encodes(model, views_bf16, before)
     for blk in model.spatial_model.backbone.blocks:
         blk.fused_gates = "auto"
     numbers, _ = card_vs_cpu(pre_ln_model("cpu", torch.float32, depth=PRE_LN_CHECK_DEPTH),
@@ -1976,8 +2064,9 @@ def pre_ln_vivit_path(device, smi):
         launches={run: {k: v for k, v in c.items() if v} for run, c in launches.items()},
         form_launches=forms, gflops_per_clip=counted, jax_gflops_per_clip=GFLOPS_EVENTFUL_PER_CLIP,
         f32_run="auto", f32_depth=PRE_LN_CHECK_DEPTH, **numbers,
-        dense_ms_per_clip=times["dense"], auto_ms_per_clip=times["auto"],
+        dense_ms_per_clip=times["dense"], auto_ms_per_clip=times["auto"], tma_encodes=encodes,
     )
+    check_warm_encodes(encodes, "vivit_pre_ln")
     del model, dense, views_bf16
     torch.cuda.empty_cache()
     return [
@@ -2239,7 +2328,7 @@ def vitdet_topk_path(device, smi):
     def timer(on, share):
         def timed():
             set_blocks(model, in_kernel_topk=on, share_gate_passes=share)
-            return time_vitdet(model, frames, iters=2)
+            return time_vitdet(model, frames)
         return timed
 
     times = alternated({"off": timer(False, "auto"), "on_no_share": timer(True, False),
@@ -2309,7 +2398,7 @@ def blend_path(device, smi):
     def timer(on):
         def timed():
             set_blend(on)
-            return time_vitdet(model, frames, iters=2)
+            return time_vitdet(model, frames)
         return timed
 
     times = alternated({"off": timer(False), "on": timer(True)}, ("off", "on"))

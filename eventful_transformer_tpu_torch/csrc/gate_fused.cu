@@ -17,38 +17,59 @@
 //   norms = ||y - p_next||                                  (next_ln=False)
 //
 // The TPU kernels hold a 256-row block of x, p and the whole W in VMEM and
-// feed p' to the MXU without a round trip. Here the simple first version:
-// the select row pass of common.cuh (one 256-thread block per token row,
-// p' written in place), then the tiled GEMM of gemm.cuh over all rows of
-// p' (a dense recompute, as the TPU kernel does; it reads p' back from
-// device memory, in W's dtype, which the wrappers require p to have) with
-// the bias (and skip) epilogue, and for select_linear_skip_norms a third
-// launch, the ln_norms row pass (next_ln=False: the plain difference norm)
-// over the rounded y. At ViViT-B (12 views, N = 197, C = 768) the qkv GEMM
-// (2364 x 768 x 2304, 8.4 G multiply-adds) dominates; the row passes move x
-// and p once (7 MB in bf16).
-//
-// "pre" normalises every row of p' before the GEMM, and p' is stored
-// nowhere else: an LN row pass (the ln_select_kernel with every row
-// selected) writes ln(p') in W's dtype to a scratch that the GEMM reads.
-// The TPU kernel normalises its float32 p'; x and p share one dtype (the
-// wrapper checks it), so that equals the stored p' the pass reads back.
-// The extra pass moves 2 x N x C elements, as much as the select pass.
+// feed p' to the MXU without a round trip. Here each C entry issues its
+// stages as separate launches:
+//   * the select row pass of common.cuh (one 256-thread block per token
+//     row, p' written in place), bound by memory bytes: it reads x and p
+//     once (7 MB in bf16 at 12 views of ViViT-B) and writes p';
+//   * "pre" only: an LN row pass (the ln_select_kernel with every row
+//     selected) writes ln(p') in W's dtype to a scratch, since p' is
+//     stored nowhere else. The TPU kernel normalises its float32 p'; x and
+//     p share one dtype (the wrapper checks it), so that equals the stored
+//     p' the pass reads back. It moves 2 x N x C elements, as much as the
+//     select pass;
+//   * the GEMM over every row (a dense recompute, as the TPU kernel does)
+//     with the bias (and skip) epilogue, on the core the wrapper picks
+//     (ops/gemm_core.py::gemm_core): in bfloat16 the wgmma core of
+//     gemm_tc.cuh, A by TMA from the gate state the select pass has just
+//     written (or from "pre"'s scratch), bound by the tensor cores' rate
+//     (the qkv GEMM, 2364 x 768 x 2304 at ViViT-B's 12 views: 8.4 G
+//     multiply-adds) or, for the 768-wide projection, by the epilogue's
+//     bytes and one wave of 114 tiles; in float32 (and for shapes or views
+//     gemm_tc.cuh does not take) gemm.cuh's tile, bound by its
+//     shared-memory traffic. A launch the rule would not send to the
+//     wgmma core is refused there; there is no fallback;
+//   * select_linear_skip_norms only: the ln_norms row pass (next_ln=False:
+//     the plain difference norm) over the rounded y, bound by bytes.
+// What is left: p' (and "pre"'s ln(p')) makes one round trip through
+// device memory between the row pass and the GEMM. The row pass could
+// write the GEMM's A tiles straight into shared memory, and "pre"'s LN
+// pass could become the GEMM's A producer, which would save the scratch
+// and one launch.
 #include "common.cuh"
 #include "gemm.cuh"
+#include "gemm_tc.cuh"
 
 namespace etk {
 
-// y[m, n] = rnd(rnd(acc + wb[n]) + skip[m, n])
+// y[m, n] = rnd(rnd(acc + wb[n]) + skip[m, n])   (gate_fused.py:169-172);
+// kernel B's ProjEpilogue rounds acc first, this one does not. load() reads
+// the operands, store() writes, as gemm.cuh's BiasEpilogue.
 template <typename T>
 struct BiasSkipEpilogue {
   const T* bias;
   const T* skip;
   T* out;
   int ld;
+  using Loaded = float2;  // (bias, skip)
+  __device__ __forceinline__ float2 load(int m, int n) const {
+    return make_float2(to_f(bias[n]), to_f(skip[(int64_t)m * ld + n]));
+  }
+  __device__ __forceinline__ void store(int m, int n, float acc, float2 bs) const {
+    out[(int64_t)m * ld + n] = from_f<T>(rnd<T>(acc + bs.x) + bs.y);
+  }
   __device__ __forceinline__ void operator()(int m, int n, float acc) const {
-    const int64_t i = (int64_t)m * ld + n;
-    out[i] = from_f<T>(rnd<T>(acc + to_f(bias[n])) + to_f(skip[i]));
+    store(m, n, acc, load(m, n));
   }
 };
 
@@ -65,6 +86,8 @@ void select_rows_pass(const T* x, T* p, const float* cov, const T* scale, const 
 
 }  // namespace etk
 
+// core: ops/gemm_core.py CORE_CODES; split: the GEMM's split of its K
+// steps; ws: its float32 workspace (null unsplit).
 extern "C" {
 
 // ln_mode 0 "none", 1 "post", 2 "pre" (ops/common.py::LN_MODES);
@@ -72,8 +95,10 @@ extern "C" {
 // but for "pre"
 int etk_ln_select_matmul(int dtype, const void* x, void* p, const void* cov, const void* scale,
                          const void* bias, const void* w, const void* wb, void* y, void* a,
-                         long long rows, int c, int f, int ln_mode, void* stream) {
+                         long long rows, int c, int f, int ln_mode, int core, int split, void* ws,
+                         void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  const etk::GemmCall gemm{core, split, (float*)ws};
   ETK_DISPATCH(dtype, {
     etk::select_rows_pass<T>((const T*)x, (T*)p, (const float*)cov,
                              ln_mode == 1 ? (const T*)scale : nullptr, (const T*)bias, rows, c, s);
@@ -85,10 +110,9 @@ int etk_ln_select_matmul(int dtype, const void* x, void* p, const void* cov, con
       ETK_CHECK_LAUNCH();
       mm_in = (const T*)a;
     }
-    etk::launch_gemm<T>(mm_in, etk::DenseRows{}, (const T*)w, (int)rows, c, f,
-                        etk::BiasEpilogue<T>{(const T*)wb, (T*)y, f}, s);
-    ETK_CHECK_LAUNCH();
-    return 0;
+    return etk::launch_gemm_core<T, false>(mm_in, rows, etk::DenseRows{}, (const T*)w, (int)rows,
+                                           c, f, etk::BiasEpilogue<T>{(const T*)wb, (T*)y, f},
+                                           gemm, s);
   });
 }
 
@@ -96,15 +120,17 @@ int etk_ln_select_matmul(int dtype, const void* x, void* p, const void* cov, con
 int etk_select_linear_skip_norms(int dtype, const void* x, void* p, const void* cov,
                                  const void* w, const void* wb, const void* skip,
                                  const void* p_next, const void* scale, const void* bias, void* y,
-                                 void* norms, long long rows, int c, int f, int next_ln,
-                                 void* stream) {
+                                 void* norms, long long rows, int c, int f, int next_ln, int core,
+                                 int split, void* ws, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  const etk::GemmCall gemm{core, split, (float*)ws};
   ETK_DISPATCH(dtype, {
     etk::select_rows_pass<T>((const T*)x, (T*)p, (const float*)cov, nullptr, nullptr, rows, c, s);
     ETK_CHECK_LAUNCH();
-    etk::launch_gemm<T>((const T*)p, etk::DenseRows{}, (const T*)w, (int)rows, c, f,
-                        etk::BiasSkipEpilogue<T>{(const T*)wb, (const T*)skip, (T*)y, f}, s);
-    ETK_CHECK_LAUNCH();
+    const int err = etk::launch_gemm_core<T, false>(
+        (const T*)p, rows, etk::DenseRows{}, (const T*)w, (int)rows, c, f,
+        etk::BiasSkipEpilogue<T>{(const T*)wb, (const T*)skip, (T*)y, f}, gemm, s);
+    if (err != 0) return err;
     if (next_ln) {
       etk::ln_norms_kernel<T><<<(unsigned)rows, etk::kRowThreads, etk::row_smem_bytes(f), s>>>(
           (const T*)y, (const T*)p_next, (const T*)scale, (const T*)bias, (float*)norms, f);

@@ -1,8 +1,8 @@
 // Tiled shared-memory GEMM with a per-element epilogue: the matrix product
-// of rows 7 (gate_group_linear), 12 and 13 (gate_fused.cu) in both dtypes,
-// and of rows 2 and 3 (kernels A and B), 4 (kernel C's MLP) and 5 (the
-// dense MLP) in float32 and wherever ops/gemm_core.py::gemm_core does not
-// send them to the wgmma core of gemm_tc.cuh (which keeps this file's
+// of row 7 (gate_group_linear) in both dtypes, and of rows 2 and 3
+// (kernels A and B), 4 (kernel C's MLP), 5 (the dense MLP), 12 and 13
+// (gate_fused.cu) in float32 and wherever ops/gemm_core.py::gemm_core does
+// not send them to the wgmma core of gemm_tc.cuh (which keeps this file's
 // contract and epilogues).
 //
 //   out(m, n) = epi(m, n, sum_k A[arow(m), k] * W[k, n])   (float32 sum)
@@ -18,8 +18,7 @@
 //     WMMA 16x16x16 fragments with float32 accumulators.
 // This is the simple first version: no TMA, wgmma or pipelining, so it is
 // bound by shared-memory traffic and latency, far below the card's
-// tensor-core peak; gemm_tc.cuh is the Hopper design rows 7, 12 and 13 can
-// move to.
+// tensor-core peak; gemm_tc.cuh is the Hopper design row 7 can move to.
 #pragma once
 
 #include <mma.h>

@@ -1,7 +1,8 @@
 // The Hopper GEMM core: wgmma fed by TMA, bfloat16 operands, float32 sums,
 // the matrix product of rows 2 (kernel A's qkv), 3 (kernel B's projection),
-// 4 (gate_group_mlp) and 5 (dense_mlp_residual) in bfloat16. gemm.cuh's contract, so the epilogues and the rounding
-// points do not move:
+// 4 (gate_group_mlp), 5 (dense_mlp_residual), 12 (ln_select_matmul) and 13
+// (select_linear_skip_norms) in bfloat16. gemm.cuh's contract, so the
+// epilogues and the rounding points do not move:
 //
 //   out(m, n) = epi(m, n, sum_k A[arow(m), k] * W[k, n])   (float32 sum)
 //

@@ -23,14 +23,17 @@ kernels for CUDA tensors: ``csrc/ln_norms.cu``, ``csrc/gate_fused.cu``, and
 for ``ln_select`` the select row pass of ``csrc/gate_block.cu``, which
 computes the same function as ``block_select_p``. See the sources' headers
 for what bounds them. Each counts its launches in ``launches`` and, by
-form, in ``form_launches``.
+form, in ``form_launches``. The GEMM of ``ln_select_matmul`` and
+``select_linear_skip_norms`` takes the core ``ops/gemm_core.py::gemm_core``
+picks (bfloat16 at the paths' widths: the wgmma core), counted in
+``core_launches``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from eventful_transformer_tpu_torch.ops import _build
+from eventful_transformer_tpu_torch.ops import _build, gemm_core
 from eventful_transformer_tpu_torch.ops.common import LN_MODES, ln_f32, row_norms
 
 
@@ -104,7 +107,8 @@ def ln_select_matmul(x, p, cov, scale, bias, w, wb, *, ln_mode):
     operand but cov in x's dtype, cov float32. So the GEMM reads p' as the
     TPU kernel feeds it, p' cast to W's dtype; and for "pre", where x and p
     share one dtype, the float32 p' that the TPU kernel normalises is the
-    stored p', which the kernel's LN pass reads back."""
+    stored p', which the kernel's LN pass reads back into a scratch that
+    the GEMM reads. The GEMM's core is counted in ``core_launches``."""
     if x.device.type == "cpu":
         return ln_select_matmul_plain(x, p, cov, scale, bias, w, wb, ln_mode=ln_mode)
     name = "ln_select_matmul"
@@ -121,22 +125,29 @@ def ln_select_matmul(x, p, cov, scale, bias, w, wb, *, ln_mode):
     _build.check_shape(name, "p", p, x.shape)
     _build.check_shape(name, "w", w, (c, f))
     _check_rows(name, x, cov, **vectors)
+    rows = x.numel() // c
     y = torch.empty(x.shape[:-1] + (f,), dtype=x.dtype, device=x.device)
     # "pre": the scratch for ln(p') over every row, which the GEMM reads
     a = torch.empty_like(x) if ln_mode == "pre" else None
+    core, plan = gemm_core.gemm_launch(x.dtype, rows, c, f,
+                                       _build.aligned16(p if a is None else a, w))
+    ws = gemm_core.workspace([plan], x.device)
     _build.launch(
         "etk_ln_select_matmul", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
         cov.data_ptr(), scale.data_ptr() if ln else None, bias.data_ptr() if ln else None,
         w.data_ptr(), wb.data_ptr(), y.data_ptr(), None if a is None else a.data_ptr(),
-        x.numel() // c, c, f, LN_MODES[ln_mode], _build.stream_of(x),
+        rows, c, f, LN_MODES[ln_mode], gemm_core.CORE_CODES[core],
+        *gemm_core.split_args([plan], ws), _build.stream_of(x),
     )
     ln_select_matmul.launches += 1
     ln_select_matmul.form_launches[ln_mode] += 1
+    ln_select_matmul.core_launches[core] += 1
     return p, y
 
 
 ln_select_matmul.launches = 0
 ln_select_matmul.form_launches = dict.fromkeys(LN_MODES, 0)
+ln_select_matmul.core_launches = gemm_core.new_core_counts()
 
 
 def select_linear_skip_norms_plain(
@@ -159,7 +170,8 @@ def select_linear_skip_norms_plain(
 def select_linear_skip_norms(x, p, cov, w, wb, skip, p_next, scale, bias, *, next_ln=True):
     """The wrapper of :func:`select_linear_skip_norms_plain`, which CPU
     tensors take. CUDA tensors launch the kernels of csrc/gate_fused.cu;
-    every operand but cov in x's dtype, cov float32."""
+    every operand but cov in x's dtype, cov float32. The GEMM's core is
+    counted in ``core_launches``."""
     if x.device.type == "cpu":
         return select_linear_skip_norms_plain(
             x, p, cov, w, wb, skip, p_next, scale, bias, next_ln=next_ln
@@ -177,22 +189,27 @@ def select_linear_skip_norms(x, p, cov, w, wb, skip, p_next, scale, bias, *, nex
     for key, t in (("skip", skip), ("p_next", p_next)):
         _build.check_shape(name, key, t, x.shape[:-1] + (f,))
     _check_rows(name, x, cov, **vectors)
+    rows = x.numel() // c
+    core, plan = gemm_core.gemm_launch(x.dtype, rows, c, f, _build.aligned16(p, w))
+    ws = gemm_core.workspace([plan], x.device)
     y = torch.empty(x.shape[:-1] + (f,), dtype=x.dtype, device=x.device)
     norms = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     _build.launch(
         "etk_select_linear_skip_norms", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
         cov.data_ptr(), w.data_ptr(), wb.data_ptr(), skip.data_ptr(), p_next.data_ptr(),
         scale.data_ptr() if next_ln else None, bias.data_ptr() if next_ln else None,
-        y.data_ptr(), norms.data_ptr(), x.numel() // c, c, f, int(next_ln),
-        _build.stream_of(x),
+        y.data_ptr(), norms.data_ptr(), rows, c, f, int(next_ln), gemm_core.CORE_CODES[core],
+        *gemm_core.split_args([plan], ws), _build.stream_of(x),
     )
     select_linear_skip_norms.launches += 1
     select_linear_skip_norms.form_launches["next_ln" if next_ln else "no_ln"] += 1
+    select_linear_skip_norms.core_launches[core] += 1
     return p, y, norms
 
 
 select_linear_skip_norms.launches = 0
 select_linear_skip_norms.form_launches = dict.fromkeys(("next_ln", "no_ln"), 0)
+select_linear_skip_norms.core_launches = gemm_core.new_core_counts()
 
 
 def ln_select_plain(x, p, cov, scale, bias, *, apply_ln=True):

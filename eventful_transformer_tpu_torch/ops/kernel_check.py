@@ -363,8 +363,8 @@ def check_bodies(counts, dtype, where):
 
 def core_launches():
     """{wrapper name: {"tc": n, "wmma": n, "simt": n}} of the wrappers whose
-    GEMMs take a core by ``gemm_core.gemm_core`` (rows 2-5), which count
-    their launches by core."""
+    GEMMs take a core by ``gemm_core.gemm_core`` (rows 2-5, 12, 13), which
+    count their launches by core."""
     return {entry[0].__name__: dict(entry[0].core_launches) for entry in KERNELS.values()
             if hasattr(entry[0], "core_launches")}
 
@@ -1064,8 +1064,9 @@ def library_call(name, d):
     ``torch.gather`` for the gather, ``torch.where`` for the selects
     without the LN, ``Tensor.index_put_`` for the windowed rows' scatter
     (its valid (row, slot) pairs gathered beforehand: the -1 slots write
-    nothing). The fused attention's cast (bfloat16 probabilities) has
-    none. The GEMM rows have no one call; their yardstick is cuBLAS on the
+    nothing); the fused attention's cast (bfloat16 probabilities) SDPA on
+    q, k and v cast to bfloat16 beforehand, which keeps its probabilities
+    in bfloat16 too. The GEMM rows have no one call; their yardstick is cuBLAS on the
     operands of their GEMMs, prepared beforehand (the selects, the LN, the
     gather): rows 4 and 5 the two GEMMs of the MLP, ``torch.addmm`` with
     the first bias then with the second, on the LN output (row 4: its k
@@ -1099,9 +1100,10 @@ def library_call(name, d):
         if values is None:
             return lambda: torch.gather(x, 1, index)
         return lambda: x.scatter_(1, index, d[values])
-    if name == "fused_attention":
+    if name in ("fused_attention", "fused_attention_cast"):
         bsz, n, c3 = d["qkv"].shape
-        q, k, v = d["qkv"].reshape(bsz, n, 3, heads, c3 // (3 * heads)).permute(2, 0, 3, 1, 4)
+        qkv = d["qkv"] if name == "fused_attention" else d["qkv"].to(torch.bfloat16)
+        q, k, v = qkv.reshape(bsz, n, 3, heads, c3 // (3 * heads)).permute(2, 0, 3, 1, 4)
         return lambda: sdpa(q, k, v, scale=1.0 / (c3 // (3 * heads)) ** 0.5)
     if name.startswith("window_attention_grid"):
         return _grid_library_call(name, d, sdpa)

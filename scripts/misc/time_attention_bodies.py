@@ -1,7 +1,8 @@
-"""Time the attention kernel's wrappers, kernels A and B and the small row
-kernels in bfloat16 at the paths' shapes on one NVIDIA GPU, each beside the
-one PyTorch call that computes the same function (kernels A and B: their
-yardstick), with the host microseconds of one call.
+"""Time the attention kernel's wrappers, kernels A and B, the gate-fusion
+kernels (rows 12 and 13) and the small row kernels in bfloat16 at the
+paths' shapes on one NVIDIA GPU, each beside the one PyTorch call that
+computes the same function (the GEMM rows: their yardstick), with the host
+microseconds of one call.
 
     python3 scripts/misc/time_attention_bodies.py [ROOT] [--breakdown] [--case=TAG ...]
 
@@ -23,13 +24,18 @@ and shape, checks the kernel against its plain version
   after 3 warm-ups, and their ratio;
 - the host microseconds of one call of each (``time.perf_counter_ns`` over
   ITERS back-to-back calls);
+- the device microseconds of one call of the kernel: the sum of its
+  kernels' times under ``torch.profiler`` over 20 calls, once per entry;
 
 each the median of ROUNDS rounds, the kernel and the library call in turns,
 since the host's times spread from one moment to the next. The timed call
 is the wrapper's alone, its arguments resolved beforehand as the library
 call's are. The entries: kernels A (``qkv_attention_group``, whose
 attention stage is the attention kernel) and B (``proj_group``) at ViViT's
-8 x 197, the attention wrappers (ViViT's 8 x 197 global attention, the
+8 x 197; rows 12 (``ln_select_matmul``: "post" and "none" at the paper's
+ViViT's 12 x 197, "pre" at ViViT's 8 x 197 with its gates before LN) and
+13 (``select_linear_skip_norms``: with the next LN at 12 x 197, without
+at 8 x 197); the attention wrappers (ViViT's 8 x 197 global attention, the
 temporal 8 x 17, ViTDet's 18 windows at 672, 9 at 672 with
 one stream, 50 at 1024, plain and padded; ``window_attention_grid`` on the
 672 map, with and without the rel-pos tables, and on 1024's padded one)
@@ -38,7 +44,7 @@ and the row kernels whose host time is most of a call (rows 19
 ``ln_select`` and 10 ``block_select_p`` without the LN, 11
 ``block_scatter_rows``). ``--case=TAG`` (repeatable) times only the
 cases of those tags (``vivit``, ``temporal``, ``672``, ``e2e``,
-``vivit_evblock``, ``1024``). ``--breakdown`` (the checkout's own version
+``vivit_evblock``, ``vivit_pre_ln``, ``1024``). ``--breakdown`` (the checkout's own version
 only) adds where the host time of one ``scatter_rows_inplace`` call at
 C = 768 goes: its operand checks, the stream read, the C call, and the old
 stream read through ``torch.cuda.current_stream`` for comparison. Needs a
@@ -73,7 +79,10 @@ CASES = [
       "gather_rows_qkv", "scatter_blend", "scatter_blend_qkv", "block_select_p_noln")),
     ("e2e", 1, 1764, 256, dict(window=(14, 14), pool=(21, 21)), ("window_attention_windowed",)),
     ("vivit_evblock", 12, 197, 24, dict(window=(4, 6)),
-     ("scatter_rows_inplace_qkv", "gather_rows_qkv")),
+     ("ln_select_matmul_post", "ln_select_matmul_none", "select_linear_skip_norms",
+      "scatter_rows_inplace_qkv", "gather_rows_qkv")),
+    ("vivit_pre_ln", 8, 197, 98, dict(window=(4, 6)),
+     ("ln_select_matmul_pre", "select_linear_skip_norms_noln")),
     ("1024", 2, 4096, 256,
      dict(window=(14, 14), windows=50, pool=(32, 32), pad_window=(14, 14)),
      ("window_attention_windowed", "window_attention_padded", "window_attention_grid",
@@ -96,6 +105,21 @@ def host_us(fn, iters=ITERS):
     elapsed = time.perf_counter_ns() - start
     torch.cuda.synchronize()
     return elapsed / iters / 1e3
+
+
+def device_us(fn, calls=20):
+    """Device microseconds of one ``fn()`` call: its kernels' times summed
+    under ``torch.profiler`` over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")) / calls
 
 
 def bound(name, fn, d):
@@ -171,9 +195,10 @@ def main():
                     times["lib_us"].append(host_us(library))
             ms, us, lib_ms, lib_us = (statistics.median(v) if v else None for v in times.values())
             ratio = None if lib_ms is None else round(ms / lib_ms, 2)
-            print(tag, name, "ms", round(ms, 4), "host_us", round(us, 2), "library_ms",
-                  lib_ms and round(lib_ms, 4), "library_host_us", lib_us and round(lib_us, 2),
-                  "ratio", ratio, "within bounds", ok, flush=True)
+            print(tag, name, "ms", round(ms, 4), "host_us", round(us, 2), "device_us",
+                  round(device_us(call), 2),
+                  "library_ms", lib_ms and round(lib_ms, 4), "library_host_us",
+                  lib_us and round(lib_us, 2), "ratio", ratio, "within bounds", ok, flush=True)
             del dd
         del d
         torch.cuda.empty_cache()

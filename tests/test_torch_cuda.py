@@ -1048,3 +1048,84 @@ def test_tma_descriptors_are_cached(device):
     gemm_core.gemm_tc(a, ws[0])
     assert gemm_core.tensor_map_encodes() == before + 1
     torch.cuda.synchronize()
+
+
+GATE_FUSED_FORMS = ["ln_select_matmul_post", "ln_select_matmul_none", "ln_select_matmul_pre",
+                    "select_linear_skip_norms", "select_linear_skip_norms_noln"]
+
+
+@pytest.mark.parametrize("name", GATE_FUSED_FORMS)
+def test_gate_fused_kernels_take_the_core_by_dtype(name, device):
+    """Rows 12 and 13 against their plain versions on each core: bfloat16
+    on the wgmma core at C = 768 (the paths' width) and C = 128 (3C = 384),
+    at ragged row counts (111 and 394 rows: a part tile), on WMMA at C = 64
+    (3C = 192 and C = 64 are off the 128-column tile); float32 on the
+    CUDA-core tile."""
+    wrapper = kernel_check.KERNELS[name][0]
+    cases = [(c, dtype, core, shape)
+             for c, dtype, core in ((768, torch.bfloat16, "tc"), (128, torch.bfloat16, "tc"),
+                                    (64, torch.bfloat16, "wmma"), (768, torch.float32, "simt"),
+                                    (128, torch.float32, "simt"))
+             for shape in ((3, 37, 11), (2, 197, 98))]
+    for c, dtype, core, (bsz, n, k) in cases:
+        d = kernel_check.make_inputs(bsz, n, c, 4, k, dtype, device, seed=8)
+        kernel_check.reset_launches()
+        rows = kernel_check.errors(name, d)
+        assert all(row["ok"] for row in rows), (c, dtype, n, rows)
+        assert wrapper.core_launches == {**dict.fromkeys(("tc", "wmma", "simt"), 0), core: 1}
+
+
+def _gate_fused_call(fn, name, d, p):
+    """Entry ``name`` of rows 12 and 13 through ``fn`` (the wrapper or its
+    plain version) on ``d`` with the gate state ``p``, uncloned."""
+    if name.startswith("ln_select_matmul"):
+        mode = name.rsplit("_", 1)[-1]
+        ln = mode != "none"
+        x, w, wb = (d["x"], d["w_qkv"], d["b_qkv"]) if ln else (d["attn"], d["w_proj"], d["b_proj"])
+        return fn(x, p, d["cov1" if ln else "cov2"], d["ln1_s"] if ln else None,
+                  d["ln1_b"] if ln else None, w, wb, ln_mode=mode)
+    next_ln = name == "select_linear_skip_norms"
+    return fn(d["attn"], p, d["cov2"], d["w_proj"], d["b_proj"], d["x"], d["p_mlp"],
+              d["ln2_s"] if next_ln else None, d["ln2_b"] if next_ln else None, next_ln=next_ln)
+
+
+@pytest.mark.parametrize("name", ["ln_select_matmul_none", "select_linear_skip_norms"])
+def test_gate_fused_on_a_misaligned_state_takes_the_old_tile(name, device):
+    """The gate state p, which the GEMM reads, off a 16-byte boundary: the
+    rule routes the call to WMMA, which gives the plain version's result."""
+    wrapper, plain = kernel_check.KERNELS[name][:2]
+    d = kernel_check.make_inputs(2, 37, 256, 4, 11, torch.bfloat16, device, seed=9)
+    flat = torch.zeros(d["p_proj"].numel() + 1, device=device, dtype=torch.bfloat16)
+    p = flat[1:].view(d["p_proj"].shape)
+    p.copy_(d["p_proj"])
+    kernel_check.reset_launches()
+    got = _gate_fused_call(wrapper, name, d, p)
+    want = _gate_fused_call(plain, name, d, d["p_proj"].clone())
+    assert wrapper.core_launches == {"tc": 0, "wmma": 1, "simt": 0}
+    for a, b in zip(got, want):
+        row = kernel_check.compare(a, b)
+        assert row["ok"], row
+
+
+def test_gate_fused_warm_calls_encode_no_descriptor(device):
+    """A warm call of each form of rows 12 and 13, "pre"'s scratch of ln(p')
+    included, encodes no TMA descriptor."""
+    from eventful_transformer_tpu_torch.ops import gemm_core
+
+    d = kernel_check.make_inputs(2, 37, 256, 4, 11, torch.bfloat16, device, seed=10)
+
+    def kernels():
+        for name in GATE_FUSED_FORMS:
+            p = d["p_qkv"] if name in ("ln_select_matmul_post", "ln_select_matmul_pre") else \
+                d["p_proj"]
+            _gate_fused_call(kernel_check.KERNELS[name][0], name, d, p)
+
+    kernel_check.reset_launches()
+    kernels()
+    assert kernel_check.core_launches()["ln_select_matmul"]["tc"] == 3
+    assert kernel_check.core_launches()["select_linear_skip_norms"]["tc"] == 2
+    before = gemm_core.tensor_map_encodes()
+    for _ in range(3):
+        kernels()
+    torch.cuda.synchronize()
+    assert gemm_core.tensor_map_encodes() == before

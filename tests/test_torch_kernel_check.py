@@ -156,8 +156,23 @@ def test_library_calls_compute_the_same_function(name):
     else:
         assert torch.equal(got, want)
     for other in ("scatter_blend_masked", "scatter_rows_inplace_masked",
-                  "scatter_rows_inplace_cast", "fused_attention_cast"):
+                  "scatter_rows_inplace_cast"):
         assert kernel_check.library_call(other, d) is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cast_attention_library_call_is_sdpa_in_bfloat16(dtype):
+    """Row 21's cast form (bfloat16 probabilities) beside SDPA on q, k and
+    v cast to bfloat16: a bfloat16 result within the bfloat16 outputs'
+    scaled error (2e-2) of the plain version, in either dtype of the
+    inputs."""
+    d = kernel_check.make_inputs(2, 37, 64, 4, 11, dtype, "cpu", seed=1)
+    want = kernel_check.call("fused_attention_cast", d, plain=True)[0]
+    got = kernel_check.library_call("fused_attention_cast", d)()
+    assert got.dtype == torch.bfloat16
+    got = got.transpose(1, 2).reshape(want.shape).float()
+    scaled = ((got - want.float()).abs() / want.float().abs().clamp(min=1.0)).max()
+    assert float(scaled) <= kernel_check.BF16_BOUNDS["scaled"]
 
 
 @pytest.mark.parametrize("name", ["block_select_p_noln", "block_scatter_rows"])
