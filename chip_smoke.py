@@ -30,15 +30,17 @@ Phases, one JSON line each, with the seconds the phase took:
                      operands of their GEMMs (kernel_check.library_call:
                      kernels A and B, gate_group_linear, ln_select_matmul,
                      select_linear_skip_norms; the MLP rows gate_group_mlp
-                     and dense_mlp_residual its two GEMMs), rows 2-5, 12
+                     and dense_mlp_residual its two GEMMs), rows 2-5, 7, 12
                      and 13 with their launches by GEMM core, each on the core
                      ops/gemm_core.py's rule gives it (so in every kernels
                      phase below).
-     gemm_core:      each GEMM launch of rows 2-5, 12 and 13 at every path's
+     gemm_core:      each GEMM launch of rows 2-5, 7, 12 and 13 at every path's
                      shape in bfloat16 (kernels A and B at ViViT's; the MLP
                      rows at ViViT, its temporal model, ViTDet-672, e2e and
                      1024 dense; kernel C at k = 98, 24 and 256, "pre" and
-                     cov=None; rows 12 and 13 at the paper's ViViT's 12
+                     cov=None; row 7's qkv ("post", "pre") and projection
+                     ("none") at ViTDet-672's k = 256 and, "post" and
+                     "none", at the e2e path's one stream; rows 12 and 13 at the paper's ViViT's 12
                      views and, "pre" and next_ln=False, at ViViT's 8 with
                      gates before LN): its plan on the wgmma core (tiles, split of
                      the K steps), its device microseconds from
@@ -402,8 +404,8 @@ def phase_build():
 
 
 # the epilogue functors of the wgmma core's instantiations, as in their names
-EPILOGUES = ("BiasGeluEpilogue", "ResidualEpilogue", "BiasEpilogue", "QkvEpilogue",
-             "ProjEpilogue", "PartialSum", "StoreEpilogue")
+EPILOGUES = ("BiasGeluEpilogue", "ResidualEpilogue", "BiasEpilogue", "BiasScatterEpilogue",
+             "BiasSkipEpilogue", "QkvEpilogue", "ProjEpilogue", "PartialSum", "StoreEpilogue")
 
 
 def gemm_tc_ptxas(log):
@@ -477,10 +479,10 @@ def check_kernels(phase, device, cases):
 
 
 # The wrappers whose GEMMs take a core by ops/gemm_core.py::gemm_core (rows
-# 2-5, 12, 13), and the entries and shapes of their GEMM launches' profile
+# 2-5, 7, 12, 13), and the entries and shapes of their GEMM launches' profile
 # (phase gemm_core): (entry, path, batch, N, k).
 GEMM_ROWS = ("qkv_attention_group", "proj_group", "gate_group_mlp", "dense_mlp_residual",
-             "ln_select_matmul", "select_linear_skip_norms")
+             "gate_group_linear", "ln_select_matmul", "select_linear_skip_norms")
 GEMM_PROFILE = (
     ("qkv_attention_group", "vivit", 8, 197, 98),
     ("proj_group", "vivit", 8, 197, 98),
@@ -498,7 +500,12 @@ GEMM_PROFILE = (
     ("gate_group_mlp", "vitdet_672", 2, 1764, 256),
     ("gate_group_mlp_pre", "compare_ln_672", 2, 1764, 256),
     ("gate_group_mlp_topk", "topk_slice_vitdet", 2, 1764, 256),
+    ("gate_group_linear_post", "vitdet_672", 2, 1764, 256),
+    ("gate_group_linear", "vitdet_672", 2, 1764, 256),
+    ("gate_group_linear_pre", "compare_ln_672", 2, 1764, 256),
     ("dense_mlp_residual", "vitdet_e2e", 1, 1764, 256),
+    ("gate_group_linear_post", "vitdet_e2e", 1, 1764, 256),
+    ("gate_group_linear", "vitdet_e2e", 1, 1764, 256),
     ("dense_mlp_residual", "vitdet_1024", 2, 4096, 256),
 )
 
@@ -507,9 +514,12 @@ def gemm_shapes(name, d):
     """(M, K, N) of each GEMM one call of entry ``name`` makes on ``d``, in
     launch order: kernel A's qkv and kernel B's projection over the B.N
     rows, rows 12 and 13's linear over the B.N rows too (qkv for row 12's
-    "post" and "pre", else the projection), the MLP's two (over the k rows
-    for kernel C)."""
+    "post" and "pre", else the projection), row 7's over the k rows (qkv
+    for "post" and "pre"), the MLP's two (over the k rows for kernel C)."""
     bsz, n, c = d["x"].shape
+    if name.startswith("gate_group_linear"):
+        qkv = name.startswith(("gate_group_linear_post", "gate_group_linear_pre"))
+        return [(bsz * d["k"], c, 3 * c if qkv else c)]
     if name in ("qkv_attention_group", "ln_select_matmul_post", "ln_select_matmul_pre"):
         return [(bsz * n, c, 3 * c)]
     if name in ("proj_group", "ln_select_matmul_none") or name.startswith(
@@ -567,7 +577,7 @@ def gemm_launches(entries, calls=5):
 
 
 def phase_gemm_core(device, smi):
-    """Each GEMM launch of rows 2-5, 12 and 13 at the paths' shapes in
+    """Each GEMM launch of rows 2-5, 7, 12 and 13 at the paths' shapes in
     bfloat16: its plan on the wgmma core, its device microseconds
     (profiler) and its TFLOP/s."""
     from eventful_transformer_tpu_torch.ops import kernel_check
@@ -2058,7 +2068,11 @@ def pre_ln_vivit_path(device, smi):
     dense = FactorizedViViT(**vivit_config(False), device=device, seed=SEED).to(torch.bfloat16)
     times = {"dense": [], "auto": []}
     for name in ("dense", "auto", "auto", "dense"):
-        times[name].append(time_model(model if name == "auto" else dense, views_bf16))
+        # two warm-ups: the float32 check just freed the card's memory, and
+        # the caching allocator places "auto"'s scratch anew in the first
+        # two forwards after it (one warm-up left the first timed run
+        # encoding TMA descriptors)
+        times[name].append(time_model(model if name == "auto" else dense, views_bf16, warmup=2))
     emit(
         "vivit_pre_ln", card=smi, clips=CLIPS, views=VIEWS, frames=FRAMES, k=K, dtype="bfloat16",
         launches={run: {k: v for k, v in c.items() if v} for run, c in launches.items()},

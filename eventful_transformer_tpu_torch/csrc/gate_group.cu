@@ -42,13 +42,20 @@
 // ln_mode="post" (the global blocks' qkv group, W 768 x 2304, no skip) and
 // ln_mode="none" with the skip add and the MLP gate's norms (every block's
 // projection group, W 768 x 768). The TPU kernel holds one batch row's
-// whole (N, C) and (N, F) blocks in VMEM (grid = (B,) = 2 programs at 672);
-// here, as for kernel C, four launches: the select row pass, the
-// compaction, the gathered GEMM with the bias epilogue, and the scatter-
-// blend row pass (+ skip, + next norms). At 672 (B = 2, N = 1764, k = 256)
-// the GEMM does the k/N share of the dense product and the row passes move
-// the full (N, C) and (N, F) state once each; the qkv group's b pass (2 x
-// 1764 x 2304 in bf16, 16 MB read and written) is the largest memory term.
+// whole (N, C) and (N, F) blocks in VMEM (grid = (B,) = 2 programs at 672)
+// and scatters h back by a one-hot matmul; here the GEMM's epilogue
+// (gemm.cuh's BiasScatterEpilogue) writes rnd(acc + wb) straight into b at
+// the row each compaction slot names, so b' is written only at the k
+// selected rows and no (B, k, F) h exists. Three launches for the qkv
+// forms: the select row pass, the compaction (which also zeroes a selected
+// row beyond kcap, as the one-hot scatter leaves it), and the gathered GEMM
+// (one more, the split sum, where the plan splits its K steps); a fourth
+// for a form with the skip: y = rnd(b' + skip) and the next gate's norms,
+// a row pass that reads b' and writes y. At 672 (B = 2, N = 1764, k = 256)
+// the GEMM does the k/N share of the dense product: in bfloat16 on the
+// wgmma core of gemm_tc.cuh (qkv 512 x 768 -> 2304 in 72 tiles; the
+// projection 512 x 768 -> 768 in 24 tiles, its K steps split 3 ways), in
+// float32 on gemm.cuh's tile.
 //
 // Both take ln_mode="pre" (gate_group.py:155-160, :208-209, :378-379), the
 // group of a gate that sits before its LN: the select row pass copies x
@@ -88,26 +95,52 @@
 
 namespace etk {
 
-// pos[b, i]: slot of row i among the selected rows of batch row b (index
-// order), -1 when not selected; idx[b, j]: the row in slot j, -1 when fewer
-// than kcap rows are selected. One warp per batch row scans 32 rows at a
-// time: a ballot of the selected lanes and a popcount give each its slot.
+// pos[b, i] (null: not written): slot of row i among the selected rows of
+// batch row b (index order), -1 when not selected; idx[b, j]: the token row
+// b * n + i in slot j, -1 when fewer than kcap rows are selected (a row of
+// all B x N, so that the GEMM's row functor and epilogue divide nothing).
+// One warp per batch row scans 32 rows at a time: a ballot of the selected
+// lanes and a popcount give each its slot. The scan is a chain of
+// dependent steps, so the warp loads the coverage of kCompactChunks chunks
+// of 32 rows before it scans them, and waits out one load's latency per
+// kCompactChunks chunks instead of per chunk. With ``over`` (B, N, f)
+// non-null, a selected row whose slot is beyond kcap is zeroed there, as
+// the one-hot scatter leaves it (only a given coverage selects more than
+// kcap rows).
+constexpr int kCompactChunks = 8;
+
+template <typename T>
 __global__ void compact_kernel(const float* __restrict__ cov, int* __restrict__ pos,
-                               int* __restrict__ idx, int n, int kcap) {
+                               int* __restrict__ idx, T* __restrict__ over, int n, int kcap,
+                               int f) {
   const int b = blockIdx.x, lane = threadIdx.x;
+  const int64_t row0 = (int64_t)b * n;
   int* idx_row = idx + (int64_t)b * kcap;
   for (int j = lane; j < kcap; j += 32) idx_row[j] = -1;
   __syncwarp();
   int count = 0;
-  for (int i0 = 0; i0 < n; i0 += 32) {
-    const int i = i0 + lane;
-    const int64_t r = (int64_t)b * n + i;
-    const bool sel = i < n && cov[r] > 0.f;
-    const unsigned ballot = __ballot_sync(0xffffffffu, sel);
-    const int slot = count + __popc(ballot & ((1u << lane) - 1u));
-    if (i < n) pos[r] = sel ? slot : -1;
-    if (sel && slot < kcap) idx_row[slot] = i;
-    count += __popc(ballot);
+  for (int i0 = 0; i0 < n; i0 += 32 * kCompactChunks) {
+    bool sel[kCompactChunks];
+#pragma unroll
+    for (int u = 0; u < kCompactChunks; ++u) {
+      const int i = i0 + 32 * u + lane;
+      sel[u] = i < n && cov[row0 + i] > 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kCompactChunks; ++u) {
+      const int i = i0 + 32 * u + lane;
+      const unsigned ballot = __ballot_sync(0xffffffffu, sel[u]);
+      const int slot = count + __popc(ballot & ((1u << lane) - 1u));
+      if (pos != nullptr && i < n) pos[row0 + i] = sel[u] ? slot : -1;
+      if (sel[u] && slot < kcap) idx_row[slot] = (int)(row0 + i);
+      count += __popc(ballot);
+      if (over == nullptr) continue;  // uniform over the warp
+      for (unsigned beyond = __ballot_sync(0xffffffffu, sel[u] && slot >= kcap); beyond != 0u;
+           beyond &= beyond - 1u) {
+        T* row = over + (row0 + i - lane + __ffs(beyond) - 1) * f;
+        for (int j = lane; j < f; j += 32) row[j] = from_f<T>(0.f);
+      }
+    }
   }
 }
 
@@ -220,7 +253,7 @@ int select_topk(const T* x, const T* p, const T* scale, const T* bias, float* no
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
 ln_rows_kernel(const T* __restrict__ p, const int* __restrict__ idx, const T* __restrict__ scale,
-               const T* __restrict__ bias, T* __restrict__ a, int n, int c, int kcap) {
+               const T* __restrict__ bias, T* __restrict__ a, int c) {
   extern __shared__ float smem[];
   const int64_t m = blockIdx.x;
   const int i = idx[m];  // uniform over the block
@@ -231,7 +264,7 @@ ln_rows_kernel(const T* __restrict__ p, const int* __restrict__ idx, const T* __
   }
   float* row = smem;
   float* red = smem + c;
-  load_row(p, (m / kcap) * n + i, c, row);
+  load_row(p, i, c, row);
   float mean, rstd;
   ln_stats(row, c, red, mean, rstd);
   for (int j = threadIdx.x; j < c; j += blockDim.x)
@@ -251,20 +284,17 @@ void select_pass(const T* x, T* p, const float* cov, const T* scale, const T* bi
   }
 }
 
-// Output row m = b * kcap + j reads row idx[b, j] of batch row b.
+// Output row m = b * kcap + j reads token row idx[m] (-1: a zero row).
 struct GatherRows {
   const int* idx;
-  int n, kcap;
-  __device__ __forceinline__ int64_t operator()(int m) const {
-    const int i = idx[m];
-    return i < 0 ? -1 : (int64_t)(m / kcap) * n + i;
-  }
+  __device__ __forceinline__ int64_t operator()(int m) const { return idx[m]; }
 };
 
 // Row r of width f: b'[r] = h2[slot] if selected (0 for a selected row
 // beyond kcap, as the one-hot scatter gives), else b[r]; with a residual,
 // y[r] = rnd(b'[r] + res[r]) and the next gate's norm on the rounded y
-// (gate_group.py:226-238, :394-415).
+// (gate_group.py:226-238, :394-415). pos null: b already holds b' (the
+// GEMM wrote it), and the pass only reads it.
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
 blend_kernel(const T* __restrict__ res, T* __restrict__ b, const int* __restrict__ pos,
@@ -275,7 +305,7 @@ blend_kernel(const T* __restrict__ res, T* __restrict__ b, const int* __restrict
   float* row = smem;
   float* red = smem + f;
   const int64_t r = blockIdx.x;
-  const int slot = pos[r];
+  const int slot = pos != nullptr ? pos[r] : -1;
   const T* hr = (slot >= 0 && slot < kcap) ? h2 + ((r / n) * kcap + slot) * f : nullptr;
   for (int i = threadIdx.x; i < f; i += blockDim.x) {
     const int64_t e = r * f + i;
@@ -300,21 +330,18 @@ blend_kernel(const T* __restrict__ res, T* __restrict__ b, const int* __restrict
 
 // The GEMM of the compacted rows, out = epi(rows @ W): gathered from p'
 // through idx, or, before the LN, read from the normalised scratch ``a``
-// (written here first).
-// ``call`` names the core: gate_group_mlp's GEMM1 takes the one the wrapper
-// picks, gate_group_linear (row 7) gemm.cuh's (GemmCall{}).
+// (written here first), on the core ``call`` names (the wrapper's pick).
 template <typename T, typename Epi>
 int compacted_gemm(const T* p, const int* idx, const T* scale, const T* bias, T* a, const T* w,
                    int bsz, int n, int c, int f, int kcap, int ln_mode, Epi epi, GemmCall call,
                    cudaStream_t stream) {
   const int m = bsz * kcap;
   if (ln_mode == kLnPre) {
-    ln_rows_kernel<T><<<m, kRowThreads, row_smem_bytes(c), stream>>>(p, idx, scale, bias, a, n, c,
-                                                                     kcap);
+    ln_rows_kernel<T><<<m, kRowThreads, row_smem_bytes(c), stream>>>(p, idx, scale, bias, a, c);
     ETK_CHECK_LAUNCH();
     return launch_gemm_core<T, false>(a, m, DenseRows{}, w, m, c, f, epi, call, stream);
   }
-  return launch_gemm_core<T, true>(p, (int64_t)bsz * n, GatherRows{idx, n, kcap}, w, m, c, f, epi,
+  return launch_gemm_core<T, true>(p, (int64_t)bsz * n, GatherRows{idx}, w, m, c, f, epi,
                                    call, stream);
 }
 
@@ -337,7 +364,7 @@ int gate_group_mlp(const void* x, void* p, void* b, float* cov, float* topk_norm
   select_pass<T>((const T*)x, (T*)p, cov, (const T*)ln_scale, (const T*)ln_bias, rows, c, ln_mode,
                  stream);
   ETK_CHECK_LAUNCH();
-  compact_kernel<<<bsz, 32, 0, stream>>>(cov, pos, idx, n, kcap);
+  compact_kernel<T><<<bsz, 32, 0, stream>>>(cov, pos, idx, nullptr, n, kcap, 0);
   ETK_CHECK_LAUNCH();
   const int m = bsz * kcap;
   int err = compacted_gemm<T>((const T*)p, idx, (const T*)ln_scale, (const T*)ln_bias, (T*)a,
@@ -355,16 +382,17 @@ int gate_group_mlp(const void* x, void* p, void* b, float* cov, float* topk_norm
 }
 
 // ln_mode kLnPost: p' = where(cov, ln(x), p); else p' = where(cov, x, p),
-// the compacted rows normalised for kLnPre (into the scratch ``a``). skip,
-// y, p_next and norms may be null (the qkv group has no skip; the
-// projection group emits the MLP gate's norms); topk_norms non-null: the
-// group selects its own rows, into cov.
+// the compacted rows normalised for kLnPre (into the scratch ``a``); the
+// GEMM writes b' at the selected rows. skip, y, p_next and norms may be
+// null (the qkv group has no skip, and then no row pass follows the GEMM;
+// the projection group emits the MLP gate's norms); topk_norms non-null:
+// the group selects its own rows, into cov.
 template <typename T>
 int gate_group_linear(const void* x, void* p, void* b, float* cov, float* topk_norms,
                       const void* ln_scale, const void* ln_bias, const void* w, const void* wb,
                       const void* skip, const void* p_next, const void* next_scale,
-                      const void* next_bias, void* y, float* norms, int* pos, int* idx, void* h,
-                      void* a, int bsz, int n, int c, int f, int kcap, int ln_mode,
+                      const void* next_bias, void* y, float* norms, int* idx, void* a, int bsz,
+                      int n, int c, int f, int kcap, int ln_mode, GemmCall call,
                       cudaStream_t stream) {
   const int rows = bsz * n;
   if (topk_norms != nullptr) {
@@ -376,14 +404,14 @@ int gate_group_linear(const void* x, void* p, void* b, float* cov, float* topk_n
   select_pass<T>((const T*)x, (T*)p, cov, (const T*)ln_scale, (const T*)ln_bias, rows, c, ln_mode,
                  stream);
   ETK_CHECK_LAUNCH();
-  compact_kernel<<<bsz, 32, 0, stream>>>(cov, pos, idx, n, kcap);
+  compact_kernel<T><<<bsz, 32, 0, stream>>>(cov, nullptr, idx, (T*)b, n, kcap, f);
   ETK_CHECK_LAUNCH();
-  const int err = compacted_gemm<T>((const T*)p, idx, (const T*)ln_scale, (const T*)ln_bias,
-                                    (T*)a, (const T*)w, bsz, n, c, f, kcap, ln_mode,
-                                    BiasEpilogue<T>{(const T*)wb, (T*)h, f}, GemmCall{}, stream);
-  if (err != 0) return err;
+  const int err = compacted_gemm<T>(
+      (const T*)p, idx, (const T*)ln_scale, (const T*)ln_bias, (T*)a, (const T*)w, bsz, n, c, f,
+      kcap, ln_mode, BiasScatterEpilogue<T>{(const T*)wb, idx, (T*)b, f}, call, stream);
+  if (err != 0 || skip == nullptr) return err;
   blend_kernel<T><<<rows, kRowThreads, row_smem_bytes(f), stream>>>(
-      (const T*)skip, (T*)b, pos, (const T*)h, (T*)y, (const T*)p_next, (const T*)next_scale,
+      (const T*)skip, (T*)b, nullptr, nullptr, (T*)y, (const T*)p_next, (const T*)next_scale,
       (const T*)next_bias, norms, n, f, kcap);
   ETK_CHECK_LAUNCH();
   return 0;
@@ -395,13 +423,14 @@ extern "C" int etk_gate_group_linear(int dtype, const void* x, void* p, void* b,
                                      void* topk_norms, const void* ln_scale, const void* ln_bias,
                                      const void* w, const void* wb, const void* skip,
                                      const void* p_next, const void* next_scale,
-                                     const void* next_bias, void* y, void* norms, void* pos,
-                                     void* idx, void* h, void* a, int bsz, int n, int c, int f,
-                                     int kcap, int ln_mode, void* stream) {
+                                     const void* next_bias, void* y, void* norms, void* idx,
+                                     void* a, int bsz, int n, int c, int f, int kcap, int ln_mode,
+                                     int core, int split, void* ws, void* stream) {
+  const etk::GemmCall gemm{core, split, (float*)ws};
   ETK_DISPATCH(dtype, return etk::gate_group_linear<T>(
                           x, p, b, (float*)cov, (float*)topk_norms, ln_scale, ln_bias, w, wb,
-                          skip, p_next, next_scale, next_bias, y, (float*)norms, (int*)pos,
-                          (int*)idx, h, a, bsz, n, c, f, kcap, ln_mode, (cudaStream_t)stream));
+                          skip, p_next, next_scale, next_bias, y, (float*)norms, (int*)idx, a,
+                          bsz, n, c, f, kcap, ln_mode, gemm, (cudaStream_t)stream));
 }
 
 extern "C" int etk_gate_group_mlp(int dtype, const void* x, void* p, void* b, void* cov,

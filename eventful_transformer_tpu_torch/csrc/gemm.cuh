@@ -1,9 +1,8 @@
 // Tiled shared-memory GEMM with a per-element epilogue: the matrix product
-// of row 7 (gate_group_linear) in both dtypes, and of rows 2 and 3
-// (kernels A and B), 4 (kernel C's MLP), 5 (the dense MLP), 12 and 13
-// (gate_fused.cu) in float32 and wherever ops/gemm_core.py::gemm_core does
-// not send them to the wgmma core of gemm_tc.cuh (which keeps this file's
-// contract and epilogues).
+// of rows 2 and 3 (kernels A and B), 4 (kernel C's MLP), 5 (the dense MLP),
+// 7 (gate_group_linear), 12 and 13 (gate_fused.cu) in float32 and wherever
+// ops/gemm_core.py::gemm_core does not send them to the wgmma core of
+// gemm_tc.cuh (which keeps this file's contract and epilogues).
 //
 //   out(m, n) = epi(m, n, sum_k A[arow(m), k] * W[k, n])   (float32 sum)
 //
@@ -18,7 +17,8 @@
 //     WMMA 16x16x16 fragments with float32 accumulators.
 // This is the simple first version: no TMA, wgmma or pipelining, so it is
 // bound by shared-memory traffic and latency, far below the card's
-// tensor-core peak; gemm_tc.cuh is the Hopper design row 7 can move to.
+// tensor-core peak; in bfloat16 it runs only the shapes gemm_tc.cuh
+// refuses (K off 64, N off 128, an operand off a 16-byte boundary).
 #pragma once
 
 #include <mma.h>
@@ -181,8 +181,8 @@ struct BiasGeluEpilogue {
 };
 
 // out[m, n] = rnd(acc + bias[n]): the MLP's second layer (gate_group.py:
-// 388-393), the gated linear's h (gate_group.py:210-215) and the dense
-// recompute of ln_select_matmul (gate_fused.py:86-92)
+// 388-393) and the dense recompute of ln_select_matmul (gate_fused.py:
+// 86-92)
 template <typename T>
 struct BiasEpilogue {
   const T* bias;
@@ -195,6 +195,32 @@ struct BiasEpilogue {
   }
   __device__ __forceinline__ void operator()(int m, int n, float acc) const {
     store(m, n, acc, load(m, n));
+  }
+};
+
+// The gated linear's h written straight into the token buffer
+// (gate_group.py:210-225: h = rnd(acc + bias), scattered to its row):
+// out[idx[m], f] = rnd(acc + bias[f]) for compaction slot m, idx[m] the
+// token row (of B x N) the slot holds; an empty slot (-1) writes nothing.
+// The rounding is BiasEpilogue's, so b' is the one-hot scatter's bit for
+// bit. load() reads the bias and the slot's row, so that a thread's loads
+// go out before its stores.
+template <typename T>
+struct BiasScatterEpilogue {
+  const T* bias;
+  const int* idx;
+  T* out;
+  int ld;
+  struct Loaded {
+    float bias;
+    int row;  // -1: an empty slot
+  };
+  __device__ __forceinline__ Loaded load(int m, int f) const { return {to_f(bias[f]), idx[m]}; }
+  __device__ __forceinline__ void store(int, int f, float acc, Loaded l) const {
+    if (l.row >= 0) out[(int64_t)l.row * ld + f] = from_f<T>(acc + l.bias);
+  }
+  __device__ __forceinline__ void operator()(int m, int f, float acc) const {
+    store(m, f, acc, load(m, f));
   }
 };
 

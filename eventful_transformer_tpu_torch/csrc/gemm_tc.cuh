@@ -1,8 +1,10 @@
 // The Hopper GEMM core: wgmma fed by TMA, bfloat16 operands, float32 sums,
 // the matrix product of rows 2 (kernel A's qkv), 3 (kernel B's projection),
-// 4 (gate_group_mlp), 5 (dense_mlp_residual), 12 (ln_select_matmul) and 13
-// (select_linear_skip_norms) in bfloat16. gemm.cuh's contract, so the
-// epilogues and the rounding points do not move:
+// 4 (gate_group_mlp), 5 (dense_mlp_residual), 7 (gate_group_linear, its
+// epilogue writing the token buffer at the selected rows), 12
+// (ln_select_matmul) and 13 (select_linear_skip_norms) in bfloat16.
+// gemm.cuh's contract, so the epilogues and the rounding points do not
+// move:
 //
 //   out(m, n) = epi(m, n, sum_k A[arow(m), k] * W[k, n])   (float32 sum)
 //
@@ -38,11 +40,12 @@
 //     functors' load()/store()), which would otherwise wait out one
 //     global load's latency per element;
 //   * where the tiles are fewer than the SMs (row 4's second GEMM: 18-42
-//     tiles), the K steps are split over blockIdx.z: each split writes its
-//     float32 partial tile to a workspace the wrapper allocates, and one
-//     more launch sums the splits in order and runs the epilogue once, so
-//     rnd(acc + b) keeps its order and only the float32 summation order
-//     moves. The split comes from the wrapper (ops/gemm_core.py::gemm_plan).
+//     tiles; row 7's projection: 12-24), the K steps are split over
+//     blockIdx.z: each split writes its float32 partial tile to a
+//     workspace the wrapper allocates, and one more launch sums the splits
+//     in order and runs the epilogue once, so rnd(acc + b) keeps its order
+//     and only the float32 summation order moves. The split comes from the
+//     wrapper (ops/gemm_core.py::gemm_plan).
 // ops/gemm_core.py::gemm_core is the rule that sends a call here: bfloat16,
 // K a multiple of 64, N of 128, 16-byte aligned operands; launch_gemm_tc
 // refuses anything else. The TMA descriptors are encoded through the

@@ -51,7 +51,7 @@ SIGNATURES = {
     "etk_attention_smem_bytes": [_I] * 6,
     "etk_window_attention": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P] + [_I] * 6
     + [_P],
-    "etk_gate_group_linear": [_I] + [_P] * 19 + [_I] * 6 + [_P],
+    "etk_gate_group_linear": [_I] + [_P] * 17 + [_I] * 8 + [_P, _P],
     "etk_block_select_p": [_I] + [_P] * 5 + [_I, _L, _I, _P],
     "etk_block_scatter_rows": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "etk_block_select_scatter": [_I] + [_P] * 9 + [_I] + [_P] * 6 + [_I] * 5 + [_P],

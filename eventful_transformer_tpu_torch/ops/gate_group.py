@@ -20,10 +20,12 @@ are not the two-phase path's norms before the LN, which subtract in x's
 dtype (``core/blocks.py::_select``); in bfloat16 the two sets may differ.
 Each wrapper counts its launches in ``launches`` and, by form, in
 ``form_launches``: ``ln_mode``, with ``_topk`` appended where the group
-selects its own rows. ``gate_group_mlp``'s two GEMMs take the core
-``ops/gemm_core.py::gemm_core`` picks, counted in ``core_launches``;
-``gate_group_linear``'s stays on ``csrc/gemm.cuh``. Where ``record_selection`` is a callable, each
-coverage a ``cov=None`` form selects is handed to it.
+selects its own rows. The GEMMs of both take the core
+``ops/gemm_core.py::gemm_core`` picks (bfloat16 at the paths' widths: the
+wgmma core), counted in ``core_launches``; ``gate_group_linear``'s GEMM
+writes the token buffer at the selected rows itself. Where
+``record_selection`` is a callable, each coverage a ``cov=None`` form
+selects is handed to it.
 
 ``p`` and ``b`` are updated in place, as the TPU kernels alias them. The
 selected rows are compacted in index order, as the TPU kernels' one-hot
@@ -147,7 +149,10 @@ def gate_group_linear(
     next_bias=None, *, ln_mode, kcap
 ):
     """The wrapper of :func:`gate_group_linear_plain`, which CPU tensors
-    take. CUDA tensors launch the kernels of csrc/gate_group.cu."""
+    take. CUDA tensors launch the kernels of csrc/gate_group.cu: the GEMM's
+    epilogue writes b' at the selected rows, and only a form with ``skip``
+    runs a row pass after it. The GEMM's core is counted in
+    ``core_launches``."""
     if x.device.type == "cpu":
         return gate_group_linear_plain(
             x, p, b, cov, scale, bias, w, wb, skip, p_next, next_scale, next_bias,
@@ -182,20 +187,22 @@ def gate_group_linear(
     norms = None
     if p_next is not None:
         norms = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
-    pos = torch.empty((bsz, n), dtype=torch.int32, device=x.device)
     idx = torch.empty((bsz, kcap), dtype=torch.int32, device=x.device)
-    h = torch.empty((bsz, kcap, f), dtype=x.dtype, device=x.device)
     rows = _normalised_rows(x, ln_mode, kcap)
+    core, plan = gemm_core.gemm_launch(x.dtype, bsz * kcap, c, f,
+                                       _build.aligned16(p if rows is None else rows, w))
+    ws = gemm_core.workspace([plan], x.device)
     _build.launch(
         "etk_gate_group_linear", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
         b.data_ptr(), cov.data_ptr(), _ptr(topk_norms), _ptr(scale) if ln else None,
         _ptr(bias) if ln else None, w.data_ptr(), wb.data_ptr(), _ptr(skip),
         _ptr(p_next), _ptr(next_scale), _ptr(next_bias), _ptr(y), _ptr(norms),
-        pos.data_ptr(), idx.data_ptr(), h.data_ptr(), _ptr(rows), bsz, n, c, f, kcap,
-        LN_MODES[ln_mode], _build.stream_of(x),
+        idx.data_ptr(), _ptr(rows), bsz, n, c, f, kcap, LN_MODES[ln_mode],
+        gemm_core.CORE_CODES[core], *gemm_core.split_args([plan], ws), _build.stream_of(x),
     )
     gate_group_linear.launches += 1
     gate_group_linear.form_launches[form] += 1
+    gate_group_linear.core_launches[core] += 1
     if topk_norms is not None:
         _record(cov)
     return p, b, y, norms
@@ -203,6 +210,7 @@ def gate_group_linear(
 
 gate_group_linear.launches = 0
 gate_group_linear.form_launches = _forms(LN_MODES)
+gate_group_linear.core_launches = gemm_core.new_core_counts()
 
 
 def _coverage_scratch(x, cov):

@@ -1,8 +1,8 @@
 """The GEMM cores of rows 2 (``qkv_attention_group``, kernel A), 3
 (``proj_group``, kernel B), 4 (``gate_group_mlp``), 5
-(``dense_mlp_residual``), 12 (``ln_select_matmul``) and 13
-(``select_linear_skip_norms``), the rule that picks one, and the launch
-plan.
+(``dense_mlp_residual``), 7 (``gate_group_linear``), 12
+(``ln_select_matmul``) and 13 (``select_linear_skip_norms``), the rule that
+picks one, and the launch plan.
 
 Two cores compute ``out(m, n) = epi(m, n, sum_k A[arow(m), k] W[k, n])``
 with float32 sums:
@@ -16,7 +16,7 @@ with float32 sums:
 :func:`gemm_core` is the one rule; the C side refuses what the rule would
 not send it, and a refused launch raises. Every float32 call stays on
 "simt", so the float32 card-vs-CPU checks keep their meaning. The
-wrappers of rows 2-5, 12 and 13 count their launches by core
+wrappers of rows 2-5, 7, 12 and 13 count their launches by core
 (``core_launches``).
 The TMA descriptors of the "tc" core come from one cache in the library,
 whose encodes :func:`tensor_map_encodes` reads.

@@ -363,7 +363,7 @@ def check_bodies(counts, dtype, where):
 
 def core_launches():
     """{wrapper name: {"tc": n, "wmma": n, "simt": n}} of the wrappers whose
-    GEMMs take a core by ``gemm_core.gemm_core`` (rows 2-5, 12, 13), which
+    GEMMs take a core by ``gemm_core.gemm_core`` (rows 2-5, 7, 12, 13), which
     count their launches by core."""
     return {entry[0].__name__: dict(entry[0].core_launches) for entry in KERNELS.values()
             if hasattr(entry[0], "core_launches")}

@@ -23,17 +23,27 @@ and shape, checks the kernel against its plain version
   for A; none where the version timed has none), ITERS back-to-back calls
   after 3 warm-ups, and their ratio;
 - the host microseconds of one call of each (``time.perf_counter_ns`` over
-  ITERS back-to-back calls);
+  ITERS back-to-back calls), and of one call of the kernel made with the
+  card idle (``host_idle_us``: the median of calls each after a
+  synchronisation, which no full launch queue can hold back);
 - the device microseconds of one call of the kernel: the sum of its
   kernels' times under ``torch.profiler`` over 20 calls, once per entry;
+  and the kernels one call launches (the profiler's kernel names, short,
+  each with its launches and device microseconds a call) and the device
+  allocations it makes (the caching allocator's count,
+  ``allocation.all.allocated``);
 
 each the median of ROUNDS rounds, the kernel and the library call in turns,
 since the host's times spread from one moment to the next. The timed call
 is the wrapper's alone, its arguments resolved beforehand as the library
 call's are. The entries: kernels A (``qkv_attention_group``, whose
 attention stage is the attention kernel) and B (``proj_group``) at ViViT's
-8 x 197; rows 12 (``ln_select_matmul``: "post" and "none" at the paper's
-ViViT's 12 x 197, "pre" at ViViT's 8 x 197 with its gates before LN) and
+8 x 197; row 7 (``gate_group_linear``: "post", "none" and "pre", each also
+selecting its own rows, at ViTDet-672's 2 x 1764, k = 256; "post" and
+"none" at the e2e path's one stream) and row 4 (``gate_group_mlp``, which
+shares its compaction and gathered GEMM, at 672); rows 12
+(``ln_select_matmul``: "post" and "none" at the paper's ViViT's 12 x 197,
+"pre" at ViViT's 8 x 197 with its gates before LN) and
 13 (``select_linear_skip_norms``: with the next LN at 12 x 197, without
 at 8 x 197); the attention wrappers (ViViT's 8 x 197 global attention, the
 temporal 8 x 17, ViTDet's 18 windows at 672, 9 at 672 with
@@ -76,8 +86,12 @@ CASES = [
     ("672", 2, 1764, 256, dict(window=(14, 14), pool=(21, 21), pad_window=(14, 14)),
      ("window_attention_windowed", "window_attention_grid", "window_attention_grid_noterms",
       "scatter_rows_inplace", "scatter_rows_inplace_qkv", "scatter_rows_inplace_qkv_masked",
-      "gather_rows_qkv", "scatter_blend", "scatter_blend_qkv", "block_select_p_noln")),
-    ("e2e", 1, 1764, 256, dict(window=(14, 14), pool=(21, 21)), ("window_attention_windowed",)),
+      "gather_rows_qkv", "scatter_blend", "scatter_blend_qkv", "block_select_p_noln",
+      "gate_group_linear_post", "gate_group_linear", "gate_group_linear_pre",
+      "gate_group_linear_post_topk", "gate_group_linear_topk", "gate_group_linear_pre_topk",
+      "gate_group_mlp")),
+    ("e2e", 1, 1764, 256, dict(window=(14, 14), pool=(21, 21)),
+     ("window_attention_windowed", "gate_group_linear_post", "gate_group_linear")),
     ("vivit_evblock", 12, 197, 24, dict(window=(4, 6)),
      ("ln_select_matmul_post", "ln_select_matmul_none", "select_linear_skip_norms",
       "scatter_rows_inplace_qkv", "gather_rows_qkv")),
@@ -107,9 +121,24 @@ def host_us(fn, iters=ITERS):
     return elapsed / iters / 1e3
 
 
+def host_idle_us(fn, calls=100):
+    """Host microseconds of one ``fn()`` call made with the card idle: the
+    median over ``calls`` calls, each after a synchronisation."""
+    times = []
+    for _ in range(calls + 3):
+        torch.cuda.synchronize()
+        start = time.perf_counter_ns()
+        fn()
+        times.append(time.perf_counter_ns() - start)
+    torch.cuda.synchronize()
+    return statistics.median(times[3:]) / 1e3
+
+
 def device_us(fn, calls=20):
-    """Device microseconds of one ``fn()`` call: its kernels' times summed
-    under ``torch.profiler`` over ``calls`` calls."""
+    """(device microseconds of one ``fn()`` call, {kernel: [launches,
+    microseconds] a call}): its kernels' times summed under
+    ``torch.profiler`` over ``calls`` calls, by their names cut to the
+    function's own."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -118,8 +147,25 @@ def device_us(fn, calls=20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")) / calls
+    events = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    kernels = {}
+    for e in events:
+        short = e.name.split("(")[0].split("<")[0].split("::")[-1].strip().split(" ")[-1]
+        count, us = kernels.get(short, (0, 0.0))
+        kernels[short] = (count + 1 / calls, us + e.time_range.elapsed_us() / calls)
+    return sum(e.time_range.elapsed_us() for e in events) / calls, kernels
+
+
+def allocations(fn, calls=20):
+    """Device allocations one ``fn()`` call makes (the caching allocator's
+    count, reused blocks included)."""
+    fn()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_stats()["allocation.all.allocated"] - before) / calls
 
 
 def bound(name, fn, d):
@@ -195,10 +241,13 @@ def main():
                     times["lib_us"].append(host_us(library))
             ms, us, lib_ms, lib_us = (statistics.median(v) if v else None for v in times.values())
             ratio = None if lib_ms is None else round(ms / lib_ms, 2)
-            print(tag, name, "ms", round(ms, 4), "host_us", round(us, 2), "device_us",
-                  round(device_us(call), 2),
+            dev_us, kernels = device_us(call)
+            print(tag, name, "ms", round(ms, 4), "host_us", round(us, 2), "host_idle_us",
+                  round(host_idle_us(call), 2), "device_us", round(dev_us, 2),
                   "library_ms", lib_ms and round(lib_ms, 4), "library_host_us",
-                  lib_us and round(lib_us, 2), "ratio", ratio, "within bounds", ok, flush=True)
+                  lib_us and round(lib_us, 2), "ratio", ratio, "within bounds", ok,
+                  "kernels", {k: [round(n, 2), round(t, 2)] for k, (n, t) in kernels.items()},
+                  "allocations", allocations(call), flush=True)
             del dd
         del d
         torch.cuda.empty_cache()

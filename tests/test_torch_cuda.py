@@ -1129,3 +1129,100 @@ def test_gate_fused_warm_calls_encode_no_descriptor(device):
         kernels()
     torch.cuda.synchronize()
     assert gemm_core.tensor_map_encodes() == before
+
+
+GATE_GROUP_LINEAR_FORMS = ["gate_group_linear", "gate_group_linear_post", "gate_group_linear_pre",
+                           "gate_group_linear_topk", "gate_group_linear_post_topk",
+                           "gate_group_linear_pre_topk"]
+
+
+def _recover(d, fraction, seed):
+    """``d`` with both of row 7's coverages (cov1 of the qkv forms, cov2 of
+    the projection) replaced by one of about ``fraction`` of the rows: more
+    than kcap, or fewer (empty slots)."""
+    g = torch.Generator().manual_seed(seed)
+    cov = (torch.rand(d["cov1"].shape, generator=g) < fraction).float()
+    return dict(d, cov1=cov.to(d["cov1"].device), cov2=cov.to(d["cov2"].device))
+
+
+@pytest.mark.parametrize("name", GATE_GROUP_LINEAR_FORMS)
+def test_gate_group_linear_takes_the_core_by_dtype(name, device):
+    """Row 7 against its plain version on each core: bfloat16 on the wgmma
+    core at C = 768 (the paths' width) and C = 128 (3C = 384), at ragged
+    slot counts (33 and 196 rows, each split 3 ways, and 512 rows, the
+    qkv GEMM unsplit as at 672), on WMMA at C = 64; float32 on the CUDA-core
+    tile. With the coverage given, also one of more than kcap rows (the
+    rows beyond kcap zeroed in b) and one of fewer (empty slots)."""
+    wrapper = kernel_check.KERNELS[name][0]
+    covers = (None,) if name.endswith("_topk") else (None, 0.7, 0.15)
+    cases = [(c, dtype, core, shape)
+             for c, dtype, core in ((768, torch.bfloat16, "tc"), (128, torch.bfloat16, "tc"),
+                                    (64, torch.bfloat16, "wmma"), (768, torch.float32, "simt"))
+             for shape in ((3, 37, 11), (2, 197, 98), (2, 300, 256))]
+    for c, dtype, core, (bsz, n, k) in cases:
+        d = kernel_check.make_inputs(bsz, n, c, 4, k, dtype, device, seed=11)
+        for fraction in covers:
+            dd = d if fraction is None else _recover(d, fraction, seed=c + n)
+            kernel_check.reset_launches()
+            rows = kernel_check.errors(name, dd)
+            assert all(row["ok"] for row in rows), (c, dtype, n, fraction, rows)
+            assert wrapper.core_launches == {**dict.fromkeys(("tc", "wmma", "simt"), 0), core: 1}
+
+
+def test_gate_group_linear_over_kcap_rows_are_zero(device):
+    """A given coverage of more than kcap rows on the wgmma core: the
+    selected rows beyond kcap hold zeros in the updated buffer (the
+    compaction zeroes them; the GEMM writes only the kcap slots' rows),
+    and the rows not selected keep their old values bit for bit."""
+    d = _recover(kernel_check.make_inputs(2, 197, 256, 4, 40, torch.bfloat16, device, seed=12),
+                 0.6, seed=12)
+    b = d["buf_qkv"].clone()
+    gate_group_linear = kernel_check.KERNELS["gate_group_linear_post"][0]
+    gate_group_linear(d["x"], d["p_qkv"].clone(), b, d["cov1"], d["ln1_s"], d["ln1_b"],
+                      d["w_qkv"], d["b_qkv"], ln_mode="post", kcap=40)
+    sel = d["cov1"] > 0
+    beyond = sel & (torch.cumsum(sel.int(), -1) > 40)
+    assert beyond.any()
+    assert not b[beyond].any()
+    assert torch.equal(b[~sel], d["buf_qkv"][~sel])
+
+
+def test_gate_group_linear_on_a_misaligned_state_takes_the_old_tile(device):
+    """The gate state p, which the GEMM gathers from, off a 16-byte
+    boundary: the rule routes the call to WMMA, which gives the plain
+    version's result."""
+    wrapper, plain = kernel_check.KERNELS["gate_group_linear"][:2]
+    d = kernel_check.make_inputs(2, 37, 256, 4, 11, torch.bfloat16, device, seed=13)
+    flat = torch.zeros(d["p_proj"].numel() + 1, device=device, dtype=torch.bfloat16)
+    p = flat[1:].view(d["p_proj"].shape)
+    p.copy_(d["p_proj"])
+    args = lambda p, b: (d["attn"], p, b, d["cov2"], None, None, d["w_proj"],  # noqa: E731
+                         d["b_proj"], d["x"], d["p_mlp"], d["ln2_s"], d["ln2_b"])
+    kernel_check.reset_launches()
+    got = wrapper(*args(p, d["buf_proj"].clone()), ln_mode="none", kcap=11)
+    want = plain(*args(d["p_proj"].clone(), d["buf_proj"].clone()), ln_mode="none", kcap=11)
+    assert wrapper.core_launches == {"tc": 0, "wmma": 1, "simt": 0}
+    for a, b in zip(got, want):
+        row = kernel_check.compare(a, b)
+        assert row["ok"], row
+
+
+def test_gate_group_linear_warm_calls_encode_no_descriptor(device):
+    """A warm call of each form of row 7, "pre"'s scratch of ln(p')
+    included, encodes no TMA descriptor."""
+    from eventful_transformer_tpu_torch.ops import gemm_core
+
+    d = kernel_check.make_inputs(2, 197, 256, 4, 98, torch.bfloat16, device, seed=14)
+
+    def kernels():
+        for name in GATE_GROUP_LINEAR_FORMS:
+            kernel_check._invoke(name, kernel_check.KERNELS[name][0], d)
+
+    kernel_check.reset_launches()
+    kernels()
+    assert kernel_check.core_launches()["gate_group_linear"]["tc"] == 6
+    before = gemm_core.tensor_map_encodes()
+    for _ in range(3):
+        kernels()
+    torch.cuda.synchronize()
+    assert gemm_core.tensor_map_encodes() == before
