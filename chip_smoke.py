@@ -137,7 +137,15 @@ Phases, one JSON line each, with the seconds the phase took:
                      (USE_PALLAS_BLEND) at stgt_672's buffer widths and at
                      ViViT's, with and without a mask and with a duplicated
                      index, bit for bit against its plain version, beside
-                     Tensor.scatter; stgt_672 with the switch on: launches,
+                     Tensor.scatter, each with its device microseconds a call
+                     (torch.profiler; where it catches no device event,
+                     CUDA events around calls queued behind a sleeping
+                     kernel), the share of the bound they reach,
+                     the kernels a call launches, its allocations and the
+                     host microseconds of one call and of the library call's
+                     (row_copy_readings; a call that is not one launch of
+                     scatter_blend_kernel and one allocation fails the
+                     phase); stgt_672 with the switch on: launches,
                      counted GFLOPs, tokens bit-identical to the switch-off
                      run in float32 and bfloat16, ms/frame off and on.
   24. unwired_kernels, unwired_path: the four kernels no path of the JAX
@@ -147,13 +155,16 @@ Phases, one JSON line each, with the seconds the phase took:
                      stgt_672's buffers (C and 3C, k = 256; with and
                      without a mask; float32 values into the buffer) and
                      the paper's ViViT's qkv buffer (12 views, k = 24);
-                     fused_attention at ViViT's spatial and temporal
+                     the row scatter and gather with the readings of 23
+                     (row 19, the control, one launch of scatter_rows_kernel
+                     and no allocation; row 20 one of gather_rows_kernel and
+                     one); fused_attention at ViViT's spatial and temporal
                      shapes, without and with the matmul-2 cast;
                      window_attention_grid at 672 (with and without the
                      rel-pos tables) and on 1024's padded map; the host
-                     microseconds of one bfloat16 call of the row scatter
-                     and the grid form at each shape, and of their library
-                     calls (unwired_host). Then the phase's own path,
+                     microseconds of one bfloat16 call of the grid form at
+                     each shape, and of its library call (unwired_host).
+                     Then the phase's own path,
                      counted, twice: each wrapper on those inputs in float32
                      (TF32 off) against the ported kernel that does its
                      work on the model paths: the row kernels against
@@ -452,9 +463,11 @@ def check_kernels(phase, device, cases):
                 library = kernel_check.library_call(name, d)
                 two_phase = kernel_check.two_phase_call(name, d)
                 kernel_check.reset_launches()
+                outputs = kernel_check.errors(name, d)
+                launched = kernel_check.KERNELS[name][0].launches
                 row = results[(name, dtype, tag)] = dict(
                     kernel=name, dtype=str(dtype).split(".")[-1], tag=tag, batch=bsz, n=n,
-                    outputs=kernel_check.errors(name, d),
+                    outputs=outputs,
                     ms=kernel_check.time_ms(name, d),
                     plain_ms=kernel_check.time_ms(name, d, plain=True),
                     bound_ms=bound_ms, bound_by=bound_by,
@@ -462,6 +475,8 @@ def check_kernels(phase, device, cases):
                 )
                 if two_phase is not None:
                     row["two_phase_ms"] = kernel_check.time_call(two_phase)
+                if kernel_check.KERNELS[name][0].__name__ in kernel_check.ROW_COPY_KERNELS:
+                    row.update(row_copy_readings(name, d, bound_ms, library, launched))
                 wrapper = kernel_check.KERNELS[name][0]
                 if hasattr(wrapper, "core_launches"):
                     row["core_launches"] = dict(wrapper.core_launches)
@@ -475,7 +490,36 @@ def check_kernels(phase, device, cases):
         for out in row["outputs"]:
             if not out["ok"]:
                 raise AssertionError(f"{name} {dtype} {tag} output {out['output']}: {out}")
+        if not row.get("one_launch", True):
+            raise AssertionError(f"{name} {dtype} {tag}: not one launch of its kernel and one "
+                                 f"allocation a call: {row}")
     return results
+
+
+# the allocations a call of each row-copy wrapper makes: its output (rows 18
+# and 20), none for the scatter in place (row 19)
+ROW_COPY_ALLOCATIONS = {"scatter_blend": 1, "gather_rows": 1, "scatter_rows_inplace": 0}
+
+
+def row_copy_readings(name, d, bound_ms, library, launched):
+    """Rows 18-20 (the row-copy kernels; row 19 the control) beside their
+    ``ms``: device microseconds a call (torch.profiler, or CUDA events
+    around calls queued behind a sleep where the profiler caught no device
+    event: ``kernel_check.row_copy_profile``) and the share of the bound
+    they reach, the kernels one call launches, its allocations, the host
+    microseconds of one call and of the library call's; ``one_launch``
+    false unless the call counted one launch (``launched``), allocated
+    ROW_COPY_ALLOCATIONS and, where the profiler caught its kernels,
+    launched its own kernel once."""
+    from eventful_transformer_tpu_torch.ops import kernel_check
+
+    wrapper = kernel_check.KERNELS[name][0].__name__
+    row = kernel_check.row_copy_profile(name, d, bound_ms)
+    row["one_launch"] = (row["one_launch"] is not False and launched == 1
+                         and row["allocations_per_call"] == ROW_COPY_ALLOCATIONS[wrapper])
+    row["host_us"] = kernel_check.kernel_host_us(name, d)
+    row["library_host_us"] = None if library is None else kernel_check.host_us(library)
+    return row
 
 
 # The wrappers whose GEMMs take a core by ops/gemm_core.py::gemm_core (rows
@@ -1280,8 +1324,10 @@ def kernel_row(name, row, launches, path):
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
     )
-    if "two_phase_ms" in row:
-        out["two_phase_ms"] = row["two_phase_ms"]
+    for key in ("two_phase_ms", "device_us", "device_us_by", "bound_share", "host_us",
+                "library_host_us"):
+        if key in row:
+            out[key] = row[key]
     return out
 
 
@@ -2569,11 +2615,10 @@ def grid_against_partitioned(d):
 
 
 # the entries whose host microseconds a call the final line's rows carry
-# (rows 15 and 19 at every shape; their library calls beside them), by case
+# (row 15 at every shape; its library call beside it), by case; rows 18-20
+# carry theirs from check_kernels (row_copy_readings)
 UNWIRED_HOST = {
-    "672": ("scatter_rows_inplace", "scatter_rows_inplace_qkv", "scatter_rows_inplace_qkv_masked",
-            "window_attention_grid", "window_attention_grid_noterms"),
-    "vivit_evblock": ("scatter_rows_inplace_qkv",),
+    "672": ("window_attention_grid", "window_attention_grid_noterms"),
     "1024": ("window_attention_grid",),
 }
 

@@ -60,6 +60,7 @@
 
 #include <type_traits>
 
+#include "async_copy.cuh"
 #include "common.cuh"
 #include "gemm.cuh"
 
@@ -80,39 +81,6 @@ constexpr size_t kGemmTcSmem =
     1024 /* alignment slack */ + kGemmTcRingBytes + 2 * kGemmTcStages * sizeof(uint64_t);
 
 // -- PTX wrappers --------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity ``parity``.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1) {
@@ -219,7 +187,7 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant_
       mbar_init(smem_u32(&full[s]), kGather ? 1 + 64 : 1);
       mbar_init(smem_u32(&empty[s]), 8);  // the consumers' 8 warps
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
 
@@ -296,7 +264,7 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant_
   for (int it = 0; it < steps; ++it) {
     mbar_wait(smem_u32(&full[stage]), phase);
     // cp.async wrote A through the generic proxy; wgmma reads through the async one
-    if (kGather) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (kGather) fence_proxy_async();
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
     const uint32_t a = smem_u32(s_a + stage * kGemmTcABytes) + wg * 64 * 128;
     const uint32_t b = smem_u32(s_b + stage * kGemmTcBBytes);
@@ -322,7 +290,7 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant_
   // Both warpgroups are done with the ring (every load it was given has
   // landed and been read) before the accumulators are staged over it.
   named_sync(1, 256);
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_proxy_async();
   // accumulator (j, i, e) of thread (warp, lane): row 16 warp + lane / 4 + 8 i,
   // column 8 j + 2 (lane % 4) + e
   float* c_rows = reinterpret_cast<float*>(smem) + (wg * 64) * kGemmTcLdc;

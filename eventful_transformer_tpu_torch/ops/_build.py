@@ -61,9 +61,9 @@ SIGNATURES = {
     "etk_ln_select_matmul": [_I] + [_P] * 9 + [_L] + [_I] * 5 + [_P, _P],
     "etk_select_linear_skip_norms": [_I] + [_P] * 11 + [_L] + [_I] * 5 + [_P, _P],
     "etk_softmax_select_matmul_logits": [_I, _I] + [_P] * 6 + [_I] * 7 + [_P],
-    "etk_scatter_blend": [_I] + [_P] * 5 + [_I] * 4 + [_P],
+    "etk_scatter_blend": [_I, _I, _P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
     "etk_scatter_rows": [_I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
-    "etk_gather_rows": [_I, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    "etk_gather_rows": [_I, _P, _P, _I, _P] + [_I] * 7 + [_P],
     "etk_fused_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "etk_window_attention_grid": [_I, _I] + [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P],
     "etk_gemm_tc": [_P] * 5 + [_I] * 5 + [_P],

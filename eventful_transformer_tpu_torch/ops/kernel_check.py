@@ -1026,9 +1026,14 @@ def io_bytes(name, d):
     if name in ("gate_group_linear_post_topk", "gate_group_linear_pre_topk"):
         return (read("x", "p_qkv", "ln1_s", "ln1_b", "w_qkv", "b_qkv")
                 + rows("p_qkv", "cov1") + rows("buf_qkv", "cov1"))
-    if name.startswith("scatter_blend"):
+    if name.startswith("scatter_blend"):  # x, the indices and the valid slots' values
         x, values, index, mask = BLEND_INPUTS[name]
-        return read(x, values, index, *(() if mask is None else (mask,))) + _nbytes(d[x])
+        valid = (d[index] >= 0) & (d[index] < n)
+        if mask is not None:
+            valid = valid & d[mask]
+        value_row = d[values].shape[-1] * d[values].element_size()
+        return (read(x, index, *(() if mask is None else (mask,))) + _nbytes(d[x])
+                + float(valid.sum()) * value_row)
     if name in ROWS_INPUTS:  # the rows of the valid slots, read once and written once
         buf, values, index, mask = ROWS_INPUTS[name]
         slots = d[index].numel() if mask is None else float(d[mask].sum())
@@ -1266,6 +1271,99 @@ def host_us(fn, iters=200, warmup=3):
     elapsed = time.perf_counter_ns() - start
     torch.cuda.synchronize()
     return elapsed / iters / 1e3
+
+
+# The kernel each row-copy wrapper launches once a call (rows 18-20), by the
+# name the profiler gives it, cut as :func:`device_us` cuts it.
+ROW_COPY_KERNELS = {
+    "scatter_blend": "scatter_blend_kernel",
+    "scatter_rows_inplace": "scatter_rows_kernel",
+    "gather_rows": "gather_rows_kernel",
+}
+
+
+def device_us(fn, calls=20):
+    """(device microseconds of one ``fn()`` call, {kernel: launches a
+    call}) under ``torch.profiler`` over ``calls`` calls, each kernel by its
+    name cut to the function's own (``void etk::gather_rows_kernel(...)`` ->
+    ``gather_rows_kernel``): its launches a call, its events' count over
+    the calls rounded (the profiler may drop an event of the first or last
+    call), and its mean time an event times those launches, summed. A
+    trace that caught no device event at all is taken again, twice at
+    most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    kernels = {}  # name -> [events, microseconds]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+                continue
+            short = e.name.split("(")[0].split("<")[0].split("::")[-1].strip().split(" ")[-1]
+            seen = kernels.setdefault(short, [0, 0.0])
+            seen[0] += 1
+            seen[1] += e.time_range.elapsed_us()
+        if kernels:
+            break
+    launches = {short: round(count / calls) for short, (count, _) in kernels.items()}
+    us = sum(t / count * launches[short] for short, (count, t) in kernels.items())
+    return us, {short: n for short, n in launches.items() if n}
+
+
+def queued_device_us(fn, calls=20, sleep_cycles=20_000_000):
+    """Device microseconds of one ``fn()`` call from CUDA events around
+    ``calls`` calls queued behind a kernel that sleeps ``sleep_cycles``
+    cycles (about 10 ms), so that the card runs them back to back whatever
+    the host's pace: the kernels' times and the gaps between launches."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / calls
+
+
+def allocations(fn, calls=20):
+    """Device allocations one ``fn()`` call makes (the caching allocator's
+    count, reused blocks included)."""
+    fn()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_stats()["allocation.all.allocated"] - before) / calls
+
+
+def row_copy_profile(name, d, bound_ms):
+    """Entry ``name`` of rows 18-20 on ``d`` profiled: its device
+    microseconds a call (:func:`device_us`; where the profiler caught no
+    device event, :func:`queued_device_us`, as ``device_us_by`` says), the
+    share of the card's bound ``bound_ms`` they reach, the kernels a call
+    launches, its device allocations a call, and whether it launches
+    exactly its own kernel once a call (None where the profiler caught
+    nothing)."""
+    fn = KERNELS[name][0]
+    d = {key: v.clone() if torch.is_tensor(v) else v for key, v in d.items()}
+    call = lambda: _invoke(name, fn, d)  # noqa: E731
+    us, kernels = device_us(call)
+    by = "profiler"
+    if not kernels:
+        us, by = queued_device_us(call), "events behind a sleep"
+    return dict(
+        device_us=us, device_us_by=by, bound_share=bound_ms * 1e3 / us,
+        kernels_per_call=kernels or None, allocations_per_call=allocations(call),
+        one_launch=kernels == {ROW_COPY_KERNELS[fn.__name__]: 1} if kernels else None,
+    )
 
 
 def kernel_host_us(name, d, iters=200, warmup=3):

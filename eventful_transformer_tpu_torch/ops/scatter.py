@@ -17,8 +17,9 @@ kernels require, so the same calls are valid in both packages.
 No path of the JAX package calls these kernels (its ``put_rows`` and
 ``take_rows`` are index ops or the scatter-blend); the port's are held
 against ``core/indexing.py::put_rows`` and ``take_rows`` by
-``chip_smoke.py``. The CUDA kernels are ``csrc/scatter.cu``; each wrapper
-counts its launches in ``launches``.
+``chip_smoke.py``. The CUDA kernels are ``csrc/scatter.cu`` (the gather a
+bulk row copy, planned by ``ops/row_copy.py``); each wrapper counts its
+launches in ``launches``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from eventful_transformer_tpu_torch.ops import _build
+from eventful_transformer_tpu_torch.ops.row_copy import gather_plan
 
 LANE = 128
 _INDEX_DTYPES = (torch.int32, torch.int64)
@@ -135,15 +137,20 @@ def scatter_rows_inplace(buffer, values, index, mask=None):
 
 def gather_rows(buffer, index):
     """The wrapper of :func:`gather_rows_plain`, which CPU tensors take.
-    CUDA tensors launch the kernel of csrc/scatter.cu."""
-    if buffer.device.type == "cpu":
+    CUDA tensors launch the bulk row-copy kernel of csrc/scatter.cu with
+    its plan from ``row_copy.gather_plan``: one allocation (the rows) and
+    one launch, none where there are no slots."""
+    if buffer.is_cpu:
         return gather_rows_plain(buffer, index)
     name = "gather_rows"
     (bsz, n, c, k), (code, _), (buffer_ptr, _, index_ptr, _) = _check_cuda(name, buffer, index)
     rows = torch.empty((bsz, k, c), dtype=buffer.dtype, device=buffer.device)
+    plan = gather_plan(c, buffer.element_size(), bsz, k)
+    if plan is None:
+        return rows
     _build.launch(
         "etk_gather_rows", code, buffer_ptr, index_ptr, int(index.dtype == torch.int64),
-        rows.data_ptr(), bsz, n, c, k, _build.stream_of(buffer),
+        rows.data_ptr(), bsz, n, c, k, plan.per, plan.stages, plan.grid, _build.stream_of(buffer),
     )
     gather_rows.launches += 1
     return rows

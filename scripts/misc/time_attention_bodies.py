@@ -27,7 +27,9 @@ and shape, checks the kernel against its plain version
   card idle (``host_idle_us``: the median of calls each after a
   synchronisation, which no full launch queue can hold back);
 - the device microseconds of one call of the kernel: the sum of its
-  kernels' times under ``torch.profiler`` over 20 calls, once per entry;
+  kernels' times under ``torch.profiler`` over 20 calls, once per entry,
+  beside the card's bound for the same work (``kernel_check.bound``) and
+  the share of it they reach;
   and the kernels one call launches (the profiler's kernel names, short,
   each with its launches and device microseconds a call) and the device
   allocations it makes (the caching allocator's count,
@@ -50,15 +52,17 @@ temporal 8 x 17, ViTDet's 18 windows at 672, 9 at 672 with
 one stream, 50 at 1024, plain and padded; ``window_attention_grid`` on the
 672 map, with and without the rel-pos tables, and on 1024's padded one)
 and the row kernels whose host time is most of a call (rows 19
-``scatter_rows_inplace``, 20 ``gather_rows``, 18 ``scatter_blend``, 14
+``scatter_rows_inplace``, 20 ``gather_rows``, 18 ``scatter_blend`` at
+stgt_672's C, 3C and 4C (masked) buffers and at ViViT's 8 x 197, 14
 ``ln_select`` and 10 ``block_select_p`` without the LN, 11
 ``block_scatter_rows``). ``--case=TAG`` (repeatable) times only the
 cases of those tags (``vivit``, ``temporal``, ``672``, ``e2e``,
-``vivit_evblock``, ``vivit_pre_ln``, ``1024``). ``--breakdown`` (the checkout's own version
-only) adds where the host time of one ``scatter_rows_inplace`` call at
-C = 768 goes: its operand checks, the stream read, the C call, and the old
-stream read through ``torch.cuda.current_stream`` for comparison. Needs a
-CUDA device.
+``vivit_evblock``, ``vivit_blend``, ``vivit_pre_ln``, ``1024``).
+``--breakdown`` (the checkout's own version only) adds where the host time
+of one ``scatter_rows_inplace`` call at C = 768 and of one ``gather_rows``
+call at 3C goes: the operand checks, the stream read, the plan, the
+allocation, the C call, and the old stream read through
+``torch.cuda.current_stream`` for comparison. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -86,7 +90,8 @@ CASES = [
     ("672", 2, 1764, 256, dict(window=(14, 14), pool=(21, 21), pad_window=(14, 14)),
      ("window_attention_windowed", "window_attention_grid", "window_attention_grid_noterms",
       "scatter_rows_inplace", "scatter_rows_inplace_qkv", "scatter_rows_inplace_qkv_masked",
-      "gather_rows_qkv", "scatter_blend", "scatter_blend_qkv", "block_select_p_noln",
+      "gather_rows_qkv", "scatter_blend", "scatter_blend_qkv", "scatter_blend_wide",
+      "block_select_p_noln",
       "gate_group_linear_post", "gate_group_linear", "gate_group_linear_pre",
       "gate_group_linear_post_topk", "gate_group_linear_topk", "gate_group_linear_pre_topk",
       "gate_group_mlp")),
@@ -95,6 +100,7 @@ CASES = [
     ("vivit_evblock", 12, 197, 24, dict(window=(4, 6)),
      ("ln_select_matmul_post", "ln_select_matmul_none", "select_linear_skip_norms",
       "scatter_rows_inplace_qkv", "gather_rows_qkv")),
+    ("vivit_blend", 8, 197, 98, dict(window=(4, 6)), ("scatter_blend", "scatter_blend_qkv")),
     ("vivit_pre_ln", 8, 197, 98, dict(window=(4, 6)),
      ("ln_select_matmul_pre", "select_linear_skip_norms_noln")),
     ("1024", 2, 4096, 256,
@@ -184,13 +190,20 @@ def bound(name, fn, d):
 
 
 def breakdown(device):
-    """Host microseconds of the pieces of one scatter_rows_inplace call."""
-    from eventful_transformer_tpu_torch.ops import scatter
+    """Host microseconds of the pieces of one scatter_rows_inplace call at
+    C = 768 and of one gather_rows call at 3C, each beside its library
+    call."""
+    from eventful_transformer_tpu_torch.ops import row_copy, scatter
 
     d = kernel_check.make_inputs(2, 1764, 768, 12, 256, torch.bfloat16, device, seed=0)
     buf, values, index = d["rows_buf"].clone(), d["rows_vals"], d["rows_index"]
     args = (_build.dtype_code(buf), _build.dtype_code(values), buf.data_ptr(), values.data_ptr(),
             index.data_ptr(), 0, 0, 2, 1764, 768, 256, _build.stream_of(buf))
+    qkv = d["rows_buf_qkv"]
+    plan = row_copy.gather_plan(2304, 2, 2, 256)
+    rows = torch.empty((2, 256, 2304), dtype=qkv.dtype, device=device)
+    gather_args = (1, qkv.data_ptr(), index.data_ptr(), 0, rows.data_ptr(), 2, 1764, 2304, 256,
+                   plan.per, plan.stages, plan.grid, _build.stream_of(qkv))
     pieces = {
         "wrapper": lambda: scatter.scatter_rows_inplace(buf, values, index),
         "checks": lambda: scatter._check_cuda("scatter_rows_inplace", buf, index, values),
@@ -198,6 +211,14 @@ def breakdown(device):
         "current_stream (old)": lambda: torch.cuda.current_stream(buf.device).cuda_stream,
         "launch (C call + kernel launch)": lambda: _build.launch("etk_scatter_rows", *args),
         "Tensor.scatter_": kernel_check.library_call("scatter_rows_inplace", d),
+        "gather_rows wrapper": lambda: scatter.gather_rows(qkv, index),
+        "gather_rows checks": lambda: scatter._check_cuda("gather_rows", qkv, index),
+        "gather_rows plan (cached)": lambda: row_copy.gather_plan(2304, 2, 2, 256),
+        "gather_rows torch.empty": lambda: torch.empty((2, 256, 2304), dtype=qkv.dtype,
+                                                       device=device),
+        "gather_rows launch (C call + kernel launch)":
+            lambda: _build.launch("etk_gather_rows", *gather_args),
+        "torch.gather": kernel_check.library_call("gather_rows_qkv", d),
     }
     for label, fn in pieces.items():
         print("breakdown", label, "host_us", round(host_us(fn), 3), flush=True)
@@ -242,8 +263,11 @@ def main():
             ms, us, lib_ms, lib_us = (statistics.median(v) if v else None for v in times.values())
             ratio = None if lib_ms is None else round(ms / lib_ms, 2)
             dev_us, kernels = device_us(call)
+            bound_us = kernel_check.bound(name, d)[0] * 1e3
             print(tag, name, "ms", round(ms, 4), "host_us", round(us, 2), "host_idle_us",
                   round(host_idle_us(call), 2), "device_us", round(dev_us, 2),
+                  "bound_us", round(bound_us, 2),
+                  "bound_share", round(bound_us / dev_us, 3) if dev_us else None,
                   "library_ms", lib_ms and round(lib_ms, 4), "library_host_us",
                   lib_us and round(lib_us, 2), "ratio", ratio, "within bounds", ok,
                   "kernels", {k: [round(n, 2), round(t, 2)] for k, (n, t) in kernels.items()},

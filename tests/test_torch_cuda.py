@@ -812,6 +812,102 @@ def test_row_kernels_launch_on_the_current_stream(device):
     assert torch.equal(rows.cpu(), gather_rows(want, index.cpu()))
 
 
+
+# -- the bulk row-copy kernels of rows 18 and 20 -------------------------------------------
+
+ROW_COPY_WIDTHS = [128, 768, 2304, 3072, 8192]
+ROW_COPY_SLOTS = [0, 1, 24, 256, "N"]
+ROW_COPY_N = 300  # rows a batch row: no multiple of any plan's tile
+
+
+def _row_copy_inputs(c, k, dtype, values_dtype, index_dtype, device, seed=0):
+    """x (2, N, C), values (2, k, C), a (2, k) index naming distinct rows
+    but for the planted slots: -1, N, and slot 3 naming slot 0's row (a
+    duplicate); a mask of about 80 % of the slots; all on the card."""
+    k = ROW_COPY_N if k == "N" else k
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((2, ROW_COPY_N, c), generator=g).to(dtype)
+    values = torch.randn((2, k, c), generator=g).to(values_dtype)
+    index = torch.stack([torch.randperm(ROW_COPY_N, generator=g)[:k] for _ in range(2)])
+    if k > 3:
+        index[0, 1], index[1, 2], index[0, 3] = -1, ROW_COPY_N, index[0, 0]
+    mask = torch.rand((2, k), generator=g) < 0.8
+    return x.to(device), values.to(device), index.to(device, index_dtype), mask.to(device)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "masked"])
+@pytest.mark.parametrize("k", ROW_COPY_SLOTS, ids=lambda k: f"k{k}")
+@pytest.mark.parametrize("c", ROW_COPY_WIDTHS, ids=lambda c: f"c{c}")
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)],
+                         ids=["f32", "bf16", "bf16_f32_values"])
+def test_scatter_blend_matches_plain_bit_for_bit(dtypes, c, k, masked, device):
+    """Row 18 against its plain version at every width and slot count, with
+    a masked slot set, indices -1 and N, a duplicated index (-x + v1 + v2)
+    and float32 values into a bfloat16 x (cast in the kernel): equal
+    element for element, one launch a call."""
+    from eventful_transformer_tpu_torch.ops.scatter_blend import scatter_blend, scatter_blend_plain
+
+    x, values, index, mask = _row_copy_inputs(c, k, *dtypes, torch.int64, device)
+    mask = mask if masked else None
+    before = scatter_blend.launches
+    got = scatter_blend(x, values, index, mask)
+    assert scatter_blend.launches == before + 1
+    assert torch.equal(got, scatter_blend_plain(x, values, index, mask))
+
+
+@pytest.mark.parametrize("k", ROW_COPY_SLOTS, ids=lambda k: f"k{k}")
+@pytest.mark.parametrize("c", ROW_COPY_WIDTHS, ids=lambda c: f"c{c}")
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gather_rows_matches_plain_bit_for_bit(dtype, index_dtype, c, k, device):
+    """Row 20 against its plain version at every width and slot count, int32
+    and int64 indices, with indices -1 and N (rows of zeros): equal byte
+    for byte, one launch a call (none without slots)."""
+    from eventful_transformer_tpu_torch.ops.scatter import gather_rows, gather_rows_plain
+
+    x, _, index, _ = _row_copy_inputs(c, k, dtype, dtype, index_dtype, device)
+    before = gather_rows.launches
+    got = gather_rows(x, index)
+    assert gather_rows.launches == before + (1 if index.numel() else 0)
+    assert got.shape == (2, index.shape[1], c)
+    assert torch.equal(got, gather_rows_plain(x, index))
+
+
+@pytest.mark.parametrize("c", [3, 100, 128], ids=lambda c: f"c{c}")
+def test_scatter_blend_off_16_byte_words_matches_plain(c, device):
+    """Row 18 where the bulk copies cannot go: rows that are no whole
+    16-byte words (C = 3, 100 in bfloat16) and an x off a 16-byte boundary
+    (a view one element into a larger tensor): the block's threads blend
+    each element, equal to the plain version."""
+    from eventful_transformer_tpu_torch.ops.scatter_blend import scatter_blend, scatter_blend_plain
+
+    x, values, index, mask = _row_copy_inputs(c, 24, torch.bfloat16, torch.bfloat16, torch.int64,
+                                              device)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
+    offset = flat[1:].view(x.shape)
+    offset.copy_(x)
+    for xx in (x, offset):
+        assert torch.equal(scatter_blend(xx, values, index, mask),
+                           scatter_blend_plain(xx, values, index, mask))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["scatter_blend", "scatter_blend_qkv", "scatter_blend_masked",
+                                  "gather_rows", "gather_rows_qkv", "scatter_rows_inplace",
+                                  "scatter_rows_inplace_qkv_masked"])
+def test_row_copy_kernels_launch_once_and_allocate_their_output(name, dtype, device):
+    """Rows 18 and 20 launch their one kernel once a call and allocate only
+    their output; row 19, the control, still launches scatter_rows_kernel
+    once a call and allocates nothing (kernel_check.row_copy_profile)."""
+    d = kernel_check.make_inputs(2, 197, 256, 4, 24, dtype, device)
+    row = kernel_check.row_copy_profile(name, d, kernel_check.bound(name, d)[0])
+    wrapper = kernel_check.KERNELS[name][0].__name__
+    assert row["kernels_per_call"] == {kernel_check.ROW_COPY_KERNELS[wrapper]: 1}, row
+    assert row["one_launch"], row
+    assert row["allocations_per_call"] == (0 if wrapper == "scatter_rows_inplace" else 1), row
+    assert row["device_us"] > 0 and 0 < row["bound_share"]
+
 # -- the wgmma GEMM core of rows 4 and 5 -------------------------------------------------
 
 
