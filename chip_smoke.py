@@ -57,7 +57,13 @@ Phases, one JSON line each, with the seconds the phase took:
   6. vitdet_kernels: the kernels of the ViTDet path at its shapes (N = 1764,
                      2 streams, 18 windows of 196 tokens; the rel-pos bias
                      add over 1764 keys (dense) and 441 (pooled)), and of
-                     the end-to-end path at one stream, as in 3.
+                     the end-to-end path at one stream, as in 3; the A.V
+                     kernel (softmax_select_matmul, row 8) with the body
+                     each call took (av_softmax.av_softmax_body: bfloat16
+                     on the tensor cores, float32 on the CUDA cores,
+                     checked) and its device microseconds a call (CUDA
+                     events around calls queued behind a sleeping kernel)
+                     beside its bound, in every kernels phase it runs in.
   7. vitdet_slice:   eventful spatiotemporal_672 and dense base_672, 2
                      streams x 16 frames in bfloat16, with launch counts and
                      counted GFLOPs per frame against the JAX package's; one
@@ -69,7 +75,8 @@ Phases, one JSON line each, with the seconds the phase took:
                      of 196 tokens with pad rows, 1024 pooled keys, the
                      rel-pos bias add over 4096 and 1024 keys); the kernels
                      phase also holds softmax_select_matmul at 441 pooled
-                     keys, the shape the 672 float32 check runs it at.
+                     keys, the shape the 672 float32 check runs it at,
+                     each with its body and device microseconds, as in 6.
   12. vitdet_e2e:    spatiotemporal_672 and base_672 through ViTDet.apply, one
                      stream, a flush frame then 8 frames, bfloat16: launch
                      counts, counted GFLOPs per frame against the JAX
@@ -87,7 +94,9 @@ Phases, one JSON line each, with the seconds the phase took:
                      ln_select_matmul in its "post" and "none" forms,
                      select_linear_skip_norms, ln_select and the A.V kernel's
                      logits form (197 keys; with rel-pos terms at
-                     ViTDet-1024's pooled shape, 4096 x 1024), as in 3.
+                     ViTDet-1024's pooled shape, 4096 x 1024), as in 3,
+                     the A.V kernel with its body and device microseconds
+                     as in 6.
   14. vivit_evblock_slice: one raw uint8 clip (10 s, 25 fps, 224 x 398) through
                      FactorizedViViT.apply in bfloat16 under "auto" ("v2mlp"),
                      the forced "v1", "v1v2" and "v3", the cached q.kT product
@@ -181,11 +190,15 @@ Phases, one JSON line each, with the seconds the phase took:
                      launches of each run are read by body.
   25. attention_bodies: the launches of window_attention, fused_attention,
                      window_attention_grid and kernel A
-                     (qkv_attention_group), by body, of every counted run
-                     above; each run was checked as it was read: in
-                     bfloat16 only the tensor-core body
-                     (csrc/attention_tc.cuh), in float32 only the CUDA-core
-                     one (window_attention.attention_body's rule).
+                     (qkv_attention_group), and of the A.V kernel's two
+                     forms (softmax_select_matmul and its logits form), by
+                     body, of every counted run above; each run was checked
+                     as it was read: in bfloat16 only the tensor-core
+                     bodies (csrc/attention_tc.cuh, csrc/av_softmax_tc.cuh),
+                     in float32 (the A.V kernel's matmul-2 cast included)
+                     only the CUDA-core ones (window_attention.
+                     attention_body's and av_softmax.av_softmax_body's
+                     rules).
   26. gemm_cores:     the GEMM rows' launches (kernels A and B, the MLP
                      rows, rows 12 and 13) by core of every counted run
                      above, each checked
@@ -465,6 +478,7 @@ def check_kernels(phase, device, cases):
                 kernel_check.reset_launches()
                 outputs = kernel_check.errors(name, d)
                 launched = kernel_check.KERNELS[name][0].launches
+                bodies = dict(getattr(kernel_check.KERNELS[name][0], "body_launches", {}))
                 row = results[(name, dtype, tag)] = dict(
                     kernel=name, dtype=str(dtype).split(".")[-1], tag=tag, batch=bsz, n=n,
                     outputs=outputs,
@@ -477,6 +491,9 @@ def check_kernels(phase, device, cases):
                     row["two_phase_ms"] = kernel_check.time_call(two_phase)
                 if kernel_check.KERNELS[name][0].__name__ in kernel_check.ROW_COPY_KERNELS:
                     row.update(row_copy_readings(name, d, bound_ms, library, launched))
+                if name.startswith("softmax_select_matmul"):
+                    row.update(av_readings(name, d, bound_ms, bodies, dtype,
+                                           f"{phase} {name} {tag}"))
                 wrapper = kernel_check.KERNELS[name][0]
                 if hasattr(wrapper, "core_launches"):
                     row["core_launches"] = dict(wrapper.core_launches)
@@ -494,6 +511,26 @@ def check_kernels(phase, device, cases):
             raise AssertionError(f"{name} {dtype} {tag}: not one launch of its kernel and one "
                                  f"allocation a call: {row}")
     return results
+
+
+def av_readings(name, d, bound_ms, bodies, dtype, where):
+    """Row 8 (the A.V kernel) beside its ``ms``: ``bodies``, the launches by
+    body of its checked call (checked: by ``av_softmax.av_softmax_body``,
+    bfloat16 only the tensor-core body, float32 and the matmul-2 cast only
+    the CUDA-core one), and its device microseconds a call from CUDA events
+    around calls queued behind a sleeping kernel
+    (``kernel_check.queued_device_us``), with the share of the bound they
+    reach."""
+    from eventful_transformer_tpu_torch.ops import kernel_check
+
+    wrapper = kernel_check.KERNELS[name][0]
+    want = "tc" if dtype == torch.bfloat16 and d["p_a"].dtype == torch.bfloat16 else "simt"
+    if bodies[want] != 1 or sum(bodies.values()) != 1:
+        raise AssertionError(f"{where}: body launches {bodies}, expected one {want} launch")
+    dd = {key: v.clone() if torch.is_tensor(v) else v for key, v in d.items()}
+    us = kernel_check.queued_device_us(lambda: kernel_check._invoke(name, wrapper, dd))
+    return dict(body_launches=bodies, device_us=us, device_us_by="events behind a sleep",
+                bound_share=bound_ms * 1e3 / us)
 
 
 # the allocations a call of each row-copy wrapper makes: its output (rows 18
@@ -724,9 +761,10 @@ def read_form_launches():
             if hasattr(fn, "form_launches")}
 
 
-# The attention launches of each counted run by wrapper and body (the
-# wrappers that reach csrc/attention.cuh: window_attention, fused_attention
-# and kernel A's qkv_attention_group), emitted by phase attention_bodies;
+# The launches of each counted run by wrapper and body (the wrappers that
+# reach csrc/attention.cuh: window_attention, fused_attention and kernel A's
+# qkv_attention_group; the A.V kernel's two wrappers, csrc/av_softmax.cu),
+# emitted by phase attention_bodies;
 # the GEMM rows' launches (GEMM_ROWS) by GEMM core, emitted by phase
 # gemm_cores.
 BODIES = []
@@ -735,9 +773,10 @@ CORES = []
 
 def read_routes(dtype, where):
     """The launches of the run just made by route, checked: the attention
-    kernel's by body, in bfloat16 every one on the tensor-core body, in
-    float32 on the CUDA-core body (``window_attention.attention_body`` at
-    the paths' shapes); the GEMM rows' by GEMM core, in bfloat16 every one on
+    and A.V kernels' by body, in bfloat16 every one on the tensor-core
+    body, in float32 on the CUDA-core body (``window_attention.
+    attention_body`` and ``av_softmax.av_softmax_body`` at the paths'
+    shapes); the GEMM rows' by GEMM core, in bfloat16 every one on
     the wgmma core, in float32 on the CUDA-core tile
     (``gemm_core.gemm_core``). Kept in BODIES and CORES; returns the body
     counts."""
@@ -760,8 +799,8 @@ def model_dtype(model):
 
 
 def phase_attention_bodies():
-    """Every counted run's attention launches by body (each checked as it
-    was read)."""
+    """Every counted run's attention and A.V launches by body (each checked
+    as it was read)."""
     tc, simt = (sum(c[body] for row in BODIES for c in row["launches"].values())
                 for body in ("tc", "simt"))
     emit("attention_bodies", runs=BODIES, tc_launches=tc, simt_launches=simt)
@@ -1325,7 +1364,7 @@ def kernel_row(name, row, launches, path):
         bound_by=row["bound_by"], library_ms=row["library_ms"],
     )
     for key in ("two_phase_ms", "device_us", "device_us_by", "bound_share", "host_us",
-                "library_host_us"):
+                "library_host_us", "body_launches"):
         if key in row:
             out[key] = row[key]
     return out

@@ -21,36 +21,43 @@
 // bf16), writes its selected columns back, and does 2 x 6.4 G multiply-adds;
 // the logits and the softmax never leave the SM.
 //
-// The TPU kernel takes a (512, Np) row block per grid step. Here one block
-// of 16 warps per (batch x head, 32 query rows): the tile's float32 logits
-// stay resident in shared memory (32 x 1044 floats, 134 KB at Np = 1024;
-// 16 rows when 32 do not fit), built chunk by chunk over 128 keys of k
-// staged in shared memory. Each warp then takes whole rows for the softmax
-// and the select: the old p_a values are loaded eight per lane at a time
-// (a row's loads in flight together, not one round trip per 32 columns),
-// p' goes back over the row's logits as float32, and a last shared-memory
-// pass packs it to S in place (each 32-column chunk is read before any
-// lane writes it, so the packing is safe). The block then streams p_v
-// through shared memory in 128-key chunks for the A.V product. Both
-// products run on the tensor cores through WMMA 16x16x16 fragments with
-// float32 accumulators where their inputs are bfloat16, and on the CUDA
-// cores in float32 otherwise, as float32 parity requires. Np need not be a
-// multiple of anything (441 at 672): the chunks are zero-filled past Np and
-// the products cover Np rounded up to 16. The logits form loads the tile's
-// logits from device memory (tm x Np values of S) in place of step 1 and is
-// otherwise the same kernel (template flag kLogits). The simple first
-// version: no TMA, wgmma or pipelining, one block per SM at Np = 1024.
+// Two bodies, picked by ops/av_softmax.py::av_softmax_body and refused by
+// the C entries where the rule does not send them:
+//   * "tc" (av_softmax_tc.cuh), every bfloat16 call (W = S = bfloat16, d a
+//     multiple of 16 up to 64, k and p_v on 16-byte boundaries): wgmma
+//     products, the logits in registers a 64-key chunk at a time over three
+//     exact passes, K, V, p_a and the logits streamed by cp.async; what
+//     bounds it and how it meets that is its header's;
+//   * "simt" (below), float32 and the matmul-2 cast (float32 W, bfloat16
+//     S), so that the float32 card-vs-CPU checks keep their meaning.
+//
+// The CUDA-core body, as it was first written: one block of 16 warps per
+// (batch x head, 32 query rows); the tile's float32 logits stay resident in
+// shared memory (32 x 1044 floats, 134 KB at Np = 1024; 16 rows when 32 do
+// not fit), built chunk by chunk over 128 keys of k staged in shared
+// memory, float32 products on the CUDA cores. Each warp then takes whole
+// rows for the softmax and the select: the old p_a values are loaded eight
+// per lane at a time, p' goes back over the row's logits as float32, and a
+// last shared-memory pass packs it to S in place (each 32-column chunk is
+// read before any lane writes it, so the packing is safe). The block then
+// streams p_v through shared memory in 128-key chunks for the A.V product:
+// WMMA 16x16x16 with float32 accumulators where S is bfloat16 (the cast),
+// the CUDA cores otherwise. Np need not be a multiple of anything (441 at
+// 672): the chunks are zero-filled past Np and the products cover Np
+// rounded up to 16. The logits form loads the tile's logits from device
+// memory (tm x Np values of S) in place of step 1 and is otherwise the same
+// kernel (template flag kLogits).
 #include <mma.h>
 
 #include <type_traits>
 
+#include "av_softmax_tc.cuh"
 #include "common.cuh"
 
 namespace etk {
 
 constexpr int kAvThreads = 512;  // 16 warps
 constexpr int kAvChunk = 128;    // keys per staged chunk of k or p_v
-constexpr int kAvMaxShared = 232448;
 
 __host__ __device__ inline int round_up(int a, int m) { return (a + m - 1) / m * m; }
 __host__ __device__ inline size_t align128(size_t a) { return (a + 127) / 128 * 128; }
@@ -108,13 +115,12 @@ softmax_select_matmul_kernel(S* __restrict__ p_a, const float* __restrict__ cov,
                              const W* __restrict__ terms, S* __restrict__ out, int heads, int n,
                              int np, int d, int p0, int p1, float inv_scale, int tm) {
   using namespace nvcuda;
-  constexpr bool kTensorQK = std::is_same<W, __nv_bfloat16>::value;
   constexpr bool kTensorAV = std::is_same<S, __nv_bfloat16>::value;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int nt = terms != nullptr ? p0 + p1 : 0;
   const AvSmem lay = av_smem(tm, np, d, nt);
   const int ldl = lay.ldl, np16 = round_up(np, 16);
-  const int ldq = d + 8, ldk = kTensorQK ? d + 8 : d + 1, ldv = d + 8;
+  const int ldq = d + 8, ldk = d + 1, ldv = d + 8;
   float* lg = (float*)smem_raw;
   W* qs = (W*)(smem_raw + lay.qs);
   float* ts = (float*)(smem_raw + lay.ts);
@@ -153,33 +159,14 @@ softmax_select_matmul_kernel(S* __restrict__ p_a, const float* __restrict__ cov,
     __syncthreads();  // the previous chunk is consumed
     load_chunk(ks, ldk, kh + (int64_t)j0 * d, np - j0, d);
     __syncthreads();
-    if constexpr (kTensorQK) {
-      constexpr int kCols = kAvChunk / 16;
-      for (int fi = warp; fi < (tm / 16) * kCols; fi += kWarps) {
-        const int fr = fi / kCols, fc = fi % kCols;
-        if (j0 + 16 * fc >= np16) continue;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int kk = 0; kk < d; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, W, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, W, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, qs + 16 * fr * ldq + kk, ldq);
-          wmma::load_matrix_sync(fb, ks + 16 * fc * ldk + kk, ldk);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(lg + 16 * fr * ldl + j0 + 16 * fc, acc, ldl,
-                                wmma::mem_row_major);
-      }
-    } else {
-      for (int e = tid; e < tm * kAvChunk; e += kAvThreads) {
-        const int i = e / kAvChunk, jj = e % kAvChunk;
-        if (j0 + jj >= np) continue;
-        const W* qr = qs + i * ldq;
-        const W* kr = ks + jj * ldk;
-        float s = 0.f;
-        for (int t = 0; t < d; ++t) s = fmaf(to_f(qr[t]), to_f(kr[t]), s);
-        lg[i * ldl + j0 + jj] = s;
-      }
+    for (int e = tid; e < tm * kAvChunk; e += kAvThreads) {
+      const int i = e / kAvChunk, jj = e % kAvChunk;
+      if (j0 + jj >= np) continue;
+      const W* qr = qs + i * ldq;
+      const W* kr = ks + jj * ldk;
+      float s = 0.f;
+      for (int t = 0; t < d; ++t) s = fmaf(to_f(qr[t]), to_f(kr[t]), s);
+      lg[i * ldl + j0 + jj] = s;
     }
   }
   __syncthreads();
@@ -343,22 +330,25 @@ int softmax_select_matmul(void* p_a, const float* cov, const void* p_v, const vo
 
 }  // namespace etk
 
-// wdtype: q, k and terms (0 = float32, 1 = bfloat16); sdtype: p_a, p_v and
-// out. Taken: (0, 0), (1, 1) and (0, 1), the matmul-2 cast of a float32
-// model. d a multiple of 16, at most 128; bfloat16 operands 16-byte aligned.
-extern "C" int etk_softmax_select_matmul(int wdtype, int sdtype, void* p_a, const void* cov,
-                                         const void* p_v, const void* q, const void* k,
-                                         const void* terms, void* out, int bsz, int heads, int n,
-                                         int np, int d, int p0, int p1, float inv_scale,
-                                         void* stream) {
+// body: 1 the tensor-core body (wdtype = sdtype = 1 only), 0 the CUDA-core
+// body; wdtype: q, k and terms (0 = float32, 1 = bfloat16); sdtype: p_a,
+// p_v and out. The CUDA-core body takes (0, 0) and (0, 1), the matmul-2
+// cast of a float32 model. d a multiple of 16, at most 128 (64 on the
+// tensor cores); bfloat16 k and p_v 16-byte aligned.
+extern "C" int etk_softmax_select_matmul(int body, int wdtype, int sdtype, void* p_a,
+                                         const void* cov, const void* p_v, const void* q,
+                                         const void* k, const void* terms, void* out, int bsz,
+                                         int heads, int n, int np, int d, int p0, int p1,
+                                         float inv_scale, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const float* c = (const float*)cov;
+  if (body == 1 && wdtype == 1 && sdtype == 1)
+    return etk::launch_av_softmax_tc<false>(p_a, c, p_v, q, k, nullptr, terms, out, bsz, heads,
+                                            n, np, d, p0, p1, inv_scale, s);
+  if (body != 0) return (int)cudaErrorInvalidValue;
   if (wdtype == 0 && sdtype == 0)
     return etk::softmax_select_matmul<float, float>(p_a, c, p_v, q, k, nullptr, terms, out, bsz,
                                                     heads, n, np, d, p0, p1, inv_scale, s);
-  if (wdtype == 1 && sdtype == 1)
-    return etk::softmax_select_matmul<__nv_bfloat16, __nv_bfloat16>(
-        p_a, c, p_v, q, k, nullptr, terms, out, bsz, heads, n, np, d, p0, p1, inv_scale, s);
   if (wdtype == 0 && sdtype == 1)
     return etk::softmax_select_matmul<float, __nv_bfloat16>(p_a, c, p_v, q, k, nullptr, terms,
                                                             out, bsz, heads, n, np, d, p0, p1,
@@ -368,18 +358,19 @@ extern "C" int etk_softmax_select_matmul(int wdtype, int sdtype, void* p_a, cons
 
 // The logits form: logits (B, H, N, Np) in sdtype; wdtype is the terms'
 // (the same combinations; without terms pass wdtype = sdtype).
-extern "C" int etk_softmax_select_matmul_logits(int wdtype, int sdtype, void* p_a,
+extern "C" int etk_softmax_select_matmul_logits(int body, int wdtype, int sdtype, void* p_a,
                                                 const void* cov, const void* p_v,
                                                 const void* logits, const void* terms, void* out,
                                                 int bsz, int heads, int n, int np, int d, int p0,
                                                 int p1, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const float* c = (const float*)cov;
+  if (body == 1 && wdtype == 1 && sdtype == 1)
+    return etk::launch_av_softmax_tc<true>(p_a, c, p_v, nullptr, nullptr, logits, terms, out,
+                                           bsz, heads, n, np, d, p0, p1, 1.f, s);
+  if (body != 0) return (int)cudaErrorInvalidValue;
   if (wdtype == 0 && sdtype == 0)
     return etk::softmax_select_matmul<float, float, true>(
-        p_a, c, p_v, nullptr, nullptr, logits, terms, out, bsz, heads, n, np, d, p0, p1, 1.f, s);
-  if (wdtype == 1 && sdtype == 1)
-    return etk::softmax_select_matmul<__nv_bfloat16, __nv_bfloat16, true>(
         p_a, c, p_v, nullptr, nullptr, logits, terms, out, bsz, heads, n, np, d, p0, p1, 1.f, s);
   if (wdtype == 0 && sdtype == 1)
     return etk::softmax_select_matmul<float, __nv_bfloat16, true>(

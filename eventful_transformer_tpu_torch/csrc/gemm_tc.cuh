@@ -63,6 +63,7 @@
 #include "async_copy.cuh"
 #include "common.cuh"
 #include "gemm.cuh"
+#include "warp_mma.cuh"
 
 namespace etk {
 
@@ -105,12 +106,6 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
 // d += A (64 x 16, K-major) * B (16 x 128, N-major: the transpose bit)

@@ -55,12 +55,12 @@ SIGNATURES = {
     "etk_block_select_p": [_I] + [_P] * 5 + [_I, _L, _I, _P],
     "etk_block_scatter_rows": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "etk_block_select_scatter": [_I] + [_P] * 9 + [_I] + [_P] * 6 + [_I] * 5 + [_P],
-    "etk_softmax_select_matmul": [_I, _I] + [_P] * 7 + [_I] * 7 + [_F, _P],
+    "etk_softmax_select_matmul": [_I, _I, _I] + [_P] * 7 + [_I] * 7 + [_F, _P],
     "etk_dense_mlp_residual": [_I] + [_P] * 10 + [_I] * 6 + [_P, _P],
     "etk_relpos_bias_add": [_I, _I] + [_P] * 5 + [_I] * 6 + [_P],
     "etk_ln_select_matmul": [_I] + [_P] * 9 + [_L] + [_I] * 5 + [_P, _P],
     "etk_select_linear_skip_norms": [_I] + [_P] * 11 + [_L] + [_I] * 5 + [_P, _P],
-    "etk_softmax_select_matmul_logits": [_I, _I] + [_P] * 6 + [_I] * 7 + [_P],
+    "etk_softmax_select_matmul_logits": [_I, _I, _I] + [_P] * 6 + [_I] * 7 + [_P],
     "etk_scatter_blend": [_I, _I, _P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
     "etk_scatter_rows": [_I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "etk_gather_rows": [_I, _P, _P, _I, _P] + [_I] * 7 + [_P],

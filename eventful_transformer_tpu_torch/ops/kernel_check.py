@@ -344,8 +344,9 @@ def reset_launches():
 
 
 def body_launches():
-    """{wrapper name: {"tc": n, "simt": n}} of the wrappers that reach the
-    attention kernel, which count their launches by body."""
+    """{wrapper name: {"tc": n, "simt": n}} of the wrappers that count their
+    launches by body: those that reach the attention kernel, and the A.V
+    kernel's two."""
     return {entry[0].__name__: dict(entry[0].body_launches) for entry in KERNELS.values()
             if hasattr(entry[0], "body_launches")}
 
@@ -353,12 +354,13 @@ def body_launches():
 def check_bodies(counts, dtype, where):
     """Raise unless every launch in ``counts`` (:func:`body_launches` after
     a run in ``dtype``) took the body ``window_attention.attention_body``
-    gives the paths' shapes: the tensor-core one in bfloat16, the CUDA-core
-    one in float32."""
+    and ``av_softmax.av_softmax_body`` give the paths' shapes: the
+    tensor-core one in bfloat16, the CUDA-core one in float32 (the A.V
+    kernel's matmul-2 cast included)."""
     other = "simt" if dtype == torch.bfloat16 else "tc"
     stray = {name: c for name, c in counts.items() if c[other]}
     if stray:
-        raise AssertionError(f"{where}: {dtype} attention launches took the {other} body: {stray}")
+        raise AssertionError(f"{where}: {dtype} launches took the {other} body: {stray}")
 
 
 def core_launches():

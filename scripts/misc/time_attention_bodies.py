@@ -1,8 +1,8 @@
 """Time the attention kernel's wrappers, kernels A and B, the gate-fusion
-kernels (rows 12 and 13) and the small row kernels in bfloat16 at the
-paths' shapes on one NVIDIA GPU, each beside the one PyTorch call that
-computes the same function (the GEMM rows: their yardstick), with the host
-microseconds of one call.
+kernels (rows 12 and 13), the A.V kernel (row 8) and the small row kernels
+in bfloat16 at the paths' shapes on one NVIDIA GPU, each beside the one
+PyTorch call that computes the same function (the GEMM rows: their
+yardstick), with the host microseconds of one call.
 
     python3 scripts/misc/time_attention_bodies.py [ROOT] [--breakdown] [--case=TAG ...]
 
@@ -29,7 +29,8 @@ and shape, checks the kernel against its plain version
 - the device microseconds of one call of the kernel: the sum of its
   kernels' times under ``torch.profiler`` over 20 calls, once per entry,
   beside the card's bound for the same work (``kernel_check.bound``) and
-  the share of it they reach;
+  the share of it they reach, and the device microseconds of one library
+  call measured the same way (``library_device_us``);
   and the kernels one call launches (the profiler's kernel names, short,
   each with its launches and device microseconds a call) and the device
   allocations it makes (the caching allocator's count,
@@ -47,7 +48,11 @@ shares its compaction and gathered GEMM, at 672); rows 12
 (``ln_select_matmul``: "post" and "none" at the paper's ViViT's 12 x 197,
 "pre" at ViViT's 8 x 197 with its gates before LN) and
 13 (``select_linear_skip_norms``: with the next LN at 12 x 197, without
-at 8 x 197); the attention wrappers (ViViT's 8 x 197 global attention, the
+at 8 x 197); row 8 (``softmax_select_matmul``: the fused form with
+rel-pos terms at ViTDet-1024's global blocks, 2 x 4096 queries over 32 x
+32 pooled keys, and on the e2e path, 1 x 1764 over 21 x 21; the logits
+form without terms at the paper's ViViT's cached product, 12 views x 197
+over 197 keys); the attention wrappers (ViViT's 8 x 197 global attention, the
 temporal 8 x 17, ViTDet's 18 windows at 672, 9 at 672 with
 one stream, 50 at 1024, plain and padded; ``window_attention_grid`` on the
 672 map, with and without the rel-pos tables, and on 1024's padded one)
@@ -96,17 +101,18 @@ CASES = [
       "gate_group_linear_post_topk", "gate_group_linear_topk", "gate_group_linear_pre_topk",
       "gate_group_mlp")),
     ("e2e", 1, 1764, 256, dict(window=(14, 14), pool=(21, 21)),
-     ("window_attention_windowed", "gate_group_linear_post", "gate_group_linear")),
-    ("vivit_evblock", 12, 197, 24, dict(window=(4, 6)),
+     ("window_attention_windowed", "gate_group_linear_post", "gate_group_linear",
+      "softmax_select_matmul")),
+    ("vivit_evblock", 12, 197, 24, dict(window=(4, 6), pool=(1, 197)),
      ("ln_select_matmul_post", "ln_select_matmul_none", "select_linear_skip_norms",
-      "scatter_rows_inplace_qkv", "gather_rows_qkv")),
+      "scatter_rows_inplace_qkv", "gather_rows_qkv", "softmax_select_matmul_logits_noterms")),
     ("vivit_blend", 8, 197, 98, dict(window=(4, 6)), ("scatter_blend", "scatter_blend_qkv")),
     ("vivit_pre_ln", 8, 197, 98, dict(window=(4, 6)),
      ("ln_select_matmul_pre", "select_linear_skip_norms_noln")),
     ("1024", 2, 4096, 256,
      dict(window=(14, 14), windows=50, pool=(32, 32), pad_window=(14, 14)),
      ("window_attention_windowed", "window_attention_padded", "window_attention_grid",
-      "block_select_p_noln", "block_scatter_rows")),
+      "block_select_p_noln", "block_scatter_rows", "softmax_select_matmul")),
 ]
 TAGS = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--case=")]
 ITERS = 200  # host-bound calls: more than kernel_check's 20, to average the host's spread
@@ -263,12 +269,14 @@ def main():
             ms, us, lib_ms, lib_us = (statistics.median(v) if v else None for v in times.values())
             ratio = None if lib_ms is None else round(ms / lib_ms, 2)
             dev_us, kernels = device_us(call)
+            lib_dev_us = None if library is None else device_us(library)[0]
             bound_us = kernel_check.bound(name, d)[0] * 1e3
             print(tag, name, "ms", round(ms, 4), "host_us", round(us, 2), "host_idle_us",
                   round(host_idle_us(call), 2), "device_us", round(dev_us, 2),
                   "bound_us", round(bound_us, 2),
                   "bound_share", round(bound_us / dev_us, 3) if dev_us else None,
-                  "library_ms", lib_ms and round(lib_ms, 4), "library_host_us",
+                  "library_ms", lib_ms and round(lib_ms, 4),
+                  "library_device_us", lib_dev_us and round(lib_dev_us, 2), "library_host_us",
                   lib_us and round(lib_us, 2), "ratio", ratio, "within bounds", ok,
                   "kernels", {k: [round(n, 2), round(t, 2)] for k, (n, t) in kernels.items()},
                   "allocations", allocations(call), flush=True)

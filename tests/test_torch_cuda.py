@@ -1322,3 +1322,108 @@ def test_gate_group_linear_warm_calls_encode_no_descriptor(device):
         kernels()
     torch.cuda.synchronize()
     assert gemm_core.tensor_map_encodes() == before
+
+
+# -- the A.V kernel's tensor-core body (row 8, csrc/av_softmax_tc.cuh) ------------
+
+# the paths' shapes: (batch, N, k, make_inputs keywords): ViTDet-1024's
+# global blocks (4096 queries over 32 x 32 pooled keys), the e2e path (1764
+# over 21 x 21) and the paper's ViViT's cached product (12 views, 197 over
+# 197 keys)
+AV_SHAPES = {
+    "1024": (2, 4096, 256, dict(window=(14, 14), windows=50, pool=(32, 32), pad_window=(14, 14))),
+    "e2e": (1, 1764, 256, dict(window=(14, 14), pool=(21, 21))),
+    "vivit_evblock": (12, 197, 24, dict(window=(4, 6), pool=(1, 197))),
+}
+AV_FORMS = ("softmax_select_matmul", "softmax_select_matmul_noterms",
+            "softmax_select_matmul_logits", "softmax_select_matmul_logits_noterms")
+AV_COVERAGES = ("none", "all", "one", "quarter")
+_AV_INPUTS = {}  # shape -> bfloat16 inputs, made once per process
+
+
+def _av_inputs(shape, device):
+    if shape not in _AV_INPUTS:
+        _AV_INPUTS.clear()
+        torch.cuda.empty_cache()
+        bsz, n, k, keywords = AV_SHAPES[shape]
+        _AV_INPUTS[shape] = kernel_check.make_inputs(bsz, n, 768, 12, k, torch.bfloat16, device,
+                                                     seed=4, **keywords)
+    return _AV_INPUTS[shape]
+
+
+def _coverage(d, which):
+    """The (B, Np) column coverage: none, every column, one column, or the
+    inputs' random quarter."""
+    cov = d["av_cov"]
+    if which == "none":
+        return torch.zeros_like(cov)
+    if which == "all":
+        return torch.ones_like(cov)
+    if which == "one":
+        one = torch.zeros_like(cov)
+        one[:, cov.shape[1] // 3] = 1.0
+        return one
+    return cov
+
+
+@pytest.mark.parametrize("coverage", AV_COVERAGES)
+@pytest.mark.parametrize("name", AV_FORMS)
+@pytest.mark.parametrize("shape", sorted(AV_SHAPES))
+def test_av_tensor_core_body_matches_plain(shape, name, coverage, device):
+    """Both forms, with and without rel-pos terms, at the paths' shapes in
+    bfloat16: one launch of the tensor-core body, within the bounds of
+    ``kernel_check`` against the plain version, and the uncovered columns
+    of p_a bit for bit as they went in."""
+    d = dict(_av_inputs(shape, device))
+    d["av_cov"] = _coverage(d, coverage)
+    wrapper = kernel_check.KERNELS[name][0]
+    before = dict(wrapper.body_launches)
+    rows = kernel_check.errors(name, d)
+    assert all(row["ok"] for row in rows), rows
+    assert wrapper.body_launches == dict(before, tc=before["tc"] + 1)
+    p_a = d["p_a"].clone()
+    kernel_check._invoke(name, wrapper, dict(d, p_a=p_a))
+    torch.cuda.synchronize()
+    kept = (d["av_cov"] <= 0)[:, None, None, :].expand_as(p_a)
+    assert torch.equal(p_a[kept], d["p_a"][kept])
+
+
+@pytest.mark.parametrize("name", AV_FORMS)
+def test_av_float32_stays_on_the_cuda_cores(name, device):
+    """float32 calls, and the matmul-2 cast (float32 q, k and terms over
+    bfloat16 state), take the CUDA-core body; the logits form's cast without
+    terms is bfloat16 through and through, and takes the tensor-core one."""
+    d = kernel_check.make_inputs(2, 37, 64, 4, 9, torch.float32, device, seed=5)
+    wrapper = kernel_check.KERNELS[name][0]
+    for cast in (False, True):
+        if cast:
+            for key in ("p_a", "p_v", "av_logits"):
+                d[key] = d[key].to(torch.bfloat16)
+        body = "tc" if cast and name == "softmax_select_matmul_logits_noterms" else "simt"
+        before = dict(wrapper.body_launches)
+        rows = kernel_check.errors(name, d)
+        assert all(row["ok"] for row in rows), rows
+        assert wrapper.body_launches == dict(before, **{body: before[body] + 1})
+
+
+def test_av_entries_refuse_other_bodies(device):
+    """The C entries refuse a body the rule would not send them: float32 to
+    the tensor-core body, bfloat16 x bfloat16 to the CUDA-core body, a head
+    width beyond 64 to the tensor-core body."""
+    from eventful_transformer_tpu_torch.ops import _build
+
+    d = kernel_check.make_inputs(2, 37, 64, 4, 9, torch.bfloat16, device, seed=6)
+    out = torch.empty((2, 4, 37, 16), dtype=torch.bfloat16, device=device)
+
+    def code(body, wd, sd, d_head=16):
+        t = {key: d[key] if wd else d[key].float() for key in ("p_a", "p_v", "av_q", "av_k")}
+        return _build.load_library().etk_softmax_select_matmul(
+            body, wd, sd, t["p_a"].data_ptr(), d["av_cov"].data_ptr(), t["p_v"].data_ptr(),
+            t["av_q"].data_ptr(), t["av_k"].data_ptr(), None, out.data_ptr(), 2, 4, 37, 21,
+            d_head, 0, 0, 0.25, _build.stream_of(out))
+
+    assert code(1, 0, 0) != 0
+    assert code(0, 1, 1) != 0
+    assert code(1, 1, 1, d_head=128) != 0
+    assert code(1, 1, 1) == 0
+    torch.cuda.synchronize()
