@@ -26,6 +26,15 @@ Phases, one JSON line each, with the seconds the phase took:
   3. kernels:        each kernel against its plain PyTorch version at ViViT's
                      shapes, float32 and bfloat16, each output within the
                      bounds stated in ops/kernel_check.py, and both timed;
+                     rows 1 (ln_norms) and 9 (block_select_scatter) with the
+                     readings of 23 (device microseconds, share of the
+                     bound, kernels and allocations a call: one launch of
+                     ln_norms_kernel or select_scatter_kernel, the
+                     warp-per-row body, and its new outputs alone), here
+                     and in every kernels phase below; every checked call
+                     of a row pass (rows 1, 9 and the ln_norms stages of
+                     kernel B, row 4, row 7 and row 13) on the warp-per-row
+                     body (ops/row_pass.py::row_body), checked;
                      the GEMM rows beside their yardstick, cuBLAS on the
                      operands of their GEMMs (kernel_check.library_call:
                      kernels A and B, gate_group_linear, ln_select_matmul,
@@ -199,7 +208,14 @@ Phases, one JSON line each, with the seconds the phase took:
                      only the CUDA-core ones (window_attention.
                      attention_body's and av_softmax.av_softmax_body's
                      rules).
-  26. gemm_cores:     the GEMM rows' launches (kernels A and B, the MLP
+  26. row_bodies:     the launches of the row passes (ln_norms, block_select_scatter,
+                     and the ln_norms stages of proj_group, gate_group_mlp,
+                     gate_group_linear and select_linear_skip_norms) by
+                     body, of every counted run above, each checked as it
+                     was read: the warp-per-row body (csrc/row_pass.cuh)
+                     only, at every path's shapes in both dtypes; rows 1
+                     and 9 launched in bfloat16 and float32.
+  27. gemm_cores:     the GEMM rows' launches (kernels A and B, the MLP
                      rows, rows 12 and 13) by core of every counted run
                      above, each checked
                      as it was read: in bfloat16 only the wgmma core
@@ -477,8 +493,11 @@ def check_kernels(phase, device, cases):
                 two_phase = kernel_check.two_phase_call(name, d)
                 kernel_check.reset_launches()
                 outputs = kernel_check.errors(name, d)
-                launched = kernel_check.KERNELS[name][0].launches
-                bodies = dict(getattr(kernel_check.KERNELS[name][0], "body_launches", {}))
+                wrapper = kernel_check.KERNELS[name][0]
+                launched = wrapper.launches
+                bodies = dict(getattr(wrapper, "body_launches", {}))
+                row_bodies = getattr(wrapper, "row_body_launches", None)
+                row_bodies = None if row_bodies is None else dict(row_bodies)
                 row = results[(name, dtype, tag)] = dict(
                     kernel=name, dtype=str(dtype).split(".")[-1], tag=tag, batch=bsz, n=n,
                     outputs=outputs,
@@ -489,12 +508,16 @@ def check_kernels(phase, device, cases):
                 )
                 if two_phase is not None:
                     row["two_phase_ms"] = kernel_check.time_call(two_phase)
-                if kernel_check.KERNELS[name][0].__name__ in kernel_check.ROW_COPY_KERNELS:
+                if row_bodies is not None:
+                    row["row_body_launches"] = row_bodies
+                    kernel_check.check_row_bodies({wrapper.__name__: row_bodies},
+                                                  f"{phase} {name} {tag}")
+                if (wrapper.__name__ in kernel_check.ROW_COPY_KERNELS
+                        or wrapper.__name__ in kernel_check.ROW_PASS_KERNELS):
                     row.update(row_copy_readings(name, d, bound_ms, library, launched))
                 if name.startswith("softmax_select_matmul"):
                     row.update(av_readings(name, d, bound_ms, bodies, dtype,
                                            f"{phase} {name} {tag}"))
-                wrapper = kernel_check.KERNELS[name][0]
                 if hasattr(wrapper, "core_launches"):
                     row["core_launches"] = dict(wrapper.core_launches)
                     kernel_check.check_cores({wrapper.__name__: row["core_launches"]}, dtype,
@@ -508,8 +531,8 @@ def check_kernels(phase, device, cases):
             if not out["ok"]:
                 raise AssertionError(f"{name} {dtype} {tag} output {out['output']}: {out}")
         if not row.get("one_launch", True):
-            raise AssertionError(f"{name} {dtype} {tag}: not one launch of its kernel and one "
-                                 f"allocation a call: {row}")
+            raise AssertionError(f"{name} {dtype} {tag}: not one launch of its kernel and "
+                                 f"its outputs' allocations a call: {row}")
     return results
 
 
@@ -538,22 +561,35 @@ def av_readings(name, d, bound_ms, bodies, dtype, where):
 ROW_COPY_ALLOCATIONS = {"scatter_blend": 1, "gather_rows": 1, "scatter_rows_inplace": 0}
 
 
-def row_copy_readings(name, d, bound_ms, library, launched):
-    """Rows 18-20 (the row-copy kernels; row 19 the control) beside their
-    ``ms``: device microseconds a call (torch.profiler, or CUDA events
-    around calls queued behind a sleep where the profiler caught no device
-    event: ``kernel_check.row_copy_profile``) and the share of the bound
-    they reach, the kernels one call launches, its allocations, the host
-    microseconds of one call and of the library call's; ``one_launch``
-    false unless the call counted one launch (``launched``), allocated
-    ROW_COPY_ALLOCATIONS and, where the profiler caught its kernels,
-    launched its own kernel once."""
+def expected_allocations(name):
+    """The allocations one call of entry ``name`` of rows 18-20, 1 or 9
+    makes: ROW_COPY_ALLOCATIONS for rows 18-20; its new outputs for rows 1
+    (the norms) and 9 (y and the norms where the form has them; p and b
+    are updated in place, and the slot is found in the kernel)."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
-    wrapper = kernel_check.KERNELS[name][0].__name__
+    wrapper, outputs = kernel_check.KERNELS[name][0].__name__, kernel_check.KERNELS[name][4]
+    if wrapper in ROW_COPY_ALLOCATIONS:
+        return ROW_COPY_ALLOCATIONS[wrapper]
+    return len([out for out in outputs if out not in ("p", "b")])
+
+
+def row_copy_readings(name, d, bound_ms, library, launched):
+    """Rows 18-20 (the row-copy kernels; row 19 the control) and rows 1 and
+    9 (the warp-per-row pass) beside their ``ms``: device microseconds a
+    call (torch.profiler, or CUDA events around calls queued behind a
+    sleep where the profiler caught no device event:
+    ``kernel_check.row_copy_profile``) and the share of the bound they
+    reach, the kernels one call launches, its allocations, the host
+    microseconds of one call and of the library call's; ``one_launch``
+    false unless the call counted one launch (``launched``), allocated
+    what :func:`expected_allocations` says and, where the profiler caught
+    its kernels, launched its own kernel once."""
+    from eventful_transformer_tpu_torch.ops import kernel_check
+
     row = kernel_check.row_copy_profile(name, d, bound_ms)
     row["one_launch"] = (row["one_launch"] is not False and launched == 1
-                         and row["allocations_per_call"] == ROW_COPY_ALLOCATIONS[wrapper])
+                         and row["allocations_per_call"] == expected_allocations(name))
     row["host_us"] = kernel_check.kernel_host_us(name, d)
     row["library_host_us"] = None if library is None else kernel_check.host_us(library)
     return row
@@ -769,6 +805,10 @@ def read_form_launches():
 # gemm_cores.
 BODIES = []
 CORES = []
+# the row passes' launches by body (rows 1 and 9, and the ln_norms stages of
+# kernel B, of the "post" groups that select their own rows and of
+# select_linear_skip_norms), emitted by phase row_bodies
+ROW_BODIES = []
 
 
 def read_routes(dtype, where):
@@ -778,15 +818,21 @@ def read_routes(dtype, where):
     attention_body`` and ``av_softmax.av_softmax_body`` at the paths'
     shapes); the GEMM rows' by GEMM core, in bfloat16 every one on
     the wgmma core, in float32 on the CUDA-core tile
-    (``gemm_core.gemm_core``). Kept in BODIES and CORES; returns the body
-    counts."""
+    (``gemm_core.gemm_core``); the row passes of rows 1 and 9 and the
+    ln_norms stages by row body, every one on the warp-per-row body
+    (``row_pass.row_body``). Kept in BODIES, CORES and ROW_BODIES; returns
+    the body counts."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
     counts = kernel_check.body_launches()
     kernel_check.check_bodies(counts, dtype, where)
     cores = kernel_check.core_launches()
     kernel_check.check_cores(cores, dtype, where)
+    rows = kernel_check.row_body_launches()
+    kernel_check.check_row_bodies(rows, where)
     key = str(dtype).split(".")[-1]
+    ROW_BODIES.append(dict(run=where, dtype=key,
+                           launches={name: c for name, c in rows.items() if any(c.values())}))
     BODIES.append(dict(run=where, dtype=key,
                        launches={name: c for name, c in counts.items() if any(c.values())}))
     CORES.append(dict(run=where, dtype=key,
@@ -806,6 +852,33 @@ def phase_attention_bodies():
     emit("attention_bodies", runs=BODIES, tc_launches=tc, simt_launches=simt)
     if not tc or not simt:
         raise AssertionError(f"attention bodies: tc {tc}, simt {simt} launches in all")
+
+
+# rows 1 and 9, and the wrappers with an ln_norms stage that the paths run
+ROW_PASS_ROWS = ("ln_norms", "block_select_scatter")
+ROW_PASS_WRAPPERS = ROW_PASS_ROWS + ("proj_group", "gate_group_mlp", "gate_group_linear",
+                                     "select_linear_skip_norms")
+
+
+def phase_row_bodies():
+    """Every counted run's row-pass launches by body (each checked as it
+    was read: the warp-per-row body only); rows 1 and 9 launched in both
+    dtypes, every ROW_PASS_WRAPPERS stage in some run."""
+    totals = {}
+    for row in ROW_BODIES:
+        by_wrapper = totals.setdefault(row["dtype"], {})
+        for name, counts in row["launches"].items():
+            total = by_wrapper.setdefault(name, dict.fromkeys(counts, 0))
+            for body, n in counts.items():
+                total[body] += n
+    emit("row_bodies", runs=ROW_BODIES, totals=totals)
+    warp = {(dtype, name) for dtype, by_wrapper in totals.items()
+            for name, counts in by_wrapper.items() if counts["warp"]}
+    idle = [f"{dtype}.{name}" for dtype in ("bfloat16", "float32")
+            for name in ROW_PASS_ROWS if (dtype, name) not in warp]
+    idle += [name for name in ROW_PASS_WRAPPERS if all(w != name for _, w in warp)]
+    if idle:
+        raise AssertionError(f"row bodies: no warp-body launch of {idle}: {totals}")
 
 
 def phase_gemm_cores():
@@ -1364,7 +1437,8 @@ def kernel_row(name, row, launches, path):
         bound_by=row["bound_by"], library_ms=row["library_ms"],
     )
     for key in ("two_phase_ms", "device_us", "device_us_by", "bound_share", "host_us",
-                "library_host_us", "body_launches"):
+                "library_host_us", "body_launches", "kernels_per_call", "allocations_per_call",
+                "row_body_launches"):
         if key in row:
             out[key] = row[key]
     return out
@@ -2794,6 +2868,7 @@ def main():
     kernels += blend_path(device, smi)
     kernels += unwired_path(device, smi)
     phase_attention_bodies()
+    phase_row_bodies()
     cores = phase_gemm_cores()
     for row in kernels:
         wrapper = kernel_check.KERNELS[row["name"]][0].__name__

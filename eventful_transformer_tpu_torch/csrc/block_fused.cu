@@ -18,8 +18,9 @@
 //      body, 64 queries a block; in float32 the CUDA-core body, 32) ->
 //      diff-norms row pass;
 //   B: select row pass (in place) -> GEMM with the bias + skip epilogue ->
-//      LN-norms row pass.
-// The row passes are bound by memory bytes. The GEMMs dominate the time at
+//      LN-norms row pass (ln_norms_kernel, the warp-per-row body of
+//      row_pass.cuh, where ops/row_pass.py::row_body takes the shapes).
+// The row passes move a few MB each. The GEMMs dominate the time at
 // the flagship shapes (B.N = 1576 rows, K = 768, N = 2304 and 768); they
 // take the core the wrapper picks (ops/gemm_core.py::gemm_core): in
 // bfloat16 the wgmma core of gemm_tc.cuh, A read by TMA from the gate state
@@ -32,6 +33,7 @@
 #include "common.cuh"
 #include "gemm.cuh"
 #include "gemm_tc.cuh"
+#include "row_pass.cuh"
 
 namespace etk {
 
@@ -100,22 +102,21 @@ int qkv_attention_group(int body, const void* x, void* p_qkv, const float* cov,
 }
 
 template <typename T>
-int proj_group(const void* attn, void* p_proj, const float* cov, const void* skip,
+int proj_group(int row_body, const void* attn, void* p_proj, const float* cov, const void* skip,
                const void* p_mlp, const void* w, const void* bias, const void* ln_scale,
                const void* ln_bias, void* y1, float* norms, int bsz, int n, int c, GemmCall gemm,
                cudaStream_t stream) {
   const int rows = bsz * n;
-  const size_t row_smem = row_smem_bytes(c);
+  if (!warp_row_takes<T>(row_body, {c}, {y1, p_mlp, ln_scale, ln_bias}))
+    return (int)cudaErrorInvalidValue;
   select_rows_kernel<T><<<rows, kRowThreads, 0, stream>>>((const T*)attn, (T*)p_proj, cov, c);
   ETK_CHECK_LAUNCH();
   const int err = launch_gemm_core<T, false>(
       (const T*)p_proj, rows, DenseRows{}, (const T*)w, rows, c, c,
       ProjEpilogue<T>{(const T*)bias, (const T*)skip, (T*)y1, c}, gemm, stream);
   if (err != 0) return err;
-  ln_norms_kernel<T><<<rows, kRowThreads, row_smem, stream>>>(
-      (const T*)y1, (const T*)p_mlp, (const T*)ln_scale, (const T*)ln_bias, norms, c);
-  ETK_CHECK_LAUNCH();
-  return 0;
+  return launch_ln_norms<T>(row_body, (const T*)y1, (const T*)p_mlp, (const T*)ln_scale,
+                            (const T*)ln_bias, norms, rows, c, stream);
 }
 
 }  // namespace etk
@@ -136,14 +137,16 @@ int etk_qkv_attention_group(int dtype, int body, const void* x, void* p_qkv, con
                           (cudaStream_t)stream));
 }
 
-int etk_proj_group(int dtype, const void* attn, void* p_proj, const void* cov, const void* skip,
-                   const void* p_mlp, const void* w, const void* bias, const void* ln_scale,
-                   const void* ln_bias, void* y1, void* norms, int bsz, int n, int c, int core,
-                   int split, void* ws, void* stream) {
+// row_body: the body of the MLP gate's norms stage (ops/row_pass.py ROW_BODY_CODES)
+int etk_proj_group(int dtype, int row_body, const void* attn, void* p_proj, const void* cov,
+                   const void* skip, const void* p_mlp, const void* w, const void* bias,
+                   const void* ln_scale, const void* ln_bias, void* y1, void* norms, int bsz,
+                   int n, int c, int core, int split, void* ws, void* stream) {
   const etk::GemmCall gemm{core, split, (float*)ws};
-  ETK_DISPATCH(dtype, return etk::proj_group<T>(attn, p_proj, (const float*)cov, skip, p_mlp, w,
-                                                bias, ln_scale, ln_bias, y1, (float*)norms, bsz,
-                                                n, c, gemm, (cudaStream_t)stream));
+  ETK_DISPATCH(dtype, return etk::proj_group<T>(row_body, attn, p_proj, (const float*)cov, skip,
+                                                p_mlp, w, bias, ln_scale, ln_bias, y1,
+                                                (float*)norms, bsz, n, c, gemm,
+                                                (cudaStream_t)stream));
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
 // Device helpers shared by the eventful kernels: element types, block
-// reductions, the float32 LayerNorm of ops/common.py::ln_f32 and the XLA
-// float32 erf behind the exact GELU (ops/common.py::gelu_exact).
+// reductions, the float32 LayerNorm of ops/common.py::ln_f32, the
+// block-per-row body of the row kernels (the warp-per-row body is
+// row_pass.cuh) and the XLA float32 erf behind the exact GELU
+// (ops/common.py::gelu_exact).
 //
 // Every kernel is a template over the working dtype T (float or
 // __nv_bfloat16). Arithmetic is float32; rnd<T> marks each point where the
@@ -101,16 +103,18 @@ __device__ __forceinline__ float ln_error_norm(const float* row, const T* p, int
 }
 
 // ---------------------------------------------------------------------------
-// Row kernels: one block of kRowThreads threads per token row, dynamic
-// shared memory (c + 32) floats. They read each operand once and are bound
-// by memory bytes.
+// Row kernels, the block-per-row body: one block of kRowThreads threads per
+// token row, the row staged in dynamic shared memory ((c + 32) floats), each
+// block_sum three barriers. ln_norms' warp-per-row body (row_pass.cuh) takes
+// the calls whose shapes it holds; ln_norms_block_kernel the others.
 // ---------------------------------------------------------------------------
 
 // out[r] = ||ln(x[r]) * scale + bias - p[r]||_2
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-ln_norms_kernel(const T* __restrict__ x, const T* __restrict__ p, const T* __restrict__ scale,
-                const T* __restrict__ bias, float* __restrict__ out, int c) {
+ln_norms_block_kernel(const T* __restrict__ x, const T* __restrict__ p,
+                      const T* __restrict__ scale, const T* __restrict__ bias,
+                      float* __restrict__ out, int c) {
   extern __shared__ float smem[];
   float* row = smem;
   float* red = smem + c;

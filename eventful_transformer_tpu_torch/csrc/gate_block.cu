@@ -24,15 +24,28 @@
 //       y  = rnd(b' + skip | x);  norms = ||ln(y) - p_next||  (optional)
 //
 //     The TPU kernel tiles 512 rows per grid step and copies h's rows with
-//     a (rows, KP) one-hot matmul on the MXU. Here two launches: one block
-//     per batch row inverts the index list into a token -> slot map in
-//     shared memory (16 KB at N = 4096) and writes it out; then one
-//     256-thread block per token row does the whole row pass, reading x,
-//     p, b (+ skip, + p_next) once and writing p', b' (selected rows only)
-//     and y. At ViTDet-1024 (B = 2, N = 4096) the qkv group's b pass
-//     (F = 2304, 38 MB read in bf16) is the largest memory term; the
-//     projection and MLP groups (F = C = 768) move about 25 MB each.
-#include "common.cuh"
+//     a (rows, KP) one-hot matmul on the MXU. Here one launch, on the
+//     warp-per-row pass of row_pass.cuh: one warp a token row, 8 rows to a
+//     block (1024 blocks at ViTDet-1024, B = 2, N = 4096), every row loaded
+//     once with 16-byte loads into registers, the LN statistics and the
+//     norms reduced by warp shuffles. A selected row's warp finds its slot
+//     itself: it reads index[b, :KP] 32 entries a step, 8 steps in flight
+//     (one 1 KB line set at KP = 256, which every selected row of the batch
+//     row reads, so it stays in L1/L2), and takes __ballot_sync of
+//     index == i; a selected row that no valid slot names gets b' = 0, and
+//     an index of -1, or of N or more, matches nothing. Valid indices must
+//     be distinct: with a duplicate, the row takes the lowest slot naming
+//     it, which the JAX kernel's one-hot sum does not; that is undefined.
+//     An unselected row of a form without a y output (the qkv group) reads
+//     only its cov entry, so at ViTDet-1024 (k = 256 a batch row) the qkv
+//     form moves x, p', h and b' at the 512 selected rows, 6.3 MB in
+//     bfloat16 at F = 2304, not the whole buffer. The projection and MLP
+//     forms (F = C = 768) read b, the skip (or x) and p_next whole and
+//     write y: 50 MB a call, bound by those bytes. Widths or
+//     operands the warp body does not take (ops/row_pass.py::row_body) go
+//     to the block-per-row body (select_scatter_block_kernel: one
+//     256-thread block a row, the slot found by the block).
+#include "row_pass.cuh"
 
 namespace etk {
 
@@ -49,56 +62,46 @@ scatter_rows_kernel(T* __restrict__ b, const int* __restrict__ index, const T* _
   for (int i = threadIdx.x; i < f; i += blockDim.x) dst[i] = src[i];
 }
 
-constexpr int kSlotThreads = 1024;
-
-// slot[b, i] = j where index[b, j] == i, else -1; an index outside [0, n)
-// marks an invalid slot and maps nothing. Dynamic shared memory: n ints.
-__global__ void __launch_bounds__(kSlotThreads)
-slot_map_kernel(const int* __restrict__ index, int* __restrict__ slot, int n, int kp) {
-  extern __shared__ int map[];
-  const int64_t b = blockIdx.x;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) map[i] = -1;
-  __syncthreads();
-  for (int j = threadIdx.x; j < kp; j += blockDim.x) {
-    const int t = index[b * kp + j];
-    if (t >= 0 && t < n) map[t] = j;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) slot[b * n + i] = map[i];
-}
-
-// One row r of the blocked group. ``scale`` null: the gate takes x itself
-// (apply_ln=False). ``res``: the skip (width f) or x (residual_x, f == c),
-// null without a y output; ``norms`` null without the next gate. Dynamic
-// shared memory: (max(c, f) + 32) floats.
+// One row r of the blocked group in the block-per-row body. ``scale``
+// null: the gate takes x itself (apply_ln=False). ``res``: the skip (width
+// f) or x (residual_x, f == c), null without a y output; ``norms`` null
+// without the next gate. Dynamic shared memory: (max(c, f) + 32) floats.
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-select_scatter_kernel(const T* __restrict__ x, T* __restrict__ p, T* __restrict__ b,
-                      const float* __restrict__ cov, const int* __restrict__ slot,
-                      const T* __restrict__ h, const T* __restrict__ scale,
-                      const T* __restrict__ bias, const T* __restrict__ res, T* __restrict__ y,
-                      const T* __restrict__ p_next, const T* __restrict__ next_scale,
-                      const T* __restrict__ next_bias, float* __restrict__ norms, int n, int c,
-                      int f, int kp) {
+select_scatter_block_kernel(const T* __restrict__ x, T* __restrict__ p, T* __restrict__ b,
+                            const float* __restrict__ cov, const int* __restrict__ index,
+                            const T* __restrict__ h, const T* __restrict__ scale,
+                            const T* __restrict__ bias, const T* __restrict__ res,
+                            T* __restrict__ y, const T* __restrict__ p_next,
+                            const T* __restrict__ next_scale, const T* __restrict__ next_bias,
+                            float* __restrict__ norms, int n, int c, int f, int kp) {
   extern __shared__ float smem[];
+  __shared__ int slot;
   float* row = smem;
   float* red = smem + max(c, f);
   const int64_t r = blockIdx.x;
   const bool sel = cov[r] > 0.f;  // uniform over the block
+  if (!sel && res == nullptr) return;
   if (sel) {
+    if (threadIdx.x == 0) slot = -1;
+    __syncthreads();
+    const int i = (int)(r % n);
+    const int* ir = index + (r / n) * kp;
+    for (int j = threadIdx.x; j < kp; j += blockDim.x)
+      if (ir[j] == i) slot = j;  // valid indices are distinct: one writer
     T* pr = p + r * c;
     if (scale != nullptr) {
       load_row(x, r, c, row);
       float mean, rstd;
       ln_stats(row, c, red, mean, rstd);
-      for (int i = threadIdx.x; i < c; i += blockDim.x)
-        pr[i] = from_f<T>(ln_value(row[i], mean, rstd, scale, bias, i));
-      __syncthreads();  // row is reused below
+      for (int e = threadIdx.x; e < c; e += blockDim.x)
+        pr[e] = from_f<T>(ln_value(row[e], mean, rstd, scale, bias, e));
     } else {
-      for (int i = threadIdx.x; i < c; i += blockDim.x) pr[i] = x[r * c + i];
+      for (int e = threadIdx.x; e < c; e += blockDim.x) pr[e] = x[r * c + e];
     }
+    __syncthreads();  // row is reused below; slot is written
   }
-  const int j = sel ? slot[r] : -1;
+  const int j = sel ? slot : -1;
   const T* hr = j >= 0 ? h + ((r / n) * kp + j) * (int64_t)f : nullptr;
   for (int i = threadIdx.x; i < f; i += blockDim.x) {
     const int64_t e = r * f + i;
@@ -121,27 +124,165 @@ select_scatter_kernel(const T* __restrict__ x, T* __restrict__ p, T* __restrict_
   if (threadIdx.x == 0) norms[r] = norm;
 }
 
-template <typename T>
-int block_select_scatter(const void* x, void* p, void* b, const float* cov, const int* index,
-                         const void* h, const void* scale, const void* bias, const void* skip,
-                         int residual_x, const void* p_next, const void* next_scale,
-                         const void* next_bias, void* y, float* norms, int* slot, int bsz, int n,
-                         int c, int f, int kp, cudaStream_t stream) {
-  const size_t map_smem = (size_t)n * sizeof(int);
-  if (map_smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        slot_map_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)map_smem);
-    if (err != cudaSuccess) return (int)err;
+// The slot j of a batch row's index list idx[0, kp) with idx[j] == i, -1 if
+// none, found by one warp: 32 entries a step, kSlotSteps steps in flight,
+// __ballot_sync of the matches. An invalid slot holds -1 or a value >= n,
+// which matches no row i in [0, n).
+constexpr int kSlotSteps = 8;
+
+__device__ __forceinline__ int find_slot(const int* __restrict__ idx, int kp, int i, int lane) {
+  for (int base = 0; base < kp; base += 32 * kSlotSteps) {
+    int t[kSlotSteps];
+#pragma unroll
+    for (int s = 0; s < kSlotSteps; ++s) {
+      const int j = base + 32 * s + lane;
+      t[s] = j < kp ? __ldg(idx + j) : -1;
+    }
+#pragma unroll
+    for (int s = 0; s < kSlotSteps; ++s) {
+      const unsigned match = __ballot_sync(0xffffffffu, t[s] == i);
+      if (match != 0u) return base + 32 * s + __ffs(match) - 1;
+    }
   }
-  slot_map_kernel<<<bsz, kSlotThreads, map_smem, stream>>>(index, slot, n, kp);
-  ETK_CHECK_LAUNCH();
+  return -1;
+}
+
+// The same row pass in the warp-per-row body: one warp a row, K 16-byte
+// vectors a lane (row_pass.cuh), K picked by the rows it holds: x (c
+// values) and, in a form with y, the F-wide b', y and p_next. A form
+// without y copies h's row into b' K vectors a lane a step, so the qkv
+// group (F = 3C) holds no F-wide row and keeps its registers, and with
+// them its blocks an SM, at those of C. The operands as in the block body.
+template <typename T, int K>
+__global__ void __launch_bounds__(kRowThreads)
+select_scatter_kernel(const T* __restrict__ x, T* __restrict__ p, T* __restrict__ b,
+                      const float* __restrict__ cov, const int* __restrict__ index,
+                      const T* __restrict__ h, const T* __restrict__ scale,
+                      const T* __restrict__ bias, const T* __restrict__ res, T* __restrict__ y,
+                      const T* __restrict__ p_next, const T* __restrict__ next_scale,
+                      const T* __restrict__ next_bias, float* __restrict__ norms, int64_t rows,
+                      int n, int c, int f, int kp) {
+  constexpr int E = vec_elems<T>();
+  const int lane = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * kWarpRows + (threadIdx.x >> 5);
+  if (r >= rows) return;  // every branch below is uniform over the warp
+  const bool sel = __ldg(cov + r) > 0.f;
+  if (!sel && res == nullptr) return;  // the qkv group's unselected row
+  const int nc = c / E, nf = f / E;
+  uint4* brow = reinterpret_cast<uint4*>(b + r * f);
+  uint4 bv[K];
+  if (sel) {
+    const int64_t batch = r / n;
+    uint4 xv[K];
+    load_vecs<K>(x + r * c, nc, lane, xv);
+    const int slot = find_slot(index + batch * kp, kp, (int)(r - batch * n), lane);
+    uint4* prow = reinterpret_cast<uint4*>(p + r * c);
+    if (scale != nullptr) {
+      float mean, rstd;
+      warp_ln_stats<T, K>(xv, nc, lane, c, mean, rstd);
+      const uint4* sv = reinterpret_cast<const uint4*>(scale);
+      const uint4* bi = reinterpret_cast<const uint4*>(bias);
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int i = lane + 32 * j;
+        if (i < nc) {
+          float v[E], sf[E], bf[E];
+          unpack<T>(xv[j], v);
+          unpack<T>(__ldg(sv + i), sf);
+          unpack<T>(__ldg(bi + i), bf);
+#pragma unroll
+          for (int e = 0; e < E; ++e) v[e] = (v[e] - mean) * rstd * sf[e] + bf[e];
+          prow[i] = pack<T>(v);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        if (lane + 32 * j < nc) prow[lane + 32 * j] = xv[j];
+    }
+    // b' = h[slot], 0 where no valid slot names the row
+    const uint4* hrow =
+        slot >= 0 ? reinterpret_cast<const uint4*>(h + (batch * kp + slot) * (int64_t)f) : nullptr;
+    if (res == nullptr) {  // no y to hold: copied K vectors a lane a step, any F
+      for (int base = 0; base < nf; base += 32 * K) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const int i = base + lane + 32 * j;
+          bv[j] = i < nf && hrow != nullptr ? __ldg(hrow + i) : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          if (base + lane + 32 * j < nf) brow[base + lane + 32 * j] = bv[j];
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int i = lane + 32 * j;
+      bv[j] = i < nf && hrow != nullptr ? __ldg(hrow + i) : make_uint4(0u, 0u, 0u, 0u);
+      if (i < nf) brow[i] = bv[j];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int i = lane + 32 * j;
+      bv[j] = i < nf ? brow[i] : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  if (res == nullptr) return;
+  // y = rnd(b' + res), kept rounded for the next gate's norms
+  uint4 rv[K];
+  load_vecs<K>(res + r * f, nf, lane, rv);
+  uint4 pv[K];
+  if (norms != nullptr) load_vecs<K>(p_next + r * f, nf, lane, pv);
+  uint4* yrow = reinterpret_cast<uint4*>(y + r * f);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int i = lane + 32 * j;
+    if (i < nf) {
+      float v[E], w[E];
+      unpack<T>(bv[j], v);
+      unpack<T>(rv[j], w);
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[e] += w[e];
+      rv[j] = pack<T>(v);
+      yrow[i] = rv[j];
+    }
+  }
+  if (norms == nullptr) return;
+  const float norm = warp_ln_error_norm<T, K>(rv, pv, nf, lane, f, next_scale, next_bias);
+  if (lane == 0) norms[r] = norm;
+}
+
+template <typename T>
+int block_select_scatter(int body, const void* x, void* p, void* b, const float* cov,
+                         const int* index, const void* h, const void* scale, const void* bias,
+                         const void* skip, int residual_x, const void* p_next,
+                         const void* next_scale, const void* next_bias, void* y, float* norms,
+                         int bsz, int n, int c, int f, int kp, cudaStream_t stream) {
   const T* res = skip != nullptr ? (const T*)skip : (residual_x ? (const T*)x : nullptr);
-  select_scatter_kernel<T><<<(unsigned)((int64_t)bsz * n), kRowThreads,
-                             row_smem_bytes(c > f ? c : f), stream>>>(
-      (const T*)x, (T*)p, (T*)b, cov, slot, (const T*)h, (const T*)scale, (const T*)bias, res,
-      (T*)y, (const T*)p_next, (const T*)next_scale, (const T*)next_bias, norms, n, c, f, kp);
-  ETK_CHECK_LAUNCH();
-  return 0;
+  if (!warp_row_takes<T>(body, {c, f},
+                         {x, p, b, h, scale, bias, res, y, p_next, next_scale, next_bias}))
+    return (int)cudaErrorInvalidValue;
+  const int64_t rows = (int64_t)bsz * n;
+  if (rows == 0) return 0;
+  if (body == kRowBlock) {
+    select_scatter_block_kernel<T><<<(unsigned)rows, kRowThreads, row_smem_bytes(c > f ? c : f),
+                                     stream>>>(
+        (const T*)x, (T*)p, (T*)b, cov, index, (const T*)h, (const T*)scale, (const T*)bias, res,
+        (T*)y, (const T*)p_next, (const T*)next_scale, (const T*)next_bias, norms, n, c, f, kp);
+    ETK_CHECK_LAUNCH();
+    return 0;
+  }
+  return with_row_vecs<T>(res != nullptr && f > c ? f : c, [&](auto k) {
+    select_scatter_kernel<T, decltype(k)::value><<<warp_row_blocks(rows), kRowThreads, 0,
+                                                   stream>>>(
+        (const T*)x, (T*)p, (T*)b, cov, index, (const T*)h, (const T*)scale, (const T*)bias, res,
+        (T*)y, (const T*)p_next, (const T*)next_scale, (const T*)next_bias, norms, rows, n, c,
+        f, kp);
+    ETK_CHECK_LAUNCH();
+    return 0;
+  });
 }
 
 }  // namespace etk
@@ -175,16 +316,16 @@ int etk_block_scatter_rows(int dtype, void* b, const void* index, const void* h,
   });
 }
 
-int etk_block_select_scatter(int dtype, const void* x, void* p, void* b, const void* cov,
-                             const void* index, const void* h, const void* scale,
-                             const void* bias, const void* skip, int residual_x,
-                             const void* p_next, const void* next_scale, const void* next_bias,
-                             void* y, void* norms, void* slot, int bsz, int n, int c, int f,
-                             int kp, void* stream) {
+int etk_block_select_scatter(int dtype, int body, const void* x, void* p, void* b,
+                             const void* cov, const void* index, const void* h,
+                             const void* scale, const void* bias, const void* skip,
+                             int residual_x, const void* p_next, const void* next_scale,
+                             const void* next_bias, void* y, void* norms, int bsz, int n, int c,
+                             int f, int kp, void* stream) {
   ETK_DISPATCH(dtype, return etk::block_select_scatter<T>(
-                          x, p, b, (const float*)cov, (const int*)index, h, scale, bias, skip,
-                          residual_x, p_next, next_scale, next_bias, y, (float*)norms,
-                          (int*)slot, bsz, n, c, f, kp, (cudaStream_t)stream));
+                          body, x, p, b, (const float*)cov, (const int*)index, h, scale, bias,
+                          skip, residual_x, p_next, next_scale, next_bias, y, (float*)norms, bsz,
+                          n, c, f, kp, (cudaStream_t)stream));
 }
 
 }  // extern "C"

@@ -39,8 +39,9 @@
 //     gemm_tc.cuh does not take) gemm.cuh's tile, bound by its
 //     shared-memory traffic. A launch the rule would not send to the
 //     wgmma core is refused there; there is no fallback;
-//   * select_linear_skip_norms only: the ln_norms row pass (next_ln=False:
-//     the plain difference norm) over the rounded y, bound by bytes.
+//   * select_linear_skip_norms only: the ln_norms row pass over the rounded
+//     y, on the warp-per-row body of row_pass.cuh where its rule takes the
+//     shapes (next_ln=False: the plain difference norm of common.cuh).
 // What is left: p' (and "pre"'s ln(p')) makes one round trip through
 // device memory between the row pass and the GEMM. The row pass could
 // write the GEMM's A tiles straight into shared memory, and "pre"'s LN
@@ -49,6 +50,7 @@
 #include "common.cuh"
 #include "gemm.cuh"
 #include "gemm_tc.cuh"
+#include "row_pass.cuh"
 
 namespace etk {
 
@@ -116,28 +118,31 @@ int etk_ln_select_matmul(int dtype, const void* x, void* p, const void* cov, con
   });
 }
 
-// scale, bias null with next_ln == 0
-int etk_select_linear_skip_norms(int dtype, const void* x, void* p, const void* cov,
-                                 const void* w, const void* wb, const void* skip,
-                                 const void* p_next, const void* scale, const void* bias, void* y,
-                                 void* norms, long long rows, int c, int f, int next_ln, int core,
-                                 int split, void* ws, void* stream) {
+// scale, bias null with next_ln == 0; row_body: the body of the next_ln
+// norms (ops/row_pass.py ROW_BODY_CODES)
+int etk_select_linear_skip_norms(int dtype, int row_body, const void* x, void* p,
+                                 const void* cov, const void* w, const void* wb,
+                                 const void* skip, const void* p_next, const void* scale,
+                                 const void* bias, void* y, void* norms, long long rows, int c,
+                                 int f, int next_ln, int core, int split, void* ws,
+                                 void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const etk::GemmCall gemm{core, split, (float*)ws};
   ETK_DISPATCH(dtype, {
+    if (next_ln && !etk::warp_row_takes<T>(row_body, {f}, {y, p_next, scale, bias}))
+      return (int)cudaErrorInvalidValue;
     etk::select_rows_pass<T>((const T*)x, (T*)p, (const float*)cov, nullptr, nullptr, rows, c, s);
     ETK_CHECK_LAUNCH();
     const int err = etk::launch_gemm_core<T, false>(
         (const T*)p, rows, etk::DenseRows{}, (const T*)w, (int)rows, c, f,
         etk::BiasSkipEpilogue<T>{(const T*)wb, (const T*)skip, (T*)y, f}, gemm, s);
     if (err != 0) return err;
-    if (next_ln) {
-      etk::ln_norms_kernel<T><<<(unsigned)rows, etk::kRowThreads, etk::row_smem_bytes(f), s>>>(
-          (const T*)y, (const T*)p_next, (const T*)scale, (const T*)bias, (float*)norms, f);
-    } else {
-      etk::diff_norms_kernel<T><<<(unsigned)rows, etk::kRowThreads, 32 * sizeof(float), s>>>(
-          (const T*)y, (const T*)p_next, (float*)norms, f);
-    }
+    if (next_ln)
+      return etk::launch_ln_norms<T>(row_body, (const T*)y, (const T*)p_next,
+                                     (const T*)scale, (const T*)bias, (float*)norms, rows, f,
+                                     s);
+    etk::diff_norms_kernel<T><<<(unsigned)rows, etk::kRowThreads, 32 * sizeof(float), s>>>(
+        (const T*)y, (const T*)p_next, (float*)norms, f);
     ETK_CHECK_LAUNCH();
     return 0;
   });

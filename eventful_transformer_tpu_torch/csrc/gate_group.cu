@@ -71,8 +71,9 @@
 // rows before its body, in two more launches that write the (B, N)
 // coverage the body then reads:
 //   norms[r] = ||new[r] - p[r]||  (float32; new = ln(x) for "post", x for
-//                                  "pre"/"none": ln_norms_kernel or
-//                                  diff_norms_kernel of common.cuh)
+//                                  "pre"/"none": ln_norms_kernel of
+//                                  row_pass.cuh, or diff_norms_kernel of
+//                                  common.cuh)
 //   cov[b]   = the top-kcap set of norms[b], ties at the kcap-th value to
 //              the smallest index: exactly lax.top_k's set
 // The TPU kernel holds a batch row's whole (N, C) block in VMEM and
@@ -90,6 +91,7 @@
 // the (N, C) state than the coverage form, and no host round trip or
 // torch.topk between the norms and the group.
 #include "common.cuh"
+#include "row_pass.cuh"
 #include "gemm.cuh"
 #include "gemm_tc.cuh"
 
@@ -231,17 +233,19 @@ topk_cov_kernel(const float* __restrict__ norms, float* __restrict__ cov, int n,
 
 // The selection of a group that selects its own rows: the error norms of
 // the gate's domain into ``norms``, then the top-kcap coverage into cov.
+// ``row_body``: the body of the "post" norms (ops/row_pass.py ROW_BODY_CODES).
 template <typename T>
-int select_topk(const T* x, const T* p, const T* scale, const T* bias, float* norms, float* cov,
-                int bsz, int n, int c, int kcap, int ln_mode, cudaStream_t stream) {
+int select_topk(int row_body, const T* x, const T* p, const T* scale, const T* bias,
+                float* norms, float* cov, int bsz, int n, int c, int kcap, int ln_mode,
+                cudaStream_t stream) {
   const int rows = bsz * n;
   if (ln_mode == kLnPost) {
-    ln_norms_kernel<T><<<rows, kRowThreads, row_smem_bytes(c), stream>>>(x, p, scale, bias, norms,
-                                                                         c);
+    const int err = launch_ln_norms<T>(row_body, x, p, scale, bias, norms, rows, c, stream);
+    if (err != 0) return err;
   } else {
     diff_norms_kernel<T><<<rows, kRowThreads, 32 * sizeof(float), stream>>>(x, p, norms, c);
+    ETK_CHECK_LAUNCH();
   }
-  ETK_CHECK_LAUNCH();
   topk_cov_kernel<<<bsz, kTopkThreads, 0, stream>>>(norms, cov, n, kcap);
   ETK_CHECK_LAUNCH();
   return 0;
@@ -347,7 +351,7 @@ int compacted_gemm(const T* p, const int* idx, const T* scale, const T* bias, T*
 
 // topk_norms non-null: the group selects its own rows, into cov.
 template <typename T>
-int gate_group_mlp(const void* x, void* p, void* b, float* cov, float* topk_norms,
+int gate_group_mlp(int row_body, const void* x, void* p, void* b, float* cov, float* topk_norms,
                    const void* ln_scale, const void* ln_bias, const void* w1, const void* b1,
                    const void* w2, const void* b2, const void* p_next, const void* next_scale,
                    const void* next_bias, void* y, float* norms, int* pos, int* idx, void* h,
@@ -356,9 +360,9 @@ int gate_group_mlp(const void* x, void* p, void* b, float* cov, float* topk_norm
   const int rows = bsz * n;
   const size_t row_smem = row_smem_bytes(c);
   if (topk_norms != nullptr) {
-    const int err = select_topk<T>((const T*)x, (const T*)p, (const T*)ln_scale,
-                                   (const T*)ln_bias, topk_norms, cov, bsz, n, c, kcap, ln_mode,
-                                   stream);
+    const int err = select_topk<T>(row_body, (const T*)x, (const T*)p, (const T*)ln_scale,
+                                   (const T*)ln_bias, topk_norms, cov, bsz, n, c, kcap,
+                                   ln_mode, stream);
     if (err != 0) return err;
   }
   select_pass<T>((const T*)x, (T*)p, cov, (const T*)ln_scale, (const T*)ln_bias, rows, c, ln_mode,
@@ -388,7 +392,8 @@ int gate_group_mlp(const void* x, void* p, void* b, float* cov, float* topk_norm
 // the projection group emits the MLP gate's norms); topk_norms non-null:
 // the group selects its own rows, into cov.
 template <typename T>
-int gate_group_linear(const void* x, void* p, void* b, float* cov, float* topk_norms,
+int gate_group_linear(int row_body, const void* x, void* p, void* b, float* cov,
+                      float* topk_norms,
                       const void* ln_scale, const void* ln_bias, const void* w, const void* wb,
                       const void* skip, const void* p_next, const void* next_scale,
                       const void* next_bias, void* y, float* norms, int* idx, void* a, int bsz,
@@ -396,9 +401,9 @@ int gate_group_linear(const void* x, void* p, void* b, float* cov, float* topk_n
                       cudaStream_t stream) {
   const int rows = bsz * n;
   if (topk_norms != nullptr) {
-    const int err = select_topk<T>((const T*)x, (const T*)p, (const T*)ln_scale,
-                                   (const T*)ln_bias, topk_norms, cov, bsz, n, c, kcap, ln_mode,
-                                   stream);
+    const int err = select_topk<T>(row_body, (const T*)x, (const T*)p, (const T*)ln_scale,
+                                   (const T*)ln_bias, topk_norms, cov, bsz, n, c, kcap,
+                                   ln_mode, stream);
     if (err != 0) return err;
   }
   select_pass<T>((const T*)x, (T*)p, cov, (const T*)ln_scale, (const T*)ln_bias, rows, c, ln_mode,
@@ -419,32 +424,36 @@ int gate_group_linear(const void* x, void* p, void* b, float* cov, float* topk_n
 
 }  // namespace etk
 
-extern "C" int etk_gate_group_linear(int dtype, const void* x, void* p, void* b, void* cov,
-                                     void* topk_norms, const void* ln_scale, const void* ln_bias,
-                                     const void* w, const void* wb, const void* skip,
-                                     const void* p_next, const void* next_scale,
-                                     const void* next_bias, void* y, void* norms, void* idx,
-                                     void* a, int bsz, int n, int c, int f, int kcap, int ln_mode,
-                                     int core, int split, void* ws, void* stream) {
+// row_body: the body of the "post" norms of a group that selects its own
+// rows (ops/row_pass.py ROW_BODY_CODES)
+extern "C" int etk_gate_group_linear(int dtype, int row_body, const void* x, void* p, void* b,
+                                     void* cov, void* topk_norms, const void* ln_scale,
+                                     const void* ln_bias, const void* w, const void* wb,
+                                     const void* skip, const void* p_next,
+                                     const void* next_scale, const void* next_bias, void* y,
+                                     void* norms, void* idx, void* a, int bsz, int n, int c,
+                                     int f, int kcap, int ln_mode, int core, int split, void* ws,
+                                     void* stream) {
   const etk::GemmCall gemm{core, split, (float*)ws};
   ETK_DISPATCH(dtype, return etk::gate_group_linear<T>(
-                          x, p, b, (float*)cov, (float*)topk_norms, ln_scale, ln_bias, w, wb,
-                          skip, p_next, next_scale, next_bias, y, (float*)norms, (int*)idx, a,
-                          bsz, n, c, f, kcap, ln_mode, gemm, (cudaStream_t)stream));
+                          row_body, x, p, b, (float*)cov, (float*)topk_norms, ln_scale, ln_bias,
+                          w, wb, skip, p_next, next_scale, next_bias, y, (float*)norms,
+                          (int*)idx, a, bsz, n, c, f, kcap, ln_mode, gemm,
+                          (cudaStream_t)stream));
 }
 
-extern "C" int etk_gate_group_mlp(int dtype, const void* x, void* p, void* b, void* cov,
-                                  void* topk_norms, const void* ln_scale, const void* ln_bias,
-                                  const void* w1, const void* b1, const void* w2, const void* b2,
-                                  const void* p_next, const void* next_scale,
-                                  const void* next_bias, void* y, void* norms, void* pos,
-                                  void* idx, void* h, void* h2, void* a, int bsz, int n, int c,
-                                  int hidden, int kcap, int ln_mode, int core, int split1,
-                                  int split2, void* ws, void* stream) {
+extern "C" int etk_gate_group_mlp(int dtype, int row_body, const void* x, void* p, void* b,
+                                  void* cov, void* topk_norms, const void* ln_scale,
+                                  const void* ln_bias, const void* w1, const void* b1,
+                                  const void* w2, const void* b2, const void* p_next,
+                                  const void* next_scale, const void* next_bias, void* y,
+                                  void* norms, void* pos, void* idx, void* h, void* h2, void* a,
+                                  int bsz, int n, int c, int hidden, int kcap, int ln_mode,
+                                  int core, int split1, int split2, void* ws, void* stream) {
   const etk::GemmCall gemm1{core, split1, (float*)ws}, gemm2{core, split2, (float*)ws};
   ETK_DISPATCH(dtype, return etk::gate_group_mlp<T>(
-                          x, p, b, (float*)cov, (float*)topk_norms, ln_scale, ln_bias, w1, b1, w2,
-                          b2, p_next, next_scale, next_bias, y, (float*)norms, (int*)pos,
-                          (int*)idx, h, h2, a, bsz, n, c, hidden, kcap, ln_mode, gemm1, gemm2,
-                          (cudaStream_t)stream));
+                          row_body, x, p, b, (float*)cov, (float*)topk_norms, ln_scale, ln_bias,
+                          w1, b1, w2, b2, p_next, next_scale, next_bias, y, (float*)norms,
+                          (int*)pos, (int*)idx, h, h2, a, bsz, n, c, hidden, kcap, ln_mode,
+                          gemm1, gemm2, (cudaStream_t)stream));
 }

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from eventful_transformer_tpu_torch.ops import _build, gemm_core
+from eventful_transformer_tpu_torch.ops import _build, gemm_core, row_pass
 from eventful_transformer_tpu_torch.ops.common import ln_f32, row_norms
 from eventful_transformer_tpu_torch.ops.window_attention import (
     BODY_CODES,
@@ -123,7 +123,8 @@ def proj_group_plain(attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, 
 def proj_group(attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, ln2_bias):
     """Kernel B; the wrapper of :func:`proj_group_plain`, which CPU tensors
     take. CUDA tensors launch the kernels of csrc/block_fused.cu; the
-    GEMM's core is counted in ``core_launches``."""
+    GEMM's core is counted in ``core_launches``, the body of the MLP gate's
+    norms (``row_pass.row_body``) in ``row_body_launches``."""
     if attn.device.type == "cpu":
         return proj_group_plain(
             attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, ln2_bias
@@ -146,8 +147,9 @@ def proj_group(attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, ln2_bi
     ws = gemm_core.workspace([plan], attn.device)
     y1 = torch.empty_like(attn)
     norms = torch.empty((bsz, n), dtype=torch.float32, device=attn.device)
+    body = row_pass.row_body(attn.dtype, (c,), _build.aligned16(p_mlp, ln2_scale, ln2_bias))
     _build.launch(
-        "etk_proj_group", _build.dtype_code(attn), attn.data_ptr(),
+        "etk_proj_group", _build.dtype_code(attn), row_pass.ROW_BODY_CODES[body], attn.data_ptr(),
         p_proj.data_ptr(), cov.data_ptr(), skip.data_ptr(), p_mlp.data_ptr(),
         w_proj.data_ptr(), b_proj.data_ptr(), ln2_scale.data_ptr(),
         ln2_bias.data_ptr(), y1.data_ptr(), norms.data_ptr(), bsz, n, c,
@@ -155,8 +157,10 @@ def proj_group(attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, ln2_bi
     )
     proj_group.launches += 1
     proj_group.core_launches[core] += 1
+    proj_group.row_body_launches[body] += 1
     return p_proj, y1, norms
 
 
 proj_group.launches = 0
 proj_group.core_launches = gemm_core.new_core_counts()
+proj_group.row_body_launches = row_pass.new_body_counts()

@@ -19,14 +19,15 @@ valid indices must be distinct, as a top-k selection makes them. The CUDA
 kernels are ``csrc/gate_block.cu``; see its header for what bounds them.
 ``block_select_p`` and ``block_select_scatter`` count their launches in
 ``launches`` and, by whether the gate takes ln(x) or x (``apply_ln``), in
-``form_launches``.
+``form_launches``; ``block_select_scatter`` also by the row body
+``ops/row_pass.py::row_body`` picks, in ``row_body_launches``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from eventful_transformer_tpu_torch.ops import _build
+from eventful_transformer_tpu_torch.ops import _build, row_pass
 from eventful_transformer_tpu_torch.ops.common import ln_f32, row_norms
 
 
@@ -70,9 +71,11 @@ def block_select_scatter(
     next_bias=None, *, apply_ln, residual_x=False
 ):
     """The wrapper of :func:`block_select_scatter_plain`, which CPU tensors
-    take. CUDA tensors launch the kernels of csrc/gate_block.cu (the index
-    list inverted into a token -> slot map, then the row pass); ``index`` is
-    int32 there."""
+    take. CUDA tensors launch the one kernel of csrc/gate_block.cu, in the
+    body ``row_pass.row_body`` picks (each selected row finds its slot in
+    ``index`` itself); ``index`` is int32 there. Valid indices must be
+    distinct: a duplicated one is undefined. It allocates its outputs
+    alone."""
     if x.device.type == "cpu":
         return block_select_scatter_plain(
             x, p, b, cov, index, h, scale, bias, skip, p_next, next_scale, next_bias,
@@ -104,23 +107,27 @@ def block_select_scatter(
     if index.dtype != torch.int32 or index.device != x.device or not index.is_contiguous():
         raise TypeError(f"{name}: index must be a contiguous int32 tensor on {x.device}")
     _build.check_shape(name, "index", index, (bsz, kp))
-    if n * 4 > _build.MAX_SHARED_BYTES or f > _build.MAX_ROW_WIDTH:
-        raise ValueError(f"{name}: N={n} or F={f} too large for one block")
+    if f > _build.MAX_ROW_WIDTH:
+        raise ValueError(f"{name}: F={f} exceeds {_build.MAX_ROW_WIDTH}")
+    vectors = [x, p, b, h, skip, p_next, next_scale, next_bias]  # moved as 16-byte vectors
+    if apply_ln:
+        vectors += [scale, bias]
+    body = row_pass.row_body(x.dtype, (c, f), _build.aligned16(*vectors))
     with_y = skip is not None or residual_x
     y = torch.empty((bsz, n, f), dtype=x.dtype, device=x.device) if with_y else None
     norms = None
     if p_next is not None:
         norms = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
-    slot = torch.empty((bsz, n), dtype=torch.int32, device=x.device)
     _build.launch(
-        "etk_block_select_scatter", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
-        b.data_ptr(), cov.data_ptr(), index.data_ptr(), h.data_ptr(),
-        _ptr(scale) if apply_ln else None, _ptr(bias) if apply_ln else None, _ptr(skip),
-        int(residual_x), _ptr(p_next), _ptr(next_scale), _ptr(next_bias), _ptr(y),
-        _ptr(norms), slot.data_ptr(), bsz, n, c, f, kp, _build.stream_of(x),
+        "etk_block_select_scatter", _build.dtype_code(x), row_pass.ROW_BODY_CODES[body],
+        x.data_ptr(), p.data_ptr(), b.data_ptr(), cov.data_ptr(), index.data_ptr(),
+        h.data_ptr(), _ptr(scale) if apply_ln else None, _ptr(bias) if apply_ln else None,
+        _ptr(skip), int(residual_x), _ptr(p_next), _ptr(next_scale), _ptr(next_bias), _ptr(y),
+        _ptr(norms), bsz, n, c, f, kp, _build.stream_of(x),
     )
     block_select_scatter.launches += 1
     block_select_scatter.form_launches["ln" if apply_ln else "no_ln"] += 1
+    block_select_scatter.row_body_launches[body] += 1
     if y is None:
         return p, b
     return (p, b, y) if norms is None else (p, b, y, norms)
@@ -128,6 +135,7 @@ def block_select_scatter(
 
 block_select_scatter.launches = 0
 block_select_scatter.form_launches = dict.fromkeys(("ln", "no_ln"), 0)
+block_select_scatter.row_body_launches = row_pass.new_body_counts()
 
 
 def block_select_p_plain(x, p, cov, scale, bias, *, apply_ln):

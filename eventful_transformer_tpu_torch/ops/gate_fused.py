@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from eventful_transformer_tpu_torch.ops import _build, gemm_core
+from eventful_transformer_tpu_torch.ops import _build, gemm_core, row_pass
 from eventful_transformer_tpu_torch.ops.common import LN_MODES, ln_f32, row_norms
 
 
@@ -44,7 +44,8 @@ def ln_norms_plain(x, p, scale, bias):
 
 def ln_norms(x, p, scale, bias):
     """Kernel wrapper of :func:`ln_norms_plain`: returns norms (B, N) float32.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel in
+    the body ``row_pass.row_body`` picks, counted in ``row_body_launches``."""
     if x.device.type == "cpu":
         return ln_norms_plain(x, p, scale, bias)
     name = "ln_norms"
@@ -53,17 +54,20 @@ def ln_norms(x, p, scale, bias):
     _build.check_shape(name, "p", p, x.shape)
     _build.check_shape(name, "scale", scale, (c,))
     _build.check_shape(name, "bias", bias, (c,))
+    body = row_pass.row_body(x.dtype, (c,), _build.aligned16(x, p, scale, bias))
     out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     _build.launch(
-        "etk_ln_norms", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
-        scale.data_ptr(), bias.data_ptr(), out.data_ptr(), x.numel() // c, c,
+        "etk_ln_norms", _build.dtype_code(x), row_pass.ROW_BODY_CODES[body], x.data_ptr(),
+        p.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), x.numel() // c, c,
         _build.stream_of(x),
     )
     ln_norms.launches += 1
+    ln_norms.row_body_launches[body] += 1
     return out
 
 
 ln_norms.launches = 0
+ln_norms.row_body_launches = row_pass.new_body_counts()
 
 
 def _select_f32(x, p, cov, scale, bias, apply_ln):
@@ -171,7 +175,8 @@ def select_linear_skip_norms(x, p, cov, w, wb, skip, p_next, scale, bias, *, nex
     """The wrapper of :func:`select_linear_skip_norms_plain`, which CPU
     tensors take. CUDA tensors launch the kernels of csrc/gate_fused.cu;
     every operand but cov in x's dtype, cov float32. The GEMM's core is
-    counted in ``core_launches``."""
+    counted in ``core_launches``; with ``next_ln`` the norms stage's body
+    (``row_pass.row_body``) in ``row_body_launches``."""
     if x.device.type == "cpu":
         return select_linear_skip_norms_plain(
             x, p, cov, w, wb, skip, p_next, scale, bias, next_ln=next_ln
@@ -194,8 +199,12 @@ def select_linear_skip_norms(x, p, cov, w, wb, skip, p_next, scale, bias, *, nex
     ws = gemm_core.workspace([plan], x.device)
     y = torch.empty(x.shape[:-1] + (f,), dtype=x.dtype, device=x.device)
     norms = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    body = "block"
+    if next_ln:
+        body = row_pass.row_body(x.dtype, (f,), _build.aligned16(p_next, scale, bias))
     _build.launch(
-        "etk_select_linear_skip_norms", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
+        "etk_select_linear_skip_norms", _build.dtype_code(x), row_pass.ROW_BODY_CODES[body],
+        x.data_ptr(), p.data_ptr(),
         cov.data_ptr(), w.data_ptr(), wb.data_ptr(), skip.data_ptr(), p_next.data_ptr(),
         scale.data_ptr() if next_ln else None, bias.data_ptr() if next_ln else None,
         y.data_ptr(), norms.data_ptr(), rows, c, f, int(next_ln), gemm_core.CORE_CODES[core],
@@ -204,12 +213,15 @@ def select_linear_skip_norms(x, p, cov, w, wb, skip, p_next, scale, bias, *, nex
     select_linear_skip_norms.launches += 1
     select_linear_skip_norms.form_launches["next_ln" if next_ln else "no_ln"] += 1
     select_linear_skip_norms.core_launches[core] += 1
+    if next_ln:
+        select_linear_skip_norms.row_body_launches[body] += 1
     return p, y, norms
 
 
 select_linear_skip_norms.launches = 0
 select_linear_skip_norms.form_launches = dict.fromkeys(("next_ln", "no_ln"), 0)
 select_linear_skip_norms.core_launches = gemm_core.new_core_counts()
+select_linear_skip_norms.row_body_launches = row_pass.new_body_counts()
 
 
 def ln_select_plain(x, p, cov, scale, bias, *, apply_ln=True):

@@ -23,7 +23,9 @@ Each wrapper counts its launches in ``launches`` and, by form, in
 selects its own rows. The GEMMs of both take the core
 ``ops/gemm_core.py::gemm_core`` picks (bfloat16 at the paths' widths: the
 wgmma core), counted in ``core_launches``; ``gate_group_linear``'s GEMM
-writes the token buffer at the selected rows itself. Where
+writes the token buffer at the selected rows itself. A "post" group that
+selects its own rows takes its norms in ``ln_norms``' row pass, whose body
+(``ops/row_pass.py::row_body``) is counted in ``row_body_launches``. Where
 ``record_selection`` is a callable, each coverage a ``cov=None`` form
 selects is handed to it.
 
@@ -38,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms
-from eventful_transformer_tpu_torch.ops import _build, gemm_core
+from eventful_transformer_tpu_torch.ops import _build, gemm_core, row_pass
 from eventful_transformer_tpu_torch.ops.common import LN_MODES, gelu_exact, ln_f32, row_norms
 
 # A callable handed every (B, N) float32 coverage that a cov=None form
@@ -192,8 +194,10 @@ def gate_group_linear(
     core, plan = gemm_core.gemm_launch(x.dtype, bsz * kcap, c, f,
                                        _build.aligned16(p if rows is None else rows, w))
     ws = gemm_core.workspace([plan], x.device)
+    body = _topk_body(x, p, scale, bias, ln_mode, topk_norms)
     _build.launch(
-        "etk_gate_group_linear", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
+        "etk_gate_group_linear", _build.dtype_code(x),
+        row_pass.ROW_BODY_CODES[body or "block"], x.data_ptr(), p.data_ptr(),
         b.data_ptr(), cov.data_ptr(), _ptr(topk_norms), _ptr(scale) if ln else None,
         _ptr(bias) if ln else None, w.data_ptr(), wb.data_ptr(), _ptr(skip),
         _ptr(p_next), _ptr(next_scale), _ptr(next_bias), _ptr(y), _ptr(norms),
@@ -203,6 +207,8 @@ def gate_group_linear(
     gate_group_linear.launches += 1
     gate_group_linear.form_launches[form] += 1
     gate_group_linear.core_launches[core] += 1
+    if body is not None:
+        gate_group_linear.row_body_launches[body] += 1
     if topk_norms is not None:
         _record(cov)
     return p, b, y, norms
@@ -211,6 +217,7 @@ def gate_group_linear(
 gate_group_linear.launches = 0
 gate_group_linear.form_launches = _forms(LN_MODES)
 gate_group_linear.core_launches = gemm_core.new_core_counts()
+gate_group_linear.row_body_launches = row_pass.new_body_counts()
 
 
 def _coverage_scratch(x, cov):
@@ -222,6 +229,15 @@ def _coverage_scratch(x, cov):
     shape = x.shape[:2]
     return (torch.empty(shape, dtype=torch.float32, device=x.device),
             torch.empty(shape, dtype=torch.float32, device=x.device))
+
+
+def _topk_body(x, p, scale, bias, ln_mode, topk_norms):
+    """The row body (``row_pass.row_body``) of the ln_norms stage of a group
+    that selects its own rows in its "post" form, None where the call has
+    no such stage ("block", its code, is then passed and unused)."""
+    if topk_norms is None or ln_mode != "post":
+        return None
+    return row_pass.row_body(x.dtype, (x.shape[-1],), _build.aligned16(x, p, scale, bias))
 
 
 def _normalised_rows(x, ln_mode, kcap):
@@ -300,8 +316,10 @@ def gate_group_mlp(
     core, *plans = gemm_core.mlp_launch(x.dtype, bsz * kcap, c, hidden,
                                         _build.aligned16(p, w1, w2))
     ws = gemm_core.workspace(plans, x.device)
+    body = _topk_body(x, p, scale, bias, ln_mode, topk_norms)
     _build.launch(
-        "etk_gate_group_mlp", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
+        "etk_gate_group_mlp", _build.dtype_code(x),
+        row_pass.ROW_BODY_CODES[body or "block"], x.data_ptr(), p.data_ptr(),
         b.data_ptr(), cov.data_ptr(), _ptr(topk_norms), scale.data_ptr(), bias.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), _ptr(p_next),
         _ptr(next_scale), _ptr(next_bias), y.data_ptr(), _ptr(norms), pos.data_ptr(),
@@ -312,6 +330,8 @@ def gate_group_mlp(
     gate_group_mlp.launches += 1
     gate_group_mlp.form_launches[form] += 1
     gate_group_mlp.core_launches[core] += 1
+    if body is not None:
+        gate_group_mlp.row_body_launches[body] += 1
     if topk_norms is not None:
         _record(cov)
     return p, b, y, norms
@@ -320,3 +340,4 @@ def gate_group_mlp(
 gate_group_mlp.launches = 0
 gate_group_mlp.form_launches = _forms(("post", "pre"))
 gate_group_mlp.core_launches = gemm_core.new_core_counts()
+gate_group_mlp.row_body_launches = row_pass.new_body_counts()

@@ -333,11 +333,12 @@ def launches(name):
 
 
 def reset_launches():
-    """Every wrapper's counts to 0, by form, by body and by GEMM core too."""
+    """Every wrapper's counts to 0, by form, by body, by GEMM core and by
+    row body too."""
     for entry in KERNELS.values():
         wrapper = entry[0]
         wrapper.launches = 0
-        for attr in ("form_launches", "body_launches", "core_launches"):
+        for attr in ("form_launches", "body_launches", "core_launches", "row_body_launches"):
             counts = getattr(wrapper, attr, {})
             for key in counts:
                 counts[key] = 0
@@ -361,6 +362,24 @@ def check_bodies(counts, dtype, where):
     stray = {name: c for name, c in counts.items() if c[other]}
     if stray:
         raise AssertionError(f"{where}: {dtype} launches took the {other} body: {stray}")
+
+
+def row_body_launches():
+    """{wrapper name: {"warp": n, "block": n}} of the wrappers that launch
+    ``ln_norms``' or ``block_select_scatter``'s row pass (rows 1 and 9, and
+    the norms stages of rows 3, 4, 7 and 13), by the body
+    ``row_pass.row_body`` gave each launch."""
+    return {entry[0].__name__: dict(entry[0].row_body_launches) for entry in KERNELS.values()
+            if hasattr(entry[0], "row_body_launches")}
+
+
+def check_row_bodies(counts, where):
+    """Raise unless every launch in ``counts`` (:func:`row_body_launches`
+    after a run) took the warp-per-row body, as every model path's shapes
+    do in both dtypes."""
+    stray = {name: c for name, c in counts.items() if c["block"]}
+    if stray:
+        raise AssertionError(f"{where}: row passes took the block-per-row body: {stray}")
 
 
 def core_launches():
@@ -809,6 +828,11 @@ def comparison(name):
     return compare_rounded if name in BF16_ROUNDED else compare
 
 
+# Outputs held bit for bit beside :func:`comparison`'s: row 9's token buffer
+# (h's rows copied, or b kept) and y (one rounding of the same float32 sum)
+EXACT_OUTPUTS = {"block_select_scatter": ("b", "y")}
+
+
 def errors(name, d):
     """Run the kernel (once) and its plain version on clones of ``d``.
     Returns one :func:`compare` row per output, the in-place gate state
@@ -816,7 +840,7 @@ def errors(name, d):
     against the plain version given the kernel's selection, and the
     selection against :func:`selection_check`'s; each output is held by
     :func:`comparison` (bit for bit for the scatter-blend, the row scatter
-    and the gather)."""
+    and the gather, and for EXACT_OUTPUTS)."""
     got = call(name, d)
     selection = None
     if name in TOPK:
@@ -826,8 +850,9 @@ def errors(name, d):
     else:
         want = call(name, d, plain=True)
     torch.cuda.synchronize()
-    check = comparison(name)
-    rows = [dict(output=out, **check(a, b)) for out, a, b in zip(KERNELS[name][4], got, want)]
+    exact = EXACT_OUTPUTS.get(KERNELS[name][0].__name__, ())
+    rows = [dict(output=out, **(compare_exact if out in exact else comparison(name))(a, b))
+            for out, a, b in zip(KERNELS[name][4], got, want)]
     if selection is not None:
         rows.append(dict(output="selection", **selection))
     return rows
@@ -977,23 +1002,27 @@ def io_bytes(name, d):
     # the index kernels: cov_sel marks the rows the valid slots of w_index name
     if name == "block_scatter_rows":
         return read("w_index", "h_rows") + rows("buf_qkv", "cov_sel")
+    # row 9: x is read whole only where y adds it (the MLP forms), else at the
+    # selected rows, as h is at the valid slots (the rows cov_sel marks); b is
+    # written at the selected rows and, where y adds its old rows (not the
+    # qkv forms), read at the others: its bytes once
+    if name.startswith("block_select_scatter"):
+        h = "h_rows" if "_qkv" in name else "h_c"
+        valid = float(d["cov_sel"].sum()) * d[h].shape[-1] * d[h].element_size()
+        sel = read("cov_sel", "w_index") + valid
     if name == "block_select_scatter_qkv":
-        return (read("x", "cov_sel", "w_index", "h_rows", "ln1_s", "ln1_b")
-                + rows("p_qkv", "cov_sel") + rows("buf_qkv", "cov_sel"))
+        return (sel + read("ln1_s", "ln1_b") + rows("x", "cov_sel") + rows("p_qkv", "cov_sel")
+                + rows("buf_qkv", "cov_sel"))
     if name == "block_select_scatter_qkv_noln":
-        return (read("x", "cov_sel", "w_index", "h_rows")
-                + rows("p_qkv", "cov_sel") + rows("buf_qkv", "cov_sel"))
+        return sel + rows("x", "cov_sel") + rows("p_qkv", "cov_sel") + rows("buf_qkv", "cov_sel")
     if name == "block_select_scatter_mlp_noln":
-        return (read("x", "b_mlp", "cov_sel", "w_index", "h_c")
-                + rows("p_mlp", "cov_sel") + rows("b_mlp", "cov_sel") + tokens)
+        return sel + read("x", "b_mlp") + rows("p_mlp", "cov_sel") + tokens
     if name == "block_select_scatter_proj":
-        return (read("attn", "buf_proj", "cov_sel", "w_index", "h_c", "x", "p_mlp", "ln2_s",
-                     "ln2_b")
-                + rows("p_proj", "cov_sel") + rows("buf_proj", "cov_sel") + tokens + norms)
+        return (sel + read("buf_proj", "x", "p_mlp", "ln2_s", "ln2_b") + rows("attn", "cov_sel")
+                + rows("p_proj", "cov_sel") + tokens + norms)
     if name == "block_select_scatter_mlp":
-        return (read("x", "b_mlp", "cov_sel", "w_index", "h_c", "ln2_s", "ln2_b", "p_next",
-                     "ln1_s", "ln1_b")
-                + rows("p_mlp", "cov_sel") + rows("b_mlp", "cov_sel") + tokens + norms)
+        return (sel + read("x", "b_mlp", "ln2_s", "ln2_b", "p_next", "ln1_s", "ln1_b")
+                + rows("p_mlp", "cov_sel") + tokens + norms)
     if name.startswith("softmax_select_matmul"):
         terms = () if name.endswith("_noterms") else ("av_terms",)
         inputs = ("av_logits",) if "_logits" in name else ("av_q", "av_k")
@@ -1282,6 +1311,11 @@ ROW_COPY_KERNELS = {
     "scatter_rows_inplace": "scatter_rows_kernel",
     "gather_rows": "gather_rows_kernel",
 }
+# The same for rows 1 and 9 in the warp-per-row body (csrc/row_pass.cuh)
+ROW_PASS_KERNELS = {
+    "ln_norms": "ln_norms_kernel",
+    "block_select_scatter": "select_scatter_kernel",
+}
 
 
 def device_us(fn, calls=20):
@@ -1347,13 +1381,13 @@ def allocations(fn, calls=20):
 
 
 def row_copy_profile(name, d, bound_ms):
-    """Entry ``name`` of rows 18-20 on ``d`` profiled: its device
-    microseconds a call (:func:`device_us`; where the profiler caught no
-    device event, :func:`queued_device_us`, as ``device_us_by`` says), the
-    share of the card's bound ``bound_ms`` they reach, the kernels a call
-    launches, its device allocations a call, and whether it launches
-    exactly its own kernel once a call (None where the profiler caught
-    nothing)."""
+    """Entry ``name`` of rows 18-20, or of rows 1 and 9, on ``d`` profiled:
+    its device microseconds a call (:func:`device_us`; where the profiler
+    caught no device event, :func:`queued_device_us`, as ``device_us_by``
+    says), the share of the card's bound ``bound_ms`` they reach, the
+    kernels a call launches, its device allocations a call, and whether it
+    launches exactly its own kernel once a call (None where the profiler
+    caught nothing)."""
     fn = KERNELS[name][0]
     d = {key: v.clone() if torch.is_tensor(v) else v for key, v in d.items()}
     call = lambda: _invoke(name, fn, d)  # noqa: E731
@@ -1364,7 +1398,8 @@ def row_copy_profile(name, d, bound_ms):
     return dict(
         device_us=us, device_us_by=by, bound_share=bound_ms * 1e3 / us,
         kernels_per_call=kernels or None, allocations_per_call=allocations(call),
-        one_launch=kernels == {ROW_COPY_KERNELS[fn.__name__]: 1} if kernels else None,
+        one_launch=kernels == {{**ROW_COPY_KERNELS, **ROW_PASS_KERNELS}[fn.__name__]: 1}
+        if kernels else None,
     )
 
 

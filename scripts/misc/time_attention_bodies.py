@@ -1,10 +1,12 @@
 """Time the attention kernel's wrappers, kernels A and B, the gate-fusion
-kernels (rows 12 and 13), the A.V kernel (row 8) and the small row kernels
-in bfloat16 at the paths' shapes on one NVIDIA GPU, each beside the one
+kernels (rows 12 and 13), the A.V kernel (row 8), the row passes of rows 1
+and 9 and the small row kernels in bfloat16 at the paths' shapes on one
+NVIDIA GPU, each beside the one
 PyTorch call that computes the same function (the GEMM rows: their
 yardstick), with the host microseconds of one call.
 
     python3 scripts/misc/time_attention_bodies.py [ROOT] [--breakdown] [--case=TAG ...]
+        [--entry=NAME ...]
 
 Imports ``eventful_transformer_tpu_torch`` from ROOT (the checkout this
 script lies in by default), so that two versions of the package, each in a
@@ -56,13 +58,18 @@ over 197 keys); the attention wrappers (ViViT's 8 x 197 global attention, the
 temporal 8 x 17, ViTDet's 18 windows at 672, 9 at 672 with
 one stream, 50 at 1024, plain and padded; ``window_attention_grid`` on the
 672 map, with and without the rel-pos tables, and on 1024's padded one)
-and the row kernels whose host time is most of a call (rows 19
+and the row passes of rows 1 (``ln_norms`` at ViViT's 8 x 197, the
+paper's ViViT's 12 x 197, ViTDet-672's 2 x 1764 and 1024's 2 x 4096) and 9
+(``block_select_scatter`` at 1024: the qkv, projection and MLP forms and
+the qkv and MLP forms without the LN), and the row kernels whose host time
+is most of a call (rows 19
 ``scatter_rows_inplace``, 20 ``gather_rows``, 18 ``scatter_blend`` at
 stgt_672's C, 3C and 4C (masked) buffers and at ViViT's 8 x 197, 14
 ``ln_select`` and 10 ``block_select_p`` without the LN, 11
 ``block_scatter_rows``). ``--case=TAG`` (repeatable) times only the
 cases of those tags (``vivit``, ``temporal``, ``672``, ``e2e``,
-``vivit_evblock``, ``vivit_blend``, ``vivit_pre_ln``, ``1024``).
+``vivit_evblock``, ``vivit_blend``, ``vivit_pre_ln``, ``1024``), and
+``--entry=NAME`` (repeatable) only those entries of them.
 ``--breakdown`` (the checkout's own version only) adds where the host time
 of one ``scatter_rows_inplace`` call at C = 768 and of one ``gather_rows``
 call at 3C goes: the operand checks, the stream read, the plan, the
@@ -90,7 +97,7 @@ from eventful_transformer_tpu_torch.ops import _build, kernel_check  # noqa: E40
 CASES = [
     ("vivit", 8, 197, 98, dict(window=(4, 6)),
      ("window_attention", "fused_attention", "fused_attention_cast", "qkv_attention_group",
-      "proj_group", "ln_select_noln")),
+      "proj_group", "ln_select_noln", "ln_norms")),
     ("temporal", 8, 17, 17, dict(window=(4, 6)), ("window_attention",)),
     ("672", 2, 1764, 256, dict(window=(14, 14), pool=(21, 21), pad_window=(14, 14)),
      ("window_attention_windowed", "window_attention_grid", "window_attention_grid_noterms",
@@ -99,22 +106,26 @@ CASES = [
       "block_select_p_noln",
       "gate_group_linear_post", "gate_group_linear", "gate_group_linear_pre",
       "gate_group_linear_post_topk", "gate_group_linear_topk", "gate_group_linear_pre_topk",
-      "gate_group_mlp")),
+      "gate_group_mlp", "ln_norms")),
     ("e2e", 1, 1764, 256, dict(window=(14, 14), pool=(21, 21)),
      ("window_attention_windowed", "gate_group_linear_post", "gate_group_linear",
       "softmax_select_matmul")),
     ("vivit_evblock", 12, 197, 24, dict(window=(4, 6), pool=(1, 197)),
      ("ln_select_matmul_post", "ln_select_matmul_none", "select_linear_skip_norms",
-      "scatter_rows_inplace_qkv", "gather_rows_qkv", "softmax_select_matmul_logits_noterms")),
+      "scatter_rows_inplace_qkv", "gather_rows_qkv", "softmax_select_matmul_logits_noterms",
+      "ln_norms")),
     ("vivit_blend", 8, 197, 98, dict(window=(4, 6)), ("scatter_blend", "scatter_blend_qkv")),
     ("vivit_pre_ln", 8, 197, 98, dict(window=(4, 6)),
      ("ln_select_matmul_pre", "select_linear_skip_norms_noln")),
     ("1024", 2, 4096, 256,
      dict(window=(14, 14), windows=50, pool=(32, 32), pad_window=(14, 14)),
      ("window_attention_windowed", "window_attention_padded", "window_attention_grid",
-      "block_select_p_noln", "block_scatter_rows", "softmax_select_matmul")),
+      "block_select_p_noln", "block_scatter_rows", "softmax_select_matmul", "ln_norms",
+      "block_select_scatter_qkv", "block_select_scatter_proj", "block_select_scatter_mlp",
+      "block_select_scatter_qkv_noln", "block_select_scatter_mlp_noln")),
 ]
 TAGS = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--case=")]
+ENTRIES = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--entry=")]
 ITERS = 200  # host-bound calls: more than kernel_check's 20, to average the host's spread
 ROUNDS = 5
 
@@ -255,6 +266,8 @@ def main():
             continue
         d = kernel_check.make_inputs(bsz, n, 768, 12, k, torch.bfloat16, device, seed=0, **inputs)
         for name in names:
+            if ENTRIES and name not in ENTRIES:
+                continue
             ok = all(row["ok"] for row in kernel_check.errors(name, d))
             dd = {key: v.clone() if torch.is_tensor(v) else v for key, v in d.items()}
             call = bound(name, kernel_check.KERNELS[name][0], dd)

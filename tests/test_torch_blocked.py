@@ -80,26 +80,28 @@ def _perturbed(like, seed, scale=0.1):
 # -- the kernels' plain versions ----------------------------------------------------
 
 
-@pytest.mark.parametrize("invalid", ["minus_one", "n"])
-@pytest.mark.parametrize("form", ["qkv", "proj", "mlp"])
-def test_block_select_scatter_matches_jax(form, invalid):
-    """The three forms the path runs, at N = 600 (two of the JAX kernel's
-    512-row blocks), with the selected rows in no order and invalid slots,
-    marked -1 (the port's convention) or N (the JAX package's)."""
-    b, n, c, k = 2, 600, 64, 40
-    f = 3 * c if form == "qkv" else c
-    rng = np.random.default_rng(20)
+def _select_scatter_against_jax(form, invalid, b, n, c, k, f=None, unnamed=0, seed=20):
+    """block_select_scatter_plain against the JAX kernel in interpret mode
+    in ``form`` ("qkv": F = 3C by default, LN, no y; "proj": no LN, the skip
+    and the next norms; "mlp": LN, x as the residual, the next norms), the
+    k selected rows in no order, every 7th slot invalid, marked -1 (the
+    port's convention) or N (the JAX package's), and ``unnamed`` more
+    selected rows of each batch row that no valid slot names (b' = 0)."""
+    f = f or (3 * c if form == "qkv" else c)
+    rng = np.random.default_rng(seed)
     r = lambda *s, scale=1.0: (scale * rng.standard_normal(s)).astype(np.float32)  # noqa: E731
     x, p, buf, h = r(b, n, c), r(b, n, c), r(b, n, f), r(b, k, f)
     skip, p_next = r(b, n, f), r(b, n, f)
     scale, bias, ns, nb = 1 + r(c, scale=0.1), r(c, scale=0.1), 1 + r(f, scale=0.1), r(f, scale=0.1)
-    index = np.stack([rng.permutation(n)[:k] for _ in range(b)]).astype(np.int32)
+    order = np.stack([rng.permutation(n) for _ in range(b)])
+    index = order[:, :k].astype(np.int32)
     assert not np.all(np.diff(index[0]) > 0)  # not sorted
     valid = np.ones((b, k), bool)
     valid[:, ::7] = False
     cov = np.zeros((b, n), np.float32)
     for i in range(b):
         cov[i, index[i][valid[i]]] = 1.0
+        cov[i, order[i, k:k + unnamed]] = 1.0
     jax_index = np.where(valid, index, n)
     port_index = np.where(valid, index, -1 if invalid == "minus_one" else n).astype(np.int32)
     apply_ln = form != "proj"
@@ -126,6 +128,34 @@ def test_block_select_scatter_matches_jax(form, invalid):
     assert len(port) == len(ref) == (2 if form == "qkv" else 4)
     for got, want in zip(port, ref):
         _close(got, want)
+    for i in range(b):
+        rows = order[i, k:k + unnamed]
+        assert not port[1][i, rows].any() and not np.asarray(ref[1])[i, rows].any()
+
+
+@pytest.mark.parametrize("invalid", ["minus_one", "n"])
+@pytest.mark.parametrize("form", ["qkv", "proj", "mlp"])
+def test_block_select_scatter_matches_jax(form, invalid):
+    """The three forms the path runs, at N = 600 (two of the JAX kernel's
+    512-row blocks), with the selected rows in no order and invalid slots,
+    marked -1 (the port's convention) or N (the JAX package's)."""
+    _select_scatter_against_jax(form, invalid, 2, 600, 64, 40)
+
+
+@pytest.mark.parametrize("form", ["qkv", "proj", "mlp"])
+@pytest.mark.parametrize("case", ["unnamed_row", "kp_not_32", "f_3c_768"])
+def test_block_select_scatter_cases_match_jax(case, form):
+    """The cases the kernel's warp-per-row body treats apart: selected rows
+    that no valid slot names (b' = 0, as the JAX kernel's one-hot leaves
+    them), kp = 33 (no multiple of the 32 slots a warp reads a step, over
+    N = 77 rows, no multiple of the 8 rows of a block), and C = 768 (F =
+    2304 for the qkv form: 9 vectors a lane in bfloat16)."""
+    if case == "unnamed_row":
+        _select_scatter_against_jax(form, "minus_one", 2, 96, 64, 40, unnamed=3)
+    elif case == "kp_not_32":
+        _select_scatter_against_jax(form, "n", 2, 77, 64, 33, unnamed=1)
+    else:
+        _select_scatter_against_jax(form, "minus_one", 2, 40, 768, 16, unnamed=1)
 
 
 @pytest.mark.parametrize(

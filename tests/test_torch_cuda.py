@@ -1427,3 +1427,185 @@ def test_av_entries_refuse_other_bodies(device):
     assert code(1, 1, 1, d_head=128) != 0
     assert code(1, 1, 1) == 0
     torch.cuda.synchronize()
+
+
+# -- the warp-per-row pass of rows 1 and 9 ----------------------------------------------
+
+ROW_PASS_N = 77  # tokens a batch row: 2 x 77 = 154 rows, no multiple of 8 (a block's rows)
+
+
+def _row_pass_inputs(c, f, kp, dtype, device, seed=0):
+    """Row 9's operands over (2, ROW_PASS_N) rows at widths c and f: kp
+    slots naming distinct rows in no order, slot 1 invalid as -1 and slot 2
+    as N; cov marks the rows the valid slots name and one more row that no
+    slot names (its b' is 0)."""
+    g = torch.Generator().manual_seed(seed)
+    n = ROW_PASS_N
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g) * scale + shift).to(device=device, dtype=dtype)
+
+    index = torch.stack([torch.randperm(n, generator=g)[:kp] for _ in range(2)])
+    index[:, 1], index[:, 2] = -1, n
+    cov = torch.zeros((2, n))
+    for b in range(2):
+        cov[b, index[b][(index[b] >= 0) & (index[b] < n)]] = 1.0
+        named = set(index[b].tolist())
+        cov[b, next(i for i in range(n) if i not in named)] = 1.0
+    return dict(
+        x=randn(2, n, c), p=randn(2, n, c), b=randn(2, n, f), h=randn(2, kp, f),
+        skip=randn(2, n, f), p_next=randn(2, n, f), scale=randn(c, scale=0.1, shift=1.0),
+        bias=randn(c, scale=0.1), next_scale=randn(f, scale=0.1, shift=1.0),
+        next_bias=randn(f, scale=0.1), cov=cov.to(device),
+        index=index.to(device=device, dtype=torch.int32),
+    )
+
+
+def _clone(t):
+    """A copy of ``t`` at the same offset from a 16-byte boundary."""
+    skip = t.data_ptr() % 16 // t.element_size()
+    flat = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
+    out = flat[skip:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _select_scatter(fn, d, form):
+    """Row 9 in ``form`` on copies of ``d`` (at their offsets from 16-byte
+    boundaries): qkv (LN, no y), proj (no LN, the skip, the next norms), mlp
+    (LN, x as the residual, the next norms) and the no-LN qkv and mlp
+    forms."""
+    d = {key: _clone(v) for key, v in d.items()}
+    ln = form in ("qkv", "mlp")
+    args = [d[k] for k in ("x", "p", "b", "cov", "index", "h")]
+    args += [d["scale"], d["bias"]] if ln else [None, None]
+    if form == "proj":
+        args += [d["skip"], d["p_next"], d["next_scale"], d["next_bias"]]
+    elif form == "mlp":
+        args += [None, d["p_next"], d["next_scale"], d["next_bias"]]
+    return fn(*args, apply_ln=ln, residual_x=form in ("mlp", "mlp_noln"))
+
+
+def _hold_select_scatter(d, form, body):
+    """Row 9 against its plain version: p' and the norms within
+    kernel_check's bounds, b' and y bit for bit; one launch of ``body``."""
+    from eventful_transformer_tpu_torch.ops import gate_block
+
+    wrapper = gate_block.block_select_scatter
+    before = dict(wrapper.row_body_launches)
+    got = _select_scatter(wrapper, d, form)
+    want = _select_scatter(gate_block.block_select_scatter_plain, d, form)
+    torch.cuda.synchronize()
+    assert wrapper.row_body_launches == dict(before, **{body: before[body] + 1})
+    names = ("p", "b", "y", "norms")[:len(want)]
+    assert len(got) == len(want)
+    for name, a, b in zip(names, got, want):
+        row = kernel_check.compare(a, b)
+        assert row["ok"], (name, row)
+        if name in ("b", "y"):
+            assert torch.equal(a, b), name
+    index = d["index"]
+    batch, slot = torch.nonzero((index >= 0) & (index < ROW_PASS_N), as_tuple=True)
+    named = torch.zeros_like(d["cov"], dtype=torch.bool)
+    named[batch, index[batch, slot].long()] = True
+    unnamed = (d["cov"] > 0) & ~named
+    assert int(unnamed.sum()) == 2 and not got[1][unnamed].any()
+
+
+ROW_PASS_FORMS = [
+    ("qkv", 768, 2304), ("qkv_noln", 768, 2304), ("proj", 768, 768), ("mlp", 768, 768),
+    ("mlp_noln", 768, 768), ("qkv", 64, 192), ("proj", 64, 64), ("mlp", 192, 192),
+    ("proj", 192, 192), ("qkv", 192, 576),
+]
+
+
+@pytest.mark.parametrize("kp", [40, 64], ids=lambda k: f"kp{k}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("form,c,f", ROW_PASS_FORMS, ids=lambda v: str(v))
+def test_select_scatter_warp_body_matches_plain(form, c, f, dtype, kp, device):
+    """Row 9's warp-per-row body in every form at the paths' widths (C =
+    768, F = 768 and 2304) and slim ones (64, 192), over 154 rows (no
+    multiple of 8), kp = 40 (no multiple of 32) and 64, slots -1 and N, and
+    a selected row that no slot names."""
+    _hold_select_scatter(_row_pass_inputs(c, f, kp, dtype, device), form, "warp")
+
+
+@pytest.mark.parametrize("case", ["width", "misaligned", "too_wide"])
+def test_select_scatter_off_rule_takes_the_block_body(case, device):
+    """A width that is no whole number of 16-byte vectors (C = F = 100 in
+    bfloat16), operands off a 16-byte boundary, or a row beyond a warp's
+    registers (F = 2308 in float32) take the block-per-row body, counted,
+    with the same results."""
+    if case == "width":
+        d = _row_pass_inputs(100, 100, 40, torch.bfloat16, device)
+    elif case == "too_wide":
+        d = _row_pass_inputs(64, 2308, 40, torch.float32, device)
+    else:
+        d = _row_pass_inputs(64, 64, 40, torch.bfloat16, device)
+        for key in ("x", "b"):
+            flat = torch.empty(d[key].numel() + 1, dtype=d[key].dtype, device=device)
+            view = flat[1:].view(d[key].shape)
+            view.copy_(d[key])
+            d[key] = view
+    forms = ("qkv",) if case == "too_wide" else ("qkv", "proj", "mlp")
+    for form in forms:
+        _hold_select_scatter(d, form, "block")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [64, 192, 768, 2304, 100], ids=lambda c: f"c{c}")
+def test_ln_norms_bodies_match_plain(c, dtype, device):
+    """Row 1 over 154 rows at the paths' widths (768, 2304) and slim ones
+    (64, 192) on the warp-per-row body, and at C = 100 (bfloat16: no whole
+    16-byte vectors) on the block body; both within kernel_check's
+    bounds."""
+    from eventful_transformer_tpu_torch.ops import gate_fused, row_pass
+
+    d = _row_pass_inputs(c, c, 40, dtype, device)
+    body = row_pass.row_body(dtype, (c,))
+    assert body == ("block" if c == 100 and dtype == torch.bfloat16 else "warp")
+    before = dict(gate_fused.ln_norms.row_body_launches)
+    got = gate_fused.ln_norms(d["x"], d["p"], d["scale"], d["bias"])
+    want = gate_fused.ln_norms_plain(d["x"], d["p"], d["scale"], d["bias"])
+    torch.cuda.synchronize()
+    assert gate_fused.ln_norms.row_body_launches == dict(before, **{body: before[body] + 1})
+    row = kernel_check.compare(got, want)
+    assert row["ok"], row
+
+
+def test_row_pass_entries_refuse_the_warp_body_off_rule(device):
+    """The C entry refuses a warp-body call that breaks the rule: a width
+    of no whole 16-byte vectors, a row beyond a warp's registers, an
+    operand off a 16-byte boundary."""
+    from eventful_transformer_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+
+    def code(c, dtype=torch.bfloat16, offset=0):
+        x = torch.randn(8 * c + 8, device=device).to(dtype)
+        out = torch.empty(8, device=device)
+        return lib.etk_ln_norms(_build.dtype_code(x), 1, x.data_ptr() + offset * x.element_size(),
+                                x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(), 8, c,
+                                _build.stream_of(x))
+
+    assert code(100) != 0
+    assert code(2308, torch.float32) != 0
+    assert code(64, offset=1) != 0
+    assert code(64) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["ln_norms", "block_select_scatter_qkv",
+                                  "block_select_scatter_proj", "block_select_scatter_mlp",
+                                  "block_select_scatter_mlp_noln"])
+def test_row_pass_kernels_launch_once_and_allocate_their_outputs(name, dtype, device):
+    """Rows 1 and 9 launch their one warp-body kernel once a call (row 9 no
+    slot map) and allocate only their new outputs."""
+    d = kernel_check.make_inputs(2, 197, 256, 4, 24, dtype, device)
+    row = kernel_check.row_copy_profile(name, d, kernel_check.bound(name, d)[0])
+    wrapper = kernel_check.KERNELS[name][0].__name__
+    assert row["kernels_per_call"] == {kernel_check.ROW_PASS_KERNELS[wrapper]: 1}, row
+    new_outputs = [out for out in kernel_check.KERNELS[name][4] if out not in ("p", "b")]
+    assert row["allocations_per_call"] == len(new_outputs), row
+    assert row["device_us"] > 0 and 0 < row["bound_share"]
