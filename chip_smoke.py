@@ -58,8 +58,9 @@ Phases, one JSON line each, with the seconds the phase took:
   4. slice:          eventful ViViT-B (k=98 of 197 tokens) on the bench's
                      input in bfloat16, with the kernels' launch counts (and
                      the dense twin's); the TMA descriptors each model's
-                     first forward and two more encode (the last must
-                     encode none); one clip in float32 on the card against
+                     first forward and its warm forwards encode (those run
+                     until one reserves no new device memory; the one after
+                     it must encode none); one clip in float32 on the card against
                      the same model on the CPU (plain versions); counted
                      GFLOPs/clip against the JAX package's counts.
   5. time:           ViViT's dense twin against eventful, ms/clip.
@@ -112,8 +113,7 @@ Phases, one JSON line each, with the seconds the phase took:
                      (the logits form) and the delta-accumulated A.V product,
                      and the dense twin: launches and counted GFLOPs per clip
                      against the JAX package's; the TMA descriptors the
-                     forced runs' two warm forwards encode (the last must
-                     encode none); one clip in float32 (cast off)
+                     forced runs' warm forwards encode, as in 4; one clip in float32 (cast off)
                      of the model cut to 2 spatial blocks on the card against
                      the CPU (cut from 12 when the phases of 22-23 came in),
                      and on the card alone under "v1" and "v3", counted, so
@@ -199,15 +199,20 @@ Phases, one JSON line each, with the seconds the phase took:
                      launches of each run are read by body.
   25. attention_bodies: the launches of window_attention, fused_attention,
                      window_attention_grid and kernel A
-                     (qkv_attention_group), and of the A.V kernel's two
-                     forms (softmax_select_matmul and its logits form), by
-                     body, of every counted run above; each run was checked
-                     as it was read: in bfloat16 only the tensor-core
-                     bodies (csrc/attention_tc.cuh, csrc/av_softmax_tc.cuh),
+                     (qkv_attention_group), of the A.V kernel's two
+                     forms (softmax_select_matmul and its logits form) and
+                     of the rel-pos bias add's two (relpos_bias_add,
+                     relpos_bias_add_v2), by body, of every counted run
+                     above; each run was checked as it was read: in
+                     bfloat16 only the tensor-core bodies
+                     (csrc/attention_tc.cuh, csrc/av_softmax_tc.cuh) and
+                     the rel-pos add's tiled one (csrc/relpos_tile.cuh),
                      in float32 (the A.V kernel's matmul-2 cast included)
                      only the CUDA-core ones (window_attention.
-                     attention_body's and av_softmax.av_softmax_body's
-                     rules).
+                     attention_body's, av_softmax.av_softmax_body's and
+                     relpos.relpos_body's rules); both rel-pos wrappers ran
+                     the tiled body in some bfloat16 run and the CUDA-core
+                     one in some float32 run.
   26. row_bodies:     the launches of the row passes (ln_norms, block_select_scatter,
                      and the ln_norms stages of proj_group, gate_group_mlp,
                      gate_group_linear and select_linear_skip_norms) by
@@ -515,9 +520,9 @@ def check_kernels(phase, device, cases):
                 if (wrapper.__name__ in kernel_check.ROW_COPY_KERNELS
                         or wrapper.__name__ in kernel_check.ROW_PASS_KERNELS):
                     row.update(row_copy_readings(name, d, bound_ms, library, launched))
-                if name.startswith("softmax_select_matmul"):
-                    row.update(av_readings(name, d, bound_ms, bodies, dtype,
-                                           f"{phase} {name} {tag}"))
+                if name.startswith(("softmax_select_matmul", "relpos_bias_add")):
+                    row.update(body_readings(name, d, bound_ms, bodies, dtype,
+                                             f"{phase} {name} {tag}"))
                 if hasattr(wrapper, "core_launches"):
                     row["core_launches"] = dict(wrapper.core_launches)
                     kernel_check.check_cores({wrapper.__name__: row["core_launches"]}, dtype,
@@ -536,18 +541,23 @@ def check_kernels(phase, device, cases):
     return results
 
 
-def av_readings(name, d, bound_ms, bodies, dtype, where):
-    """Row 8 (the A.V kernel) beside its ``ms``: ``bodies``, the launches by
-    body of its checked call (checked: by ``av_softmax.av_softmax_body``,
-    bfloat16 only the tensor-core body, float32 and the matmul-2 cast only
-    the CUDA-core one), and its device microseconds a call from CUDA events
-    around calls queued behind a sleeping kernel
-    (``kernel_check.queued_device_us``), with the share of the bound they
-    reach."""
+def body_readings(name, d, bound_ms, bodies, dtype, where):
+    """Row 8 (the A.V kernel) and rows 16-17 (the rel-pos bias add) beside
+    their ``ms``: ``bodies``, the launches by body of the checked call
+    (checked: by ``av_softmax.av_softmax_body`` and ``relpos.relpos_body``
+    at the paths' shapes, bfloat16 only the tensor-core body, or the tiled
+    one of rows 16-17, float32 and row 8's matmul-2 cast only the CUDA-core
+    one), and its device
+    microseconds a call from CUDA events around calls queued behind a
+    sleeping kernel (``kernel_check.queued_device_us``), with the share of
+    the bound they reach."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
     wrapper = kernel_check.KERNELS[name][0]
-    want = "tc" if dtype == torch.bfloat16 and d["p_a"].dtype == torch.bfloat16 else "simt"
+    relpos = name.startswith("relpos")
+    state = d["rp_x"] if relpos else d["p_a"]
+    fast = "tile" if relpos else "tc"
+    want = fast if dtype == torch.bfloat16 and state.dtype == torch.bfloat16 else "simt"
     if bodies[want] != 1 or sum(bodies.values()) != 1:
         raise AssertionError(f"{where}: body launches {bodies}, expected one {want} launch")
     dd = {key: v.clone() if torch.is_tensor(v) else v for key, v in d.items()}
@@ -799,8 +809,9 @@ def read_form_launches():
 
 # The launches of each counted run by wrapper and body (the wrappers that
 # reach csrc/attention.cuh: window_attention, fused_attention and kernel A's
-# qkv_attention_group; the A.V kernel's two wrappers, csrc/av_softmax.cu),
-# emitted by phase attention_bodies;
+# qkv_attention_group; the A.V kernel's two wrappers, csrc/av_softmax.cu;
+# the rel-pos bias add's two, csrc/relpos.cu), emitted by phase
+# attention_bodies;
 # the GEMM rows' launches (GEMM_ROWS) by GEMM core, emitted by phase
 # gemm_cores.
 BODIES = []
@@ -812,10 +823,11 @@ ROW_BODIES = []
 
 
 def read_routes(dtype, where):
-    """The launches of the run just made by route, checked: the attention
-    and A.V kernels' by body, in bfloat16 every one on the tensor-core
-    body, in float32 on the CUDA-core body (``window_attention.
-    attention_body`` and ``av_softmax.av_softmax_body`` at the paths'
+    """The launches of the run just made by route, checked: the attention,
+    A.V and rel-pos kernels' by body, in bfloat16 every one on the
+    tensor-core body (the rel-pos add's: its tiled body), in float32 on the
+    CUDA-core body (``window_attention.attention_body``,
+    ``av_softmax.av_softmax_body`` and ``relpos.relpos_body`` at the paths'
     shapes); the GEMM rows' by GEMM core, in bfloat16 every one on
     the wgmma core, in float32 on the CUDA-core tile
     (``gemm_core.gemm_core``); the row passes of rows 1 and 9 and the
@@ -845,13 +857,21 @@ def model_dtype(model):
 
 
 def phase_attention_bodies():
-    """Every counted run's attention and A.V launches by body (each checked
-    as it was read)."""
-    tc, simt = (sum(c[body] for row in BODIES for c in row["launches"].values())
+    """Every counted run's attention, A.V and rel-pos launches by body (each
+    checked as it was read); both rel-pos wrappers ran the tiled body in
+    some bfloat16 run and the CUDA-core body in some float32 one."""
+    tc, simt = (sum(c.get(body, 0) for row in BODIES for c in row["launches"].values())
                 for body in ("tc", "simt"))
-    emit("attention_bodies", runs=BODIES, tc_launches=tc, simt_launches=simt)
+    relpos = {f"{dtype}.{name}": sum(row["launches"].get(name, {}).get(body, 0)
+                                     for row in BODIES if row["dtype"] == dtype)
+              for dtype, body in (("bfloat16", "tile"), ("float32", "simt"))
+              for name in RELPOS_KERNELS}
+    emit("attention_bodies", runs=BODIES, tc_launches=tc, simt_launches=simt,
+         relpos_launches=relpos)
     if not tc or not simt:
         raise AssertionError(f"attention bodies: tc {tc}, simt {simt} launches in all")
+    if not all(relpos.values()):
+        raise AssertionError(f"rel-pos bodies: a wrapper missed its body in a dtype: {relpos}")
 
 
 # rows 1 and 9, and the wrappers with an ln_norms stage that the paths run
@@ -1003,27 +1023,38 @@ def card_vs_cpu(cpu_model, clip, device, run=None, prob_tol=None):
     return numbers, runs["card"][1]
 
 
-def warm_encodes(model, views, before, forwards=2, run=None):
+# the warm forwards a model is given for its caching allocator to settle
+MAX_WARM_FORWARDS = 5
+
+
+def warm_encodes(model, views, before, run=None):
     """{"cold": the TMA descriptors encoded since ``before`` (the count before
-    the model's first forward), "warm": those each of ``forwards`` more
-    forwards (``run(model, views)``, run_model by default) encodes}. The
-    caching allocator may hand the first warm forward's scratch other
-    addresses than the cold one's; from then on a forward's are those of
-    the one before it."""
+    the model's first forward), "warm": those each warm forward
+    (``run(model, views)``, run_model by default) encodes, "grew": the bytes
+    each added to what the caching allocator reserves}. A forward frees all
+    its scratch, so one that reserves nothing new leaves the allocator's
+    blocks as it found them, and the next forward is handed the same
+    addresses. Warm forwards run until one has reserved nothing (two at
+    least, MAX_WARM_FORWARDS at most), then one more: the first warm
+    forward after the cold one places the scratch anew, and where it had to
+    reserve more (the blocks cached before the cold forward decide that)
+    the second places it anew again."""
     run = run or run_model
     cold = tma_encodes() - before
-    warm = []
-    for _ in range(forwards):
-        before = tma_encodes()
+    warm, grew = [], []
+    while len(warm) < 2 or (grew[-2] and len(warm) < MAX_WARM_FORWARDS):
+        reserved, before = torch.cuda.memory_reserved(), tma_encodes()
         run(model, views)
         warm.append(tma_encodes() - before)
-    return dict(cold=cold, warm=warm)
+        grew.append(torch.cuda.memory_reserved() - reserved)
+    return dict(cold=cold, warm=warm, grew=grew)
 
 
 def check_warm_encodes(encodes, where):
-    """Raise unless the last warm forward of every model in ``encodes``
-    (:func:`warm_encodes` by model or run) encoded no TMA descriptor."""
-    if any(e["warm"][-1] for e in encodes.values()):
+    """Raise unless, for every model in ``encodes`` (:func:`warm_encodes` by
+    model or run), a warm forward reserved nothing new and the forward after
+    it encoded no TMA descriptor."""
+    if any(e["grew"][-2] or e["warm"][-1] for e in encodes.values()):
         raise AssertionError(f"{where}: a warm forward encoded TMA descriptors: {encodes}")
 
 

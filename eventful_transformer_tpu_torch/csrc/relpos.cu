@@ -28,7 +28,15 @@
 // shared memory; then the block streams the 16 tokens' logits rows, which
 // lie next to each other in memory, with 16-byte loads and stores, adding
 // the two terms of each key. The bias never reaches device memory.
+//
+// That body ("simt") takes the float32 calls and the bfloat16 ones with q or
+// a table off 16 bytes; every other bfloat16 call takes relpos_tile.cuh's
+// ("tile": 2-D tiles of query tokens, the tables staged once a tile, the
+// terms in this body's summation order, the logits streamed with 8 or 16
+// 16-byte loads a thread in flight). ops/relpos.py::relpos_body picks the
+// body.
 #include "common.cuh"
+#include "relpos_tile.cuh"
 
 namespace etk {
 
@@ -82,6 +90,7 @@ relpos_bias_add_kernel(const T* __restrict__ x, const T* __restrict__ q,
 
   // the terms: one warp per token, one lane per output
   constexpr int kVec = 16 / sizeof(T);
+  const bool xr_vectors = ((uintptr_t)x_rel & 15u) == 0;
   for (int t = warp; t < nt; t += blockDim.x / 32) {
     const float* qt = qs + t * c;
     const T* xr = x_rel + (int64_t)(x0 + t) * p1 * c;
@@ -101,7 +110,12 @@ relpos_bias_add_kernel(const T* __restrict__ x, const T* __restrict__ q,
         const T* xt = xr + (int64_t)(j - p0) * c;
         for (int i = 0; i < c; i += kVec) {
           float b[kVec];
-          load16(xt + i, b);
+          if (xr_vectors) {
+            load16(xt + i, b);
+          } else {
+#pragma unroll
+            for (int u = 0; u < kVec; ++u) b[u] = to_f(xt[i + u]);
+          }
 #pragma unroll
           for (int u = 0; u < kVec; ++u) acc = fmaf(qt[i + u], b[u], acc);
         }
@@ -168,13 +182,28 @@ int relpos_bias_add(const void* x, const void* q, const void* y_rel, const void*
 
 }  // namespace etk
 
+// body: 1 the tiled body (bfloat16 only, q and the tables 16-byte aligned,
+// a tile of rows x cols query tokens that divides the (a0, a1) grid, each
+// side at most 16), 0 the CUDA-core body (rows and cols unread);
 // round_each: 0 = relpos_bias_add (the terms' sum rounded once), 1 =
 // relpos_bias_add_v2 (each term rounded, then the sum). c a multiple of 8;
-// x, q, out and the tables 16-byte aligned and contiguous.
-extern "C" int etk_relpos_bias_add(int dtype, int round_each, const void* x, const void* q,
-                                   const void* y_rel, const void* x_rel, void* out, int bh,
-                                   int a0, int a1, int p0, int p1, int c, void* stream) {
+// x and out 16-byte aligned; every operand contiguous.
+// cudaErrorInvalidValue for a call off its body's rule.
+extern "C" int etk_relpos_bias_add(int body, int dtype, int round_each, const void* x,
+                                   const void* q, const void* y_rel, const void* x_rel,
+                                   void* out, int bh, int a0, int a1, int p0, int p1, int c,
+                                   int rows, int cols, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  if (body == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    if (round_each)
+      return etk::launch_relpos_tile<true>(x, q, y_rel, x_rel, out, bh, a0, a1, p0, p1, c,
+                                           rows, cols, s);
+    return etk::launch_relpos_tile<false>(x, q, y_rel, x_rel, out, bh, a0, a1, p0, p1, c, rows,
+                                          cols, s);
+  }
+  if (body != 0 || c % 8 || ((uintptr_t)x & 15u) || ((uintptr_t)out & 15u))
+    return (int)cudaErrorInvalidValue;
   ETK_DISPATCH(dtype, {
     if (round_each)
       return etk::relpos_bias_add<T, true>(x, q, y_rel, x_rel, out, bh, a0, a1, p0, p1, c, s);

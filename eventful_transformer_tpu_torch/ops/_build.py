@@ -57,7 +57,7 @@ SIGNATURES = {
     "etk_block_select_scatter": [_I, _I] + [_P] * 9 + [_I] + [_P] * 5 + [_I] * 5 + [_P],
     "etk_softmax_select_matmul": [_I, _I, _I] + [_P] * 7 + [_I] * 7 + [_F, _P],
     "etk_dense_mlp_residual": [_I] + [_P] * 10 + [_I] * 6 + [_P, _P],
-    "etk_relpos_bias_add": [_I, _I] + [_P] * 5 + [_I] * 6 + [_P],
+    "etk_relpos_bias_add": [_I, _I, _I] + [_P] * 5 + [_I] * 8 + [_P],
     "etk_ln_select_matmul": [_I] + [_P] * 9 + [_L] + [_I] * 5 + [_P, _P],
     "etk_select_linear_skip_norms": [_I, _I] + [_P] * 11 + [_L] + [_I] * 5 + [_P, _P],
     "etk_softmax_select_matmul_logits": [_I, _I, _I] + [_P] * 6 + [_I] * 7 + [_P],

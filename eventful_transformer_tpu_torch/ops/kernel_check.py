@@ -345,23 +345,26 @@ def reset_launches():
 
 
 def body_launches():
-    """{wrapper name: {"tc": n, "simt": n}} of the wrappers that count their
-    launches by body: those that reach the attention kernel, and the A.V
-    kernel's two."""
+    """{wrapper name: {"tc" or "tile": n, "simt": n}} of the wrappers that count their
+    launches by body: those that reach the attention kernel, the A.V
+    kernel's two and the rel-pos bias add's two."""
     return {entry[0].__name__: dict(entry[0].body_launches) for entry in KERNELS.values()
             if hasattr(entry[0], "body_launches")}
 
 
 def check_bodies(counts, dtype, where):
     """Raise unless every launch in ``counts`` (:func:`body_launches` after
-    a run in ``dtype``) took the body ``window_attention.attention_body``
-    and ``av_softmax.av_softmax_body`` give the paths' shapes: the
-    tensor-core one in bfloat16, the CUDA-core one in float32 (the A.V
-    kernel's matmul-2 cast included)."""
-    other = "simt" if dtype == torch.bfloat16 else "tc"
-    stray = {name: c for name, c in counts.items() if c[other]}
+    a run in ``dtype``) took the body ``window_attention.attention_body``,
+    ``av_softmax.av_softmax_body`` and ``relpos.relpos_body`` give the
+    paths' shapes: in bfloat16 the wrapper's other body than "simt" (the
+    tensor-core one, the rel-pos add's tiled one), in float32 the CUDA-core
+    one, "simt" (the A.V kernel's matmul-2 cast included)."""
+    bf16 = dtype == torch.bfloat16
+    stray = {name: c for name, c in counts.items()
+             if any(n for body, n in c.items() if (body == "simt") == bf16)}
     if stray:
-        raise AssertionError(f"{where}: {dtype} launches took the {other} body: {stray}")
+        want = "the tensor-core or tiled" if bf16 else "the simt"
+        raise AssertionError(f"{where}: {dtype} launches left {want} body: {stray}")
 
 
 def row_body_launches():

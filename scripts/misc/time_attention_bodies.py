@@ -1,19 +1,21 @@
 """Time the attention kernel's wrappers, kernels A and B, the gate-fusion
 kernels (rows 12 and 13), the A.V kernel (row 8), the row passes of rows 1
-and 9 and the small row kernels in bfloat16 at the paths' shapes on one
+and 9, the rel-pos bias add (rows 16 and 17) and the small row kernels in
+bfloat16 at the paths' shapes on one
 NVIDIA GPU, each beside the one
 PyTorch call that computes the same function (the GEMM rows: their
 yardstick), with the host microseconds of one call.
 
-    python3 scripts/misc/time_attention_bodies.py [ROOT] [--breakdown] [--case=TAG ...]
-        [--entry=NAME ...]
+    python3 scripts/misc/time_attention_bodies.py [ROOT] [--breakdown] [--tiles]
+        [--case=TAG ...] [--entry=NAME ...]
 
 Imports ``eventful_transformer_tpu_torch`` from ROOT (the checkout this
 script lies in by default), so that two versions of the package, each in a
 directory of its own, can be timed one after the other in one call on one
 card, under this script's timer for both. Prints the card's name and power
 limit, builds the kernels, prints the registers and spills ptxas reported
-for the tensor-core body (``csrc/attention_tc.cuh``), then, for each entry
+for the tensor-core body (``csrc/attention_tc.cuh``) and for the rel-pos
+kernels (``ptxas relpos``), then, for each entry
 and shape, checks the kernel against its plain version
 (``kernel_check.errors``) and prints:
 
@@ -29,7 +31,9 @@ and shape, checks the kernel against its plain version
   card idle (``host_idle_us``: the median of calls each after a
   synchronisation, which no full launch queue can hold back);
 - the device microseconds of one call of the kernel: the sum of its
-  kernels' times under ``torch.profiler`` over 20 calls, once per entry,
+  kernels' times under ``torch.profiler`` over 20 calls, once per entry
+  (where the profiler catches no device event, CUDA events around 20
+  calls queued behind a sleeping kernel, ``device_us_by``),
   beside the card's bound for the same work (``kernel_check.bound``) and
   the share of it they reach, and the device microseconds of one library
   call measured the same way (``library_device_us``);
@@ -61,7 +65,13 @@ one stream, 50 at 1024, plain and padded; ``window_attention_grid`` on the
 and the row passes of rows 1 (``ln_norms`` at ViViT's 8 x 197, the
 paper's ViViT's 12 x 197, ViTDet-672's 2 x 1764 and 1024's 2 x 4096) and 9
 (``block_select_scatter`` at 1024: the qkv, projection and MLP forms and
-the qkv and MLP forms without the LN), and the row kernels whose host time
+the qkv and MLP forms without the LN), the rel-pos bias add (row 17
+``relpos_bias_add_v2`` over 672's dense 42 x 42 and pooled 21 x 21 keys at
+2 x 1764, 1024's dense 64 x 64 and flush 32 x 32 keys at 2 x 4096, the e2e
+path's dense and 21 x 21 keys at 1 x 1764; row 16 ``relpos_bias_add`` at
+the last: each line names its ``keys``, and where x and out fit the 50 MB
+L2 also reads ``device_us_l2_flushed``, the device microseconds with the
+L2 emptied before each call), and the row kernels whose host time
 is most of a call (rows 19
 ``scatter_rows_inplace``, 20 ``gather_rows``, 18 ``scatter_blend`` at
 stgt_672's C, 3C and 4C (masked) buffers and at ViViT's 8 x 197, 14
@@ -70,9 +80,14 @@ stgt_672's C, 3C and 4C (masked) buffers and at ViViT's 8 x 197, 14
 cases of those tags (``vivit``, ``temporal``, ``672``, ``e2e``,
 ``vivit_evblock``, ``vivit_blend``, ``vivit_pre_ln``, ``1024``), and
 ``--entry=NAME`` (repeatable) only those entries of them.
-``--breakdown`` (the checkout's own version only) adds where the host time
-of one ``scatter_rows_inplace`` call at C = 768 and of one ``gather_rows``
-call at 3C goes: the operand checks, the stream read, the plan, the
+``--tiles`` (the checkout's own version only) also times each rel-pos
+entry under every tile the tiled body takes whose logits are within 1 MB
+(the plan forced one tile at a time, device microseconds from CUDA events
+behind a sleep, each call checked against the plain version), the data
+behind ``ops/relpos.py``'s plan constants. ``--breakdown`` (the
+checkout's own version only) adds where the host time of one
+``scatter_rows_inplace`` call at C = 768 and of one ``gather_rows`` call
+at 3C goes: the operand checks, the stream read, the plan, the
 allocation, the C call, and the old stream read through
 ``torch.cuda.current_stream`` for comparison. Needs a CUDA device.
 """
@@ -106,10 +121,14 @@ CASES = [
       "block_select_p_noln",
       "gate_group_linear_post", "gate_group_linear", "gate_group_linear_pre",
       "gate_group_linear_post_topk", "gate_group_linear_topk", "gate_group_linear_pre_topk",
-      "gate_group_mlp", "ln_norms")),
+      "gate_group_mlp", "ln_norms", "relpos_bias_add_v2")),
+    ("672", 2, 1764, 256, dict(window=(14, 14), pool=(21, 21), relpos_keys=(42, 42)),
+     ("relpos_bias_add_v2",)),
     ("e2e", 1, 1764, 256, dict(window=(14, 14), pool=(21, 21)),
      ("window_attention_windowed", "gate_group_linear_post", "gate_group_linear",
-      "softmax_select_matmul")),
+      "softmax_select_matmul", "relpos_bias_add_v2", "relpos_bias_add")),
+    ("e2e", 1, 1764, 256, dict(window=(14, 14), pool=(21, 21), relpos_keys=(42, 42)),
+     ("relpos_bias_add_v2",)),
     ("vivit_evblock", 12, 197, 24, dict(window=(4, 6), pool=(1, 197)),
      ("ln_select_matmul_post", "ln_select_matmul_none", "select_linear_skip_norms",
       "scatter_rows_inplace_qkv", "gather_rows_qkv", "softmax_select_matmul_logits_noterms",
@@ -122,7 +141,10 @@ CASES = [
      ("window_attention_windowed", "window_attention_padded", "window_attention_grid",
       "block_select_p_noln", "block_scatter_rows", "softmax_select_matmul", "ln_norms",
       "block_select_scatter_qkv", "block_select_scatter_proj", "block_select_scatter_mlp",
-      "block_select_scatter_qkv_noln", "block_select_scatter_mlp_noln")),
+      "block_select_scatter_qkv_noln", "block_select_scatter_mlp_noln", "relpos_bias_add_v2")),
+    ("1024", 2, 4096, 256,
+     dict(window=(14, 14), windows=50, pool=(32, 32), pad_window=(14, 14), relpos_keys=(64, 64)),
+     ("relpos_bias_add_v2",)),
 ]
 TAGS = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--case=")]
 ENTRIES = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--entry=")]
@@ -179,6 +201,44 @@ def device_us(fn, calls=20):
     return sum(e.time_range.elapsed_us() for e in events) / calls, kernels
 
 
+L2_BYTES = 50 * 2**20  # the H100's L2
+
+
+def flushed_device_us(fn, kernels, calls=20):
+    """Device microseconds of one ``fn()`` call whose operands start out of
+    the L2: each call follows a write of twice the L2's bytes, and only the
+    kernels named in ``kernels`` (those :func:`device_us` found in a call)
+    are summed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        short = e.name.split("(")[0].split("<")[0].split("::")[-1].strip().split(" ")[-1]
+        if short in kernels:
+            total += e.time_range.elapsed_us()
+    return total / calls
+
+
+def ptxas_lines(log, needle):
+    """The registers and spills ptxas reported for each kernel whose
+    mangled name holds ``needle``, from the build's log."""
+    out, entry = [], None
+    for line in log:
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        if entry and needle in entry and ("registers" in line or "spill" in line):
+            out.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
+    return sorted(set(out))
+
+
 def allocations(fn, calls=20):
     """Device allocations one ``fn()`` call makes (the caching allocator's
     count, reused blocks included)."""
@@ -204,6 +264,34 @@ def bound(name, fn, d):
     kernel_check._invoke(name, record, d)
     ((args, kwargs),) = captured
     return lambda: fn(*args, **kwargs)
+
+
+def tile_sweep(name, d):
+    """Device microseconds of rel-pos entry ``name`` on ``d`` under each
+    tile (r, s) of the tiled body whose logits are within 1 MB, fastest
+    first, with whether each call held kernel_check's bounds."""
+    from eventful_transformer_tpu_torch.ops import relpos
+
+    bh = d["rp_x"].shape[0] * d["rp_x"].shape[1]
+    a, p, c = d["rp_a"], d["rp_p"], d["rp_q"].shape[-1]
+    max_shared = relpos.TILE_SHAPES[p[1] % 8 == 0][0]
+    sides = [[t for t in range(1, relpos.TILE_MAX_SIDE + 1) if n % t == 0] for n in a]
+    tiles = [(r, s) for r in sides[0] for s in sides[1]
+             if 4 * r * s * p[0] * p[1] <= 2**20 and relpos._tile_smem(r, s, p, c) <= max_shared]
+    wrapper, plain = kernel_check.KERNELS[name][:2]
+    want = kernel_check._invoke(name, plain, d)[0]
+    planned = relpos.relpos_plan
+    out = []
+    try:
+        for tile in tiles:
+            relpos.relpos_plan = lambda *args, tile=tile: tile
+            ok = kernel_check.compare(kernel_check._invoke(name, wrapper, d)[0], want)["ok"]
+            us = min(kernel_check.queued_device_us(lambda: kernel_check._invoke(name, wrapper, d))
+                     for _ in range(2))
+            out.append((round(us, 2), tile, ok))
+    finally:
+        relpos.relpos_plan = planned
+    return planned(bh, tuple(a), tuple(p), c), sorted(out)
 
 
 def breakdown(device):
@@ -254,12 +342,9 @@ def main():
     start = time.perf_counter()
     _build.load_library()
     log = _build.library_path().with_suffix(".log").read_text().splitlines()
-    ptxas = sorted({
-        line.strip() for i, line in enumerate(log)
-        if ("registers" in line or "spill" in line)
-        and "attention_tc" in "".join(log[max(0, i - 3):i])
-    })
-    print("card", smi, "root", ROOT, "build_s", round(time.perf_counter() - start, 1), ptxas)
+    print("card", smi, "root", ROOT, "build_s", round(time.perf_counter() - start, 1),
+          ptxas_lines(log, "attention_tc"))
+    print("ptxas relpos", ptxas_lines(log, "relpos"))
     device = torch.device("cuda")
     for tag, bsz, n, k, inputs, names in CASES:
         if TAGS and tag not in TAGS:
@@ -282,10 +367,22 @@ def main():
             ms, us, lib_ms, lib_us = (statistics.median(v) if v else None for v in times.values())
             ratio = None if lib_ms is None else round(ms / lib_ms, 2)
             dev_us, kernels = device_us(call)
+            by = "profiler"
+            if not dev_us:  # the profiler caught no device event: events around queued calls
+                dev_us, by = kernel_check.queued_device_us(call), "events behind a sleep"
             lib_dev_us = None if library is None else device_us(library)[0]
             bound_us = kernel_check.bound(name, d)[0] * 1e3
-            print(tag, name, "ms", round(ms, 4), "host_us", round(us, 2), "host_idle_us",
-                  round(host_idle_us(call), 2), "device_us", round(dev_us, 2),
+            extra = {}
+            if name.startswith("relpos_bias_add"):
+                extra["keys"] = "x".join(map(str, d["rp_p"]))
+                if 2 * d["rp_x"].nbytes < L2_BYTES:
+                    extra["device_us_l2_flushed"] = round(flushed_device_us(call, kernels), 2)
+            if "--tiles" in sys.argv and name.startswith("relpos_bias_add"):
+                plan, swept = tile_sweep(name, dd)
+                print(tag, name, "keys", extra["keys"], "plan", plan, "tiles", swept, flush=True)
+            print(tag, name, *(v for item in extra.items() for v in item), "ms", round(ms, 4),
+                  "host_us", round(us, 2), "host_idle_us", round(host_idle_us(call), 2),
+                  "device_us", round(dev_us, 2), "device_us_by", by,
                   "bound_us", round(bound_us, 2),
                   "bound_share", round(bound_us / dev_us, 3) if dev_us else None,
                   "library_ms", lib_ms and round(lib_ms, 4),

@@ -1609,3 +1609,142 @@ def test_row_pass_kernels_launch_once_and_allocate_their_outputs(name, dtype, de
     new_outputs = [out for out in kernel_check.KERNELS[name][4] if out not in ("p", "b")]
     assert row["allocations_per_call"] == len(new_outputs), row
     assert row["device_us"] > 0 and 0 < row["bound_share"]
+
+
+# -- the rel-pos bias add's two bodies (rows 16 and 17) -----------------------------------
+
+RELPOS_FORMS = ("relpos_bias_add", "relpos_bias_add_v2")
+# (batch, heads, query grid, key grid): the paths' grids (672 dense and
+# pooled, 1024 dense and its flush keys) at the 2-stream paths' 2 x 12, and
+# two ragged ones
+RELPOS_GRIDS = {
+    "672_dense": (2, 12, (42, 42), (42, 42)), "672_pooled": (2, 12, (42, 42), (21, 21)),
+    "1024_dense": (2, 12, (64, 64), (64, 64)), "1024_flush": (2, 12, (64, 64), (32, 32)),
+    "wide_2x18": (2, 2, (2, 18), (1, 9)), "pooled_6x5": (2, 2, (6, 5), (3, 5)),
+}
+
+
+def _relpos_inputs(bsz, a, p, dtype, device, c=64, heads=2, seed=0):
+    """x ~ N(0, 1) logits over (a, p), q ~ N(0, 1), tables at 0.3: the
+    scales of ``kernel_check.make_inputs``."""
+    g = torch.Generator().manual_seed(seed)
+    n, np_ = a[0] * a[1], p[0] * p[1]
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(device=device, dtype=dtype)
+
+    return (randn(bsz, heads, n, np_), randn(bsz, heads, n, c), randn(a[0], p[0], c, scale=0.3),
+            randn(a[1], p[1], c, scale=0.3))
+
+
+def _relpos_check(form, args, a, p, body):
+    """One call of ``form`` on the card against its plain version on the
+    same inputs: within ``kernel_check``'s bounds, one launch counted, of
+    ``body``."""
+    from eventful_transformer_tpu_torch.ops import relpos
+
+    wrapper, plain = getattr(relpos, form), getattr(relpos, form + "_plain")
+    before = dict(wrapper.body_launches)
+    got = wrapper(*args, a=a, p=p)
+    want = plain(*args, a=a, p=p)
+    torch.cuda.synchronize()
+    assert wrapper.body_launches == dict(before, **{body: before[body] + 1})
+    result = kernel_check.compare(got, want)
+    assert result["ok"], result
+    return got
+
+
+@pytest.mark.parametrize("grid", sorted(RELPOS_GRIDS))
+@pytest.mark.parametrize("form", RELPOS_FORMS)
+def test_relpos_tiled_body_matches_plain(form, grid, device):
+    """bfloat16 at the paths' grids and at ragged ones (key rows of 9 and
+    5: p1 < 8 takes the one-element path) on the tiled body, within
+    ``kernel_check``'s bounds of the plain version."""
+    bsz, heads, a, p = RELPOS_GRIDS[grid]
+    _relpos_check(form, _relpos_inputs(bsz, a, p, torch.bfloat16, device, heads=heads), a, p,
+                  "tile")
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("c", [16, 40])
+@pytest.mark.parametrize("form", RELPOS_FORMS)
+def test_relpos_tiled_body_at_other_head_widths(form, c, device):
+    """c = 16 and 40 (a width of no 32-byte multiple) on the tiled body."""
+    a, p = (42, 42), (21, 21)
+    _relpos_check(form, _relpos_inputs(1, a, p, torch.bfloat16, device, c=c, heads=3), a, p,
+                  "tile")
+
+
+@pytest.mark.parametrize("form", RELPOS_FORMS)
+def test_relpos_float32_and_misaligned_stay_on_the_cuda_cores(form, device):
+    """float32, and a bfloat16 q or x_rel 2 bytes off its 16-byte boundary,
+    take the CUDA-core body, within the bounds of the plain version."""
+    a, p = (6, 10), (3, 5)
+    _relpos_check(form, _relpos_inputs(2, a, p, torch.float32, device), a, p, "simt")
+    x, q, y_rel, x_rel = _relpos_inputs(2, a, p, torch.bfloat16, device)
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 and out.is_contiguous()
+        return out
+
+    _relpos_check(form, (x, shifted(q), y_rel, x_rel), a, p, "simt")
+    _relpos_check(form, (x, q, y_rel, shifted(x_rel)), a, p, "simt")
+
+
+def test_relpos_other_rounding_fails_the_bounds(device):
+    """At the 672 pooled shape each form's tiled output fails
+    ``kernel_check``'s bounds against the other form's plain version: the
+    check tells the two rounding rules apart on the card."""
+    from eventful_transformer_tpu_torch.ops import relpos
+
+    a, p = (42, 42), (21, 21)
+    args = _relpos_inputs(1, a, p, torch.bfloat16, device, seed=2)
+    v1 = _relpos_check("relpos_bias_add", args, a, p, "tile")
+    v2 = _relpos_check("relpos_bias_add_v2", args, a, p, "tile")
+    assert not kernel_check.compare(v1, relpos.relpos_bias_add_v2_plain(*args, a=a, p=p))["ok"]
+    assert not kernel_check.compare(v2, relpos.relpos_bias_add_plain(*args, a=a, p=p))["ok"]
+
+
+@pytest.mark.parametrize("form", RELPOS_FORMS)
+def test_relpos_launches_once_and_allocates_its_output(form, device):
+    """A bfloat16 call at the 672 pooled shape launches the tiled kernel
+    once and allocates only its output."""
+    from eventful_transformer_tpu_torch.ops import relpos
+
+    a, p = (42, 42), (21, 21)
+    args = _relpos_inputs(1, a, p, torch.bfloat16, device)
+    call = lambda: getattr(relpos, form)(*args, a=a, p=p)  # noqa: E731
+    us, kernels = kernel_check.device_us(call)
+    assert kernels == {"relpos_bias_add_tile_kernel": 1} and us > 0, kernels
+    assert kernel_check.allocations(call) == 1
+
+
+def test_relpos_entry_refuses_off_rule_calls(device):
+    """The C entry refuses a tiled call the rule would not send it (float32,
+    q off 16 bytes, a head width of no 16-byte rows, a tile that does not
+    divide the grid or is wider than 16) and a CUDA-core call with x off 16
+    bytes, or of an unknown body."""
+    from eventful_transformer_tpu_torch.ops import _build
+
+    a, p = (2, 18), (1, 9)
+    x, q, y_rel, x_rel = _relpos_inputs(2, a, p, torch.bfloat16, device)
+    out = torch.empty_like(x)
+    lib = _build.load_library()
+
+    def code(body, dtype=1, c=64, q_off=0, x_off=0, rows=2, cols=9):
+        return lib.etk_relpos_bias_add(
+            body, dtype, 1, x.data_ptr() + 2 * x_off, q.data_ptr() + 2 * q_off,
+            y_rel.data_ptr(), x_rel.data_ptr(), out.data_ptr(), 4, a[0], a[1], p[0], p[1], c,
+            rows, cols, _build.stream_of(x))
+
+    assert code(1, dtype=0) != 0
+    assert code(1, q_off=1) != 0
+    assert code(1, c=60) != 0
+    assert code(1, cols=4) != 0
+    assert code(1, cols=18) != 0
+    assert code(0, x_off=1) != 0
+    assert code(2) != 0
+    assert code(1) == 0 and code(1, rows=1, cols=6) == 0 and code(0) == 0
+    torch.cuda.synchronize()
