@@ -26,15 +26,18 @@ Phases, one JSON line each, with the seconds the phase took:
   3. kernels:        each kernel against its plain PyTorch version at ViViT's
                      shapes, float32 and bfloat16, each output within the
                      bounds stated in ops/kernel_check.py, and both timed;
-                     rows 1 (ln_norms) and 9 (block_select_scatter) with the
+                     rows 1 (ln_norms), 9 (block_select_scatter), 10
+                     (block_select_p) and 14 (ln_select) with the
                      readings of 23 (device microseconds, share of the
                      bound, kernels and allocations a call: one launch of
-                     ln_norms_kernel or select_scatter_kernel, the
-                     warp-per-row body, and its new outputs alone), here
-                     and in every kernels phase below; every checked call
-                     of a row pass (rows 1, 9 and the ln_norms stages of
-                     kernel B, row 4, row 7 and row 13) on the warp-per-row
-                     body (ops/row_pass.py::row_body), checked;
+                     ln_norms_kernel, select_scatter_kernel or
+                     select_warp_kernel, the warp-per-row body, and its new
+                     outputs alone), here and in every kernels phase
+                     below; every checked call of a row pass (rows 1, 9,
+                     10, 14 and the select, LN and norms stages of kernels
+                     A and B and rows 4, 5, 7, 12 and 13) on the
+                     warp-per-row body (ops/row_pass.py::row_body),
+                     checked;
                      the GEMM rows beside their yardstick, cuBLAS on the
                      operands of their GEMMs (kernel_check.library_call:
                      kernels A and B, gate_group_linear, ln_select_matmul,
@@ -214,12 +217,14 @@ Phases, one JSON line each, with the seconds the phase took:
                      the tiled body in some bfloat16 run and the CUDA-core
                      one in some float32 run.
   26. row_bodies:     the launches of the row passes (ln_norms, block_select_scatter,
-                     and the ln_norms stages of proj_group, gate_group_mlp,
-                     gate_group_linear and select_linear_skip_norms) by
+                     block_select_p, ln_select, and the select, LN and
+                     norms stages of qkv_attention_group, proj_group,
+                     dense_mlp_residual, gate_group_mlp, gate_group_linear,
+                     ln_select_matmul and select_linear_skip_norms) by
                      body, of every counted run above, each checked as it
                      was read: the warp-per-row body (csrc/row_pass.cuh)
-                     only, at every path's shapes in both dtypes; rows 1
-                     and 9 launched in bfloat16 and float32.
+                     only, at every path's shapes in both dtypes; each of
+                     them launched on it in bfloat16 and in float32.
   27. gemm_cores:     the GEMM rows' launches (kernels A and B, the MLP
                      rows, rows 12 and 13) by core of every counted run
                      above, each checked
@@ -572,10 +577,11 @@ ROW_COPY_ALLOCATIONS = {"scatter_blend": 1, "gather_rows": 1, "scatter_rows_inpl
 
 
 def expected_allocations(name):
-    """The allocations one call of entry ``name`` of rows 18-20, 1 or 9
-    makes: ROW_COPY_ALLOCATIONS for rows 18-20; its new outputs for rows 1
-    (the norms) and 9 (y and the norms where the form has them; p and b
-    are updated in place, and the slot is found in the kernel)."""
+    """The allocations one call of entry ``name`` of rows 18-20, 1, 9, 10
+    or 14 makes: ROW_COPY_ALLOCATIONS for rows 18-20; its new outputs for
+    rows 1 (the norms) and 9 (y and the norms where the form has them; p
+    and b are updated in place, and the slot is found in the kernel); none
+    for rows 10 and 14 (p in place)."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
     wrapper, outputs = kernel_check.KERNELS[name][0].__name__, kernel_check.KERNELS[name][4]
@@ -585,8 +591,8 @@ def expected_allocations(name):
 
 
 def row_copy_readings(name, d, bound_ms, library, launched):
-    """Rows 18-20 (the row-copy kernels; row 19 the control) and rows 1 and
-    9 (the warp-per-row pass) beside their ``ms``: device microseconds a
+    """Rows 18-20 (the row-copy kernels; row 19 the control) and rows 1, 9,
+    10 and 14 (the warp-per-row pass) beside their ``ms``: device microseconds a
     call (torch.profiler, or CUDA events around calls queued behind a
     sleep where the profiler caught no device event:
     ``kernel_check.row_copy_profile``) and the share of the bound they
@@ -816,9 +822,8 @@ def read_form_launches():
 # gemm_cores.
 BODIES = []
 CORES = []
-# the row passes' launches by body (rows 1 and 9, and the ln_norms stages of
-# kernel B, of the "post" groups that select their own rows and of
-# select_linear_skip_norms), emitted by phase row_bodies
+# the row passes' launches by body (rows 1, 9, 10 and 14, and the select, LN
+# and norms stages of rows 2-5, 7, 12 and 13), emitted by phase row_bodies
 ROW_BODIES = []
 
 
@@ -830,9 +835,9 @@ def read_routes(dtype, where):
     ``av_softmax.av_softmax_body`` and ``relpos.relpos_body`` at the paths'
     shapes); the GEMM rows' by GEMM core, in bfloat16 every one on
     the wgmma core, in float32 on the CUDA-core tile
-    (``gemm_core.gemm_core``); the row passes of rows 1 and 9 and the
-    ln_norms stages by row body, every one on the warp-per-row body
-    (``row_pass.row_body``). Kept in BODIES, CORES and ROW_BODIES; returns
+    (``gemm_core.gemm_core``); the row passes of rows 1, 9, 10 and 14 and
+    the select, LN and norms stages by row body, every one on the
+    warp-per-row body (``row_pass.row_body``). Kept in BODIES, CORES and ROW_BODIES; returns
     the body counts."""
     from eventful_transformer_tpu_torch.ops import kernel_check
 
@@ -874,16 +879,18 @@ def phase_attention_bodies():
         raise AssertionError(f"rel-pos bodies: a wrapper missed its body in a dtype: {relpos}")
 
 
-# rows 1 and 9, and the wrappers with an ln_norms stage that the paths run
-ROW_PASS_ROWS = ("ln_norms", "block_select_scatter")
-ROW_PASS_WRAPPERS = ROW_PASS_ROWS + ("proj_group", "gate_group_mlp", "gate_group_linear",
+# rows 1, 9, 10 and 14, and the wrappers with a select, LN or norms stage
+# that the paths run
+ROW_PASS_ROWS = ("ln_norms", "block_select_scatter", "block_select_p", "ln_select")
+ROW_PASS_WRAPPERS = ROW_PASS_ROWS + ("qkv_attention_group", "proj_group", "dense_mlp_residual",
+                                     "gate_group_mlp", "gate_group_linear", "ln_select_matmul",
                                      "select_linear_skip_norms")
 
 
 def phase_row_bodies():
     """Every counted run's row-pass launches by body (each checked as it
-    was read: the warp-per-row body only); rows 1 and 9 launched in both
-    dtypes, every ROW_PASS_WRAPPERS stage in some run."""
+    was read: the warp-per-row body only); every ROW_PASS_WRAPPERS wrapper
+    launched on the warp body in bfloat16 and in float32."""
     totals = {}
     for row in ROW_BODIES:
         by_wrapper = totals.setdefault(row["dtype"], {})
@@ -892,11 +899,9 @@ def phase_row_bodies():
             for body, n in counts.items():
                 total[body] += n
     emit("row_bodies", runs=ROW_BODIES, totals=totals)
-    warp = {(dtype, name) for dtype, by_wrapper in totals.items()
-            for name, counts in by_wrapper.items() if counts["warp"]}
     idle = [f"{dtype}.{name}" for dtype in ("bfloat16", "float32")
-            for name in ROW_PASS_ROWS if (dtype, name) not in warp]
-    idle += [name for name in ROW_PASS_WRAPPERS if all(w != name for _, w in warp)]
+            for name in ROW_PASS_WRAPPERS
+            if not totals.get(dtype, {}).get(name, {}).get("warp")]
     if idle:
         raise AssertionError(f"row bodies: no warp-body launch of {idle}: {totals}")
 

@@ -13,13 +13,16 @@
 // shapes, and the block (197 x 2304 x 4 B = 1.8 MB) is far beyond the
 // 227 KB of shared memory a block may use. Here each wrapper issues several
 // hand-written launches instead:
-//   A: ln_select row pass (in place) -> GEMM into a (B, N, 3C) scratch ->
+//   A: LN select row pass (in place) -> GEMM into a (B, N, 3C) scratch ->
 //      attention, the kernel of attention.cuh (in bfloat16 its tensor-core
 //      body, 64 queries a block; in float32 the CUDA-core body, 32) ->
-//      diff-norms row pass;
+//      difference-norm row pass;
 //   B: select row pass (in place) -> GEMM with the bias + skip epilogue ->
-//      LN-norms row pass (ln_norms_kernel, the warp-per-row body of
-//      row_pass.cuh, where ops/row_pass.py::row_body takes the shapes).
+//      LN-norms row pass.
+// The row passes run the warp-per-row body of row_pass.cuh
+// (select_warp_kernel, diff_norms_warp_kernel, ln_norms_kernel) where
+// ops/row_pass.py::row_body takes the shapes, the block-per-row body of
+// common.cuh otherwise; the wrapper passes the body (``row_body``).
 // The row passes move a few MB each. The GEMMs dominate the time at
 // the flagship shapes (B.N = 1576 rows, K = 768, N = 2304 and 768); they
 // take the core the wrapper picks (ops/gemm_core.py::gemm_core): in
@@ -78,27 +81,25 @@ struct ProjEpilogue {
 };
 
 template <typename T>
-int qkv_attention_group(int body, const void* x, void* p_qkv, const float* cov,
-                        const void* p_proj, const void* ln_scale, const void* ln_bias,
-                        const void* w, const void* bias, void* qkv, void* attn, float* norms,
-                        int bsz, int n, int c, int heads, float inv_scale, GemmCall gemm,
-                        cudaStream_t stream) {
+int qkv_attention_group(int body, int row_body, const void* x, void* p_qkv,
+                        const float* cov, const void* p_proj, const void* ln_scale,
+                        const void* ln_bias, const void* w, const void* bias, void* qkv,
+                        void* attn, float* norms, int bsz, int n, int c, int heads,
+                        float inv_scale, GemmCall gemm, cudaStream_t stream) {
   const int rows = bsz * n;
-  const size_t row_smem = row_smem_bytes(c);
-  ln_select_kernel<T><<<rows, kRowThreads, row_smem, stream>>>(
-      (const T*)x, (T*)p_qkv, cov, (const T*)ln_scale, (const T*)ln_bias, c);
-  ETK_CHECK_LAUNCH();
-  int err = launch_gemm_core<T, false>((const T*)p_qkv, rows, DenseRows{}, (const T*)w, rows, c,
-                                       3 * c, QkvEpilogue<T>{(const T*)bias, (T*)qkv, 3 * c}, gemm,
-                                       stream);
+  if (!warp_row_takes<T>(row_body, {c}, {x, p_qkv, ln_scale, ln_bias, attn, p_proj}))
+    return (int)cudaErrorInvalidValue;
+  int err = launch_select<T>(row_body, (const T*)x, (T*)p_qkv, cov, (const T*)ln_scale,
+                             (const T*)ln_bias, rows, c, stream);
+  if (err != 0) return err;
+  err = launch_gemm_core<T, false>((const T*)p_qkv, rows, DenseRows{}, (const T*)w, rows, c,
+                                   3 * c, QkvEpilogue<T>{(const T*)bias, (T*)qkv, 3 * c}, gemm,
+                                   stream);
   if (err != 0) return err;
   err = launch_attention<T>(body, (const T*)qkv, nullptr, (T*)attn, bsz, n, c, heads, inv_scale,
                             0, 0, stream);
   if (err != 0) return err;
-  diff_norms_kernel<T><<<rows, kRowThreads, row_smem, stream>>>(
-      (const T*)attn, (const T*)p_proj, norms, c);
-  ETK_CHECK_LAUNCH();
-  return 0;
+  return launch_diff_norms<T>(row_body, (const T*)attn, (const T*)p_proj, norms, rows, c, stream);
 }
 
 template <typename T>
@@ -107,11 +108,12 @@ int proj_group(int row_body, const void* attn, void* p_proj, const float* cov, c
                const void* ln_bias, void* y1, float* norms, int bsz, int n, int c, GemmCall gemm,
                cudaStream_t stream) {
   const int rows = bsz * n;
-  if (!warp_row_takes<T>(row_body, {c}, {y1, p_mlp, ln_scale, ln_bias}))
+  if (!warp_row_takes<T>(row_body, {c}, {attn, p_proj, y1, p_mlp, ln_scale, ln_bias}))
     return (int)cudaErrorInvalidValue;
-  select_rows_kernel<T><<<rows, kRowThreads, 0, stream>>>((const T*)attn, (T*)p_proj, cov, c);
-  ETK_CHECK_LAUNCH();
-  const int err = launch_gemm_core<T, false>(
+  int err = launch_select<T>(row_body, (const T*)attn, (T*)p_proj, cov, nullptr, nullptr, rows,
+                             c, stream);
+  if (err != 0) return err;
+  err = launch_gemm_core<T, false>(
       (const T*)p_proj, rows, DenseRows{}, (const T*)w, rows, c, c,
       ProjEpilogue<T>{(const T*)bias, (const T*)skip, (T*)y1, c}, gemm, stream);
   if (err != 0) return err;
@@ -125,19 +127,22 @@ int proj_group(int row_body, const void* attn, void* p_proj, const float* cov, c
 // steps; ws: its float32 workspace (null unsplit).
 extern "C" {
 
-int etk_qkv_attention_group(int dtype, int body, const void* x, void* p_qkv, const void* cov,
+// body: the attention stage's (ops/window_attention.py BODY_CODES); row_body:
+// the row passes' (ops/row_pass.py ROW_BODY_CODES)
+int etk_qkv_attention_group(int dtype, int body, int row_body, const void* x, void* p_qkv,
+                            const void* cov,
                             const void* p_proj, const void* ln_scale, const void* ln_bias,
                             const void* w, const void* bias, void* qkv, void* attn, void* norms,
                             int bsz, int n, int c, int heads, float inv_scale, int core,
                             int split, void* ws, void* stream) {
   const etk::GemmCall gemm{core, split, (float*)ws};
   ETK_DISPATCH(dtype, return etk::qkv_attention_group<T>(
-                          body, x, p_qkv, (const float*)cov, p_proj, ln_scale, ln_bias, w, bias,
-                          qkv, attn, (float*)norms, bsz, n, c, heads, inv_scale, gemm,
-                          (cudaStream_t)stream));
+                          body, row_body, x, p_qkv, (const float*)cov, p_proj, ln_scale,
+                          ln_bias, w, bias, qkv, attn, (float*)norms, bsz, n, c, heads,
+                          inv_scale, gemm, (cudaStream_t)stream));
 }
 
-// row_body: the body of the MLP gate's norms stage (ops/row_pass.py ROW_BODY_CODES)
+// row_body: the body of the select and norms stages (ops/row_pass.py ROW_BODY_CODES)
 int etk_proj_group(int dtype, int row_body, const void* attn, void* p_proj, const void* cov,
                    const void* skip, const void* p_mlp, const void* w, const void* bias,
                    const void* ln_scale, const void* ln_bias, void* y1, void* norms, int bsz,

@@ -105,8 +105,9 @@ __device__ __forceinline__ float ln_error_norm(const float* row, const T* p, int
 // ---------------------------------------------------------------------------
 // Row kernels, the block-per-row body: one block of kRowThreads threads per
 // token row, the row staged in dynamic shared memory ((c + 32) floats), each
-// block_sum three barriers. ln_norms' warp-per-row body (row_pass.cuh) takes
-// the calls whose shapes it holds; ln_norms_block_kernel the others.
+// block_sum three barriers. The warp-per-row body (row_pass.cuh) takes the
+// calls whose shapes it holds; these kernels the others (launch_ln_norms,
+// launch_select and launch_diff_norms pick by the rule's body code).
 // ---------------------------------------------------------------------------
 
 // out[r] = ||ln(x[r]) * scale + bias - p[r]||_2

@@ -10,7 +10,8 @@
 // The TPU kernel keeps a 256-row block of the (N, 4C) hidden in VMEM; here
 // the hidden (B, N, 4C) makes one round trip through device memory, like
 // the MLP of kernel C (gate_group.cu). Three launches: the LN row pass into
-// a (B, N, C) scratch (ln_select_kernel with no coverage), GEMM1 with the
+// a (B, N, C) scratch (row_pass.cuh's select with no coverage, in the body
+// ``row_body`` the wrapper passes), GEMM1 with the
 // bias + GELU epilogue, and GEMM2 with the bias + residual epilogue (one
 // more each where the plan splits K). The two GEMMs are the time: in
 // bfloat16 they run on the wgmma core of gemm_tc.cuh, bound by the tensor
@@ -22,6 +23,7 @@
 #include "common.cuh"
 #include "gemm.cuh"
 #include "gemm_tc.cuh"
+#include "row_pass.cuh"
 
 namespace etk {
 
@@ -45,16 +47,16 @@ struct ResidualEpilogue {
 };
 
 template <typename T>
-int dense_mlp_residual(const void* x, const void* ln_scale, const void* ln_bias, const void* w1,
-                       const void* b1, const void* w2, const void* b2, void* y, void* xl,
-                       void* h, int rows, int c, int hidden, GemmCall gemm1, GemmCall gemm2,
-                       cudaStream_t stream) {
-  ln_select_kernel<T><<<rows, kRowThreads, row_smem_bytes(c), stream>>>(
-      (const T*)x, (T*)xl, nullptr, (const T*)ln_scale, (const T*)ln_bias, c);
-  ETK_CHECK_LAUNCH();
-  int err = launch_gemm_core<T, false>((const T*)xl, rows, DenseRows{}, (const T*)w1, rows, c,
-                                       hidden, BiasGeluEpilogue<T>{(const T*)b1, (T*)h, hidden},
-                                       gemm1, stream);
+int dense_mlp_residual(int row_body, const void* x, const void* ln_scale, const void* ln_bias,
+                       const void* w1, const void* b1, const void* w2, const void* b2, void* y,
+                       void* xl, void* h, int rows, int c, int hidden, GemmCall gemm1,
+                       GemmCall gemm2, cudaStream_t stream) {
+  int err = launch_select<T>(row_body, (const T*)x, (T*)xl, nullptr, (const T*)ln_scale,
+                             (const T*)ln_bias, rows, c, stream);
+  if (err != 0) return err;
+  err = launch_gemm_core<T, false>((const T*)xl, rows, DenseRows{}, (const T*)w1, rows, c,
+                                   hidden, BiasGeluEpilogue<T>{(const T*)b1, (T*)h, hidden},
+                                   gemm1, stream);
   if (err != 0) return err;
   return launch_gemm_core<T, false>((const T*)h, rows, DenseRows{}, (const T*)w2, rows, hidden, c,
                                     ResidualEpilogue<T>{(const T*)b2, (const T*)x, (T*)y, c},
@@ -65,14 +67,15 @@ int dense_mlp_residual(const void* x, const void* ln_scale, const void* ln_bias,
 
 // core: ops/gemm_core.py CORE_CODES, both GEMMs; split1, split2: each
 // GEMM's split of its K steps; ws: the float32 workspace of the larger
-// split (null when neither splits).
-extern "C" int etk_dense_mlp_residual(int dtype, const void* x, const void* ln_scale,
+// split (null when neither splits); row_body: the LN pass's body
+// (ops/row_pass.py ROW_BODY_CODES).
+extern "C" int etk_dense_mlp_residual(int dtype, int row_body, const void* x, const void* ln_scale,
                                       const void* ln_bias, const void* w1, const void* b1,
                                       const void* w2, const void* b2, void* y, void* xl, void* h,
                                       int rows, int c, int hidden, int core, int split1,
                                       int split2, void* ws, void* stream) {
   const etk::GemmCall gemm1{core, split1, (float*)ws}, gemm2{core, split2, (float*)ws};
-  ETK_DISPATCH(dtype, return etk::dense_mlp_residual<T>(x, ln_scale, ln_bias, w1, b1, w2, b2, y,
-                                                        xl, h, rows, c, hidden, gemm1, gemm2,
-                                                        (cudaStream_t)stream));
+  ETK_DISPATCH(dtype, return etk::dense_mlp_residual<T>(row_body, x, ln_scale, ln_bias, w1, b1, w2,
+                                                        b2, y, xl, h, rows, c, hidden, gemm1,
+                                                        gemm2, (cudaStream_t)stream));
 }

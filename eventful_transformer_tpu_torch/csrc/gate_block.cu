@@ -1,12 +1,19 @@
 // The blocked gate kernels of large token counts, written for Hopper.
 //
 // Replaces eventful_transformer_tpu/ops/pallas/gate_block.py:
-//   * block_select_p: p' = where(cov, ln(x) | x, p), in place. The TPU
-//     kernel tiles 1024 rows of (N, C) per grid step; here one 256-thread
-//     block per token row (3528 blocks at ViTDet-672 with 2 streams), the
-//     row passes of common.cuh. Bound by the bytes of x and p it reads and
-//     the selected rows it writes (5.4 MB read in bf16 at B = 2, N = 1764,
-//     C = 768).
+//   * block_select_p: p' = where(cov, ln(x) | x, p), in place (row 10; row
+//     14, gate_fused.py's ln_select, is the same function and launches the
+//     same entry). The TPU kernel tiles 1024 rows of (N, C) per grid step;
+//     here the warp-per-row select of row_pass.cuh (select_warp_kernel):
+//     one warp a token row, 8 rows a block (1024 blocks at ViTDet-1024 with
+//     2 streams). A warp reads its row's cov entry first; an unselected
+//     row's warp exits there, a selected one loads x's row by 16-byte
+//     loads into registers, takes the LN statistics by warp shuffles and
+//     stores p' by 16-byte stores. So the call moves cov and x and p' at
+//     the selected rows, 1.6 MB in bf16 at k = 256 a stream, C = 768; it
+//     waits on two dependent loads (cov, then x), not on bytes. Widths or
+//     operands off the rule (ops/row_pass.py::row_body) take the
+//     block-per-row kernels of common.cuh.
 //   * block_scatter_rows: b'[index[j]] = h[j] on the window-major buffer
 //     (B, NW, F), in place; index (B, KP) in any order, -1 in an invalid
 //     slot. The TPU kernel rebuilds each (rows, KP) one-hot in VMEM and
@@ -176,30 +183,7 @@ select_scatter_kernel(const T* __restrict__ x, T* __restrict__ p, T* __restrict_
     uint4 xv[K];
     load_vecs<K>(x + r * c, nc, lane, xv);
     const int slot = find_slot(index + batch * kp, kp, (int)(r - batch * n), lane);
-    uint4* prow = reinterpret_cast<uint4*>(p + r * c);
-    if (scale != nullptr) {
-      float mean, rstd;
-      warp_ln_stats<T, K>(xv, nc, lane, c, mean, rstd);
-      const uint4* sv = reinterpret_cast<const uint4*>(scale);
-      const uint4* bi = reinterpret_cast<const uint4*>(bias);
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        const int i = lane + 32 * j;
-        if (i < nc) {
-          float v[E], sf[E], bf[E];
-          unpack<T>(xv[j], v);
-          unpack<T>(__ldg(sv + i), sf);
-          unpack<T>(__ldg(bi + i), bf);
-#pragma unroll
-          for (int e = 0; e < E; ++e) v[e] = (v[e] - mean) * rstd * sf[e] + bf[e];
-          prow[i] = pack<T>(v);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < K; ++j)
-        if (lane + 32 * j < nc) prow[lane + 32 * j] = xv[j];
-    }
+    warp_store_select<T, K>(xv, p + r * c, nc, lane, c, scale, bias);
     // b' = h[slot], 0 where no valid slot names the row
     const uint4* hrow =
         slot >= 0 ? reinterpret_cast<const uint4*>(h + (batch * kp + slot) * (int64_t)f) : nullptr;
@@ -289,20 +273,15 @@ int block_select_scatter(int body, const void* x, void* p, void* b, const float*
 
 extern "C" {
 
-int etk_block_select_p(int dtype, const void* x, void* p, const void* cov, const void* scale,
-                       const void* bias, int apply_ln, long long rows, int c, void* stream) {
-  ETK_DISPATCH(dtype, {
-    if (apply_ln) {
-      etk::ln_select_kernel<T><<<(unsigned)rows, etk::kRowThreads, etk::row_smem_bytes(c),
-                                 (cudaStream_t)stream>>>((const T*)x, (T*)p, (const float*)cov,
-                                                         (const T*)scale, (const T*)bias, c);
-    } else {
-      etk::select_rows_kernel<T><<<(unsigned)rows, etk::kRowThreads, 0, (cudaStream_t)stream>>>(
-          (const T*)x, (T*)p, (const float*)cov, c);
-    }
-    ETK_CHECK_LAUNCH();
-    return 0;
-  });
+// Rows 10 and 14: p' = where(cov, ln(x) | x, p) in place over ``rows``
+// rows of width c; scale and bias null: x itself. body: the row body
+// (ops/row_pass.py ROW_BODY_CODES); a warp call off its rule is refused.
+int etk_block_select_p(int dtype, int body, const void* x, void* p, const void* cov,
+                       const void* scale, const void* bias, long long rows, int c, void* stream) {
+  if (cov == nullptr) return (int)cudaErrorInvalidValue;
+  ETK_DISPATCH(dtype, return etk::launch_select<T>(body, (const T*)x, (T*)p, (const float*)cov,
+                                                   (const T*)scale, (const T*)bias, rows, c,
+                                                   (cudaStream_t)stream));
 }
 
 int etk_block_scatter_rows(int dtype, void* b, const void* index, const void* h, int bsz,

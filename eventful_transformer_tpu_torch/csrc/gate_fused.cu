@@ -19,10 +19,11 @@
 // The TPU kernels hold a 256-row block of x, p and the whole W in VMEM and
 // feed p' to the MXU without a round trip. Here each C entry issues its
 // stages as separate launches:
-//   * the select row pass of common.cuh (one 256-thread block per token
-//     row, p' written in place), bound by memory bytes: it reads x and p
-//     once (7 MB in bf16 at 12 views of ViViT-B) and writes p';
-//   * "pre" only: an LN row pass (the ln_select_kernel with every row
+//   * the select row pass of row_pass.cuh (select_warp_kernel: one warp a
+//     token row, p' written in place at the selected rows; the block body
+//     of common.cuh for shapes off its rule, ``row_body``), which moves cov
+//     and x and p' at the selected rows;
+//   * "pre" only: an LN row pass (the same select with every row
 //     selected) writes ln(p') in W's dtype to a scratch, since p' is
 //     stored nowhere else. The TPU kernel normalises its float32 p'; x and
 //     p share one dtype (the wrapper checks it), so that equals the stored
@@ -40,8 +41,8 @@
 //     shared-memory traffic. A launch the rule would not send to the
 //     wgmma core is refused there; there is no fallback;
 //   * select_linear_skip_norms only: the ln_norms row pass over the rounded
-//     y, on the warp-per-row body of row_pass.cuh where its rule takes the
-//     shapes (next_ln=False: the plain difference norm of common.cuh).
+//     y (next_ln=False: the difference norm, diff_norms_warp_kernel), in
+//     the same row body as the select.
 // What is left: p' (and "pre"'s ln(p')) makes one round trip through
 // device memory between the row pass and the GEMM. The row pass could
 // write the GEMM's A tiles straight into shared memory, and "pre"'s LN
@@ -75,17 +76,6 @@ struct BiasSkipEpilogue {
   }
 };
 
-template <typename T>
-void select_rows_pass(const T* x, T* p, const float* cov, const T* scale, const T* bias,
-                      int64_t rows, int c, cudaStream_t stream) {
-  if (scale != nullptr) {
-    ln_select_kernel<T><<<(unsigned)rows, kRowThreads, row_smem_bytes(c), stream>>>(
-        x, p, cov, scale, bias, c);
-  } else {
-    select_rows_kernel<T><<<(unsigned)rows, kRowThreads, 0, stream>>>(x, p, cov, c);
-  }
-}
-
 }  // namespace etk
 
 // core: ops/gemm_core.py CORE_CODES; split: the GEMM's split of its K
@@ -94,22 +84,26 @@ extern "C" {
 
 // ln_mode 0 "none", 1 "post", 2 "pre" (ops/common.py::LN_MODES);
 // scale, bias null for "none"; a, the (rows, c) scratch of ln(p'), null
-// but for "pre"
-int etk_ln_select_matmul(int dtype, const void* x, void* p, const void* cov, const void* scale,
-                         const void* bias, const void* w, const void* wb, void* y, void* a,
-                         long long rows, int c, int f, int ln_mode, int core, int split, void* ws,
-                         void* stream) {
+// but for "pre"; row_body: the body of the select and LN passes
+// (ops/row_pass.py ROW_BODY_CODES)
+int etk_ln_select_matmul(int dtype, int row_body, const void* x, void* p, const void* cov,
+                         const void* scale, const void* bias, const void* w, const void* wb,
+                         void* y, void* a, long long rows, int c, int f, int ln_mode, int core,
+                         int split, void* ws, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const etk::GemmCall gemm{core, split, (float*)ws};
   ETK_DISPATCH(dtype, {
-    etk::select_rows_pass<T>((const T*)x, (T*)p, (const float*)cov,
-                             ln_mode == 1 ? (const T*)scale : nullptr, (const T*)bias, rows, c, s);
-    ETK_CHECK_LAUNCH();
+    if (!etk::warp_row_takes<T>(row_body, {c}, {x, p, scale, bias, a}))
+      return (int)cudaErrorInvalidValue;
+    int err = etk::launch_select<T>(row_body, (const T*)x, (T*)p, (const float*)cov,
+                                    ln_mode == 1 ? (const T*)scale : nullptr, (const T*)bias,
+                                    rows, c, s);
+    if (err != 0) return err;
     const T* mm_in = (const T*)p;
     if (ln_mode == 2) {
-      etk::ln_select_kernel<T><<<(unsigned)rows, etk::kRowThreads, etk::row_smem_bytes(c), s>>>(
-          (const T*)p, (T*)a, nullptr, (const T*)scale, (const T*)bias, c);
-      ETK_CHECK_LAUNCH();
+      err = etk::launch_select<T>(row_body, (const T*)p, (T*)a, nullptr, (const T*)scale,
+                                  (const T*)bias, rows, c, s);
+      if (err != 0) return err;
       mm_in = (const T*)a;
     }
     return etk::launch_gemm_core<T, false>(mm_in, rows, etk::DenseRows{}, (const T*)w, (int)rows,
@@ -118,8 +112,8 @@ int etk_ln_select_matmul(int dtype, const void* x, void* p, const void* cov, con
   });
 }
 
-// scale, bias null with next_ln == 0; row_body: the body of the next_ln
-// norms (ops/row_pass.py ROW_BODY_CODES)
+// scale, bias null with next_ln == 0; row_body: the body of the select and
+// norms passes (ops/row_pass.py ROW_BODY_CODES)
 int etk_select_linear_skip_norms(int dtype, int row_body, const void* x, void* p,
                                  const void* cov, const void* w, const void* wb,
                                  const void* skip, const void* p_next, const void* scale,
@@ -129,11 +123,12 @@ int etk_select_linear_skip_norms(int dtype, int row_body, const void* x, void* p
   const cudaStream_t s = (cudaStream_t)stream;
   const etk::GemmCall gemm{core, split, (float*)ws};
   ETK_DISPATCH(dtype, {
-    if (next_ln && !etk::warp_row_takes<T>(row_body, {f}, {y, p_next, scale, bias}))
+    if (!etk::warp_row_takes<T>(row_body, {c, f}, {x, p, y, p_next, scale, bias}))
       return (int)cudaErrorInvalidValue;
-    etk::select_rows_pass<T>((const T*)x, (T*)p, (const float*)cov, nullptr, nullptr, rows, c, s);
-    ETK_CHECK_LAUNCH();
-    const int err = etk::launch_gemm_core<T, false>(
+    int err = etk::launch_select<T>(row_body, (const T*)x, (T*)p, (const float*)cov, nullptr,
+                                    nullptr, rows, c, s);
+    if (err != 0) return err;
+    err = etk::launch_gemm_core<T, false>(
         (const T*)p, rows, etk::DenseRows{}, (const T*)w, (int)rows, c, f,
         etk::BiasSkipEpilogue<T>{(const T*)wb, (const T*)skip, (T*)y, f}, gemm, s);
     if (err != 0) return err;
@@ -141,10 +136,8 @@ int etk_select_linear_skip_norms(int dtype, int row_body, const void* x, void* p
       return etk::launch_ln_norms<T>(row_body, (const T*)y, (const T*)p_next,
                                      (const T*)scale, (const T*)bias, (float*)norms, rows, f,
                                      s);
-    etk::diff_norms_kernel<T><<<(unsigned)rows, etk::kRowThreads, 32 * sizeof(float), s>>>(
-        (const T*)y, (const T*)p_next, (float*)norms, f);
-    ETK_CHECK_LAUNCH();
-    return 0;
+    return etk::launch_diff_norms<T>(row_body, (const T*)y, (const T*)p_next, (float*)norms,
+                                     rows, f, s);
   });
 }
 

@@ -17,7 +17,8 @@
 // because Mosaic has no cumsum; here a per-batch-row prefix count over cov
 // gives each selected row its slot (index order, as the one-hot gives) and
 // the GEMM reads the rows through that index, with identical results. Five
-// launches: ln_select row pass, compaction, gathered GEMM1 (+b1, GELU),
+// launches: the select row pass (row_pass.cuh's select_warp_kernel, one warp
+// a row, in the row body ``row_body`` the wrapper passes), compaction, gathered GEMM1 (+b1, GELU),
 // GEMM2 (+b2), and the scatter-blend row pass with the residual and the
 // next-gate norms; one more where the plan splits GEMM2's K steps (its
 // 18-42 output tiles are fewer than the SMs). The two GEMMs do the k/N
@@ -71,9 +72,9 @@
 // rows before its body, in two more launches that write the (B, N)
 // coverage the body then reads:
 //   norms[r] = ||new[r] - p[r]||  (float32; new = ln(x) for "post", x for
-//                                  "pre"/"none": ln_norms_kernel of
-//                                  row_pass.cuh, or diff_norms_kernel of
-//                                  common.cuh)
+//                                  "pre"/"none": ln_norms_kernel or
+//                                  diff_norms_warp_kernel of
+//                                  row_pass.cuh, in the group's row body)
 //   cov[b]   = the top-kcap set of norms[b], ties at the kcap-th value to
 //              the smallest index: exactly lax.top_k's set
 // The TPU kernel holds a batch row's whole (N, C) block in VMEM and
@@ -233,7 +234,7 @@ topk_cov_kernel(const float* __restrict__ norms, float* __restrict__ cov, int n,
 
 // The selection of a group that selects its own rows: the error norms of
 // the gate's domain into ``norms``, then the top-kcap coverage into cov.
-// ``row_body``: the body of the "post" norms (ops/row_pass.py ROW_BODY_CODES).
+// ``row_body``: the body of the norms pass (ops/row_pass.py ROW_BODY_CODES).
 template <typename T>
 int select_topk(int row_body, const T* x, const T* p, const T* scale, const T* bias,
                 float* norms, float* cov, int bsz, int n, int c, int kcap, int ln_mode,
@@ -243,8 +244,8 @@ int select_topk(int row_body, const T* x, const T* p, const T* scale, const T* b
     const int err = launch_ln_norms<T>(row_body, x, p, scale, bias, norms, rows, c, stream);
     if (err != 0) return err;
   } else {
-    diff_norms_kernel<T><<<rows, kRowThreads, 32 * sizeof(float), stream>>>(x, p, norms, c);
-    ETK_CHECK_LAUNCH();
+    const int err = launch_diff_norms<T>(row_body, x, p, norms, rows, c, stream);
+    if (err != 0) return err;
   }
   topk_cov_kernel<<<bsz, kTopkThreads, 0, stream>>>(norms, cov, n, kcap);
   ETK_CHECK_LAUNCH();
@@ -275,17 +276,13 @@ ln_rows_kernel(const T* __restrict__ p, const int* __restrict__ idx, const T* __
     out[j] = from_f<T>(ln_value(row[j], mean, rstd, scale, bias, j));
 }
 
-// The select row pass of a group: p' = where(cov, ln(x), p) after the LN,
-// where(cov, x, p) before it or without one.
+// The select row pass of a group in its row body: p' = where(cov, ln(x), p)
+// after the LN, where(cov, x, p) before it or without one.
 template <typename T>
-void select_pass(const T* x, T* p, const float* cov, const T* scale, const T* bias, int rows,
-                 int c, int ln_mode, cudaStream_t stream) {
-  if (ln_mode == kLnPost) {
-    ln_select_kernel<T><<<rows, kRowThreads, row_smem_bytes(c), stream>>>(x, p, cov, scale, bias,
-                                                                          c);
-  } else {
-    select_rows_kernel<T><<<rows, kRowThreads, 0, stream>>>(x, p, cov, c);
-  }
+int select_pass(int row_body, const T* x, T* p, const float* cov, const T* scale, const T* bias,
+                int rows, int c, int ln_mode, cudaStream_t stream) {
+  return launch_select<T>(row_body, x, p, cov, ln_mode == kLnPost ? scale : nullptr, bias, rows, c,
+                          stream);
 }
 
 // Output row m = b * kcap + j reads token row idx[m] (-1: a zero row).
@@ -358,27 +355,28 @@ int gate_group_mlp(int row_body, const void* x, void* p, void* b, float* cov, fl
                    void* h2, void* a, int bsz, int n, int c, int hidden, int kcap, int ln_mode,
                    GemmCall gemm1, GemmCall gemm2, cudaStream_t stream) {
   const int rows = bsz * n;
-  const size_t row_smem = row_smem_bytes(c);
+  if (!warp_row_takes<T>(row_body, {c}, {x, p, ln_scale, ln_bias}))
+    return (int)cudaErrorInvalidValue;
   if (topk_norms != nullptr) {
     const int err = select_topk<T>(row_body, (const T*)x, (const T*)p, (const T*)ln_scale,
                                    (const T*)ln_bias, topk_norms, cov, bsz, n, c, kcap,
                                    ln_mode, stream);
     if (err != 0) return err;
   }
-  select_pass<T>((const T*)x, (T*)p, cov, (const T*)ln_scale, (const T*)ln_bias, rows, c, ln_mode,
-                 stream);
-  ETK_CHECK_LAUNCH();
+  int err = select_pass<T>(row_body, (const T*)x, (T*)p, cov, (const T*)ln_scale,
+                           (const T*)ln_bias, rows, c, ln_mode, stream);
+  if (err != 0) return err;
   compact_kernel<T><<<bsz, 32, 0, stream>>>(cov, pos, idx, nullptr, n, kcap, 0);
   ETK_CHECK_LAUNCH();
   const int m = bsz * kcap;
-  int err = compacted_gemm<T>((const T*)p, idx, (const T*)ln_scale, (const T*)ln_bias, (T*)a,
-                              (const T*)w1, bsz, n, c, hidden, kcap, ln_mode,
-                              BiasGeluEpilogue<T>{(const T*)b1, (T*)h, hidden}, gemm1, stream);
+  err = compacted_gemm<T>((const T*)p, idx, (const T*)ln_scale, (const T*)ln_bias, (T*)a,
+                          (const T*)w1, bsz, n, c, hidden, kcap, ln_mode,
+                          BiasGeluEpilogue<T>{(const T*)b1, (T*)h, hidden}, gemm1, stream);
   if (err != 0) return err;
   err = launch_gemm_core<T, false>((const T*)h, m, DenseRows{}, (const T*)w2, m, hidden, c,
                                    BiasEpilogue<T>{(const T*)b2, (T*)h2, c}, gemm2, stream);
   if (err != 0) return err;
-  blend_kernel<T><<<rows, kRowThreads, row_smem, stream>>>(
+  blend_kernel<T><<<rows, kRowThreads, row_smem_bytes(c), stream>>>(
       (const T*)x, (T*)b, pos, (const T*)h2, (T*)y, (const T*)p_next, (const T*)next_scale,
       (const T*)next_bias, norms, n, c, kcap);
   ETK_CHECK_LAUNCH();
@@ -400,18 +398,20 @@ int gate_group_linear(int row_body, const void* x, void* p, void* b, float* cov,
                       int n, int c, int f, int kcap, int ln_mode, GemmCall call,
                       cudaStream_t stream) {
   const int rows = bsz * n;
+  if (!warp_row_takes<T>(row_body, {c}, {x, p, ln_scale, ln_bias}))
+    return (int)cudaErrorInvalidValue;
   if (topk_norms != nullptr) {
     const int err = select_topk<T>(row_body, (const T*)x, (const T*)p, (const T*)ln_scale,
                                    (const T*)ln_bias, topk_norms, cov, bsz, n, c, kcap,
                                    ln_mode, stream);
     if (err != 0) return err;
   }
-  select_pass<T>((const T*)x, (T*)p, cov, (const T*)ln_scale, (const T*)ln_bias, rows, c, ln_mode,
-                 stream);
-  ETK_CHECK_LAUNCH();
+  int err = select_pass<T>(row_body, (const T*)x, (T*)p, cov, (const T*)ln_scale,
+                           (const T*)ln_bias, rows, c, ln_mode, stream);
+  if (err != 0) return err;
   compact_kernel<T><<<bsz, 32, 0, stream>>>(cov, nullptr, idx, (T*)b, n, kcap, f);
   ETK_CHECK_LAUNCH();
-  const int err = compacted_gemm<T>(
+  err = compacted_gemm<T>(
       (const T*)p, idx, (const T*)ln_scale, (const T*)ln_bias, (T*)a, (const T*)w, bsz, n, c, f,
       kcap, ln_mode, BiasScatterEpilogue<T>{(const T*)wb, idx, (T*)b, f}, call, stream);
   if (err != 0 || skip == nullptr) return err;
@@ -424,8 +424,9 @@ int gate_group_linear(int row_body, const void* x, void* p, void* b, float* cov,
 
 }  // namespace etk
 
-// row_body: the body of the "post" norms of a group that selects its own
-// rows (ops/row_pass.py ROW_BODY_CODES)
+// row_body: the body of the row passes of row_pass.cuh, the select and the
+// norms of a group that selects its own rows (ops/row_pass.py
+// ROW_BODY_CODES)
 extern "C" int etk_gate_group_linear(int dtype, int row_body, const void* x, void* p, void* b,
                                      void* cov, void* topk_norms, const void* ln_scale,
                                      const void* ln_bias, const void* w, const void* wb,

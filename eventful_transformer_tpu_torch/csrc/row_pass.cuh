@@ -1,7 +1,10 @@
 // The warp-per-row pass of the row kernels, written for Hopper: the body of
 // row 1 (ln_norms_kernel, also a stage of kernel B, of the groups that
-// select their own rows and of select_linear_skip_norms) and of row 9
-// (select_scatter_kernel, gate_block.cu).
+// select their own rows and of select_linear_skip_norms), of row 9
+// (select_scatter_kernel, gate_block.cu), of rows 10 and 14
+// (select_warp_kernel, through gate_block.cu's etk_block_select_p) and of
+// the select, LN and difference-norm stages of rows 2-5, 7, 12 and 13
+// (launch_select, launch_diff_norms).
 //
 // At C = 768 a token row is 1.5 KB in bfloat16, which one warp holds in
 // registers: 24 values a lane as three 16-byte vectors. So one warp owns one
@@ -14,7 +17,9 @@
 // load of a row is issued before the first reduction waits on it. The
 // statistics keep the two-pass float32 form of jnp.mean and
 // jnp.mean(square(x - mean)), and the rounding points of the block-per-row
-// body (common.cuh) stay where they are.
+// body (common.cuh) stay where they are. A select reads its row's coverage
+// first: the warp of an unselected row loads nothing else and exits, so a
+// call moves x and p' at the selected rows only.
 //
 // The count of vectors a lane holds, K, is a template constant picked from
 // kRowVecSteps by the widest row the call holds (3 at C = 768 in bfloat16,
@@ -122,6 +127,53 @@ __device__ __forceinline__ void warp_ln_stats(const uint4 (&v)[K], int nv, int l
   rstd = rsqrtf(warp_sum(q) / (float)width + kLnEps);
 }
 
+// p' = ln(x) * scale + bias (x itself where ``scale`` is null) of a warp's
+// row held in ``xv`` (nv vectors of ``width`` values), stored into ``prow``
+// with 16-byte stores, rounded to T once. The select of rows 9, 10 and 14
+// and of the select and LN stages. Where a lane holds few vectors, scale's
+// and bias's are loaded before the statistics, so that their latency
+// overlaps the reductions.
+template <typename T, int K>
+__device__ __forceinline__ void warp_store_select(const uint4 (&xv)[K], T* prow, int nv, int lane,
+                                                  int width, const T* scale, const T* bias) {
+  constexpr int E = vec_elems<T>();
+  uint4* out = reinterpret_cast<uint4*>(prow);
+  if (scale == nullptr) {
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (lane + 32 * j < nv) out[lane + 32 * j] = xv[j];
+    return;
+  }
+  const uint4* sv = reinterpret_cast<const uint4*>(scale);
+  const uint4* bv = reinterpret_cast<const uint4*>(bias);
+  constexpr bool kEarly = K <= 6;  // 2K more vectors in registers
+  uint4 s_early[kEarly ? K : 1], b_early[kEarly ? K : 1];
+  if constexpr (kEarly) {
+    load_vecs<K>(scale, nv, lane, s_early);
+    load_vecs<K>(bias, nv, lane, b_early);
+  }
+  float mean, rstd;
+  warp_ln_stats<T, K>(xv, nv, lane, width, mean, rstd);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int i = lane + 32 * j;
+    if (i < nv) {
+      float v[E], sf[E], bf[E];
+      unpack<T>(xv[j], v);
+      if constexpr (kEarly) {
+        unpack<T>(s_early[j], sf);
+        unpack<T>(b_early[j], bf);
+      } else {
+        unpack<T>(__ldg(sv + i), sf);
+        unpack<T>(__ldg(bv + i), bf);
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[e] = (v[e] - mean) * rstd * sf[e] + bf[e];
+      out[i] = pack<T>(v);
+    }
+  }
+}
+
 // ||ln(row) * scale + bias - p||_2 of a warp's row held in ``v``, p's row in
 // ``pv``; every lane gets it.
 template <typename T, int K>
@@ -166,6 +218,55 @@ ln_norms_kernel(const T* __restrict__ x, const T* __restrict__ p, const T* __res
   load_vecs<K>(x + r * c, nv, lane, xv);
   load_vecs<K>(p + r * c, nv, lane, pv);
   const float norm = warp_ln_error_norm<T, K>(xv, pv, nv, lane, c, scale, bias);
+  if (lane == 0) out[r] = norm;
+}
+
+// p[r] = ln(x[r]) * scale + bias (x[r] where scale is null) where cov[r] >
+// 0, in place, one warp a row; every row where cov is null (the LN pass
+// of rows 5 and 12 "pre" into a scratch). An unselected row's warp reads
+// its cov entry alone.
+template <typename T, int K>
+__global__ void __launch_bounds__(kRowThreads)
+select_warp_kernel(const T* __restrict__ x, T* __restrict__ p, const float* __restrict__ cov,
+                   const T* __restrict__ scale, const T* __restrict__ bias, int64_t rows, int c) {
+  const int lane = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * kWarpRows + (threadIdx.x >> 5);
+  if (r >= rows) return;  // uniform over the warp, as the cov test below
+  if (cov != nullptr && !(__ldg(cov + r) > 0.f)) return;
+  const int nv = c / vec_elems<T>();
+  uint4 xv[K];
+  load_vecs<K>(x + r * c, nv, lane, xv);
+  warp_store_select<T, K>(xv, p + r * c, nv, lane, c, scale, bias);
+}
+
+// out[r] = ||a[r] - p[r]||_2, one warp a row.
+template <typename T, int K>
+__global__ void __launch_bounds__(kRowThreads)
+diff_norms_warp_kernel(const T* __restrict__ a, const T* __restrict__ p, float* __restrict__ out,
+                       int64_t rows, int c) {
+  constexpr int E = vec_elems<T>();
+  const int lane = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * kWarpRows + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  const int nv = c / E;
+  uint4 av[K], pv[K];
+  load_vecs<K>(a + r * c, nv, lane, av);
+  load_vecs<K>(p + r * c, nv, lane, pv);
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (lane + 32 * j < nv) {
+      float fa[E], fp[E];
+      unpack<T>(av[j], fa);
+      unpack<T>(pv[j], fp);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float d = fa[e] - fp[e];
+        acc += d * d;
+      }
+    }
+  }
+  const float norm = sqrtf(warp_sum(acc));
   if (lane == 0) out[r] = norm;
 }
 
@@ -228,6 +329,54 @@ int launch_ln_norms(int body, const T* x, const T* p, const T* scale, const T* b
   return with_row_vecs<T>(c, [&](auto k) {
     ln_norms_kernel<T, decltype(k)::value><<<warp_row_blocks(rows), kRowThreads, 0, stream>>>(
         x, p, scale, bias, out, rows, c);
+    ETK_CHECK_LAUNCH();
+    return 0;
+  });
+}
+
+// Rows 10 and 14 and the select and LN stages of rows 2-5, 7 and 12:
+// p' = where(cov, ln(x) | x, p) over ``rows`` rows of width c in the body
+// ``body`` (scale null: x itself; cov null: every row, LN only).
+template <typename T>
+int launch_select(int body, const T* x, T* p, const float* cov, const T* scale, const T* bias,
+                  int64_t rows, int c, cudaStream_t stream) {
+  if (!warp_row_takes<T>(body, {c}, {x, p, scale, bias}) || (cov == nullptr && scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  if (body == kRowBlock) {
+    if (scale != nullptr) {
+      ln_select_kernel<T><<<(unsigned)rows, kRowThreads, row_smem_bytes(c), stream>>>(
+          x, p, cov, scale, bias, c);
+    } else {
+      select_rows_kernel<T><<<(unsigned)rows, kRowThreads, 0, stream>>>(x, p, cov, c);
+    }
+    ETK_CHECK_LAUNCH();
+    return 0;
+  }
+  return with_row_vecs<T>(c, [&](auto k) {
+    select_warp_kernel<T, decltype(k)::value><<<warp_row_blocks(rows), kRowThreads, 0, stream>>>(
+        x, p, cov, scale, bias, rows, c);
+    ETK_CHECK_LAUNCH();
+    return 0;
+  });
+}
+
+// The difference-norm stages of rows 2, 4, 7 and 13: out[r] = ||a[r] -
+// p[r]||_2 over ``rows`` rows of width c in the body ``body``.
+template <typename T>
+int launch_diff_norms(int body, const T* a, const T* p, float* out, int64_t rows, int c,
+                      cudaStream_t stream) {
+  if (!warp_row_takes<T>(body, {c}, {a, p})) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  if (body == kRowBlock) {
+    diff_norms_kernel<T><<<(unsigned)rows, kRowThreads, 32 * sizeof(float), stream>>>(a, p, out,
+                                                                                      c);
+    ETK_CHECK_LAUNCH();
+    return 0;
+  }
+  return with_row_vecs<T>(c, [&](auto k) {
+    diff_norms_warp_kernel<T, decltype(k)::value><<<warp_row_blocks(rows), kRowThreads, 0,
+                                                    stream>>>(a, p, out, rows, c);
     ETK_CHECK_LAUNCH();
     return 0;
   });

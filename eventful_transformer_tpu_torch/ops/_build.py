@@ -45,20 +45,20 @@ NVCC_FLAGS = (
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "etk_ln_norms": [_I, _I, _P, _P, _P, _P, _P, _L, _I, _P],
-    "etk_qkv_attention_group": [_I, _I] + [_P] * 11 + [_I, _I, _I, _I, _F, _I, _I, _P, _P],
+    "etk_qkv_attention_group": [_I, _I, _I] + [_P] * 11 + [_I, _I, _I, _I, _F, _I, _I, _P, _P],
     "etk_proj_group": [_I, _I] + [_P] * 11 + [_I] * 5 + [_P, _P],
     "etk_gate_group_mlp": [_I, _I] + [_P] * 21 + [_I] * 9 + [_P, _P],
     "etk_attention_smem_bytes": [_I] * 6,
     "etk_window_attention": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P] + [_I] * 6
     + [_P],
     "etk_gate_group_linear": [_I, _I] + [_P] * 17 + [_I] * 8 + [_P, _P],
-    "etk_block_select_p": [_I] + [_P] * 5 + [_I, _L, _I, _P],
+    "etk_block_select_p": [_I, _I] + [_P] * 5 + [_L, _I, _P],
     "etk_block_scatter_rows": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "etk_block_select_scatter": [_I, _I] + [_P] * 9 + [_I] + [_P] * 5 + [_I] * 5 + [_P],
     "etk_softmax_select_matmul": [_I, _I, _I] + [_P] * 7 + [_I] * 7 + [_F, _P],
-    "etk_dense_mlp_residual": [_I] + [_P] * 10 + [_I] * 6 + [_P, _P],
+    "etk_dense_mlp_residual": [_I, _I] + [_P] * 10 + [_I] * 6 + [_P, _P],
     "etk_relpos_bias_add": [_I, _I, _I] + [_P] * 5 + [_I] * 8 + [_P],
-    "etk_ln_select_matmul": [_I] + [_P] * 9 + [_L] + [_I] * 5 + [_P, _P],
+    "etk_ln_select_matmul": [_I, _I] + [_P] * 9 + [_L] + [_I] * 5 + [_P, _P],
     "etk_select_linear_skip_norms": [_I, _I] + [_P] * 11 + [_L] + [_I] * 5 + [_P, _P],
     "etk_softmax_select_matmul_logits": [_I, _I, _I] + [_P] * 6 + [_I] * 7 + [_P],
     "etk_scatter_blend": [_I, _I, _P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
@@ -176,10 +176,15 @@ def stream_of(t):
     int for ctypes; raises unless that device is the current one. ``t``
     lies on the card, so CUDA is initialised and the current device is
     read without ``torch.cuda``'s initialisation check."""
-    index = t.get_device()
+    return stream_on(t.get_device())
+
+
+def stream_on(index):
+    """:func:`stream_of` for a tensor on device ``index``, read by the
+    caller."""
     current = torch._C._cuda_getDevice()
     if index != current:
-        raise ValueError(f"tensor on {t.device} but the current device is cuda:{current}")
+        raise ValueError(f"tensor on cuda:{index} but the current device is cuda:{current}")
     return torch._C._cuda_getCurrentRawStream(index)
 
 

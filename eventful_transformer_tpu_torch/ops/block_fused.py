@@ -14,7 +14,9 @@ rounding to the working dtype of the TPU kernels is kept: bf16 results
 depend on them. The CUDA kernels are ``csrc/block_fused.cu``; see its
 header for the launch structure and what bounds it. Each kernel's GEMM
 takes the core ``ops/gemm_core.py::gemm_core`` picks (bfloat16 at the
-paths' widths: the wgmma core), counted in ``core_launches``.
+paths' widths: the wgmma core), counted in ``core_launches``; its row passes
+(the select, the difference or LN norms) the body ``ops/row_pass.py::
+row_body`` picks, counted in ``row_body_launches``.
 """
 
 from __future__ import annotations
@@ -61,7 +63,9 @@ def qkv_attention_group(
     """Kernel A; the wrapper of :func:`qkv_attention_group_plain`, which CPU
     tensors take. CUDA tensors launch the kernels of csrc/block_fused.cu;
     the attention stage's body (``window_attention.attention_body``) is
-    counted in ``body_launches``, the GEMM's core in ``core_launches``."""
+    counted in ``body_launches``, the GEMM's core in ``core_launches``, the
+    body of the select and norms passes (``row_pass.row_body``) in
+    ``row_body_launches``."""
     if x.device.type == "cpu":
         return qkv_attention_group_plain(
             x, p_qkv, cov, p_proj, ln1_scale, ln1_bias, w_qkv, b_qkv,
@@ -86,11 +90,14 @@ def qkv_attention_group(
     core, plan = gemm_core.gemm_launch(x.dtype, bsz * n, c, 3 * c,
                                        _build.aligned16(p_qkv, w_qkv))
     ws = gemm_core.workspace([plan], x.device)
+    row_body = row_pass.row_body(x.dtype, (c,),
+                                 _build.aligned16(x, p_qkv, ln1_scale, ln1_bias, p_proj))
     qkv = torch.empty((bsz, n, 3 * c), dtype=x.dtype, device=x.device)
     attn = torch.empty_like(x)
     norms = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
     _build.launch(
-        "etk_qkv_attention_group", _build.dtype_code(x), BODY_CODES[body], x.data_ptr(),
+        "etk_qkv_attention_group", _build.dtype_code(x), BODY_CODES[body],
+        row_pass.ROW_BODY_CODES[row_body], x.data_ptr(),
         p_qkv.data_ptr(), cov.data_ptr(), p_proj.data_ptr(), ln1_scale.data_ptr(),
         ln1_bias.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), qkv.data_ptr(),
         attn.data_ptr(), norms.data_ptr(), bsz, n, c, heads, float(inv_scale),
@@ -99,12 +106,14 @@ def qkv_attention_group(
     qkv_attention_group.launches += 1
     qkv_attention_group.body_launches[body] += 1
     qkv_attention_group.core_launches[core] += 1
+    qkv_attention_group.row_body_launches[row_body] += 1
     return p_qkv, attn, norms
 
 
 qkv_attention_group.launches = 0
 qkv_attention_group.body_launches = {"tc": 0, "simt": 0}
 qkv_attention_group.core_launches = gemm_core.new_core_counts()
+qkv_attention_group.row_body_launches = row_pass.new_body_counts()
 
 
 def proj_group_plain(attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, ln2_bias):
@@ -123,8 +132,8 @@ def proj_group_plain(attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, 
 def proj_group(attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, ln2_bias):
     """Kernel B; the wrapper of :func:`proj_group_plain`, which CPU tensors
     take. CUDA tensors launch the kernels of csrc/block_fused.cu; the
-    GEMM's core is counted in ``core_launches``, the body of the MLP gate's
-    norms (``row_pass.row_body``) in ``row_body_launches``."""
+    GEMM's core is counted in ``core_launches``, the body of the select and
+    the MLP gate's norms (``row_pass.row_body``) in ``row_body_launches``."""
     if attn.device.type == "cpu":
         return proj_group_plain(
             attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, ln2_bias
@@ -147,7 +156,8 @@ def proj_group(attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, ln2_bi
     ws = gemm_core.workspace([plan], attn.device)
     y1 = torch.empty_like(attn)
     norms = torch.empty((bsz, n), dtype=torch.float32, device=attn.device)
-    body = row_pass.row_body(attn.dtype, (c,), _build.aligned16(p_mlp, ln2_scale, ln2_bias))
+    body = row_pass.row_body(attn.dtype, (c,),
+                             _build.aligned16(attn, p_proj, p_mlp, ln2_scale, ln2_bias))
     _build.launch(
         "etk_proj_group", _build.dtype_code(attn), row_pass.ROW_BODY_CODES[body], attn.data_ptr(),
         p_proj.data_ptr(), cov.data_ptr(), skip.data_ptr(), p_mlp.data_ptr(),

@@ -18,12 +18,15 @@ skip any other value outside the rows, such as the JAX package's N), and
 valid indices must be distinct, as a top-k selection makes them. The CUDA
 kernels are ``csrc/gate_block.cu``; see its header for what bounds them.
 ``block_select_p`` and ``block_select_scatter`` count their launches in
-``launches`` and, by whether the gate takes ln(x) or x (``apply_ln``), in
-``form_launches``; ``block_select_scatter`` also by the row body
-``ops/row_pass.py::row_body`` picks, in ``row_body_launches``.
+``launches``, by whether the gate takes ln(x) or x (``apply_ln``) in
+``form_launches``, and by the row body ``ops/row_pass.py::row_body`` picks
+in ``row_body_launches``. ``block_select_p``'s launch path,
+:func:`select_args`, is also that of ``gate_fused.ln_select`` (row 14).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -148,33 +151,80 @@ def block_select_p_plain(x, p, cov, scale, bias, *, apply_ln):
 
 def block_select_p(x, p, cov, scale, bias, *, apply_ln):
     """The wrapper of :func:`block_select_p_plain`, which CPU tensors take.
-    CUDA tensors launch the kernel of csrc/gate_block.cu."""
-    if x.device.type == "cpu":
+    CUDA tensors launch the select of csrc/gate_block.cu in the body
+    ``row_pass.row_body`` picks (:func:`select_args`)."""
+    if x.is_cpu:
         return block_select_p_plain(x, p, cov, scale, bias, apply_ln=apply_ln)
-    name = "block_select_p"
-    c = x.shape[-1]
-    operands = dict(p=p, cov=cov)
-    if apply_ln:
-        operands.update(scale=scale, bias=bias)
-    _build.check_operands(name, x, ("cov",), **operands)
-    _build.check_shape(name, "p", p, x.shape)
-    _build.check_shape(name, "cov", cov, x.shape[:-1])
-    if apply_ln:
-        _build.check_shape(name, "scale", scale, (c,))
-        _build.check_shape(name, "bias", bias, (c,))
-    _build.launch(
-        "etk_block_select_p", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
-        cov.data_ptr(), scale.data_ptr() if apply_ln else None,
-        bias.data_ptr() if apply_ln else None, int(apply_ln), x.numel() // c, c,
-        _build.stream_of(x),
-    )
+    body, args = select_args("block_select_p", x, p, cov, scale, bias, apply_ln)
+    _build.launch("etk_block_select_p", *args)
     block_select_p.launches += 1
     block_select_p.form_launches["ln" if apply_ln else "no_ln"] += 1
+    block_select_p.row_body_launches[body] += 1
     return p
 
 
 block_select_p.launches = 0
 block_select_p.form_launches = dict.fromkeys(("ln", "no_ln"), 0)
+block_select_p.row_body_launches = row_pass.new_body_counts()
+
+
+@functools.cache
+def _select_body(dtype, c, aligned):
+    """``row_pass.row_body`` of a select over rows of ``c`` values, kept
+    by its arguments: it costs more host time than the lookup."""
+    return row_pass.row_body(dtype, (c,), aligned)
+
+
+def _operand(name, key, t, index, dtype, shape):
+    """``t``'s data pointer, after the checks of ``_build.check_operands``
+    and ``_build.check_shape``: on cuda:``index``, of ``dtype``,
+    contiguous, of ``shape``."""
+    if t.get_device() != index:
+        raise ValueError(f"{name}: {key} on {t.device}, expected cuda:{index}")
+    if t.dtype is not dtype:
+        raise TypeError(f"{name}: {key} is {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {key} must be contiguous")
+    if t.shape != shape:
+        raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    return t.data_ptr()
+
+
+def select_args(name, x, p, cov, scale, bias, apply_ln):
+    """(body, arguments) of the C entry ``etk_block_select_p`` for p' =
+    where(cov, ln(x) | x, p) in place on CUDA tensors, rows 10 and 14: the
+    body ``row_pass.row_body`` picks. The operands are checked as
+    ``_build.check_operands`` and ``_build.check_shape`` check them (x a
+    contiguous CUDA tensor of a kernel dtype, C <= MAX_ROW_WIDTH; p of x's
+    shape and cov (B, N) float32 and, with ``apply_ln``, scale and bias
+    (C,), each on x's device, contiguous, in x's dtype but cov), reading
+    each tensor's attributes once and building no dict per call: a call's
+    host time is most of its time. scale and bias go across only with
+    ``apply_ln`` (null: the kernel copies x)."""
+    index = x.get_device()  # -1 off the card
+    if index < 0:
+        raise ValueError(f"{name}: expected CUDA or CPU tensors, got {x.device}")
+    dtype, shape = x.dtype, x.shape
+    code = _build.DTYPE_CODES.get(dtype)
+    if code is None:
+        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+    c = shape[-1]
+    if c > _build.MAX_ROW_WIDTH:
+        raise ValueError(f"{name}: C={c} exceeds {_build.MAX_ROW_WIDTH}")
+    xp = x.data_ptr()
+    pp = _operand(name, "p", p, index, dtype, shape)
+    cp = _operand(name, "cov", cov, index, torch.float32, shape[:-1])
+    sp = bp = None
+    aligned = xp % 16 == 0 and pp % 16 == 0
+    if apply_ln:
+        sp = _operand(name, "scale", scale, index, dtype, (c,))
+        bp = _operand(name, "bias", bias, index, dtype, (c,))
+        aligned = aligned and sp % 16 == 0 and bp % 16 == 0
+    body = _select_body(dtype, c, aligned)
+    return body, (code, row_pass.ROW_BODY_CODES[body], xp, pp, cp, sp, bp, x.numel() // c, c,
+                  _build.stream_on(index))
 
 
 def block_scatter_rows_plain(b, index, h):

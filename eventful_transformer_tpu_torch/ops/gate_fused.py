@@ -21,19 +21,23 @@ kernel C. The other three run in the forced gate-fusion regimes "v1",
 Each wrapper takes its plain version for CPU tensors and launches its CUDA
 kernels for CUDA tensors: ``csrc/ln_norms.cu``, ``csrc/gate_fused.cu``, and
 for ``ln_select`` the select row pass of ``csrc/gate_block.cu``, which
-computes the same function as ``block_select_p``. See the sources' headers
-for what bounds them. Each counts its launches in ``launches`` and, by
-form, in ``form_launches``. The GEMM of ``ln_select_matmul`` and
+computes the same function as ``block_select_p`` and shares its launch path
+(``gate_block.select_args``). See the sources' headers for what bounds
+them. Each counts its launches in ``launches`` and, by form, in
+``form_launches``. The GEMM of ``ln_select_matmul`` and
 ``select_linear_skip_norms`` takes the core ``ops/gemm_core.py::gemm_core``
 picks (bfloat16 at the paths' widths: the wgmma core), counted in
-``core_launches``.
+``core_launches``. Each counts the body its row passes take
+(``ops/row_pass.py::row_body``: the select, the LN and the norms passes of
+``csrc/row_pass.cuh``, "warp", or the block-per-row body) in
+``row_body_launches``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from eventful_transformer_tpu_torch.ops import _build, gemm_core, row_pass
+from eventful_transformer_tpu_torch.ops import _build, gate_block, gemm_core, row_pass
 from eventful_transformer_tpu_torch.ops.common import LN_MODES, ln_f32, row_norms
 
 
@@ -112,7 +116,9 @@ def ln_select_matmul(x, p, cov, scale, bias, w, wb, *, ln_mode):
     TPU kernel feeds it, p' cast to W's dtype; and for "pre", where x and p
     share one dtype, the float32 p' that the TPU kernel normalises is the
     stored p', which the kernel's LN pass reads back into a scratch that
-    the GEMM reads. The GEMM's core is counted in ``core_launches``."""
+    the GEMM reads. The GEMM's core is counted in ``core_launches``, the
+    body of the select and LN passes (``row_pass.row_body``) in
+    ``row_body_launches``."""
     if x.device.type == "cpu":
         return ln_select_matmul_plain(x, p, cov, scale, bias, w, wb, ln_mode=ln_mode)
     name = "ln_select_matmul"
@@ -136,8 +142,10 @@ def ln_select_matmul(x, p, cov, scale, bias, w, wb, *, ln_mode):
     core, plan = gemm_core.gemm_launch(x.dtype, rows, c, f,
                                        _build.aligned16(p if a is None else a, w))
     ws = gemm_core.workspace([plan], x.device)
+    body = row_pass.row_body(x.dtype, (c,), _build.aligned16(x, p, scale, bias))
     _build.launch(
-        "etk_ln_select_matmul", _build.dtype_code(x), x.data_ptr(), p.data_ptr(),
+        "etk_ln_select_matmul", _build.dtype_code(x), row_pass.ROW_BODY_CODES[body],
+        x.data_ptr(), p.data_ptr(),
         cov.data_ptr(), scale.data_ptr() if ln else None, bias.data_ptr() if ln else None,
         w.data_ptr(), wb.data_ptr(), y.data_ptr(), None if a is None else a.data_ptr(),
         rows, c, f, LN_MODES[ln_mode], gemm_core.CORE_CODES[core],
@@ -146,12 +154,14 @@ def ln_select_matmul(x, p, cov, scale, bias, w, wb, *, ln_mode):
     ln_select_matmul.launches += 1
     ln_select_matmul.form_launches[ln_mode] += 1
     ln_select_matmul.core_launches[core] += 1
+    ln_select_matmul.row_body_launches[body] += 1
     return p, y
 
 
 ln_select_matmul.launches = 0
 ln_select_matmul.form_launches = dict.fromkeys(LN_MODES, 0)
 ln_select_matmul.core_launches = gemm_core.new_core_counts()
+ln_select_matmul.row_body_launches = row_pass.new_body_counts()
 
 
 def select_linear_skip_norms_plain(
@@ -175,7 +185,7 @@ def select_linear_skip_norms(x, p, cov, w, wb, skip, p_next, scale, bias, *, nex
     """The wrapper of :func:`select_linear_skip_norms_plain`, which CPU
     tensors take. CUDA tensors launch the kernels of csrc/gate_fused.cu;
     every operand but cov in x's dtype, cov float32. The GEMM's core is
-    counted in ``core_launches``; with ``next_ln`` the norms stage's body
+    counted in ``core_launches``, the body of the select and norms passes
     (``row_pass.row_body``) in ``row_body_launches``."""
     if x.device.type == "cpu":
         return select_linear_skip_norms_plain(
@@ -199,9 +209,7 @@ def select_linear_skip_norms(x, p, cov, w, wb, skip, p_next, scale, bias, *, nex
     ws = gemm_core.workspace([plan], x.device)
     y = torch.empty(x.shape[:-1] + (f,), dtype=x.dtype, device=x.device)
     norms = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
-    body = "block"
-    if next_ln:
-        body = row_pass.row_body(x.dtype, (f,), _build.aligned16(p_next, scale, bias))
+    body = row_pass.row_body(x.dtype, (c, f), _build.aligned16(x, p, p_next, scale, bias))
     _build.launch(
         "etk_select_linear_skip_norms", _build.dtype_code(x), row_pass.ROW_BODY_CODES[body],
         x.data_ptr(), p.data_ptr(),
@@ -213,8 +221,7 @@ def select_linear_skip_norms(x, p, cov, w, wb, skip, p_next, scale, bias, *, nex
     select_linear_skip_norms.launches += 1
     select_linear_skip_norms.form_launches["next_ln" if next_ln else "no_ln"] += 1
     select_linear_skip_norms.core_launches[core] += 1
-    if next_ln:
-        select_linear_skip_norms.row_body_launches[body] += 1
+    select_linear_skip_norms.row_body_launches[body] += 1
     return p, y, norms
 
 
@@ -234,27 +241,18 @@ def ln_select_plain(x, p, cov, scale, bias, *, apply_ln=True):
 
 def ln_select(x, p, cov, scale, bias, *, apply_ln=True):
     """The wrapper of :func:`ln_select_plain`, which CPU tensors take. CUDA
-    tensors launch the select row pass of csrc/gate_block.cu."""
-    if x.device.type == "cpu":
+    tensors launch the select row pass of csrc/gate_block.cu in the body
+    ``row_pass.row_body`` picks (``gate_block.select_args``)."""
+    if x.is_cpu:
         return ln_select_plain(x, p, cov, scale, bias, apply_ln=apply_ln)
-    name = "ln_select"
-    c = x.shape[-1]
-    operands, vectors = dict(p=p, cov=cov), {}
-    if apply_ln:
-        operands.update(scale=scale, bias=bias)
-        vectors.update(scale=(scale, c), bias=(bias, c))
-    _build.check_operands(name, x, ("cov",), **operands)
-    _build.check_shape(name, "p", p, x.shape)
-    _check_rows(name, x, cov, **vectors)
-    _build.launch(
-        "etk_block_select_p", _build.dtype_code(x), x.data_ptr(), p.data_ptr(), cov.data_ptr(),
-        scale.data_ptr() if apply_ln else None, bias.data_ptr() if apply_ln else None,
-        int(apply_ln), x.numel() // c, c, _build.stream_of(x),
-    )
+    body, args = gate_block.select_args("ln_select", x, p, cov, scale, bias, apply_ln)
+    _build.launch("etk_block_select_p", *args)
     ln_select.launches += 1
     ln_select.form_launches["ln" if apply_ln else "no_ln"] += 1
+    ln_select.row_body_launches[body] += 1
     return p
 
 
 ln_select.launches = 0
 ln_select.form_launches = dict.fromkeys(("ln", "no_ln"), 0)
+ln_select.row_body_launches = row_pass.new_body_counts()

@@ -23,9 +23,10 @@ Each wrapper counts its launches in ``launches`` and, by form, in
 selects its own rows. The GEMMs of both take the core
 ``ops/gemm_core.py::gemm_core`` picks (bfloat16 at the paths' widths: the
 wgmma core), counted in ``core_launches``; ``gate_group_linear``'s GEMM
-writes the token buffer at the selected rows itself. A "post" group that
-selects its own rows takes its norms in ``ln_norms``' row pass, whose body
-(``ops/row_pass.py::row_body``) is counted in ``row_body_launches``. Where
+writes the token buffer at the selected rows itself. The select row pass,
+and the norms pass of a group that selects its own rows (``ln_norms``' for
+"post", the difference norm otherwise), take the body
+``ops/row_pass.py::row_body`` picks, counted in ``row_body_launches``. Where
 ``record_selection`` is a callable, each coverage a ``cov=None`` form
 selects is handed to it.
 
@@ -194,10 +195,10 @@ def gate_group_linear(
     core, plan = gemm_core.gemm_launch(x.dtype, bsz * kcap, c, f,
                                        _build.aligned16(p if rows is None else rows, w))
     ws = gemm_core.workspace([plan], x.device)
-    body = _topk_body(x, p, scale, bias, ln_mode, topk_norms)
+    body = _row_body(x, p, scale, bias)
     _build.launch(
-        "etk_gate_group_linear", _build.dtype_code(x),
-        row_pass.ROW_BODY_CODES[body or "block"], x.data_ptr(), p.data_ptr(),
+        "etk_gate_group_linear", _build.dtype_code(x), row_pass.ROW_BODY_CODES[body],
+        x.data_ptr(), p.data_ptr(),
         b.data_ptr(), cov.data_ptr(), _ptr(topk_norms), _ptr(scale) if ln else None,
         _ptr(bias) if ln else None, w.data_ptr(), wb.data_ptr(), _ptr(skip),
         _ptr(p_next), _ptr(next_scale), _ptr(next_bias), _ptr(y), _ptr(norms),
@@ -207,8 +208,7 @@ def gate_group_linear(
     gate_group_linear.launches += 1
     gate_group_linear.form_launches[form] += 1
     gate_group_linear.core_launches[core] += 1
-    if body is not None:
-        gate_group_linear.row_body_launches[body] += 1
+    gate_group_linear.row_body_launches[body] += 1
     if topk_norms is not None:
         _record(cov)
     return p, b, y, norms
@@ -231,12 +231,9 @@ def _coverage_scratch(x, cov):
             torch.empty(shape, dtype=torch.float32, device=x.device))
 
 
-def _topk_body(x, p, scale, bias, ln_mode, topk_norms):
-    """The row body (``row_pass.row_body``) of the ln_norms stage of a group
-    that selects its own rows in its "post" form, None where the call has
-    no such stage ("block", its code, is then passed and unused)."""
-    if topk_norms is None or ln_mode != "post":
-        return None
+def _row_body(x, p, scale, bias):
+    """The row body (``row_pass.row_body``) of a group's select pass and
+    norms pass."""
     return row_pass.row_body(x.dtype, (x.shape[-1],), _build.aligned16(x, p, scale, bias))
 
 
@@ -316,10 +313,10 @@ def gate_group_mlp(
     core, *plans = gemm_core.mlp_launch(x.dtype, bsz * kcap, c, hidden,
                                         _build.aligned16(p, w1, w2))
     ws = gemm_core.workspace(plans, x.device)
-    body = _topk_body(x, p, scale, bias, ln_mode, topk_norms)
+    body = _row_body(x, p, scale, bias)
     _build.launch(
-        "etk_gate_group_mlp", _build.dtype_code(x),
-        row_pass.ROW_BODY_CODES[body or "block"], x.data_ptr(), p.data_ptr(),
+        "etk_gate_group_mlp", _build.dtype_code(x), row_pass.ROW_BODY_CODES[body],
+        x.data_ptr(), p.data_ptr(),
         b.data_ptr(), cov.data_ptr(), _ptr(topk_norms), scale.data_ptr(), bias.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), _ptr(p_next),
         _ptr(next_scale), _ptr(next_bias), y.data_ptr(), _ptr(norms), pos.data_ptr(),
@@ -330,8 +327,7 @@ def gate_group_mlp(
     gate_group_mlp.launches += 1
     gate_group_mlp.form_launches[form] += 1
     gate_group_mlp.core_launches[core] += 1
-    if body is not None:
-        gate_group_mlp.row_body_launches[body] += 1
+    gate_group_mlp.row_body_launches[body] += 1
     if topk_norms is not None:
         _record(cov)
     return p, b, y, norms

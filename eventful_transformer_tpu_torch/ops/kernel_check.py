@@ -369,8 +369,8 @@ def check_bodies(counts, dtype, where):
 
 def row_body_launches():
     """{wrapper name: {"warp": n, "block": n}} of the wrappers that launch
-    ``ln_norms``' or ``block_select_scatter``'s row pass (rows 1 and 9, and
-    the norms stages of rows 3, 4, 7 and 13), by the body
+    a row pass of ``csrc/row_pass.cuh`` (rows 1, 9, 10 and 14, and the
+    select, LN and norms stages of rows 2-5, 7, 12 and 13), by the body
     ``row_pass.row_body`` gave each launch."""
     return {entry[0].__name__: dict(entry[0].row_body_launches) for entry in KERNELS.values()
             if hasattr(entry[0], "row_body_launches")}
@@ -998,10 +998,11 @@ def io_bytes(name, d):
     if name in ("gate_group_linear_post", "gate_group_linear_pre"):
         return (read("x", "cov1", "ln1_s", "ln1_b", "w_qkv", "b_qkv")
                 + rows("p_qkv", "cov1") + rows("buf_qkv", "cov1"))
+    # rows 10 and 14: x is read, and p' written, at the selected rows only
     if name == "block_select_p":
-        return read("x", "cov1", "ln1_s", "ln1_b") + rows("p_qkv", "cov1")
+        return read("cov1", "ln1_s", "ln1_b") + rows("x", "cov1") + rows("p_qkv", "cov1")
     if name == "block_select_p_noln":
-        return read("x", "cov1") + rows("p_qkv", "cov1")
+        return read("cov1") + rows("x", "cov1") + rows("p_qkv", "cov1")
     # the index kernels: cov_sel marks the rows the valid slots of w_index name
     if name == "block_scatter_rows":
         return read("w_index", "h_rows") + rows("buf_qkv", "cov_sel")
@@ -1044,9 +1045,9 @@ def io_bytes(name, d):
         return (read("attn", "p_proj", "cov2", "w_proj", "b_proj", "x", "p_mlp")
                 + rows("p_proj", "cov2") + tokens + norms)
     if name == "ln_select":
-        return read("x", "cov3", "ln2_s", "ln2_b") + rows("p_mlp", "cov3")
+        return read("cov3", "ln2_s", "ln2_b") + rows("x", "cov3") + rows("p_mlp", "cov3")
     if name == "ln_select_noln":
-        return read("x", "cov3") + rows("p_mlp", "cov3")
+        return read("cov3") + rows("x", "cov3") + rows("p_mlp", "cov3")
     if name.startswith("relpos_bias_add"):
         return read("rp_x", "rp_q", "rp_y", "rp_xr") + _nbytes(d["rp_x"])
     # the groups that select their own rows read the whole gate state
@@ -1314,10 +1315,12 @@ ROW_COPY_KERNELS = {
     "scatter_rows_inplace": "scatter_rows_kernel",
     "gather_rows": "gather_rows_kernel",
 }
-# The same for rows 1 and 9 in the warp-per-row body (csrc/row_pass.cuh)
+# The same for rows 1, 9, 10 and 14 in the warp-per-row body (csrc/row_pass.cuh)
 ROW_PASS_KERNELS = {
     "ln_norms": "ln_norms_kernel",
     "block_select_scatter": "select_scatter_kernel",
+    "block_select_p": "select_warp_kernel",
+    "ln_select": "select_warp_kernel",
 }
 
 
@@ -1384,7 +1387,7 @@ def allocations(fn, calls=20):
 
 
 def row_copy_profile(name, d, bound_ms):
-    """Entry ``name`` of rows 18-20, or of rows 1 and 9, on ``d`` profiled:
+    """Entry ``name`` of rows 18-20, or of rows 1, 9, 10 and 14, on ``d`` profiled:
     its device microseconds a call (:func:`device_us`; where the profiler
     caught no device event, :func:`queued_device_us`, as ``device_us_by``
     says), the share of the card's bound ``bound_ms`` they reach, the

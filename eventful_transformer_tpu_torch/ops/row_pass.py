@@ -1,18 +1,22 @@
-"""The rule that picks the body of the row passes of rows 1 and 9.
+"""The rule that picks the body of the row passes.
 
-``ln_norms`` (row 1, also the norms stage of kernel B, of the groups that
-select their own rows in their "post" form and of
-``select_linear_skip_norms`` with ``next_ln``) and ``block_select_scatter``
-(row 9) run in one of two bodies: "warp", the warp-per-row pass of
+The row passes run in one of two bodies: "warp", the warp-per-row pass of
 ``csrc/row_pass.cuh`` (one warp a token row, the row in registers by
 16-byte loads, reductions by warp shuffles), or "block", the block-per-row
 pass of ``csrc/common.cuh`` (one 256-thread block a row, the row in shared
-memory). :func:`row_body` picks by the call's shapes, as
+memory). They are ``ln_norms`` (row 1, also the norms stage of kernel B, of
+the groups that select their own rows in their "post" form and of
+``select_linear_skip_norms`` with ``next_ln``), ``block_select_scatter``
+(row 9), the select of ``block_select_p`` and ``ln_select`` (rows 10 and
+14), and the select, LN and difference-norm stages of kernels A and B,
+``dense_mlp_residual``, ``gate_group_mlp``, ``gate_group_linear``,
+``ln_select_matmul`` and ``select_linear_skip_norms`` (rows 2-5, 7, 12
+and 13). :func:`row_body` picks by the call's shapes, as
 ``window_attention.attention_body`` does for attention: every shape of the
 model paths (C = 768, F = 768 or 2304, float32 and bfloat16) takes "warp".
 The wrappers count their launches by body in ``row_body_launches``
-(:func:`new_body_counts`), and the C entries refuse a "warp" call that
-breaks the rule.
+(:func:`new_body_counts`), one a call for all the row passes it makes, and
+the C entries refuse a "warp" call that breaks the rule.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Profile the eventful ViViT-B K400 models of ``chip_smoke.py`` on one NVIDIA GPU.
 
     python3 scripts/misc/profile_vivit_evblock.py [--runs flagship_dense flagship dense auto v3]
-        [--out-dir DIR]
+        [--out-dir DIR] [--root ROOT]
 
 Two configurations, each beside its dense twin (weights from the seed,
 bfloat16):
@@ -17,9 +17,14 @@ Each run goes once through its model to warm up, three times under CUDA
 events (ms per clip, no profiler), then once under ``torch.profiler``: the
 device's busy share (the kernels' device time over the call's wall time),
 the device ms per clip, the device kernels launched per clip and the top
-kernels by device time. Prints one JSON line per run
+kernels by device time, and the device ms a forward (one run) of each
+row-pass kernel (ROW_PASS_KERNELS: the select, LN and norms passes of
+``csrc/row_pass.cuh`` and ``common.cuh``). Prints one JSON line per run
 and writes the profiler's tables to ``<out-dir>/profile_vivit_<run>.txt``
-(``results/profile`` by default). Needs a CUDA device.
+(``results/profile`` by default). ``--root ROOT`` imports ``chip_smoke``
+and the package from ROOT (this checkout by default), so that a parent
+commit unpacked into a directory of its own is profiled by this script.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,12 +39,28 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parents[2]
-sys.path.insert(0, str(REPO))
+ROOT = Path(sys.argv[sys.argv.index("--root") + 1] if "--root" in sys.argv else REPO).resolve()
+sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from profile_vitdet_e2e import device_us  # noqa: E402
 
 FLAGSHIP_RUNS = ("flagship_dense", "flagship")
+# the row-pass kernels, warp-per-row and block-per-row, by their short names
+ROW_PASS_KERNELS = ("select_warp_kernel", "diff_norms_warp_kernel", "ln_norms_kernel",
+                    "ln_select_kernel", "select_rows_kernel", "diff_norms_kernel",
+                    "ln_norms_block_kernel", "ln_rows_kernel")
+
+
+def device_us(event):
+    """An event's own device microseconds (as ``profile_vitdet_e2e.py``
+    reads them), under either attribute name of the PyTorch versions."""
+    own = getattr(event, "self_device_time_total", None)
+    return own or getattr(event, "self_cuda_time_total", 0)
+
+
+def short_name(key):
+    """A kernel's profiler key cut to its function's own name."""
+    return key.split("(")[0].split("<")[0].split("::")[-1].strip().split(" ")[-1]
 
 
 def profile_run(run, clips, name, out_dir):
@@ -61,8 +82,15 @@ def profile_run(run, clips, name, out_dir):
     top = sorted(on_device, key=device_us, reverse=True)[:12]
     kernels = [dict(name=e.key[:90], device_ms=device_us(e) / 1e3, calls=e.count) for e in top]
     launched = sum(e.count for e in on_device)
+    rows = {}
+    for e in on_device:
+        name = short_name(e.key)
+        if name in ROW_PASS_KERNELS:
+            ms, calls = rows.get(name, (0.0, 0))
+            rows[name] = (ms + device_us(e) / 1e3, calls + e.count)
+    row_pass = {name: dict(device_ms=ms, calls=calls) for name, (ms, calls) in rows.items()}
     return (device_total / (wall * 1e3), device_total / clips, launched / clips,
-            wall * 1e3 / clips, kernels)
+            wall * 1e3 / clips, kernels, row_pass)
 
 
 def ms_per_clip(run, clips, iters=3):
@@ -126,6 +154,7 @@ def main():
                                                       "auto", "v3"],
                         choices=[*FLAGSHIP_RUNS, "dense", *cs.EV_RUNS])
     parser.add_argument("--out-dir", type=Path, default=REPO / "results" / "profile")
+    parser.add_argument("--root", type=Path, default=REPO)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_vivit_evblock: needs a CUDA device")
@@ -136,10 +165,13 @@ def main():
     for name, run, clips in runs(args.runs, device):
         run()  # warm-up
         ms = ms_per_clip(run, clips)
-        busy, device_ms, launched, wall_ms, kernels = profile_run(run, clips, name, args.out_dir)
+        busy, device_ms, launched, wall_ms, kernels, row_pass = profile_run(
+            run, clips, name, args.out_dir)
         print(json.dumps(dict(
-            run=name, card=smi, ms_per_clip=ms, wall_ms_per_clip=wall_ms, device_busy_share=busy,
-            device_ms_per_clip=device_ms, device_kernels_per_clip=launched, top_kernels=kernels,
+            run=name, root=str(ROOT), card=smi, ms_per_clip=ms, wall_ms_per_clip=wall_ms,
+            device_busy_share=busy, device_ms_per_clip=device_ms,
+            device_kernels_per_clip=launched, top_kernels=kernels,
+            row_pass_kernels_per_forward=row_pass,
         )), flush=True)
 
 

@@ -74,9 +74,13 @@ L2 also reads ``device_us_l2_flushed``, the device microseconds with the
 L2 emptied before each call), and the row kernels whose host time
 is most of a call (rows 19
 ``scatter_rows_inplace``, 20 ``gather_rows``, 18 ``scatter_blend`` at
-stgt_672's C, 3C and 4C (masked) buffers and at ViViT's 8 x 197, 14
-``ln_select`` and 10 ``block_select_p`` without the LN, 11
-``block_scatter_rows``). ``--case=TAG`` (repeatable) times only the
+stgt_672's C, 3C and 4C (masked) buffers and at ViViT's 8 x 197, 11
+``block_scatter_rows``), and the selects of rows 10 (``block_select_p``
+with the LN at 672, 1024 and the e2e path's one stream, without it at 672
+and 1024) and 14 (``ln_select`` with the LN at the paper's ViViT's 12 x
+197, without it at ViViT's 8 x 197), each also with ``device_us_cov0``,
+the device microseconds of the same call with no row selected (its grid
+alone). ``--case=TAG`` (repeatable) times only the
 cases of those tags (``vivit``, ``temporal``, ``672``, ``e2e``,
 ``vivit_evblock``, ``vivit_blend``, ``vivit_pre_ln``, ``1024``), and
 ``--entry=NAME`` (repeatable) only those entries of them.
@@ -84,12 +88,15 @@ cases of those tags (``vivit``, ``temporal``, ``672``, ``e2e``,
 entry under every tile the tiled body takes whose logits are within 1 MB
 (the plan forced one tile at a time, device microseconds from CUDA events
 behind a sleep, each call checked against the plain version), the data
-behind ``ops/relpos.py``'s plan constants. ``--breakdown`` (the
-checkout's own version only) adds where the host time of one
-``scatter_rows_inplace`` call at C = 768 and of one ``gather_rows`` call
-at 3C goes: the operand checks, the stream read, the plan, the
-allocation, the C call, and the old stream read through
-``torch.cuda.current_stream`` for comparison. Needs a CUDA device.
+behind ``ops/relpos.py``'s plan constants. ``--breakdown`` adds where
+the host time of one ``scatter_rows_inplace`` call at C = 768, of one
+``gather_rows`` call at 3C and of one call of rows 10 and 14 without the
+LN (at 672 and at ViViT's 8 x 197) goes: the operand checks, the stream
+read, the plan, the allocation, the C call with its launch, the old
+stream read through ``torch.cuda.current_stream`` for comparison, and the
+library call (``torch.where`` for rows 10 and 14). The registers and
+spills ptxas reported for the row passes' select kernels are its ``ptxas
+row passes`` line. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -118,7 +125,7 @@ CASES = [
      ("window_attention_windowed", "window_attention_grid", "window_attention_grid_noterms",
       "scatter_rows_inplace", "scatter_rows_inplace_qkv", "scatter_rows_inplace_qkv_masked",
       "gather_rows_qkv", "scatter_blend", "scatter_blend_qkv", "scatter_blend_wide",
-      "block_select_p_noln",
+      "block_select_p", "block_select_p_noln",
       "gate_group_linear_post", "gate_group_linear", "gate_group_linear_pre",
       "gate_group_linear_post_topk", "gate_group_linear_topk", "gate_group_linear_pre_topk",
       "gate_group_mlp", "ln_norms", "relpos_bias_add_v2")),
@@ -126,20 +133,21 @@ CASES = [
      ("relpos_bias_add_v2",)),
     ("e2e", 1, 1764, 256, dict(window=(14, 14), pool=(21, 21)),
      ("window_attention_windowed", "gate_group_linear_post", "gate_group_linear",
-      "softmax_select_matmul", "relpos_bias_add_v2", "relpos_bias_add")),
+      "softmax_select_matmul", "relpos_bias_add_v2", "relpos_bias_add", "block_select_p")),
     ("e2e", 1, 1764, 256, dict(window=(14, 14), pool=(21, 21), relpos_keys=(42, 42)),
      ("relpos_bias_add_v2",)),
     ("vivit_evblock", 12, 197, 24, dict(window=(4, 6), pool=(1, 197)),
      ("ln_select_matmul_post", "ln_select_matmul_none", "select_linear_skip_norms",
       "scatter_rows_inplace_qkv", "gather_rows_qkv", "softmax_select_matmul_logits_noterms",
-      "ln_norms")),
+      "ln_norms", "ln_select")),
     ("vivit_blend", 8, 197, 98, dict(window=(4, 6)), ("scatter_blend", "scatter_blend_qkv")),
     ("vivit_pre_ln", 8, 197, 98, dict(window=(4, 6)),
      ("ln_select_matmul_pre", "select_linear_skip_norms_noln")),
     ("1024", 2, 4096, 256,
      dict(window=(14, 14), windows=50, pool=(32, 32), pad_window=(14, 14)),
      ("window_attention_windowed", "window_attention_padded", "window_attention_grid",
-      "block_select_p_noln", "block_scatter_rows", "softmax_select_matmul", "ln_norms",
+      "block_select_p", "block_select_p_noln", "block_scatter_rows", "softmax_select_matmul",
+      "ln_norms",
       "block_select_scatter_qkv", "block_select_scatter_proj", "block_select_scatter_mlp",
       "block_select_scatter_qkv_noln", "block_select_scatter_mlp_noln", "relpos_bias_add_v2")),
     ("1024", 2, 4096, 256,
@@ -202,6 +210,13 @@ def device_us(fn, calls=20):
 
 
 L2_BYTES = 50 * 2**20  # the H100's L2
+# the row-pass kernels whose registers and spills ptxas reports (``ptxas row
+# passes``): rows 9, 10 and 14's warp select and their block-per-row kernels
+ROW_PASS_PTXAS = ("select_warp_kernel", "diff_norms_warp_kernel", "select_scatter_kernel",
+                  "ln_select_kernel", "select_rows_kernel", "diff_norms_kernel")
+# rows 10 and 14: the coverage each entry reads, zeroed for ``device_us_cov0``
+SELECT_COV = {"block_select_p": "cov1", "block_select_p_noln": "cov1", "ln_select": "cov3",
+              "ln_select_noln": "cov3"}
 
 
 def flushed_device_us(fn, kernels, calls=20):
@@ -296,8 +311,9 @@ def tile_sweep(name, d):
 
 def breakdown(device):
     """Host microseconds of the pieces of one scatter_rows_inplace call at
-    C = 768 and of one gather_rows call at 3C, each beside its library
-    call."""
+    C = 768, of one gather_rows call at 3C, and of one call of rows 10
+    (``block_select_p`` without the LN at 672) and 14 (``ln_select``
+    without the LN at ViViT's 8 x 197), each beside its library call."""
     from eventful_transformer_tpu_torch.ops import row_copy, scatter
 
     d = kernel_check.make_inputs(2, 1764, 768, 12, 256, torch.bfloat16, device, seed=0)
@@ -325,8 +341,43 @@ def breakdown(device):
             lambda: _build.launch("etk_gather_rows", *gather_args),
         "torch.gather": kernel_check.library_call("gather_rows_qkv", d),
     }
+    vivit = kernel_check.make_inputs(8, 197, 768, 12, 98, torch.bfloat16, device, seed=0)
+    for name, dd, cov, p in (("block_select_p_noln", d, "cov1", "p_qkv"),
+                             ("ln_select_noln", vivit, "cov3", "p_mlp")):
+        pieces.update(select_pieces(name, dd["x"], dd[p].clone(), dd[cov]))
+        pieces[f"{name} torch.where"] = kernel_check.library_call(name, dd)
     for label, fn in pieces.items():
         print("breakdown", label, "host_us", round(host_us(fn), 3), flush=True)
+
+
+def select_pieces(name, x, p, cov):
+    """The pieces of one call of entry ``name`` (rows 10 and 14 without the
+    LN): the wrapper, its checks (this checkout's ``select_args``, which
+    also picks the body and reads the stream, or the helpers
+    ``_build.check_operands`` and ``check_shape`` that a version without
+    it calls), the stream read, and the C call with its launch."""
+    from eventful_transformer_tpu_torch.ops import gate_block
+
+    wrapper = kernel_check.KERNELS[name][0]
+    pieces = {f"{name} wrapper": lambda: wrapper(x, p, cov, None, None, apply_ln=False)}
+    if hasattr(gate_block, "select_args"):
+        _, args = gate_block.select_args(name, x, p, cov, None, None, False)
+        pieces[f"{name} checks (select_args)"] = (
+            lambda: gate_block.select_args(name, x, p, cov, None, None, False))
+    else:
+        args = (_build.dtype_code(x), x.data_ptr(), p.data_ptr(), cov.data_ptr(), None, None, 0,
+                x.numel() // x.shape[-1], x.shape[-1], _build.stream_of(x))
+
+        def checks():
+            _build.check_operands(name, x, ("cov",), p=p, cov=cov)
+            _build.check_shape(name, "p", p, x.shape)
+            _build.check_shape(name, "cov", cov, x.shape[:-1])
+
+        pieces[f"{name} checks (check_operands, check_shape)"] = checks
+    pieces[f"{name} stream_of"] = lambda: _build.stream_of(x)
+    pieces[f"{name} launch (C call + kernel launch)"] = (
+        lambda: _build.launch("etk_block_select_p", *args))
+    return pieces
 
 
 def main():
@@ -345,6 +396,8 @@ def main():
     print("card", smi, "root", ROOT, "build_s", round(time.perf_counter() - start, 1),
           ptxas_lines(log, "attention_tc"))
     print("ptxas relpos", ptxas_lines(log, "relpos"))
+    print("ptxas row passes", [line for needle in ROW_PASS_PTXAS
+                               for line in ptxas_lines(log, needle)])
     device = torch.device("cuda")
     for tag, bsz, n, k, inputs, names in CASES:
         if TAGS and tag not in TAGS:
@@ -377,6 +430,10 @@ def main():
                 extra["keys"] = "x".join(map(str, d["rp_p"]))
                 if 2 * d["rp_x"].nbytes < L2_BYTES:
                     extra["device_us_l2_flushed"] = round(flushed_device_us(call, kernels), 2)
+            if name in SELECT_COV:  # the grid alone: no row selected
+                empty = dict(dd, **{SELECT_COV[name]: torch.zeros_like(d[SELECT_COV[name]])})
+                empty_call = bound(name, kernel_check.KERNELS[name][0], empty)
+                extra["device_us_cov0"] = round(device_us(empty_call)[0], 2)
             if "--tiles" in sys.argv and name.startswith("relpos_bias_add"):
                 plan, swept = tile_sweep(name, dd)
                 print(tag, name, "keys", extra["keys"], "plan", plan, "tiles", swept, flush=True)

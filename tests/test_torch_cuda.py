@@ -1598,10 +1598,12 @@ def test_row_pass_entries_refuse_the_warp_body_off_rule(device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", ["ln_norms", "block_select_scatter_qkv",
                                   "block_select_scatter_proj", "block_select_scatter_mlp",
-                                  "block_select_scatter_mlp_noln"])
+                                  "block_select_scatter_mlp_noln", "block_select_p",
+                                  "block_select_p_noln", "ln_select", "ln_select_noln"])
 def test_row_pass_kernels_launch_once_and_allocate_their_outputs(name, dtype, device):
-    """Rows 1 and 9 launch their one warp-body kernel once a call (row 9 no
-    slot map) and allocate only their new outputs."""
+    """Rows 1, 9, 10 and 14 launch their one warp-body kernel once a call
+    (row 9 no slot map) and allocate only their new outputs (rows 10 and
+    14: none, p is updated in place)."""
     d = kernel_check.make_inputs(2, 197, 256, 4, 24, dtype, device)
     row = kernel_check.row_copy_profile(name, d, kernel_check.bound(name, d)[0])
     wrapper = kernel_check.KERNELS[name][0].__name__
@@ -1609,6 +1611,174 @@ def test_row_pass_kernels_launch_once_and_allocate_their_outputs(name, dtype, de
     new_outputs = [out for out in kernel_check.KERNELS[name][4] if out not in ("p", "b")]
     assert row["allocations_per_call"] == len(new_outputs), row
     assert row["device_us"] > 0 and 0 < row["bound_share"]
+
+
+# -- the warp-per-row select of rows 10 and 14 and the stages that share it ---------------
+
+# (batch, N) of every path shape of rows 10 and 14 (ViTDet-1024, 672 and the
+# e2e path's one stream; the paper's ViViT's 12 views and ViViT's 8) and a
+# ragged one of 154 rows
+SELECT_ROWS = [(2, 4096), (2, 1764), (1, 1764), (12, 197), (8, 197), (2, ROW_PASS_N)]
+SELECT_WRAPPERS = {"block_select_p": ("ops.gate_block", "block_select_p"),
+                   "ln_select": ("ops.gate_fused", "ln_select")}
+
+
+def _select_fns(wrapper):
+    import importlib
+
+    module, name = SELECT_WRAPPERS[wrapper]
+    module = importlib.import_module(f"eventful_transformer_tpu_torch.{module}")
+    return getattr(module, name), getattr(module, f"{name}_plain")
+
+
+def _select_inputs(bsz, n, c, dtype, device, seed=0):
+    """x, p, scale and bias at a 16-byte boundary, and three coverages of
+    (bsz, n): about 10 % of the rows selected, none, and every row."""
+    g = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g) * scale + shift).to(device=device, dtype=dtype)
+
+    covs = {"mixed": (torch.rand((bsz, n), generator=g) < 0.1).float(),
+            "none": torch.zeros((bsz, n)), "all": torch.ones((bsz, n))}
+    return dict(x=randn(bsz, n, c), p=randn(bsz, n, c), scale=randn(c, scale=0.1, shift=1.0),
+                bias=randn(c, scale=0.1)), {k: v.to(device) for k, v in covs.items()}
+
+
+def _hold_select(wrapper, d, cov, apply_ln, body):
+    """One call of ``wrapper`` (rows 10 or 14) on copies of ``d`` at their
+    offsets from 16-byte boundaries, against its plain version: within
+    kernel_check's bounds with the LN, bit for bit without it, p unchanged
+    bit for bit where cov selects no row; one launch of ``body``."""
+    fn, plain = _select_fns(wrapper)
+    d = {key: _clone(v) for key, v in d.items()}
+    scale, bias = (d["scale"], d["bias"]) if apply_ln else (None, None)
+    before = dict(fn.row_body_launches)
+    got = fn(d["x"], d["p"].clone(), cov, scale, bias, apply_ln=apply_ln)
+    want = plain(d["x"], d["p"].clone(), cov, scale, bias, apply_ln=apply_ln)
+    torch.cuda.synchronize()
+    assert fn.row_body_launches == dict(before, **{body: before[body] + 1})
+    if not apply_ln or not bool((cov > 0).any()):
+        assert torch.equal(got, want)
+    row = kernel_check.compare(got, want)
+    assert row["ok"], row
+    if not bool((cov > 0).any()):
+        assert torch.equal(got, d["p"])
+
+
+@pytest.mark.parametrize("apply_ln", [True, False], ids=["ln", "no_ln"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", SELECT_ROWS, ids=lambda r: "x".join(map(str, r)))
+@pytest.mark.parametrize("wrapper", sorted(SELECT_WRAPPERS))
+def test_select_warp_body_matches_plain(wrapper, rows, dtype, apply_ln, device):
+    """Rows 10 and 14 on the warp-per-row body at every path shape (C =
+    768) and a ragged one, in both dtypes and both forms, with about 10 %
+    of the rows selected, none, and all: the no-LN select and an empty
+    coverage bit for bit."""
+    d, covs = _select_inputs(*rows, 768, dtype, device)
+    for cov in covs.values():
+        _hold_select(wrapper, d, cov, apply_ln, "warp")
+
+
+@pytest.mark.parametrize("c", [64, 192, 2304], ids=lambda c: f"c{c}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_select_warp_body_at_other_widths(c, dtype, device):
+    """The slim widths of the tests (64, 192) and 2304 (K = 9 or 18 vectors
+    a lane) on the warp body, both forms."""
+    d, covs = _select_inputs(2, ROW_PASS_N, c, dtype, device, seed=1)
+    for apply_ln in (True, False):
+        for cov in covs.values():
+            _hold_select("block_select_p", d, cov, apply_ln, "warp")
+
+
+@pytest.mark.parametrize("case", ["width", "misaligned"])
+def test_select_off_rule_takes_the_block_body(case, device):
+    """A width of no whole 16-byte vectors (C = 100 in bfloat16), or x off
+    a 16-byte boundary, takes the block-per-row body, counted, with the
+    same results."""
+    c = 100 if case == "width" else 768
+    d, covs = _select_inputs(2, ROW_PASS_N, c, torch.bfloat16, device, seed=2)
+    if case == "misaligned":
+        flat = torch.empty(d["x"].numel() + 1, dtype=d["x"].dtype, device=device)
+        view = flat[1:].view(d["x"].shape)
+        view.copy_(d["x"])
+        d["x"] = view
+    for wrapper in sorted(SELECT_WRAPPERS):
+        for apply_ln in (True, False):
+            _hold_select(wrapper, d, covs["mixed"], apply_ln, "block")
+
+
+def test_select_entry_refuses_the_warp_body_off_rule(device):
+    """etk_block_select_p refuses a warp-body call that breaks the rule (a
+    width of no whole 16-byte vectors, a row beyond a warp's registers, an
+    operand off a 16-byte boundary) and a call without a coverage."""
+    from eventful_transformer_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    cov = torch.ones(8, device=device)
+
+    def code(c, dtype=torch.bfloat16, offset=0, with_cov=True):
+        x = torch.randn(8 * c + 8, device=device).to(dtype)
+        p = torch.empty_like(x)
+        return lib.etk_block_select_p(
+            _build.dtype_code(x), 1, x.data_ptr() + offset * x.element_size(), p.data_ptr(),
+            cov.data_ptr() if with_cov else None, x.data_ptr(), x.data_ptr(), 8, c,
+            _build.stream_of(x))
+
+    assert code(100) != 0
+    assert code(2308, torch.float32) != 0
+    assert code(64, offset=1) != 0
+    assert code(64, with_cov=False) != 0
+    assert code(64) == 0
+    torch.cuda.synchronize()
+
+
+# every wrapper whose select, LN or norms stage runs a row pass, by an entry
+# of kernel_check.KERNELS
+ROW_PASS_STAGES = [
+    "qkv_attention_group", "proj_group", "dense_mlp_residual", "gate_group_mlp",
+    "gate_group_mlp_pre", "gate_group_mlp_topk", "gate_group_linear", "gate_group_linear_post",
+    "gate_group_linear_pre", "gate_group_linear_topk", "gate_group_linear_post_topk",
+    "ln_select_matmul_post", "ln_select_matmul_none", "ln_select_matmul_pre",
+    "select_linear_skip_norms", "select_linear_skip_norms_noln", "block_select_p",
+    "block_select_p_noln", "ln_select", "ln_select_noln",
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ROW_PASS_STAGES)
+def test_row_pass_stages_take_the_warp_body(name, dtype, device):
+    """Each wrapper with a select, LN or norms row pass (kernels A and B,
+    rows 4, 5, 7, 10, 12, 13 and 14 in every form, the LN pass without a
+    coverage of rows 5 and 12 "pre" among them) within kernel_check's
+    bounds at C = 256, counted once as "warp"."""
+    wrapper = kernel_check.KERNELS[name][0]
+    d = kernel_check.make_inputs(2, 197, 256, 4, 24, dtype, device, seed=6)
+    kernel_check.reset_launches()
+    rows = kernel_check.errors(name, d)
+    assert all(row["ok"] for row in rows), rows
+    assert wrapper.row_body_launches == {"block": 0, "warp": 1}
+    assert kernel_check.row_body_launches()[wrapper.__name__] == {"block": 0, "warp": 1}
+
+
+def test_misaligned_stage_takes_the_block_body(device):
+    """Row 5's LN pass with x off a 16-byte boundary takes the block body
+    (counted), within kernel_check's bounds."""
+    from eventful_transformer_tpu_torch.ops.dense_mlp import (
+        dense_mlp_residual,
+        dense_mlp_residual_plain,
+    )
+
+    d = kernel_check.make_inputs(2, 37, 256, 4, 11, torch.bfloat16, device, seed=5)
+    flat = torch.zeros(d["x"].numel() + 1, device=device, dtype=torch.bfloat16)
+    x = flat[1:].view(d["x"].shape)
+    x.copy_(d["x"])
+    args = [d[k] for k in ("ln2_s", "ln2_b", "w1", "b1", "w2", "b2")]
+    kernel_check.reset_launches()
+    got = dense_mlp_residual(x, *args)
+    assert dense_mlp_residual.row_body_launches == {"block": 1, "warp": 0}
+    row = kernel_check.compare(got, dense_mlp_residual_plain(x, *args))
+    assert row["ok"], row
 
 
 # -- the rel-pos bias add's two bodies (rows 16 and 17) -----------------------------------
