@@ -27,13 +27,15 @@ Phases, one JSON line each, with the seconds the phase took:
                      shapes, float32 and bfloat16, each output within the
                      bounds stated in ops/kernel_check.py, and both timed;
                      rows 1 (ln_norms), 9 (block_select_scatter), 10
-                     (block_select_p) and 14 (ln_select) with the
-                     readings of 23 (device microseconds, share of the
+                     (block_select_p), 14 (ln_select) and 11
+                     (block_scatter_rows, through the window map) with
+                     the readings of 23 (device microseconds, share of the
                      bound, kernels and allocations a call: one launch of
                      ln_norms_kernel, select_scatter_kernel or
                      select_warp_kernel, the warp-per-row body, and its new
-                     outputs alone), here and in every kernels phase
-                     below; every checked call of a row pass (rows 1, 9,
+                     outputs alone; row 11 one of block_scatter_rows_kernel,
+                     the bulk row copy, and none), here and in every
+                     kernels phase below; every checked call of a row pass (rows 1, 9,
                      10, 14 and the select, LN and norms stages of kernels
                      A and B and rows 4, 5, 7, 12 and 13) on the
                      warp-per-row body (ops/row_pass.py::row_body),
@@ -80,8 +82,10 @@ Phases, one JSON line each, with the seconds the phase took:
   7. vitdet_slice:   eventful spatiotemporal_672 and dense base_672, 2
                      streams x 16 frames in bfloat16, with launch counts and
                      counted GFLOPs per frame against the JAX package's; one
-                     stream x 3 frames in float32 (matmul-2 cast off) on the
-                     card against the CPU.
+                     stream x 3 frames in float32 (matmul-2 cast off) of the
+                     backbone cut to two windowed blocks and one global on
+                     the card against the CPU (cut from 12 blocks when row
+                     11's readings came in).
   8. vitdet_time:    dense against eventful, ms/frame, alternated.
   9-11. vitdet1024_kernels, vitdet1024_slice, vitdet1024_time: as 6-8 for
                      spatiotemporal_1024 and base_1024 (N = 4096, 50 windows
@@ -572,13 +576,14 @@ def body_readings(name, d, bound_ms, bodies, dtype, where):
 
 
 # the allocations a call of each row-copy wrapper makes: its output (rows 18
-# and 20), none for the scatter in place (row 19)
-ROW_COPY_ALLOCATIONS = {"scatter_blend": 1, "gather_rows": 1, "scatter_rows_inplace": 0}
+# and 20), none for the scatters in place (rows 11 and 19)
+ROW_COPY_ALLOCATIONS = {"scatter_blend": 1, "gather_rows": 1, "scatter_rows_inplace": 0,
+                        "block_scatter_rows": 0}
 
 
 def expected_allocations(name):
-    """The allocations one call of entry ``name`` of rows 18-20, 1, 9, 10
-    or 14 makes: ROW_COPY_ALLOCATIONS for rows 18-20; its new outputs for
+    """The allocations one call of entry ``name`` of rows 11, 18-20, 1, 9,
+    10 or 14 makes: ROW_COPY_ALLOCATIONS for rows 11 and 18-20; its new outputs for
     rows 1 (the norms) and 9 (y and the norms where the form has them; p
     and b are updated in place, and the slot is found in the kernel); none
     for rows 10 and 14 (p in place)."""
@@ -591,8 +596,8 @@ def expected_allocations(name):
 
 
 def row_copy_readings(name, d, bound_ms, library, launched):
-    """Rows 18-20 (the row-copy kernels; row 19 the control) and rows 1, 9,
-    10 and 14 (the warp-per-row pass) beside their ``ms``: device microseconds a
+    """Rows 11 and 18-20 (the row-copy kernels) and rows 1, 9, 10 and 14
+    (the warp-per-row pass) beside their ``ms``: device microseconds a
     call (torch.profiler, or CUDA events around calls queued behind a
     sleep where the profiler caught no device event:
     ``kernel_check.row_copy_profile``) and the share of the bound they
@@ -1146,11 +1151,18 @@ def phase_time(eventful, dense, views, smi):
     )
 
 
-def vitdet_config(eventful, size, matmul_2_cast="bfloat16"):
+# The ViTDet float32 card-vs-CPU check's backbone: two windowed blocks and
+# one global (cut from 12 to keep the script's time: at 1024 the CPU side
+# took 14-17 s at full depth)
+VITDET_CHECK_DEPTH, VITDET_CHECK_WINDOWS = 3, (0, 1)
+
+
+def vitdet_config(eventful, size, matmul_2_cast="bfloat16", depth=VITDET_DEPTH,
+                  window_indices=(0, 1, 3, 4, 6, 7, 9, 10)):
     block = dict(dim=768, heads=12, mlp_ratio=4, window_size=[14, 14],
                  relative_embedding_size=[64, 64])
-    backbone = dict(depth=VITDET_DEPTH, position_encoding_size=[14, 14],
-                    window_indices=[0, 1, 3, 4, 6, 7, 9, 10], block_config=block)
+    backbone = dict(depth=depth, position_encoding_size=[14, 14],
+                    window_indices=list(window_indices), block_config=block)
     if eventful:
         block.update(pool_size=2, matmul_2_cast=matmul_2_cast)
         backbone.update(block_class="EventfulBlock", windowed_class="EventfulTokenwiseBlock",
@@ -1362,14 +1374,15 @@ def card_and_cpu(cpu_model, frames, device, run, card_model=None):
 
 
 def vitdet_card_vs_cpu(cpu_model, frames, device):
-    """One stream x 3 frames of the backbone in float32 on the card against
-    the same model on the CPU. One stream takes the A.V kernel at every
-    size (the batch-1 rule)."""
+    """One stream x 3 frames of the backbone cut to VITDET_CHECK_DEPTH
+    blocks in float32 on the card against the same model on the CPU. One
+    stream takes the A.V kernel at every size (the batch-1 rule)."""
     numbers, launches, _ = card_and_cpu(
         cpu_model, frames, device, lambda m, clip: (run_vitdet(m, clip, keep=True)[2],)
     )
     av_launches = launches["softmax_select_matmul"]
-    if av_launches != VITDET_GLOBAL * (frames.shape[0] - 1):
+    global_blocks = VITDET_CHECK_DEPTH - len(VITDET_CHECK_WINDOWS)
+    if av_launches != global_blocks * (frames.shape[0] - 1):
         raise AssertionError(f"one stream ran the A.V kernel {av_launches} times")
     return numbers
 
@@ -1386,7 +1399,8 @@ def phase_vitdet_slice(device, size):
     frames = vitdet_frames(VITDET_FRAMES, VITDET_STREAMS, device, torch.bfloat16, size)
     launches, g_eventful, g_eventful_jax, share = vitdet_counted_call(eventful, frames, True, size)
     dense_launches, g_dense, g_dense_jax, _ = vitdet_counted_call(dense, frames, False, size)
-    cpu_model = ViTDet(**vitdet_config(True, size, matmul_2_cast=None), device="cpu", seed=SEED)
+    cpu_model = ViTDet(**vitdet_config(True, size, None, VITDET_CHECK_DEPTH, VITDET_CHECK_WINDOWS),
+                       device="cpu", seed=SEED)
     set_policies(cpu_model, TokenNormTopK, k=VITDET_K)
     clip = vitdet_frames(3, 1, "cpu", torch.float32, size, seed=SEED + 1)
     numbers = vitdet_card_vs_cpu(cpu_model, clip, device)
@@ -1395,7 +1409,7 @@ def phase_vitdet_slice(device, size):
         dense_launches=dense_launches,
         gflops_per_frame_eventful=g_eventful, jax_gflops_per_frame_eventful=g_eventful_jax,
         gflops_per_frame_dense=g_dense, jax_gflops_per_frame_dense=g_dense_jax,
-        mean_pooled_valid_share=share, **numbers,
+        mean_pooled_valid_share=share, f32_depth=VITDET_CHECK_DEPTH, **numbers,
     )
     return eventful, dense, frames, launches, dense_launches
 

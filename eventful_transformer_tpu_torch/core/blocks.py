@@ -75,7 +75,6 @@ from __future__ import annotations
 
 from math import prod, sqrt
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -96,6 +95,8 @@ from eventful_transformer_tpu_torch.core.indexing import (
     select_rows,
     take_rows,
     valid_fraction,
+    window_permutation,
+    window_row_map,
 )
 from eventful_transformer_tpu_torch.core.nn import (
     LayerNorm,
@@ -413,19 +414,7 @@ class Block(nn.Module):
         window-major position (pad positions -> h * w); inv the
         window-major position of each row-major token."""
         if self._window_perm_cache is None:
-            p = self._window_padding()
-            d = self.window_size
-            h, w = self.input_size
-            hp, wp = h + p[0], w + p[1]
-            rowmajor = np.full((hp, wp), h * w, dtype=np.int32)
-            rowmajor[:h, :w] = np.arange(h * w, dtype=np.int32).reshape(h, w)
-            perm = (
-                rowmajor.reshape(hp // d[0], d[0], wp // d[1], d[1]).transpose(0, 2, 1, 3).reshape(-1)
-            )
-            inv = np.zeros(h * w, dtype=np.int32)
-            valid = perm < h * w
-            inv[perm[valid]] = np.nonzero(valid)[0].astype(np.int32)
-            self._window_perm_cache = (perm, inv)
+            self._window_perm_cache = window_permutation(self.input_size, self.window_size)
         return self._window_perm_cache
 
     # -- pooling and the matmul-2 cast ------------------------------------------
@@ -573,8 +562,7 @@ class EventfulTokenwiseBlock(Block):
         """(N + 1,) int32 map of row-major token -> window-major row, with
         the out-of-range marker N -> -1, on ``device``."""
         if device not in self._window_index_cache:
-            _, inv = self._window_perm()
-            ext = np.concatenate([inv, np.full((1,), -1, np.int32)])
+            ext = window_row_map(self.input_size, self.window_size)
             self._window_index_cache[device] = torch.from_numpy(ext).to(device)
         return self._window_index_cache[device]
 
@@ -950,8 +938,9 @@ class EventfulTokenwiseBlock(Block):
         _, index, cov = self._select(ctx, self.qkv_gate, p, x, ln, self._ln_mode, norms, True)
         h = self.qkv(ctx, layer_norm(take_rows(x, index), ln))
         block_select_p(x, p, cov, *self._select_ln(ln), apply_ln=not self.gate_before_ln)
-        w_index = self._window_index(x.device)[index]
-        return block_scatter_rows(state["qkv_accumulator"]["b"], w_index, h)
+        return block_scatter_rows(
+            state["qkv_accumulator"]["b"], index, h, self._window_index(x.device)
+        )
 
     # -- the "blocked" regime ------------------------------------------------------
 

@@ -24,6 +24,7 @@ itself (``-x + v1 + v2`` at a duplicated index).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from eventful_transformer_tpu_torch.ops.scatter_blend import scatter_blend
@@ -31,6 +32,33 @@ from eventful_transformer_tpu_torch.ops.scatter_blend import scatter_blend
 # Route put_rows to the scatter-blend kernel (core/indexing.py:107-145 of the
 # JAX package); off by default there, as here.
 USE_PALLAS_BLEND = False
+
+
+def window_permutation(input_size, window):
+    """(perm, inv) numpy int32 maps between the row-major tokens of an
+    (h, w) grid and the window-major positions of its windows of
+    ``window``, the grid padded at the bottom and right to whole windows:
+    perm holds the row-major token of each window-major position (pad
+    positions -> h * w); inv the window-major position of each row-major
+    token."""
+    (h, w), d = input_size, window
+    hp, wp = h + -h % d[0], w + -w % d[1]
+    rowmajor = np.full((hp, wp), h * w, dtype=np.int32)
+    rowmajor[:h, :w] = np.arange(h * w, dtype=np.int32).reshape(h, w)
+    perm = rowmajor.reshape(hp // d[0], d[0], wp // d[1], d[1]).transpose(0, 2, 1, 3).reshape(-1)
+    inv = np.zeros(h * w, dtype=np.int32)
+    valid = perm < h * w
+    inv[perm[valid]] = np.nonzero(valid)[0].astype(np.int32)
+    return perm, inv
+
+
+def window_row_map(input_size, window):
+    """(h * w + 1,) int32 numpy map of row-major token -> window-major row
+    (:func:`window_permutation`), with the selection's out-of-range marker
+    h * w -> -1: the map ``ops.gate_block.block_scatter_rows`` reads (the
+    JAX package's ``_window_inv_ext``)."""
+    _, inv = window_permutation(input_size, window)
+    return np.concatenate([inv, np.full((1,), -1, np.int32)])
 
 
 def _blend_eligible(x, index):

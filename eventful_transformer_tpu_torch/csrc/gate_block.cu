@@ -14,14 +14,30 @@
 //     waits on two dependent loads (cov, then x), not on bytes. Widths or
 //     operands off the rule (ops/row_pass.py::row_body) take the
 //     block-per-row kernels of common.cuh.
-//   * block_scatter_rows: b'[index[j]] = h[j] on the window-major buffer
-//     (B, NW, F), in place; index (B, KP) in any order, -1 in an invalid
-//     slot. The TPU kernel rebuilds each (rows, KP) one-hot in VMEM and
-//     blends every row of b; here one block per (batch, slot) copies h's
-//     row to its target row and leaves every other row of b untouched, so
-//     the pass moves 2 x KP x F elements (2.4 MB in bf16 at KP = 256,
-//     F = 2304) instead of the whole buffer. The result is the same where
-//     valid indices are distinct, which top-k selection guarantees.
+//   * block_scatter_rows: b'[row_map[index[j]]] = h[j] on the window-major
+//     qkv buffer (B, NW, F), in place (row 11); index (B, KP) in any order,
+//     row-major token positions mapped through the window map (M entries,
+//     the selection's marker N sent to -1) or, without a map, window-major
+//     rows. The TPU kernel rebuilds each (rows, KP) one-hot in VMEM and
+//     blends every row of b. Here the rows move as they are and every
+//     other row of b stays untouched: the call moves 2 x KP x F elements,
+//     4.7 MB at B = 2, KP = 256, F = 2304 in bfloat16, 1.4 us at 3.35 TB/s,
+//     about one round trip to device memory plus a launch. So it is built
+//     for latency, on the bulk copy engine (block_scatter_rows_kernel): a
+//     block of one warp takes ``per`` consecutive slots, whose h rows are
+//     contiguous, and lane 0 loads them with one cp.async.bulk into shared
+//     memory while each lane reads its slot's index and map entry (the map
+//     is read here, one more dependent load, not gathered by a launch of
+//     its own); once the rows have landed, each lane whose slot names a row
+//     stores it with one bulk store. ``per`` spreads the slots over the
+//     132 SMs (4 slots a block and 128 blocks at 512 slots, 2 and 128 at
+//     256), at most 47 KB a block. A warp-per-slot copy through registers
+//     (each lane's 16-byte words all loaded before its stores) took 0.13-
+//     0.19 us longer a call and was not kept. A slot writes nothing where
+//     its index is -1 or lies outside [0, M) (without a map, [0, NW)) or
+//     its map entry lies outside [0, NW), as the one-hot matches no row
+//     there. The result is the one-hot's where valid targets are distinct,
+//     which top-k selection guarantees.
 //   * block_select_scatter: the gate-state select, the scatter-blend of the
 //     k-row op output into the token buffer, the skip (or x) add and the
 //     next gate's norms, over every row of the row-major state:
@@ -52,21 +68,47 @@
 //     operands the warp body does not take (ops/row_pass.py::row_body) go
 //     to the block-per-row body (select_scatter_block_kernel: one
 //     256-thread block a row, the slot found by the block).
+#include "async_copy.cuh"
 #include "row_pass.cuh"
 
 namespace etk {
 
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
-scatter_rows_kernel(T* __restrict__ b, const int* __restrict__ index, const T* __restrict__ h,
-                    int nw, int kp, int f) {
-  const int64_t slot = blockIdx.x;  // batch * kp + j
-  const int target = index[slot];
-  if (target < 0) return;  // invalid slot: never matches a row
-  const int64_t batch = slot / kp;
-  T* dst = b + (batch * nw + target) * (int64_t)f;
-  const T* src = h + slot * (int64_t)f;
-  for (int i = threadIdx.x; i < f; i += blockDim.x) dst[i] = src[i];
+constexpr int kScatterBlocks = 132;            // row 11's grid: within the card's SMs
+constexpr int kScatterStageBytes = 47 * 1024;  // ... a block's rows within 48 KB of shared memory
+
+// Row 11 (see the header): ``per`` (<= 32) consecutive slots of the (bsz *
+// kp) slots a block of one warp, rows of ``row_bytes`` bytes; row_map null
+// or m int32 entries.
+__global__ void __launch_bounds__(32)
+block_scatter_rows_kernel(unsigned char* __restrict__ b, const int* __restrict__ index,
+                          const unsigned char* __restrict__ h, const int* __restrict__ row_map,
+                          int m, int slots, int nw, int kp, int row_bytes, int per) {
+  extern __shared__ __align__(128) unsigned char stage[];
+  __shared__ __align__(8) uint64_t full;
+  const int lane = threadIdx.x;
+  const int first = blockIdx.x * per;
+  const int cnt = min(per, slots - first);
+  const uint32_t bar = smem_u32(&full);
+  if (lane == 0) {
+    mbar_init(bar, 1);
+    fence_mbar_init();
+    mbar_expect_tx(bar, (uint32_t)cnt * row_bytes);
+    bulk_load(smem_u32(stage), h + (int64_t)first * row_bytes, (uint32_t)cnt * row_bytes, bar);
+  }
+  int64_t dst = -1;  // the byte offset of the slot's target row in b
+  if (lane < cnt) {
+    const int slot = first + lane;
+    int64_t i = __ldg(index + slot);
+    if (row_map != nullptr) i = i >= 0 && i < m ? (int64_t)__ldg(row_map + i) : -1;
+    if (i >= 0 && i < nw) dst = ((int64_t)(slot / kp) * nw + i) * row_bytes;
+  }
+  __syncwarp();  // the barrier's init before any lane waits on it
+  mbar_wait(bar, 0);
+  if (dst >= 0) {
+    bulk_store(b + dst, smem_u32(stage + (size_t)lane * row_bytes), (uint32_t)row_bytes);
+    bulk_commit();
+    bulk_wait_read<0>();  // the stage stays until the store has read it
+  }
 }
 
 // One row r of the blocked group in the block-per-row body. ``scale``
@@ -284,15 +326,28 @@ int etk_block_select_p(int dtype, int body, const void* x, void* p, const void* 
                                                    (cudaStream_t)stream));
 }
 
-int etk_block_scatter_rows(int dtype, void* b, const void* index, const void* h, int bsz,
-                           int nw, int kp, int f, void* stream) {
-  ETK_DISPATCH(dtype, {
-    etk::scatter_rows_kernel<T><<<(unsigned)(bsz * kp), etk::kRowThreads, 0,
-                                  (cudaStream_t)stream>>>((T*)b, (const int*)index,
-                                                          (const T*)h, nw, kp, f);
-    ETK_CHECK_LAUNCH();
-    return 0;
-  });
+// Row 11: b (bsz, nw, f) <- h (bsz, kp, f) at rows row_map[index] (m
+// entries; null: index itself), index (bsz, kp) int32; rows whole 16-byte
+// words on 16-byte boundaries (cudaErrorMisalignedAddress otherwise).
+int etk_block_scatter_rows(int dtype, void* b, const void* index, const void* h,
+                           const void* row_map, int m, int bsz, int nw, int kp, int f,
+                           void* stream) {
+  const int size = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;  // float32, bfloat16: bytes are bytes
+  if (size == 0 || f <= 0) return (int)cudaErrorInvalidValue;
+  const int row_bytes = f * size;
+  if (row_bytes % 16 || (uintptr_t)b % 16 || (uintptr_t)h % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const int slots = bsz * kp;
+  if (slots == 0) return 0;
+  int per = (slots + etk::kScatterBlocks - 1) / etk::kScatterBlocks;
+  per = per > 32 ? 32 : per;
+  while (per > 1 && per * row_bytes > etk::kScatterStageBytes) --per;
+  etk::block_scatter_rows_kernel<<<(slots + per - 1) / per, 32, (size_t)per * row_bytes,
+                                   (cudaStream_t)stream>>>(
+      (unsigned char*)b, (const int*)index, (const unsigned char*)h, (const int*)row_map, m,
+      slots, nw, kp, row_bytes, per);
+  ETK_CHECK_LAUNCH();
+  return 0;
 }
 
 int etk_block_select_scatter(int dtype, int body, const void* x, void* p, void* b,

@@ -53,7 +53,7 @@ SIGNATURES = {
     + [_P],
     "etk_gate_group_linear": [_I, _I] + [_P] * 17 + [_I] * 8 + [_P, _P],
     "etk_block_select_p": [_I, _I] + [_P] * 5 + [_L, _I, _P],
-    "etk_block_scatter_rows": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    "etk_block_scatter_rows": [_I, _P, _P, _P, _P] + [_I] * 5 + [_P],
     "etk_block_select_scatter": [_I, _I] + [_P] * 9 + [_I] + [_P] * 5 + [_I] * 5 + [_P],
     "etk_softmax_select_matmul": [_I, _I, _I] + [_P] * 7 + [_I] * 7 + [_F, _P],
     "etk_dense_mlp_residual": [_I, _I] + [_P] * 10 + [_I] * 6 + [_P, _P],

@@ -10,13 +10,16 @@ x) add and the next gate's norms. A windowed eventful block keeps its qkv
 buffer in the window-major layout that windowed attention reads, so its
 qkv group splits that pass in two: the gate-state select over the
 row-major tokens (``block_select_p``) and the buffer update over
-window-major rows (``block_scatter_rows``), with the selected indices
-remapped through the static window permutation. All three update their
-state in place, as the TPU kernels alias it. Index lists name rows in any
-order; an invalid slot holds -1 (the port's convention; the kernels also
-skip any other value outside the rows, such as the JAX package's N), and
-valid indices must be distinct, as a top-k selection makes them. The CUDA
-kernels are ``csrc/gate_block.cu``; see its header for what bounds them.
+window-major rows (``block_scatter_rows``), whose kernel maps each
+selected token to its window-major row through the static window
+permutation itself. All three update their state in place, as the TPU
+kernels alias it. Index lists name rows in any order, and valid indices
+must be distinct, as a top-k selection makes them. An invalid slot holds
+-1 (the port's convention) or the JAX package's marker N; a slot whose
+index lies outside the rows (or the map) writes nothing, in the plain
+versions and the kernels alike. The CUDA kernels are
+``csrc/gate_block.cu`` (``block_scatter_rows`` a bulk row copy); see its
+header for what bounds them.
 ``block_select_p`` and ``block_select_scatter`` count their launches in
 ``launches``, by whether the gate takes ln(x) or x (``apply_ln``) in
 ``form_launches``, and by the row body ``ops/row_pass.py::row_body`` picks
@@ -30,7 +33,7 @@ import functools
 
 import torch
 
-from eventful_transformer_tpu_torch.ops import _build, row_pass
+from eventful_transformer_tpu_torch.ops import _build, row_pass, scatter
 from eventful_transformer_tpu_torch.ops.common import ln_f32, row_norms
 
 
@@ -227,33 +230,61 @@ def select_args(name, x, p, cov, scale, bias, apply_ln):
                   _build.stream_on(index))
 
 
-def block_scatter_rows_plain(b, index, h):
-    """b'[i] = h[j] where index[j] == i, else b[i], in place. b (B, NW, F);
-    index (B, KP) row positions in any order, -1 in an invalid slot (never
-    matches); h (B, KP, F). Valid indices must be distinct."""
-    valid = index >= 0
+def block_scatter_rows_plain(b, index, h, row_map=None):
+    """b'[i] = h[j] where target[j] == i, else b[i], in place. b (B, NW, F);
+    index (B, KP) in any order; h (B, KP, F). The target of slot j is
+    ``index[j]`` or, with ``row_map`` (M,) int32, ``row_map[index[j]]``. A
+    slot writes nothing where its index is -1, lies outside [0, NW) or,
+    with a map, outside [0, M), or where its map entry lies outside [0,
+    NW), as the JAX kernel's one-hot matches no row there. Valid targets
+    must be distinct. Without a map this is the JAX kernel's function; with
+    one, that of the kernel on ``jnp.take(row_map, index)``."""
+    target = index.long()
+    if row_map is not None:
+        m = row_map.shape[0]
+        inside = (target >= 0) & (target < m)
+        target = torch.where(inside, row_map.long()[target.clamp(0, max(m - 1, 0))], -1)
+    valid = (target >= 0) & (target < b.shape[1])
     rows, slots = torch.nonzero(valid, as_tuple=True)
-    b[rows, index[rows, slots].long()] = h[rows, slots].to(b.dtype)
+    b[rows, target[rows, slots]] = h[rows, slots].to(b.dtype)
     return b
 
 
-def block_scatter_rows(b, index, h):
+def block_scatter_rows(b, index, h, row_map=None):
     """The wrapper of :func:`block_scatter_rows_plain`, which CPU tensors
-    take. CUDA tensors launch the kernel of csrc/gate_block.cu; ``index``
-    is int32 there."""
-    if b.device.type == "cpu":
-        return block_scatter_rows_plain(b, index, h)
+    take. CUDA tensors launch the bulk row copy of csrc/gate_block.cu: one
+    launch, each slot's index and map entry read in the kernel, nothing
+    allocated. ``index`` and ``row_map`` are int32 there, h of b's dtype,
+    rows of F values whole 16-byte words on 16-byte boundaries. The
+    operands are checked in one pass (``scatter.cuda_operands``), as rows
+    19 and 20's are."""
+    if b.is_cpu:
+        return block_scatter_rows_plain(b, index, h, row_map)
     name = "block_scatter_rows"
-    bsz, nw, f = b.shape
+    shape = b.shape
+    if len(shape) != 3:
+        raise ValueError(f"{name}: b {tuple(shape)} is not (B, NW, F)")
+    bsz, nw, f = shape
     kp = index.shape[-1]
-    _build.check_operands(name, b, h=h)
-    _build.check_shape(name, "h", h, (bsz, kp, f))
-    if index.dtype != torch.int32 or index.device != b.device or not index.is_contiguous():
-        raise TypeError(f"{name}: index must be a contiguous int32 tensor on {b.device}")
-    _build.check_shape(name, "index", index, (bsz, kp))
+    if index.shape != (bsz, kp):
+        _build.check_shape(name, "index", index, (bsz, kp))
+    if h.shape != (bsz, kp, f):
+        _build.check_shape(name, "h", h, (bsz, kp, f))
+    if h.dtype is not b.dtype:
+        raise TypeError(f"{name}: h is {h.dtype}, expected {b.dtype}")
+    if index.dtype is not torch.int32:
+        raise TypeError(f"{name}: index is {index.dtype}, expected torch.int32")
+    m = 0
+    if row_map is not None:
+        if row_map.dtype is not torch.int32 or row_map.dim() != 1:
+            raise TypeError(f"{name}: row_map must be a 1-D torch.int32 tensor")
+        m = row_map.shape[0]
+    (code, _), (b_ptr, h_ptr, index_ptr, _, map_ptr), device = scatter.cuda_operands(
+        name, b, h, index, None, row_map
+    )
     _build.launch(
-        "etk_block_scatter_rows", _build.dtype_code(b), b.data_ptr(), index.data_ptr(),
-        h.data_ptr(), bsz, nw, kp, f, _build.stream_of(b),
+        "etk_block_scatter_rows", code, b_ptr, index_ptr, h_ptr, map_ptr, m, bsz, nw, kp, f,
+        _build.stream_on(device),
     )
     block_scatter_rows.launches += 1
     return b

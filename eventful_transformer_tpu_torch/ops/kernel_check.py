@@ -14,7 +14,7 @@ import time
 
 import torch
 
-from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms
+from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms, window_row_map
 from eventful_transformer_tpu_torch.core.policies import vector_norm
 from eventful_transformer_tpu_torch.ops import (
     attention,
@@ -468,7 +468,10 @@ def make_inputs(
     rows (C rounded up), values for them, float32 values, distinct valid
     rows for k slots and a mask of about half of them; for the grid form,
     the padded token map itself (the pad positions holding the pad-bias
-    row) and rel-pos tables over the pad window.
+    row) and rel-pos tables over the pad window; for row 11, the window map
+    of that grid of tokens in windows of ``window``, a window-major qkv
+    buffer over its padded grid and k selected tokens in random order, the
+    last slot the marker n.
     ``ties``: a TOPK entry whose inputs get exact ties at the k-th norm
     (:func:`plant_ties`)."""
     g = torch.Generator().manual_seed(seed)
@@ -569,6 +572,16 @@ def make_inputs(
     qkv_map[:, :h, :w] = d["qkv"].reshape(bsz, h, w, 3 * c)
     d.update(qkv_map=qkv_map, rel_y=randn(a0, a0, hd, scale=0.3),
              rel_x=randn(a1, a1, hd, scale=0.3))
+    # row 11 on the window-major qkv buffer: the window map of the token grid
+    # in windows of ``window`` (padded to whole windows), the selected tokens
+    # row-major in random order, the last slot the selection's marker n
+    window_map = torch.from_numpy(window_row_map((h, w), window))
+    sel = torch.stack([torch.randperm(n, generator=g)[:k] for _ in range(bsz)])
+    if k > 1:
+        sel[:, -1] = n
+    nw_rows = (h + -h % window[0]) * (w + -w % window[1])
+    d.update(window_map=window_map.to(device), sel_index=sel.to(device=device, dtype=torch.int32),
+             buf_win=randn(bsz, nw_rows, 3 * c))
     if ties is not None:
         plant_ties(d, ties)
     return d
@@ -665,7 +678,7 @@ def _invoke(name, fn, d):
     if name == "block_select_p":
         return (fn(d["x"], d["p_qkv"], d["cov1"], d["ln1_s"], d["ln1_b"], apply_ln=True),)
     if name == "block_scatter_rows":
-        return (fn(d["buf_qkv"], d["w_index"], d["h_rows"]),)
+        return (fn(d["buf_win"], d["sel_index"], d["h_rows"], d["window_map"]),)
     if name == "block_select_scatter_qkv":
         return fn(
             d["x"], d["p_qkv"], d["buf_qkv"], d["cov_sel"], d["w_index"], d["h_rows"],
@@ -950,6 +963,14 @@ def _nbytes(t):
     return t.numel() * t.element_size()
 
 
+def _window_targets(d):
+    """Row 11's slots on ``d``: (whether each index lies in the window map,
+    the window-major row its map entry names, -1 where it lies outside)."""
+    index, window_map = d["sel_index"].long(), d["window_map"].long()
+    inside = (index >= 0) & (index < window_map.numel())
+    return inside, torch.where(inside, window_map[index.clamp(0, window_map.numel() - 1)], -1)
+
+
 def io_bytes(name, d):
     """The bytes kernel ``name`` must move on ``d``: each tensor it is
     given read once and each new output written once; a gate state it
@@ -1003,9 +1024,13 @@ def io_bytes(name, d):
         return read("cov1", "ln1_s", "ln1_b") + rows("x", "cov1") + rows("p_qkv", "cov1")
     if name == "block_select_p_noln":
         return read("cov1") + rows("x", "cov1") + rows("p_qkv", "cov1")
-    # the index kernels: cov_sel marks the rows the valid slots of w_index name
+    # row 11: the index, the map's entry of each slot whose index lies in the
+    # map, and h's row read and b's written at each slot whose entry names a row
     if name == "block_scatter_rows":
-        return read("w_index", "h_rows") + rows("buf_qkv", "cov_sel")
+        inside, target = _window_targets(d)
+        valid = int(((target >= 0) & (target < d["buf_win"].shape[1])).sum())
+        row = d["h_rows"].shape[-1] * d["h_rows"].element_size()
+        return read("sel_index") + 4 * int(inside.sum()) + 2 * valid * row
     # row 9: x is read whole only where y adds it (the MLP forms), else at the
     # selected rows, as h is at the valid slots (the rows cov_sel marks); b is
     # written at the selected rows and, where y adds its old rows (not the
@@ -1103,8 +1128,9 @@ def library_call(name, d):
     ``Tensor.scatter_`` for the row scatter without a mask or a cast,
     ``torch.gather`` for the gather, ``torch.where`` for the selects
     without the LN, ``Tensor.index_put_`` for the windowed rows' scatter
-    (its valid (row, slot) pairs gathered beforehand: the -1 slots write
-    nothing); the fused attention's cast (bfloat16 probabilities) SDPA on
+    (its valid (batch row, window-major row) pairs mapped and gathered
+    beforehand: the marker's slots write nothing); the fused attention's
+    cast (bfloat16 probabilities) SDPA on
     q, k and v cast to bfloat16 beforehand, which keeps its probabilities
     in bfloat16 too. The GEMM rows have no one call; their yardstick is cuBLAS on the
     operands of their GEMMs, prepared beforehand (the selects, the LN, the
@@ -1127,9 +1153,10 @@ def library_call(name, d):
         selected = (d[cov] > 0)[..., None]
         return lambda: torch.where(selected, d["x"], d[p])
     if name == "block_scatter_rows":
-        b = d["buf_qkv"].clone()
-        rows, slots = torch.nonzero(d["w_index"] >= 0, as_tuple=True)
-        index, values = (rows, d["w_index"][rows, slots].long()), d["h_rows"][rows, slots]
+        b = d["buf_win"].clone()
+        target = _window_targets(d)[1]
+        rows, slots = torch.nonzero(target >= 0, as_tuple=True)
+        index, values = (rows, target[rows, slots]), d["h_rows"][rows, slots]
         return lambda: b.index_put_(index, values)
     if name in ROWS_INPUTS:
         buf, values, index, mask = ROWS_INPUTS[name]
@@ -1308,9 +1335,10 @@ def host_us(fn, iters=200, warmup=3):
     return elapsed / iters / 1e3
 
 
-# The kernel each row-copy wrapper launches once a call (rows 18-20), by the
-# name the profiler gives it, cut as :func:`device_us` cuts it.
+# The kernel each row-copy wrapper launches once a call (rows 11 and 18-20),
+# by the name the profiler gives it, cut as :func:`device_us` cuts it.
 ROW_COPY_KERNELS = {
+    "block_scatter_rows": "block_scatter_rows_kernel",
     "scatter_blend": "scatter_blend_kernel",
     "scatter_rows_inplace": "scatter_rows_kernel",
     "gather_rows": "gather_rows_kernel",
@@ -1387,7 +1415,7 @@ def allocations(fn, calls=20):
 
 
 def row_copy_profile(name, d, bound_ms):
-    """Entry ``name`` of rows 18-20, or of rows 1, 9, 10 and 14, on ``d`` profiled:
+    """Entry ``name`` of rows 11 and 18-20, or of rows 1, 9, 10 and 14, on ``d`` profiled:
     its device microseconds a call (:func:`device_us`; where the profiler
     caught no device event, :func:`queued_device_us`, as ``device_us_by``
     says), the share of the card's bound ``bound_ms`` they reach, the

@@ -82,26 +82,43 @@ def gather_rows_plain(buffer, index):
 
 
 def _check_cuda(name, buffer, index, values=None, mask=None):
-    """One pass over the operands of a CUDA call, each tensor's attributes
-    read once: the plain version's argument rules (:func:`_check`) and the
-    kernels' needs, every tensor on the buffer's device and contiguous, the
-    buffer and the values (float32 or bfloat16) on 16-byte boundaries (the
-    kernels copy 16-byte words), with the messages of
-    ``_build.check_operands``. Returns (B, N, C, K), the dtype codes of the
-    buffer and the values (0 for values not given) and the data pointers
-    of the buffer, the values, the index and the mask (0 for one not
-    given)."""
+    """The plain version's argument rules (:func:`_check`), then the
+    kernels' (:func:`cuda_operands`). Returns (B, N, C, K), the dtype codes
+    of the buffer and the values (0 for values not given), the data
+    pointers of the buffer, the values, the index and the mask (0 for one
+    not given) and the buffer's device index."""
     dims = _check(name, buffer, index, values, mask)
+    codes, pointers, device = cuda_operands(name, buffer, values, index, mask)
+    return dims, codes, pointers[:4], device
+
+
+def cuda_operands(name, buffer, values, index, mask=None, row_map=None):
+    """One pass over the operands of a CUDA row copy (rows 19 and 20 here,
+    row 11 in ``gate_block``), each tensor's attributes read once: the
+    buffer a contiguous CUDA tensor of float32 or bfloat16 whose rows (C <=
+    MAX_ROW_WIDTH values) are whole 16-byte words; the values, the index,
+    the mask and the map (each None where not given) contiguous on its
+    device; the buffer and the values (float32 or bfloat16) on 16-byte
+    boundaries, since the kernels copy 16-byte words. The messages are
+    ``_build.check_operands``'s. Shapes and the index's dtype are the
+    caller's to check. Returns the dtype codes of the buffer and the values
+    (0 for values not given), the data pointers of the buffer, the values,
+    the index, the mask and the map (0 for one not given) and the buffer's
+    device index."""
     if not buffer.is_cuda:
         raise ValueError(f"{name}: expected CUDA or CPU tensors, got {buffer.device}")
     codes = (_build.dtype_code(buffer), 0 if values is None else _build.dtype_code(values))
     if not buffer.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous")
-    if dims[2] > _build.MAX_ROW_WIDTH:
-        raise ValueError(f"{name}: C={dims[2]} exceeds {_build.MAX_ROW_WIDTH}")
+    c = buffer.shape[-1]
+    if c > _build.MAX_ROW_WIDTH:
+        raise ValueError(f"{name}: C={c} exceeds {_build.MAX_ROW_WIDTH}")
+    if c * buffer.element_size() % 16:
+        raise ValueError(f"{name}: rows of {c} {buffer.dtype} values are not whole 16-byte words")
     device = buffer.get_device()
     pointers = []
-    for key, t in (("buffer", buffer), ("values", values), ("index", index), ("mask", mask)):
+    for key, t in (("buffer", buffer), ("values", values), ("index", index), ("mask", mask),
+                   ("row_map", row_map)):
         if t is None:
             pointers.append(0)
             continue
@@ -111,7 +128,7 @@ def _check_cuda(name, buffer, index, values=None, mask=None):
         if ptr % 16 and key in ("buffer", "values"):
             raise ValueError(f"{name}: {key} must start on a 16-byte boundary")
         pointers.append(ptr)
-    return dims, codes, pointers
+    return codes, pointers, device
 
 
 def scatter_rows_inplace(buffer, values, index, mask=None):
@@ -125,11 +142,13 @@ def scatter_rows_inplace(buffer, values, index, mask=None):
     name = "scatter_rows_inplace"
     if mask is not None and mask.dtype != torch.bool:
         mask = mask != 0
-    (bsz, n, c, k), (code, values_code), pointers = _check_cuda(name, buffer, index, values, mask)
+    (bsz, n, c, k), (code, values_code), pointers, device = _check_cuda(
+        name, buffer, index, values, mask
+    )
     buffer_ptr, values_ptr, index_ptr, mask_ptr = pointers
     _build.launch(
         "etk_scatter_rows", code, values_code, buffer_ptr, values_ptr, index_ptr,
-        int(index.dtype == torch.int64), mask_ptr, bsz, n, c, k, _build.stream_of(buffer),
+        int(index.dtype == torch.int64), mask_ptr, bsz, n, c, k, _build.stream_on(device),
     )
     scatter_rows_inplace.launches += 1
     return buffer
@@ -143,14 +162,16 @@ def gather_rows(buffer, index):
     if buffer.is_cpu:
         return gather_rows_plain(buffer, index)
     name = "gather_rows"
-    (bsz, n, c, k), (code, _), (buffer_ptr, _, index_ptr, _) = _check_cuda(name, buffer, index)
+    (bsz, n, c, k), (code, _), (buffer_ptr, _, index_ptr, _), device = _check_cuda(
+        name, buffer, index
+    )
     rows = torch.empty((bsz, k, c), dtype=buffer.dtype, device=buffer.device)
     plan = gather_plan(c, buffer.element_size(), bsz, k)
     if plan is None:
         return rows
     _build.launch(
         "etk_gather_rows", code, buffer_ptr, index_ptr, int(index.dtype == torch.int64),
-        rows.data_ptr(), bsz, n, c, k, plan.per, plan.stages, plan.grid, _build.stream_of(buffer),
+        rows.data_ptr(), bsz, n, c, k, plan.per, plan.stages, plan.grid, _build.stream_on(device),
     )
     gather_rows.launches += 1
     return rows

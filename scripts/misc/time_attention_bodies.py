@@ -7,7 +7,7 @@ PyTorch call that computes the same function (the GEMM rows: their
 yardstick), with the host microseconds of one call.
 
     python3 scripts/misc/time_attention_bodies.py [ROOT] [--breakdown] [--tiles]
-        [--case=TAG ...] [--entry=NAME ...]
+        [--row11] [--case=TAG ...] [--entry=NAME ...]
 
 Imports ``eventful_transformer_tpu_torch`` from ROOT (the checkout this
 script lies in by default), so that two versions of the package, each in a
@@ -96,7 +96,11 @@ read, the plan, the allocation, the C call with its launch, the old
 stream read through ``torch.cuda.current_stream`` for comparison, and the
 library call (``torch.where`` for rows 10 and 14). The registers and
 spills ptxas reported for the row passes' select kernels are its ``ptxas
-row passes`` line. Needs a CUDA device.
+row passes`` line, and for the row scatter of rows 11 and 19 its ``ptxas
+row scatter`` line. ``--row11`` times row 11 (``block_scatter_rows``) at
+its three path shapes in bfloat16, and at 1024 in float32 (:func:`row11`),
+beside ``Tensor.index_put_``, in its windowed qkv group's form too: with
+``--case=NONE`` it times that alone. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -380,6 +384,102 @@ def select_pieces(name, x, p, cov):
     return pieces
 
 
+# row 11 at its paths' shapes (tag, batch, token grid, dtype): ViTDet-1024's
+# windowed qkv groups over the 70 x 70 window-major rows of its 64 x 64 grid,
+# ViTDet-672's over 42 x 42 and the e2e path's one stream; windows of 14 x 14
+ROW11 = [("1024", 2, (64, 64), torch.bfloat16), ("1024", 2, (64, 64), torch.float32),
+         ("672", 2, (42, 42), torch.bfloat16), ("e2e", 1, (42, 42), torch.bfloat16)]
+ROW11_WINDOW, ROW11_K, ROW11_F = (14, 14), 256, 2304
+
+
+def window_map(grid, window):
+    """(h * w + 1,) int32 map of row-major token -> window-major row of the
+    grid padded to whole windows, the marker h * w -> -1, and the number of
+    window-major rows (``core/indexing.py::window_row_map``, written here
+    so that a version without it is timed on the same map)."""
+    (h, w), d = grid, window
+    hp, wp = h + -h % d[0], w + -w % d[1]
+    rowmajor = torch.full((hp, wp), h * w, dtype=torch.int64)
+    rowmajor[:h, :w] = torch.arange(h * w).reshape(h, w)
+    perm = rowmajor.reshape(hp // d[0], d[0], wp // d[1], d[1]).permute(0, 2, 1, 3).reshape(-1)
+    out = torch.full((h * w + 1,), -1, dtype=torch.int32)
+    valid = perm < h * w
+    out[perm[valid]] = torch.nonzero(valid)[:, 0].to(torch.int32)
+    return out, hp * wp
+
+
+def row11(device):
+    """Row 11 (``block_scatter_rows``) at ROW11's shapes: the model's call,
+    k = 256 selected tokens of each stream row-major in ascending order (as
+    ``index_from_coverage`` lists them) into the window-major qkv buffer.
+    Three forms, each checked against ``Tensor.index_put_`` on a clone:
+    ``kernel``, the wrapper on window-major rows taken beforehand (the same
+    call in every version); ``site``, what the windowed qkv group runs: the
+    map handed to the wrapper where it takes one (``row_map``), else the
+    map's gather on the card and the wrapper; ``library``,
+    ``Tensor.index_put_`` on the rows and values gathered beforehand. Each
+    with its ms (CUDA events), host µs, device µs and kernels a call
+    (profiler; where it catches no device event, CUDA events around calls
+    queued behind a sleeping kernel, ``device_us_by``) and allocations,
+    medians of ROUNDS rounds in turns, beside
+    the bound: the index and map entries read, and h's rows read and b's
+    written at the valid slots."""
+    import inspect
+
+    from eventful_transformer_tpu_torch.ops import gate_block
+
+    fn = gate_block.block_scatter_rows
+    mapped = "row_map" in inspect.signature(fn).parameters
+    for tag, bsz, grid, dtype in ROW11:
+        row_map, nw = window_map(grid, ROW11_WINDOW)
+        g = torch.Generator().manual_seed(0)
+        n = grid[0] * grid[1]
+        index = torch.stack([torch.randperm(n, generator=g)[:ROW11_K].sort().values
+                             for _ in range(bsz)]).to(torch.int32)
+        buf = torch.randn((bsz, nw, ROW11_F), generator=g).to(device, dtype)
+        h = torch.randn((bsz, ROW11_K, ROW11_F), generator=g).to(device, dtype)
+        index, row_map = index.to(device), row_map.to(device)
+        taken = row_map[index]
+        rows = torch.arange(bsz, device=device)[:, None].expand(index.shape)
+        pairs, values = (rows.reshape(-1), taken.reshape(-1).long()), h.reshape(-1, ROW11_F)
+        first = buf.clone()
+        want = first.clone().index_put_(pairs, values)
+        lib_buf = buf.clone()
+        forms = {
+            "kernel": lambda: fn(buf, taken, h),
+            "site": (lambda: fn(buf, index, h, row_map)) if mapped
+            else (lambda: fn(buf, row_map[index], h)),
+            "library": lambda: lib_buf.index_put_(pairs, values),
+        }
+        ok = {}
+        for form in ("kernel", "site"):
+            buf.copy_(first)
+            ok[form] = torch.equal(forms[form](), want)
+        times = {form: {"ms": [], "us": []} for form in forms}
+        for _ in range(ROUNDS):
+            for form, call in forms.items():
+                times[form]["ms"].append(kernel_check.time_call(call, ITERS))
+                times[form]["us"].append(host_us(call))
+        size = buf.element_size()
+        bound_us = (2 * index.numel() * 4 + 2 * index.numel() * ROW11_F * size) / 3.35e12 * 1e6
+        for form, call in forms.items():
+            dev_us, kernels = device_us(call)
+            by = "profiler"
+            if not dev_us:  # the profiler caught no device event: events around queued calls
+                dev_us, by = kernel_check.queued_device_us(call), "events behind a sleep"
+            print("row11", tag, str(dtype).split(".")[-1], form, "nw", nw,
+                  "ms", round(statistics.median(times[form]["ms"]), 4),
+                  "host_us", round(statistics.median(times[form]["us"]), 2),
+                  "host_idle_us", round(host_idle_us(call), 2), "device_us", round(dev_us, 2),
+                  "device_us_by", by, "bound_us", round(bound_us, 3),
+                  "bound_share", round(bound_us / dev_us, 3) if dev_us else None,
+                  "matches index_put_", ok.get(form),
+                  "kernels", {k: [round(c, 2), round(t, 2)] for k, (c, t) in kernels.items()},
+                  "allocations", allocations(call), flush=True)
+        del buf, h, lib_buf, want, first
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("time_attention_bodies: needs a CUDA device")
@@ -398,6 +498,7 @@ def main():
     print("ptxas relpos", ptxas_lines(log, "relpos"))
     print("ptxas row passes", [line for needle in ROW_PASS_PTXAS
                                for line in ptxas_lines(log, needle)])
+    print("ptxas row scatter", ptxas_lines(log, "scatter_rows"))
     device = torch.device("cuda")
     for tag, bsz, n, k, inputs, names in CASES:
         if TAGS and tag not in TAGS:
@@ -450,6 +551,8 @@ def main():
             del dd
         del d
         torch.cuda.empty_cache()
+    if "--row11" in sys.argv:
+        row11(device)
     if "--breakdown" in sys.argv:
         breakdown(device)
 

@@ -813,6 +813,94 @@ def test_row_kernels_launch_on_the_current_stream(device):
 
 
 
+# -- row 11, the window-major rows' scatter, a bulk row copy ------------------------------
+
+ROW11_GRIDS = {"672": ((42, 42), (14, 14)), "1024": ((64, 64), (14, 14))}  # 1024: 70 x 70 rows
+
+
+def _row11_inputs(grid, dtype, device, bsz=2, k=256, f=2304, seed=0):
+    """The windowed qkv group's operands at ViTDet's shapes: the window-major
+    buffer (bsz, NW, f) and h (bsz, k, f) on the card; on the CPU the
+    selected tokens row-major in random order with the selection's marker
+    N, -1, an index below -1 and one past the map among the slots, and the
+    window map (N + 1,) int32."""
+    from eventful_transformer_tpu_torch.core.indexing import window_row_map
+
+    (gh, gw), window = ROW11_GRIDS[grid]
+    n = gh * gw
+    row_map = torch.from_numpy(window_row_map((gh, gw), window))
+    nw = (gh + -gh % window[0]) * (gw + -gw % window[1])
+    g = torch.Generator().manual_seed(seed)
+    buf = torch.randn((bsz, nw, f), generator=g).to(device, dtype)
+    h = torch.randn((bsz, k, f), generator=g).to(device, dtype)
+    index = torch.stack([torch.randperm(n, generator=g)[:k] for _ in range(bsz)]).int()
+    index[:, 0] = n
+    index[0, 5], index[0, 7], index[-1, 9] = -1, -5, n + 3
+    return buf, index, h, row_map
+
+
+@pytest.mark.parametrize("mapped", [True, False], ids=["map", "no_map"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("grid", sorted(ROW11_GRIDS))
+def test_block_scatter_rows_matches_plain_bit_for_bit(grid, dtype, mapped, device):
+    """Row 11 at ViTDet-672's and 1024's shapes (B = 2, KP = 256, F = 2304)
+    against its plain version: with the window map (row-major tokens in
+    random order, the marker N, -1, -5 and an index past the map) and
+    without (the window-major rows taken beforehand, with rows of NW and
+    more planted); equal element for element, in place, one launch a
+    call."""
+    from eventful_transformer_tpu_torch.ops.gate_block import (
+        block_scatter_rows,
+        block_scatter_rows_plain,
+    )
+
+    buf, index, h, row_map = _row11_inputs(grid, dtype, device)
+    if not mapped:
+        inside = (index >= 0) & (index < row_map.numel())
+        index = torch.where(inside, row_map[index.clamp(0, row_map.numel() - 1)], -1).int()
+        index[0, 3], index[-1, 4] = buf.shape[1], buf.shape[1] + 7
+        row_map = None
+    want = block_scatter_rows_plain(buf.cpu(), index, h.cpu(), row_map)
+    before = block_scatter_rows.launches
+    got = block_scatter_rows(buf, index.to(device), h,
+                             None if row_map is None else row_map.to(device))
+    assert got is buf and block_scatter_rows.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_block_scatter_rows_refusals_raise_before_the_launch(device):
+    """Row 11's one-pass operand check refuses, before any launch and with
+    the buffer untouched: a non-contiguous buffer, one off a 16-byte
+    boundary, an int64 index, rows that are no whole 16-byte words, h of
+    another dtype, an index on the CPU and an int64 map."""
+    from eventful_transformer_tpu_torch.ops.gate_block import block_scatter_rows
+
+    buf, index, h, row_map = _row11_inputs("672", torch.bfloat16, device, k=24, f=192)
+    index, row_map = index.to(device), row_map.to(device)
+    flat = torch.empty(buf.numel() + 4, dtype=buf.dtype, device=device)
+    misaligned = flat[4:].view(buf.shape)
+    misaligned.copy_(buf)
+    strided = torch.empty(buf.shape[:-1] + (2 * buf.shape[-1],), dtype=buf.dtype,
+                          device=device)[..., : buf.shape[-1]]
+    strided.copy_(buf)
+    ragged = torch.zeros(buf.shape[:-1] + (12,), dtype=buf.dtype, device=device)
+    faults = [
+        (ValueError, "input must be contiguous", (strided, index, h, row_map)),
+        (ValueError, "must start on a 16-byte boundary", (misaligned, index, h, row_map)),
+        (TypeError, "index is torch.int64", (buf, index.long(), h, row_map)),
+        (ValueError, "not whole 16-byte words", (ragged, index, h[..., :12].contiguous(), row_map)),
+        (TypeError, "h is torch.float32", (buf, index, h.float(), row_map)),
+        (ValueError, "index must be a contiguous tensor", (buf, index.cpu(), h, row_map)),
+        (TypeError, "row_map must be a 1-D torch.int32", (buf, index, h, row_map.long())),
+    ]
+    before = block_scatter_rows.launches
+    for error, message, (b, i, hh, m) in faults:
+        kept = b.clone()
+        with pytest.raises(error, match=message):
+            block_scatter_rows(b, i, hh, m)
+        assert torch.equal(b, kept)
+    assert block_scatter_rows.launches == before
+
 # -- the bulk row-copy kernels of rows 18 and 20 -------------------------------------------
 
 ROW_COPY_WIDTHS = [128, 768, 2304, 3072, 8192]
@@ -895,17 +983,18 @@ def test_scatter_blend_off_16_byte_words_matches_plain(c, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", ["scatter_blend", "scatter_blend_qkv", "scatter_blend_masked",
                                   "gather_rows", "gather_rows_qkv", "scatter_rows_inplace",
-                                  "scatter_rows_inplace_qkv_masked"])
+                                  "scatter_rows_inplace_qkv_masked", "block_scatter_rows"])
 def test_row_copy_kernels_launch_once_and_allocate_their_output(name, dtype, device):
     """Rows 18 and 20 launch their one kernel once a call and allocate only
-    their output; row 19, the control, still launches scatter_rows_kernel
-    once a call and allocates nothing (kernel_check.row_copy_profile)."""
+    their output; rows 11 and 19, the scatters in place, launch theirs once
+    a call and allocate nothing (kernel_check.row_copy_profile)."""
     d = kernel_check.make_inputs(2, 197, 256, 4, 24, dtype, device)
     row = kernel_check.row_copy_profile(name, d, kernel_check.bound(name, d)[0])
     wrapper = kernel_check.KERNELS[name][0].__name__
     assert row["kernels_per_call"] == {kernel_check.ROW_COPY_KERNELS[wrapper]: 1}, row
     assert row["one_launch"], row
-    assert row["allocations_per_call"] == (0 if wrapper == "scatter_rows_inplace" else 1), row
+    scatters = ("scatter_rows_inplace", "block_scatter_rows")
+    assert row["allocations_per_call"] == (0 if wrapper in scatters else 1), row
     assert row["device_us"] > 0 and 0 < row["bound_share"]
 
 # -- the wgmma GEMM core of rows 4 and 5 -------------------------------------------------

@@ -178,12 +178,35 @@ def test_cast_attention_library_call_is_sdpa_in_bfloat16(dtype):
 @pytest.mark.parametrize("name", ["block_select_p_noln", "block_scatter_rows"])
 def test_window_row_library_calls_compute_the_same_function(name):
     """Rows 10 (without the LN) and 11: torch.where and Tensor.index_put_
-    (on the valid slots, gathered beforehand) equal the plain version on
-    inputs with an invalid (-1) slot in every batch row."""
+    (on the valid slots, mapped through the window map and gathered
+    beforehand) equal the plain version on inputs with an invalid slot in
+    every batch row (-1, and the selection's marker N in row 11's
+    row-major index, which the map sends to -1)."""
     d = kernel_check.make_inputs(2, 37, 64, 4, 11, torch.float32, "cpu", seed=1)
     assert bool((d["w_index"] < 0).any())
+    assert bool((d["sel_index"] == 37).any(-1).all()) and int(d["window_map"][37]) == -1
     want = kernel_check.call(name, d, plain=True)[0]
     assert torch.equal(kernel_check.library_call(name, d)(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fault", ["out_of_range_written", "neighbouring_row"])
+def test_window_scatter_faults_fail(fault, dtype):
+    """Row 11 must equal its plain version bit for bit: a scatter that
+    writes its out-of-range slot (the selection's marker, which the window
+    map sends to -1, written at row 0) fails, as does one that writes each
+    row into the neighbouring window-major row; the plain version itself
+    passes."""
+    d = kernel_check.make_inputs(2, 197, 256, 4, 24, dtype, "cpu")
+    want = kernel_check.call("block_scatter_rows", d, plain=True)[0]
+    assert kernel_check.compare_exact(want.clone(), want)["ok"]
+    window_map, nw = d["window_map"], d["buf_win"].shape[1]
+    if fault == "out_of_range_written":
+        bad = window_map.clamp(min=0)
+    else:
+        bad = torch.where(window_map >= 0, (window_map + 1) % nw, window_map)
+    got = kernel_check.call("block_scatter_rows", dict(d, window_map=bad), plain=True)[0]
+    assert not kernel_check.compare_exact(got, want)["ok"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
