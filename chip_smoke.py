@@ -17,7 +17,10 @@ gates, also with put_rows as the scatter-blend kernel) and ablate_av_672
 (EventfulMatmul1Block), and spatiotemporal_672 with the gate-group kernels
 selecting their own rows; and ViTDet-B detection end
 to end at 672 through ``ViTDet.apply`` (backbone, SimplePyramid, RPN,
-ROIAlign, NMS, the standard ROI heads); each with its dense twin.
+ROIAlign, NMS, the standard ROI heads); each with its dense twin; and the evaluation harness on the
+card: run_evaluations over temporal_24 (ViViT-B K400) and threshold_1024
+(ViTDet-B VID at 1024, the capacity-bucketed threshold sweep), and the
+ViViT entry point as a user runs it.
 Phases, one JSON line each, with the seconds the phase took:
 
   1. env:            torch, CUDA and nvcc versions and the card (nvidia-smi).
@@ -238,9 +241,49 @@ Phases, one JSON line each, with the seconds the phase took:
                      descriptors encoded in all, the cache's size, and the
                      timed runs of every path that encoded any after their
                      warm-up (their scratch at new addresses).
+  28. threshold_kernels: the forms a threshold policy (TokenNormThreshold)
+                     gives the kernels (kernel_check.THRESHOLD), as in 3:
+                     gate_group_mlp on a coverage of fewer than kcap rows
+                     at the paper's ViViT's shape and k = N = 197 (path
+                     A's), beside the top-k form at k = N; gate_group_linear's
+                     "none" and "post" forms at 672, rows 9, 10 and 11
+                     with masked-off slots keyed to the marker N at 1024
+                     (k = 512; rows 9 qkv and 11 also at k = N = 4096,
+                     beside row 9's qkv top-k form), and the A.V kernel over ViTDet-1024's 4096
+                     unpooled keys with a batch row that covers none.
+  29. harness_vivit: path A, the evaluation harness: the port's
+                     run_evaluations on configs/evaluate/vivit_kinetics400/
+                     temporal_24.yml as its utils/config.py composes it
+                     (12 EventfulBlocks, k = 24, 3 x 4 views), one
+                     generated 64-frame clip (the synthetic override),
+                     float32, swept with top-k 24 and a threshold at full
+                     capacity: each entry's launches (counts set to 0
+                     before and read after), finite probabilities,
+                     top-1/top-5, counts and ms per clip.
+  30. harness_vitdet: path B: run_evaluations with evaluate_vitdet_metrics on
+                     threshold_1024.yml (thresholds 0.2, 1.0, 5.0; buckets
+                     512-4096) at full width and depth, float32, one
+                     generated video of 5 raw 720 x 1280 frames through the
+                     port's VIDResize (long edge 1024): per threshold the
+                     launches (rows 1, 9, 10, 11 and 8 per incremental run,
+                     escalated runs included), finite detections, mAP,
+                     counts, ms per frame, escalations and frames per
+                     bucket level; then 3 frames of the backbone cut to
+                     VITDET_CHECK_DEPTH blocks through the bucketed dispatch
+                     at threshold 0.2, card against CPU: the same
+                     escalations and levels, valid selections differing in
+                     at most 0.1 %, counts within 1e-6 and tokens within
+                     1e-3 where every selection agrees.
+  31. harness_cli:    path C: python -m eventful_transformer_tpu_torch.scripts.
+                     evaluate.vivit_kinetics400 synthetic_smoke as a
+                     subprocess on the card (its output.txt names the card)
+                     against the same config in this process with
+                     model.device=cpu: the same metrics.csv, counts.csv
+                     within 1e-6.
 The times are a record, not a claim.
 
-Then the whole run's seconds, the card's name and power limit, one JSON
+Phases 25-27 run last, after 28-31, and read their runs too. Then the
+whole run's seconds, the card's name and power limit, one JSON
 line with every kernel's numbers, and last ``{"ok": true, "device":
 {...}}``. Any failed check
 raises, and the script exits non-zero; without a CUDA device it raises
@@ -2890,6 +2933,448 @@ def unwired_path(device, smi):
     return out
 
 
+# -- the evaluation harness (paths A-C) ---------------------------------------------
+
+# Path A: configs/evaluate/vivit_kinetics400/temporal_24.yml as the port's
+# utils/config.py composes it, one generated clip (the JAX script's
+# ``synthetic`` override) of HARNESS_CLIP_FRAMES frames of 240 x 320 (the
+# preprocessing takes the short edge to 224), swept with top-k 24 and, as
+# an override, the threshold HARNESS_VIVIT_THRESHOLD at full capacity (the
+# "v2mlp" MLP group on a coverage of fewer than kcap rows, kcap = N = 197).
+HARNESS_CLIP_FRAMES = 64
+HARNESS_VIVIT_THRESHOLD = 0.5
+# Path B: configs/evaluate/vitdet_vid/threshold_1024.yml (thresholds 0.2, 1.0,
+# 5.0; buckets 512-4096), one generated video of HARNESS_VID_FRAMES raw
+# 720 x 1280 frames through the port's VIDResize (long edge to 1024), one
+# ground-truth box a frame; its card-vs-CPU check at VITDET_CHECK_DEPTH
+# blocks, HARNESS_CHECK_FRAMES frames, at each of HARNESS_CHECK_THRESHOLDS.
+HARNESS_VID_FRAMES = 5
+HARNESS_VID_RAW = (720, 1280)
+HARNESS_CHECK_FRAMES, HARNESS_CHECK_THRESHOLDS = 3, (0.2,)
+# a card-vs-CPU check of path B may differ in this share of the valid
+# selections (a norm within summation-order noise of the threshold or of
+# the capacity's k-th norm)
+HARNESS_MAX_DIFFER_SHARE = 1e-3
+HARNESS_COUNTS_RTOL = 1e-6
+# path B's launches per incremental frame run (blocked regime, 8 windowed
+# and 4 global blocks): block_select_scatter in the 4 global qkv groups and
+# every projection and MLP group, the windowed qkv groups' select/scatter
+# pair, the global blocks' A.V kernel, ln_norms for the first block
+HARNESS_B_STEP = dict(block_select_scatter=VITDET_GLOBAL + 2 * VITDET_DEPTH,
+                      block_select_p=VITDET_WINDOWED, block_scatter_rows=VITDET_WINDOWED,
+                      softmax_select_matmul=VITDET_GLOBAL, ln_norms=1)
+# the kernel checks of the forms a threshold policy gives the kernels
+# (kernel_check.THRESHOLD) at the paths' shapes, with the capacity at the
+# smallest bucket and at N: (tag, batch, N, k, entries, make_inputs keywords)
+_B_BLOCKED = ("block_select_p_threshold", "block_scatter_rows_threshold",
+              "block_select_scatter_qkv_threshold", "block_select_scatter_proj_threshold",
+              "block_select_scatter_mlp_threshold")
+THRESHOLD_KERNEL_CASES = [
+    ("vivit_evblock_kcap_n", EV_SPATIAL_VIEWS * EV_TEMPORAL_VIEWS, N_TOKENS, N_TOKENS,
+     ("gate_group_mlp_threshold", "gate_group_mlp"), {}),
+    ("672", VITDET_STREAMS, VITDET[672]["n"], VITDET_K,
+     ("gate_group_linear_threshold", "gate_group_linear_post_threshold"), VITDET[672]["inputs"]),
+    ("1024", 1, VITDET[1024]["n"], 512, _B_BLOCKED, VITDET[1024]["inputs"]),
+    ("1024_kcap_n", 1, VITDET[1024]["n"], VITDET[1024]["n"],
+     ("block_scatter_rows_threshold", "block_select_scatter_qkv_threshold",
+      "block_select_scatter_qkv"), VITDET[1024]["inputs"]),
+    ("1024_global", 1, VITDET[1024]["n"], 512, ("softmax_select_matmul_threshold",),
+     dict(VITDET[1024]["inputs"], pool=(64, 64), relpos_keys=(8, 8))),
+]
+# the THRESHOLD entries a path launches, with the tag of their check
+HARNESS_ROWS = {
+    "harness_vivit": [("gate_group_mlp_threshold", "vivit_evblock_kcap_n")],
+    "harness_vitdet": [(name, "1024") for name in _B_BLOCKED]
+    + [("softmax_select_matmul_threshold", "1024_global")],
+}
+
+
+def harness_config(location, argv):
+    """The port's ``get_cli_config`` of ``configs/evaluate/<location>`` from
+    the repo's root, as the entry points read it."""
+    from eventful_transformer_tpu_torch.utils.config import get_cli_config
+
+    with contextlib.chdir(REPO):
+        return get_cli_config(Path("configs", "evaluate", location), argv=argv)
+
+
+class HarnessVID:
+    """One generated VID video: HARNESS_VID_FRAMES raw uint8 frames (a
+    random image, a square that drifts 8 pixels a frame, a little noise),
+    each through ``transform`` (the port's VIDResize) as VIDItem does, with
+    one ground-truth box on the square."""
+
+    def __init__(self, transform, frames=HARNESS_VID_FRAMES, seed=SEED):
+        rng = np.random.default_rng(seed)
+        h, w = HARNESS_VID_RAW
+        base = rng.integers(0, 256, (3, h, w)).astype(np.float32)
+        self.items = []
+        for t in range(frames):
+            frame = base + rng.normal(0.0, 3.0, base.shape)
+            y0, x0 = 200, 300 + 8 * t
+            frame[:, y0 : y0 + 160, x0 : x0 + 240] = 255.0
+            box = np.asarray([[x0, y0, x0 + 240, y0 + 160]], np.float32)
+            ann = {"boxes": box, "labels": np.asarray([t % 30], np.int32)}
+            self.items.append(transform((frame.clip(0, 255).astype(np.uint8), ann)))
+
+    def __len__(self):
+        return 1
+
+    def __getitem__(self, index):
+        if index != 0:
+            raise IndexError(index)
+        return self.items
+
+
+def harness_evaluate(evaluate, per_entry, check_output):
+    """``evaluate(model, data, config)`` with the launch counts set to 0
+    just before and read just after, the seconds it took (the card
+    synchronised), the policy of the entry and ``check_output(model)``'s
+    checks appended to ``per_entry``."""
+    from eventful_transformer_tpu_torch.utils.misc import token_gates
+
+    wrapped = {}
+
+    def run(model, data, config):
+        if id(model) not in wrapped:
+            wrapped[id(model)] = check_output(model)
+        finite = wrapped[id(model)]
+        reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = evaluate(model, data, config)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = read_launches()
+        policy = token_gates(model)[0].policy
+        per_entry.append(dict(
+            policy=type(policy).__name__,
+            threshold=getattr(policy, "threshold", None), k=getattr(policy, "k", None),
+            seconds=seconds, launches={k: v for k, v in launches.items() if v},
+            finite=bool(torch.stack(finite).all()) if finite else None,
+            metrics={k: float(v) for k, v in result["metrics"].items()},
+            counts=dict(result["counts"]),
+        ))
+        per_entry[-1]["all_launches"] = launches
+        finite.clear()
+        return result
+
+    return run
+
+
+def threshold_launches(entries):
+    """The launches by wrapper of a path's threshold entries: the runs
+    that give the kernels the forms of kernel_check.THRESHOLD."""
+    return {name: sum(e["launches"].get(name, 0) for e in entries
+                      if e["policy"] == "TokenNormThreshold") for name in wrappers()}
+
+
+def checked_method(model, name, outputs):
+    """Wrap ``model.<name>`` so that each call appends whether its tensor
+    outputs are finite to the returned list."""
+    finite = []
+    method = getattr(model, name)
+
+    def call(*args, **kwargs):
+        out = method(*args, **kwargs)
+        for key in outputs:
+            value = out[key] if isinstance(out, dict) else out
+            finite.append(torch.isfinite(value.float()).all())
+        return out
+
+    setattr(model, name, call)
+    return finite
+
+
+def harness_vivit(device, tmp, smi):
+    """Path A: the port's run_evaluations on temporal_24 (one synthetic
+    clip, top-k 24 and a threshold entry), float32 as the harness builds it;
+    each entry's launches (as the paper's ViViT's "auto" run: ln_norms and
+    gate_group_mlp in every spatial block of the 15 incremental steps, the
+    temporal model's window_attention and dense_mlp_residual), finite
+    probabilities, top-1/top-5, counts and ms per clip."""
+    from eventful_transformer_tpu_torch.data.synthetic import SyntheticVideoClassification
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.utils.evaluate import (
+        evaluate_vivit_metrics,
+        run_evaluations,
+    )
+
+    synthetic = dict(n_items=1, n_frames=HARNESS_CLIP_FRAMES, size=[240, 320], classes=400,
+                     seed=SEED)
+    config = harness_config("vivit_kinetics400", [
+        "temporal_24", f"_output={tmp}/vivit", "n_items=1", f"synthetic={json.dumps(synthetic)}",
+        f"token_thresholds=[{HARNESS_VIVIT_THRESHOLD}]",
+    ])
+    data = SyntheticVideoClassification(**config["synthetic"])
+    entries = []
+    evaluate = harness_evaluate(
+        evaluate_vivit_metrics, entries,
+        lambda model: checked_method(model, "apply_views", (None,)),
+    )
+    models = []
+
+    def build(**kwargs):
+        models.append(FactorizedViViT(**kwargs))
+        return models[-1]
+
+    done = run_evaluations(config, build, data, evaluate)
+    read_routes(torch.float32, "harness_vivit")
+    want = ev_expected_launches("auto")
+    for entry in entries:
+        launches = entry.pop("all_launches")
+        if launches != want:
+            raise AssertionError(f"harness_vivit {entry['policy']}: launches {launches}, "
+                                 f"expected {want}")
+        if not entry["finite"]:
+            raise AssertionError(f"harness_vivit {entry['policy']}: non-finite probabilities")
+        entry["ms_per_clip"] = entry.pop("seconds") * 1e3 / len(data)
+    emit("harness_vivit", card=smi, config="temporal_24",
+         device=str(next(models[0].parameters()).device), dtype="float32", entries_done=done,
+         clip=list(data[0][0].shape), entries=entries)
+    return threshold_launches(entries)
+
+
+def vid_frames(data, input_shape, device):
+    """The frames of ``data``'s one video as ``evaluate_vitdet_metrics``
+    hands them to the model: padded on the host to the input shape, with
+    their content size."""
+    c, h, w = input_shape
+    out = []
+    for frame, _ in data[0]:
+        padded = torch.zeros((1, c, h, w))
+        padded[0, :, : frame.shape[-2], : frame.shape[-1]] = torch.from_numpy(frame)
+        out.append((padded.to(device), tuple(frame.shape[-2:])))
+    return out
+
+
+def backbone_dispatch(model, frames, threshold, capacities, log):
+    """The frames through ``BucketedThresholdStep`` around the backbone
+    (``pre_backbone`` and ``apply_backbone``, the head left out), each
+    valid selection of a threshold policy appended to ``log`` (on the CPU).
+    Returns (the last tokens, the mean counts a frame, the dispatcher)."""
+    from eventful_transformer_tpu_torch.core.counting import Counts, Ctx
+    from eventful_transformer_tpu_torch.core.indexing import coverage
+    from eventful_transformer_tpu_torch.core.policies import TokenNormThreshold
+    from eventful_transformer_tpu_torch.utils.bucketing import BucketedThresholdStep
+
+    aux = model.precompute()
+
+    def build(_capacity=None):
+        @torch.no_grad()
+        def step(state, frame, content_hw, first):
+            ctx = Ctx(count_mode=True)
+            tokens = model.pre_backbone(ctx, frame, content_hw)
+            tokens, state = model.apply_backbone(ctx, state, tokens, aux,
+                                                 mode="flush" if first else "incremental")
+            return tokens, state, ctx.counts
+
+        return step
+
+    select = TokenNormThreshold.select_from_norms
+
+    def recorded(policy, norms, ctx=None):
+        index, mask = select(policy, norms, ctx)
+        log.append(coverage(index, mask, norms.shape[-1]).cpu())
+        return index, mask
+
+    dispatcher = BucketedThresholdStep(model, build, threshold, capacities)
+    p = next(model.parameters())
+    state = model.init_state(1, p.dtype, p.device)
+    total = Counts()
+    TokenNormThreshold.select_from_norms = recorded
+    try:
+        for t, (frame, content_hw) in enumerate(frames):
+            tokens, state, counts = dispatcher(state, frame, content_hw, t == 0)
+            total = total + counts
+    finally:
+        TokenNormThreshold.select_from_norms = select
+    return tokens, total / len(frames), dispatcher
+
+
+def harness_vitdet_check(config, data, device):
+    """Path B at VITDET_CHECK_DEPTH blocks (two windowed, one global) in
+    float32, the card against the CPU (plain versions): HARNESS_CHECK_FRAMES
+    frames through the bucketed dispatch at each of HARNESS_CHECK_THRESHOLDS.
+    The same bucket levels and escalations, valid selections that differ in
+    at most HARNESS_MAX_DIFFER_SHARE, and where every selection agrees the
+    counts within HARNESS_COUNTS_RTOL and the tokens within
+    VITDET_TOKEN_TOL (scaled)."""
+    from eventful_transformer_tpu_torch.core.policies import TokenNormThreshold
+    from eventful_transformer_tpu_torch.models import ViTDet
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    cfg = copy.deepcopy(config["model"])
+    cfg.pop("device", None)
+    cfg["backbone_config"].update(depth=VITDET_CHECK_DEPTH,
+                                  window_indices=list(VITDET_CHECK_WINDOWS))
+    cpu_model = ViTDet(**cfg, device="cpu", seed=SEED)
+    card_model = copy.deepcopy(cpu_model).to(device)
+    frames = vid_frames(data, cfg["input_shape"], "cpu")[:HARNESS_CHECK_FRAMES]
+    checks = []
+    for threshold in HARNESS_CHECK_THRESHOLDS:
+        runs = {}
+        for tag, model, dev in (("card", card_model, device), ("cpu", cpu_model, "cpu")):
+            set_policies(model, TokenNormThreshold, threshold=threshold)
+            log = []
+            start = time.perf_counter()
+            tokens, counts, dispatcher = backbone_dispatch(
+                model, [(f.to(dev), hw) for f, hw in frames], threshold,
+                config["bucket_capacities"], log,
+            )
+            runs[tag] = dict(tokens=tokens.cpu(), counts=counts, log=log,
+                             seconds=time.perf_counter() - start,
+                             escalations=dispatcher.escalations,
+                             frames_per_level=list(dispatcher.frames_per_level))
+        card, cpu = runs["card"], runs["cpu"]
+        levels = {tag: (run["escalations"], run["frames_per_level"]) for tag, run in runs.items()}
+        if levels["card"] != levels["cpu"] or len(card["log"]) != len(cpu["log"]):
+            raise AssertionError(f"harness_vitdet check at {threshold}: (escalations, frames "
+                                 f"per level) {levels}")
+        selections = sum(float(b.sum()) for b in cpu["log"])
+        differing = sum(float((a != b).sum()) for a, b in zip(card["log"], cpu["log"]))
+        scaled = float(((card["tokens"] - cpu["tokens"]).abs()
+                        / cpu["tokens"].abs().clamp(min=1.0)).max())
+        worst = max(abs(card["counts"][k] - v) / abs(v) for k, v in cpu["counts"].items() if v)
+        numbers = dict(
+            threshold=threshold, escalations=card["escalations"],
+            frames_per_level=card["frames_per_level"], valid_selections=selections,
+            selections_differing=differing, counts_max_rel_diff=worst,
+            max_scaled_token_err=scaled, card_s=card["seconds"], cpu_s=cpu["seconds"],
+        )
+        checks.append(numbers)
+        if differing > HARNESS_MAX_DIFFER_SHARE * max(selections, 1.0):
+            raise AssertionError(f"harness_vitdet check: selections differ: {numbers}")
+        if differing == 0 and (worst > HARNESS_COUNTS_RTOL or scaled > VITDET_TOKEN_TOL):
+            raise AssertionError(f"harness_vitdet check: counts or tokens differ: {numbers}")
+    return dict(depth=VITDET_CHECK_DEPTH, frames=len(frames),
+                max_differ_share=HARNESS_MAX_DIFFER_SHARE, counts_rtol=HARNESS_COUNTS_RTOL,
+                token_tol=VITDET_TOKEN_TOL, thresholds=checks)
+
+
+def harness_vitdet(device, tmp, smi):
+    """Path B: the port's run_evaluations with evaluate_vitdet_metrics on
+    threshold_1024 at full width and depth, float32, one generated video;
+    per threshold entry the launches (HARNESS_B_STEP per incremental frame
+    run, the escalated runs included), finite detections, mAP, counts, ms
+    per frame, escalations and frames per bucket level; then the
+    card-vs-CPU check (harness_vitdet_check)."""
+    from eventful_transformer_tpu_torch.data.vid import VIDResize
+    from eventful_transformer_tpu_torch.models import ViTDet
+    from eventful_transformer_tpu_torch.utils.evaluate import (
+        evaluate_vitdet_metrics,
+        run_evaluations,
+    )
+
+    config = harness_config("vitdet_vid", ["threshold_1024", f"_output={tmp}/vitdet", "n_items=1"])
+    long_edge = max(config["model"]["input_shape"][-2:])
+    data = HarnessVID(VIDResize(short_edge_length=640 * long_edge // 1024, max_size=long_edge))
+    entries, dispatchers = [], []
+
+    def evaluate(model, data, config):
+        return evaluate_vitdet_metrics(model, data, config, dispatchers)
+
+    evaluate = harness_evaluate(
+        evaluate, entries, lambda model: checked_method(model, "post_backbone", ("boxes", "scores"))
+    )
+
+    def build(**kwargs):
+        model = ViTDet(**kwargs)
+        with torch.no_grad():
+            model.roi_heads.cls_score.kernel.mul_(CLS_SCORE_GAIN)
+        return model
+
+    done = run_evaluations(config, build, data, evaluate)
+    read_routes(torch.float32, "harness_vitdet")
+    frames = len(data[0])
+    for entry, dispatcher in zip(entries, dispatchers):
+        launches = entry.pop("all_launches")
+        runs = frames - 1 + dispatcher.escalations  # a flush frame never escalates
+        wrong = {name: (launches[name], count * runs) for name, count in HARNESS_B_STEP.items()
+                 if launches[name] != count * runs}
+        if wrong:
+            raise AssertionError(f"harness_vitdet {entry['threshold']}: launches (got, want) "
+                                 f"{wrong}")
+        idle = [name for name in ("window_attention", "relpos_bias_add_v2") if not launches[name]]
+        if idle or not entry["finite"]:
+            raise AssertionError(f"harness_vitdet {entry['threshold']}: idle {idle}, "
+                                 f"finite detections {entry['finite']}")
+        entry.update(ms_per_frame=entry.pop("seconds") * 1e3 / frames,
+                     escalations=dispatcher.escalations,
+                     frames_per_level=list(dispatcher.frames_per_level),
+                     capacities=list(dispatcher.capacities), incremental_runs=runs)
+    frame_shapes = sorted({tuple(f.shape) for f, _ in data[0]})
+    check = harness_vitdet_check(config, data, device)
+    emit("harness_vitdet", card=smi, config="threshold_1024", dtype="float32",
+         entries_done=done, frames=frames, resized_frames=[list(s) for s in frame_shapes],
+         entries=entries, f32_card_vs_cpu=check)
+    return threshold_launches(entries)
+
+
+def harness_cli(tmp, smi):
+    """Path C: ``python -m eventful_transformer_tpu_torch.scripts.evaluate.
+    vivit_kinetics400 synthetic_smoke`` as a user runs it, on the card (its
+    output.txt names the card), against the same config run in this
+    process with ``model.device=cpu``: the same metrics.csv, and counts.csv
+    within HARNESS_COUNTS_RTOL."""
+    import io
+
+    from eventful_transformer_tpu_torch.scripts.evaluate import vivit_kinetics400
+
+    module = "eventful_transformer_tpu_torch.scripts.evaluate.vivit_kinetics400"
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, "synthetic_smoke", f"_output={tmp}/cli_card"],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    card_s = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise AssertionError(f"harness_cli: the entry point failed: {proc.stderr[-3000:]}")
+    start = time.perf_counter()
+    with contextlib.chdir(REPO), contextlib.redirect_stdout(io.StringIO()):
+        vivit_kinetics400.main(["synthetic_smoke", "model.device=cpu", f"_output={tmp}/cli_cpu"])
+    cpu_s = time.perf_counter() - start
+    card, cpu = Path(tmp, "cli_card"), Path(tmp, "cli_cpu")
+    described = [line for line in (card / "output.txt").read_text().splitlines()
+                 if line.startswith(("gpu:", "cpu:"))]
+    metrics = (card / "metrics.csv").read_text(), (cpu / "metrics.csv").read_text()
+
+    def rows(path):
+        lines = (path / "counts.csv").read_text().strip().splitlines()
+        return lines[0], [[float(v) for v in line.split(",")] for line in lines[1:]]
+
+    (card_head, card_rows), (cpu_head, cpu_rows) = rows(card), rows(cpu)
+    worst = max(abs(a - b) / abs(b) for ra, rb in zip(card_rows, cpu_rows)
+                for a, b in zip(ra, rb) if b)
+    numbers = dict(devices=described, metrics_card=metrics[0], metrics_cpu=metrics[1],
+                   counts_max_rel_diff=worst, counts_rtol=HARNESS_COUNTS_RTOL,
+                   card_process_s=card_s, cpu_s=cpu_s)
+    if (not described or not all(d.startswith("gpu:") for d in described)
+            or metrics[0] != metrics[1] or card_head != cpu_head
+            or len(card_rows) != len(cpu_rows) or worst > HARNESS_COUNTS_RTOL):
+        raise AssertionError(f"harness_cli: the card's run disagrees with the CPU's: {numbers}")
+    emit("harness_cli", card=smi, config="synthetic_smoke", **numbers)
+
+
+def harness_paths(device, smi):
+    """The masked kernel forms (phase threshold_kernels), then paths A, B
+    and C. Returns the final line's rows of the THRESHOLD entries the
+    paths launch."""
+    import tempfile
+
+    rows = check_kernels("threshold_kernels", device, THRESHOLD_KERNEL_CASES)
+    out = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_harness_") as tmp:
+        for path, run in (("harness_vivit", harness_vivit), ("harness_vitdet", harness_vitdet)):
+            launches = run(device, tmp, smi)
+            torch.cuda.empty_cache()
+            out += [kernel_row(name, rows[(name, torch.float32, tag)], launches, path)
+                    for name, tag in HARNESS_ROWS[path]]
+        harness_cli(tmp, smi)
+    idle = [row["name"] for row in out if not row["launches"]]
+    if idle:
+        raise AssertionError(f"harness paths launched no {idle}")
+    return out
+
+
 def main():
     smi = phase_env()
     from eventful_transformer_tpu_torch.ops import kernel_check
@@ -2917,6 +3402,7 @@ def main():
     kernels += topk_paths(device, smi)
     kernels += blend_path(device, smi)
     kernels += unwired_path(device, smi)
+    kernels += harness_paths(device, smi)
     phase_attention_bodies()
     phase_row_bodies()
     cores = phase_gemm_cores()

@@ -67,6 +67,14 @@ keys, or one stream), or its logits form where q.kT is not fused into it
 ``recompute_product = False``); ``recompute_av = False`` runs the
 reference's delta-accumulated product instead.
 
+Every regime takes the masked selections of ``TokenNormThreshold`` (and of
+a top-k policy that saves its status) as the JAX package does: the
+coverage holds only the valid candidates, so the group kernels may cover
+fewer than kcap rows; the blocked kernels get the masked-off slots keyed to
+the marker N, which writes nothing; and each count of the selected work is
+scaled by the valid share (``valid_fraction``). Such a policy takes neither
+"v4" nor the groups' own top-k.
+
 Not ported: ATS, drop-path and sequence parallelism. Asking for one
 raises ``NotImplementedError`` naming the ROADMAP.md item that holds it.
 """
@@ -108,9 +116,9 @@ from eventful_transformer_tpu_torch.core.nn import (
     not_ported,
 )
 from eventful_transformer_tpu_torch.core.policies import (
-    TokenNormTopK,
     check_kernel_policy,
     in_kernel_topk_eligible,
+    topk_coverage_ok,
     vector_norm,
 )
 from eventful_transformer_tpu_torch.ops.av_softmax import (
@@ -520,8 +528,9 @@ class EventfulTokenwiseBlock(Block):
         """The whole-block "v4" step takes a plain tokenwise block (global
         attention, no pooling, rel-pos or cast, index-free attention, gates
         after LN, recomputed buffers, no STGT) with an order-2
-        ``TokenNormTopK`` on every gate. The JAX package's TPU tiling
-        condition on the head width is not part of the port's rule."""
+        ``TokenNormTopK`` that saves no status on every gate. The JAX
+        package's TPU tiling condition on the head width is not part of the
+        port's rule."""
         if (
             self.stgt
             or not self.recompute_buffers
@@ -533,7 +542,7 @@ class EventfulTokenwiseBlock(Block):
             or self.matmul_2_cast is not None
         ):
             return False
-        return all(type(g.policy) is TokenNormTopK and g.policy.order == 2 for g in self.gates)
+        return all(in_kernel_topk_eligible(g.policy) for g in self.gates)
 
     def _recompute(self, n_tokens):
         """Whether the buffer-free regimes recompute the qkv and projection
@@ -744,10 +753,10 @@ class EventfulTokenwiseBlock(Block):
         index None where no index is drawn."""
         ln = self.input_layer_norm
         if mode in ("v1", "v1v2", "v3"):
-            y, index, state["qkv_gate"] = self._fused_gate_group(
+            y, index, mask, state["qkv_gate"] = self._fused_gate_group(
                 ctx, self.qkv_gate, state["qkv_gate"], x, ln, self._ln_mode, self.qkv
             )
-            return y, index, None
+            return y, index, mask
         if (
             "qkv_accumulator" not in state
             and not self._attention_uses_index
@@ -781,20 +790,20 @@ class EventfulTokenwiseBlock(Block):
         before it."""
         gate, gate_state = self.projection_gate, state["projection_gate"]
         if mode == "v3":
-            kcap, _, cov = self._select(ctx, gate, gate_state["p"], x, None, "none")
+            kcap, _, mask, cov = self._select(ctx, gate, gate_state["p"], x, None, "none")
             _, y, mlp_norms = select_linear_skip_norms(
                 x, gate_state["p"], cov, self.projection.kernel, self.projection.bias, skip_1,
                 state["mlp_gate"]["p"], *self._select_ln(self.mlp_layer_norm),
                 next_ln=not self.gate_before_ln,
             )
-            frac = kcap / x.shape[-2]
+            frac = (kcap / x.shape[-2]) * valid_fraction(mask)
             rows = x.numel() // x.shape[-1]
             ctx.add("linear_flops", frac * float(x.numel() * self.projection.out_features))
             ctx.add("bias_flops", frac * float(rows * self.projection.out_features))
             ctx.add("add_flops", y.numel())
             return y, mlp_norms
         if mode in ("v1", "v1v2"):
-            x, _, state["projection_gate"] = self._fused_gate_group(
+            x, _, _, state["projection_gate"] = self._fused_gate_group(
                 ctx, gate, gate_state, x, None, "none", self.projection
             )
         elif "projection_accumulator" not in state and gate.select_only_ok():
@@ -840,32 +849,32 @@ class EventfulTokenwiseBlock(Block):
     def _fused_gate_group(self, ctx, gate, gate_state, x, ln, ln_mode, linear):
         """Gate norms -> selection -> ``ln_select_matmul`` (the gate-state
         select in place and the linear recomputed over every row of the
-        new state). Returns (y, index, gate state), counted as the
+        new state). Returns (y, index, mask, gate state), counted as the
         gathered path."""
-        kcap, index, cov = self._select(
+        kcap, index, mask, cov = self._select(
             ctx, gate, gate_state["p"], x, ln, ln_mode, need_index=True
         )
         scale, bias = (None, None) if ln_mode == "none" else (ln.scale, ln.bias)
         p, y = ln_select_matmul(
             x, gate_state["p"], cov, scale, bias, linear.kernel, linear.bias, ln_mode=ln_mode
         )
-        frac = kcap / x.shape[-2]
+        frac = (kcap / x.shape[-2]) * valid_fraction(mask)
         ctx.add("linear_flops", frac * float(x.numel() * linear.out_features))
         ctx.add("bias_flops", frac * float(y.numel()))
-        return y, index, {"p": p}
+        return y, index, mask, {"p": p}
 
     def _fused_gate_select(self, ctx, gate_state, x, ln):
         """The MLP gate of "v1": norms -> selection -> ``ln_select`` (in
         place); the selected rows of the new state are the MLP's input,
         normalised there when the gate sits before the LN. Returns (rows,
-        index, None, gate state)."""
-        _, index, cov = self._select(
+        index, mask, gate state)."""
+        _, index, mask, cov = self._select(
             ctx, self.mlp_gate, gate_state["p"], x, ln, self._ln_mode, need_index=True
         )
         p = ln_select(
             x, gate_state["p"], cov, *self._select_ln(ln), apply_ln=not self.gate_before_ln
         )
-        return self._op_input(take_rows(p, index), ln), index, None, {"p": p}
+        return self._op_input(take_rows(p, index), ln), index, mask, {"p": p}
 
     def _use_in_kernel_topk(self, policy, x):
         """Whether a group kernel selects its own rows (JAX
@@ -882,29 +891,44 @@ class EventfulTokenwiseBlock(Block):
         """Error norms (unless an upstream kernel handed them over) ->
         coverage and, with ``need_index``, the selected rows (B, k) int32,
         ascending (the JAX package lists them in top-k order; every
-        consumer is order-free). The kernel paths take mask-free top-k
-        policies only, so every slot is valid. ``allow_topk``: the caller's
-        kernel can select its own rows, which it then does where
-        :meth:`_use_in_kernel_topk` says so, no norms were handed over and
-        no index is needed; the coverage is None then. Returns (kcap, index
-        or None, cov or None)."""
+        consumer is order-free). A top-k policy takes its coverage straight
+        from the norms, every slot valid (mask None); any other policy (a
+        threshold, or a top-k that saves its status) lists its candidates
+        with a mask, and the coverage holds only the valid ones, so that a
+        group may cover fewer than kcap rows (JAX ``_v2_select``).
+        ``allow_topk``: the caller's kernel can select its own rows, which
+        it then does where :meth:`_use_in_kernel_topk` says so, no norms
+        were handed over and no index is needed; the coverage is None
+        then. Returns (kcap, index or None, mask or None, cov or None)."""
         ctx.add("gate_flops", x.numel())
-        kcap = gate.policy.capacity(x.shape[-2])
+        policy = gate.policy
+        kcap = policy.capacity(x.shape[-2])
         if (
             allow_topk
             and norms is None
             and not need_index
-            and self._use_in_kernel_topk(gate.policy, x)
+            and self._use_in_kernel_topk(policy, x)
         ):
-            return kcap, None, None
+            return kcap, None, None, None
         if norms is None:
             if ln_mode == "post":
                 norms = ln_norms(x, p, ln.scale, ln.bias)
             else:  # "pre", "none": error in the input domain
                 norms = vector_norm(x - p, -1, 2)
-        cov = coverage_from_norms(norms, kcap)
-        index = index_from_coverage(cov, kcap).to(torch.int32) if need_index else None
-        return kcap, index, cov
+        if topk_coverage_ok(policy):
+            cov = coverage_from_norms(norms, kcap)
+            index = index_from_coverage(cov, kcap).to(torch.int32) if need_index else None
+            return kcap, index, None, cov
+        index, mask = policy.select_from_norms(norms, ctx)
+        cov = coverage(index, mask, x.shape[-2])
+        return index.shape[-1], index.to(torch.int32), mask, cov
+
+    @staticmethod
+    def _keyed(index, mask, n):
+        """The index list a blocked kernel takes: the masked-off slots keyed
+        to the marker ``n``, so that rows 9 and 11 write nothing for them
+        (JAX ``_blocked_select``)."""
+        return index if mask is None else torch.where(mask, index, n)
 
     def _v2_group_linear(
         self, ctx, gate, gate_state, buf_state, x, ln, ln_mode, linear, skip=None,
@@ -912,8 +936,9 @@ class EventfulTokenwiseBlock(Block):
     ):
         """Gate -> gathered linear -> buffer blend (-> skip add, next-gate
         norms) through ``gate_group_linear``. Returns ((p, b, y,
-        next_norms), index, None), counted as the gathered path."""
-        kcap, index, cov = self._select(
+        next_norms), index, mask), counted as the gathered path, scaled by
+        the valid share of a masked selection."""
+        kcap, index, mask, cov = self._select(
             ctx, gate, gate_state["p"], x, ln, ln_mode, norms, need_index, allow_topk=True
         )
         scale, bias = (None, None) if ln_mode == "none" else (ln.scale, ln.bias)
@@ -922,24 +947,28 @@ class EventfulTokenwiseBlock(Block):
             x, gate_state["p"], buf_state["b"], cov, scale, bias, linear.kernel, linear.bias,
             skip, p_next, n_scale, n_bias, ln_mode=ln_mode, kcap=kcap,
         )
-        frac = kcap / x.shape[-2]
+        frac = (kcap / x.shape[-2]) * valid_fraction(mask)
         rows = x.numel() // x.shape[-1]
         ctx.add("linear_flops", frac * float(x.numel() * linear.out_features))
         ctx.add("bias_flops", frac * float(rows * linear.out_features))
-        return outs, index, None
+        return outs, index, mask
 
     def _resident_qkv_group(self, ctx, state, x, norms):
         """The qkv group over the window-major buffer: selection and the
         gate-state select row-major, the k-row qkv linear in PyTorch, and
-        the buffer scatter at the window-major rows of the selected tokens.
-        Returns the updated buffer (B, NW, 3C)."""
+        the buffer scatter at the window-major rows of the selected tokens
+        (none for a masked-off slot). Returns the updated buffer (B, NW,
+        3C)."""
         ln = self.input_layer_norm
         p = state["qkv_gate"]["p"]
-        _, index, cov = self._select(ctx, self.qkv_gate, p, x, ln, self._ln_mode, norms, True)
-        h = self.qkv(ctx, layer_norm(take_rows(x, index), ln))
+        _, index, mask, cov = self._select(
+            ctx, self.qkv_gate, p, x, ln, self._ln_mode, norms, True
+        )
+        h = self.qkv(ctx, layer_norm(take_rows(x, index), ln), valid_fraction(mask))
         block_select_p(x, p, cov, *self._select_ln(ln), apply_ln=not self.gate_before_ln)
         return block_scatter_rows(
-            state["qkv_accumulator"]["b"], index, h, self._window_index(x.device)
+            state["qkv_accumulator"]["b"], self._keyed(index, mask, x.shape[-2]), h,
+            self._window_index(x.device),
         )
 
     # -- the "blocked" regime ------------------------------------------------------
@@ -950,23 +979,27 @@ class EventfulTokenwiseBlock(Block):
     ):
         """Gate -> the linear on the k selected rows in PyTorch -> one
         ``block_select_scatter`` pass (gate-state select, buffer blend, skip
-        add, next-gate norms). Returns ((p, b, y, next_norms), index, None),
+        add, next-gate norms). Returns ((p, b, y, next_norms), index, mask),
         y and next_norms None where not asked for; the blocked groups list
-        their rows whatever ``need_index`` says."""
+        their rows whatever ``need_index`` says. The linear runs on every
+        slot's row (a masked-off slot holds an in-range candidate), counted
+        at the valid share."""
         del need_index
-        _, index, cov = self._select(ctx, gate, gate_state["p"], x, ln, ln_mode, norms, True)
+        _, index, mask, cov = self._select(
+            ctx, gate, gate_state["p"], x, ln, ln_mode, norms, True
+        )
         rows = take_rows(x, index)
         post = ln_mode == "post"
         if ln_mode != "none":  # LN commutes with the row gather
             rows = layer_norm(rows, ln)
-        h = linear(ctx, rows)
+        h = linear(ctx, rows, valid_fraction(mask))
         scale, bias = (ln.scale, ln.bias) if post else (None, None)
         p_next, n_scale, n_bias = next_gate or (None, None, None)
         outs = block_select_scatter(
-            x, gate_state["p"], buf_state["b"], cov, index, h, scale, bias, skip, p_next,
-            n_scale, n_bias, apply_ln=post,
+            x, gate_state["p"], buf_state["b"], cov, self._keyed(index, mask, x.shape[-2]), h,
+            scale, bias, skip, p_next, n_scale, n_bias, apply_ln=post,
         )
-        return outs + (None,) * (4 - len(outs)), index, None
+        return outs + (None,) * (4 - len(outs)), index, mask
 
     def _blocked_group_mlp(self, ctx, state, x, norms, next_gate):
         """Gate -> the MLP on the k selected rows in PyTorch -> one
@@ -974,12 +1007,14 @@ class EventfulTokenwiseBlock(Block):
         gate's norms. Returns (y, next_norms)."""
         ln = self.mlp_layer_norm
         p, b = state["mlp_gate"]["p"], state["mlp_accumulator"]["b"]
-        _, index, cov = self._select(ctx, self.mlp_gate, p, x, ln, self._ln_mode, norms, True)
-        h = self._mlp(ctx, layer_norm(take_rows(x, index), ln))
+        _, index, mask, cov = self._select(
+            ctx, self.mlp_gate, p, x, ln, self._ln_mode, norms, True
+        )
+        h = self._mlp(ctx, layer_norm(take_rows(x, index), ln), valid_fraction(mask))
         p_next, n_scale, n_bias = next_gate or (None, None, None)
         outs = block_select_scatter(
-            x, p, b, cov, index, h, *self._select_ln(ln), None, p_next, n_scale, n_bias,
-            apply_ln=not self.gate_before_ln, residual_x=True,
+            x, p, b, cov, self._keyed(index, mask, x.shape[-2]), h, *self._select_ln(ln), None,
+            p_next, n_scale, n_bias, apply_ln=not self.gate_before_ln, residual_x=True,
         )
         ctx.add("add_flops", outs[2].numel())
         return outs[2], (outs[3] if p_next is not None else None)
@@ -989,7 +1024,7 @@ class EventfulTokenwiseBlock(Block):
         ``gate_group_mlp``. Returns (y, next_norms)."""
         ln = self.mlp_layer_norm
         p, b = state["mlp_gate"]["p"], state["mlp_accumulator"]["b"]
-        kcap, _, cov = self._select(
+        kcap, _, mask, cov = self._select(
             ctx, self.mlp_gate, p, x, ln, self._ln_mode, norms, allow_topk=True
         )
         p_next, n_scale, n_bias = next_gate or (None, None, None)
@@ -998,7 +1033,7 @@ class EventfulTokenwiseBlock(Block):
             self.mlp_2.kernel, self.mlp_2.bias, p_next, n_scale, n_bias,
             ln_mode=self._ln_mode, kcap=kcap,
         )
-        frac = kcap / x.shape[-2]
+        frac = (kcap / x.shape[-2]) * valid_fraction(mask)
         rows = x.numel() // x.shape[-1]
         hidden = self.mlp_1.out_features
         ctx.add("linear_flops", frac * float(x.numel() * hidden))

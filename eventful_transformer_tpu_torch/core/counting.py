@@ -23,6 +23,8 @@ from __future__ import annotations
 
 from sys import stdout
 
+import torch
+
 COUNT_KEYS = (
     "accumulator_flops",
     # not a FLOP count: #gate calls whose threshold-policy capacity saturated
@@ -44,17 +46,36 @@ class Ctx:
 
     ``count_mode``: when False, :meth:`add` is a no-op and ``counts`` stays
     empty. The port is inference-only, so there is no training flag or rng.
+    A count given as a tensor (a masked selection's valid share, a
+    threshold policy's ``policy_saturated``) stays on its device until
+    ``counts`` is read, which reads every such count in one transfer: one
+    host synchronisation per read, not one per count.
     """
 
-    __slots__ = ("count_mode", "counts")
+    __slots__ = ("count_mode", "_counts", "_pending")
 
     def __init__(self, count_mode=False):
         self.count_mode = count_mode
-        self.counts = Counts({k: 0.0 for k in COUNT_KEYS} if count_mode else {})
+        self._counts = Counts({k: 0.0 for k in COUNT_KEYS} if count_mode else {})
+        self._pending = []
 
     def add(self, key, value):
-        if self.count_mode:
-            self.counts[key] += float(value)
+        if not self.count_mode:
+            return
+        if isinstance(value, torch.Tensor):
+            self._pending.append((key, value.detach().reshape(()).float()))
+        else:
+            self._counts[key] += float(value)
+
+    @property
+    def counts(self):
+        if self._pending:
+            device = self._pending[0][1].device
+            values = torch.stack([v.to(device) for _, v in self._pending]).tolist()
+            for (key, _), value in zip(self._pending, values):
+                self._counts[key] += value
+            self._pending = []
+        return self._counts
 
 
 class Counts(dict):

@@ -7,8 +7,8 @@ paths the incremental gate and buffer updates run inside the kernels
 same updates in plain PyTorch, for the gathered paths (the unfused regime,
 the qkv and MLP groups that gather rows, the reference's cached q.kT
 product and delta-accumulated A.V product). Selections are index lists
-from the policy (ascending, every slot valid) or forced by the caller
-(pooled and deduplicated, with a mask). ``SimpleSTGTGate`` runs on the
+from the policy (ascending; a threshold policy's with a mask) or forced by
+the caller (pooled and deduplicated, with a mask). ``SimpleSTGTGate`` runs on the
 unfused path only, as in the JAX package.
 """
 
@@ -29,7 +29,7 @@ from eventful_transformer_tpu_torch.core.indexing import (
     valid_fraction,
 )
 from eventful_transformer_tpu_torch.core.nn import counted_matmul
-from eventful_transformer_tpu_torch.core.policies import TokenNormTopK, vector_norm
+from eventful_transformer_tpu_torch.core.policies import topk_coverage_ok, vector_norm
 
 
 class TokenGate:
@@ -50,10 +50,10 @@ class TokenGate:
         del state
         return c, {"p": c}
 
-    def _select(self, e, forced_index, forced_mask):
+    def _select(self, e, forced_index, forced_mask, ctx=None):
         if forced_index is not None:
             return forced_index, forced_mask
-        return self.policy.select(e, -1 if self.structure == "row" else -2)
+        return self.policy.select(e, -1 if self.structure == "row" else -2, ctx)
 
     def incremental(self, ctx, state, c, forced_index=None, forced_mask=None):
         """The selected tokens of ``c`` replace those of the reference.
@@ -61,7 +61,7 @@ class TokenGate:
         (columns) of c."""
         ctx.add("gate_flops", c.numel())
         p = state["p"]
-        index, mask = self._select(c - p, forced_index, forced_mask)
+        index, mask = self._select(c - p, forced_index, forced_mask, ctx)
         if self.structure == "row":
             return take_rows(c, index), index, mask, {"p": select_rows(p, c, index, mask)}
         return take_cols(c, index), index, mask, {"p": select_cols(p, c, index, mask)}
@@ -69,11 +69,7 @@ class TokenGate:
     def select_only_ok(self):
         """Whether :meth:`incremental_select` may stand in for
         :meth:`incremental` where the gathered rows and indices go unused."""
-        return (
-            type(self) is TokenGate
-            and self.structure == "row"
-            and isinstance(self.policy, TokenNormTopK)
-        )
+        return type(self) is TokenGate and self.structure == "row" and topk_coverage_ok(self.policy)
 
     def incremental_select(self, ctx, state, c, norms=None):
         """Gate-state update without gathering the selected rows: the top-k
@@ -99,7 +95,7 @@ class TokenDeltaGate(TokenGate):
         ctx.add("gate_flops", c.numel())
         p = state["p"]
         if forced_index is None:
-            index, mask = self._select(c - p, None, None)
+            index, mask = self._select(c - p, None, None, ctx)
         else:
             index, mask = forced_index, forced_mask
         if self.structure == "row":
@@ -131,7 +127,7 @@ class SimpleSTGTGate(TokenGate):
     def incremental(self, ctx, state, c, forced_index=None, forced_mask=None):
         """Returns (c_tilde, index, mask, state), the state ``c`` itself."""
         ctx.add("gate_flops", c.numel())
-        index, mask = self._select(c - state["p"], forced_index, forced_mask)
+        index, mask = self._select(c - state["p"], forced_index, forced_mask, ctx)
         return take_rows(c, index), index, mask, {"p": c}
 
 

@@ -34,15 +34,16 @@
 // The CUDA-core body, as it was first written: one block of 16 warps per
 // (batch x head, 32 query rows); the tile's float32 logits stay resident in
 // shared memory (32 x 1044 floats, 134 KB at Np = 1024; 16 rows when 32 do
-// not fit), built chunk by chunk over 128 keys of k staged in shared
+// not fit, 8 when 16 do not, as at Np = 4096), built chunk by chunk over
+// 128 keys of k staged in shared
 // memory, float32 products on the CUDA cores. Each warp then takes whole
 // rows for the softmax and the select: the old p_a values are loaded eight
 // per lane at a time, p' goes back over the row's logits as float32, and a
 // last shared-memory pass packs it to S in place (each 32-column chunk is
 // read before any lane writes it, so the packing is safe). The block then
 // streams p_v through shared memory in 128-key chunks for the A.V product:
-// WMMA 16x16x16 with float32 accumulators where S is bfloat16 (the cast),
-// the CUDA cores otherwise. Np need not be a multiple of anything (441 at
+// WMMA 16x16x16 with float32 accumulators where S is bfloat16 (the cast)
+// and the tile has 16 rows, the CUDA cores otherwise. Np need not be a multiple of anything (441 at
 // 672): the chunks are zero-filled past Np and the products cover Np
 // rounded up to 16. The logits form loads the tile's logits from device
 // memory (tm x Np values of S) in place of step 1 and is otherwise the same
@@ -236,7 +237,10 @@ softmax_select_matmul_kernel(S* __restrict__ p_a, const float* __restrict__ cov,
   float* staged = (float*)(smem_raw + lay.kv);  // (tm, d + 4) after the loop
   const S* vh = p_v + (int64_t)bh * np * d;
   S* oh = out + head_row * d;
-  if constexpr (kTensorAV) {
+  // WMMA needs 16-row tiles: a tile of 8 rows (the widest key grids) takes
+  // the CUDA-core product below, the same float32 sums of bfloat16 products
+  const bool tensor_av = kTensorAV && tm >= 16;
+  if constexpr (kTensorAV) if (tensor_av) {
     const int cols = d / 16, frags = (tm / 16) * cols;  // <= 2 per warp
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
     wmma::fill_fragment(acc[0], 0.f);
@@ -272,7 +276,8 @@ softmax_select_matmul_kernel(S* __restrict__ p_a, const float* __restrict__ cov,
       const int i = e / d, t = e % d;
       if (row0 + i < n) oh[(int64_t)(row0 + i) * d + t] = from_f<S>(staged[i * (d + 4) + t]);
     }
-  } else {
+  }
+  if (!tensor_av) {
     constexpr int kMaxPer = 8;  // outputs per thread: tm * d <= 4096
     const int per = (tm * d + kAvThreads - 1) / kAvThreads;
     float acc[kMaxPer];
@@ -312,8 +317,11 @@ int softmax_select_matmul(void* p_a, const float* cov, const void* p_v, const vo
   const int nt = terms != nullptr ? p0 + p1 : 0;
   int tm = 32;
   AvSmem lay = av_smem(tm, np, d, nt);
-  if (lay.total > (size_t)kAvMaxShared) {
-    tm = 16;
+  // fewer rows a tile where the tile's logits rows do not fit: 16 rows up
+  // to about 2900 keys, 8 rows beyond (4096 at ViTDet-1024 without pooling)
+  for (const int rows : {16, 8}) {
+    if (lay.total <= (size_t)kAvMaxShared) break;
+    tm = rows;
     lay = av_smem(tm, np, d, nt);
   }
   if (lay.total > (size_t)kAvMaxShared) return (int)cudaErrorInvalidConfiguration;

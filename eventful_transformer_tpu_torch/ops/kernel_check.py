@@ -294,6 +294,41 @@ ROWS_INPUTS = {
     "gather_rows": ("rows_buf", None, "rows_index", None),
     "gather_rows_qkv": ("rows_buf_qkv", None, "rows_index", None),
 }
+# The forms a threshold policy gives the kernels (TokenNormThreshold, whose
+# selection may hold fewer valid rows than its capacity): each entry is its
+# base entry's call with the inputs named here in place of the base's. Rows
+# 4 and 7 on a coverage of fewer than kcap rows (the last batch row none),
+# so that some compaction slots stay empty; row 8 on key columns of which
+# the first batch row covers none; row 9 with the masked-off slots keyed to
+# the marker N beside -1; row 10 on fewer selected rows; row 11 with half
+# the slots the marker N.
+THRESHOLD = {
+    "gate_group_mlp_threshold": ("gate_group_mlp", {"cov3": "cov3_thr"}),
+    "gate_group_linear_threshold": ("gate_group_linear", {"cov2": "cov2_thr"}),
+    "gate_group_linear_post_threshold": ("gate_group_linear_post", {"cov1": "cov1_thr"}),
+    "softmax_select_matmul_threshold": ("softmax_select_matmul", {"av_cov": "av_cov_thr"}),
+    "block_select_scatter_qkv_threshold": (
+        "block_select_scatter_qkv", {"w_index": "w_index_thr", "cov_sel": "cov_sel_thr"}),
+    "block_select_scatter_proj_threshold": (
+        "block_select_scatter_proj", {"w_index": "w_index_thr", "cov_sel": "cov_sel_thr"}),
+    "block_select_scatter_mlp_threshold": (
+        "block_select_scatter_mlp", {"w_index": "w_index_thr", "cov_sel": "cov_sel_thr"}),
+    "block_select_p_threshold": ("block_select_p", {"cov1": "cov1_thr"}),
+    "block_scatter_rows_threshold": ("block_scatter_rows", {"sel_index": "sel_index_thr"}),
+}
+KERNELS.update({name: KERNELS[base] for name, (base, _) in THRESHOLD.items()})
+
+
+def resolve(name, d):
+    """(the entry whose call ``name`` makes, the inputs it makes it on): a
+    THRESHOLD entry is its base entry on its own inputs; any other entry is
+    itself on ``d``."""
+    if name not in THRESHOLD:
+        return name, d
+    base, inputs = THRESHOLD[name]
+    return base, dict(d, **{key: d[alias] for key, alias in inputs.items()})
+
+
 # the entries whose group selects its own rows: (x, gate state, LN scale
 # and bias or None, LN mode) keys
 TOPK = {
@@ -327,6 +362,7 @@ def launches(name):
     """The launches counted for entry ``name``: its form's count where its
     wrapper counts by form, else the wrapper's total."""
     wrapper = KERNELS[name][0]
+    name = THRESHOLD.get(name, (name,))[0]
     if name in FORMS:
         return wrapper.form_launches[FORMS[name]]
     return wrapper.launches
@@ -471,7 +507,8 @@ def make_inputs(
     row) and rel-pos tables over the pad window; for row 11, the window map
     of that grid of tokens in windows of ``window``, a window-major qkv
     buffer over its padded grid and k selected tokens in random order, the
-    last slot the marker n.
+    last slot the marker n; and the inputs of the forms a threshold policy
+    gives (THRESHOLD, :func:`_threshold_inputs`).
     ``ties``: a TOPK entry whose inputs get exact ties at the k-th norm
     (:func:`plant_ties`)."""
     g = torch.Generator().manual_seed(seed)
@@ -582,9 +619,40 @@ def make_inputs(
     nw_rows = (h + -h % window[0]) * (w + -w % window[1])
     d.update(window_map=window_map.to(device), sel_index=sel.to(device=device, dtype=torch.int32),
              buf_win=randn(bsz, nw_rows, 3 * c))
+    _threshold_inputs(d, bsz, n, device, seed)
     if ties is not None:
         plant_ties(d, ties)
     return d
+
+
+def _threshold_inputs(d, bsz, n, device, seed):
+    """The inputs of the THRESHOLD entries, drawn from a generator of their
+    own (the other inputs stay as they were): coverages keeping about half
+    of each gate's selected rows, the last batch row none; the A.V key
+    columns with the first batch row covering none; row 9's index with
+    about half its valid slots keyed to the marker n, and the coverage of
+    the rest; row 11's selection with about half its slots the marker n."""
+    g = torch.Generator().manual_seed(seed + 1000)
+
+    def half(shape):
+        return (torch.rand(shape, generator=g) < 0.5).to(device)
+
+    for name in ("cov1", "cov2", "cov3"):
+        cov = d[name] * half(d[name].shape)
+        if bsz > 1:
+            cov[-1] = 0.0
+        d[f"{name}_thr"] = cov
+    av_cov = d["av_cov"].clone()
+    av_cov[0] = 0.0
+    d["av_cov_thr"] = av_cov
+    index = d["w_index"]
+    index = torch.where(half(index.shape) & (index >= 0), n, index)
+    valid = (index >= 0) & (index < n)
+    cov_sel = torch.zeros((bsz, n + 1), device=device)
+    cov_sel.scatter_(1, torch.where(valid, index, n).long(), 1.0)
+    d.update(w_index_thr=index, cov_sel_thr=cov_sel[:, :n].contiguous())
+    sel = d["sel_index"]
+    d["sel_index_thr"] = torch.where(half(sel.shape), n, sel)
 
 
 def plant_ties(d, name, count=4):
@@ -623,6 +691,7 @@ def call(name, d, plain=False):
 
 
 def _invoke(name, fn, d):
+    name, d = resolve(name, d)
     if name in TOPK:
         return _invoke_topk(name, fn, d, d.get("topk_cov"))
     if name.startswith("scatter_blend"):
@@ -839,6 +908,7 @@ def compare_rounded(got, want):
 
 def comparison(name):
     """The comparison that holds entry ``name`` to its plain version."""
+    name = THRESHOLD.get(name, (name,))[0]
     if name.startswith(("scatter_", "gather_rows")):
         return compare_exact
     return compare_rounded if name in BF16_ROUNDED else compare
@@ -913,6 +983,7 @@ def _matmul_ops(name, d):
     """The multiply-add operations (2 per product term) of kernel ``name``
     on ``d``: its matrix products, at the selected rows where the work
     depends on the data; the row passes count none."""
+    name, d = resolve(name, d)
     bsz, n, c = d["x"].shape
     heads = d["heads"]
     if name == "qkv_attention_group":
@@ -977,6 +1048,7 @@ def io_bytes(name, d):
     updates in place is written only at the rows (the A.V state: the key
     columns) its coverage selects, and read whole only where the function
     uses its old values (a dense product or a residual add over it)."""
+    name, d = resolve(name, d)
     bsz, n, c = d["x"].shape
     tokens = _nbytes(d["x"])  # one (B, N, C) output in the working dtype
     norms = bsz * n * 4  # one (B, N) float32 norm vector
@@ -1142,6 +1214,7 @@ def library_call(name, d):
     B.N rows of their selected gate state; row 7 ``torch.addmm`` on its k
     rows (the LN output of the selected rows in its "post" and "pre" forms);
     each without the row passes, the norms, the skip add and the scatter."""
+    name, d = resolve(name, d)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     heads = d["heads"]
     if name == "dense_mlp_residual" or name.startswith("gate_group_mlp"):

@@ -125,8 +125,8 @@ def test_unsupported_block_options_raise(case):
 
 
 class _ThresholdPolicy:
-    """Stands in for TokenNormThreshold (masked selection), which the port
-    does not have yet."""
+    """A policy class the kernel paths do not know (the port's own
+    TokenNormThreshold is held in tests/test_torch_threshold.py)."""
 
     order = 2
 
@@ -142,5 +142,5 @@ def test_unsupported_policy_raises():
     x = torch.zeros(B, N, C)
     with torch.no_grad():
         _, state, _ = blk(Ctx(), state, x, mode="flush")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(NotImplementedError, match="TokenNormThreshold"):
             blk(Ctx(), state, x, mode="incremental")

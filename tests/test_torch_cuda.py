@@ -1495,6 +1495,25 @@ def test_av_float32_stays_on_the_cuda_cores(name, device):
         assert wrapper.body_launches == dict(before, **{body: before[body] + 1})
 
 
+@pytest.mark.parametrize("name", ["softmax_select_matmul", "softmax_select_matmul_logits"])
+def test_av_cuda_core_body_takes_4096_keys(name, device):
+    """The CUDA-core body at ViTDet-1024's unpooled global attention (4096
+    keys over a 64 x 64 grid, rel-pos terms), whose logits rows fit only 8
+    to a tile: float32, and the matmul-2 cast (its A.V product then on the
+    CUDA cores too), within the bounds of ``kernel_check``."""
+    d = kernel_check.make_inputs(1, 64, 128, 2, 16, torch.float32, device, seed=6,
+                                 pool=(64, 64), relpos_keys=(8, 8))
+    wrapper = kernel_check.KERNELS[name][0]
+    for cast in (False, True):
+        if cast:
+            for key in ("p_a", "p_v", "av_logits"):
+                d[key] = d[key].to(torch.bfloat16)
+        before = dict(wrapper.body_launches)
+        rows = kernel_check.errors(name, d)
+        assert all(row["ok"] for row in rows), rows
+        assert wrapper.body_launches == dict(before, simt=before["simt"] + 1)
+
+
 def test_av_entries_refuse_other_bodies(device):
     """The C entries refuse a body the rule would not send them: float32 to
     the tensor-core body, bfloat16 x bfloat16 to the CUDA-core body, a head

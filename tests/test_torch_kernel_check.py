@@ -262,3 +262,34 @@ def test_shifted_window_in_the_grid_fails(dtype):
         rolled = d["qkv_map"].roll(1, dims=2)
         got = kernel_check.call(name, dict(d, qkv_map=rolled), plain=True)[0].roll(-1, dims=2)
         assert not kernel_check.compare(got, want)["ok"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(kernel_check.THRESHOLD))
+def test_threshold_form_faults_fail(name, dtype):
+    """The forms a threshold policy gives the kernels (fewer valid rows
+    than the capacity, masked-off slots keyed to the marker N, a batch row
+    with nothing selected): their inputs hold fewer selections than the
+    base entry's, the plain version passes against itself, and a kernel
+    that treats the masked-off selections as valid (the base entry's
+    call) fails on some output."""
+    d = kernel_check.make_inputs(2, 197, 256, 4, 24, dtype, "cpu")
+    base, inputs = kernel_check.THRESHOLD[name]
+    for key, alias in inputs.items():
+        if key.startswith(("cov", "av_cov")):
+            assert 0 < float(d[alias].sum()) < float(d[key].sum()), key
+            assert bool((d[alias] <= d[key]).all())
+        else:  # an index list: some valid slots keyed to the marker N
+            assert bool((d[alias] == 197).sum() > (d[key] == 197).sum())
+    if name.startswith("gate_group"):
+        cov = d[next(iter(inputs.values()))]
+        assert bool((cov.sum(-1) < d["k"]).all()) and float(cov[-1].sum()) == 0.0
+    compare = kernel_check.comparison(name)
+    want = kernel_check.call(name, d, plain=True)
+    assert all(compare(a.clone(), a)["ok"] for a in want)
+    faulty = kernel_check.call(base, d, plain=True)
+    assert not all(compare(a, b)["ok"] for a, b in zip(faulty, want))
+    assert kernel_check.launches(name) == kernel_check.launches(base)
+    ms, by = kernel_check.bound(name, d)
+    assert ms > 0 and by in ("bytes", "operations")
+    assert kernel_check.io_bytes(name, d) <= kernel_check.io_bytes(base, d)

@@ -248,6 +248,53 @@ print("ok")
 """
 
 
+HARNESS_SCRIPT = """
+import contextlib, io, sys, tempfile
+sys.modules["jax"] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import eventful_transformer_tpu_torch.data.epic_kitchens
+import eventful_transformer_tpu_torch.data.kinetics400
+import eventful_transformer_tpu_torch.data.vid
+import eventful_transformer_tpu_torch.scripts.evaluate.vitdet_vid
+import eventful_transformer_tpu_torch.scripts.evaluate.vivit_epic_kitchens
+import eventful_transformer_tpu_torch.utils.image
+from eventful_transformer_tpu_torch.core.policies import TokenNormThreshold
+from eventful_transformer_tpu_torch.models import ViTDet
+from eventful_transformer_tpu_torch.scripts.evaluate import vivit_kinetics400
+from eventful_transformer_tpu_torch.utils.evaluate import evaluate_vitdet_metrics
+from eventful_transformer_tpu_torch.utils.misc import set_policies
+out = tempfile.mkdtemp()
+with contextlib.redirect_stdout(io.StringIO()):
+    done = vivit_kinetics400.main(["synthetic_smoke", "model.device=cpu", "n_items=1",
+                                   "synthetic.n_items=1", "token_thresholds=[0.5]",
+                                   "bucket_capacities=[4,17]", f"_output={out}"])
+assert done[-1] == "Token threshold 0.5", done
+assert open(f"{out}/metrics.csv").read().count("\\n") == 4
+model = ViTDet(
+    backbone_config=dict(depth=2, position_encoding_size=[4, 4], window_indices=[0],
+                         block_class="EventfulBlock", windowed_class="EventfulTokenwiseBlock",
+                         block_config=dict(dim=32, heads=4, mlp_ratio=2, window_size=[2, 2])),
+    classes=5, input_shape=[3, 64, 64], normalize_mean=[123.675, 116.28, 103.53],
+    normalize_std=[58.395, 57.12, 57.375], output_channels=16, patch_size=[16, 16],
+    scale_factors=[4.0, 2.0, 1.0, 0.5], rpn_config=dict(pre_nms_topk=200, post_nms_topk=50),
+    roi_config=dict(test_topk_per_image=20), device="cpu",
+)
+set_policies(model, TokenNormThreshold, threshold=0.05)
+rng = np.random.default_rng(0)
+ann = {"boxes": np.asarray([[4.0, 4.0, 40.0, 40.0]], np.float32), "labels": np.asarray([1])}
+video = [(rng.uniform(size=(3, 56, 60)).astype(np.float32), ann) for _ in range(3)]
+dispatchers = []
+result = evaluate_vitdet_metrics(model, [video], {"bucket_capacities": [4, 16]}, dispatchers)
+assert np.isfinite(result["metrics"]["map"]) and result["counts"]["linear_flops"] > 0
+assert sum(dispatchers[0].frames_per_level) == 3
+assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
+               for name, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+
+
 def _run(script):
     result = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
@@ -300,3 +347,10 @@ def test_unwired_kernels_run_without_jax():
     the row scatter and gather, the fused attention, the grid form of the
     windowed attention) through their wrappers, without JAX."""
     _run(UNWIRED_SCRIPT)
+
+
+def test_harness_runs_without_jax():
+    """The harness (config, the ViViT entry point's ``main`` with a bucketed
+    threshold sweep, ``evaluate_vitdet_metrics`` with its dispatch and the
+    mAP, the data readers and the other entry points) without JAX."""
+    _run(HARNESS_SCRIPT)
