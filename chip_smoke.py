@@ -20,7 +20,11 @@ to end at 672 through ``ViTDet.apply`` (backbone, SimplePyramid, RPN,
 ROIAlign, NMS, the standard ROI heads); each with its dense twin; and the evaluation harness on the
 card: run_evaluations over temporal_24 (ViViT-B K400) and threshold_1024
 (ViTDet-B VID at 1024, the capacity-bucketed threshold sweep), and the
-ViViT entry point as a user runs it.
+ViViT entry point as a user runs it; and ViViT's remaining serving
+surface: ATS at EPIC-Kitchens ViViT-B's full size (ats.yml,
+temporal_ats_200.yml), the spatial cache (configs/spatial/
+vivit_kinetics400/24.yml, spatial_only, read back, temporal_only) and the
+time entry points as a user runs them.
 Phases, one JSON line each, with the seconds the phase took:
 
   1. env:            torch, CUDA and nvcc versions and the card (nvidia-smi).
@@ -280,9 +284,50 @@ Phases, one JSON line each, with the seconds the phase took:
                      against the same config in this process with
                      model.device=cpu: the same metrics.csv, counts.csv
                      within 1e-6.
+  32. ats_kernels, ats_path: row 5 (dense_mlp_residual) against its plain
+                     version at 12 views of the token counts ATS 0.9
+                     leaves the MLPs of EPIC-Kitchens ViViT-B's first,
+                     third and last spatial block (361, 292, 111), as in
+                     3; run_evaluations over configs/evaluate/
+                     vivit_epic_kitchens/ats.yml (vanilla: ATS in every
+                     spatial Block) and temporal_ats_200.yml
+                     (EventfulBlock, bf16 cast, ATS 0.9, top fraction 0.5)
+                     at full width and depth (12 views, 32 frames of 320 x
+                     320, 401 tokens falling to 111), one generated clip,
+                     float32: launches (ATS blocks run unfused: the
+                     vanilla model's dense MLP kernel in every spatial
+                     block and step, the temporal model's two dense
+                     kernels), finite probabilities, GFLOPs per clip
+                     against the JAX package's, ms per clip (the
+                     evaluation and a warm apply_views); each model cut to
+                     3 spatial blocks and 1 x 2 views, the cast off, in
+                     float32 on the card against the CPU: probabilities
+                     within 1e-5, the ATS and gate selections differing in
+                     at most 0.1 %; temporal_ats_200's model again with
+                     the bf16 cast on: each ATS scoring on the card made
+                     again on the CPU from the same cast a and ||v||, its
+                     selections differing in at most 0.1 % (the two whole
+                     runs' drift reported).
+  33. spatial_cache_path: configs/spatial/vivit_kinetics400/24.yml through
+                     utils/spatial.py::compute_vivit_spatial on the card
+                     over 2 generated clips into a temporary directory
+                     (launches: the "v2mlp" MLP group's ln_norms and
+                     gate_group_mlp), read back by ViViTSpatial; a
+                     temporal_only model over the cache (rows 5 and 6)
+                     against the full model's apply_views on the same
+                     clips, within 1e-6; one utils/profiling.trace around
+                     a temporal_only forward: a non-empty Chrome trace with
+                     the card's kernels in it.
+  34. time_entry_points: python -m eventful_transformer_tpu_torch.scripts.
+                     time.vivit_epic_kitchens temporal and .vitdet_vid
+                     spatiotemporal_672 as python -m runs them (runpy),
+                     one after the other in one subprocess on the card,
+                     n_items=1 over a generated clip and a generated VID
+                     video: each times.csv entry positive, output.txt
+                     naming the card.
 The times are a record, not a claim.
 
-Phases 25-27 run last, after 28-31, and read their runs too. Then the
+Phases 25-27 run last, after 28-34, and read their runs too. Then the
 whole run's seconds, the card's name and power limit, one JSON
 line with every kernel's numbers, and last ``{"ok": true, "device":
 {...}}``. Any failed check
@@ -1046,12 +1091,12 @@ def selection_flips(logs, other):
     return selections, flips
 
 
-def card_vs_cpu(cpu_model, clip, device, run=None, prob_tol=None):
+def card_vs_cpu(cpu_model, clip, device, run=None, prob_tol=None, hold=True):
     """One clip in float32 on the card against the same model on the CPU,
     where every kernel wrapper runs its plain version, through ``run(model,
     clip, count=True)`` (``run_model`` by default); the coverages each run
-    selects recorded. Returns the numbers compared and the card run's
-    counts."""
+    selects recorded. With ``hold=False`` the numbers are only reported.
+    Returns the numbers compared and the card run's counts."""
     run, prob_tol = run or run_model, prob_tol or PROB_TOL
     card_model = copy.deepcopy(cpu_model).to(device)
     logs = {"card": [], "cpu": []}
@@ -1071,7 +1116,7 @@ def card_vs_cpu(cpu_model, clip, device, run=None, prob_tol=None):
         gate_selections=selections, selections_differing=flips,
         max_flip_share=MAX_FLIP_SHARE, f32_card_s=runs["card_s"], f32_cpu_s=runs["cpu_s"],
     )
-    if prob_diff > prob_tol or flips > MAX_FLIP_SHARE * selections:
+    if hold and (prob_diff > prob_tol or flips > MAX_FLIP_SHARE * selections):
         raise AssertionError(f"float32 card run disagrees with the CPU run: {numbers}")
     return numbers, runs["card"][1]
 
@@ -1985,7 +2030,7 @@ def phase_ev_time(eventful, dense, clip, smi):
 
 def ev_path(device, smi):
     """The kernels, the slice and the times of the paper's configuration.
-    Returns the kernel rows of the final line."""
+    Returns the kernel rows of the final line and the kernel checks."""
     rows = phase_ev_kernels(device)
     eventful, dense, clip, launches, _ = phase_ev_slice(device)
     phase_ev_time(eventful, dense, clip, smi)
@@ -2001,7 +2046,7 @@ def ev_path(device, smi):
         rows[("softmax_select_matmul_logits", torch.bfloat16, "vitdet1024_pooled")],
         launches["cached_product"], "vivit_evblock_cached_product",
     ))
-    return out
+    return out, rows
 
 
 # -- ViTDet-B with the block options: gates before LN, STGT gates, the A.V ablation --
@@ -2989,41 +3034,25 @@ HARNESS_ROWS = {
 }
 
 
-def harness_config(location, argv):
-    """The port's ``get_cli_config`` of ``configs/evaluate/<location>`` from
+def harness_config(location, argv, kind="evaluate"):
+    """The port's ``get_cli_config`` of ``configs/<kind>/<location>`` from
     the repo's root, as the entry points read it."""
     from eventful_transformer_tpu_torch.utils.config import get_cli_config
 
     with contextlib.chdir(REPO):
-        return get_cli_config(Path("configs", "evaluate", location), argv=argv)
+        return get_cli_config(Path("configs", kind, location), argv=argv)
 
 
-class HarnessVID:
-    """One generated VID video: HARNESS_VID_FRAMES raw uint8 frames (a
-    random image, a square that drifts 8 pixels a frame, a little noise),
-    each through ``transform`` (the port's VIDResize) as VIDItem does, with
-    one ground-truth box on the square."""
+def harness_vid(transform, frames=HARNESS_VID_FRAMES, seed=SEED):
+    """One generated VID video (``data/synthetic.py::SyntheticVID``):
+    HARNESS_VID_FRAMES raw uint8 frames of HARNESS_VID_RAW (a random
+    image, a rectangle that drifts 8 pixels a frame, a little noise), each
+    through ``transform`` (the port's VIDResize) as VIDItem does, with one
+    ground-truth box on the rectangle."""
+    from eventful_transformer_tpu_torch.data.synthetic import SyntheticVID
 
-    def __init__(self, transform, frames=HARNESS_VID_FRAMES, seed=SEED):
-        rng = np.random.default_rng(seed)
-        h, w = HARNESS_VID_RAW
-        base = rng.integers(0, 256, (3, h, w)).astype(np.float32)
-        self.items = []
-        for t in range(frames):
-            frame = base + rng.normal(0.0, 3.0, base.shape)
-            y0, x0 = 200, 300 + 8 * t
-            frame[:, y0 : y0 + 160, x0 : x0 + 240] = 255.0
-            box = np.asarray([[x0, y0, x0 + 240, y0 + 160]], np.float32)
-            ann = {"boxes": box, "labels": np.asarray([t % 30], np.int32)}
-            self.items.append(transform((frame.clip(0, 255).astype(np.uint8), ann)))
-
-    def __len__(self):
-        return 1
-
-    def __getitem__(self, index):
-        if index != 0:
-            raise IndexError(index)
-        return self.items
+    return SyntheticVID(n_items=1, n_frames=frames, size=HARNESS_VID_RAW, seed=seed,
+                        combined_transform=transform)
 
 
 def harness_evaluate(evaluate, per_entry, check_output):
@@ -3046,9 +3075,10 @@ def harness_evaluate(evaluate, per_entry, check_output):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
         launches = read_launches()
-        policy = token_gates(model)[0].policy
+        gates = token_gates(model)
+        policy = gates[0].policy if gates else None
         per_entry.append(dict(
-            policy=type(policy).__name__,
+            policy=type(policy).__name__ if gates else "vanilla",
             threshold=getattr(policy, "threshold", None), k=getattr(policy, "k", None),
             seconds=seconds, launches={k: v for k, v in launches.items() if v},
             finite=bool(torch.stack(finite).all()) if finite else None,
@@ -3268,7 +3298,7 @@ def harness_vitdet(device, tmp, smi):
 
     config = harness_config("vitdet_vid", ["threshold_1024", f"_output={tmp}/vitdet", "n_items=1"])
     long_edge = max(config["model"]["input_shape"][-2:])
-    data = HarnessVID(VIDResize(short_edge_length=640 * long_edge // 1024, max_size=long_edge))
+    data = harness_vid(VIDResize(short_edge_length=640 * long_edge // 1024, max_size=long_edge))
     entries, dispatchers = [], []
 
     def evaluate(model, data, config):
@@ -3375,6 +3405,377 @@ def harness_paths(device, smi):
     return out
 
 
+# -- ViViT's remaining serving surface: ATS, the spatial cache, the time entry points --
+#
+# ATS at EPIC-Kitchens ViViT-B's full width and depth (configs/models/
+# vivit_b_epic_kitchens.yml: 3 x 4 = 12 views of 32 frames at stride 1, 320 x
+# 320, 16 steps; 12 spatial blocks, whose 401 tokens fall to 111 under ATS
+# 0.9): configs/evaluate/vivit_epic_kitchens/ats.yml (the vanilla model, ATS
+# in every spatial Block) and temporal_ats_200.yml (EventfulBlocks with the
+# bf16 A.V cast, ATS 0.9, TokenNormTopFraction(0.5)), as the port's
+# utils/config.py composes them, through run_evaluations on one generated clip
+# of ATS_CLIP, float32 as the harness builds the model. An ATS block runs
+# unfused: the vanilla model launches dense_mlp_residual (row 5) in every
+# spatial block at its own token count, and both run the temporal model's
+# window_attention (row 6) and dense_mlp_residual.
+ATS_RUNS = ("ats", "temporal_ats_200")
+ATS_FRACTION = 0.9
+ATS_VIEWS = EV_SPATIAL_VIEWS * EV_TEMPORAL_VIEWS
+N_TOKENS_EPIC = 20 * 20 + 1
+ATS_CLIP = dict(n_items=1, n_frames=48, size=[320, 400], classes=97, seed=SEED)
+# The JAX package's counted GFLOPs per clip, from ``python scripts/misc/
+# count_vivit.py --epic --ats 0.9 --fraction 0.5`` (the JAX package on the
+# CPU, one view at full width and depth, times 12 views): the vanilla
+# model's and the eventful model's
+ATS_GFLOPS = {"ats": 3823.33654542, "temporal_ats_200": 2135.47053558}
+# row 5 against its plain version at the token counts the MLPs of the first,
+# the third and the last spatial block run at (after their ATS)
+ATS_ROW5_COUNTS = (361, 292, 111)
+# the float32 card-vs-CPU check: the spatial stack cut to 3 blocks, 1 x 2
+# views, the A.V cast off (as the other paths' float32 checks). A model with
+# the cast is run again with it on: each ATS scoring on the card is made
+# again on the CPU from the same cast a and v, its selections held to
+# MAX_FLIP_SHARE. The whole runs' probabilities and selections are reported,
+# not held: float32 noise in a and v flips a bf16 rounding now and then, the
+# bf16 scores tie often, and a token sampled differently changes every later
+# block's input.
+ATS_CHECK_DEPTH, ATS_CHECK_VIEWS = 3, (1, 2)
+# The spatial cache: configs/spatial/vivit_kinetics400/24.yml (the paper's
+# configuration, spatial_only) over SPATIAL_CLIPS generated clips of path A's
+# kind into a temporary directory, read back by ViViTSpatial; a temporal_only
+# model over the cache against the full model's apply on the same clips: the
+# same operations on the same card, so SPATIAL_PROB_TOL is float32 noise
+SPATIAL_CLIPS, SPATIAL_K = 2, 24
+SPATIAL_PROB_TOL = 1e-6
+# the time entry points' generated data
+TIME_VIVIT_CLIP = ATS_CLIP
+TIME_VID = dict(n_items=1, n_frames=HARNESS_VID_FRAMES, size=list(HARNESS_VID_RAW), seed=SEED)
+
+
+def ats_counts(n=N_TOKENS_EPIC, depth=DEPTH):
+    """The token count each spatial block hands on (its MLP's) under
+    ATS_FRACTION, from n at the first block's input."""
+    counts = []
+    for _ in range(depth):
+        n = int(ATS_FRACTION * (n - 1)) + 1
+        counts.append(n)
+    return counts
+
+
+def ats_expected_launches(name, depth=DEPTH):
+    """Per clip: the temporal model's two dense kernels once per block; the
+    vanilla model's dense MLP kernel in every spatial block of every step
+    (the eventful ATS blocks run unfused: no kernel)."""
+    want = dict.fromkeys(wrappers(), 0)
+    want.update(window_attention=TEMPORAL_DEPTH, dense_mlp_residual=TEMPORAL_DEPTH)
+    if name == "ats":
+        want["dense_mlp_residual"] += depth * STEPS
+    return want
+
+
+@contextlib.contextmanager
+def ats_scores_against_cpu(fraction):
+    """Every ATS scoring made on the card (``core.blocks.ats_scores``),
+    made again on the CPU from the same a and v: the score elements and the
+    ATS selections (the top ``n_select``) that differ, tallied."""
+    from eventful_transformer_tpu_torch.core import blocks, indexing
+
+    plain = blocks.ats_scores
+    tally = dict(calls=0, scores=0, scores_differing=0, selections=0, selections_differing=0)
+
+    def checked(a, v):
+        scores = plain(a, v)
+        if a.is_cuda:
+            got, ref = scores.cpu(), plain(a.cpu(), v.cpu())
+            k = int(fraction * (ref.shape[-1] - 1)) + 1
+            cov, ref_cov = (indexing.coverage_from_norms(x, k) for x in (got, ref))
+            tally["calls"] += 1
+            tally["scores"] += ref.numel()
+            tally["scores_differing"] += int((got != ref).sum())
+            tally["selections"] += int(ref_cov.sum())
+            tally["selections_differing"] += int((cov != ref_cov).sum()) // 2
+        return scores
+
+    blocks.ats_scores = checked
+    try:
+        yield tally
+    finally:
+        blocks.ats_scores = plain
+
+
+def ats_card_vs_cpu(name, config, clip, device):
+    """``name``'s model cut to ATS_CHECK_DEPTH spatial blocks and
+    ATS_CHECK_VIEWS views, float32, on the card against the CPU: with the
+    cast off, probabilities and the selections of every ATS and gate top-k;
+    where the configuration casts A.V, again with the cast on: each ATS
+    scoring of the card against the CPU's from the same cast a and ||v||
+    (held), and the two runs (reported)."""
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopFraction
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    def cpu_model(cast):
+        model_config = copy.deepcopy(config["model"])
+        model_config["spatial_config"]["depth"] = ATS_CHECK_DEPTH
+        model_config["spatial_config"]["block_config"]["matmul_2_cast"] = cast
+        model_config["spatial_views"], model_config["temporal_views"] = ATS_CHECK_VIEWS
+        model_config.update(device="cpu", seed=SEED)
+        model = FactorizedViViT(**model_config)
+        for fraction in config.get("token_top_fraction", []):
+            set_policies(model, TokenNormTopFraction, fraction=fraction)
+        return model
+
+    numbers, _ = card_vs_cpu(cpu_model(None), clip, device, run=run_apply)
+    cast = config["model"]["spatial_config"]["block_config"].get("matmul_2_cast")
+    if cast is not None:
+        with ats_scores_against_cpu(ATS_FRACTION) as per_call:
+            runs, _ = card_vs_cpu(cpu_model(cast), clip, device, run=run_apply, hold=False)
+        numbers["cast_on"] = dict(matmul_2_cast=cast, ats_calls=per_call,
+                                  max_flip_share=MAX_FLIP_SHARE, runs_not_held=runs)
+        flips = per_call["selections_differing"]
+        if not per_call["calls"] or flips > MAX_FLIP_SHARE * per_call["selections"]:
+            raise AssertionError(f"ats_path {name}: the card's ATS with the {cast} cast "
+                                 f"disagrees with the CPU's: {numbers['cast_on']}")
+    return numbers
+
+
+def ats_path(device, smi):
+    """Row 5 at the ATS counts; ats.yml and temporal_ats_200.yml through
+    run_evaluations: launches (set to 0 just before, read just after), the
+    probabilities, GFLOPs per clip against the JAX package's, ms per clip
+    (the evaluation, and one warm apply_views); each model's float32 check
+    on the card against the CPU. Returns the final line's rows."""
+    import tempfile
+
+    from eventful_transformer_tpu_torch.data.synthetic import SyntheticVideoClassification
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.utils.evaluate import (
+        evaluate_vivit_metrics,
+        run_evaluations,
+        vivit_views,
+    )
+
+    counts = ats_counts()
+    if not set(ATS_ROW5_COUNTS) <= set(counts):
+        raise AssertionError(f"ATS counts {counts} miss {ATS_ROW5_COUNTS}")
+    checks = check_kernels("ats_kernels", device, [
+        (f"ats_{n}", ATS_VIEWS, n, n, ("dense_mlp_residual",), {}) for n in ATS_ROW5_COUNTS
+    ])
+    data = SyntheticVideoClassification(**ATS_CLIP)
+    clip = torch.from_numpy(data[0][0])[None]
+    runs, launched = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ats_") as tmp:
+        for name in ATS_RUNS:
+            config = harness_config("vivit_epic_kitchens", [name, f"_output={tmp}/{name}",
+                                                            "n_items=1"])
+            entries, models = [], []
+            evaluate = harness_evaluate(
+                evaluate_vivit_metrics, entries,
+                lambda model: checked_method(model, "apply_views", (None,)),
+            )
+
+            def build(**kwargs):
+                models.append(FactorizedViViT(**kwargs))
+                return models[-1]
+
+            done = run_evaluations(config, build, data, evaluate)
+            read_routes(torch.float32, f"ats_path {name}")
+            (entry,) = entries
+            launches = launched[name] = entry.pop("all_launches")
+            want = ats_expected_launches(name)
+            if launches != want:
+                raise AssertionError(f"ats_path {name}: launches {launches}, expected {want}")
+            if not entry["finite"]:
+                raise AssertionError(f"ats_path {name}: non-finite probabilities")
+            model = models[0]
+            blocks = model.spatial_model.backbone.blocks
+            if [blk.ats_fraction for blk in blocks] != [ATS_FRACTION] * DEPTH:
+                raise AssertionError(f"ats_path {name}: the blocks' ATS fractions")
+            got, ref = gflops(entry["counts"]), ATS_GFLOPS[name]
+            if abs(got - ref) > 1e-6 * ref:
+                raise AssertionError(f"ats_path {name}: counted {got} GFLOPs/clip, the JAX "
+                                     f"package's count is {ref}")
+            entry["ms_per_clip"] = entry.pop("seconds") * 1e3
+            entry["warm_ms_per_clip"] = time_model(model, vivit_views(model, data[0][0]),
+                                                   warmup=0, iters=1)
+            del models[:], model, blocks
+            torch.cuda.empty_cache()
+            check = ats_card_vs_cpu(name, config, clip, device)
+            runs[name] = dict(entries_done=done, block_class=config["model"]["spatial_config"]
+                              .get("block_class", "Block"), gflops_per_clip=got,
+                              jax_gflops_per_clip=ref, f32_check=check, **entry)
+    emit("ats_path", card=smi, views=ATS_VIEWS, clip=list(clip.shape), token_counts=counts,
+         dtype="float32", f32_check_depth=ATS_CHECK_DEPTH, f32_check_views=ATS_CHECK_VIEWS,
+         runs=runs)
+    return [kernel_row("dense_mlp_residual", checks[("dense_mlp_residual", torch.float32,
+                                                     f"ats_{n}")],
+                       launched["ats"], "ats_vanilla") for n in ATS_ROW5_COUNTS]
+
+
+def spatial_cache_path(device, smi, ev_checks, tmp):
+    """configs/spatial/vivit_kinetics400/24.yml through compute_vivit_spatial
+    on the card (SPATIAL_CLIPS generated clips), read back by ViViTSpatial;
+    a temporal_only model over the cache against the full model's apply on
+    the same clips; one traced forward of the temporal_only model
+    (utils/profiling.trace). Returns the final line's rows: the paper's
+    configuration's kernels (the "v2mlp" MLP group's ln_norms and
+    gate_group_mlp) on the spatial-cache run and rows 5 and 6 on the
+    temporal_only model, each with its float32 check of phase
+    vivit_evblock_kernels (the same shapes)."""
+    from eventful_transformer_tpu_torch.core.counting import Ctx
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.data.synthetic import SyntheticVideoClassification
+    from eventful_transformer_tpu_torch.data.vivit_spatial import ViViTSpatial
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.utils import profiling
+    from eventful_transformer_tpu_torch.utils.evaluate import load_model_params, vivit_views
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+    from eventful_transformer_tpu_torch.utils.spatial import compute_vivit_spatial
+
+    config = harness_config("vivit_kinetics400", [str(SPATIAL_K)], kind="spatial")
+    data = SyntheticVideoClassification(n_items=SPATIAL_CLIPS, n_frames=HARNESS_CLIP_FRAMES,
+                                        size=[240, 320], classes=400, seed=SEED)
+    location = Path(tmp, "kinetics400")
+    reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    model = compute_vivit_spatial(config, location / "train" / f"spatial_224_25_{SPATIAL_K}",
+                                  data)
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - start
+    cache_launches = read_launches()
+    read_routes(torch.float32, "spatial_cache")
+    want = ev_expected_launches("auto")
+    want.update(window_attention=0, dense_mlp_residual=0)  # spatial_only: no temporal model
+    want = {name: SPATIAL_CLIPS * n for name, n in want.items()}
+    if cache_launches != want:
+        raise AssertionError(f"spatial cache launches {cache_launches}, expected {want}")
+    cache = ViViTSpatial(location, split="train", k=SPATIAL_K, base_name="spatial_224_25")
+    temporal = FactorizedViViT(**{"seed": SEED, **config["model"], "spatial_only": False,
+                                  "temporal_only": True})
+    load_model_params(temporal, config)
+    model.spatial_only = False  # the same model, whole
+    reset_launches()
+    cached = []
+    for i in range(len(cache)):
+        spatial, label = cache[i]
+        if spatial.shape != (ATS_VIEWS, STEPS, 768) or spatial.dtype != np.float32:
+            raise AssertionError(f"cached features {spatial.shape} {spatial.dtype}")
+        if label != data[i][1]:
+            raise AssertionError(f"cached label {label}, the clip's {data[i][1]}")
+        cached.append(temporal.apply(Ctx(), torch.from_numpy(spatial)[None]))
+    torch.cuda.synchronize()
+    temporal_launches = read_launches()
+    read_routes(torch.float32, "spatial_cache temporal_only")
+    want = dict.fromkeys(wrappers(), 0)
+    want.update(window_attention=SPATIAL_CLIPS * TEMPORAL_DEPTH,
+                dense_mlp_residual=SPATIAL_CLIPS * TEMPORAL_DEPTH)
+    if temporal_launches != want:
+        raise AssertionError(f"temporal_only launches {temporal_launches}, expected {want}")
+    set_policies(model, TokenNormTopK, k=SPATIAL_K)
+    full = [model.apply_views(Ctx(), vivit_views(model, data[i][0])) for i in range(len(data))]
+    diff = max(float((a - b).abs().max()) for a, b in zip(cached, full))
+    finite = all(bool(torch.isfinite(p).all()) and p.shape == (1, 400) for p in cached)
+    with profiling.trace(Path(tmp, "profiles")) as prof:
+        with profiling.annotate("temporal_only_forward"):
+            temporal.apply(Ctx(), torch.from_numpy(cache[0][0])[None].to(device))
+    trace_bytes = prof.trace_path.stat().st_size
+    events = json.loads(prof.trace_path.read_text())["traceEvents"]
+    kernel_events = sum(1 for e in events if e.get("cat") == "kernel")
+    numbers = dict(config=f"spatial/vivit_kinetics400/{SPATIAL_K}", clips=SPATIAL_CLIPS,
+                   k=SPATIAL_K, dtype="float32", cached_files=len(cache),
+                   cache_s=cache_s, max_prob_diff=diff, prob_tol=SPATIAL_PROB_TOL,
+                   trace_bytes=trace_bytes, trace_kernel_events=kernel_events,
+                   cache_launches={k: v for k, v in cache_launches.items() if v},
+                   temporal_only_launches={k: v for k, v in temporal_launches.items() if v})
+    emit("spatial_cache_path", card=smi, **numbers)
+    if not finite or diff > SPATIAL_PROB_TOL or not trace_bytes or not kernel_events:
+        raise AssertionError(f"spatial cache path: {numbers}")
+    del model, temporal, full, cached
+    torch.cuda.empty_cache()
+    rows = [kernel_row(name, ev_checks[(name, torch.float32, "vivit_evblock")], cache_launches,
+                       "spatial_cache") for name in ("ln_norms", "gate_group_mlp")]
+    rows += [kernel_row(name, ev_checks[(name, torch.float32, "vivit_evblock_temporal")],
+                        temporal_launches, "spatial_cache_temporal_only")
+             for name in DENSE_KERNELS]
+    return rows
+
+
+# Runs each [module, *argv] of the JSON list in argv[1] as ``python -m``
+# runs it (runpy, as __main__), one after the other, and prints the seconds
+# each took: the time entry points share one process start (torch's import
+# and the card's context, about 10 s a process)
+RUN_AS_MAIN = """
+import json, runpy, sys, time
+for module, *argv in json.loads(sys.argv[1]):
+    sys.argv = [module, *argv]
+    start = time.perf_counter()
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    print(json.dumps({"module": module, "seconds": time.perf_counter() - start}))
+"""
+
+
+def run_as_main(runs, timeout=600):
+    """``runs`` ([module, *argv] each) in one subprocess from the repo's
+    root, each as ``python -m module *argv`` runs it. Returns (the
+    process's seconds, {module: its seconds}); raises if the process
+    failed."""
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", RUN_AS_MAIN, json.dumps(runs)], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise AssertionError(f"{[run[0] for run in runs]} failed: {proc.stderr[-3000:]}")
+    done = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{"module"')]
+    return seconds, {d["module"]: d["seconds"] for d in done}
+
+
+def time_entry_points(tmp, smi):
+    """The two time entry points as a user runs them (``python -m``), in one
+    subprocess on the card, n_items=1 on generated data: ViViT on
+    configs/time/vivit_epic_kitchens/temporal.yml, ViTDet on
+    spatiotemporal_672.yml over one generated VID video; each wrote its
+    times dict, every entry positive, and its output.txt names the card."""
+    entries = {
+        "vivit_epic_kitchens": ["temporal", f"synthetic={json.dumps(TIME_VIVIT_CLIP)}"],
+        "vitdet_vid": ["spatiotemporal_672", f"synthetic={json.dumps(TIME_VID)}"],
+    }
+    modules = {entry: f"eventful_transformer_tpu_torch.scripts.time.{entry}" for entry in entries}
+    outputs = {entry: Path(tmp, f"time_{entry}") for entry in entries}
+    process_s, seconds = run_as_main([[modules[entry], *args, "n_items=1",
+                                       f"_output={outputs[entry]}"]
+                                      for entry, args in entries.items()])
+    out = {}
+    for entry, args in entries.items():
+        output = outputs[entry]
+        lines = (output / "times.csv").read_text().strip().splitlines()
+        times = [dict(zip(lines[0].split(","), map(float, line.split(",")))) for line in lines[1:]]
+        described = [line for line in (output / "output.txt").read_text().splitlines()
+                     if line.startswith(("gpu:", "cpu:"))]
+        out[entry] = dict(config=args[0], entry_s=seconds.get(modules[entry]),
+                          devices=described, times=times)
+        if (modules[entry] not in seconds or not times
+                or not all(t > 0 for row in times for t in row.values())
+                or not described or not all(d.startswith("gpu:") for d in described)):
+            raise AssertionError(f"time entry point {entry}: {out[entry]}")
+    emit("time_entry_points", card=smi, process_s=process_s, runs=out)
+
+
+def serving_paths(device, smi, ev_checks):
+    """Phases ats_path, spatial_cache_path and time_entry_points. Returns
+    the final line's rows of the kernels they launch."""
+    import tempfile
+
+    rows = ats_path(device, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as tmp:
+        rows += spatial_cache_path(device, smi, ev_checks, tmp)
+        time_entry_points(tmp, smi)
+    idle = [row["name"] for row in rows if not row["launches"]]
+    if idle:
+        raise AssertionError(f"serving paths launched no {idle}")
+    return rows
+
+
 def main():
     smi = phase_env()
     from eventful_transformer_tpu_torch.ops import kernel_check
@@ -3396,13 +3797,15 @@ def main():
         path_rows, rows[size], dense_ms[size] = vitdet_path(device, smi, size)
         kernels += path_rows
     kernels += phase_vitdet_e2e(device, smi, rows[E2E_SIZE])
-    kernels += ev_path(device, smi)
+    ev_rows, ev_checks = ev_path(device, smi)
+    kernels += ev_rows
     kernels += option_paths(device, smi, dense_ms)
     kernels += pre_ln_vivit_path(device, smi)
     kernels += topk_paths(device, smi)
     kernels += blend_path(device, smi)
     kernels += unwired_path(device, smi)
     kernels += harness_paths(device, smi)
+    kernels += serving_paths(device, smi, ev_checks)
     phase_attention_bodies()
     phase_row_bodies()
     cores = phase_gemm_cores()

@@ -9,7 +9,8 @@ stack runs as a Python loop; the JAX package's layer scan
 incremental step an eventful block's last kernel emits the next block's
 qkv-gate norms where the JAX package's ``_next_gate_info`` rule allows it
 (``share_gate_passes`` not False on either block), so only the first block
-of such a chain computes its own.
+of such a chain computes its own. A block with ATS hands on fewer tokens
+than it takes, so each block's state is sized at its own input count.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ from eventful_transformer_tpu_torch.core.blocks import (
     EventfulTokenwiseBlock,
 )
 from eventful_transformer_tpu_torch.core.embeddings import PositionEncoding
-from eventful_transformer_tpu_torch.core.nn import not_ported
 
 
 class ViTBackbone(nn.Module):
@@ -42,7 +42,7 @@ class ViTBackbone(nn.Module):
         super().__init__()
         for name in (block_class, windowed_class):
             if name is not None and name not in BLOCK_CLASSES:
-                raise not_ported(f"block class {name!r}", 10)
+                raise ValueError(f"block class {name!r} is not one of {sorted(BLOCK_CLASSES)}")
         self.input_size = tuple(input_size)
         self.has_class_token = has_class_token
         self.position_encoding = PositionEncoding(
@@ -67,11 +67,12 @@ class ViTBackbone(nn.Module):
         return prod(self.input_size) + int(self.has_class_token)
 
     def init_state(self, batch, dtype, device):
-        return {
-            "blocks": [
-                block.init_state(batch, self.n_tokens, dtype, device) for block in self.blocks
-            ]
-        }
+        states = []
+        n = self.n_tokens
+        for block in self.blocks:
+            states.append(block.init_state(batch, n, dtype, device))
+            n = block.out_tokens(n)
+        return {"blocks": states}
 
     def precompute(self):
         """Loop-invariant derived tensors (the sized position encoding, the
@@ -108,14 +109,16 @@ def _next_gate(block, nxt, x, next_state):
     must step in a regime whose last kernel emits them ("v2", "blocked" or
     "v4"; the JAX package excludes "v2mlp"); the next gate must take
     order-2 norms; neither may gate before LN (the emitted norms are
-    LN-domain) or hold STGT gates; the token count must not change (it
-    cannot: the port has no ATS); the next qkv gate state must be C
-    wide; and neither block may have ``share_gate_passes`` False."""
+    LN-domain), hold STGT gates or sample tokens (ATS); the token count
+    must not change; the next qkv gate state must be C wide; and neither
+    block may have ``share_gate_passes`` False."""
     for b in (block, nxt):
         if not isinstance(b, EventfulTokenwiseBlock) or b.gate_before_ln or b.stgt:
             return None
-        if b.share_gate_passes is False:
+        if b.ats_fraction is not None or b.share_gate_passes is False:
             return None
+    if block.out_tokens(x.shape[-2]) != x.shape[-2]:
+        return None
     if block._fused_mode(x.shape[-2]) not in ("v2", "blocked", "v4"):
         return None
     if getattr(nxt.qkv_gate.policy, "order", 2) != 2:

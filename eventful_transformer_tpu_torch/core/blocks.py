@@ -75,8 +75,18 @@ the marker N, which writes nothing; and each count of the selected work is
 scaled by the valid share (``valid_fraction``). Such a policy takes neither
 "v4" nor the groups' own top-k.
 
-Not ported: ATS, drop-path and sequence parallelism. Asking for one
-raises ``NotImplementedError`` naming the ROADMAP.md item that holds it.
+Adaptive token sampling (``ats_fraction``, Fayyaz et al. 2022) keeps
+the class token and the ``n_select`` tokens of the highest attention
+scores after the attention of every block class, as the JAX package does
+(its ``_adaptive_token_sampling``): the tokens after it, the skip and the
+later gates and buffers are ``out_tokens`` wide. An ATS block runs the
+plain attention (no attention or A.V kernel) and steps unfused in every
+mode; the dense MLP kernel runs at its reduced token count. The sampled
+indices are stabilised against the last frame's (``ats_last``), so the
+dense ``Block`` carries state too.
+
+Not ported: drop-path and sequence parallelism. Asking for one raises
+``NotImplementedError`` naming the ROADMAP.md item that holds it.
 """
 
 from __future__ import annotations
@@ -152,6 +162,42 @@ def _pair(x):
     return (x, x) if isinstance(x, int) else tuple(x)
 
 
+def ats_scores(a, v):
+    """ATS token scores (B, N) float32 of the attention a (B, H, N, N) and
+    v (B, H, N, d), with the JAX package's roundings in a's dtype: the
+    class-token column times ||v|| (the float32 sum of the squares,
+    rounded once, then its square root, as XLA fuses ``jnp.linalg.norm``),
+    over its sum across the non-class tokens, the class token at +inf,
+    summed over the heads (JAX ``core/blocks.py:686-694``; the
+    reference's ``dim=-3`` sums its views instead). Each sum runs in
+    float32 and rounds once."""
+    norms = v.float().square().sum(dim=-1).to(v.dtype).sqrt()
+    raw = a[..., 0] * norms
+    scores = raw / raw[..., 1:].float().sum(dim=-1, keepdim=True).to(raw.dtype)
+    scores[..., 0] = float("inf")
+    return scores.float().sum(dim=-2).to(a.dtype).float()
+
+
+def stabilize_ats_indices(last, new):
+    """The JAX package's ``_stabilize_ats_indices`` on tensors: the old
+    indices (B, k) that ``new`` (B, k, ascending) still selects keep their
+    slots; the vacated slots take the newly selected indices, in order."""
+    old_not_in_new = ~_is_member(last, new)
+    new_in_old = _is_member(new, last.sort(dim=-1).values)
+    # the new-not-in-old values first, in order
+    order = torch.argsort(new_in_old.to(torch.int32), dim=-1, stable=True)
+    fill_values = torch.gather(new, -1, order)
+    rank = torch.cumsum(old_not_in_new.to(torch.int64), dim=-1) - 1
+    fills = torch.gather(fill_values, -1, rank.clamp(0, new.shape[-1] - 1))
+    return torch.where(old_not_in_new, fills, last)
+
+
+def _is_member(values, sorted_ref):
+    pos = torch.searchsorted(sorted_ref.contiguous(), values.contiguous(), side="left")
+    pos = pos.clamp(0, sorted_ref.shape[-1] - 1)
+    return torch.gather(sorted_ref, -1, pos) == values
+
+
 class Block(nn.Module):
     """Dense pre-LN Transformer block."""
 
@@ -173,8 +219,14 @@ class Block(nn.Module):
         sequence_parallel=None,
     ):
         super().__init__()
-        if ats_fraction is not None:
-            raise not_ported("ATS", 10)
+        if ats_fraction is not None and (
+            pool_size is not None or window_size is not None or not 0.0 <= ats_fraction <= 1.0
+        ):
+            raise ValueError(
+                f"ATS takes a fraction in [0, 1] and global attention without pooling, got "
+                f"ats_fraction={ats_fraction!r}, pool_size={pool_size!r}, "
+                f"window_size={window_size!r}"
+            )
         if sequence_parallel is not None:
             raise not_ported("sequence parallelism", 17)
         if drop_path_rate != 0.0:
@@ -186,6 +238,7 @@ class Block(nn.Module):
         self.dim = dim
         self.heads = heads
         self.input_size = tuple(input_size)
+        self.ats_fraction = ats_fraction
         self.matmul_2_cast = matmul_2_cast
         self.pool_size = None if pool_size is None else _pair(pool_size)
         if window_size is None:
@@ -210,9 +263,26 @@ class Block(nn.Module):
             )
         self._window_perm_cache = None
 
+    def n_select(self, n_tokens):
+        """The tokens ATS keeps of ``n_tokens``, the class token included."""
+        return int(self.ats_fraction * (n_tokens - 1)) + 1
+
+    def out_tokens(self, n_tokens):
+        return n_tokens if self.ats_fraction is None else self.n_select(n_tokens)
+
     def init_state(self, batch, n_tokens, dtype, device):
-        del batch, n_tokens, dtype, device
-        return {}
+        """{} without ATS; with it the last frame's sampled indices and
+        whether there was one (a host bool: the first frame skips the
+        stabilisation)."""
+        del dtype
+        if self.ats_fraction is None:
+            return {}
+        return {
+            "ats_last": torch.zeros(
+                (batch, self.n_select(n_tokens)), dtype=torch.int32, device=device
+            ),
+            "ats_has_last": False,
+        }
 
     def precompute(self):
         """Loop-invariant derived tensors: the rel-pos tables and, for a
@@ -235,7 +305,8 @@ class Block(nn.Module):
         skip_1 = x
         x = layer_norm(x, self.input_layer_norm)
         x = self.qkv(ctx, x)
-        x = self._forward_attention(ctx, x, aux)
+        x, ats_index, state = self._forward_attention(ctx, x, aux, state=state)
+        skip_1 = self._gather_ats_skip(skip_1, ats_index)
         x = self.projection(ctx, x)
         x = counted_add(ctx, x, skip_1)
         ln = self.mlp_layer_norm
@@ -264,16 +335,19 @@ class Block(nn.Module):
     def _global_kernel_ok(self, n):
         return (
             self.window_size is None
+            and self.ats_fraction is None
             and self.pool_size is None
             and self.matmul_2_cast is None
             and self.relative_position is None
             and n <= self.GLOBAL_ATTN_MAX_TOKENS
         )
 
-    def _forward_attention(self, ctx, x, aux, pre_partitioned=False):
-        """Multi-head attention of packed qkv (B, N, 3C) -> (B, N, C). With
-        ``pre_partitioned`` x is the window-major resident buffer (B, NW,
-        3C), whose pad rows already hold the qkv bias row."""
+    def _forward_attention(self, ctx, x, aux, pre_partitioned=False, state=None):
+        """Multi-head attention of packed qkv (B, N, 3C) -> (B, N', C), N'
+        the tokens ATS keeps (N without it). With ``pre_partitioned`` x is
+        the window-major resident buffer (B, NW, 3C), whose pad rows
+        already hold the qkv bias row. Returns (y, the ATS indices or None,
+        state)."""
         if pre_partitioned:
             x = x.reshape(-1, prod(self.window_size), x.shape[-1])
             if any(self._window_padding()):
@@ -283,9 +357,10 @@ class Block(nn.Module):
             pad_bias = geom = None
             if not pre_partitioned:
                 x, pad_bias, geom = self._partition_windows_zero(ctx, x)
-            return self._recombine_windows(self._fused_attention(ctx, x, aux, pad_bias, geom))
+            y = self._recombine_windows(self._fused_attention(ctx, x, aux, pad_bias, geom))
+            return y, None, state
         if not pre_partitioned and self._global_kernel_ok(x.shape[-2]):
-            return self._fused_attention(ctx, x, aux)
+            return self._fused_attention(ctx, x, aux), None, state
         if not pre_partitioned:
             x = self._partition_windows(ctx, x)
         q, k, v = self._partition_heads(x)
@@ -295,10 +370,11 @@ class Block(nn.Module):
         if self.relative_position is not None:
             a = self.relative_position(ctx, a, q, self._derived(aux))
         a = torch.softmax(a, dim=-1)
+        a, ats_index, state = self._adaptive_token_sampling(state, a, v)
         a, v, old_dtype = self._cast_matmul_2(a, v)
         x = counted_matmul(ctx, a, v)
         x = self._recombine_windows(self._recombine_heads(x))
-        return self._uncast_matmul_2(x, old_dtype)
+        return self._uncast_matmul_2(x, old_dtype), ats_index, state
 
     def _derived(self, aux):
         derived = (aux or {}).get("relative")
@@ -425,6 +501,29 @@ class Block(nn.Module):
             self._window_perm_cache = window_permutation(self.input_size, self.window_size)
         return self._window_perm_cache
 
+    # -- ATS -------------------------------------------------------------------
+
+    def _adaptive_token_sampling(self, state, a, v):
+        """Top-k ATS over the attention matrix a (B, H, N, N) and v (B, H,
+        N, d) (JAX ``Block._adaptive_token_sampling``): the n_select
+        tokens of the highest :func:`ats_scores`, the class token always
+        among them, ties to the smallest index as ``lax.top_k``, ascending,
+        then stabilised against the last frame's. Returns (a at the
+        sampled rows, the indices (B, n_select) int32, state)."""
+        if self.ats_fraction is None:
+            return a, None, state
+        scores = ats_scores(a, v)
+        k = self.n_select(scores.shape[-1])
+        index = index_from_coverage(coverage_from_norms(scores, k), k).to(torch.int32)
+        if state["ats_has_last"]:
+            index = stabilize_ats_indices(state["ats_last"], index)
+        state = dict(state, ats_last=index, ats_has_last=True)
+        return take_rows(a, index), index, state
+
+    @staticmethod
+    def _gather_ats_skip(skip, ats_index):
+        return skip if ats_index is None else take_rows(skip, ats_index)
+
     # -- pooling and the matmul-2 cast ------------------------------------------
 
     def _pool_tokens(self, x):
@@ -503,10 +602,10 @@ class EventfulTokenwiseBlock(Block):
 
     def _fused_mode(self, n_tokens):
         """The incremental regime (core/blocks.py:847-875 of the JAX
-        package, with its TPU thresholds under "auto"). STGT gates run
-        unfused in every mode."""
+        package, with its TPU thresholds under "auto"). STGT gates and ATS
+        blocks run unfused in every mode."""
         mode = self.fused_gates
-        if self.stgt or mode is False:
+        if self.stgt or mode is False or self.ats_fraction is not None:
             return False
         if mode == "v1":
             return "v1" if self.recompute_buffers else False
@@ -576,13 +675,16 @@ class EventfulTokenwiseBlock(Block):
         return self._window_index_cache[device]
 
     def init_state(self, batch, n_tokens, dtype, device):
-        shape = (batch, n_tokens, self.dim)
-        state = {
-            "qkv_gate": self.qkv_gate.init_state(shape, dtype, device),
-            "projection_gate": self.projection_gate.init_state(shape, dtype, device),
-            "mlp_gate": self.mlp_gate.init_state(shape, dtype, device),
-            "mlp_accumulator": self.mlp_accumulator.init_state(shape, dtype, device),
-        }
+        """The gates' and buffers' state; after the attention (projection
+        and MLP groups) at the tokens ATS keeps."""
+        shape = (batch, self.out_tokens(n_tokens), self.dim)
+        state = super().init_state(batch, n_tokens, dtype, device)
+        state.update(
+            qkv_gate=self.qkv_gate.init_state((batch, n_tokens, self.dim), dtype, device),
+            projection_gate=self.projection_gate.init_state(shape, dtype, device),
+            mlp_gate=self.mlp_gate.init_state(shape, dtype, device),
+            mlp_accumulator=self.mlp_accumulator.init_state(shape, dtype, device),
+        )
         # qkv and projection buffers where the regime gathers ("v2",
         # "blocked", or any regime that does not recompute); the others
         # recompute both from the gate states
@@ -623,13 +725,16 @@ class EventfulTokenwiseBlock(Block):
             # counts the pad-bias map once
             x = self._window_major(x, self.qkv.bias.to(x.dtype))
             x, state["qkv_accumulator"] = self.qkv_accumulator.flush(state["qkv_accumulator"], x)
-            x = self._forward_attention(ctx, x, aux, pre_partitioned=True)
+            x, ats_index, state = self._forward_attention(
+                ctx, x, aux, pre_partitioned=True, state=state
+            )
         else:
             if "qkv_accumulator" in state:
                 x, state["qkv_accumulator"] = self.qkv_accumulator.flush(
                     state["qkv_accumulator"], x
                 )
-            x, state = self._attention_flush(ctx, state, x, aux)
+            x, ats_index, state = self._attention_flush(ctx, state, x, aux)
+        skip_1 = self._gather_ats_skip(skip_1, ats_index)
         _, state["projection_gate"] = self.projection_gate.flush(state["projection_gate"], x)
         x = self.projection(ctx, x)
         if "projection_accumulator" in state:
@@ -682,11 +787,12 @@ class EventfulTokenwiseBlock(Block):
         return self.mlp_2(ctx, gelu(self.mlp_1(ctx, x, valid_frac)), valid_frac)
 
     def _attention_flush(self, ctx, state, x, aux):
-        return self._forward_attention(ctx, x, aux), state
+        """Returns (y, the ATS indices or None, state)."""
+        return self._forward_attention(ctx, x, aux, state=state)
 
     def _attention_incremental(self, ctx, state, x, index, mask, aux):
         del index, mask
-        return self._forward_attention(ctx, x, aux), state
+        return self._forward_attention(ctx, x, aux, state=state)
 
     # -- incremental -------------------------------------------------------------
 
@@ -704,7 +810,8 @@ class EventfulTokenwiseBlock(Block):
         state = dict(state)
         skip_1 = x
         x, index, mask = self._qkv_group(ctx, state, x, norms, mode)
-        x, state = self._attention_incremental(ctx, state, x, index, mask, aux)
+        x, ats_index, state = self._attention_incremental(ctx, state, x, index, mask, aux)
+        skip_1 = self._gather_ats_skip(skip_1, ats_index)
         x, mlp_norms = self._projection_group(ctx, state, x, skip_1, mode)
         y, next_norms = self._mlp_group(ctx, state, x, mlp_norms, next_gate, mode)
         return y, state, next_norms
@@ -717,14 +824,14 @@ class EventfulTokenwiseBlock(Block):
         skip_1 = x
         if self._resident_qkv(n):
             x = self._resident_qkv_group(ctx, state, x, norms)
-            x = self._forward_attention(ctx, x, aux, pre_partitioned=True)
+            x, _, _ = self._forward_attention(ctx, x, aux, pre_partitioned=True)
         else:
             outs, index, mask = group_linear(
                 ctx, self.qkv_gate, state["qkv_gate"], state["qkv_accumulator"], x,
                 self.input_layer_norm, self._ln_mode, self.qkv,
                 need_index=self._attention_uses_index, norms=norms,
             )
-            x, state = self._attention_incremental(ctx, state, outs[1], index, mask, aux)
+            x, _, state = self._attention_incremental(ctx, state, outs[1], index, mask, aux)
         # the projection group emits the MLP gate's norms, which are
         # LN-domain norms: not for a gate before LN
         own_mlp = None
@@ -1140,15 +1247,19 @@ class EventfulMatmul1Block(EventfulTokenwiseBlock):
 
     def _attention_flush(self, ctx, state, x, aux):
         a, v = self._matmul_1_flush(ctx, state, x, aux)
+        a, ats_index, state = self._adaptive_token_sampling(state, a, v)
         a, v, old_dtype = self._cast_matmul_2(a, v)
         x = counted_matmul(ctx, a, v)
-        return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
+        return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), ats_index, state
 
     def _attention_incremental(self, ctx, state, x, index, mask, aux):
         a, _, v, _, _ = self._matmul_1_incremental(ctx, state, x, index, mask, aux)
+        # ATS samples before the cast here, after it in EventfulBlock (as
+        # the JAX package orders them)
+        a, ats_index, state = self._adaptive_token_sampling(state, a, v)
         a, v, old_dtype = self._cast_matmul_2(a, v)
         x = counted_matmul(ctx, a, v)
-        return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
+        return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), ats_index, state
 
     def _matmul_1_flush(self, ctx, state, x, aux):
         q, k, v = self._partition_heads(x)
@@ -1243,21 +1354,24 @@ class EventfulBlock(EventfulMatmul1Block):
     def init_state(self, batch, n_tokens, dtype, device):
         state = super().init_state(batch, n_tokens, dtype, device)
         n_p = self._pooled_tokens(n_tokens)
+        n_a = self.out_tokens(n_tokens)  # the attention rows ATS keeps
         sdtype = _CAST_DTYPES.get(self.matmul_2_cast, dtype)
         head_dim = self.dim // self.heads
         state["v_gate"] = self.v_gate.init_state((batch, self.heads, n_p, head_dim), sdtype, device)
         state["matmul_gate"] = self.matmul_gate.init_state(
-            (batch, self.heads, n_tokens, n_p), sdtype, device
+            (batch, self.heads, n_a, n_p), sdtype, device
         )
         if not self.recompute_av:
             state["matmul_accumulator_2"] = self.matmul_accumulator_2.init_state(
-                (batch, self.heads, n_tokens, head_dim), sdtype, device
+                (batch, self.heads, n_a, head_dim), sdtype, device
             )
         return state
 
     def _attention_flush(self, ctx, state, x, aux):
         a, v = self._matmul_1_flush(ctx, state, x, aux)
         a, v, old_dtype = self._cast_matmul_2(a, v)
+        # ATS scores the cast a and v here (JAX core/blocks.py:2163-2164)
+        a, ats_index, state = self._adaptive_token_sampling(state, a, v)
         # v may be a view of the qkv buffer, which later steps update in place
         _, state["v_gate"] = self.v_gate.flush(state["v_gate"], v.contiguous())
         _, state["matmul_gate"] = self.matmul_gate.flush(state["matmul_gate"], a)
@@ -1267,10 +1381,10 @@ class EventfulBlock(EventfulMatmul1Block):
             x, state["matmul_accumulator_2"] = self.matmul_accumulator_2.flush(
                 ctx, state["matmul_accumulator_2"], a, v
             )
-        return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
+        return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), ats_index, state
 
     def _use_av_kernel(self, n_cols, batch):
-        if not self.recompute_av or self.av_kernel is False:
+        if not self.recompute_av or self.av_kernel is False or self.ats_fraction is not None:
             return False
         if self.av_kernel is True:
             return True
@@ -1282,11 +1396,12 @@ class EventfulBlock(EventfulMatmul1Block):
         if not self._use_av_kernel(self._pooled_tokens(x.shape[-2]), x.shape[0]):
             a, _, v, index_k, mask_k = self._matmul_1_incremental(ctx, state, x, index, mask, aux)
             a, v, old_dtype = self._cast_matmul_2(a, v)
+            a, ats_index, state = self._adaptive_token_sampling(state, a, v)
             if self.recompute_av:
                 x = self._av_recompute(ctx, state, a, v, index_k, mask_k)
             else:
                 x = self._av_delta(ctx, state, a, v, index_k, mask_k)
-            return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
+            return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), ats_index, state
         if self.fuse_matmul_1 is not False and self.recompute_product:
             k, q, v, index_k, mask_k = self._matmul_1_incremental(
                 ctx, state, x, index, mask, aux, matmul=False
@@ -1306,7 +1421,7 @@ class EventfulBlock(EventfulMatmul1Block):
             )
             a, v, old_dtype = self._cast_matmul_2(a, v)
             x = self._av_recompute(ctx, state, a, v, index_k, mask_k, q=q, aux=aux)
-        return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), state
+        return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), None, state
 
     def _av_recompute(self, ctx, state, a, v, index_k, mask_k, q=None, k=None, aux=None):
         """p_v = v's selected rows into the v gate state, p_a = the

@@ -6,6 +6,14 @@ in, through ``ViViTPreprocessing`` (on the video's device), class
 probabilities out. ``apply_views`` is the bench's: preprocessed views in.
 The frame loop is plain Python: step 0 of each view flushes, steps 1+ run
 incrementally.
+
+The spatial cache (``utils/spatial.py``) splits the model in two, by the
+attributes ``spatial_only`` (``apply_views`` returns the spatial features,
+(batch * views, t, dim)) and ``temporal_only`` (``apply`` takes such
+features, (batch, views, t, dim), straight to the temporal model). Both
+are plain attributes, so a caller may flip them between calls, as the
+timing entry point does. ``batch_views=False`` runs the views one at a
+time, each with its own state, instead of on the batch axis.
 """
 
 from __future__ import annotations
@@ -22,7 +30,6 @@ from eventful_transformer_tpu_torch.core.nn import (
     Linear,
     layer_norm,
     model_device,
-    not_ported,
     trunc_normal_,
     uniform_,
 )
@@ -158,10 +165,11 @@ class FactorizedViViT(nn.Module):
     ):
         super().__init__()
         device = model_device(device)
-        if not batch_views:
-            raise not_ported("batch_views=False", 12)
-        if spatial_only or temporal_only:
-            raise not_ported("spatial_only / temporal_only (spatial cache)", 12)
+        if spatial_only and temporal_only:
+            raise ValueError("a model is spatial_only or temporal_only, not both")
+        self.batch_views = batch_views
+        self.spatial_only = spatial_only
+        self.temporal_only = temporal_only
         self.preprocessing = ViViTPreprocessing(
             input_shape, normalize_mean, normalize_std, spatial_views, temporal_stride,
             temporal_views,
@@ -188,23 +196,37 @@ class FactorizedViViT(nn.Module):
         """video (batch, time, channel, height, width), uint8 or float, on
         any device -> class probabilities. The views are made on the
         model's device and cast to its parameters' dtype, then run through
-        :meth:`apply_views`."""
+        :meth:`apply_views`. With ``temporal_only`` ``video`` is the spatial
+        features (batch, views, t, dim) instead, which go straight to the
+        temporal model."""
         kernel = self.classifier.kernel
+        if self.temporal_only:
+            x = video.to(device=kernel.device, dtype=kernel.dtype)
+            return self._forward_temporal(ctx, x, video.shape[0])
         views = self.preprocessing(video.to(kernel.device))
         return self.apply_views(ctx, torch.stack(views, dim=1).to(kernel.dtype))
 
     @torch.no_grad()
     def apply_views(self, ctx, views):
-        """views (batch, n_views, t, c, h, w) -> class probabilities.
-        Inference only: the kernels update the eventful state in place and
-        have no backward."""
+        """views (batch, n_views, t, c, h, w) -> class probabilities, or
+        with ``spatial_only`` the spatial features (batch * n_views, t,
+        dim). Inference only: the kernels update the eventful state in
+        place and have no backward."""
         batch = views.shape[0]
         x = self._forward_spatial(ctx, views)
+        if self.spatial_only:
+            return x
         return self._forward_temporal(ctx, x, batch)
 
     def _forward_spatial(self, ctx, views):
+        """(batch, n_views, ...) -> (batch * n_views, t, dim): the views on
+        the batch axis, or with ``batch_views`` False one at a time, each
+        from a fresh state."""
         b, v = views.shape[:2]
-        return self._forward_view(ctx, views.reshape((b * v,) + views.shape[2:]))
+        if self.batch_views:
+            return self._forward_view(ctx, views.reshape((b * v,) + views.shape[2:]))
+        x = torch.stack([self._forward_view(ctx, views[:, i]) for i in range(v)], dim=1)
+        return x.reshape((b * v,) + x.shape[2:])
 
     def _forward_view(self, ctx, x):
         """Embed, then run the spatial sub-model over the time steps: step 0

@@ -45,7 +45,7 @@ from eventful_transformer_tpu_torch.utils.misc import (
 from eventful_transformer_tpu_torch.utils.params import params_from_jax
 
 
-def _progress(iterable):
+def progress(iterable):
     try:
         from tqdm import tqdm
 
@@ -135,7 +135,7 @@ def evaluate_vivit_metrics(model, data, config):
     step = make_bucketed_vivit_step(model, config) or make_vivit_step(model)
     n_items = min(config.get("n_items") or len(data), len(data))
     total_counts = Counts()
-    for i in _progress(range(n_items)):
+    for i in progress(range(n_items)):
         video, label = data[i]
         output, counts = step(vivit_views(model, video))
         output = output.float().cpu().numpy()
@@ -223,7 +223,7 @@ def run_evaluations(config, model_class, data, evaluate_function):
     ``<_output>/<key>.csv``. With ``resume``, the entries already in
     metrics.csv are skipped. Returns the titles of the entries done."""
     model = model_class(**{"seed": config.get("seed", 0), **config["model"]})
-    _load_model_params(model, config)
+    load_model_params(model, config)
 
     completed = []
     output_dir = Path(config["_output"])
@@ -272,7 +272,7 @@ def run_evaluations(config, model_class, data, evaluate_function):
     return completed
 
 
-def _load_model_params(model, config):
+def load_model_params(model, config):
     """The weights of ``config["weights"]``, a ``.npz`` of the JAX
     package's ``save_params``, into ``model``; where there is no such file,
     the model keeps the weights its seed made, with a warning if a file was

@@ -2026,3 +2026,75 @@ def test_relpos_entry_refuses_off_rule_calls(device):
     assert code(2) != 0
     assert code(1) == 0 and code(1, rows=1, cols=6) == 0 and code(0) == 0
     torch.cuda.synchronize()
+
+
+ATS_MLP_ROWS = (361, 292, 111)  # EPIC-Kitchens ViViT-B's MLP tokens under ATS 0.9
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", ATS_MLP_ROWS)
+def test_dense_mlp_at_the_ats_token_counts(n, dtype, device):
+    """Row 5 on 12 views of an ATS block's reduced token count (the first,
+    third and last spatial block's MLP at EPIC-Kitchens ViViT-B)."""
+    wrapper = kernel_check.KERNELS["dense_mlp_residual"][0]
+    before = wrapper.launches
+    inputs = kernel_check.make_inputs(12, n, 768, 12, n, dtype, device, seed=2)
+    rows = kernel_check.errors("dense_mlp_residual", inputs)
+    assert all(row["ok"] for row in rows), rows
+    assert wrapper.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ats_indices_on_the_card_equal_the_cpu_on_planted_ties(dtype, device):
+    """ATS on the card samples the CPU's tokens where the scores tie
+    exactly at the k-th (ties to the smallest index, as lax.top_k): 4 tied
+    tokens straddle the cut of 9 of 17, in every view and head."""
+    from eventful_transformer_tpu_torch.core.blocks import Block
+
+    g = torch.Generator().manual_seed(0)
+    n, heads, d, b = 17, 4, 16, 6
+    column = torch.tensor([0.5] + [0.9 - 0.05 * i for i in range(6)] + [0.25] * 4
+                          + [0.1 - 0.01 * i for i in range(6)])
+    perm = torch.cat([torch.zeros(1, dtype=torch.long), 1 + torch.randperm(n - 1, generator=g)])
+    column = column[perm]
+    a = torch.rand((b, heads, n, n), generator=g)
+    a[..., 0] = column
+    v = torch.randn((b, heads, n, d), generator=g)
+    v = v / v.norm(dim=-1, keepdim=True)
+    tied = (column == 0.25).nonzero()[:, 0]
+    v[..., tied, :] = v[..., tied[:1], :]
+    blk = Block(dim=64, heads=heads, mlp_ratio=2, input_size=(4, 4), ats_fraction=0.5)
+    got = {}
+    for where in ("cpu", device):
+        state = blk.init_state(b, n, None, where)
+        for _ in range(2):  # the second call stabilises against the first
+            _, index, state = blk._adaptive_token_sampling(
+                state, a.to(where, dtype), v.to(where, dtype))
+            got.setdefault(str(where), []).append(index.cpu())
+    for cpu, card in zip(got["cpu"], got[str(device)]):
+        assert torch.equal(cpu, card)
+    kept = set(got["cpu"][0][0].tolist())
+    assert set(tied[:2].tolist()) <= kept and not set(tied[2:].tolist()) & kept
+
+
+@pytest.mark.parametrize("helper", ["time_jitted", "time_jitted_pair", "time_repeated"])
+def test_timers_wait_for_a_card_callable_given_host_arguments(helper, device):
+    """A callable that moves its host argument to the card and keeps the
+    card busy for about 20 ms is timed to the end of that work."""
+    from eventful_transformer_tpu_torch.utils import timing
+
+    cycles_per_ms = torch.cuda.get_device_properties(device).clock_rate  # kHz
+
+    def busy(x):
+        y = x.to(device)
+        torch.cuda._sleep(20 * cycles_per_ms)
+        return y + 1
+
+    args = (torch.zeros(4),)
+    if helper == "time_jitted":
+        seconds = timing.time_jitted(busy, args, iters=3)
+    elif helper == "time_jitted_pair":
+        seconds = timing.time_jitted_pair(busy, args, busy, args, iters=3)[1]
+    else:
+        seconds = timing.time_repeated(busy, args, repeat=2, iters=3)
+    assert seconds > 0.015, seconds

@@ -295,6 +295,75 @@ print("ok")
 """
 
 
+SERVING_SCRIPT = """
+import contextlib, io, sys, tempfile
+from pathlib import Path
+sys.modules["jax"] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import eventful_transformer_tpu_torch.scripts.spatial.vivit_epic_kitchens
+import eventful_transformer_tpu_torch.scripts.spatial.vivit_kinetics400
+import eventful_transformer_tpu_torch.scripts.time.vitdet_vid
+from eventful_transformer_tpu_torch.core.counting import Ctx
+from eventful_transformer_tpu_torch.core.policies import TokenNormTopFraction
+from eventful_transformer_tpu_torch.data.synthetic import SyntheticVID, SyntheticVideoClassification
+from eventful_transformer_tpu_torch.data.vivit_spatial import ViViTSpatial
+from eventful_transformer_tpu_torch.models import FactorizedViViT
+from eventful_transformer_tpu_torch.scripts.time import vivit_epic_kitchens
+from eventful_transformer_tpu_torch.utils import profiling, timing
+from eventful_transformer_tpu_torch.utils.misc import set_policies
+from eventful_transformer_tpu_torch.utils.spatial import compute_vivit_spatial
+block = dict(dim=32, heads=4, mlp_ratio=2)
+def config(block_class, **kw):
+    return dict(
+        classes=5, input_shape=[8, 3, 32, 32], normalize_mean=0.45, normalize_std=0.225,
+        spatial_views=1, temporal_stride=1, temporal_views=2, tubelet_shape=[2, 8, 8],
+        spatial_config=dict(depth=2, position_encoding_size=[4, 4], block_class=block_class,
+                            block_config=dict(block, **kw)),
+        temporal_config=dict(depth=1, position_encoding_size=[4], block_config=block),
+        device="cpu",
+    )
+video = torch.from_numpy(SyntheticVideoClassification(1, 10, (36, 40), 5)[0][0])[None]
+# ATS: the dense Block (vanilla) and EventfulBlock with the bf16 cast
+for block_class, kw in (("Block", {}), ("EventfulBlock", dict(matmul_2_cast="bfloat16"))):
+    model = FactorizedViViT(**config(block_class, ats_fraction=0.9, **kw))
+    set_policies(model, TokenNormTopFraction, fraction=0.5)
+    out = model.apply(Ctx(), video)
+    assert out.shape == (1, 5) and abs(float(out.sum()) - 1.0) < 1e-5
+# the spatial cache, read back, through a temporal-only model
+tmp = Path(tempfile.mkdtemp())
+cfg = dict(model=config("EventfulBlock", matmul_2_cast="bfloat16"), k=8)
+cfg["model"]["spatial_only"] = True
+with contextlib.redirect_stdout(io.StringIO()):
+    compute_vivit_spatial(cfg, tmp / "cache", SyntheticVideoClassification(2, 10, (36, 40), 5))
+spatial, label = ViViTSpatial(tmp / "cache")[1]
+temporal = FactorizedViViT(**config("EventfulBlock"), temporal_only=True)
+out = temporal.apply(Ctx(), torch.from_numpy(spatial)[None])
+assert spatial.shape == (2, 4, 32) and out.shape == (1, 5)
+# the timing helpers, a trace, the ViViT time entry point
+assert timing.time_jitted(lambda x: x + 1, (torch.zeros(4),), iters=2) > 0
+with profiling.trace(tmp / "trace") as prof:
+    with profiling.annotate("region"):
+        temporal.apply(Ctx(), torch.from_numpy(spatial)[None])
+assert prof.trace_path.stat().st_size > 0
+small = ["model.input_shape=[8,3,32,32]", "model.tubelet_shape=[2,8,8]", "model.spatial_views=1",
+         "model.temporal_views=2", "model.classes=10", "model.spatial_config.depth=1",
+         "model.spatial_config.position_encoding_size=[4,4]",
+         "model.spatial_config.block_config.dim=32", "model.spatial_config.block_config.heads=4",
+         "model.temporal_config.depth=1", "model.temporal_config.position_encoding_size=[4]",
+         "model.temporal_config.block_config.dim=32", "model.temporal_config.block_config.heads=4",
+         "token_top_k=[8]", "n_items=1", "model.device=cpu", f"_output={tmp}/time",
+         "synthetic={n_items: 1, n_frames: 10, size: [36, 40], classes: 10, seed: 0}"]
+with contextlib.redirect_stdout(io.StringIO()):
+    assert vivit_epic_kitchens.main(["temporal", *small]) == ["Token top k=8"]
+assert len(SyntheticVID(1, 2, (48, 64))[0]) == 2
+assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
+               for name, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+
+
 def _run(script):
     result = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
@@ -354,3 +423,11 @@ def test_harness_runs_without_jax():
     threshold sweep, ``evaluate_vitdet_metrics`` with its dispatch and the
     mAP, the data readers and the other entry points) without JAX."""
     _run(HARNESS_SCRIPT)
+
+
+def test_serving_surface_runs_without_jax():
+    """ATS (the dense and the eventful block), the spatial cache
+    (``utils/spatial.py``, ``data/vivit_spatial.py``, ``spatial_only`` and
+    ``temporal_only``), the timing and profiling helpers, the generated
+    VID video and the spatial and time entry points, without JAX."""
+    _run(SERVING_SCRIPT)
