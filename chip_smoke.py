@@ -17,7 +17,10 @@ gates, also with put_rows as the scatter-blend kernel) and ablate_av_672
 (EventfulMatmul1Block), and spatiotemporal_672 with the gate-group kernels
 selecting their own rows; and ViTDet-B detection end
 to end at 672 through ``ViTDet.apply`` (backbone, SimplePyramid, RPN,
-ROIAlign, NMS, the standard ROI heads); each with its dense twin; and the evaluation harness on the
+ROIAlign, NMS, the standard ROI heads); each with its dense twin; ViTDet-B
+COCO at 1024 through ViTDet.apply (the cascade and mask heads); the temporal
+fine-tune (configs/train/vivit_kinetics400/final_24.yml) through its entry
+point and its train step; and the evaluation harness on the
 card: run_evaluations over temporal_24 (ViViT-B K400) and threshold_1024
 (ViTDet-B VID at 1024, the capacity-bucketed threshold sweep), and the
 ViViT entry point as a user runs it; and ViViT's remaining serving
@@ -325,9 +328,36 @@ Phases, one JSON line each, with the seconds the phase took:
                      n_items=1 over a generated clip and a generated VID
                      video: each times.csv entry positive, output.txt
                      naming the card.
+  35. coco_kernels, coco_path: rows 5 (dense_mlp_residual), 6 (window_attention,
+                     windowed and padded) and 17 (relpos_bias_add_v2) at
+                     ViTDet-B COCO's shapes (one stream, N = 4096, 25 windows,
+                     4096 x 4096 logits), as in 3; configs/models/
+                     vitdet_b_coco.yml (dense, the 3-stage cascade and its
+                     mask head, 80 classes) at full width and depth through
+                     ViTDet.apply, bfloat16, 2 generated 1024 x 1024 frames:
+                     launches, detections and 28 x 28 masks, GFLOPs per frame
+                     against the JAX package's, ms per frame, the peak of
+                     allocated memory; check 1, the model cut to
+                     VITDET_CHECK_DEPTH blocks in float32 on the card
+                     against the CPU (tokens, detections, masks); check 2,
+                     the card's full-depth pyramid through float32 copies of
+                     the RPN and the cascade and mask heads on both devices.
+  36. train_kernels, train_path: rows 5 and 6 at the fine-tune's validation
+                     shape (192 x 17), as in 3; configs/train/
+                     vivit_kinetics400/final_24.yml over a generated cache
+                     (32 train, 16 validation clips): the train entry point
+                     as python -m runs it, one epoch from a seed .npz the
+                     port wrote (its printed losses, its output weights read
+                     back: frozen weights unchanged, the last validation loss
+                     recomputed); one batch in float32 on the card against
+                     the CPU (loss, gradients, the parameters after one
+                     AdamW step); timed steps (loss and ms a step, the peak
+                     of allocated memory, no kernel launched); a validation
+                     batch (rows 5 and 6); the grad guard; a save_params /
+                     load_params round trip.
 The times are a record, not a claim.
 
-Phases 25-27 run last, after 28-34, and read their runs too. Then the
+Phases 25-27 run last, after 28-36, and read their runs too. Then the
 whole run's seconds, the card's name and power limit, one JSON
 line with every kernel's numbers, and last ``{"ok": true, "device":
 {...}}``. Any failed check
@@ -448,18 +478,21 @@ VITDET_TOKEN_TOL = 1e-3
 DET_BOX_TOL, DET_SCORE_TOL, DET_MATCH_SHARE = 1e-2, 1e-4, 0.95
 
 
-def match_detections(got, want):
+def match_detections(got, want, pairs=None):
     """Match the kept detections of ``want`` one to one with those of
     ``got`` (dicts of boxes, scores, labels, mask, on any device) by
-    label, box and score within the bounds above."""
+    label, box and score within the bounds above; ``pairs``, a list, gets
+    the (got slot, want slot) of each match."""
     def kept(d):
         m = d["mask"].cpu()
-        return d["boxes"].cpu().float()[m], d["scores"].cpu().float()[m], d["labels"].cpu()[m]
+        slots = torch.nonzero(m).flatten()
+        return (d["boxes"].cpu().float()[m], d["scores"].cpu().float()[m], d["labels"].cpu()[m],
+                slots)
 
-    (gb, gs, gl), (wb, ws, wl) = kept(got), kept(want)
+    (gb, gs, gl, g_slots), (wb, ws, wl, w_slots) = kept(got), kept(want)
     free = torch.ones(len(gb), dtype=torch.bool)
     matched, box_err, score_err = 0, 0.0, 0.0
-    for b, s, label in zip(wb, ws, wl):
+    for b, s, label, w_slot in zip(wb, ws, wl, w_slots):
         d_box = (gb - b).abs().amax(dim=-1) if len(gb) else gb.new_zeros(0)
         d_score = (gs - s).abs()
         ok = free & (gl == label) & (d_box <= DET_BOX_TOL) & (d_score <= DET_SCORE_TOL)
@@ -468,9 +501,21 @@ def match_detections(got, want):
             free[j] = False
             matched += 1
             box_err, score_err = max(box_err, float(d_box[j])), max(score_err, float(d_score[j]))
+            if pairs is not None:
+                pairs.append((int(g_slots[j]), int(w_slot)))
     larger = max(len(gb), len(wb))
     return dict(kept_card=len(gb), kept_cpu=len(wb), matched=matched, max_box_diff=box_err,
                 max_score_diff=score_err, ok=larger > 0 and matched >= DET_MATCH_SHARE * larger)
+
+
+def match_masks(got, want):
+    """match_detections, and the largest difference between the masks of
+    the matched detections; ``ok`` also holds it within MASK_TOL."""
+    pairs = []
+    out = match_detections(got, want, pairs)
+    diff = max((float((got["masks"][i].cpu().float() - want["masks"][j].cpu().float()).abs().max())
+                for i, j in pairs), default=0.0)
+    return dict(out, max_mask_diff=diff, ok=out["ok"] and diff <= MASK_TOL)
 
 
 _START = time.perf_counter()
@@ -1623,18 +1668,24 @@ def run_e2e(model, frames, count=False, frame_events=None):
     return detections, ctx.counts
 
 
-def check_detections(dets, classes=30):
+def check_detections(dets, classes=30, size=E2E_SIZE):
     """Every frame's detections: the JAX dict's keys and fixed shapes
     (K = 100, the ROI heads' test_topk_per_image), finite boxes in the
-    image, labels of the classes, scores in (0, 1] where kept (above the
-    0.05 threshold in the working dtype) and 0 where masked. Returns the kept count of each frame."""
+    ``size`` x ``size`` image, labels of the classes, scores in (0, 1]
+    where kept (above the 0.05 threshold in the working dtype) and 0 where
+    masked; with a mask head, (K, 28, 28) finite masks in [0, 1]. Returns
+    the kept count of each frame."""
     kept = []
     for det in dets:
         boxes, scores, labels, mask = (det[k] for k in ("boxes", "scores", "labels", "mask"))
         if (boxes.shape, scores.shape, labels.shape, mask.shape) != ((100, 4), (100,), (100,), (100,)):
             raise AssertionError(f"detections of shapes {[tuple(v.shape) for v in det.values()]}")
+        if "masks" in det:
+            m = det["masks"].float()
+            if m.shape != (100, 28, 28) or not torch.isfinite(m).all() or m.min() < 0 or m.max() > 1:
+                raise AssertionError(f"masks of shape {tuple(m.shape)} out of range")
         b, s = boxes.float(), scores.float()
-        bad = (not torch.isfinite(b).all() or b.min() < 0 or b.max() > E2E_SIZE
+        bad = (not torch.isfinite(b).all() or b.min() < 0 or b.max() > size
                or labels.min() < 0 or labels.max() >= classes
                or (s[mask] <= 0).any() or (s[mask] > 1).any() or (s[~mask] != 0).any())
         if bad:
@@ -3715,17 +3766,19 @@ for module, *argv in json.loads(sys.argv[1]):
 """
 
 
-def run_as_main(runs, timeout=600):
+def run_as_main(runs, timeout=600, output=None):
     """``runs`` ([module, *argv] each) in one subprocess from the repo's
     root, each as ``python -m module *argv`` runs it. Returns (the
-    process's seconds, {module: its seconds}); raises if the process
-    failed."""
+    process's seconds, {module: its seconds}); ``output``, a list, gets
+    the process's standard output; raises if the process failed."""
     start = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", RUN_AS_MAIN, json.dumps(runs)], cwd=REPO,
                           capture_output=True, text=True, timeout=timeout)
     seconds = time.perf_counter() - start
     if proc.returncode != 0:
         raise AssertionError(f"{[run[0] for run in runs]} failed: {proc.stderr[-3000:]}")
+    if output is not None:
+        output.append(proc.stdout)
     done = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{"module"')]
     return seconds, {d["module"]: d["seconds"] for d in done}
 
@@ -3776,6 +3829,402 @@ def serving_paths(device, smi, ev_checks):
     return rows
 
 
+# -- ViTDet-B COCO: the cascade and mask heads end to end at 1024 -----------------
+#
+# configs/models/vitdet_b_coco.yml (ViTDet-B, dense, 1024 x 1024: 12 blocks,
+# windows at 0, 1, 3, 4, 6, 7, 9, 10, C = 768; the 3-stage cascade with its
+# mask head over 80 classes) through ViTDet.apply, seed weights, COCO_FRAMES
+# generated frames. The stages' class scorers are scaled by CLS_SCORE_GAIN
+# (the e2e phase's reason: a random model keeps no detection otherwise) and
+# the mask predictor by MASK_GAIN (its seeded std of 0.001 gives masks within
+# 1e-3 of 1/2, which no comparison could tell apart; std 0.3 spreads them).
+COCO_SIZE, COCO_FRAMES = 1024, 2
+COCO_CLASSES = 80
+MASK_GAIN = 300.0
+# masks of matched detections, card against CPU in float32: the boxes agree
+# within DET_BOX_TOL pixels, and a mask's 14 x 14 ROIAlign samples move with
+# its box (1e-2 pixels on p2 moves a sample by 2.5e-3 of a cell)
+MASK_TOL = 1e-2
+# the path's kernels at one stream of 4096 tokens: row 5 in every block, row
+# 6 in the 8 windowed blocks (the 64 x 64 grid pads to 70 x 70: the padded
+# form; the windowed form, the same wrapper, held at the same shapes too),
+# row 17 on the 4 global blocks' 4096 x 4096 logits
+COCO_N = VITDET[1024]["n"]
+COCO_INPUTS = dict(VITDET[1024]["inputs"], windows=25)
+COCO_KERNEL_CASES = [
+    ("coco", 1, COCO_N, VITDET_K,
+     ("dense_mlp_residual", "window_attention_windowed", "window_attention_padded"), COCO_INPUTS),
+    ("coco_dense", 1, COCO_N, VITDET_K, ("relpos_bias_add_v2",),
+     dict(COCO_INPUTS, relpos_keys=VITDET[1024]["keys"]["dense"])),
+]
+COCO_ROWS = (("dense_mlp_residual", "coco"), ("window_attention_padded", "coco"),
+             ("relpos_bias_add_v2", "coco_dense"))
+
+
+def coco_config():
+    """configs/models/vitdet_b_coco.yml's model as the port's utils/config.py
+    reads it."""
+    from eventful_transformer_tpu_torch.utils.config import load_config
+
+    return load_config(REPO / "configs" / "models" / "vitdet_b_coco.yml")["model"]
+
+
+def coco_model(device, dtype=torch.float32, depth=VITDET_DEPTH,
+               window_indices=(0, 1, 3, 4, 6, 7, 9, 10)):
+    """:func:`coco_config`, the backbone cut to ``depth`` blocks windowed at
+    ``window_indices`` where asked, on ``device`` in ``dtype``, weights
+    from the seed, the class scorers and the mask predictor scaled as
+    above."""
+    from eventful_transformer_tpu_torch.models import ViTDet
+
+    config = coco_config()
+    config["backbone_config"] = dict(config["backbone_config"], depth=depth,
+                                     window_indices=list(window_indices))
+    model = ViTDet(**config, device=device, seed=SEED)
+    with torch.no_grad():
+        for stage in model.roi_heads.stages:
+            stage.cls_score.kernel.mul_(CLS_SCORE_GAIN)
+        model.roi_heads.mask_head.predictor.kernel.mul_(MASK_GAIN)
+    return model.to(dtype)
+
+
+def coco_heads_on_features(model, tokens, device):
+    """Check 2, the heads at full size: the pyramid of the card's tokens
+    (1, N, 768), as float32, through float32 copies of the RPN and of the
+    cascade and mask heads on the card and on the CPU; each detection of
+    the CPU's matched by match_masks. Returns the numbers."""
+    h, w = model.backbone_input_size
+    with torch.no_grad():
+        features = [f.float() for f in model.pyramid(tokens.reshape(1, h, w, model.dim))]
+        image_size = (COCO_SIZE, COCO_SIZE)
+        dets = {}
+        for tag, where in (("card", device), ("cpu", "cpu")):
+            rpn = copy.deepcopy(model.proposal_generator).float().to(where)
+            heads = copy.deepcopy(model.roi_heads).float().to(where)
+            feats = [f.to(where) for f in features]
+            proposals, _, mask = rpn.propose(feats, image_size)
+            dets[tag] = heads.inference(feats[:4], proposals, mask, image_size)
+    match = match_masks(dets["card"], dets["cpu"])
+    if not match["ok"]:
+        raise AssertionError(f"COCO heads on the card disagree with the CPU's: {match}")
+    return match
+
+
+def coco_card_vs_cpu(device):
+    """Check 1, the whole model: one frame in float32 through ViTDet.apply,
+    the backbone cut to VITDET_CHECK_DEPTH blocks (windowed at
+    VITDET_CHECK_WINDOWS), on the card and on the CPU: tokens within
+    VITDET_TOKEN_TOL, detections and masks matched by match_masks. Returns
+    (numbers, launches)."""
+    cpu_model = coco_model("cpu", depth=VITDET_CHECK_DEPTH, window_indices=VITDET_CHECK_WINDOWS)
+    card_model = copy.deepcopy(cpu_model).to(device)
+    clip = vitdet_frames(1, 1, "cpu", torch.float32, COCO_SIZE, seed=SEED + 1)
+    outs, seconds = {}, {}
+    for tag, model, frames in (("card", card_model, clip.to(device)), ("cpu", cpu_model, clip)):
+        reset_launches()
+        start = time.perf_counter()
+        outs[tag] = e2e_tokens_and_detections(model, frames)
+        seconds[tag] = time.perf_counter() - start
+        if tag == "card":
+            launches = read_launches()
+            read_routes(torch.float32, "coco card vs cpu")
+    scaled = max(float(((a.cpu() - b).abs() / b.abs().clamp(min=1.0)).max())
+                 for a, b in zip(outs["card"][0], outs["cpu"][0]))
+    numbers = dict(f32_card_vs_cpu_max_scaled_token_err=scaled, token_tol=VITDET_TOKEN_TOL,
+                   f32_card_s=seconds["card"], f32_cpu_s=seconds["cpu"])
+    if scaled > VITDET_TOKEN_TOL:
+        raise AssertionError(f"float32 COCO tokens on the card disagree with the CPU's: {numbers}")
+    windowed = len(VITDET_CHECK_WINDOWS)
+    want = dict.fromkeys(wrappers(), 0)
+    want.update(window_attention=windowed, relpos_bias_add_v2=VITDET_CHECK_DEPTH - windowed,
+                dense_mlp_residual=VITDET_CHECK_DEPTH)
+    if launches != want:
+        raise AssertionError(f"the float32 COCO run's launches {launches}, expected {want}")
+    matches = [match_masks(a, b) for a, b in zip(outs["card"][1], outs["cpu"][1])]
+    numbers["detections_matched"] = matches
+    if not all(m["ok"] for m in matches):
+        raise AssertionError(f"float32 COCO detections on the card disagree with the CPU's: {matches}")
+    return numbers, launches
+
+
+def coco_path(device, smi):
+    """Phases coco_kernels and coco_path: ViTDet-B COCO at full width and
+    depth in bfloat16 through ViTDet.apply on COCO_FRAMES frames: launches,
+    detections and masks, GFLOPs per frame against the JAX package's (the
+    dense 1024 backbone's; the heads count none), ms per frame, the peak
+    of allocated memory; check 1 and check 2 above. Returns the final
+    line's rows."""
+    from eventful_transformer_tpu_torch.core.counting import Ctx
+    from eventful_transformer_tpu_torch.detection import nms
+    from eventful_transformer_tpu_torch.detection.roi_heads import CascadeROIHeads
+
+    rows = check_kernels("coco_kernels", device, COCO_KERNEL_CASES)
+    model = coco_model(device, torch.bfloat16)
+    if not isinstance(model.roi_heads, CascadeROIHeads) or model.roi_heads.mask_head is None:
+        raise AssertionError("vitdet_b_coco.yml did not build the cascade with its mask head")
+    frames = vitdet_frames(COCO_FRAMES, 1, device, torch.bfloat16, COCO_SIZE)
+    run_e2e(model, frames)  # warm-up: cuDNN's algorithms, the anchors
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)  # the weights, and what earlier phases hold
+    syncs = nms.host_syncs
+    reset_launches()
+    dets, counts = run_e2e(model, frames, count=True)
+    launches = read_launches()
+    read_routes(torch.bfloat16, "coco")
+    syncs = (nms.host_syncs - syncs) / COCO_FRAMES
+    peak = torch.cuda.max_memory_allocated(device)
+    want = vitdet_expected_launches(False, 1024, frames=COCO_FRAMES, streams=1)
+    if launches != want:
+        raise AssertionError(f"COCO launch counts {launches}, expected {want}")
+    kept = check_detections(dets, classes=COCO_CLASSES, size=COCO_SIZE)
+    got = gflops(counts)
+    ref = vitdet_jax_flops(False, [], 1024, frames=COCO_FRAMES, streams=1) / 1e9
+    if abs(got - ref) > 1e-6 * ref:
+        raise AssertionError(f"counted {got} GFLOPs per call, the JAX package's count is {ref}")
+    times = [time_vitdet(model, frames, warmup=0, iters=2, run=run_e2e) for _ in range(2)]
+    with torch.no_grad():
+        ctx = Ctx()
+        tokens, _ = model.apply_backbone(ctx, model.init_state(1), model.pre_backbone(ctx, frames[0]),
+                                         model.precompute())
+    heads_check = coco_heads_on_features(model, tokens, device)
+    del model, frames, tokens
+    torch.cuda.empty_cache()
+    numbers, f32_launches = coco_card_vs_cpu(device)
+    emit("coco_path", card=smi, config="models/vitdet_b_coco.yml", size=COCO_SIZE,
+         frames=COCO_FRAMES, dtype="bfloat16", launches={k: v for k, v in launches.items() if v},
+         kept_detections_per_frame=kept,
+         masks_of_kept_per_frame=[int(d["masks"][d["mask"]].shape[0]) for d in dets],
+         nms_host_syncs_per_frame=syncs, gflops_per_frame=got / COCO_FRAMES,
+         jax_gflops_per_frame=ref / COCO_FRAMES, max_memory_allocated=peak,
+         memory_allocated_at_start=held,
+         columns=["first_frame_ms", "later_frames_ms", "mean_frame_ms"], ms=times,
+         f32_heads_check=heads_check, f32_depth=VITDET_CHECK_DEPTH, mask_tol=MASK_TOL, **numbers)
+    return [kernel_row(name, rows[(name, torch.bfloat16, tag)], launches, "coco")
+            for name, tag in COCO_ROWS]
+
+
+# -- the temporal fine-tune --------------------------------------------------------
+#
+# configs/train/vivit_kinetics400/final_24.yml as the port's utils/config.py
+# composes it: the full ViViT-B K400 model, temporal_only, whose temporal
+# model (4 blocks, C = 768, 12 heads, 17 tokens) and classifier train, AdamW
+# lr 2e-6 and weight decay 0.05, dropout 0.5, train_batch_size 16 clips of
+# 12 views: 192 sequences a step. The cache is generated: TRAIN_CLIPS
+# train and TRAIN_VAL_CLIPS validation clips of (12, 16, 768) float32
+# features ~ N(0, 1) (the spatial model's output is layer-normed),
+# random labels of 400 classes, in the layout scripts/spatial writes.
+TRAIN_CONFIG = "final_24"
+TRAIN_CLIPS, TRAIN_VAL_CLIPS = 32, 16
+TRAIN_TIMED_STEPS = 4
+# card against CPU on one batch, float32, TF32 off, dropout 0: the loss
+# within TRAIN_LOSS_TOL (relative) and each trained parameter's gradient
+# within TRAIN_GRAD_TOL of its largest magnitude (sums in other orders);
+# after one AdamW step every parameter within 2 lr (1 + weight decay) plus 2
+# float32 ulps of its value: a first Adam step is lr g / (|g| + eps), so a
+# gradient within float32 noise of 0 may step either way, by up to lr on
+# each side; the others agree to the ulp, and the share beyond 1e-3 lr plus
+# 2 ulps is reported
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+TRAIN_ROWS = ("dense_mlp_residual", "window_attention")
+
+
+def train_shape(model_config):
+    """(views, time steps, dim) of a clip's spatial features for the
+    model of ``model_config``."""
+    views = model_config["spatial_views"] * model_config["temporal_views"]
+    steps = model_config["input_shape"][0] // model_config["tubelet_shape"][0]
+    return views, steps, model_config["temporal_config"]["block_config"]["dim"]
+
+
+def train_cache(root, model_config, seed=SEED):
+    """The generated cache under ``root`` (data/kinetics400's layout:
+    train_40 and val, spatial_224_25_24)."""
+    rng = np.random.default_rng(seed)
+    for split, n in (("train_40", TRAIN_CLIPS), ("val", TRAIN_VAL_CLIPS)):
+        location = Path(root, split, "spatial_224_25_24")
+        location.mkdir(parents=True)
+        for i in range(n):
+            np.savez(location / f"{i:05d}.npz", label=np.asarray(rng.integers(400)),
+                     spatial=rng.standard_normal(train_shape(model_config)).astype(np.float32))
+
+
+def train_card_vs_cpu(model, config, inputs, labels, device):
+    """One batch through ``loss_fn`` under Ctx(training=True) with dropout
+    0, backward and one AdamW step (``make_optimizer``) on the card and on
+    a CPU copy made first: the loss, every trained parameter's gradient and
+    value after the step within the bounds above, the frozen parameters
+    unchanged on both sides, no kernel launched. Returns the numbers."""
+    from eventful_transformer_tpu_torch.core.counting import Ctx
+    from eventful_transformer_tpu_torch.utils.train import loss_fn, make_optimizer
+
+    lr = config["optimizer_kwargs"]["lr"]
+    decay = config["optimizer_kwargs"]["weight_decay"]
+    rate = model.dropout.rate
+    model.dropout.rate = 0.0
+    cpu = copy.deepcopy(model).cpu()
+    out = {}
+    for tag, m, where in (("card", model, device), ("cpu", cpu, "cpu")):
+        optimizer = make_optimizer(config, m)
+        reset_launches()
+        loss, _ = loss_fn(m, inputs.to(where), labels.to(where),
+                          Ctx(training=True, generator=torch.Generator(device=where).manual_seed(0)))
+        loss.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters() if p.requires_grad}
+        optimizer.step()
+        if tag == "card":
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in read_launches().items() if v}
+            if launched:
+                raise AssertionError(f"a training step launched {launched}")
+        out[tag] = dict(loss=float(loss.detach()), grads=grads,
+                        params={n: p.detach().cpu() for n, p in m.named_parameters()},
+                        trained={n for n, p in m.named_parameters() if p.requires_grad})
+        optimizer.zero_grad(set_to_none=True)
+    model.dropout.rate = rate
+    card, ref = out["card"], out["cpu"]
+    start = dict(cpu.named_parameters())  # the CPU model after its step: frozen ones unchanged
+    loss_err = abs(card["loss"] - ref["loss"]) / abs(ref["loss"])
+    grad_err = max(float((card["grads"][n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                   for n, g in ref["grads"].items())
+    step_err, beyond, total = 0.0, 0, 0
+    ulp = torch.finfo(torch.float32).eps
+    for n in ref["trained"]:
+        a, b = card["params"][n], ref["params"][n]
+        slack = 2 * ulp * b.abs()
+        diff = (a - b).abs()
+        step_err = max(step_err, float((diff - slack).max()))
+        beyond += int((diff > 1e-3 * lr + slack).sum())
+        total += b.numel()
+    frozen_same = all(torch.equal(card["params"][n], start[n].detach())
+                      for n in card["params"] if n not in card["trained"])
+    numbers = dict(loss_card=card["loss"], loss_cpu=ref["loss"], loss_rel_err=loss_err,
+                   loss_tol=TRAIN_LOSS_TOL, max_scaled_grad_err=grad_err, grad_tol=TRAIN_GRAD_TOL,
+                   max_step_err_beyond_2ulp=step_err, step_tol=2 * lr * (1 + decay),
+                   step_elements_beyond_milli_lr=beyond, trained_elements=total,
+                   trained_tensors=len(ref["trained"]), frozen_unchanged=frozen_same)
+    if (loss_err > TRAIN_LOSS_TOL or grad_err > TRAIN_GRAD_TOL or not frozen_same
+            or step_err > 2 * lr * (1 + decay) or card["trained"] != ref["trained"]):
+        raise AssertionError(f"the training step on the card disagrees with the CPU's: {numbers}")
+    return numbers, cpu
+
+
+def train_path(device, smi):
+    """Phases train_kernels and train_path: the fine-tune of final_24.yml
+    over a generated cache in a temporary directory. The entry point
+    (python -m eventful_transformer_tpu_torch.scripts.train.
+    vivit_kinetics400) in a subprocess for one epoch from a seed .npz that
+    the port wrote, its printed lines and output weights read back; in
+    this process, check train_card_vs_cpu, TRAIN_TIMED_STEPS timed steps
+    (loss and ms a step, the peak of allocated memory, no kernel
+    launched), a validation batch (rows 5 and 6), the grad guard raising
+    where an inference path meets parameters that require grad, and a
+    save_params/load_params round trip of the trained weights. Returns the
+    final line's rows."""
+    import tempfile
+
+    from eventful_transformer_tpu_torch.core.counting import Ctx
+    from eventful_transformer_tpu_torch.data.vivit_spatial import ViViTSpatial
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.utils.params import load_params, params_to_numpy, save_params
+    from eventful_transformer_tpu_torch.utils.train import (
+        _batches,
+        eval_step,
+        loss_fn,
+        make_optimizer,
+        train_step,
+    )
+
+    config = harness_config("vivit_kinetics400", [TRAIN_CONFIG], kind="train")
+    batch = config["train_batch_size"]
+    views, steps, _ = train_shape(config["model"])
+    depth = config["model"]["temporal_config"]["depth"]
+    rows = check_kernels("train_kernels", device, [
+        ("train_val", batch * views, steps + 1, steps + 1, TRAIN_ROWS, dict(window=(4, 6))),
+    ])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tmp = Path(tmp)
+        train_cache(tmp / "kinetics400", config["model"])
+        model = FactorizedViViT(**{"seed": SEED, **config["model"]})
+        save_params(tmp / "start.npz", model)
+        output = []
+        module = "eventful_transformer_tpu_torch.scripts.train.vivit_kinetics400"
+        argv = [TRAIN_CONFIG, f"data={tmp / 'kinetics400'}", "epochs=1",
+                f"starting_weights={tmp / 'start.npz'}", f"output_weights={tmp / 'out.npz'}"]
+        process_s, _ = run_as_main([[module, *argv]], output=output)
+        printed = [line for line in output[0].splitlines() if line.startswith("Loss:")]
+        train_data = ViViTSpatial(tmp / "kinetics400", split="train_40", k=24,
+                                  base_name="spatial_224_25")
+        val_data = ViViTSpatial(tmp / "kinetics400", split="val", k=24, base_name="spatial_224_25")
+        batches = list(_batches(train_data, batch, True, SEED, device))
+        (val_inputs, val_labels), = _batches(val_data, config["val_batch_size"], False, 0, device)
+        check, holder = train_card_vs_cpu(model, config, *batches[0], device)
+
+        optimizer = make_optimizer(config, model)
+        generator = torch.Generator(device=device).manual_seed(42)
+        train_step(model, optimizer, *batches[0], generator)  # warm-up
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_TIMED_STEPS + 1)]
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        reset_launches()
+        losses = []
+        events[0].record()
+        for i in range(TRAIN_TIMED_STEPS):
+            loss, _ = train_step(model, optimizer, *batches[i % len(batches)], generator)
+            events[i + 1].record()
+            losses.append(loss)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device)
+        step_ms = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+        losses = [float(v) for v in losses]
+        step_launches = {k: v for k, v in read_launches().items() if v}
+        reset_launches()
+        val_loss, probs = eval_step(model, val_inputs, val_labels)
+        torch.cuda.synchronize()
+        val_launches = read_launches()
+        read_routes(torch.float32, "train validation")
+        try:  # the inference path in grad mode: parameters that require grad meet a kernel
+            with torch.enable_grad():
+                loss_fn(model, val_inputs, val_labels, Ctx())
+            guard = None
+        except RuntimeError as error:
+            guard = str(error)
+        save_params(tmp / "trained.npz", model)
+        holder = load_params(tmp / "trained.npz", holder.to(device))
+        _, again = eval_step(holder, val_inputs, val_labels)
+        roundtrip = float((again - probs).abs().max())
+        load_params(tmp / "out.npz", holder)
+        entry_loss, _ = eval_step(holder, val_inputs, val_labels)
+        with np.load(tmp / "start.npz") as start:
+            saved = params_to_numpy(holder)
+            frozen_kept = all(np.array_equal(saved[k], start[k]) for k in start.files
+                              if not k.startswith(("temporal_model", "classifier")))
+            trained_moved = any(not np.array_equal(saved[k], start[k]) for k in start.files
+                                if k.startswith(("temporal_model", "classifier")))
+    want_val = dict.fromkeys(wrappers(), 0)
+    want_val.update(window_attention=depth, dense_mlp_residual=depth)
+    entry_val = float(printed[-1].split(";")[0].split()[-1]) if printed else None
+    numbers = dict(config=f"train/vivit_kinetics400/{TRAIN_CONFIG}", dtype="float32",
+                   sequences_per_step=batch * views, tokens=steps + 1,
+                   train_clips=TRAIN_CLIPS, val_clips=TRAIN_VAL_CLIPS, entry_process_s=process_s,
+                   entry_printed=printed, entry_val_loss_recomputed=float(entry_loss),
+                   step_loss=losses, step_ms=step_ms, max_memory_allocated=peak,
+                   memory_allocated_at_start=held,
+                   step_launches=step_launches, val_loss=float(val_loss),
+                   val_launches={k: v for k, v in val_launches.items() if v},
+                   grad_guard=guard, npz_roundtrip_max_prob_diff=roundtrip,
+                   entry_frozen_kept=frozen_kept, entry_trained_moved=trained_moved, **check)
+    emit("train_path", card=smi, **numbers)
+    if (step_launches or val_launches != want_val or guard is None or "requires grad" not in guard
+            or roundtrip > 1e-6 or not frozen_kept or not trained_moved or len(printed) != 3
+            or abs(entry_val - float(entry_loss)) > 1e-4
+            or not all(np.isfinite(v) for v in losses + step_ms)):
+        raise AssertionError(f"train path: {numbers}")
+    del model, holder, optimizer
+    torch.cuda.empty_cache()
+    return [kernel_row(name, rows[(name, torch.float32, "train_val")], val_launches, "train_val")
+            for name in TRAIN_ROWS]
+
+
 def main():
     smi = phase_env()
     from eventful_transformer_tpu_torch.ops import kernel_check
@@ -3806,6 +4255,8 @@ def main():
     kernels += unwired_path(device, smi)
     kernels += harness_paths(device, smi)
     kernels += serving_paths(device, smi, ev_checks)
+    kernels += coco_path(device, smi)
+    kernels += train_path(device, smi)
     phase_attention_bodies()
     phase_row_bodies()
     cores = phase_gemm_cores()

@@ -85,7 +85,18 @@ mode; the dense MLP kernel runs at its reduced token count. The sampled
 indices are stabilised against the last frame's (``ats_last``), so the
 dense ``Block`` carries state too.
 
-Not ported: drop-path and sequence parallelism. Asking for one raises
+Training (``ctx.training``): every block class takes the plain PyTorch
+path the JAX package takes under training, which autograd differentiates:
+the attention without ``window_attention`` or the A.V kernel, the rel-pos
+bias added in plain PyTorch, the dense MLP without ``dense_mlp_residual``,
+and the eventful blocks' incremental step unfused (a window-major qkv
+buffer goes row-major for the step and back after it). No kernel wrapper
+is reached: the kernels have no backward. ``drop_path_rate`` sets the
+stochastic depth on both residual adds of the dense block and of the
+eventful blocks' flush and unfused steps (JAX ``core/blocks.py:226, 252,
+1906, 1959``); it is the identity outside training.
+
+Not ported: sequence parallelism. Asking for it raises
 ``NotImplementedError`` naming the ROADMAP.md item that holds it.
 """
 
@@ -117,6 +128,7 @@ from eventful_transformer_tpu_torch.core.indexing import (
     window_row_map,
 )
 from eventful_transformer_tpu_torch.core.nn import (
+    DropPath,
     LayerNorm,
     Linear,
     counted_add,
@@ -229,8 +241,8 @@ class Block(nn.Module):
             )
         if sequence_parallel is not None:
             raise not_ported("sequence parallelism", 17)
-        if drop_path_rate != 0.0:
-            raise not_ported("drop-path (training)", 12)
+        if not 0.0 <= drop_path_rate <= 1.0:
+            raise ValueError(f"drop_path_rate must lie in [0, 1], got {drop_path_rate!r}")
         if matmul_2_cast not in (None, *_CAST_DTYPES):
             raise ValueError(f"matmul_2_cast must be None, float16 or bfloat16, got {matmul_2_cast!r}")
         if dim % heads:
@@ -256,6 +268,7 @@ class Block(nn.Module):
         self.mlp_2 = Linear(dim * mlp_ratio, dim)
         self.input_layer_norm = LayerNorm(dim)
         self.mlp_layer_norm = LayerNorm(dim)
+        self.drop_path = DropPath(drop_path_rate)
         self.relative_position = None
         if relative_embedding_size is not None:
             self.relative_position = RelativePositionEmbedding(
@@ -308,7 +321,10 @@ class Block(nn.Module):
         x, ats_index, state = self._forward_attention(ctx, x, aux, state=state)
         skip_1 = self._gather_ats_skip(skip_1, ats_index)
         x = self.projection(ctx, x)
-        x = counted_add(ctx, x, skip_1)
+        x = counted_add(ctx, self.drop_path(ctx, x), skip_1)
+        if ctx.training:  # the kernel has no backward
+            x_t = self._mlp(ctx, layer_norm(x, self.mlp_layer_norm))
+            return counted_add(ctx, self.drop_path(ctx, x_t), x), state, None
         ln = self.mlp_layer_norm
         y = dense_mlp_residual(
             x, ln.scale, ln.bias, self.mlp_1.kernel, self.mlp_1.bias, self.mlp_2.kernel,
@@ -329,12 +345,18 @@ class Block(nn.Module):
 
     # -- attention -------------------------------------------------------------
 
-    def _window_kernel_ok(self):
-        return self.window_size is not None and self.pool_size is None and self.matmul_2_cast is None
+    def _window_kernel_ok(self, ctx):
+        return (
+            self.window_size is not None
+            and self.pool_size is None
+            and self.matmul_2_cast is None
+            and not ctx.training
+        )
 
-    def _global_kernel_ok(self, n):
+    def _global_kernel_ok(self, ctx, n):
         return (
             self.window_size is None
+            and not ctx.training
             and self.ats_fraction is None
             and self.pool_size is None
             and self.matmul_2_cast is None
@@ -353,13 +375,13 @@ class Block(nn.Module):
             if any(self._window_padding()):
                 # the pad-bias map, counted once as the partitioning paths count it
                 self.qkv.apply_bias(ctx, x.new_zeros((1, 1, 1, x.shape[-1])))
-        if self._window_kernel_ok():
+        if self._window_kernel_ok(ctx):
             pad_bias = geom = None
             if not pre_partitioned:
                 x, pad_bias, geom = self._partition_windows_zero(ctx, x)
             y = self._recombine_windows(self._fused_attention(ctx, x, aux, pad_bias, geom))
             return y, None, state
-        if not pre_partitioned and self._global_kernel_ok(x.shape[-2]):
+        if not pre_partitioned and self._global_kernel_ok(ctx, x.shape[-2]):
             return self._fused_attention(ctx, x, aux), None, state
         if not pre_partitioned:
             x = self._partition_windows(ctx, x)
@@ -603,7 +625,8 @@ class EventfulTokenwiseBlock(Block):
     def _fused_mode(self, n_tokens):
         """The incremental regime (core/blocks.py:847-875 of the JAX
         package, with its TPU thresholds under "auto"). STGT gates and ATS
-        blocks run unfused in every mode."""
+        blocks run unfused in every mode, and under "auto" a block with
+        drop-path, as the JAX package's "auto" rule has it."""
         mode = self.fused_gates
         if self.stgt or mode is False or self.ats_fraction is not None:
             return False
@@ -617,6 +640,8 @@ class EventfulTokenwiseBlock(Block):
             raise ValueError(
                 f"fused_gates must be 'auto', False or one of {self.FORCED_MODES}, got {mode!r}"
             )
+        if self.drop_path.drop_rate != 0.0:  # the JAX package's "auto" rule
+            return False
         if n_tokens <= self.V2MLP_MAX_TOKENS:
             return "v4" if self._v4_eligible() else "v2mlp"
         if n_tokens <= self.V2_MAX_TOKENS:
@@ -639,6 +664,7 @@ class EventfulTokenwiseBlock(Block):
             or self.pool_size is not None
             or self.relative_position is not None
             or self.matmul_2_cast is not None
+            or self.drop_path.drop_rate != 0.0
         ):
             return False
         return all(in_kernel_topk_eligible(g.policy) for g in self.gates)
@@ -741,7 +767,7 @@ class EventfulTokenwiseBlock(Block):
             x, state["projection_accumulator"] = self.projection_accumulator.flush(
                 state["projection_accumulator"], x
             )
-        x = counted_add(ctx, x, skip_1)
+        x = counted_add(ctx, self.drop_path(ctx, x), skip_1)
         skip_2 = x
         x, state["mlp_gate"] = self._gate_flush(
             self.mlp_gate, state["mlp_gate"], x, self.mlp_layer_norm
@@ -749,7 +775,7 @@ class EventfulTokenwiseBlock(Block):
         x, state["mlp_accumulator"] = self.mlp_accumulator.flush(
             state["mlp_accumulator"], self._mlp(ctx, x)
         )
-        return counted_add(ctx, x, skip_2), state
+        return counted_add(ctx, self.drop_path(ctx, x), skip_2), state
 
     def _gate_flush(self, gate, gate_state, x, ln):
         """A gate's flush around its LN (core/blocks.py:1131-1136 of the
@@ -802,14 +828,23 @@ class EventfulTokenwiseBlock(Block):
             check_kernel_policy(gate.policy)
         if self.gate_before_ln:
             norms = None  # handed-over norms are in the LN domain
-        mode = self._fused_mode(n)
+        # training runs the unfused step: the kernels have no backward
+        mode = False if ctx.training else self._fused_mode(n)
         if mode == "v4":
             return self._v4_step(ctx, state, x, norms, next_gate)
         if mode in ("v2", "blocked"):
             return self._group_step(ctx, state, x, norms, next_gate, aux, mode == "blocked")
         state = dict(state)
         skip_1 = x
+        # a window-major qkv buffer (the layout of the "v2" and "blocked"
+        # regimes) goes row-major for the unfused step and back after it
+        resident = "qkv_accumulator" in state and self._resident_qkv(n)
+        if resident:
+            inv = torch.from_numpy(self._window_perm()[1]).to(x.device, torch.long)
+            state["qkv_accumulator"] = {"b": state["qkv_accumulator"]["b"].index_select(1, inv)}
         x, index, mask = self._qkv_group(ctx, state, x, norms, mode)
+        if resident:
+            state["qkv_accumulator"] = {"b": self._window_major(x, self.qkv.bias.to(x.dtype))}
         x, ats_index, state = self._attention_incremental(ctx, state, x, index, mask, aux)
         skip_1 = self._gather_ats_skip(skip_1, ats_index)
         x, mlp_norms = self._projection_group(ctx, state, x, skip_1, mode)
@@ -928,7 +963,7 @@ class EventfulTokenwiseBlock(Block):
                 x, state["projection_accumulator"] = self.projection_accumulator.incremental(
                     state["projection_accumulator"], x_t, index, mask
                 )
-        return counted_add(ctx, x, skip_1), None
+        return counted_add(ctx, self.drop_path(ctx, x), skip_1), None
 
     def _mlp_group(self, ctx, state, x, norms, next_gate, mode):
         """The MLP group and the residual (core/blocks.py:1925-1959 of the
@@ -951,7 +986,7 @@ class EventfulTokenwiseBlock(Block):
         x, state["mlp_accumulator"] = self.mlp_accumulator.incremental(
             state["mlp_accumulator"], x_t, index, mask
         )
-        return counted_add(ctx, x, skip_2), None
+        return counted_add(ctx, self.drop_path(ctx, x), skip_2), None
 
     def _fused_gate_group(self, ctx, gate, gate_state, x, ln, ln_mode, linear):
         """Gate norms -> selection -> ``ln_select_matmul`` (the gate-state
@@ -1383,8 +1418,13 @@ class EventfulBlock(EventfulMatmul1Block):
             )
         return self._uncast_matmul_2(self._recombine_heads(x), old_dtype), ats_index, state
 
-    def _use_av_kernel(self, n_cols, batch):
-        if not self.recompute_av or self.av_kernel is False or self.ats_fraction is not None:
+    def _use_av_kernel(self, ctx, n_cols, batch):
+        if (
+            not self.recompute_av
+            or self.av_kernel is False
+            or self.ats_fraction is not None
+            or ctx.training
+        ):
             return False
         if self.av_kernel is True:
             return True
@@ -1393,7 +1433,7 @@ class EventfulBlock(EventfulMatmul1Block):
         return n_cols >= self.AV_KERNEL_MIN_COLS or batch == 1
 
     def _attention_incremental(self, ctx, state, x, index, mask, aux):
-        if not self._use_av_kernel(self._pooled_tokens(x.shape[-2]), x.shape[0]):
+        if not self._use_av_kernel(ctx, self._pooled_tokens(x.shape[-2]), x.shape[0]):
             a, _, v, index_k, mask_k = self._matmul_1_incremental(ctx, state, x, index, mask, aux)
             a, v, old_dtype = self._cast_matmul_2(a, v)
             a, ats_index, state = self._adaptive_token_sampling(state, a, v)

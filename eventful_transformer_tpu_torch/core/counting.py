@@ -45,17 +45,22 @@ class Ctx:
     """Per-call context threaded through ``forward``.
 
     ``count_mode``: when False, :meth:`add` is a no-op and ``counts`` stays
-    empty. The port is inference-only, so there is no training flag or rng.
-    A count given as a tensor (a masked selection's valid share, a
+    empty. ``training`` (a host bool) turns dropout and drop-path on and
+    sends every block down its plain PyTorch path, which autograd can
+    differentiate (the kernels have no backward); ``generator`` (a
+    ``torch.Generator`` on the model's device) is where those layers draw
+    from. A count given as a tensor (a masked selection's valid share, a
     threshold policy's ``policy_saturated``) stays on its device until
     ``counts`` is read, which reads every such count in one transfer: one
     host synchronisation per read, not one per count.
     """
 
-    __slots__ = ("count_mode", "_counts", "_pending")
+    __slots__ = ("count_mode", "training", "generator", "_counts", "_pending")
 
-    def __init__(self, count_mode=False):
+    def __init__(self, count_mode=False, training=False, generator=None):
         self.count_mode = count_mode
+        self.training = training
+        self.generator = generator
         self._counts = Counts({k: 0.0 for k in COUNT_KEYS} if count_mode else {})
         self._pending = []
 

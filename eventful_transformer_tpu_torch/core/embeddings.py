@@ -22,7 +22,12 @@ import torch
 from torch import nn
 
 from eventful_transformer_tpu_torch.core.nn import counted_add, trunc_normal_
-from eventful_transformer_tpu_torch.ops.relpos import relpos_bias_add, relpos_bias_add_v2
+from eventful_transformer_tpu_torch.ops.relpos import (
+    relpos_bias_add,
+    relpos_bias_add_plain,
+    relpos_bias_add_v2,
+    relpos_bias_add_v2_plain,
+)
 from eventful_transformer_tpu_torch.ops.resize import (
     avg_pool_1d,
     resize_bicubic,
@@ -81,7 +86,8 @@ class RelativePositionEmbedding(nn.Module):
     default), "v2" or False (the JAX einsum path, which rounds as row 17
     does), ``relpos_bias_add_v2`` (row 17's: each term rounded, then their
     sum). Each wrapper runs its plain version on CPU tensors and its kernel
-    on the card."""
+    on the card; under ``ctx.training`` the plain version of the same rule
+    runs on either device (the kernels have no backward)."""
 
     use_kernel = "auto"
 
@@ -165,7 +171,10 @@ class RelativePositionEmbedding(nn.Module):
         bsz, heads, n, c = q.shape
         ctx.add("einsum_flops", float(bsz * heads * n * c * (p[0] + p[1])))
         ctx.add("add_flops", 2.0 * x.numel())
-        bias_add = relpos_bias_add if self.use_kernel is True else relpos_bias_add_v2
+        if ctx.training:  # the kernel has no backward: the plain version, same rounding
+            bias_add = relpos_bias_add_plain if self.use_kernel is True else relpos_bias_add_v2_plain
+        else:
+            bias_add = relpos_bias_add if self.use_kernel is True else relpos_bias_add_v2
         return bias_add(
             x.contiguous(), q.contiguous(), derived["y_relative"].to(x.dtype).contiguous(),
             derived["x_relative"].to(x.dtype).contiguous(), a=self.attention_size, p=p,

@@ -102,16 +102,47 @@ class Linear(nn.Module):
         return y
 
 
+def _uniform(ctx, shape, x):
+    """U(0, 1) of ``shape`` float32 on x's device, drawn from
+    ``ctx.generator``."""
+    if ctx.generator is None:
+        raise ValueError("Ctx.generator is required for stochastic layers")
+    return torch.rand(shape, generator=ctx.generator, device=x.device)
+
+
 class Dropout(nn.Module):
-    """Dropout at inference: the identity. The port has no training path."""
+    """Dropout: the identity unless ``ctx.training`` and ``rate`` > 0; then
+    each element is kept with probability 1 - rate and scaled by 1 / keep
+    (JAX ``core/nn.py::Dropout``)."""
 
     def __init__(self, rate):
         super().__init__()
         self.rate = rate
 
     def forward(self, ctx, x):
-        del ctx
-        return x
+        if not ctx.training or self.rate <= 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = _uniform(ctx, x.shape, x) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth (JAX ``core/nn.py::DropPath``, reference
+    eventful_transformer/utils.py:10-29): the identity unless
+    ``ctx.training`` and ``drop_rate`` > 0; then one uniform a batch row,
+    the row kept where it is above the rate and scaled by 1 / (1 - rate)."""
+
+    def __init__(self, drop_rate):
+        super().__init__()
+        self.drop_rate = drop_rate
+
+    def forward(self, ctx, x):
+        if not ctx.training or self.drop_rate <= 0.0:
+            return x
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        keep = (_uniform(ctx, shape, x) > self.drop_rate).to(x.dtype)
+        return x / (1.0 - self.drop_rate) * keep
 
 
 def uniform_(param, low, high, generator):

@@ -1,19 +1,31 @@
-"""ROI heads, inference (port of ``StandardROIHeads`` from
-``eventful_transformer_tpu/detection/roi_heads.py``: detectron2's
-StandardROIHeads, FastRCNNConvFCHead and FastRCNNOutputLayers as configured
-for ViTDet on VID). Multi-level ROIAlign over p2-p5, 4 x (3x3 conv without
-bias, LN, ReLU), the flatten in (C, H, W) order, FC 1024 + ReLU, class
-scores (C + 1) and class-specific box deltas (4C), then softmax, the score
-threshold, per-class NMS and the top-k per image, all fixed-shape with
-validity masks. The COCO cascade and its mask head are not ported yet."""
+"""ROI heads, inference (port of
+``eventful_transformer_tpu/detection/roi_heads.py``).
+
+``StandardROIHeads``: detectron2's StandardROIHeads, FastRCNNConvFCHead and
+FastRCNNOutputLayers as configured for ViTDet on VID. Multi-level ROIAlign
+over p2-p5, 4 x (3x3 conv without bias, LN, ReLU), the flatten in (C, H, W)
+order, FC 1024 + ReLU, class scores (C + 1) and class-specific box deltas
+(4C), then softmax, the score threshold, per-class NMS and the top-k per
+image, all fixed-shape with validity masks.
+
+``CascadeROIHeads``: the 3-stage cascade of the COCO operating point
+(reference configs/detectron/vitdet_b_coco.py:22-48), each stage its own
+box head and predictor with class-agnostic box regression and
+Box2BoxTransform weights (10,10,5,5), (20,20,10,10), (30,30,15,15); each
+stage pools the previous stage's boxes, refines and clips them; the class
+probabilities are averaged over the stages, and the last stage's boxes go
+through the NMS tail; with ``with_mask`` the mask head
+(``detection/mask_head.py``) then runs on the final boxes and labels.
+"""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from eventful_transformer_tpu_torch.core.nn import LayerNorm, layer_norm, not_ported, trunc_normal_
+from eventful_transformer_tpu_torch.core.nn import LayerNorm, layer_norm, trunc_normal_
 from eventful_transformer_tpu_torch.detection.boxes import apply_deltas, clip_boxes
+from eventful_transformer_tpu_torch.detection.mask_head import MaskHead
 from eventful_transformer_tpu_torch.detection.nms import batched_nms
 from eventful_transformer_tpu_torch.detection.roi_align import multilevel_roi_align
 from eventful_transformer_tpu_torch.ops.conv import Conv2d
@@ -36,44 +48,10 @@ class Dense(nn.Module):
         return x @ self.kernel.to(x.dtype) + self.bias.to(x.dtype)
 
 
-class StandardROIHeads(nn.Module):
-    def __init__(
-        self,
-        num_classes,
-        in_channels=256,
-        pooler_scales=(1 / 4, 1 / 8, 1 / 16, 1 / 32),
-        pooler_output=7,
-        sampling_ratio=2,
-        conv_dims=(256, 256, 256, 256),
-        fc_dims=(1024,),
-        box_weights=(10.0, 10.0, 5.0, 5.0),
-        test_score_thresh=0.05,
-        test_nms_thresh=0.5,
-        test_topk_per_image=100,
-    ):
-        super().__init__()
-        self.num_classes = num_classes
-        self.pooler_scales = tuple(pooler_scales)
-        self.pooler_output = pooler_output
-        self.sampling_ratio = sampling_ratio
-        self.box_weights = tuple(box_weights)
-        self.test_score_thresh = test_score_thresh
-        self.test_nms_thresh = test_nms_thresh
-        self.test_topk_per_image = test_topk_per_image
-        self.convs = nn.ModuleList()
-        cin = in_channels
-        for dim in conv_dims:
-            conv = Conv2d(3, 3, cin, dim, bias=False)
-            conv.ln = LayerNorm(dim)
-            self.convs.append(conv)
-            cin = dim
-        flat = cin * pooler_output**2
-        self.fcs = nn.ModuleList()
-        for dim in fc_dims:
-            self.fcs.append(Dense(flat, dim, std=0.01))
-            flat = dim
-        self.cls_score = Dense(flat, num_classes + 1, std=0.01)
-        self.bbox_pred = Dense(flat, num_classes * 4, std=0.001)
+class BoxLayers:
+    """The box head and predictor over a module's own ``convs``, ``fcs``,
+    ``cls_score`` and ``bbox_pred`` (:meth:`StandardROIHeads.add_box_layers`
+    makes them)."""
 
     def box_head(self, pooled):
         """pooled (R, 7, 7, C) -> features (R, fc_dim)."""
@@ -88,6 +66,71 @@ class StandardROIHeads(nn.Module):
 
     def predict(self, features):
         return self.cls_score(features), self.bbox_pred(features)
+
+
+class CascadeStage(BoxLayers, nn.Module):
+    """One cascade stage's box head and predictor."""
+
+
+class StandardROIHeads(BoxLayers, nn.Module):
+    """``box_layers`` False leaves the box head and predictor to a subclass
+    that holds one a stage (:class:`CascadeROIHeads`)."""
+
+    # box regression: class-specific (4 a class) for the VID standard heads;
+    # the COCO cascade's is class-agnostic (4)
+    cls_agnostic = False
+
+    def __init__(
+        self,
+        num_classes,
+        in_channels=256,
+        pooler_scales=(1 / 4, 1 / 8, 1 / 16, 1 / 32),
+        pooler_output=7,
+        sampling_ratio=2,
+        conv_dims=(256, 256, 256, 256),
+        fc_dims=(1024,),
+        box_weights=(10.0, 10.0, 5.0, 5.0),
+        test_score_thresh=0.05,
+        test_nms_thresh=0.5,
+        test_topk_per_image=100,
+        *,
+        box_layers=True,
+    ):
+        super().__init__()
+        self.num_classes = num_classes
+        self.in_channels = in_channels
+        self.pooler_scales = tuple(pooler_scales)
+        self.pooler_output = pooler_output
+        self.sampling_ratio = sampling_ratio
+        self.conv_dims = tuple(conv_dims)
+        self.fc_dims = tuple(fc_dims)
+        self.box_weights = tuple(box_weights)
+        self.test_score_thresh = test_score_thresh
+        self.test_nms_thresh = test_nms_thresh
+        self.test_topk_per_image = test_topk_per_image
+        if box_layers:
+            self.add_box_layers(self)
+
+    def add_box_layers(self, module):
+        """Give ``module`` a box head and predictor (``convs``, ``fcs``,
+        ``cls_score``, ``bbox_pred``: the JAX ``init``'s names); returns
+        it."""
+        module.convs = nn.ModuleList()
+        cin = self.in_channels
+        for dim in self.conv_dims:
+            conv = Conv2d(3, 3, cin, dim, bias=False)
+            conv.ln = LayerNorm(dim)
+            module.convs.append(conv)
+            cin = dim
+        flat = cin * self.pooler_output**2
+        module.fcs = nn.ModuleList()
+        for dim in self.fc_dims:
+            module.fcs.append(Dense(flat, dim, std=0.01))
+            flat = dim
+        module.cls_score = Dense(flat, self.num_classes + 1, std=0.01)
+        box_dim = 4 if self.cls_agnostic else self.num_classes * 4
+        module.bbox_pred = Dense(flat, box_dim, std=0.001)
+        return module
 
     def _pool(self, features, boxes):
         return multilevel_roi_align(
@@ -129,10 +172,61 @@ class StandardROIHeads(nn.Module):
         return self._nms_tail(probs, boxes, proposal_mask, image_size)
 
 
+class CascadeROIHeads(StandardROIHeads):
+    """The 3-stage cascade, inference (JAX ``CascadeROIHeads``): stage k
+    refines stage k - 1's boxes with its own Box2BoxTransform weights;
+    the class probabilities are averaged over the stages; the final boxes
+    are the last stage's. Its parameters: ``stages.<i>`` (each stage's box
+    head and predictor) and, with ``with_mask``, ``mask_head``."""
+
+    cls_agnostic = True
+
+    def __init__(
+        self,
+        num_classes,
+        stage_box_weights=(
+            (10.0, 10.0, 5.0, 5.0),
+            (20.0, 20.0, 10.0, 10.0),
+            (30.0, 30.0, 15.0, 15.0),
+        ),
+        with_mask=False,
+        **kwargs,
+    ):
+        kwargs.pop("box_weights", None)
+        super().__init__(num_classes, box_weights=stage_box_weights[0], box_layers=False, **kwargs)
+        self.stage_box_weights = tuple(tuple(w) for w in stage_box_weights)
+        self.stages = nn.ModuleList(
+            self.add_box_layers(CascadeStage()) for _ in self.stage_box_weights
+        )
+        # the COCO base config is cascade_mask_rcnn: instance masks of the
+        # final detections
+        self.mask_head = MaskHead(num_classes, in_channels=self.in_channels) if with_mask else None
+
+    def inference(self, features, proposals, proposal_mask, image_size):
+        """As :meth:`StandardROIHeads.inference`, and ``masks`` (K, 28, 28)
+        where the heads have a mask head."""
+        boxes = proposals
+        stage_probs = []
+        for stage, weights in zip(self.stages, self.stage_box_weights):
+            scores, deltas = stage.predict(stage.box_head(self._pool(features, boxes)))
+            stage_probs.append(torch.softmax(scores, dim=-1))
+            # class-agnostic refinement: the refined boxes, clipped, are the
+            # next stage's proposals (detectron2 _create_proposals_from_boxes)
+            boxes = clip_boxes(apply_deltas(deltas.reshape(-1, 4), boxes, weights=weights),
+                               image_size)
+        probs = sum(stage_probs) / len(stage_probs)
+        probs = probs[:, : self.num_classes]  # drop the background
+        result = self._nms_tail(probs, boxes[:, None, :], proposal_mask, image_size)
+        if self.mask_head is not None:
+            result["masks"] = self.mask_head.inference(features, result["boxes"], result["labels"])
+        return result
+
+
 def roi_heads(num_classes, in_channels, cascade=False, with_mask=False, **config):
     """The ROI heads of a ``roi_config``, as the JAX ViTDet picks them: the
-    standard heads unless ``cascade`` (``with_mask`` applies to the cascade
-    only)."""
+    standard heads, or with ``cascade`` the cascade heads (``with_mask``
+    adds their mask head; it applies to the cascade only)."""
     if cascade:
-        raise not_ported("CascadeROIHeads (the COCO cascade heads)" + (" and MaskHead" if with_mask else ""), 14)
+        return CascadeROIHeads(num_classes=num_classes, in_channels=in_channels,
+                               with_mask=with_mask, **config)
     return StandardROIHeads(num_classes=num_classes, in_channels=in_channels, **config)

@@ -3,11 +3,10 @@
 ``ViTDet.apply`` takes one video frame to detections: ``pre_backbone``
 (preprocessing and the patch embedding), ``apply_backbone`` (the position
 encoding and the block stack, with the eventful state threaded through)
-and ``post_backbone`` (``SimplePyramid``, ``RPN.propose`` and the standard
-ROI heads' ``inference``), the reference's timing split
+and ``post_backbone`` (``SimplePyramid``, ``RPN.propose`` and the ROI
+heads' ``inference``: the standard heads of the VID configurations, or the
+COCO cascade with its mask head), the reference's timing split
 (scripts/time/vitdet_vid.py). Feature maps are NHWC, as in the JAX package.
-The COCO cascade and mask heads are not ported yet (ROADMAP.md, open item
-14).
 """
 
 from __future__ import annotations
@@ -134,7 +133,8 @@ class ViTDet(nn.Module):
     ``device``, the card unless the caller asks for the CPU; cast the model
     with ``.to(dtype)`` to run in bfloat16. ``roi_config`` picks the heads
     as the JAX package does: the standard heads of the VID configurations,
-    or the COCO cascade (``cascade: true``), which is not ported yet."""
+    or the COCO cascade (``cascade: true``, with its mask head under
+    ``with_mask: true``)."""
 
     def __init__(
         self,
@@ -199,8 +199,9 @@ class ViTDet(nn.Module):
     def post_backbone(self, ctx, tokens):
         """tokens (1, N, dim) -> the detections dict: boxes (K, 4), scores
         (K,), labels (K,) int32 and mask (K,), K = the ROI heads'
-        ``test_topk_per_image``, masked slots scoring 0. Uncounted, as in
-        the JAX package."""
+        ``test_topk_per_image``, masked slots scoring 0; with a mask head
+        also masks (K, 28, 28), each detection's class probabilities.
+        Uncounted, as in the JAX package."""
         del ctx
         b = tokens.shape[0]
         h, w = self.backbone_input_size

@@ -14,6 +14,10 @@ features, (batch, views, t, dim), straight to the temporal model). Both
 are plain attributes, so a caller may flip them between calls, as the
 timing entry point does. ``batch_views=False`` runs the views one at a
 time, each with its own state, instead of on the batch axis.
+
+The temporal fine-tune (``utils/train.py``) trains the temporal model and
+the classifier through ``_forward_temporal`` with ``Ctx(training=True)``;
+``apply`` and ``apply_views`` serve under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -241,6 +245,11 @@ class FactorizedViViT(nn.Module):
         return torch.stack(ys, dim=1)
 
     def _forward_temporal(self, ctx, x, batch):
+        """Spatial features (batch, views, t, dim), or (batch * views, t,
+        dim), -> class probabilities (batch, classes): the temporal model,
+        dropout and the classifier, the views' logits averaged. Runs in the
+        caller's grad mode: ``utils/train.py`` differentiates it under
+        ``Ctx(training=True)``, where every block takes its plain path."""
         x = x.reshape((-1,) + x.shape[-2:])
         state = self.temporal_model.init_state(x.shape[0], x.dtype, x.device)
         x, _ = self.temporal_model(ctx, state, x, mode="flush")

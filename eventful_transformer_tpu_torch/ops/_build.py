@@ -20,6 +20,8 @@ is bound once (:func:`launch` keeps the ctypes function it first looked
 up), the stream is read as the raw handle of the current stream
 (:func:`stream_of`, without building a ``torch.cuda.Stream``), and the
 operand checks (:func:`check_operands`) read each tensor's attributes once.
+Every card path's checks also refuse an operand that requires grad while
+grad mode is on (:func:`check_no_grad`): no kernel has a backward.
 """
 
 from __future__ import annotations
@@ -188,15 +190,29 @@ def stream_on(index):
     return torch._C._cuda_getCurrentRawStream(index)
 
 
+def check_no_grad(name, *tensors):
+    """Raise where grad mode is on and an operand (None skipped) requires
+    grad: the kernels have no backward, so a launch would cut the autograd
+    graph without a word. Training takes the blocks' plain PyTorch paths
+    (``Ctx.training``); inference runs under ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an operand requires grad and the kernel has no backward; run it under "
+            "torch.no_grad(), or train through the plain path (Ctx(training=True))"
+        )
+
+
 def check_operands(name, ref, float32=(), **tensors):
     """Raise unless ``ref`` and every tensor lie on one CUDA device and are
     contiguous, with ``ref``'s dtype, or float32 for the names in
-    ``float32``. A tensor given as None (an operand the call leaves out,
-    such as the coverage of a group that selects its own rows) is
-    skipped."""
+    ``float32``, and none requires grad in grad mode
+    (:func:`check_no_grad`). A tensor given as None (an operand the call
+    leaves out, such as the coverage of a group that selects its own rows)
+    is skipped."""
     device, dtype = ref.device, ref.dtype
     if device.type != "cuda":
         raise ValueError(f"{name}: expected CUDA or CPU tensors, got {device}")
+    check_no_grad(name, ref, *tensors.values())
     dtype_code(ref)
     if not ref.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous")

@@ -197,8 +197,8 @@ def select_args(name, x, p, cov, scale, bias, apply_ln):
     """(body, arguments) of the C entry ``etk_block_select_p`` for p' =
     where(cov, ln(x) | x, p) in place on CUDA tensors, rows 10 and 14: the
     body ``row_pass.row_body`` picks. The operands are checked as
-    ``_build.check_operands`` and ``_build.check_shape`` check them (x a
-    contiguous CUDA tensor of a kernel dtype, C <= MAX_ROW_WIDTH; p of x's
+    ``_build.check_operands`` and ``_build.check_shape`` check them (none
+    requiring grad in grad mode; x a contiguous CUDA tensor of a kernel dtype, C <= MAX_ROW_WIDTH; p of x's
     shape and cov (B, N) float32 and, with ``apply_ln``, scale and bias
     (C,), each on x's device, contiguous, in x's dtype but cov), reading
     each tensor's attributes once and building no dict per call: a call's
@@ -207,6 +207,7 @@ def select_args(name, x, p, cov, scale, bias, apply_ln):
     index = x.get_device()  # -1 off the card
     if index < 0:
         raise ValueError(f"{name}: expected CUDA or CPU tensors, got {x.device}")
+    _build.check_no_grad(name, x, p, cov, scale, bias)
     dtype, shape = x.dtype, x.shape
     code = _build.DTYPE_CODES.get(dtype)
     if code is None:

@@ -99,14 +99,15 @@ def cuda_operands(name, buffer, values, index, mask=None, row_map=None):
     MAX_ROW_WIDTH values) are whole 16-byte words; the values, the index,
     the mask and the map (each None where not given) contiguous on its
     device; the buffer and the values (float32 or bfloat16) on 16-byte
-    boundaries, since the kernels copy 16-byte words. The messages are
-    ``_build.check_operands``'s. Shapes and the index's dtype are the
+    boundaries, since the kernels copy 16-byte words; none requiring grad
+    in grad mode. The messages are ``_build.check_operands``'s. Shapes and the index's dtype are the
     caller's to check. Returns the dtype codes of the buffer and the values
     (0 for values not given), the data pointers of the buffer, the values,
     the index, the mask and the map (0 for one not given) and the buffer's
     device index."""
     if not buffer.is_cuda:
         raise ValueError(f"{name}: expected CUDA or CPU tensors, got {buffer.device}")
+    _build.check_no_grad(name, buffer, values, index, mask, row_map)
     codes = (_build.dtype_code(buffer), 0 if values is None else _build.dtype_code(values))
     if not buffer.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous")

@@ -68,6 +68,7 @@ def scatter_blend(x, values, index, mask=None):
     name = "scatter_blend"
     if not x.is_cuda:
         raise ValueError(f"{name}: expected CUDA or CPU tensors, got {x.device}")
+    _build.check_no_grad(name, x, values)
     code = _build.dtype_code(x)
     if not x.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous")

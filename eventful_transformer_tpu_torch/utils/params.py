@@ -1,5 +1,8 @@
-"""Weights across the two packages (port of the loading half of
-``eventful_transformer_tpu/utils/params.py``).
+"""Weights across the two packages (port of the ``.npz`` half of
+``eventful_transformer_tpu/utils/params.py``): :func:`save_params` writes a
+module's parameters in the JAX package's ``save_params`` layout, which its
+``load_params(path, like=...)`` reads; :func:`load_params` reads such a
+file, written by either package, into a module.
 
 The port's parameter names are the JAX pytree's paths with ``.`` for
 ``/``: ``spatial_model.backbone.blocks.3.qkv.kernel`` holds
@@ -90,3 +93,15 @@ def params_to_numpy(module):
         value = p.detach().float().cpu().numpy()
         out[key] = value.transpose(np.argsort(permutes[key])) if key in permutes else value
     return out
+
+
+def save_params(path, module):
+    """Write every parameter of ``module`` to the ``.npz`` ``path`` in the
+    JAX package's layout (:func:`params_to_numpy`), float32."""
+    np.savez(path, **params_to_numpy(module))
+
+
+def load_params(path, module):
+    """Read the ``.npz`` ``path`` (written by :func:`save_params` or the JAX
+    package's ``save_params``) into ``module``: :func:`params_from_jax`."""
+    return params_from_jax(module, path)

@@ -1,9 +1,11 @@
 """Profile ViTDet-B detection end to end at 672 on one NVIDIA GPU.
 
-    python3 scripts/misc/profile_vitdet_e2e.py [--frames 4] [--out-dir DIR]
+    python3 scripts/misc/profile_vitdet_e2e.py [--frames 4] [--out-dir DIR] [--coco]
 
 Builds spatiotemporal_672 (k = 256) and base_672 as ``chip_smoke.py``'s
-e2e phase does (weights from the seed, bfloat16, one stream), runs a flush
+e2e phase does (weights from the seed, bfloat16, one stream), or with
+``--coco`` ViTDet-B COCO at 1024 as its coco phase does
+(configs/models/vitdet_b_coco.yml, dense, the cascade and mask heads), runs a flush
 frame and ``--frames`` frames through ``ViTDet.apply`` once to warm up,
 then for each model:
 
@@ -86,6 +88,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--frames", type=int, default=4)
     parser.add_argument("--out-dir", type=Path, default=REPO / "results" / "profile")
+    parser.add_argument("--coco", action="store_true",
+                        help="ViTDet-B COCO at 1024 (the cascade and mask heads) instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_vitdet_e2e: needs a CUDA device")
@@ -95,9 +99,16 @@ def main():
     out_dir = args.out_dir
     out_dir.mkdir(parents=True, exist_ok=True)
     smi = cs.phase_env()
-    frames = cs.vitdet_frames(args.frames + 1, 1, device, torch.bfloat16, cs.E2E_SIZE)
-    for name, eventful in (("eventful", True), ("dense", False)):
-        model = cs.e2e_model(eventful, device, torch.bfloat16)
+    if args.coco:
+        size = cs.COCO_SIZE
+        builds = {"coco": lambda: cs.coco_model(device, torch.bfloat16)}
+    else:
+        size = cs.E2E_SIZE
+        builds = {name: lambda eventful=eventful: cs.e2e_model(eventful, device, torch.bfloat16)
+                  for name, eventful in (("eventful", True), ("dense", False))}
+    frames = cs.vitdet_frames(args.frames + 1, 1, device, torch.bfloat16, size)
+    for name, build in builds.items():
+        model = build()
         cs.run_e2e(model, frames)  # warm-up: builds, cuDNN plans
         syncs = nms.host_syncs
         split = split_frames(model, frames)

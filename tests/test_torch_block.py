@@ -111,16 +111,22 @@ def test_dense_block_matches_jax(jax_kernels):
     _close_counts(ctx.counts, jax_ctx)
 
 
+# each option's refusal: sequence parallelism is not ported (the error
+# names ROADMAP.md); drop-path is (tests/test_torch_train.py), and a rate
+# outside [0, 1] is refused
 UNSUPPORTED = {
-    "drop_path": lambda: blocks.EventfulTokenwiseBlock(**KWARGS, drop_path_rate=0.1),
-    "sequence_parallel": lambda: blocks.Block(**KWARGS, sequence_parallel="sp"),
+    "drop_path": (lambda: blocks.EventfulTokenwiseBlock(**KWARGS, drop_path_rate=1.5),
+                  ValueError, "drop_path_rate"),
+    "sequence_parallel": (lambda: blocks.Block(**KWARGS, sequence_parallel="sp"),
+                          NotImplementedError, "ROADMAP.md"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unsupported_block_options_raise(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        UNSUPPORTED[case]()
+    build, error, match = UNSUPPORTED[case]
+    with pytest.raises(error, match=match):
+        build()
 
 
 class _ThresholdPolicy:

@@ -294,7 +294,7 @@ def test_blocked_eventful_block_av_kernel_matches_jax(cast):
     kwargs = dict(dim=32, heads=4, mlp_ratio=2, input_size=(6, 6), pool_size=2,
                   relative_embedding_size=[8, 8], matmul_2_cast=cast)
     jax_blk, blk, params = _blocked_pair("EventfulBlock", 32, 8, **kwargs)
-    assert blk._use_av_kernel(9, 2)
+    assert blk._use_av_kernel(Ctx(), 9, 2)
     _run_blocked(jax_blk, blk, params, 36, TOL if cast is None else TOL_CAST, 33)
 
 
@@ -332,7 +332,7 @@ def test_slim_backbone_n4096_auto_is_blocked_and_matches_jax(monkeypatch):
         jax_blk.recompute_buffers = False
         assert blk._fused_mode(4096) == "blocked"
         if isinstance(blk, blocks.EventfulBlock):
-            assert blk._use_av_kernel(blk._pooled_tokens(4096), 2)
+            assert blk._use_av_kernel(Ctx(), blk._pooled_tokens(4096), 2)
     flat, params = _perturbed(jax_model.init(jax.random.PRNGKey(0)), seed=34, scale=0.05)
     params_from_jax(model, flat)
     rng = np.random.default_rng(35)

@@ -181,7 +181,8 @@ def test_relative_position_kernel_forms_match_cpu(use_kernel, pool, dtype, devic
     card = copy.deepcopy(rp).to(device)
     wrapper = relpos.relpos_bias_add if use_kernel is True else relpos.relpos_bias_add_v2
     before = wrapper.launches
-    got = card(Ctx(), x.to(device), q.to(device))
+    with torch.no_grad():  # the tables come from parameters: the grad guard refuses them
+        got = card(Ctx(), x.to(device), q.to(device))
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     assert kernel_check.compare(got.cpu(), want)["ok"], kernel_check.compare(got.cpu(), want)
@@ -2098,3 +2099,148 @@ def test_timers_wait_for_a_card_callable_given_host_arguments(helper, device):
     else:
         seconds = timing.time_repeated(busy, args, repeat=2, iters=3)
     assert seconds > 0.015, seconds
+
+
+# -- the grad guard, a training step and the COCO heads on the card ------------------
+
+
+def test_grad_guard_refuses_operands_that_require_grad(device):
+    """In grad mode every card path's operand check refuses an operand that
+    requires grad (no kernel has a backward): ``check_operands`` (row 5),
+    the one-pass checks of rows 10 and 14 (``gate_block.select_args``), 11,
+    19 and 20 (``scatter.cuda_operands``) and 18 (``scatter_blend``). Under
+    ``torch.no_grad()`` the same call launches."""
+    from eventful_transformer_tpu_torch.ops import gate_block, scatter
+    from eventful_transformer_tpu_torch.ops.dense_mlp import dense_mlp_residual
+    from eventful_transformer_tpu_torch.ops.scatter_blend import scatter_blend
+
+    d = kernel_check.make_inputs(2, 24, 64, 4, 9, torch.float32, device, seed=2)
+    w1 = d["w1"].clone().requires_grad_()
+    args = (d["x"], d["ln2_s"], d["ln2_b"], w1, d["b1"], d["w2"], d["b2"])
+    with pytest.raises(RuntimeError, match="requires grad"):
+        dense_mlp_residual(*args)
+    before = dense_mlp_residual.launches
+    with torch.no_grad():
+        dense_mlp_residual(*args)
+    assert dense_mlp_residual.launches == before + 1
+    scale = d["ln1_s"].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        gate_block.block_select_p(d["x"], d["p_qkv"], d["cov1"], scale, d["ln1_b"], apply_ln=True)
+    buffer = torch.randn(2, 24, 128, device=device, requires_grad=True)
+    index = torch.randint(0, 24, (2, 5), device=device, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        scatter.gather_rows(buffer, index)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        scatter_blend(buffer, torch.randn(2, 5, 128, device=device), index)
+
+
+TRAIN_BLOCKS = {
+    "Block": dict(),
+    "EventfulTokenwiseBlock": dict(fused_gates="v4"),
+    "EventfulBlock": dict(fused_gates="v2mlp", av_kernel=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_BLOCKS))
+def test_training_block_on_the_card_backpropagates(name, device):
+    """A block under ``Ctx(training=True)`` on the card (a flush and two
+    incremental steps for the eventful ones, forced to a kernel regime):
+    no kernel launched, ``loss.backward()`` reaches every parameter, and
+    the gradients equal the CPU's within 1e-4 of each one's largest
+    magnitude (float32, TF32 off)."""
+    from eventful_transformer_tpu_torch.core import blocks
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    torch.backends.cudnn.allow_tf32 = False
+    block = blocks.BLOCK_CLASSES[name](dim=64, heads=4, mlp_ratio=2, input_size=(4, 5))
+    for module in block.modules():
+        if hasattr(module, "reset_parameters"):
+            module.reset_parameters(torch.Generator().manual_seed(3))
+    for key, value in TRAIN_BLOCKS[name].items():
+        setattr(block, key, value)
+    eventful = name != "Block"
+    if eventful:
+        set_policies(block, TokenNormTopK, k=6)
+    xs = torch.randn(3, 2, 20, 64, generator=torch.Generator().manual_seed(4))
+    grads = {}
+    for where, blk in (("cpu", block), ("card", copy.deepcopy(block).to(device))):
+        kernel_check.reset_launches()
+        ctx = Ctx(training=True, generator=torch.Generator(device=where if where == "cpu" else device))
+        state = blk.init_state(2, 20, torch.float32, xs.device if where == "cpu" else device)
+        ys = []
+        for t in range(3 if eventful else 1):
+            mode = ("flush" if t == 0 else "incremental") if eventful else None
+            y, state, _ = blk(ctx, state, xs[t].to(next(blk.parameters()).device), mode=mode)
+            ys.append(y)
+        torch.stack(ys).square().mean().backward()
+        grads[where] = {n: p.grad.cpu() for n, p in blk.named_parameters()}
+        assert all(fn.launches == 0 for fn, *_ in kernel_check.KERNELS.values())
+    for n, want in grads["cpu"].items():
+        got = grads["card"][n]
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), n
+
+
+def _coco_heads(with_mask=True):
+    from eventful_transformer_tpu_torch.detection.roi_heads import CascadeROIHeads
+
+    heads = CascadeROIHeads(num_classes=80, in_channels=256, with_mask=with_mask)
+    generator = torch.Generator().manual_seed(5)
+    for module in heads.modules():
+        if hasattr(module, "reset_parameters"):
+            module.reset_parameters(generator)
+    with torch.no_grad():
+        for stage in heads.stages:
+            stage.cls_score.kernel.mul_(30.0)
+        if with_mask:
+            heads.mask_head.predictor.kernel.mul_(300.0)
+    return heads
+
+
+def _coco_features(seed=6):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((1, 1024 // s, 1024 // s, 256), generator=g) for s in (4, 8, 16, 32)]
+
+
+def test_cascade_and_mask_heads_on_the_card_match_the_cpu(device):
+    """The COCO heads at their sizes (80 classes, 256 channels, p2-p5 of a
+    1024 x 1024 image, 300 proposals, 100 detections of 28 x 28 masks) in
+    float32 on the card against the CPU, cuDNN without TF32: detections
+    matched by ``chip_smoke.match_masks`` (boxes, scores, labels and the
+    masks of the matched ones)."""
+    import chip_smoke
+
+    torch.backends.cudnn.allow_tf32 = False
+    heads = _coco_heads()
+    feats = _coco_features()
+    g = torch.Generator().manual_seed(7)
+    corner = torch.rand((300, 2), generator=g) * 900
+    props = torch.cat([corner, corner + 16 + torch.rand((300, 2), generator=g) * 300], 1)
+    props = props.clamp(max=1024.0)
+    mask = torch.rand(300, generator=g) < 0.9
+    with torch.no_grad():
+        want = heads.inference(feats, props, mask, (1024, 1024))
+        card = copy.deepcopy(heads).to(device)
+        got = card.inference([f.to(device) for f in feats], props.to(device), mask.to(device),
+                             (1024, 1024))
+    assert got["masks"].shape == (100, 28, 28)
+    match = chip_smoke.match_masks(got, want)
+    assert match["ok"] and match["matched"] > 50, match
+
+
+def test_mask_head_on_the_card_matches_the_cpu(device):
+    """MaskHead alone at the COCO sizes on the same boxes and labels: the
+    masks within 1e-4 (float32, cuDNN without TF32)."""
+    torch.backends.cudnn.allow_tf32 = False
+    head = _coco_heads().mask_head
+    feats = _coco_features(seed=8)
+    g = torch.Generator().manual_seed(9)
+    corner = torch.rand((100, 2), generator=g) * 800
+    boxes = torch.cat([corner, corner + 8 + torch.rand((100, 2), generator=g) * 200], 1)
+    labels = torch.randint(0, 80, (100,), generator=g, dtype=torch.int32)
+    with torch.no_grad():
+        want = head.inference(feats, boxes, labels)
+        got = copy.deepcopy(head).to(device).inference([f.to(device) for f in feats],
+                                                      boxes.to(device), labels.to(device))
+    assert float(want.std()) > 0.05
+    assert float((got.cpu() - want).abs().max()) <= 1e-4

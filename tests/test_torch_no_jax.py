@@ -364,6 +364,79 @@ print("ok")
 """
 
 
+COCO_SCRIPT = """
+import sys
+sys.modules["jax"] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from eventful_transformer_tpu_torch.core.counting import Ctx
+from eventful_transformer_tpu_torch.detection.roi_heads import CascadeROIHeads
+from eventful_transformer_tpu_torch.models import ViTDet
+block = dict(dim=48, heads=6, mlp_ratio=2, window_size=[2, 2], relative_embedding_size=[4, 4])
+model = ViTDet(
+    backbone_config=dict(depth=2, position_encoding_size=[4, 4], window_indices=[0],
+                         block_config=block),
+    classes=5, input_shape=[3, 64, 64], normalize_mean=[123.675, 116.28, 103.53],
+    normalize_std=[58.395, 57.12, 57.375], output_channels=32, patch_size=[16, 16],
+    scale_factors=[4.0, 2.0, 1.0, 0.5], rpn_config=dict(pre_nms_topk=200, post_nms_topk=50),
+    roi_config=dict(test_topk_per_image=20, cascade=True, with_mask=True), device="cpu",
+)
+assert isinstance(model.roi_heads, CascadeROIHeads)
+frame = torch.from_numpy(np.random.default_rng(0).integers(0, 255, (1, 3, 56, 60), dtype=np.uint8))
+det, _ = model.apply(Ctx(), model.init_state(1), frame)
+assert det["masks"].shape == (20, 28, 28) and bool(((det["masks"] >= 0) & (det["masks"] <= 1)).all())
+assert det["boxes"].shape == (20, 4) and bool(torch.isfinite(det["boxes"]).all())
+assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
+               for name, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+
+
+TRAIN_SCRIPT = """
+import contextlib, io, sys, tempfile
+from pathlib import Path
+sys.modules["jax"] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import eventful_transformer_tpu_torch.scripts.train.vivit_epic_kitchens
+from eventful_transformer_tpu_torch.scripts.train import vivit_kinetics400
+from eventful_transformer_tpu_torch.utils import checkpoint
+from eventful_transformer_tpu_torch.utils.params import load_params, params_to_numpy
+tmp = Path(tempfile.mkdtemp())
+rng = np.random.default_rng(0)
+for split, n in (("train_40", 4), ("val", 2)):
+    cache = tmp / "k400" / split / "spatial_224_25_24"
+    cache.mkdir(parents=True)
+    for i in range(n):
+        np.savez(cache / f"{i:05d}.npz", label=np.asarray(i % 10),
+                 spatial=rng.standard_normal((2, 4, 32)).astype(np.float32))
+small = ["model.input_shape=[8,3,32,32]", "model.tubelet_shape=[2,8,8]", "model.spatial_views=1",
+         "model.temporal_views=2", "model.classes=10", "model.spatial_config.depth=1",
+         "model.spatial_config.position_encoding_size=[4,4]",
+         "model.spatial_config.block_config.dim=32", "model.spatial_config.block_config.heads=4",
+         "model.temporal_config.depth=1", "model.temporal_config.position_encoding_size=[4]",
+         "model.temporal_config.block_config.dim=32", "model.temporal_config.block_config.heads=4",
+         "model.temporal_config.block_config.drop_path_rate=0.1", "model.device=cpu",
+         f"data={tmp}/k400", "epochs=1", "train_batch_size=2", "val_batch_size=2",
+         "starting_weights=null", f"output_weights={tmp}/out.npz", f"checkpoint_dir={tmp}/ckpt"]
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    model, history = vivit_kinetics400.main(["final_24", *small])
+assert [h["pass"] for h in history] == ["val", "train", "val"], history
+assert "Saved weights to" in out.getvalue() and checkpoint.latest_epoch(tmp / "ckpt") == 1
+saved = params_to_numpy(model)
+with torch.no_grad():
+    for p in model.parameters():
+        p.zero_()
+load_params(tmp / "out.npz", model)
+for key, value in params_to_numpy(model).items():
+    assert np.array_equal(value, saved[key]), key
+assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
+               for name, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+
 def _run(script):
     result = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
@@ -431,3 +504,18 @@ def test_serving_surface_runs_without_jax():
     ``temporal_only``), the timing and profiling helpers, the generated
     VID video and the spatial and time entry points, without JAX."""
     _run(SERVING_SCRIPT)
+
+
+def test_coco_heads_run_without_jax():
+    """The COCO cascade and its mask head (``detection/roi_heads.py``,
+    ``detection/mask_head.py``) through ``ViTDet.apply``, without JAX."""
+    _run(COCO_SCRIPT)
+
+
+def test_training_runs_without_jax():
+    """The temporal fine-tune (``utils/train.py``, ``utils/checkpoint.py``,
+    ``save_params``/``load_params``, dropout and drop-path) through the
+    Kinetics-400 train entry point's ``main`` on a small model and a
+    generated cache, and the EPIC-Kitchens entry point's import, without
+    JAX."""
+    _run(TRAIN_SCRIPT)

@@ -347,9 +347,12 @@ def test_vitdet_backbone_matches_jax(eventful, monkeypatch):
 
 
 def test_vitdet_head_not_ported():
-    """The standard ROI heads are ported (tests/test_torch_detection.py);
-    the COCO cascade and its mask head raise naming ROADMAP.md."""
+    """Every ROI head configuration is ported: the standard heads
+    (tests/test_torch_detection.py) and the COCO cascade with its mask head
+    (tests/test_torch_coco_heads.py), which no longer raises."""
+    from eventful_transformer_tpu_torch.detection.roi_heads import CascadeROIHeads
+
     config = _vitdet_config(False)
     config["roi_config"] = dict(config["roi_config"], cascade=True, with_mask=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ViTDet(**config, device="cpu")
+    heads = ViTDet(**config, device="cpu").roi_heads
+    assert isinstance(heads, CascadeROIHeads) and heads.mask_head is not None
