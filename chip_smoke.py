@@ -27,7 +27,10 @@ ViViT entry point as a user runs it; and ViViT's remaining serving
 surface: ATS at EPIC-Kitchens ViViT-B's full size (ats.yml,
 temporal_ats_200.yml), the spatial cache (configs/spatial/
 vivit_kinetics400/24.yml, spatial_only, read back, temporal_only) and the
-time entry points as a user runs them.
+time entry points as a user runs them; and multi-process evaluation on
+torch.distributed (NCCL, one rank): Ulysses sequence parallelism on
+ulysses_smoke_672 and data parallelism on spatiotemporal_672 and through
+the ViViT entry point.
 Phases, one JSON line each, with the seconds the phase took:
 
   1. env:            torch, CUDA and nvcc versions and the card (nvidia-smi).
@@ -355,9 +358,26 @@ Phases, one JSON line each, with the seconds the phase took:
                      of allocated memory, no kernel launched); a validation
                      batch (rows 5 and 6); the grad guard; a save_params /
                      load_params round trip.
+  37. parallel_kernels, parallel_paths: the kernels of the three multi-process
+                     paths at their shapes in float32 (the harness's dtype),
+                     as in 3; then one rank under torchrun (python -m
+                     torch.distributed.run --standalone --nproc_per_node=1
+                     chip_smoke.py --parallel-rank <out>, NCCL at world size
+                     1) runs (a) ulysses_smoke_672 through
+                     evaluate_vitdet_metrics_sp, (b) spatiotemporal_672 at
+                     k = 512 through evaluate_vitdet_metrics_dp, each over one
+                     generated 3-frame video whose ground truth the plain
+                     run's detections give, and (c) the vivit_kinetics400
+                     entry point with data_parallel=true on temporal_24,
+                     each against the same configuration run in that
+                     process without the option: metrics, counts and
+                     launches by wrapper equal, (a) dense_mlp_residual 12
+                     times a frame; the backend, world size and seconds of
+                     each run.
 The times are a record, not a claim.
 
-Phases 25-27 run last, after 28-36, and read their runs too. Then the
+Phases 25-27 run last, after 28-37, and read their runs too (the
+multi-process paths' runs are in their own process and not among them). Then the
 whole run's seconds, the card's name and power limit, one JSON
 line with every kernel's numbers, and last ``{"ok": true, "device":
 {...}}``. Any failed check
@@ -619,9 +639,9 @@ def gemm_tc_ptxas(log):
     return list(out.values())
 
 
-def check_kernels(phase, device, cases):
+def check_kernels(phase, device, cases, dtypes=(torch.float32, torch.bfloat16)):
     """Each kernel of ``cases`` [(tag, batch, N, k, names, make_inputs
-    keywords)] against its plain version, float32 and bfloat16, with both
+    keywords)] against its plain version, in each of ``dtypes``, with both
     timed, the bound of the card for the same work, and the one PyTorch
     call that computes it where there is one; a group that selects its own
     rows also beside its two-phase form (``two_phase_ms``); the MLP rows
@@ -631,7 +651,7 @@ def check_kernels(phase, device, cases):
     from eventful_transformer_tpu_torch.ops import kernel_check
 
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         for tag, bsz, n, k, names, inputs in cases:
             d = kernel_check.make_inputs(bsz, n, 768, 12, k, dtype, device, seed=SEED, **inputs)
             for name in names:
@@ -3094,15 +3114,15 @@ def harness_config(location, argv, kind="evaluate"):
         return get_cli_config(Path("configs", kind, location), argv=argv)
 
 
-def harness_vid(transform, frames=HARNESS_VID_FRAMES, seed=SEED):
-    """One generated VID video (``data/synthetic.py::SyntheticVID``):
+def harness_vid(transform, frames=HARNESS_VID_FRAMES, seed=SEED, n_items=1):
+    """``n_items`` generated VID videos (``data/synthetic.py::SyntheticVID``):
     HARNESS_VID_FRAMES raw uint8 frames of HARNESS_VID_RAW (a random
     image, a rectangle that drifts 8 pixels a frame, a little noise), each
     through ``transform`` (the port's VIDResize) as VIDItem does, with one
     ground-truth box on the rectangle."""
     from eventful_transformer_tpu_torch.data.synthetic import SyntheticVID
 
-    return SyntheticVID(n_items=1, n_frames=frames, size=HARNESS_VID_RAW, seed=seed,
+    return SyntheticVID(n_items=n_items, n_frames=frames, size=HARNESS_VID_RAW, seed=seed,
                         combined_transform=transform)
 
 
@@ -4225,6 +4245,342 @@ def train_path(device, smi):
             for name in TRAIN_ROWS]
 
 
+# -- Multi-process evaluation: data and sequence parallelism (parallel/) --------
+#
+# One rank function, parallel_rank, for any number of processes: each rank
+# drives three paths at full width on seed weights and generated data, each
+# against the same configuration run in that process without the parallel
+# option, and the first rank compares. The phase runs it as one rank under
+# torchrun (``python -m torch.distributed.run --standalone
+# --nproc_per_node=1``: NCCL at world size 1, the machine's one card); on a
+# host of G cards it runs by hand, the kernels built first:
+#
+#     python -c 'from eventful_transformer_tpu_torch.ops import _build; _build.load_library()'
+#     torchrun --standalone --nproc_per_node=G chip_smoke.py --parallel-rank out.json \
+#         --frames 8 --items 5
+#
+# (a) SP: configs/evaluate/vitdet_vid/ulysses_smoke_672.yml (ViTDet-B, 12 dense
+# global blocks of 768, 12 heads, N = 1764) through
+# evaluate_vitdet_metrics_sp, the blocks' sequence_parallel off for the other
+# run; (b) DP ViTDet: spatiotemporal_672.yml with token_top_k=[512] through
+# evaluate_vitdet_metrics_dp; (a) over one, (b) over ``items`` generated VID
+# videos of ``frames`` raw 720 x 1280 frames through VIDResize, their ground
+# truth the other run's three best detections a frame moved by a pixel (the
+# class scorer scaled by CLS_SCORE_GAIN, as the e2e phase does), so that the
+# mAP the two compare is not 0; (c) DP ViViT: the vivit_kinetics400 entry
+# point with data_parallel=true on temporal_24.yml over ``items`` of harness
+# path A's generated clips, against the entry point without it. Float32, as
+# the harness builds the models. The metrics and counts must be equal (SP's
+# metrics within PARALLEL_SP_RTOL where P > 1), and the launches by wrapper:
+# on SP each rank's those of its plain run, on DP the ranks' sum.
+PARALLEL_FRAMES = 3
+PARALLEL_K = 512
+PARALLEL_TIMEOUT = 300
+# the parallel driver's runs: the first may hold one-time costs; the last
+# is compared and its launches kept
+PARALLEL_RUNS = 2
+# SP over P > 1 runs its GEMMs on N/P rows, so float32 sums in other orders
+PARALLEL_SP_RTOL = 1e-4
+# the kernels of paths (a) and (b) (dense_mlp_residual the only one of (a))
+PARALLEL_672 = ("dense_mlp_residual", "ln_norms", "gate_group_linear", "gate_group_linear_post",
+                "block_select_p", "block_scatter_rows", "gate_group_mlp",
+                "window_attention_windowed", "softmax_select_matmul", "relpos_bias_add_v2")
+# the paths' kernels at their shapes, in float32 (the harness's dtype)
+PARALLEL_CASES = [
+    ("parallel_672", 1, VITDET[672]["n"], PARALLEL_K, PARALLEL_672,
+     dict(VITDET[672]["inputs"], relpos_keys=VITDET[672]["keys"]["pooled"])),
+    ("parallel_vivit", EV_SPATIAL_VIEWS * EV_TEMPORAL_VIEWS, N_TOKENS, EV_K,
+     ("ln_norms", "gate_group_mlp"), dict(window=(4, 6), pool=(1, N_TOKENS))),
+    ("parallel_vivit_temporal", EV_SPATIAL_VIEWS * EV_TEMPORAL_VIEWS, STEPS + 1, STEPS + 1,
+     DENSE_KERNELS, dict(window=(4, 6))),
+]
+# each path's kernels, with the tag of their check
+PARALLEL_ROWS = {
+    "parallel_sp": [("dense_mlp_residual", "parallel_672")],
+    "parallel_dp_vitdet": [(name, "parallel_672") for name in PARALLEL_672[1:]],
+    "parallel_dp_vivit": [("ln_norms", "parallel_vivit"), ("gate_group_mlp", "parallel_vivit"),
+                          ("window_attention", "parallel_vivit_temporal"),
+                          ("dense_mlp_residual", "parallel_vivit_temporal")],
+}
+
+
+def counted(fn, *args):
+    """``fn(*args)`` with the launch counts set to 0 just before and read
+    just after: (its result, the launches by wrapper, its seconds)."""
+    reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, read_launches(), time.perf_counter() - start
+
+
+def counted_runs(fn, *args):
+    """``fn(*args)`` PARALLEL_RUNS times, each started on every rank
+    together: (the last run's result and launches, every run's seconds)."""
+    import torch.distributed as dist
+
+    seconds = []
+    for _ in range(PARALLEL_RUNS):
+        dist.barrier()
+        out, launches, run_s = counted(fn, *args)
+        seconds.append(run_s)
+    return out, launches, seconds
+
+
+def parallel_annotated(model, data):
+    """``data``'s videos with each frame's ground truth the three best
+    detections of ``model`` (the path's other run) moved by a pixel, made
+    on the first rank and sent to the others."""
+    import torch.distributed as dist
+
+    from eventful_transformer_tpu_torch.utils.evaluate import (
+        make_vitdet_eval_step,
+        vitdet_item_results,
+    )
+
+    videos = None
+    if dist.get_rank() == 0:
+        videos = []
+        results = vitdet_item_results(model, data, range(len(data)),
+                                      make_vitdet_eval_step(model, {}))
+        for i, frames in enumerate(results):
+            video = []
+            for (frame, _), (kept, _, _) in zip(data[i], frames):
+                top = np.argsort(-kept["scores"], kind="stable")[:3]
+                video.append((frame, {"boxes": kept["boxes"][top] + 1.0,
+                                      "labels": kept["labels"][top].astype(np.int32)}))
+            videos.append(video)
+    box = [videos]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def warm_group(group):
+    """One all-reduce and one all-to-all on ``group``: its communicator
+    comes up at its first collective, and NCCL's connection between two of
+    its peers at their first exchange, which no timed run should hold."""
+    import torch.distributed as dist
+
+    on = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+    dist.all_reduce(torch.zeros(1, device=on), group=group)
+    x = torch.zeros(dist.get_world_size(group), device=on)
+    dist.all_to_all_single(torch.empty_like(x), x, group=group)
+
+
+def parallel_vitdet(location, overrides, mesh_axis, evaluate_parallel, frames, items, sp=False):
+    """Path (a) or (b): the model of ``configs/evaluate/vitdet_vid/<location>``
+    with ``overrides`` on the card, float32, over ``items`` videos of
+    ``frames`` frames; the driver without the parallel option, then
+    ``evaluate_parallel`` over ``mesh_axis``."""
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.data.vid import VIDResize
+    from eventful_transformer_tpu_torch.models import ViTDet
+    from eventful_transformer_tpu_torch.parallel.mesh import make_mesh
+    from eventful_transformer_tpu_torch.utils.evaluate import evaluate_vitdet_metrics
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    config = harness_config("vitdet_vid", [location, f"n_items={items}", *overrides])
+    model = ViTDet(**{"seed": SEED, **config["model"]})
+    with torch.no_grad():
+        model.roi_heads.cls_score.kernel.mul_(CLS_SCORE_GAIN)
+    for k in config.get("token_top_k", []):
+        set_policies(model, TokenNormTopK, k=k)
+    mesh = make_mesh((-1,), (mesh_axis,), "cuda")
+    warm_group(mesh.get_group(mesh_axis))
+
+    def sequence_parallel(axis):
+        for block in model.backbone.blocks:
+            block.sequence_parallel = axis
+
+    long_edge = max(config["model"]["input_shape"][-2:])
+    data = harness_vid(VIDResize(short_edge_length=640 * long_edge // 1024, max_size=long_edge),
+                       frames=frames, n_items=items)
+    sequence_parallel(None)
+    data = parallel_annotated(model, data)
+    plain, plain_launches, plain_s = counted(evaluate_vitdet_metrics, model, data, config)
+    if sp:
+        sequence_parallel(mesh_axis)
+    par, launches, seconds = counted_runs(evaluate_parallel, model, data, config, mesh)
+    return dict(plain=plain, par=par, plain_launches=plain_launches, launches=launches,
+                plain_s=plain_s, seconds=seconds)
+
+
+def parallel_vivit(tmp, items):
+    """Path (c): the ViViT entry point on temporal_24 over ``items`` clips
+    without and with data_parallel=true, each run's titles, CSVs (where
+    this rank wrote them) and launches."""
+    from eventful_transformer_tpu_torch.scripts.evaluate import vivit_kinetics400
+
+    synthetic = dict(n_items=items, n_frames=HARNESS_CLIP_FRAMES, size=[240, 320], classes=400,
+                     seed=SEED)
+
+    def run(name, extra):
+        argv = ["temporal_24", f"n_items={items}", f"synthetic={json.dumps(synthetic)}",
+                f"_output={tmp}/{name}", *extra]
+        with contextlib.chdir(REPO):
+            done = vivit_kinetics400.main(argv)
+        written = Path(tmp, name, "metrics.csv").is_file()
+        return dict(done=done, **{key: Path(tmp, name, f"{key}.csv").read_text()
+                                  for key in ("metrics", "counts") if written})
+
+    plain, plain_launches, plain_s = counted(run, "plain", [])
+    n = iter(range(PARALLEL_RUNS))  # each run its own output (a sweep appends to its CSVs)
+    par, launches, seconds = counted_runs(lambda: run(f"par_{next(n)}", ["data_parallel=true"]))
+    return dict(plain=plain, par=par, plain_launches=plain_launches, launches=launches,
+                plain_s=plain_s, seconds=seconds)
+
+
+def parallel_same(path, runs):
+    """Whether ``path``'s parallel run equals its plain run, from every
+    rank's result: the first rank's metrics and counts (SP's metrics within
+    PARALLEL_SP_RTOL where P > 1), and the launches by wrapper (SP: each
+    rank's its plain run's; DP: the ranks' sum the first rank's plain
+    run's)."""
+    first = runs[0]
+    plain, par = first["plain"], first["par"]
+    if path == "parallel_sp" and len(runs) > 1:
+        same = (plain["counts"] == par["counts"] and set(plain["metrics"]) == set(par["metrics"])
+                and all(np.isclose(par["metrics"][k], v, rtol=PARALLEL_SP_RTOL, atol=0)
+                        for k, v in plain["metrics"].items()))
+    else:
+        same = plain == par
+    if path == "parallel_sp":
+        return same and all(r["launches"] == r["plain_launches"] for r in runs)
+    return same and parallel_launches(path, runs) == first["plain_launches"]
+
+
+def parallel_launches(path, runs):
+    """The path's launches by wrapper: SP's on the first rank (each rank
+    runs every block), DP's summed over the ranks (each runs its items)."""
+    if path == "parallel_sp":
+        return runs[0]["launches"]
+    return {name: sum(r["launches"][name] for r in runs) for name in runs[0]["launches"]}
+
+
+def parallel_rank(out, frames=PARALLEL_FRAMES, items=1):
+    """The rank of the parallel paths, under torchrun: paths (a), (b) and
+    (c) on the process group of torchrun's environment (NCCL on the card),
+    (a) over one video of ``frames`` frames, (b) and (c) over ``items``
+    videos or clips; the first rank writes their results, compared, to
+    ``out`` as JSON."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from eventful_transformer_tpu_torch.ops import _build
+    from eventful_transformer_tpu_torch.parallel.evaluate import (
+        evaluate_vitdet_metrics_dp,
+        evaluate_vitdet_metrics_sp,
+    )
+    from eventful_transformer_tpu_torch.parallel.mesh import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    _build.load_library()
+    result, path_s = {}, {}
+    with distributed("cuda"), tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        warm_group(dist.group.WORLD)
+        rank, size = dist.get_rank(), dist.get_world_size()
+        result.update(backend=dist.get_backend(), world_size=size, frames=frames, items=items,
+                      device=torch.cuda.get_device_name(torch.cuda.current_device()),
+                      ready_s=time.perf_counter() - _START)
+        paths = {
+            "parallel_sp": lambda: parallel_vitdet("ulysses_smoke_672", [], "seq",
+                                                   evaluate_vitdet_metrics_sp, frames, 1, sp=True),
+            "parallel_dp_vitdet": lambda: parallel_vitdet(
+                "spatiotemporal_672", [f"token_top_k=[{PARALLEL_K}]"], "data",
+                evaluate_vitdet_metrics_dp, frames, items),
+            "parallel_dp_vivit": lambda: parallel_vivit(tmp, items),
+        }
+        for path, run in paths.items():
+            start = time.perf_counter()
+            mine = run()
+            runs = [None] * size if rank == 0 else None
+            dist.gather_object(mine, runs, dst=0)
+            path_s[path] = time.perf_counter() - start
+            if rank == 0:
+                # the group's seconds: its slowest rank's
+                result[path] = dict(
+                    mine, launches=parallel_launches(path, runs),
+                    seconds=[max(r["seconds"][i] for r in runs) for i in range(PARALLEL_RUNS)],
+                    same_as_plain=parallel_same(path, runs),
+                )
+            torch.cuda.empty_cache()
+    if rank == 0:
+        result["path_s"] = path_s
+        Path(out).write_text(json.dumps(result, default=float))
+
+
+def run_parallel_rank(tmp):
+    """``parallel_rank`` under torchrun in its own session, killed with
+    every process it started after PARALLEL_TIMEOUT seconds. Returns (its
+    results, the process's seconds)."""
+    import os
+    import signal
+
+    out = Path(tmp, "parallel_rank.json")
+    start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+         str(REPO / "chip_smoke.py"), "--parallel-rank", str(out)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True,
+    )
+    try:
+        _, stderr = proc.communicate(timeout=PARALLEL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"parallel_paths: the rank ran past {PARALLEL_TIMEOUT} s")
+    if proc.returncode != 0 or not out.is_file():
+        raise AssertionError(f"parallel_paths: the rank failed: {stderr[-3000:]}")
+    return json.loads(out.read_text()), time.perf_counter() - start
+
+
+def parallel_paths(device, smi):
+    """Phases parallel_kernels (each kernel of paths (a)-(c) at their shapes,
+    as in 3) and parallel_paths (the three paths in one rank under torchrun,
+    NCCL at world size 1: each run's metrics, counts and launches by wrapper
+    equal to those of its run without the parallel option; on (a)
+    dense_mlp_residual 12 times a frame). Returns the final line's rows."""
+    import tempfile
+
+    rows = check_kernels("parallel_kernels", device, PARALLEL_CASES, dtypes=(torch.float32,))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        result, process_s = run_parallel_rank(tmp)
+    paths, failures = {}, []
+    for path in PARALLEL_ROWS:
+        r = result[path]
+        launches = r["launches"]
+        same = r["same_as_plain"]
+        if path == "parallel_dp_vivit":
+            same = same and launches == ev_expected_launches("auto")
+        else:
+            same = same and r["par"]["metrics"]["map"] > 0
+        if path == "parallel_sp":
+            same = same and launches["dense_mlp_residual"] == VITDET_DEPTH * PARALLEL_FRAMES
+        paths[path] = dict(seconds=r["seconds"], plain_s=r["plain_s"], result=r["par"],
+                           launches={k: v for k, v in launches.items() if v},
+                           same_as_plain=same)
+        if not same:
+            failures.append(path)
+    emit("parallel_paths", card=smi, backend=result["backend"], world_size=result["world_size"],
+         device=result["device"], process_s=process_s, ready_s=result["ready_s"],
+         path_s=result["path_s"], paths=paths)
+    if result["backend"] != "nccl" or result["world_size"] != 1 or failures:
+        raise AssertionError(f"parallel paths {failures} differ from their plain runs, or the "
+                             f"backend is {result['backend']}: {paths}")
+    out = [kernel_row(name, rows[(name, torch.float32, tag)], result[path]["launches"], path)
+           for path, names in PARALLEL_ROWS.items() for name, tag in names]
+    idle = [(row["path"], row["name"]) for row in out if not row["launches"]]
+    if idle:
+        raise AssertionError(f"parallel paths launched no {idle}")
+    return out
+
+
 def main():
     smi = phase_env()
     from eventful_transformer_tpu_torch.ops import kernel_check
@@ -4257,6 +4613,7 @@ def main():
     kernels += serving_paths(device, smi, ev_checks)
     kernels += coco_path(device, smi)
     kernels += train_path(device, smi)
+    kernels += parallel_paths(device, smi)
     phase_attention_bodies()
     phase_row_bodies()
     cores = phase_gemm_cores()
@@ -4277,5 +4634,21 @@ def main():
     }), flush=True)
 
 
+def parallel_rank_main(argv):
+    """``chip_smoke.py --parallel-rank OUT [--frames F] [--items I]``."""
+    import argparse
+
+    parser = argparse.ArgumentParser(prog="chip_smoke.py --parallel-rank")
+    parser.add_argument("out", help="the JSON file the first rank writes")
+    parser.add_argument("--frames", type=int, default=PARALLEL_FRAMES,
+                        help="frames of each generated video")
+    parser.add_argument("--items", type=int, default=1, help="videos and clips of the DP paths")
+    args = parser.parse_args(argv)
+    parallel_rank(args.out, args.frames, args.items)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_rank_main(sys.argv[2:])
+    else:
+        main()

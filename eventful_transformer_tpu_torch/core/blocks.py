@@ -96,8 +96,16 @@ stochastic depth on both residual adds of the dense block and of the
 eventful blocks' flush and unfused steps (JAX ``core/blocks.py:226, 252,
 1906, 1959``); it is the identity outside training.
 
-Not ported: sequence parallelism. Asking for it raises
-``NotImplementedError`` naming the ROADMAP.md item that holds it.
+Sequence parallelism (``sequence_parallel``, the dense ``Block`` only,
+as in the JAX package): the block's tokens are a shard of the sequence,
+one per process of the mesh axis it names, whose process group the
+caller hands over in ``ctx.groups`` (``parallel/evaluate.py``); the
+attention trades tokens for heads by two all-to-alls
+(``parallel/sequence.py``) and attends over the full sequence with its
+heads/P heads by the route the single-process block takes at that N (the
+global ``window_attention`` kernel at N <= 512, else plain PyTorch); the
+MLP runs ``dense_mlp_residual`` over the shard's rows. Each process counts
+its own shard's work.
 """
 
 from __future__ import annotations
@@ -135,7 +143,6 @@ from eventful_transformer_tpu_torch.core.nn import (
     counted_matmul,
     gelu,
     layer_norm,
-    not_ported,
 )
 from eventful_transformer_tpu_torch.core.policies import (
     check_kernel_policy,
@@ -239,8 +246,19 @@ class Block(nn.Module):
                 f"ats_fraction={ats_fraction!r}, pool_size={pool_size!r}, "
                 f"window_size={window_size!r}"
             )
-        if sequence_parallel is not None:
-            raise not_ported("sequence parallelism", 17)
+        if sequence_parallel is not None and (
+            type(self) is not Block
+            or window_size is not None
+            or pool_size is not None
+            or relative_embedding_size is not None
+            or ats_fraction is not None
+        ):
+            # top-k gates would select per shard; windows, pooling, rel-pos
+            # and ATS keep the attention local or data-dependent
+            raise ValueError(
+                "sequence_parallel takes the dense Block with global attention and no "
+                "pooling, rel-pos or ATS"
+            )
         if not 0.0 <= drop_path_rate <= 1.0:
             raise ValueError(f"drop_path_rate must lie in [0, 1], got {drop_path_rate!r}")
         if matmul_2_cast not in (None, *_CAST_DTYPES):
@@ -252,6 +270,7 @@ class Block(nn.Module):
         self.input_size = tuple(input_size)
         self.ats_fraction = ats_fraction
         self.matmul_2_cast = matmul_2_cast
+        self.sequence_parallel = sequence_parallel
         self.pool_size = None if pool_size is None else _pair(pool_size)
         if window_size is None:
             self.window_size = None
@@ -370,6 +389,27 @@ class Block(nn.Module):
         the window-major resident buffer (B, NW, 3C), whose pad rows
         already hold the qkv bias row. Returns (y, the ATS indices or None,
         state)."""
+        if self.sequence_parallel is not None:
+            return self._attention_ulysses(ctx, x, aux), None, state
+        return self._attention(ctx, x, aux, pre_partitioned, state)
+
+    def _attention_ulysses(self, ctx, x, aux):
+        """Token-sharded qkv (B, N/P, 3C) -> (B, N/P, C): the heads/P heads
+        of this process over all N tokens (JAX ``_attention_ulysses``),
+        attended as the single-process block attends at N."""
+        from eventful_transformer_tpu_torch.parallel.sequence import ulysses_attention
+
+        group = ctx.groups.get(self.sequence_parallel)
+        if group is None:
+            raise ValueError(f"sequence_parallel={self.sequence_parallel!r}: the context holds "
+                             "no process group of that mesh axis (Ctx(groups=...))")
+        return ulysses_attention(
+            x, self.heads, group, lambda qkv: self._attention(ctx, qkv, aux, False, None)[0]
+        )
+
+    def _attention(self, ctx, x, aux, pre_partitioned, state):
+        """:meth:`_forward_attention` over as many heads as x's width holds
+        (all the block's, or a sequence-parallel rank's share)."""
         if pre_partitioned:
             x = x.reshape(-1, prod(self.window_size), x.shape[-1])
             if any(self._window_padding()):
@@ -406,10 +446,12 @@ class Block(nn.Module):
         """x (Bw, T, 3C), one window (or the whole sequence) per row, through
         ``window_attention``; with ``geom``, the windows of a zero-padded
         map, whose pad rows the kernel fills with ``pad_bias`` and the pad
-        terms. Counted as the plain path counts (matmul-1, matmul-2 and,
-        with rel-pos, the term einsums and the two adds)."""
-        bw, t, _ = x.shape
+        terms; as many heads as x's width holds. Counted as the plain path
+        counts (matmul-1, matmul-2 and, with rel-pos, the term einsums and
+        the two adds)."""
+        bw, t, c3 = x.shape
         d = self.dim // self.heads
+        heads = c3 // (3 * d)
         a = self.window_size
         if self.relative_position is not None:
             rp = self.relative_position
@@ -430,14 +472,17 @@ class Block(nn.Module):
             ctx.add("add_flops", 2.0 * bw * self.heads * t * t)
         else:
             out = window_attention(
-                x, None, pad_bias, heads=self.heads, scale=self.scale, a=a, geom=geom
+                x, None, pad_bias, heads=heads, scale=self.scale, a=a, geom=geom
             )
-        ctx.add("matmul_flops", 2.0 * bw * self.heads * t * t * d)
+        ctx.add("matmul_flops", 2.0 * bw * heads * t * t * d)
         return out
 
     def _partition_heads(self, x):
+        """Packed qkv (B, N, 3C') -> q, k, v (B, C' / head_dim, N,
+        head_dim): as many heads as its width holds."""
         b, n = x.shape[:2]
-        x = x.reshape(b, n, 3, self.heads, x.shape[-1] // (3 * self.heads))
+        d = self.dim // self.heads
+        x = x.reshape(b, n, 3, x.shape[-1] // (3 * d), d)
         q, k, v = x.permute(2, 0, 3, 1, 4)
         return q, k, v
 

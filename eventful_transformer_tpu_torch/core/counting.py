@@ -49,18 +49,21 @@ class Ctx:
     sends every block down its plain PyTorch path, which autograd can
     differentiate (the kernels have no backward); ``generator`` (a
     ``torch.Generator`` on the model's device) is where those layers draw
-    from. A count given as a tensor (a masked selection's valid share, a
+    from. ``groups`` maps a mesh axis name to its process group, for the
+    blocks whose ``sequence_parallel`` names that axis
+    (``parallel/evaluate.py``). A count given as a tensor (a masked selection's valid share, a
     threshold policy's ``policy_saturated``) stays on its device until
     ``counts`` is read, which reads every such count in one transfer: one
     host synchronisation per read, not one per count.
     """
 
-    __slots__ = ("count_mode", "training", "generator", "_counts", "_pending")
+    __slots__ = ("count_mode", "training", "generator", "groups", "_counts", "_pending")
 
-    def __init__(self, count_mode=False, training=False, generator=None):
+    def __init__(self, count_mode=False, training=False, generator=None, groups=None):
         self.count_mode = count_mode
         self.training = training
         self.generator = generator
+        self.groups = groups or {}
         self._counts = Counts({k: 0.0 for k in COUNT_KEYS} if count_mode else {})
         self._pending = []
 

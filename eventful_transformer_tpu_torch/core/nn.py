@@ -19,12 +19,6 @@ from torch import nn
 from eventful_transformer_tpu_torch.ops.common import LN_EPS, ln_f32
 
 
-def not_ported(what, item):
-    """The error a module raises for an option the port does not have yet,
-    naming the ROADMAP.md item that holds it."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, open item {item})")
-
-
 def model_device(device):
     """The device a model's constructor puts its parameters on: the card
     unless the caller names another. Without a CUDA device, asking for the

@@ -1,0 +1,192 @@
+"""Process groups and device meshes (port of ``make_mesh`` in
+``eventful_transformer_tpu/parallel/mesh.py``).
+
+The JAX package runs one program over many devices; the port runs one
+process per GPU, as ``torchrun`` launches it:
+
+    torchrun --standalone --nproc_per_node=N -m <module> [arguments]
+
+Each process joins the default process group with the rank, world size and
+local rank that torchrun puts in its environment (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``); with none of them set the
+group has one rank. The backend follows the device: NCCL for ``cuda``
+(after ``torch.cuda.set_device(LOCAL_RANK)``), gloo for ``cpu``; a failed
+NCCL initialisation is an error, never a fall back to gloo. ``make_mesh``
+lays the processes out on named axes ("data", "seq"), as the JAX mesh names
+its axes; ``mesh.get_group(axis)`` is an axis's process group.
+:func:`spawn` starts ranks on one host for the tests.
+
+``best_dp_tp_mesh`` and ``initialize_distributed`` (tensor parallelism and
+multi-host JAX) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import pickle
+import tempfile
+import time
+import traceback
+from math import prod
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+# an init_method URL (``file://...``, ``tcp://...``) that takes the place of
+# torchrun's MASTER_ADDR/MASTER_PORT; :func:`spawn` sets it to a FileStore
+INIT_METHOD_ENV = "EVT_DIST_INIT_METHOD"
+
+
+def init_process_group(device="cuda"):
+    """Join the default process group from torchrun's environment (or the
+    :data:`INIT_METHOD_ENV` URL), on ``device``'s backend; one rank where
+    nothing is set. Returns True where this call made the group, False
+    where it already existed."""
+    if dist.is_initialized():
+        return False
+    device = torch.device(device)
+    rank = int(os.environ.get("RANK", 0))
+    world_size = int(os.environ.get("WORLD_SIZE", 1))
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run the ranks on gloo")
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    if os.environ.get(INIT_METHOD_ENV):
+        where = dict(init_method=os.environ[INIT_METHOD_ENV])
+    elif "MASTER_ADDR" in os.environ:
+        where = dict(init_method="env://")
+    elif world_size == 1:
+        where = dict(store=dist.HashStore())
+    else:
+        raise RuntimeError(f"WORLD_SIZE={world_size} without MASTER_ADDR: launch with torchrun")
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, rank=rank, world_size=world_size, **where)
+    return True
+
+
+def destroy():
+    """Destroy the default process group, where there is one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def distributed(device="cuda"):
+    """The default process group on ``device``'s backend for the block's
+    duration; a group this made is destroyed on exit, one the caller made
+    is left."""
+    made = init_process_group(device)
+    try:
+        yield
+    finally:
+        if made:
+            destroy()
+
+
+def make_mesh(shape=None, axis_names=("data",), device="cuda"):
+    """A ``DeviceMesh`` over every process of the default group (made here
+    where there is none). ``shape=None`` puts every process on the first
+    axis; a ``-1`` entry is inferred."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    init_process_group(device)
+    n = dist.get_world_size()
+    if shape is None:
+        shape = (n,) + (1,) * (len(axis_names) - 1)
+    shape = list(shape)
+    if -1 in shape:
+        shape[shape.index(-1)] = n // prod(s for s in shape if s != -1)
+    if prod(shape) != n or len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} with axes {axis_names} does not fit {n} processes")
+    return init_device_mesh(torch.device(device).type, tuple(shape),
+                            mesh_dim_names=tuple(axis_names))
+
+
+@contextlib.contextmanager
+def entry_mesh(config, axis):
+    """The evaluate entry points' mesh: every process torchrun started on
+    the one axis ``axis``, on the model's device (``model.device``, the
+    card by default). Yields (mesh, whether this rank writes the run's
+    files: the first); the group is destroyed on exit where this made it."""
+    device = (config.get("model") or {}).get("device", "cuda")
+    with distributed(device):
+        yield make_mesh((-1,), (axis,), device), dist.get_rank() == 0
+
+
+def first_then_rest(fn, writes):
+    """``fn()`` on the writing rank, then on the others: a dataset that
+    unpacks its files at first use unpacks them once."""
+    if not writes:
+        dist.barrier()
+    out = fn()
+    if writes:
+        dist.barrier()
+    return out
+
+
+def spawn(fn, world_size, args=(), timeout=600, threads=None):
+    """Run ``fn(*args)`` in ``world_size`` new processes on this host, each
+    a rank (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` set as torchrun sets
+    them, the rendezvous a FileStore in a temporary directory), and return
+    their results in rank order. ``fn`` must be importable by name and
+    joins the group itself (:func:`make_mesh` or :func:`distributed`, on
+    its device); a group still open when it returns is destroyed. A rank
+    that raises, or a run past ``timeout`` seconds, stops every rank and
+    raises here; ``threads`` sets each rank's ``torch.set_num_threads``."""
+    import multiprocessing
+
+    context = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="evt_spawn_") as tmp:
+        procs = [
+            context.Process(target=_rank_main,
+                            args=(fn, args, rank, world_size, f"file://{tmp}/store", tmp, threads))
+            for rank in range(world_size)
+        ]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + timeout
+        failed = None
+        while any(proc.is_alive() for proc in procs):
+            errors = sorted(Path(tmp).glob("error_*.txt"))
+            if errors or time.monotonic() > deadline:
+                failed = errors[0].read_text() if errors else f"timed out after {timeout} s"
+                break
+            time.sleep(0.05)
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        errors = sorted(Path(tmp).glob("error_*.txt"))
+        if failed is None and errors:
+            failed = errors[0].read_text()
+        if failed is None and any(proc.exitcode != 0 for proc in procs):
+            failed = f"exit codes {[proc.exitcode for proc in procs]}"
+        if failed is not None:
+            raise RuntimeError(f"spawned rank failed: {failed}")
+        results = []
+        for rank in range(world_size):
+            with open(Path(tmp, f"result_{rank}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+    return results
+
+
+def _rank_main(fn, args, rank, world_size, init_method, tmp, threads):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world_size), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world_size))
+    os.environ[INIT_METHOD_ENV] = init_method
+    if threads is not None:
+        torch.set_num_threads(threads)
+    try:
+        result = fn(*args)
+        with open(Path(tmp, f"result_{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    except BaseException:
+        Path(tmp, f"error_{rank}.txt").write_text(f"rank {rank}:\n{traceback.format_exc()}")
+        raise
+    finally:
+        destroy()

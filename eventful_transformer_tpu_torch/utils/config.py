@@ -128,7 +128,12 @@ def get_cli_config(config_location=".", argv=None):
 def initialize_run(config_location=".", argv=None):
     """CLI config + output-directory setup + resolved-config snapshot
     (reference utils/config.py:35-44)."""
-    config = get_cli_config(config_location=config_location, argv=argv)
+    return save_run_config(get_cli_config(config_location=config_location, argv=argv))
+
+
+def save_run_config(config):
+    """Write ``config`` to ``<_output>/config.yml`` (where it names an
+    output directory) and return it."""
     if "_output" in config:
         output_dir = Path(config["_output"])
         output_dir.mkdir(parents=True, exist_ok=True)

@@ -130,20 +130,33 @@ def vivit_views(model, video):
 def evaluate_vivit_metrics(model, data, config):
     """Top-1 and top-5 accuracy and the mean counts per video over a video
     classification dataset; each video starts from a fresh state."""
-    top_1 = TopKAccuracy(k=1)
-    top_5 = TopKAccuracy(k=5)
     step = make_bucketed_vivit_step(model, config) or make_vivit_step(model)
     n_items = min(config.get("n_items") or len(data), len(data))
-    total_counts = Counts()
-    for i in progress(range(n_items)):
+    return vivit_metrics(vivit_item_results(model, data, range(n_items), step))
+
+
+def vivit_item_results(model, data, indices, step):
+    """[(probabilities (1, classes) float32, label, counts)] of the videos
+    at ``indices`` of ``data``, in order, each through ``step``."""
+    results = []
+    for i in progress(indices):
         video, label = data[i]
         output, counts = step(vivit_views(model, video))
-        output = output.float().cpu().numpy()
-        top_1.update(output, np.asarray(label))
-        top_5.update(output, np.asarray(label))
+        results.append((output.float().cpu().numpy(), np.asarray(label), counts))
+    return results
+
+
+def vivit_metrics(results):
+    """The metrics and mean counts of :func:`vivit_item_results`' list."""
+    top_1 = TopKAccuracy(k=1)
+    top_5 = TopKAccuracy(k=5)
+    total_counts = Counts()
+    for output, label, counts in results:
+        top_1.update(output, label)
+        top_5.update(output, label)
         total_counts = total_counts + counts
     metrics = {"top_1": top_1.compute(), "top_5": top_5.compute()}
-    return {"metrics": metrics, "counts": (total_counts / n_items).nonzero()}
+    return {"metrics": metrics, "counts": (total_counts / len(results)).nonzero()}
 
 
 def make_vitdet_step(model):
@@ -173,27 +186,43 @@ def evaluate_vitdet_metrics(model, data, config, dispatchers=None):
     ``BucketedThresholdStep``, which is appended to the list
     ``dispatchers`` where one is given (for its escalations and frames per
     level)."""
-    mean_ap = MeanAveragePrecision()
-    c, in_h, in_w = model.input_shape
-    p = _parameter(model)
+    step = make_vitdet_eval_step(model, config, dispatchers)
+    n_items = min(config.get("n_items") or len(data), len(data))
+    return vitdet_metrics(vitdet_item_results(model, data, range(n_items), step))
+
+
+def make_vitdet_eval_step(model, config, dispatchers=None):
+    """The step of :func:`evaluate_vitdet_metrics`, with ``reset()`` to
+    call at each video's start: the bucketed dispatch for a threshold entry
+    with ``bucket_capacities`` (appended to ``dispatchers``), else
+    :func:`make_vitdet_step`'s."""
     policy = _threshold_buckets(model, config)
-    if policy is not None:
-        step = BucketedThresholdStep(
-            model, lambda _capacity=None: make_vitdet_step(model), policy.threshold,
-            config["bucket_capacities"],
-        )
-    else:
+    if policy is None:
         step = make_vitdet_step(model)
         step.reset = lambda: None
-    if policy is not None and dispatchers is not None:
+        return step
+    step = BucketedThresholdStep(
+        model, lambda _capacity=None: make_vitdet_step(model), policy.threshold,
+        config["bucket_capacities"],
+    )
+    if dispatchers is not None:
         dispatchers.append(step)
-    total_counts = Counts()
-    n_frames = 0
-    n_items = min(config.get("n_items") or len(data), len(data))
-    for i in range(n_items):
+    return step
+
+
+def vitdet_item_results(model, data, indices, step):
+    """Per video at ``indices`` of ``data``, in order, its frames'
+    [(detections kept, as numpy, annotations, counts)], each video from a
+    fresh state through ``step`` (``(state, frame, content_hw, first) ->
+    (detections, state, counts)``, ``reset()`` at the video's start)."""
+    c, in_h, in_w = model.input_shape
+    p = _parameter(model)
+    results = []
+    for i in indices:
         vid_item = data[i]
         state = model.init_state(1, p.dtype, p.device)
         step.reset()
+        frames = []
         for t in range(len(vid_item)):
             frame, annotations = vid_item[t]
             frame = np.asarray(frame, np.float32)
@@ -203,31 +232,45 @@ def evaluate_vitdet_metrics(model, data, config, dispatchers=None):
             padded = torch.from_numpy(padded).to(device=p.device, dtype=p.dtype)
             out, state, counts = step(state, padded, content_hw, t == 0)
             mask = out["mask"].cpu().numpy()
-            mean_ap.update(
-                [{
-                    "boxes": out["boxes"].float().cpu().numpy()[mask],
-                    "scores": out["scores"].float().cpu().numpy()[mask],
-                    "labels": out["labels"].cpu().numpy()[mask],
-                }],
-                [annotations],
-            )
+            kept = {
+                "boxes": out["boxes"].float().cpu().numpy()[mask],
+                "scores": out["scores"].float().cpu().numpy()[mask],
+                "labels": out["labels"].cpu().numpy()[mask],
+            }
+            frames.append((kept, annotations, counts))
+        results.append(frames)
+    return results
+
+
+def vitdet_metrics(results):
+    """The mAP and mean counts per frame of :func:`vitdet_item_results`'
+    list."""
+    mean_ap = MeanAveragePrecision()
+    total_counts = Counts()
+    n_frames = 0
+    for frames in results:
+        for kept, annotations, counts in frames:
+            mean_ap.update([kept], [annotations])
             total_counts = total_counts + counts
             n_frames += 1
     metrics = mean_ap.compute()
     return {"metrics": metrics, "counts": (total_counts / max(n_frames, 1)).nonzero()}
 
 
-def run_evaluations(config, model_class, data, evaluate_function):
+def run_evaluations(config, model_class, data, evaluate_function, write=True):
     """The policy sweep, with the text of each entry tee'd into
     ``<_output>/output.txt`` and its result dicts appended to
     ``<_output>/<key>.csv``. With ``resume``, the entries already in
-    metrics.csv are skipped. Returns the titles of the entries done."""
+    metrics.csv are skipped. Returns the titles of the entries done.
+    ``write=False`` (every rank of a multi-process run but the first)
+    evaluates every entry and writes and prints nothing."""
     model = model_class(**{"seed": config.get("seed", 0), **config["model"]})
     load_model_params(model, config)
 
     completed = []
     output_dir = Path(config["_output"])
-    output_dir.mkdir(parents=True, exist_ok=True)
+    if write:
+        output_dir.mkdir(parents=True, exist_ok=True)
     skip = 0
     metrics_csv = output_dir / "metrics.csv"
     if config.get("resume") and metrics_csv.is_file():
@@ -238,6 +281,10 @@ def run_evaluations(config, model_class, data, evaluate_function):
         nonlocal skip
         if skip > 0:
             skip -= 1
+            completed.append(title)
+            return
+        if not write:
+            evaluate_function(model, data, config)
             completed.append(title)
             return
         with open(output_dir / "output.txt", "a") as tee_file:

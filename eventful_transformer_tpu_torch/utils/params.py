@@ -2,7 +2,9 @@
 ``eventful_transformer_tpu/utils/params.py``): :func:`save_params` writes a
 module's parameters in the JAX package's ``save_params`` layout, which its
 ``load_params(path, like=...)`` reads; :func:`load_params` reads such a
-file, written by either package, into a module.
+file, written by either package, into a module;
+:func:`convert_torch_state_dict` maps a published PyTorch checkpoint's
+state dict (after ``scripts/convert``'s renames) to that layout.
 
 The port's parameter names are the JAX pytree's paths with ``.`` for
 ``/``: ``spatial_model.backbone.blocks.3.qkv.kernel`` holds
@@ -105,3 +107,44 @@ def load_params(path, module):
     """Read the ``.npz`` ``path`` (written by :func:`save_params` or the JAX
     package's ``save_params``) into ``module``: :func:`params_from_jax`."""
     return params_from_jax(module, path)
+
+
+def convert_torch_state_dict(state_dict):
+    """A reference-layout torch ``state_dict`` (name -> tensor or array) as
+    the flat ``{"a/b": np.ndarray}`` map of the JAX layout, as the JAX
+    package's ``convert_torch_state_dict`` maps it (structurally, by name):
+
+      ======================================  ==============================
+      reference torch name                     path
+      ======================================  ==============================
+      a.b.weight (LayerNorm)                   a/b/scale
+      a.b.bias   (LayerNorm)                   a/b/bias
+      a.qkv.weight (Linear, (out, in))         a/qkv/kernel (transposed)
+      a.b.weight (Conv2d (O, I, kh, kw))       a/b/kernel (kh, kw, I, O)
+      embedding.conv.weight (Conv3d/Conv2d)    embedding/kernel (flattened)
+      everything else                          the name with / for .
+      ======================================  ==============================
+
+    A ConvTranspose2d weight (I, O, kh, kw) takes the same transpose."""
+    out = {}
+    for name, value in state_dict.items():
+        value = np.asarray(value.detach().cpu().numpy() if hasattr(value, "detach") else value)
+        parts = name.split(".")
+        leaf = parts[-1]
+        parent = parts[-2] if len(parts) > 1 else ""
+        path = parts[:-1]
+        if parent == "conv":  # the patch or tubelet embedding's conv -> a matmul kernel
+            path = path[:-1]
+            if leaf == "weight" and value.ndim in (4, 5):  # (O, C, [t,] h, w)
+                value = np.moveaxis(value, 0, -1).reshape(-1, value.shape[0])
+                leaf = "kernel"
+        elif leaf == "weight" and value.ndim == 2:  # Linear (out, in)
+            value = value.T
+            leaf = "kernel"
+        elif leaf == "weight" and value.ndim == 4:
+            value = value.transpose(2, 3, 1, 0)
+            leaf = "kernel"
+        elif leaf == "weight":  # LayerNorm scale
+            leaf = "scale"
+        out["/".join(path + [leaf])] = value
+    return out

@@ -111,14 +111,15 @@ def test_dense_block_matches_jax(jax_kernels):
     _close_counts(ctx.counts, jax_ctx)
 
 
-# each option's refusal: sequence parallelism is not ported (the error
-# names ROADMAP.md); drop-path is (tests/test_torch_train.py), and a rate
-# outside [0, 1] is refused
+# each option's refusal: sequence parallelism is ported for the dense Block
+# (tests/test_torch_parallel.py) and refused for the eventful blocks, whose
+# top-k gates would select per shard; drop-path is ported
+# (tests/test_torch_train.py), and a rate outside [0, 1] is refused
 UNSUPPORTED = {
     "drop_path": (lambda: blocks.EventfulTokenwiseBlock(**KWARGS, drop_path_rate=1.5),
                   ValueError, "drop_path_rate"),
-    "sequence_parallel": (lambda: blocks.Block(**KWARGS, sequence_parallel="sp"),
-                          NotImplementedError, "ROADMAP.md"),
+    "sequence_parallel": (lambda: blocks.EventfulTokenwiseBlock(**KWARGS, sequence_parallel="sp"),
+                          ValueError, "dense Block"),
 }
 
 

@@ -279,12 +279,18 @@ def test_cli_runs_on_the_card_by_default(tmp_path):
 
 
 def test_cli_parallel_options_are_not_ported(tmp_path, monkeypatch):
-    from eventful_transformer_tpu_torch.scripts.evaluate import vitdet_vid, vivit_kinetics400
+    """The parallel options are ported now (tests/test_torch_parallel.py
+    runs them at 2 ranks): at one process on the CPU, ``data_parallel=true``
+    gives the CSVs of the run without it and leaves no process group."""
+    import torch.distributed as dist
+
+    from eventful_transformer_tpu_torch.scripts.evaluate import vivit_kinetics400
 
     monkeypatch.chdir(REPO)
-    with pytest.raises(NotImplementedError, match="open item 17"):
-        vivit_kinetics400.main(["synthetic_smoke", "data_parallel=true",
-                                f"_output={tmp_path}/a"])
-    for option in ("data_parallel", "sequence_parallel"):
-        with pytest.raises(NotImplementedError, match="open item 17"):
-            vitdet_vid.main(["threshold_1024", f"{option}=true", f"_output={tmp_path}/b"])
+    base = ["synthetic_smoke", "model.device=cpu", "n_items=1", "synthetic.n_items=1"]
+    vivit_kinetics400.main(base + [f"_output={tmp_path}/a"])
+    done = vivit_kinetics400.main(base + ["data_parallel=true", f"_output={tmp_path}/b"])
+    assert done == ["Token top k=8", "Token top k=16"]
+    assert not dist.is_initialized()
+    for name in ("metrics.csv", "counts.csv"):
+        assert (tmp_path / "a" / name).read_text() == (tmp_path / "b" / name).read_text()

@@ -437,6 +437,61 @@ assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_t
 print("ok")
 """
 
+PARALLEL_SCRIPT = """
+import contextlib, io, sys, tempfile
+from pathlib import Path
+sys.modules["jax"] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import torch.distributed as dist
+from eventful_transformer_tpu_torch.data.synthetic import SyntheticVID, SyntheticVideoClassification
+from eventful_transformer_tpu_torch.models import FactorizedViViT, ViTDet
+from eventful_transformer_tpu_torch.parallel.evaluate import (
+    evaluate_vitdet_metrics_dp, evaluate_vitdet_metrics_sp, evaluate_vivit_metrics_dp)
+from eventful_transformer_tpu_torch.parallel.mesh import distributed, make_mesh
+from eventful_transformer_tpu_torch.scripts.convert import vitdet as convert_vitdet
+from eventful_transformer_tpu_torch.scripts.convert import vivit as convert_vivit
+from eventful_transformer_tpu_torch.utils.evaluate import evaluate_vitdet_metrics
+from eventful_transformer_tpu_torch.utils.params import convert_torch_state_dict, load_params
+block = dict(dim=48, heads=6, mlp_ratio=2)
+config = dict(backbone_config=dict(depth=2, position_encoding_size=[4, 4], block_config=block),
+              classes=5, input_shape=[3, 64, 64], normalize_mean=[0.0] * 3, normalize_std=[1.0] * 3,
+              output_channels=16, patch_size=[16, 16], scale_factors=[1.0], device="cpu",
+              rpn_config=dict(pre_nms_topk=100, post_nms_topk=20), roi_config=dict(test_topk_per_image=10))
+sp = dict(config, backbone_config=dict(config["backbone_config"],
+                                       block_config=dict(block, sequence_parallel="seq")))
+data = SyntheticVID(n_items=1, n_frames=2, size=(64, 64))
+with distributed("cpu"):
+    want = evaluate_vitdet_metrics(ViTDet(**config), data, {})
+    got = evaluate_vitdet_metrics_sp(ViTDet(**sp), data, {}, make_mesh((-1,), ("seq",), "cpu"))
+    assert got == want, (got, want)
+    assert evaluate_vitdet_metrics_dp(ViTDet(**config), data, {},
+                                      make_mesh((-1,), ("data",), "cpu")) == want
+    vivit = FactorizedViViT(
+        classes=5, input_shape=[4, 3, 16, 16], normalize_mean=0.45, normalize_std=0.225,
+        spatial_views=1, temporal_stride=2, temporal_views=1, tubelet_shape=[2, 8, 8],
+        spatial_config=dict(depth=1, position_encoding_size=[2, 2], block_config=block),
+        temporal_config=dict(depth=1, position_encoding_size=[2], block_config=block), device="cpu")
+    clips = SyntheticVideoClassification(n_items=2, n_frames=4, size=(16, 16), classes=5)
+    result = evaluate_vivit_metrics_dp(vivit, clips, {}, make_mesh((-1,), ("data",), "cpu"))
+    assert set(result) == {"metrics", "counts"}
+assert not dist.is_initialized()
+tmp = Path(tempfile.mkdtemp())
+state = {"head.linear.weight": torch.ones(5, 48), "backbone.cls_token": torch.zeros(1, 1, 48)}
+torch.save({"model_state": state}, tmp / "vivit.pyth")
+with contextlib.redirect_stdout(io.StringIO()):
+    convert_vivit.main(convert_vivit.parse_args([str(tmp / "vivit.pyth"), str(tmp / "out.npz")]))
+with np.load(tmp / "out.npz") as out:
+    assert out["classifier/kernel"].shape == (48, 5) and "spatial_model/class_token" in out.files
+assert convert_torch_state_dict({"a.conv.weight": np.zeros((4, 3, 2, 2))})["a/kernel"].shape == (12, 4)
+assert convert_vitdet.parse_args(["a.pkl", "b.npz"]).pattern_file == "configs/convert/vitdet_b.txt"
+assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
+               for name, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+
+
 def _run(script):
     result = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
@@ -519,3 +574,9 @@ def test_training_runs_without_jax():
     generated cache, and the EPIC-Kitchens entry point's import, without
     JAX."""
     _run(TRAIN_SCRIPT)
+
+
+def test_parallel_runs_without_jax():
+    """The parallel package (the mesh, Ulysses attention, the SP and DP
+    drivers at one gloo rank) and the converters, without JAX."""
+    _run(PARALLEL_SCRIPT)
