@@ -30,7 +30,10 @@ vivit_kinetics400/24.yml, spatial_only, read back, temporal_only) and the
 time entry points as a user runs them; and multi-process evaluation on
 torch.distributed (NCCL, one rank): Ulysses sequence parallelism on
 ulysses_smoke_672 and data parallelism on spatiotemporal_672 and through
-the ViViT entry point.
+the ViViT entry point; and in that rank the training half of parallel/:
+ViViT-B's eventful spatial stack pipelined, the dense ViViT-B tensor-parallel
+in inference and in two train steps, and the multi-chip dry run; and the
+detector's training losses on ViTDet-B at 672.
 Phases, one JSON line each, with the seconds the phase took:
 
   1. env:            torch, CUDA and nvcc versions and the card (nvidia-smi).
@@ -374,6 +377,38 @@ Phases, one JSON line each, with the seconds the phase took:
                      launches by wrapper equal, (a) dense_mlp_residual 12
                      times a frame; the backend, world size and seconds of
                      each run.
+  38. detection_losses: ViTDet-B VID at 672 (vitdet_b_vid.yml's standard
+                     heads on base_672's dense backbone), float32, one
+                     generated frame: the RPN head's logits and deltas over
+                     all 112,818 anchors, propose(training=True), rpn_losses,
+                     sample_proposals and fast_rcnn_losses on the box head's
+                     outputs for the sampled proposals, on the card and
+                     again on the CPU from the card's head outputs with the
+                     same uniforms: the samples equal, the four losses and
+                     their gradients (logits, deltas, class scores, predicted
+                     boxes) within 1e-5 relative; the valid proposals of the
+                     training pair's 1000.
+  39. pipeline_path: in the rank of 37, the ViViT-B K400 spatial stack of
+                     phase 4 (12 EventfulTokenwiseBlocks, k = 98, "v4",
+                     bf16) over one clip's 16 tubelet steps (the bench's 2
+                     x 4 views) through make_pipelined_backbone at P = the
+                     world size, against ViTBackbone.run_blocks in that
+                     process: outputs and every state tensor equal
+                     (torch.equal), launches by wrapper too (ln_norms once
+                     a step, kernels A, B and C once a block and step, the
+                     global window_attention on the flush).
+  40. tp_paths:      in the same rank, ViViT-B K400 with dense blocks (3 x 4
+                     views of 32 frames at 224, float32) on
+                     best_dp_tp_mesh(max_tp=2), 1 x 1 at world size 1:
+                     apply_views against the model unsharded, equal and
+                     launching rows 5 and 6; two make_sharded_train_step
+                     steps (SGD, momentum 0.9) against two plain autograd
+                     steps from the same generators, losses and parameters
+                     equal, no kernel launched; ms a step and the peak of
+                     allocated memory.
+  41. dryrun:        in the same rank, dryrun_multichip at the world size:
+                     the dp x tp train step, the pipelined eventful stack,
+                     Ulysses and DP ViTDet evaluation at tiny shapes.
 The times are a record, not a claim.
 
 Phases 25-27 run last, after 28-37, and read their runs too (the
@@ -4293,6 +4328,10 @@ PARALLEL_CASES = [
      ("ln_norms", "gate_group_mlp"), dict(window=(4, 6), pool=(1, N_TOKENS))),
     ("parallel_vivit_temporal", EV_SPATIAL_VIEWS * EV_TEMPORAL_VIEWS, STEPS + 1, STEPS + 1,
      DENSE_KERNELS, dict(window=(4, 6))),
+    # the TP path's dense ViViT-B, 3 x 4 views of 197 tokens (its temporal
+    # model runs the same kernels at 17)
+    ("tp_vivit", EV_SPATIAL_VIEWS * EV_TEMPORAL_VIEWS, N_TOKENS, N_TOKENS, DENSE_KERNELS,
+     dict(window=(4, 6))),
 ]
 # each path's kernels, with the tag of their check
 PARALLEL_ROWS = {
@@ -4462,8 +4501,8 @@ def parallel_rank(out, frames=PARALLEL_FRAMES, items=1):
     """The rank of the parallel paths, under torchrun: paths (a), (b) and
     (c) on the process group of torchrun's environment (NCCL on the card),
     (a) over one video of ``frames`` frames, (b) and (c) over ``items``
-    videos or clips; the first rank writes their results, compared, to
-    ``out`` as JSON."""
+    videos or clips, then pipeline, tp and dryrun; the first rank writes
+    their results, compared, to ``out`` as JSON."""
     import tempfile
 
     import torch.distributed as dist
@@ -4508,6 +4547,13 @@ def parallel_rank(out, frames=PARALLEL_FRAMES, items=1):
                     same_as_plain=parallel_same(path, runs),
                 )
             torch.cuda.empty_cache()
+        for path, run in (("pipeline", pipeline_path), ("tp", tp_path), ("dryrun", dryrun_path)):
+            start = time.perf_counter()
+            mine = run(size)
+            path_s[path] = time.perf_counter() - start
+            if rank == 0:
+                result[path] = mine
+            torch.cuda.empty_cache()
     if rank == 0:
         result["path_s"] = path_s
         Path(out).write_text(json.dumps(result, default=float))
@@ -4539,12 +4585,14 @@ def run_parallel_rank(tmp):
     return json.loads(out.read_text()), time.perf_counter() - start
 
 
-def parallel_paths(device, smi):
-    """Phases parallel_kernels (each kernel of paths (a)-(c) at their shapes,
-    as in 3) and parallel_paths (the three paths in one rank under torchrun,
-    NCCL at world size 1: each run's metrics, counts and launches by wrapper
-    equal to those of its run without the parallel option; on (a)
-    dense_mlp_residual 12 times a frame). Returns the final line's rows."""
+def parallel_paths(device, smi, vivit_rows):
+    """Phases parallel_kernels (each kernel of paths (a)-(c) and tp at their
+    shapes, as in 3), parallel_paths (the three evaluation paths in one rank
+    under torchrun, NCCL at world size 1: each run's metrics, counts and
+    launches by wrapper equal to those of its run without the parallel
+    option; on (a) dense_mlp_residual 12 times a frame), and from the same
+    rank pipeline_path, tp_paths and dryrun (``training_parallel_paths``;
+    ``vivit_rows``: phase 3's checks). Returns the final line's rows."""
     import tempfile
 
     rows = check_kernels("parallel_kernels", device, PARALLEL_CASES, dtypes=(torch.float32,))
@@ -4575,10 +4623,372 @@ def parallel_paths(device, smi):
                              f"backend is {result['backend']}: {paths}")
     out = [kernel_row(name, rows[(name, torch.float32, tag)], result[path]["launches"], path)
            for path, names in PARALLEL_ROWS.items() for name, tag in names]
+    out += training_parallel_paths(result, smi, vivit_rows, rows)
     idle = [(row["path"], row["name"]) for row in out if not row["launches"]]
     if idle:
         raise AssertionError(f"parallel paths launched no {idle}")
     return out
+
+
+# -- Training and pipeline parallelism, the dry run (parallel/{sharding,train,
+# pipeline,dryrun}.py) and the detector's losses (detection/training.py) ------
+#
+# Three more paths of parallel_rank, on the same process group: pipeline (the
+# ViViT-B K400 spatial stack of the slice phase, 12 EventfulTokenwiseBlocks,
+# k = 98, "v4", bf16, over one clip's 16 tubelet steps of the bench's 2 x 4
+# views, through make_pipelined_backbone over every rank, P = the world
+# size), against the backbone's block loop (ViTBackbone.run_blocks) in that
+# process: outputs and every state tensor equal (torch.equal), the launches
+# by wrapper too (at P > 1 each stage's first block computes its own
+# qkv-gate norms, so ln_norms runs P times a step where the loop hands the
+# norms on); tp (ViViT-B K400 with dense blocks, 3 x 4 views of 32 frames at
+# 224, float32, on best_dp_tp_mesh(max_tp=TP_MAX): 1 x 1 on one card, 2 x 2
+# on four) against the same model unsharded in that process: apply_views on
+# this rank's data shard, then TRAIN_STEPS steps of make_sharded_train_step
+# on dp clips against TRAIN_STEPS plain autograd steps over the same data
+# shards, each drawn from its data rank's generator: equal at world size 1,
+# within TP_RTOL beyond; and dryrun (dryrun_multichip at the world size).
+# On four cards by hand, as above:
+#
+#     torchrun --standalone --nproc_per_node=4 chip_smoke.py --parallel-rank out.json
+#
+# runs TP at 2 x 2, the pipeline at P = 4 (3 blocks a stage) and
+# dryrun_multichip(4) with the evaluation paths.
+TP_MAX = 2
+TRAIN_STEPS = 2
+TRAIN_SEED = 1
+# SGD with momentum: its step is linear in the gradient, so beyond world
+# size 1 the parameters stay as close as the gradients (AdamW turns a
+# float32-noise gradient element into a step of up to lr; the CPU tests hold
+# it against optax's, tests/test_torch_tensor_parallel.py)
+TRAIN_OPTIMIZER = {"optimizer": "SGD", "optimizer_kwargs": {"lr": 1e-2, "momentum": 0.9}}
+# beyond world size 1 the TP sums (and the data all-reduce) run in other orders
+TP_RTOL = 1e-4
+PIPELINE_KERNELS = ("ln_norms", "qkv_attention_group", "proj_group", "gate_group_mlp",
+                    "window_attention")
+# each training path's kernels, with the tag of their check: the pipeline's
+# at the slice phase's shapes (phase 3, bf16), the TP model's at 12 x 197
+# (float32, in parallel_kernels)
+TRAINING_ROWS = {
+    "pipeline": [(name, "vivit") for name in PIPELINE_KERNELS],
+    "tp": [(name, "tp_vivit") for name in DENSE_KERNELS],
+}
+
+
+def rank_device():
+    """The card of this rank."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def tp_config():
+    """ViViT-B K400 (configs/models/vivit_b_kinetics400.yml) with dense
+    blocks: 3 x 4 views."""
+    return dict(vivit_config(False), spatial_views=EV_SPATIAL_VIEWS,
+                temporal_views=EV_TEMPORAL_VIEWS)
+
+
+def generated_views(config, clips, seed=SEED):
+    """``clips`` clips of the config's views, standard normal."""
+    views = config["spatial_views"] * config["temporal_views"]
+    shape = (clips, views, *config["input_shape"])
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape)
+                            .astype(np.float32))
+
+
+def equal_states(a, b):
+    """Whether two block states hold equal tensors (and other leaves)."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            equal_states(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    return a == b
+
+
+def pipeline_path(size):
+    """Path pipeline: (its result on the first rank, None on the others)."""
+    import torch.distributed as dist
+
+    from eventful_transformer_tpu_torch.core.counting import Ctx
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.parallel.mesh import make_mesh
+    from eventful_transformer_tpu_torch.parallel.pipeline import make_pipelined_backbone
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    device = rank_device()
+    config = vivit_config(True)
+    model = FactorizedViViT(**config, device=device, seed=SEED).to(torch.bfloat16)
+    set_policies(model, TokenNormTopK, k=K)
+    backbone = model.spatial_model.backbone
+    views = generated_views(config, CLIPS).to(device, torch.bfloat16)
+    with torch.no_grad():
+        x = model.embedding(Ctx(), views.flatten(0, 1))
+        cls = model.spatial_model.class_token.to(x.dtype).expand(x.shape[0], 1, x.shape[-1])
+        encoding = backbone.precompute()["position_encoding"]
+        frames = torch.stack([backbone.position_encoding(Ctx(), torch.cat([cls, x[:, t]], 1),
+                                                         encoding)
+                              for t in range(x.shape[1])])
+    run = make_pipelined_backbone(backbone, make_mesh((-1,), ("pipe",), "cuda"))
+    batch = frames.shape[1]
+    dist.barrier()
+    (out, state), launches, seconds = counted(
+        run, backbone.init_state(batch, torch.bfloat16, device), frames)
+    every = [None] * size if dist.get_rank() == 0 else None
+    dist.gather_object(launches, every, dst=0)
+    if dist.get_rank() != 0:
+        return None
+
+    def loop():
+        states = backbone.init_state(batch, torch.bfloat16, device)["blocks"]
+        aux = backbone.precompute()["blocks"]
+        ys = []
+        with torch.no_grad():
+            for t in range(frames.shape[0]):
+                mode = "flush" if t == 0 else "incremental"
+                y, states = backbone.run_blocks(Ctx(), states, frames[t], mode, aux)
+                ys.append(y)
+        return torch.stack(ys), states
+
+    (want, want_states), plain_launches, plain_s = counted(loop)
+    summed = {name: sum(r[name] for r in every) for name in launches}
+    expected = dict(plain_launches, ln_norms=size * plain_launches["ln_norms"])
+    same = (torch.equal(out, want)
+            and all(equal_states(a, b) for a, b in zip(state["blocks"], want_states))
+            and summed == expected)
+    return dict(stages=size, frames=list(frames.shape), same_as_plain=same,
+                launches=summed, plain_launches=plain_launches, seconds=seconds,
+                plain_s=plain_s)
+
+
+def tp_path(size):
+    """Path tp: (its result on the first rank, None on the others)."""
+    import torch.distributed as dist
+
+    from eventful_transformer_tpu_torch.core.counting import Ctx
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.parallel.mesh import best_dp_tp_mesh
+    from eventful_transformer_tpu_torch.parallel.sharding import gathered_params, shard_params
+    from eventful_transformer_tpu_torch.parallel.train import (
+        cross_entropy_from_probs,
+        data_generator,
+        make_sharded_train_step,
+    )
+    from eventful_transformer_tpu_torch.utils.train import make_optimizer
+
+    device = rank_device()
+    mesh = best_dp_tp_mesh(max_tp=TP_MAX, device="cuda")
+    data, model_group = mesh.get_group("data"), mesh.get_group("model")
+    dp, tp = dist.get_world_size(data), dist.get_world_size(model_group)
+    data_rank = dist.get_rank(data)
+    first = dist.get_rank() == 0
+    config = tp_config()
+    views = generated_views(config, dp)
+    labels = torch.from_numpy(np.random.default_rng(SEED + 1).integers(0, config["classes"], dp))
+    mine = views[data_rank : data_rank + 1].to(device)
+
+    def close(a, b):
+        if size == 1:
+            return torch.equal(a, b)
+        return torch.allclose(a, b, rtol=TP_RTOL, atol=TP_RTOL * float(b.abs().max()))
+
+    sharded = FactorizedViViT(**config, device=device, seed=SEED)
+    shard_params(mesh, sharded)
+    dist.barrier()
+    probs, launches, seconds = counted(run_model, sharded, mine)
+    plain = FactorizedViViT(**config, device=device, seed=SEED)
+    plain_probs, plain_launches, plain_s = counted(run_model, plain, mine)
+    inference = dict(same_as_plain=close(probs[0], plain_probs[0]), launches=launches,
+                     plain_launches=plain_launches, seconds=seconds, plain_s=plain_s)
+
+    init_fn, make_step = make_sharded_train_step(sharded, TRAIN_OPTIMIZER, mesh)
+    step = make_step(*init_fn())
+    batch = {"inputs": views, "labels": labels}
+    torch.cuda.reset_peak_memory_stats(device)
+    dist.barrier()
+    losses, step_ms = [], []
+    reset_launches()
+    for i in range(TRAIN_STEPS):
+        start = time.perf_counter()
+        losses.append(float(step(batch, TRAIN_SEED + i)))
+        torch.cuda.synchronize()
+        step_ms.append(1000 * (time.perf_counter() - start))
+    train_launches = {k: v for k, v in read_launches().items() if v}
+    peak = torch.cuda.max_memory_allocated(device)
+    params = gathered_params(mesh, sharded)
+    del sharded, step
+    torch.cuda.empty_cache()
+    if not first:
+        dist.barrier()
+        return None
+    for p in plain.parameters():
+        p.requires_grad_(True)
+    optimizer = make_optimizer(TRAIN_OPTIMIZER, plain, list(plain.parameters()))
+    plain_losses, plain_ms = [], []
+    for i in range(TRAIN_STEPS):
+        start = time.perf_counter()
+        optimizer.zero_grad(set_to_none=True)
+        total = 0.0
+        for d in range(dp):
+            ctx = Ctx(training=True, generator=data_generator(TRAIN_SEED + i, d, device))
+            loss = cross_entropy_from_probs(plain.apply_views(ctx, views[d : d + 1].to(device)),
+                                            labels[d : d + 1].to(device))
+            (loss / dp).backward()
+            total += float(loss.detach()) / dp
+        optimizer.step()
+        torch.cuda.synchronize()
+        plain_ms.append(1000 * (time.perf_counter() - start))
+        plain_losses.append(total)
+    same_params = all(close(params[name], p.detach()) for name, p in plain.named_parameters())
+    same_losses = (losses == plain_losses if size == 1
+                   else np.allclose(losses, plain_losses, rtol=TP_RTOL, atol=0))
+    del plain, optimizer
+    torch.cuda.empty_cache()
+    dist.barrier()
+    training = dict(same_as_plain=same_losses and same_params, losses=losses,
+                    plain_losses=plain_losses, step_ms=step_ms, plain_step_ms=plain_ms,
+                    max_memory_allocated=peak, launches=train_launches, clips=dp,
+                    views=int(views.shape[1]), frames=int(views.shape[2]))
+    return dict(dp=dp, tp=tp, inference=inference, training=training)
+
+
+def dryrun_path(size):
+    """Path dryrun: dryrun_multichip over the world, timed."""
+    from eventful_transformer_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    start = time.perf_counter()
+    result = dryrun_multichip(size)
+    return dict(result, seconds=time.perf_counter() - start)
+
+
+def training_parallel_paths(result, smi, vivit_rows, rows):
+    """Phases pipeline_path, tp_paths and dryrun from the rank's results:
+    each checked; returns their final line's rows."""
+    failures = []
+    pipeline = result["pipeline"]
+    want = dict(expected_launches(True), window_attention=DEPTH, dense_mlp_residual=0)
+    want = {k: v for k, v in want.items() if v}
+    launched = {k: v for k, v in pipeline["plain_launches"].items() if v}
+    emit("pipeline_path", card=smi, path_s=result["path_s"]["pipeline"], **pipeline)
+    if not pipeline["same_as_plain"] or launched != want:
+        failures.append(("pipeline", launched, want))
+    tp = result["tp"]
+    emit("tp_paths", card=smi, path_s=result["path_s"]["tp"], **tp)
+    # at tp > 1 the MLP runs plain (dense_mlp_residual would add its bias
+    # and residual on every rank)
+    inference_want = {name: DEPTH * STEPS + TEMPORAL_DEPTH for name in DENSE_KERNELS
+                      if tp["tp"] == 1 or name == "window_attention"}
+    launched = {k: v for k, v in tp["inference"]["launches"].items() if v}
+    if (not tp["inference"]["same_as_plain"] or not tp["training"]["same_as_plain"]
+            or tp["training"]["launches"] or launched != inference_want
+            or not all(np.isfinite(v) for v in tp["training"]["losses"])):
+        failures.append(("tp", tp))
+    dry = result["dryrun"]
+    emit("dryrun", card=smi, path_s=result["path_s"]["dryrun"], **dry)
+    if not (np.isfinite(dry["loss"]) and np.isfinite(dry["map"])):
+        failures.append(("dryrun", dry))
+    if failures:
+        raise AssertionError(f"training parallel paths failed: {failures}")
+    out = [kernel_row(name, vivit_rows[(name, torch.bfloat16, tag)],
+                      pipeline["plain_launches"], "pipeline")
+           for name, tag in TRAINING_ROWS["pipeline"]]
+    out += [kernel_row(name, rows[(name, torch.float32, tag)], tp["inference"]["launches"], "tp")
+            for name, tag in TRAINING_ROWS["tp"]]
+    return out
+
+
+DET_LOSS_RTOL = 1e-5
+DET_GT, DET_GT_VALID = 8, 5
+
+
+def detection_losses(device, smi):
+    """Phase detection_losses: ViTDet-B VID at 672 (vitdet_b_vid.yml's
+    standard heads; the dense backbone of base_672), float32, one generated
+    frame on the card: the RPN head's logits and deltas over every anchor,
+    propose(training=True) (the training pair's 2000 and 1000), rpn_losses
+    against 5 generated gt boxes (padded to 8), sample_proposals on the
+    proposals and the gt, the box head on the sampled proposals and
+    fast_rcnn_losses on its scores and the boxes it predicts for each
+    proposal's class; then the same losses on the CPU from the card's
+    head outputs, with the same uniforms: the samples equal, the losses and
+    their gradients (logits, deltas, class scores, predicted boxes) within
+    DET_LOSS_RTOL relative."""
+    from eventful_transformer_tpu_torch.core.counting import Ctx
+    from eventful_transformer_tpu_torch.detection import training
+    from eventful_transformer_tpu_torch.detection.boxes import apply_deltas
+    from eventful_transformer_tpu_torch.models import ViTDet
+
+    model = ViTDet(**vitdet_config(False, E2E_SIZE), device=device, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    frame = torch.from_numpy(rng.uniform(0, 1, (1, 3, E2E_SIZE, E2E_SIZE)).astype(np.float32))
+    start = time.perf_counter()
+    rpn, roi = model.proposal_generator, model.roi_heads
+    image_size = (E2E_SIZE, E2E_SIZE)
+    with torch.no_grad():
+        tokens = model.pre_backbone(Ctx(), frame.to(device))
+        tokens, _ = model.apply_backbone(Ctx(), model.init_state(1, torch.float32, device), tokens)
+        h, w = model.backbone_input_size
+        features = model.pyramid(tokens.reshape(1, h, w, model.dim))
+        heads = [rpn.head(f) for f in features]
+        logits = torch.cat([lg[0] for lg, _ in heads])
+        deltas = torch.cat([d[0] for _, d in heads])
+        anchors = torch.cat(rpn.anchors([tuple(f.shape[1:3]) for f in features], device))
+        proposals, _, proposal_mask = rpn.propose(features, image_size, training=True)
+    xy = rng.uniform(0, E2E_SIZE - 200, (DET_GT, 2))
+    gt = np.concatenate([xy, xy + rng.uniform(40, 200, (DET_GT, 2))], -1).astype(np.float32)
+    gt_mask = np.arange(DET_GT) < DET_GT_VALID
+    gt_classes = rng.integers(0, 30, DET_GT).astype(np.int32)
+    draws = torch.Generator().manual_seed(SEED)
+    n_prop = proposals.shape[0] + DET_GT
+    u_rpn = tuple(torch.rand(anchors.shape[0], generator=draws) for _ in range(2))
+    u_roi = tuple(torch.rand(n_prop, generator=draws) for _ in range(2))
+
+    def losses(on, head=None):
+        """The four losses on ``on``; the head outputs the card's (made on
+        the card where ``head`` is None). Returns (losses, samples, leaves)."""
+        gt_t, mask_t = torch.from_numpy(gt).to(on), torch.from_numpy(gt_mask).to(on)
+        lg = logits.detach().to(on).requires_grad_()
+        dl = deltas.detach().to(on).requires_grad_()
+        out = training.rpn_losses(u_rpn, anchors.to(on), lg, dl, gt_t, mask_t)
+        samples = training.sample_proposals(
+            u_roi, proposals.to(on), proposal_mask.to(on), gt_t,
+            torch.from_numpy(gt_classes).to(on), mask_t, num_classes=30)
+        boxes, classes, sampled, matched = samples
+        if head is None:
+            with torch.no_grad():
+                scores, box_deltas = roi.predict(roi.box_head(roi._pool(features[:4], boxes)))
+                per_class = box_deltas.reshape(-1, 30, 4)
+                pick = classes.long().clamp(max=29)
+                pred = apply_deltas(per_class[torch.arange(len(pick), device=on), pick], boxes,
+                                    weights=roi.box_weights)
+            head = (scores, pred)
+        sc = head[0].detach().to(on).requires_grad_()
+        pb = head[1].detach().to(on).requires_grad_()
+        out.update(training.fast_rcnn_losses(sc, pb, classes, sampled, matched, 30))
+        sum(out.values()).backward()
+        leaves = dict(logits=lg, deltas=dl, scores=sc, pred_boxes=pb)
+        return ({k: float(v.detach()) for k, v in out.items()}, [t.cpu() for t in samples],
+                {k: (v.grad.cpu(), v.detach().cpu()) for k, v in leaves.items()}, head)
+
+    card, card_samples, card_grads, head = losses(device)
+    cpu, cpu_samples, cpu_grads, _ = losses(torch.device("cpu"), head)
+    loss_err = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30) for k in cpu}
+    grad_err = {k: float((card_grads[k][0] - cpu_grads[k][0]).abs().max()
+                         / cpu_grads[k][0].abs().max()) for k in cpu_grads}
+    same_samples = all(torch.equal(a, b) for a, b in zip(card_samples, cpu_samples))
+    valid = int(proposal_mask.sum())
+    emit("detection_losses", card=smi, path_s=time.perf_counter() - start,
+         anchors=int(anchors.shape[0]), proposals=int(proposals.shape[0]),
+         valid_proposals=valid, sampled_rois=int(card_samples[2].sum()),
+         foreground_rois=int((card_samples[2] & (card_samples[1] < 30)).sum()),
+         losses_card=card, losses_cpu=cpu, loss_rel_err=loss_err, grad_rel_err=grad_err,
+         same_samples=same_samples)
+    bad = [k for k, v in {**loss_err, **grad_err}.items() if not v <= DET_LOSS_RTOL]
+    if bad or not same_samples or not all(np.isfinite(v) for v in card.values()):
+        raise AssertionError(f"detection losses: card against CPU beyond {DET_LOSS_RTOL}: {bad}, "
+                             f"samples equal {same_samples}")
+    del model, features
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -4613,7 +5023,8 @@ def main():
     kernels += serving_paths(device, smi, ev_checks)
     kernels += coco_path(device, smi)
     kernels += train_path(device, smi)
-    kernels += parallel_paths(device, smi)
+    detection_losses(device, smi)
+    kernels += parallel_paths(device, smi, kernel_rows)
     phase_attention_bodies()
     phase_row_bodies()
     cores = phase_gemm_cores()

@@ -11,6 +11,8 @@ qkv-gate norms where the JAX package's ``_next_gate_info`` rule allows it
 (``share_gate_passes`` not False on either block), so only the first block
 of such a chain computes its own. A block with ATS hands on fewer tokens
 than it takes, so each block's state is sized at its own input count.
+:meth:`ViTBackbone.run_blocks` runs a contiguous range of the stack, the
+handoff inside it (``parallel/pipeline.py``'s stages).
 """
 
 from __future__ import annotations
@@ -66,6 +68,24 @@ class ViTBackbone(nn.Module):
     def n_tokens(self):
         return prod(self.input_size) + int(self.has_class_token)
 
+    @property
+    def homogeneous(self):
+        """Whether every block is interchangeable: one class and the same
+        plain settings (its public attributes of plain types), and no ATS
+        (which shrinks the tokens block by block); JAX
+        ``ViTBackbone.homogeneous``."""
+        plain = (int, float, str, tuple, bool, type(None))
+
+        def settings(block):
+            return {k: v for k, v in vars(block).items()
+                    if not k.startswith("_") and isinstance(v, plain)}
+
+        first = self.blocks[0]
+        if first.ats_fraction is not None:
+            return False
+        return all(type(b) is type(first) and settings(b) == settings(first)
+                   for b in self.blocks[1:])
+
     def init_state(self, batch, dtype, device):
         states = []
         n = self.n_tokens
@@ -88,18 +108,28 @@ class ViTBackbone(nn.Module):
         if aux is None:
             aux = self.precompute()
         x = self.position_encoding(ctx, x, aux["position_encoding"])
+        x, states = self.run_blocks(ctx, state["blocks"], x, mode, aux["blocks"])
+        return x, {"blocks": states}
+
+    def run_blocks(self, ctx, states, x, mode, aux, start=0, stop=None):
+        """Blocks ``start`` ... ``stop`` - 1 on x (position encoding applied
+        before), ``states`` and ``aux`` (lists over every block) -> (y,
+        their new states). The qkv-gate norms pass from block to block
+        inside the range; its first block computes its own, and its last
+        hands none on."""
+        stop = len(self.blocks) if stop is None else stop
         new_states = []
         norms = None
-        for i, block in enumerate(self.blocks):
+        for i in range(start, stop):
+            block = self.blocks[i]
             give = None
-            if mode == "incremental" and i + 1 < len(self.blocks):
-                give = _next_gate(block, self.blocks[i + 1], x, state["blocks"][i + 1])
+            if mode == "incremental" and i + 1 < stop:
+                give = _next_gate(block, self.blocks[i + 1], x, states[i + 1])
             x, s, norms = block(
-                ctx, state["blocks"][i], x, mode=mode, qkv_norms=norms, next_gate=give,
-                aux=aux["blocks"][i],
+                ctx, states[i], x, mode=mode, qkv_norms=norms, next_gate=give, aux=aux[i],
             )
             new_states.append(s)
-        return x, {"blocks": new_states}
+        return x, new_states
 
 
 def _next_gate(block, nxt, x, next_state):

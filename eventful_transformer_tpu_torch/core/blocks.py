@@ -106,6 +106,18 @@ heads/P heads by the route the single-process block takes at that N (the
 global ``window_attention`` kernel at N <= 512, else plain PyTorch); the
 MLP runs ``dense_mlp_residual`` over the shard's rows. Each process counts
 its own shard's work.
+
+Tensor parallelism (``tp_group``, the dense ``Block`` only, set by
+``parallel/sharding.py::shard_params`` at tp > 1): the block holds its
+rank's heads and hidden units, and its forward is Megatron's, LN ->
+``to_model_parallel`` -> the column linear (qkv: the packed qkv of H/tp
+heads, attended by the route the single-process block takes, the global
+``window_attention`` kernel at N <= 512 outside training) -> the row
+linear without its bias -> ``from_model_parallel`` (the all-reduce) -> the
+bias, once -> drop-path and the residual, for the attention and for the
+MLP (LN, mlp_1, GELU, mlp_2: plain PyTorch, since ``dense_mlp_residual``
+adds its bias and residual on every rank). At tp = 1 nothing is set, and
+the block runs as above, row 5 in serving included.
 """
 
 from __future__ import annotations
@@ -294,6 +306,8 @@ class Block(nn.Module):
                 attention_size, relative_embedding_size, dim // heads, pool_size=self.pool_size
             )
         self._window_perm_cache = None
+        # the "model" process group of tensor parallelism (parallel/sharding.py)
+        self.tp_group = None
 
     def n_select(self, n_tokens):
         """The tokens ATS keeps of ``n_tokens``, the class token included."""
@@ -334,6 +348,8 @@ class Block(nn.Module):
         arguments only mean something to eventful blocks. ``aux``: this
         block's :meth:`precompute`, computed here when not given."""
         del mode, qkv_norms, next_gate
+        if self.tp_group is not None:
+            return self._forward_tensor_parallel(ctx, state, x, aux)
         skip_1 = x
         x = layer_norm(x, self.input_layer_norm)
         x = self.qkv(ctx, x)
@@ -361,6 +377,29 @@ class Block(nn.Module):
 
     def _mlp(self, ctx, x):
         return self.mlp_2(ctx, gelu(self.mlp_1(ctx, x)))
+
+    def _forward_tensor_parallel(self, ctx, state, x, aux):
+        """Megatron's forward over this rank's heads and hidden units (the
+        module's docstring); each rank counts its own share."""
+        from eventful_transformer_tpu_torch.parallel.sharding import to_model_parallel
+
+        skip_1 = x
+        x = to_model_parallel(layer_norm(x, self.input_layer_norm), self.tp_group)
+        x, _, state = self._forward_attention(ctx, self.qkv(ctx, x), aux, state=state)
+        x = counted_add(ctx, self.drop_path(ctx, self._row_parallel(ctx, self.projection, x)),
+                        skip_1)
+        h = to_model_parallel(layer_norm(x, self.mlp_layer_norm), self.tp_group)
+        h = self._row_parallel(ctx, self.mlp_2, gelu(self.mlp_1(ctx, h)))
+        return counted_add(ctx, self.drop_path(ctx, h), x), state, None
+
+    def _row_parallel(self, ctx, linear, x):
+        """A row-parallel linear: this rank's partial product, summed over
+        the group, then the replicated bias, added once."""
+        from eventful_transformer_tpu_torch.parallel.sharding import from_model_parallel
+
+        y = from_model_parallel(torch.matmul(x, linear.kernel.to(x.dtype)), self.tp_group)
+        ctx.add("linear_flops", float(x.numel() * linear.out_features))
+        return linear.apply_bias(ctx, y)
 
     # -- attention -------------------------------------------------------------
 

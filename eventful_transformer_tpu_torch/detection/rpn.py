@@ -3,7 +3,15 @@
 StandardRPNHead as configured for ViTDet). Static shapes: a per-level top-k,
 then one batched (per-level) NMS with a fixed output capacity
 (``post_nms_topk``) and a validity mask. Batch 1. The training side
-(anchor matching, sampling, losses) is not ported (ROADMAP.md)."""
+(anchor matching, sampling, losses) is ``detection/training.py``;
+``propose(training=True)`` takes the train-time top-k pair.
+
+A frame with fewer candidates than ``post_nms_topk`` (the training pair
+keeps 1000, of as few as sum(min(pre_nms_topk, anchors of a level))):
+``nms_padded`` returns one index a candidate, as the JAX function does,
+beside ``post_nms_topk`` mask slots, and ``propose`` fills the slots past
+them with the first kept box, masked, as the NMS's blocked loop fills its
+unfilled slots. The JAX ``propose`` fails there."""
 
 from __future__ import annotations
 
@@ -71,13 +79,14 @@ class RPN(nn.Module):
         b = feature.shape[0]
         return self.objectness(x).reshape(b, -1), self.deltas(x).reshape(b, -1, 4)
 
-    def propose(self, features, image_size):
+    def propose(self, features, image_size, training=False):
         """features: a list of (1, H_l, W_l, C). Returns (boxes (P, 4),
-        scores (P,) with -inf at masked slots, mask (P,)), P = the
-        test-time post_nms_topk."""
+        scores (P,) with -inf at masked slots, mask (P,)), P the
+        post_nms_topk of the (train, test) pair that ``training`` picks."""
         if features[0].shape[0] != 1:
             raise ValueError(f"RPN.propose takes batch 1, got {features[0].shape[0]}")
-        pre_nms_topk, post_nms_topk = self.pre_nms_topk[1], self.post_nms_topk[1]
+        which = 0 if training else 1
+        pre_nms_topk, post_nms_topk = self.pre_nms_topk[which], self.post_nms_topk[which]
         anchors = self.anchors([tuple(f.shape[1:3]) for f in features], features[0].device)
         all_boxes, all_scores, all_levels = [], [], []
         for level, (feature, level_anchors) in enumerate(zip(features, anchors)):
@@ -96,4 +105,6 @@ class RPN(nn.Module):
         keep_idx, mask = batched_nms(boxes, scores, torch.cat(all_levels), self.nms_thresh,
                                      post_nms_topk)
         keep_idx = keep_idx.long()
+        if keep_idx.shape[0] < post_nms_topk:
+            keep_idx = torch.cat([keep_idx, keep_idx[:1].expand(post_nms_topk - len(keep_idx))])
         return boxes[keep_idx], torch.where(mask, scores[keep_idx], -float("inf")), mask

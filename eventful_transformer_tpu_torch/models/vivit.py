@@ -17,11 +17,15 @@ time, each with its own state, instead of on the batch axis.
 
 The temporal fine-tune (``utils/train.py``) trains the temporal model and
 the classifier through ``_forward_temporal`` with ``Ctx(training=True)``;
-``apply`` and ``apply_views`` serve under ``torch.no_grad()``.
+the full-model step (``parallel/train.py``) differentiates ``apply_views``
+under ``Ctx(training=True)``, which then runs in the caller's grad mode.
+``apply``, and ``apply_views`` outside training, serve under
+``torch.no_grad()``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from math import prod, sqrt
 
 import torch
@@ -210,17 +214,18 @@ class FactorizedViViT(nn.Module):
         views = self.preprocessing(video.to(kernel.device))
         return self.apply_views(ctx, torch.stack(views, dim=1).to(kernel.dtype))
 
-    @torch.no_grad()
     def apply_views(self, ctx, views):
         """views (batch, n_views, t, c, h, w) -> class probabilities, or
         with ``spatial_only`` the spatial features (batch * n_views, t,
-        dim). Inference only: the kernels update the eventful state in
-        place and have no backward."""
-        batch = views.shape[0]
-        x = self._forward_spatial(ctx, views)
-        if self.spatial_only:
-            return x
-        return self._forward_temporal(ctx, x, batch)
+        dim). Under ``ctx.training`` in the caller's grad mode, every block
+        on its plain path; otherwise under ``torch.no_grad()`` (the kernels
+        update the eventful state in place and have no backward)."""
+        with contextlib.nullcontext() if ctx.training else torch.no_grad():
+            batch = views.shape[0]
+            x = self._forward_spatial(ctx, views)
+            if self.spatial_only:
+                return x
+            return self._forward_temporal(ctx, x, batch)
 
     def _forward_spatial(self, ctx, views):
         """(batch, n_views, ...) -> (batch * n_views, t, dim): the views on

@@ -12,12 +12,14 @@ local rank that torchrun puts in its environment (``RANK``, ``WORLD_SIZE``,
 group has one rank. The backend follows the device: NCCL for ``cuda``
 (after ``torch.cuda.set_device(LOCAL_RANK)``), gloo for ``cpu``; a failed
 NCCL initialisation is an error, never a fall back to gloo. ``make_mesh``
-lays the processes out on named axes ("data", "seq"), as the JAX mesh names
-its axes; ``mesh.get_group(axis)`` is an axis's process group.
-:func:`spawn` starts ranks on one host for the tests.
-
-``best_dp_tp_mesh`` and ``initialize_distributed`` (tensor parallelism and
-multi-host JAX) are not ported yet.
+lays the processes out on named axes ("data", "seq", "model", "pipe"), as
+the JAX mesh names its axes; ``mesh.get_group(axis)`` is an axis's process
+group. ``best_dp_tp_mesh`` picks the ("data", "model") shape of a
+data-parallel x tensor-parallel run; ``prefix_mesh`` puts one axis over the
+first ranks only (the dry run's pipeline and evaluation over fewer ranks
+than the world has). ``initialize_distributed`` joins a group across hosts
+(the JAX ``jax.distributed.initialize``). :func:`spawn` starts ranks on one
+host for the tests.
 """
 
 from __future__ import annotations
@@ -46,13 +48,8 @@ def init_process_group(device="cuda"):
     where it already existed."""
     if dist.is_initialized():
         return False
-    device = torch.device(device)
     rank = int(os.environ.get("RANK", 0))
     world_size = int(os.environ.get("WORLD_SIZE", 1))
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run the ranks on gloo")
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
     if os.environ.get(INIT_METHOD_ENV):
         where = dict(init_method=os.environ[INIT_METHOD_ENV])
     elif "MASTER_ADDR" in os.environ:
@@ -61,9 +58,20 @@ def init_process_group(device="cuda"):
         where = dict(store=dist.HashStore())
     else:
         raise RuntimeError(f"WORLD_SIZE={world_size} without MASTER_ADDR: launch with torchrun")
+    _join(device, rank, world_size, **where)
+    return True
+
+
+def _join(device, rank, world_size, **where):
+    """The default group on ``device``'s backend: NCCL on the card (the GPU
+    of ``LOCAL_RANK``), gloo on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run the ranks on gloo")
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
     backend = "nccl" if device.type == "cuda" else "gloo"
     dist.init_process_group(backend, rank=rank, world_size=world_size, **where)
-    return True
 
 
 def destroy():
@@ -102,6 +110,71 @@ def make_mesh(shape=None, axis_names=("data",), device="cuda"):
         raise ValueError(f"mesh shape {shape} with axes {axis_names} does not fit {n} processes")
     return init_device_mesh(torch.device(device).type, tuple(shape),
                             mesh_dim_names=tuple(axis_names))
+
+
+def dp_tp_shape(n, max_tp=4):
+    """(dp, tp) of ``n`` processes: tp the largest divisor of ``n`` at most
+    ``max_tp`` (JAX ``best_dp_tp_mesh``: the model axis carries the heavier
+    traffic, so it is the inner one)."""
+    tp = next(t for t in range(min(max_tp, n), 0, -1) if n % t == 0)
+    return n // tp, tp
+
+
+def best_dp_tp_mesh(n_devices=None, max_tp=4, device="cuda"):
+    """A ("data", "model") mesh over every process (made here where there
+    is no group), of :func:`dp_tp_shape`; "model" is the inner axis, so a
+    tensor-parallel group holds consecutive ranks (on one host, the GPUs
+    NVLink joins). ``n_devices``, where given, must be the world size: a
+    mesh over fewer processes than the group has is :func:`prefix_mesh`'s."""
+    init_process_group(device)
+    n = dist.get_world_size()
+    if n_devices is not None and n_devices != n:
+        raise ValueError(f"best_dp_tp_mesh over {n_devices} devices in a group of {n} processes")
+    return make_mesh(dp_tp_shape(n, max_tp), ("data", "model"), device)
+
+
+class PrefixMesh:
+    """One named axis over the first ``size`` ranks of the default group;
+    ``get_group(axis)`` as a ``DeviceMesh`` has it."""
+
+    def __init__(self, axis, group):
+        self.axis, self.group = axis, group
+
+    def get_group(self, axis):
+        if axis != self.axis:
+            raise KeyError(f"the mesh has the axis {self.axis!r}, not {axis!r}")
+        return self.group
+
+
+def prefix_mesh(size, axis, device="cuda"):
+    """The axis ``axis`` over ranks 0 ... size - 1 of the default group
+    (made here where there is none): a :func:`make_mesh` of every process
+    where ``size`` is the world size, else a :class:`PrefixMesh` on the
+    ranks inside it and None on the others. Every rank must call it."""
+    init_process_group(device)
+    n = dist.get_world_size()
+    if not 1 <= size <= n:
+        raise ValueError(f"a mesh of {size} processes in a group of {n}")
+    if size == n:
+        return make_mesh((n,), (axis,), device)
+    group = dist.new_group(list(range(size)))
+    return PrefixMesh(axis, group) if dist.get_rank() < size else None
+
+
+def initialize_distributed(coordinator_address, num_processes, process_id, device="cuda"):
+    """Join a default group of ``num_processes`` processes across hosts as
+    rank ``process_id``, through the ``tcp://`` rendezvous at
+    ``coordinator_address`` ("host:port", served by rank 0), on
+    ``device``'s backend (JAX ``initialize_distributed``), one process a
+    GPU, on the GPU of ``LOCAL_RANK`` (0 where unset). Returns True where
+    this call made the group, False where one existed."""
+    if dist.is_initialized():
+        return False
+    address = coordinator_address
+    if not address.startswith("tcp://"):
+        address = f"tcp://{address}"
+    _join(device, process_id, num_processes, init_method=address)
+    return True
 
 
 @contextlib.contextmanager

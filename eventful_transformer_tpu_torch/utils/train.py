@@ -54,12 +54,12 @@ def trained_parameters(model):
     return trained
 
 
-def make_optimizer(config, model):
+def make_optimizer(config, model, parameters=None):
     """The optimizer of ``config`` (``optimizer``: AdamW, Adam or SGD;
     ``optimizer_kwargs``: optax's names, ``lr`` (default 1e-4), ``b1``/``b2``
     (torch's ``betas``), ``eps``, ``weight_decay`` (AdamW), ``momentum`` and
     ``nesterov`` (SGD), optax's defaults where the config gives none) over
-    :func:`trained_parameters` of ``model``."""
+    ``parameters``, by default :func:`trained_parameters` of ``model``."""
     name = config.get("optimizer", "AdamW").lower()
     kwargs = dict(config.get("optimizer_kwargs", {}))
     lr = kwargs.pop("lr", 1e-4)
@@ -75,7 +75,9 @@ def make_optimizer(config, model):
         torch_kwargs = dict(betas=(options["b1"], options["b2"]), eps=options["eps"])
         if name == "adamw":
             torch_kwargs["weight_decay"] = options["weight_decay"]
-    return factory(trained_parameters(model), lr=lr, **torch_kwargs)
+    if parameters is None:
+        parameters = trained_parameters(model)
+    return factory(parameters, lr=lr, **torch_kwargs)
 
 
 def loss_fn(model, inputs, labels, ctx):

@@ -2244,3 +2244,74 @@ def test_mask_head_on_the_card_matches_the_cpu(device):
                                                       boxes.to(device), labels.to(device))
     assert float(want.std()) > 0.05
     assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+
+def _loss_boxes(g, n, size=(8.0, 40.0)):
+    corner = torch.rand((n, 2), generator=g) * 200
+    return torch.cat([corner, corner + size[0] + torch.rand((n, 2), generator=g) * size[1]], 1)
+
+
+def test_detection_losses_on_the_card_match_the_cpu(device):
+    """rpn_losses, sample_proposals and fast_rcnn_losses on the card and on
+    the CPU with the same uniforms: the samples equal, the losses and their
+    gradients within 1e-5 relative."""
+    from eventful_transformer_tpu_torch.detection import training
+
+    g = torch.Generator().manual_seed(11)
+    anchors, proposals = _loss_boxes(g, 2000), _loss_boxes(g, 300)
+    gt = torch.cat([proposals[:6] + 2.0, torch.zeros(2, 4)])
+    gt_mask = torch.arange(8) < 6
+    gt_classes = torch.randint(0, 30, (8,), generator=g, dtype=torch.int32)
+    logits, deltas = torch.randn(2000, generator=g), torch.randn(2000, 4, generator=g)
+    scores, boxes = torch.randn(308, 31, generator=g), _loss_boxes(g, 308)
+    u_rpn = (torch.rand(2000, generator=g), torch.rand(2000, generator=g))
+    u_roi = (torch.rand(308, generator=g), torch.rand(308, generator=g))
+
+    def run(on):
+        leaves = [t.to(on).requires_grad_() for t in (logits, deltas, scores, boxes)]
+        out = training.rpn_losses(u_rpn, anchors.to(on), leaves[0], leaves[1], gt.to(on),
+                                  gt_mask.to(on))
+        samples = training.sample_proposals(u_roi, proposals.to(on), torch.ones(300, dtype=bool,
+                                            device=on), gt.to(on), gt_classes.to(on),
+                                            gt_mask.to(on), num_classes=30)
+        out.update(training.fast_rcnn_losses(leaves[2], leaves[3], samples[1], samples[2],
+                                             samples[3], 30))
+        sum(out.values()).backward()
+        return ({k: float(v.detach()) for k, v in out.items()}, [s.cpu() for s in samples],
+                [t.grad.cpu() for t in leaves])
+
+    card, card_samples, card_grads = run(device)
+    cpu, cpu_samples, cpu_grads = run(torch.device("cpu"))
+    for a, b in zip(card_samples, cpu_samples):
+        assert torch.equal(a, b)
+    for key, value in cpu.items():
+        assert abs(card[key] - value) <= 1e-5 * abs(value), key
+    for a, b in zip(card_grads, cpu_grads):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_training_apply_views_on_the_card_launches_no_kernel(device):
+    """A tiny dense ViViT on the card: under Ctx(training=True) apply_views
+    follows the caller's grad mode (a gradient reaches every parameter) and
+    launches no kernel; in serving it runs under no_grad and launches rows
+    5 and 6."""
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.parallel.dryrun import TRAIN_MODEL
+
+    spatial = dict(TRAIN_MODEL["spatial_config"])
+    spatial["block_config"] = dict(spatial["block_config"], drop_path_rate=0.0)
+    model = FactorizedViViT(**dict(TRAIN_MODEL, dropout_rate=0.0, spatial_config=spatial),
+                            device=device)
+    views = torch.randn(2, 2, 8, 3, 32, 32, device=device)
+    kernel_check.reset_launches()
+    probs = model.apply_views(Ctx(training=True, generator=torch.Generator(device=device)),
+                              views)
+    probs.sum().backward()
+    assert all(p.grad is not None for p in model.parameters())
+    launched = {name: entry[0].launches for name, entry in kernel_check.KERNELS.items()}
+    assert not any(launched.values()), launched
+    served = model.apply_views(Ctx(), views)
+    assert not served.requires_grad
+    assert kernel_check.KERNELS["dense_mlp_residual"][0].launches > 0
+    assert kernel_check.KERNELS["window_attention"][0].launches > 0
+    torch.testing.assert_close(served, probs.detach(), rtol=1e-4, atol=1e-6)

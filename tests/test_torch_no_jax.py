@@ -492,6 +492,29 @@ print("ok")
 """
 
 
+TRAINING_PARALLEL_SCRIPT = """
+import sys
+sys.modules["jax"] = None
+import torch
+torch.set_num_threads(2)
+import torch.distributed as dist
+from eventful_transformer_tpu_torch.detection import training
+from eventful_transformer_tpu_torch.parallel import dryrun
+g = torch.Generator().manual_seed(0)
+corner = torch.rand(64, 2, generator=g) * 40
+boxes = torch.cat([corner, corner + 8], 1)
+losses = training.rpn_losses(torch.Generator().manual_seed(1), boxes, torch.randn(64, generator=g),
+                             torch.randn(64, 4, generator=g), boxes[:2] + 1, torch.ones(2, dtype=bool))
+assert all(torch.isfinite(v) for v in losses.values())
+result = dryrun.dryrun_here("cpu")
+assert result["world_size"] == 1 and result["pipeline"] == (3, 2, 16, 32), result
+assert not dist.is_initialized()
+assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
+               for name, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+
+
 def _run(script):
     result = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
@@ -580,3 +603,10 @@ def test_parallel_runs_without_jax():
     """The parallel package (the mesh, Ulysses attention, the SP and DP
     drivers at one gloo rank) and the converters, without JAX."""
     _run(PARALLEL_SCRIPT)
+
+
+def test_training_parallel_runs_without_jax():
+    """The training half of the parallel package (the dp x tp step, the
+    pipeline, through the dry run at one gloo rank) and the detector's
+    losses, without JAX."""
+    _run(TRAINING_PARALLEL_SCRIPT)

@@ -1,7 +1,8 @@
 """``chip_smoke.py``'s multi-process rank (phase ``parallel_paths``, and the
 run by hand on every GPU of a host) on the CPU at slim widths: gloo ranks
 spawned through ``parallel.mesh.spawn`` run paths (a)-(c), each through
-its parallel driver and without the option, and the first rank's
+its parallel driver and without the option, and the pipeline, TP and dry
+run paths, each against its run in one process, and the first rank's
 comparison must find every pair equal; at one rank as the phase runs it,
 at two over a number of items the ranks do not divide. The comparison
 itself is checked on results made by hand."""
@@ -38,6 +39,16 @@ def test_parallel_rank_paths_agree_on_the_cpu(world, frames, items, tmp_path):
     vivit = result["parallel_dp_vivit"]["par"]
     assert vivit["done"] == ["Token top k=24"]
     assert len(vivit["metrics"].strip().splitlines()) == 2
+    # the training paths: the pipeline over every rank, TP on
+    # best_dp_tp_mesh(max_tp=2), the dry run
+    pipeline, tp, dry = result["pipeline"], result["tp"], result["dryrun"]
+    assert pipeline["same_as_plain"] and pipeline["stages"] == world
+    assert (tp["dp"], tp["tp"]) == {1: (1, 1), 2: (1, 2)}[world]
+    assert tp["inference"]["same_as_plain"] and tp["training"]["same_as_plain"]
+    assert len(tp["training"]["losses"]) == chip_smoke.TRAIN_STEPS
+    assert dry["world_size"] == world and dry["backend"] == "gloo"
+    for path in ("pipeline", "tp", "dryrun"):
+        assert result["path_s"][path] > 0
 
 
 def _run(plain_launches, launches, metric=0.5, par_metric=0.5):

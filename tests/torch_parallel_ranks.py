@@ -1,5 +1,6 @@
-"""The rank functions of tests/test_torch_parallel.py, run in processes that
-``eventful_transformer_tpu_torch.parallel.mesh.spawn`` starts. This module
+"""The rank functions of tests/test_torch_parallel.py,
+test_torch_tensor_parallel.py and test_torch_pipeline.py, run in processes
+that ``eventful_transformer_tpu_torch.parallel.mesh.spawn`` starts. This module
 imports nothing of JAX, so a rank starts in about a second. Each rank runs a
 list of jobs ``(name, *arguments)``, every job on a process group of its own
 (a FileStore in ``store_dir``), and returns one result a job."""
@@ -131,15 +132,38 @@ SMOKE_VIVIT = ["model.device=cpu", "model.spatial_config.depth=1", "model.tempor
                "model.temporal_config.block_config.dim=96"]
 
 
+def _slim_vivit(config):
+    """A ViViT config of chip_smoke.py cut to 2 spatial blocks and 1
+    temporal block of 96 (12 heads of 8) over 8 frames of 32 x 32 and 2
+    views."""
+    block = dict(dim=96, heads=12, mlp_ratio=4)
+    return dict(
+        config, input_shape=[8, 3, 32, 32], tubelet_shape=[2, 8, 8], spatial_views=1,
+        temporal_views=2,
+        spatial_config=dict(config["spatial_config"], depth=2, position_encoding_size=[4, 4],
+                            block_config=block),
+        temporal_config=dict(config["temporal_config"], depth=1, position_encoding_size=[4],
+                             block_config=block),
+    )
+
+
 def smoke_rank(out, frames, items):
     """``chip_smoke.parallel_rank`` on a gloo rank at slim widths, the
     card's calls replaced as the script's CPU rehearsals replace them (the
     plain versions count no launch, so the launch checks are the card's)."""
     import chip_smoke
     from eventful_transformer_tpu_torch.ops import _build
-    from eventful_transformer_tpu_torch.parallel import mesh
+    from eventful_transformer_tpu_torch.parallel import dryrun, mesh
     from eventful_transformer_tpu_torch.scripts.evaluate import vivit_kinetics400
 
+    vivit = chip_smoke.vivit_config
+    chip_smoke.vivit_config = lambda eventful: _slim_vivit(vivit(eventful))
+    chip_smoke.tp_config = lambda: chip_smoke.vivit_config(False)
+    chip_smoke.K = 8
+    chip_smoke.rank_device = lambda: torch.device("cpu")
+    dryrun.dryrun_multichip = lambda n: dryrun.dryrun_here("cpu")
+    torch.cuda.reset_peak_memory_stats = lambda device=None: None
+    torch.cuda.max_memory_allocated = lambda device=None: 0
     config, main = chip_smoke.harness_config, vivit_kinetics400.main
     make, group = mesh.make_mesh, mesh.distributed
     chip_smoke.harness_config = (lambda location, argv, kind="evaluate":
@@ -154,9 +178,134 @@ def smoke_rank(out, frames, items):
     chip_smoke.parallel_rank(out, frames, items)
 
 
+def _tp_model(config, flat, max_tp):
+    from eventful_transformer_tpu_torch.parallel.mesh import best_dp_tp_mesh
+
+    mesh = best_dp_tp_mesh(max_tp=max_tp, device="cpu")
+    return mesh, params_from_jax(FactorizedViViT(**config, device="cpu"), flat)
+
+
+def _ranks(mesh):
+    return {axis: dist.get_rank(mesh.get_group(axis)) for axis in ("data", "model")}
+
+
+def tp_forward(config, flat, views, max_tp):
+    """The sharded ViViT's probabilities of this rank's data shard of
+    ``views`` on ``best_dp_tp_mesh(4, max_tp)``, with this rank's qkv
+    shard of the first spatial block."""
+    from eventful_transformer_tpu_torch.parallel.sharding import shard_params
+
+    mesh, model = _tp_model(config, flat, max_tp)
+    shard_params(mesh, model)
+    ranks = _ranks(mesh)
+    dp = dist.get_world_size(mesh.get_group("data"))
+    n = views.shape[0] // dp
+    with torch.no_grad():
+        probs = model.apply_views(Ctx(), torch.from_numpy(views[ranks["data"] * n:][:n]))
+    qkv = model.spatial_model.backbone.blocks[0].qkv
+    return dict(ranks, probs=probs.numpy(), qkv_kernel=qkv.kernel.detach().numpy(),
+                qkv_bias=qkv.bias.detach().numpy())
+
+
+def tp_train(config, flat, inputs, labels, optimizer, steps, max_tp, seed):
+    """``steps`` steps of ``make_sharded_train_step`` (``optimizer``: its
+    config) on the whole batch, the step i seeded ``seed + i``: the
+    losses, the replicated parameters' gradients of the first step, the
+    gathered parameters after the last."""
+    from eventful_transformer_tpu_torch.parallel.sharding import gathered_params
+    from eventful_transformer_tpu_torch.parallel.train import make_sharded_train_step
+
+    mesh, model = _tp_model(config, flat, max_tp)
+    init_fn, make_step = make_sharded_train_step(model, optimizer, mesh)
+    opt, specs = init_fn()
+    step = make_step(opt, specs)
+    batch = {"inputs": torch.from_numpy(inputs), "labels": torch.from_numpy(labels)}
+    losses, grads = [], None
+    for i in range(steps):
+        losses.append(float(step(batch, seed + i)))
+        if grads is None:
+            grads = {name: p.grad.numpy().copy() for name, p in model.named_parameters()
+                     if specs[name] == ()}
+    params = {name: v.numpy() for name, v in gathered_params(mesh, model).items()}
+    return dict(_ranks(mesh), losses=losses, grads=grads, params=params)
+
+
+def tp_refused(configs):
+    """``shard_params`` on the ("data", "model") mesh of tp = 2 for each
+    config's ViViT: the ValueError's message, or None where it was taken."""
+    from eventful_transformer_tpu_torch.parallel.mesh import best_dp_tp_mesh
+    from eventful_transformer_tpu_torch.parallel.sharding import shard_params
+
+    mesh = best_dp_tp_mesh(max_tp=2, device="cpu")
+    messages = []
+    for config in configs:
+        try:
+            shard_params(mesh, FactorizedViViT(**config, device="cpu"))
+            messages.append(None)
+        except ValueError as error:
+            messages.append(str(error))
+    return messages
+
+
+def _backbone(config, flat, k):
+    backbone = params_from_jax(ViTBackbone(**config), flat)
+    if k is not None:
+        _set_policy(backbone, ("top_k", k))
+    return backbone
+
+
+def _state_numpy(state):
+    if isinstance(state, dict):
+        return {key: _state_numpy(v) for key, v in state.items()}
+    return state.numpy() if isinstance(state, torch.Tensor) else state
+
+
+def pipeline(config, flat, k, frames):
+    """``make_pipelined_backbone`` over every rank ("pipe"): the outputs and
+    every block's state, on this rank."""
+    from eventful_transformer_tpu_torch.parallel.pipeline import make_pipelined_backbone
+
+    backbone = _backbone(config, flat, k)
+    mesh = make_mesh((-1,), ("pipe",), "cpu")
+    run = make_pipelined_backbone(backbone, mesh)
+    frames = torch.from_numpy(frames)
+    out, state = run(backbone.init_state(frames.shape[1], torch.float32, "cpu"), frames)
+    return out.numpy(), _state_numpy(state)
+
+
+def pipeline_refused(cases):
+    """``make_pipelined_backbone`` of each (config, flat, k): the
+    ValueError's message, or None where it was taken."""
+    from eventful_transformer_tpu_torch.parallel.pipeline import make_pipelined_backbone
+
+    mesh = make_mesh((-1,), ("pipe",), "cpu")
+    messages = []
+    for config in cases:
+        try:
+            make_pipelined_backbone(ViTBackbone(**config), mesh)
+            messages.append(None)
+        except ValueError as error:
+            messages.append(str(error))
+    return messages
+
+
+def joined(address, world_size):
+    """``initialize_distributed`` at ``address`` as this process's rank (of
+    the spawn), then a sum over the group; the group is left for the
+    spawn to destroy."""
+    from eventful_transformer_tpu_torch.parallel.mesh import initialize_distributed
+
+    rank = int(os.environ["RANK"])
+    made = initialize_distributed(address, world_size, rank, device="cpu")
+    x = torch.tensor([float(rank + 1)])
+    dist.all_reduce(x)
+    return made, dist.get_rank(), dist.get_world_size(), dist.get_backend(), float(x[0])
+
+
 JOBS = dict(ulysses=ulysses, sp_backbone=sp_backbone, vitdet_sp=vitdet_sp,
             vitdet_sp_refused=vitdet_sp_refused, vitdet_dp=vitdet_dp, vivit_dp=vivit_dp,
-            entry=entry)
+            entry=entry, tp_forward=tp_forward, tp_train=tp_train, tp_refused=tp_refused,
+            pipeline=pipeline, pipeline_refused=pipeline_refused)
 
 
 def run_jobs(jobs, store_dir):
