@@ -33,7 +33,9 @@ ulysses_smoke_672 and data parallelism on spatiotemporal_672 and through
 the ViViT entry point; and in that rank the training half of parallel/:
 ViViT-B's eventful spatial stack pipelined, the dense ViViT-B tensor-parallel
 in inference and in two train steps, and the multi-chip dry run; and the
-detector's training losses on ViTDet-B at 672.
+detector's training losses on ViTDet-B at 672; and tensor parallelism of
+the eventful and ATS blocks, tp = 2 in two processes on the card over
+gloo, with the threshold ladder's bucket script.
 Phases, one JSON line each, with the seconds the phase took:
 
   1. env:            torch, CUDA and nvcc versions and the card (nvidia-smi).
@@ -409,6 +411,22 @@ Phases, one JSON line each, with the seconds the phase took:
   41. dryrun:        in the same rank, dryrun_multichip at the world size:
                      the dp x tp train step, the pipelined eventful stack,
                      Ulysses and DP ViTDet evaluation at tiny shapes.
+  42. tp_eventful_kernels, tp_eventful_paths: rows 6 (global, spatial and
+                     temporal) and 8 at a tp = 2 rank's width (C = 384, 6
+                     heads), float32, as in 3; then two processes under
+                     torchrun (EVT_DIST_BACKEND=gloo, chip_smoke.py
+                     --tp-eventful-rank <out>) on the one card, tp = 2:
+                     temporal_24 (EventfulBlock, k = 24, av_kernel on, its
+                     bf16 cast off; the cast-on run reported), the tokenwise
+                     k = 98 model and EPIC-Kitchens ats.yml, ViViT-B at full
+                     width and depth, one clip of 1 x 4 views, float32,
+                     each against its unsharded unfused run on that rank:
+                     probabilities within 1e-4, every selection equal,
+                     launches per rank by wrapper (row 8 180 and row 6 4;
+                     row 6 196; row 6 4); two SGD steps at 2 spatial blocks
+                     against plain autograd steps, no kernel launched; and
+                     scripts/misc/measure_vivit_buckets.py at one capacity,
+                     one clip, one timed call.
 The times are a record, not a claim.
 
 Phases 25-27 run last, after 28-37, and read their runs too (the
@@ -674,9 +692,10 @@ def gemm_tc_ptxas(log):
     return list(out.values())
 
 
-def check_kernels(phase, device, cases, dtypes=(torch.float32, torch.bfloat16)):
+def check_kernels(phase, device, cases, dtypes=(torch.float32, torch.bfloat16), width=(768, 12)):
     """Each kernel of ``cases`` [(tag, batch, N, k, names, make_inputs
-    keywords)] against its plain version, in each of ``dtypes``, with both
+    keywords)] at ``width`` (C, heads) against its plain version, in each
+    of ``dtypes``, with both
     timed, the bound of the card for the same work, and the one PyTorch
     call that computes it where there is one; a group that selects its own
     rows also beside its two-phase form (``two_phase_ms``); the MLP rows
@@ -688,7 +707,7 @@ def check_kernels(phase, device, cases, dtypes=(torch.float32, torch.bfloat16)):
     results = {}
     for dtype in dtypes:
         for tag, bsz, n, k, names, inputs in cases:
-            d = kernel_check.make_inputs(bsz, n, 768, 12, k, dtype, device, seed=SEED, **inputs)
+            d = kernel_check.make_inputs(bsz, n, *width, k, dtype, device, seed=SEED, **inputs)
             for name in names:
                 bound_ms, bound_by = kernel_check.bound(name, d)
                 library = kernel_check.library_call(name, d)
@@ -3589,9 +3608,9 @@ def ats_scores_against_cpu(fraction):
     plain = blocks.ats_scores
     tally = dict(calls=0, scores=0, scores_differing=0, selections=0, selections_differing=0)
 
-    def checked(a, v):
-        scores = plain(a, v)
-        if a.is_cuda:
+    def checked(a, v, group=None):
+        scores = plain(a, v, group)
+        if a.is_cuda and group is None:
             got, ref = scores.cpu(), plain(a.cpu(), v.cpu())
             k = int(fraction * (ref.shape[-1] - 1)) + 1
             cov, ref_cov = (indexing.coverage_from_norms(x, k) for x in (got, ref))
@@ -4897,6 +4916,324 @@ def training_parallel_paths(result, smi, vivit_rows, rows):
     return out
 
 
+# -- Tensor parallelism of the eventful and ATS blocks (phase tp_eventful_paths)
+#
+# Two processes on the one card form a tp = 2 group over gloo
+# (parallel/mesh.py's BACKEND_ENV: NCCL refuses two ranks on one device),
+# under ``python -m torch.distributed.run --standalone --nproc_per_node=2
+# chip_smoke.py --tp-eventful-rank <out>``; each rank holds 6 of ViViT-B's
+# 12 heads (C = 768, 12 spatial and 4 temporal blocks), float32, one
+# generated clip of 1 x 4 views of 32 frames. Three configurations
+# (TP_EVENTFUL_RUNS): temporal_24 (EventfulBlock, k = 24, with
+# ``av_kernel = True`` so that row 8 runs on each rank's heads: under
+# "auto" it takes the kernel at one stream or 512 keys), the bench's
+# tokenwise model (k = 98, "v4" unsharded, unfused at tp = 2) and
+# EPIC-Kitchens ats.yml (ATS 0.9 in every dense spatial block, 401 tokens).
+# Each rank runs the model unsharded on the unfused path (the one the
+# sharded blocks take), then sharded: the probabilities within TP_RTOL,
+# every selection (each gate's top-k, each ATS sampling) equal, the
+# launches by wrapper kept per rank. temporal_24 is held with its bf16 A.V
+# cast off, as the card-vs-CPU checks hold it: the cast rounds A.V's
+# operands to bf16, and the group's float32 sums in another order flip
+# some of those roundings, which move later selections (609 of 51840 with
+# the cast on, NVIDIA H100 80GB HBM3, SEED 0); the run with it on is reported. Then
+# TP_EVENTFUL_STEPS SGD steps of make_sharded_train_step against as many
+# plain autograd steps of the unsharded model, the depth cut to
+# TP_EVENTFUL_TRAIN_DEPTH spatial blocks and one temporal block: losses
+# and this rank's parameter shards within TP_RTOL. The rank's kernels are
+# checked in the main process at a rank's width (C = 384, 6 heads).
+TP_EVENTFUL_RUNS = ("temporal_24", "tokenwise_98", "ats")
+TP_EVENTFUL_WORLD = 2
+TP_EVENTFUL_STEPS = 2
+TP_EVENTFUL_TRAIN_DEPTH = 2
+TP_EVENTFUL_TIMEOUT = 300
+TP_EVENTFUL_WIDTH = (768 // TP_EVENTFUL_WORLD, 12 // TP_EVENTFUL_WORLD)
+TP_EVENTFUL_VIEWS = 4
+TP_EVENTFUL_CASES = [
+    ("tp_eventful", TP_EVENTFUL_VIEWS, N_TOKENS, K, ("window_attention",), dict(window=(4, 6))),
+    ("tp_eventful_temporal", TP_EVENTFUL_VIEWS, STEPS + 1, STEPS + 1, ("window_attention",),
+     dict(window=(4, 6))),
+    ("tp_eventful_evblock", TP_EVENTFUL_VIEWS, N_TOKENS, EV_K,
+     ("softmax_select_matmul_noterms",), dict(window=(4, 6), pool=(1, N_TOKENS))),
+]
+# each configuration's kernels at tp = 2, with the tag of their check: the
+# spatial stack's, then the temporal model's window_attention
+TP_EVENTFUL_ROWS = {
+    "temporal_24": [("softmax_select_matmul_noterms", "tp_eventful_evblock"),
+                    ("window_attention", "tp_eventful_temporal")],
+    "tokenwise_98": [("window_attention", "tp_eventful")],
+    "ats": [("window_attention", "tp_eventful_temporal")],
+}
+# launches a rank makes a forward: row 8 at each incremental step of each
+# spatial block; the global attention at each step of each tokenwise block
+# and once in each temporal block
+TP_EVENTFUL_LAUNCHES = {
+    "temporal_24": {"softmax_select_matmul": DEPTH * (STEPS - 1),
+                    "window_attention": TEMPORAL_DEPTH},
+    "tokenwise_98": {"window_attention": DEPTH * STEPS + TEMPORAL_DEPTH},
+    "ats": {"window_attention": TEMPORAL_DEPTH},
+}
+
+
+def tp_eventful_model_config(name, depth=DEPTH, temporal_depth=TEMPORAL_DEPTH):
+    """(The model's keywords at 1 x 4 views, its policy as (class name,
+    keywords) or None, the attributes set on every spatial block) of
+    configuration ``name``."""
+    if name == "tokenwise_98":
+        model, policy, attrs = vivit_config(True), ("TokenNormTopK", dict(k=K)), {}
+    elif name == "temporal_24":
+        config = harness_config("vivit_kinetics400", ["temporal_24"])
+        model, policy = config["model"], ("TokenNormTopK", dict(k=config["token_top_k"][0]))
+        attrs = dict(av_kernel=True)
+    else:
+        model, policy, attrs = harness_config("vivit_epic_kitchens", ["ats"])["model"], None, {}
+    model = copy.deepcopy(dict(model, spatial_views=1, temporal_views=TP_EVENTFUL_VIEWS))
+    model["spatial_config"]["depth"] = depth
+    model["temporal_config"]["depth"] = temporal_depth
+    return model, policy, attrs
+
+
+def tp_eventful_model(name, device, cast=True, **depths):
+    """Configuration ``name``'s ViViT on ``device``, weights from SEED,
+    its policy set; its A.V cast taken off unless ``cast``."""
+    from eventful_transformer_tpu_torch.core import policies
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    kwargs, policy, attrs = tp_eventful_model_config(name, **depths)
+    if not cast:
+        kwargs["spatial_config"]["block_config"]["matmul_2_cast"] = None
+    model = FactorizedViViT(**kwargs, device=device, seed=SEED)
+    if policy is not None:
+        set_policies(model, getattr(policies, policy[0]), **policy[1])
+    for block in model.spatial_model.backbone.blocks:
+        for key, value in attrs.items():
+            setattr(block, key, value)
+    return model
+
+
+def tp_eventful_inference(model, mesh, views):
+    """``model`` unsharded on the unfused path, then sharded over ``mesh``'s
+    "model" axis (copies of it): the probabilities' largest difference,
+    the selections that differ, the launches by wrapper of each."""
+    import torch.distributed as dist
+
+    from eventful_transformer_tpu_torch.parallel.sharding import shard_params
+
+    plain = copy.deepcopy(model)
+    for block in plain.spatial_model.backbone.blocks:
+        if hasattr(block, "fused_gates"):
+            block.fused_gates = False
+    want_log, got_log = [], []
+    with recorded_selections(want_log):
+        (want, _), plain_launches, plain_s = counted(run_model, plain, views)
+    del plain
+    sharded = copy.deepcopy(model)
+    shard_params(mesh, sharded)
+    heads = {block.local_heads for block in sharded.modules() if hasattr(block, "local_heads")}
+    dist.barrier()
+    with recorded_selections(got_log):
+        (probs, _), launches, seconds = counted(run_model, sharded, views)
+    del sharded
+    selections, flips = selection_flips(got_log, want_log)
+    close = bool(torch.allclose(probs, want, rtol=TP_RTOL, atol=TP_RTOL * float(want.abs().max())))
+    return dict(
+        same_as_plain=close and flips == 0, max_prob_diff=float((probs - want).abs().max()),
+        selections=selections, selections_differing=flips, gate_calls=len(got_log),
+        launches={k: v for k, v in launches.items() if v},
+        plain_launches={k: v for k, v in plain_launches.items() if v}, seconds=seconds,
+        plain_s=plain_s, local_heads=sorted(heads))
+
+
+def tp_eventful_run(name, mesh, device):
+    """One configuration on this rank (the section's comment): the
+    inference and the training comparisons, with the launches by wrapper
+    of the sharded forward and of the training steps."""
+    import torch.distributed as dist
+
+    from eventful_transformer_tpu_torch.core.counting import Ctx
+    from eventful_transformer_tpu_torch.parallel.sharding import shard_params
+    from eventful_transformer_tpu_torch.parallel.train import (
+        cross_entropy_from_probs,
+        data_generator,
+        make_sharded_train_step,
+    )
+    from eventful_transformer_tpu_torch.utils.train import make_optimizer
+
+    kwargs = tp_eventful_model_config(name)[0]
+    cast = kwargs["spatial_config"]["block_config"].get("matmul_2_cast")
+    views = generated_views(kwargs, 1).to(device)
+    model = tp_eventful_model(name, device, cast=False)
+    inference = tp_eventful_inference(model, mesh, views)
+    del model
+    if cast is not None:  # reported, not held (the section's comment)
+        model = tp_eventful_model(name, device)
+        inference["cast_on"] = dict(tp_eventful_inference(model, mesh, views),
+                                    matmul_2_cast=cast)
+        del model
+    torch.cuda.empty_cache()
+
+    def close(a, b):
+        return bool(torch.allclose(a, b, rtol=TP_RTOL, atol=TP_RTOL * float(b.abs().max())))
+
+    labels = torch.from_numpy(np.random.default_rng(SEED + 1).integers(0, kwargs["classes"], 1))
+    plain = tp_eventful_model(name, device, cast=False, depth=TP_EVENTFUL_TRAIN_DEPTH,
+                              temporal_depth=1)
+    trained = copy.deepcopy(plain)
+    init_fn, make_step = make_sharded_train_step(trained, TRAIN_OPTIMIZER, mesh)
+    step = make_step(*init_fn())
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats(device)
+    dist.barrier()
+    reset_launches()
+    for i in range(TP_EVENTFUL_STEPS):
+        start = time.perf_counter()
+        losses.append(float(step({"inputs": views, "labels": labels}, TRAIN_SEED + i)))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - start))
+    train_launches = {k: v for k, v in read_launches().items() if v}
+    peak = torch.cuda.max_memory_allocated(device)
+    for p in plain.parameters():
+        p.requires_grad_(True)
+    optimizer = make_optimizer(TRAIN_OPTIMIZER, plain, list(plain.parameters()))
+    plain_losses = []
+    for i in range(TP_EVENTFUL_STEPS):
+        optimizer.zero_grad(set_to_none=True)
+        ctx = Ctx(training=True, generator=data_generator(TRAIN_SEED + i, 0, device))
+        loss = cross_entropy_from_probs(plain.apply_views(ctx, views), labels.to(device))
+        loss.backward()
+        optimizer.step()
+        plain_losses.append(float(loss.detach()))
+    shard_params(mesh, plain)  # this rank's shards of the plain model's parameters
+    mine = dict(trained.named_parameters())
+    same_params = all(close(mine[key], p.detach()) for key, p in plain.named_parameters())
+    param_err = max(float((mine[key] - p).abs().max() / p.abs().max())
+                    for key, p in plain.named_parameters() if p.abs().max() > 0)
+    training = dict(
+        same_as_plain=same_params and bool(np.allclose(losses, plain_losses, rtol=TP_RTOL,
+                                                       atol=0)),
+        losses=losses, plain_losses=plain_losses, max_param_err=param_err, step_ms=step_ms,
+        launches=train_launches, max_memory_allocated=peak, depth=TP_EVENTFUL_TRAIN_DEPTH)
+    del trained, plain, optimizer, step
+    torch.cuda.empty_cache()
+    return dict(views=list(views.shape), inference=inference, training=training)
+
+
+def tp_eventful_rank(out):
+    """The rank of phase tp_eventful_paths under torchrun: every
+    configuration on a ("data", "model") mesh of 1 x 2 over gloo on the one
+    card; the first rank writes every rank's results to ``out`` as JSON."""
+    import torch.distributed as dist
+
+    from eventful_transformer_tpu_torch.ops import _build
+    from eventful_transformer_tpu_torch.parallel.mesh import best_dp_tp_mesh, distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    _build.load_library()
+    mine = {}
+    with distributed("cuda"):
+        device = rank_device()
+        dist.all_reduce(torch.zeros(1, device=device))
+        mesh = best_dp_tp_mesh(max_tp=TP_EVENTFUL_WORLD, device="cuda")
+        model_group = mesh.get_group("model")
+        mine.update(rank=dist.get_rank(), backend=dist.get_backend(),
+                    world_size=dist.get_world_size(), tp=dist.get_world_size(model_group),
+                    device=str(device), ready_s=time.perf_counter() - _START, runs={})
+        for name in TP_EVENTFUL_RUNS:
+            start = time.perf_counter()
+            mine["runs"][name] = dict(tp_eventful_run(name, mesh, device),
+                                      run_s=time.perf_counter() - start)
+        every = [None] * dist.get_world_size() if dist.get_rank() == 0 else None
+        dist.gather_object(mine, every, dst=0)
+    if mine["rank"] == 0:
+        Path(out).write_text(json.dumps(every, default=float))
+
+
+def run_tp_eventful_rank(tmp):
+    """``tp_eventful_rank`` on TP_EVENTFUL_WORLD processes under torchrun in
+    its own session, gloo on the card, killed with every process it started
+    after TP_EVENTFUL_TIMEOUT seconds. Returns (every rank's results, the
+    process's seconds)."""
+    import os
+    import signal
+
+    from eventful_transformer_tpu_torch.parallel.mesh import BACKEND_ENV
+
+    out = Path(tmp, "tp_eventful_rank.json")
+    start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={TP_EVENTFUL_WORLD}", str(REPO / "chip_smoke.py"),
+         "--tp-eventful-rank", str(out)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True, env=dict(os.environ, **{BACKEND_ENV: "gloo"}),
+    )
+    try:
+        _, stderr = proc.communicate(timeout=TP_EVENTFUL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"tp_eventful_paths: the ranks ran past {TP_EVENTFUL_TIMEOUT} s")
+    if proc.returncode != 0 or not out.is_file():
+        raise AssertionError(f"tp_eventful_paths: the ranks failed: {stderr[-3000:]}")
+    return json.loads(out.read_text()), time.perf_counter() - start
+
+
+BUCKET_SMOKE = ("--capacities", "24", "--clips", "1", "--iters", "1")
+
+
+def bucket_script_run():
+    """scripts/misc/measure_vivit_buckets.py as a user runs it, at one
+    capacity, one clip and one timed call: its JSON line and seconds."""
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "eventful_transformer_tpu_torch.scripts.misc.measure_vivit_buckets",
+         *BUCKET_SMOKE], cwd=REPO, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"measure_vivit_buckets failed: {proc.stderr[-3000:]}")
+    (row,) = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    if row["capacity"] != 24 or not 0 < row["ms_per_clip"] < float("inf"):
+        raise AssertionError(f"measure_vivit_buckets: {row}")
+    return dict(row, process_s=time.perf_counter() - start)
+
+
+def tp_eventful_paths(device, smi):
+    """Phases tp_eventful_kernels (the rank's kernels at a rank's width, as
+    in 3, float32) and tp_eventful_paths (the section's comment; the bucket
+    script's short run). Returns the final line's rows."""
+    import tempfile
+
+    rows = check_kernels("tp_eventful_kernels", device, TP_EVENTFUL_CASES,
+                         dtypes=(torch.float32,), width=TP_EVENTFUL_WIDTH)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_eventful_") as tmp:
+        ranks, process_s = run_tp_eventful_rank(tmp)
+    bucket = bucket_script_run()
+    failures = []
+    if ({(r["backend"], r["world_size"], r["tp"]) for r in ranks}
+            != {("gloo", TP_EVENTFUL_WORLD, TP_EVENTFUL_WORLD)}):
+        failures.append("mesh")
+    for name in TP_EVENTFUL_RUNS:
+        for r in ranks:
+            run = r["runs"][name]
+            want = {key: value for key, value in TP_EVENTFUL_LAUNCHES[name].items()}
+            if not (run["inference"]["same_as_plain"] and run["training"]["same_as_plain"]
+                    and run["inference"]["launches"] == want and not run["training"]["launches"]
+                    and run["inference"]["local_heads"] == [TP_EVENTFUL_WIDTH[1]]
+                    and all(np.isfinite(run["training"]["losses"]))):
+                failures.append((name, r["rank"]))
+    emit("tp_eventful_paths", card=smi, process_s=process_s, width=TP_EVENTFUL_WIDTH,
+         ranks=ranks, bucket_script=bucket)
+    if failures:
+        raise AssertionError(f"tp_eventful_paths: {failures} differ from their unsharded runs "
+                             "or launched other kernels")
+    return [kernel_row(name, rows[(name, torch.float32, tag)],
+                       ranks[0]["runs"][path]["inference"]["launches"], f"tp_eventful_{path}")
+            for path, names in TP_EVENTFUL_ROWS.items() for name, tag in names]
+
+
 DET_LOSS_RTOL = 1e-5
 DET_GT, DET_GT_VALID = 8, 5
 
@@ -5025,6 +5362,7 @@ def main():
     kernels += train_path(device, smi)
     detection_losses(device, smi)
     kernels += parallel_paths(device, smi, kernel_rows)
+    kernels += tp_eventful_paths(device, smi)
     phase_attention_bodies()
     phase_row_bodies()
     cores = phase_gemm_cores()
@@ -5061,5 +5399,7 @@ def parallel_rank_main(argv):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         parallel_rank_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["--tp-eventful-rank"]:
+        tp_eventful_rank(sys.argv[2])
     else:
         main()

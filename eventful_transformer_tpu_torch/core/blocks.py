@@ -107,17 +107,49 @@ global ``window_attention`` kernel at N <= 512, else plain PyTorch); the
 MLP runs ``dense_mlp_residual`` over the shard's rows. Each process counts
 its own shard's work.
 
-Tensor parallelism (``tp_group``, the dense ``Block`` only, set by
-``parallel/sharding.py::shard_params`` at tp > 1): the block holds its
+Tensor parallelism (``tp_group``, set by ``parallel/sharding.py::
+shard_params`` at tp > 1, on every block class): the block holds its
 rank's heads and hidden units, and its forward is Megatron's, LN ->
 ``to_model_parallel`` -> the column linear (qkv: the packed qkv of H/tp
-heads, attended by the route the single-process block takes, the global
-``window_attention`` kernel at N <= 512 outside training) -> the row
-linear without its bias -> ``from_model_parallel`` (the all-reduce) -> the
-bias, once -> drop-path and the residual, for the attention and for the
-MLP (LN, mlp_1, GELU, mlp_2: plain PyTorch, since ``dense_mlp_residual``
-adds its bias and residual on every rank). At tp = 1 nothing is set, and
-the block runs as above, row 5 in serving included.
+heads, attended by the route the single-process block takes at that
+width: the global ``window_attention`` kernel at N <= 512 outside training,
+``softmax_select_matmul`` for an ``EventfulBlock``'s A.V where its rule
+takes it) -> the row linear without its bias -> ``from_model_parallel``
+(the all-reduce) -> the bias, once -> drop-path and the residual, for the
+attention and for the MLP (LN, mlp_1, GELU, mlp_2: plain PyTorch, since
+``dense_mlp_residual`` adds its bias and residual on every rank). An
+eventful block steps unfused (the fused regimes bake the whole channel
+width into their kernels' epilogues), its gates and buffers at the width
+of what they hold:
+
+- the qkv and MLP gates, their LN and the MLP and projection buffers hold
+  the replicated residual stream, whole on every rank, and select alike
+  on every rank;
+- the qkv buffer holds this rank's heads' qkv columns; the projection gate
+  holds this rank's heads' share of the attention output, so its error
+  norm spans the group: the one sum that does (``TokenGate.norm_group``,
+  ``core/policies.py::vector_norm``: the partial sums of |e|^order
+  all-reduced before the root), after which every rank takes the same
+  rows and updates its own columns;
+- the row-parallel projection and mlp_2 all-reduce their partial products
+  (on the gathered rows, or over the whole gate state where the step
+  recomputes them) before the buffer scatter, and add the bias once;
+- the per-head state of ``EventfulMatmul1Block`` (the cached q.kT) and of
+  ``EventfulBlock`` (the v and matmul gates, the delta-accumulated A.V, all
+  forced to the qkv gate's replicated selection) is this rank's heads',
+  and no collective touches it;
+- ATS sums its scores over the heads: this rank's float32 head sum is
+  all-reduced before the one rounding (:func:`ats_scores`), so every rank
+  keeps the same tokens.
+
+So a block's incremental step has three collectives over the group (the
+projection's, the MLP's, the projection gate's norms), and a fourth with
+ATS; its flush the first two (and ATS's); nothing per head takes one. Each rank counts its own share: a group's
+``linear_flops`` and ``matmul_flops`` sum to the unsharded counts, and
+the replicated work (LN, the gates on the residual stream, the
+row-parallel biases, the adds) is counted on every rank. At tp = 1
+nothing is set, and the block runs as above, every regime and kernel in
+serving included.
 """
 
 from __future__ import annotations
@@ -159,6 +191,7 @@ from eventful_transformer_tpu_torch.core.nn import (
 from eventful_transformer_tpu_torch.core.policies import (
     check_kernel_policy,
     in_kernel_topk_eligible,
+    reduced,
     topk_coverage_ok,
     vector_norm,
 )
@@ -193,7 +226,7 @@ def _pair(x):
     return (x, x) if isinstance(x, int) else tuple(x)
 
 
-def ats_scores(a, v):
+def ats_scores(a, v, group=None):
     """ATS token scores (B, N) float32 of the attention a (B, H, N, N) and
     v (B, H, N, d), with the JAX package's roundings in a's dtype: the
     class-token column times ||v|| (the float32 sum of the squares,
@@ -201,12 +234,14 @@ def ats_scores(a, v):
     over its sum across the non-class tokens, the class token at +inf,
     summed over the heads (JAX ``core/blocks.py:686-694``; the
     reference's ``dim=-3`` sums its views instead). Each sum runs in
-    float32 and rounds once."""
+    float32 and rounds once; with ``group`` the heads are this rank's of a
+    tensor-parallel group, and their float32 sum is all-reduced over it
+    before the rounding."""
     norms = v.float().square().sum(dim=-1).to(v.dtype).sqrt()
     raw = a[..., 0] * norms
     scores = raw / raw[..., 1:].float().sum(dim=-1, keepdim=True).to(raw.dtype)
     scores[..., 0] = float("inf")
-    return scores.float().sum(dim=-2).to(a.dtype).float()
+    return reduced(scores.float().sum(dim=-2), group).to(a.dtype).float()
 
 
 def stabilize_ats_indices(last, new):
@@ -316,6 +351,12 @@ class Block(nn.Module):
     def out_tokens(self, n_tokens):
         return n_tokens if self.ats_fraction is None else self.n_select(n_tokens)
 
+    @property
+    def local_heads(self):
+        """The heads this block attends: all of them, or its
+        tensor-parallel rank's share (as many as its qkv's width holds)."""
+        return self.qkv.out_features // (3 * (self.dim // self.heads))
+
     def init_state(self, batch, n_tokens, dtype, device):
         """{} without ATS; with it the last frame's sampled indices and
         whether there was one (a host bool: the first frame skips the
@@ -348,16 +389,14 @@ class Block(nn.Module):
         arguments only mean something to eventful blocks. ``aux``: this
         block's :meth:`precompute`, computed here when not given."""
         del mode, qkv_norms, next_gate
-        if self.tp_group is not None:
-            return self._forward_tensor_parallel(ctx, state, x, aux)
         skip_1 = x
-        x = layer_norm(x, self.input_layer_norm)
-        x = self.qkv(ctx, x)
+        x = self._col(ctx, self.qkv, layer_norm(x, self.input_layer_norm))
         x, ats_index, state = self._forward_attention(ctx, x, aux, state=state)
         skip_1 = self._gather_ats_skip(skip_1, ats_index)
-        x = self.projection(ctx, x)
-        x = counted_add(ctx, self.drop_path(ctx, x), skip_1)
-        if ctx.training:  # the kernel has no backward
+        x = counted_add(ctx, self.drop_path(ctx, self._row(ctx, self.projection, x)), skip_1)
+        # the kernel has no backward, and would add its bias and residual
+        # on every rank of a tensor-parallel group
+        if ctx.training or self.tp_group is not None:
             x_t = self._mlp(ctx, layer_norm(x, self.mlp_layer_norm))
             return counted_add(ctx, self.drop_path(ctx, x_t), x), state, None
         ln = self.mlp_layer_norm
@@ -375,31 +414,34 @@ class Block(nn.Module):
         ctx.add("add_flops", float(y.numel()))
         return y, state, None
 
-    def _mlp(self, ctx, x):
-        return self.mlp_2(ctx, gelu(self.mlp_1(ctx, x)))
+    def _mlp(self, ctx, x, valid_frac=1):
+        return self._row(ctx, self.mlp_2, gelu(self._col(ctx, self.mlp_1, x, valid_frac)),
+                         valid_frac)
 
-    def _forward_tensor_parallel(self, ctx, state, x, aux):
-        """Megatron's forward over this rank's heads and hidden units (the
-        module's docstring); each rank counts its own share."""
-        from eventful_transformer_tpu_torch.parallel.sharding import to_model_parallel
+    def _col(self, ctx, linear, x, valid_frac=1):
+        """The qkv or mlp_1 linear; under tensor parallelism column-parallel,
+        Megatron's ``to_model_parallel`` before it (the module's
+        docstring)."""
+        if self.tp_group is not None:
+            from eventful_transformer_tpu_torch.parallel.sharding import to_model_parallel
 
-        skip_1 = x
-        x = to_model_parallel(layer_norm(x, self.input_layer_norm), self.tp_group)
-        x, _, state = self._forward_attention(ctx, self.qkv(ctx, x), aux, state=state)
-        x = counted_add(ctx, self.drop_path(ctx, self._row_parallel(ctx, self.projection, x)),
-                        skip_1)
-        h = to_model_parallel(layer_norm(x, self.mlp_layer_norm), self.tp_group)
-        h = self._row_parallel(ctx, self.mlp_2, gelu(self.mlp_1(ctx, h)))
-        return counted_add(ctx, self.drop_path(ctx, h), x), state, None
+            x = to_model_parallel(x, self.tp_group)
+        return linear(ctx, x, valid_frac)
 
-    def _row_parallel(self, ctx, linear, x):
-        """A row-parallel linear: this rank's partial product, summed over
-        the group, then the replicated bias, added once."""
+    def _row(self, ctx, linear, x, valid_frac=1):
+        """The projection or mlp_2 linear; under tensor parallelism
+        row-parallel: this rank's partial product, summed over the group,
+        then the replicated bias, added once. Counted as the linear counts
+        (this rank's rows)."""
+        if self.tp_group is None:
+            return linear(ctx, x, valid_frac)
         from eventful_transformer_tpu_torch.parallel.sharding import from_model_parallel
 
         y = from_model_parallel(torch.matmul(x, linear.kernel.to(x.dtype)), self.tp_group)
-        ctx.add("linear_flops", float(x.numel() * linear.out_features))
-        return linear.apply_bias(ctx, y)
+        y = y + linear.bias.to(x.dtype)
+        ctx.add("linear_flops", valid_frac * float(x.numel() * linear.out_features))
+        ctx.add("bias_flops", valid_frac * float(y.numel()))
+        return y
 
     # -- attention -------------------------------------------------------------
 
@@ -618,7 +660,7 @@ class Block(nn.Module):
         sampled rows, the indices (B, n_select) int32, state)."""
         if self.ats_fraction is None:
             return a, None, state
-        scores = ats_scores(a, v)
+        scores = ats_scores(a, v, self.tp_group)
         k = self.n_select(scores.shape[-1])
         index = index_from_coverage(coverage_from_norms(scores, k), k).to(torch.int32)
         if state["ats_has_last"]:
@@ -708,11 +750,13 @@ class EventfulTokenwiseBlock(Block):
 
     def _fused_mode(self, n_tokens):
         """The incremental regime (core/blocks.py:847-875 of the JAX
-        package, with its TPU thresholds under "auto"). STGT gates and ATS
-        blocks run unfused in every mode, and under "auto" a block with
-        drop-path, as the JAX package's "auto" rule has it."""
+        package, with its TPU thresholds under "auto"). STGT gates, ATS
+        blocks and tensor-parallel blocks run unfused in every mode, and
+        under "auto" a block with drop-path, as the JAX package's "auto"
+        rule has it."""
         mode = self.fused_gates
-        if self.stgt or mode is False or self.ats_fraction is not None:
+        if (self.stgt or mode is False or self.ats_fraction is not None
+                or self.tp_group is not None):
             return False
         if mode == "v1":
             return "v1" if self.recompute_buffers else False
@@ -786,12 +830,15 @@ class EventfulTokenwiseBlock(Block):
 
     def init_state(self, batch, n_tokens, dtype, device):
         """The gates' and buffers' state; after the attention (projection
-        and MLP groups) at the tokens ATS keeps."""
+        and MLP groups) at the tokens ATS keeps; the qkv buffer and the
+        projection gate at the width of this rank's heads (all of them
+        without tensor parallelism)."""
         shape = (batch, self.out_tokens(n_tokens), self.dim)
+        heads_shape = shape[:-1] + (self.projection.in_features,)
         state = super().init_state(batch, n_tokens, dtype, device)
         state.update(
             qkv_gate=self.qkv_gate.init_state((batch, n_tokens, self.dim), dtype, device),
-            projection_gate=self.projection_gate.init_state(shape, dtype, device),
+            projection_gate=self.projection_gate.init_state(heads_shape, dtype, device),
             mlp_gate=self.mlp_gate.init_state(shape, dtype, device),
             mlp_accumulator=self.mlp_accumulator.init_state(shape, dtype, device),
         )
@@ -801,7 +848,7 @@ class EventfulTokenwiseBlock(Block):
         if not self._recompute(n_tokens) or self._fused_mode(n_tokens) in ("v2", "blocked"):
             rows = self._resident_rows() if self._resident_qkv(n_tokens) else n_tokens
             state["qkv_accumulator"] = self.qkv_accumulator.init_state(
-                (batch, rows, 3 * self.dim), dtype, device
+                (batch, rows, self.qkv.out_features), dtype, device
             )
             state["projection_accumulator"] = self.projection_accumulator.init_state(
                 shape, dtype, device
@@ -829,7 +876,7 @@ class EventfulTokenwiseBlock(Block):
         x, state["qkv_gate"] = self._gate_flush(
             self.qkv_gate, state["qkv_gate"], x, self.input_layer_norm
         )
-        x = self.qkv(ctx, x)
+        x = self._col(ctx, self.qkv, x)
         if "qkv_accumulator" in state and self._resident_qkv(x.shape[-2]):
             # pad rows hold the qkv bias row, uncounted: the attention entry
             # counts the pad-bias map once
@@ -846,7 +893,7 @@ class EventfulTokenwiseBlock(Block):
             x, ats_index, state = self._attention_flush(ctx, state, x, aux)
         skip_1 = self._gather_ats_skip(skip_1, ats_index)
         _, state["projection_gate"] = self.projection_gate.flush(state["projection_gate"], x)
-        x = self.projection(ctx, x)
+        x = self._row(ctx, self.projection, x)
         if "projection_accumulator" in state:
             x, state["projection_accumulator"] = self.projection_accumulator.flush(
                 state["projection_accumulator"], x
@@ -892,9 +939,6 @@ class EventfulTokenwiseBlock(Block):
         """The op's input recomputed from a gate state: ln(p) before the
         LN, p itself after it."""
         return layer_norm(p, ln) if self.gate_before_ln else p
-
-    def _mlp(self, ctx, x, valid_frac=1):
-        return self.mlp_2(ctx, gelu(self.mlp_1(ctx, x, valid_frac)), valid_frac)
 
     def _attention_flush(self, ctx, state, x, aux):
         """Returns (y, the ATS indices or None, state)."""
@@ -993,15 +1037,16 @@ class EventfulTokenwiseBlock(Block):
                 ctx, state["qkv_gate"], c, norms=norms
             )
             p = state["qkv_gate"]["p"]
-            return self.qkv(ctx, self._op_input(p, ln), kcap / p.shape[-2]), None, None
+            y = self._col(ctx, self.qkv, self._op_input(p, ln), kcap / p.shape[-2])
+            return y, None, None
         x_t, index, mask, state["qkv_gate"] = self._gate_ln(
             ctx, ln, self.qkv_gate, state["qkv_gate"], x
         )
         if "qkv_accumulator" not in state:
             p = state["qkv_gate"]["p"]
             frac = (index.shape[-1] / p.shape[-2]) * valid_fraction(mask)
-            return self.qkv(ctx, self._op_input(p, ln), frac), index, mask
-        x_t = self.qkv(ctx, x_t, valid_fraction(mask))
+            return self._col(ctx, self.qkv, self._op_input(p, ln), frac), index, mask
+        x_t = self._col(ctx, self.qkv, x_t, valid_fraction(mask))
         x, state["qkv_accumulator"] = self.qkv_accumulator.incremental(
             state["qkv_accumulator"], x_t, index, mask
         )
@@ -1035,15 +1080,15 @@ class EventfulTokenwiseBlock(Block):
         elif "projection_accumulator" not in state and gate.select_only_ok():
             kcap, state["projection_gate"] = gate.incremental_select(ctx, gate_state, x)
             p = state["projection_gate"]["p"]
-            x = self.projection(ctx, p, kcap / p.shape[-2])
+            x = self._row(ctx, self.projection, p, kcap / p.shape[-2])
         else:
             x_t, index, mask, state["projection_gate"] = gate.incremental(ctx, gate_state, x)
             if "projection_accumulator" not in state:
                 p = state["projection_gate"]["p"]
                 frac = (index.shape[-1] / p.shape[-2]) * valid_fraction(mask)
-                x = self.projection(ctx, p, frac)
+                x = self._row(ctx, self.projection, p, frac)
             else:
-                x_t = self.projection(ctx, x_t, valid_fraction(mask))
+                x_t = self._row(ctx, self.projection, x_t, valid_fraction(mask))
                 x, state["projection_accumulator"] = self.projection_accumulator.incremental(
                     state["projection_accumulator"], x_t, index, mask
                 )
@@ -1360,7 +1405,7 @@ class EventfulMatmul1Block(EventfulTokenwiseBlock):
         state = super().init_state(batch, n_tokens, dtype, device)
         if not self.recompute_product:
             state["matmul_accumulator_1"] = self.matmul_accumulator_1.init_state(
-                (batch, self.heads, n_tokens, self._pooled_tokens(n_tokens)), dtype, device
+                (batch, self.local_heads, n_tokens, self._pooled_tokens(n_tokens)), dtype, device
             )
         return state
 
@@ -1475,14 +1520,14 @@ class EventfulBlock(EventfulMatmul1Block):
         n_p = self._pooled_tokens(n_tokens)
         n_a = self.out_tokens(n_tokens)  # the attention rows ATS keeps
         sdtype = _CAST_DTYPES.get(self.matmul_2_cast, dtype)
-        head_dim = self.dim // self.heads
-        state["v_gate"] = self.v_gate.init_state((batch, self.heads, n_p, head_dim), sdtype, device)
+        head_dim, heads = self.dim // self.heads, self.local_heads
+        state["v_gate"] = self.v_gate.init_state((batch, heads, n_p, head_dim), sdtype, device)
         state["matmul_gate"] = self.matmul_gate.init_state(
-            (batch, self.heads, n_a, n_p), sdtype, device
+            (batch, heads, n_a, n_p), sdtype, device
         )
         if not self.recompute_av:
             state["matmul_accumulator_2"] = self.matmul_accumulator_2.init_state(
-                (batch, self.heads, n_a, head_dim), sdtype, device
+                (batch, heads, n_a, head_dim), sdtype, device
             )
         return state
 

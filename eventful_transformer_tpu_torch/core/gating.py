@@ -34,13 +34,18 @@ from eventful_transformer_tpu_torch.core.policies import topk_coverage_ok, vecto
 
 class TokenGate:
     """Reference-state token gate. ``structure``: "row" gates the token
-    axis -2, "col" the axis -1."""
+    axis -2, "col" the axis -1. ``norm_group``: the process group over
+    which the reduced axis is split (a tensor-parallel block's projection
+    gate, whose input is cut by head; ``parallel/sharding.py``), None where
+    the gate holds the whole axis; every rank of it then selects from the
+    whole axis's norms, and updates its own columns of ``p``."""
 
     def __init__(self, structure="row"):
         if structure not in ("row", "col"):
             raise ValueError(f"structure must be 'row' or 'col', got {structure!r}")
         self.structure = structure
         self.policy = None  # set by utils.misc.set_policies
+        self.norm_group = None
 
     def init_state(self, shape, dtype, device):
         return {"p": torch.zeros(shape, dtype=dtype, device=device)}
@@ -53,7 +58,7 @@ class TokenGate:
     def _select(self, e, forced_index, forced_mask, ctx=None):
         if forced_index is not None:
             return forced_index, forced_mask
-        return self.policy.select(e, -1 if self.structure == "row" else -2, ctx)
+        return self.policy.select(e, -1 if self.structure == "row" else -2, ctx, self.norm_group)
 
     def incremental(self, ctx, state, c, forced_index=None, forced_mask=None):
         """The selected tokens of ``c`` replace those of the reference.
@@ -78,7 +83,7 @@ class TokenGate:
         ctx.add("gate_flops", c.numel())
         p = state["p"]
         if norms is None:
-            norms = vector_norm(c - p, -1, self.policy.order)
+            norms = vector_norm(c - p, -1, self.policy.order, self.norm_group)
         kcap = self.policy.capacity(c.shape[-2])
         cov = coverage_from_norms(norms, kcap)
         return kcap, {"p": torch.where(cov[..., None] > 0, c, p)}

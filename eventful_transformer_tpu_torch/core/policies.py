@@ -9,23 +9,47 @@ ties to the smallest index), listed as indices in ascending order by
 those whose norm is not above the threshold, counting a saturated selection
 (every candidate above it) in ``policy_saturated``, the signal of the
 capacity-bucketed dispatch (``utils/bucketing.py``).
+
+Under tensor parallelism a gate's reduced axis may be split over the
+processes of a group (the projection gate's input, the attention output,
+is cut by head): ``select`` then takes the group, and every rank selects
+from the whole axis's norms (:func:`vector_norm`).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms, index_from_coverage
 
 
-def vector_norm(e, dim, order):
-    """Per-token error norm of ``e`` reduced over ``dim``, in float32."""
+def vector_norm(e, dim, order, group=None):
+    """Per-token error norm of ``e`` reduced over ``dim``, in float32 (order
+    inf: the largest |e|). With ``group`` the axis ``dim`` is split over
+    that process group: each rank's partial sum of |e|^order (its largest
+    |e|, for order inf) is all-reduced before the root, so that every rank
+    holds the whole axis's norms. The norms only select, so the all-reduce
+    carries no gradient."""
     e = e.float()
+    if order == float("inf"):
+        return reduced(e.abs().amax(dim=dim), group, dist.ReduceOp.MAX)
     if order == 2:
-        return e.square().sum(dim=dim).sqrt()
+        return reduced(e.square().sum(dim=dim), group).sqrt()
     if order == 1:
-        return e.abs().sum(dim=dim)
-    return (e.abs() ** order).sum(dim=dim) ** (1.0 / order)
+        return reduced(e.abs().sum(dim=dim), group)
+    return reduced((e.abs() ** order).sum(dim=dim), group) ** (1.0 / order)
+
+
+def reduced(x, group, op=dist.ReduceOp.SUM):
+    """x reduced over the process group ``group`` by ``op``, detached (a
+    selection's input, which carries no gradient); x itself where
+    ``group`` is None."""
+    if group is None:
+        return x
+    x = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(x, op=op, group=group)
+    return x
 
 
 class TokenNormTopK:
@@ -45,11 +69,12 @@ class TokenNormTopK:
     def capacity(self, n_tokens):
         return min(self.k, n_tokens)
 
-    def select(self, e, norm_axis, ctx=None):
+    def select(self, e, norm_axis, ctx=None, group=None):
         """Select from the error tensor ``e``, its norm taken over
-        ``norm_axis``; the token axis is the remaining last one. Returns
-        (index, mask)."""
-        index, mask = self.select_from_norms(vector_norm(e, norm_axis, self.order), ctx)
+        ``norm_axis`` (split over the process group ``group``, where
+        given); the token axis is the remaining last one. Returns (index,
+        mask)."""
+        index, mask = self.select_from_norms(vector_norm(e, norm_axis, self.order, group), ctx)
         if self.save_status:
             self.last_input = e
             self.last_output = index
@@ -94,8 +119,8 @@ class TokenNormThreshold:
     def capacity(self, n_tokens):
         return n_tokens if self._capacity is None else min(self._capacity, n_tokens)
 
-    def select(self, e, norm_axis, ctx=None):
-        return self.select_from_norms(vector_norm(e, norm_axis, self.order), ctx)
+    def select(self, e, norm_axis, ctx=None, group=None):
+        return self.select_from_norms(vector_norm(e, norm_axis, self.order, group), ctx)
 
     def select_from_norms(self, norms, ctx=None):
         """(index (..., k), mask (..., k)). Below full capacity it adds to

@@ -11,7 +11,11 @@ local rank that torchrun puts in its environment (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``); with none of them set the
 group has one rank. The backend follows the device: NCCL for ``cuda``
 (after ``torch.cuda.set_device(LOCAL_RANK)``), gloo for ``cpu``; a failed
-NCCL initialisation is an error, never a fall back to gloo. ``make_mesh``
+NCCL initialisation is an error, never a fall back to gloo. Setting
+:data:`BACKEND_ENV` to ``gloo`` asks for gloo on the card instead, so that
+several processes can share one GPU (NCCL refuses two ranks on one device;
+rank r takes GPU r modulo the GPUs there are): a setting for tests and the
+smoke run on one card, whose failed collective fails as NCCL's would. ``make_mesh``
 lays the processes out on named axes ("data", "seq", "model", "pipe"), as
 the JAX mesh names its axes; ``mesh.get_group(axis)`` is an axis's process
 group. ``best_dp_tp_mesh`` picks the ("data", "model") shape of a
@@ -39,6 +43,8 @@ import torch.distributed as dist
 # an init_method URL (``file://...``, ``tcp://...``) that takes the place of
 # torchrun's MASTER_ADDR/MASTER_PORT; :func:`spawn` sets it to a FileStore
 INIT_METHOD_ENV = "EVT_DIST_INIT_METHOD"
+# "nccl" (the default) or "gloo": the backend of a group on the card
+BACKEND_ENV = "EVT_DIST_BACKEND"
 
 
 def init_process_group(device="cuda"):
@@ -62,15 +68,32 @@ def init_process_group(device="cuda"):
     return True
 
 
+def backend_for(device):
+    """The backend of a group on ``device``: gloo on the CPU; on the card
+    NCCL, or what :data:`BACKEND_ENV` names ("nccl" or "gloo")."""
+    if torch.device(device).type != "cuda":
+        return "gloo"
+    backend = os.environ.get(BACKEND_ENV) or "nccl"
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"{BACKEND_ENV}={backend!r}: the card's backends are 'nccl' and 'gloo'")
+    return backend
+
+
 def _join(device, rank, world_size, **where):
-    """The default group on ``device``'s backend: NCCL on the card (the GPU
-    of ``LOCAL_RANK``), gloo on the CPU."""
+    """The default group on ``device``'s backend (:func:`backend_for`): on
+    the card the GPU of ``LOCAL_RANK`` (modulo the GPUs there are, where
+    gloo lets ranks share one), initialised, so that a ``DeviceMesh`` keeps
+    it."""
     device = torch.device(device)
+    backend = backend_for(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run the ranks on gloo")
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-    backend = "nccl" if device.type == "cuda" else "gloo"
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        if backend == "gloo":
+            local %= torch.cuda.device_count()
+        torch.cuda.set_device(local)
+        torch.cuda.init()
     dist.init_process_group(backend, rank=rank, world_size=world_size, **where)
 
 

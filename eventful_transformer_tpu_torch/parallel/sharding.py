@@ -1,6 +1,5 @@
 """Tensor parallelism (port of ``eventful_transformer_tpu/parallel/sharding.py``):
-Megatron's split of the dense ViT block over the processes of a "model"
-axis.
+Megatron's split of the ViT blocks over the processes of a "model" axis.
 
 Column-parallel: the qkv and mlp_1 kernels (and their biases) keep their
 output columns of this rank. Row-parallel: the projection and mlp_2 kernels
@@ -25,10 +24,17 @@ each row linear (all-reduce forward, identity backward). The second is not
 ``torch.distributed.nn.functional.all_reduce``, whose backward all-reduces
 the gradient again and so multiplies it by tp.
 
-Only the dense ``Block`` is split; an eventful block class under tp > 1
-raises (its projection gate would need its norms all-reduced over
-"model"), and so do the options that attend per head beyond the packed qkv
-(rel-pos, ATS) or shard the tokens (``sequence_parallel``).
+Every block class of ``core/blocks.py::BLOCK_CLASSES`` is split, ATS
+blocks included, as the JAX package shards them by parameter name whatever
+the class: the eventful blocks' gates and buffers take the widths and the
+collectives ``core/blocks.py``'s docstring sets out, and each eventful
+block's projection gate gets the group as its ``norm_group``. Refused at
+tp > 1: a block class the port does not know (its state's widths and
+collectives are not stated), rel-pos (the JAX package has no
+tensor-parallel path for it: ViTDet, the only model with rel-pos, has no
+such entry point, and a rel-pos ViViT fails in the JAX package under any
+mesh), and ``sequence_parallel`` (a block shards its heads or its tokens,
+not both).
 """
 
 from __future__ import annotations
@@ -108,13 +114,15 @@ def from_model_parallel(x, group):
 
 
 def _check_splittable(block, tp):
-    from eventful_transformer_tpu_torch.core.blocks import Block
+    from eventful_transformer_tpu_torch.core.blocks import BLOCK_CLASSES
 
-    if type(block) is not Block:
-        raise ValueError(f"tensor parallelism takes the dense Block, not {type(block).__name__} "
-                         "(an eventful block's gates would need their norms all-reduced)")
-    if block.relative_position is not None or block.ats_fraction is not None:
-        raise ValueError("tensor parallelism takes blocks without rel-pos or ATS")
+    if type(block) not in BLOCK_CLASSES.values():
+        raise ValueError(f"tensor parallelism takes the block classes {sorted(BLOCK_CLASSES)}, "
+                         f"not {type(block).__name__} (its state's widths and collectives "
+                         "under tp are not stated)")
+    if block.relative_position is not None:
+        raise ValueError("tensor parallelism takes blocks without rel-pos (the JAX package has "
+                         "no tensor-parallel path for a rel-pos block)")
     if block.sequence_parallel is not None:
         raise ValueError("a block is tensor- or sequence-parallel, not both")
     hidden = block.mlp_1.out_features
@@ -137,14 +145,15 @@ def _set(linear, name, value):
 
 
 def shard_params(mesh, model, tp_axis="model"):
-    """Narrow every dense ``Block`` of ``model`` to this rank's share of the
+    """Narrow every block of ``model`` to this rank's share of the
     ``tp_axis`` group of ``mesh`` (the qkv columns by head, the mlp_1
-    columns, the projection and mlp_2 rows) and record the group on it, in
-    place; returns ``model``. At tp = 1 nothing changes, and the blocks
+    columns, the projection and mlp_2 rows) and record the group on it
+    (and, on an eventful block, on its projection gate), in place; returns
+    ``model``. At tp = 1 nothing changes, and the blocks
     keep their single-process forward; a block split over this group
     already stays as it is. Raises where a block cannot be split (see the
     module's docstring)."""
-    from eventful_transformer_tpu_torch.core.blocks import Block
+    from eventful_transformer_tpu_torch.core.blocks import Block, EventfulTokenwiseBlock
 
     group = mesh.get_group(tp_axis)
     tp, r = dist.get_world_size(group), dist.get_rank(group)
@@ -171,6 +180,8 @@ def shard_params(mesh, model, tp_axis="model"):
             _set(linear, "kernel", linear.kernel[r * n : (r + 1) * n])
             linear.in_features = n
         block.tp_group = group
+        if isinstance(block, EventfulTokenwiseBlock):
+            block.projection_gate.norm_group = group
     return model
 
 

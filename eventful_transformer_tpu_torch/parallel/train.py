@@ -2,10 +2,12 @@
 ``eventful_transformer_tpu/parallel/train.py``).
 
 Over a ("data", "model") mesh (``parallel/mesh.py::best_dp_tp_mesh``): the
-batch is split over "data", the dense blocks over "model"
-(``parallel/sharding.py``). Each rank computes the loss of its data shard
-through autograd (``Ctx(training=True)``: every block on its plain path,
-Megatron's all-reduces inside the blocks); then every gradient, zero where
+batch is split over "data", the blocks over "model" (``parallel/
+sharding.py``: the dense, eventful and ATS blocks; an eventful model's
+gates take the policies the caller set, as ``utils/misc.py::set_policies``
+sets them). Each rank computes the loss of its data shard through autograd
+(``Ctx(training=True)``: every block on its plain path, the eventful blocks
+stepping unfused, Megatron's all-reduces inside the blocks); then every gradient, zero where
 autograd gives none (as ``jax.value_and_grad`` does), is all-reduced over
 "data" and divided by dp, the gradient of the mean loss over the whole
 batch, and each rank steps its optimizer. The replicated parameters get the

@@ -515,6 +515,33 @@ print("ok")
 """
 
 
+SLICE_26_SCRIPT = """
+import contextlib, io, sys
+sys.modules["jax"] = None
+import torch
+torch.set_num_threads(2)
+from eventful_transformer_tpu_torch.core.policies import vector_norm
+from eventful_transformer_tpu_torch.parallel.mesh import backend_for
+from eventful_transformer_tpu_torch.scripts.misc import measure_vitdet_padding
+from eventful_transformer_tpu_torch.scripts.misc import measure_vivit_buckets
+tiny = ["model.input_shape=[4, 3, 16, 16]", "model.tubelet_shape=[2, 8, 8]", "model.classes=5",
+        "model.spatial_config.depth=1", "model.spatial_config.position_encoding_size=[2, 2]",
+        "model.spatial_config.block_config={dim: 48, heads: 6, mlp_ratio: 2}",
+        "model.temporal_config.depth=1", "model.temporal_config.position_encoding_size=[2]",
+        "model.temporal_config.block_config={dim: 48, heads: 6, mlp_ratio: 2}"]
+with contextlib.redirect_stdout(io.StringIO()):
+    rows = measure_vivit_buckets.main(["--device", "cpu", "--capacities", "2", "--clips", "1",
+                                       "--iters", "1", *tiny])
+assert rows[0]["capacity"] == 2 and rows[0]["ms_per_clip"] > 0
+assert callable(measure_vitdet_padding.padding_shares) and backend_for("cpu") == "gloo"
+e = torch.randn(3, 5, 8)
+assert torch.equal(vector_norm(e, -1, 2), e.square().sum(-1).sqrt())
+assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
+               for name, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+
+
 def _run(script):
     result = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
@@ -610,3 +637,10 @@ def test_training_parallel_runs_without_jax():
     pipeline, through the dry run at one gloo rank) and the detector's
     losses, without JAX."""
     _run(TRAINING_PARALLEL_SCRIPT)
+
+
+def test_slice_26_runs_without_jax():
+    """The two measurement scripts (the bucket script on a tiny ViViT at
+    ``--device cpu``), the norms that TP all-reduces and the backend rule,
+    without JAX."""
+    _run(SLICE_26_SCRIPT)

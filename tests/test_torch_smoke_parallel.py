@@ -51,6 +51,30 @@ def test_parallel_rank_paths_agree_on_the_cpu(world, frames, items, tmp_path):
         assert result["path_s"][path] > 0
 
 
+def test_tp_eventful_rank_agrees_on_the_cpu(tmp_path):
+    """Phase tp_eventful_paths's rank at two gloo ranks and slim widths:
+    each configuration sharded over tp = 2 (6 of 12 heads a rank) equal
+    to its unsharded unfused run, every selection included, and its train
+    steps to the plain autograd steps; the first rank writes both ranks'
+    results."""
+    out = tmp_path / "tp_eventful.json"
+    spawn(torch_parallel_ranks.smoke_tp_eventful_rank, chip_smoke.TP_EVENTFUL_WORLD,
+          args=(str(out),), threads=2)
+    ranks = json.loads(out.read_text())
+    assert [r["rank"] for r in ranks] == [0, 1]
+    for r in ranks:
+        assert (r["backend"], r["world_size"], r["tp"]) == ("gloo", 2, 2)
+        assert set(r["runs"]) == set(chip_smoke.TP_EVENTFUL_RUNS)
+        for name, run in r["runs"].items():
+            inference, training = run["inference"], run["training"]
+            assert inference["same_as_plain"] and inference["selections_differing"] == 0, name
+            assert inference["local_heads"] == [6], name
+            assert training["same_as_plain"], name
+            assert len(training["losses"]) == chip_smoke.TP_EVENTFUL_STEPS
+            # the gates and ATS select in every configuration
+            assert inference["gate_calls"] > 0 and inference["selections"] > 0, name
+
+
 def _run(plain_launches, launches, metric=0.5, par_metric=0.5):
     result = dict(metrics={"map": metric}, counts={"linear_flops": 1.0})
     return dict(plain=result, par=dict(result, metrics={"map": par_metric}),

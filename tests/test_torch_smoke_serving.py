@@ -54,7 +54,8 @@ def test_ats_scores_against_cpu_tallies_the_card_calls():
     plain = blocks.ats_scores
     with chip_smoke.ats_scores_against_cpu(0.5) as tally:
         on_cpu = blocks.ats_scores(a, v)
-        on_card = blocks.ats_scores(a.as_subclass(_OnCard), v.as_subclass(_OnCard))
+        # as the blocks call it: with their tensor-parallel group, None here
+        on_card = blocks.ats_scores(a.as_subclass(_OnCard), v.as_subclass(_OnCard), None)
     assert blocks.ats_scores is plain
     assert torch.equal(on_cpu, plain(a, v)) and torch.equal(on_card, on_cpu)
     k = int(0.5 * (n - 1)) + 1

@@ -26,7 +26,9 @@ the JAX package's TINY ViViT.
 - the replicated parameters' gradients equal across each TP group;
 - with dropout and drop-path on, the 2 x 2 step against one process's step
   over the two data shards, each drawn from its data rank's generator;
-- the refusals, ``dryrun_multichip(4, device="cpu")``, ``device="cuda"``
+- the refusals (rel-pos, sequence parallelism with TP, a block class the
+  port does not know; the eventful classes and ATS taken),
+  ``dryrun_multichip(4, device="cpu")``, ``device="cuda"``
   without a GPU, and ``initialize_distributed`` at 2 ranks over tcp.
 
 The rank functions live in tests/torch_parallel_ranks.py; one spawn of 4
@@ -145,8 +147,12 @@ def world(setup, tmp_path_factory):
     """One spawn of 4 ranks: the forwards at 1 x 4 and 2 x 2, the 5 steps
     at 2 x 2, the dropout step at 2 x 2, the refusals."""
     s = setup
-    eventful = copy.deepcopy(TINY)
-    eventful["spatial_config"]["block_class"] = "EventfulTokenwiseBlock"
+    taken = []
+    for block_class in ("EventfulTokenwiseBlock", "EventfulMatmul1Block", "EventfulBlock"):
+        taken.append(copy.deepcopy(TINY))
+        taken[-1]["spatial_config"]["block_class"] = block_class
+    taken.append(copy.deepcopy(TINY))
+    taken[-1]["spatial_config"]["block_config"]["ats_fraction"] = 0.5
     relpos = copy.deepcopy(TINY)
     relpos["spatial_config"]["block_config"]["relative_embedding_size"] = [4, 4]
     dropout_optimizer = {"optimizer": "AdamW", "optimizer_kwargs": {"lr": DROPOUT_LR}}
@@ -155,7 +161,7 @@ def world(setup, tmp_path_factory):
         ("tp_forward", TINY, s["flat"], s["views"], 2),
         ("tp_train", _dropout_config(), s["drop_flat"], s["inputs"][:4], s["labels"][:4],
          dropout_optimizer, 1, 2, DROPOUT_SEED),
-        ("tp_refused", [eventful, relpos, TINY]),
+        ("tp_refused", [relpos, (TINY, "sequence"), (TINY, "unknown"), *taken, TINY]),
         *[("tp_train", dict(TINY, dropout_rate=0.0), s["flat"], s["inputs"], s["labels"],
            OPTIMIZERS[name][0], STEPS, 2, SEED) for name in OPTIMIZERS],
     ]
@@ -325,10 +331,14 @@ def test_dropout_step_matches_one_process(world, setup):
 
 
 def test_refusals(world):
-    """An eventful block class and a rel-pos block under tp = 2 raise; the
-    dense TINY is taken."""
-    for eventful, relpos, dense in world[3]:
-        assert "dense Block" in eventful and "rel-pos" in relpos and dense is None
+    """A rel-pos block, a sequence-parallel block and a block class the
+    port does not know raise under tp = 2, each saying why; the three
+    eventful classes, an ATS block and the dense TINY are taken."""
+    for relpos, sequence, unknown, *taken in world[3]:
+        assert "rel-pos" in relpos and "no tensor-parallel path" in relpos
+        assert "tensor- or sequence-parallel" in sequence
+        assert "UnknownBlock" in unknown and "block classes" in unknown
+        assert taken == [None] * 5
 
 
 def test_cross_entropy_from_probs():

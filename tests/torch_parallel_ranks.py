@@ -1,5 +1,6 @@
 """The rank functions of tests/test_torch_parallel.py,
-test_torch_tensor_parallel.py and test_torch_pipeline.py, run in processes
+test_torch_tensor_parallel.py, test_torch_tensor_parallel_eventful.py and
+test_torch_pipeline.py, run in processes
 that ``eventful_transformer_tpu_torch.parallel.mesh.spawn`` starts. This module
 imports nothing of JAX, so a rank starts in about a second. Each rank runs a
 list of jobs ``(name, *arguments)``, every job on a process group of its own
@@ -178,6 +179,40 @@ def smoke_rank(out, frames, items):
     chip_smoke.parallel_rank(out, frames, items)
 
 
+def smoke_tp_eventful_rank(out):
+    """``chip_smoke.tp_eventful_rank`` on a gloo rank at slim widths (12
+    heads of 8, 6 a rank at tp = 2; 2 spatial blocks and 1 temporal block
+    over 8 frames of 32 x 32, so 17 spatial tokens, of which the top-k
+    gates keep 4), the card's calls replaced as in :func:`smoke_rank`."""
+    import chip_smoke
+    from eventful_transformer_tpu_torch.ops import _build
+    from eventful_transformer_tpu_torch.parallel import mesh
+
+    config = chip_smoke.tp_eventful_model_config
+
+    def slim(name, **depths):
+        model, policy, attrs = config(name, **depths)
+        if policy is not None:
+            policy = (policy[0], dict(k=4))
+        model = dict(model, input_shape=[8, 3, 32, 32], tubelet_shape=[2, 8, 8])
+        for part, size, depth in (("spatial_config", [4, 4], 2), ("temporal_config", [4], 1)):
+            model[part] = dict(model[part], position_encoding_size=size,
+                               depth=min(model[part]["depth"], depth),
+                               block_config=dict(model[part]["block_config"], dim=96, heads=12))
+        return model, policy, attrs
+
+    chip_smoke.tp_eventful_model_config = slim
+    chip_smoke.rank_device = lambda: torch.device("cpu")
+    torch.cuda.reset_peak_memory_stats = lambda device=None: None
+    torch.cuda.max_memory_allocated = lambda device=None: 0
+    torch.cuda.synchronize = lambda: None
+    _build.load_library = lambda: None
+    make, group = mesh.best_dp_tp_mesh, mesh.distributed
+    mesh.best_dp_tp_mesh = lambda max_tp, device: make(max_tp=max_tp, device="cpu")
+    mesh.distributed = lambda device: group("cpu")
+    chip_smoke.tp_eventful_rank(out)
+
+
 def _tp_model(config, flat, max_tp):
     from eventful_transformer_tpu_torch.parallel.mesh import best_dp_tp_mesh
 
@@ -207,15 +242,18 @@ def tp_forward(config, flat, views, max_tp):
                 qkv_bias=qkv.bias.detach().numpy())
 
 
-def tp_train(config, flat, inputs, labels, optimizer, steps, max_tp, seed):
+def tp_train(config, flat, inputs, labels, optimizer, steps, max_tp, seed, policy=None):
     """``steps`` steps of ``make_sharded_train_step`` (``optimizer``: its
-    config) on the whole batch, the step i seeded ``seed + i``: the
-    losses, the replicated parameters' gradients of the first step, the
-    gathered parameters after the last."""
+    config) on the whole batch, the step i seeded ``seed + i``, every gate
+    on ``policy`` (:func:`_set_policy`) where given: the losses, the
+    replicated parameters' gradients of the first step, the gathered
+    parameters after the last."""
     from eventful_transformer_tpu_torch.parallel.sharding import gathered_params
     from eventful_transformer_tpu_torch.parallel.train import make_sharded_train_step
 
     mesh, model = _tp_model(config, flat, max_tp)
+    if policy is not None:
+        _set_policy(model, policy)
     init_fn, make_step = make_sharded_train_step(model, optimizer, mesh)
     opt, specs = init_fn()
     step = make_step(opt, specs)
@@ -230,21 +268,148 @@ def tp_train(config, flat, inputs, labels, optimizer, steps, max_tp, seed):
     return dict(_ranks(mesh), losses=losses, grads=grads, params=params)
 
 
+class UnknownBlock(Block):
+    """A block class the port's tensor parallelism does not know."""
+
+
 def tp_refused(configs):
     """``shard_params`` on the ("data", "model") mesh of tp = 2 for each
-    config's ViViT: the ValueError's message, or None where it was taken."""
+    config's ViViT: the ValueError's message, or None where it was taken.
+    A config ``(config, "unknown")`` makes its first spatial block an
+    :class:`UnknownBlock`; ``(config, "sequence")`` names a "seq" axis in
+    it (``Block.sequence_parallel``)."""
     from eventful_transformer_tpu_torch.parallel.mesh import best_dp_tp_mesh
     from eventful_transformer_tpu_torch.parallel.sharding import shard_params
 
     mesh = best_dp_tp_mesh(max_tp=2, device="cpu")
     messages = []
     for config in configs:
+        how = None
+        if isinstance(config, tuple):
+            config, how = config
+        model = FactorizedViViT(**config, device="cpu")
+        block = model.spatial_model.backbone.blocks[0]
+        if how == "unknown":
+            block.__class__ = UnknownBlock
+        elif how == "sequence":
+            block.sequence_parallel = "seq"
         try:
-            shard_params(mesh, FactorizedViViT(**config, device="cpu"))
+            shard_params(mesh, model)
             messages.append(None)
         except ValueError as error:
             messages.append(str(error))
     return messages
+
+
+class SelectionLog:
+    """Every selection a forward makes, in order: each top-k coverage
+    (``coverage_from_norms`` where the gates, the policies and ATS call
+    it: ("topk", the calling module's name, norms, k, coverage); the
+    blocks module's are ATS's) and each threshold mask ("threshold",
+    "policies", norms, threshold, mask), as numpy, while it is
+    entered."""
+
+    def __init__(self):
+        self.entries = []
+        self._undo = []
+
+    def __enter__(self):
+        from eventful_transformer_tpu_torch.core import blocks, gating, policies
+
+        for module in (blocks, gating, policies):
+            self._patch(module, "coverage_from_norms",
+                        self._topk(module.coverage_from_norms, module.__name__.split(".")[-1]))
+        threshold = policies.TokenNormThreshold
+        self._patch(threshold, "select_from_norms", self._threshold(threshold.select_from_norms))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, value in reversed(self._undo):
+            setattr(owner, name, value)
+
+    def _patch(self, owner, name, value):
+        self._undo.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, value)
+
+    def _topk(self, fn, where):
+        def recorded(norms, k):
+            cov = fn(norms, k)
+            self.entries.append(("topk", where, norms.detach().numpy().copy(), k,
+                                 cov.numpy().copy()))
+            return cov
+        return recorded
+
+    def _threshold(self, fn):
+        def recorded(policy, norms, ctx=None):
+            index, mask = fn(policy, norms, ctx)
+            self.entries.append(("threshold", "policies", norms.detach().numpy().copy(),
+                                 policy.threshold,
+                                 (torch.gather(norms, -1, index) > policy.threshold).numpy()))
+            return index, mask
+        return recorded
+
+
+def selection_margin(entries):
+    """The least relative margin of the selections in ``entries``
+    (:class:`SelectionLog`): of a top-k, the gap between the k-th and
+    (k+1)-th largest norms over the k-th; of a threshold, the distance of
+    each norm from the threshold over the threshold. inf where none
+    could flip."""
+    import numpy as np
+
+    least = np.inf
+    for kind, _, norms, bar, _ in entries:
+        norms = norms.reshape(-1, norms.shape[-1]).astype(np.float64)
+        if kind == "topk":
+            if bar >= norms.shape[-1]:
+                continue
+            top = -np.sort(-norms, axis=-1)
+            kth = top[:, bar - 1]
+            gap = (kth - top[:, bar]) / np.maximum(np.abs(kth), 1e-30)
+        else:
+            gap = np.abs(norms - bar) / max(abs(bar), 1e-30)
+        least = min(least, float(gap.min()))
+    return least
+
+
+def tp_eventful_forward(config, flat, views, max_tp, policy, blocks=None):
+    """The eventful ViViT (every gate on ``policy``; ``blocks``: attributes
+    set on every spatial block) on this rank's data shard of ``views``
+    under ``best_dp_tp_mesh(4, max_tp)``, sharded and not: the sharded
+    probabilities and counts; the port's own unsharded probabilities in
+    its default regime ("auto") and on the unfused path (the one the
+    sharded blocks take) with its counts; the selections of the unfused
+    and the sharded runs (:class:`SelectionLog`) and their least margin."""
+    from eventful_transformer_tpu_torch.parallel.sharding import shard_params
+
+    mesh, model = _tp_model(config, flat, max_tp)
+    ranks = _ranks(mesh)
+    dp = dist.get_world_size(mesh.get_group("data"))
+    n = views.shape[0] // dp
+    mine = torch.from_numpy(views[ranks["data"] * n:][:n])
+
+    def build(fused=None):
+        built = _set_policy(params_from_jax(FactorizedViViT(**config, device="cpu"), flat), policy)
+        for block in built.spatial_model.backbone.blocks:
+            for key, value in dict(blocks or {}, **({} if fused is None
+                                                     else {"fused_gates": fused})).items():
+                setattr(block, key, value)
+        return built
+
+    def run(built):
+        ctx = Ctx(count_mode=True)
+        with SelectionLog() as log, torch.no_grad():
+            probs = built.apply_views(ctx, mine)
+        return probs.numpy(), dict(ctx.counts), log.entries
+
+    auto, _, _ = run(build())
+    unfused, unfused_counts, want = run(build(fused=False))
+    model = build()
+    shard_params(mesh, model)
+    probs, counts, got = run(model)
+    return dict(ranks, probs=probs, counts=counts, auto=auto, unfused=unfused,
+                unfused_counts=unfused_counts, selections=[(e[1], e[4]) for e in got],
+                want_selections=[(e[1], e[4]) for e in want], margin=selection_margin(want))
 
 
 def _backbone(config, flat, k):
@@ -305,6 +470,7 @@ def joined(address, world_size):
 JOBS = dict(ulysses=ulysses, sp_backbone=sp_backbone, vitdet_sp=vitdet_sp,
             vitdet_sp_refused=vitdet_sp_refused, vitdet_dp=vitdet_dp, vivit_dp=vivit_dp,
             entry=entry, tp_forward=tp_forward, tp_train=tp_train, tp_refused=tp_refused,
+            tp_eventful_forward=tp_eventful_forward,
             pipeline=pipeline, pipeline_refused=pipeline_refused)
 
 
