@@ -595,11 +595,24 @@ _START = time.perf_counter()
 _LAST_EMIT = [_START, None]  # the time and the phase of the last line
 
 
+# each phase's seconds (summed where a phase emits more than once); the
+# phases the float32 bodies run in, whose seconds the total line repeats
+# beside the script's total before those bodies were redesigned (one NVIDIA
+# H100 80GB HBM3 at 700 W, PERF.md section 6)
+PHASE_SECONDS = {}
+F32_PHASES = ("f32_bodies", "threshold_kernels", "harness_vivit", "harness_vitdet",
+              "harness_cli", "ats_kernels", "ats_path", "spatial_cache_path", "train_kernels",
+              "train_path", "parallel_kernels", "parallel_paths", "tp_paths",
+              "tp_eventful_kernels", "tp_eventful_paths")
+EARLIER_TOTAL_S = 782.5
+
+
 def emit(phase, **fields):
     """One JSON line; ``phase_s``: the seconds since the previous line, the
     phase's own time."""
     now = time.perf_counter()
     fields["phase_s"] = round(now - _LAST_EMIT[0], 3)
+    PHASE_SECONDS[phase] = round(PHASE_SECONDS.get(phase, 0.0) + fields["phase_s"], 3)
     _LAST_EMIT[:] = [now, phase]
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -660,7 +673,28 @@ def phase_build():
         if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")
     })
     emit("build", seconds=round(seconds, 3), library=_build.library_path().name,
-         spill_lines=spills, gemm_tc_ptxas=gemm_tc_ptxas(log))
+         spill_lines=spills, gemm_tc_ptxas=gemm_tc_ptxas(log), f32_ptxas=f32_ptxas(log))
+
+
+def f32_ptxas(log):
+    """ptxas's registers and spills of every instantiation of the two
+    float32 bodies (gemm.cuh's gemm_simt_kernel, av_softmax.cu's
+    av_simt_kernel), each once."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = name if "gemm_simt_kernel" in name or "av_simt_kernel" in name else None
+            if entry is not None:
+                out.setdefault(entry, dict(kernel=entry))
+        elif entry is not None and "spill stores" in line:
+            words = line.split()
+            out[entry]["spill_bytes"] = int(words[4]) + int(words[8])
+        elif entry is not None and "Used" in line and "registers" in line:
+            words = line.split()
+            out[entry]["registers"] = int(words[words.index("Used") + 1])
+            entry = None
+    return list(out.values())
 
 
 # the epilogue functors of the wgmma core's instantiations, as in their names
@@ -949,6 +983,128 @@ def phase_gemm_core(device, smi):
             ))
     emit("gemm_core", card=smi, peak_tflops=989.0, rows=rows)
     return rows
+
+
+# The float32 GEMM rows and row 8's float32 forms at their paths' shapes
+# (PERF.md section 6's rows 4t, 5m, 5a, 5t, 5s, 4v, 5p, 4p, 7p; 8t, 8p, 8e and
+# the 197-key logits form): (entry, row, batch, N, k, make_inputs keywords,
+# (C, heads)), profiled by phase f32_bodies.
+F32_P672 = dict(window=(14, 14), pool=(21, 21))
+F32_GEMM_PROFILE = (
+    ("gate_group_mlp_threshold", "4t", 12, 197, 197, {}, (768, 12)),
+    ("dense_mlp_residual", "5m", 12, 197, 197, {}, (768, 12)),
+    ("dense_mlp_residual", "5a", 12, 361, 361, {}, (768, 12)),
+    ("dense_mlp_residual", "5t", 192, 17, 17, {}, (768, 12)),
+    ("dense_mlp_residual", "5s", 12, 17, 17, {}, (768, 12)),
+    ("gate_group_mlp", "4v", 12, 197, 24, dict(pool=(1, 197)), (768, 12)),
+    ("dense_mlp_residual", "5p", 1, 1764, 512, F32_P672, (768, 12)),
+    ("gate_group_mlp", "4p", 1, 1764, 512, F32_P672, (768, 12)),
+    ("gate_group_linear", "7p", 1, 1764, 512, F32_P672, (768, 12)),
+    ("gate_group_linear_post", "7p", 1, 1764, 512, F32_P672, (768, 12)),
+)
+F32_AV_PROFILE = (
+    ("softmax_select_matmul_threshold", "8t", 1, 4096, 512,
+     dict(window=(14, 14), windows=50, pool=(64, 64), pad_window=(14, 14), relpos_keys=(8, 8)),
+     (768, 12)),
+    ("softmax_select_matmul", "8p", 1, 1764, 512, F32_P672, (768, 12)),
+    ("softmax_select_matmul_noterms", "8e", 4, 197, 24, dict(window=(4, 6), pool=(1, 197)),
+     (384, 6)),
+    ("softmax_select_matmul_logits_noterms", "8l", 12, 197, 24,
+     dict(window=(4, 6), pool=(1, 197)), (768, 12)),
+)
+F32_PEAK_TFLOPS = 67.0  # float32 FMA on the CUDA cores, H100 SXM peak
+
+
+def simt_launches(entries, calls=5):
+    """Each float32 GEMM launch of one call of each entry, from
+    ``torch.profiler``'s device events over one warm-up call and ``calls``
+    calls of every entry in one profiler session: ``entries`` yields (name, d). For
+    each entry [(GEMM 1, 2.., (M, K, N), its plan, device us a call)]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from eventful_transformer_tpu_torch.ops import gemm_core, kernel_check
+
+    order = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, d in entries:
+            shapes = gemm_shapes(name, d)
+            order.append((name, shapes, [gemm_core.simt_plan(*shape) for shape in shapes]))
+            for _ in range(calls + 1):
+                kernel_check.call(name, d)
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")
+                     and "gemm_simt_kernel" in e.name), key=lambda e: e.time_range.start)
+    out, at = [], 0
+    for name, shapes, plans in order:
+        mine = events[at + len(shapes):at + (calls + 1) * len(shapes)]  # past the warm-up call
+        at += (calls + 1) * len(shapes)
+        if len(mine) != calls * len(shapes):
+            raise AssertionError(f"f32_bodies {name}: {len(mine)} float32 GEMM launches, "
+                                 f"expected {calls * len(shapes)}")
+        us = [0.0] * len(shapes)
+        for i, e in enumerate(mine):
+            us[i % len(shapes)] += e.time_range.elapsed_us() / calls
+        out.append([(g + 1, shapes[g], plans[g], us[g]) for g in range(len(shapes))])
+    if at != len(events):
+        raise AssertionError(f"f32_bodies: {len(events)} float32 GEMM launches, expected {at}")
+    return out
+
+
+def phase_f32_bodies(device, smi):
+    """The two float32 bodies at their paths' shapes: each float32 GEMM
+    launch of rows 4, 5 and 7 (its tile, device microseconds from the
+    profiler, TFLOP/s against the CUDA cores' 67), and row 8's float32
+    forms, each also under the matmul-2 cast (its device microseconds from
+    CUDA events behind a sleep, one "simt" launch a call, the share of the
+    bound); every call checked against its plain version."""
+    from eventful_transformer_tpu_torch.ops import kernel_check
+
+    def inputs(bsz, n, k, extra, width):
+        torch.cuda.empty_cache()
+        return kernel_check.make_inputs(bsz, n, *width, k, torch.float32, device, seed=SEED,
+                                        **extra)
+
+    gemm_rows, failures = [], []
+    entries = [(name, inputs(bsz, n, k, extra, width))
+               for name, _, bsz, n, k, extra, width in F32_GEMM_PROFILE]
+    for (name, d), (_, row, *_) in zip(entries, F32_GEMM_PROFILE):
+        if not all(out["ok"] for out in kernel_check.errors(name, d)):
+            failures.append((name, row))
+    for (name, row, *_), gemms in zip(F32_GEMM_PROFILE, simt_launches(entries)):
+        for gemm, (m, kk, nn), plan, us in gemms:
+            gemm_rows.append(dict(kernel=name, row=row, gemm=gemm, m=m, k=kk, n=nn,
+                                  tile=plan.shape[:2], blocks=plan.blocks, device_us=us,
+                                  tflops=2.0 * m * kk * nn / us / 1e6,
+                                  of_peak=2.0 * m * kk * nn / us / 1e6 / F32_PEAK_TFLOPS))
+    del entries
+    av_rows = []
+    for name, row, bsz, n, k, extra, width in F32_AV_PROFILE:
+        d = inputs(bsz, n, k, extra, width)
+        for cast in (False, True):
+            dd = dict(d)
+            if cast:  # the matmul-2 cast: float32 q, k and terms over bfloat16 state
+                for key in ("p_a", "p_v", "av_logits"):
+                    dd[key] = dd[key].to(torch.bfloat16)
+            if cast and name.startswith("softmax_select_matmul_logits"):
+                continue  # bfloat16 logits without terms: the tensor-core body
+            wrapper = kernel_check.KERNELS[name][0]
+            before = dict(wrapper.body_launches)
+            ok = all(out["ok"] for out in kernel_check.errors(name, dd))
+            simt = wrapper.body_launches == dict(before, simt=before["simt"] + 1)
+            if not (ok and simt):
+                failures.append((name, row, "cast" if cast else "float32"))
+            bound_ms = kernel_check.bound(name, dd)[0]
+            clone = {key: v.clone() if torch.is_tensor(v) else v for key, v in dd.items()}
+            us = kernel_check.queued_device_us(lambda: kernel_check._invoke(name, wrapper, clone))
+            av_rows.append(dict(kernel=name, row=row, state=str(dd["p_a"].dtype).split(".")[-1],
+                                keys=dd["p_a"].shape[-1], device_us=us,
+                                bound_us=bound_ms * 1e3, bound_share=bound_ms * 1e3 / us))
+        del d
+    torch.cuda.empty_cache()
+    emit("f32_bodies", card=smi, peak_tflops=F32_PEAK_TFLOPS, gemm=gemm_rows, av=av_rows)
+    if failures:
+        raise AssertionError(f"f32_bodies: off their plain versions or bodies: {failures}")
+    return gemm_rows, av_rows
 
 
 def phase_kernels(device):
@@ -5336,6 +5492,7 @@ def main():
     phase_build()
     kernel_rows = phase_kernels(device)
     phase_gemm_core(device, smi)
+    phase_f32_bodies(device, smi)
     eventful, dense, views, launches = phase_slice(device)
     phase_time(eventful, dense, views, smi)
     del eventful, dense, views
@@ -5371,7 +5528,10 @@ def main():
         if wrapper in GEMM_ROWS:
             row["core_launches"] = {dtype: by_wrapper.get(wrapper) for dtype, by_wrapper
                                     in cores.items()}
-    emit("total", seconds=round(time.perf_counter() - _START, 3))
+    emit("total", seconds=round(time.perf_counter() - _START, 3),
+         earlier_total_seconds=EARLIER_TOTAL_S,
+         float32_phases_s={phase: PHASE_SECONDS[phase] for phase in F32_PHASES
+                           if phase in PHASE_SECONDS})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -123,8 +123,9 @@ int proj_group(int row_body, const void* attn, void* p_proj, const float* cov, c
 
 }  // namespace etk
 
-// core: ops/gemm_core.py CORE_CODES; split: the GEMM's split of its K
-// steps; ws: its float32 workspace (null unsplit).
+// core: ops/gemm_core.py CORE_CODES; split: the GEMM's plan code
+// (gemm_core.plan_args: the split of its K steps, or the float32 tile);
+// ws: its float32 workspace (null unsplit).
 extern "C" {
 
 // body: the attention stage's (ops/window_attention.py BODY_CODES); row_body:

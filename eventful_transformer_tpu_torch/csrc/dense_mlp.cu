@@ -66,7 +66,8 @@ int dense_mlp_residual(int row_body, const void* x, const void* ln_scale, const 
 }  // namespace etk
 
 // core: ops/gemm_core.py CORE_CODES, both GEMMs; split1, split2: each
-// GEMM's split of its K steps; ws: the float32 workspace of the larger
+// GEMM's plan code (gemm_core.plan_args: the split of its K steps, or the
+// float32 tile); ws: the float32 workspace of the larger
 // split (null when neither splits); row_body: the LN pass's body
 // (ops/row_pass.py ROW_BODY_CODES).
 extern "C" int etk_dense_mlp_residual(int dtype, int row_body, const void* x, const void* ln_scale,

@@ -78,8 +78,9 @@ struct BiasSkipEpilogue {
 
 }  // namespace etk
 
-// core: ops/gemm_core.py CORE_CODES; split: the GEMM's split of its K
-// steps; ws: its float32 workspace (null unsplit).
+// core: ops/gemm_core.py CORE_CODES; split: the GEMM's plan code
+// (gemm_core.plan_args: the split of its K steps, or the float32 tile);
+// ws: its float32 workspace (null unsplit).
 extern "C" {
 
 // ln_mode 0 "none", 1 "post", 2 "pre" (ops/common.py::LN_MODES);

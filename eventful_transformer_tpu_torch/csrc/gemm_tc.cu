@@ -1,5 +1,5 @@
-// The wgmma core of gemm_tc.cuh on its own, for its tests: out = a[rows] @ w
-// in float32, no epilogue beyond the store. Rows 2-5 reach the core through
+// The wgmma core of gemm_tc.cuh and gemm.cuh's float32 tile on their own,
+// for their tests: out = a[rows] @ w in float32, no epilogue beyond the store. Rows 2-5 reach the core through
 // their own entries (block_fused.cu, gate_group.cu, dense_mlp.cu). Also the
 // core's one TMA descriptor cache (tensor_map_2d) and its encode count.
 #include <functional>
@@ -124,6 +124,7 @@ struct StoreEpilogue {
   __device__ __forceinline__ void store(int m, int n, float acc, int) const {
     out[(int64_t)m * ld + n] = acc;
   }
+  __device__ __forceinline__ void operator()(int m, int n, float acc) const { store(m, n, acc, 0); }
 };
 
 }  // namespace etk
@@ -145,4 +146,17 @@ extern "C" int etk_gemm_tc(const void* a, const void* idx, const void* w, void* 
                                  (cudaStream_t)stream);
   return launch_gemm_tc<true>(A, a_rows, etk::IndexRows{(const int*)idx}, W, m, k, n, splits,
                               (float*)ws, epi, (cudaStream_t)stream);
+}
+
+// a (a_rows, k) and w (k, n) float32; idx null (a dense) or m int32 row
+// indices; out (m, n) float32; tile: gemm.cuh's float32 tile code.
+extern "C" int etk_gemm_simt(const void* a, const void* idx, const void* w, void* out, int m,
+                             int k, int n, int tile, void* stream) {
+  const auto* A = (const float*)a;
+  const auto* W = (const float*)w;
+  const etk::StoreEpilogue epi{(float*)out, n};
+  if (idx == nullptr)
+    return etk::launch_gemm_simt(A, etk::DenseRows{}, W, m, k, n, epi, tile, (cudaStream_t)stream);
+  return etk::launch_gemm_simt(A, etk::IndexRows{(const int*)idx}, W, m, k, n, epi, tile,
+                               (cudaStream_t)stream);
 }

@@ -92,13 +92,6 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// 16 bytes from global to shared; src_bytes 0 fills zeros
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, uint32_t src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
 // The barrier counts one arrival of this thread when its earlier cp.asyncs land.
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
@@ -391,27 +384,26 @@ int launch_gemm_tc(const __nv_bfloat16* A, int64_t a_rows, ARows arows, const __
   return (int)cudaGetLastError();
 }
 
-// The GEMM core a call takes (ops/gemm_core.py CORE_CODES): kCoreOld, the
-// SIMT/WMMA tile of gemm.cuh; kCoreTc, this one, bfloat16 only.
+// The GEMM core a call takes (ops/gemm_core.py CORE_CODES): kCoreOld,
+// gemm.cuh's float32 tile or its WMMA tile; kCoreTc, this one, bfloat16 only.
 constexpr int kCoreOld = 0, kCoreTc = 1;
 
 struct GemmCall {
   int core = kCoreOld;
-  int splits = 1;
-  float* ws = nullptr;  // splits x M x N float32 when splits > 1
+  // the launch plan's code (ops/gemm_core.py::plan_args): on kCoreTc the
+  // split of the K steps, on gemm.cuh's float32 tile the tile (kSimtTile*)
+  int plan = 1;
+  float* ws = nullptr;  // plan x M x N float32 when the tc core splits K
 };
 
 // One GEMM on the core ``call`` names; a_rows as for launch_gemm_tc.
 template <typename T, bool kGather, typename ARows, typename Epi>
 int launch_gemm_core(const T* A, int64_t a_rows, ARows arows, const T* W, int M, int K, int N,
                      Epi epi, GemmCall call, cudaStream_t stream) {
-  if (call.core == kCoreOld) {
-    launch_gemm<T>(A, arows, W, M, K, N, epi, stream);
-    return (int)cudaGetLastError();
-  }
+  if (call.core == kCoreOld) return launch_gemm<T>(A, arows, W, M, K, N, epi, call.plan, stream);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (call.core == kCoreTc)
-      return launch_gemm_tc<kGather>(A, a_rows, arows, W, M, K, N, call.splits, call.ws, epi,
+      return launch_gemm_tc<kGather>(A, a_rows, arows, W, M, K, N, call.plan, call.ws, epi,
                                      stream);
   }
   return (int)cudaErrorInvalidValue;

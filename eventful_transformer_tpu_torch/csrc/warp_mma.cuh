@@ -1,5 +1,5 @@
-// Tensor-core and copy helpers, as inline PTX: 16-byte cp.async into
-// shared memory with its commit groups, ldmatrix (plain and transposed),
+// Tensor-core and copy helpers, as inline PTX: 16- and 4-byte cp.async
+// into shared memory (zero-filling) with its commit groups, ldmatrix (plain and transposed),
 // mma.sync.m16n8k16 with bfloat16 operands and float32 sums, and the wgmma
 // shared-memory descriptor. Shared by the tensor-core attention body
 // (attention_tc.cuh), the wgmma GEMM core (gemm_tc.cuh) and the
@@ -17,6 +17,20 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// 16 bytes (cp.async.cg) or 4 (.ca) from global to shared memory at dst;
+// src_bytes 0 fills zeros and reads nothing
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

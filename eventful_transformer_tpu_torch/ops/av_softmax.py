@@ -12,8 +12,9 @@ instead, where matmul-1 runs outside the kernel: the reference's cached
 q.kT product (``recompute_product = False``) or ``fuse_matmul_1 =
 False``. Both forms are ``csrc/av_softmax.cu``, in two bodies that
 :func:`av_softmax_body` picks: every bfloat16 call on the tensor cores
-(``csrc/av_softmax_tc.cuh``), float32 and the matmul-2 cast on the CUDA
-cores; see the two headers for what bounds them. The wrappers count their
+(``csrc/av_softmax_tc.cuh``), float32 and the matmul-2 cast on the
+CUDA-core body (float32 products on the CUDA cores; the cast's A.V, of
+bfloat16 operands, on mma.sync); see the two headers for what bounds them. The wrappers count their
 launches in total and by body (``body_launches``).
 """
 

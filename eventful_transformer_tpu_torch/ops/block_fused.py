@@ -101,7 +101,7 @@ def qkv_attention_group(
         p_qkv.data_ptr(), cov.data_ptr(), p_proj.data_ptr(), ln1_scale.data_ptr(),
         ln1_bias.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), qkv.data_ptr(),
         attn.data_ptr(), norms.data_ptr(), bsz, n, c, heads, float(inv_scale),
-        gemm_core.CORE_CODES[core], *gemm_core.split_args([plan], ws), _build.stream_of(x),
+        gemm_core.CORE_CODES[core], *gemm_core.plan_args([plan], ws), _build.stream_of(x),
     )
     qkv_attention_group.launches += 1
     qkv_attention_group.body_launches[body] += 1
@@ -163,7 +163,7 @@ def proj_group(attn, p_proj, cov, skip, p_mlp, w_proj, b_proj, ln2_scale, ln2_bi
         p_proj.data_ptr(), cov.data_ptr(), skip.data_ptr(), p_mlp.data_ptr(),
         w_proj.data_ptr(), b_proj.data_ptr(), ln2_scale.data_ptr(),
         ln2_bias.data_ptr(), y1.data_ptr(), norms.data_ptr(), bsz, n, c,
-        gemm_core.CORE_CODES[core], *gemm_core.split_args([plan], ws), _build.stream_of(attn),
+        gemm_core.CORE_CODES[core], *gemm_core.plan_args([plan], ws), _build.stream_of(attn),
     )
     proj_group.launches += 1
     proj_group.core_launches[core] += 1

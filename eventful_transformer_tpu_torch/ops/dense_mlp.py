@@ -58,7 +58,7 @@ def dense_mlp_residual(x, scale, bias, w1, b1, w2, b2):
         x.data_ptr(), scale.data_ptr(),
         bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         y.data_ptr(), xl.data_ptr(), h.data_ptr(), rows, c, hidden,
-        gemm_core.CORE_CODES[core], *gemm_core.split_args(plans, ws), _build.stream_of(x),
+        gemm_core.CORE_CODES[core], *gemm_core.plan_args(plans, ws), _build.stream_of(x),
     )
     dense_mlp_residual.launches += 1
     dense_mlp_residual.core_launches[core] += 1

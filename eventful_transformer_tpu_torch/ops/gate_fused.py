@@ -149,7 +149,7 @@ def ln_select_matmul(x, p, cov, scale, bias, w, wb, *, ln_mode):
         cov.data_ptr(), scale.data_ptr() if ln else None, bias.data_ptr() if ln else None,
         w.data_ptr(), wb.data_ptr(), y.data_ptr(), None if a is None else a.data_ptr(),
         rows, c, f, LN_MODES[ln_mode], gemm_core.CORE_CODES[core],
-        *gemm_core.split_args([plan], ws), _build.stream_of(x),
+        *gemm_core.plan_args([plan], ws), _build.stream_of(x),
     )
     ln_select_matmul.launches += 1
     ln_select_matmul.form_launches[ln_mode] += 1
@@ -216,7 +216,7 @@ def select_linear_skip_norms(x, p, cov, w, wb, skip, p_next, scale, bias, *, nex
         cov.data_ptr(), w.data_ptr(), wb.data_ptr(), skip.data_ptr(), p_next.data_ptr(),
         scale.data_ptr() if next_ln else None, bias.data_ptr() if next_ln else None,
         y.data_ptr(), norms.data_ptr(), rows, c, f, int(next_ln), gemm_core.CORE_CODES[core],
-        *gemm_core.split_args([plan], ws), _build.stream_of(x),
+        *gemm_core.plan_args([plan], ws), _build.stream_of(x),
     )
     select_linear_skip_norms.launches += 1
     select_linear_skip_norms.form_launches["next_ln" if next_ln else "no_ln"] += 1

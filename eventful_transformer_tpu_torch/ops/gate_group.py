@@ -203,7 +203,7 @@ def gate_group_linear(
         _ptr(bias) if ln else None, w.data_ptr(), wb.data_ptr(), _ptr(skip),
         _ptr(p_next), _ptr(next_scale), _ptr(next_bias), _ptr(y), _ptr(norms),
         idx.data_ptr(), _ptr(rows), bsz, n, c, f, kcap, LN_MODES[ln_mode],
-        gemm_core.CORE_CODES[core], *gemm_core.split_args([plan], ws), _build.stream_of(x),
+        gemm_core.CORE_CODES[core], *gemm_core.plan_args([plan], ws), _build.stream_of(x),
     )
     gate_group_linear.launches += 1
     gate_group_linear.form_launches[form] += 1
@@ -321,7 +321,7 @@ def gate_group_mlp(
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), _ptr(p_next),
         _ptr(next_scale), _ptr(next_bias), y.data_ptr(), _ptr(norms), pos.data_ptr(),
         idx.data_ptr(), h.data_ptr(), h2.data_ptr(), _ptr(rows), bsz, n, c, hidden, kcap,
-        LN_MODES[ln_mode], gemm_core.CORE_CODES[core], *gemm_core.split_args(plans, ws),
+        LN_MODES[ln_mode], gemm_core.CORE_CODES[core], *gemm_core.plan_args(plans, ws),
         _build.stream_of(x),
     )
     gate_group_mlp.launches += 1

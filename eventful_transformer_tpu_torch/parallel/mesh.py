@@ -229,8 +229,9 @@ def spawn(fn, world_size, args=(), timeout=600, threads=None):
     their results in rank order. ``fn`` must be importable by name and
     joins the group itself (:func:`make_mesh` or :func:`distributed`, on
     its device); a group still open when it returns is destroyed. A rank
-    that raises, or a run past ``timeout`` seconds, stops every rank and
-    raises here; ``threads`` sets each rank's ``torch.set_num_threads``."""
+    that fails, or a run past ``timeout`` seconds, stops every rank and
+    raises here with every rank's outcome (:func:`_outcomes`); ``threads``
+    sets each rank's ``torch.set_num_threads``."""
     import multiprocessing
 
     context = multiprocessing.get_context("spawn")
@@ -243,13 +244,22 @@ def spawn(fn, world_size, args=(), timeout=600, threads=None):
         for proc in procs:
             proc.start()
         deadline = time.monotonic() + timeout
-        failed = None
-        while any(proc.is_alive() for proc in procs):
-            errors = sorted(Path(tmp).glob("error_*.txt"))
-            if errors or time.monotonic() > deadline:
-                failed = errors[0].read_text() if errors else f"timed out after {timeout} s"
+
+        def failing():
+            return (any(Path(tmp).glob("error_*.txt"))
+                    or any(proc.exitcode not in (None, 0) for proc in procs))
+
+        while any(proc.is_alive() for proc in procs) and not failing():
+            if time.monotonic() > deadline:
                 break
             time.sleep(0.05)
+        # a failed rank's peers fail within moments (a closed connection):
+        # their own outcomes are part of the report
+        grace = time.monotonic() + SPAWN_GRACE
+        while failing() and any(proc.is_alive() for proc in procs) and time.monotonic() < grace:
+            time.sleep(0.05)
+        stopped = [proc.is_alive() for proc in procs]
+        timed_out = any(stopped) and not failing()
         for proc in procs:
             if proc.is_alive():
                 proc.terminate()
@@ -257,13 +267,9 @@ def spawn(fn, world_size, args=(), timeout=600, threads=None):
             if proc.is_alive():
                 proc.kill()
                 proc.join()
-        errors = sorted(Path(tmp).glob("error_*.txt"))
-        if failed is None and errors:
-            failed = errors[0].read_text()
-        if failed is None and any(proc.exitcode != 0 for proc in procs):
-            failed = f"exit codes {[proc.exitcode for proc in procs]}"
-        if failed is not None:
-            raise RuntimeError(f"spawned rank failed: {failed}")
+        if any(stopped) or any(proc.exitcode != 0 for proc in procs):
+            head = f"timed out after {timeout} s" if timed_out else "spawned rank failed"
+            raise RuntimeError(f"{head}:\n" + _outcomes(tmp, procs, stopped))
         results = []
         for rank in range(world_size):
             with open(Path(tmp, f"result_{rank}.pkl"), "rb") as f:
@@ -271,10 +277,47 @@ def spawn(fn, world_size, args=(), timeout=600, threads=None):
     return results
 
 
+# seconds spawn waits, once a rank has failed, for the others to end
+SPAWN_GRACE = 5.0
+
+
+def _outcomes(tmp, procs, stopped):
+    """One entry a rank: the traceback it raised (its ``error_<rank>.txt``),
+    else how it ended: its exit code, the signal that ended it with the
+    Python stack the fault handler wrote (``fault_<rank>.txt``), or that
+    spawn stopped it while it still ran."""
+    import signal
+
+    lines = []
+    for rank, (proc, was_stopped) in enumerate(zip(procs, stopped)):
+        error = Path(tmp, f"error_{rank}.txt")
+        fault = Path(tmp, f"fault_{rank}.txt")
+        fault_text = fault.read_text().strip() if fault.exists() else ""
+        if error.exists():
+            lines.append(error.read_text().rstrip())
+        elif was_stopped:
+            lines.append(f"rank {rank}: still running, stopped by spawn")
+        elif proc.exitcode is not None and proc.exitcode < 0:
+            name = signal.Signals(-proc.exitcode).name
+            lines.append(f"rank {rank}: ended by signal {name} (exit code {proc.exitcode}), "
+                         "no Python exception")
+        else:
+            lines.append(f"rank {rank}: exit code {proc.exitcode}"
+                         + ("" if proc.exitcode == 0 else ", no Python exception"))
+        if fault_text:
+            lines.append(f"rank {rank} fault handler:\n{fault_text}")
+    return "\n".join(lines)
+
+
 def _rank_main(fn, args, rank, world_size, init_method, tmp, threads):
+    import faulthandler
+
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world_size), LOCAL_RANK=str(rank),
                       LOCAL_WORLD_SIZE=str(world_size))
     os.environ[INIT_METHOD_ENV] = init_method
+    # a fatal signal (a crash in native code) leaves this rank's Python stack
+    fault = open(Path(tmp, f"fault_{rank}.txt"), "w")
+    faulthandler.enable(file=fault)
     if threads is not None:
         torch.set_num_threads(threads)
     try:

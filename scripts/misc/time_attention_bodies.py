@@ -8,6 +8,8 @@ yardstick), with the host microseconds of one call.
 
     python3 scripts/misc/time_attention_bodies.py [ROOT] [--breakdown] [--tiles]
         [--row11] [--case=TAG ...] [--entry=NAME ...]
+    python3 scripts/misc/time_attention_bodies.py [ROOT] --f32 [--simt-tiles]
+        [--outputs=FILE] [--case=TAG ...] [--entry=NAME ...]
 
 Imports ``eventful_transformer_tpu_torch`` from ROOT (the checkout this
 script lies in by default), so that two versions of the package, each in a
@@ -100,7 +102,24 @@ row passes`` line, and for the row scatter of rows 11 and 19 its ``ptxas
 row scatter`` line. ``--row11`` times row 11 (``block_scatter_rows``) at
 its three path shapes in bfloat16, and at 1024 in float32 (:func:`row11`),
 beside ``Tensor.index_put_``, in its windowed qkv group's form too: with
-``--case=NONE`` it times that alone. Needs a CUDA device.
+``--case=NONE`` it times that alone.
+
+``--f32`` times the float32 entries instead (F32_CASES, PERF.md section
+6's float32 rows): the GEMM rows 4 and 5 (rows 4t, 4v, 4p, 5m, 5a, 5t, 5p,
+5s), row 7 (7p) at their paths' shapes, each beside cuBLAS on the GEMM's
+operands with TF32 off and with its TFLOP/s against the CUDA cores' 67;
+and row 8's float32 forms (8t, 8p, 8e, the 197-key logits form and the
+fused form at the paper's ViViT's 12 x 197 over 197 keys), each
+also under the matmul-2 cast (bfloat16 state, ``cast``), beside the share
+of the bound. ``--simt-tiles`` (the checkout's own version only) also
+times each float32 GEMM entry under each tile of ``gemm_core.SIMT_TILES``
+(the plan forced, device microseconds from CUDA events behind a sleep,
+each call checked), the data behind ``SIMT_TILE_RATE``. ``--outputs=FILE``
+compares the outputs of each float32 entry on the same inputs across two
+versions: the first run that names FILE writes them there, every later one
+prints, for each entry, whether its outputs equal them bit for bit and
+their largest difference; run it on the parent and the checkout in turns.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -158,6 +177,27 @@ CASES = [
      dict(window=(14, 14), windows=50, pool=(32, 32), pad_window=(14, 14), relpos_keys=(64, 64)),
      ("relpos_bias_add_v2",)),
 ]
+# The float32 entries (``--f32``): (tag, batch, N, k, make_inputs keywords,
+# entries, (C, heads)); PERF.md section 6's rows, chip_smoke.py's shapes
+P672 = dict(window=(14, 14), pool=(21, 21))
+F32_CASES = [
+    ("4t", 12, 197, 197, dict(window=(4, 6)), ("gate_group_mlp_threshold",), (768, 12)),
+    ("5m", 12, 197, 197, dict(window=(4, 6)), ("dense_mlp_residual",), (768, 12)),
+    ("5a", 12, 361, 361, {}, ("dense_mlp_residual",), (768, 12)),
+    ("5t", 192, 17, 17, dict(window=(4, 6)), ("dense_mlp_residual",), (768, 12)),
+    ("5s", 12, 17, 17, dict(window=(4, 6)), ("dense_mlp_residual",), (768, 12)),
+    ("4v", 12, 197, 24, dict(window=(4, 6), pool=(1, 197)),
+     ("gate_group_mlp", "softmax_select_matmul_logits_noterms", "softmax_select_matmul_noterms"),
+     (768, 12)),
+    ("p672", 1, 1764, 512, P672,
+     ("dense_mlp_residual", "gate_group_mlp", "gate_group_linear", "gate_group_linear_post",
+      "softmax_select_matmul"), (768, 12)),
+    ("8t", 1, 4096, 512, dict(window=(14, 14), windows=50, pool=(64, 64), pad_window=(14, 14),
+                              relpos_keys=(8, 8)), ("softmax_select_matmul_threshold",), (768, 12)),
+    ("8e", 4, 197, 24, dict(window=(4, 6), pool=(1, 197)), ("softmax_select_matmul_noterms",),
+     (384, 6)),
+]
+F32_PEAK_TFLOPS = 67.0
 TAGS = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--case=")]
 ENTRIES = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--entry=")]
 ITERS = 200  # host-bound calls: more than kernel_check's 20, to average the host's spread
@@ -480,6 +520,118 @@ def row11(device):
         torch.cuda.empty_cache()
 
 
+def gemm_flops(name, d):
+    """Operations of the GEMMs of one call of GEMM entry ``name`` (rows 4,
+    5 and 7) on ``d``: 2 M K N each, over the rows the kernel computes."""
+    bsz, n, c = d["x"].shape
+    if name.startswith("gate_group_linear"):
+        f = 3 * c if name.startswith("gate_group_linear_post") else c
+        return 2 * bsz * d["k"] * c * f
+    rows = bsz * n if name.startswith("dense_mlp") else bsz * d["k"]
+    return 2 * 2 * rows * c * d["w1"].shape[-1]
+
+
+def outputs_of(name, d):
+    """The outputs of one call of entry ``name`` on clones of ``d``'s
+    tensors, on the CPU."""
+    dd = {key: v.clone() if torch.is_tensor(v) else v for key, v in d.items()}
+    out = kernel_check._invoke(name, kernel_check.KERNELS[name][0], dd)
+    torch.cuda.synchronize()
+    return [t.detach().cpu() for t in out if torch.is_tensor(t)]
+
+
+def simt_tile_sweep(name, d):
+    """Device microseconds of float32 GEMM entry ``name`` on ``d`` under
+    each choice of tiles of ``gemm_core.SIMT_TILES`` (the plan forced: one
+    tile for each of the entry's GEMMs, GEMM 1 first), with whether each
+    call held kernel_check's bounds."""
+    import itertools
+
+    from eventful_transformer_tpu_torch.ops import gemm_core
+
+    wrapper = kernel_check.KERNELS[name][0]
+    c = d["x"].shape[-1]
+    gemms = 2 if "w1" in d and "mlp" in name else 1
+    planned = gemm_core.simt_plan
+    out = []
+    try:
+        for tiles in itertools.product(range(len(gemm_core.SIMT_TILES)), repeat=gemms):
+            # GEMM 1 reads C columns of A; an MLP's GEMM 2 reads the hidden ones
+            gemm_core.simt_plan = lambda m, k, n, tiles=tiles: gemm_core.simt_tile_plan(
+                m, k, n, tiles[0 if k == c else -1])
+            gemm_core.gemm_launch.cache_clear()
+            gemm_core.mlp_launch.cache_clear()
+            ok = all(row["ok"] for row in kernel_check.errors(name, d))
+            dd = {key: v.clone() if torch.is_tensor(v) else v for key, v in d.items()}
+            us = min(kernel_check.queued_device_us(lambda: kernel_check._invoke(name, wrapper, dd))
+                     for _ in range(2))
+            out.append((tiles, round(us, 2), ok))
+    finally:
+        gemm_core.simt_plan = planned
+        gemm_core.gemm_launch.cache_clear()
+        gemm_core.mlp_launch.cache_clear()
+    return out
+
+
+def f32_main(device):
+    """The float32 entries (F32_CASES): each entry's times and, with
+    ``--outputs``, its outputs against the saved ones."""
+    saved_path = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--outputs=")),
+                      None)
+    saved = torch.load(saved_path) if saved_path and Path(saved_path).exists() else None
+    outputs = {}
+    for tag, bsz, n, k, inputs, names, width in F32_CASES:
+        if TAGS and tag not in TAGS:
+            continue
+        base = kernel_check.make_inputs(bsz, n, *width, k, torch.float32, device, seed=0,
+                                        **inputs)
+        for name in names:
+            if ENTRIES and name not in ENTRIES:
+                continue
+            row8 = name.startswith("softmax_select_matmul")
+            for cast in (False, True) if row8 else (False,):
+                d = dict(base)
+                if cast:  # the matmul-2 cast: float32 q, k and terms over bfloat16 state
+                    for key in ("p_a", "p_v", "av_logits"):
+                        d[key] = d[key].to(torch.bfloat16)
+                label = f"{tag}/{name}" + ("/cast" if cast else "")
+                ok = all(row["ok"] for row in kernel_check.errors(name, d))
+                outputs[label] = outputs_of(name, d)
+                dd = {key: v.clone() if torch.is_tensor(v) else v for key, v in d.items()}
+                call = bound(name, kernel_check.KERNELS[name][0], dd)
+                library = kernel_check.library_call(name, d)
+                times = {"ms": [], "lib_ms": []}
+                for _ in range(ROUNDS):
+                    times["ms"].append(kernel_check.time_call(call, 20))
+                    if library is not None:
+                        times["lib_ms"].append(kernel_check.time_call(library, 20))
+                ms, lib_ms = (statistics.median(v) if v else None for v in times.values())
+                dev_us = kernel_check.queued_device_us(call)
+                bound_us = kernel_check.bound(name, d)[0] * 1e3
+                extra = {}
+                if not row8:
+                    extra["tflops"] = round(gemm_flops(name, d) / dev_us / 1e6, 2)
+                    extra["of_peak"] = round(extra["tflops"] / F32_PEAK_TFLOPS, 3)
+                if saved is not None and label in saved:
+                    pairs = list(zip(outputs[label], saved[label]))
+                    extra["bit_equal_to_saved"] = all(torch.equal(a, b) for a, b in pairs)
+                    extra["max_abs_diff_to_saved"] = max(
+                        float((a.float() - b.float()).abs().max()) for a, b in pairs)
+                print("f32", label, "ms", round(ms, 4), "device_us", round(dev_us, 2),
+                      "bound_us", round(bound_us, 2), "bound_share", round(bound_us / dev_us, 3),
+                      "library_ms", lib_ms and round(lib_ms, 4),
+                      "ratio", lib_ms and round(ms / lib_ms, 3), "within bounds", ok,
+                      *(v for item in extra.items() for v in item), flush=True)
+                if "--simt-tiles" in sys.argv and not row8:
+                    print("f32", label, "simt tiles", simt_tile_sweep(name, d), flush=True)
+                del d, dd
+        del base
+        torch.cuda.empty_cache()
+    if saved_path and saved is None:
+        torch.save(outputs, saved_path)
+        print("f32 outputs written to", saved_path, flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("time_attention_bodies: needs a CUDA device")
@@ -500,6 +652,10 @@ def main():
                                for line in ptxas_lines(log, needle)])
     print("ptxas row scatter", ptxas_lines(log, "scatter_rows"))
     device = torch.device("cuda")
+    if "--f32" in sys.argv:
+        print("ptxas f32 bodies", ptxas_lines(log, "gemm_simt") + ptxas_lines(log, "av_simt"))
+        f32_main(device)
+        return
     for tag, bsz, n, k, inputs, names in CASES:
         if TAGS and tag not in TAGS:
             continue

@@ -211,7 +211,7 @@ ROWS = 8 * 197  # ViViT's B.N
 def test_rule_and_plan_at_the_main_path(name, n):
     """Kernels A and B at ViViT's shape: "tc" in bfloat16, one unsplit wave
     (A 13 x 18 = 234 tiles, B 13 x 6 = 78: a split of 2 would exceed the
-    SMs), no workspace; "simt" in float32, no plan."""
+    SMs), no workspace; "simt" in float32, on its tile plan."""
     assert gemm_core.gemm_core(torch.bfloat16, ROWS, 768, n) == "tc"
     assert gemm_core.gemm_core(torch.float32, ROWS, 768, n) == "simt"
     core, plan = gemm_core.gemm_launch(torch.bfloat16, ROWS, 768, n, True)
@@ -219,8 +219,9 @@ def test_rule_and_plan_at_the_main_path(name, n):
     assert (plan.tiles_m, plan.tiles_n, plan.split, plan.steps) == (13, n // 128, 1, 12)
     assert plan.workspace == 0
     assert gemm_core.workspace([plan], "cpu") is None
-    assert gemm_core.split_args([plan], None) == (1, None)
-    assert gemm_core.gemm_launch(torch.float32, ROWS, 768, n, True) == ("simt", None)
+    assert gemm_core.plan_args([plan], None) == (1, None)
+    assert gemm_core.gemm_launch(torch.float32, ROWS, 768, n, True) == (
+        "simt", gemm_core.simt_plan(ROWS, 768, n))
     assert gemm_core.gemm_launch(torch.bfloat16, ROWS, 768, n, False) == ("wmma", None)
 
 

@@ -2315,3 +2315,119 @@ def test_training_apply_views_on_the_card_launches_no_kernel(device):
     assert kernel_check.KERNELS["dense_mlp_residual"][0].launches > 0
     assert kernel_check.KERNELS["window_attention"][0].launches > 0
     torch.testing.assert_close(served, probs.detach(), rtol=1e-4, atol=1e-6)
+
+
+# -- the float32 bodies: csrc/gemm.cuh's CUDA-core tile and row 8's CUDA-core body --
+
+SIMT_EDGES = [(1, 768, 768, False), (197, 384, 2304, True), (300, 3072, 3072, True),
+              (197, 770, 768, False), (130, 768, 100, True), (64, 100, 130, False)]
+
+
+def _simt_operands(m, k, n, gather, device, seed=0):
+    """float32 A, W and (gathered) int32 rows of the tile's tests: a third of
+    the slots -1 (zero rows)."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn((m + 5, k), generator=g)
+    w = torch.randn((k, n), generator=g) * k ** -0.5
+    idx = None
+    if gather:
+        idx = torch.randint(0, m + 5, (m,), generator=g, dtype=torch.int32)
+        idx[::3] = -1
+    to = lambda t: None if t is None else t.to(device)  # noqa: E731
+    return to(a if gather else a[:m].contiguous()), to(w), to(idx)
+
+
+@pytest.mark.parametrize("m,k,n,gather", SIMT_EDGES,
+                         ids=[f"{m}x{k}x{n}-{'gather' if g else 'dense'}"
+                              for m, k, n, g in SIMT_EDGES])
+def test_float32_tile_matches_the_product_and_every_tile_alike(m, k, n, gather, device):
+    """The float32 tile alone at its edges (M = 1, M and N off the tile, K
+    not a multiple of 4, gathered rows with -1 slots): within float32
+    summation error of the float64 product, and the same bits from each tile
+    of SIMT_TILES and from an operand off a 16-byte boundary (the scalar
+    copies): one fmaf chain an output, in k order, whatever the tile."""
+    from eventful_transformer_tpu_torch.ops import gemm_core
+
+    a, w, idx = _simt_operands(m, k, n, gather, device)
+    rows = a if idx is None else torch.where((idx >= 0)[:, None], a[idx.long().clamp(min=0)], 0)
+    want = torch.matmul(rows.double(), w.double())
+    before = gemm_core.gemm_simt.launches
+    outs = [gemm_core.gemm_simt(a, w, idx, tile=t) for t in range(len(gemm_core.SIMT_TILES))]
+    flat = torch.zeros(a.numel() + 1, device=device)
+    flat[1:] = a.reshape(-1)
+    outs.append(gemm_core.gemm_simt(flat[1:].view(a.shape), w, idx))
+    torch.cuda.synchronize()
+    assert gemm_core.gemm_simt.launches == before + len(outs)
+    err = float(((outs[0].double() - want).abs() / want.abs().clamp(min=1.0)).max())
+    assert err <= 1e-5, err
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+
+
+def test_float32_tile_refuses_an_unknown_tile(device):
+    from eventful_transformer_tpu_torch.ops import gemm_core
+
+    a, w, _ = _simt_operands(8, 64, 64, False, device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        gemm_core.gemm_simt(a, w, tile=len(gemm_core.SIMT_TILES))
+
+
+SIMT_ROWS = ["dense_mlp_residual", "gate_group_mlp", "gate_group_mlp_pre", "gate_group_mlp_topk",
+             "gate_group_mlp_threshold", "gate_group_linear", "gate_group_linear_post",
+             "gate_group_linear_pre", "gate_group_linear_threshold", "qkv_attention_group",
+             "proj_group", "ln_select_matmul_post", "ln_select_matmul_none",
+             "ln_select_matmul_pre", "select_linear_skip_norms", "select_linear_skip_norms_noln"]
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 64, 2, 1), (3, 37, 96, 2, 11)],
+                         ids=["m1", "n96"])
+@pytest.mark.parametrize("name", SIMT_ROWS)
+def test_float32_gemm_rows_at_the_edges(name, shape, device):
+    """Every epilogue of rows 2-5, 7, 12 and 13 on the float32 tile at one
+    row and at N = 96 (off both tiles), within kernel_check's bounds, every
+    GEMM launch on "simt"."""
+    wrapper = kernel_check.KERNELS[name][0]
+    d = kernel_check.make_inputs(*shape, torch.float32, device, seed=3)
+    before = dict(wrapper.core_launches)
+    rows = kernel_check.errors(name, d)
+    assert all(row["ok"] for row in rows), rows
+    after = wrapper.core_launches
+    assert after["simt"] > before["simt"]
+    assert {core: after[core] - before[core] for core in after if core != "simt"} == {
+        "tc": 0, "wmma": 0}
+
+
+AV_KEY_GRIDS = {1: (1, 1), 17: (1, 17), 197: (1, 197), 441: (21, 21), 1024: (32, 32),
+                4096: (64, 64)}
+
+
+@pytest.mark.parametrize("coverage", ["all", "none", "quarter"])
+@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("np_", sorted(AV_KEY_GRIDS))
+def test_av_cuda_core_body_at_every_key_count(np_, d, coverage, device):
+    """Row 8's CUDA-core body at Np = 1, 17, 197, 441, 1024 and 4096 keys,
+    head widths 48 and 64, coverage all, none and a quarter: both forms with
+    and without rel-pos terms, in float32 and under the matmul-2 cast
+    (bfloat16 state), each one "simt" launch within kernel_check's bounds,
+    and the uncovered columns of p_a bit for bit as they went in."""
+    d_in = kernel_check.make_inputs(1, 70, 2 * d, 2, 9, torch.float32, device, seed=7,
+                                    pool=AV_KEY_GRIDS[np_])
+    d_in["av_cov"] = _coverage(d_in, "one" if coverage == "quarter" and np_ == 1 else coverage)
+    for cast in (False, True):
+        dd = dict(d_in)
+        if cast:
+            for key in ("p_a", "p_v", "av_logits"):
+                dd[key] = dd[key].to(torch.bfloat16)
+        for name in AV_FORMS:
+            if cast and name == "softmax_select_matmul_logits_noterms":
+                continue  # bfloat16 through and through: the tensor-core body
+            wrapper = kernel_check.KERNELS[name][0]
+            before = dict(wrapper.body_launches)
+            rows = kernel_check.errors(name, dd)
+            assert all(row["ok"] for row in rows), (name, cast, rows)
+            assert wrapper.body_launches == dict(before, simt=before["simt"] + 1)
+            p_a = dd["p_a"].clone()
+            kernel_check._invoke(name, wrapper, dict(dd, p_a=p_a))
+            torch.cuda.synchronize()
+            kept = (dd["av_cov"] <= 0)[:, None, None, :].expand_as(p_a)
+            assert torch.equal(p_a[kept], dd["p_a"][kept])

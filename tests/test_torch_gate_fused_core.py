@@ -229,8 +229,9 @@ def test_rule_and_plan_at_the_paths(m, n, tiles_m):
     assert plan.blocks == tiles_m * n // 128
     assert plan.workspace == 0
     assert gemm_core.workspace([plan], "cpu") is None
-    assert gemm_core.split_args([plan], None) == (1, None)
-    assert gemm_core.gemm_launch(torch.float32, m, 768, n, True) == ("simt", None)
+    assert gemm_core.plan_args([plan], None) == (1, None)
+    assert gemm_core.gemm_launch(torch.float32, m, 768, n, True) == (
+        "simt", gemm_core.simt_plan(m, 768, n))
     assert gemm_core.gemm_launch(torch.bfloat16, m, 768, n, False) == ("wmma", None)
 
 

@@ -247,8 +247,9 @@ def test_rule_and_plan_at_the_paths(m, n, tiles, split):
     assert (plan.split, plan.steps) == (split, 12 // split)
     assert plan.blocks == tiles[0] * tiles[1] * split <= gemm_core.SMS
     assert plan.workspace == (split * m * n if split > 1 else 0)
-    assert gemm_core.split_args([plan], None)[0] == split
-    assert gemm_core.gemm_launch(torch.float32, m, 768, n, True) == ("simt", None)
+    assert gemm_core.plan_args([plan], None)[0] == split
+    assert gemm_core.gemm_launch(torch.float32, m, 768, n, True) == (
+        "simt", gemm_core.simt_plan(m, 768, n))
     assert gemm_core.gemm_launch(torch.bfloat16, m, 768, n, False) == ("wmma", None)
 
 

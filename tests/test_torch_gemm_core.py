@@ -269,7 +269,8 @@ def test_rule_takes_the_wgmma_core_in_bfloat16(name, m):
     for k, n in ((768, 3072), (3072, 768)):
         assert gemm_core.gemm_core(torch.bfloat16, m, k, n) == "tc"
         assert gemm_core.gemm_core(torch.float32, m, k, n) == "simt"
-    assert gemm_core.mlp_launch(torch.float32, m, 768, 3072, True) == ("simt", None, None)
+    assert gemm_core.mlp_launch(torch.float32, m, 768, 3072, True) == (
+        "simt", gemm_core.simt_plan(m, 768, 3072), gemm_core.simt_plan(m, 3072, 768))
 
 
 @pytest.mark.parametrize("k,n,aligned", [

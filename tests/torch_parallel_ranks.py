@@ -9,6 +9,8 @@ list of jobs ``(name, *arguments)``, every job on a process group of its own
 import contextlib
 import io
 import os
+import signal
+import time
 
 import torch
 import torch.distributed as dist
@@ -465,6 +467,20 @@ def joined(address, world_size):
     x = torch.tensor([float(rank + 1)])
     dist.all_reduce(x)
     return made, dist.get_rank(), dist.get_world_size(), dist.get_backend(), float(x[0])
+
+
+def outcome(failing_rank, how, wait=0.5):
+    """This rank's number after ``wait`` seconds; rank ``failing_rank``
+    fails first: ``how`` "raise" raises a ValueError, a signal's name
+    ("SIGKILL", "SIGSEGV") ends it with that signal. The checks of
+    ``mesh.spawn``'s report (tests/test_torch_spawn.py)."""
+    rank = int(os.environ["RANK"])
+    if rank == failing_rank:
+        if how == "raise":
+            raise ValueError(f"planted failure on rank {rank}")
+        os.kill(os.getpid(), getattr(signal, how))
+    time.sleep(wait)
+    return rank
 
 
 JOBS = dict(ulysses=ulysses, sp_backbone=sp_backbone, vitdet_sp=vitdet_sp,
