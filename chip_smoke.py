@@ -1817,7 +1817,9 @@ def vitdet_path(device, smi, size):
     rows = phase_vitdet_kernels(device, size)
     eventful, dense, frames, launches, dense_launches = phase_vitdet_slice(device, size)
     dense_ms = phase_vitdet_time(eventful, dense, frames, smi, size)
-    del eventful, dense, frames
+    del frames
+    graph_path_c(eventful, dense, smi, size)
+    del eventful, dense
     torch.cuda.empty_cache()
     # launches: the eventful model's counted run; dense_mlp_residual runs in
     # the dense twin only. Forms of one kernel share its wrapper's count.
@@ -1860,14 +1862,15 @@ def kernel_row(name, row, launches, path):
 # -- ViTDet end to end ------------------------------------------------------------
 
 
-def e2e_model(eventful, device, dtype, matmul_2_cast="bfloat16"):
-    """spatiotemporal_672 (k = 256) or base_672 on ``device`` in ``dtype``,
-    weights from the seed, the class scorer scaled by CLS_SCORE_GAIN."""
+def e2e_model(eventful, device, dtype, matmul_2_cast="bfloat16", size=E2E_SIZE):
+    """spatiotemporal_<size> (k = 256) or base_<size> on ``device`` in
+    ``dtype``, weights from the seed, the class scorer scaled by
+    CLS_SCORE_GAIN."""
     from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
     from eventful_transformer_tpu_torch.models import ViTDet
     from eventful_transformer_tpu_torch.utils.misc import set_policies
 
-    model = ViTDet(**vitdet_config(eventful, E2E_SIZE, matmul_2_cast), device=device, seed=SEED)
+    model = ViTDet(**vitdet_config(eventful, size, matmul_2_cast), device=device, seed=SEED)
     with torch.no_grad():
         model.roi_heads.cls_score.kernel.mul_(CLS_SCORE_GAIN)
     if eventful:
@@ -2315,7 +2318,9 @@ def ev_path(device, smi):
     rows = phase_ev_kernels(device)
     eventful, dense, clip, launches, _ = phase_ev_slice(device)
     phase_ev_time(eventful, dense, clip, smi)
-    del eventful, dense, clip
+    del dense
+    graph_path_b(eventful, clip, smi)
+    del eventful, clip
     torch.cuda.empty_cache()
     out = []
     for name, run in EV_KERNELS.items():
@@ -5484,6 +5489,283 @@ def detection_losses(device, smi):
     torch.cuda.empty_cache()
 
 
+# -- the captured steps: eager against CUDA graph ---------------------------------------
+#
+# The step builders of utils/evaluate.py capture their step on the card
+# (utils/graphs.py). Each path runs its eager step (graph=False) and its
+# captured step on one model and one input: once each (the graph side
+# captures there), then in turns, eager, graph, graph, eager, each call timed
+# by CUDA events around it (the host's work included), with the peak of
+# allocated memory of each side's calls, and one call of each profiled for
+# the card's busy share. Path A: the flagship ViViT-B K400 ("v4", k = 98)
+# and its dense twin, bf16, one clip of 4 views x 32 frames. Path B: the
+# paper's temporal_24 (EventfulBlock, k = 24, the bf16 A.V cast), float32,
+# one raw clip of 12 views; then TokenNormThreshold through the bucketed
+# dispatch, threshold GRAPH_THRESHOLD over GRAPH_BUCKETS (every candidate is
+# over 0, so each call escalates through every capacity: one graph each).
+# Path C: ViTDet-B end to end through make_vitdet_step, spatiotemporal
+# (k = 256) and base, the VID head, one stream, bf16, a flush frame then
+# E2E_FRAMES frames, at 1024 and at 672. Each path runs on the models an
+# earlier phase built (A: phase slice's; B: vivit_evblock's eventful model,
+# cast to float32; C: each size's vitdet_slice models).
+GRAPH_ORDER = ("eager", "graph", "graph", "eager")
+GRAPH_THRESHOLD, GRAPH_BUCKETS = 0.0, [49, 197]
+
+
+def tree_bits(a, b):
+    """(equal bit for bit, the largest |a - b| where not) of two trees of
+    tensors (dicts, lists, tuples) of one structure."""
+    from eventful_transformer_tpu_torch.utils.graphs import leaves
+
+    la, lb = list(leaves(a)), list(leaves(b))
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return False, None
+    equal, diff = True, 0.0
+    for (_, x), (_, y) in zip(la, lb):
+        if not isinstance(x, torch.Tensor):
+            equal = equal and x == y
+            continue
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False, None
+        if not torch.equal(x.contiguous().reshape(-1).view(torch.uint8),
+                           y.contiguous().reshape(-1).view(torch.uint8)):
+            equal = False
+            if x.is_floating_point():
+                d = (x.double() - y.double()).abs().nan_to_num(nan=float("inf"))
+                d = torch.where(x.isnan() & y.isnan(), 0.0, d)
+            else:
+                d = (x.long() - y.long()).abs()
+            diff = max(diff, float(d.max()))
+    return equal, diff
+
+
+def profiled_busy(fn):
+    """One ``fn()`` under torch.profiler, the card's activity only (the
+    host's operator events would multiply what the profiler sorts after
+    the call): the card's busy share (its kernels' and copies' device ms
+    over the call's wall ms), the device ms and the device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - start) * 1e3
+    on_device = [e for e in prof.key_averages()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    device = sum(getattr(e, "self_device_time_total", None) or
+                 getattr(e, "self_cuda_time_total", 0) for e in on_device) / 1e3
+    return dict(busy_share=device / wall, device_ms=device, wall_ms=wall,
+                device_events=sum(e.count for e in on_device))
+
+
+def graph_sides(run, graphs, per=1, first_eager=contextlib.nullcontext):
+    """``run(side)`` for side "eager" and "graph" -> (outputs, final state
+    or None, counts): the first call of each (the graph side captures; the
+    eager one inside ``first_eager()``), its launches, then GRAPH_ORDER
+    timed (ms per clip or frame: the call's ms over ``per``), the peak of
+    allocated memory of each side's calls and one profiled call each.
+    ``graphs()``: the graph side's GraphSteps. Returns the numbers and the
+    first calls' outputs, states and counts."""
+    first, launches = {}, {}
+    for side in ("eager", "graph"):
+        reset_launches()
+        with first_eager() if side == "eager" else contextlib.nullcontext():
+            first[side] = run(side)
+        torch.cuda.synchronize()
+        launches[side] = read_launches()
+    times = {"eager": [], "graph": []}
+    peak = {"eager": 0, "graph": 0}
+    again = []
+    for side in GRAPH_ORDER:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run(side)
+        end.record()
+        torch.cuda.synchronize()
+        times[side].append(start.elapsed_time(end) / per)
+        peak[side] = max(peak[side], torch.cuda.max_memory_allocated())
+        if side == "graph":
+            again.append(tree_bits(out[:2], first["graph"][:2])[0])
+    start = time.perf_counter()
+    busy = {side: profiled_busy(lambda side=side: run(side)) for side in ("eager", "graph")}
+    profile_s = time.perf_counter() - start
+    steps = graphs()
+    outputs_equal, outputs_diff = tree_bits(first["eager"][0], first["graph"][0])
+    state_equal, state_diff = tree_bits(first["eager"][1], first["graph"][1])
+    numbers = dict(
+        outputs_equal=outputs_equal, outputs_max_diff=outputs_diff,
+        state_equal=state_equal, state_max_diff=state_diff,
+        replays_equal=all(again),
+        counts_equal=dict(first["eager"][2]) == dict(first["graph"][2]),
+        launches_equal=launches["eager"] == launches["graph"],
+        launches={k: v for k, v in launches["graph"].items() if v},
+        eager_ms=times["eager"], graph_ms=times["graph"],
+        eager_busy=busy["eager"], graph_busy=busy["graph"],
+        eager_peak_bytes=peak["eager"], graph_peak_bytes=peak["graph"],
+        graphs_captured=sum(g.captures for g in steps),
+        capture_s=sum(g.capture_seconds for g in steps), profile_s=profile_s,
+    )
+    return numbers, first
+
+
+def graph_check(path, numbers, exact=True):
+    """Raise unless the graph side's outputs, state, counts and launches
+    equal the eager side's (outputs and state bit for bit where ``exact``)."""
+    keys = ["counts_equal", "launches_equal", "replays_equal"]
+    keys += ["outputs_equal", "state_equal"] if exact else []
+    failed = [k for k in keys if not numbers[k]]
+    if failed:
+        raise AssertionError(f"graph_paths {path}: {failed}: {numbers}")
+
+
+def graph_vivit_sides(model, views, count_mode=True):
+    from eventful_transformer_tpu_torch.utils.evaluate import make_vivit_step
+
+    steps = {"eager": make_vivit_step(model, count_mode, graph=False),
+             "graph": make_vivit_step(model, count_mode)}
+
+    def run(side):
+        out, counts = steps[side](views)
+        return out, None, counts
+
+    return graph_sides(run, lambda: [steps["graph"].graph])
+
+
+def graph_path_a(eventful, dense, views, smi):
+    """Path A on the flagship models of phase slice: one clip of their
+    views."""
+    clip = views[:1]
+    out = {}
+    for name, model in (("eventful", eventful), ("dense", dense)):
+        numbers, first = graph_vivit_sides(model, clip)
+        graph_check(f"A {name}", numbers)
+        numbers["gflops_per_clip"] = gflops(first["graph"][2])
+        want = GFLOPS_EVENTFUL if name == "eventful" else GFLOPS_DENSE
+        if abs(round(numbers["gflops_per_clip"], 2) - want) > 1e-6:
+            raise AssertionError(f"graph_paths A {name}: {numbers['gflops_per_clip']} GFLOPs/clip, "
+                                 f"expected {want}")
+        out[name] = numbers
+    emit("graph_paths", path="A", card=smi, config="vivit_b_k400 v4 k=98 and its dense twin",
+         dtype="bfloat16", clip=list(clip.shape), **out)
+
+
+def graph_path_b(model, clip, smi):
+    """Path B on vivit_evblock's eventful model (the paper's temporal_24,
+    k = 24), in float32, and its raw clip: make_vivit_step, then the
+    bucketed threshold through make_bucketed_vivit_step."""
+    from eventful_transformer_tpu_torch.core.policies import TokenNormThreshold
+    from eventful_transformer_tpu_torch.utils.evaluate import make_bucketed_vivit_step
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    set_ev_run(model, {})
+    model = model.to(torch.float32)
+    views = torch.stack(model.preprocessing(clip), dim=1).to(torch.float32)
+    topk, first = graph_vivit_sides(model, views)
+    graph_check("B top-k", topk)
+    topk["gflops_per_clip"] = gflops(first["graph"][2])
+    if abs(topk["gflops_per_clip"] - EV_GFLOPS_EVENTFUL) > 1e-6 * EV_GFLOPS_EVENTFUL:
+        raise AssertionError(f"graph_paths B: {topk['gflops_per_clip']} GFLOPs/clip, the JAX "
+                             f"package's count is {EV_GFLOPS_EVENTFUL}")
+    set_policies(model, TokenNormThreshold, threshold=GRAPH_THRESHOLD)
+    config = {"bucket_capacities": GRAPH_BUCKETS}
+    steps = {"eager": make_bucketed_vivit_step(model, config, graph=False),
+             "graph": make_bucketed_vivit_step(model, config)}
+
+    def run(side):
+        out, counts = steps[side](views)
+        return out, None, counts
+
+    bucketed, _ = graph_sides(
+        run, lambda: [s.graph for s in steps["graph"].dispatcher._steps.values()])
+    for side in ("eager", "graph"):
+        d = steps[side].dispatcher
+        bucketed[f"{side}_escalations"] = d.escalations
+        bucketed[f"{side}_frames_per_level"] = d.frames_per_level
+    graph_check("B bucketed", bucketed)
+    if bucketed["eager_frames_per_level"] != bucketed["graph_frames_per_level"]:
+        raise AssertionError(f"graph_paths B: the dispatch differs: {bucketed}")
+    emit("graph_paths", path="B", card=smi, config="temporal_24", dtype="float32",
+         clip=list(views.shape), topk=topk, threshold=GRAPH_THRESHOLD, capacities=GRAPH_BUCKETS,
+         bucketed=bucketed)
+
+
+def graph_vitdet_sides(model, frames, first_eager=contextlib.nullcontext):
+    """make_vitdet_step eager and captured over ``frames`` (T, 1, 3, S, S):
+    outputs the backbone's tokens and the detections of every frame, the
+    final state (a copy) and the counts of the call."""
+    from eventful_transformer_tpu_torch.utils.evaluate import make_vitdet_step
+
+    steps = {"eager": make_vitdet_step(model, graph=False), "graph": make_vitdet_step(model)}
+    post_backbone = model.post_backbone
+    tokens = []
+
+    def recorded(ctx, t):
+        tokens.append(t.clone())
+        return post_backbone(ctx, t)
+
+    def run(side):
+        from eventful_transformer_tpu_torch.core.counting import Counts
+        from eventful_transformer_tpu_torch.utils.bucketing import clone_state
+
+        tokens.clear()
+        state = model.init_state(1, frames.dtype, frames.device)
+        total, dets = Counts(), []
+        model.post_backbone = recorded
+        try:
+            for t in range(frames.shape[0]):
+                det, state, counts = steps[side](state, frames[t], None, t == 0)
+                dets.append(det)
+                total = total + counts
+        finally:
+            del model.post_backbone
+        return (list(tokens), dets), clone_state(state), total
+
+    numbers, first = graph_sides(run, lambda: [steps["graph"].graph], per=frames.shape[0],
+                                 first_eager=first_eager)
+    numbers["write_back"] = steps["graph"].graph.write_back_summary()
+    return numbers, first
+
+
+def graph_path_c(eventful, dense, smi, size):
+    """Path C at ``size`` on the vitdet_slice models (their class scorer
+    scaled by CLS_SCORE_GAIN here, as e2e_model scales it): eventful and
+    dense ViTDet-B end to end, counts against the JAX package's (the
+    pooled valid shares of the eager side's first call)."""
+    frames = vitdet_frames(E2E_FRAMES + 1, 1, eventful.embedding.kernel.device, torch.bfloat16,
+                           size)
+    out = {}
+    for name, model in (("eventful", eventful), ("dense", dense)):
+        with torch.no_grad():
+            model.roi_heads.cls_score.kernel.mul_(CLS_SCORE_GAIN)
+        shares = []
+
+        @contextlib.contextmanager
+        def recorded():
+            with pooled_shares() as got:
+                yield
+            shares.extend(got)
+
+        numbers, first = graph_vitdet_sides(model, frames, recorded)
+        graph_check(f"C {size} {name}", numbers)
+        got = sum(v for k, v in first["graph"][2].items() if k != "policy_saturated")
+        ref = vitdet_jax_flops(name == "eventful", shares, size, frames=frames.shape[0],
+                               streams=1)
+        numbers.update(gflops_per_frame=got / frames.shape[0] / 1e9,
+                       jax_gflops_per_frame=ref / frames.shape[0] / 1e9,
+                       kept_detections_per_frame=check_detections(first["graph"][0][1],
+                                                                  size=size))
+        if abs(got - ref) > 1e-6 * ref:
+            raise AssertionError(f"graph_paths C {size} {name}: counted {got} FLOPs, the JAX "
+                                 f"package's count is {ref}")
+        out[name] = numbers
+    emit("graph_paths", path="C", size=size, card=smi, streams=1, frames=E2E_FRAMES + 1,
+         k=VITDET_K, dtype="bfloat16", config=f"spatiotemporal_{size} and base_{size}", **out)
+
+
 def main():
     smi = phase_env()
     from eventful_transformer_tpu_torch.ops import kernel_check
@@ -5495,6 +5777,7 @@ def main():
     phase_f32_bodies(device, smi)
     eventful, dense, views, launches = phase_slice(device)
     phase_time(eventful, dense, views, smi)
+    graph_path_a(eventful, dense, views, smi)
     del eventful, dense, views
     torch.cuda.empty_cache()
     kernels = [

@@ -828,6 +828,16 @@ class EventfulTokenwiseBlock(Block):
             self._window_index_cache[device] = torch.from_numpy(ext).to(device)
         return self._window_index_cache[device]
 
+    def _window_inverse(self, device):
+        """(N,) int64 map of row-major token -> its window-major row, on
+        ``device``, made once (a host copy inside a captured step would
+        fail)."""
+        key = ("inverse", device)
+        if key not in self._window_index_cache:
+            inv = torch.from_numpy(self._window_perm()[1])
+            self._window_index_cache[key] = inv.to(device, torch.long)
+        return self._window_index_cache[key]
+
     def init_state(self, batch, n_tokens, dtype, device):
         """The gates' and buffers' state; after the attention (projection
         and MLP groups) at the tokens ATS keeps; the qkv buffer and the
@@ -968,7 +978,7 @@ class EventfulTokenwiseBlock(Block):
         # regimes) goes row-major for the unfused step and back after it
         resident = "qkv_accumulator" in state and self._resident_qkv(n)
         if resident:
-            inv = torch.from_numpy(self._window_perm()[1]).to(x.device, torch.long)
+            inv = self._window_inverse(x.device)
             state["qkv_accumulator"] = {"b": state["qkv_accumulator"]["b"].index_select(1, inv)}
         x, index, mask = self._qkv_group(ctx, state, x, norms, mode)
         if resident:

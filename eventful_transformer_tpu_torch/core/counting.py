@@ -1,8 +1,10 @@
 """Operation counting (port of ``eventful_transformer_tpu/core/counting.py``).
 
-The port runs eagerly, so a count is a Python float added on the host; the
-JAX package's traced (sum, compensation) pairs and its ``cond``/``scan``
-helpers exist only for tracing and are not ported. Keys and formulas are the
+The port's Python runs eagerly, or once at a captured step's capture
+(``utils/graphs.py``), so a count is a Python float added on the host, or
+a tensor where it depends on the data; the JAX package's traced (sum,
+compensation) pairs and its ``cond``/``scan`` helpers exist only for
+tracing and are not ported. Keys and formulas are the
 reference's:
 
 ==================== =====================================================
@@ -55,15 +57,26 @@ class Ctx:
     threshold policy's ``policy_saturated``) stays on its device until
     ``counts`` is read, which reads every such count in one transfer: one
     host synchronisation per read, not one per count.
+
+    A captured step (``utils/graphs.py``) runs its Python code once, at
+    capture, with ``capturing`` set: there ``counts`` raises, and the step
+    keeps the two halves apart instead, the host floats of one call
+    (:meth:`host_counts`, shape-derived, the same every call) and the
+    tensor counts stacked into one tensor of the graph's pool
+    (:meth:`tensor_counts`, overwritten by each replay); after a replay
+    :func:`add_counts` joins them with one read of that tensor, as
+    ``counts`` does eagerly.
     """
 
-    __slots__ = ("count_mode", "training", "generator", "groups", "_counts", "_pending")
+    __slots__ = ("count_mode", "training", "generator", "groups", "capturing", "_counts",
+                 "_pending")
 
     def __init__(self, count_mode=False, training=False, generator=None, groups=None):
         self.count_mode = count_mode
         self.training = training
         self.generator = generator
         self.groups = groups or {}
+        self.capturing = False
         self._counts = Counts({k: 0.0 for k in COUNT_KEYS} if count_mode else {})
         self._pending = []
 
@@ -78,12 +91,35 @@ class Ctx:
     @property
     def counts(self):
         if self._pending:
-            device = self._pending[0][1].device
-            values = torch.stack([v.to(device) for _, v in self._pending]).tolist()
-            for (key, _), value in zip(self._pending, values):
-                self._counts[key] += value
+            if self.capturing:
+                raise RuntimeError("Ctx.counts read inside a capture: a tensor count is read "
+                                   "after each replay (utils/graphs.py)")
+            keys, values = self.tensor_counts()
+            add_counts(self._counts, keys, values.tolist())
             self._pending = []
         return self._counts
+
+    def host_counts(self):
+        """A copy of the counts added as host floats."""
+        return Counts(self._counts)
+
+    def tensor_counts(self):
+        """(keys, values): the keys of the counts added as tensors, in the
+        order they were added, and their values stacked into one float32
+        tensor on the first one's device (None where there are none)."""
+        if not self._pending:
+            return (), None
+        device = self._pending[0][1].device
+        return (tuple(key for key, _ in self._pending),
+                torch.stack([v.to(device) for _, v in self._pending]))
+
+
+def add_counts(counts, keys, values):
+    """Add each of ``values`` to its key of ``keys`` in ``counts``, in
+    order (the sums :attr:`Ctx.counts` makes); returns ``counts``."""
+    for key, value in zip(keys, values):
+        counts[key] += value
+    return counts
 
 
 class Counts(dict):

@@ -27,6 +27,7 @@ from eventful_transformer_tpu_torch.core.nn import (
 from eventful_transformer_tpu_torch.detection.roi_heads import roi_heads
 from eventful_transformer_tpu_torch.detection.rpn import RPN
 from eventful_transformer_tpu_torch.ops.conv import Conv2d, ConvTranspose2d, max_pool2d
+from eventful_transformer_tpu_torch.utils.graphs import model_step
 
 
 class LinearEmbedding(nn.Module):
@@ -209,6 +210,27 @@ class ViTDet(nn.Module):
         image_size = (self.input_shape[1], self.input_shape[2])
         proposals, _, mask = self.proposal_generator.propose(features, image_size)
         return self.roi_heads.inference(features[:4], proposals, mask, image_size)
+
+    def backbone_step(self, aux=None, graph=None, count_mode=True):
+        """:meth:`apply_backbone` as a step, ``step(state, tokens,
+        mode=...) -> (tokens, state, counts)``: on the card captured
+        (``utils/graphs.py::model_step``), one graph for ``mode="flush"``
+        and one for ``"incremental"``, the tokens in a static buffer and the
+        state in static tensors the two graphs share. The kernels update
+        most of the state in place; the leaves a frame replaces are copied
+        back into the static tensors at the end of the graph (the step's
+        ``write_back_summary()``; on ViTDet-B spatiotemporal, one stream in
+        bfloat16, measured on the card: the flush frame 80 leaves,
+        1,042,563,072 bytes at 1024 and 337,502,592 at 672, once a video;
+        an incremental frame 4 leaves, 6,291,456 and 2,709,504 bytes).
+        ``aux``: :meth:`precompute`, made here when not given."""
+        aux = self.precompute() if aux is None else aux
+
+        def run(ctx, state, tokens, mode=None):
+            return self.apply_backbone(ctx, state, tokens, aux, mode=mode)
+
+        return model_step(self.backbone, run, graph=graph, stateful=True, count_mode=count_mode,
+                          name="vitdet backbone step")
 
     def apply(self, ctx, state, x, aux=None, content_hw=None, mode=None):
         """One frame, (1, C, H, W), to detections: returns (detections,

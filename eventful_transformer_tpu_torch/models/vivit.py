@@ -5,7 +5,9 @@
 in, through ``ViViTPreprocessing`` (on the video's device), class
 probabilities out. ``apply_views`` is the bench's: preprocessed views in.
 The frame loop is plain Python: step 0 of each view flushes, steps 1+ run
-incrementally.
+incrementally. On the card the step builders capture ``apply_views``
+whole, the loop included, as one CUDA graph (``utils/evaluate.py::
+make_vivit_step``, ``utils/graphs.py``), as the JAX package jits it.
 
 The spatial cache (``utils/spatial.py``) splits the model in two, by the
 attributes ``spatial_only`` (``apply_views`` returns the spatial features,

@@ -12,7 +12,11 @@ run from the repo's root: ``<config>`` names a file of
 entry (the keywords of ``data/synthetic.py::SyntheticVID``), and resized
 to ``input_size`` (``VIDResize``); ``model.device=cpu`` runs on the CPU.
 The times go to ``<_output>/times.csv`` and ``output.txt``. The card is
-synchronised before each clock read.
+synchronised before each clock read. The backbone segment is the captured
+step on the card (``ViTDet.backbone_step``: one CUDA graph for the flush
+frame and one for the rest, as the JAX script jits its segments; a video's
+first frame also copies its fresh state into the step's static state);
+``pre_backbone`` and ``post_backbone`` run eagerly.
 """
 
 from pathlib import Path
@@ -36,7 +40,7 @@ def evaluate_vitdet_runtime(model, data, config):
     frame; "other" is the pre- and post-backbone segments together."""
     c, in_h, in_w = model.input_shape
     p = next(model.parameters())
-    aux = model.precompute()
+    step = model.backbone_step(count_mode=False)
     backbone = MeanValue()
     backbone_non_first = MeanValue()
     other = MeanValue()
@@ -53,15 +57,14 @@ def evaluate_vitdet_runtime(model, data, config):
             padded[0, :, : frame.shape[-2], : frame.shape[-1]] = frame
             content_hw = tuple(frame.shape[-2:])
             padded = torch.from_numpy(padded).to(device=p.device, dtype=p.dtype)
-            t_0 = clock()
-            tokens = model.pre_backbone(Ctx(), padded, content_hw)
-            t_1 = clock()
-            tokens, state = model.apply_backbone(
-                Ctx(), state, tokens, aux, mode="flush" if t == 0 else "incremental"
-            )
-            t_2 = clock()
-            model.post_backbone(Ctx(), tokens)
-            t_3 = clock()
+            with torch.no_grad():
+                t_0 = clock()
+                tokens = model.pre_backbone(Ctx(), padded, content_hw)
+                t_1 = clock()
+                tokens, state, _ = step(state, tokens, mode="flush" if t == 0 else "incremental")
+                t_2 = clock()
+                model.post_backbone(Ctx(), tokens)
+                t_3 = clock()
             t_backbone = t_2 - t_1
             t_other = (t_3 - t_2) + (t_1 - t_0)
             backbone.update(t_backbone)

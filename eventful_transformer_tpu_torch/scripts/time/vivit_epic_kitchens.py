@@ -14,18 +14,26 @@ entry (the keywords of ``data/synthetic.py::SyntheticVideoClassification``);
 
 The spatial step flips the model's ``spatial_only`` on for its call, and
 the temporal step ``temporal_only`` (``apply`` on the spatial features), as
-the JAX script flips ``spatial_only``. Each clip runs once untimed, then
-once timed; the card is synchronised before each clock read.
+the JAX script flips ``spatial_only``. On the card each step is captured
+(``utils/graphs.py``; the flipped attribute is part of a graph's key), as
+the JAX script jits both. Each clip runs once untimed, then once timed;
+the card is synchronised before each clock read.
 """
 
 from pathlib import Path
 
-from eventful_transformer_tpu_torch.core.counting import Ctx
+import torch
+
 from eventful_transformer_tpu_torch.data.epic_kitchens import EPICKitchens
 from eventful_transformer_tpu_torch.data.synthetic import SyntheticVideoClassification
 from eventful_transformer_tpu_torch.models import FactorizedViViT
 from eventful_transformer_tpu_torch.utils.config import initialize_run
-from eventful_transformer_tpu_torch.utils.evaluate import run_evaluations, vivit_views
+from eventful_transformer_tpu_torch.utils.evaluate import (
+    make_vivit_step,
+    run_evaluations,
+    vivit_views,
+)
+from eventful_transformer_tpu_torch.utils.graphs import model_step
 from eventful_transformer_tpu_torch.utils.misc import MeanValue
 from eventful_transformer_tpu_torch.utils.timing import clock
 
@@ -35,17 +43,21 @@ def evaluate_vivit_runtime(model, data, config):
     spatial_time = MeanValue()
     temporal_time = MeanValue()
 
+    spatial = make_vivit_step(model, count_mode=False)
+    temporal = model_step(model, model.apply, count_mode=False, name="vivit temporal step")
+
     def spatial_step(views):
         model.spatial_only, model.temporal_only = True, False
         try:
-            return model.apply_views(Ctx(), views)
+            return spatial(views)[0]
         finally:
             model.spatial_only = False
 
+    @torch.no_grad()
     def temporal_step(x):
         model.temporal_only = True
         try:
-            return model.apply(Ctx(), x[None])
+            return temporal(x[None])[0]
         finally:
             model.temporal_only = False
 

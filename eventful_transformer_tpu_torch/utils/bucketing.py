@@ -81,8 +81,8 @@ class BucketedThresholdStep:
             out, new_state, counts = step(state if at_top else clone_state(state), *args)
             # Reading the counts is this frame's one host synchronisation
             # (core/counting.py::Ctx.counts): the escalation decision needs
-            # policy_saturated on the host, as in the JAX package. A captured
-            # frame step (a CUDA graph) would have to end here too.
+            # policy_saturated on the host, as in the JAX package, after the
+            # step's graph has replayed where the step is captured.
             if counts["policy_saturated"] == 0.0 or at_top:
                 self.frames_per_level[self._level] += 1
                 self._since_change += 1

@@ -6,9 +6,17 @@
 unless ``model.device`` names another device), loads the weights, and runs
 ``evaluate_function(model, data, config)`` once per entry of the sweep:
 ``vanilla``, ``token_top_k``, ``token_top_fraction`` and
-``token_thresholds``, each after ``set_policies``. The port reads a
-policy's capacity when a step runs, so one model serves every entry; the
-steps are plain callables under ``torch.no_grad()``.
+``token_thresholds``, each after ``set_policies``. The steps run under
+``torch.no_grad()``.
+
+On the card the step builders capture their step as a CUDA graph
+(``utils/graphs.py``), as the JAX builders jit theirs: ViViT's whole
+``apply_views`` (one graph per capacity of a bucketed threshold entry),
+ViTDet's backbone (one graph for the flush frame and one for the
+incremental frames, the head eager: its NMS reads the host). A policy
+change gives a new key, so one model still serves every entry.
+``graph=False`` gives the eager step; on a CPU model the step is eager and
+``graph=True`` raises.
 
 A threshold entry with ``bucket_capacities`` runs through
 ``utils/bucketing.py::BucketedThresholdStep``: per video for ViViT (each
@@ -36,6 +44,7 @@ from eventful_transformer_tpu_torch.core.policies import (
 )
 from eventful_transformer_tpu_torch.detection.map_metric import MeanAveragePrecision
 from eventful_transformer_tpu_torch.utils.bucketing import BucketedThresholdStep
+from eventful_transformer_tpu_torch.utils.graphs import GraphStep, model_step, use_graph
 from eventful_transformer_tpu_torch.utils.misc import (
     TopKAccuracy,
     set_policies,
@@ -77,34 +86,43 @@ def _threshold_buckets(model, config):
     return None
 
 
-def make_vivit_step(model, count_mode=True):
-    """views (1, n_views, t, c, h, w) -> (probabilities, counts)."""
+def make_vivit_step(model, count_mode=True, graph=None):
+    """views (1, n_views, t, c, h, w) -> (probabilities, counts): the
+    model's ``apply_views``, captured on the card (``graph`` as in
+    ``utils/graphs.py::use_graph``), its state built inside the step each
+    call as the JAX step builds it. The graph step is the step's
+    ``graph`` (None when eager)."""
+    run = model_step(model, model.apply_views, graph=graph, count_mode=count_mode,
+                     name="vivit step")
 
     @torch.no_grad()
     def step(views):
-        ctx = Ctx(count_mode=count_mode)
-        out = model.apply_views(ctx, views)
-        return out, ctx.counts
+        return run(views)
 
+    step.graph = run if isinstance(run, GraphStep) else None
     return step
 
 
-def make_bucketed_vivit_step(model, config):
+def make_bucketed_vivit_step(model, config, graph=None):
     """The capacity-bucketed step of a threshold sweep entry with
     ``bucket_capacities`` (per video: an escalation re-runs the whole
     video, exact since each call builds its own state); None for any other
-    entry. The dispatcher is the step's ``dispatcher``."""
+    entry. The dispatcher is the step's ``dispatcher``. On the card each
+    capacity has its own graph; the dispatcher reads the counts between
+    runs, outside the graphs, as the JAX dispatcher does."""
     policy = _threshold_buckets(model, config)
     if policy is None:
         return None
+    graph = use_graph(model, graph)
 
     def build_step(_capacity=None):
-        plain = make_vivit_step(model)
+        plain = make_vivit_step(model, graph=graph)
 
         def step(state, views):
             out, counts = plain(views)
             return out, state, counts
 
+        step.graph = plain.graph
         return step
 
     dispatcher = BucketedThresholdStep(
@@ -159,21 +177,27 @@ def vivit_metrics(results):
     return {"metrics": metrics, "counts": (total_counts / len(results)).nonzero()}
 
 
-def make_vitdet_step(model):
+def make_vitdet_step(model, graph=None):
     """(state, frame, content_hw, first) -> (detections, state, counts):
     frame 0 of a video flushes (``mode="flush"``), the rest run
-    incrementally."""
+    incrementally. On the card (``graph`` as in
+    ``utils/graphs.py::use_graph``) ``pre_backbone`` runs eagerly (cheap,
+    and ``content_hw`` varies by video), the backbone replays its graph
+    (``ViTDet.backbone_step``: the state it returns is the step's static
+    state, overwritten by the next frame), and ``post_backbone`` runs
+    eagerly (NMS reads the host). The backbone's graph step is the step's
+    ``graph`` (None when eager)."""
     aux = model.precompute()
+    backbone = model.backbone_step(aux, graph=graph)
 
     @torch.no_grad()
     def step(state, frame, content_hw, first):
-        ctx = Ctx(count_mode=True)
-        out, state = model.apply(
-            ctx, state, frame, aux=aux, content_hw=content_hw,
-            mode="flush" if first else "incremental",
-        )
-        return out, state, ctx.counts
+        # the patch embedding and the head count nothing, as in the JAX package
+        tokens = model.pre_backbone(Ctx(), frame, content_hw)
+        tokens, state, counts = backbone(state, tokens, mode="flush" if first else "incremental")
+        return model.post_backbone(Ctx(), tokens), state, counts
 
+    step.graph = backbone if isinstance(backbone, GraphStep) else None
     return step
 
 
@@ -201,8 +225,12 @@ def make_vitdet_eval_step(model, config, dispatchers=None):
         step = make_vitdet_step(model)
         step.reset = lambda: None
         return step
+    # Eager: a frame's state crosses capacities (a run that escalates is
+    # discarded and its frame rerun from a copy of the state at the next
+    # capacity), so one set of static state tensors would not serve the
+    # ladder's graphs without a copy a run.
     step = BucketedThresholdStep(
-        model, lambda _capacity=None: make_vitdet_step(model), policy.threshold,
+        model, lambda _capacity=None: make_vitdet_step(model, graph=False), policy.threshold,
         config["bucket_capacities"],
     )
     if dispatchers is not None:

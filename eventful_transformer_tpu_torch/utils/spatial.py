@@ -7,7 +7,9 @@ The model is built from ``config["model"]`` (``spatial_only``) on the card
 unless ``model.device`` names another device, and takes the weights of
 ``config["weights"]``, or its seed's where there is no such file (as
 ``run_evaluations`` does). Each clip's views are made on the model's
-device. numpy has no bfloat16, so ``spatial`` is stored as float32 (the
+device and run through ``utils/evaluate.py::make_vivit_step``: on the card
+one captured step (a CUDA graph), as the JAX package jits it. numpy has no
+bfloat16, so ``spatial`` is stored as float32 (the
 features of a bfloat16 model widened exactly): the files load in either
 package's ``ViViTSpatial``.
 """
@@ -18,9 +20,13 @@ from pathlib import Path
 
 import numpy as np
 
-from eventful_transformer_tpu_torch.core.counting import Ctx
 from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
-from eventful_transformer_tpu_torch.utils.evaluate import load_model_params, progress, vivit_views
+from eventful_transformer_tpu_torch.utils.evaluate import (
+    load_model_params,
+    make_vivit_step,
+    progress,
+    vivit_views,
+)
 from eventful_transformer_tpu_torch.utils.misc import set_policies
 
 
@@ -38,9 +44,10 @@ def compute_vivit_spatial(config, output_dir, data, model_class=None):
 
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
+    step = make_vivit_step(model, count_mode=False)
     for i in progress(range(len(data))):
         video, label = data[i]
-        spatial = model.apply_views(Ctx(), vivit_views(model, video))
+        spatial, _ = step(vivit_views(model, video))
         np.savez(
             output_dir / f"{i:05d}.npz",
             spatial=spatial.float().cpu().numpy(),

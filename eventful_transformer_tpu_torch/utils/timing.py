@@ -11,9 +11,14 @@ is timed to the end of its work; the helpers time the region by CUDA
 events then, and by ``time.perf_counter`` on the CPU. ``scalar_probe``
 stays for callers that want one number of an output. ``compile_parallel``
 has no counterpart: the port compiles nothing per shape; its kernels are
-built once, at first use, for every shape. Each timer warms up first, so
-that build and every first-call cost of the shape fall outside the timed
-calls.
+built once, at first use, for every shape, and a captured step records its
+graph at its first call of a shape. Each timer warms up first, so that
+build, capture and every first-call cost of the shape fall outside the
+timed calls. The JAX helpers jit what they time (JAX
+``utils/timing.py:43`` and ``:125``); these time the callable they are
+given, so a caller times the port's counterpart by handing them a captured
+step (``utils/graphs.py``, the step builders of ``utils/evaluate.py``); the
+time entry points time captured steps with :func:`clock`.
 """
 
 from __future__ import annotations

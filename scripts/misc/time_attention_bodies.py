@@ -111,7 +111,8 @@ operands with TF32 off and with its TFLOP/s against the CUDA cores' 67;
 and row 8's float32 forms (8t, 8p, 8e, the 197-key logits form and the
 fused form at the paper's ViViT's 12 x 197 over 197 keys), each
 also under the matmul-2 cast (bfloat16 state, ``cast``), beside the share
-of the bound. ``--simt-tiles`` (the checkout's own version only) also
+of the bound (and what bounds it, bytes or operations) and the plain
+version's ms. ``--simt-tiles`` (the checkout's own version only) also
 times each float32 GEMM entry under each tile of ``gemm_core.SIMT_TILES``
 (the plan forced, device microseconds from CUDA events behind a sleep,
 each call checked), the data behind ``SIMT_TILE_RATE``. ``--outputs=FILE``
@@ -607,7 +608,12 @@ def f32_main(device):
                         times["lib_ms"].append(kernel_check.time_call(library, 20))
                 ms, lib_ms = (statistics.median(v) if v else None for v in times.values())
                 dev_us = kernel_check.queued_device_us(call)
-                bound_us = kernel_check.bound(name, d)[0] * 1e3
+                bound_ms, bound_by = kernel_check.bound(name, d)
+                bound_us = bound_ms * 1e3
+                plain = kernel_check.KERNELS[name][1]
+                dp = {key: v.clone() if torch.is_tensor(v) else v for key, v in d.items()}
+                plain_ms = statistics.median(kernel_check.time_call(
+                    lambda: kernel_check._invoke(name, plain, dp), 20) for _ in range(3))
                 extra = {}
                 if not row8:
                     extra["tflops"] = round(gemm_flops(name, d) / dev_us / 1e6, 2)
@@ -618,13 +624,14 @@ def f32_main(device):
                     extra["max_abs_diff_to_saved"] = max(
                         float((a.float() - b.float()).abs().max()) for a, b in pairs)
                 print("f32", label, "ms", round(ms, 4), "device_us", round(dev_us, 2),
-                      "bound_us", round(bound_us, 2), "bound_share", round(bound_us / dev_us, 3),
+                      "bound_us", round(bound_us, 2), "bound_by", bound_by,
+                      "bound_share", round(bound_us / dev_us, 3), "plain_ms", round(plain_ms, 4),
                       "library_ms", lib_ms and round(lib_ms, 4),
                       "ratio", lib_ms and round(ms / lib_ms, 3), "within bounds", ok,
                       *(v for item in extra.items() for v in item), flush=True)
                 if "--simt-tiles" in sys.argv and not row8:
                     print("f32", label, "simt tiles", simt_tile_sweep(name, d), flush=True)
-                del d, dd
+                del d, dd, dp
         del base
         torch.cuda.empty_cache()
     if saved_path and saved is None:

@@ -2431,3 +2431,151 @@ def test_av_cuda_core_body_at_every_key_count(np_, d, coverage, device):
             torch.cuda.synchronize()
             kept = (dd["av_cov"] <= 0)[:, None, None, :].expand_as(p_a)
             assert torch.equal(p_a[kept], dd["p_a"][kept])
+
+
+# -- the captured steps (utils/graphs.py) ------------------------------------------------
+
+
+def _graph_vivit(device, dtype):
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import FactorizedViViT
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    block = dict(dim=64, heads=4, mlp_ratio=4)
+    model = FactorizedViViT(
+        classes=10, input_shape=[8, 3, 32, 32], normalize_mean=0.45, normalize_std=0.225,
+        spatial_views=1, temporal_stride=2, temporal_views=2, tubelet_shape=[2, 8, 8],
+        spatial_config=dict(depth=2, position_encoding_size=[4, 4],
+                            block_class="EventfulTokenwiseBlock", block_config=block),
+        temporal_config=dict(depth=1, position_encoding_size=[4], block_config=block),
+        device=device,
+    ).to(dtype)
+    set_policies(model, TokenNormTopK, k=8)
+    views = torch.randn((1, 2, 8, 3, 32, 32), generator=torch.Generator().manual_seed(3))
+    return model, views.to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_graph_vivit_step_equals_the_eager_step(dtype, device):
+    """A small eventful ViViT through make_vivit_step captured and eager:
+    probabilities bit for bit (a flush and 3 incremental steps a view),
+    counts and launches equal, replays alike; another k captures a second
+    graph."""
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.utils.evaluate import make_vivit_step
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    model, views = _graph_vivit(device, dtype)
+    eager, graph = make_vivit_step(model, graph=False), make_vivit_step(model)
+    assert eager.graph is None and graph.graph is not None
+    want, want_counts = eager(views)
+    kernel_check.reset_launches()
+    eager(views)
+    want_launches = {k: e[0].launches for k, e in kernel_check.KERNELS.items()}
+    got, counts = graph(views)
+    kernel_check.reset_launches()
+    again, _ = graph(views)
+    launches = {k: e[0].launches for k, e in kernel_check.KERNELS.items()}
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert counts == want_counts and launches == want_launches
+    assert graph.graph.captures == 1
+    set_policies(model, TokenNormTopK, k=4)
+    got, counts = graph(views)
+    assert graph.graph.captures == 2
+    want, want_counts = eager(views)
+    assert torch.equal(got, want) and counts == want_counts
+
+
+@pytest.mark.parametrize("regime", ["v2", "blocked"])
+def test_graph_vitdet_backbone_equals_the_eager_backbone(regime, device):
+    """A small eventful ViTDet backbone (2 streams) through its captured
+    step and its eager step, a flush and 3 incremental frames, twice (the
+    second video's fresh state copied into the static state): tokens and
+    the final state bit for bit, counts equal; one graph a mode."""
+    from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
+    from eventful_transformer_tpu_torch.models import ViTDet
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    block = dict(dim=64, heads=4, mlp_ratio=2, window_size=[3, 3],
+                 relative_embedding_size=[8, 8], pool_size=2)
+    model = ViTDet(
+        backbone_config=dict(depth=4, position_encoding_size=[4, 4], window_indices=[0, 2],
+                             block_class="EventfulBlock", windowed_class="EventfulTokenwiseBlock",
+                             windowed_overrides=dict(pool_size=None), block_config=block),
+        classes=5, input_shape=[3, 96, 96], normalize_mean=[0.0] * 3, normalize_std=[1.0] * 3,
+        output_channels=16, patch_size=[16, 16], scale_factors=[1.0], device=device,
+    )
+    set_policies(model, TokenNormTopK, k=12)
+    for blk in model.backbone.blocks:
+        blk.fused_gates = regime
+    aux = model.precompute()
+    eager, graph = model.backbone_step(aux, graph=False), model.backbone_step(aux)
+    frames = torch.rand((4, 2, 3, 96, 96), generator=torch.Generator().manual_seed(0)).to(device)
+    with torch.no_grad():
+        for _ in range(2):
+            states = [model.init_state(2, torch.float32, device) for _ in range(2)]
+            for t in range(4):
+                x = model.pre_backbone(Ctx(), frames[t])
+                mode = "flush" if t == 0 else "incremental"
+                want, states[0], want_counts = eager(states[0], x, mode=mode)
+                got, states[1], counts = graph(states[1], x, mode=mode)
+                assert torch.equal(got, want), t
+                assert counts == want_counts, t
+            for (_, a), (_, b) in zip(_state_leaves(states[0]), _state_leaves(states[1])):
+                assert torch.equal(a, b)
+    assert graph.captures == 2
+    assert {w["mode"] for w in graph.write_back_summary()} == {"flush", "incremental"}
+
+
+def _state_leaves(state):
+    from eventful_transformer_tpu_torch.utils.graphs import leaves
+
+    return list(leaves(state))
+
+
+def test_graph_capture_launches_on_the_capture_stream(device):
+    """Inside a capture the wrappers' stream (ops/_build.py: the raw
+    current stream) is the capture stream, not the stream of the caller."""
+    from eventful_transformer_tpu_torch.ops import _build
+    from eventful_transformer_tpu_torch.utils.graphs import GraphStep
+
+    model, views = _graph_vivit(device, torch.float32)
+    seen = []
+
+    def fn(ctx, v):
+        seen.append((_build.stream_on(v.get_device()), torch.cuda.current_stream().cuda_stream))
+        return model.apply_views(ctx, v)
+
+    step = GraphStep(model, fn)
+    with torch.no_grad():
+        step(views)
+    (warm, warm_current), (captured, current) = seen
+    assert warm == warm_current and captured == current
+    assert captured != torch.cuda.default_stream().cuda_stream
+
+
+def test_graph_capture_meeting_a_host_sync_raises(device, monkeypatch):
+    """A host synchronisation inside the step (planted in the "v4" step's
+    top-k coverage) fails the capture with the line of the port it came
+    through; the step is not run eagerly, and the card serves the next
+    capture."""
+    from eventful_transformer_tpu_torch.core import blocks
+    from eventful_transformer_tpu_torch.utils.evaluate import make_vivit_step
+    from eventful_transformer_tpu_torch.utils.graphs import CaptureError
+
+    model, views = _graph_vivit(device, torch.float32)
+    want, _ = make_vivit_step(model, graph=False)(views)
+    coverage = blocks.coverage_from_norms
+
+    def syncing(norms, k):
+        float(norms.sum())
+        return coverage(norms, k)
+
+    monkeypatch.setattr(blocks, "coverage_from_norms", syncing)
+    step = make_vivit_step(model)
+    with pytest.raises(CaptureError, match="capture failed at eventful_transformer_tpu_torch/core"):
+        step(views)
+    assert step.graph.captures == 0
+    monkeypatch.setattr(blocks, "coverage_from_norms", coverage)
+    got, _ = make_vivit_step(model)(views)
+    assert torch.equal(got, want)

@@ -32,6 +32,10 @@ views = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 1, 4, 3, 1
 with torch.no_grad():
     out = model.apply_views(Ctx(), views.float())
 assert out.shape == (1, 5) and abs(float(out.sum()) - 1.0) < 1e-5
+from eventful_transformer_tpu_torch.utils.graphs import GraphStep
+with torch.no_grad():
+    static_out, _ = GraphStep(model, model.apply_views, capture=False)(views.float())
+assert torch.equal(static_out, out)
 assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
                for name, mod in sys.modules.items() if mod is not None)
 print("ok")

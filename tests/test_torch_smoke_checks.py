@@ -67,3 +67,43 @@ def test_an_allocator_that_never_settles_fails(monkeypatch):
     assert calls == 1 + chip_smoke.MAX_WARM_FORWARDS
     with pytest.raises(AssertionError):
         chip_smoke.check_warm_encodes({"v1": got}, "test")
+
+
+# -- graph_paths' comparison of the eager and the captured step ----------------------
+
+
+@pytest.mark.parametrize("case", ["equal", "negative_zero", "one_ulp", "nan_alike", "shape",
+                                  "structure"])
+def test_graph_paths_compare_bit_for_bit(case):
+    """``tree_bits`` holds two trees of tensors bit for bit: a NaN equals
+    the same NaN, -0.0 differs from 0.0, one float32 ulp differs (with its
+    size reported), and another shape or structure differs."""
+    import torch
+
+    a = {"out": torch.tensor([1.0, 0.0, float("nan")]), "state": [torch.arange(3)]}
+    b = {"out": a["out"].clone(), "state": [a["state"][0].clone()]}
+    want = (True, 0.0)
+    if case == "negative_zero":
+        b["out"][1] = -0.0
+        want = (False, 0.0)
+    elif case == "one_ulp":
+        b["out"][0] = torch.nextafter(torch.tensor(1.0), torch.tensor(2.0))
+        want = (False, float(b["out"][0].double() - 1.0))
+    elif case == "shape":
+        b["state"][0] = torch.arange(4)
+        want = (False, None)
+    elif case == "structure":
+        b["state"].append(torch.zeros(1))
+        want = (False, None)
+    assert chip_smoke.tree_bits(a, b) == want
+
+
+def test_graph_check_names_the_failed_comparisons():
+    ok = dict(counts_equal=True, launches_equal=True, replays_equal=True, outputs_equal=True,
+              state_equal=True)
+    chip_smoke.graph_check("A", ok)
+    chip_smoke.graph_check("A", dict(ok, outputs_equal=False), exact=False)
+    with pytest.raises(AssertionError, match=r"\['outputs_equal'\]"):
+        chip_smoke.graph_check("A", dict(ok, outputs_equal=False))
+    with pytest.raises(AssertionError, match=r"\['launches_equal'\]"):
+        chip_smoke.graph_check("A", dict(ok, launches_equal=False), exact=False)
