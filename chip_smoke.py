@@ -115,8 +115,9 @@ Phases, one JSON line each, with the seconds the phase took:
   12. vitdet_e2e:    spatiotemporal_672 and base_672 through ViTDet.apply, one
                      stream, a flush frame then 8 frames, bfloat16: launch
                      counts, counted GFLOPs per frame against the JAX
-                     package's, the detections kept per frame, the host
-                     synchronisations of the NMS loops; the eventful call
+                     package's, the detections kept per frame, row 22's
+                     launches (2 a frame) and the NMS host reads (0 on the
+                     card); phase 43 on this model; the eventful call
                      again with the rel-pos bias add in its relpos_bias_add
                      form (use_kernel = True), counted; 3 frames of the
                      eventful model in float32 on the card (the rel-pos bias
@@ -277,7 +278,8 @@ Phases, one JSON line each, with the seconds the phase took:
                      top-1/top-5, counts and ms per clip.
   30. harness_vitdet: path B: run_evaluations with evaluate_vitdet_metrics on
                      threshold_1024.yml (thresholds 0.2, 1.0, 5.0; buckets
-                     512-4096) at full width and depth, float32, one
+                     512-4096; the ladder captured, one frame step for
+                     every capacity) at full width and depth, float32, one
                      generated video of 5 raw 720 x 1280 frames through the
                      port's VIDResize (long edge 1024): per threshold the
                      launches (rows 1, 9, 10, 11 and 8 per incremental run,
@@ -334,8 +336,9 @@ Phases, one JSON line each, with the seconds the phase took:
                      spatiotemporal_672 as python -m runs them (runpy),
                      one after the other in one subprocess on the card,
                      n_items=1 over a generated clip and a generated VID
-                     video: each times.csv entry positive, output.txt
-                     naming the card.
+                     video (the ViTDet entry's pre, mid and post segments
+                     each a captured step): each times.csv entry positive,
+                     output.txt naming the card.
   35. coco_kernels, coco_path: rows 5 (dense_mlp_residual), 6 (window_attention,
                      windowed and padded) and 17 (relpos_bias_add_v2) at
                      ViTDet-B COCO's shapes (one stream, N = 4096, 25 windows,
@@ -427,6 +430,36 @@ Phases, one JSON line each, with the seconds the phase took:
                      against plain autograd steps, no kernel launched; and
                      scripts/misc/measure_vivit_buckets.py at one capacity,
                      one clip, one timed call.
+  43. nms_kernel:     (inside 12) row 22, csrc/nms.cu, on the inputs the
+                     e2e eventful model's flush frame gives its two NMS
+                     calls (the RPN's 4096 candidates, max_out 300 at IoU
+                     0.7; the ROI heads' 4096, max_out 100 at 0.5) and on
+                     the contract cases of kernel_check.nms_inputs (clusters
+                     with tied scores, ties, IoUs at the float32 threshold
+                     and one ulp either side, chains 12 deep, all -inf,
+                     fewer valid than max_out) at those shapes and at 900
+                     boxes: indices and mask equal to the plain version's,
+                     ms of both, device microseconds a call and of each of
+                     the two kernels, the bound (the larger of the bytes
+                     of boxes, scores, indices and mask and 15 float32
+                     steps for each IoU the greedy walk needs), and the
+                     bytes of the mask pass's words (the design's own
+                     traffic, outside the bound); 12 itself counts 2
+                     launches a frame and 0 NMS host reads.
+  44. graph_paths:   each captured step against its eager step (graph_sides:
+                     eager, graph, graph, eager; outputs, final state,
+                     counts and launches bit for bit; ms, busy share, peak
+                     memory): A, the flagship ViViT (after 4); B, temporal_24
+                     and its bucketed threshold (after 14); C, ViTDet-B's
+                     whole frame at 1024 and 672, eventful and dense, the
+                     tokens, the detections and 0 NMS host reads (after 8
+                     and 11); the time entry point's pre, mid and post
+                     segments at 672, each tokens, detections and state
+                     (after 8); COCO, the cascade and mask heads' frame (after
+                     35); D, threshold_1024's bucketed ladder in float32, one
+                     frame step for every capacity over one static state,
+                     the kept detections, counts, escalations and frames
+                     per level (after 31).
 The times are a record, not a claim.
 
 Phases 25-27 run last, after 28-37, and read their runs too (the
@@ -525,6 +558,10 @@ RELPOS_KERNELS = ("relpos_bias_add", "relpos_bias_add_v2")
 # 1), a flush frame then E2E_FRAMES frames per call; the kernels of that
 # path at one stream, the A.V kernel's 441 pooled keys included.
 E2E_SIZE, E2E_FRAMES = 672, 8
+# NMS launches a frame (row 22): the RPN's batched_nms and the ROI heads'
+# (the standard heads and the COCO cascade alike: the cascade runs its NMS
+# once, after the last stage)
+HEAD_NMS_PER_FRAME = 2
 E2E_KERNELS = VITDET[672]["kernels"] + ("softmax_select_matmul",) + RELPOS_KERNELS
 # The ROI heads' class scorer is initialised as in the JAX package (a
 # truncated normal, std 0.01, detectron2's): every class probability of a
@@ -1961,10 +1998,13 @@ def e2e_counted_call(model, frames, eventful, row16=False):
         read_routes(model_dtype(model), f"vitdet_e2e {'eventful' if eventful else 'dense'}")
         syncs = nms.host_syncs - syncs
     want = vitdet_expected_launches(eventful, E2E_SIZE, frames=frames_n, streams=1)
+    want["nms_padded"] = HEAD_NMS_PER_FRAME * frames_n
     if row16:
         want["relpos_bias_add"], want["relpos_bias_add_v2"] = want["relpos_bias_add_v2"], 0
     if launches != want:
         raise AssertionError(f"ViTDet e2e launch counts {launches}, expected {want}")
+    if syncs:
+        raise AssertionError(f"the NMS read the host {syncs} times on the card")
     kept = check_detections(dets)
     got = sum(v for k, v in counts.items() if k != "policy_saturated")
     ref = vitdet_jax_flops(eventful, shares, E2E_SIZE, frames=frames_n, streams=1)
@@ -2029,6 +2069,7 @@ def phase_vitdet_e2e(device, smi, rows):
         row16_launches, row16_kept = e2e_counted_call(eventful, frames, True, row16=True)[:2]
     finally:
         set_relpos_form(eventful, "auto")
+    nms_rows = phase_nms_kernel(device, smi, eventful, frames, launches)
     numbers, f32_launches = e2e_card_vs_cpu(device)
     times = {"dense": [], "eventful": []}
     for name in ("dense", "eventful", "eventful", "dense"):
@@ -2055,7 +2096,117 @@ def phase_vitdet_e2e(device, smi, rows):
     row16 = kernel_row("relpos_bias_add", rows[("relpos_bias_add", torch.bfloat16, "e2e")],
                        row16_launches, "vitdet_e2e_row16")
     row16["f32_check_launches"] = f32_launches["relpos_bias_add"]
-    return out + [row16]
+    return out + [row16] + nms_rows
+
+
+# -- row 22: NMS ----------------------------------------------------------------------------
+#
+# The main path's two NMS calls a frame (detection/rpn.py:38-40 and
+# roi_heads.py:94-95 defaults): the RPN's batched_nms over the top 4096 of
+# its 4 x 1000 + 363 candidates at 672, max_out 300 at IoU 0.7; the ROI
+# heads' over the top 4096 of 300 x 30 class boxes, max_out 100 at 0.5. The
+# contract cases (kernel_check.nms_inputs) at those shapes and at 900 boxes
+# (the plain version's fixpoint form).
+NMS_CASES = ("random", "ties", "threshold", "chains", "all_invalid", "few_valid")
+NMS_CASE_SHAPES = ((4096, 300, 0.7), (4096, 100, 0.5), (900, 64, 0.5))
+NMS_KERNELS = ("nms_mask_kernel", "nms_walk_kernel")
+
+
+def recorded_nms_inputs(model, frame):
+    """The (boxes, scores, threshold, max_out) of each NMS call of one
+    flush frame through ViTDet.apply, cloned."""
+    from eventful_transformer_tpu_torch.detection import nms
+
+    seen = []
+    wrapped = nms.nms_padded
+
+    def recording(boxes, scores, threshold, max_out):
+        seen.append((boxes.clone(), scores.clone(), threshold, max_out))
+        return wrapped(boxes, scores, threshold, max_out)
+
+    nms.nms_padded = recording
+    try:
+        run_e2e(model, frame[None])
+    finally:
+        nms.nms_padded = wrapped
+    return seen
+
+
+def kernel_us(fn, names, calls=20):
+    """Device microseconds a ``fn()`` call of each kernel in ``names`` (by
+    the function name the profiler gives it) and of all its device work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by = {name: 0.0 for name in names}
+    total = 0.0
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        total += e.time_range.elapsed_us()
+        for name in names:
+            if name in e.name:
+                by[name] += e.time_range.elapsed_us()
+    return {name: us / calls for name, us in by.items()}, total / calls
+
+
+def phase_nms_kernel(device, smi, model, frames, launches):
+    """Phase nms_kernel: row 22 on the inputs the e2e model's flush frame
+    gives its two NMS calls, and on the contract cases: the kernel against
+    its plain version index for index, the masked slots included (exact;
+    kernel_check.errors), ms of both, the device microseconds of a call
+    (the sort, the gathers and the two kernels) and of each kernel, the
+    bound (kernel_check.bound: the function's bytes, kernel_check.nms_bytes,
+    against its IoUs' float32 steps, kernel_check.nms_ious), and beside the
+    device times the bytes of the mask pass's words (word_bytes,
+    kernel_check.nms_word_bytes: this design's traffic, not the
+    function's). Returns the final line's rows, with the launches of the
+    e2e counted run."""
+    from eventful_transformer_tpu_torch.detection.nms import BLOCK
+    from eventful_transformer_tpu_torch.ops import kernel_check
+
+    wrapper = kernel_check.KERNELS["nms_padded"][0]
+    rows = []
+    for tag, (boxes, scores, threshold, max_out) in zip(
+            ("rpn", "roi"), recorded_nms_inputs(model, frames[0])):
+        d = dict(nms_boxes=boxes, nms_scores=scores, nms_threshold=threshold,
+                 nms_max_out=max_out)
+        outputs = kernel_check.errors("nms_padded", d)
+        if not all(o["ok"] for o in outputs):
+            raise AssertionError(f"nms_kernel {tag}: {outputs}")
+        bound_ms, bound_by = kernel_check.bound("nms_padded", d)
+        by_kernel, call_us = kernel_us(
+            lambda: wrapper(boxes, scores, threshold, max_out, BLOCK), NMS_KERNELS)
+        kept = int(wrapper(boxes, scores, threshold, max_out, BLOCK)[1].sum())
+        rows.append(dict(
+            tag=tag, batch=1, n=boxes.shape[0], max_out=max_out, threshold=threshold,
+            boxes_dtype=str(boxes.dtype).split(".")[-1],
+            scores_dtype=str(scores.dtype).split(".")[-1], kept=kept, outputs=outputs,
+            ms=kernel_check.time_ms("nms_padded", d),
+            plain_ms=kernel_check.time_ms("nms_padded", d, plain=True),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None, device_us=call_us,
+            device_us_by=by_kernel, ious=kernel_check.nms_ious(d),
+            word_bytes=kernel_check.nms_word_bytes(boxes.shape[0])))
+    cases = []
+    for case in NMS_CASES:
+        for n, max_out, threshold in NMS_CASE_SHAPES:
+            boxes, scores = kernel_check.nms_inputs(n, max_out, threshold, device,
+                                                    seed=n + max_out, case=case)
+            d = dict(nms_boxes=boxes, nms_scores=scores, nms_threshold=threshold,
+                     nms_max_out=max_out)
+            outputs = kernel_check.errors("nms_padded", d)
+            kept = int(kernel_check.call("nms_padded", d)[1].sum())
+            cases.append(dict(case=case, n=n, max_out=max_out, threshold=threshold,
+                              ok=all(o["ok"] for o in outputs), kept=kept))
+    if not all(c["ok"] for c in cases):
+        raise AssertionError(f"nms_kernel: a contract case differs: {cases}")
+    emit("nms_kernel", card=smi, rows=rows, cases=cases, launches=launches["nms_padded"])
+    return [kernel_row("nms_padded", row, launches, "vitdet_e2e") for row in rows]
 
 
 # -- ViViT-B K400, the paper's eventful configuration -------------------------------
@@ -3385,6 +3536,33 @@ def threshold_launches(entries):
                       if e["policy"] == "TokenNormThreshold") for name in wrappers()}
 
 
+@contextlib.contextmanager
+def checked_eval_steps(finite):
+    """Inside: the steps of utils/evaluate.py::make_vitdet_eval_step append
+    whether each frame's boxes and scores are finite to ``finite`` (read
+    from the step's outputs, after its graph has replayed)."""
+    from eventful_transformer_tpu_torch.utils import evaluate
+
+    build = evaluate.make_vitdet_eval_step
+
+    def checked(*args, **kwargs):
+        step = build(*args, **kwargs)
+
+        def call(*step_args):
+            out = step(*step_args)
+            finite.extend(torch.isfinite(out[0][k].float()).all() for k in ("boxes", "scores"))
+            return out
+
+        call.reset = step.reset
+        return call
+
+    evaluate.make_vitdet_eval_step = checked
+    try:
+        yield
+    finally:
+        evaluate.make_vitdet_eval_step = build
+
+
 def checked_method(model, name, outputs):
     """Wrap ``model.<name>`` so that each call appends whether its tensor
     outputs are finite to the returned list."""
@@ -3590,9 +3768,8 @@ def harness_vitdet(device, tmp, smi):
     def evaluate(model, data, config):
         return evaluate_vitdet_metrics(model, data, config, dispatchers)
 
-    evaluate = harness_evaluate(
-        evaluate, entries, lambda model: checked_method(model, "post_backbone", ("boxes", "scores"))
-    )
+    finite = []
+    evaluate = harness_evaluate(evaluate, entries, lambda model: finite)
 
     def build(**kwargs):
         model = ViTDet(**kwargs)
@@ -3600,7 +3777,8 @@ def harness_vitdet(device, tmp, smi):
             model.roi_heads.cls_score.kernel.mul_(CLS_SCORE_GAIN)
         return model
 
-    done = run_evaluations(config, build, data, evaluate)
+    with checked_eval_steps(finite):
+        done = run_evaluations(config, build, data, evaluate)
     read_routes(torch.float32, "harness_vitdet")
     frames = len(data[0])
     for entry, dispatcher in zip(entries, dispatchers):
@@ -4172,7 +4350,7 @@ def coco_card_vs_cpu(device):
     windowed = len(VITDET_CHECK_WINDOWS)
     want = dict.fromkeys(wrappers(), 0)
     want.update(window_attention=windowed, relpos_bias_add_v2=VITDET_CHECK_DEPTH - windowed,
-                dense_mlp_residual=VITDET_CHECK_DEPTH)
+                dense_mlp_residual=VITDET_CHECK_DEPTH, nms_padded=HEAD_NMS_PER_FRAME)
     if launches != want:
         raise AssertionError(f"the float32 COCO run's launches {launches}, expected {want}")
     matches = [match_masks(a, b) for a, b in zip(outs["card"][1], outs["cpu"][1])]
@@ -4209,8 +4387,10 @@ def coco_path(device, smi):
     syncs = (nms.host_syncs - syncs) / COCO_FRAMES
     peak = torch.cuda.max_memory_allocated(device)
     want = vitdet_expected_launches(False, 1024, frames=COCO_FRAMES, streams=1)
-    if launches != want:
-        raise AssertionError(f"COCO launch counts {launches}, expected {want}")
+    want["nms_padded"] = HEAD_NMS_PER_FRAME * COCO_FRAMES
+    if launches != want or syncs:
+        raise AssertionError(f"COCO launch counts {launches}, expected {want}; NMS host reads "
+                             f"{syncs} a frame")
     kept = check_detections(dets, classes=COCO_CLASSES, size=COCO_SIZE)
     got = gflops(counts)
     ref = vitdet_jax_flops(False, [], 1024, frames=COCO_FRAMES, streams=1) / 1e9
@@ -4222,7 +4402,7 @@ def coco_path(device, smi):
         tokens, _ = model.apply_backbone(ctx, model.init_state(1), model.pre_backbone(ctx, frames[0]),
                                          model.precompute())
     heads_check = coco_heads_on_features(model, tokens, device)
-    del model, frames, tokens
+    del tokens
     torch.cuda.empty_cache()
     numbers, f32_launches = coco_card_vs_cpu(device)
     emit("coco_path", card=smi, config="models/vitdet_b_coco.yml", size=COCO_SIZE,
@@ -4234,6 +4414,9 @@ def coco_path(device, smi):
          memory_allocated_at_start=held,
          columns=["first_frame_ms", "later_frames_ms", "mean_frame_ms"], ms=times,
          f32_heads_check=heads_check, f32_depth=VITDET_CHECK_DEPTH, mask_tol=MASK_TOL, **numbers)
+    graph_coco(model, frames, smi)
+    del model, frames
+    torch.cuda.empty_cache()
     return [kernel_row(name, rows[(name, torch.bfloat16, tag)], launches, "coco")
             for name, tag in COCO_ROWS]
 
@@ -4590,8 +4773,9 @@ def warm_group(group):
 def parallel_vitdet(location, overrides, mesh_axis, evaluate_parallel, frames, items, sp=False):
     """Path (a) or (b): the model of ``configs/evaluate/vitdet_vid/<location>``
     with ``overrides`` on the card, float32, over ``items`` videos of
-    ``frames`` frames; the driver without the parallel option, then
-    ``evaluate_parallel`` over ``mesh_axis``."""
+    ``frames`` frames; the evaluation without the parallel option and
+    without capture (``graph=False``), then ``evaluate_parallel`` over
+    ``mesh_axis`` (DP replays the frame's graphs)."""
     from eventful_transformer_tpu_torch.core.policies import TokenNormTopK
     from eventful_transformer_tpu_torch.data.vid import VIDResize
     from eventful_transformer_tpu_torch.models import ViTDet
@@ -4617,7 +4801,11 @@ def parallel_vitdet(location, overrides, mesh_axis, evaluate_parallel, frames, i
                        frames=frames, n_items=items)
     sequence_parallel(None)
     data = parallel_annotated(model, data)
-    plain, plain_launches, plain_s = counted(evaluate_vitdet_metrics, model, data, config)
+
+    def eager(model, data, config):  # the one-process run without its graphs
+        return evaluate_vitdet_metrics(model, data, config, graph=False)
+
+    plain, plain_launches, plain_s = counted(eager, model, data, config)
     if sp:
         sequence_parallel(mesh_axis)
     par, launches, seconds = counted_runs(evaluate_parallel, model, data, config, mesh)
@@ -5503,11 +5691,15 @@ def detection_losses(device, smi):
 # one raw clip of 12 views; then TokenNormThreshold through the bucketed
 # dispatch, threshold GRAPH_THRESHOLD over GRAPH_BUCKETS (every candidate is
 # over 0, so each call escalates through every capacity: one graph each).
-# Path C: ViTDet-B end to end through make_vitdet_step, spatiotemporal
-# (k = 256) and base, the VID head, one stream, bf16, a flush frame then
-# E2E_FRAMES frames, at 1024 and at 672. Each path runs on the models an
-# earlier phase built (A: phase slice's; B: vivit_evblock's eventful model,
-# cast to float32; C: each size's vitdet_slice models).
+# Path C: ViTDet-B end to end through make_vitdet_step, the whole frame in
+# one graph a mode (the preprocessing, the backbone and the head with row
+# 22's NMS), spatiotemporal (k = 256) and base, the VID head, one stream,
+# bf16, a flush frame then E2E_FRAMES frames, at 1024 and at 672. Path D:
+# the bucketed ViTDet ladder of threshold_1024 (float32), captured. COCO:
+# coco_path's model (the cascade and the mask head) captured. Each path but
+# D runs on the models an earlier phase built (A: phase slice's; B:
+# vivit_evblock's eventful model, cast to float32; C: each size's
+# vitdet_slice models; COCO: coco_path's).
 GRAPH_ORDER = ("eager", "graph", "graph", "eager")
 GRAPH_THRESHOLD, GRAPH_BUCKETS = 0.0, [49, 197]
 
@@ -5694,40 +5886,73 @@ def graph_path_b(model, clip, smi):
 
 
 def graph_vitdet_sides(model, frames, first_eager=contextlib.nullcontext):
-    """make_vitdet_step eager and captured over ``frames`` (T, 1, 3, S, S):
-    outputs the backbone's tokens and the detections of every frame, the
-    final state (a copy) and the counts of the call."""
+    """make_vitdet_step eager and captured (the whole frame, one graph a
+    mode) over ``frames`` (T, 1, 3, S, S): outputs the detections of every
+    frame with the backbone's tokens (``keep_tokens``), the final state (a
+    copy) and the counts of the call; beside graph_sides' numbers the write-
+    back plan and the NMS host reads of every call of either side (0: the
+    kernel of row 22)."""
+    from eventful_transformer_tpu_torch.detection import nms
     from eventful_transformer_tpu_torch.utils.evaluate import make_vitdet_step
 
-    steps = {"eager": make_vitdet_step(model, graph=False), "graph": make_vitdet_step(model)}
-    post_backbone = model.post_backbone
-    tokens = []
-
-    def recorded(ctx, t):
-        tokens.append(t.clone())
-        return post_backbone(ctx, t)
+    steps = {"eager": make_vitdet_step(model, graph=False, keep_tokens=True),
+             "graph": make_vitdet_step(model, keep_tokens=True)}
+    syncs = nms.host_syncs
 
     def run(side):
         from eventful_transformer_tpu_torch.core.counting import Counts
         from eventful_transformer_tpu_torch.utils.bucketing import clone_state
 
-        tokens.clear()
         state = model.init_state(1, frames.dtype, frames.device)
         total, dets = Counts(), []
-        model.post_backbone = recorded
-        try:
-            for t in range(frames.shape[0]):
-                det, state, counts = steps[side](state, frames[t], None, t == 0)
-                dets.append(det)
-                total = total + counts
-        finally:
-            del model.post_backbone
-        return (list(tokens), dets), clone_state(state), total
+        for t in range(frames.shape[0]):
+            det, state, counts = steps[side](state, frames[t], None, t == 0)
+            dets.append(det)
+            total = total + counts
+        return dets, clone_state(state), total
 
     numbers, first = graph_sides(run, lambda: [steps["graph"].graph], per=frames.shape[0],
                                  first_eager=first_eager)
     numbers["write_back"] = steps["graph"].graph.write_back_summary()
+    numbers["nms_host_syncs"] = nms.host_syncs - syncs
+    if numbers["nms_host_syncs"]:
+        raise AssertionError(f"the captured frame's NMS read the host: {numbers}")
     return numbers, first
+
+
+def graph_segments(model, frames, smi, size):
+    """The time entry point's three segments (scripts/time/vitdet_vid.py::
+    segment_steps: pre, mid and post, counting nothing) captured against
+    eager over ``frames``: every frame's tokens after pre and after mid,
+    its detections, the final state and the launches bit for bit."""
+    from eventful_transformer_tpu_torch.core.counting import Counts
+    from eventful_transformer_tpu_torch.scripts.time.vitdet_vid import segment_steps
+    from eventful_transformer_tpu_torch.utils.bucketing import clone_state
+
+    steps = {"eager": segment_steps(model, graph=False), "graph": segment_steps(model)}
+    hw = torch.tensor([size, size], dtype=torch.int32, device=frames.device)
+
+    def run(side):
+        pre, mid, post = steps[side]
+        state = model.init_state(1, frames.dtype, frames.device)
+        out = []
+        with torch.no_grad():
+            for t in range(frames.shape[0]):
+                tokens, _ = pre(frames[t], hw)
+                backbone, state, _ = mid(state, tokens, mode="flush" if t == 0 else "incremental")
+                dets, _ = post(backbone)
+                out.append((tokens, backbone, dets))
+        return out, clone_state(state), Counts()
+
+    numbers, _ = graph_sides(run, lambda: list(steps["graph"]), per=frames.shape[0])
+    graph_check(f"time segments {size}", numbers)
+    emit("graph_paths", path="time segments", size=size, card=smi, frames=frames.shape[0],
+         dtype="bfloat16", config=f"spatiotemporal_{size}", **numbers)
+
+
+def detections_of(dets):
+    """The detections of every frame without the backbone's tokens."""
+    return [{k: v for k, v in det.items() if k != "tokens"} for det in dets]
 
 
 def graph_path_c(eventful, dense, smi, size):
@@ -5756,14 +5981,113 @@ def graph_path_c(eventful, dense, smi, size):
                                streams=1)
         numbers.update(gflops_per_frame=got / frames.shape[0] / 1e9,
                        jax_gflops_per_frame=ref / frames.shape[0] / 1e9,
-                       kept_detections_per_frame=check_detections(first["graph"][0][1],
-                                                                  size=size))
+                       kept_detections_per_frame=check_detections(
+                           detections_of(first["graph"][0]), size=size))
         if abs(got - ref) > 1e-6 * ref:
             raise AssertionError(f"graph_paths C {size} {name}: counted {got} FLOPs, the JAX "
                                  f"package's count is {ref}")
         out[name] = numbers
     emit("graph_paths", path="C", size=size, card=smi, streams=1, frames=E2E_FRAMES + 1,
          k=VITDET_K, dtype="bfloat16", config=f"spatiotemporal_{size} and base_{size}", **out)
+    if size == E2E_SIZE:  # the time entry point's configuration
+        graph_segments(eventful, frames, smi, size)
+
+
+# Path D: the bucketed ViTDet ladder of harness_vitdet (threshold_1024,
+# float32, one generated video of HARNESS_VID_FRAMES frames through
+# VIDResize) at a threshold where its incremental frames escalate (graph_path_d
+# requires an escalation).
+GRAPH_D_THRESHOLD = 1.0
+
+
+def graph_path_d(device, smi):
+    """Path D: threshold_1024 at full width and depth through
+    make_vitdet_eval_step captured (one frame step for every capacity: a
+    graph per capacity and mode over one static state, the state backed up
+    before each run below the top) and eager, eager, graph, graph, eager:
+    every frame's kept detections and counts (as vitdet_item_results gives
+    them) equal bit for bit, the same escalations and frames per level and
+    the same launches in the first call of each side, no NMS host read;
+    ms a frame of each call (the first graph call captures), the graphs
+    captured and the peak of allocated memory of each side."""
+    from eventful_transformer_tpu_torch.core.policies import TokenNormThreshold
+    from eventful_transformer_tpu_torch.data.vid import VIDResize
+    from eventful_transformer_tpu_torch.detection import nms
+    from eventful_transformer_tpu_torch.models import ViTDet
+    from eventful_transformer_tpu_torch.utils.evaluate import (
+        make_vitdet_eval_step,
+        vitdet_item_results,
+    )
+    from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+    config = harness_config("vitdet_vid", ["threshold_1024", "n_items=1"])
+    long_edge = max(config["model"]["input_shape"][-2:])
+    data = harness_vid(VIDResize(short_edge_length=640 * long_edge // 1024, max_size=long_edge))
+    cfg = {k: v for k, v in config["model"].items() if k != "device"}
+    model = ViTDet(**cfg, device=device, seed=SEED)
+    with torch.no_grad():
+        model.roi_heads.cls_score.kernel.mul_(CLS_SCORE_GAIN)
+    set_policies(model, TokenNormThreshold, threshold=GRAPH_D_THRESHOLD,
+                 capacity=config.get("threshold_capacity"))
+    steps = {side: make_vitdet_eval_step(model, config, graph=side == "graph")
+             for side in ("eager", "graph")}
+    frames = len(data[0])
+    first, tallies, launches, ms, peak = {}, {}, {}, {"eager": [], "graph": []}, {}
+    syncs = nms.host_syncs
+    for side in ("eager", "graph", "graph", "eager"):
+        step = steps[side]
+        before = (step.escalations, list(step.frames_per_level))
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        with torch.no_grad():
+            results = vitdet_item_results(model, data, [0], step)[0]
+        torch.cuda.synchronize()
+        ms[side].append((time.perf_counter() - start) * 1e3 / frames)
+        peak[side] = max(peak.get(side, 0), torch.cuda.max_memory_allocated())
+        tally = (step.escalations - before[0],
+                 [a - b for a, b in zip(step.frames_per_level, before[1])])
+        if side not in first:
+            first[side], tallies[side], launches[side] = results, tally, read_launches()
+        elif tally != tallies[side]:
+            raise AssertionError(f"graph_paths D {side}: the second call's dispatch {tally}, "
+                                 f"the first's {tallies[side]}")
+    read_routes(torch.float32, "graph_paths D")
+    same = all(
+        all(np.array_equal(a[0][k], b[0][k]) for k in ("boxes", "scores", "labels"))
+        and dict(a[2]) == dict(b[2])
+        for a, b in zip(first["eager"], first["graph"]))
+    graphs_made = {id(s.graph): s.graph for s in steps["graph"]._steps.values() if s.graph}
+    numbers = dict(
+        detections_and_counts_equal=same, dispatch=tallies,
+        launches_equal=launches["eager"] == launches["graph"],
+        launches={k: v for k, v in launches["graph"].items() if v},
+        kept_detections_per_frame=[int(r[0]["scores"].shape[0]) for r in first["graph"]],
+        eager_ms_per_frame=ms["eager"], graph_ms_per_frame=ms["graph"],
+        eager_peak_bytes=peak["eager"], graph_peak_bytes=peak["graph"],
+        frame_steps=len(graphs_made), graphs_captured=sum(g.captures for g in graphs_made.values()),
+        capture_s=sum(g.capture_seconds for g in graphs_made.values()),
+        nms_host_syncs=nms.host_syncs - syncs)
+    if (not same or tallies["eager"] != tallies["graph"] or not numbers["launches_equal"]
+            or numbers["nms_host_syncs"] or not tallies["graph"][0]):
+        raise AssertionError(f"graph_paths D: {numbers}")
+    emit("graph_paths", path="D", card=smi, config="threshold_1024", dtype="float32",
+         threshold=GRAPH_D_THRESHOLD, capacities=config["bucket_capacities"], frames=frames,
+         **numbers)
+
+
+def graph_coco(model, frames, smi):
+    """The COCO frame (the cascade and the mask head, coco_path's model in
+    bfloat16) captured against eager, as path C: detections with their
+    masks, the backbone's tokens, final state, counts and launches bit for
+    bit."""
+    numbers, first = graph_vitdet_sides(model, frames)
+    graph_check("COCO", numbers)
+    numbers["kept_detections_per_frame"] = check_detections(
+        detections_of(first["graph"][0]), classes=COCO_CLASSES, size=COCO_SIZE)
+    emit("graph_paths", path="COCO", size=COCO_SIZE, card=smi, frames=frames.shape[0],
+         dtype="bfloat16", config="models/vitdet_b_coco.yml", **numbers)
 
 
 def main():
@@ -5797,6 +6121,7 @@ def main():
     kernels += blend_path(device, smi)
     kernels += unwired_path(device, smi)
     kernels += harness_paths(device, smi)
+    graph_path_d(device, smi)
     kernels += serving_paths(device, smi, ev_checks)
     kernels += coco_path(device, smi)
     kernels += train_path(device, smi)

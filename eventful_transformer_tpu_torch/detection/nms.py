@@ -3,7 +3,7 @@
 The output has a static capacity (``max_out``) and a validity mask, and
 equals the JAX function's index for index, the masked slots included:
 
-* small N (<= ``_BLOCK``): the greedy keep-set as the fixpoint of
+* small N (<= ``BLOCK``): the greedy keep-set as the fixpoint of
       keep(i) = valid(i) and not exists j < i: keep(j) and iou(i, j) > t
   over boxes in score order, by Jacobi iteration from keep = valid;
 * large N: blocked kept-set greedy. Score-sorted blocks go in order
@@ -11,11 +11,15 @@ equals the JAX function's index for index, the masked slots included:
   fixpoint above, and the loop stops once ``max_out`` boxes are kept (the
   JAX package's exact early exit: later keeps are unobservable).
 
-Both loops are data-dependent. Each convergence check reads one small
-tensor back to the host (a device synchronisation): the fixpoint runs
-``_FIXPOINT_STEPS`` Jacobi steps between checks (steps past the fixpoint
-change nothing), and reads the kept count with its last check, which is
-all the blocked loop's early exit needs. ``host_syncs`` counts them.
+:func:`nms_padded` routes by the tensors' device: CUDA tensors go to the
+kernel pair of ``csrc/nms.cu`` (``ops/nms.py::nms_padded``), which walks
+the boxes on the card and reads nothing back, so a captured frame holds it.
+CPU tensors take the plain version, :func:`nms_padded_plain`, whose loops
+are data-dependent: each convergence check reads one small tensor back to
+the host (a device synchronisation): the fixpoint runs ``_FIXPOINT_STEPS``
+Jacobi steps between checks (steps past the fixpoint change nothing), and
+reads the kept count with its last check, which is all the blocked loop's
+early exit needs. ``host_syncs`` counts them (0 on the card).
 
 Ties: the score order is a stable sort, as ``jnp.argsort``, and
 :func:`top_k` keeps the smaller index among equal values, as
@@ -27,8 +31,9 @@ from __future__ import annotations
 import torch
 
 from eventful_transformer_tpu_torch.detection.boxes import iou_matrix
+from eventful_transformer_tpu_torch.ops import nms as nms_kernel
 
-_BLOCK = 1024
+BLOCK = 1024  # the fixpoint form up to here, the blocked form above
 _FIXPOINT_STEPS = 4
 
 host_syncs = 0
@@ -61,7 +66,18 @@ def nms_padded(boxes, scores, iou_threshold, max_out):
     """Exact greedy NMS with static output capacity. boxes (N, 4), scores
     (N,); scores of invalid or padded boxes must be -inf. Returns
     (indices (max_out,) int32, mask (max_out,)): kept box indices in
-    descending score order."""
+    descending score order (for N <= 1024 and N < max_out the indices are
+    N long, the boxes not kept after the kept ones). CPU tensors take
+    :func:`nms_padded_plain`, CUDA tensors the kernel of ``csrc/nms.cu``;
+    a failed build or launch raises."""
+    if boxes.is_cpu:
+        return nms_padded_plain(boxes, scores, iou_threshold, max_out)
+    return nms_kernel.nms_padded(boxes, scores, iou_threshold, max_out, BLOCK)
+
+
+def nms_padded_plain(boxes, scores, iou_threshold, max_out, block=BLOCK):
+    """:func:`nms_padded` by the fixpoint (N <= ``block``) and blocked
+    loops (blocks of ``block`` boxes), reading the host (``host_syncs``)."""
     n = boxes.shape[0]
     device = boxes.device
     order = torch.sort(-scores, stable=True).indices
@@ -70,7 +86,7 @@ def nms_padded(boxes, scores, iou_threshold, max_out):
     valid = s > -float("inf")
     slots = torch.arange(max_out, device=device)
 
-    if n <= _BLOCK:
+    if n <= block:
         iou = iou_matrix(b, b)
         earlier = torch.ones((n, n), dtype=torch.bool, device=device).tril(-1)
         keep, count = _fixpoint_keep(valid, (iou > iou_threshold) & earlier)
@@ -79,14 +95,14 @@ def nms_padded(boxes, scores, iou_threshold, max_out):
         pos = torch.sort(sort_key, stable=True).indices[:max_out]
         return order[pos].int(), slots < count
 
-    earlier = torch.ones((_BLOCK, _BLOCK), dtype=torch.bool, device=device).tril(-1)
+    earlier = torch.ones((block, block), dtype=torch.bool, device=device).tril(-1)
     kept_boxes = torch.zeros((max_out + 1, 4), dtype=torch.float32, device=device)
     kept_pos = torch.zeros(max_out + 1, dtype=torch.long, device=device)  # slot max_out: a sink
     kept_cnt = 0
-    for start in range(0, n, _BLOCK):
+    for start in range(0, n, block):
         if kept_cnt >= max_out:
             break
-        blk, alive = b[start : start + _BLOCK], valid[start : start + _BLOCK]
+        blk, alive = b[start : start + block], valid[start : start + block]
         m = blk.shape[0]
         if kept_cnt:  # suppression by the kept set of earlier blocks
             iou_k = iou_matrix(blk, kept_boxes[:kept_cnt])

@@ -7,7 +7,8 @@ parameters (detectron2's canonical level assignment).
 
 Sample coordinates are clamped into the map before the gather, as the JAX
 package clamps before ``jnp.take``; torch's indexing raises where
-``jnp.take`` would clamp.
+``jnp.take`` would clamp. The per-level tables are device tensors made once
+per set of feature shapes (:func:`level_tables`).
 """
 
 from __future__ import annotations
@@ -77,27 +78,49 @@ def assign_levels(boxes, min_level, max_level, canonical_size=224, canonical_lev
     return level.clamp(min_level, max_level).to(torch.int32)
 
 
+_LEVEL_TABLES = {}
+
+
+def level_tables(shapes, scales, device):
+    """The per-level tables of :func:`multilevel_roi_align` on ``device``,
+    made once per set of feature shapes ((H_l, W_l), ...), scales and
+    device, as ``RPN.anchors`` keeps its anchors (a captured frame copies
+    nothing from the host): float32 scales, heights and widths, int64
+    offsets into the packed map and widths."""
+    key = (tuple(shapes), tuple(float(s) for s in scales), str(device))
+    tables = _LEVEL_TABLES.get(key)
+    if tables is None:
+        heights = np.array([h for h, _ in shapes])
+        widths = np.array([w for _, w in shapes])
+        offsets = np.concatenate([[0], np.cumsum(heights * widths)[:-1]])
+
+        def table(values, dtype):
+            return torch.as_tensor(np.asarray(values), dtype=dtype, device=device)
+
+        tables = _LEVEL_TABLES[key] = dict(
+            scale=table(np.asarray(scales, np.float32), torch.float32),
+            height=table(heights, torch.float32), width=table(widths, torch.float32),
+            offset=table(offsets, torch.int64), width_i=table(widths, torch.int64),
+        )
+    return tables
+
+
 def multilevel_roi_align(features, boxes, scales, min_level, max_level, output_size=7,
                          sampling_ratio=2):
     """Pool each roi from its assigned level of the packed map: features a
     list of (H_l, W_l, C); boxes (R, 4); scales the per-level 1 / stride.
     Returns (R, output_size, output_size, C)."""
-    device = boxes.device
     li = (assign_levels(boxes, min_level, max_level) - min_level).long()
     c = features[0].shape[-1]
     flat = torch.cat([f.reshape(-1, c) for f in features])
-    heights = np.array([f.shape[0] for f in features])
-    widths = np.array([f.shape[1] for f in features])
-    offsets = np.concatenate([[0], np.cumsum(heights * widths)[:-1]])
+    tables = level_tables([tuple(f.shape[:2]) for f in features], scales, boxes.device)
 
-    def per_roi(values, dtype):
-        return torch.as_tensor(np.asarray(values), dtype=dtype, device=device)[li].reshape(-1, 1, 1, 1, 1)
+    def per_roi(name):
+        return tables[name][li].reshape(-1, 1, 1, 1, 1)
 
-    scale_r = per_roi(np.asarray(scales, np.float32), torch.float32).reshape(-1)
+    scale_r = tables["scale"][li]
     y, x = _sample_grid(*(boxes[:, i] * scale_r - 0.5 for i in (0, 1, 2, 3)), output_size,
                         sampling_ratio)
-    vals = _bilinear_flat(
-        flat, y, x, per_roi(heights, torch.float32), per_roi(widths, torch.float32),
-        per_roi(offsets, torch.int64), per_roi(widths, torch.int64),
-    )
+    vals = _bilinear_flat(flat, y, x, per_roi("height"), per_roi("width"), per_roi("offset"),
+                          per_roi("width_i"))
     return vals.mean(dim=(3, 4))

@@ -147,7 +147,8 @@ class StandardROIHeads(BoxLayers, nn.Module):
         flat_boxes = boxes.expand(p, c, 4).reshape(p * c, 4)
         flat_scores = probs.reshape(p * c)
         classes = torch.arange(c, dtype=torch.int32, device=probs.device).repeat(p)
-        valid = (flat_scores > self.test_score_thresh) & proposal_mask.repeat_interleave(c)
+        proposal_valid = proposal_mask[:, None].expand(p, c).reshape(-1)
+        valid = (flat_scores > self.test_score_thresh) & proposal_valid
         flat_scores = torch.where(valid, flat_scores, -float("inf"))
         keep_idx, keep_mask = batched_nms(flat_boxes, flat_scores, classes, self.test_nms_thresh,
                                           self.test_topk_per_image)

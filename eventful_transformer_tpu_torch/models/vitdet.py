@@ -61,22 +61,35 @@ class ViTDetPreprocessing:
     """Normalisation and bottom-right zero padding to the input shape.
     Expects [0, 1]-scaled input. The reference normalises first and then
     pads, so the padded region is exactly 0; ``content_hw`` = (h, w) of the
-    real content of a frame the caller already padded re-zeroes the rest."""
+    real content of a frame the caller already padded re-zeroes the rest:
+    an int32 tensor compared on the frame's device (as the JAX function
+    compares its array, so that a captured frame reads no host value), or a
+    tuple of ints. ``mean`` and ``std`` stay float32 on the model's device
+    (``ViTDet`` moves them with itself)."""
 
     def __init__(self, input_shape, normalize_mean, normalize_std):
         self.input_shape = tuple(input_shape)
         self.mean = torch.tensor(normalize_mean, dtype=torch.float32).reshape(-1, 1, 1)
         self.std = torch.tensor(normalize_std, dtype=torch.float32).reshape(-1, 1, 1)
 
+    def to(self, device):
+        """``mean`` and ``std`` onto ``device``, float32."""
+        self.mean, self.std = self.mean.to(device), self.std.to(device)
+        return self
+
     def __call__(self, x, content_hw=None):
+        # a no-op for a frame on the model's device: ViTDet moves them with itself
         mean, std = self.mean.to(x.device), self.std.to(x.device)
         # normalise in float32, keep the caller's dtype
         x = ((x.float() * 255.0 - mean) / std).to(x.dtype)
         _, h, w = self.input_shape
         x = nn.functional.pad(x, (0, w - x.shape[-1], 0, h - x.shape[-2]))
         if content_hw is not None:
-            rows = torch.arange(h, device=x.device) < int(content_hw[0])
-            cols = torch.arange(w, device=x.device) < int(content_hw[1])
+            if not isinstance(content_hw, torch.Tensor):
+                content_hw = torch.tensor(tuple(content_hw), dtype=torch.int32)
+            content_hw = content_hw.to(x.device)
+            rows = torch.arange(h, device=x.device) < content_hw[0]
+            cols = torch.arange(w, device=x.device) < content_hw[1]
             x = x * (rows[:, None] & cols[None, :]).to(x.dtype)
         return x
 
@@ -173,6 +186,13 @@ class ViTDet(nn.Module):
                 module.reset_parameters(generator)
         self.to(device)
 
+    def _apply(self, fn, *args, **kwargs):
+        # ``to``, ``cuda`` and ``cpu`` move the preprocessing's float32
+        # constants with the parameters (a cast leaves them float32)
+        super()._apply(fn, *args, **kwargs)
+        self.preprocessing.to(self.embedding.kernel.device)
+        return self
+
     def init_state(self, batch=1, dtype=torch.float32, device=None):
         device = device if device is not None else self.embedding.kernel.device
         return self.backbone.init_state(batch, dtype, device)
@@ -231,6 +251,40 @@ class ViTDet(nn.Module):
 
         return model_step(self.backbone, run, graph=graph, stateful=True, count_mode=count_mode,
                           name="vitdet backbone step")
+
+    def frame_run(self, aux, keep_tokens=False):
+        """The body of :meth:`frame_step`: ``run(ctx, state, frame,
+        content_hw, mode=None) -> (detections, state)``, :meth:`apply` with
+        ``aux`` bound (with ``keep_tokens`` the detections dict also holds
+        the backbone's tokens under "tokens")."""
+
+        def run(ctx, state, frame, content_hw, mode=None):
+            tokens = self.pre_backbone(ctx, frame, content_hw)
+            tokens, state = self.apply_backbone(ctx, state, tokens, aux, mode=mode)
+            detections = self.post_backbone(ctx, tokens)
+            if keep_tokens:
+                detections = dict(detections, tokens=tokens)
+            return detections, state
+
+        return run
+
+    def frame_step(self, aux=None, graph=None, count_mode=True, keep_tokens=False):
+        """:meth:`apply` as a step, ``step(state, frame, content_hw,
+        mode=...) -> (detections, state, counts)``: on the card the whole
+        frame captured (``utils/graphs.py::model_step``), the preprocessing,
+        the backbone and the head (the NMS of ``csrc/nms.cu`` reads nothing
+        back), one graph for ``mode="flush"`` and one for ``"incremental"``.
+        The frame and ``content_hw`` (an int32 (2,) tensor on the model's
+        device) go into static input buffers, the state lives in the static
+        tensors the two graphs share (as :meth:`backbone_step`'s: clone it to
+        keep it); the detections dict (with ``masks`` under a mask head) is
+        the output, cloned each call. The patch embedding and the head count
+        nothing, as in the JAX package. ``keep_tokens`` as in
+        :meth:`frame_run`. ``aux``: :meth:`precompute`, made here when not
+        given."""
+        aux = self.precompute() if aux is None else aux
+        return model_step(self, self.frame_run(aux, keep_tokens), graph=graph, stateful=True,
+                          count_mode=count_mode, name="vitdet frame step")
 
     def apply(self, ctx, state, x, aux=None, content_hw=None, mode=None):
         """One frame, (1, C, H, W), to detections: returns (detections,

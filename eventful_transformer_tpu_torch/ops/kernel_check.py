@@ -16,6 +16,8 @@ import torch
 
 from eventful_transformer_tpu_torch.core.indexing import coverage_from_norms, window_row_map
 from eventful_transformer_tpu_torch.core.policies import vector_norm
+from eventful_transformer_tpu_torch.detection import nms as detection_nms
+from eventful_transformer_tpu_torch.detection.boxes import iou_matrix
 from eventful_transformer_tpu_torch.ops import (
     attention,
     av_softmax,
@@ -24,6 +26,7 @@ from eventful_transformer_tpu_torch.ops import (
     gate_block,
     gate_fused,
     gate_group,
+    nms,
     relpos,
     scatter,
     scatter_blend,
@@ -39,6 +42,7 @@ _GF = "eventful_transformer_tpu/ops/pallas/gate_fused.py"
 _GB = "eventful_transformer_tpu/ops/pallas/gate_block.py"
 _SC = "eventful_transformer_tpu/ops/pallas/scatter.py"
 _WA = "eventful_transformer_tpu/ops/pallas/window_attention.py"
+NMS_REPLACES = "eventful_transformer_tpu/detection/nms.py:58 (XLA while_loops, no Pallas kernel)"
 KERNELS = {
     "ln_norms": (
         gate_fused.ln_norms, gate_fused.ln_norms_plain,
@@ -283,6 +287,13 @@ KERNELS = {
                "eventful_transformer_tpu_torch/csrc/window_attention.cu", f"{_WA}:348", ("out",))
         for name in ("window_attention_grid", "window_attention_grid_noterms")
     },
+    # row 22, greedy NMS with no host read: no Pallas counterpart, the JAX
+    # package runs it in XLA (two lax.while_loops); its plain version is the
+    # port's fixpoint and blocked loops
+    "nms_padded": (
+        nms.nms_padded, detection_nms.nms_padded_plain,
+        "eventful_transformer_tpu_torch/csrc/nms.cu", NMS_REPLACES, ("indices", "mask"),
+    ),
 }
 # the row scatter and gather entries' (buffer, values, index, mask) keys
 ROWS_INPUTS = {
@@ -673,6 +684,110 @@ def plant_ties(d, name, count=4):
     d["ties"] = True
 
 
+def nms_inputs(n, max_out, iou_threshold, device="cpu", seed=0, case="random", dtype=None):
+    """Boxes (n, 4) and scores (n,) for row 22's checks, made on the CPU
+    from ``seed`` and moved to ``device``:
+
+    * "random": boxes in a few dozen clusters (IoUs above and below the
+      threshold), a tenth of the scores -inf, about a fifth of the rest
+      tied in pairs;
+    * "ties": every score one of 8 values;
+    * "threshold": pairs of boxes at IoU exactly the float32 threshold and
+      one float32 ulp either side;
+    * "chains": chains of 12 boxes, each overlapping the next above the
+      threshold and the one after below it, scores descending along the
+      chain (greedy keeps every other box; depth 12);
+    * "all_invalid": every score -inf;
+    * "few_valid": max_out // 2 valid boxes, the rest -inf.
+    """
+    g = torch.Generator().manual_seed(seed)
+    if case == "chains":
+        links = 12
+        chains = -(-n // links)
+        x0 = torch.arange(chains, dtype=torch.float32).repeat_interleave(links) * 400.0
+        step = torch.arange(links, dtype=torch.float32).repeat(chains)
+        # width 100, shift s: IoU (100 - s) / (100 + s); s = 10 -> 0.818, 20 -> 0.667
+        shift = 100.0 * (1 - iou_threshold) / (1 + iou_threshold) * 0.7
+        x1 = x0 + step * shift
+        boxes = torch.stack([x1, torch.zeros_like(x1), x1 + 100.0, torch.full_like(x1, 50.0)],
+                            1)[:n]
+        scores = 1.0 - torch.arange(n, dtype=torch.float32) / (2 * n)
+        return _nms_place(boxes, scores, device, dtype)
+    centers = torch.rand((max(n // 20, 1), 2), generator=g) * 800.0
+    which = torch.randint(0, centers.shape[0], (n,), generator=g)
+    ctr = centers[which] + torch.randn((n, 2), generator=g) * 6.0
+    size = 40.0 + torch.rand((n, 2), generator=g) * 60.0
+    boxes = torch.cat([ctr - size / 2, ctr + size / 2], 1)
+    scores = torch.rand(n, generator=g)
+    if case == "random":
+        pairs = torch.randperm(n, generator=g)[: n // 5]
+        scores[pairs[1::2]] = scores[pairs[0::2][: pairs[1::2].shape[0]]]
+        scores[torch.rand(n, generator=g) < 0.1] = -float("inf")
+    elif case == "ties":
+        scores = torch.randint(0, 8, (n,), generator=g).float() / 8
+    elif case == "threshold":
+        boxes, scores = _threshold_pairs(n, iou_threshold, g)
+    elif case == "all_invalid":
+        scores[:] = -float("inf")
+    elif case == "few_valid":
+        scores[torch.randperm(n, generator=g)[max_out // 2:]] = -float("inf")
+    else:
+        raise ValueError(f"unknown NMS case {case!r}")
+    return _nms_place(boxes, scores, device, dtype)
+
+
+def _threshold_pairs(n, t, g):
+    """Pairs of side by side boxes of height 1 with integer corners, whose
+    IoU p / q (every intermediate exact in float32, so the division rounds
+    the rational once) is the float32 threshold, or the float32 value one
+    ulp above or below it, in turns; each pair on a row of its own, scores
+    descending within a pair."""
+    fractions = _iou_fractions(t)
+    boxes = []
+    for i in range(-(-n // 2)):
+        p, q = fractions[i % 3]
+        y = 4.0 * i
+        # [0, p + 1] and [1, q]: inter p, union (p + 1) + (q - 1) - p = q
+        boxes.append([0.0, y, p + 1.0, y + 1])
+        boxes.append([1.0, y, float(q), y + 1])
+    boxes = torch.tensor(boxes[:n], dtype=torch.float32)
+    scores = torch.rand(n, generator=g).sort(descending=True).values
+    return boxes, scores
+
+
+def _iou_fractions(t):
+    """The simplest (p, q) whose rational lies strictly inside the rounding
+    interval of the float32 ``t``, of the float32 above it and of the one
+    below it, each checked through ``iou_matrix``."""
+    from fractions import Fraction
+
+    import numpy as np
+
+    def simplest(lo, hi):  # the simplest fraction in (lo, hi); hi None: infinity
+        whole = lo.numerator // lo.denominator
+        if hi is None or whole + 1 < hi:
+            return Fraction(whole + 1)
+        rest = lo - whole
+        return whole + 1 / simplest(1 / (hi - whole), 1 / rest if rest else None)
+
+    t32 = np.float32(t)
+    found = []
+    for target in (t32, np.nextafter(t32, np.float32(1)), np.nextafter(t32, np.float32(0))):
+        below, above = (Fraction(float(np.nextafter(target, np.float32(v)))) for v in (0, 1))
+        f = simplest((below + Fraction(float(target))) / 2, (Fraction(float(target)) + above) / 2)
+        p, q = f.numerator, f.denominator
+        pair = torch.tensor([[0.0, 0.0, p + 1.0, 1.0], [1.0, 0.0, float(q), 1.0]])
+        if iou_matrix(pair[1:], pair[:1]).item() != float(target):
+            raise ValueError(f"{p} / {q} does not give the IoU {target!r} in float32")
+        found.append((p, q))
+    return found
+
+
+def _nms_place(boxes, scores, device, dtype):
+    dtype = dtype or torch.float32
+    return boxes.to(device=device, dtype=dtype), scores.to(device=device, dtype=dtype)
+
+
 def call(name, d, plain=False):
     """Run kernel ``name`` (or its plain version) on clones of ``d``.
     Returns its outputs as a tuple of tensors; a group that selects its own
@@ -692,6 +807,9 @@ def call(name, d, plain=False):
 
 def _invoke(name, fn, d):
     name, d = resolve(name, d)
+    if name == "nms_padded":
+        return fn(d["nms_boxes"], d["nms_scores"], d["nms_threshold"], d["nms_max_out"],
+                  detection_nms.BLOCK)
     if name in TOPK:
         return _invoke_topk(name, fn, d, d.get("topk_cov"))
     if name.startswith("scatter_blend"):
@@ -909,7 +1027,7 @@ def compare_rounded(got, want):
 def comparison(name):
     """The comparison that holds entry ``name`` to its plain version."""
     name = THRESHOLD.get(name, (name,))[0]
-    if name.startswith(("scatter_", "gather_rows")):
+    if name.startswith(("scatter_", "gather_rows", "nms")):
         return compare_exact
     return compare_rounded if name in BF16_ROUNDED else compare
 
@@ -1184,9 +1302,58 @@ def bound(name, d):
     """(ms, "bytes" or "operations"): the least time the card could take
     for kernel ``name`` on ``d``, the larger of its bytes over the memory
     rate and its product operations over the peak rate of their type."""
-    by_bytes = io_bytes(name, d) / PEAK_BYTES * 1e3
-    by_ops = _matmul_ops(name, d) / PEAK_OPS[d["x"].dtype] * 1e3
+    if name == "nms_padded":
+        by_bytes = nms_bytes(d) / PEAK_BYTES * 1e3
+        by_ops = NMS_IOU_OPS * nms_ious(d) / PEAK_OPS[torch.float32] * 1e3
+    else:
+        by_bytes = io_bytes(name, d) / PEAK_BYTES * 1e3
+        by_ops = _matmul_ops(name, d) / PEAK_OPS[d["x"].dtype] * 1e3
     return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
+
+
+NMS_IOU_OPS = 15  # float32 steps an IoU: 2 max, 2 min, 2 sub, 2 clamps, mul, add, sub, div, compare
+
+
+def nms_bytes(d):
+    """Row 22's bytes on ``d``: the boxes and scores read once, the indices
+    and mask written once. The mask pass's suppression words are the
+    design's own traffic (``nms_word_bytes``), not the function's."""
+    boxes, scores = d["nms_boxes"], d["nms_scores"]
+    n, max_out = boxes.shape[0], d["nms_max_out"]
+    return (_nbytes(boxes) + _nbytes(scores) + 4 * nms.out_len(n, max_out, detection_nms.BLOCK)
+            + max_out)
+
+
+def nms_word_bytes(n):
+    """The bytes of suppression words ``csrc/nms.cu``'s mask pass writes for
+    n boxes: row i of the boxes in score order, a word for each chunk of 64
+    from its own on, 8 bytes each. A reading of the design, not part of
+    the bound."""
+    words = -(-n // nms.CHUNK)
+    return 8 * int((words - torch.arange(n) // nms.CHUNK).sum()) if n else 0
+
+
+def nms_ious(d):
+    """The IoUs a greedy walk needs on ``d`` at least, from the plain
+    version's result: each kept box against every box kept before it, each
+    valid box it suppresses against one of those, up to the last kept box
+    once ``max_out`` are kept (the walk stops there), else over all boxes."""
+    boxes, scores, max_out = d["nms_boxes"], d["nms_scores"], d["nms_max_out"]
+    n = boxes.shape[0]
+    if n == 0 or max_out == 0:
+        return 0
+    indices, mask = detection_nms.nms_padded_plain(boxes, scores, d["nms_threshold"], max_out)
+    order = torch.sort(-scores, stable=True).indices
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=order.device)
+    kept = torch.zeros(n, dtype=torch.long, device=order.device)
+    kept_pos = rank[indices[mask[: indices.shape[0]]].long()]
+    kept[kept_pos] = 1
+    stop = int(kept_pos.max()) + 1 if kept_pos.shape[0] == max_out else n
+    before = (kept.cumsum(0) - kept)[:stop]
+    valid = (scores[order] > -float("inf"))[:stop]
+    suppressed = valid & (kept[:stop] == 0)
+    return int((before * kept[:stop]).sum()) + int(suppressed.sum())
 
 
 def library_call(name, d):
@@ -1215,6 +1382,8 @@ def library_call(name, d):
     rows (the LN output of the selected rows in its "post" and "pre" forms);
     each without the row passes, the norms, the skip add and the scatter."""
     name, d = resolve(name, d)
+    if name == "nms_padded":
+        return None  # no finished NMS kernel on the card's machine (no torchvision)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     heads = d["heads"]
     if name == "dense_mlp_residual" or name.startswith("gate_group_mlp"):

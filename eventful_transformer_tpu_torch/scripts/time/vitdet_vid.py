@@ -12,11 +12,13 @@ run from the repo's root: ``<config>`` names a file of
 entry (the keywords of ``data/synthetic.py::SyntheticVID``), and resized
 to ``input_size`` (``VIDResize``); ``model.device=cpu`` runs on the CPU.
 The times go to ``<_output>/times.csv`` and ``output.txt``. The card is
-synchronised before each clock read. The backbone segment is the captured
-step on the card (``ViTDet.backbone_step``: one CUDA graph for the flush
-frame and one for the rest, as the JAX script jits its segments; a video's
-first frame also copies its fresh state into the step's static state);
-``pre_backbone`` and ``post_backbone`` run eagerly.
+synchronised before each clock read. On the card each segment is a
+captured step, as the JAX script jits its three: ``pre`` (``pre_backbone``,
+the frame and its content size in static buffers), ``mid``
+(``ViTDet.backbone_step``: one CUDA graph for the flush frame and one for
+the rest; a video's first frame also copies its fresh state into the
+step's static state) and ``post`` (``post_backbone``, the head with the
+NMS kernel of ``csrc/nms.cu``, which reads nothing back).
 """
 
 from pathlib import Path
@@ -24,14 +26,28 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from eventful_transformer_tpu_torch.core.counting import Ctx
 from eventful_transformer_tpu_torch.data.synthetic import SyntheticVID
 from eventful_transformer_tpu_torch.data.vid import VID, VIDResize
 from eventful_transformer_tpu_torch.models.vitdet import ViTDet
 from eventful_transformer_tpu_torch.utils.config import initialize_run
 from eventful_transformer_tpu_torch.utils.evaluate import run_evaluations
+from eventful_transformer_tpu_torch.utils.graphs import model_step
 from eventful_transformer_tpu_torch.utils.misc import MeanValue
 from eventful_transformer_tpu_torch.utils.timing import clock
+
+
+def segment_steps(model, graph=None):
+    """The three timed segments as steps (``utils/graphs.py::model_step``,
+    captured on the card unless ``graph=False``), counting nothing: ``pre``
+    (frame, content_hw) -> tokens, ``mid`` (state, tokens, mode=...) ->
+    (tokens, state) (``ViTDet.backbone_step``) and ``post`` (tokens) ->
+    detections."""
+    pre = model_step(model, model.pre_backbone, graph=graph, count_mode=False,
+                     name="vitdet pre step")
+    mid = model.backbone_step(graph=graph, count_mode=False)
+    post = model_step(model, model.post_backbone, graph=graph, count_mode=False,
+                      name="vitdet post step")
+    return pre, mid, post
 
 
 def evaluate_vitdet_runtime(model, data, config):
@@ -40,7 +56,7 @@ def evaluate_vitdet_runtime(model, data, config):
     frame; "other" is the pre- and post-backbone segments together."""
     c, in_h, in_w = model.input_shape
     p = next(model.parameters())
-    step = model.backbone_step(count_mode=False)
+    pre, step, post = segment_steps(model)
     backbone = MeanValue()
     backbone_non_first = MeanValue()
     other = MeanValue()
@@ -55,15 +71,15 @@ def evaluate_vitdet_runtime(model, data, config):
             frame = np.asarray(frame, np.float32)
             padded = np.zeros((1, c, in_h, in_w), np.float32)
             padded[0, :, : frame.shape[-2], : frame.shape[-1]] = frame
-            content_hw = tuple(frame.shape[-2:])
+            content_hw = torch.tensor(frame.shape[-2:], dtype=torch.int32).to(p.device)
             padded = torch.from_numpy(padded).to(device=p.device, dtype=p.dtype)
             with torch.no_grad():
                 t_0 = clock()
-                tokens = model.pre_backbone(Ctx(), padded, content_hw)
+                tokens, _ = pre(padded, content_hw)
                 t_1 = clock()
                 tokens, state, _ = step(state, tokens, mode="flush" if t == 0 else "incremental")
                 t_2 = clock()
-                model.post_backbone(Ctx(), tokens)
+                post(tokens)
                 t_3 = clock()
             t_backbone = t_2 - t_1
             t_other = (t_3 - t_2) + (t_1 - t_0)

@@ -10,9 +10,13 @@ The result is that of capacity = N whenever the last run is unsaturated or
 at the top of the ladder. A decay probe retries the next smaller capacity
 after ``decay_interval`` frames at one level.
 
-The port's kernels update the state in place, so each run that may be
-discarded runs on a copy of the state (:func:`clone_state`); a run at the
-top of the ladder is never discarded and runs on the state itself.
+The port's kernels update the state in place, and a captured step
+(``utils/graphs.py``) keeps the state in static tensors that the caller's
+state is: a run overwrites it. So before a run that may be discarded the
+state is copied into a backup set, allocated once for each shape of the
+state, and copied back before the rerun at the next capacity: one state
+copy a run below the top of the ladder. A run at the top is never
+discarded and takes no copy.
 """
 
 from __future__ import annotations
@@ -21,6 +25,29 @@ import torch
 
 from eventful_transformer_tpu_torch.core.policies import TokenNormThreshold
 from eventful_transformer_tpu_torch.utils.misc import set_policies
+
+
+def copy_state(dst, src):
+    """Copy every tensor leaf of ``src`` into the same leaf of ``dst`` (two
+    states of one structure) where they are not the same tensor."""
+    if isinstance(src, dict):
+        for key, value in src.items():
+            copy_state(dst[key], value)
+    elif isinstance(src, (list, tuple)):
+        for d, value in zip(dst, src):
+            copy_state(d, value)
+    elif isinstance(src, torch.Tensor) and dst.data_ptr() != src.data_ptr():
+        dst.copy_(src)
+
+
+def _signature(state):
+    if isinstance(state, dict):
+        return tuple((key, _signature(value)) for key, value in state.items())
+    if isinstance(state, (list, tuple)):
+        return tuple(_signature(value) for value in state)
+    if isinstance(state, torch.Tensor):
+        return (tuple(state.shape), state.dtype, state.device)
+    return None
 
 
 def clone_state(state):
@@ -53,6 +80,7 @@ class BucketedThresholdStep:
         self.capacities = sorted(capacities)
         self.decay_interval = decay_interval
         self._steps = {}
+        self._backups = {}  # state signature -> the backup state
         self._level = 0
         self._since_change = 0
         self.escalations = 0
@@ -71,14 +99,30 @@ class BucketedThresholdStep:
         self._level = 0
         self._since_change = 0
 
+    def _snapshot(self, state):
+        """``state`` copied into its backup set (allocated at the first
+        snapshot of its shape); returns the backup."""
+        key = _signature(state)
+        backup = self._backups.get(key)
+        if backup is None:
+            backup = self._backups[key] = clone_state(state)
+        else:
+            copy_state(backup, state)
+        return backup
+
     def __call__(self, state, *args):
         if self._level > 0 and self._since_change >= self.decay_interval:
             self._level -= 1
             self._since_change = 0
+        backup = None
         while True:
             step = self._step_for(self._level)
             at_top = self._level == len(self.capacities) - 1
-            out, new_state, counts = step(state if at_top else clone_state(state), *args)
+            if backup is not None:
+                copy_state(state, backup)  # the discarded run's writes undone
+            if not at_top:
+                backup = self._snapshot(state) if backup is None else backup
+            out, new_state, counts = step(state, *args)
             # Reading the counts is this frame's one host synchronisation
             # (core/counting.py::Ctx.counts): the escalation decision needs
             # policy_saturated on the host, as in the JAX package, after the

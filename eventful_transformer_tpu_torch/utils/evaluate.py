@@ -12,9 +12,10 @@ unless ``model.device`` names another device), loads the weights, and runs
 On the card the step builders capture their step as a CUDA graph
 (``utils/graphs.py``), as the JAX builders jit theirs: ViViT's whole
 ``apply_views`` (one graph per capacity of a bucketed threshold entry),
-ViTDet's backbone (one graph for the flush frame and one for the
-incremental frames, the head eager: its NMS reads the host). A policy
-change gives a new key, so one model still serves every entry.
+ViTDet's whole frame (``ViTDet.frame_step``: the preprocessing, the
+backbone and the head, one graph for the flush frame and one for the
+incremental frames, and per capacity of a bucketed threshold entry). A
+policy change gives a new key, so one model still serves every entry.
 ``graph=False`` gives the eager step; on a CPU model the step is eager and
 ``graph=True`` raises.
 
@@ -177,31 +178,35 @@ def vivit_metrics(results):
     return {"metrics": metrics, "counts": (total_counts / len(results)).nonzero()}
 
 
-def make_vitdet_step(model, graph=None):
+def make_vitdet_step(model, graph=None, keep_tokens=False):
     """(state, frame, content_hw, first) -> (detections, state, counts):
     frame 0 of a video flushes (``mode="flush"``), the rest run
     incrementally. On the card (``graph`` as in
-    ``utils/graphs.py::use_graph``) ``pre_backbone`` runs eagerly (cheap,
-    and ``content_hw`` varies by video), the backbone replays its graph
-    (``ViTDet.backbone_step``: the state it returns is the step's static
-    state, overwritten by the next frame), and ``post_backbone`` runs
-    eagerly (NMS reads the host). The backbone's graph step is the step's
+    ``utils/graphs.py::use_graph``) the whole frame replays its graph
+    (``ViTDet.frame_step``: the state it returns is the step's static
+    state, overwritten by the next frame); a call reads the host once, for
+    the counts. ``content_hw``: an int32 (2,) tensor on the model's device,
+    or (h, w), or None for a frame with no padding; a tuple or None is made
+    a tensor here, outside the graph. ``keep_tokens``: the detections dict
+    also holds the backbone's tokens. The frame step is the step's
     ``graph`` (None when eager)."""
-    aux = model.precompute()
-    backbone = model.backbone_step(aux, graph=graph)
+    frame_step = model.frame_step(graph=graph, keep_tokens=keep_tokens)
+    p = _parameter(model)
+    full = torch.tensor(model.input_shape[1:], dtype=torch.int32).to(p.device)
 
     @torch.no_grad()
     def step(state, frame, content_hw, first):
-        # the patch embedding and the head count nothing, as in the JAX package
-        tokens = model.pre_backbone(Ctx(), frame, content_hw)
-        tokens, state, counts = backbone(state, tokens, mode="flush" if first else "incremental")
-        return model.post_backbone(Ctx(), tokens), state, counts
+        if content_hw is None:
+            content_hw = full
+        elif not isinstance(content_hw, torch.Tensor):
+            content_hw = torch.tensor(tuple(content_hw), dtype=torch.int32).to(p.device)
+        return frame_step(state, frame, content_hw, mode="flush" if first else "incremental")
 
-    step.graph = backbone if isinstance(backbone, GraphStep) else None
+    step.graph = frame_step if isinstance(frame_step, GraphStep) else None
     return step
 
 
-def evaluate_vitdet_metrics(model, data, config, dispatchers=None):
+def evaluate_vitdet_metrics(model, data, config, dispatchers=None, graph=None):
     """COCO mAP over all frames and the mean counts per frame over a VID
     dataset; each video starts from a fresh state. Frames are padded on the
     host to the model's input shape and carry their content size, which the
@@ -209,30 +214,27 @@ def evaluate_vitdet_metrics(model, data, config, dispatchers=None):
     ``bucket_capacities`` dispatches each frame through
     ``BucketedThresholdStep``, which is appended to the list
     ``dispatchers`` where one is given (for its escalations and frames per
-    level)."""
-    step = make_vitdet_eval_step(model, config, dispatchers)
+    level). ``graph`` as in :func:`make_vitdet_step`."""
+    step = make_vitdet_eval_step(model, config, dispatchers, graph)
     n_items = min(config.get("n_items") or len(data), len(data))
     return vitdet_metrics(vitdet_item_results(model, data, range(n_items), step))
 
 
-def make_vitdet_eval_step(model, config, dispatchers=None):
+def make_vitdet_eval_step(model, config, dispatchers=None, graph=None):
     """The step of :func:`evaluate_vitdet_metrics`, with ``reset()`` to
     call at each video's start: the bucketed dispatch for a threshold entry
     with ``bucket_capacities`` (appended to ``dispatchers``), else
-    :func:`make_vitdet_step`'s."""
+    :func:`make_vitdet_step`'s; ``graph`` as there."""
     policy = _threshold_buckets(model, config)
     if policy is None:
-        step = make_vitdet_step(model)
+        step = make_vitdet_step(model, graph=graph)
         step.reset = lambda: None
         return step
-    # Eager: a frame's state crosses capacities (a run that escalates is
-    # discarded and its frame rerun from a copy of the state at the next
-    # capacity), so one set of static state tensors would not serve the
-    # ladder's graphs without a copy a run.
-    step = BucketedThresholdStep(
-        model, lambda _capacity=None: make_vitdet_step(model, graph=False), policy.threshold,
-        config["bucket_capacities"],
-    )
+    # one frame step for every capacity: on the card each capacity (in the
+    # step's key) gets its own graphs, and all share one static state
+    frame_step = make_vitdet_step(model, graph=graph)
+    step = BucketedThresholdStep(model, lambda _capacity=None: frame_step, policy.threshold,
+                                 config["bucket_capacities"])
     if dispatchers is not None:
         dispatchers.append(step)
     return step
@@ -256,7 +258,8 @@ def vitdet_item_results(model, data, indices, step):
             frame = np.asarray(frame, np.float32)
             padded = np.zeros((1, c, in_h, in_w), np.float32)
             padded[0, :, : frame.shape[-2], : frame.shape[-1]] = frame
-            content_hw = tuple(frame.shape[-2:])
+            # on the card before the step: a captured step takes CUDA tensors
+            content_hw = torch.tensor(frame.shape[-2:], dtype=torch.int32).to(p.device)
             padded = torch.from_numpy(padded).to(device=p.device, dtype=p.dtype)
             out, state, counts = step(state, padded, content_hw, t == 0)
             mask = out["mask"].cpu().numpy()

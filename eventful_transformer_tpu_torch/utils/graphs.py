@@ -81,7 +81,7 @@ COLLECTIVES = ("tp_group", "sequence_parallel", "norm_group")
 CLASS_SWITCHES = ("in_kernel_topk",)
 # the modules of ops/ whose wrappers count their launches
 COUNTING_OPS = ("attention", "av_softmax", "block_fused", "dense_mlp", "gate_block", "gate_fused",
-                "gate_group", "relpos", "scatter", "scatter_blend", "window_attention")
+                "gate_group", "nms", "relpos", "scatter", "scatter_blend", "window_attention")
 COUNTERS = ("form_launches", "body_launches", "core_launches", "row_body_launches")
 _PLAIN = (bool, int, float, str, type(None), torch.dtype)
 _PACKAGE = __name__.split(".")[0]

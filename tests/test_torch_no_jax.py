@@ -546,6 +546,50 @@ print("ok")
 """
 
 
+SLICE_29_SCRIPT = """
+import sys
+sys.modules["jax"] = None
+import torch
+torch.set_num_threads(2)
+from eventful_transformer_tpu_torch.detection import nms, roi_align
+from eventful_transformer_tpu_torch.models import ViTDet
+from eventful_transformer_tpu_torch.ops import kernel_check
+from eventful_transformer_tpu_torch.ops import nms as nms_kernel
+from eventful_transformer_tpu_torch.utils import graphs
+from eventful_transformer_tpu_torch.utils.bucketing import BucketedThresholdStep
+from eventful_transformer_tpu_torch.utils.evaluate import make_vitdet_step
+sys.path.insert(0, "tests")
+from torch_nms_contract import walk
+boxes, scores = kernel_check.nms_inputs(300, 50, 0.7, case="chains")
+walked = walk(boxes, scores, 0.7, 50)
+got = nms.nms_padded(boxes, scores, 0.7, 50)
+assert torch.equal(walked[0], got[0]) and torch.equal(walked[1], got[1])
+assert nms_kernel.nms_padded.launches == 0
+assert "nms_padded" in kernel_check.KERNELS and roi_align.level_tables
+block = dict(dim=32, heads=4, mlp_ratio=2, window_size=[2, 2], relative_embedding_size=[4, 4])
+model = ViTDet(
+    backbone_config=dict(depth=2, position_encoding_size=[4, 4], window_indices=[0],
+                         block_config=block),
+    classes=5, input_shape=[3, 64, 64], normalize_mean=[0.0] * 3, normalize_std=[1.0] * 3,
+    output_channels=16, patch_size=[16, 16], scale_factors=[4.0, 2.0, 1.0, 0.5],
+    rpn_config=dict(pre_nms_topk=50, post_nms_topk=20), roi_config=dict(test_topk_per_image=10),
+    device="cpu",
+)
+frame = torch.rand((1, 3, 64, 64), generator=torch.Generator().manual_seed(0))
+hw = torch.tensor([56, 60], dtype=torch.int32)
+static = graphs.GraphStep(model, model.frame_run(model.precompute()), stateful=True,
+                          capture=False)
+with torch.no_grad():
+    a, _, _ = static(model.init_state(1), frame, hw, mode="flush")
+b, _, _ = make_vitdet_step(model)(model.init_state(1), frame, (56, 60), True)
+assert all(torch.equal(a[k], b[k]) for k in a) and set(a) == {"boxes", "scores", "labels", "mask"}
+assert BucketedThresholdStep
+assert not any(name == "jax" or name.startswith(("jax.", "eventful_transformer_tpu."))
+               for name, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+
+
 def _run(script):
     result = subprocess.run(
         [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
@@ -648,3 +692,10 @@ def test_slice_26_runs_without_jax():
     ``--device cpu``), the norms that TP all-reduces and the backend rule,
     without JAX."""
     _run(SLICE_26_SCRIPT)
+
+
+def test_slice_29_runs_without_jax():
+    """NMS's plain route on the CPU against the kernel's contract
+    (``tests/torch_nms_contract.py``, no launch), the cached ROIAlign tables, the whole-frame step's body through the
+    static-buffer step and ``make_vitdet_step``, without JAX."""
+    _run(SLICE_29_SCRIPT)
