@@ -439,13 +439,14 @@ Phases, one JSON line each, with the seconds the phase took:
                      and one ulp either side, chains 12 deep, all -inf,
                      fewer valid than max_out) at those shapes and at 900
                      boxes: indices and mask equal to the plain version's,
-                     ms of both, device microseconds a call and of each of
-                     the two kernels, the bound (the larger of the bytes
-                     of boxes, scores, indices and mask and 15 float32
-                     steps for each IoU the greedy walk needs), and the
-                     bytes of the mask pass's words (the design's own
-                     traffic, outside the bound); 12 itself counts 2
-                     launches a frame and 0 NMS host reads.
+                     ms of both, device microseconds a call and of its one
+                     kernel, the kernels a call as the profiler names them
+                     (1), the bound (the larger of the bytes of boxes,
+                     scores, indices and mask and 15 float32 steps for each
+                     IoU the greedy walk needs), and the kernel's shared
+                     memory and scratch bytes (the design's own, outside
+                     the bound); 12 itself counts 2 launches a frame and 0
+                     NMS host reads.
   44. graph_paths:   each captured step against its eager step (graph_sides:
                      eager, graph, graph, eager; outputs, final state,
                      counts and launches bit for bit; ms, busy share, peak
@@ -2109,7 +2110,6 @@ def phase_vitdet_e2e(device, smi, rows):
 # (the plain version's fixpoint form).
 NMS_CASES = ("random", "ties", "threshold", "chains", "all_invalid", "few_valid")
 NMS_CASE_SHAPES = ((4096, 300, 0.7), (4096, 100, 0.5), (900, 64, 0.5))
-NMS_KERNELS = ("nms_mask_kernel", "nms_walk_kernel")
 
 
 def recorded_nms_inputs(model, frame):
@@ -2132,39 +2132,17 @@ def recorded_nms_inputs(model, frame):
     return seen
 
 
-def kernel_us(fn, names, calls=20):
-    """Device microseconds a ``fn()`` call of each kernel in ``names`` (by
-    the function name the profiler gives it) and of all its device work."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    by = {name: 0.0 for name in names}
-    total = 0.0
-    for e in prof.events():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        total += e.time_range.elapsed_us()
-        for name in names:
-            if name in e.name:
-                by[name] += e.time_range.elapsed_us()
-    return {name: us / calls for name, us in by.items()}, total / calls
-
-
 def phase_nms_kernel(device, smi, model, frames, launches):
     """Phase nms_kernel: row 22 on the inputs the e2e model's flush frame
     gives its two NMS calls, and on the contract cases: the kernel against
     its plain version index for index, the masked slots included (exact;
     kernel_check.errors), ms of both, the device microseconds of a call
-    (the sort, the gathers and the two kernels) and of each kernel, the
+    and of each kernel by name with the device launches a call
+    (kernel_check.device_us_by_kernel; kernels_a_call: 1), the
     bound (kernel_check.bound: the function's bytes, kernel_check.nms_bytes,
     against its IoUs' float32 steps, kernel_check.nms_ious), and beside the
-    device times the bytes of the mask pass's words (word_bytes,
-    kernel_check.nms_word_bytes: this design's traffic, not the
+    device times the kernel's shared memory and scratch (smem_bytes,
+    scratch_bytes, kernel_check.nms_design_bytes: this design's, not the
     function's). Returns the final line's rows, with the launches of the
     e2e counted run."""
     from eventful_transformer_tpu_torch.detection.nms import BLOCK
@@ -2180,8 +2158,12 @@ def phase_nms_kernel(device, smi, model, frames, launches):
         if not all(o["ok"] for o in outputs):
             raise AssertionError(f"nms_kernel {tag}: {outputs}")
         bound_ms, bound_by = kernel_check.bound("nms_padded", d)
-        by_kernel, call_us = kernel_us(
-            lambda: wrapper(boxes, scores, threshold, max_out, BLOCK), NMS_KERNELS)
+        by = kernel_check.device_us_by_kernel(
+            lambda: wrapper(boxes, scores, threshold, max_out, BLOCK))
+        a_call = sum(n for n, _ in by.values())
+        if a_call > 2:
+            raise AssertionError(f"nms_kernel {tag}: {a_call} device launches a call, at most 2")
+        smem_bytes, scratch_bytes = kernel_check.nms_design_bytes(d)
         kept = int(wrapper(boxes, scores, threshold, max_out, BLOCK)[1].sum())
         rows.append(dict(
             tag=tag, batch=1, n=boxes.shape[0], max_out=max_out, threshold=threshold,
@@ -2189,9 +2171,10 @@ def phase_nms_kernel(device, smi, model, frames, launches):
             scores_dtype=str(scores.dtype).split(".")[-1], kept=kept, outputs=outputs,
             ms=kernel_check.time_ms("nms_padded", d),
             plain_ms=kernel_check.time_ms("nms_padded", d, plain=True),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None, device_us=call_us,
-            device_us_by=by_kernel, ious=kernel_check.nms_ious(d),
-            word_bytes=kernel_check.nms_word_bytes(boxes.shape[0])))
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            device_us=sum(us for _, us in by.values()),
+            device_us_by={name: us for name, (_, us) in by.items()}, kernels_a_call=a_call,
+            ious=kernel_check.nms_ious(d), smem_bytes=smem_bytes, scratch_bytes=scratch_bytes))
     cases = []
     for case in NMS_CASES:
         for n, max_out, threshold in NMS_CASE_SHAPES:

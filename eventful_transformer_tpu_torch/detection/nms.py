@@ -12,8 +12,9 @@ equals the JAX function's index for index, the masked slots included:
   JAX package's exact early exit: later keeps are unobservable).
 
 :func:`nms_padded` routes by the tensors' device: CUDA tensors go to the
-kernel pair of ``csrc/nms.cu`` (``ops/nms.py::nms_padded``), which walks
-the boxes on the card and reads nothing back, so a captured frame holds it.
+kernel of ``csrc/nms.cu`` (``ops/nms.py::nms_padded``), which orders and
+walks the boxes on the card in one launch and reads nothing back, so a
+captured frame holds it.
 CPU tensors take the plain version, :func:`nms_padded_plain`, whose loops
 are data-dependent: each convergence check reads one small tensor back to
 the host (a device synchronisation): the fixpoint runs ``_FIXPOINT_STEPS``

@@ -70,7 +70,7 @@ SIGNATURES = {
     "etk_window_attention_grid": [_I, _I] + [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P],
     "etk_gemm_tc": [_P] * 5 + [_I] * 5 + [_P],
     "etk_gemm_simt": [_P] * 4 + [_I] * 4 + [_P],
-    "etk_nms": [_P] * 4 + [_I, _F, _I, _I, _I] + [_P] * 3,
+    "etk_nms": [_P, _I, _P, _I, _I, _F, _I, _I, _I] + [_P] * 4,
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

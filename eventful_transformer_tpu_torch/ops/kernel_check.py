@@ -287,9 +287,10 @@ KERNELS = {
                "eventful_transformer_tpu_torch/csrc/window_attention.cu", f"{_WA}:348", ("out",))
         for name in ("window_attention_grid", "window_attention_grid_noterms")
     },
-    # row 22, greedy NMS with no host read: no Pallas counterpart, the JAX
-    # package runs it in XLA (two lax.while_loops); its plain version is the
-    # port's fixpoint and blocked loops
+    # row 22, greedy NMS with no host read, one launch (the order, the
+    # walk over a kept set in shared memory, the padded slots): no Pallas
+    # counterpart, the JAX package runs it in XLA (two lax.while_loops); its
+    # plain version is the port's fixpoint and blocked loops
     "nms_padded": (
         nms.nms_padded, detection_nms.nms_padded_plain,
         "eventful_transformer_tpu_torch/csrc/nms.cu", NMS_REPLACES, ("indices", "mask"),
@@ -698,7 +699,11 @@ def nms_inputs(n, max_out, iou_threshold, device="cpu", seed=0, case="random", d
       threshold and the one after below it, scores descending along the
       chain (greedy keeps every other box; depth 12);
     * "all_invalid": every score -inf;
-    * "few_valid": max_out // 2 valid boxes, the rest -inf.
+    * "few_valid": max_out // 2 valid boxes, the rest -inf;
+    * "sorted": "random" in descending score order, as ``batched_nms``'s
+      stable top-k hands the boxes over (the kernel's in-order path);
+    * "signed_zeros": every score one of +0.0, -0.0, 0.25, -0.25 and -inf
+      (the order must take -0.0 == +0.0, ties by index).
     """
     g = torch.Generator().manual_seed(seed)
     if case == "chains":
@@ -719,10 +724,16 @@ def nms_inputs(n, max_out, iou_threshold, device="cpu", seed=0, case="random", d
     size = 40.0 + torch.rand((n, 2), generator=g) * 60.0
     boxes = torch.cat([ctr - size / 2, ctr + size / 2], 1)
     scores = torch.rand(n, generator=g)
-    if case == "random":
+    if case in ("random", "sorted"):
         pairs = torch.randperm(n, generator=g)[: n // 5]
         scores[pairs[1::2]] = scores[pairs[0::2][: pairs[1::2].shape[0]]]
         scores[torch.rand(n, generator=g) < 0.1] = -float("inf")
+        if case == "sorted":
+            order = torch.sort(scores, descending=True, stable=True).indices
+            boxes, scores = boxes[order], scores[order]
+    elif case == "signed_zeros":
+        values = torch.tensor([0.0, -0.0, 0.25, -0.25, -float("inf")])
+        scores = values[torch.randint(0, 5, (n,), generator=g)]
     elif case == "ties":
         scores = torch.randint(0, 8, (n,), generator=g).float() / 8
     elif case == "threshold":
@@ -1316,21 +1327,20 @@ NMS_IOU_OPS = 15  # float32 steps an IoU: 2 max, 2 min, 2 sub, 2 clamps, mul, ad
 
 def nms_bytes(d):
     """Row 22's bytes on ``d``: the boxes and scores read once, the indices
-    and mask written once. The mask pass's suppression words are the
-    design's own traffic (``nms_word_bytes``), not the function's."""
+    and mask written once. The kernel's shared memory and scratch
+    (``nms_design_bytes``) are the design's own, not the function's."""
     boxes, scores = d["nms_boxes"], d["nms_scores"]
     n, max_out = boxes.shape[0], d["nms_max_out"]
     return (_nbytes(boxes) + _nbytes(scores) + 4 * nms.out_len(n, max_out, detection_nms.BLOCK)
             + max_out)
 
 
-def nms_word_bytes(n):
-    """The bytes of suppression words ``csrc/nms.cu``'s mask pass writes for
-    n boxes: row i of the boxes in score order, a word for each chunk of 64
-    from its own on, 8 bytes each. A reading of the design, not part of
-    the bound."""
-    words = -(-n // nms.CHUNK)
-    return 8 * int((words - torch.arange(n) // nms.CHUNK).sum()) if n else 0
+def nms_design_bytes(d):
+    """(shared memory, device scratch) bytes of ``csrc/nms.cu`` on ``d``:
+    the kept set and the sort's keys, and the keys where they do not fit
+    shared memory. A reading of the design, not part of the bound."""
+    n, max_out = d["nms_boxes"].shape[0], d["nms_max_out"]
+    return nms.smem_bytes(n, max_out), nms.scratch_bytes(n, max_out)
 
 
 def nms_ious(d):
@@ -1596,13 +1606,19 @@ ROW_PASS_KERNELS = {
 
 def device_us(fn, calls=20):
     """(device microseconds of one ``fn()`` call, {kernel: launches a
-    call}) under ``torch.profiler`` over ``calls`` calls, each kernel by its
-    name cut to the function's own (``void etk::gather_rows_kernel(...)`` ->
+    call}) from :func:`device_us_by_kernel`, the kernels' times summed."""
+    by = device_us_by_kernel(fn, calls)
+    return sum(us for _, us in by.values()), {short: n for short, (n, _) in by.items()}
+
+
+def device_us_by_kernel(fn, calls=20):
+    """{kernel: (launches a call, device microseconds a call)} of ``fn()``
+    under ``torch.profiler`` over ``calls`` calls, each kernel by its name
+    cut to the function's own (``void etk::gather_rows_kernel(...)`` ->
     ``gather_rows_kernel``): its launches a call, its events' count over
     the calls rounded (the profiler may drop an event of the first or last
-    call), and its mean time an event times those launches, summed. A
-    trace that caught no device event at all is taken again, twice at
-    most."""
+    call), and its mean time an event times those launches. A trace that
+    caught no device event at all is taken again, twice at most."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1623,8 +1639,8 @@ def device_us(fn, calls=20):
         if kernels:
             break
     launches = {short: round(count / calls) for short, (count, _) in kernels.items()}
-    us = sum(t / count * launches[short] for short, (count, t) in kernels.items())
-    return us, {short: n for short, n in launches.items() if n}
+    return {short: (launches[short], t / count * launches[short])
+            for short, (count, t) in kernels.items() if launches[short]}
 
 
 def queued_device_us(fn, calls=20, sleep_cycles=20_000_000):

@@ -10,6 +10,7 @@ yardstick), with the host microseconds of one call.
         [--row11] [--case=TAG ...] [--entry=NAME ...]
     python3 scripts/misc/time_attention_bodies.py [ROOT] --f32 [--simt-tiles]
         [--outputs=FILE] [--case=TAG ...] [--entry=NAME ...]
+    python3 scripts/misc/time_attention_bodies.py [ROOT] --nms [--nms-inputs=FILE]
 
 Imports ``eventful_transformer_tpu_torch`` from ROOT (the checkout this
 script lies in by default), so that two versions of the package, each in a
@@ -120,6 +121,13 @@ compares the outputs of each float32 entry on the same inputs across two
 versions: the first run that names FILE writes them there, every later one
 prints, for each entry, whether its outputs equal them bit for bit and
 their largest difference; run it on the parent and the checkout in turns.
+``--nms`` times row 22 (``nms_padded``, greedy NMS) instead
+(:func:`nms_main`): on the two calls the e2e eventful model's flush frame
+makes (the RPN's 4096 -> 300 at IoU 0.7, the ROI heads' 4096 -> 100 at
+0.5; ``--nms-inputs=FILE`` keeps them in FILE so that the parent and the
+change take the same tensors) and on out-of-order contract inputs at the
+same shapes, each with its device microseconds split by kernel and its
+launches a call.
 Needs a CUDA device.
 """
 
@@ -639,6 +647,94 @@ def f32_main(device):
         print("f32 outputs written to", saved_path, flush=True)
 
 
+# row 22's inputs beside the recorded ones: (tag, n, max_out, threshold, case,
+# whether put in score order here) of kernel_check.nms_inputs at the RPN's
+# and ROI heads' shapes: the sort path, and "sorted_rpn", sort_rpn's boxes
+# and scores in score order (the stable descending sort batched_nms hands
+# over), which every version's cases can make
+NMS_CASES = [("sort_rpn", 4096, 300, 0.7, "random", False),
+             ("sorted_rpn", 4096, 300, 0.7, "random", True),
+             ("sort_roi", 4096, 100, 0.5, "random", False),
+             ("ties_rpn", 4096, 300, 0.7, "ties", False),
+             ("chains_rpn", 4096, 300, 0.7, "chains", False)]
+
+
+def nms_inputs(device):
+    """[(tag, boxes, scores, threshold, max_out)]: the two NMS calls of the
+    e2e eventful model's flush frame (ViTDet-B 672, bf16, ROOT's
+    ``chip_smoke.e2e_model`` and ``recorded_nms_inputs``; with
+    ``--nms-inputs=FILE`` read from FILE where it exists, else recorded and
+    written there, so that two versions take the same tensors), then
+    NMS_CASES."""
+    path = next((a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--nms-inputs=")),
+                None)
+    if path and Path(path).exists():
+        recorded = torch.load(path)
+    else:
+        import chip_smoke
+
+        model = chip_smoke.e2e_model(True, device, torch.bfloat16)
+        frames = chip_smoke.vitdet_frames(chip_smoke.E2E_FRAMES + 1, 1, device, torch.bfloat16,
+                                          chip_smoke.E2E_SIZE)
+        recorded = [(b.cpu(), s.cpu(), t, m)
+                    for b, s, t, m in chip_smoke.recorded_nms_inputs(model, frames[0])]
+        del model, frames
+        if path:
+            Path(path).parent.mkdir(parents=True, exist_ok=True)
+            torch.save(recorded, path)
+    out = [(tag, b.to(device), s.to(device), t, m)
+           for tag, (b, s, t, m) in zip(("rpn", "roi"), recorded)]
+    for tag, n, max_out, t, case, in_order in NMS_CASES:
+        b, s = kernel_check.nms_inputs(n, max_out, t, device, seed=n + max_out, case=case)
+        if in_order:
+            order = torch.sort(s, descending=True, stable=True).indices
+            b, s = b[order].contiguous(), s[order].contiguous()
+        out.append((tag, b, s, t, max_out))
+    return out
+
+
+def nms_main(device):
+    """``--nms``: row 22 (``ops/nms.py::nms_padded``) on :func:`nms_inputs`,
+    each call checked against the plain version index for index, with its
+    ms (CUDA events over ITERS calls, the median of ROUNDS), host
+    microseconds, device microseconds (torch.profiler over 20 calls; each
+    kernel's events over the calls rounded to its launches a call, times
+    its mean event time, since the profiler may drop an event), the
+    kernels a call by name with their launches and device microseconds, the
+    bound (``kernel_check.bound``) and its share, the plain version's ms,
+    the design's bytes where the version reports them, and the kept count."""
+    from eventful_transformer_tpu_torch.detection.nms import BLOCK
+
+    wrapper = kernel_check.KERNELS["nms_padded"][0]
+    for tag, boxes, scores, t, max_out in nms_inputs(device):
+        d = dict(nms_boxes=boxes, nms_scores=scores, nms_threshold=t, nms_max_out=max_out)
+        ok = all(row["ok"] for row in kernel_check.errors("nms_padded", d))
+
+        def call():
+            return wrapper(boxes, scores, t, max_out, BLOCK)
+
+        ms = statistics.median(kernel_check.time_call(call, ITERS) for _ in range(ROUNDS))
+        us = statistics.median(host_us(call) for _ in range(ROUNDS))
+        _, kernels = device_us(call)
+        kernels = {k: (round(n), v / n * round(n)) for k, (n, v) in kernels.items() if round(n)}
+        dev_us = sum(v for _, v in kernels.values())
+        bound_ms, bound_by = kernel_check.bound("nms_padded", d)
+        design = {}
+        if hasattr(kernel_check, "nms_design_bytes"):
+            design["smem_bytes"], design["scratch_bytes"] = kernel_check.nms_design_bytes(d)
+        elif hasattr(kernel_check, "nms_word_bytes"):
+            design["word_bytes"] = kernel_check.nms_word_bytes(boxes.shape[0])
+        print("nms", tag, "n", boxes.shape[0], "max_out", max_out, "threshold", t,
+              "scores", str(scores.dtype).split(".")[-1], "kept", int(call()[1].sum()),
+              "ms", round(ms, 4), "host_us", round(us, 2), "device_us", round(dev_us, 2),
+              "launches", round(sum(n for n, _ in kernels.values()), 2),
+              "kernels", {k: [round(n, 2), round(v, 2)] for k, (n, v) in kernels.items()},
+              "bound_us", round(bound_ms * 1e3, 5), "bound_by", bound_by,
+              "bound_share", round(bound_ms * 1e3 / dev_us, 6) if dev_us else None,
+              "plain_ms", round(kernel_check.time_ms("nms_padded", d, plain=True), 4),
+              *(v for item in design.items() for v in item), "equal", ok, flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("time_attention_bodies: needs a CUDA device")
@@ -659,6 +755,10 @@ def main():
                                for line in ptxas_lines(log, needle)])
     print("ptxas row scatter", ptxas_lines(log, "scatter_rows"))
     device = torch.device("cuda")
+    if "--nms" in sys.argv:
+        print("ptxas nms", ptxas_lines(log, "nms"))
+        nms_main(device)
+        return
     if "--f32" in sys.argv:
         print("ptxas f32 bodies", ptxas_lines(log, "gemm_simt") + ptxas_lines(log, "av_simt"))
         f32_main(device)

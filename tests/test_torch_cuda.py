@@ -2583,9 +2583,32 @@ def test_graph_capture_meeting_a_host_sync_raises(device, monkeypatch):
 
 # -- row 22: NMS on the card (csrc/nms.cu) -------------------------------------------------
 
-NMS_CASES = ["random", "ties", "threshold", "chains", "all_invalid", "few_valid"]
+NMS_CASES = ["random", "ties", "threshold", "chains", "all_invalid", "few_valid", "sorted",
+             "signed_zeros"]
 NMS_SHAPES = [(900, 64, 0.5), (900, 1000, 0.7), (4096, 100, 0.5), (4096, 300, 0.7),
               (4096, 1000, 0.7), (5, 3, 0.7), (70, 100, 0.5), (1025, 300, 0.7)]
+
+
+def _nms_check(boxes, scores, threshold, max_out):
+    """The kernel through ``detection/nms.py::nms_padded`` against the plain
+    version and the Python model of its design (``torch_nms_contract.walk``),
+    index for index, the masked slots included: one launch a call, no host
+    read. Returns the model's stats."""
+    from eventful_transformer_tpu_torch.detection import nms
+    from eventful_transformer_tpu_torch.ops import nms as nms_kernel
+    from torch_nms_contract import walk
+
+    launches, syncs = nms_kernel.nms_padded.launches, nms.host_syncs
+    got = nms.nms_padded(boxes, scores, threshold, max_out)
+    assert (nms_kernel.nms_padded.launches, nms.host_syncs) == (launches + 1, syncs)
+    want = nms.nms_padded_plain(boxes, scores, threshold, max_out)
+    walk_idx, walk_mask, count, stats = walk(boxes.cpu(), scores.cpu(), threshold, max_out)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and torch.equal(a, w), (a, w)
+    assert torch.equal(got[0].cpu(), walk_idx) and torch.equal(got[1].cpu(), walk_mask)
+    assert int(got[1].sum()) == count
+    return stats
 
 
 @pytest.mark.parametrize("case", NMS_CASES)
@@ -2593,25 +2616,50 @@ NMS_SHAPES = [(900, 64, 0.5), (900, 1000, 0.7), (4096, 100, 0.5), (4096, 300, 0.
                          ids=lambda v: str(v) if not isinstance(v, float) else f"t{v}")
 def test_nms_kernel_matches_plain(n, max_out, threshold, case, device):
     """The kernel against the plain version (the fixpoint form below 1025
-    boxes, the blocked form above) and the Python walk of its contract,
+    boxes, the blocked form above) and the Python model of its design,
     index for index, the masked slots included; one launch a call, no host
-    read."""
-    from eventful_transformer_tpu_torch.detection import nms
-    from eventful_transformer_tpu_torch.ops import nms as nms_kernel
-    from torch_nms_contract import walk
-
+    read. "sorted" takes the in-order path, the others the sort."""
     boxes, scores = kernel_check.nms_inputs(n, max_out, threshold, device, seed=n + max_out,
                                             case=case)
-    launches, syncs = nms_kernel.nms_padded.launches, nms.host_syncs
-    got = nms.nms_padded(boxes, scores, threshold, max_out)
-    assert (nms_kernel.nms_padded.launches, nms.host_syncs) == (launches + 1, syncs)
-    want = nms.nms_padded_plain(boxes, scores, threshold, max_out)
-    walk_idx, walk_mask, count = walk(boxes.cpu(), scores.cpu(), threshold, max_out)
-    torch.cuda.synchronize()
-    for a, w in zip(got, want):
-        assert a.dtype == w.dtype and torch.equal(a, w), (a, w)
-    assert torch.equal(got[0].cpu(), walk_idx) and torch.equal(got[1].cpu(), walk_mask)
-    assert int(got[1].sum()) == count
+    stats = _nms_check(boxes, scores, threshold, max_out)
+    if case == "sorted":
+        assert stats["in_order"]
+
+
+@pytest.mark.parametrize("case", ["ties", "sorted", "signed_zeros", "random"])
+@pytest.mark.parametrize("n,max_out,threshold", [(900, 64, 0.5), (4096, 300, 0.7),
+                                                 (4096, 1000, 0.7)],
+                         ids=lambda v: str(v) if not isinstance(v, float) else f"t{v}")
+def test_nms_kernel_bf16_scores(n, max_out, threshold, case, device):
+    """bfloat16 scores (ties on every few boxes, +-0.0, in order and out of
+    order) with float32 boxes, as the heads hand them over: the kernel
+    equal to the plain version and the model, one launch a call."""
+    boxes, scores = kernel_check.nms_inputs(n, max_out, threshold, device, seed=n + max_out,
+                                            case=case)
+    _nms_check(boxes, scores.bfloat16(), threshold, max_out)
+
+
+def test_nms_kernel_keys_in_scratch(device):
+    """Past the shared-memory budget the sort's keys go to a device scratch:
+    20000 boxes out of order (32768 keys), equal to the plain version."""
+    from eventful_transformer_tpu_torch.ops import nms as nms_kernel
+
+    assert nms_kernel.scratch_bytes(20000, 300) == 8 * 32768
+    boxes, scores = kernel_check.nms_inputs(20000, 300, 0.7, device, seed=11)
+    assert not _nms_check(boxes, scores, 0.7, 300)["in_order"]
+
+
+def test_nms_kernel_one_launch_under_the_profiler(device):
+    """One call is one kernel on the card, on the sort path and the in-order
+    path alike: the profiler sees ``nms_kernel`` once a call and nothing
+    else (``kernel_check.device_us``, which takes a trace again where the
+    profiler caught no device event)."""
+    from eventful_transformer_tpu_torch.detection import nms
+
+    for case in ("random", "sorted"):
+        boxes, scores = kernel_check.nms_inputs(4096, 300, 0.7, device, seed=1, case=case)
+        us, kernels = kernel_check.device_us(lambda: nms.nms_padded(boxes, scores, 0.7, 300))
+        assert kernels == {"nms_kernel": 1} and us > 0, (case, kernels)
 
 
 def test_nms_kernel_in_batched_nms_and_bf16(device):
